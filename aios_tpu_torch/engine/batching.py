@@ -1,0 +1,339 @@
+"""Continuous batching: many concurrent requests over one decode loop.
+
+The port of the main-path behaviour of ``aios_tpu/engine/batching.py``. A
+single scheduler thread assigns each waiting request a slot (highest
+effective priority first, with queue age as a tie-breaking boost), prefills
+its whole prompt, and advances every active slot together in dispatches of
+``CHUNK_STEPS`` tokens — ``ADMIT_CHUNK_STEPS`` while others wait, so
+admission latency stays low. Requests retire on a stop token, on
+``max_tokens`` or at the cache end; cancelled ones free their slot at the
+next scheduler boundary. When the page pool cannot back a dispatch or an
+admission, the lowest-priority longest request is evicted (its stream ends
+as an abort) and the work retries.
+
+Not here yet: chunked admission (every prompt takes whole-prompt prefill,
+as the JAX batcher does when the engine cannot honour a chunk size),
+the pipelined decode loop, constrained decoding and speculation.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .engine import TorchEngine
+from .paged import PoolExhausted
+
+log = logging.getLogger("aios.torch.batcher")
+
+_END = object()
+
+# Queued requests gain +1 effective priority per this many seconds waiting,
+# bounding starvation under sustained higher-priority traffic.
+PRIORITY_AGING_SECS = 5.0
+
+# Decode steps per dispatch, and while requests wait for admission (the JAX
+# batcher's chunk_steps / admit_chunk_steps defaults).
+CHUNK_STEPS = 16
+ADMIT_CHUNK_STEPS = 2
+
+
+@dataclass
+class Request:
+    prompt_ids: List[int]
+    max_tokens: int = 256
+    temperature: float = 0.7
+    top_p: float = 0.95
+    stop_ids: Tuple[int, ...] = ()
+    request_id: str = ""
+    # admission priority: higher admits first when slots are contended
+    priority: int = 0
+
+
+@dataclass
+class _Live:
+    req: Request
+    slot: int
+    produced: int = 0
+    out_q: "queue.Queue" = field(default_factory=queue.Queue)
+    first_token_at: float = 0.0
+    submitted_at: float = 0.0
+    done: bool = False
+    cancelled: bool = False
+    # non-empty when the request was ABORTED (eviction, scheduler failure,
+    # unload) rather than finished or cancelled
+    abort_reason: str = ""
+
+
+class RequestHandle:
+    """Caller-side view of an in-flight request (blocking token iterator)."""
+
+    def __init__(self, live: _Live, batcher: "ContinuousBatcher"):
+        self._live = live
+        self._batcher = batcher
+
+    def __iter__(self):
+        while True:
+            item = self._live.out_q.get()
+            if item is _END:
+                return
+            yield item
+
+    def tokens(self) -> List[int]:
+        return list(self)
+
+    def cancel(self) -> None:
+        """Abort this request: its slot and pages free at the scheduler's
+        next boundary and the iterator ends. Idempotent."""
+        self._live.cancelled = True
+        self._batcher._wake.set()
+
+    @property
+    def aborted(self) -> bool:
+        """True when the stream ended by abort: the tokens are a truncation."""
+        return bool(self._live.abort_reason)
+
+    @property
+    def abort_reason(self) -> str:
+        return self._live.abort_reason
+
+    @property
+    def ttft_ms(self) -> float:
+        if not self._live.first_token_at:
+            return 0.0
+        return (self._live.first_token_at - self._live.submitted_at) * 1000.0
+
+
+class ContinuousBatcher:
+    """Background scheduler marrying a request queue to engine slots."""
+
+    def __init__(self, engine: TorchEngine) -> None:
+        self.engine = engine
+        self.pool_evictions = 0
+        self.cancellations = 0
+        self.completed = 0
+        self.tokens_emitted = 0
+        self.last_error: Optional[BaseException] = None
+        self._closed = False
+        self._waiting: "deque[_Live]" = deque()  # guarded by _qlock
+        self._qlock = threading.Lock()
+        self._live: Dict[int, _Live] = {}  # guarded by _lock
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._stop = False
+        self._ids = itertools.count()
+        self._thread = threading.Thread(
+            target=self._run, name="continuous-batcher", daemon=True
+        )
+        self._thread.start()
+
+    # -- public API -------------------------------------------------------------
+
+    def queue_depth(self) -> int:
+        with self._qlock:
+            return len(self._waiting)
+
+    def submit(self, req: Request) -> RequestHandle:
+        if not req.prompt_ids:
+            # fail on the caller's thread: a scheduler-thread exception would
+            # strand every waiter
+            raise ValueError("empty prompt")
+        if not req.request_id:
+            req.request_id = f"req-{next(self._ids)}"
+        live = _Live(req=req, slot=-1, submitted_at=time.monotonic())
+        with self._qlock:
+            if self._closed:
+                raise RuntimeError("batcher is shut down")
+            self._waiting.append(live)
+        self._wake.set()
+        return RequestHandle(live, self)
+
+    def generate(self, prompt_ids: Sequence[int], **kw) -> List[int]:
+        return self.submit(Request(prompt_ids=list(prompt_ids), **kw)).tokens()
+
+    def shutdown(self) -> None:
+        with self._qlock:
+            self._closed = True
+        self._stop = True
+        self._wake.set()
+        self._thread.join(timeout=70)
+        if self._thread.is_alive():
+            log.error("batcher scheduler did not stop after 70s; outstanding "
+                      "requests are NOT terminated (wedged dispatch?)")
+            return
+        self._terminate_outstanding("model unloading")
+
+    # -- scheduler loop -------------------------------------------------------
+
+    def _admit(self) -> None:
+        alloc = self.engine.allocator
+        while True:
+            free = self.engine.free_slots()
+            if not free:
+                return
+            with self._qlock:
+                if not self._waiting:
+                    return
+                now = time.monotonic()
+                live = max(
+                    self._waiting,
+                    key=lambda l: l.req.priority
+                    + (now - l.submitted_at) / PRIORITY_AGING_SECS,
+                )
+                self._waiting.remove(live)
+            slot = free[0]
+            live.slot = slot
+            ids = live.req.prompt_ids
+            need_rows = min(len(ids), self.engine.max_context - 1)
+            if alloc.blocks_for(need_rows) > alloc.capacity_blocks():
+                # can NEVER fit: fail it now instead of evicting every
+                # co-resident stream on the way to the same conclusion
+                log.warning("request %s prompt (%d tokens) exceeds the whole "
+                            "KV page pool; failing it", live.req.request_id, len(ids))
+                live.done = True
+                live.abort_reason = "prompt exceeds the KV page pool"
+                live.out_q.put(_END)
+                continue
+            try:
+                first = self.engine.prefill(
+                    slot, ids, temperature=live.req.temperature, top_p=live.req.top_p
+                )
+            except PoolExhausted:
+                with self._qlock:
+                    self._waiting.appendleft(live)  # keep FIFO order
+                outcome = self._evict_longest(requester_priority=live.req.priority)
+                if outcome == "empty":
+                    with self._qlock:
+                        self._waiting.popleft()
+                    live.done = True
+                    live.abort_reason = "prompt exceeds the KV page pool"
+                    live.out_q.put(_END)
+                # "blocked": only higher-priority streams hold the pool, the
+                # admission waits for them; "evicted": retry next pass
+                return
+            live.first_token_at = time.monotonic()
+            with self._lock:
+                self._live[slot] = live
+            self._emit(live, first)
+
+    def _emit(self, live: _Live, token: int) -> None:
+        if live.cancelled:
+            return  # reaped (slot freed) at the next tick boundary
+        live.produced += 1
+        self.tokens_emitted += 1
+        live.out_q.put(token)
+        hit_stop = token in live.req.stop_ids
+        out_of_budget = live.produced >= live.req.max_tokens
+        out_of_cache = self.engine.slot_length(live.slot) >= self.engine.max_context - 1
+        if hit_stop or out_of_budget or out_of_cache:
+            self._finish(live)
+
+    def _finish(self, live: _Live, *, was_cancelled: bool = False,
+                abort_reason: str = "") -> None:
+        live.done = True
+        if abort_reason:
+            live.abort_reason = abort_reason
+        with self._lock:
+            self._live.pop(live.slot, None)
+        self.engine.release(live.slot)
+        if was_cancelled:
+            self.cancellations += 1
+        else:
+            self.completed += 1
+        # _END goes last: when a consumer unblocks, the slot is already free
+        live.out_q.put(_END)
+
+    def _reap_cancelled(self) -> None:
+        with self._qlock:
+            still: "deque[_Live]" = deque()
+            dropped: List[_Live] = []
+            for live in self._waiting:
+                (dropped if live.cancelled else still).append(live)
+            if dropped:
+                self._waiting = still
+        for live in dropped:
+            live.done = True
+            self.cancellations += 1
+            live.out_q.put(_END)
+        with self._lock:
+            cancelled = [l for l in self._live.values() if l.cancelled]
+        for live in cancelled:
+            self._finish(live, was_cancelled=True)
+
+    def _evict_longest(self, requester_priority: Optional[int] = None) -> str:
+        """Retire the lowest-priority live request, longest first within a
+        level (it frees the most pages). An admission (``requester_priority``
+        set) never evicts a victim that strictly outranks it. Returns
+        "evicted", "empty" or "blocked"."""
+        with self._lock:
+            if not self._live:
+                return "empty"
+            victim = min(
+                self._live.values(),
+                key=lambda l: (l.req.priority, -self.engine.slot_length(l.slot)),
+            )
+        if requester_priority is not None and victim.req.priority > requester_priority:
+            return "blocked"
+        log.warning("KV page pool exhausted; retiring request %s (priority %d, "
+                    "%d rows) to free pages", victim.req.request_id,
+                    victim.req.priority, self.engine.slot_length(victim.slot))
+        self.pool_evictions += 1
+        self._finish(victim, abort_reason="evicted: KV pool exhausted")
+        return "evicted"
+
+    def _terminate_outstanding(self, reason: str) -> None:
+        """End every live and queued request with ``reason`` as its abort;
+        called when no scheduler pass will run again."""
+        with self._lock:
+            victims = list(self._live.values())
+            self._live.clear()
+        with self._qlock:
+            victims.extend(self._waiting)
+            self._waiting.clear()
+        for live in victims:
+            live.done = True
+            live.abort_reason = reason
+            if live.slot >= 0:
+                self.engine.release(live.slot)
+            live.out_q.put(_END)
+
+    def _run(self) -> None:
+        while not self._stop:
+            try:
+                self._tick()
+            except Exception as exc:  # noqa: BLE001 - the loop must survive
+                self.last_error = exc
+                log.exception("continuous batcher scheduler failed; aborting requests")
+                self._terminate_outstanding(f"scheduler failed: {exc!r}"[:200])
+
+    def _tick(self) -> None:
+        self._reap_cancelled()
+        self._admit()
+        with self._lock:
+            slots = dict(self._live)
+        if not slots:
+            self._wake.wait(timeout=0.05)
+            self._wake.clear()
+            return
+        # two dispatch sizes only; overshooting a request's budget costs a
+        # few ignored tokens
+        with self._qlock:
+            anyone_waiting = bool(self._waiting)
+        n = ADMIT_CHUNK_STEPS if anyone_waiting else CHUNK_STEPS
+        try:
+            tokens = self.engine.step(n)  # [n, num_slots]
+        except PoolExhausted:
+            # the failed ensure() left engine state untouched: retire a
+            # victim and retry on the next tick
+            self._evict_longest()
+            return
+        for step_row in tokens:
+            for slot, live in slots.items():
+                if not live.done:
+                    self._emit(live, int(step_row[slot]))

@@ -1,0 +1,117 @@
+"""Model configurations for the Llama-family decoder (the dense presets).
+
+A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
+``ModelConfig`` geometry fields, the dense presets and the tiny test config.
+The serving knobs that ride on the JAX package's config (replicas, prefix
+host tier, megagraph, speculation, compression, MoE) belong to features the
+port has not reached yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    max_context: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None
+    tie_word_embeddings: bool = False
+    qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        return replace(self, **overrides)
+
+
+TINYLLAMA_1_1B = ModelConfig(
+    name="tinyllama-1.1b",
+    vocab_size=32000,
+    hidden_size=2048,
+    intermediate_size=5632,
+    num_layers=22,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=64,
+    max_context=2048,
+    rope_theta=10000.0,
+)
+
+MISTRAL_7B = ModelConfig(
+    name="mistral-7b",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    max_context=8192,
+    rope_theta=10000.0,
+    sliding_window=4096,
+)
+
+DEEPSEEK_R1_8B = ModelConfig(
+    # DeepSeek-R1-Distill-Llama-8B: Llama-3.1-8B geometry
+    name="deepseek-r1-8b",
+    vocab_size=128256,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    max_context=8192,
+    rope_theta=500000.0,
+)
+
+QWEN3_14B = ModelConfig(
+    name="qwen3-14b",
+    vocab_size=151936,
+    hidden_size=5120,
+    intermediate_size=17408,
+    num_layers=40,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    max_context=8192,
+    rope_theta=1000000.0,
+    rms_norm_eps=1e-6,
+    qk_norm=True,
+)
+
+PRESETS: Dict[str, ModelConfig] = {
+    c.name: c for c in (TINYLLAMA_1_1B, MISTRAL_7B, DEEPSEEK_R1_8B, QWEN3_14B)
+}
+
+# Tiny variant for tests (same code paths, trivial sizes). vocab 512 covers
+# the ByteTokenizer's 258 ids (bos=256, eos=257).
+TINY_TEST = ModelConfig(
+    name="tiny-test",
+    vocab_size=512,
+    hidden_size=64,
+    intermediate_size=128,
+    num_layers=2,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=16,
+    max_context=128,
+)

@@ -1,0 +1,278 @@
+"""The Llama-family decoder in PyTorch: the port of ``aios_tpu/engine/model.py``
+for the paged serving path.
+
+Params are a plain dict of tensors in the JAX package's layout (E=hidden,
+Q=heads*head_dim, K=kv_heads*head_dim, F=intermediate, L=layers, V=vocab,
+D=head_dim), layer leaves stacked on a leading [L] axis:
+
+  embed      [V, E]
+  layers/attn_norm [L, E]   layers/ffn_norm [L, E]
+  layers/wq  [L, E, Q]      layers/wk [L, E, K]   layers/wv [L, E, K]
+  layers/wo  [L, Q, E]
+  layers/w_gate [L, E, F]   layers/w_up [L, E, F] layers/w_down [L, F, E]
+  layers/q_norm [L, D]      layers/k_norm [L, D]      (only if cfg.qk_norm)
+  final_norm [E]
+  lm_head    [E, V]                                   (absent if tied)
+
+``quantize_params`` turns the matmul weights into int8 serving leaves
+{"q": int8, "s": f32} with fused ``w_qkv`` and ``w_gateup``. Every entry
+point takes ``kernels``: True runs the ops wrappers (the CUDA kernels on
+CUDA tensors, their plain twins on CPU tensors), False calls the plain
+``*_reference`` functions by name — how a caller holds the kernel path
+against the plain path on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import ops
+from .config import ModelConfig
+
+Params = Dict[str, object]
+
+QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def matmul(x: torch.Tensor, w, kernels: bool = True) -> torch.Tensor:
+    """x @ w for a dense weight or an int8 leaf {"q", "s"}."""
+    if isinstance(w, dict):
+        fn = ops.quantized_matmul if kernels else ops.quantized_matmul_reference
+        return fn(x.contiguous(), w["q"], w["s"])
+    return x @ w
+
+
+def quantize_params(params: Params, include_head: bool = True) -> Params:
+    """Int8 serving leaves, the JAX package's ``quantize_params`` in int8 mode
+    with fusion: wq|wk|wv concatenate into one [E, Q+2K] ``w_qkv`` and
+    w_gate|w_up into one [E, 2F] ``w_gateup`` (4 weight matmuls per layer
+    instead of 7), and a tied lm_head becomes its own quantized [E, V]
+    matrix. Same int8 bytes and scales as the JAX function for the same
+    input."""
+    out = dict(params)
+    src = params["layers"]
+    layers = {k: v for k, v in src.items() if k not in QUANT_KEYS}
+    fused = (
+        ("w_qkv", torch.cat([src["wq"], src["wk"], src["wv"]], dim=-1)),
+        ("wo", src["wo"]),
+        ("w_gateup", torch.cat([src["w_gate"], src["w_up"]], dim=-1)),
+        ("w_down", src["w_down"]),
+    )
+    for key, w in fused:
+        q, s = ops.quantize_int8(w, axis=-2)
+        layers[key] = {"q": q, "s": s}
+    out["layers"] = layers
+    if include_head:
+        head = params.get("lm_head")
+        if head is None:
+            head = params["embed"].T
+        q, s = ops.quantize_int8(head, axis=-2)
+        out["lm_head"] = {"q": q, "s": s}
+    return out
+
+
+def is_quantized(params: Params) -> bool:
+    return any(isinstance(v, dict) for v in params["layers"].values())
+
+
+def layer_params(params: Params) -> List[Dict[str, object]]:
+    """Per-layer views of the stacked [L, ...] leaves (no copies)."""
+    L = params["layers"]["attn_norm"].shape[0]
+    return [
+        {
+            k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict) else v[i])
+            for k, v in params["layers"].items()
+        }
+        for i in range(L)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation, output in x.dtype."""
+    xf = x.to(torch.float32)
+    scale = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * weight
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin for the given absolute positions, shaped positions.shape +
+    (head_dim,), in the half-rotation (HF transformers) convention."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    inv_freq = 1.0 / (theta ** exponent)
+    angles = positions.to(torch.float32)[..., None] * inv_freq
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate q or k. x: [B, T, H, D]; cos/sin: [B, T, D]."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    return (x.to(torch.float32) * cos + rotated.to(torch.float32) * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# One transformer block
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(x, lp, cfg: ModelConfig, cos, sin, kernels: bool = True):
+    B, T, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    if "w_qkv" in lp:  # fused serving layout (quantize_params)
+        Q, KV = cfg.q_dim, cfg.kv_dim
+        qkv = matmul(h, lp["w_qkv"], kernels)
+        q, k, v = qkv[..., :Q], qkv[..., Q:Q + KV], qkv[..., Q + KV:]
+    else:
+        q = matmul(h, lp["wq"], kernels)
+        k = matmul(h, lp["wk"], kernels)
+        v = matmul(h, lp["wv"], kernels)
+    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim).contiguous()
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True):
+    """Dense SwiGLU FFN sublayer."""
+    h = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
+    if "w_gateup" in lp:  # fused serving layout (quantize_params)
+        F_ = cfg.intermediate_size
+        gu = matmul(h, lp["w_gateup"], kernels)
+        gate_pre, up = gu[..., :F_], gu[..., F_:]
+    else:
+        gate_pre = matmul(h, lp["w_gate"], kernels)
+        up = matmul(h, lp["w_up"], kernels)
+    gate = F.silu(gate_pre.to(torch.float32)).to(h.dtype)
+    return matmul(gate * up, lp["w_down"], kernels)
+
+
+def apply_block(x, lp, cfg: ModelConfig, cos, sin, attention, kernels: bool = True):
+    """One transformer block on [B, T, E]; returns (x', (k, v)).
+    ``attention(q, k, v)`` maps [B, T, H, D] queries to [B, T, H, D]."""
+    B, T = x.shape[0], x.shape[1]
+    q, k, v = _project_qkv(x, lp, cfg, cos, sin, kernels)
+    attn = attention(q, k, v)
+    x = x + matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
+    x = x + _mlp(x, lp, cfg, kernels)
+    return x, (k, v)
+
+
+def _final_logits(x, params: Params, cfg: ModelConfig, kernels: bool = True):
+    """Final RMSNorm + (possibly tied, possibly int8) lm_head; fp32 logits."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return matmul(x, head, kernels).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                     kernels: bool = True):
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    attn_fn = ops.flash_attention if kernels else ops.flash_attention_reference
+
+    def attention(q, k, v):
+        return attn_fn(q, k, v, causal=True, window=cfg.sliding_window)
+
+    ks, vs = [], []
+    for lp in layer_params(params):
+        x, (k, v) = apply_block(x, lp, cfg, cos, sin, attention, kernels)
+        ks.append(k)
+        vs.append(v)
+    return _final_logits(x, params, cfg, kernels), torch.stack(ks), torch.stack(vs)
+
+
+def forward_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 kernels: bool = True) -> torch.Tensor:
+    """Full-sequence causal forward; logits [B, T, V] in fp32."""
+    return _forward_with_kv(params, cfg, tokens, kernels)[0]
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            kernels: bool = True):
+    """Causal forward returning (logits [B,T,V], k [L,B,T,KH,D], v [...]);
+    the engine scatters the K/V rows into the page pool."""
+    return _forward_with_kv(params, cfg, tokens, kernels)
+
+
+def decode_step_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] — one new token per slot
+    lengths: torch.Tensor,  # [B] int32 — logical rows already in each slot
+    k_pool: torch.Tensor,  # [L, N, P, KH, D] — shared page pool
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,  # [B, MB] int32 — logical block -> physical page
+    active: torch.Tensor = None,  # [B] bool
+    kernels: bool = True,
+) -> torch.Tensor:
+    """One batched decode step over the paged cache; returns logits [B, V]
+    in fp32.
+
+    Unlike the JAX function, which returns updated pools, this writes each
+    slot's new K/V row INTO ``k_pool``/``v_pool`` in place: row
+    ``lengths[b]`` goes to page ``tables[b, lengths[b] // P]`` at offset
+    ``lengths[b] % P``. Inactive slots write the sacrificial page 0 (offset
+    P-1) and attend zero rows. The caller must have backed row
+    ``lengths[b]`` of every active slot (PageAllocator.ensure)."""
+    B = tokens.shape[0]
+    P = k_pool.shape[2]
+    if active is None:
+        active = torch.ones(B, dtype=torch.bool, device=tokens.device)
+    zero = torch.zeros_like(lengths)
+    read_lengths = torch.where(active, lengths, zero)
+    blk = (read_lengths // P).long()
+    pages = torch.where(active, tables.gather(1, blk[:, None])[:, 0], zero).long()
+    offs = torch.where(active, read_lengths % P, torch.full_like(lengths, P - 1)).long()
+
+    x = params["embed"][tokens][:, None, :]  # [B, 1, E]
+    cos, sin = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+    attn_fn = ops.paged_decode_attention if kernels else ops.paged_decode_attention_reference
+    for i, lp in enumerate(layer_params(params)):
+        q, k_new, v_new = _project_qkv(x, lp, cfg, cos, sin, kernels)
+        k_l, v_l = k_pool[i], v_pool[i]
+        k_l[pages, offs] = k_new[:, 0].to(k_l.dtype)
+        v_l[pages, offs] = v_new[:, 0].to(v_l.dtype)
+        attn = attn_fn(q[:, 0].contiguous(), k_l, v_l, tables, read_lengths,
+                       window=cfg.sliding_window)
+        x = x + matmul(attn.reshape(B, 1, -1), lp["wo"], kernels)
+        x = x + _mlp(x, lp, cfg, kernels)
+    return _final_logits(x[:, 0], params, cfg, kernels)
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                  dtype: torch.dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paged KV pool, [L, N, P, KH, D] each for k and v."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+

@@ -1,0 +1,46 @@
+"""Hand-written CUDA kernels for the decode and prefill path, each beside its
+plain PyTorch version.
+
+  * ``quantized_matmul`` — int8-weight x bf16-activation matmul with
+    per-output-channel scales; every projection and the lm_head.
+  * ``flash_attention`` — blockwise causal GQA attention for prefill.
+  * ``paged_decode_attention`` — one query per slot over the paged KV pool.
+
+There is no gate: each wrapper runs its plain ``*_reference`` twin for CPU
+tensors and its kernel for CUDA tensors (or raises). Callers that want the
+plain version on the card call it by name. Each wrapper counts its kernel
+launches in a ``launches`` attribute. The kernels build from ``csrc/`` at
+first use (``build.build_all`` builds them all at once).
+"""
+
+from __future__ import annotations
+
+from .build import build_all
+from .flash_attention import flash_attention, flash_attention_reference
+from .paged_attention import (
+    gather_pages,
+    paged_decode_attention,
+    paged_decode_attention_reference,
+)
+from .quantized_matmul import (
+    dequantize,
+    quantize_int8,
+    quantized_matmul,
+    quantized_matmul_reference,
+)
+
+KERNELS = (quantized_matmul, flash_attention, paged_decode_attention)
+
+__all__ = [
+    "KERNELS",
+    "build_all",
+    "dequantize",
+    "flash_attention",
+    "flash_attention_reference",
+    "gather_pages",
+    "paged_decode_attention",
+    "paged_decode_attention_reference",
+    "quantize_int8",
+    "quantized_matmul",
+    "quantized_matmul_reference",
+]

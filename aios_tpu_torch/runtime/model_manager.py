@@ -1,0 +1,229 @@
+"""Model lifecycle and intelligence-level routing for the PyTorch runtime.
+
+The single-replica port of ``aios_tpu/runtime/model_manager.py``: a model is
+an in-process ``TorchEngine`` + ``ContinuousBatcher`` + tokenizer in one of
+the states loading/ready/error/unloading, and requests resolve by exact or
+partial name or by the reference's intelligence-level ladders.
+
+Serving defaults: int8 weights on CUDA (dense on the CPU, where int8 would
+only add a dequantize to every matmul), a bf16 KV cache, and a paged pool
+sized ``auto`` = (num_slots + 1) x context rows in pages of 128 rows.
+``synthetic://<preset>`` sources build random weights on the target device
+from a seeded generator. Real GGUF/HF weights, replica pools, admission
+control and the HBM budget wait for later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Union
+
+import torch
+
+from ..device import resolve_device
+from ..engine.batching import ContinuousBatcher
+from ..engine.config import PRESETS, TINY_TEST, ModelConfig
+from ..engine.engine import TorchEngine
+from ..engine.tokenizer import BaseTokenizer, ByteTokenizer
+from ..engine.weights import init_params
+
+log = logging.getLogger("aios.torch.runtime.models")
+
+STATE_LOADING = "loading"
+STATE_READY = "ready"
+STATE_ERROR = "error"
+STATE_UNLOADING = "unloading"
+
+# Routing ladders per intelligence level (the reference's model_manager.rs).
+LEVEL_LADDERS: Dict[str, List[str]] = {
+    "reactive": [],
+    "operational": ["tinyllama", "deepseek", "mistral"],
+    "tactical": ["deepseek", "qwen3", "mistral", "tinyllama"],
+    "strategic": ["qwen3", "deepseek", "mistral"],
+}
+
+PAGE_SIZE = 128
+
+
+@dataclass
+class ManagedModel:
+    name: str
+    config: ModelConfig
+    engine: Optional[TorchEngine]
+    batcher: Optional[ContinuousBatcher]
+    tokenizer: BaseTokenizer
+    state: str = STATE_LOADING
+    loaded_at: int = 0
+    last_used: int = 0
+    request_count: int = 0
+    error: str = ""
+    model_path: str = ""
+    context_length: int = 0
+
+    def touch(self) -> None:
+        self.last_used = int(time.time())
+        self.request_count += 1
+
+    def submit(self, req):
+        return self.batcher.submit(req)
+
+
+def resolve_preset(name: str) -> ModelConfig:
+    low = name.lower()
+    if low in ("tiny-test", "tiny"):
+        return TINY_TEST
+    if low in PRESETS:
+        return PRESETS[low]
+    for key, cfg in PRESETS.items():
+        if low in key or key in low or key.split("-")[0] in low:
+            return cfg
+    raise KeyError(f"no preset matches {name!r}")
+
+
+class ModelManager:
+    """Registry of co-resident models on one device."""
+
+    def __init__(self, num_slots: int = 8,
+                 device: Optional[Union[str, torch.device]] = None) -> None:
+        self.device = resolve_device(device)
+        self.models: Dict[str, ManagedModel] = {}
+        self.num_slots = num_slots
+        self.quantize = "int8" if self.device.type == "cuda" else False
+        self._lock = threading.Lock()
+
+    @property
+    def backend(self) -> str:
+        return f"torch-{self.device.type}"
+
+    # -- loading ----------------------------------------------------------------
+
+    def load_model(self, name: str, path: str = "", context_length: int = 0) -> ManagedModel:
+        with self._lock:
+            existing = self.models.get(name)
+        if (
+            existing is not None
+            and existing.state == STATE_READY
+            and existing.model_path == path
+            and existing.context_length == (context_length or 0)
+        ):
+            return existing
+        t0 = time.time()
+        try:
+            cfg, params, tokenizer = self._load_weights(name, path, context_length)
+            ctx = context_length or cfg.max_context
+            page = PAGE_SIZE if ctx % PAGE_SIZE == 0 else 16
+            if ctx % page:
+                raise ValueError(
+                    f"context {ctx} must be a multiple of {PAGE_SIZE} (or 16) "
+                    "for the paged KV pool"
+                )
+            engine = TorchEngine(
+                cfg, params,
+                paged_pool_rows=(self.num_slots + 1) * ctx,
+                page_size=page,
+                num_slots=self.num_slots,
+                max_context=ctx,
+                cache_dtype=torch.bfloat16,
+                quantize=self.quantize,
+                device=self.device,
+            )
+            del params
+            engine.warmup()
+            managed = ManagedModel(
+                name=name,
+                config=cfg,
+                engine=engine,
+                batcher=ContinuousBatcher(engine),
+                tokenizer=tokenizer,
+                state=STATE_READY,
+                loaded_at=int(time.time()),
+                model_path=path,
+                context_length=context_length or 0,
+            )
+        except Exception as exc:
+            with self._lock:
+                cur = self.models.get(name)
+                if cur is None or cur.state != STATE_READY:
+                    self.models[name] = ManagedModel(
+                        name=name, config=TINY_TEST, engine=None, batcher=None,
+                        tokenizer=ByteTokenizer(), state=STATE_ERROR, error=str(exc),
+                    )
+            log.error("model %s failed to load: %s", name, exc)
+            raise
+        with self._lock:
+            old = self.models.get(name)
+            self.models[name] = managed
+        if old is not None and old.state == STATE_READY:
+            self._shutdown(old)
+        log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s)", name,
+                 time.time() - t0, ctx, self.num_slots, self.device)
+        return managed
+
+    def _load_weights(self, name: str, path: str, context_length: int):
+        """Resolve (config, params, tokenizer) from a model source."""
+        if path.startswith("synthetic://") or not path:
+            cfg = resolve_preset(path.removeprefix("synthetic://") or name)
+            if context_length:
+                cfg = cfg.scaled(max_context=context_length)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            params = init_params(cfg, gen, dtype=torch.bfloat16, device=self.device)
+            return cfg, params, ByteTokenizer()
+        raise ValueError(
+            f"unsupported model source {path!r}: this runtime loads "
+            "synthetic://<preset> weights only"
+        )
+
+    # -- unloading --------------------------------------------------------------
+
+    @staticmethod
+    def _shutdown(m: ManagedModel) -> None:
+        m.state = STATE_UNLOADING
+        if m.batcher is not None:
+            m.batcher.shutdown()
+        if m.engine is not None:
+            m.engine.close()
+        m.engine = None
+        m.batcher = None
+
+    def unload_model(self, name: str) -> bool:
+        with self._lock:
+            managed = self.models.pop(name, None)
+        if managed is None:
+            return False
+        self._shutdown(managed)
+        return True
+
+    def close(self) -> None:
+        for name in list(self.models):
+            self.unload_model(name)
+
+    # -- resolution -------------------------------------------------------------
+
+    def get(self, name: str) -> Optional[ManagedModel]:
+        return self.models.get(name)
+
+    def ready_models(self) -> List[ManagedModel]:
+        return [m for m in list(self.models.values()) if m.state == STATE_READY]
+
+    def find_by_partial_name(self, name: str) -> Optional[ManagedModel]:
+        """Case-insensitive substring match."""
+        low = name.lower()
+        exact = self.models.get(name)
+        if exact is not None and exact.state == STATE_READY:
+            return exact
+        for m in self.ready_models():
+            if low in m.name.lower() or m.name.lower() in low:
+                return m
+        return None
+
+    def select_for_level(self, level: str) -> Optional[ManagedModel]:
+        """Routing ladder; None for reactive or when nothing matches."""
+        for candidate in LEVEL_LADDERS.get(level.lower(), []):
+            m = self.find_by_partial_name(candidate)
+            if m is not None:
+                return m
+        return None

@@ -1,0 +1,231 @@
+"""aios.runtime.AIRuntime gRPC service over the PyTorch engine.
+
+The port of ``aios_tpu/runtime/service.py`` for the main path:
+  * resolution for Infer: explicit model name -> intelligence-level ladder ->
+    any ready model -> UNAVAILABLE; reactive is INVALID_ARGUMENT, strategic
+    with no big model FAILED_PRECONDITION ("route via api-gateway");
+  * defaults: max_tokens 512, temperature 0.7 (proto3 0 means unset);
+  * StreamInfer streams incremental detokenized text per token and ends with
+    a done=true chunk; a client that goes away cancels its request.
+Metrics, tracing, SLOs, the fleet plane, admission control and
+grammar-constrained output (``json_schema``) wait for later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Iterator, Optional
+
+import grpc
+
+from .. import rpc
+from ..engine.batching import Request
+from ..engine.tokenizer import render_chat
+from ..proto_gen import common_pb2, runtime_pb2
+from ..services import RUNTIME, AIRuntimeServicer, service_address
+from .model_manager import ManagedModel, ModelManager
+
+log = logging.getLogger("aios.torch.runtime")
+
+DEFAULT_MAX_TOKENS = 512
+DEFAULT_TEMPERATURE = 0.7
+DEFAULT_TOP_P = 0.95
+LEVEL_PRIORITY = {"strategic": 3, "tactical": 2, "operational": 1, "reactive": 1}
+
+
+class RuntimeService(AIRuntimeServicer):
+    def __init__(self, manager: Optional[ModelManager] = None):
+        self.manager = manager or ModelManager()
+        self.started_at = time.time()
+
+    # -- lifecycle RPCs -----------------------------------------------------
+
+    def LoadModel(self, request, context):
+        try:
+            m = self.manager.load_model(
+                request.model_name, request.model_path,
+                context_length=request.context_length,
+            )
+        except Exception as exc:  # noqa: BLE001 - reported to the caller
+            context.set_code(grpc.StatusCode.INTERNAL)
+            context.set_details(f"load failed: {exc}")
+            return runtime_pb2.ModelStatus(model_name=request.model_name, status="error")
+        return self._status_of(m)
+
+    def UnloadModel(self, request, context):
+        ok = self.manager.unload_model(request.model_name)
+        return common_pb2.Status(
+            success=ok,
+            message="unloaded" if ok else f"model {request.model_name} not loaded",
+        )
+
+    def ListModels(self, request, context):
+        return runtime_pb2.ModelList(
+            models=[self._status_of(m) for m in list(self.manager.models.values())]
+        )
+
+    def HealthCheck(self, request, context):
+        models = list(self.manager.models.values())
+        details = {m.name: m.state for m in models}
+        details["backend"] = self.manager.backend
+        for m in models:
+            engine, batcher = m.engine, m.batcher  # unload may null them
+            if engine is None or batcher is None:
+                continue
+            stats = engine.stats()
+            stats.update(
+                pool_evictions=batcher.pool_evictions,
+                completed=batcher.completed,
+                cancelled=batcher.cancellations,
+                waiting=batcher.queue_depth(),
+                num_slots=engine.num_slots,
+            )
+            details[f"{m.name}.serving"] = ",".join(
+                f"{k}={v}" for k, v in sorted(stats.items())
+            )
+        ready = len(self.manager.ready_models())
+        return common_pb2.HealthStatus(
+            healthy=True,
+            service="runtime",
+            message=f"{ready} model(s) ready",
+            uptime_seconds=int(time.time() - self.started_at),
+            details=details,
+        )
+
+    # -- inference RPCs -----------------------------------------------------
+
+    def Infer(self, request, context):
+        t0 = time.time()
+        m = self._resolve_model(request, context)
+        if m is None:
+            return runtime_pb2.InferResponse()
+        handle, n_prompt = self._submit(m, request, context)
+        token_ids = [t for t in handle if t != m.tokenizer.eos_id]
+        if handle.aborted:
+            context.abort(grpc.StatusCode.UNAVAILABLE,
+                          f"request aborted: {handle.abort_reason}")
+        return runtime_pb2.InferResponse(
+            text=m.tokenizer.decode(token_ids),
+            tokens_used=n_prompt + len(token_ids),
+            latency_ms=int((time.time() - t0) * 1000),
+            model_used=m.name,
+        )
+
+    def StreamInfer(self, request, context) -> Iterator[runtime_pb2.InferChunk]:
+        m = self._resolve_model(request, context)
+        if m is None:
+            return
+        handle, _ = self._submit(m, request, context)
+        emitted = ""
+        ids = []
+        try:
+            for tok in handle:
+                if tok == m.tokenizer.eos_id:
+                    break
+                ids.append(tok)
+                # incremental detokenization: emit the stable text delta
+                text = m.tokenizer.decode(ids)
+                delta = text[len(emitted):] if text.startswith(emitted) else text
+                if delta:
+                    emitted = text
+                    yield runtime_pb2.InferChunk(text=delta, done=False)
+            if handle.aborted:
+                context.set_code(grpc.StatusCode.ABORTED)
+                context.set_details(f"stream aborted: {handle.abort_reason}")
+                return
+            yield runtime_pb2.InferChunk(text="", done=True)
+        finally:
+            # a client that disconnected closes this generator: free the
+            # slot now instead of decoding to max_tokens for nobody
+            handle.cancel()
+
+    # -- helpers ------------------------------------------------------------
+
+    def _submit(self, m: ManagedModel, request, context):
+        if request.json_schema:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          "json_schema is not supported by this runtime yet")
+        m.touch()
+        prompt_ids = m.tokenizer.encode(
+            render_chat(m.config.name, request.prompt, request.system_prompt)
+        )
+        stop = (m.tokenizer.eos_id,) if m.tokenizer.eos_id is not None else ()
+        req = Request(
+            prompt_ids=prompt_ids,
+            max_tokens=request.max_tokens or DEFAULT_MAX_TOKENS,
+            temperature=(
+                request.temperature if request.temperature > 0 else DEFAULT_TEMPERATURE
+            ),
+            top_p=DEFAULT_TOP_P,
+            stop_ids=stop,
+            request_id=request.task_id or "",
+            priority=LEVEL_PRIORITY.get(request.intelligence_level.lower(), 0),
+        )
+        try:
+            handle = m.submit(req)
+        except RuntimeError as e:  # raced UnloadModel's shutdown
+            context.abort(grpc.StatusCode.UNAVAILABLE, f"model {m.name} is unloading: {e}")
+        if not context.add_callback(handle.cancel):
+            handle.cancel()  # the RPC already ended
+        return handle, len(prompt_ids)
+
+    def _resolve_model(self, request, context) -> Optional[ManagedModel]:
+        """explicit name -> level ladder -> any ready -> gRPC error."""
+        if request.model:
+            m = self.manager.find_by_partial_name(request.model)
+            if m is not None:
+                return m
+            context.set_code(grpc.StatusCode.NOT_FOUND)
+            context.set_details(f"model {request.model} not loaded")
+            return None
+        level = request.intelligence_level.lower()
+        if level == "reactive":
+            context.set_code(grpc.StatusCode.INVALID_ARGUMENT)
+            context.set_details("reactive tasks use heuristics, not model inference")
+            return None
+        if level:
+            m = self.manager.select_for_level(level)
+            if m is not None:
+                return m
+            if level == "strategic":
+                context.set_code(grpc.StatusCode.FAILED_PRECONDITION)
+                context.set_details("no strategic-tier model loaded; route via api-gateway")
+                return None
+        ready = self.manager.ready_models()
+        if ready:
+            return ready[0]
+        context.set_code(grpc.StatusCode.UNAVAILABLE)
+        context.set_details("no models loaded")
+        return None
+
+    @staticmethod
+    def _status_of(m: ManagedModel) -> runtime_pb2.ModelStatus:
+        return runtime_pb2.ModelStatus(
+            model_name=m.name,
+            status=m.state,
+            port=0,  # no HTTP sidecar
+            loaded_at=m.loaded_at,
+            last_used=m.last_used,
+            request_count=m.request_count,
+        )
+
+
+def serve(address: Optional[str] = None, manager: Optional[ModelManager] = None,
+          block: bool = True):
+    """Start the runtime gRPC server; returns (server, service, port)."""
+    address = address or service_address()
+    server = rpc.create_server()
+    service = RuntimeService(manager)
+    rpc.add_to_server(RUNTIME, service, server)
+    port = server.add_insecure_port(address)
+    server.start()
+    log.info("AIRuntime (%s) listening on %s", service.manager.backend, address)
+    if block:
+        server.wait_for_termination()
+    return server, service, port
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    serve()
