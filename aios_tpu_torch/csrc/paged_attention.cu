@@ -1,37 +1,46 @@
-// Paged decode attention over a bf16 page pool: one query per slot,
-// q [B, H, D], pools [N, P, KH, D], tables [B, MB] int32, lengths [B] int32
-// -> o [B, H, D].
+// Paged decode attention over a bf16 or an int8 page pool: one query per
+// slot, q [B, H, D] bf16, pools [N, P, KH, D], tables [B, MB] int32, lengths
+// [B] int32 -> o [B, H, D] bf16. An int8 pool carries f32 scales [N, P, KH]
+// for K and for V, one per (page row, kv head).
 //
-// Replaces: aios_tpu/ops/paged_attention.py, `paged_decode_attention` (the
-// Pallas `_paged_decode_kernel` launched by `_paged_call`), which reads the
+// Replaces: aios_tpu/ops/paged_attention.py, `paged_decode_attention` (bf16
+// pool) and `paged_decode_attention_int8` (int8 pool + scales), both the
+// Pallas `_paged_decode_kernel` launched by `_paged_call`, which reads the
 // page table by scalar prefetch and DMAs only the pages that hold valid rows.
 //
-// What bounds it on the H100: the K/V bytes of each slot's valid rows. Every
-// row is read once and used for G = H/KH query heads, about 2*G operations
-// per byte, so 3.35 TB/s bounds it.
+// What bounds it on the H100: the K/V bytes of each slot's valid rows (and
+// for int8 their scales). Every row is read once and used for G = H/KH query
+// heads, about 2*G operations per element, so 3.35 TB/s bounds it. The int8
+// pool halves those bytes.
 //
 // What the design does about it: one block per (slot, kv head), so the G
 // query heads of a group share every K/V row the block loads (the point of
 // GQA; the TPU kernel looped over kv heads inside one program instead). The
 // block walks only the columns [start, length] of its slot, reading
 // tables[b, col / P] itself; no page outside the slot's valid range is
-// touched. Its eight warps take turns over 32-row chunks of those columns,
-// each warp with its own fp32 online softmax, and merge their (max, sum,
-// output) at the end, so one long slot keeps eight chunks in flight and no
-// barrier runs per chunk. Within a chunk a lane owns one cache row: it loads
-// the row's K with 16-byte loads and forms the G scores against q held in
-// shared memory; max and sum are warp reductions; for P @ V each lane owns
-// D/32 output dims of every head, loads those dims of all 32 V rows up front
-// (one coalesced line per row, in flight together with the K loads) and takes
-// each row's probabilities from its lane by shuffle.
+// touched, so table entries below a sliding window, which the allocator has
+// already returned to the pool, are never read. Its eight warps take turns
+// over 32-row chunks of those columns, each warp with its own fp32 online
+// softmax, and merge their (max, sum, output) at the end, so one long slot
+// keeps eight chunks in flight and no barrier runs per chunk. Within a chunk
+// a lane owns one cache row: it loads the row's K with 16-byte loads and
+// forms the G scores against q held in shared memory; max and sum are warp
+// reductions; for P @ V each lane owns D/32 output dims of every head, loads
+// those dims of all 32 V rows up front (in flight together with the K loads)
+// and takes each row's probability from its lane by shuffle.
 // Row `lengths[b]` is the token just written, so a slot has lengths[b] + 1
 // valid rows; an inactive slot arrives with length 0 and reads one row of the
-// page tables[b, 0] names, which stays finite. The mask is the TPU kernel's
-// whole mask: col <= length, the sliding window col > length - window, and
-// col < sink || col >= win_starts[b] when win_starts is given; p is rounded
-// to bf16 before the P @ V product, as the TPU kernel casts p to the pool
-// dtype. Not yet: splitting a long slot over several blocks (flash-decoding),
-// which is what fills 132 SMs when B * KH is small.
+// page tables[b, 0] names, which stays finite (int8 scale pools start at
+// 1.0). The mask is the TPU kernel's whole mask: col <= length, the sliding
+// window col > length - window, and col < sink || col >= win_starts[b] when
+// win_starts is given.
+// Arithmetic follows the TPU kernel's two branches. bf16 pool: score =
+// (q . k) * sm_scale, and p is rounded to bf16 before the P @ V product, as
+// the TPU kernel casts p to the pool dtype. int8 pool: all in f32, q is
+// scaled by sm_scale first, score = (q . k_int8) * k_scale[row], and
+// p * v_scale[row] multiplies v_int8 without rounding; the running sum takes
+// p itself. Not yet: splitting a long slot over several blocks
+// (flash-decoding), which is what fills 132 SMs when B * KH is small.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +67,11 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
+// byte j of a word as a signed value
+__device__ __forceinline__ float s8(uint32_t w, int j) {
+  return static_cast<float>(static_cast<int>(w << (24 - 8 * j)) >> 24);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
@@ -70,18 +84,91 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+// What differs between the pool element types: how a 16-byte K vector
+// dots with q, and how a lane's D/32 elements of a V row load and convert.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kQuant = false;
+  static constexpr int kPerVec = 8;  // elements per 16-byte vector
+  __device__ static float dot(const float* q, uint4 k) {
+    const float4 qa = *reinterpret_cast<const float4*>(q);
+    const float4 qb = *reinterpret_cast<const float4*>(q + 4);
+    const float2 k0 = bf16x2_to_float2(k.x);
+    const float2 k1 = bf16x2_to_float2(k.y);
+    const float2 k2 = bf16x2_to_float2(k.z);
+    const float2 k3 = bf16x2_to_float2(k.w);
+    return qa.x * k0.x + qa.y * k0.y + qa.z * k1.x + qa.w * k1.y +
+           qb.x * k2.x + qb.y * k2.y + qb.z * k3.x + qb.w * k3.y;
+  }
+  // DL elements = DL / 2 words
+  template <int DL>
+  __device__ static void load_v(const __nv_bfloat16* src, uint32_t* w) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+    for (int d = 0; d < DL / 2; ++d) w[d] = p[d];
+  }
+  template <int DL>
+  __device__ static void v_floats(const uint32_t* w, float* out) {
+#pragma unroll
+    for (int d = 0; d < DL / 2; ++d) {
+      const float2 f = bf16x2_to_float2(w[d]);
+      out[2 * d] = f.x;
+      out[2 * d + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Elem<int8_t> {
+  static constexpr bool kQuant = true;
+  static constexpr int kPerVec = 16;
+  __device__ static float dot(const float* q, uint4 k) {
+    const uint32_t w[4] = {k.x, k.y, k.z, k.w};
+    float r = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 qa = *reinterpret_cast<const float4*>(q + 4 * i);
+      r += qa.x * s8(w[i], 0) + qa.y * s8(w[i], 1) + qa.z * s8(w[i], 2) +
+           qa.w * s8(w[i], 3);
+    }
+    return r;
+  }
+  // DL elements = DL bytes: one 16-bit load (D = 64) or DL / 4 words
+  template <int DL>
+  __device__ static void load_v(const int8_t* src, uint32_t* w) {
+    if constexpr (DL < 4) {
+      w[0] = *reinterpret_cast<const uint16_t*>(src);
+    } else {
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+      for (int d = 0; d < DL / 4; ++d) w[d] = p[d];
+    }
+  }
+  template <int DL>
+  __device__ static void v_floats(const uint32_t* w, float* out) {
+#pragma unroll
+    for (int d = 0; d < DL; ++d) out[d] = s8(w[d / 4], d % 4);
+  }
+};
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_pool,
-                    const __nv_bfloat16* __restrict__ v_pool,
+                    const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths,
                     const int* __restrict__ win_starts,
                     __nv_bfloat16* __restrict__ o, int H, int KH, int P, int MB,
                     int window, int sink, float sm_scale) {
-  constexpr int KV = D / 8;   // 16-byte vectors per K row
-  constexpr int DL = D / 32;  // output dims per lane and head
+  using E = Elem<T>;
+  constexpr int KV = D / E::kPerVec;  // 16-byte vectors per K row
+  constexpr int DL = D / 32;          // output dims per lane and head
+  constexpr int VW = (DL * sizeof(T) + 3) / 4;  // words per lane of a V row
   __shared__ __align__(16) float qs[kMaxG * D];
   __shared__ float m_w[kWarps][kMaxG];
   __shared__ float l_w[kWarps][kMaxG];
@@ -97,9 +184,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int total = length + 1;
   const int ws = win_starts != nullptr ? win_starts[b] : 0;
   const int c_lo = window > 0 ? max(total - window, 0) : 0;
+  // int8: q scaled before the dot, each score by its row's K scale;
+  // bf16: each score by sm_scale
+  const float q_mul = E::kQuant ? sm_scale : 1.f;
 
   for (int i = tid; i < G * D; i += kThreads)
-    qs[i] = __bfloat162float(q[((size_t)b * H + kh * G) * D + i]);
+    qs[i] = __bfloat162float(q[((size_t)b * H + kh * G) * D + i]) * q_mul;
   __syncthreads();
 
   float m[kMaxG], l[kMaxG], acc[kMaxG][DL];
@@ -116,55 +206,58 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const bool in = col < total;
     size_t row = 0;  // element offset of this lane's cache row in a pool
     uint4 kr[KV];
+    float k_mul = sm_scale, v_mul = 0.f;
     if (in) {
       const int page = tables[(size_t)b * MB + col / P];
-      row = (((size_t)page * P + col % P) * KH + kh) * D;
+      const size_t srow = ((size_t)page * P + col % P) * KH + kh;  // scale index
+      row = srow * D;
 #pragma unroll
       for (int i = 0; i < KV; ++i)
-        kr[i] = *reinterpret_cast<const uint4*>(k_pool + row + i * 8);
+        kr[i] = *reinterpret_cast<const uint4*>(k_pool + row + i * E::kPerVec);
+      if constexpr (E::kQuant) {
+        k_mul = k_scales[srow];
+        v_mul = v_scales[srow];
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < KV; ++i) kr[i] = make_uint4(0u, 0u, 0u, 0u);
     }
     // every V row of the chunk at once (this lane's D/32 dims of each), so
-    // their loads fly together with the K loads; rows past the slot are 0
-    uint32_t vr[32][DL / 2];
+    // their loads fly together with the K loads. Rows past the slot load
+    // row 0 of the pool (always in bounds) and are zeroed: an unconditional
+    // load and a select measured faster than a branch around the load
+    uint32_t vr[32][VW];
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const size_t row_j = __shfl_sync(kFull, static_cast<unsigned long long>(row), j);
-      const uint32_t* vp = reinterpret_cast<const uint32_t*>(v_pool + row_j + lane * DL);
+      uint32_t w[VW];
+      E::template load_v<DL>(v_pool + row_j + lane * DL, w);
 #pragma unroll
-      for (int d = 0; d < DL / 2; ++d) vr[j][d] = c0 + j < total ? vp[d] : 0u;
+      for (int d = 0; d < VW; ++d) vr[j][d] = c0 + j < total ? w[d] : 0u;
     }
     const bool live = in && live_col(col, length, window, win_starts, sink, ws);
 
     // scores of this lane's row for every head of the group, then the
     // online softmax over the warp's 32 rows
-    float p_bf[kMaxG];
+    float pv[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      p_bf[g] = 0.f;
+      pv[g] = 0.f;
       if (g >= G) continue;
       const float* qg = qs + g * D;
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < KV; ++i) {
-        const float4 qa = *reinterpret_cast<const float4*>(qg + i * 8);
-        const float4 qb = *reinterpret_cast<const float4*>(qg + i * 8 + 4);
-        const float2 k0 = bf16x2_to_float2(kr[i].x);
-        const float2 k1 = bf16x2_to_float2(kr[i].y);
-        const float2 k2 = bf16x2_to_float2(kr[i].z);
-        const float2 k3 = bf16x2_to_float2(kr[i].w);
-        dot += qa.x * k0.x + qa.y * k0.y + qa.z * k1.x + qa.w * k1.y +
-               qb.x * k2.x + qb.y * k2.y + qb.z * k3.x + qb.w * k3.y;
-      }
-      const float s = live ? dot * sm_scale : kNegInf;
+      for (int i = 0; i < KV; ++i) dot += E::dot(qg + i * E::kPerVec, kr[i]);
+      const float s = live ? dot * k_mul : kNegInf;
       const float m_new = fmaxf(m[g], warp_max(s));
       const float alpha = expf(m[g] - m_new);
       const float p = live ? expf(s - m_new) : 0.f;
       l[g] = l[g] * alpha + warp_sum(p);
       m[g] = m_new;
-      p_bf[g] = __bfloat162float(__float2bfloat16(p));
+      if constexpr (E::kQuant)
+        pv[g] = p * v_mul;
+      else
+        pv[g] = __bfloat162float(__float2bfloat16(p));
 #pragma unroll
       for (int d = 0; d < DL; ++d) acc[g][d] *= alpha;
     }
@@ -173,16 +266,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       float v[DL];
-#pragma unroll
-      for (int d = 0; d < DL / 2; ++d) {
-        const float2 f = bf16x2_to_float2(vr[j][d]);
-        v[2 * d] = f.x;
-        v[2 * d + 1] = f.y;
-      }
+      E::template v_floats<DL>(vr[j], v);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g >= G) continue;
-        const float pj = __shfl_sync(kFull, p_bf[g], j);
+        const float pj = __shfl_sync(kFull, pv[g], j);
 #pragma unroll
         for (int d = 0; d < DL; ++d) acc[g][d] += pj * v[d];
       }
@@ -218,20 +306,40 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* lengths, const void* win_starts,
-           void* o, int B, int H, int KH, int P, int MB, int window, int sink,
-           float sm_scale, cudaStream_t st) {
+           const void* k_scales, const void* v_scales, const void* tables,
+           const void* lengths, const void* win_starts, void* o, int B, int H,
+           int KH, int P, int MB, int window, int sink, float sm_scale,
+           cudaStream_t st) {
   const dim3 grid(B, KH);
-  paged_decode_kernel<D><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths),
-      static_cast<const int*>(win_starts), static_cast<__nv_bfloat16*>(o), H,
-      KH, P, MB, window, sink, sm_scale);
+  paged_decode_kernel<T, D><<<grid, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<const int*>(win_starts),
+      static_cast<__nv_bfloat16*>(o), H, KH, P, MB, window, sink, sm_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scales, const void* v_scales, const void* tables,
+             const void* lengths, const void* win_starts, void* o, int B, int H,
+             int KH, int D, int P, int MB, int window, int sink, float sm_scale,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KH != 0 || H / KH > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64:
+      return launch<T, 64>(q, k_pool, v_pool, k_scales, v_scales, tables, lengths,
+                           win_starts, o, B, H, KH, P, MB, window, sink, sm_scale, st);
+    case 128:
+      return launch<T, 128>(q, k_pool, v_pool, k_scales, v_scales, tables, lengths,
+                            win_starts, o, B, H, KH, P, MB, window, sink, sm_scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -242,18 +350,20 @@ extern "C" int aios_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* lengths, const void* win_starts, void* o, int B, int H, int KH,
     int D, int P, int MB, int window, int sink, float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KH != 0 || H / KH > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64:
-      return launch<64>(q, k_pool, v_pool, tables, lengths, win_starts, o, B, H,
-                        KH, P, MB, window, sink, sm_scale, st);
-    case 128:
-      return launch<128>(q, k_pool, v_pool, tables, lengths, win_starts, o, B,
-                         H, KH, P, MB, window, sink, sm_scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                                 lengths, win_starts, o, B, H, KH, D, P, MB,
+                                 window, sink, sm_scale, stream);
+}
+
+// The int8 pool: k_scales / v_scales are [N, P, KH] f32.
+extern "C" int aios_paged_decode_attention_int8(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
+    const void* v_scales, const void* tables, const void* lengths,
+    const void* win_starts, void* o, int B, int H, int KH, int D, int P, int MB,
+    int window, int sink, float sm_scale, void* stream) {
+  return dispatch<int8_t>(q, k_pool, v_pool, k_scales, v_scales, tables,
+                          lengths, win_starts, o, B, H, KH, D, P, MB, window,
+                          sink, sm_scale, stream);
 }
 
 extern "C" const char* aios_error_string(int err) {

@@ -10,11 +10,16 @@ tokens out.
 A slot's life: ``prefill(slot, prompt)`` writes K/V rows [0, len) and samples
 the first token, ``step(n)`` extends every active slot by n tokens,
 ``release(slot)`` returns its pages. Inactive slots decode garbage against
-the sacrificial page; their outputs are ignored.
+the sacrificial page; their outputs are ignored. A sliding-window model
+returns each slot's pages below the window to the pool before a dispatch.
+
+Weights serve as int8 (``quantize="int8"``) or group-wise int4
+(``quantize="int4"``); the pool is bf16, or int8 (``cache_dtype=torch.int8``)
+with [L, N, P, KH] f32 scale pools beside it, rows quantizing on write.
 
 Not here yet (later slices of the port): the prefix cache and host tier,
 chunked admission, speculation and jump-ahead, the multi-tick megagraph,
-KV compression, sharding and the pipelined ``step_async``.
+window+sink KV compression, sharding and the pipelined ``step_async``.
 """
 
 from __future__ import annotations
@@ -69,13 +74,13 @@ class TorchEngine:
             b for b in DEFAULT_BUCKETS if b <= self.max_context
         ) or (self.max_context,)
         self._lock = threading.Lock()
-        if quantize not in (None, False, "int8"):
-            raise ValueError(f"unsupported quantize mode {quantize!r} (int8 only)")
+        if quantize not in (None, False, "int8", "int4"):
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
         params = _to_device(params, self.device)
         if model.is_quantized(params):
             self.quantized = True
         elif quantize:
-            params = model.quantize_params(params)
+            params = model.quantize_params(params, mode=quantize)
             self.quantized = True
         else:
             self.quantized = False
@@ -95,6 +100,12 @@ class TorchEngine:
         self.k_pool, self.v_pool = model.init_kv_cache(
             cfg, num_pages, page_size, cache_dtype, self.device
         )
+        self.quant_cache = cache_dtype == torch.int8
+        self.k_scales = self.v_scales = None
+        if self.quant_cache:
+            self.k_scales, self.v_scales = model.init_kv_scales(
+                cfg, num_pages, page_size, self.device
+            )
         dev = self.device
         self.lengths = torch.zeros(num_slots, dtype=torch.int32, device=dev)
         self.last_tokens = torch.zeros(num_slots, dtype=torch.int64, device=dev)
@@ -108,6 +119,7 @@ class TorchEngine:
         self._host_lengths = np.zeros(num_slots, dtype=np.int64)
         self.decode_steps = 0
         self.prefills = 0
+        self.kv_pages_trimmed = 0
 
     # -- admission ------------------------------------------------------------
 
@@ -146,8 +158,16 @@ class TorchEngine:
             pages = np.repeat(self.allocator.tables[slot, :nb], P)[:bucket]
             pages = torch.from_numpy(pages.astype(np.int64)).to(dev)
             offs = torch.arange(bucket, device=dev) % P
-            self.k_pool[:, pages, offs] = ks[:, 0].to(self.k_pool.dtype)
-            self.v_pool[:, pages, offs] = vs[:, 0].to(self.v_pool.dtype)
+            if self.quant_cache:
+                kq, k_s = model.quantize_kv(ks[:, 0])  # [L, T, KH, D], [L, T, KH]
+                vq, v_s = model.quantize_kv(vs[:, 0])
+                self.k_pool[:, pages, offs] = kq
+                self.v_pool[:, pages, offs] = vq
+                self.k_scales[:, pages, offs] = k_s
+                self.v_scales[:, pages, offs] = v_s
+            else:
+                self.k_pool[:, pages, offs] = ks[:, 0].to(self.k_pool.dtype)
+                self.v_pool[:, pages, offs] = vs[:, 0].to(self.v_pool.dtype)
             temp = torch.tensor([temperature], dtype=torch.float32, device=dev)
             tp = torch.tensor([top_p], dtype=torch.float32, device=dev)
             first = sampling.sample(logits[0, true_len - 1][None], self.generator, temp, tp)
@@ -167,9 +187,16 @@ class TorchEngine:
     def _back_active_slots(self, grow_rows: int) -> None:
         """Back every active slot's next ``grow_rows`` rows BEFORE a
         dispatch, so PoolExhausted surfaces with state untouched and the
-        batcher can retire a victim and retry. Caller holds the lock."""
+        batcher can retire a victim and retry; a windowed model first
+        returns the pages attention can no longer reach. Caller holds the
+        lock."""
+        window = self.cfg.sliding_window
         for s in range(self.num_slots):
             if self.active[s]:
+                if window is not None:
+                    self.kv_pages_trimmed += self.allocator.trim_below_window(
+                        s, int(self._host_lengths[s]), window
+                    )
                 self.allocator.ensure(
                     s, min(int(self._host_lengths[s]) + grow_rows, self.max_context)
                 )
@@ -188,6 +215,9 @@ class TorchEngine:
                 logits = model.decode_step_paged(
                     self.params, self.cfg, self.last_tokens, self.lengths,
                     self.k_pool, self.v_pool, tables, active=self.active_dev,
+                    cache_scales=(
+                        (self.k_scales, self.v_scales) if self.quant_cache else None
+                    ),
                 )
                 nxt = sampling.sample(logits, self.generator, self.temps, self.top_ps)
                 out[i] = nxt
@@ -219,6 +249,7 @@ class TorchEngine:
             "batch_occupancy": round(active / self.num_slots, 3) if self.num_slots else 0.0,
             "kv_pages_in_use": self.allocator.pages_in_use(),
             "kv_pages_free": self.allocator.free_pages,
+            "kv_pages_trimmed": self.kv_pages_trimmed,
         }
 
     def warmup(self) -> None:
@@ -234,6 +265,7 @@ class TorchEngine:
         with self._lock:
             self.params = None
             self.k_pool = self.v_pool = None
+            self.k_scales = self.v_scales = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

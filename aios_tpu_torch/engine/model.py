@@ -15,7 +15,10 @@ D=head_dim), layer leaves stacked on a leading [L] axis:
   lm_head    [E, V]                                   (absent if tied)
 
 ``quantize_params`` turns the matmul weights into int8 serving leaves
-{"q": int8, "s": f32} with fused ``w_qkv`` and ``w_gateup``. Every entry
+{"q": int8, "s": f32}, or group-wise int4 leaves {"q4": packed uint8, "s4":
+f32}, with fused ``w_qkv`` and ``w_gateup``. A paged pool is bf16 (or f32 in
+tests), or int8 with per-(page row, kv head) f32 scales beside it
+(``cache_scales``). Every entry
 point takes ``kernels``: True runs the ops wrappers (the CUDA kernels on
 CUDA tensors, their plain twins on CPU tensors), False calls the plain
 ``*_reference`` functions by name — how a caller holds the kernel path
@@ -24,58 +27,86 @@ against the plain path on the card.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import ops
+from ..ops.int4_matmul import kernel_supported, pick_group, supports_int4
 from .config import ModelConfig
 
 Params = Dict[str, object]
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+FUSED = {"w_qkv": ("wq", "wk", "wv"), "wo": ("wo",), "w_gateup": ("w_gate", "w_up"),
+         "w_down": ("w_down",)}  # serving leaf -> the dense leaves it concatenates
+_RECIP_127 = float(torch.tensor(1 / 127, dtype=torch.float32))  # f32(1/127)
 
 
 def matmul(x: torch.Tensor, w, kernels: bool = True) -> torch.Tensor:
-    """x @ w for a dense weight or an int8 leaf {"q", "s"}."""
+    """x @ w for a dense weight, an int8 leaf {"q", "s"} or an int4 leaf
+    {"q4", "s4"}."""
     if isinstance(w, dict):
+        if "q4" in w:
+            fn = ops.int4_matmul if kernels else ops.int4_matmul_reference
+            return fn(x.contiguous(), w["q4"], w["s4"])
         fn = ops.quantized_matmul if kernels else ops.quantized_matmul_reference
         return fn(x.contiguous(), w["q"], w["s"])
     return x @ w
 
 
-def quantize_params(params: Params, include_head: bool = True) -> Params:
-    """Int8 serving leaves, the JAX package's ``quantize_params`` in int8 mode
-    with fusion: wq|wk|wv concatenate into one [E, Q+2K] ``w_qkv`` and
-    w_gate|w_up into one [E, 2F] ``w_gateup`` (4 weight matmuls per layer
-    instead of 7), and a tied lm_head becomes its own quantized [E, V]
-    matrix. Same int8 bytes and scales as the JAX function for the same
-    input."""
+def _quant_leaf(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
+    """One serving leaf. An int4 leaf needs a storage layout for its [K, N]
+    and, on CUDA, one the kernel serves (128-row groups); anything else
+    falls back to int8, as in the JAX package. On the CPU every leaf takes
+    the plain path, so storage eligibility is enough (keeps tiny test
+    geometries on int4)."""
+    if mode == "int4":
+        K, N = w.shape[-2], w.shape[-1]
+        group = pick_group(K)
+        eligible = supports_int4(K, N, group) and (
+            w.device.type == "cpu" or kernel_supported(K, N, group)
+        )
+        if eligible:
+            p, s = ops.quantize_int4(w, group)
+            return {"q4": p, "s4": s}
+    q, s = ops.quantize_int8(w, axis=-2)
+    return {"q": q, "s": s}
+
+
+def quantize_params(params: Params, include_head: bool = True,
+                    mode: str = "int8") -> Params:
+    """Serving leaves, the JAX package's ``quantize_params`` with fusion:
+    wq|wk|wv concatenate into one [E, Q+2K] ``w_qkv`` and w_gate|w_up into
+    one [E, 2F] ``w_gateup`` (4 weight matmuls per layer instead of 7), and
+    a tied lm_head becomes its own quantized [E, V] matrix. ``mode`` is
+    "int8" (per-column int8) or "int4" (group-wise int4, int8 for a leaf
+    that cannot take it). Same bytes and scales as the JAX function for the
+    same input."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown weight quantization mode {mode!r}")
     out = dict(params)
     src = params["layers"]
     layers = {k: v for k, v in src.items() if k not in QUANT_KEYS}
-    fused = (
-        ("w_qkv", torch.cat([src["wq"], src["wk"], src["wv"]], dim=-1)),
-        ("wo", src["wo"]),
-        ("w_gateup", torch.cat([src["w_gate"], src["w_up"]], dim=-1)),
-        ("w_down", src["w_down"]),
-    )
-    for key, w in fused:
-        q, s = ops.quantize_int8(w, axis=-2)
-        layers[key] = {"q": q, "s": s}
+    # one fused matrix at a time, so only one concatenated copy exists
+    for key, parts in FUSED.items():
+        w = torch.cat([src[k] for k in parts], dim=-1) if len(parts) > 1 else src[key]
+        layers[key] = _quant_leaf(w, mode)
     out["layers"] = layers
     if include_head:
         head = params.get("lm_head")
         if head is None:
             head = params["embed"].T
-        q, s = ops.quantize_int8(head, axis=-2)
-        out["lm_head"] = {"q": q, "s": s}
+        out["lm_head"] = _quant_leaf(head, mode)
     return out
 
 
 def is_quantized(params: Params) -> bool:
-    return any(isinstance(v, dict) for v in params["layers"].values())
+    """Whether the layers hold serving leaves (int8 {"q", "s"} or int4
+    {"q4", "s4"})."""
+    return any(isinstance(v, dict) and ("q" in v or "q4" in v)
+               for v in params["layers"].values())
 
 
 def layer_params(params: Params) -> List[Dict[str, object]]:
@@ -229,6 +260,7 @@ def decode_step_paged(
     tables: torch.Tensor,  # [B, MB] int32 — logical block -> physical page
     active: torch.Tensor = None,  # [B] bool
     kernels: bool = True,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One batched decode step over the paged cache; returns logits [B, V]
     in fp32.
@@ -238,7 +270,12 @@ def decode_step_paged(
     ``lengths[b]`` goes to page ``tables[b, lengths[b] // P]`` at offset
     ``lengths[b] % P``. Inactive slots write the sacrificial page 0 (offset
     P-1) and attend zero rows. The caller must have backed row
-    ``lengths[b]`` of every active slot (PageAllocator.ensure)."""
+    ``lengths[b]`` of every active slot (PageAllocator.ensure).
+
+    ``cache_scales`` — (k_scales, v_scales) [L, N, P, KH] f32 — marks an
+    int8 pool: rows quantize on write (values and scales in place) and
+    attention streams the int8 pages with the scales folded into both
+    products (``paged_decode_attention_int8``)."""
     B = tokens.shape[0]
     P = k_pool.shape[2]
     if active is None:
@@ -251,17 +288,74 @@ def decode_step_paged(
 
     x = params["embed"][tokens][:, None, :]  # [B, 1, E]
     cos, sin = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
-    attn_fn = ops.paged_decode_attention if kernels else ops.paged_decode_attention_reference
+    if cache_scales is not None:
+        attn_fn = (ops.paged_decode_attention_int8 if kernels
+                   else ops.paged_decode_attention_int8_reference)
+    else:
+        attn_fn = (ops.paged_decode_attention if kernels
+                   else ops.paged_decode_attention_reference)
     for i, lp in enumerate(layer_params(params)):
         q, k_new, v_new = _project_qkv(x, lp, cfg, cos, sin, kernels)
         k_l, v_l = k_pool[i], v_pool[i]
-        k_l[pages, offs] = k_new[:, 0].to(k_l.dtype)
-        v_l[pages, offs] = v_new[:, 0].to(v_l.dtype)
-        attn = attn_fn(q[:, 0].contiguous(), k_l, v_l, tables, read_lengths,
+        if cache_scales is not None:
+            k_s, v_s = cache_scales[0][i], cache_scales[1][i]
+            scatter_quant(k_l, k_s, pages, offs, k_new[:, 0])
+            scatter_quant(v_l, v_s, pages, offs, v_new[:, 0])
+            pools = (k_l, v_l, k_s, v_s)
+        else:
+            k_l[pages, offs] = k_new[:, 0].to(k_l.dtype)
+            v_l[pages, offs] = v_new[:, 0].to(v_l.dtype)
+            pools = (k_l, v_l)
+        attn = attn_fn(q[:, 0].contiguous(), *pools, tables, read_lengths,
                        window=cfg.sliding_window)
         x = x + matmul(attn.reshape(B, 1, -1), lp["wo"], kernels)
         x = x + _mlp(x, lp, cfg, kernels)
     return _final_logits(x[:, 0], params, cfg, kernels)
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV pool
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head dim: x [..., D] -> (int8 [..., D], f32
+    [...]). Scale absmax / 127 (1.0 for an all-zero row), round half to
+    even, clip to +-127: the bytes and scales of the JAX package's
+    ``quantize_kv`` as its engine runs it, compiled, where XLA turns the
+    division by 127 into a product with the f32 reciprocal."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax * _RECIP_127, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None].to(torch.float32)).to(dtype)
+
+
+def scatter_quant(pool: torch.Tensor, scales: torch.Tensor, pages: torch.Tensor,
+                  offs: torch.Tensor, rows: torch.Tensor) -> None:
+    """Quantize rows [..., KH, D] and write values and scales IN PLACE into
+    an int8 page pool [N, P, KH, D] and its scales [N, P, KH] at
+    (pages, offs): the write side of every int8 pool path."""
+    q, s = quantize_kv(rows)
+    pool[pages, offs] = q
+    scales[pages, offs] = s
+
+
+def gather_dequant(pool: torch.Tensor, scales: torch.Tensor, tables: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Dequantized logical views [..., MB*P, KH, D] of the slots whose page
+    tables are ``tables`` [..., MB]: the read-side twin of
+    ``scatter_quant``."""
+    t = tables.long()
+    out = dequantize_kv(pool[t], scales[t], dtype)
+    MB = tables.shape[-1]
+    P, KH, D = pool.shape[1], pool.shape[2], pool.shape[3]
+    return out.reshape(*tables.shape[:-1], MB * P, KH, D)
 
 
 # ---------------------------------------------------------------------------
@@ -275,4 +369,13 @@ def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_kv_scales(cfg: ModelConfig, num_pages: int, page_size: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 scales of an int8 pool, [L, N, P, KH] each for k and v,
+    starting at 1.0 so that never-written rows (page 0) stay finite."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads)
+    return (torch.ones(shape, dtype=torch.float32, device=device),
+            torch.ones(shape, dtype=torch.float32, device=device))
 

@@ -10,9 +10,10 @@ Page 0 is the sacrificial page: never allocated, mapped by every unbacked
 table entry, and the write target of inactive slots.
 
 A copy of ``PageAllocator`` and ``PoolExhausted`` from
-``aios_tpu/engine/paged.py`` without what the port has not reached yet
-(replica partitions, shared prefix pages, window trimming, pruning). The
-caller (the engine, under its lock) serializes access.
+``aios_tpu/engine/paged.py``, window trimming included, without what the
+port has not reached yet (replica partitions, shared prefix pages,
+window+sink pruning). The caller (the engine, under its lock) serializes
+access.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ class PageAllocator:
         self.tables = np.full((num_slots, max_blocks), SACRIFICIAL_PAGE,
                               dtype=np.int32)
         self._blocks_used = np.zeros(num_slots, dtype=np.int64)
+        # leading blocks of each slot already returned by trim_below_window
+        self._trimmed = np.zeros(num_slots, dtype=np.int64)
 
     @property
     def free_pages(self) -> int:
@@ -86,10 +89,30 @@ class PageAllocator:
 
     def free_slot(self, slot: int) -> None:
         """Return the slot's pages to the free list and remap its table row
-        to the sacrificial page."""
+        to the sacrificial page. Blocks released earlier by window trimming
+        are already free and are skipped."""
         used = int(self._blocks_used[slot])
-        for b in range(used):
+        for b in range(int(self._trimmed[slot]), used):
             self._free.append(int(self.tables[slot, b]))
         self.tables[slot, :used] = SACRIFICIAL_PAGE
         self._blocks_used[slot] = 0
+        self._trimmed[slot] = 0
+
+    def trim_below_window(self, slot: int, length: int, window: int) -> int:
+        """Release the slot's leading blocks that sliding-window attention
+        can never read again: block b is dead once its last row
+        ``(b+1)*P - 1`` falls below ``length - window`` (window starts only
+        move forward, and the decode kernels start reading at
+        ``max(length + 1 - window, 0)``). The table entries keep their stale
+        page ids; they are never read and ``ensure`` never rewinds. Returns
+        the blocks freed now."""
+        used = int(self._blocks_used[slot])
+        dead = min(max(length - window, 0) // self.page_size, used)
+        freed = 0
+        for b in range(int(self._trimmed[slot]), dead):
+            self._free.append(int(self.tables[slot, b]))
+            freed += 1
+        if dead > self._trimmed[slot]:
+            self._trimmed[slot] = dead
+        return freed
 

@@ -2,9 +2,13 @@
 plain PyTorch version.
 
   * ``quantized_matmul`` — int8-weight x bf16-activation matmul with
-    per-output-channel scales; every projection and the lm_head.
+    per-output-channel scales; every projection and the lm_head of int8
+    serving.
   * ``flash_attention`` — blockwise causal GQA attention for prefill.
-  * ``paged_decode_attention`` — one query per slot over the paged KV pool.
+  * ``paged_decode_attention`` — one query per slot over the paged KV pool;
+    ``paged_decode_attention_int8`` the same over an int8 pool + scales.
+  * ``int4_matmul`` — group-wise int4-weight x bf16-activation matmul; every
+    projection and the lm_head of int4 serving.
 
 There is no gate: each wrapper runs its plain ``*_reference`` twin for CPU
 tensors and its kernel for CUDA tensors (or raises). Callers that want the
@@ -17,9 +21,17 @@ from __future__ import annotations
 
 from .build import build_all
 from .flash_attention import flash_attention, flash_attention_reference
+from .int4_matmul import (
+    dequantize_int4,
+    int4_matmul,
+    int4_matmul_reference,
+    quantize_int4,
+)
 from .paged_attention import (
     gather_pages,
     paged_decode_attention,
+    paged_decode_attention_int8,
+    paged_decode_attention_int8_reference,
     paged_decode_attention_reference,
 )
 from .quantized_matmul import (
@@ -29,17 +41,24 @@ from .quantized_matmul import (
     quantized_matmul_reference,
 )
 
-KERNELS = (quantized_matmul, flash_attention, paged_decode_attention)
+KERNELS = (quantized_matmul, flash_attention, paged_decode_attention,
+           paged_decode_attention_int8, int4_matmul)
 
 __all__ = [
     "KERNELS",
     "build_all",
     "dequantize",
+    "dequantize_int4",
     "flash_attention",
     "flash_attention_reference",
     "gather_pages",
+    "int4_matmul",
+    "int4_matmul_reference",
     "paged_decode_attention",
+    "paged_decode_attention_int8",
+    "paged_decode_attention_int8_reference",
     "paged_decode_attention_reference",
+    "quantize_int4",
     "quantize_int8",
     "quantized_matmul",
     "quantized_matmul_reference",

@@ -29,7 +29,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("quantized_matmul", "flash_attention", "paged_attention")
+SOURCES = ("quantized_matmul", "flash_attention", "paged_attention", "int4_matmul")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -51,16 +51,17 @@ def quantized_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int]:
+def plan(M: int, N: int, K: int, sms: int, block_k: int = 0) -> Tuple[int, int, int]:
     """(block_m, splits, k_per_split) for an [M, K] @ [K, N] launch: 16-row
-    tiles for decode-sized M, 64 otherwise, and K split over blocks until
+    tiles for decode-sized M, 64 otherwise, K tiles ``block_k`` deep (by
+    default the block_m variant's depth), and K split over blocks until
     about two blocks per SM are in flight."""
     block_m = 16 if M <= 16 else 64
-    block_k = BLOCK_K[block_m]
+    block_k = block_k or BLOCK_K[block_m]
     tiles = math.ceil(M / block_m) * math.ceil(N / BLOCK_N)
     k_tiles = math.ceil(K / block_k)
     want = max(1, min(k_tiles, math.ceil(2 * sms / tiles)))
@@ -93,7 +94,7 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
     y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     if M == 0:
         return y.reshape(*lead, N)
-    block_m, splits, k_per_split = plan(M, N, K, _sm_count(dev.index or 0))
+    block_m, splits, k_per_split = plan(M, N, K, sm_count(dev.index or 0))
     partial = (
         torch.empty((splits, M, N), dtype=torch.float32, device=dev)
         if splits > 1 else y

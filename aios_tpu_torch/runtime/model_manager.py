@@ -8,6 +8,10 @@ partial name or by the reference's intelligence-level ladders.
 Serving defaults: int8 weights on CUDA (dense on the CPU, where int8 would
 only add a dequantize to every matmul), a bf16 KV cache, and a paged pool
 sized ``auto`` = (num_slots + 1) x context rows in pages of 128 rows.
+``quantize`` ("int8", "int4", or False for dense) and ``kv_cache`` ("bf16"
+or "int8") override them; left as None they come from the JAX stack's
+variables ``AIOS_TPU_QUANTIZE`` and ``AIOS_TPU_KV_CACHE``, which its boot
+config sets from the ``[models]`` keys ``quantize`` and ``kv_cache``.
 ``synthetic://<preset>`` sources build random weights on the target device
 from a seeded generator. Real GGUF/HF weights, replica pools, admission
 control and the HBM budget wait for later slices.
@@ -16,6 +20,7 @@ control and the HBM budget wait for later slices.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -83,15 +88,53 @@ def resolve_preset(name: str) -> ModelConfig:
     raise KeyError(f"no preset matches {name!r}")
 
 
+def _quantize_mode(quantize: Union[bool, str, None], device: torch.device):
+    """The serving weight mode: "int8", "int4" or False (dense); None reads
+    the JAX stack's variable, then defaults by device."""
+    if quantize is None:
+        env = os.environ.get("AIOS_TPU_QUANTIZE", "").lower()
+        if env in ("0", "false", "off"):
+            return False
+        if env in ("1", "true", "int8"):
+            return "int8"
+        if env == "int4":
+            return "int4"
+        if env:
+            log.warning("unrecognized AIOS_TPU_QUANTIZE=%r (expected 0/1/int8/"
+                        "int4); using the auto default", env)
+        return "int8" if device.type == "cuda" else False
+    if quantize not in (False, "int8", "int4"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    return quantize
+
+
+def _cache_dtype(kv_cache: Optional[str]) -> torch.dtype:
+    """The KV pool's dtype: bf16 by default, int8 on request."""
+    if kv_cache is None:
+        env = os.environ.get("AIOS_TPU_KV_CACHE", "").lower()
+        if env == "int8":
+            return torch.int8
+        if env and env not in ("bf16", "bfloat16"):
+            log.warning("unrecognized AIOS_TPU_KV_CACHE=%r (expected 'int8'); "
+                        "using bf16", env)
+        return torch.bfloat16
+    if kv_cache not in ("int8", "bf16", "bfloat16"):
+        raise ValueError(f"unknown kv_cache {kv_cache!r} (expected 'bf16' or 'int8')")
+    return torch.int8 if kv_cache == "int8" else torch.bfloat16
+
+
 class ModelManager:
     """Registry of co-resident models on one device."""
 
     def __init__(self, num_slots: int = 8,
-                 device: Optional[Union[str, torch.device]] = None) -> None:
+                 device: Optional[Union[str, torch.device]] = None,
+                 quantize: Union[bool, str, None] = None,
+                 kv_cache: Optional[str] = None) -> None:
         self.device = resolve_device(device)
         self.models: Dict[str, ManagedModel] = {}
         self.num_slots = num_slots
-        self.quantize = "int8" if self.device.type == "cuda" else False
+        self.quantize = _quantize_mode(quantize, self.device)
+        self.cache_dtype = _cache_dtype(kv_cache)
         self._lock = threading.Lock()
 
     @property
@@ -115,6 +158,13 @@ class ModelManager:
             cfg, params, tokenizer = self._load_weights(name, path, context_length)
             ctx = context_length or cfg.max_context
             page = PAGE_SIZE if ctx % PAGE_SIZE == 0 else 16
+            if self.cache_dtype == torch.int8 and ctx % PAGE_SIZE:
+                # the JAX stack serves such a context from its dense cache,
+                # which the port does not have
+                raise ValueError(
+                    f"context {ctx} must be a multiple of {PAGE_SIZE} for the "
+                    "int8 paged KV pool"
+                )
             if ctx % page:
                 raise ValueError(
                     f"context {ctx} must be a multiple of {PAGE_SIZE} (or 16) "
@@ -126,7 +176,7 @@ class ModelManager:
                 page_size=page,
                 num_slots=self.num_slots,
                 max_context=ctx,
-                cache_dtype=torch.bfloat16,
+                cache_dtype=self.cache_dtype,
                 quantize=self.quantize,
                 device=self.device,
             )
@@ -158,8 +208,9 @@ class ModelManager:
             self.models[name] = managed
         if old is not None and old.state == STATE_READY:
             self._shutdown(old)
-        log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s)", name,
-                 time.time() - t0, ctx, self.num_slots, self.device)
+        log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
+                 "%s pool)", name, time.time() - t0, ctx, self.num_slots,
+                 self.device, self.quantize or "dense", self.cache_dtype)
         return managed
 
     def _load_weights(self, name: str, path: str, context_length: int):
