@@ -11,15 +11,23 @@ next scheduler boundary. When the page pool cannot back a dispatch or an
 admission, the lowest-priority longest request is evicted (its stream ends
 as an abort) and the work retries.
 
+With ``speculative=True`` every decode tick is a speculative dispatch
+(``TorchEngine.spec_step``, the n-gram proposer): greedy requests emit the
+same tokens in fewer dispatches, sampling requests one token per round. An
+acceptance EWMA suspends speculation while its drafts keep failing and
+re-probes later; ``degrade_spec`` switches it off from outside.
+
 Not here yet: chunked admission (every prompt takes whole-prompt prefill,
 as the JAX batcher does when the engine cannot honour a chunk size),
-the pipelined decode loop, constrained decoding and speculation.
+the pipelined decode loop, constrained decoding with jump-ahead, and the
+draft-model proposer.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 import queue
 import threading
 import time
@@ -42,6 +50,28 @@ PRIORITY_AGING_SECS = 5.0
 # batcher's chunk_steps / admit_chunk_steps defaults).
 CHUNK_STEPS = 16
 ADMIT_CHUNK_STEPS = 2
+
+# Speculation auto-disable (the JAX batcher's constants): how long a collapsed
+# proposer stays suspended, the weight of a dispatch in its acceptance EWMA,
+# and how many probe dispatches re-measure before the floor judges again.
+SPEC_REPROBE_SECS = 10.0
+SPEC_EWMA_ALPHA = 0.3
+SPEC_PROBE_DISPATCHES = 3
+
+
+def _env_float(name: str, ok, why: str) -> Optional[float]:
+    """A float from the environment, or None when unset or refused."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    try:
+        value = float(raw)
+        if not ok(value):
+            raise ValueError(why)
+    except ValueError as exc:
+        log.warning("%s=%r ignored (%s)", name, raw, exc)
+        return None
+    return value
 
 
 @dataclass
@@ -113,8 +143,48 @@ class RequestHandle:
 class ContinuousBatcher:
     """Background scheduler marrying a request queue to engine slots."""
 
-    def __init__(self, engine: TorchEngine) -> None:
+    def __init__(
+        self,
+        engine: TorchEngine,
+        speculative: bool = False,
+        spec_draft_len: int = 7,
+        spec_ngram: int = 3,
+        spec_min_accept: Optional[float] = None,  # auto-disable floor
+        spec_reprobe_secs: Optional[float] = None,  # suspension length
+    ) -> None:
         self.engine = engine
+        if speculative and not engine.spec_supported:
+            log.warning("speculative decoding disabled: unsupported on this "
+                        "engine config (paged KV pool)")
+            speculative = False
+        self.speculative = speculative
+        self.spec_draft_len = spec_draft_len
+        self.spec_ngram = spec_ngram
+        # When the EWMA draft-acceptance ratio of the speculative dispatches
+        # falls below this floor, speculation suspends for spec_reprobe_secs
+        # and decode takes plain ticks, whose cost the failed drafts were
+        # inflating. 0 never suspends. Unset, both come from the JAX stack's
+        # variables.
+        if spec_min_accept is None:
+            spec_min_accept = _env_float(
+                "AIOS_TPU_SPEC_MIN_ACCEPT", lambda v: 0.0 <= v <= 1.0, "must be in [0, 1]")
+        self.spec_min_accept = 0.0 if spec_min_accept is None else spec_min_accept
+        if spec_reprobe_secs is None:
+            spec_reprobe_secs = _env_float(
+                "AIOS_TPU_SPEC_REPROBE_SECS", lambda v: v > 0, "must be > 0")
+        self.spec_reprobe_secs = (SPEC_REPROBE_SECS if spec_reprobe_secs is None
+                                  else spec_reprobe_secs)
+        # per proposer, as in the JAX batcher, whose ladder also has a
+        # draft-model rung: acceptance EWMA, suspension end, probe budget
+        self.spec_proposers: Tuple[str, ...] = ("ngram",)
+        self.spec_ewma: Dict[str, Optional[float]] = {p: None for p in self.spec_proposers}
+        self._spec_off_until = {p: 0.0 for p in self.spec_proposers}
+        self._spec_probe_left = {p: 0 for p in self.spec_proposers}
+        self._spec_probe_seen = {p: 0 for p in self.spec_proposers}
+        self.spec_autodisables = 0
+        # set from outside to shed speculation under load; greedy streams are
+        # the same either way, so a flip mid-stream perturbs nothing
+        self.degrade_spec = False
         self.pool_evictions = 0
         self.cancellations = 0
         self.completed = 0
@@ -172,7 +242,7 @@ class ContinuousBatcher:
     # -- scheduler loop -------------------------------------------------------
 
     def _admit(self) -> None:
-        alloc = self.engine.allocator
+        alloc = self.engine.allocator  # None over the dense cache
         while True:
             free = self.engine.free_slots()
             if not free:
@@ -191,7 +261,7 @@ class ContinuousBatcher:
             live.slot = slot
             ids = live.req.prompt_ids
             need_rows = min(len(ids), self.engine.max_context - 1)
-            if alloc.blocks_for(need_rows) > alloc.capacity_blocks():
+            if alloc is not None and alloc.blocks_for(need_rows) > alloc.capacity_blocks():
                 # can NEVER fit: fail it now instead of evicting every
                 # co-resident stream on the way to the same conclusion
                 log.warning("request %s prompt (%d tokens) exceeds the whole "
@@ -312,6 +382,89 @@ class ContinuousBatcher:
                 log.exception("continuous batcher scheduler failed; aborting requests")
                 self._terminate_outstanding(f"scheduler failed: {exc!r}"[:200])
 
+    # -- speculation auto-disable (per-proposer EWMA acceptance floor) ---------
+
+    def _spec_proposer(self) -> Optional[str]:
+        """The proposer the next decode tick dispatches with, or None while
+        every one is suspended. An expired suspension grants the proposer
+        SPEC_PROBE_DISPATCHES probe dispatches on a fresh cumulative average
+        before the floor judges again."""
+        now = time.monotonic()
+        for p in self.spec_proposers:
+            off = self._spec_off_until[p]
+            if off:
+                if now < off:
+                    continue
+                self._spec_off_until[p] = 0.0
+                self.spec_ewma[p] = None
+                self._spec_probe_left[p] = SPEC_PROBE_DISPATCHES
+                self._spec_probe_seen[p] = 0
+            return p
+        return None
+
+    def _spec_active(self) -> bool:
+        """Whether the next decode tick may dispatch speculatively."""
+        if self.degrade_spec:
+            return False
+        return self._spec_proposer() is not None
+
+    def _spec_measure(self, proposer: str, counts, consumed: Dict[int, int]) -> None:
+        """Fold one speculative dispatch's acceptance into ``proposer``'s
+        EWMA and suspend it when that falls below the floor. ``counts`` is
+        the dispatch's [rounds, num_slots] emitted-token matrix; ``consumed``
+        maps slot -> rounds whose tokens were actually emitted (each emits
+        1 + accepted drafts). Rounds past a request's retirement inside the
+        dispatch are excluded: their drafts score a continuation that is
+        never served."""
+        possible = sum(consumed.values()) * self.spec_draft_len
+        if not possible:
+            return
+        accepted = sum(float(counts[:r, s].sum()) - r for s, r in consumed.items())
+        ratio = max(accepted, 0.0) / possible
+        prev = self.spec_ewma[proposer]
+        if prev is None:
+            self.spec_ewma[proposer] = ratio
+            self._spec_probe_seen[proposer] = 1
+        elif self._spec_probe_left[proposer] > 0:
+            # probe phase: a cumulative average over the probe budget (an
+            # EWMA seeded from one sample would weigh it like a whole
+            # collapsed history)
+            n = self._spec_probe_seen[proposer]
+            self.spec_ewma[proposer] = (prev * n + ratio) / (n + 1)
+            self._spec_probe_seen[proposer] = n + 1
+        else:
+            self.spec_ewma[proposer] = (
+                (1 - SPEC_EWMA_ALPHA) * prev + SPEC_EWMA_ALPHA * ratio)
+        if self._spec_probe_left[proposer] > 0:
+            self._spec_probe_left[proposer] -= 1
+            if self._spec_probe_left[proposer] > 0:
+                return  # the verdict waits until the probe budget drains
+        if self.spec_min_accept > 0 and self.spec_ewma[proposer] < self.spec_min_accept:
+            self._spec_off_until[proposer] = time.monotonic() + self.spec_reprobe_secs
+            self.spec_autodisables += 1
+            log.info("%s: %s speculation suspended (EWMA acceptance %.3f < floor "
+                     "%.3f); re-probing in %.0fs", self.engine.cfg.name, proposer,
+                     self.spec_ewma[proposer], self.spec_min_accept,
+                     self.spec_reprobe_secs)
+
+    def _spec_tick(self, proposer: str, n: int, slots: Dict[int, _Live]) -> None:
+        """One speculative dispatch of ``n`` rounds: emit each round's
+        accepted run in order; ``_emit`` retires requests inside the dispatch
+        as usual."""
+        tokens, counts = self.engine.spec_step(
+            n, draft_len=self.spec_draft_len, ngram=self.spec_ngram)
+        consumed: Dict[int, int] = {}
+        for r in range(tokens.shape[0]):
+            for slot, live in slots.items():
+                if live.done:
+                    continue
+                consumed[slot] = r + 1  # this round's tokens are served
+                for j in range(int(counts[r, slot])):
+                    self._emit(live, int(tokens[r, slot, j]))
+                    if live.done:
+                        break
+        self._spec_measure(proposer, counts, consumed)
+
     def _tick(self) -> None:
         self._reap_cancelled()
         self._admit()
@@ -326,6 +479,12 @@ class ContinuousBatcher:
         with self._qlock:
             anyone_waiting = bool(self._waiting)
         n = ADMIT_CHUNK_STEPS if anyone_waiting else CHUNK_STEPS
+        proposer = None
+        if self.speculative and not self.degrade_spec:
+            proposer = self._spec_proposer()
+        if proposer is not None:
+            self._spec_tick(proposer, n, slots)
+            return
         try:
             tokens = self.engine.step(n)  # [n, num_slots]
         except PoolExhausted:

@@ -1,5 +1,5 @@
 """The Llama-family decoder in PyTorch: the port of ``aios_tpu/engine/model.py``
-for the paged serving path.
+for the paged and the dense-cache serving paths.
 
 Params are a plain dict of tensors in the JAX package's layout (E=hidden,
 Q=heads*head_dim, K=kv_heads*head_dim, F=intermediate, L=layers, V=vocab,
@@ -16,8 +16,9 @@ D=head_dim), layer leaves stacked on a leading [L] axis:
 
 ``quantize_params`` turns the matmul weights into int8 serving leaves
 {"q": int8, "s": f32}, or group-wise int4 leaves {"q4": packed uint8, "s4":
-f32}, with fused ``w_qkv`` and ``w_gateup``. A paged pool is bf16 (or f32 in
-tests), or int8 with per-(page row, kv head) f32 scales beside it
+f32}, with fused ``w_qkv`` and ``w_gateup``. The KV cache is a paged pool
+[L, N, P, KH, D] or a dense slot cache [L, S, C, KH, D], bf16 (or f32 in
+tests), or int8 with per-(row, kv head) f32 scales beside it
 (``cache_scales``). Every entry
 point takes ``kernels``: True runs the ops wrappers (the CUDA kernels on
 CUDA tensors, their plain twins on CPU tensors), False calls the plain
@@ -27,6 +28,7 @@ against the plain path on the card.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -152,6 +154,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     cos = cos[..., None, :]
     sin = sin[..., None, :]
     return (x.to(torch.float32) * cos + rotated.to(torch.float32) * sin).to(x.dtype)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Masked grouped-query attention with an fp32 softmax, the plain path
+    of the dense-cache steps. q [B, T, H, D], k/v [B, S, KH, D], mask bool
+    [B, T, S] -> [B, T, H, D]."""
+    B, T, H, D = q.shape
+    KH = k.shape[2]
+    qg = q.reshape(B, T, KH, H // KH, D)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k).to(torch.float32)
+    scores = scores / math.sqrt(D)
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(B, T, H, D)
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +332,157 @@ def decode_step_paged(
     return _final_logits(x[:, 0], params, cfg, kernels)
 
 
+def _dense_attend(q, caches, read_base, strides, mask, cfg: ModelConfig,
+                  kernels: bool):
+    """Attention of T queries per slot over one layer of the dense cache.
+    ``caches`` is (k, v) or (k, v, k_scales, v_scales). With ``kernels`` the
+    ops wrappers read only the rows each query can see; without, the whole
+    cache (dequantized when int8) goes through ``gqa_attention`` under
+    ``mask`` [B, T, C]."""
+    if not kernels:
+        if len(caches) == 4:
+            k = dequantize_kv(caches[0], caches[2], q.dtype)
+            v = dequantize_kv(caches[1], caches[3], q.dtype)
+        else:
+            k, v = caches
+        return gqa_attention(q, k, v, mask)
+    if strides is None:  # a decode step: one query per slot
+        fn = ops.decode_attention_int8 if len(caches) == 4 else ops.decode_attention
+        return fn(q[:, 0].contiguous(), *caches, read_base,
+                  window=cfg.sliding_window)[:, None]
+    fn = (ops.multiquery_decode_attention_int8 if len(caches) == 4
+          else ops.multiquery_decode_attention)
+    return fn(q.contiguous(), *caches, read_base, strides, window=cfg.sliding_window)
+
+
+def _dense_plan(cfg: ModelConfig, lengths, active, T: int, C: int, kernels: bool,
+                multi: bool):
+    """Where a dense-cache forward of T tokens per slot writes and reads:
+    (positions [B, T], plan), plan = (slots, write_rows, read_base, strides,
+    mask).
+    Inactive slots write the sacrificial last row and expose only column 0.
+    ``mask`` [B, T, C] is built for the plain path only."""
+    B = lengths.shape[0]
+    if active is None:
+        active = torch.ones(B, dtype=torch.bool, device=lengths.device)
+    positions = lengths[:, None] + torch.arange(T, device=lengths.device,
+                                                dtype=lengths.dtype)[None, :]
+    write_rows = torch.where(active[:, None], positions.clamp(max=C - 1),
+                             torch.full_like(positions, C - 1)).long()
+    read_base = torch.where(active, lengths, torch.zeros_like(lengths))
+    strides = active.to(torch.int32) if multi else None
+    mask = None
+    if not kernels:
+        qpos = torch.where(active[:, None], positions, torch.zeros_like(positions))
+        cols = torch.arange(C, device=lengths.device)[None, None, :]
+        mask = cols <= qpos[..., None]  # [B, T, C]
+        if cfg.sliding_window is not None:
+            mask = mask & (cols > qpos[..., None] - cfg.sliding_window)
+    slots = torch.arange(B, device=lengths.device)[:, None]
+    return positions, (slots, write_rows, read_base, strides, mask)
+
+
+def _dense_attention_sublayer(x, lp, cfg: ModelConfig, cos, sin, caches, plan,
+                              kernels: bool):
+    """The attention sublayer of one layer over its dense cache ``caches`` =
+    (k, v) or (k, v, k_scales, v_scales), each [B, C, ...]: project x
+    [B, T, E], write the T new K/V rows of every slot in place, attend, and
+    return the output projection [B, T, E] (the residual is the caller's)."""
+    B, T = x.shape[0], x.shape[1]
+    slots, write_rows, read_base, strides, mask = plan
+    q, k_new, v_new = _project_qkv(x, lp, cfg, cos, sin, kernels)
+    if len(caches) == 4:
+        scatter_quant(caches[0], caches[2], slots, write_rows, k_new)
+        scatter_quant(caches[1], caches[3], slots, write_rows, v_new)
+    else:
+        caches[0][slots, write_rows] = k_new.to(caches[0].dtype)
+        caches[1][slots, write_rows] = v_new.to(caches[1].dtype)
+    attn = _dense_attend(q, caches, read_base, strides, mask, cfg, kernels)
+    return matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
+
+
+def _dense_forward(params: Params, cfg: ModelConfig, tokens, lengths, k_cache,
+                   v_cache, active, kernels: bool, cache_scales, multi: bool):
+    """The body ``decode_step`` (T = 1) and ``verify_step`` share: write the
+    T new K/V rows of every slot into the dense cache in place, attend, and
+    return logits [B, T, V]."""
+    T, C = tokens.shape[1], k_cache.shape[2]
+    positions, plan = _dense_plan(cfg, lengths, active, T, C, kernels, multi)
+    x = params["embed"][tokens]  # [B, T, E]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for i, lp in enumerate(layer_params(params)):
+        caches = (k_cache[i], v_cache[i])
+        if cache_scales is not None:
+            caches += (cache_scales[0][i], cache_scales[1][i])
+        x = x + _dense_attention_sublayer(x, lp, cfg, cos, sin, caches, plan, kernels)
+        x = x + _mlp(x, lp, cfg, kernels)
+    return _final_logits(x, params, cfg, kernels)
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] — one new token per slot
+    lengths: torch.Tensor,  # [B] int32 — tokens already in each slot's cache
+    k_cache: torch.Tensor,  # [L, B, C, KH, D] — dense slot cache
+    v_cache: torch.Tensor,
+    active: torch.Tensor = None,  # [B] bool
+    kernels: bool = True,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One batched decode step over the dense slot cache; returns logits
+    [B, V] in fp32.
+
+    Unlike the JAX function, which returns updated caches, this writes each
+    slot's new K/V row INTO ``k_cache``/``v_cache`` (and the scales) in
+    place at row ``lengths[b]``, then attends over rows [0, lengths[b]]
+    inside the sliding window. Inactive slots write the sacrificial last
+    cache row and attend over the single row 0, so they cost no cache
+    traffic and cannot touch rows another admission has written.
+
+    ``kernels`` True runs ``ops.decode_attention`` (``_int8`` for an int8
+    cache), which reads only the valid rows; False masks the whole cache
+    (dequantized for int8) through ``gqa_attention``. ``cache_scales`` —
+    (k_scales, v_scales) [L, B, C, KH] f32 — marks an int8 cache: rows
+    quantize on write."""
+    return _dense_forward(params, cfg, tokens[:, None], lengths, k_cache, v_cache,
+                          active, kernels, cache_scales, multi=False)[:, 0]
+
+
+def verify_step(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] — [last_token, draft_0 .. draft_{T-2}]
+    lengths: torch.Tensor,  # [B] int32 — tokens already in each slot's cache
+    k_cache: torch.Tensor,  # [L, B, C, KH, D] — dense slot cache
+    v_cache: torch.Tensor,
+    active: torch.Tensor = None,  # [B] bool
+    kernels: bool = True,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Batched multi-token decode for speculative verification; returns
+    logits [B, T, V] in fp32.
+
+    The T tokens of a slot are its pending last token followed by T-1 draft
+    tokens (-1 where there is no draft: it embeds as the last vocabulary row
+    and can never be accepted). All T K/V rows are written in place at rows
+    ``lengths[b] .. lengths[b]+T-1`` and query t attends causally over the
+    columns ``<= lengths[b]+t`` (its own row included), inside the sliding
+    window, so the caller can accept the longest draft prefix that matches
+    the model's own predictions (``engine/spec.py``). ``active``,
+    ``kernels`` and ``cache_scales`` as in ``decode_step``; the kernel path
+    runs ``ops.multiquery_decode_attention`` (``_int8``).
+
+    Rows written past ``C-2`` collapse onto the last cache row, where the
+    winner of the duplicate writes is undefined: callers clamp draft counts
+    so accepted rows stay ``<= C-2``, and rows of rejected drafts are masked
+    by ``lengths`` afterwards. A slot already at ``lengths == C-1`` is
+    saturated: all its writes collide on the last row and its outputs are
+    indeterminate, so callers must not consume its tokens."""
+    return _dense_forward(params, cfg, tokens, lengths, k_cache, v_cache, active,
+                          kernels, cache_scales, multi=True)
+
+
 # ---------------------------------------------------------------------------
 # The int8 KV pool
 # ---------------------------------------------------------------------------
@@ -340,7 +510,8 @@ def scatter_quant(pool: torch.Tensor, scales: torch.Tensor, pages: torch.Tensor,
                   offs: torch.Tensor, rows: torch.Tensor) -> None:
     """Quantize rows [..., KH, D] and write values and scales IN PLACE into
     an int8 page pool [N, P, KH, D] and its scales [N, P, KH] at
-    (pages, offs): the write side of every int8 pool path."""
+    (pages, offs), or into one layer of a dense cache [S, C, KH, D] at
+    (slots, rows): the write side of every int8 cache path."""
     q, s = quantize_kv(rows)
     pool[pages, offs] = q
     scales[pages, offs] = s
@@ -365,7 +536,9 @@ def gather_dequant(pool: torch.Tensor, scales: torch.Tensor, tables: torch.Tenso
 
 def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                   dtype: torch.dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The paged KV pool, [L, N, P, KH, D] each for k and v."""
+    """The paged KV pool, [L, N, P, KH, D] each for k and v; with (slots,
+    context) for (num_pages, page_size), the dense slot cache
+    [L, S, C, KH, D]."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -373,8 +546,9 @@ def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 def init_kv_scales(cfg: ModelConfig, num_pages: int, page_size: int,
                    device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The f32 scales of an int8 pool, [L, N, P, KH] each for k and v,
-    starting at 1.0 so that never-written rows (page 0) stay finite."""
+    """The f32 scales of an int8 pool, [L, N, P, KH] each for k and v (of a
+    dense cache, [L, S, C, KH]), starting at 1.0 so that never-written rows
+    stay finite."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads)
     return (torch.ones(shape, dtype=torch.float32, device=device),
             torch.ones(shape, dtype=torch.float32, device=device))

@@ -9,6 +9,11 @@ plain PyTorch version.
     ``paged_decode_attention_int8`` the same over an int8 pool + scales.
   * ``int4_matmul`` — group-wise int4-weight x bf16-activation matmul; every
     projection and the lm_head of int4 serving.
+  * ``decode_attention`` — one query per slot over the dense slot cache;
+    ``decode_attention_int8`` the same over an int8 cache + scales.
+  * ``multiquery_decode_attention`` — T queries per slot over the dense slot
+    cache, the attention of a speculative verify forward;
+    ``multiquery_decode_attention_int8`` the same over an int8 cache.
 
 There is no gate: each wrapper runs its plain ``*_reference`` twin for CPU
 tensors and its kernel for CUDA tensors (or raises). Callers that want the
@@ -20,6 +25,12 @@ first use (``build.build_all`` builds them all at once).
 from __future__ import annotations
 
 from .build import build_all
+from .decode_attention import (
+    decode_attention,
+    decode_attention_int8,
+    decode_attention_int8_reference,
+    decode_attention_reference,
+)
 from .flash_attention import flash_attention, flash_attention_reference
 from .int4_matmul import (
     dequantize_int4,
@@ -40,13 +51,24 @@ from .quantized_matmul import (
     quantized_matmul,
     quantized_matmul_reference,
 )
+from .verify_attention import (
+    multiquery_decode_attention,
+    multiquery_decode_attention_int8,
+    multiquery_decode_attention_int8_reference,
+    multiquery_decode_attention_reference,
+)
 
 KERNELS = (quantized_matmul, flash_attention, paged_decode_attention,
-           paged_decode_attention_int8, int4_matmul)
+           paged_decode_attention_int8, int4_matmul, multiquery_decode_attention,
+           multiquery_decode_attention_int8, decode_attention, decode_attention_int8)
 
 __all__ = [
     "KERNELS",
     "build_all",
+    "decode_attention",
+    "decode_attention_int8",
+    "decode_attention_int8_reference",
+    "decode_attention_reference",
     "dequantize",
     "dequantize_int4",
     "flash_attention",
@@ -54,6 +76,10 @@ __all__ = [
     "gather_pages",
     "int4_matmul",
     "int4_matmul_reference",
+    "multiquery_decode_attention",
+    "multiquery_decode_attention_int8",
+    "multiquery_decode_attention_int8_reference",
+    "multiquery_decode_attention_reference",
     "paged_decode_attention",
     "paged_decode_attention_int8",
     "paged_decode_attention_int8_reference",

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (``build/lib<name>.so`` inside the
 package), loaded with ``ctypes``. A library builds at first use — or all of
 them at once from ``TorchEngine.warmup`` / ``build_all`` — and rebuilds
-when its source is newer. Stale sources compile in parallel, one ``nvcc``
-process each.
+when its source, or any ``csrc/*.cuh`` header, is newer. Stale sources
+compile in parallel, one ``nvcc`` process each.
 
 Safe under concurrent callers, like ``aios_tpu/native/build.py``: an
 ``flock`` serializes builds across processes, each compile writes a
@@ -29,7 +29,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("quantized_matmul", "flash_attention", "paged_attention", "int4_matmul")
+SOURCES = ("quantized_matmul", "flash_attention", "paged_attention", "int4_matmul",
+           "dense_attention")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,8 +60,8 @@ def library_path(name: str) -> Path:
 
 def _fresh(name: str) -> bool:
     out = library_path(name)
-    src = CSRC / f"{name}.cu"
-    return out.exists() and out.stat().st_mtime >= src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
+    return out.exists() and out.stat().st_mtime >= newest
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -1,0 +1,126 @@
+"""Ragged multi-query decode attention: T in-flight queries per slot.
+
+The speculative verify step scores a slot's pending token plus its draft
+tokens in one forward (``model.verify_step``). Its attention is T queries per
+slot over that slot's dense cache with a causal staircase: query t of slot b
+sits at row ``lengths[b] + t * strides[b]`` and sees the columns up to and
+including its own row, inside the sliding window. ``strides`` is 1 for active
+slots and 0 for inactive ones, which expose only column 0 to every query. On
+CUDA tensors this runs the hand-written kernel ``csrc/dense_attention.cu``
+(the single-query decode kernel is its T = 1 case); on CPU tensors
+``multiquery_decode_attention_reference``. A slot whose staircase runs past
+the cache end (``lengths[b] + T - 1 >= C``) is saturated: the kernel clamps
+its reads to the cache and its outputs are unconsumed by contract.
+``multiquery_decode_attention_int8`` is the same over an int8 cache with
+[B, C, KH] f32 scales; its arithmetic is f32 throughout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import build
+from .decode_attention import NEG_INF, dequantize_cache, launch
+
+
+def multiquery_decode_attention_reference(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_cache: torch.Tensor,  # [B, C, KH, D]
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32: query 0's own (just-written) row
+    strides: torch.Tensor,  # [B] int32: 1 active, 0 inactive
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Mask the whole cache per query and attend: the plain version of the
+    kernel (the JAX package's ``multiquery_decode_attention_reference``)."""
+    B, T, H, D = q.shape
+    C, KH = k_cache.shape[1], k_cache.shape[2]
+    steps = torch.arange(T, device=q.device)[None, :]
+    qpos = lengths.to(torch.int64)[:, None] + steps * strides.to(torch.int64)[:, None]
+    cols = torch.arange(C, device=q.device)[None, None, :]
+    mask = cols <= qpos[..., None]  # [B, T, C]
+    if window is not None:
+        mask = mask & (cols > qpos[..., None] - window)
+    qg = q.reshape(B, T, KH, H // KH, D)
+    s = torch.einsum("btkgd,bckd->bkgtc", qg, k_cache).to(torch.float32)
+    s = s / math.sqrt(D)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgtc,bckd->btkgd", p, v_cache)
+    return out.reshape(B, T, H, D)
+
+
+def multiquery_decode_attention_int8_reference(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_cache: torch.Tensor,  # [B, C, KH, D] int8
+    v_cache: torch.Tensor,
+    k_scales: torch.Tensor,  # [B, C, KH] f32
+    v_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    strides: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Dequantize-then-attend in f32, the plain version of the int8 kernel
+    (the JAX package's ``multiquery_decode_attention_int8_reference``); the
+    output lands in ``q.dtype``."""
+    out = multiquery_decode_attention_reference(
+        q.to(torch.float32), dequantize_cache(k_cache, k_scales),
+        dequantize_cache(v_cache, v_scales), lengths, strides, window=window,
+    )
+    return out.to(q.dtype)
+
+
+def multiquery_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    strides: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Ragged multi-query decode attention -> [B, T, H, D]. CPU operands
+    take the reference; CUDA operands launch the kernel (bf16 q and caches,
+    int32 lengths and strides, D in {64, 128}, H/KH <= 8, any T and any cache
+    length C) or raise."""
+    dev = build.device_of(q, k_cache, v_cache, lengths, strides)
+    if dev.type == "cpu":
+        return multiquery_decode_attention_reference(
+            q, k_cache, v_cache, lengths, strides, window=window)
+    return launch(multiquery_decode_attention, "aios_multiquery_decode_attention", q,
+                  k_cache, v_cache, (), (lengths, strides), window)
+
+
+multiquery_decode_attention.launches = 0
+
+
+def multiquery_decode_attention_int8(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    strides: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Ragged multi-query decode attention over an int8 cache with
+    [B, C, KH] f32 scales folded into both products -> [B, T, H, D] in
+    q.dtype. CPU operands take the reference; CUDA operands launch the kernel
+    (bf16 q, int8 caches, contiguous f32 scales, int32 lengths and strides,
+    D in {64, 128}, H/KH <= 8, any T and any cache length C) or raise."""
+    dev = build.device_of(q, k_cache, v_cache, k_scales, v_scales, lengths, strides)
+    if dev.type == "cpu":
+        return multiquery_decode_attention_int8_reference(
+            q, k_cache, v_cache, k_scales, v_scales, lengths, strides, window=window)
+    return launch(multiquery_decode_attention_int8, "aios_multiquery_decode_attention_int8",
+                  q, k_cache, v_cache, (k_scales, v_scales), (lengths, strides), window)
+
+
+multiquery_decode_attention_int8.launches = 0

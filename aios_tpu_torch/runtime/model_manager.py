@@ -12,6 +12,14 @@ sized ``auto`` = (num_slots + 1) x context rows in pages of 128 rows.
 or "int8") override them; left as None they come from the JAX stack's
 variables ``AIOS_TPU_QUANTIZE`` and ``AIOS_TPU_KV_CACHE``, which its boot
 config sets from the ``[models]`` keys ``quantize`` and ``kv_cache``.
+``paged_kv`` is "auto", a row count, or "off"/0 for the dense slot cache;
+None reads ``AIOS_TPU_PAGED_KV`` as the JAX stack parses it and, where that
+is unset, stays at ``auto``, the JAX boot config's default (the JAX
+``ModelManager`` alone would serve dense there). A context the pool cannot
+page (not a multiple of 16, or an int8 cache and not a multiple of 128) is
+served from the dense cache. ``speculative`` turns on n-gram speculative
+decode dispatches (None reads ``AIOS_TPU_SPECULATIVE``); they run over the
+dense cache only, so with a paged pool the batcher warns and serves without.
 ``synthetic://<preset>`` sources build random weights on the target device
 from a seeded generator. Real GGUF/HF weights, replica pools, admission
 control and the HBM budget wait for later slices.
@@ -108,6 +116,38 @@ def _quantize_mode(quantize: Union[bool, str, None], device: torch.device):
     return quantize
 
 
+def _paged_rows(paged_kv: Union[int, str, None]) -> Union[int, str, None]:
+    """The pool's size: "auto", a positive row count, or None for the dense
+    slot cache. ``paged_kv`` None reads AIOS_TPU_PAGED_KV with the JAX
+    stack's parsing (anything unrecognized warns and serves dense), and
+    unset means "auto"."""
+    from_env = paged_kv is None
+    if from_env:
+        paged_kv = os.environ.get("AIOS_TPU_PAGED_KV", "").lower() or "auto"
+    if isinstance(paged_kv, str):
+        low = paged_kv.lower()
+        if low == "auto":
+            return "auto"
+        if low in ("0", "off", "false"):
+            return None
+        try:
+            rows = int(low)
+        except ValueError:
+            rows = -1
+    else:
+        rows = int(paged_kv)
+        if rows == 0:
+            return None
+    if rows > 0:
+        return rows
+    if not from_env:
+        raise ValueError(f"unknown paged_kv {paged_kv!r} (expected a positive row "
+                         "count, 'auto', or 0/'off')")
+    log.warning("AIOS_TPU_PAGED_KV=%r ignored (expected a positive row count, "
+                "'auto', or 0/off)", paged_kv)
+    return None
+
+
 def _cache_dtype(kv_cache: Optional[str]) -> torch.dtype:
     """The KV pool's dtype: bf16 by default, int8 on request."""
     if kv_cache is None:
@@ -129,12 +169,19 @@ class ModelManager:
     def __init__(self, num_slots: int = 8,
                  device: Optional[Union[str, torch.device]] = None,
                  quantize: Union[bool, str, None] = None,
-                 kv_cache: Optional[str] = None) -> None:
+                 kv_cache: Optional[str] = None,
+                 paged_kv: Union[int, str, None] = None,
+                 speculative: Optional[bool] = None) -> None:
         self.device = resolve_device(device)
         self.models: Dict[str, ManagedModel] = {}
         self.num_slots = num_slots
         self.quantize = _quantize_mode(quantize, self.device)
         self.cache_dtype = _cache_dtype(kv_cache)
+        self.paged_pool_rows = _paged_rows(paged_kv)
+        if speculative is None:
+            speculative = os.environ.get(
+                "AIOS_TPU_SPECULATIVE", "").lower() in ("1", "true", "on")
+        self.speculative = bool(speculative)
         self._lock = threading.Lock()
 
     @property
@@ -157,28 +204,29 @@ class ModelManager:
         try:
             cfg, params, tokenizer = self._load_weights(name, path, context_length)
             ctx = context_length or cfg.max_context
-            page = PAGE_SIZE if ctx % PAGE_SIZE == 0 else 16
-            if self.cache_dtype == torch.int8 and ctx % PAGE_SIZE:
-                # the JAX stack serves such a context from its dense cache,
-                # which the port does not have
-                raise ValueError(
-                    f"context {ctx} must be a multiple of {PAGE_SIZE} for the "
-                    "int8 paged KV pool"
-                )
-            if ctx % page:
-                raise ValueError(
-                    f"context {ctx} must be a multiple of {PAGE_SIZE} (or 16) "
-                    "for the paged KV pool"
-                )
+            kw = {}  # empty: the dense slot cache
+            rows = self.paged_pool_rows
+            if rows is not None:
+                if rows == "auto":
+                    rows = (self.num_slots + 1) * ctx
+                int8 = self.cache_dtype == torch.int8
+                if ctx % PAGE_SIZE == 0:
+                    kw = dict(paged_pool_rows=rows, page_size=PAGE_SIZE)
+                elif ctx % 16 == 0 and not int8:
+                    kw = dict(paged_pool_rows=rows, page_size=16)
+                else:
+                    log.warning("AIOS_TPU_PAGED_KV ignored for %s: context %d needs "
+                                "a multiple of %d; serving dense", name, ctx,
+                                PAGE_SIZE if int8 else 16)
             engine = TorchEngine(
                 cfg, params,
-                paged_pool_rows=(self.num_slots + 1) * ctx,
-                page_size=page,
                 num_slots=self.num_slots,
                 max_context=ctx,
                 cache_dtype=self.cache_dtype,
                 quantize=self.quantize,
+                track_history=self.speculative,
                 device=self.device,
+                **kw,
             )
             del params
             engine.warmup()
@@ -186,7 +234,7 @@ class ModelManager:
                 name=name,
                 config=cfg,
                 engine=engine,
-                batcher=ContinuousBatcher(engine),
+                batcher=ContinuousBatcher(engine, speculative=self.speculative),
                 tokenizer=tokenizer,
                 state=STATE_READY,
                 loaded_at=int(time.time()),
@@ -209,8 +257,10 @@ class ModelManager:
         if old is not None and old.state == STATE_READY:
             self._shutdown(old)
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
-                 "%s pool)", name, time.time() - t0, ctx, self.num_slots,
-                 self.device, self.quantize or "dense", self.cache_dtype)
+                 "%s %s, speculative %s)", name, time.time() - t0, ctx, self.num_slots,
+                 self.device, self.quantize or "dense", self.cache_dtype,
+                 "page pool" if engine.paged else "dense cache",
+                 managed.batcher.speculative)
         return managed
 
     def _load_weights(self, name: str, path: str, context_length: int):

@@ -6,10 +6,10 @@ Phases, each printing its lines:
   2. build  — compile every kernel from ``aios_tpu_torch/csrc`` with nvcc;
   3. kernels — each kernel against its plain PyTorch version on the same
      inputs at the shapes the main paths give it (TinyLlama-1.1B for K1-K3,
-     Mistral-7B for K2, K4 and K5), with its time (CUDA events, median of
-     20 runs, the L2 flushed and the stream held before each so that host
-     overhead is not counted), the plain version's time, one PyTorch library
-     call's time and the bound;
+     K6 and K8, Mistral-7B for K2, K4, K5 and K6-K9), with its time (CUDA
+     events, median of 20 runs, the L2 flushed and the stream held before
+     each so that host overhead is not counted), the plain version's time,
+     one PyTorch library call's time and the bound;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1, LoadModel
      ``synthetic://tinyllama-1.1b`` at full width (int8 weights, bf16 pool),
      three Infer and one StreamInfer over gRPC, and proof that K1-K3
@@ -27,7 +27,24 @@ Phases, each printing its lines:
      decode step over the int8 pool, a greedy request that decodes past the
      4096-row window with trimmed pages returned (twice on the engine and
      once through the batcher, all three streams identical), TTFT per
-     bucket, the 8-slot decode rate and a profiled decode window.
+     bucket, the 8-slot decode rate and a profiled decode window;
+  8. serve TinyLlama dense — ``ModelManager(quantize="int8", kv_cache="bf16",
+     paged_kv="off", speculative=True)``: the same window over the dense slot
+     cache with n-gram speculation (per round 89 K1 and 22 K6, no K8), then
+     again with ``degrade_spec`` set (per step 89 K1 and 22 K8, no K6), exact
+     counts;
+  9. dense numerics — ``decode_step`` and ``verify_step`` through the
+     kernels against the plain path (every sublayer on the same input, and
+     the free-running logits), row t of a verify forward against the t-th
+     of T decode steps, the invariants of a speculative round, a
+     teacher-forced verify that accepts its own predictions, greedy
+     speculative streams through the batcher (twice, identical), the
+     acceptance rate, the 8-slot decode rate with and without speculation and
+     a profiled speculative window;
+  10. serve Mistral-7B dense and its numerics — the same with
+     ``ModelManager(quantize="int4", kv_cache="int8", paged_kv="off",
+     speculative=True)`` at context 8192 (per round 129 K5 and 32 K7, per
+     plain step 129 K5 and 32 K9) and a greedy request past the window.
 
 Then one ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -95,6 +112,22 @@ KERNEL_META = {
     "int4_matmul": dict(
         source="aios_tpu_torch/csrc/int4_matmul.cu",
         replaces="aios_tpu/ops/int4_matmul.py:209",
+    ),
+    "multiquery_decode_attention": dict(
+        source="aios_tpu_torch/csrc/dense_attention.cu",
+        replaces="aios_tpu/ops/verify_attention.py:237",
+    ),
+    "multiquery_decode_attention_int8": dict(
+        source="aios_tpu_torch/csrc/dense_attention.cu",
+        replaces="aios_tpu/ops/verify_attention.py:237",
+    ),
+    "decode_attention": dict(
+        source="aios_tpu_torch/csrc/dense_attention.cu",
+        replaces="aios_tpu/ops/decode_attention.py:254",
+    ),
+    "decode_attention_int8": dict(
+        source="aios_tpu_torch/csrc/dense_attention.cu",
+        replaces="aios_tpu/ops/decode_attention.py:254",
     ),
 }
 TINYLLAMA_KERNELS = ("quantized_matmul", "flash_attention", "paged_decode_attention")
@@ -208,12 +241,35 @@ def _report(name, what, ms, plain, lib, bnd, err, ok):
     )
 
 
+def _add_forward(acc, per_step, ms, plain, lib, nbytes, flops) -> None:
+    """Add one projection's numbers, times its launches per forward pass."""
+    acc["ms"] += per_step * ms
+    acc["plain_ms"] += per_step * plain
+    acc["library_ms"] += per_step * lib
+    acc["bytes"] += per_step * nbytes
+    acc["flops"] += per_step * flops
+
+
+def _log_forward(name, what, launches, M, acc):
+    bnd = bound_ms(acc["bytes"], acc["flops"])
+    log(
+        f"[kernel] {name} {what} ({launches} launches, M={M}): "
+        f"kernel_ms={acc['ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+        f"library_ms={acc['library_ms']:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
+        f"weight_bytes={acc['bytes']:.4e}"
+    )
+    return bnd
+
+
 def check_quantized_matmul(gen) -> dict:
     from aios_tpu_torch.ops import quantized_matmul, quantized_matmul_reference
 
     worst = 0.0
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for M in (8, 512):
+    # M=8 is one decode step, M=64 the verify forward of one speculative round
+    # (8 slots x 8 query rows), M=512 a prefill bucket
+    fwd = {M: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+           for M in (8, 64)}
+    for M in (8, 64, 512):
         for key, ((K, N), per_step) in TINYLLAMA_KN.items():
             x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
             w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
@@ -235,19 +291,11 @@ def check_quantized_matmul(gen) -> dict:
                     bnd, err, ok)
             expect(ok, f"quantized_matmul {key} M={M}: err {err} vs max|ref| {scale}")
             worst = max(worst, err)
-            if M == 8:
-                step["ms"] += per_step * ms
-                step["plain_ms"] += per_step * plain
-                step["library_ms"] += per_step * lib
-                step["bytes"] += per_step * nbytes
-                step["flops"] += per_step * flops
-    bnd = bound_ms(step["bytes"], step["flops"])
-    log(
-        f"[kernel] quantized_matmul one decode step (89 launches, M=8): "
-        f"kernel_ms={step['ms']:.4f} plain_ms={step['plain_ms']:.4f} "
-        f"library_ms={step['library_ms']:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
-        f"weight_bytes={step['bytes']:.4e}"
-    )
+            if M in fwd:
+                _add_forward(fwd[M], per_step, ms, plain, lib, nbytes, flops)
+    bnd = _log_forward("quantized_matmul", "one decode step", 89, 8, fwd[8])
+    _log_forward("quantized_matmul", "one verify forward", 89, 64, fwd[64])
+    step = fwd[8]
     return dict(max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
                 library_ms=step["library_ms"], bound_ms=bnd[0], bound_by=bnd[1],
                 measured_at="one decode step: 89 launches at M=8")
@@ -373,8 +421,10 @@ def check_int4_matmul(gen) -> dict:
     from aios_tpu_torch.ops import dequantize_int4, int4_matmul, int4_matmul_reference
 
     worst = 0.0
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for M in (8, 512):
+    # M=8, 64 and 512 as in check_quantized_matmul
+    fwd = {M: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+           for M in (8, 64)}
+    for M in (8, 64, 512):
         for key, ((K, N), per_step) in MISTRAL_KN.items():
             x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
             packed = torch.randint(0, 256, (K // 2, N), generator=gen,
@@ -397,20 +447,12 @@ def check_int4_matmul(gen) -> dict:
                     err, ok)
             expect(ok, f"int4_matmul {key} M={M}: err {err} vs max|ref| {scale}")
             worst = max(worst, err)
-            if M == 8:
-                step["ms"] += per_step * ms
-                step["plain_ms"] += per_step * plain
-                step["library_ms"] += per_step * lib
-                step["bytes"] += per_step * nbytes
-                step["flops"] += per_step * flops
+            if M in fwd:
+                _add_forward(fwd[M], per_step, ms, plain, lib, nbytes, flops)
             del x, packed, s, y, ref, w_bf16
-    bnd = bound_ms(step["bytes"], step["flops"])
-    log(
-        f"[kernel] int4_matmul one decode step (129 launches, M=8): "
-        f"kernel_ms={step['ms']:.4f} plain_ms={step['plain_ms']:.4f} "
-        f"library_ms={step['library_ms']:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
-        f"weight_bytes={step['bytes']:.4e}"
-    )
+    bnd = _log_forward("int4_matmul", "one decode step", 129, 8, fwd[8])
+    _log_forward("int4_matmul", "one verify forward", 129, 64, fwd[64])
+    step = fwd[8]
     return dict(max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
                 library_ms=step["library_ms"], bound_ms=bnd[0], bound_by=bnd[1],
                 measured_at="one decode step: 129 launches at M=8")
@@ -487,6 +529,134 @@ def check_paged_decode_attention_int8(gen) -> dict:
     return headline
 
 
+def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=()):
+    """One dense-cache attention kernel (T queries per slot; T = None the
+    single-query decode kernel) against its plain version on ``geom`` =
+    (H, KH, D) with a cache of C rows, bf16 or int8 + scales. Slots listed in
+    ``saturated`` run past the cache end: their outputs are unconsumed by
+    contract and only have to be finite."""
+    import torch.nn.functional as F
+
+    from aios_tpu_torch import ops
+    from aios_tpu_torch.ops.decode_attention import dequantize_cache
+
+    h, kh, d = geom
+    B = len(lengths)
+    multi = T is not None
+    Tq = T if multi else 1
+    q = torch.randn(B, Tq, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    if quant:
+        caches = [torch.randint(-127, 128, (B, C, kh, d), generator=gen,
+                                device="cuda").to(torch.int8) for _ in range(2)]
+        caches += [torch.rand(B, C, kh, generator=gen, device="cuda") * 0.015 + 0.005
+                   for _ in range(2)]
+        kd, vd = (dequantize_cache(c, sc).to(torch.bfloat16)
+                  for c, sc in zip(caches[:2], caches[2:]))
+    else:
+        caches = [torch.randn(B, C, kh, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        kd, vd = caches
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    strd = torch.tensor(strides, dtype=torch.int32, device="cuda")
+    kw = {"window": window}
+    if multi:
+        fn, ref = ((ops.multiquery_decode_attention_int8,
+                    ops.multiquery_decode_attention_int8_reference) if quant else
+                   (ops.multiquery_decode_attention,
+                    ops.multiquery_decode_attention_reference))
+        args = (q, *caches, lens, strd)
+    else:
+        fn, ref = ((ops.decode_attention_int8, ops.decode_attention_int8_reference)
+                   if quant else (ops.decode_attention, ops.decode_attention_reference))
+        args = (q[:, 0].contiguous(), *caches, lens)
+    out = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    keep = [b for b in range(B) if b not in saturated]
+    err = (out[keep].float() - want[keep].float()).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and err <= TOL
+    ms = time_ms(lambda: fn(*args, **kw))
+    plain = time_ms(lambda: ref(*args, **kw))
+    # one library call on the same cache: SDPA under the explicit mask
+    steps = torch.arange(Tq, device="cuda")[None, :]
+    qpos = lens.long()[:, None] + steps * (strd.long()[:, None] if multi else 0)
+    cols = torch.arange(C, device="cuda")[None, None, :]
+    mask = cols <= qpos[..., None]
+    if window is not None:
+        mask &= cols > qpos[..., None] - window
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kd, vd))  # [B, KH, C, D]
+    qt = q.transpose(1, 2).contiguous()  # [B, H, T, D]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))
+    rows = float(mask.any(dim=1).sum().item())  # cache rows some query sees
+    pairs = float(mask.sum().item())
+    row_bytes = kh * (d * (1 if quant else 2) + (4 if quant else 0)) * 2
+    nbytes = rows * row_bytes + 2 * B * Tq * h * d * 2 + B * 4 * (2 if multi else 1)
+    bnd = bound_ms(nbytes, 4.0 * pairs * h * d)
+    return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bnd[0], bound_by=bnd[1])
+
+
+TINY_GEOM, MISTRAL_GEOM = (H, KH, D), (M_H, M_KH, M_D)
+# slot 0 is inactive (length 0, stride 0); the last staircase ends on the last
+# cache row; in the saturated cases the last slot runs past the cache end
+TINY_LENS = [0, 1, 127, 128, 700, 1500, 2000, 2046]
+MISTRAL_LENS = [0, 1, 127, 1000, 4095, 4096, 6000, 8190]
+STRIDES = [0, 1, 1, 1, 1, 1, 1, 1]
+SPEC_T = 8  # draft_len 7 + 1
+
+
+def check_dense_attention(gen) -> dict:
+    """K8, K9, K6 and K7 at the shapes the dense servers give them."""
+    def mq_lens(lens, C, T=SPEC_T):
+        return lens[:-1] + [C - T]
+
+    cases = {
+        "decode_attention": [
+            ("TinyLlama C=2048", TINY_GEOM, 2048, None, False, None, TINY_LENS, ()),
+            (f"Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM, 8192, M_WINDOW, False,
+             None, MISTRAL_LENS, ()),
+        ],
+        "decode_attention_int8": [
+            (f"Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM, 8192, M_WINDOW, True,
+             None, MISTRAL_LENS, ()),
+            ("Mistral C=8192 no window", MISTRAL_GEOM, 8192, None, True, None,
+             MISTRAL_LENS, ()),
+        ],
+        "multiquery_decode_attention": [
+            (f"TinyLlama C=2048 T={SPEC_T}", TINY_GEOM, 2048, None, False, SPEC_T,
+             mq_lens(TINY_LENS, 2048), ()),
+            (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
+             False, SPEC_T, mq_lens(MISTRAL_LENS, 8192), ()),
+            (f"TinyLlama C=2048 T={SPEC_T}, slot 7 saturated", TINY_GEOM, 2048, None,
+             False, SPEC_T, TINY_LENS, (7,)),
+            ("TinyLlama C=2048 T=31", TINY_GEOM, 2048, None, False, 31,
+             mq_lens(TINY_LENS, 2048, 31), ()),
+        ],
+        "multiquery_decode_attention_int8": [
+            (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
+             True, SPEC_T, mq_lens(MISTRAL_LENS, 8192), ()),
+            (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}, slot 7 saturated", MISTRAL_GEOM,
+             8192, M_WINDOW, True, SPEC_T, MISTRAL_LENS, (7,)),
+        ],
+    }
+    measured = {}
+    for name, rows in cases.items():
+        worst = 0.0
+        for i, (label, geom, C, window, quant, T, lens, sat) in enumerate(rows):
+            r = _dense_check(gen, geom, C, window, quant, T, lens, STRIDES, sat)
+            _report(name, f"B=8 lengths={lens} {label}", r["ms"], r["plain_ms"],
+                    r["library_ms"], (r["bound_ms"], r["bound_by"]), r["max_abs_err"],
+                    r["ok"])
+            expect(r["ok"], f"{name} {label}: max err {r['max_abs_err']}")
+            worst = max(worst, r["max_abs_err"])
+            if i == 0:  # the headline: the shape its dense server launches
+                measured[name] = dict(r, measured_at=f"one launch, 8 ragged slots, {label}")
+            torch.cuda.empty_cache()
+        measured[name]["max_abs_err"] = worst
+    return measured
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     return {
@@ -495,6 +665,7 @@ def phase_kernels() -> dict:
         "paged_decode_attention": check_paged_decode_attention(gen),
         "paged_decode_attention_int8": check_paged_decode_attention_int8(gen),
         "int4_matmul": check_int4_matmul(gen),
+        **check_dense_attention(gen),
     }
 
 
@@ -520,7 +691,7 @@ def _load(manager, stub, name: str, path: str, ctx: int = 0):
     return manager.get(name), load_s
 
 
-def _served_window(manager, stub, m, card: str) -> dict:
+def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     """Three Infer and one StreamInfer at once over gRPC, with every kernel
     count set to 0 just before and read just after."""
     from aios_tpu_torch import ops
@@ -576,7 +747,7 @@ def _served_window(manager, stub, m, card: str) -> dict:
     expect([x.model_name for x in models.models] == [m.name], "ListModels")
     expect(health.details.get("backend") == "torch-cuda", f"HealthCheck {dict(health.details)}")
     log(
-        f"[serve] {cfg.name}: 3 Infer + 1 StreamInfer (prompts {[len(p) for p in PROMPTS]} "
+        f"[serve] {cfg.name}{tag}: 3 Infer + 1 StreamInfer (prompts {[len(p) for p in PROMPTS]} "
         f"chars, max_tokens {MAX_TOKENS}) in {wall:.3f} s: {tokens} tokens, "
         f"{tokens / wall:.1f} tok/s end to end on {card}; "
         f"{prefills} prefills, {steps} decode steps; launches {launches}"
@@ -683,17 +854,25 @@ def phase_numerics(manager, card: str) -> None:
     _profile_decode(eng, "tinyllama", 16, card)
 
 
-def _profile_decode(eng, tag: str, n_steps: int, card: str) -> None:
+def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None:
     """One profiled decode dispatch of ``n_steps`` with all slots active at
-    ~300 rows: device busy share and the top device kernels."""
+    ~300 rows: device busy share and the top device kernels. With ``prompt``
+    the slots are greedy on that prompt and the dispatch is ``n_steps``
+    speculative rounds."""
     for s in range(eng.num_slots):
-        eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
+        if prompt is None:
+            eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
+        else:
+            eng.prefill(s, prompt, temperature=0.0)
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step(n_steps)
+        if prompt is None:
+            eng.step(n_steps)
+        else:
+            _, counts = eng.spec_step(n_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     for s in range(eng.num_slots):
@@ -703,7 +882,10 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str) -> None:
     dev_us = {e.key: e.self_device_time_total for e in events if e.self_device_time_total > 0}
     busy = sum(dev_us.values())
     n_kernels = sum(e.count for e in events if e.self_device_time_total > 0)
-    log(f"[profile] {tag}: {n_steps} decode steps, 8 slots at ~300 rows: wall "
+    what = "decode steps" if prompt is None else (
+        f"speculative rounds ({counts.sum() / counts.size:.2f} tokens per slot and round)")
+    rows = 300 if prompt is None else len(prompt)
+    log(f"[profile] {tag}: {n_steps} {what}, 8 slots at ~{rows} rows: wall "
         f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
         f"({busy / 1e3 / (wall * 1e3):.1%} of wall), "
         f"{n_kernels / n_steps:.0f} device kernels per step, {card}")
@@ -740,9 +922,9 @@ def phase_mistral_serve(manager, stub, card: str) -> dict:
     )
     w = _served_window(manager, stub, m, card)
     n, pre, steps = w["launches"], w["prefills"], w["steps"]
-    want = {"int4_matmul": 129 * (pre + steps), "flash_attention": 32 * pre,
-            "paged_decode_attention_int8": 32 * steps, "quantized_matmul": 0,
-            "paged_decode_attention": 0}
+    want = dict.fromkeys(n, 0)
+    want.update({"int4_matmul": 129 * (pre + steps), "flash_attention": 32 * pre,
+                 "paged_decode_attention_int8": 32 * steps})
     expect(n == want, f"launch counts {n} != {want} for {pre} prefills, {steps} steps")
     log(f"[mistral] launch counts exact for {pre} prefills and {steps} decode steps: {n}")
     return n
@@ -901,6 +1083,300 @@ def phase_mistral_numerics(manager, card: str) -> None:
     _profile_decode(eng, "mistral", 8, card)
 
 
+# -- phases 8-10: the dense slot cache with n-gram speculation -------------------
+
+DENSE = {
+    "tinyllama": dict(
+        path="synthetic://tinyllama-1.1b", ctx=0, layers=22, per_forward=89,
+        matmul="quantized_matmul", verify="multiquery_decode_attention",
+        decode="decode_attention", geometry=(22, 2048, 32000, 2048), cache=torch.bfloat16,
+        drift_tol=E2E_TOL,
+    ),
+    "mistral": dict(
+        path="synthetic://mistral-7b", ctx=8192, layers=M_L, per_forward=129,
+        matmul="int4_matmul", verify="multiquery_decode_attention_int8",
+        decode="decode_attention_int8", geometry=(M_L, 4096, 32000, 8192), cache=torch.int8,
+        drift_tol=DRIFT_TOL,  # 32 layers compound, as in the Mistral prefill
+    ),
+}
+# a period of 40 tokens six times over (bucket 256): the n-gram proposer finds
+# matches in it from the first round on
+REPEATING = [256] + [(i % 40) * 5 + 33 for i in range(240)]
+
+
+def phase_dense_serve(name: str):
+    """The served window over the dense cache, once with speculation and once
+    with ``degrade_spec`` set, both with exact launch counts."""
+    case = DENSE[name]
+
+    def run(manager, stub, card: str) -> dict:
+        m, load_s = _load(manager, stub, name, case["path"], case["ctx"])
+        eng, cfg = m.engine, m.config
+        expect((cfg.num_layers, cfg.hidden_size, cfg.vocab_size, eng.max_context)
+               == case["geometry"], f"not the full {name} geometry: {cfg}")
+        expect(not eng.paged and eng.allocator is None and eng.track_history
+               and m.batcher.speculative, "expected the dense cache with speculation")
+        expect(eng.k_pool.dtype == case["cache"] and eng.k_pool.shape[1:3]
+               == (eng.num_slots, eng.max_context), f"cache {eng.k_pool.shape}")
+        cache_bytes = sum(t.numel() * t.element_size() for t in
+                          (eng.k_pool, eng.v_pool, eng.k_scales, eng.v_scales)
+                          if t is not None)
+        log(f"[dense {name}] LoadModel {case['path']} ready in {load_s:.2f} s: dense "
+            f"{eng.k_pool.dtype} cache {tuple(eng.k_pool.shape)} = {cache_bytes} B (values "
+            f"and scales), speculation on (draft_len {m.batcher.spec_draft_len}, ngram "
+            f"{m.batcher.spec_ngram})")
+        total = {}
+        L, per = case["layers"], case["per_forward"]
+        for spec_on in (True, False):
+            m.batcher.degrade_spec = not spec_on
+            w = _served_window(manager, stub, m, card,
+                               " dense, speculative" if spec_on else " dense, degrade_spec")
+            n, pre, steps = w["launches"], w["prefills"], w["steps"]
+            want = dict.fromkeys(n, 0)
+            want.update({case["matmul"]: per * (pre + steps), "flash_attention": L * pre,
+                         case["verify" if spec_on else "decode"]: L * steps})
+            expect(n == want, f"launch counts {n} != {want} for {pre} prefills, "
+                   f"{steps} {'rounds' if spec_on else 'steps'}")
+            log(f"[dense {name}] launch counts exact for {pre} prefills and {steps} "
+                f"{'speculative rounds' if spec_on else 'plain steps'}: "
+                f"{ {k: v for k, v in n.items() if v} }")
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+        m.batcher.degrade_spec = False
+        return total
+
+    return run
+
+
+def _dense_state(params, cfg, quant: bool, gen, B: int, T0: int, C: int):
+    """A dense cache [L, B, C, KH, D] whose rows [0, T0) of every slot hold
+    the plain path's K/V of one random prompt."""
+    from aios_tpu_torch.engine import model
+
+    tokens = torch.randint(0, 256, (1, T0), generator=gen, device="cuda")
+    _, ks, vs = model.prefill(params, cfg, tokens, kernels=False)
+    shape = (cfg.num_layers, B, C, cfg.num_kv_heads, cfg.head_dim)
+    state = []
+    if quant:
+        quantized = [model.quantize_kv(t[:, 0]) for t in (ks, vs)]
+        for q, _ in quantized:
+            cache = torch.zeros(shape, dtype=torch.int8, device="cuda")
+            cache[:, :, :T0] = q[:, None]
+            state.append(cache)
+        for _, sc in quantized:
+            scales = torch.ones(shape[:4], dtype=torch.float32, device="cuda")
+            scales[:, :, :T0] = sc[:, None]
+            state.append(scales)
+    else:
+        for t in (ks, vs):
+            cache = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+            cache[:, :, :T0] = t[:, 0][:, None].to(torch.bfloat16)
+            state.append(cache)
+    return state
+
+
+def _layerwise_dense(params, cfg, state, feed, lengths, active, multi: bool):
+    """Each sublayer of a dense-cache forward (``verify_step`` when ``multi``,
+    else ``decode_step`` on the first token) run through the kernels and
+    through the plain versions on the SAME input (the plain path's), each on
+    its own copy of that layer's cache, so that rounding does not compound
+    over depth: the largest max|difference| / max|output| over the attention
+    and MLP sublayers of every layer, then the logits of both paths from the
+    plain path's final hidden state relative to max|logit| (the lm_head at
+    M = slots x T); the inactive slot 0 left out of both."""
+    from aios_tpu_torch.engine import model
+
+    toks = feed if multi else feed[:, :1]
+    T, C = toks.shape[1], state[0].shape[2]
+    plans = {kernels: model._dense_plan(cfg, lengths, active, T, C, kernels, multi)
+             for kernels in (True, False)}
+    cos, sin = model.rope_tables(plans[True][0], cfg.head_dim, cfg.rope_theta)
+    x = params["embed"][toks]
+    worst = 0.0
+    for i, lp in enumerate(model.layer_params(params)):
+        attn = {kernels: model._dense_attention_sublayer(
+            x, lp, cfg, cos, sin, tuple(t[i].clone() for t in state), plans[kernels][1],
+            kernels) for kernels in (True, False)}
+        x = x + attn[False]
+        mlp = {kernels: model._mlp(x, lp, cfg, kernels) for kernels in (True, False)}
+        worst = max(worst, _rel(attn[True][1:], attn[False][1:]),
+                    _rel(mlp[True][1:], mlp[False][1:]))
+        x = x + mlp[False]
+    head = [model._final_logits(x, params, cfg, kernels) for kernels in (True, False)]
+    return worst, _rel(head[0][1:], head[1][1:])
+
+
+def _dense_logits_gates(tag: str, params, cfg, quant: bool, drift_tol: float) -> None:
+    """decode_step and verify_step through the kernels against the plain
+    path: every sublayer on the same input within E2E_TOL of max|output|,
+    the logits from the same final hidden state within E2E_TOL of max|logit|,
+    the free-running logits within ``drift_tol`` of max|logit|; and row t of
+    the verify forward against the t-th of T decode steps, both through the
+    kernels, within E2E_TOL of max|logit|."""
+    from aios_tpu_torch.engine import model
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, T = 8, SPEC_T
+    state = _dense_state(params, cfg, quant, gen, B, 512, 1024)
+    lengths = torch.tensor([0, 5, 127, 128, 200, 300, 400, 500], dtype=torch.int32,
+                           device="cuda")
+    active = torch.tensor([False] + [True] * 7, device="cuda")
+    feed = torch.randint(0, 256, (B, T), generator=gen, device="cuda")
+
+    def forward(fn, toks, lens, kernels, st=None):
+        st = [t.clone() for t in state] if st is None else st
+        return fn(params, cfg, toks, lens, st[0], st[1], active=active, kernels=kernels,
+                  cache_scales=(st[2], st[3]) if quant else None)
+
+    vk = forward(model.verify_step, feed, lengths, True)
+    vp = forward(model.verify_step, feed, lengths, False)
+    dk = forward(model.decode_step, feed[:, 0], lengths, True)
+    dp = forward(model.decode_step, feed[:, 0], lengths, False)
+    rel_verify, rel_decode = _rel(vk[1:], vp[1:]), _rel(dk[1:], dp[1:])
+    (layer_verify, head_verify), (layer_decode, head_decode) = (
+        _layerwise_dense(params, cfg, state, feed, lengths, active, multi)
+        for multi in (True, False))
+    st = [t.clone() for t in state]
+    rel_rows = [_rel(forward(model.decode_step, feed[:, t], lengths + t, True, st)[1:],
+                     vk[1:, t]) for t in range(T)]
+    ok = (max(rel_verify, rel_decode) <= drift_tol
+          and max(layer_verify, layer_decode, head_verify, head_decode,
+                  *rel_rows) <= E2E_TOL
+          and bool(torch.isfinite(vk).all()) and bool(torch.isfinite(dk).all()))
+    log(f"{tag} kernel path vs plain path, full model over a dense cache of 1024 rows: "
+        f"verify_step B=8 T={T} max|dlogit|/max|logit|={rel_verify:.3e}, decode_step "
+        f"{rel_decode:.3e} (limit {drift_tol}, {cfg.num_layers} layers compounding); each "
+        f"sublayer fed the plain path's input within {layer_verify:.3e} (verify_step) and "
+        f"{layer_decode:.3e} (decode_step) of max|output|, logits from the same final "
+        f"hidden state within {head_verify:.3e} (M={B * T}) and {head_decode:.3e} (M={B}) "
+        f"of max|logit| (limit {E2E_TOL}); verify row t "
+        f"vs the t-th of {T} decode steps, kernel path: "
+        f"{', '.join(f'{r:.2e}' for r in rel_rows)} (limit {E2E_TOL}); argmax agreement "
+        f"verify {(vk[1:].argmax(-1) == vp[1:].argmax(-1)).float().mean().item():.3f}, "
+        f"decode {(dk[1:].argmax(-1) == dp[1:].argmax(-1)).float().mean().item():.3f}")
+    expect(ok, f"{tag} dense-cache logits disagree")
+
+
+def _round_invariants(tag: str, eng) -> None:
+    """One speculative round recomputed by hand from the engine's state, then
+    run by the engine: counts in [1, K+1], the emitted tokens are the argmax
+    rows of the verify logits, the accepted drafts equal those argmaxes."""
+    from aios_tpu_torch.engine import model, spec
+
+    K = 7
+    for s in range(eng.num_slots):
+        n = len(REPEATING) - s
+        eng.prefill(s, REPEATING[:n], temperature=0.0)
+        # a random-weight model does not continue its prompt, so its first
+        # token ends no earlier trigram; plant it one period back in the
+        # history (the proposer's evidence only), so the round verifies real
+        # drafts: the prompt's continuation there
+        eng.history[s, n - 40] = eng.last_tokens[s]
+    drafts, _ = spec.propose_ngram(eng.history, eng.lengths, K, 3, eng.max_context)
+    feed = torch.cat([eng.last_tokens[:, None], drafts], dim=1)
+    # writes the rows the engine's own round then writes again, with the same values
+    logits = model.verify_step(
+        eng.params, eng.cfg, feed, eng.lengths, eng.k_pool, eng.v_pool,
+        active=eng.active_dev,
+        cache_scales=(eng.k_scales, eng.v_scales) if eng.quant_cache else None)
+    g, drafts = logits.argmax(dim=-1).cpu().numpy(), drafts.cpu().numpy()
+    toks, counts = eng.spec_step(1, draft_len=K, ngram=3)
+    for s in range(eng.num_slots):
+        n = int(counts[0, s])
+        expect(1 <= n <= K + 1, f"{tag} slot {s}: count {n} outside [1, {K + 1}]")
+        expect((toks[0, s, :n] == g[s, :n]).all(),
+               f"{tag} slot {s}: emitted {toks[0, s, :n]} are not the argmax rows {g[s, :n]}")
+        expect((drafts[s, : n - 1] == g[s, : n - 1]).all(),
+               f"{tag} slot {s}: accepted drafts {drafts[s, :n - 1]} != argmax {g[s, :n - 1]}")
+    toks, more = eng.spec_step(8, draft_len=K, ngram=3)
+    expect(((more >= 1) & (more <= K + 1)).all(), f"{tag} counts outside [1, {K + 1}]")
+    log(f"{tag} one round by hand and by the engine agree for 8 greedy slots: counts "
+        f"{counts[0].tolist()}, drafts proposed {(drafts >= 0).sum(1).tolist()}; 8 more "
+        f"rounds emit {more.sum(0).tolist()} tokens per slot")
+    # teacher-forced: feed the verify forward the tokens it predicts itself
+    for s in range(1, eng.num_slots):
+        eng.release(s)
+    forced = torch.full((eng.num_slots, K), -1, dtype=torch.int64, device="cuda")
+    for j in range(K + 1):
+        feed = torch.cat([eng.last_tokens[:, None], forced], dim=1)
+        logits = model.verify_step(
+            eng.params, eng.cfg, feed, eng.lengths, eng.k_pool, eng.v_pool,
+            active=eng.active_dev,
+            cache_scales=(eng.k_scales, eng.v_scales) if eng.quant_cache else None)
+        pred = logits.argmax(dim=-1)
+        accepted = int(spec.accept_counts(forced, pred)[0])
+        if j < K:
+            forced[0, j] = pred[0, j]
+    eng.release(0)
+    log(f"{tag} teacher-forced verify: {accepted} of {K} self-predicted drafts accepted")
+    expect(accepted >= 1, f"{tag} no self-predicted draft was accepted")
+
+
+def phase_dense_numerics(name: str):
+    case = DENSE[name]
+    quant = case["cache"] == torch.int8
+
+    def run(manager, card: str) -> None:
+        from aios_tpu_torch.engine.batching import Request
+
+        m = manager.get(name)
+        eng, cfg = m.engine, m.config
+        tag = f"[dense {name}]"
+        _dense_logits_gates(tag, eng.params, cfg, quant, case["drift_tol"])
+        _round_invariants(tag, eng)
+
+        # greedy speculation through the batcher (temperature 0 on the wire
+        # means unset), twice, and once without speculation
+        tokens0, rounds0 = eng.spec_tokens, eng.spec_slot_rounds
+        a = m.batcher.generate(REPEATING, max_tokens=96, temperature=0.0)
+        b = m.batcher.generate(REPEATING, max_tokens=96, temperature=0.0)
+        emitted, rounds = eng.spec_tokens - tokens0, eng.spec_slot_rounds - rounds0
+        m.batcher.degrade_spec = True
+        plain = m.batcher.generate(REPEATING, max_tokens=96, temperature=0.0)
+        m.batcher.degrade_spec = False
+        expect(len(a) == 96 and a == b, f"{tag} greedy speculative streams differ")
+        agree = sum(x == y for x, y in zip(a, plain)) / len(a)
+        log(f"{tag} two greedy speculative batcher streams of 96 tokens identical: "
+            f"{a[:8]}...; {emitted} tokens in {rounds} rounds = {emitted / rounds:.2f} "
+            f"tokens per round, draft acceptance {(emitted - rounds) / (rounds * 7):.3f} "
+            f"(random weights); agrees with the plain greedy stream at {agree:.3f} of "
+            f"positions (not gated: verify and decode forwards sum in another order)")
+
+        if case["ctx"]:  # Mistral: decode past the window over the dense cache
+            prompt = [256] + [(i * 7 + 3) % 256 for i in range(4089)]
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                h = m.batcher.submit(Request(prompt_ids=prompt, max_tokens=160,
+                                             temperature=0.0))
+                runs.append((h.tokens(), h.ttft_ms, time.perf_counter() - t0))
+            (x, ttft, wall), (y, _, _) = runs
+            expect(len(x) == 160 and x == y, f"{tag} windowed greedy streams differ")
+            log(f"{tag} windowed greedy, speculative: prompt {len(prompt)} tokens + 160 "
+                f"new past the {M_WINDOW}-row window over the dense cache, twice "
+                f"identical: {x[:8]}...; ttft_ms={ttft:.2f}, {wall:.3f} s, {card}")
+
+        for spec_on in (True, False):
+            m.batcher.degrade_spec = not spec_on
+            steps0 = eng.decode_steps
+            hs = [m.batcher.submit(Request(prompt_ids=REPEATING, max_tokens=129,
+                                           temperature=0.0)) for _ in range(eng.num_slots)]
+            t0 = time.perf_counter()
+            n_tok = sum(len(h.tokens()) for h in hs)
+            wall = time.perf_counter() - t0
+            steps = eng.decode_steps - steps0
+            log(f"{tag} 8 greedy slots x 129 tokens, "
+                f"{'speculative rounds' if spec_on else 'plain steps'}: {n_tok} tokens in "
+                f"{wall:.3f} s = {n_tok / wall:.1f} tok/s, {steps} dispatched "
+                f"{'rounds' if spec_on else 'steps'}, {wall / max(steps, 1) * 1e3:.2f} ms "
+                f"each (host clock, prefills included), {card}")
+        m.batcher.degrade_spec = False
+        _profile_decode(eng, f"dense {name}", 8, card, prompt=REPEATING)
+        _profile_decode(eng, f"dense {name}", 8, card)
+
+    return run
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -940,11 +1416,21 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mistral = _serve_phases(card, (phase_mistral_serve, phase_mistral_numerics),
                             quantize="int4", kv_cache="int8")
+    dense = {"paged_kv": "off", "speculative": True}
+    tiny_dense = _serve_phases(
+        card, (phase_dense_serve("tinyllama"), phase_dense_numerics("tinyllama")),
+        quantize="int8", kv_cache="bf16", **dense)
+    mistral_dense = _serve_phases(
+        card, (phase_dense_serve("mistral"), phase_dense_numerics("mistral")),
+        quantize="int4", kv_cache="int8", **dense)
 
     kernels = []
     for name, meta in KERNEL_META.items():
         r = measured[name]
+        tiny[name] += tiny_dense[name]
+        mistral[name] += mistral_dense[name]
         n = tiny[name] + mistral[name]
+        expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": n,

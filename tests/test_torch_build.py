@@ -67,6 +67,34 @@ def test_build_compiles_stale_sources_once_and_rebuilds_newer_ones(toolchain):
     assert len(_calls(toolchain)) == 3
 
 
+def test_a_newer_header_rebuilds_every_library(toolchain):
+    build.build(["one", "two"])
+    hdr = toolchain / "csrc" / "common.cuh"
+    hdr.write_text("// shared\n")
+    later = time.time() + 5
+    os.utime(hdr, (later, later))
+    assert sorted(build.build(["one", "two"])) == ["one", "two"]
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_every_registered_source_is_in_the_package(name):
+    src = build.CSRC / f"{name}.cu"
+    text = src.read_text()
+    assert 'extern "C"' in text and "aios_error_string" in text
+    for line in text.splitlines():
+        if line.startswith('#include "'):
+            assert (build.CSRC / line.split('"')[1]).exists(), line
+
+
+def test_dense_attention_source_exports_the_four_entry_points():
+    assert "dense_attention" in build.SOURCES
+    text = (build.CSRC / "dense_attention.cu").read_text()
+    for symbol in ("aios_decode_attention", "aios_decode_attention_int8",
+                   "aios_multiquery_decode_attention",
+                   "aios_multiquery_decode_attention_int8"):
+        assert f'extern "C" int {symbol}(' in text, symbol
+
+
 def test_failed_compile_raises_and_publishes_nothing(toolchain):
     with pytest.raises(RuntimeError, match="nvcc failed for bad"):
         build.build(["bad", "one"])

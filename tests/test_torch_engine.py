@@ -21,6 +21,10 @@ from aios_tpu_torch.engine.config import TINY_TEST
 from aios_tpu_torch.engine.engine import TorchEngine
 from aios_tpu_torch.engine.weights import params_from_jax
 
+# The shapes here are tiny: one intra-op thread is faster and leaves the
+# cores to the other test workers.
+torch.set_num_threads(1)
+
 POOL_ROWS = 256
 
 

@@ -28,6 +28,10 @@ from aios_tpu_torch.engine import model as tm
 from aios_tpu_torch.engine.config import TINY_TEST
 from aios_tpu_torch.engine.weights import params_from_jax
 
+# The shapes here are tiny: one intra-op thread is faster and leaves the
+# cores to the other test workers.
+torch.set_num_threads(1)
+
 J4 = importlib.import_module("aios_tpu.ops.int4_matmul")
 T4 = importlib.import_module("aios_tpu_torch.ops.int4_matmul")
 QMM = importlib.import_module("aios_tpu_torch.ops.quantized_matmul")

@@ -23,6 +23,10 @@ from aios_tpu.ops.quantized_matmul import quantized_matmul as jax_qmm
 from aios_tpu.ops.quantized_matmul import quantized_matmul_reference as jax_qmm_ref
 from aios_tpu_torch import ops
 
+# The shapes here are tiny: one intra-op thread is faster and leaves the
+# cores to the other test workers.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
