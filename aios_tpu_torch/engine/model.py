@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from .. import ops
 from ..ops.int4_matmul import kernel_supported, pick_group, supports_int4
+from ..ops.quantized_matmul import kernel_supported as int8_kernel_supported
 from .config import ModelConfig
 
 Params = Dict[str, object]
@@ -58,14 +59,15 @@ def matmul(x: torch.Tensor, w, kernels: bool = True) -> torch.Tensor:
     return x @ w
 
 
-def _quant_leaf(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
+def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor]:
     """One serving leaf. An int4 leaf needs a storage layout for its [K, N]
     and, on CUDA, one the kernel serves (128-row groups); anything else
     falls back to int8, as in the JAX package. On the CPU every leaf takes
     the plain path, so storage eligibility is enough (keeps tiny test
-    geometries on int4)."""
+    geometries on int4). Off the CPU an int8 leaf must suit the int8 kernel
+    (K % 8 == 0, N % 16 == 0), or quantizing it raises, naming ``name``."""
+    K, N = w.shape[-2], w.shape[-1]
     if mode == "int4":
-        K, N = w.shape[-2], w.shape[-1]
         group = pick_group(K)
         eligible = supports_int4(K, N, group) and (
             w.device.type == "cpu" or kernel_supported(K, N, group)
@@ -73,6 +75,9 @@ def _quant_leaf(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
         if eligible:
             p, s = ops.quantize_int4(w, group)
             return {"q4": p, "s4": s}
+    if w.device.type != "cpu" and not int8_kernel_supported(K, N):
+        raise ValueError(f"{name} [K={K}, N={N}]: the int8 matmul kernel needs "
+                         f"K % 8 == 0 and N % 16 == 0")
     q, s = ops.quantize_int8(w, axis=-2)
     return {"q": q, "s": s}
 
@@ -94,13 +99,13 @@ def quantize_params(params: Params, include_head: bool = True,
     # one fused matrix at a time, so only one concatenated copy exists
     for key, parts in FUSED.items():
         w = torch.cat([src[k] for k in parts], dim=-1) if len(parts) > 1 else src[key]
-        layers[key] = _quant_leaf(w, mode)
+        layers[key] = _quant_leaf(w, mode, key)
     out["layers"] = layers
     if include_head:
         head = params.get("lm_head")
         if head is None:
             head = params["embed"].T
-        out["lm_head"] = _quant_leaf(head, mode)
+        out["lm_head"] = _quant_leaf(head, mode, "lm_head")
     return out
 
 

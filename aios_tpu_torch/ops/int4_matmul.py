@@ -14,8 +14,6 @@ which dequantizes to bf16 first.
 
 from __future__ import annotations
 
-import ctypes
-import math
 from typing import Tuple
 
 import torch
@@ -30,9 +28,6 @@ GROUP = 128
 # Clip-factor candidates for the per-group squared-error search (pure
 # round-to-nearest first, then mild clipping of the group absmax).
 CLIP_CANDIDATES = (1.0, 0.9, 0.8, 0.7)
-
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
 
 def pick_group(K: int) -> int:
     """Largest supported scale-group size dividing K (0 if none): 128
@@ -49,9 +44,10 @@ def supports_int4(K: int, N: int, group: int) -> bool:
 
 
 def kernel_supported(K: int, N: int, group: int) -> bool:
-    """Whether the CUDA kernel serves this layout: its K tile is one
-    128-row group; N and M may be ragged."""
-    return group == GROUP and K > 0 and K % group == 0 and N > 0
+    """Whether the CUDA kernel serves this layout: a pipeline stage is one
+    128-row group, and TMA reads the packed rows, whose stride must be a
+    multiple of 16 bytes (N % 16 == 0); M may be ragged."""
+    return group == GROUP and K > 0 and K % group == 0 and N > 0 and N % 16 == 0
 
 
 def _quantize_2d(w: torch.Tensor, group: int, folded: bool):
@@ -145,10 +141,10 @@ def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
     return y.to(x.dtype)
 
 
-def plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int]:
-    """(block_m, splits, k_per_split), K1's split-K plan with K tiles one
-    group deep."""
-    return qmm.plan(M, N, K, sms, block_k=GROUP)
+def plan(M: int, N: int, K: int, sms: int) -> qmm.Plan:
+    """K1's plan with one 128-row scale group per pipeline stage, so every
+    split holds whole groups."""
+    return qmm.plan(M, N, K, sms, kt=GROUP)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -157,45 +153,22 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     -> [..., N] in x.dtype.
 
     CPU operands take ``int4_matmul_reference``; CUDA operands launch the
-    kernel (bf16 activations, 128-row groups, contiguous operands) or
-    raise."""
+    kernel (bf16 activations, 128-row groups, N % 16 == 0, contiguous
+    16-byte aligned operands) or raise."""
     dev = build.device_of(x, packed, scale)
     if dev.type == "cpu":
         return int4_matmul_reference(x, packed, scale)
     Kh, N = packed.shape
     K = 2 * Kh
     group = infer_group(packed, scale)
-    build.require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
     build.require(packed.dtype == torch.uint8, f"packed must be uint8, got {packed.dtype}")
-    build.require(scale.dtype == torch.float32, f"scale must be float32, got {scale.dtype}")
     build.require(kernel_supported(K, N, group),
-                  f"int4 kernel needs {GROUP}-row groups, got group={group} for K={K}")
+                  f"int4 kernel needs {GROUP}-row groups and N % 16 == 0, "
+                  f"got group={group} for K={K}, N={N}")
     build.require(scale.shape == (K // group, 1, N),
                   f"scale {tuple(scale.shape)} for packed {(Kh, N)}")
-    build.require(x.shape[-1] == K, f"x {tuple(x.shape)} does not contract with K={K}")
-    build.require(
-        x.is_contiguous() and packed.is_contiguous() and scale.is_contiguous(),
-        "int4_matmul needs contiguous operands",
-    )
-    lead = x.shape[:-1]
-    M = math.prod(lead)
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if M == 0:
-        return y.reshape(*lead, N)
-    block_m, splits, k_per_split = plan(M, N, K, qmm.sm_count(dev.index or 0))
-    partial = (
-        torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-        if splits > 1 else y
-    )
-    fn = build.kernel("int4_matmul", "aios_int4_matmul", _ARGTYPES)
-    rc = fn(
-        build.ptr(x), build.ptr(packed), build.ptr(scale), build.ptr(y),
-        build.ptr(partial), M, N, K, block_m, splits, k_per_split,
-        build.stream(dev),
-    )
-    build.check("int4_matmul", rc)
-    int4_matmul.launches += 1
-    return y.reshape(*lead, N)
+    return qmm.launch(int4_matmul, "int4_matmul", "aios_int4_matmul", x, packed, scale,
+                      N, K, GROUP)
 
 
 int4_matmul.launches = 0

@@ -12,16 +12,40 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from . import build
 
-BLOCK_N = 64
-BLOCK_K = {16: 128, 64: 64}  # K tile depth of each block_m variant
+# Activation rows per block of each path. Up to 64 rows (decode, verify, the
+# smallest prefill buckets) the weight-streaming path takes the next of 8,
+# 16, 32, 64; larger M the prefill path's 128-row tiles.
+STREAM_ROWS = (8, 16, 32, 64)
+PREFILL_ROWS = 128
+# Blocks resident per SM for each activation-row count: the kernel's
+# kBlocksPerSm table (csrc/wq_matmul.cuh), which sizes its stages and its
+# __launch_bounds__; a test holds the two equal.
+BLOCKS_PER_SM = {8: 3, 16: 3, 32: 3, 64: 2, 128: 1}
+WG_COLS = 64  # weight columns per consumer warpgroup; prefill blocks have two
+KT = 64  # K rows per pipeline stage of the int8 kernel (int4: one 128-row group)
+COUNTERS = 1024  # split-K ticket counters per (device, stream): one per tile
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+class Plan(NamedTuple):
+    block_t: int  # activation rows per block; with cols, the kernel's build
+    cols: int  # weight columns per block
+    tiles: int  # output tiles, the grid's x * y
+    splits: int
+    k_per_split: int
+
+    @property
+    def partial_floats(self) -> int:
+        """fp32 scratch for the split-K partials (0 without a split)."""
+        return self.splits * self.tiles * self.block_t * self.cols if self.splits > 1 else 0
 
 
 def quantize_int8(w: torch.Tensor, axis: int = -2) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,18 +79,96 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(M: int, N: int, K: int, sms: int, block_k: int = 0) -> Tuple[int, int, int]:
-    """(block_m, splits, k_per_split) for an [M, K] @ [K, N] launch: 16-row
-    tiles for decode-sized M, 64 otherwise, K tiles ``block_k`` deep (by
-    default the block_m variant's depth), and K split over blocks until
-    about two blocks per SM are in flight."""
-    block_m = 16 if M <= 16 else 64
-    block_k = block_k or BLOCK_K[block_m]
-    tiles = math.ceil(M / block_m) * math.ceil(N / BLOCK_N)
-    k_tiles = math.ceil(K / block_k)
-    want = max(1, min(k_tiles, math.ceil(2 * sms / tiles)))
-    per = math.ceil(k_tiles / want)
-    return block_m, math.ceil(k_tiles / per), per * block_k
+@functools.lru_cache(maxsize=4096)  # a pure function of its ints, asked once per launch
+def plan(M: int, N: int, K: int, sms: int, kt: int = KT) -> Plan:
+    """The tile and K split of an [M, K] @ [K, N] launch, from the
+    shapes and the SM count alone (so the same launch always sums in the
+    same order). ``kt`` is the kernel's K rows per stage; splits hold whole
+    stages and none is empty.
+
+    Weight streaming (M <= 64): one block per 64 weight columns, K split
+    into as many parts as one wave of resident blocks (three or two per
+    SM) holds, so a decode step keeps at least two blocks per SM
+    streaming; a grid of more tiles than that keeps K whole. At 64 rows a
+    split's partial tile is as large as eight stages of weights, so there
+    a part keeps at least eight stages. Prefill: 128 x 128 tiles, one
+    block per SM, K whole (a split's partial sums cost more than the idle
+    SMs it fills); a grid of at most half as many such tiles as SMs takes
+    the streaming path's 64 x 64 tiles instead."""
+    k_tiles = math.ceil(K / kt)
+    if M <= STREAM_ROWS[-1]:
+        block_t, cols = next(r for r in STREAM_ROWS if r >= M), WG_COLS
+        tiles = math.ceil(N / cols)
+        least = 8 if block_t == STREAM_ROWS[-1] else 1  # stages per part
+        splits = max(1, min(BLOCKS_PER_SM[block_t] * sms // tiles, k_tiles // least))
+        per = math.ceil(k_tiles / splits)
+        return Plan(block_t, cols, tiles, math.ceil(k_tiles / per), per * kt)
+    block_t, cols = PREFILL_ROWS, 2 * WG_COLS
+    if math.ceil(M / block_t) * math.ceil(N / cols) <= sms // 2:
+        block_t, cols = STREAM_ROWS[-1], WG_COLS
+    tiles = math.ceil(M / block_t) * math.ceil(N / cols)
+    return Plan(block_t, cols, tiles, 1, k_tiles * kt)
+
+
+def kernel_supported(K: int, N: int) -> bool:
+    """Whether the kernel serves a [K, N] int8 weight: TMA reads x rows of
+    K bf16 and weight rows of N bytes, whose strides must be multiples of 16
+    bytes (K % 8 == 0, N % 16 == 0); M may be ragged."""
+    return K > 0 and K % 8 == 0 and N > 0 and N % 16 == 0
+
+
+def _counters_for(dev: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed ticket counters of ``stream`` on ``dev``: each split
+    launch leaves them at 0 again."""
+    key = (dev.index, stream)
+    c = _counters.get(key)
+    if c is None:
+        c = _counters[key] = torch.zeros(COUNTERS, dtype=torch.int32, device=dev)
+    return c
+
+
+def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
+           scale: torch.Tensor, N: int, K: int, kt: int) -> torch.Tensor:
+    """Check the launch contract of the shared core (``csrc/wq_matmul.cuh``),
+    plan, launch ``entry`` of ``library`` and add one to
+    ``wrapper.launches``. ``w`` is the raw weight (int8 rows or packed
+    nibbles) and ``scale`` its f32 scales."""
+    build.require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
+    build.require(scale.dtype == torch.float32, f"scale must be float32, got {scale.dtype}")
+    build.require(x.shape[-1] == K,
+                  f"x {tuple(x.shape)} does not contract with K={K}")
+    build.require(
+        x.is_contiguous() and w.is_contiguous() and scale.is_contiguous(),
+        f"{library} needs contiguous operands",
+    )
+    build.require(kernel_supported(K, N),
+                  f"{library} needs K % 8 == 0 and N % 16 == 0, got K={K} N={N}")
+    build.require((x.data_ptr() | w.data_ptr() | scale.data_ptr()) % 16 == 0,
+                  f"{library} needs 16-byte aligned operands")
+    dev = x.device
+    lead = x.shape[:-1]
+    M = math.prod(lead)
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if M == 0:
+        return y.reshape(*lead, N)
+    p = plan(M, N, K, sm_count(dev.index), kt)
+    # the host's cost per launch is most of a decode step's: one stream
+    # query serves the counters and the launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = counters = y
+    if p.splits > 1:
+        build.require(p.tiles <= COUNTERS, f"{p.tiles} split tiles exceed {COUNTERS} counters")
+        partial = torch.empty(p.partial_floats, dtype=torch.float32, device=dev)
+        counters = _counters_for(dev, stream)
+    fn = build.kernel(library, entry, _ARGTYPES)
+    rc = fn(
+        build.ptr(x), build.ptr(w), build.ptr(scale), build.ptr(y), build.ptr(partial),
+        build.ptr(counters), M, N, K, p.block_t, p.cols, p.splits, p.k_per_split,
+        ctypes.c_void_p(stream),
+    )
+    build.check(library, rc)
+    wrapper.launches += 1
+    return y.reshape(*lead, N)
 
 
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -74,40 +176,16 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
     """x [..., K] @ dequant(w_q [K, N] int8, scale [1, N] f32) -> [..., N].
 
     CPU operands take ``quantized_matmul_reference``; CUDA operands launch
-    the kernel (bf16 activations, contiguous operands) or raise."""
+    the kernel (bf16 activations, contiguous 16-byte aligned operands,
+    K % 8 == 0, N % 16 == 0) or raise."""
     dev = build.device_of(x, w_q, scale)
     if dev.type == "cpu":
         return quantized_matmul_reference(x, w_q, scale)
     K, N = w_q.shape
-    build.require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
     build.require(w_q.dtype == torch.int8, f"w_q must be int8, got {w_q.dtype}")
-    build.require(scale.dtype == torch.float32, f"scale must be float32, got {scale.dtype}")
-    build.require(x.shape[-1] == K and K > 0,
-                  f"x {tuple(x.shape)} does not contract with w_q {(K, N)}")
     build.require(scale.numel() == N, f"scale has {scale.numel()} entries for N={N}")
-    build.require(
-        x.is_contiguous() and w_q.is_contiguous() and scale.is_contiguous(),
-        "quantized_matmul needs contiguous operands",
-    )
-    lead = x.shape[:-1]
-    M = math.prod(lead)
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if M == 0:
-        return y.reshape(*lead, N)
-    block_m, splits, k_per_split = plan(M, N, K, sm_count(dev.index or 0))
-    partial = (
-        torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-        if splits > 1 else y
-    )
-    fn = build.kernel("quantized_matmul", "aios_quantized_matmul", _ARGTYPES)
-    rc = fn(
-        build.ptr(x), build.ptr(w_q), build.ptr(scale), build.ptr(y),
-        build.ptr(partial), M, N, K, block_m, splits, k_per_split,
-        build.stream(dev),
-    )
-    build.check("quantized_matmul", rc)
-    quantized_matmul.launches += 1
-    return y.reshape(*lead, N)
+    return launch(quantized_matmul, "quantized_matmul", "aios_quantized_matmul",
+                  x, w_q, scale, N, K, KT)
 
 
 quantized_matmul.launches = 0

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Host cost of issuing the weight-quantized matmuls K1 and K5, and the wall
+time of a TinyLlama decode step, for the ``aios_tpu_torch`` under ``--root``.
+
+The decode-step sequences of K1 (TinyLlama-1.1B, 89 launches at M=8 and
+M=64) and K5 (Mistral-7B, 129 launches at M=8) are issued through the
+wrappers on per-layer views of stacked weights, as ``engine/model.py`` does,
+while the stream is held by a device sleep: the host's time per call is
+then the issue cost alone (``held`` says the device was still asleep when
+the host finished). One issue of each sequence runs under ``cProfile``;
+``cuTensorMapEncodeTiled`` is timed through ``ctypes``; a full-width
+TinyLlama engine (int8 weights, bf16 paged pool, 8 slots at ~300 rows)
+times ``step(16)`` on the host clock and profiles one. Weights are random
+from a seed.
+
+Run from the repository root on a machine with one CUDA device, here or
+against another checkout of the package, to compare two trees on one host:
+    python3 aios_tpu_torch/tools/issue_cost.py [--root DIR] [--label NAME]
+Prints profile lines and, last, one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import ctypes
+import io
+import json
+import pstats
+import statistics
+import sys
+import time
+from pathlib import Path
+
+TINYLLAMA = (22, {"w_qkv": (2048, 2560), "wo": (2048, 2048), "w_gateup": (2048, 11264),
+                  "w_down": (5632, 2048)}, (2048, 32000))
+MISTRAL = (32, {"w_qkv": (4096, 6144), "wo": (4096, 4096), "w_gateup": (4096, 28672),
+                "w_down": (14336, 4096)}, (4096, 32000))
+HOLD_CYCLES = 200_000_000  # about 0.1 s of SM clock: longer than any sequence's issue
+REPEATS = 30
+
+
+def _int8_leaves(torch, gen, layers, kn, head):
+    leaves = {}
+    for key, (K, N) in {**kn, "lm_head": head}.items():
+        L = 1 if key == "lm_head" else layers
+        q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda").to(torch.int8)
+        s = torch.rand(L, 1, N, generator=gen, device="cuda") * 3e-4 + 1e-5
+        leaves[key] = (q, s, K)
+    return leaves
+
+
+def _int4_leaves(torch, gen, layers, kn, head):
+    leaves = {}
+    for key, (K, N) in {**kn, "lm_head": head}.items():
+        L = 1 if key == "lm_head" else layers
+        q = torch.randint(0, 256, (L, K // 2, N), generator=gen, device="cuda").to(torch.uint8)
+        s = torch.rand(L, K // 128, 1, N, generator=gen, device="cuda") * 5e-3 + 1e-5
+        leaves[key] = (q, s, K)
+    return leaves
+
+
+def _sequence(fn, leaves, layers, xs):
+    """One decode step's calls, in the model's order, on per-layer views."""
+    for i in range(layers):
+        for key in ("w_qkv", "wo", "w_gateup", "w_down"):
+            q, s, K = leaves[key]
+            fn(xs[K], q[i], s[i])
+    q, s, K = leaves["lm_head"]
+    fn(xs[K], q[0], s[0])
+
+
+def issue_cost(torch, fn, leaves, layers, M, gen):
+    """Median host microseconds per wrapper call with the stream held, and
+    the share of repeats in which the device was still held at the end."""
+    xs = {K: torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+          for K in {K for _, _, K in leaves.values()}}
+    calls = 4 * layers + 1
+    _sequence(fn, leaves, layers, xs)  # warm: libraries loaded, counters allocated
+    torch.cuda.synchronize()
+    per_call, held = [], 0
+    for _ in range(REPEATS):
+        torch.cuda._sleep(HOLD_CYCLES)
+        asleep = torch.cuda.Event()
+        asleep.record()
+        t0 = time.perf_counter()
+        _sequence(fn, leaves, layers, xs)
+        dt = time.perf_counter() - t0
+        held += not asleep.query()
+        torch.cuda.synchronize()
+        per_call.append(dt / calls * 1e6)
+    prof = cProfile.Profile()
+    torch.cuda._sleep(HOLD_CYCLES)
+    prof.enable()
+    _sequence(fn, leaves, layers, xs)
+    prof.disable()
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+    return statistics.median(per_call), held / REPEATS, calls, out.getvalue()
+
+
+def encode_cost():
+    """Microseconds per cuTensorMapEncodeTiled call through ctypes (a
+    2048 x 2560 int8 weight in 64 x 64 boxes), and per no-op libcuda call
+    (cuDriverGetVersion) through ctypes, on the host."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    enc = cuda.cuTensorMapEncodeTiled
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    buf = (ctypes.c_uint8 * 192)()
+    mp = (ctypes.addressof(buf) + 63) // 64 * 64
+    dims, strides = (u64 * 2)(2560, 2048), (u64 * 1)(2560)
+    box, unit = (u32 * 2)(64, 64), (u32 * 2)(1, 1)
+    ptr = ctypes.c_void_p(1 << 32)  # any 16-byte aligned address: nothing is read
+    args = (ctypes.c_void_p(mp), 0, 2, ptr, dims, strides, box, unit, 0, 2, 3, 0)
+    if enc(*args) != 0:
+        return None, None
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        enc(*args)
+    t_enc = (time.perf_counter() - t0) / n * 1e6
+    v = ctypes.c_int()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cuda.cuDriverGetVersion(ctypes.byref(v))
+    return t_enc, (time.perf_counter() - t0) / n * 1e6
+
+
+def step_wall(torch, gen):
+    """Host-clock ms per decode step of a full-width TinyLlama engine, 8
+    slots at ~300 rows: step(16) twice to warm, then twelve times timed
+    (their median and each), then once under cProfile (its top entries)."""
+    from aios_tpu_torch.engine.config import TINYLLAMA_1_1B
+    from aios_tpu_torch.engine.engine import TorchEngine
+    from aios_tpu_torch.engine.weights import init_params
+
+    eng = TorchEngine(TINYLLAMA_1_1B, init_params(TINYLLAMA_1_1B, gen),
+                      paged_pool_rows=9 * 2048, quantize="int8", device="cuda")
+    for s in range(eng.num_slots):
+        eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
+    eng.step(32)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        eng.step(16)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 16 * 1e3)
+    prof = cProfile.Profile()
+    prof.enable()
+    eng.step(16)
+    torch.cuda.synchronize()
+    prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
+    return statistics.median(walls), walls, out.getvalue()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="directory holding the aios_tpu_torch package to measure")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("issue_cost: no CUDA device", file=sys.stderr)
+        return 1
+    import aios_tpu_torch
+    from aios_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"label": args.label, "package": str(Path(aios_tpu_torch.__file__).parent),
+           "card": torch.cuda.get_device_name(0)}
+    k1 = _int8_leaves(torch, gen, *TINYLLAMA)
+    for M in (8, 64):
+        us, held, calls, prof = issue_cost(torch, ops.quantized_matmul, k1, TINYLLAMA[0], M, gen)
+        out[f"k1_m{M}_us_per_call"], out[f"k1_m{M}_held"] = us, held
+        print(f"[{args.label}] K1 M={M}: {calls} calls, {us:.2f} us each\n{prof}")
+    del k1
+    k5 = _int4_leaves(torch, gen, *MISTRAL)
+    us, held, calls, prof = issue_cost(torch, ops.int4_matmul, k5, MISTRAL[0], 8, gen)
+    out["k5_m8_us_per_call"], out["k5_m8_held"] = us, held
+    print(f"[{args.label}] K5 M=8: {calls} calls, {us:.2f} us each\n{prof}")
+    del k5
+    torch.cuda.empty_cache()
+    out["encode_us"], out["ctypes_noop_us"] = encode_cost()
+    out["tinyllama_step_ms"], out["tinyllama_step_ms_all"], prof = step_wall(torch, gen)
+    print(f"[{args.label}] TinyLlama step(16) under cProfile\n{prof}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

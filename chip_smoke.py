@@ -9,7 +9,11 @@ Phases, each printing its lines:
      K6 and K8, Mistral-7B for K2, K4, K5 and K6-K9), with its time (CUDA
      events, median of 20 runs, the L2 flushed and the stream held before
      each so that host overhead is not counted), the plain version's time,
-     one PyTorch library call's time and the bound;
+     one PyTorch library call's time and the bound; K1 and K5 at M = 1, 8,
+     16, 32, 64, 128 and 512 (every tile the wrappers' plan can pick;
+     bit-identical repeats at 8, 16, 32, 64 and 512), timed at the model's
+     largest bucket, and summed per decode step, verify forward and prefill
+     forward;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1, LoadModel
      ``synthetic://tinyllama-1.1b`` at full width (int8 weights, bf16 pool),
      three Infer and one StreamInfer over gRPC, and proof that K1-K3
@@ -224,7 +228,7 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(build.SOURCES)} kernel libraries ready in {secs:.2f} s "
         f"({len(logs)} compiled now)")
@@ -244,7 +248,7 @@ def _report(name, what, ms, plain, lib, bnd, err, ok):
 def _add_forward(acc, per_step, ms, plain, lib, nbytes, flops) -> None:
     """Add one projection's numbers, times its launches per forward pass."""
     acc["ms"] += per_step * ms
-    acc["plain_ms"] += per_step * plain
+    acc["plain_ms"] = None if plain is None else acc["plain_ms"] + per_step * plain
     acc["library_ms"] += per_step * lib
     acc["bytes"] += per_step * nbytes
     acc["flops"] += per_step * flops
@@ -252,53 +256,91 @@ def _add_forward(acc, per_step, ms, plain, lib, nbytes, flops) -> None:
 
 def _log_forward(name, what, launches, M, acc):
     bnd = bound_ms(acc["bytes"], acc["flops"])
+    plain = "not timed" if acc["plain_ms"] is None else f"{acc['plain_ms']:.4f}"
     log(
         f"[kernel] {name} {what} ({launches} launches, M={M}): "
-        f"kernel_ms={acc['ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+        f"kernel_ms={acc['ms']:.4f} plain_ms={plain} "
         f"library_ms={acc['library_ms']:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
-        f"weight_bytes={acc['bytes']:.4e}"
+        f"x{acc['ms'] / bnd[0]:.2f} of bound, x{acc['ms'] / acc['library_ms']:.2f} of "
+        f"torch.matmul; bytes={acc['bytes']:.4e}"
     )
     return bnd
 
 
-def check_quantized_matmul(gen) -> dict:
-    from aios_tpu_torch.ops import quantized_matmul, quantized_matmul_reference
+# M of one forward of each kind: a decode step over 8 slots, the verify
+# forward of a speculative round (8 slots x 8 query rows), a prefill bucket
+FORWARDS = {8: "one decode step", 64: "one verify forward", 512: "one prefill forward"}
+# every tile of the plan: 8/16/32/64 streaming rows, 64 x 64 and 128 x 128 prefill
+CHECKED_M = (1, 8, 16, 32, 64, 128, 512)
+REPEATED = (8, 16, 32, 64, 512)  # launched twice: the split-K sum must repeat bit for bit
 
+
+def _check_weight_matmul(gen, name, kn, largest, make) -> dict:
+    """K1 or K5 (``name``) against its plain version at every projection
+    ``kn`` of one model, at every M of CHECKED_M, each within TOL of
+    max|ref|; at M in REPEATED a second launch on the same inputs must give
+    the same bits. At ``largest`` (the model's largest prefill bucket) only
+    the kernel and ``torch.matmul`` on the bf16 dequantized weight are
+    timed. ``make(K, N)`` returns (weight, scales, bf16 weight, weight and
+    scale bytes). One line per shape, then one per forward in FORWARDS and at
+    ``largest``."""
+    from aios_tpu_torch import ops
+
+    fn = getattr(ops, name)
+    ref_fn = getattr(ops, f"{name}_reference")
+    launches = sum(per for _, per in kn.values())
     worst = 0.0
-    # M=8 is one decode step, M=64 the verify forward of one speculative round
-    # (8 slots x 8 query rows), M=512 a prefill bucket
     fwd = {M: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-           for M in (8, 64)}
-    for M in (8, 64, 512):
-        for key, ((K, N), per_step) in TINYLLAMA_KN.items():
+           for M in (*FORWARDS, largest)}
+    for M in (*CHECKED_M, largest):
+        for key, ((K, N), per_step) in kn.items():
             x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
-            w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
-            s = torch.rand(1, N, generator=gen, device="cuda") * (0.04 / 127) + 1e-5
-            y = quantized_matmul(x, w_q, s)
-            ref = quantized_matmul_reference(x, w_q, s)
-            torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            ok = bool(torch.isfinite(y).all()) and err <= TOL * scale
-            w_bf16 = (w_q.float() * s).to(torch.bfloat16)
-            ms = time_ms(lambda: quantized_matmul(x, w_q, s))
-            plain = time_ms(lambda: quantized_matmul_reference(x, w_q, s))
+            w, s, w_bf16, wbytes = make(K, N)
+            y = fn(x, w, s)
+            plain = None
+            if M != largest:
+                ref = ref_fn(x, w, s)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                ok = bool(torch.isfinite(y).all()) and err <= TOL * scale
+                expect(ok, f"{name} {key} M={M}: err {err} vs max|ref| {scale}")
+                if M in REPEATED:
+                    expect(torch.equal(fn(x, w, s), y),
+                           f"{name} {key} M={M}: a second launch gave other bits")
+                plain = time_ms(lambda: ref_fn(x, w, s))
+                worst = max(worst, err)
+                del ref
+            ms = time_ms(lambda: fn(x, w, s))
             lib = time_ms(lambda: torch.matmul(x, w_bf16))
-            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+            nbytes = M * K * 2 + wbytes + M * N * 2
             flops = 2.0 * M * N * K
             bnd = bound_ms(nbytes, flops)
-            _report("quantized_matmul", f"{key} M={M} K={K} N={N}", ms, plain, lib,
-                    bnd, err, ok)
-            expect(ok, f"quantized_matmul {key} M={M}: err {err} vs max|ref| {scale}")
-            worst = max(worst, err)
+            what = f"{key} M={M} K={K} N={N}"
+            if M == largest:
+                log(f"[kernel] {name} {what}: kernel_ms={ms:.4f} library_ms={lib:.4f} "
+                    f"bound_ms={bnd[0]:.4f} ({bnd[1]}) (timed only)")
+            else:
+                _report(name, what + (", repeat bit-identical" if M in REPEATED else ""),
+                        ms, plain, lib, bnd, err, ok)
             if M in fwd:
                 _add_forward(fwd[M], per_step, ms, plain, lib, nbytes, flops)
-    bnd = _log_forward("quantized_matmul", "one decode step", 89, 8, fwd[8])
-    _log_forward("quantized_matmul", "one verify forward", 89, 64, fwd[64])
+            del x, w, s, w_bf16, y
+    bnds = {M: _log_forward(name, FORWARDS.get(M, "one prefill forward"), launches, M, acc)
+            for M, acc in fwd.items()}
     step = fwd[8]
     return dict(max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
-                library_ms=step["library_ms"], bound_ms=bnd[0], bound_by=bnd[1],
-                measured_at="one decode step: 89 launches at M=8")
+                library_ms=step["library_ms"], bound_ms=bnds[8][0], bound_by=bnds[8][1],
+                measured_at=f"one decode step: {launches} launches at M=8")
+
+
+def check_quantized_matmul(gen) -> dict:
+    def make(K, N):
+        w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
+        s = torch.rand(1, N, generator=gen, device="cuda") * (0.04 / 127) + 1e-5
+        return w_q, s, (w_q.float() * s).to(torch.bfloat16), K * N + N * 4
+
+    return _check_weight_matmul(gen, "quantized_matmul", TINYLLAMA_KN, 2048, make)
 
 
 def check_flash_attention(gen) -> dict:
@@ -418,44 +460,14 @@ def check_paged_decode_attention(gen) -> dict:
 
 
 def check_int4_matmul(gen) -> dict:
-    from aios_tpu_torch.ops import dequantize_int4, int4_matmul, int4_matmul_reference
+    from aios_tpu_torch.ops import dequantize_int4
 
-    worst = 0.0
-    # M=8, 64 and 512 as in check_quantized_matmul
-    fwd = {M: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-           for M in (8, 64)}
-    for M in (8, 64, 512):
-        for key, ((K, N), per_step) in MISTRAL_KN.items():
-            x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
-            packed = torch.randint(0, 256, (K // 2, N), generator=gen,
-                                   device="cuda").to(torch.uint8)
-            s = torch.rand(K // 128, 1, N, generator=gen, device="cuda") * (0.04 / 7) + 1e-5
-            y = int4_matmul(x, packed, s)
-            ref = int4_matmul_reference(x, packed, s)
-            torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            ok = bool(torch.isfinite(y).all()) and err <= TOL * scale
-            w_bf16 = dequantize_int4(packed, s)
-            ms = time_ms(lambda: int4_matmul(x, packed, s))
-            plain = time_ms(lambda: int4_matmul_reference(x, packed, s))
-            lib = time_ms(lambda: torch.matmul(x, w_bf16))
-            nbytes = M * K * 2 + K * N // 2 + (K // 128) * N * 4 + M * N * 2
-            flops = 2.0 * M * N * K
-            bnd = bound_ms(nbytes, flops)
-            _report("int4_matmul", f"{key} M={M} K={K} N={N}", ms, plain, lib, bnd,
-                    err, ok)
-            expect(ok, f"int4_matmul {key} M={M}: err {err} vs max|ref| {scale}")
-            worst = max(worst, err)
-            if M in fwd:
-                _add_forward(fwd[M], per_step, ms, plain, lib, nbytes, flops)
-            del x, packed, s, y, ref, w_bf16
-    bnd = _log_forward("int4_matmul", "one decode step", 129, 8, fwd[8])
-    _log_forward("int4_matmul", "one verify forward", 129, 64, fwd[64])
-    step = fwd[8]
-    return dict(max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
-                library_ms=step["library_ms"], bound_ms=bnd[0], bound_by=bnd[1],
-                measured_at="one decode step: 129 launches at M=8")
+    def make(K, N):
+        packed = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda").to(torch.uint8)
+        s = torch.rand(K // 128, 1, N, generator=gen, device="cuda") * (0.04 / 7) + 1e-5
+        return packed, s, dequantize_int4(packed, s), K * N // 2 + (K // 128) * N * 4
+
+    return _check_weight_matmul(gen, "int4_matmul", MISTRAL_KN, 4096, make)
 
 
 def check_paged_decode_attention_int8(gen) -> dict:
@@ -659,6 +671,10 @@ def check_dense_attention(gen) -> dict:
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # what time_ms reads for a kernel that does nothing: the floor under
+    # every per-launch time below, and so under every per-step sum
+    log(f"[kernel] timing floor: an empty kernel under time_ms takes "
+        f"{time_ms(lambda: torch.cuda._sleep(1)):.4f} ms")
     return {
         "quantized_matmul": check_quantized_matmul(gen),
         "flash_attention": check_flash_attention(gen),

@@ -5,10 +5,12 @@ compiler and the card exist only where ``chip_smoke.py`` runs)."""
 import importlib
 import math
 import os
+import re
 import stat
 import time
 
 import pytest
+import torch
 
 from aios_tpu_torch.ops import build
 
@@ -110,16 +112,118 @@ def test_build_without_nvcc_says_so(toolchain, monkeypatch):
         build._nvcc()
 
 
-@pytest.mark.parametrize("M,N,K", [
-    (8, 2560, 2048), (8, 2048, 2048), (8, 11264, 2048), (8, 2048, 5632),
-    (8, 32000, 2048), (1, 64, 96), (16, 128, 64), (17, 100, 70),
-    (512, 2048, 2048), (2048, 2048, 5632),
-])
+# (M, N, K) of every TinyLlama int8 projection at a decode step (M=8), a
+# verify forward (M=64) and prefill buckets, and ragged shapes
+TINYLLAMA_NK = ((2560, 2048), (2048, 2048), (11264, 2048), (2048, 5632), (32000, 2048))
+PLAN_CASES = [(M, N, K) for M in (8, 16, 32, 64, 512) for N, K in TINYLLAMA_NK] + [
+    (1, 64, 96), (16, 128, 64), (17, 112, 72), (33, 2048, 2048), (65, 2048, 2048),
+    (128, 2560, 2048), (2048, 2048, 5632), (8192, 32000, 2048),
+]
+
+
+def check_plan(p, M, N, K, kt, sms=132):
+    """What every plan must hold: the path and tile by M (a prefill grid
+    of at most half as many 128 x 128 tiles as SMs takes 64 x 64 tiles),
+    whole stages per split and no empty split, the grid covering M and N,
+    a decode step keeping at least two blocks per SM streaming wherever K
+    has the stages for it, splits within one wave of resident blocks,
+    64-row splits of at least eight stages, prefill K whole, and ticket
+    counters and scratch for every split grid."""
+    streaming = M <= 64
+    if streaming:
+        assert (p.block_t, p.cols) == (min(r for r in (8, 16, 32, 64) if r >= M), 64)
+    else:
+        wide = math.ceil(M / 128) * math.ceil(N / 128)
+        assert p.splits == 1
+        assert (p.block_t, p.cols) == ((128, 128) if wide > sms // 2 else (64, 64))
+    assert p.k_per_split % kt == 0
+    assert (p.splits - 1) * p.k_per_split < K <= p.splits * p.k_per_split  # no empty split
+    assert p.tiles == math.ceil(M / p.block_t) * math.ceil(N / p.cols)
+    k_tiles = math.ceil(K / kt)
+    blocks = p.tiles * p.splits
+    if streaming:
+        resident = qmm.BLOCKS_PER_SM[p.block_t] * sms
+        if p.block_t <= 32:
+            assert blocks >= min(2 * sms, p.tiles * k_tiles)
+        elif p.splits > 1:
+            assert p.k_per_split >= 8 * kt
+        assert blocks <= max(p.tiles, resident)
+    if p.splits > 1:
+        assert p.tiles <= qmm.COUNTERS
+        assert p.partial_floats == p.splits * p.tiles * p.block_t * p.cols
+    else:
+        assert p.partial_floats == 0
+
+
+@pytest.mark.parametrize("M,N,K", PLAN_CASES)
 def test_quantized_matmul_plan_covers_k_exactly(M, N, K):
-    block_m, splits, k_per_split = qmm.plan(M, N, K, sms=132)
-    assert block_m == (16 if M <= 16 else 64)
-    assert k_per_split % qmm.BLOCK_K[block_m] == 0
-    assert (splits - 1) * k_per_split < K <= splits * k_per_split  # no empty split
-    tiles = math.ceil(M / block_m) * math.ceil(N / qmm.BLOCK_N)
-    if splits > 1:  # K splits only while there are too few tiles for the card
-        assert tiles < 2 * 132
+    p = qmm.plan(M, N, K, sms=132)
+    check_plan(p, M, N, K, qmm.KT)
+    assert qmm.plan(M, N, K, sms=132) == p  # the split, and so the sum, never varies
+
+
+def test_decode_plans_fill_the_card_and_prefill_plans_do_not_oversplit():
+    for N, K in TINYLLAMA_NK:
+        p = qmm.plan(8, N, K, sms=132)
+        assert p.tiles * p.splits >= 2 * 132
+    # a prefill grid that already fills the card keeps K whole
+    assert qmm.plan(512, 32000, 2048, sms=132).splits == 1
+    assert qmm.plan(2048, 2048, 5632, sms=132).splits == 1
+    # TinyLlama's wo at M=512 has 64 tiles of 128 x 128: it takes 256 of 64 x 64
+    assert qmm.plan(512, 2048, 2048, sms=132)[:4] == (64, 64, 256, 1)
+    # Mistral's lm_head at M=8 has more tiles than resident blocks: K whole
+    assert qmm.plan(8, 32000, 4096, sms=132, kt=128)[2:4] == (500, 1)
+
+
+def test_matmul_sources_share_one_core_and_match_their_bindings():
+    """K1 and K5 are thin entry files over csrc/wq_matmul.cuh, and each C
+    entry takes the wrapper's 14 arguments (6 pointers, 7 ints, the stream)."""
+    assert len(qmm._ARGTYPES) == 14
+    for name, symbol in (("quantized_matmul", "aios_quantized_matmul"),
+                         ("int4_matmul", "aios_int4_matmul")):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "wq_matmul.cuh"' in text
+        sig = text[text.index(f'extern "C" int {symbol}('):]
+        sig = sig[:sig.index(")")]
+        assert sig.count(",") + 1 == len(qmm._ARGTYPES), name
+        assert "wmma::" not in text and "_reduce" not in text
+
+
+def test_plan_and_kernel_agree_on_blocks_per_sm():
+    """The plan splits K by the blocks resident per SM that the kernel's
+    __launch_bounds__ and stage count are built for: one table each side."""
+    text = (build.CSRC / "wq_matmul.cuh").read_text()
+    table = re.search(r"kBlocksPerSm\[\d+\]\[2\] = \{(.*?)\};", text).group(1)
+    pairs = {int(a): int(b) for a, b in re.findall(r"\{(\d+), (\d+)\}", table)}
+    assert pairs == qmm.BLOCKS_PER_SM
+    assert set(qmm.STREAM_ROWS) | {qmm.PREFILL_ROWS} == set(pairs)
+    for case in re.findall(r"launch<P, (\d+), (\d+)>", text):
+        assert int(case[0]) in pairs and int(case[1]) == (2 if int(case[0]) == 128 else 1)
+
+
+@pytest.mark.parametrize("K,N,ok", [(2048, 2560, True), (5632, 2048, True), (2048, 32000, True),
+                                    (2048, 40, False), (100, 64, False), (0, 64, False)])
+def test_kernel_supported_names_the_launch_contract(K, N, ok):
+    assert qmm.kernel_supported(K, N) is ok
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(x_dtype=torch.float32), "bfloat16"),
+    (dict(N=40), "N % 16"),
+    (dict(K=100), "K % 8"),
+    (dict(noncontig=True), "contiguous"),
+])
+def test_launch_contract_is_checked_before_any_launch(bad, match):
+    """The checks of the shared launch helper refuse what the kernel does
+    not take, before anything touches a card."""
+    K, N = bad.get("K", 64), bad.get("N", 64)
+    x = torch.zeros(4, K, dtype=bad.get("x_dtype", torch.bfloat16))
+    if bad.get("noncontig"):
+        x = torch.zeros(K, 4, dtype=torch.bfloat16).t()
+    w = torch.zeros(K, N, dtype=torch.int8)
+    s = torch.ones(1, N)
+    before = qmm.quantized_matmul.launches
+    with pytest.raises(ValueError, match=match):
+        qmm.launch(qmm.quantized_matmul, "quantized_matmul", "aios_quantized_matmul",
+                   x, w, s, N, K, qmm.KT)
+    assert qmm.quantized_matmul.launches == before

@@ -143,24 +143,35 @@ def test_int4_matmul_tiny_groups_match_jax_reference(K, N):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("M,N,K", [
-    (8, 6144, 4096), (8, 4096, 4096), (8, 28672, 4096), (8, 4096, 14336),
-    (8, 32000, 4096), (512, 28672, 4096), (4096, 4096, 14336), (1, 64, 128),
-    (17, 100, 384),
+MISTRAL_NK = ((6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336), (32000, 4096))
+
+
+@pytest.mark.parametrize("M,N,K", [(M, N, K) for M in (8, 16, 32, 64, 512) for N, K in MISTRAL_NK] + [
+    (1, 64, 128), (17, 112, 384), (128, 6144, 4096), (4096, 4096, 14336),
 ])
 def test_int4_plan_covers_k_exactly(M, N, K):
-    block_m, splits, k_per_split = T4.plan(M, N, K, sms=132)
-    assert block_m == (16 if M <= 16 else 64)
-    assert k_per_split % T4.GROUP == 0
-    assert (splits - 1) * k_per_split < K <= splits * k_per_split  # no empty split
-    tiles = math.ceil(M / block_m) * math.ceil(N / QMM.BLOCK_N)
-    if splits > 1:  # K splits only while there are too few tiles for the card
-        assert tiles < 2 * 132
+    """K1's plan with one 128-row scale group per stage: the tile by M,
+    whole groups in every split and no empty split, a decode step filling
+    the card with two blocks per SM, prefill K whole, counters for every
+    split grid."""
+    p = T4.plan(M, N, K, sms=132)
+    if M <= 64:
+        assert (p.block_t, p.cols) == (max(8, 1 << (M - 1).bit_length()), 64)
+    else:
+        assert p.splits == 1 and (p.block_t, p.cols) in ((64, 64), (128, 128))
+    assert p.k_per_split % T4.GROUP == 0
+    assert (p.splits - 1) * p.k_per_split < K <= p.splits * p.k_per_split  # no empty split
+    assert p.tiles == math.ceil(M / p.block_t) * math.ceil(N / p.cols)
+    if M == 8:
+        assert p.tiles * p.splits >= 2 * 132
+    if p.splits > 1:
+        assert p.tiles <= QMM.COUNTERS
 
 
 def test_kernel_layout_rule():
     assert T4.kernel_supported(4096, 6144, 128)
     assert T4.kernel_supported(14336, 4096, 128)
+    assert not T4.kernel_supported(4096, 4104, 128)  # TMA needs 16-byte row strides
     assert not T4.kernel_supported(64, 96, 64)  # the tiny model's group-64 leaves
     assert T4.supports_int4(64, 96, T4.pick_group(64))
     assert not T4.supports_int4(100, 96, T4.pick_group(100))
@@ -195,6 +206,19 @@ def test_quantize_params_falls_back_to_int8_like_jax():
         np.testing.assert_array_equal(tq[k].numpy(), v, err_msg=k)
     with pytest.raises(ValueError):
         tm.quantize_params(params_from_jax(_numpy_tree(jp)), mode="int3")
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_a_leaf_the_kernels_cannot_serve_raises_at_quantize_time(mode):
+    """N = 40 suits neither kernel (TMA reads rows in 16-byte strides): off
+    the CPU (here the meta device, which computes nothing) quantizing it
+    raises and names the leaf, instead of its first matmul; a leaf that
+    suits the kernel quantizes there, and on the CPU every shape serves."""
+    with pytest.raises(ValueError, match=r"w_down \[K=128, N=40\]"):
+        tm._quant_leaf(torch.empty(128, 40, device="meta"), mode, "w_down")
+    assert tm._quant_leaf(torch.empty(128, 64, device="meta"), mode, "wo")
+    leaf = tm._quant_leaf(torch.randn(128, 40), mode, "w_down")
+    assert set(leaf) == ({"q4", "s4"} if mode == "int4" else {"q", "s"})
 
 
 def test_params_from_jax_carries_an_int4_tree_byte_for_byte(jax_params):
