@@ -1,7 +1,8 @@
 // Shared by the decode-attention kernels (paged_attention.cu over the page
 // pool, dense_attention.cu over the dense slot cache): the block geometry,
-// warp reductions and, per cache element type, how a 16-byte K vector dots
-// with q and how a lane's D/32 elements of a V row load and convert.
+// warp reductions, per cache element type how a 16-byte K vector dots with q
+// and how a lane's D/32 elements of a V row load and convert, and the split
+// of a slot's rows over several blocks with its merge in the same launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,5 +109,94 @@ struct Elem<int8_t> {
     for (int d = 0; d < DL; ++d) out[d] = s8(w[d / 4], d % 4);
   }
 };
+
+// -- one slot's rows split over blocks ------------------------------------------
+//
+// The host picks the number of splits from C, B, KH and the SM count alone
+// (ops/decode_attention.py, split_plan), never from the lengths, which stay
+// on the device. Each block of a (query tile, kv head, slot) cuts the rows the
+// tile's queries can see into `splits` equal shares of whole 32-row warp
+// chunks, in order, so every split has the same work whatever the slot's
+// length and window; it reduces its share to a partial softmax, writes it to
+// a workspace and takes a ticket, and the block that draws the last ticket
+// merges the partials in split order in the same launch and sets the ticket
+// back to 0 (wq_matmul.cuh's split K): no float atomics, and two launches
+// give identical bits. (A thread-block cluster merging through distributed
+// shared memory measured slower on the H100: a cluster holds all its SMs
+// until its slowest block is done.)
+
+constexpr int kMaxSplits = 8;
+constexpr int kSplitAlign = 32;  // rows of a warp chunk
+
+// The visible rows [c_lo, c_hi) cut to share z of `splits`; empty (c_lo >=
+// c_hi) when the rows run out before it, and the block then contributes the
+// empty partial m = -1e30, l = 0, acc = 0. (split_share in
+// ops/decode_attention.py is the same cut.)
+__device__ __forceinline__ void clip_to_split(int& c_lo, int& c_hi, int z, int splits) {
+  const int share = (c_hi - c_lo + splits - 1) / splits;
+  const int rows = (share + kSplitAlign - 1) / kSplitAlign * kSplitAlign;
+  c_lo += z * rows;
+  c_hi = min(c_hi, c_lo + rows);
+}
+
+// Floats of one split's partial in the workspace: acc [kMaxG * D], then m and
+// l [kMaxG] each.
+template <int D>
+__host__ __device__ constexpr int partial_floats() {
+  return kMaxG * (D + 2);
+}
+
+// Split z of a group of `splits` blocks has its partial for nr query rows in
+// shared memory: m[r], l[r] (running max and sum) and acc[r * D + d] (the
+// output, not yet divided by l). It writes them to slot z of `part` (the
+// group's splits * partial_floats<D>() floats), and the block that draws the
+// last of the group's tickets calls store(i, o) for i = r * D + d with
+//   o = sum_z acc_z * e^(m_z - M) / sum_z l_z * e^(m_z - M),  M = max_z m_z,
+// a sum <= 0 taken as 1 (a row with no visible column gives 0). Every thread
+// of the block calls it; `last` is a shared int.
+template <int D, class Store>
+__device__ __forceinline__ void merge_splits(const float* m, const float* l, const float* acc,
+                                             int nr, int z, int splits, float* part,
+                                             int* ticket, int* last, Store store) {
+  constexpr int P = partial_floats<D>();
+  const int tid = threadIdx.x;
+  __syncthreads();  // the block's partial is in shared memory
+  float* mine = part + z * P;
+  for (int i = tid; i < nr * D; i += blockDim.x) __stcg(mine + i, acc[i]);
+  if (tid < nr) {
+    __stcg(mine + kMaxG * D + tid, m[tid]);
+    __stcg(mine + kMaxG * D + kMaxG + tid, l[tid]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(ticket, 1) == splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < nr * D; i += blockDim.x) {
+    const int r = i / D;
+    float mz[kMaxSplits], lz[kMaxSplits], az[kMaxSplits];
+    float M = kNegInf;
+#pragma unroll
+    for (int y = 0; y < kMaxSplits; ++y) {  // every split's loads in flight at once
+      const float* py = part + y * P;
+      const bool in = y < splits;
+      mz[y] = in ? __ldcg(py + kMaxG * D + r) : kNegInf;
+      lz[y] = in ? __ldcg(py + kMaxG * D + kMaxG + r) : 0.f;
+      az[y] = in ? __ldcg(py + i) : 0.f;
+      M = fmaxf(M, mz[y]);
+    }
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int y = 0; y < kMaxSplits; ++y) {
+      if (y >= splits) break;
+      const float f = expf(mz[y] - M);
+      L += lz[y] * f;
+      O += az[y] * f;
+    }
+    store(i, O / (L <= 0.f ? 1.f : L));
+  }
+  if (tid == 0) *ticket = 0;  // every split has drawn: ready for the next launch
+}
 
 }  // namespace

@@ -45,9 +45,19 @@
 //   both int8 kernels: f32 throughout, q scaled first,
 //     score = (q . k_int8) * k_scale[row], p * v_scale[row] multiplies
 //     v_int8 without rounding, and the running sum takes p itself.
+//
+// Split slots (the single-query bf16 entry, K8): the launch can split each
+// (tile, kv head, slot)'s visible rows over up to eight blocks
+// (attention_common.cuh): block z walks only its share of the rows the mask
+// exposes, reduces it to a partial softmax, and the block that draws the
+// group's last ticket merges the partials in split order, in the same
+// launch. A decode step has only B * KH (slot, kv head) pairs, 32 for
+// TinyLlama's 8 slots, against 132 SMs; split they fill the card and the
+// longest slot no longer runs through one block. The other three entries
+// launch one split, the kernel they had.
 // Not yet: tensor-core products for the R x 32 score tiles (mma.sync or
-// wgmma), which is what the multi-query shapes want, and splitting a long
-// slot over several blocks.
+// wgmma), which is what the multi-query shapes want, and the split for K6, K7
+// and K9.
 
 #include "attention_common.cuh"
 
@@ -56,15 +66,15 @@ namespace {
 constexpr int kRows = kMaxG;  // query rows per block
 
 template <typename T, int D, bool kQRound>
-__global__ void __launch_bounds__(kThreads)
-dense_attention_kernel(const __nv_bfloat16* __restrict__ q,
+__device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict__ q,
                        const T* __restrict__ k_cache, const T* __restrict__ v_cache,
                        const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales,
                        const int* __restrict__ lengths,
                        const int* __restrict__ strides,
-                       __nv_bfloat16* __restrict__ o, int Tq, int H, int KH, int C,
-                       int window, float sm_scale) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ partial,
+                       int* __restrict__ tickets, int Tq, int H, int KH, int C,
+                       int window, float sm_scale, int n_splits) {
   using E = Elem<T>;
   constexpr int KV = D / E::kPerVec;  // 16-byte vectors per K row
   constexpr int DL = D / 32;          // output dims per lane and query row
@@ -74,11 +84,18 @@ dense_attention_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float m_w[kWarps][kRows];
   __shared__ float l_w[kWarps][kRows];
   __shared__ float acc_w[kWarps][kRows * D];
+  __shared__ float m_part[kRows];  // the block's partial when split
+  __shared__ float l_part[kRows];
+  __shared__ int last;
 
+  // only K8's build (bf16 cache, q rounded) takes a split: the other three
+  // compile to the single-split kernel they had, registers and all
+  const int splits = kQRound ? n_splits : 1;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int r0 = blockIdx.x * kRows;  // first query row of this tile
+  const int split = blockIdx.x % splits;  // a group's splits are consecutive in x
+  const int r0 = blockIdx.x / splits * kRows;  // first query row of this tile
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / KH;
@@ -87,8 +104,9 @@ dense_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int stride = strides != nullptr ? strides[b] : 0;
   const int pos_lo = base + (r0 / G) * stride;
   const int pos_hi = base + ((r0 + nr - 1) / G) * stride;
-  const int c_lo = window > 0 ? max(pos_lo + 1 - window, 0) : 0;
-  const int c_hi = min(pos_hi + 1, C);
+  int c_lo = window > 0 ? max(pos_lo + 1 - window, 0) : 0;
+  int c_hi = min(pos_hi + 1, C);
+  if (splits > 1) clip_to_split(c_lo, c_hi, split, splits);
 
   // query row r of the tile is head kh * G + g of query t
   for (int i = tid; i < nr * D; i += kThreads) {
@@ -211,26 +229,75 @@ dense_attention_kernel(const __nv_bfloat16* __restrict__ q,
       lsum += l_w[w][r] * f;
       out += acc_w[w][i] * f;
     }
+    if (splits > 1) {  // this block's partial: only this thread reads or writes acc_w[0][i]
+      acc_w[0][i] = out;
+      if (i % D == 0) {
+        m_part[r] = mx;
+        l_part[r] = lsum;
+      }
+      continue;
+    }
     const int rr = r0 + r;
     const int t = rr / G, g = rr % G;
     o[(((size_t)b * Tq + t) * H + kh * G + g) * D + i % D] =
         __float2bfloat16(out / (lsum <= 0.f ? 1.f : lsum));
   }
+  if (splits > 1) {
+    const int group = (b * KH + kh) * (gridDim.x / splits) + blockIdx.x / splits;
+    merge_splits<D>(m_part, l_part, acc_w[0], nr, split, splits,
+                    partial + (size_t)group * splits * partial_floats<D>(), tickets + group,
+                    &last, [&](int i, float v) {
+                      const int rr = r0 + i / D;
+                      const int t = rr / G, g = rr % G;
+                      o[(((size_t)b * Tq + t) * H + kh * G + g) * D + i % D] =
+                          __float2bfloat16(v);
+                    });
+  }
+}
+
+#define DENSE_ATTENTION_PARAMS                                                          \
+  const __nv_bfloat16 *__restrict__ q, const T *__restrict__ k_cache,                   \
+      const T *__restrict__ v_cache, const float *__restrict__ k_scales,                \
+      const float *__restrict__ v_scales, const int *__restrict__ lengths,              \
+      const int *__restrict__ strides, __nv_bfloat16 *__restrict__ o,                   \
+      float *__restrict__ partial, int *__restrict__ tickets, int Tq, int H, int KH,    \
+      int C, int window, float sm_scale, int n_splits
+#define DENSE_ATTENTION_ARGS                                                            \
+  q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o, partial, tickets, Tq,   \
+      H, KH, C, window, sm_scale, n_splits
+
+template <typename T, int D, bool kQRound>
+__global__ void __launch_bounds__(kThreads) dense_attention_kernel(DENSE_ATTENTION_PARAMS) {
+  dense_attention<T, D, kQRound>(DENSE_ATTENTION_ARGS);
+}
+
+// K8's build at D = 64 keeps two blocks per SM: a split grid has up to eight
+// blocks per (slot, kv head). The other builds keep the registers they had.
+template <typename T, int D, bool kQRound>
+__global__ void __launch_bounds__(kThreads, 2) dense_attention_kernel_2(DENSE_ATTENTION_PARAMS) {
+  dense_attention<T, D, kQRound>(DENSE_ATTENTION_ARGS);
 }
 
 template <typename T, int D, bool kQRound>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_scales, const void* v_scales, const void* lengths,
-           const void* strides, void* o, int B, int Tq, int H, int KH, int C,
-           int window, float sm_scale, cudaStream_t st) {
+           const void* strides, void* o, void* partial, void* tickets, int B, int Tq,
+           int H, int KH, int C, int window, float sm_scale, int splits, cudaStream_t st) {
   const int G = H / KH;
-  const dim3 grid((Tq * G + kRows - 1) / kRows, KH, B);
-  dense_attention_kernel<T, D, kQRound><<<grid, kThreads, 0, st>>>(
+  const dim3 grid((Tq * G + kRows - 1) / kRows * splits, KH, B);
+  // only the build a launch needs is compiled
+  void (*kernel)(DENSE_ATTENTION_PARAMS);
+  if constexpr (kQRound && D == 64)
+    kernel = dense_attention_kernel_2<T, D, kQRound>;
+  else
+    kernel = dense_attention_kernel<T, D, kQRound>;
+  kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
-      static_cast<const int*>(strides), static_cast<__nv_bfloat16*>(o), Tq, H, KH,
-      C, window, sm_scale);
+      static_cast<const int*>(strides), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(partial), static_cast<int*>(tickets), Tq, H, KH, C, window,
+      sm_scale, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -238,18 +305,22 @@ template <typename T, bool kQRound>
 int dispatch(const void* q, const void* k_cache, const void* v_cache,
              const void* k_scales, const void* v_scales, const void* lengths,
              const void* strides, void* o, int B, int Tq, int H, int KH, int D,
-             int C, int window, float sm_scale, void* stream) {
+             int C, int window, float sm_scale, void* stream, int splits = 1,
+             void* partial = nullptr, void* tickets = nullptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Tq < 1 || C < 1 || B > 65535 || KH > 65535 || H % KH != 0 ||
-      H / KH > kMaxG)
+      H / KH > kMaxG || splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && (!kQRound || !partial || !tickets)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
       return launch<T, 64, kQRound>(q, k_cache, v_cache, k_scales, v_scales, lengths,
-                                    strides, o, B, Tq, H, KH, C, window, sm_scale, st);
+                                    strides, o, partial, tickets, B, Tq, H, KH, C, window,
+                                    sm_scale, splits, st);
     case 128:
       return launch<T, 128, kQRound>(q, k_cache, v_cache, k_scales, v_scales, lengths,
-                                     strides, o, B, Tq, H, KH, C, window, sm_scale, st);
+                                     strides, o, partial, tickets, B, Tq, H, KH, C, window,
+                                    sm_scale, splits, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -260,14 +331,18 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache,
 // window <= 0 means no sliding window. D must be 64 or 128, H / KH at most 8
 // and B and KH at most 65535 (grid dimensions).
 
-// One query per slot over rows [0, lengths[b]] of a bf16 cache.
+// One query per slot over rows [0, lengths[b]] of a bf16 cache, each slot's
+// visible rows split over `splits` blocks (1 to 8), merged in the same launch.
+// With splits > 1, `partial` holds B * KH * splits * 8 * (D + 2) floats and
+// `tickets` B * KH ints, 0 between launches (a launch leaves them at 0).
 extern "C" int aios_decode_attention(const void* q, const void* k_cache,
                                      const void* v_cache, const void* lengths,
-                                     void* o, int B, int H, int KH, int D, int C,
-                                     int window, float sm_scale, void* stream) {
+                                     void* o, void* partial, void* tickets, int B,
+                                     int H, int KH, int D, int C, int window,
+                                     int splits, float sm_scale, void* stream) {
   return dispatch<__nv_bfloat16, true>(q, k_cache, v_cache, nullptr, nullptr,
                                        lengths, nullptr, o, B, 1, H, KH, D, C,
-                                       window, sm_scale, stream);
+                                       window, sm_scale, stream, splits, partial, tickets);
 }
 
 // The same over an int8 cache: k_scales / v_scales are [B, C, KH] f32.

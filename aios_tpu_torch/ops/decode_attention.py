@@ -4,24 +4,56 @@ The decode step attends one new query per slot against rows [0, lengths[b]]
 of that slot's [C, KH, D] cache (row ``lengths[b]`` is the token just
 written), inside the sliding window when the model has one. On CUDA tensors
 this runs the hand-written kernel ``csrc/dense_attention.cu``, which reads
-only the rows the mask exposes; on CPU tensors ``decode_attention_reference``,
-which masks the whole cache. ``decode_attention_int8`` is the same over an
-int8 cache with one f32 scale per (row, kv head) for K and for V, stored
-[B, C, KH] as the engine keeps them; its arithmetic is f32 throughout.
+only the rows the mask exposes and splits each slot's visible rows over
+several blocks (``split_plan``), merged in the same launch; on CPU tensors
+``decode_attention_reference``, which masks the whole cache.
+``decode_attention_int8`` is the same over an int8 cache with one f32 scale
+per (row, kv head) for K and for V, stored [B, C, KH] as the engine keeps
+them; its arithmetic is f32 throughout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build
+from .quantized_matmul import sm_count
 
 NEG_INF = -1e30
 MAX_GROUP = 8  # query heads per kv head the kernel takes
+# The split of a slot's visible rows (kMaxSplits and kSplitAlign in
+# csrc/attention_common.cuh): at most eight blocks per (slot, kv head),
+# shares of whole 32-row warp chunks, no more splits than a full cache has
+# passes of a block's eight warps (256 rows), and no more than two blocks
+# per SM in all (measured on the H100: TinyLlama's 32 (slot, kv head) pairs
+# ran fastest split 8 ways, Mistral-7B's 64 split 4 ways).
+MAX_SPLITS = 8
+SPLIT_ALIGN = 32
+SPLIT_ROWS = 256
+BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=4096)  # a pure function of its ints, asked once per launch
+def split_plan(C: int, B: int, KH: int, sms: int) -> int:
+    """Blocks per (slot, kv head) of a ``decode_attention`` launch, from the
+    shapes and the SM count alone: never from the lengths, which stay on the
+    device (the step reads nothing back). At most MAX_SPLITS."""
+    return max(1, min(MAX_SPLITS, BLOCKS_PER_SM * sms // (B * KH), C // SPLIT_ROWS))
+
+
+def split_share(c_lo: int, c_hi: int, z: int, splits: int) -> Tuple[int, int]:
+    """Share z of the visible rows [c_lo, c_hi) when a slot is split
+    ``splits`` ways: the kernel's cut (``clip_to_split``), equal shares of
+    whole warp chunks in order; empty (lo >= hi) once the rows run out."""
+    share = -(-(c_hi - c_lo) // splits)
+    rows = -(-share // SPLIT_ALIGN) * SPLIT_ALIGN
+    lo = c_lo + z * rows
+    return lo, min(c_hi, lo + rows)
 
 
 def dequantize_cache(cache: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -105,27 +137,58 @@ def check_launch(q, k_cache, v_cache, scales, index, window, cache_dtype) -> Non
                       "dense decode attention needs contiguous 16-byte-aligned q and caches")
 
 
-def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window) -> torch.Tensor:
+_argtypes: Dict[Tuple[int, int], list] = {}
+_scratch: Dict[Tuple[int, int], tuple] = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, floats: int, groups: int) -> Tuple[int, int]:
+    """The addresses of the split workspace of ``stream`` on ``dev``: fp32
+    partials and the groups' tickets, zeroed (each split launch leaves them
+    at 0 again); grown, never shrunk, as launches ask."""
+    key = (dev.index, stream)
+    have = _scratch.get(key)
+    if have is None or have[0] < floats or have[1] < groups:
+        if have is not None:
+            floats, groups = max(floats, have[0]), max(groups, have[1])
+        partial = torch.empty(floats, dtype=torch.float32, device=dev)
+        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+        have = _scratch[key] = (floats, groups, partial, tickets,
+                                (partial.data_ptr(), tickets.data_ptr()))
+    return have[4]
+
+
+def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
+           split: bool = False) -> torch.Tensor:
     """Check the operands, launch the entry point ``entry`` of
     ``csrc/dense_attention.cu`` and add one to ``wrapper.launches``. ``q`` is
     [B, H, D] with ``index = (lengths,)`` or [B, T, H, D] with
     ``index = (lengths, strides)``; ``scales`` is () for a bf16 cache or
     (k_scales, v_scales) for an int8 one. The entry takes the pointers (q,
-    caches, scales, index, out), then B, (T,) H, KH, D, C, the window (0 for
-    none), 1/sqrt(D) and the stream."""
+    caches, scales, index, out and, with ``split``, the split workspace),
+    then B, (T,) H, KH, D, C, the window (0 for none) and, with ``split``,
+    the ``split_plan`` splits, then 1/sqrt(D) and the stream."""
     check_launch(q, k_cache, v_cache, scales, index, window,
                  torch.int8 if scales else torch.bfloat16)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     dev = q.device
-    tensors = (q, k_cache, v_cache, *scales, *index, out)
-    dims = (*q.shape[:-1], k_cache.shape[2], q.shape[-1], k_cache.shape[1], window or 0)
-    argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(dims)
-                + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = tuple(t.data_ptr() for t in (q, k_cache, v_cache, *scales, *index, out))
+    B, C, KH, D = q.shape[0], k_cache.shape[1], k_cache.shape[2], q.shape[-1]
+    dims = (*q.shape[:-1], KH, D, C, window or 0)
+    if split:
+        splits = split_plan(C, B, KH, sm_count(dev.index))
+        # a split's partial: MAX_GROUP query rows of D sums, a max and a sum
+        ptrs += _scratch_for(dev, stream, B * KH * splits * MAX_GROUP * (D + 2), B * KH)
+        dims += (splits,)
+    argtypes = _argtypes.get((len(ptrs), len(dims)))
+    if argtypes is None:
+        argtypes = _argtypes[(len(ptrs), len(dims))] = (
+            [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(dims)
+            + [ctypes.c_float, ctypes.c_void_p])
     fn = build.kernel("dense_attention", entry, argtypes)
-    rc = fn(*(build.ptr(t) for t in tensors), *dims, 1.0 / math.sqrt(q.shape[-1]),
-            build.stream(dev))
+    rc = fn(*ptrs, *dims, 1.0 / math.sqrt(D), stream)
     build.check("dense_attention", rc)
     wrapper.launches += 1
     return out
@@ -141,12 +204,13 @@ def decode_attention(
 ) -> torch.Tensor:
     """Ragged decode attention -> [B, H, D]. CPU operands take the reference;
     CUDA operands launch the kernel (bf16 q and caches, int32 lengths, D in
-    {64, 128}, H/KH <= 8, any cache length C) or raise."""
+    {64, 128}, H/KH <= 8, any cache length C), each slot's rows split by
+    ``split_plan``, or raise."""
     dev = build.device_of(q, k_cache, v_cache, lengths)
     if dev.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, lengths, window=window)
     return launch(decode_attention, "aios_decode_attention", q, k_cache, v_cache, (),
-                  (lengths,), window)
+                  (lengths,), window, split=True)
 
 
 decode_attention.launches = 0

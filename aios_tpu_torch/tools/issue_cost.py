@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Host cost of issuing the weight-quantized matmuls K1 and K5, and the wall
-time of a TinyLlama decode step, for the ``aios_tpu_torch`` under ``--root``.
+"""Host cost of issuing the weight-quantized matmuls K1 and K5 and the
+attention kernels K2 and K8, and the wall time of a TinyLlama decode step,
+for the ``aios_tpu_torch`` under ``--root``.
 
 The decode-step sequences of K1 (TinyLlama-1.1B, 89 launches at M=8 and
 M=64) and K5 (Mistral-7B, 129 launches at M=8) are issued through the
-wrappers on per-layer views of stacked weights, as ``engine/model.py`` does,
+wrappers on per-layer views of stacked weights, as ``engine/model.py`` does;
+so are a prefill's K2 launches (TinyLlama, 22 at T=512; Mistral-7B, 32 at
+T=512 with its 4096-row window) and a dense decode step's K8 launches
+(TinyLlama, 22 over 8 slots of a 2048-row cache). Each sequence is issued
 while the stream is held by a device sleep: the host's time per call is
 then the issue cost alone (``held`` says the device was still asleep when
 the host finished). One issue of each sequence runs under ``cProfile``;
@@ -70,13 +74,11 @@ def _sequence(fn, leaves, layers, xs):
     fn(xs[K], q[0], s[0])
 
 
-def issue_cost(torch, fn, leaves, layers, M, gen):
-    """Median host microseconds per wrapper call with the stream held, and
-    the share of repeats in which the device was still held at the end."""
-    xs = {K: torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
-          for K in {K for _, _, K in leaves.values()}}
-    calls = 4 * layers + 1
-    _sequence(fn, leaves, layers, xs)  # warm: libraries loaded, counters allocated
+def held_cost(torch, run, calls):
+    """Median host microseconds per call of ``run`` (which issues ``calls``
+    wrapper calls) with the stream held, the share of repeats in which the
+    device was still held at the end, and a cProfile of one issue."""
+    run()  # warm: libraries loaded, counters allocated
     torch.cuda.synchronize()
     per_call, held = [], 0
     for _ in range(REPEATS):
@@ -84,7 +86,7 @@ def issue_cost(torch, fn, leaves, layers, M, gen):
         asleep = torch.cuda.Event()
         asleep.record()
         t0 = time.perf_counter()
-        _sequence(fn, leaves, layers, xs)
+        run()
         dt = time.perf_counter() - t0
         held += not asleep.query()
         torch.cuda.synchronize()
@@ -92,12 +94,48 @@ def issue_cost(torch, fn, leaves, layers, M, gen):
     prof = cProfile.Profile()
     torch.cuda._sleep(HOLD_CYCLES)
     prof.enable()
-    _sequence(fn, leaves, layers, xs)
+    run()
     prof.disable()
     torch.cuda.synchronize()
     out = io.StringIO()
     pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
     return statistics.median(per_call), held / REPEATS, calls, out.getvalue()
+
+
+def issue_cost(torch, fn, leaves, layers, M, gen):
+    """``held_cost`` of one decode step's matmul calls at M rows."""
+    xs = {K: torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+          for K in {K for _, _, K in leaves.values()}}
+    return held_cost(torch, lambda: _sequence(fn, leaves, layers, xs), 4 * layers + 1)
+
+
+def flash_cost(torch, fn, gen, layers, T, H, KH, D, window):
+    """``held_cost`` of one prefill's K2 calls on per-layer views of stacked
+    [L, 1, T, heads, D] q, k and v."""
+    q = torch.randn(layers, 1, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(layers, 1, T, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(layers, 1, T, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run():
+        for i in range(layers):
+            fn(q[i], k[i], v[i], causal=True, window=window)
+
+    return held_cost(torch, run, layers)
+
+
+def decode_cost(torch, fn, gen, layers, B, C, H, KH, D):
+    """``held_cost`` of one dense decode step's K8 calls on per-layer views
+    of a stacked [L, B, C, KH, D] cache, 8 slots at ragged lengths."""
+    q = torch.randn(layers, B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn(layers, B, C, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn(layers, B, C, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    lengths = torch.randint(0, C, (B,), generator=gen, device="cuda").to(torch.int32)
+
+    def run():
+        for i in range(layers):
+            fn(q[i], kc[i], vc[i], lengths)
+
+    return held_cost(torch, run, layers)
 
 
 def encode_cost():
@@ -186,6 +224,16 @@ def main() -> int:
     out["k5_m8_us_per_call"], out["k5_m8_held"] = us, held
     print(f"[{args.label}] K5 M=8: {calls} calls, {us:.2f} us each\n{prof}")
     del k5
+    torch.cuda.empty_cache()
+    for name, cfg in (("k2_tinyllama_t512", (TINYLLAMA[0], 512, 32, 4, 64, None)),
+                      ("k2_mistral_t512", (MISTRAL[0], 512, 32, 8, 128, 4096))):
+        us, held, calls, prof = flash_cost(torch, ops.flash_attention, gen, *cfg)
+        out[f"{name}_us_per_call"], out[f"{name}_held"] = us, held
+        print(f"[{args.label}] K2 {name}: {calls} calls, {us:.2f} us each\n{prof}")
+    us, held, calls, prof = decode_cost(torch, ops.decode_attention, gen, TINYLLAMA[0], 8,
+                                        2048, 32, 4, 64)
+    out["k8_tinyllama_us_per_call"], out["k8_tinyllama_held"] = us, held
+    print(f"[{args.label}] K8 TinyLlama step: {calls} calls, {us:.2f} us each\n{prof}")
     torch.cuda.empty_cache()
     out["encode_us"], out["ctypes_noop_us"] = encode_cost()
     out["tinyllama_step_ms"], out["tinyllama_step_ms_all"], prof = step_wall(torch, gen)

@@ -13,7 +13,12 @@ Phases, each printing its lines:
      16, 32, 64, 128 and 512 (every tile the wrappers' plan can pick;
      bit-identical repeats at 8, 16, 32, 64 and 512), timed at the model's
      largest bucket, and summed per decode step, verify forward and prefill
-     forward;
+     forward; K2 also at ragged T (1, 63, 65, 127, 200, 1000), B = 2 and a
+     window narrower than its kv tile, bit-identical on repeat at T = 512
+     and 4096, beside the fastest fused SDPA backend (``is_causal`` where
+     the window hides nothing);
+     K8 also at lengths on and beside its split shares, windowed, and with
+     one live slot; every dense-cache kernel bit-identical on repeat;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1, LoadModel
      ``synthetic://tinyllama-1.1b`` at full width (int8 weights, bf16 pool),
      three Infer and one StreamInfer over gRPC, and proof that K1-K3
@@ -343,44 +348,94 @@ def check_quantized_matmul(gen) -> dict:
     return _check_weight_matmul(gen, "quantized_matmul", TINYLLAMA_KN, 2048, make)
 
 
-def check_flash_attention(gen) -> dict:
-    import torch.nn.functional as F
+def _sdpa_calls(q, k, v, window):
+    """SDPA on the [B, H, T, D] layout computing what flash_attention
+    computes: ``is_causal`` where the window hides nothing (T <= window), an
+    explicit mask only where it bites. Returns what was asked and one call
+    per backend (flash, memory-efficient, cuDNN) that takes these inputs."""
+    import warnings
 
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    T = q.shape[2]
+    if window is None or T <= window:
+        kw, what = dict(is_causal=True), "is_causal"
+    else:
+        rows = torch.arange(T, device="cuda")[:, None]
+        cols = torch.arange(T, device="cuda")[None, :]
+        kw, what = dict(attn_mask=(cols <= rows) & (cols > rows - window)), "explicit mask"
+    calls = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the backends say why they refuse
+                call()
+        except RuntimeError:
+            continue
+        calls.append((backend.name.lower(), call))
+    expect(calls, "no fused SDPA backend takes the flash_attention inputs")
+    return what, calls
+
+
+# (geometry, B, T, window, timed): the shapes the prefill buckets give K2
+# (TinyLlama and Mistral heads), ragged and tile-edge lengths, two
+# sequences and a window narrower than a 128-row kv tile
+FLASH_CASES = [
+    *(((H, KH, D), 1, T, w, True) for T, w in ((128, None), (512, None), (2048, None),
+                                                 (512, 128), (512, 100))),
+    *(((M_H, M_KH, M_D), 1, T, w, True) for T, w in ((512, None), (1024, 256), (2048, None),
+                                                       (4096, M_WINDOW))),
+    *(((H, KH, D), 1, T, None, False) for T in (1, 63, 65, 127, 200, 1000)),
+    ((H, KH, D), 2, 200, None, False),
+    ((M_H, M_KH, M_D), 2, 1000, 256, False),
+]
+FLASH_REPEATED = (512, 4096)  # launched twice: the bits must repeat
+
+
+def check_flash_attention(gen) -> dict:
     from aios_tpu_torch.ops import flash_attention, flash_attention_reference
 
     worst = 0.0
     headline = None
-    cases = [((H, KH, D), T, w) for T, w in ((128, None), (512, None), (2048, None), (512, 128))]
-    cases += [((M_H, M_KH, M_D), T, w) for T, w in ((512, None), (1024, 256), (4096, M_WINDOW))]
-    for (h, kh, d), T, window in cases:
-        q = torch.randn(1, T, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-        k = torch.randn(1, T, kh, d, generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn(1, T, kh, d, generator=gen, device="cuda").to(torch.bfloat16)
+    for (h, kh, d), B, T, window, timed in FLASH_CASES:
+        q = torch.randn(B, T, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn(B, T, kh, d, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(B, T, kh, d, generator=gen, device="cuda").to(torch.bfloat16)
         out = flash_attention(q, k, v, causal=True, window=window)
         ref = flash_attention_reference(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.isfinite(out).all()) and torch.allclose(
             out.float(), ref.float(), atol=TOL, rtol=TOL)
+        what = f"H={h} KH={kh} D={d} B={B} T={T} window={window}"
+        expect(ok, f"flash_attention {what}: max err {err}")
+        if T in FLASH_REPEATED:
+            expect(torch.equal(flash_attention(q, k, v, causal=True, window=window), out),
+                   f"flash_attention {what}: a second launch gave other bits")
+            what += ", repeat bit-identical"
+        worst = max(worst, err)
+        del ref
+        if not timed:
+            log(f"[kernel] flash_attention {what}: ok={ok} max_abs_err={err:.3e} (checked only)")
+            continue
         ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
         plain = time_ms(lambda: flash_attention_reference(q, k, v, causal=True, window=window))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        asked, calls = _sdpa_calls(qt, kt, vt, window)
+        lib, backend = min((time_ms(call), name) for name, call in calls)
+        lib_what = f"SDPA {asked}, fastest of {len(calls)} backends: {backend}"
         rows = torch.arange(T, device="cuda")[:, None]
         cols = torch.arange(T, device="cuda")[None, :]
         mask = (cols <= rows) & ((cols > rows - window) if window else True)
-        if window is None:
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        else:
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True))
         pairs = float(mask.sum().item())
-        nbytes = (2 * T * h * d + 2 * T * kh * d) * 2
-        bnd = bound_ms(nbytes, 4.0 * pairs * h * d)
-        _report("flash_attention", f"H={h} KH={kh} D={d} T={T} window={window}", ms, plain,
-                lib, bnd, err, ok)
-        expect(ok, f"flash_attention D={d} T={T} window={window}: max err {err}")
-        worst = max(worst, err)
+        nbytes = B * (2 * T * h * d + 2 * T * kh * d) * 2
+        bnd = bound_ms(nbytes, 4.0 * B * pairs * h * d)
+        _report("flash_attention", f"{what}, library {lib_what}", ms, plain, lib, bnd, err, ok)
         if T == 512 and window is None and d == D:
             headline = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd[0],
                             bound_by=bnd[1], measured_at="one launch, T=S=512, TinyLlama heads")
@@ -541,12 +596,14 @@ def check_paged_decode_attention_int8(gen) -> dict:
     return headline
 
 
-def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=()):
+def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
+                 timed=True):
     """One dense-cache attention kernel (T queries per slot; T = None the
     single-query decode kernel) against its plain version on ``geom`` =
-    (H, KH, D) with a cache of C rows, bf16 or int8 + scales. Slots listed in
+    (H, KH, D) with a cache of C rows, bf16 or int8 + scales; a second launch
+    on the same inputs must give the same bits. Slots listed in
     ``saturated`` run past the cache end: their outputs are unconsumed by
-    contract and only have to be finite."""
+    contract and only have to be finite. Untimed cases return no times."""
     import torch.nn.functional as F
 
     from aios_tpu_torch import ops
@@ -586,7 +643,9 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=())
     torch.cuda.synchronize()
     keep = [b for b in range(B) if b not in saturated]
     err = (out[keep].float() - want[keep].float()).abs().max().item()
-    ok = bool(torch.isfinite(out).all()) and err <= TOL
+    ok = bool(torch.isfinite(out).all()) and err <= TOL and torch.equal(fn(*args, **kw), out)
+    if not timed:
+        return dict(ok=ok, max_abs_err=err)
     ms = time_ms(lambda: fn(*args, **kw))
     plain = time_ms(lambda: ref(*args, **kw))
     # one library call on the same cache: SDPA under the explicit mask
@@ -616,6 +675,23 @@ TINY_LENS = [0, 1, 127, 128, 700, 1500, 2000, 2046]
 MISTRAL_LENS = [0, 1, 127, 1000, 4095, 4096, 6000, 8190]
 STRIDES = [0, 1, 1, 1, 1, 1, 1, 1]
 SPEC_T = 8  # draft_len 7 + 1
+# K8 cuts each (slot, kv head)'s visible rows into equal shares of whole
+# 32-row chunks, one block each (ops/decode_attention.py, split_plan and
+# split_share: 8 shares at TinyLlama's shapes, 4 at Mistral's). Lengths whose
+# rows fill every share exactly and one row to each side (256 rows: shares of
+# 32; 257: shares of 64, the fifth holding one row); windows whose rows fit
+# one share (window 200, slots of 21 to 34 rows) or start deep in the cache;
+# every slot at length 0 but one.
+K8_SPLIT_CASES = [
+    ("split edges, TinyLlama C=2048", TINY_GEOM, 2048, None, False, None,
+     [255, 256, 257, 511, 512, 513, 1023, 1024], ()),
+    ("split-local rows, TinyLlama C=2048 window=200", TINY_GEOM, 2048, 200, False, None,
+     [20, 31, 32, 33, 1000, 2046, 0, 300], ()),
+    ("split: one slot live, TinyLlama C=2048", TINY_GEOM, 2048, None, False, None,
+     [0, 0, 0, 1700, 0, 0, 0, 0], ()),
+    (f"split edges and windows deep in the cache, Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM,
+     8192, M_WINDOW, False, None, [5000, 7000, 8191, 1023, 1024, 1025, 4096, 0], ()),
+]
 
 
 def check_dense_attention(gen) -> dict:
@@ -628,6 +704,7 @@ def check_dense_attention(gen) -> dict:
             ("TinyLlama C=2048", TINY_GEOM, 2048, None, False, None, TINY_LENS, ()),
             (f"Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM, 8192, M_WINDOW, False,
              None, MISTRAL_LENS, ()),
+            *K8_SPLIT_CASES,
         ],
         "decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM, 8192, M_WINDOW, True,
@@ -656,10 +733,15 @@ def check_dense_attention(gen) -> dict:
     for name, rows in cases.items():
         worst = 0.0
         for i, (label, geom, C, window, quant, T, lens, sat) in enumerate(rows):
-            r = _dense_check(gen, geom, C, window, quant, T, lens, STRIDES, sat)
-            _report(name, f"B=8 lengths={lens} {label}", r["ms"], r["plain_ms"],
-                    r["library_ms"], (r["bound_ms"], r["bound_by"]), r["max_abs_err"],
-                    r["ok"])
+            timed = not label.startswith("split")
+            r = _dense_check(gen, geom, C, window, quant, T, lens, STRIDES, sat, timed)
+            if timed:
+                _report(name, f"B=8 lengths={lens} {label}, repeat bit-identical", r["ms"],
+                        r["plain_ms"], r["library_ms"], (r["bound_ms"], r["bound_by"]),
+                        r["max_abs_err"], r["ok"])
+            else:
+                log(f"[kernel] {name} B=8 lengths={lens} {label}, repeat bit-identical: "
+                    f"ok={r['ok']} max_abs_err={r['max_abs_err']:.3e} (checked only)")
             expect(r["ok"], f"{name} {label}: max err {r['max_abs_err']}")
             worst = max(worst, r["max_abs_err"])
             if i == 0:  # the headline: the shape its dense server launches

@@ -189,6 +189,39 @@ def test_matmul_sources_share_one_core_and_match_their_bindings():
         assert "wmma::" not in text and "_reduce" not in text
 
 
+def _c_args(source: str, symbol: str) -> int:
+    text = (build.CSRC / source).read_text()
+    sig = text[text.index(f'extern "C" int {symbol}('):]
+    return sig[:sig.index(")")].count(",") + 1
+
+
+def test_flash_attention_entry_matches_its_binding():
+    """K2's C entry takes the wrapper's 14 arguments (4 pointers, 8 ints,
+    sm_scale, the stream) and its kernel is the TMA + wgmma one over the
+    shared Hopper header, with no WMMA left."""
+    fa = importlib.import_module("aios_tpu_torch.ops.flash_attention")
+    assert _c_args("flash_attention.cu", "aios_flash_attention") == len(fa._ARGTYPES) == 14
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    assert '#include "hopper.cuh"' in text and "wmma::" not in text
+    for used in ("tma_4d(", "WgmmaSS<", "Wgmma<D, 1>", "desc_mn_sw128(", "encode<4>("):
+        assert used in text, used
+    # one copy of the TMA / wgmma helpers and of the tensor-map encoder's lookup
+    lookups = [p.name for p in sorted(build.CSRC.iterdir())
+               if '"cuTensorMapEncodeTiled"' in p.read_text()]
+    assert lookups == ["hopper.cuh"]
+    assert '#include "hopper.cuh"' in (build.CSRC / "wq_matmul.cuh").read_text()
+
+
+def test_decode_attention_entry_takes_the_split():
+    """K8's entry takes the split workspace after the output and the number
+    of splits after the window: 7 pointers, 7 ints, sm_scale and the stream,
+    as the wrapper passes them; K9, K6 and K7 keep their arguments."""
+    assert _c_args("dense_attention.cu", "aios_decode_attention") == 16
+    assert _c_args("dense_attention.cu", "aios_decode_attention_int8") == 15
+    assert _c_args("dense_attention.cu", "aios_multiquery_decode_attention") == 15
+    assert _c_args("dense_attention.cu", "aios_multiquery_decode_attention_int8") == 17
+
+
 def test_plan_and_kernel_agree_on_blocks_per_sm():
     """The plan splits K by the blocks resident per SM that the kernel's
     __launch_bounds__ and stage count are built for: one table each side."""

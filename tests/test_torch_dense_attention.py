@@ -89,6 +89,146 @@ def test_decode_attention_matches_jax(quant, window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# -- K8's split: each slot's rows over a cluster of blocks -----------------------
+
+dattn = importlib.import_module("aios_tpu_torch.ops.decode_attention")
+
+
+@pytest.mark.parametrize("C", [1, 100, 255, 256, 2048, 8192, 32768])
+@pytest.mark.parametrize("B,KH", [(1, 1), (1, 4), (8, 4), (8, 8), (64, 8)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_split_plan_is_a_bounded_pure_function(C, B, KH, sms):
+    """The number of splits comes from the shapes and the SM count alone:
+    never more than eight, never more than the cache has passes of a block,
+    and no more blocks than BLOCKS_PER_SM per SM once split."""
+    n = dattn.split_plan(C, B, KH, sms)
+    assert 1 <= n <= dattn.MAX_SPLITS
+    assert n == 1 or n <= C // dattn.SPLIT_ROWS
+    assert n == 1 or B * KH * n <= dattn.BLOCKS_PER_SM * sms
+    assert dattn.split_plan(C, B, KH, sms) == n
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("c_lo,c_hi", [(0, 1), (0, 31), (0, 32), (0, 33), (0, 256), (0, 257),
+                                       (5, 300), (1905, 6001), (0, 2048), (4095, 8191)])
+def test_split_shares_cover_the_visible_rows_once(c_lo, c_hi, splits):
+    """The kernel's cut of a slot's visible rows: every row in exactly one
+    share, shares in order and of whole warp chunks (the last may be short),
+    the empty ones at the end."""
+    owner = {}
+    ends = []
+    for z in range(splits):
+        lo, hi = dattn.split_share(c_lo, c_hi, z, splits)
+        ends.append((lo, hi))
+        for c in range(lo, hi):
+            assert c not in owner
+            owner[c] = z
+        if hi > lo and hi < c_hi:
+            assert (hi - lo) % dattn.SPLIT_ALIGN == 0
+    assert sorted(owner) == list(range(c_lo, c_hi))
+    live = [hi > lo for lo, hi in ends]
+    assert live == sorted(live, reverse=True)
+
+
+def test_split_plan_fills_the_card_at_the_served_shapes():
+    # TinyLlama's 8 slots x 4 kv heads over C = 2048, Mistral's 8 x 8 over 8192
+    assert dattn.split_plan(2048, 8, 4, 132) == 8
+    assert dattn.split_plan(8192, 8, 8, 132) == 4
+    # a grid that already fills two blocks per SM is not split
+    assert dattn.split_plan(8192, 64, 8, 132) == 1
+
+
+def test_split_bounds_match_the_kernel():
+    text = (dattn.build.CSRC / "attention_common.cuh").read_text()
+    assert f"constexpr int kMaxSplits = {dattn.MAX_SPLITS};" in text
+    assert f"constexpr int kSplitAlign = {dattn.SPLIT_ALIGN};" in text
+
+
+def _split_merge(q, k, v, lengths, window, splits):
+    """The kernel's recurrence in plain torch: each slot's visible rows cut
+    into ``splits`` shares (``split_share``), each share reduced to (m, l,
+    acc) at the kernel's rounding points (q * sm_scale and p rounded to the
+    operands' dtype; l sums the unrounded p; an empty share is m = -1e30,
+    l = 0, acc = 0), then merged in split order as
+    o = sum acc_z e^(m_z - M) / sum l_z e^(m_z - M)."""
+    Bq, Hq, Dq = q.shape
+    C_, KH_ = k.shape[1], k.shape[2]
+    G = Hq // KH_
+    qs = (q.float() / np.sqrt(Dq)).to(q.dtype).float().reshape(Bq, KH_, G, Dq)
+    out = torch.zeros(Bq, KH_, G, Dq)
+    for b in range(Bq):
+        lo = max(int(lengths[b]) + 1 - window, 0) if window else 0
+        hi = min(int(lengths[b]) + 1, C_)
+        parts = []
+        for z in range(splits):
+            c_lo, c_hi = dattn.split_share(lo, hi, z, splits)
+            if c_lo >= c_hi:
+                parts.append((torch.full((KH_, G), -1e30), torch.zeros(KH_, G),
+                              torch.zeros(KH_, G, Dq)))
+                continue
+            kz = k[b, c_lo:c_hi].float().transpose(0, 1)  # [KH, n, D]
+            vz = v[b, c_lo:c_hi].float().transpose(0, 1)
+            sc = torch.einsum("kgd,knd->kgn", qs[b], kz)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            acc = torch.einsum("kgn,knd->kgd", p.to(v.dtype).float(), vz)
+            parts.append((m, p.sum(-1), acc))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L, O = torch.zeros_like(M), torch.zeros(KH_, G, Dq)
+        for m, l_, acc in parts:
+            f = torch.exp(m - M)
+            L, O = L + l_ * f, O + acc * f[..., None]
+        out[b] = O / torch.where(L <= 0, torch.ones_like(L), L)[..., None]
+    return out.reshape(Bq, Hq, Dq).to(q.dtype)
+
+
+SPLIT_C = 128
+SPLIT_CASES = {
+    # four splits of 128 visible rows end on whole shares; 96, 97 and 98
+    # rows leave the last share empty, one row or two; 32 rows fill one share
+    "edges": [127, 126, 95, 96, 97, 31],
+    # lengths 0 and 1, and every slot at length 0 but one
+    "short": [0, 1, 0, 0, 0, 100],
+    # windows that cut a long slot; with window 20 every slot's rows fit one share
+    "windows": [70, 75, 80, 90, 95, 127],
+}
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8])
+@pytest.mark.parametrize("window", [None, 20, 40], ids=["full", "w20", "w40"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_merge_recurrence_matches_jax(case, window, splits):
+    """The split-and-merge arithmetic the K8 kernel runs, held to the JAX
+    reference in f32: empty shares, one-row shares, windows, slots whose
+    rows fit one share."""
+    lengths = np.asarray(SPLIT_CASES[case], np.int32)
+    Bs = len(lengths)
+    rng = np.random.default_rng(60 + len(case) + (window or 0))
+    q = rng.normal(size=(Bs, H, D)).astype(np.float32)
+    k = rng.normal(size=(Bs, SPLIT_C, KH, D)).astype(np.float32)
+    v = rng.normal(size=(Bs, SPLIT_C, KH, D)).astype(np.float32)
+    got = _split_merge(*_t(q, k, v, lengths), window, splits)
+    want = jdec.decode_attention_reference(*(jnp.asarray(a) for a in (q, k, v, lengths)),
+                                           window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # and the port's plain version, which masks the whole cache
+    plain = ops.decode_attention(*_t(q, k, v, lengths), window=window)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+def test_split_launch_refuses_before_any_launch():
+    """The split launch checks the operands first: a wrong dtype or head dim
+    raises by name and counts no launch."""
+    q = torch.zeros(2, 8, 32, dtype=torch.bfloat16)
+    k = torch.zeros(2, 64, 2, 32, dtype=torch.bfloat16)
+    lens = torch.zeros(2, dtype=torch.int32)
+    before = ops.decode_attention.launches
+    with pytest.raises(ValueError, match="head_dim 32"):
+        dattn.launch(ops.decode_attention, "aios_decode_attention", q, k, k, (), (lens,),
+                     None, split=True)
+    assert ops.decode_attention.launches == before
+
+
 # -- K6 / K7: T queries per slot -------------------------------------------------
 
 

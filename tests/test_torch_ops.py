@@ -7,6 +7,8 @@ covers float32 sums taken in another order. The CUDA kernels themselves run
 only on the card, against the same plain versions (``chip_smoke.py``).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,6 +86,51 @@ def test_flash_attention_matches_jax(H, KH, T, window):
     _close(got,
            jax_flash(qj, kj, vj, causal=True, window=window, interpret=True),
            jax_flash_ref(qj, kj, vj, causal=True, window=window))
+
+
+# ragged T and tile edges (one Pallas block of T rows where T <= 128), two
+# sequences, and a window narrower than the kernel's 128-row kv tile
+@pytest.mark.parametrize("T,B,window", [(1, 1, None), (63, 1, None), (65, 1, None),
+                                        (127, 1, None), (200, 1, None), (200, 2, None),
+                                        (127, 2, 24), (200, 1, 100)])
+def test_flash_attention_ragged_lengths_match_jax(T, B, window):
+    rng = np.random.default_rng(1000 + T + B)
+    H, KH, D = 8, 2, 64
+    q = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, T, KH, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, KH, D)).astype(np.float32)
+    qj, kj, vj = (jnp.asarray(a) for a in (q, k, v))
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=True, window=window)
+    want = [jax_flash_ref(qj, kj, vj, causal=True, window=window)]
+    if T <= 128:  # one Pallas block of T query and T kv rows
+        want.append(jax_flash(qj, kj, vj, causal=True, window=window, interpret=True))
+    _close(got, *want)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(D=32), "D=32"),
+    (dict(H=65 * 2, KH=2), "H / KH <= 64"),
+    (dict(H=6, KH=4), "H % KH"),
+    (dict(dtype=torch.float32), "bfloat16"),
+    (dict(window=0), "window"),
+    (dict(noncontig=True), "contiguous"),
+])
+def test_flash_launch_contract_is_checked_before_any_launch(bad, match):
+    """What the Hopper kernel does not take (D outside 64 and 128, a GQA
+    group over 64 heads, other dtypes, strided operands) is refused by name
+    before anything touches a card."""
+    fa = importlib.import_module("aios_tpu_torch.ops.flash_attention")
+    B, T, H, KH, D = 1, 16, bad.get("H", 8), bad.get("KH", 2), bad.get("D", 64)
+    dt = bad.get("dtype", torch.bfloat16)
+    q = torch.zeros(B, T, H, D, dtype=dt)
+    if bad.get("noncontig"):
+        q = torch.zeros(B, H, T, D, dtype=dt).transpose(1, 2)
+    k = torch.zeros(B, T, KH, D, dtype=dt)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match=match):
+        fa.check_launch(q, k, k.clone(), bad.get("window"))
+    assert fa.flash_attention.launches == before
 
 
 # -- K3: paged decode attention -----------------------------------------------
