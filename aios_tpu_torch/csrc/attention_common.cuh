@@ -113,7 +113,7 @@ struct Elem<int8_t> {
 // -- one slot's rows split over blocks ------------------------------------------
 //
 // The host picks the number of splits from C, B, KH and the SM count alone
-// (ops/decode_attention.py, split_plan), never from the lengths, which stay
+// (ops/split.py, split_plan), never from the lengths, which stay
 // on the device. Each block of a (query tile, kv head, slot) cuts the rows the
 // tile's queries can see into `splits` equal shares of whole 32-row warp
 // chunks, in order, so every split has the same work whatever the slot's
@@ -128,15 +128,19 @@ struct Elem<int8_t> {
 constexpr int kMaxSplits = 8;
 constexpr int kSplitAlign = 32;  // rows of a warp chunk
 
-// The visible rows [c_lo, c_hi) cut to share z of `splits`; empty (c_lo >=
-// c_hi) when the rows run out before it, and the block then contributes the
-// empty partial m = -1e30, l = 0, acc = 0. (split_share in
-// ops/decode_attention.py is the same cut.)
-__device__ __forceinline__ void clip_to_split(int& c_lo, int& c_hi, int z, int splits) {
-  const int share = (c_hi - c_lo + splits - 1) / splits;
-  const int rows = (share + kSplitAlign - 1) / kSplitAlign * kSplitAlign;
+// The visible rows [c_lo, c_hi) cut to share z of `splits`, each share at
+// least `min_rows` (a multiple of kSplitAlign); empty (c_lo >= c_hi) when
+// the rows run out before it, and the block then contributes the empty
+// partial m = -1e30, l = 0, acc = 0. Returns how many shares hold rows: the
+// empty ones are the last. (split_share in ops/split.py is the same cut.)
+__device__ __forceinline__ int clip_to_split(int& c_lo, int& c_hi, int z, int splits,
+                                             int min_rows = 0) {
+  const int visible = c_hi - c_lo;
+  const int share = (visible + splits - 1) / splits;
+  const int rows = max((share + kSplitAlign - 1) / kSplitAlign * kSplitAlign, min_rows);
   c_lo += z * rows;
   c_hi = min(c_hi, c_lo + rows);
+  return (visible + rows - 1) / rows;
 }
 
 // Floats of one split's partial in the workspace: acc [kMaxG * D], then m and

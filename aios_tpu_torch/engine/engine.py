@@ -85,6 +85,19 @@ class TorchEngine:
         self.num_slots = num_slots
         self.track_history = bool(track_history)
         self.max_context = int(max_context or cfg.max_context)
+        if self.device.type == "cuda":
+            # refuse at load what no kernel of the path would take at the
+            # first request; the plain paths on the CPU take any geometry
+            faults = model.kernel_contract_faults(
+                cfg, paged=paged_pool_rows is not None,
+                quant_cache=cache_dtype == torch.int8,
+                quantize=quantize or None,
+                pages_per_slot=self.max_context // page_size)
+            if faults:
+                raise ValueError(
+                    f"{cfg.name} (head_dim {cfg.head_dim}, H/KH {cfg.num_heads}/"
+                    f"{cfg.num_kv_heads}) cannot be served on {self.device}: "
+                    + "; ".join(faults))
         self.buckets = tuple(
             b for b in DEFAULT_BUCKETS if b <= self.max_context
         ) or (self.max_context,)

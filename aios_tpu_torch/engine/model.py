@@ -35,6 +35,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import ops
+from ..ops.decode_attention import HEAD_DIMS as DENSE_HEAD_DIMS
+from ..ops.decode_attention import MAX_GROUP as DENSE_MAX_GROUP
+from ..ops.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
+from ..ops.flash_attention import MAX_GROUP as FLASH_MAX_GROUP
+from ..ops.paged_attention import HEAD_DIMS as PAGED_HEAD_DIMS
+from ..ops.paged_attention import MAX_GROUP as PAGED_MAX_GROUP
+from ..ops.paged_attention import MAX_STAGED_PAGES
 from ..ops.int4_matmul import kernel_supported, pick_group, supports_int4
 from ..ops.quantized_matmul import kernel_supported as int8_kernel_supported
 from .config import ModelConfig
@@ -59,27 +66,86 @@ def matmul(x: torch.Tensor, w, kernels: bool = True) -> torch.Tensor:
     return x @ w
 
 
-def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor]:
-    """One serving leaf. An int4 leaf needs a storage layout for its [K, N]
-    and, on CUDA, one the kernel serves (128-row groups); anything else
-    falls back to int8, as in the JAX package. On the CPU every leaf takes
-    the plain path, so storage eligibility is enough (keeps tiny test
-    geometries on int4). Off the CPU an int8 leaf must suit the int8 kernel
-    (K % 8 == 0, N % 16 == 0), or quantizing it raises, naming ``name``."""
-    K, N = w.shape[-2], w.shape[-1]
+def _leaf_format(K: int, N: int, mode: str, cpu: bool) -> Tuple[str, Optional[str]]:
+    """How a [K, N] serving leaf is stored, and why no kernel would serve it
+    (None when one does). An int4 leaf needs a storage layout for its
+    [K, N] and, off the CPU, one the kernel serves (128-row groups);
+    anything else falls back to int8, as in the JAX package. On the CPU
+    every leaf takes the plain path, so storage eligibility is enough (keeps
+    tiny test geometries on int4). Off the CPU an int8 leaf must suit the
+    int8 kernel (K % 8 == 0, N % 16 == 0)."""
     if mode == "int4":
         group = pick_group(K)
-        eligible = supports_int4(K, N, group) and (
-            w.device.type == "cpu" or kernel_supported(K, N, group)
-        )
-        if eligible:
-            p, s = ops.quantize_int4(w, group)
-            return {"q4": p, "s4": s}
-    if w.device.type != "cpu" and not int8_kernel_supported(K, N):
-        raise ValueError(f"{name} [K={K}, N={N}]: the int8 matmul kernel needs "
-                         f"K % 8 == 0 and N % 16 == 0")
+        if supports_int4(K, N, group) and (cpu or kernel_supported(K, N, group)):
+            return "int4", None
+    if cpu or int8_kernel_supported(K, N):
+        return "int8", None
+    return "int8", (f"[K={K}, N={N}]: the int8 matmul kernel needs "
+                    f"K % 8 == 0 and N % 16 == 0")
+
+
+def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor]:
+    """One serving leaf, stored as ``_leaf_format`` says; a leaf no kernel
+    would serve raises, naming ``name``."""
+    K, N = w.shape[-2], w.shape[-1]
+    fmt, fault = _leaf_format(K, N, mode, w.device.type == "cpu")
+    if fault:
+        raise ValueError(f"{name} {fault}")
+    if fmt == "int4":
+        p, s = ops.quantize_int4(w, pick_group(K))
+        return {"q4": p, "s4": s}
     q, s = ops.quantize_int8(w, axis=-2)
     return {"q": q, "s": s}
+
+
+def serving_leaf_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
+    """[K, N] of each leaf ``quantize_params`` makes for ``cfg``: the
+    concatenations of FUSED and the [E, V] lm_head."""
+    E, F = cfg.hidden_size, cfg.intermediate_size
+    dense = {"wq": (E, cfg.q_dim), "wk": (E, cfg.kv_dim), "wv": (E, cfg.kv_dim),
+             "wo": (cfg.q_dim, E), "w_gate": (E, F), "w_up": (E, F), "w_down": (F, E)}
+    shapes = {key: (dense[parts[0]][0], sum(dense[k][1] for k in parts))
+              for key, parts in FUSED.items()}
+    shapes["lm_head"] = (E, cfg.vocab_size)
+    return shapes
+
+
+def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
+                           quantize: Optional[str], pages_per_slot: int = 0) -> List[str]:
+    """Every way ``cfg`` breaks the contract of a CUDA kernel on the path it
+    would be served on: K2 for prefill; K3 (bf16 pool) or K4 (int8 pool)
+    for a paged decode, over at most ``pages_per_slot`` pages a slot, or
+    K6-K9 for the dense cache; and with ``quantize`` ("int8" or "int4")
+    K1/K5 for each serving leaf, as ``_quant_leaf`` would store it. The
+    limits are the ones the wrappers check. Empty when every kernel takes
+    it; the plain paths on the CPU serve any geometry."""
+    D, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    faults = []
+
+    def attention(kernel: str, head_dims, max_group: int) -> None:
+        if D not in head_dims:
+            faults.append(f"{kernel}: head_dim {D} not in {head_dims}")
+        if H % KH or H // KH > max_group:
+            faults.append(f"{kernel}: H/KH = {H}/{KH}, needs H % KH == 0 and "
+                          f"H/KH <= {max_group}")
+
+    attention("flash_attention (K2)", FLASH_HEAD_DIMS, FLASH_MAX_GROUP)
+    if paged:
+        attention("paged_decode_attention_int8 (K4)" if quant_cache
+                  else "paged_decode_attention (K3)",
+                  PAGED_HEAD_DIMS, PAGED_MAX_GROUP)
+        if pages_per_slot > MAX_STAGED_PAGES:
+            faults.append(f"paged decode attention: {pages_per_slot} pages per slot, at "
+                          f"most {MAX_STAGED_PAGES}")
+    else:
+        attention("decode_attention and multiquery_decode_attention (K6-K9)",
+                  DENSE_HEAD_DIMS, DENSE_MAX_GROUP)
+    if quantize:
+        for name, (K, N) in serving_leaf_shapes(cfg).items():
+            fault = _leaf_format(K, N, quantize, cpu=False)[1]
+            if fault:
+                faults.append(f"quantized_matmul (K1): {name} {fault}")
+    return faults
 
 
 def quantize_params(params: Params, include_head: bool = True,

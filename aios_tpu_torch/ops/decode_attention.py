@@ -5,7 +5,7 @@ of that slot's [C, KH, D] cache (row ``lengths[b]`` is the token just
 written), inside the sliding window when the model has one. On CUDA tensors
 this runs the hand-written kernel ``csrc/dense_attention.cu``, which reads
 only the rows the mask exposes and splits each slot's visible rows over
-several blocks (``split_plan``), merged in the same launch; on CPU tensors
+several blocks (``ops/split.py``), merged in the same launch; on CPU tensors
 ``decode_attention_reference``, which masks the whole cache.
 ``decode_attention_int8`` is the same over an int8 cache with one f32 scale
 per (row, kv head) for K and for V, stored [B, C, KH] as the engine keeps
@@ -15,7 +15,6 @@ them; its arithmetic is f32 throughout.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -23,37 +22,10 @@ import torch
 
 from . import build
 from .quantized_matmul import sm_count
+from .split import MAX_GROUP, split_plan, workspace
 
 NEG_INF = -1e30
-MAX_GROUP = 8  # query heads per kv head the kernel takes
-# The split of a slot's visible rows (kMaxSplits and kSplitAlign in
-# csrc/attention_common.cuh): at most eight blocks per (slot, kv head),
-# shares of whole 32-row warp chunks, no more splits than a full cache has
-# passes of a block's eight warps (256 rows), and no more than two blocks
-# per SM in all (measured on the H100: TinyLlama's 32 (slot, kv head) pairs
-# ran fastest split 8 ways, Mistral-7B's 64 split 4 ways).
-MAX_SPLITS = 8
-SPLIT_ALIGN = 32
-SPLIT_ROWS = 256
-BLOCKS_PER_SM = 2
-
-
-@functools.lru_cache(maxsize=4096)  # a pure function of its ints, asked once per launch
-def split_plan(C: int, B: int, KH: int, sms: int) -> int:
-    """Blocks per (slot, kv head) of a ``decode_attention`` launch, from the
-    shapes and the SM count alone: never from the lengths, which stay on the
-    device (the step reads nothing back). At most MAX_SPLITS."""
-    return max(1, min(MAX_SPLITS, BLOCKS_PER_SM * sms // (B * KH), C // SPLIT_ROWS))
-
-
-def split_share(c_lo: int, c_hi: int, z: int, splits: int) -> Tuple[int, int]:
-    """Share z of the visible rows [c_lo, c_hi) when a slot is split
-    ``splits`` ways: the kernel's cut (``clip_to_split``), equal shares of
-    whole warp chunks in order; empty (lo >= hi) once the rows run out."""
-    share = -(-(c_hi - c_lo) // splits)
-    rows = -(-share // SPLIT_ALIGN) * SPLIT_ALIGN
-    lo = c_lo + z * rows
-    return lo, min(c_hi, lo + rows)
+HEAD_DIMS = (64, 128)  # the kernels' builds
 
 
 def dequantize_cache(cache: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -120,7 +92,7 @@ def check_launch(q, k_cache, v_cache, scales, index, window, cache_dtype) -> Non
     build.require(k_cache.shape == v_cache.shape == (B, C, KH, D),
                   f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
                   f"for q {tuple(q.shape)}")
-    build.require(D in (64, 128), f"head_dim {D} not in (64, 128)")
+    build.require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
     build.require(H % KH == 0 and H // KH <= MAX_GROUP,
                   f"H={H}, KH={KH}: need H % KH == 0 and H / KH <= {MAX_GROUP}")
     build.require(B <= 65535 and KH <= 65535, f"B={B}, KH={KH}: at most 65535 each")
@@ -138,23 +110,6 @@ def check_launch(q, k_cache, v_cache, scales, index, window, cache_dtype) -> Non
 
 
 _argtypes: Dict[Tuple[int, int], list] = {}
-_scratch: Dict[Tuple[int, int], tuple] = {}
-
-
-def _scratch_for(dev: torch.device, stream: int, floats: int, groups: int) -> Tuple[int, int]:
-    """The addresses of the split workspace of ``stream`` on ``dev``: fp32
-    partials and the groups' tickets, zeroed (each split launch leaves them
-    at 0 again); grown, never shrunk, as launches ask."""
-    key = (dev.index, stream)
-    have = _scratch.get(key)
-    if have is None or have[0] < floats or have[1] < groups:
-        if have is not None:
-            floats, groups = max(floats, have[0]), max(groups, have[1])
-        partial = torch.empty(floats, dtype=torch.float32, device=dev)
-        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
-        have = _scratch[key] = (floats, groups, partial, tickets,
-                                (partial.data_ptr(), tickets.data_ptr()))
-    return have[4]
 
 
 def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
@@ -179,8 +134,7 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     dims = (*q.shape[:-1], KH, D, C, window or 0)
     if split:
         splits = split_plan(C, B, KH, sm_count(dev.index))
-        # a split's partial: MAX_GROUP query rows of D sums, a max and a sum
-        ptrs += _scratch_for(dev, stream, B * KH * splits * MAX_GROUP * (D + 2), B * KH)
+        ptrs += workspace(dev, stream, B * KH, splits, D)
         dims += (splits,)
     argtypes = _argtypes.get((len(ptrs), len(dims)))
     if argtypes is None:

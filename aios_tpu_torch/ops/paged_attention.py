@@ -3,9 +3,12 @@
 Logical block i of slot b lives in physical page ``tables[b, i]`` of the pool
 [N, P, KH, D]; row ``lengths[b]`` is the slot's newest token, so the slot has
 ``lengths[b] + 1`` valid rows. Only pages holding valid rows are read. On
-CUDA tensors this runs the hand-written kernel ``csrc/paged_attention.cu``;
-on CPU tensors ``paged_decode_attention_reference``, which gathers each
-slot's pages into a contiguous view first. ``paged_decode_attention_int8``
+CUDA tensors this runs the hand-written kernel ``csrc/paged_attention.cu``,
+which splits each slot's visible rows over several blocks
+(``ops/split.py``, shared with K8) and merges them in the same launch; on
+CPU tensors
+``paged_decode_attention_reference``, which gathers each slot's pages into
+a contiguous view first. ``paged_decode_attention_int8``
 is the same over an int8 pool with one f32 scale per (page row, kv head)
 for K and for V; its arithmetic is f32 throughout.
 """
@@ -19,12 +22,20 @@ from typing import Optional
 import torch
 
 from . import build
+from .quantized_matmul import sm_count
+from .split import MAX_GROUP, split_plan, workspace
 
 NEG_INF = -1e30
-MAX_GROUP = 8  # query heads per kv head the kernel takes
+HEAD_DIMS = (64, 128)  # the kernel's builds
+MAX_STAGED_PAGES = 2048  # kMaxStagedPages: page-table entries a block stages
+# kMinShareRows of the D = 128 builds, the least rows of a share (one pass of
+# a block's eight warps; the D = 64 builds have none): split_share's min_rows
+MIN_SHARE_ROWS_D128 = 256
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-_ARGTYPES_INT8 = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# pointers (q, pools, [scales,] tables, lengths, win_starts, out, partial,
+# tickets), B H KH D P MB window sink splits, sm_scale, the stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES_INT8 = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -101,27 +112,75 @@ def paged_decode_attention_int8_reference(
     return out.to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, tables, lengths, window, extra, pool_dtype):
-    """The launch contract both kernels share; raises on anything else."""
+def _check(q, pools, scales, tables, lengths, window, extra) -> None:
+    """The launch contract both kernels share: bf16 q [B, H, D], pools
+    [N, P, KH, D] of the kernel's type (bf16, or int8 with contiguous f32
+    [N, P, KH] ``scales``), int32 tables [B, MB] and lengths [B], D in
+    {64, 128}, H/KH <= MAX_GROUP, MB <= MAX_STAGED_PAGES; raises on anything
+    else, before any launch. Messages are formatted only on a refusal: the
+    step issues this check 22-32 times and is bound by the host."""
+    k_pool, v_pool = pools
     B, H, D = q.shape
     N, P, KH = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
-    build.require(q.dtype == torch.bfloat16, f"q must be bfloat16, got {q.dtype}")
-    build.require(k_pool.dtype == v_pool.dtype == pool_dtype,
-                  f"pools must be {pool_dtype}, got {k_pool.dtype}/{v_pool.dtype}")
-    build.require(k_pool.shape == v_pool.shape == (N, P, KH, D),
-                  f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    build.require(D in (64, 128), f"head_dim {D} not in (64, 128)")
-    build.require(H % KH == 0 and H // KH <= MAX_GROUP,
-                  f"H={H}, KH={KH}: need H % KH == 0 and H / KH <= {MAX_GROUP}")
-    build.require(tables.shape[0] == B and lengths.shape == (B,),
-                  f"tables {tuple(tables.shape)} / lengths {tuple(lengths.shape)} for B={B}")
-    build.require(window is None or window > 0, f"window must be positive, got {window}")
+    pool_dtype = torch.int8 if scales else torch.bfloat16
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"q must be bfloat16, got {q.dtype}")
+    if not k_pool.dtype == v_pool.dtype == pool_dtype:
+        raise ValueError(f"pools must be {pool_dtype}, got {k_pool.dtype}/{v_pool.dtype}")
+    if not k_pool.shape == v_pool.shape == (N, P, KH, D):
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if H % KH or H // KH > MAX_GROUP:
+        raise ValueError(f"H={H}, KH={KH}: need H % KH == 0 and H / KH <= {MAX_GROUP}")
+    if B > 65535 or KH > 65535:
+        raise ValueError(f"B={B}, KH={KH}: at most 65535 each")
+    if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"tables {tuple(tables.shape)} / lengths {tuple(lengths.shape)} "
+                         f"for B={B}")
+    if tables.shape[1] > MAX_STAGED_PAGES:
+        raise ValueError(f"tables [B, {tables.shape[1]}]: at most {MAX_STAGED_PAGES} "
+                         "pages per slot")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
     for t in (tables, lengths, *extra):
-        build.require(t.dtype == torch.int32 and t.is_contiguous(),
-                      "tables, lengths and win_starts must be contiguous int32")
-    for t in (q, k_pool, v_pool):
-        build.require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                      "paged decode attention needs contiguous 16-byte-aligned q and pools")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("tables, lengths and win_starts must be contiguous int32")
+    for t in scales:
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != k_pool.shape[:3]:
+            raise ValueError(f"scales must be contiguous float32 {tuple(k_pool.shape[:3])}")
+    if not (q.is_contiguous() and k_pool.is_contiguous() and v_pool.is_contiguous()) or (
+            q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("paged decode attention needs contiguous 16-byte-aligned q and pools")
+
+
+def _launch(wrapper, entry, argtypes, q, pools, scales, tables, lengths, window,
+            win_starts, sink) -> torch.Tensor:
+    """Check the operands, launch ``entry`` of ``csrc/paged_attention.cu``
+    with each slot's visible rows split ``split_plan`` ways, and add one to
+    ``wrapper.launches``. The entry takes the pointers (q, pools, scales,
+    tables, lengths, win_starts or null, out, the split workspace), then B,
+    H, KH, D, P, MB, the window (0 for none), the sink, the splits,
+    1/sqrt(D) and the stream."""
+    extra = (win_starts,) if win_starts is not None else ()
+    _check(q, pools, scales, tables, lengths, window, extra)
+    out = torch.empty_like(q)
+    B, H, D = q.shape
+    if B == 0:
+        return out
+    P, KH, MB = pools[0].shape[1], pools[0].shape[2], tables.shape[1]
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    splits = split_plan(MB * P, B, KH, sm_count(dev.index))
+    scratch = workspace(dev, stream, B * KH, splits, D)
+    fn = build.kernel("paged_attention", entry, argtypes)
+    rc = fn(q.data_ptr(), *(t.data_ptr() for t in (*pools, *scales, tables, lengths)),
+            win_starts.data_ptr() if win_starts is not None else None, out.data_ptr(),
+            *scratch, B, H, KH, D, P, MB, window or 0,
+            int(sink) if win_starts is not None else 0, splits, 1.0 / math.sqrt(D), stream)
+    build.check("paged_attention", rc)
+    wrapper.launches += 1
+    return out
 
 
 def paged_decode_attention(
@@ -138,34 +197,18 @@ def paged_decode_attention(
     """Paged ragged decode attention -> [B, H, D]. With ``win_starts`` and
     ``sink`` slot b attends only rows < sink or >= win_starts[b]. CPU
     operands take the reference; CUDA operands launch the kernel (bf16 q and
-    pools, int32 tables/lengths, D in {64, 128}, H/KH <= 8) or raise."""
+    pools, int32 tables/lengths, D in {64, 128}, H/KH <= 8), each slot's
+    rows split by ``split_plan``, or raise."""
     if win_starts is not None and sink is None:
         raise ValueError("win_starts needs a sink row count")
     extra = (win_starts,) if win_starts is not None else ()
-    dev = build.device_of(q, k_pool, v_pool, tables, lengths, *extra)
-    if dev.type == "cpu":
+    if build.device_of(q, k_pool, v_pool, tables, lengths, *extra).type == "cpu":
         return paged_decode_attention_reference(
             q, k_pool, v_pool, tables, lengths, window=window,
             win_starts=win_starts, sink=sink,
         )
-    _check(q, k_pool, v_pool, tables, lengths, window, extra, torch.bfloat16)
-    B, H, D = q.shape
-    P, KH, MB = k_pool.shape[1], k_pool.shape[2], tables.shape[1]
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    fn = build.kernel("paged_attention", "aios_paged_decode_attention", _ARGTYPES)
-    rc = fn(
-        build.ptr(q), build.ptr(k_pool), build.ptr(v_pool), build.ptr(tables),
-        build.ptr(lengths),
-        build.ptr(win_starts) if win_starts is not None else None,
-        build.ptr(out), B, H, KH, D, P, MB, window or 0,
-        int(sink) if win_starts is not None else 0, 1.0 / math.sqrt(D),
-        build.stream(dev),
-    )
-    build.check("paged_attention", rc)
-    paged_decode_attention.launches += 1
-    return out
+    return _launch(paged_decode_attention, "aios_paged_decode_attention", _ARGTYPES, q,
+                   (k_pool, v_pool), (), tables, lengths, window, win_starts, sink)
 
 
 paged_decode_attention.launches = 0
@@ -188,7 +231,8 @@ def paged_decode_attention_int8(
     scales folded into both products -> [B, H, D] in q.dtype; the masks are
     ``paged_decode_attention``'s. CPU operands take the reference; CUDA
     operands launch the kernel (bf16 q, int8 pools, contiguous f32 scales,
-    int32 tables/lengths, D in {64, 128}, H/KH <= 8) or raise."""
+    int32 tables/lengths, D in {64, 128}, H/KH <= 8), each slot's rows split
+    by ``split_plan``, or raise."""
     if win_starts is not None and sink is None:
         raise ValueError("win_starts needs a sink row count")
     extra = (win_starts,) if win_starts is not None else ()
@@ -198,28 +242,9 @@ def paged_decode_attention_int8(
             q, k_pool, v_pool, k_scales, v_scales, tables, lengths, window=window,
             win_starts=win_starts, sink=sink,
         )
-    _check(q, k_pool, v_pool, tables, lengths, window, extra, torch.int8)
-    B, H, D = q.shape
-    P, KH, MB = k_pool.shape[1], k_pool.shape[2], tables.shape[1]
-    for t in (k_scales, v_scales):
-        build.require(t.dtype == torch.float32 and t.is_contiguous()
-                      and t.shape == k_pool.shape[:3],
-                      f"scales must be contiguous float32 {tuple(k_pool.shape[:3])}")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    fn = build.kernel("paged_attention", "aios_paged_decode_attention_int8", _ARGTYPES_INT8)
-    rc = fn(
-        build.ptr(q), build.ptr(k_pool), build.ptr(v_pool), build.ptr(k_scales),
-        build.ptr(v_scales), build.ptr(tables), build.ptr(lengths),
-        build.ptr(win_starts) if win_starts is not None else None,
-        build.ptr(out), B, H, KH, D, P, MB, window or 0,
-        int(sink) if win_starts is not None else 0, 1.0 / math.sqrt(D),
-        build.stream(dev),
-    )
-    build.check("paged_attention", rc)
-    paged_decode_attention_int8.launches += 1
-    return out
+    return _launch(paged_decode_attention_int8, "aios_paged_decode_attention_int8",
+                   _ARGTYPES_INT8, q, (k_pool, v_pool), (k_scales, v_scales), tables,
+                   lengths, window, win_starts, sink)
 
 
 paged_decode_attention_int8.launches = 0

@@ -1,0 +1,79 @@
+"""The split of a slot's visible rows over several blocks, shared by the
+decode attention kernels that split (K8 ``decode_attention``, K3
+``paged_decode_attention``, K4 ``paged_decode_attention_int8``): the
+Python side of ``csrc/attention_common.cuh``'s ``clip_to_split``,
+``merge_splits`` and ``partial_floats``.
+
+The host picks the number of splits from shapes alone; each block cuts its
+share of the rows on the device; the block that draws a (slot, kv head)'s
+last ticket merges the partials in split order, in the same launch. The
+partials and tickets live in one workspace per device and stream, which
+the kernels share: they run in order on that stream, and every launch
+leaves the tickets at 0.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+MAX_GROUP = 8  # kMaxG: query heads per kv head the kernels take
+# kMaxSplits and kSplitAlign: at most eight blocks per (slot, kv head),
+# shares of whole 32-row warp chunks, no more splits than a full cache has
+# passes of a block's eight warps (256 rows), and no more than two blocks
+# per SM in all (measured on the H100: TinyLlama's 32 (slot, kv head) pairs
+# ran fastest split 8 ways, Mistral-7B's 64 split 4 ways).
+MAX_SPLITS = 8
+SPLIT_ALIGN = 32
+SPLIT_ROWS = 256
+BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=4096)  # a pure function of its ints, asked once per launch
+def split_plan(C: int, B: int, KH: int, sms: int) -> int:
+    """Blocks per (slot, kv head) of a launch over ``C`` cache rows a slot,
+    from the shapes and the SM count alone: never from the lengths, which
+    stay on the device (the step reads nothing back). At most MAX_SPLITS."""
+    return max(1, min(MAX_SPLITS, BLOCKS_PER_SM * sms // (B * KH), C // SPLIT_ROWS))
+
+
+def split_share(c_lo: int, c_hi: int, z: int, splits: int,
+                min_rows: int = 0) -> Tuple[int, int]:
+    """Share z of the visible rows [c_lo, c_hi) when a slot is split
+    ``splits`` ways: the kernels' cut (``clip_to_split``), equal shares of
+    whole warp chunks in order, each at least ``min_rows``; empty (lo >= hi)
+    once the rows run out."""
+    share = -(-(c_hi - c_lo) // splits)
+    rows = max(-(-share // SPLIT_ALIGN) * SPLIT_ALIGN, min_rows)
+    lo = c_lo + z * rows
+    return lo, min(c_hi, lo + rows)
+
+
+def partial_floats(D: int) -> int:
+    """Floats of one split's partial (``partial_floats<D>``): MAX_GROUP query
+    rows of D sums, then a max and a sum per row."""
+    return MAX_GROUP * (D + 2)
+
+
+_workspaces: Dict[Tuple[int, int], tuple] = {}
+
+
+def workspace(dev: torch.device, stream: int, groups: int, splits: int,
+              D: int) -> Tuple[int, int]:
+    """The addresses of the split workspace of ``stream`` on ``dev`` for
+    ``groups`` (slot, kv head) pairs split ``splits`` ways at head dim
+    ``D``: fp32 partials and the groups' tickets, zeroed (each split launch
+    leaves them at 0 again); grown, never shrunk, as launches ask."""
+    floats = groups * splits * partial_floats(D)
+    key = (dev.index, stream)
+    have = _workspaces.get(key)
+    if have is None or have[0] < floats or have[1] < groups:
+        if have is not None:
+            floats, groups = max(floats, have[0]), max(groups, have[1])
+        partial = torch.empty(floats, dtype=torch.float32, device=dev)
+        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+        have = _workspaces[key] = (floats, groups, partial, tickets,
+                                   (partial.data_ptr(), tickets.data_ptr()))
+    return have[4]

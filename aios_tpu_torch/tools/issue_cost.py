@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
 """Host cost of issuing the weight-quantized matmuls K1 and K5 and the
-attention kernels K2 and K8, and the wall time of a TinyLlama decode step,
-for the ``aios_tpu_torch`` under ``--root``.
+attention kernels K2, K3 and K8, and the wall time of a TinyLlama decode
+step, for the ``aios_tpu_torch`` under ``--root``.
 
 The decode-step sequences of K1 (TinyLlama-1.1B, 89 launches at M=8 and
 M=64) and K5 (Mistral-7B, 129 launches at M=8) are issued through the
 wrappers on per-layer views of stacked weights, as ``engine/model.py`` does;
 so are a prefill's K2 launches (TinyLlama, 22 at T=512; Mistral-7B, 32 at
-T=512 with its 4096-row window) and a dense decode step's K8 launches
-(TinyLlama, 22 over 8 slots of a 2048-row cache). Each sequence is issued
-while the stream is held by a device sleep: the host's time per call is
-then the issue cost alone (``held`` says the device was still asleep when
-the host finished). One issue of each sequence runs under ``cProfile``;
-``cuTensorMapEncodeTiled`` is timed through ``ctypes``; a full-width
-TinyLlama engine (int8 weights, bf16 paged pool, 8 slots at ~300 rows)
-times ``step(16)`` on the host clock and profiles one. Weights are random
-from a seed.
+T=512 with its 4096-row window), a dense decode step's K8 launches
+(TinyLlama, 22 over 8 slots of a 2048-row cache) and a paged decode step's
+K3 launches (TinyLlama, 22 over 8 slots of 16 pages of 128 rows). Each
+sequence is issued while the stream is held by a device sleep: the host's
+time per call is then the issue cost alone (``held`` says the device was
+still asleep when the host finished). One issue of each sequence runs
+under ``cProfile``; ``cuTensorMapEncodeTiled`` is timed through
+``ctypes``; a full-width TinyLlama engine (int8 weights, bf16 paged pool,
+8 slots at ~300 rows) times ``step(16)`` on the host clock and profiles
+one. Weights are random from a seed.
 
 Run from the repository root on a machine with one CUDA device, here or
 against another checkout of the package, to compare two trees on one host:
@@ -138,6 +139,25 @@ def decode_cost(torch, fn, gen, layers, B, C, H, KH, D):
     return held_cost(torch, run, layers)
 
 
+def paged_cost(torch, fn, gen, layers, B, MB, H, KH, D, page=128):
+    """``held_cost`` of one paged decode step's K3 calls on per-layer views
+    of a stacked [L, N, P, KH, D] pool, 8 slots at ragged lengths over
+    shuffled pages of one table."""
+    N = 1 + B * MB
+    q = torch.randn(layers, B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn(layers, N, page, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(layers, N, page, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+    tables = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(0))[:B * MB] + 1)
+    tables = tables.reshape(B, MB).to(torch.int32).cuda()
+    lengths = torch.randint(0, MB * page, (B,), generator=gen, device="cuda").to(torch.int32)
+
+    def run():
+        for i in range(layers):
+            fn(q[i], kp[i], vp[i], tables, lengths)
+
+    return held_cost(torch, run, layers)
+
+
 def encode_cost():
     """Microseconds per cuTensorMapEncodeTiled call through ctypes (a
     2048 x 2560 int8 weight in 64 x 64 boxes), and per no-op libcuda call
@@ -234,6 +254,10 @@ def main() -> int:
                                         2048, 32, 4, 64)
     out["k8_tinyllama_us_per_call"], out["k8_tinyllama_held"] = us, held
     print(f"[{args.label}] K8 TinyLlama step: {calls} calls, {us:.2f} us each\n{prof}")
+    us, held, calls, prof = paged_cost(torch, ops.paged_decode_attention, gen, TINYLLAMA[0],
+                                       8, 16, 32, 4, 64)
+    out["k3_tinyllama_us_per_call"], out["k3_tinyllama_held"] = us, held
+    print(f"[{args.label}] K3 TinyLlama step: {calls} calls, {us:.2f} us each\n{prof}")
     torch.cuda.empty_cache()
     out["encode_us"], out["ctypes_noop_us"] = encode_cost()
     out["tinyllama_step_ms"], out["tinyllama_step_ms_all"], prof = step_wall(torch, gen)

@@ -17,9 +17,12 @@ Phases, each printing its lines:
      window narrower than its kv tile, bit-identical on repeat at T = 512
      and 4096, beside the fastest fused SDPA backend (``is_causal`` where
      the window hides nothing);
-     K8 also at lengths on and beside its split shares, windowed, and with
-     one live slot; every dense-cache kernel bit-identical on repeat;
-  4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1, LoadModel
+     K3, K4 and K8 also at lengths on and beside their split shares (K3/K4
+     windowed too, K8 with one live slot); every decode-attention kernel
+     bit-identical on repeat;
+  4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1; LoadModel
+     ``synthetic://tiny-test`` (head_dim 16, which no attention kernel takes)
+     is refused with status error; LoadModel
      ``synthetic://tinyllama-1.1b`` at full width (int8 weights, bf16 pool),
      three Infer and one StreamInfer over gRPC, and proof that K1-K3
      launched meanwhile;
@@ -443,20 +446,53 @@ def check_flash_attention(gen) -> dict:
     return headline
 
 
-def _paged_case(gen, lengths, MB=16):
-    B = len(lengths)
+def _paged_tables(lengths, MB, window, seed):
+    """Page tables [B, MB] over shuffled physical pages, as the allocator
+    leaves them: page 0 is the sacrificial page, which an inactive slot
+    (length 0) and every page wholly below a slot's window map. Returns the
+    tables and the pool's page count."""
     need = [-(-(n + 1) // P) for n in lengths]
-    N = 1 + sum(need) + 3  # page 0 is the sacrificial page
-    perm = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(7)) + 1).tolist()
-    tables = torch.zeros(B, MB, dtype=torch.int32)
+    N = 1 + sum(need) + 3
+    perm = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(seed)) + 1).tolist()
+    tables = torch.zeros(len(lengths), MB, dtype=torch.int32)
     for b, n in enumerate(need):
+        first = max(lengths[b] + 1 - window, 0) // P if window else 0
         for i in range(n):
-            tables[b, i] = perm.pop()
-    q = torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
-    k_pool = torch.randn(N, P, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
-    v_pool = torch.randn(N, P, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    return q, k_pool, v_pool, tables.cuda(), lens
+            page = perm.pop()
+            if lengths[b] and i >= first:
+                tables[b, i] = page
+    return tables.cuda(), N
+
+
+def _live_rows(lens, C, window, win_starts, sink):
+    """[B, C] mask of the rows each slot attends."""
+    cols = torch.arange(C, device="cuda")[None, :]
+    lcol = lens.long()[:, None]
+    live = cols <= lcol
+    if window is not None:
+        live &= cols > lcol - window
+    if win_starts is not None:
+        live &= (cols < sink) | (cols >= win_starts.long()[:, None])
+    return live
+
+
+# K3 and K4 split each (slot, kv head)'s visible rows into equal shares of
+# whole 32-row chunks (split_plan: 8 shares at TinyLlama's shapes, 4 at
+# Mistral's), at D = 128 of at least 256 rows. Lengths whose rows fill their
+# shares exactly and one row past (TinyLlama: 256 rows in shares of 32, 257
+# in shares of 64 with the fifth holding one row; Mistral: 256 rows in one
+# share, 257 in two with the second holding one row, 4096 rows in four of
+# 1024, windowed ones starting anywhere in a page), and lengths 0 and 1.
+# Checked, not timed.
+K3_SPLIT_CASES = (
+    ("split edges", [255, 256, 257, 511, 512, 513, 0, 1], {}),
+    ("split edges, window=256", [255, 256, 257, 1000, 2047, 300, 0, 1], {"window": 256}),
+)
+K4_SPLIT_CASES = (
+    ("split edges", [255, 256, 4095, 4096, 8191, 2047, 0, 1], {}),
+    (f"split edges, window={M_WINDOW}", [255, 256, 4095, 4096, 8191, 5000, 0, 1],
+     {"window": M_WINDOW}),
+)
 
 
 def check_paged_decode_attention(gen) -> dict:
@@ -466,47 +502,47 @@ def check_paged_decode_attention(gen) -> dict:
         gather_pages, paged_decode_attention, paged_decode_attention_reference,
     )
 
+    MB, sink = 16, 128
     lengths = [0, 1, 127, 128, 129, 700, 1500, 2047]
-    q, k_pool, v_pool, tables, lens = _paged_case(gen, lengths)
-    B = len(lengths)
-    sink = 128
     ws = torch.tensor([0, 0, 0, 0, 256, 384, 1024, 1536], dtype=torch.int32, device="cuda")
+    cases = [("no window", lengths, {}), ("window=512", lengths, {"window": 512}),
+             ("sink=128 win_starts", lengths, {"win_starts": ws, "sink": sink}),
+             *K3_SPLIT_CASES]
     worst = 0.0
     headline = None
-    for label, kw in (
-        ("no window", {}),
-        ("window=512", {"window": 512}),
-        ("sink=128 win_starts", {"win_starts": ws, "sink": sink}),
-    ):
-        out = paged_decode_attention(q, k_pool, v_pool, tables, lens, **kw)
-        ref = paged_decode_attention_reference(q, k_pool, v_pool, tables, lens, **kw)
+    for label, lens_, kw in cases:
+        tables, N = _paged_tables(lens_, MB, kw.get("window"), 7)
+        q = torch.randn(len(lens_), H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        k_pool, v_pool = (torch.randn(N, P, KH, D, generator=gen, device="cuda")
+                          .to(torch.bfloat16) for _ in range(2))
+        lens = torch.tensor(lens_, dtype=torch.int32, device="cuda")
+        args = (q, k_pool, v_pool, tables, lens)
+        out = paged_decode_attention(*args, **kw)
+        ref = paged_decode_attention_reference(*args, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        ok = bool(torch.isfinite(out).all()) and torch.allclose(
-            out.float(), ref.float(), atol=TOL, rtol=TOL)
-        ms = time_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, lens, **kw))
-        plain = time_ms(lambda: paged_decode_attention_reference(
-            q, k_pool, v_pool, tables, lens, **kw))
-        C = tables.shape[1] * P
-        cols = torch.arange(C, device="cuda")[None, :]
-        lcol = lens.long()[:, None]
-        live = cols <= lcol
-        if "window" in kw:
-            live &= cols > lcol - kw["window"]
-        if "win_starts" in kw:
-            live &= (cols < sink) | (cols >= ws.long()[:, None])
-        kg = gather_pages(k_pool, tables).transpose(1, 2).contiguous()  # [B, KH, C, D]
-        vg = gather_pages(v_pool, tables).transpose(1, 2).contiguous()
-        q4 = q[:, :, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=live[:, None, None, :], enable_gqa=True))
-        rows = float(live.sum().item())
-        nbytes = rows * KH * D * 2 * 2 + 2 * B * H * D * 2 + tables.numel() * 4 + B * 4
-        bnd = bound_ms(nbytes, 4.0 * rows * H * D)
-        _report("paged_decode_attention", f"B=8 lengths={lengths} {label}", ms, plain,
-                lib, bnd, err, ok)
+        ok = (bool(torch.isfinite(out).all())
+              and torch.allclose(out.float(), ref.float(), atol=TOL, rtol=TOL)
+              and torch.equal(paged_decode_attention(*args, **kw), out))
         expect(ok, f"paged_decode_attention {label}: max err {err}")
         worst = max(worst, err)
+        what = f"B=8 lengths={lens_} {label}, repeat bit-identical"
+        if label.startswith("split"):
+            log(f"[kernel] paged_decode_attention {what}: ok={ok} max_abs_err={err:.3e} "
+                "(checked only)")
+            continue
+        ms = time_ms(lambda: paged_decode_attention(*args, **kw))
+        plain = time_ms(lambda: paged_decode_attention_reference(*args, **kw))
+        live = _live_rows(lens, MB * P, kw.get("window"), kw.get("win_starts"), sink)
+        kg = gather_pages(k_pool, tables).transpose(1, 2).contiguous()  # [B, KH, C, D]
+        vg = gather_pages(v_pool, tables).transpose(1, 2).contiguous()
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=live[:, None, None, :], enable_gqa=True))
+        rows = float(live.sum().item())
+        nbytes = (rows * KH * D * 2 * 2 + 2 * len(lens_) * H * D * 2 + tables.numel() * 4
+                  + len(lens_) * 4)
+        bnd = bound_ms(nbytes, 4.0 * rows * H * D)
+        _report("paged_decode_attention", what, ms, plain, lib, bnd, err, ok)
         if not kw:
             headline = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd[0],
                             bound_by=bnd[1], measured_at="one launch, 8 ragged slots")
@@ -533,65 +569,54 @@ def check_paged_decode_attention_int8(gen) -> dict:
         paged_decode_attention_int8, paged_decode_attention_int8_reference,
     )
 
+    MB, sink = 8192 // P, 128
     lengths = [0, 1, 127, 128, 1000, 4095, 4096, 8191]  # slot 0 is inactive
-    B, MB = len(lengths), 8192 // P
-    need = [-(-(n + 1) // P) for n in lengths]
-    N = 1 + sum(need) + 3  # page 0 is the sacrificial page
-    perm = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(11)) + 1).tolist()
-    tables = torch.zeros(B, MB, dtype=torch.int32)
-    for b, n in enumerate(need):
-        if lengths[b]:
-            for i in range(n):
-                tables[b, i] = perm.pop()
-    tables = tables.cuda()
-    q = torch.randn(B, M_H, M_D, generator=gen, device="cuda").to(torch.bfloat16)
-    pools = [torch.randint(-127, 128, (N, P, M_KH, M_D), generator=gen,
-                           device="cuda").to(torch.int8) for _ in range(2)]
-    scales = [torch.rand(N, P, M_KH, generator=gen, device="cuda") * 0.015 + 0.005
-              for _ in range(2)]
-    k_pool, v_pool = pools
-    k_s, v_s = scales
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    sink = 128
     ws = torch.tensor([0, 0, 0, 0, 256, 1024, 2048, 4096], dtype=torch.int32, device="cuda")
+    cases = [("no window", lengths, {}), (f"window={M_WINDOW}", lengths, {"window": M_WINDOW}),
+             ("sink=128 win_starts", lengths, {"win_starts": ws, "sink": sink}),
+             *K4_SPLIT_CASES]
     worst = 0.0
     headline = None
-    kg = gather_dequant(k_pool, k_s, tables, torch.bfloat16).transpose(1, 2).contiguous()
-    vg = gather_dequant(v_pool, v_s, tables, torch.bfloat16).transpose(1, 2).contiguous()
-    for label, kw in (
-        ("no window", {}),
-        (f"window={M_WINDOW}", {"window": M_WINDOW}),
-        ("sink=128 win_starts", {"win_starts": ws, "sink": sink}),
-    ):
-        args = (q, k_pool, v_pool, k_s, v_s, tables, lens)
+    for label, lens_, kw in cases:
+        tables, N = _paged_tables(lens_, MB, kw.get("window"), 11)
+        q = torch.randn(len(lens_), M_H, M_D, generator=gen, device="cuda").to(torch.bfloat16)
+        pools = [torch.randint(-127, 128, (N, P, M_KH, M_D), generator=gen,
+                               device="cuda").to(torch.int8) for _ in range(2)]
+        scales = [torch.rand(N, P, M_KH, generator=gen, device="cuda") * 0.015 + 0.005
+                  for _ in range(2)]
+        lens = torch.tensor(lens_, dtype=torch.int32, device="cuda")
+        args = (q, *pools, *scales, tables, lens)
         out = paged_decode_attention_int8(*args, **kw)
         ref = paged_decode_attention_int8_reference(*args, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        ok = bool(torch.isfinite(out).all()) and err <= TOL
-        ms = time_ms(lambda: paged_decode_attention_int8(*args, **kw))
-        plain = time_ms(lambda: paged_decode_attention_int8_reference(*args, **kw))
-        cols = torch.arange(MB * P, device="cuda")[None, :]
-        lcol = lens.long()[:, None]
-        live = cols <= lcol
-        if "window" in kw:
-            live &= cols > lcol - kw["window"]
-        if "win_starts" in kw:
-            live &= (cols < sink) | (cols >= ws.long()[:, None])
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], kg, vg, attn_mask=live[:, None, None, :], enable_gqa=True))
-        rows = float(live.sum().item())
-        nbytes = (rows * M_KH * (M_D + 4) * 2 + 2 * B * M_H * M_D * 2
-                  + tables.numel() * 4 + B * 4)
-        bnd = bound_ms(nbytes, 4.0 * rows * M_H * M_D)
-        _report("paged_decode_attention_int8", f"B=8 lengths={lengths} {label}", ms,
-                plain, lib, bnd, err, ok)
+        ok = (bool(torch.isfinite(out).all()) and err <= TOL
+              and torch.equal(paged_decode_attention_int8(*args, **kw), out))
         expect(ok, f"paged_decode_attention_int8 {label}: max err {err}")
         worst = max(worst, err)
+        what = f"B=8 lengths={lens_} {label}, repeat bit-identical"
+        if label.startswith("split"):
+            log(f"[kernel] paged_decode_attention_int8 {what}: ok={ok} max_abs_err={err:.3e} "
+                "(checked only)")
+            continue
+        ms = time_ms(lambda: paged_decode_attention_int8(*args, **kw))
+        plain = time_ms(lambda: paged_decode_attention_int8_reference(*args, **kw))
+        live = _live_rows(lens, MB * P, kw.get("window"), kw.get("win_starts"), sink)
+        kg, vg = (gather_dequant(pool, sc, tables, torch.bfloat16).transpose(1, 2).contiguous()
+                  for pool, sc in zip(pools, scales))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=live[:, None, None, :], enable_gqa=True))
+        del kg, vg
+        rows = float(live.sum().item())
+        nbytes = (rows * M_KH * (M_D + 4) * 2 + 2 * len(lens_) * M_H * M_D * 2
+                  + tables.numel() * 4 + len(lens_) * 4)
+        bnd = bound_ms(nbytes, 4.0 * rows * M_H * M_D)
+        _report("paged_decode_attention_int8", what, ms, plain, lib, bnd, err, ok)
         if "window" in kw:
             headline = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd[0],
                             bound_by=bnd[1],
                             measured_at=f"one launch, 8 ragged slots, window {M_WINDOW}")
+        torch.cuda.empty_cache()
     headline["max_abs_err"] = worst
     return headline
 
@@ -676,8 +701,8 @@ MISTRAL_LENS = [0, 1, 127, 1000, 4095, 4096, 6000, 8190]
 STRIDES = [0, 1, 1, 1, 1, 1, 1, 1]
 SPEC_T = 8  # draft_len 7 + 1
 # K8 cuts each (slot, kv head)'s visible rows into equal shares of whole
-# 32-row chunks, one block each (ops/decode_attention.py, split_plan and
-# split_share: 8 shares at TinyLlama's shapes, 4 at Mistral's). Lengths whose
+# 32-row chunks, one block each (ops/split.py, split_plan and split_share:
+# 8 shares at TinyLlama's shapes, 4 at Mistral's). Lengths whose
 # rows fill every share exactly and one row to each side (256 rows: shares of
 # 32; 257: shares of 64, the fifth holding one row); windows whose rows fit
 # one share (window 200, slots of 21 to 34 rows) or start deep in the cache;
@@ -854,7 +879,31 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     return dict(launches=launches, prefills=prefills, steps=steps)
 
 
+def _refused_load(stub) -> None:
+    """A geometry no kernel takes is refused at LoadModel on the card:
+    ``synthetic://tiny-test`` (head_dim 16) answers status error naming
+    head_dim, lists as error and never as ready, and is unloaded again."""
+    import grpc
+
+    from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
+
+    try:
+        st = stub.LoadModel(runtime_pb2.LoadModelRequest(
+            model_name="tiny", model_path="synthetic://tiny-test"), timeout=300)
+        code, details = st.status, ""
+    except grpc.RpcError as exc:
+        code, details = exc.code().name, exc.details() or ""
+    listed = {x.model_name: x.status for x in stub.ListModels(common_pb2.Empty()).models}
+    expect(code == "INTERNAL" and "head_dim 16" in details and listed.get("tiny") == "error",
+           f"LoadModel synthetic://tiny-test: {code} {details!r}, listed {listed}")
+    log(f"[serve] LoadModel synthetic://tiny-test refused: {code}, listed as "
+        f"{listed['tiny']!r}: {details}")
+    expect(stub.UnloadModel(runtime_pb2.UnloadModelRequest(model_name="tiny")).success,
+           "UnloadModel tiny")
+
+
 def phase_serve(manager, stub, card: str) -> dict:
+    _refused_load(stub)
     m, load_s = _load(manager, stub, "tinyllama", "synthetic://tinyllama-1.1b")
     eng, cfg = m.engine, m.config
     expect(

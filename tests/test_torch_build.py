@@ -14,6 +14,10 @@ import torch
 
 from aios_tpu_torch.ops import build
 
+# The shapes here are tiny: one intra-op thread is faster and leaves the
+# cores to the other test workers.
+torch.set_num_threads(1)
+
 qmm = importlib.import_module("aios_tpu_torch.ops.quantized_matmul")
 
 FAKE_NVCC = """#!/bin/sh

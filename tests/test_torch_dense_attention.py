@@ -92,6 +92,7 @@ def test_decode_attention_matches_jax(quant, window):
 # -- K8's split: each slot's rows over a cluster of blocks -----------------------
 
 dattn = importlib.import_module("aios_tpu_torch.ops.decode_attention")
+split = importlib.import_module("aios_tpu_torch.ops.split")
 
 
 @pytest.mark.parametrize("C", [1, 100, 255, 256, 2048, 8192, 32768])
@@ -101,11 +102,11 @@ def test_split_plan_is_a_bounded_pure_function(C, B, KH, sms):
     """The number of splits comes from the shapes and the SM count alone:
     never more than eight, never more than the cache has passes of a block,
     and no more blocks than BLOCKS_PER_SM per SM once split."""
-    n = dattn.split_plan(C, B, KH, sms)
-    assert 1 <= n <= dattn.MAX_SPLITS
-    assert n == 1 or n <= C // dattn.SPLIT_ROWS
-    assert n == 1 or B * KH * n <= dattn.BLOCKS_PER_SM * sms
-    assert dattn.split_plan(C, B, KH, sms) == n
+    n = split.split_plan(C, B, KH, sms)
+    assert 1 <= n <= split.MAX_SPLITS
+    assert n == 1 or n <= C // split.SPLIT_ROWS
+    assert n == 1 or B * KH * n <= split.BLOCKS_PER_SM * sms
+    assert split.split_plan(C, B, KH, sms) == n
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 8])
@@ -118,13 +119,13 @@ def test_split_shares_cover_the_visible_rows_once(c_lo, c_hi, splits):
     owner = {}
     ends = []
     for z in range(splits):
-        lo, hi = dattn.split_share(c_lo, c_hi, z, splits)
+        lo, hi = split.split_share(c_lo, c_hi, z, splits)
         ends.append((lo, hi))
         for c in range(lo, hi):
             assert c not in owner
             owner[c] = z
         if hi > lo and hi < c_hi:
-            assert (hi - lo) % dattn.SPLIT_ALIGN == 0
+            assert (hi - lo) % split.SPLIT_ALIGN == 0
     assert sorted(owner) == list(range(c_lo, c_hi))
     live = [hi > lo for lo, hi in ends]
     assert live == sorted(live, reverse=True)
@@ -132,16 +133,20 @@ def test_split_shares_cover_the_visible_rows_once(c_lo, c_hi, splits):
 
 def test_split_plan_fills_the_card_at_the_served_shapes():
     # TinyLlama's 8 slots x 4 kv heads over C = 2048, Mistral's 8 x 8 over 8192
-    assert dattn.split_plan(2048, 8, 4, 132) == 8
-    assert dattn.split_plan(8192, 8, 8, 132) == 4
+    assert split.split_plan(2048, 8, 4, 132) == 8
+    assert split.split_plan(8192, 8, 8, 132) == 4
     # a grid that already fills two blocks per SM is not split
-    assert dattn.split_plan(8192, 64, 8, 132) == 1
+    assert split.split_plan(8192, 64, 8, 132) == 1
 
 
 def test_split_bounds_match_the_kernel():
     text = (dattn.build.CSRC / "attention_common.cuh").read_text()
-    assert f"constexpr int kMaxSplits = {dattn.MAX_SPLITS};" in text
-    assert f"constexpr int kSplitAlign = {dattn.SPLIT_ALIGN};" in text
+    assert f"constexpr int kMaxSplits = {split.MAX_SPLITS};" in text
+    assert f"constexpr int kSplitAlign = {split.SPLIT_ALIGN};" in text
+    # the workspace the wrappers size holds what the kernels write there
+    assert f"constexpr int kMaxG = {split.MAX_GROUP};" in text
+    assert "return kMaxG * (D + 2);" in text
+    assert split.partial_floats(64) == split.MAX_GROUP * 66
 
 
 def _split_merge(q, k, v, lengths, window, splits):
@@ -161,7 +166,7 @@ def _split_merge(q, k, v, lengths, window, splits):
         hi = min(int(lengths[b]) + 1, C_)
         parts = []
         for z in range(splits):
-            c_lo, c_hi = dattn.split_share(lo, hi, z, splits)
+            c_lo, c_hi = split.split_share(lo, hi, z, splits)
             if c_lo >= c_hi:
                 parts.append((torch.full((KH_, G), -1e30), torch.zeros(KH_, G),
                               torch.zeros(KH_, G, Dq)))

@@ -2,6 +2,7 @@
 entry points refuse to fall back to the CPU when no CUDA device exists."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -9,8 +10,13 @@ import sys
 import pytest
 import torch
 
+# The shapes here are tiny: one intra-op thread is faster and leaves the
+# cores to the other test workers; so does every subprocess these tests start.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "aios_tpu_torch"
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1"}
 
 
 def _is_jax_or_reference(name: str) -> bool:
@@ -33,7 +39,7 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
         "sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                       text=True, timeout=120)
+                       text=True, timeout=120, env=ONE_THREAD)
     assert r.returncode == 0, r.stdout + r.stderr
 
 

@@ -3,11 +3,16 @@
 
 import grpc
 import pytest
+import torch
 
 from aios_tpu_torch import rpc, services
 from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
 from aios_tpu_torch.runtime.model_manager import ModelManager
 from aios_tpu_torch.runtime.service import serve
+
+# The shapes here are tiny: one intra-op thread is faster and leaves the
+# cores to the other test workers.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
