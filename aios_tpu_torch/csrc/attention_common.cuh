@@ -143,33 +143,48 @@ __device__ __forceinline__ int clip_to_split(int& c_lo, int& c_hi, int z, int sp
   return (visible + rows - 1) / rows;
 }
 
-// Floats of one split's partial in the workspace: acc [kMaxG * D], then m and
-// l [kMaxG] each.
+// The least rows of a share at head dim D (clip_to_split's min_rows) for the
+// int8 kernels that split, K4 over the page pool and K9 over the dense cache.
+// K4's D = 128 builds hold one block per SM (175 and 247 registers), so
+// Mistral-7B's grid (8 slots x 8 kv heads x 4 splits) takes two waves:
+// there a share is at least one pass of the block's eight warps, and a slot
+// of a few hundred rows runs in fewer, fuller blocks within one wave. A
+// D = 64 build holds two blocks per SM, and the finest shares were fastest
+// (tools/split_sweep.py, the served lengths). K9 takes the same floor; its
+// four-row build holds two blocks per SM, and there equal shares measured
+// faster at the served lengths (tools/paged_variants/no_least_share.patch).
+// 256 is kWarps * 32 rows (MIN_SHARE_ROWS_D128 in ops/split.py).
 template <int D>
+constexpr int kMinShareRows = D == 64 ? 0 : 256;
+
+// Floats of one split's partial in the workspace for R query rows: acc
+// [R * D], then m and l [R] each. The decode kernels hold kMaxG rows a
+// block, K6 up to 64 (partial_floats in ops/split.py).
+template <int D, int R = kMaxG>
 __host__ __device__ constexpr int partial_floats() {
-  return kMaxG * (D + 2);
+  return R * (D + 2);
 }
 
-// Split z of a group of `splits` blocks has its partial for nr query rows in
-// shared memory: m[r], l[r] (running max and sum) and acc[r * D + d] (the
-// output, not yet divided by l). It writes them to slot z of `part` (the
-// group's splits * partial_floats<D>() floats), and the block that draws the
+// Split z of a group of `splits` blocks has its partial for nr <= R query
+// rows in shared memory: m[r], l[r] (running max and sum) and acc[r * D + d]
+// (the output, not yet divided by l). It writes them to slot z of `part` (the
+// group's splits * partial_floats<D, R>() floats), and the block that draws the
 // last of the group's tickets calls store(i, o) for i = r * D + d with
 //   o = sum_z acc_z * e^(m_z - M) / sum_z l_z * e^(m_z - M),  M = max_z m_z,
 // a sum <= 0 taken as 1 (a row with no visible column gives 0). Every thread
 // of the block calls it; `last` is a shared int.
-template <int D, class Store>
+template <int D, int R = kMaxG, class Store>
 __device__ __forceinline__ void merge_splits(const float* m, const float* l, const float* acc,
                                              int nr, int z, int splits, float* part,
                                              int* ticket, int* last, Store store) {
-  constexpr int P = partial_floats<D>();
+  constexpr int P = partial_floats<D, R>();
   const int tid = threadIdx.x;
   __syncthreads();  // the block's partial is in shared memory
   float* mine = part + z * P;
   for (int i = tid; i < nr * D; i += blockDim.x) __stcg(mine + i, acc[i]);
   if (tid < nr) {
-    __stcg(mine + kMaxG * D + tid, m[tid]);
-    __stcg(mine + kMaxG * D + kMaxG + tid, l[tid]);
+    __stcg(mine + R * D + tid, m[tid]);
+    __stcg(mine + R * D + R + tid, l[tid]);
   }
   __threadfence();
   __syncthreads();
@@ -185,8 +200,8 @@ __device__ __forceinline__ void merge_splits(const float* m, const float* l, con
     for (int y = 0; y < kMaxSplits; ++y) {  // every split's loads in flight at once
       const float* py = part + y * P;
       const bool in = y < splits;
-      mz[y] = in ? __ldcg(py + kMaxG * D + r) : kNegInf;
-      lz[y] = in ? __ldcg(py + kMaxG * D + kMaxG + r) : 0.f;
+      mz[y] = in ? __ldcg(py + R * D + r) : kNegInf;
+      lz[y] = in ? __ldcg(py + R * D + R + r) : 0.f;
       az[y] = in ? __ldcg(py + i) : 0.f;
       M = fmaxf(M, mz[y]);
     }
@@ -199,6 +214,90 @@ __device__ __forceinline__ void merge_splits(const float* m, const float* l, con
       O += az[y] * f;
     }
     store(i, O / (L <= 0.f ? 1.f : L));
+  }
+  if (tid == 0) *ticket = 0;  // every split has drawn: ready for the next launch
+}
+
+// K6's merge (dense_attention.cu), for partials of up to R = 64 query rows:
+// merge_splits' ticket and sums, read wider. merge_splits walks a partial
+// one float a thread at a time, an L2 round trip per pass, 16 passes for a
+// 64-row partial at D = 64; here each row's split weights e^(m_z - M) are
+// taken once (thread r for row r) into shared memory `w` (kMaxSplits * R
+// floats), and each thread reads four floats of a row at a time, two such
+// reads of every split in flight. Split z has written its acc (R * D floats,
+// float4 j = floats 4j .. 4j + 3) to slot z of `part` and has its m and l in
+// shared memory; every thread of the block calls this, and the block that
+// draws the last ticket calls store(j, o) for j < nr * D / 4 with
+//   o = sum_z acc_z e^(m_z - M) / sum_z l_z e^(m_z - M),  M = max_z m_z,
+// a sum <= 0 taken as 1. `l` is overwritten.
+template <int D, int R, class Store>
+__device__ __forceinline__ void merge_row_splits(const float* m, float* l, int nr, int z,
+                                                 int splits, float* part, int* ticket,
+                                                 int* last, float* w, Store store) {
+  constexpr int P = partial_floats<D, R>();
+  constexpr int D4 = D / 4;
+  const int tid = threadIdx.x;
+  float* mine = part + z * P;
+  if (tid < nr) {
+    __stcg(mine + R * D + tid, m[tid]);
+    __stcg(mine + R * D + R + tid, l[tid]);
+  }
+  __threadfence();
+  __syncthreads();  // every thread's stores of the partial are visible
+  if (tid == 0) *last = atomicAdd(ticket, 1) == splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  if (tid < nr) {
+    float mz[kMaxSplits], lz[kMaxSplits];
+    float M = kNegInf;
+#pragma unroll
+    for (int y = 0; y < kMaxSplits; ++y) {
+      const bool in = y < splits;
+      mz[y] = in ? __ldcg(part + y * P + R * D + tid) : kNegInf;
+      lz[y] = in ? __ldcg(part + y * P + R * D + R + tid) : 0.f;
+      M = fmaxf(M, mz[y]);
+    }
+    float L = 0.f;
+#pragma unroll
+    for (int y = 0; y < kMaxSplits; ++y) {
+      const float f = y < splits ? expf(mz[y] - M) : 0.f;
+      w[y * R + tid] = f;
+      L += lz[y] * f;
+    }
+    l[tid] = L <= 0.f ? 1.f : L;
+  }
+  __syncthreads();
+  const int n4 = nr * D4;
+  for (int j0 = tid; j0 < n4; j0 += 2 * blockDim.x) {
+    float4 a[2][kMaxSplits];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u * blockDim.x;
+#pragma unroll
+      for (int y = 0; y < kMaxSplits; ++y)
+        a[u][y] = y < splits && j < n4
+                      ? __ldcg(reinterpret_cast<const float4*>(part + y * P) + j)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j >= n4) break;
+      const int r = j / D4;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int y = 0; y < kMaxSplits; ++y) {
+        if (y >= splits) break;
+        const float f = w[y * R + r];
+        o.x += a[u][y].x * f;
+        o.y += a[u][y].y * f;
+        o.z += a[u][y].z * f;
+        o.w += a[u][y].w * f;
+      }
+      const float L = l[r];
+      store(j, make_float4(o.x / L, o.y / L, o.z / L, o.w / L));
+    }
   }
   if (tid == 0) *ticket = 0;  // every split has drawn: ready for the next launch
 }

@@ -55,18 +55,6 @@
 
 namespace {
 
-// The least rows of a share; a slot with fewer visible rows than `splits`
-// such shares leaves the rest of its group's blocks empty. A D = 128 build
-// holds one block per SM (175 and 247 registers), so Mistral-7B's served
-// grid (8 slots x 8 kv heads x 4 splits) takes two waves: there a share is
-// at least one pass of the block's eight warps, and a slot of a few hundred
-// rows runs in fewer, fuller blocks within one wave. A D = 64 build holds
-// two blocks per SM, TinyLlama's grid fits one wave, and the finest shares
-// were fastest (tools/split_sweep.py, the served lengths). 256 is kWarps *
-// 32 rows (MIN_SHARE_ROWS_D128 in ops/paged_attention.py).
-template <int D>
-constexpr int kMinShareRows = D == 64 ? 0 : 256;
-
 // Pages per slot (MB) the kernel takes, so that a block's staged entries fit
 // 8 KB of dynamic shared memory beside the 37 KB the D = 128 builds hold
 // statically, under the 48 KB a launch gets without opting in.

@@ -9,7 +9,8 @@ several blocks (``ops/split.py``), merged in the same launch; on CPU tensors
 ``decode_attention_reference``, which masks the whole cache.
 ``decode_attention_int8`` is the same over an int8 cache with one f32 scale
 per (row, kv head) for K and for V, stored [B, C, KH] as the engine keeps
-them; its arithmetic is f32 throughout.
+them; its arithmetic is f32 throughout, and its split holds a D = 128 share
+to at least ``split.MIN_SHARE_ROWS_D128`` rows, as K4's does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from . import build
 from .quantized_matmul import sm_count
-from .split import MAX_GROUP, split_plan, workspace
+from .split import MAX_GROUP, MQ_BLOCK_ROWS, split_plan, workspace
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernels' builds
@@ -121,7 +122,11 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     (k_scales, v_scales) for an int8 one. The entry takes the pointers (q,
     caches, scales, index, out and, with ``split``, the split workspace),
     then B, (T,) H, KH, D, C, the window (0 for none) and, with ``split``,
-    the ``split_plan`` splits, then 1/sqrt(D) and the stream."""
+    the ``split_plan`` splits, then 1/sqrt(D) and the stream. A split
+    single-query launch has a group per (slot, kv head), partials of
+    MAX_GROUP rows; a split multi-query one (K6) a group per (tile of up to
+    MQ_BLOCK_ROWS query rows, kv head, slot), partials of MQ_BLOCK_ROWS
+    rows."""
     check_launch(q, k_cache, v_cache, scales, index, window,
                  torch.int8 if scales else torch.bfloat16)
     out = torch.empty_like(q)
@@ -134,7 +139,11 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     dims = (*q.shape[:-1], KH, D, C, window or 0)
     if split:
         splits = split_plan(C, B, KH, sm_count(dev.index))
-        ptrs += workspace(dev, stream, B * KH, splits, D)
+        groups, rows = B * KH, MAX_GROUP
+        if q.dim() == 4:
+            groups *= -(-q.shape[1] * (q.shape[2] // KH) // MQ_BLOCK_ROWS)
+            rows = MQ_BLOCK_ROWS
+        ptrs += workspace(dev, stream, groups, splits, D, rows)
         dims += (splits,)
     argtypes = _argtypes.get((len(ptrs), len(dims)))
     if argtypes is None:
@@ -184,13 +193,13 @@ def decode_attention_int8(
     folded into both products -> [B, H, D] in q.dtype. CPU operands take the
     reference; CUDA operands launch the kernel (bf16 q, int8 caches,
     contiguous f32 scales, int32 lengths, D in {64, 128}, H/KH <= 8, any
-    cache length C) or raise."""
+    cache length C), each slot's rows split by ``split_plan``, or raise."""
     dev = build.device_of(q, k_cache, v_cache, k_scales, v_scales, lengths)
     if dev.type == "cpu":
         return decode_attention_int8_reference(
             q, k_cache, v_cache, k_scales, v_scales, lengths, window=window)
     return launch(decode_attention_int8, "aios_decode_attention_int8", q, k_cache, v_cache,
-                  (k_scales, v_scales), (lengths,), window)
+                  (k_scales, v_scales), (lengths,), window, split=True)
 
 
 decode_attention_int8.launches = 0

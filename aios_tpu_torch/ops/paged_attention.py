@@ -28,9 +28,6 @@ from .split import MAX_GROUP, split_plan, workspace
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernel's builds
 MAX_STAGED_PAGES = 2048  # kMaxStagedPages: page-table entries a block stages
-# kMinShareRows of the D = 128 builds, the least rows of a share (one pass of
-# a block's eight warps; the D = 64 builds have none): split_share's min_rows
-MIN_SHARE_ROWS_D128 = 256
 
 # pointers (q, pools, [scales,] tables, lengths, win_starts, out, partial,
 # tickets), B H KH D P MB window sink splits, sm_scale, the stream

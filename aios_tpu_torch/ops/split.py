@@ -1,15 +1,17 @@
 """The split of a slot's visible rows over several blocks, shared by the
-decode attention kernels that split (K8 ``decode_attention``, K3
+decode attention kernels that split (K8 ``decode_attention``, K9
+``decode_attention_int8``, K6 ``multiquery_decode_attention``, K3
 ``paged_decode_attention``, K4 ``paged_decode_attention_int8``): the
 Python side of ``csrc/attention_common.cuh``'s ``clip_to_split``,
-``merge_splits`` and ``partial_floats``.
+``merge_splits``, ``partial_floats`` and ``kMinShareRows``.
 
 The host picks the number of splits from shapes alone; each block cuts its
-share of the rows on the device; the block that draws a (slot, kv head)'s
-last ticket merges the partials in split order, in the same launch. The
-partials and tickets live in one workspace per device and stream, which
-the kernels share: they run in order on that stream, and every launch
-leaves the tickets at 0.
+share of the rows on the device; the block that draws a group's last
+ticket merges the partials in split order, in the same launch. A group is
+a (slot, kv head), or for K6 a (tile of up to MQ_BLOCK_ROWS query rows,
+kv head, slot). The partials and tickets live in one workspace per device
+and stream, which the kernels share: they run in order on that stream, and
+every launch leaves the tickets at 0.
 """
 
 from __future__ import annotations
@@ -29,6 +31,13 @@ MAX_SPLITS = 8
 SPLIT_ALIGN = 32
 SPLIT_ROWS = 256
 BLOCKS_PER_SM = 2
+# kMinShareRows of the D = 128 builds of the int8 kernels that split (K4,
+# K9), the least rows of a share (one pass of a block's eight warps; the
+# D = 64 builds have none): split_share's min_rows
+MIN_SHARE_ROWS_D128 = 256
+# kMqMaxRows: query rows a K6 block holds, four 16-row tiles; its partials
+# are sized for them
+MQ_BLOCK_ROWS = 64
 
 
 @functools.lru_cache(maxsize=4096)  # a pure function of its ints, asked once per launch
@@ -51,22 +60,24 @@ def split_share(c_lo: int, c_hi: int, z: int, splits: int,
     return lo, min(c_hi, lo + rows)
 
 
-def partial_floats(D: int) -> int:
-    """Floats of one split's partial (``partial_floats<D>``): MAX_GROUP query
-    rows of D sums, then a max and a sum per row."""
-    return MAX_GROUP * (D + 2)
+def partial_floats(D: int, rows: int = MAX_GROUP) -> int:
+    """Floats of one split's partial (``partial_floats<D, R>``): ``rows``
+    query rows (MAX_GROUP for the decode kernels, MQ_BLOCK_ROWS for K6) of
+    D sums, then a max and a sum per row."""
+    return rows * (D + 2)
 
 
 _workspaces: Dict[Tuple[int, int], tuple] = {}
 
 
 def workspace(dev: torch.device, stream: int, groups: int, splits: int,
-              D: int) -> Tuple[int, int]:
+              D: int, rows: int = MAX_GROUP) -> Tuple[int, int]:
     """The addresses of the split workspace of ``stream`` on ``dev`` for
-    ``groups`` (slot, kv head) pairs split ``splits`` ways at head dim
-    ``D``: fp32 partials and the groups' tickets, zeroed (each split launch
-    leaves them at 0 again); grown, never shrunk, as launches ask."""
-    floats = groups * splits * partial_floats(D)
+    ``groups`` groups split ``splits`` ways at head dim ``D``, partials of
+    ``rows`` query rows: fp32 partials and the groups' tickets, zeroed (each
+    split launch leaves them at 0 again); grown, never shrunk, as launches
+    ask."""
+    floats = groups * splits * partial_floats(D, rows)
     key = (dev.index, stream)
     have = _workspaces.get(key)
     if have is None or have[0] < floats or have[1] < groups:

@@ -6,13 +6,21 @@ slot over that slot's dense cache with a causal staircase: query t of slot b
 sits at row ``lengths[b] + t * strides[b]`` and sees the columns up to and
 including its own row, inside the sliding window. ``strides`` is 1 for active
 slots and 0 for inactive ones, which expose only column 0 to every query. On
-CUDA tensors this runs the hand-written kernel ``csrc/dense_attention.cu``
-(the single-query decode kernel is its T = 1 case); on CPU tensors
-``multiquery_decode_attention_reference``. A slot whose staircase runs past
-the cache end (``lengths[b] + T - 1 >= C``) is saturated: the kernel clamps
-its reads to the cache and its outputs are unconsumed by contract.
-``multiquery_decode_attention_int8`` is the same over an int8 cache with
-[B, C, KH] f32 scales; its arithmetic is f32 throughout.
+CUDA tensors ``multiquery_decode_attention`` runs the hand-written
+tensor-core kernel of ``csrc/dense_attention.cu`` (``mq_attention_kernel``):
+the T * H / KH query rows of a (slot, kv head) in 16-row tiles, up to 64
+rows a block, scored and summed with ``mma.sync`` over K/V chunks copied
+asynchronously into shared memory, each slot's visible rows split by
+``split_plan`` and merged in the same launch (``ops/split.py``). q enters
+the product unscaled and the scores take 1/sqrt(D) in f32 after it; p is
+rounded to the cache dtype for P V and the row sums take it unrounded. On
+CPU tensors it runs ``multiquery_decode_attention_reference``. A slot whose
+staircase runs past the cache end (``lengths[b] + T - 1 >= C``) is
+saturated: the kernel clamps its reads to the cache and its outputs are
+unconsumed by contract. ``multiquery_decode_attention_int8`` is the same
+over an int8 cache with [B, C, KH] f32 scales, on the single-split kernel
+of the decode entries (its T = 1 case is ``decode_attention_int8``); its
+arithmetic is f32 throughout.
 """
 
 from __future__ import annotations
@@ -87,13 +95,13 @@ def multiquery_decode_attention(
     """Ragged multi-query decode attention -> [B, T, H, D]. CPU operands
     take the reference; CUDA operands launch the kernel (bf16 q and caches,
     int32 lengths and strides, D in {64, 128}, H/KH <= 8, any T and any cache
-    length C) or raise."""
+    length C), each slot's rows split by ``split_plan``, or raise."""
     dev = build.device_of(q, k_cache, v_cache, lengths, strides)
     if dev.type == "cpu":
         return multiquery_decode_attention_reference(
             q, k_cache, v_cache, lengths, strides, window=window)
     return launch(multiquery_decode_attention, "aios_multiquery_decode_attention", q,
-                  k_cache, v_cache, (), (lengths, strides), window)
+                  k_cache, v_cache, (), (lengths, strides), window, split=True)
 
 
 multiquery_decode_attention.launches = 0

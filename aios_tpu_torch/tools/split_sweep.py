@@ -2,10 +2,15 @@
 """Device time of the split decode attention kernels at every split count
 they can take, on one CUDA device.
 
-K8 (``decode_attention``, the dense cache) at the shapes its dense servers
-give it: TinyLlama-1.1B, 8 slots over a 2048-row cache; Mistral-7B heads
-over 8192 rows with its 4096-row window; all slots full; every slot at
-length 0 (one visible row: the launch's fixed cost).
+Over the dense cache, at the shapes its servers give them: K8
+(``decode_attention``) for TinyLlama-1.1B, 8 slots over a 2048-row cache,
+and Mistral-7B heads over 8192 rows with its 4096-row window; K9
+(``decode_attention_int8``) for Mistral-7B with and without the window;
+K6 (``multiquery_decode_attention``) for TinyLlama-1.1B's verify round
+(T = 8), at T = 31, and at Mistral-7B's heads with the window. Each at its
+headline lengths (those of ``chip_smoke.py``), all slots full, every slot
+at length 0 (one visible row: the launch's fixed cost) and, for K9 and K6,
+the lengths of a served window (8 slots, ~300 rows each).
 
 K3 (``paged_decode_attention``, bf16 pool) and K4
 (``paged_decode_attention_int8``, int8 pool) at the shapes the paged
@@ -19,32 +24,60 @@ launch, bit for bit, and the script exits 1 if any fails. Times are
 ``chip_smoke.time_ms`` (median of 20, L2 flushed, stream held). Inputs are
 random from a seed.
 
-Designs of ``csrc/paged_attention.cu`` that were measured and not kept are
-patches in ``tools/paged_variants/`` (``d64_default_bound``: the D = 64
-builds at the compiler's default bound; ``no_least_share``: equal shares
-at D = 128 too). To time one, apply it to a copy of the tree
-(``git apply``) and run this script there and in the tree, alternating, in
-one call on the card.
+Designs that were measured and not kept are patches beside this script:
+``tools/paged_variants/`` for ``csrc/paged_attention.cu`` and the shared
+header (``d64_default_bound``: K3/K4's D = 64 builds at the compiler's
+default bound; ``no_least_share``: equal shares at D = 128 too, for K4 and
+K9), ``tools/dense_variants/`` for ``csrc/dense_attention.cu``. To time
+one, apply it to a copy of the tree (``git apply``) and run this script
+there and in the tree, alternating, in one call on the card.
 
 Run from the repository root:
-    python3 aios_tpu_torch/tools/split_sweep.py
+    python3 aios_tpu_torch/tools/split_sweep.py [--only NAME ...]
 Prints one line per case and count, and the card as nvidia-smi names it.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-CASES = (  # (label, H, KH, D, C, window, lengths)
-    ("TinyLlama C=2048", 32, 4, 64, 2048, None, [0, 1, 127, 128, 700, 1500, 2000, 2046]),
-    ("Mistral C=8192 window=4096", 32, 8, 128, 8192, 4096,
-     [0, 1, 127, 1000, 4095, 4096, 6000, 8190]),
-    ("TinyLlama C=2048 all full", 32, 4, 64, 2048, None, [2047] * 8),
-    ("TinyLlama C=2048 all at length 0", 32, 4, 64, 2048, None, [0] * 8),
+TINY, MISTRAL = (32, 4, 64), (32, 8, 128)
+TINY_LENS = [0, 1, 127, 128, 700, 1500, 2000, 2046]
+MISTRAL_LENS = [0, 1, 127, 1000, 4095, 4096, 6000, 8190]
+SERVED = [290, 295, 300, 305, 310, 315, 320, 325]  # a served window's slots
+CASES = (  # (kernel, label, (H, KH, D), C, window, T (None: one query), lengths)
+    ("decode_attention", "TinyLlama C=2048", TINY, 2048, None, None, TINY_LENS),
+    ("decode_attention", "Mistral C=8192 window=4096", MISTRAL, 8192, 4096, None,
+     MISTRAL_LENS),
+    ("decode_attention", "TinyLlama C=2048 all full", TINY, 2048, None, None, [2047] * 8),
+    ("decode_attention", "TinyLlama C=2048 all at length 0", TINY, 2048, None, None, [0] * 8),
+    ("decode_attention_int8", "Mistral C=8192 window=4096", MISTRAL, 8192, 4096, None,
+     MISTRAL_LENS),
+    ("decode_attention_int8", "Mistral C=8192 no window", MISTRAL, 8192, None, None,
+     MISTRAL_LENS),
+    ("decode_attention_int8", "Mistral C=8192 all full, no window", MISTRAL, 8192, None,
+     None, [8191] * 8),
+    ("decode_attention_int8", "Mistral C=8192 all at length 0", MISTRAL, 8192, None, None,
+     [0] * 8),
+    ("decode_attention_int8", "Mistral C=8192 window=4096 served, ~300 rows", MISTRAL, 8192,
+     4096, None, SERVED),
+    ("multiquery_decode_attention", "TinyLlama C=2048 T=8", TINY, 2048, None, 8,
+     TINY_LENS[:-1] + [2040]),
+    ("multiquery_decode_attention", "TinyLlama C=2048 T=31", TINY, 2048, None, 31,
+     TINY_LENS[:-1] + [2017]),
+    ("multiquery_decode_attention", "Mistral heads C=8192 window=4096 T=8", MISTRAL, 8192,
+     4096, 8, MISTRAL_LENS[:-1] + [8184]),
+    ("multiquery_decode_attention", "TinyLlama C=2048 T=8 all full", TINY, 2048, None, 8,
+     [2040] * 8),
+    ("multiquery_decode_attention", "TinyLlama C=2048 T=8 all at length 0", TINY, 2048, None,
+     8, [0] * 8),
+    ("multiquery_decode_attention", "TinyLlama C=2048 T=8 served, ~300 rows", TINY, 2048,
+     None, 8, SERVED),
 )
 PAGE = 128
 PAGED_CASES = (  # (kernel, label, H, KH, D, pages per slot, window, lengths)
@@ -61,11 +94,10 @@ PAGED_CASES = (  # (kernel, label, H, KH, D, pages per slot, window, lengths)
      None, [8191] * 8),
     ("paged_decode_attention_int8", "Mistral C=8192 all at length 0", 32, 8, 128, 64, None,
      [0] * 8),
-    # the lengths of a served decode window (8 slots, ~300 rows each)
     ("paged_decode_attention", "TinyLlama C=2048 served, ~300 rows", 32, 4, 64, 16, None,
-     [290, 295, 300, 305, 310, 315, 320, 325]),
+     SERVED),
     ("paged_decode_attention_int8", "Mistral C=8192 window=4096 served, ~300 rows", 32, 8,
-     128, 64, 4096, [290, 295, 300, 305, 310, 315, 320, 325]),
+     128, 64, 4096, SERVED),
 )
 
 
@@ -95,7 +127,58 @@ def _paged_operands(torch, gen, H, KH, D, MB, window, lengths, quant):
     return (q, *pools, tables.cuda(), lens)
 
 
+def _dense_operands(torch, gen, H, KH, D, C, T, lengths, quant):
+    """q, the caches (and scales), lengths and, with T, the strides: a slot
+    at length 0 is inactive (stride 0, one visible row), as chip_smoke's
+    slot 0 is."""
+    B = len(lengths)
+    q = torch.randn(B, T or 1, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    if quant:
+        caches = [torch.randint(-127, 128, (B, C, KH, D), generator=gen,
+                                device="cuda").to(torch.int8) for _ in range(2)]
+        caches += [torch.rand(B, C, KH, generator=gen, device="cuda") * 0.015 + 0.005
+                   for _ in range(2)]
+    else:
+        caches = [torch.randn(B, C, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if T is None:
+        return (q[:, 0].contiguous(), *caches, lens)
+    strides = torch.tensor([int(n > 0) for n in lengths], dtype=torch.int32, device="cuda")
+    return (q, *caches, lens, strides)
+
+
+def _sweep(module, name, label, operands, window, plan, failed):
+    """One case at every split count, ``module.split_plan`` overridden."""
+    import chip_smoke
+    import torch
+    from aios_tpu_torch import ops
+    from aios_tpu_torch.ops import split
+
+    fn, ref_fn = getattr(ops, name), getattr(ops, f"{name}_reference")
+    ref = ref_fn(*operands, window=window)
+    planned = module.split_plan
+    try:
+        for n in range(1, split.MAX_SPLITS + 1):
+            module.split_plan = lambda *_, n=n: n
+            out = fn(*operands, window=window)
+            err = (out.float() - ref.float()).abs().max().item()
+            same = torch.equal(out, fn(*operands, window=window))
+            ms = chip_smoke.time_ms(lambda: fn(*operands, window=window))
+            if err > chip_smoke.TOL or not same:
+                failed.append((f"{name} {label}", n))
+            print(f"[split_sweep] {name} {label}: splits={n}"
+                  f"{' (plan)' if n == plan else ''} ms={ms:.4f} max_abs_err={err:.3e} "
+                  f"repeat_identical={same}", flush=True)
+    finally:
+        module.split_plan = planned
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="kernels to sweep (default: all five)")
+    args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -103,8 +186,6 @@ def main() -> int:
         print("split_sweep: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
-    from aios_tpu_torch import ops
-    from aios_tpu_torch.ops import split
 
     dattn = importlib.import_module("aios_tpu_torch.ops.decode_attention")
     pattn = importlib.import_module("aios_tpu_torch.ops.paged_attention")
@@ -114,53 +195,25 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []  # (case, count) whose output is off its plain version or does not repeat
-    planned = dattn.split_plan
-    try:
-        for label, H, KH, D, C, window, lengths in CASES:
-            B = len(lengths)
-            q = torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
-            kc, vc = (torch.randn(B, C, KH, D, generator=gen, device="cuda").to(torch.bfloat16)
-                      for _ in range(2))
-            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-            ref = ops.decode_attention_reference(q, kc, vc, lens, window=window)
-            plan = planned(C, B, KH, sms)
-            for n in range(1, split.MAX_SPLITS + 1):
-                dattn.split_plan = lambda *_, n=n: n
-                out = ops.decode_attention(q, kc, vc, lens, window=window)
-                err = (out.float() - ref.float()).abs().max().item()
-                same = torch.equal(out, ops.decode_attention(q, kc, vc, lens, window=window))
-                ms = chip_smoke.time_ms(lambda: ops.decode_attention(q, kc, vc, lens, window=window))
-                if err > chip_smoke.TOL or not same:
-                    failed.append((f"decode_attention {label}", n))
-                print(f"[split_sweep] decode_attention {label}: splits={n}"
-                      f"{' (plan)' if n == plan else ''} ms={ms:.4f} max_abs_err={err:.3e} "
-                      f"repeat_identical={same}", flush=True)
-    finally:
-        dattn.split_plan = planned
+    wanted = set(args.only) if args.only else None
+    for name, label, (H, KH, D), C, window, T, lengths in CASES:
+        if wanted is not None and name not in wanted:
+            continue
+        operands = _dense_operands(torch, gen, H, KH, D, C, T, lengths, name.endswith("int8"))
+        _sweep(dattn, name, label, operands, window, dattn.split_plan(C, len(lengths), KH, sms),
+               failed)
+        del operands
+        torch.cuda.empty_cache()
 
-    planned = pattn.split_plan
-    try:
-        for name, label, H, KH, D, MB, window, lengths in PAGED_CASES:
-            quant = name.endswith("int8")
-            fn, ref_fn = getattr(ops, name), getattr(ops, f"{name}_reference")
-            operands = _paged_operands(torch, gen, H, KH, D, MB, window, lengths, quant)
-            ref = ref_fn(*operands, window=window)
-            plan = planned(MB * PAGE, len(lengths), KH, sms)
-            for n in range(1, split.MAX_SPLITS + 1):
-                pattn.split_plan = lambda *_, n=n: n
-                out = fn(*operands, window=window)
-                err = (out.float() - ref.float()).abs().max().item()
-                same = torch.equal(out, fn(*operands, window=window))
-                ms = chip_smoke.time_ms(lambda: fn(*operands, window=window))
-                if err > chip_smoke.TOL or not same:
-                    failed.append((f"{name} {label}", n))
-                print(f"[split_sweep] {name} {label}: splits={n}"
-                      f"{' (plan)' if n == plan else ''} ms={ms:.4f} "
-                      f"max_abs_err={err:.3e} repeat_identical={same}", flush=True)
-            del operands, ref
-            torch.cuda.empty_cache()
-    finally:
-        pattn.split_plan = planned
+    for name, label, H, KH, D, MB, window, lengths in PAGED_CASES:
+        if wanted is not None and name not in wanted:
+            continue
+        quant = name.endswith("int8")
+        operands = _paged_operands(torch, gen, H, KH, D, MB, window, lengths, quant)
+        _sweep(pattn, name, label, operands, window,
+               pattn.split_plan(MB * PAGE, len(lengths), KH, sms), failed)
+        del operands
+        torch.cuda.empty_cache()
     print(f"[split_sweep] empty kernel under time_ms: "
           f"{chip_smoke.time_ms(lambda: torch.cuda._sleep(1)):.4f} ms", flush=True)
     if failed:

@@ -17,8 +17,11 @@ Phases, each printing its lines:
      window narrower than its kv tile, bit-identical on repeat at T = 512
      and 4096, beside the fastest fused SDPA backend (``is_causal`` where
      the window hides nothing);
-     K3, K4 and K8 also at lengths on and beside their split shares (K3/K4
-     windowed too, K8 with one live slot); every decode-attention kernel
+     K3, K4, K8 and K9 also at lengths on and beside their split shares
+     (K3/K4 windowed too, K8 and K9 with one live slot, K9 with a window
+     whose slots fit one share and windows deep in the cache); K6 also at
+     T = 3 (24 query rows a kv head, a ragged 16-row tile) and at the
+     lengths of a served window (~300 rows); every decode-attention kernel
      bit-identical on repeat;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1; LoadModel
      ``synthetic://tiny-test`` (head_dim 16, which no attention kernel takes)
@@ -719,6 +722,27 @@ K8_SPLIT_CASES = [
 ]
 
 
+# K9 takes the split with a least share of 256 rows at D = 128 (4 shares at
+# Mistral-7B's shapes): lengths whose rows fill one, two or four shares
+# exactly and one row to each side (256 rows: one share; 257: 256 and one;
+# 1024: four of 256; 1025: four of 288); a window whose slots fit one share
+# (window 200, slots of 21 to 34 rows); every slot at length 0 but one;
+# windows that start deep in the cache.
+K9_SPLIT_CASES = [
+    ("split edges, Mistral C=8192", MISTRAL_GEOM, 8192, None, True, None,
+     [255, 256, 257, 511, 512, 513, 1023, 1024], ()),
+    ("split-local rows, Mistral C=8192 window=200", MISTRAL_GEOM, 8192, 200, True, None,
+     [20, 31, 32, 33, 1000, 8190, 0, 300], ()),
+    ("split: one slot live, Mistral C=8192", MISTRAL_GEOM, 8192, None, True, None,
+     [0, 0, 0, 6700, 0, 0, 0, 0], ()),
+    (f"split edges and windows deep in the cache, Mistral C=8192 window={M_WINDOW}",
+     MISTRAL_GEOM, 8192, M_WINDOW, True, None, [5000, 7000, 8191, 1023, 1024, 1025, 4096, 0],
+     ()),
+]
+# the lengths of a served window: 8 slots of ~300 rows
+SERVED_LENS = [290, 295, 300, 305, 310, 315, 320, 325]
+
+
 def check_dense_attention(gen) -> dict:
     """K8, K9, K6 and K7 at the shapes the dense servers give them."""
     def mq_lens(lens, C, T=SPEC_T):
@@ -736,6 +760,9 @@ def check_dense_attention(gen) -> dict:
              None, MISTRAL_LENS, ()),
             ("Mistral C=8192 no window", MISTRAL_GEOM, 8192, None, True, None,
              MISTRAL_LENS, ()),
+            (f"Mistral C=8192 window={M_WINDOW}, served lengths", MISTRAL_GEOM, 8192,
+             M_WINDOW, True, None, SERVED_LENS, ()),
+            *K9_SPLIT_CASES,
         ],
         "multiquery_decode_attention": [
             (f"TinyLlama C=2048 T={SPEC_T}", TINY_GEOM, 2048, None, False, SPEC_T,
@@ -746,6 +773,10 @@ def check_dense_attention(gen) -> dict:
              False, SPEC_T, TINY_LENS, (7,)),
             ("TinyLlama C=2048 T=31", TINY_GEOM, 2048, None, False, 31,
              mq_lens(TINY_LENS, 2048, 31), ()),
+            ("TinyLlama C=2048 T=3", TINY_GEOM, 2048, None, False, 3,
+             mq_lens(TINY_LENS, 2048, 3), ()),
+            (f"TinyLlama C=2048 T={SPEC_T}, served lengths", TINY_GEOM, 2048, None, False,
+             SPEC_T, SERVED_LENS, ()),
         ],
         "multiquery_decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,

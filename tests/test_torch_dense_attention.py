@@ -143,10 +143,12 @@ def test_split_bounds_match_the_kernel():
     text = (dattn.build.CSRC / "attention_common.cuh").read_text()
     assert f"constexpr int kMaxSplits = {split.MAX_SPLITS};" in text
     assert f"constexpr int kSplitAlign = {split.SPLIT_ALIGN};" in text
-    # the workspace the wrappers size holds what the kernels write there
+    # the workspace the wrappers size holds what the kernels write there:
+    # partials of kMaxG rows for the decode kernels, of K6's block rows for K6
     assert f"constexpr int kMaxG = {split.MAX_GROUP};" in text
-    assert "return kMaxG * (D + 2);" in text
+    assert "template <int D, int R = kMaxG>" in text and "return R * (D + 2);" in text
     assert split.partial_floats(64) == split.MAX_GROUP * 66
+    assert split.partial_floats(64, split.MQ_BLOCK_ROWS) == split.MQ_BLOCK_ROWS * 66
 
 
 def _split_merge(q, k, v, lengths, window, splits):

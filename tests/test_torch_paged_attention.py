@@ -204,7 +204,7 @@ def test_split_merge_with_the_kernels_least_share_matches_jax(pool, mask, splits
     """The recurrence with the least share the D = 128 builds hold
     (``MIN_SHARE_ROWS_D128``) over a 768-row cache, where it leaves fewer,
     fuller shares than equal cuts would."""
-    floor = pattn.MIN_SHARE_ROWS_D128
+    floor = split.MIN_SHARE_ROWS_D128
     assert any(split.split_share(0, n + 1, z, splits, floor)
                != split.split_share(0, n + 1, z, splits) for n in LONG_LENGTHS
                for z in range(splits))
@@ -244,9 +244,13 @@ def test_kernel_and_wrapper_agree():
     assert c_args("aios_paged_decode_attention_int8") == len(pattn._ARGTYPES_INT8) == 22
     assert f"constexpr int kMaxStagedPages = {pattn.MAX_STAGED_PAGES};" in text
     # the least share: none at D = 64, one pass of the eight warps at D = 128
-    # (split_share's min_rows; test_split_merge_with_the_kernels_least_share)
-    assert (f"constexpr int kMinShareRows = D == 64 ? 0 : {pattn.MIN_SHARE_ROWS_D128};"
-            in text)
+    # (split_share's min_rows; test_split_merge_with_the_kernels_least_share),
+    # one constant in the shared header, which K9 takes too
+    common = (build.CSRC / "attention_common.cuh").read_text()
+    assert (f"constexpr int kMinShareRows = D == 64 ? 0 : {split.MIN_SHARE_ROWS_D128};"
+            in common)
+    assert "constexpr int kMinShareRows" not in text
+    assert "clip_to_split(c_lo, c_hi, split, splits, kMinShareRows<D>)" in text
     # one kernel per build: two blocks per SM at D = 64, the default bound at 128
     assert "__launch_bounds__(kThreads, 2) paged_decode_kernel_2" in text
     assert "#if" not in text  # no compile-time switches
@@ -260,11 +264,15 @@ def test_kernel_and_wrapper_agree():
                          ids=lambda p: p.stem)
 def test_rejected_designs_patch_the_kernel_source(patch):
     """The designs split_sweep timed and the source does not keep are
-    patches of it: each hunk's old lines stand in the source as they are,
-    so the patch still applies, and it changes the source."""
-    source = (build.CSRC / "paged_attention.cu").read_text()
+    patches of it: each hunk's old lines stand in the source file the patch
+    names as they are, so the patch still applies, and it changes the
+    source."""
+    diff = patch.read_text()
+    target = re.search(r"^\+\+\+ b/(\S+)$", diff, re.M).group(1)
+    assert target.startswith("aios_tpu_torch/csrc/")
+    source = (build.PKG.parent / target).read_text()
     text = source
-    for hunk in patch.read_text().split("\n@@")[1:]:
+    for hunk in diff.split("\n@@")[1:]:
         lines = hunk.split("\n")[1:]
         old = "\n".join(line[1:] for line in lines if line[:1] in (" ", "-"))
         new = "\n".join(line[1:] for line in lines if line[:1] in (" ", "+"))
