@@ -24,106 +24,144 @@
 //
 // Two kernels.
 //
-// K6, multiquery_decode_attention (bf16 cache, `mq_attention_kernel`), runs
-// its products on the tensor cores. The R query rows of a (slot, kv head),
-// ordered (t, g), stack in 16-row tiles, 32 rows a block when R <= 32 and 64
-// otherwise; one block per (tile of rows, kv head, slot, split). TinyLlama's
-// verify round (T = 8, G = 8) is one block per (slot, kv head, split); at
-// T = 31 each K/V row is read by 4 blocks, not 31. Rows past R in the last
-// tile are zero and masked. A block walks only the rows its queries can
+// K6 and K7, multiquery_decode_attention over a bf16 cache and
+// multiquery_decode_attention_int8 over an int8 cache (`mq_attention_kernel`,
+// one template on the cache element), run their products on the tensor
+// cores. The R query rows of a (slot, kv head), ordered (t, g), stack in
+// 16-row tiles, 32 rows a block when R <= 32 and 64 otherwise; one block per
+// (tile of rows, kv head, slot, split). TinyLlama's and Mistral-7B's verify
+// rounds (T = 8, G = 8 and 4) are one block per (slot, kv head, split); at
+// T = 31 each K/V row is read by 4 or 2 blocks, not 31. Rows past R in the
+// last tile are zero and masked. A block walks only the rows its queries can
 // see, [pos of its first query + 1 - window, pos of its last query + 1),
 // clamped to [0, C) (a saturated slot never reads past the cache, and its
 // outputs are unconsumed by the engine's contract), cut to its split's share
-// (clip_to_split). The share arrives in 64-row chunks of K and V, copied by
-// cp.async into a ring of kMqStages stages in shared memory, so the next
-// chunks' loads fly while the current chunk's products run; each row is
-// padded by 16 bytes so the ldmatrix reads fall on distinct banks, and rows
-// past the share are zero-filled, never read. The eight warps split a block
-// as (tile, slice of each chunk): four tiles x two 32-row slices, or two
-// tiles x four 16-row slices. A warp runs mma.sync.m16n8k16 (bf16 operands,
-// fp32 sums): S = Q K^T for its tile and slice, the staircase and window
-// masks and an fp32 online softmax per query row, then O += P V with P taken
-// from the S accumulators as the A operand and V read transposed
-// (ldmatrix.trans). The warps' (max, sum, output) merge in shared memory at
-// the end; the split's partials merge through merge_row_splits, the last
-// ticket (attention_common.cuh), which reads a 64-row partial four floats at
-// a time. A query row with no visible column gives 0.
-// Its arithmetic: q enters unscaled (it is bf16 already, so nothing is
-// rounded), S is multiplied by sm_scale in fp32 after the product, p is
-// rounded to bf16 for P V and the running sum takes the unrounded p: the TPU
-// kernel's `ph.astype(vb.dtype)` and the plain version's
-// `p.to(v_cache.dtype)`. (Scaling q by sm_scale in fp32 before an fp32 dot
-// differs from it only in fp32 rounding order.)
-// Its builds (ptxas -v, sm_90a, no spills; 256 threads at the default
-// launch bound):
-//   D = 64, 32 rows:  96 registers, 58.5 KB dynamic + 2.3 KB static shared,
-//     2 blocks per SM (registers);
-//   D = 64, 64 rows:  122 registers, 63 KB + 3.5 KB, 2 blocks per SM;
-//   D = 128, 32 rows: 128 registers, 76.5 KB + 2.3 KB, 2 blocks per SM;
-//   D = 128, 64 rows: 162 registers, 85 KB + 3.5 KB, 1 block per SM.
+// (clip_to_split). The share arrives in 64-row chunks of K and V (and K7's
+// scales), copied by cp.async into a ring of stages in shared memory
+// (MqSmem), so the next chunks' loads fly while the current chunk's products
+// run; rows are padded so that each lane's shared loads of a phase fall on
+// distinct banks, and rows past the share are zero-filled, never read. The
+// eight warps split a block as (tile, slice of each chunk): four tiles x two
+// 32-row slices, or two tiles x four 16-row slices. A warp runs
+// mma.sync.m16n8k16 (bf16 operands, fp32 sums): S = Q K^T for its tile and
+// slice, the staircase and window masks and an fp32 online softmax per query
+// row, then O += P V with P taken from the S accumulators as the A operand.
+// The warps' (max, sum, output) merge in shared memory at the end; the
+// split's partials merge through merge_row_splits, the last ticket
+// (attention_common.cuh), which reads a 64-row partial four floats at a
+// time. A query row with no visible column gives 0. Both enter q unscaled
+// (it is bf16 already, so nothing is rounded), multiply S by sm_scale in
+// fp32 after the product and sum the unrounded p. (Scaling q by sm_scale in
+// fp32 before an fp32 dot, as the TPU kernels do, differs from it only in
+// fp32 rounding order.)
 //
-// K7, K8 and K9 (`dense_attention`) run the skeleton of paged_attention.cu
-// with the page table replaced by the row index (b * C + col) * KH + kh. One
-// block per (tile of kR query rows, kv head, slot): kR = 8, or 4 for K9
-// where G <= 4 (Mistral-7B); query rows are ordered (t, g), so a tile holds
-// the G heads of kR / G consecutive queries, and T = 1 is one tile. The tile index is the fastest grid dimension, so the blocks
-// that share a (slot, kv head) run together and find each other's K/V rows in
-// the L2. A block walks only the rows its own queries can see, as K6's does.
-// The eight warps take turns over 32-row chunks, each with its own fp32
-// online softmax, and merge (max, sum, output) at the end. Within a chunk a
-// lane owns one cache row: 16-byte K loads, the tile's scores against q held
-// in shared memory, warp reductions for max and sum, and for P @ V each lane
-// owns D/32 output dims of every query row and takes each cache row's
-// probability from its lane by shuffle. A query row with no visible column
-// gives 0. Arithmetic follows the TPU kernels, which differ:
-//   decode_attention (bf16, T = 1): q * sm_scale rounded to bf16 before the
-//     dot; p rounded to bf16 before P @ V;
-//   both int8 kernels: f32 throughout, q scaled first,
+// K6 reads its fragments with ldmatrix (V transposed, ldmatrix.trans) from
+// rows of D + 8 bf16, 3 stages at D = 64 and 2 at D = 128, and rounds p to
+// bf16 for P V: the TPU kernel's `ph.astype(vb.dtype)` and the plain
+// version's `p.to(v_cache.dtype)`.
+//
+// K7 keeps the TPU kernel's int8 arithmetic, f32 throughout, on the same
+// bf16 mma:
+//   - an int8 value is exact in bf16, so S = q . k_int8 takes exact products
+//     into fp32 sums, then s * sm_scale * k_scale[col] in fp32;
+//   - P V takes w = p * v_scale[col] (fp32) as kMqVTerms = 3 bf16 terms,
+//     hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), each
+//     difference exact in fp32, each term through its own mma against V's
+//     exact bf16 image into the same fp32 accumulators: the terms sum to w
+//     within 2^-24 of it, f32's own rounding (two leave up to 2^-16). p is
+//     never rounded alone;
+//   - the int8 bytes become bf16 fragments in registers (int8_bf16.cuh,
+//     shared with K1 and K5). A lane reads 8 bytes of a K row, 32 dims, the
+//     k slots of two k16 steps (q's A fragments read with the same
+//     permutation, 16 bytes of each of its two rows: a sum over k does not
+//     depend on its order). It reads D / 8 bytes of each of four V rows,
+//     which gather / gather_hi pair into the B fragments of two n tiles, so
+//     a lane's output dims come out side by side; the warps' partials are
+//     stored in that order, granules swizzled (acc_granule), and read back
+//     in row order;
+//   - the ring (MqSmem<int8_t, D>): 4 stages of 64 rows, K rows D + 32 bytes
+//     apart, V rows D + 16, then the chunk's 64 K and 64 V scales (4-byte
+//     cp.async: consecutive rows' scales are KH floats apart), q's rows
+//     2 D + 64 bytes apart: 11.5 KB a stage at D = 64 and 19.5 KB at
+//     D = 128, three chunks in flight while one is read, about the bytes of
+//     K6's two;
+//   - a D = 128 share is at least kMinShareRows (256) rows, as K9's and
+//     K4's: at the served lengths equal shares measured slower
+//     (tools/dense_variants/k7_equal_shares.patch).
+// Builds (ptxas -v, sm_90a, no spills; 256 threads at the default launch
+// bound; dynamic + static shared memory):
+//   K6 D = 64, 32 rows: 99 registers, 58.5 + 2.3 KB, 2 blocks per SM;
+//   K6 D = 64, 64 rows: 122 registers, 63 + 3.5 KB, 2 blocks per SM;
+//   K6 D = 128, 32 rows: 128 registers, 76.5 + 2.3 KB, 2 blocks per SM;
+//   K6 D = 128, 64 rows: 160 registers, 85 + 3.5 KB, 1 block per SM;
+//   K7 D = 64, 32 rows: 128 registers, 52 + 2.3 KB, 2 blocks per SM;
+//   K7 D = 64, 64 rows: 132 registers, 58 + 3.5 KB, 1 block per SM;
+//   K7 D = 128, 32 rows: 168 registers, 88 + 2.3 KB, 1 block per SM;
+//   K7 D = 128, 64 rows: 181 registers, 98 + 3.5 KB, 1 block per SM.
+// Forcing two blocks per SM on K7's D = 128, 32-row build
+// (__launch_bounds__(256, 2), k7_two_blocks_per_sm.patch) measured slower.
+//
+// K8 and K9, decode_attention and decode_attention_int8 (`dense_attention`),
+// one query per slot, run the skeleton of paged_attention.cu with the page
+// table replaced by the row index (b * C + col) * KH + kh. A block holds the
+// G query heads of a (slot, kv head) as one tile of kR rows: kR = 8, or 4
+// for K9 where G <= 4 (Mistral-7B). A block walks only the rows the query
+// sees. The eight warps take turns over 32-row chunks, each with its own
+// fp32 online softmax, and merge (max, sum, output) at the end. Within a
+// chunk a lane owns one cache row: 16-byte K loads, the tile's scores
+// against q held in shared memory, warp reductions for max and sum, and for
+// P @ V each lane owns D/32 output dims of every query row and takes each
+// cache row's probability from its lane by shuffle. A query row with no
+// visible column gives 0. Arithmetic follows the TPU kernels, which differ:
+//   decode_attention (bf16): q * sm_scale rounded to bf16 before the dot; p
+//     rounded to bf16 before P @ V;
+//   decode_attention_int8: f32 throughout, q scaled first,
 //     score = (q . k_int8) * k_scale[row], p * v_scale[row] multiplies
 //     v_int8 without rounding, and the running sum takes p itself.
 //
-// Split slots (the single-query entries, K8 and K9, and K6): the launch
-// splits each (tile, kv head, slot)'s visible rows over up to eight blocks
-// (attention_common.cuh): block z walks only its share of the rows the mask
-// exposes, reduces it to a partial softmax, and the block that draws the
-// group's last ticket merges the partials in split order, in the same
-// launch. A decode step has only B * KH (slot, kv head) pairs, 32 for
-// TinyLlama's 8 slots, 64 for Mistral-7B's, against 132 SMs; split they fill
-// the card and the longest slot no longer runs through one block. K9 takes
-// K4's recipe: a D = 128 share is at least kMinShareRows rows, and a block
-// whose share is empty leaves at once and draws no ticket (K6 too). K8
-// keeps equal shares and every share in its merge. K7 launches one split,
-// the kernel it had: a template switch (kSplit) leaves its code, and K8's,
-// as they were. K9's builds: at 4 rows 128 registers at D = 128 and 120 at
-// D = 64, two blocks per SM (at 8 rows, 171 and 128 with 4 bytes spilled:
+// Split slots (all four kernels): the launch splits each (tile, kv head,
+// slot)'s visible rows over up to eight blocks (attention_common.cuh):
+// block z walks only its share of the rows the mask exposes, reduces it to a
+// partial softmax, and the block that draws the group's last ticket merges
+// the partials in split order, in the same launch. A decode step has only
+// B * KH (slot, kv head) pairs, 32 for TinyLlama's 8 slots, 64 for
+// Mistral-7B's, against 132 SMs; split they fill the card and the longest
+// slot no longer runs through one block. K9 and K7 take K4's recipe: a
+// D = 128 share is at least kMinShareRows rows. A block whose share is
+// empty leaves at once and draws no ticket (K6, K7, K9); K8 keeps equal
+// shares and every share in its merge. K9's builds: at 4 rows 128 registers
+// at D = 128 and 102 at D = 64, two blocks per SM (at 8 rows 175 and 128:
 // one and two), so Mistral-7B's long shares run on twice the warps of an SM.
-// Not yet: the split and tensor-core score tiles for K7 (int8 cache, T
-// queries).
+// K8's: 246 registers at D = 128, one block per SM; 128 at D = 64 under
+// __launch_bounds__(256, 2), two blocks per SM (28 bytes spilled).
 
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "int8_bf16.cuh"
 
 namespace {
 
+using int8_bf16::gather;
+using int8_bf16::gather_hi;
+using int8_bf16::i8x4_to_bf16;
+
 constexpr int kRows = kMaxG;  // query rows per block
 
-template <typename T, int D, bool kQRound, bool kSplit, int kR>
+template <typename T, int D, bool kQRound, int kR>
 __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict__ q,
                        const T* __restrict__ k_cache, const T* __restrict__ v_cache,
                        const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales,
                        const int* __restrict__ lengths,
-                       const int* __restrict__ strides,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ partial,
-                       int* __restrict__ tickets, int Tq, int H, int KH, int C,
-                       int window, float sm_scale, int n_splits) {
+                       int* __restrict__ tickets, int H, int KH, int C, int window,
+                       float sm_scale, int splits) {
   using E = Elem<T>;
   constexpr int KV = D / E::kPerVec;  // 16-byte vectors per K row
   constexpr int DL = D / 32;          // output dims per lane and query row
   constexpr int VW = (DL * sizeof(T) + 3) / 4;  // words per lane of a V row
   __shared__ __align__(16) float qs[kR * D];
-  __shared__ int qpos[kR];  // each query row's own cache row
   __shared__ float m_w[kWarps][kR];
   __shared__ float l_w[kWarps][kR];
   __shared__ float acc_w[kWarps][kR * D];
@@ -131,24 +169,17 @@ __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict_
   __shared__ float l_part[kR];
   __shared__ int last;
 
-  // K8's and K9's builds take a split; K7's compiles to the single-split
-  // kernel it had, registers and all
-  const int splits = kSplit ? n_splits : 1;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int split = blockIdx.x % splits;  // a group's splits are consecutive in x
-  const int r0 = blockIdx.x / splits * kR;  // first query row of this tile
+  const int split = blockIdx.x;  // the group's G heads are one tile of kR >= G rows
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / KH;
-  const int nr = min(kR, Tq * G - r0);  // query rows in this tile
-  const int base = lengths[b];
-  const int stride = strides != nullptr ? strides[b] : 0;
-  const int pos_lo = base + (r0 / G) * stride;
-  const int pos_hi = base + ((r0 + nr - 1) / G) * stride;
-  int c_lo = window > 0 ? max(pos_lo + 1 - window, 0) : 0;
-  int c_hi = min(pos_hi + 1, C);
+  const int nr = G;  // query rows of the block
+  const int pos = lengths[b];  // the query's own row: it sees [c_lo, c_hi)
+  int c_lo = window > 0 ? max(pos + 1 - window, 0) : 0;
+  int c_hi = min(pos + 1, C);
   // the blocks whose partials the merge reads: K8 all of its splits; K9 only
   // the live shares, each at least kMinShareRows rows, and an empty share
   // leaves at once without a ticket (an empty partial would add exact zeros)
@@ -161,16 +192,11 @@ __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict_
     }
   }
 
-  // query row r of the tile is head kh * G + g of query t
+  // query row r of the tile is head kh * G + r
   for (int i = tid; i < nr * D; i += kThreads) {
-    const int rr = r0 + i / D;
-    const int t = rr / G, g = rr % G;
-    const float x =
-        __bfloat162float(q[(((size_t)b * Tq + t) * H + kh * G + g) * D + i % D]) *
-        sm_scale;
+    const float x = __bfloat162float(q[((size_t)b * H + kh * G) * D + i]) * sm_scale;
     qs[i] = kQRound ? __bfloat162float(__float2bfloat16(x)) : x;
   }
-  if (tid < kR) qpos[tid] = base + (min(r0 + tid, r0 + nr - 1) / G) * stride;
   __syncthreads();
 
   float m[kR], l[kR], acc[kR][DL];
@@ -184,7 +210,7 @@ __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict_
 
   for (int c0 = c_lo + warp * 32; c0 < c_hi; c0 += kWarps * 32) {
     const int col = c0 + lane;
-    const bool in = col < c_hi;
+    const bool in = col < c_hi;  // every row of [c_lo, c_hi) is visible to the query
     size_t row = 0;  // element offset of this lane's cache row
     uint4 kr[KV];
     float k_mul = 1.f, v_mul = 0.f;
@@ -215,24 +241,21 @@ __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict_
       for (int d = 0; d < VW; ++d) vr[j][d] = c0 + j < c_hi ? w[d] : 0u;
     }
 
-    // scores of this lane's cache row for every query row of the tile, each
-    // under its own staircase mask, then the online softmax over the warp's
-    // 32 cache rows
+    // scores of this lane's cache row for every query row of the tile, then
+    // the online softmax over the warp's 32 cache rows
     float pv[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       pv[r] = 0.f;
       if (r >= nr) continue;
-      const int pos = qpos[r];
-      const bool live = in && col <= pos && (window <= 0 || col > pos - window);
       const float* qr = qs + r * D;
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < KV; ++i) dot += E::dot(qr + i * E::kPerVec, kr[i]);
-      const float s = live ? dot * k_mul : kNegInf;
+      const float s = in ? dot * k_mul : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(s));
       const float alpha = expf(m[r] - m_new);
-      const float p = live ? expf(s - m_new) : 0.f;
+      const float p = in ? expf(s - m_new) : 0.f;
       l[r] = l[r] * alpha + warp_sum(p);
       m[r] = m_new;
       if constexpr (E::kQuant)
@@ -270,41 +293,34 @@ __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict_
     for (int d = 0; d < DL; ++d) acc_w[warp][r * D + lane * DL + d] = acc[r][d];
   }
   __syncthreads();
+  __nv_bfloat16* out = o + ((size_t)b * H + kh * G) * D;  // the group's G rows
   for (int i = tid; i < nr * D; i += kThreads) {
     const int r = i / D;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_w[w][r]);
-    float lsum = 0.f, out = 0.f;
+    float lsum = 0.f, sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(m_w[w][r] - mx);
       lsum += l_w[w][r] * f;
-      out += acc_w[w][i] * f;
+      sum += acc_w[w][i] * f;
     }
     if (n_merge > 1) {  // this block's partial: only this thread reads or writes acc_w[0][i]
-      acc_w[0][i] = out;
+      acc_w[0][i] = sum;
       if (i % D == 0) {
         m_part[r] = mx;
         l_part[r] = lsum;
       }
       continue;
     }
-    const int rr = r0 + r;
-    const int t = rr / G, g = rr % G;
-    o[(((size_t)b * Tq + t) * H + kh * G + g) * D + i % D] =
-        __float2bfloat16(out / (lsum <= 0.f ? 1.f : lsum));
+    out[i] = __float2bfloat16(sum / (lsum <= 0.f ? 1.f : lsum));
   }
   if (n_merge > 1) {
-    const int group = (b * KH + kh) * (gridDim.x / splits) + blockIdx.x / splits;
+    const int group = b * KH + kh;
     merge_splits<D>(m_part, l_part, acc_w[0], nr, split, n_merge,
                     partial + (size_t)group * splits * partial_floats<D>(), tickets + group,
-                    &last, [&](int i, float v) {
-                      const int rr = r0 + i / D;
-                      const int t = rr / G, g = rr % G;
-                      o[(((size_t)b * Tq + t) * H + kh * G + g) * D + i % D] =
-                          __float2bfloat16(v);
-                    });
+                    &last, [&](int i, float v) { out[i] = __float2bfloat16(v); });
   }
 }
 
@@ -312,110 +328,141 @@ __device__ __forceinline__ void dense_attention(const __nv_bfloat16* __restrict_
   const __nv_bfloat16 *__restrict__ q, const T *__restrict__ k_cache,                   \
       const T *__restrict__ v_cache, const float *__restrict__ k_scales,                \
       const float *__restrict__ v_scales, const int *__restrict__ lengths,              \
-      const int *__restrict__ strides, __nv_bfloat16 *__restrict__ o,                   \
-      float *__restrict__ partial, int *__restrict__ tickets, int Tq, int H, int KH,    \
-      int C, int window, float sm_scale, int n_splits
+      __nv_bfloat16 *__restrict__ o, float *__restrict__ partial,                       \
+      int *__restrict__ tickets, int H, int KH, int C, int window, float sm_scale,      \
+      int splits
 #define DENSE_ATTENTION_ARGS                                                            \
-  q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o, partial, tickets, Tq,   \
-      H, KH, C, window, sm_scale, n_splits
+  q, k_cache, v_cache, k_scales, v_scales, lengths, o, partial, tickets, H, KH, C,      \
+      window, sm_scale, splits
 
-template <typename T, int D, bool kQRound, bool kSplit, int kR>
+template <typename T, int D, bool kQRound, int kR>
 __global__ void __launch_bounds__(kThreads) dense_attention_kernel(DENSE_ATTENTION_PARAMS) {
-  dense_attention<T, D, kQRound, kSplit, kR>(DENSE_ATTENTION_ARGS);
+  dense_attention<T, D, kQRound, kR>(DENSE_ATTENTION_ARGS);
 }
 
 // K8's build at D = 64 keeps two blocks per SM: a split grid has up to eight
 // blocks per (slot, kv head). The other builds keep the registers they had.
-template <typename T, int D, bool kQRound, bool kSplit, int kR>
+template <typename T, int D, bool kQRound, int kR>
 __global__ void __launch_bounds__(kThreads, 2) dense_attention_kernel_2(DENSE_ATTENTION_PARAMS) {
-  dense_attention<T, D, kQRound, kSplit, kR>(DENSE_ATTENTION_ARGS);
+  dense_attention<T, D, kQRound, kR>(DENSE_ATTENTION_ARGS);
 }
 
-template <typename T, int D, bool kQRound, bool kSplit, int kR>
-int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* k_scales, const void* v_scales, const void* lengths,
-           const void* strides, void* o, void* partial, void* tickets, int B, int Tq,
-           int H, int KH, int C, int window, float sm_scale, int splits, cudaStream_t st) {
-  const int G = H / KH;
-  const dim3 grid((Tq * G + kR - 1) / kR * splits, KH, B);
+template <typename T, int D, bool kQRound, int kR>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
+           const void* v_scales, const void* lengths, void* o, void* partial, void* tickets,
+           int B, int H, int KH, int C, int window, float sm_scale, int splits,
+           cudaStream_t st) {
+  const dim3 grid(splits, KH, B);
   // only the build a launch needs is compiled
   void (*kernel)(DENSE_ATTENTION_PARAMS);
   if constexpr (kQRound && D == 64)
-    kernel = dense_attention_kernel_2<T, D, kQRound, kSplit, kR>;
+    kernel = dense_attention_kernel_2<T, D, kQRound, kR>;
   else
-    kernel = dense_attention_kernel<T, D, kQRound, kSplit, kR>;
+    kernel = dense_attention_kernel<T, D, kQRound, kR>;
   kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
-      static_cast<const int*>(strides), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(partial), static_cast<int*>(tickets), Tq, H, KH, C, window,
-      sm_scale, splits);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(partial),
+      static_cast<int*>(tickets), H, KH, C, window, sm_scale, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define DENSE_LAUNCH_ARGS                                                               \
-  q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o, partial, tickets, B, Tq, H, \
-      KH, D, C, window, sm_scale, splits, st
+  q, k_cache, v_cache, k_scales, v_scales, lengths, o, partial, tickets, B, H, KH, D, C, \
+      window, sm_scale, splits, st
 
-template <typename T, bool kQRound, bool kSplit, int kR>
+template <typename T, bool kQRound, int kR>
 int launch_d(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
-             const void* v_scales, const void* lengths, const void* strides, void* o,
-             void* partial, void* tickets, int B, int Tq, int H, int KH, int D, int C,
-             int window, float sm_scale, int splits, cudaStream_t st) {
+             const void* v_scales, const void* lengths, void* o, void* partial,
+             void* tickets, int B, int H, int KH, int D, int C, int window, float sm_scale,
+             int splits, cudaStream_t st) {
   switch (D) {
     case 64:
-      return launch<T, 64, kQRound, kSplit, kR>(q, k_cache, v_cache, k_scales, v_scales,
-                                                lengths, strides, o, partial, tickets, B, Tq,
-                                                H, KH, C, window, sm_scale, splits, st);
+      return launch<T, 64, kQRound, kR>(q, k_cache, v_cache, k_scales, v_scales, lengths, o,
+                                        partial, tickets, B, H, KH, C, window, sm_scale,
+                                        splits, st);
     case 128:
-      return launch<T, 128, kQRound, kSplit, kR>(q, k_cache, v_cache, k_scales, v_scales,
-                                                 lengths, strides, o, partial, tickets, B, Tq,
-                                                 H, KH, C, window, sm_scale, splits, st);
+      return launch<T, 128, kQRound, kR>(q, k_cache, v_cache, k_scales, v_scales, lengths, o,
+                                         partial, tickets, B, H, KH, C, window, sm_scale,
+                                         splits, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, bool kQRound, bool kSplit>
-int dispatch(const void* q, const void* k_cache, const void* v_cache,
-             const void* k_scales, const void* v_scales, const void* lengths,
-             const void* strides, void* o, int B, int Tq, int H, int KH, int D,
-             int C, int window, float sm_scale, void* stream, int splits = 1,
-             void* partial = nullptr, void* tickets = nullptr) {
+// K8 (bf16, q rounded) and K9 (int8): one query per slot, split
+template <typename T, bool kQRound>
+int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
+             const void* v_scales, const void* lengths, void* o, void* partial,
+             void* tickets, int B, int H, int KH, int D, int C, int window, float sm_scale,
+             int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Tq < 1 || C < 1 || B > 65535 || KH > 65535 || H % KH != 0 ||
+  if (B < 1 || C < 1 || KH < 1 || B > 65535 || KH > 65535 || H % KH != 0 ||
       H / KH > kMaxG || splits < 1 || splits > kMaxSplits ||
-      (splits > 1 && (!kSplit || !partial || !tickets)))
+      (splits > 1 && (!partial || !tickets)))
     return static_cast<int>(cudaErrorInvalidValue);
   // K9 holds four query rows a block where the group has at most four
   // heads (Mistral-7B's G = 4): no code for rows it never has, and 128
-  // registers, two blocks per SM; K7 and K8 keep kRows
-  if constexpr (std::is_same<T, int8_t>::value && kSplit) {
-    if (H / KH <= 4) return launch_d<T, kQRound, kSplit, 4>(DENSE_LAUNCH_ARGS);
+  // registers, two blocks per SM; K8 keeps kRows
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (H / KH <= 4) return launch_d<T, kQRound, 4>(DENSE_LAUNCH_ARGS);
   }
-  return launch_d<T, kQRound, kSplit, kRows>(DENSE_LAUNCH_ARGS);
+  return launch_d<T, kQRound, kRows>(DENSE_LAUNCH_ARGS);
 }
 
-// -- K6: T queries per slot over a bf16 cache, on the tensor cores ------------
+// -- K6 and K7: T queries per slot on the tensor cores -------------------------
 
 constexpr int kMqChunk = 64;    // cache rows of a stage
 constexpr int kMqMaxRows = 64;  // query rows of a block: four 16-row tiles
+constexpr int kMqVTerms = 3;    // K7: bf16 terms of each P V weight
 
-// stages of the K/V ring: 3 x 18 KB at D = 64, 2 x 34 KB at D = 128
-template <int D>
-constexpr int kMqStages = D == 64 ? 3 : 2;
+// A block's shared memory for a cache of T elements at head dim D: q's rows
+// (bf16), then a ring of kStages stages, each a chunk's K rows, its V rows
+// and, for int8, its K and V scales. Offsets and pitches in bytes.
+template <typename T, int D>
+struct MqSmem;
 
-// bf16 of a row in shared memory: D and 16 bytes of padding, so the eight
-// rows an ldmatrix reads start on eight different 4-bank groups
+// K6: rows of D + 8 bf16, so the eight rows an ldmatrix reads start on eight
+// different 4-bank groups; 3 x 18 KB stages at D = 64, 2 x 34 KB at D = 128
 template <int D>
-constexpr int kMqPitch = D + 8;
+struct MqSmem<__nv_bfloat16, D> {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kPitchQ = (D + 8) * 2;
+  static constexpr int kPitchK = kPitchQ;
+  static constexpr int kPitchV = kPitchQ;
+  static constexpr int kOffV = kMqChunk * kPitchK;
+  static constexpr int kStage = 2 * kOffV;
+  static constexpr int kOffScales = kStage;  // none
+};
+
+// K7: each lane reads 8 bytes of a K row (32 dims, two k16 steps), 16 bytes
+// of two q rows and D / 8 bytes of four V rows at a time; the pitches put
+// the rows a quarter or half warp reads on distinct banks (K: D + 32, V:
+// D + 16, q: 2 D + 64 bytes). The scales follow the V rows, 64 floats each.
+// Four stages, 11.5 KB at D = 64 and 19.5 KB at D = 128: three chunks in
+// flight while one is read, about the bytes of K6's two.
+template <int D>
+struct MqSmem<int8_t, D> {
+  static constexpr int kStages = 4;
+  static constexpr int kPitchQ = 2 * D + 64;
+  static constexpr int kPitchK = D + 32;
+  static constexpr int kPitchV = D + 16;
+  static constexpr int kOffV = kMqChunk * kPitchK;
+  static constexpr int kOffScales = kOffV + kMqChunk * kPitchV;
+  static constexpr int kStage = kOffScales + 2 * kMqChunk * 4;
+};
 
 // dynamic shared memory of a block with MT tiles: q's rows, then the ring
-template <int D, int MT>
+template <typename T, int D, int MT>
 constexpr int mq_smem_bytes() {
-  return (16 * MT + kMqStages<D> * 2 * kMqChunk) * kMqPitch<D> * 2;
+  return 16 * MT * MqSmem<T, D>::kPitchQ + MqSmem<T, D>::kStages * MqSmem<T, D>::kStage;
 }
+
+// the least rows of a share (clip_to_split's min_rows): K7's D = 128 builds
+// take kMinShareRows, as K9 and K4 do; K6 has none
+template <typename T, int D>
+constexpr int kMqMinShareRows = std::is_same<T, int8_t>::value ? kMinShareRows<D> : 0;
 
 // query rows of a block for R = T * G rows a (slot, kv head): two tiles when
 // they hold R, else four (MQ_BLOCK_ROWS in ops/split.py sizes the workspace
@@ -431,6 +478,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// the same for 4 bytes (a scale)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
                : "memory");
 }
 
@@ -461,6 +515,20 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "memory");
 }
 
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // d += a b: a 16 x 16 (row-major fragment), b 16 x 8 (column-major), bf16,
 // fp32 sums
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -478,27 +546,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The float4 granule of row r, granule c4 of a block's warp partials in
+// shared memory (rows of D floats). K7's fragment stores put a lane's D / 4
+// output dims side by side (the V fragments' column order), so the lanes of a
+// half warp would store to one bank pair (16 ways at D = 128); granule c4
+// sits at c4 ^ ((c4 / 8 + 2 r) % 8) instead, within its aligned group of
+// eight, which leaves two lanes a bank pair. K6 keeps rows as they are.
+template <bool kSwizzle, int D>
+__device__ __forceinline__ int acc_granule(int r, int c4) {
+  return r * (D / 4) + (kSwizzle ? c4 ^ ((c4 / 8 + 2 * r) % 8) : c4);
+}
+
 // One block: MT 16-row tiles of one (slot, kv head)'s query rows over one
-// split's share of the rows they see.
-template <int D, int MT>
+// split's share of the rows they see. T is the cache element: bf16 (K6) or
+// int8 with [B, C, KH] f32 scales (K7).
+template <typename T, int D, int MT>
 __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_cache,
-    const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ lengths,
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
+    const T* __restrict__ v_cache, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ lengths,
     const int* __restrict__ strides, __nv_bfloat16* __restrict__ o,
     float* __restrict__ partial, int* __restrict__ tickets, int Tq, int H, int KH, int C,
     int window, float sm_scale, int splits) {
+  using Sm = MqSmem<T, D>;
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr int BR = 16 * MT;        // query rows of the block
   constexpr int NG = kWarps / MT;    // warps on one tile, each on its own slice of a chunk
   constexpr int KW = kMqChunk / NG;  // cache rows of a warp's slice: 32 or 16
   constexpr int NT = KW / 8;         // 16 x 8 score tiles of a slice
-  constexpr int PITCH = kMqPitch<D>;
-  constexpr int S = kMqStages<D>;
-  constexpr int STAGE = 2 * kMqChunk * PITCH * 2;  // bytes of a stage: K rows, then V rows
-  constexpr int V8 = D / 8;                        // 16-byte pieces of a row
+  constexpr int S = Sm::kStages;
+  constexpr int STAGE = Sm::kStage;
+  constexpr int V8 = D / 8;                       // 16-byte pieces of a q row
+  constexpr int RP = D * (int)sizeof(T) / 16;     // 16-byte pieces of a cache row
+  constexpr int EP = 16 / (int)sizeof(T);         // cache elements of a piece
   static_assert(BR <= kMqMaxRows && NT % 2 == 0, "tiles of the block");
   static_assert(NG * BR * D * 4 <= S * STAGE, "the warps' partials fit in the ring");
-  extern __shared__ __align__(16) unsigned char smem[];  // q's rows [BR][PITCH], then the ring
-  unsigned char* ring = smem + BR * PITCH * 2;
+  extern __shared__ __align__(16) unsigned char smem[];  // q's rows [BR][kPitchQ], then the ring
+  unsigned char* ring = smem + BR * Sm::kPitchQ;
   float* acc_w = reinterpret_cast<float*>(ring);  // after the loop: [NG][BR * D]
   __shared__ float m_w[NG][BR];
   __shared__ float l_w[NG][BR];
@@ -531,7 +615,7 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
     if (split > 0) return;
     c_hi = c_lo;
   } else if (splits > 1) {
-    n_live = clip_to_split(c_lo, c_hi, split, splits);
+    n_live = clip_to_split(c_lo, c_hi, split, splits, kMqMinShareRows<T, D>);
     // an empty share leaves at once without a ticket: the merge reads the
     // live shares only (an empty partial would add exact zeros)
     if (split >= n_live) return;
@@ -540,29 +624,37 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
   const uint32_t q_smem = smem_u32(smem);
   const uint32_t ring_smem = smem_u32(ring);
   const size_t row_step = (size_t)KH * D;  // elements from a slot's cache row to the next
-  const __nv_bfloat16* k_rows = k_cache + ((size_t)b * C * KH + kh) * D;
-  const __nv_bfloat16* v_rows = v_cache + ((size_t)b * C * KH + kh) * D;
+  const T* k_rows = k_cache + ((size_t)b * C * KH + kh) * D;
+  const T* v_rows = v_cache + ((size_t)b * C * KH + kh) * D;
 
   // the block's query rows (row r is head kh * G + r % G of query r / G),
   // unscaled; rows past nr are zeros
   for (int i = tid; i < BR * V8; i += kThreads) {
     const int r = i / V8, c8 = i % V8;
     const int rr = r0 + min(r, nr - 1);
-    cp_async16(q_smem + (r * PITCH + c8 * 8) * 2,
+    cp_async16(q_smem + r * Sm::kPitchQ + c8 * 16,
                q + (((size_t)b * Tq + rr / G) * H + kh * G + rr % G) * D + c8 * 8, r < nr);
   }
   // chunk c of the share into stage s; rows past the share are zeros
   auto load_chunk = [&](int c, int s) {
     const int c0 = c_lo + c * kMqChunk;
     const uint32_t k_dst = ring_smem + s * STAGE;
-    const uint32_t v_dst = k_dst + STAGE / 2;
-    for (int i = tid; i < kMqChunk * V8; i += kThreads) {
-      const int r = i / V8, c8 = i % V8;
+    const uint32_t v_dst = k_dst + Sm::kOffV;
+    for (int i = tid; i < kMqChunk * RP; i += kThreads) {
+      const int r = i / RP, cp = i % RP;
       const bool in = c0 + r < c_hi;
-      const size_t off = in ? (c0 + r) * row_step + c8 * 8 : 0;
-      const uint32_t at = (r * PITCH + c8 * 8) * 2;
-      cp_async16(k_dst + at, k_rows + off, in);
-      cp_async16(v_dst + at, v_rows + off, in);
+      const size_t off = in ? (c0 + r) * row_step + cp * EP : 0;
+      cp_async16(k_dst + r * Sm::kPitchK + cp * 16, k_rows + off, in);
+      cp_async16(v_dst + r * Sm::kPitchV + cp * 16, v_rows + off, in);
+    }
+    if constexpr (kInt8) {  // the chunk's K scales, then its V scales
+      for (int i = tid; i < 2 * kMqChunk; i += kThreads) {
+        const int r = i % kMqChunk;
+        const bool in = c0 + r < c_hi;
+        const float* src = i < kMqChunk ? k_scales : v_scales;
+        cp_async4(k_dst + Sm::kOffScales + i * 4,
+                  src + (in ? ((size_t)b * C + c0 + r) * KH + kh : 0), in);
+      }
     }
   };
   const int n_chunks = (c_hi - c_lo + kMqChunk - 1) / kMqChunk;
@@ -603,8 +695,8 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
     cp_async_commit();
     const int col0 = c_lo + c * kMqChunk + kg * KW;  // the warp's first column
     if (!tile_live || col0 >= tile_hi || col0 + KW <= tile_lo) continue;
-    const uint32_t k_src = ring_smem + (c % S) * STAGE + kg * KW * PITCH * 2;
-    const uint32_t v_src = k_src + STAGE / 2;
+    const uint32_t k_src = ring_smem + (c % S) * STAGE + kg * KW * Sm::kPitchK;
+    const uint32_t v_src = ring_smem + (c % S) * STAGE + Sm::kOffV + kg * KW * Sm::kPitchV;
 
     // S = Q K^T over the slice
     float s[NT][4];
@@ -612,35 +704,68 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (kInt8) {
+      // K's bytes become bf16 B fragments in registers, exactly. Within each
+      // 32 dims a lane holds dims 8 (lane % 4) .. + 7 of its K row: the k
+      // slots of two k16 steps, permuted alike in q's A fragments (a sum
+      // over k does not depend on its order)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, q_smem + ((tile0 + lane % 16) * PITCH + kk * 16 + lane / 16 * 8) * 2);
+      for (int kk = 0; kk < D / 32; ++kk) {
+        const uint32_t at = (32 * kk + 8 * (lane % 4)) * 2;
+        const uint4 x = lds128(q_smem + (tile0 + lane / 4) * Sm::kPitchQ + at);
+        const uint4 y = lds128(q_smem + (tile0 + lane / 4 + 8) * Sm::kPitchQ + at);
+        const uint32_t a0[4] = {x.x, y.x, x.y, y.y};
+        const uint32_t a1[4] = {x.z, y.z, x.w, y.w};
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4];  // K rows 8j .. 8j + 15 of the slice: two B fragments
-        ldsm_x4(kb, k_src + ((j * 8 + lane % 8 + lane / 16 * 8) * PITCH + kk * 16 +
-                             lane / 8 % 2 * 8) * 2);
-        mma_16816(s[j], a, kb[0], kb[1]);
-        mma_16816(s[j + 1], a, kb[2], kb[3]);
+        for (int j = 0; j < NT; ++j) {
+          const uint2 kr = lds64(k_src + (j * 8 + lane / 4) * Sm::kPitchK + 32 * kk +
+                                 8 * (lane % 4));
+          uint32_t kb[4];
+          i8x4_to_bf16(kr.x, kb[0], kb[1]);
+          i8x4_to_bf16(kr.y, kb[2], kb[3]);
+          mma_16816(s[j], a0, kb[0], kb[1]);
+          mma_16816(s[j], a1, kb[2], kb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, q_smem + (tile0 + lane % 16) * Sm::kPitchQ + (kk * 16 + lane / 16 * 8) * 2);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kb[4];  // K rows 8j .. 8j + 15 of the slice: two B fragments
+          ldsm_x4(kb, k_src + (j * 8 + lane % 8 + lane / 16 * 8) * Sm::kPitchK +
+                          (kk * 16 + lane / 8 % 2 * 8) * 2);
+          mma_16816(s[j], a, kb[0], kb[1]);
+          mma_16816(s[j + 1], a, kb[2], kb[3]);
+        }
       }
     }
 
     // masks, then the online softmax of each row over the slice: the max
-    // over the four lanes that hold a row, p rounded to bf16 for P V
+    // over the four lanes that hold a row
+    const float* scales =  // K7: the slice's K scales, then 64 floats on its V scales
+        reinterpret_cast<const float*>(ring + (c % S) * STAGE + Sm::kOffScales) + kg * KW;
     float mx[2] = {m[0], m[1]};
     uint32_t live = 0;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j) {
+      float2 ks = make_float2(1.f, 1.f);
+      if constexpr (kInt8) ks = *reinterpret_cast<const float2*>(scales + j * 8 + lane % 4 * 2);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2;
         const int col = col0 + j * 8 + lane % 4 * 2 + e % 2;
         const bool in = col >= lo[h] && col < hi[h];
         live |= (in ? 1u : 0u) << (j * 4 + e);
-        s[j][e] = in ? s[j][e] * sm_scale : kNegInf;
+        if constexpr (kInt8)
+          s[j][e] = in ? s[j][e] * sm_scale * (e % 2 ? ks.y : ks.x) : kNegInf;
+        else
+          s[j][e] = in ? s[j][e] * sm_scale : kNegInf;
         mx[h] = fmaxf(mx[h], s[j][e]);
       }
+    }
     float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -650,7 +775,10 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
       m[h] = mx[h];
       l[h] *= alpha[h];
     }
-    uint32_t pa[NT / 2][4];  // P as the A fragments of the slice's 16-row steps
+    // P as the A fragments of the slice's 16-row steps: K6 p rounded to
+    // bf16; K7 w = p v_scale as kMqVTerms bf16 terms that sum to it
+    constexpr int NP = kInt8 ? kMqVTerms : 1;
+    uint32_t pa[NP][NT / 2][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       float p[4];
@@ -659,8 +787,27 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
         p[e] = live >> (j * 4 + e) & 1u ? expf(s[j][e] - m[e / 2]) : 0.f;
         l[e / 2] += p[e];
       }
-      pa[j / 2][j % 2 * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][j % 2 * 2 + 1] = pack_bf16(p[2], p[3]);
+      if constexpr (kInt8) {
+        const float2 vs =
+            *reinterpret_cast<const float2*>(scales + kMqChunk + j * 8 + lane % 4 * 2);
+        float w[4] = {p[0] * vs.x, p[1] * vs.y, p[2] * vs.x, p[3] * vs.y};
+#pragma unroll
+        for (int t = 0; t < NP; ++t) {  // each term the bf16 of what the earlier ones left
+          const uint32_t w01 = pack_bf16(w[0], w[1]), w23 = pack_bf16(w[2], w[3]);
+          pa[t][j / 2][j % 2 * 2] = w01;
+          pa[t][j / 2][j % 2 * 2 + 1] = w23;
+          if (t + 1 < NP) {
+            const float2 f01 = bf16x2_to_float2(w01), f23 = bf16x2_to_float2(w23);
+            w[0] -= f01.x;
+            w[1] -= f01.y;
+            w[2] -= f23.x;
+            w[3] -= f23.y;
+          }
+        }
+      } else {
+        pa[0][j / 2][j % 2 * 2] = pack_bf16(p[0], p[1]);
+        pa[0][j / 2][j % 2 * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
     }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
@@ -670,16 +817,63 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
       acc[n][3] *= alpha[1];
     }
 
-    // O += P V over the slice, V read transposed
+    // O += P V over the slice
+    if constexpr (kInt8) {
+      // V's bytes become the B fragments in registers: a lane reads D / 8
+      // bytes of four V rows, 16 ks + 2 (lane % 4), + 1, + 8, + 9 of the
+      // slice, at dims (lane / 4) D / 8 .. + D / 8 - 1. gather / gather_hi
+      // pair two rows' bytes, so 16-dim column step n2 takes dims
+      // (lane / 4) D / 8 + 2 n2 and + 1 as its two n tiles: the output
+      // columns are permuted, and put back when the partials are stored
+      constexpr int VB = D / 8;  // bytes a lane reads of a V row
 #pragma unroll
-    for (int ks = 0; ks < NT / 2; ++ks)
+      for (int ks = 0; ks < NT / 2; ++ks) {
+        const uint32_t at = v_src + (16 * ks + 2 * (lane % 4)) * Sm::kPitchV + lane / 4 * VB;
+        uint32_t rv[4][VB / 4];
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        uint32_t vb[4];  // V rows 16 ks .. + 15, columns 16 n .. + 15: two B fragments
-        ldsm_x4_t(vb, v_src + ((ks * 16 + lane % 16) * PITCH + n * 16 + lane / 16 * 8) * 2);
-        mma_16816(acc[2 * n], pa[ks], vb[0], vb[1]);
-        mma_16816(acc[2 * n + 1], pa[ks], vb[2], vb[3]);
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t row = at + (i % 2 + i / 2 * 8) * Sm::kPitchV;  // rows +0, +1, +8, +9
+          if constexpr (VB == 16) {
+            const uint4 x = lds128(row);
+            rv[i][0] = x.x;
+            rv[i][1] = x.y;
+            rv[i][2] = x.z;
+            rv[i][3] = x.w;
+          } else {
+            const uint2 x = lds64(row);
+            rv[i][0] = x.x;
+            rv[i][1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int wd = 0; wd < VB / 4; ++wd)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {  // column step n2 = 2 wd + hf
+            const int n2 = 2 * wd + hf;
+            const uint32_t u01 = hf ? gather_hi(rv[0][wd], rv[1][wd]) : gather(rv[0][wd], rv[1][wd]);
+            const uint32_t u89 = hf ? gather_hi(rv[2][wd], rv[3][wd]) : gather(rv[2][wd], rv[3][wd]);
+            uint32_t b0[2], b1[2];  // [the step's n tile]
+            i8x4_to_bf16(u01, b0[0], b0[1]);
+            i8x4_to_bf16(u89, b1[0], b1[1]);
+#pragma unroll
+            for (int t = 0; t < NP; ++t) {
+              mma_16816(acc[2 * n2], pa[t][ks], b0[0], b1[0]);
+              mma_16816(acc[2 * n2 + 1], pa[t][ks], b0[1], b1[1]);
+            }
+          }
       }
+    } else {
+      // V read transposed
+#pragma unroll
+      for (int ks = 0; ks < NT / 2; ++ks)
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t vb[4];  // V rows 16 ks .. + 15, columns 16 n .. + 15: two B fragments
+          ldsm_x4_t(vb, v_src + (ks * 16 + lane % 16) * Sm::kPitchV + (n * 16 + lane / 16 * 8) * 2);
+          mma_16816(acc[2 * n], pa[0][ks], vb[0], vb[1]);
+          mma_16816(acc[2 * n + 1], pa[0][ks], vb[2], vb[3]);
+        }
+    }
   }
 
   // merge the warps' partial softmaxes in the ring, now free
@@ -699,11 +893,27 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
       l_w[kg][r + 8] = l[1];
     }
     float* mine = acc_w + kg * BR * D;
+    if constexpr (kInt8) {
+      // tile n = 2 n2 + e holds dims (2 (lane % 4) + {0, 1}) D / 8 + 2 n2 + e
+      auto at = [&](int row, int d) { return mine + acc_granule<true, D>(row, d / 4) * 4 + d % 4; };
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int d = n * 8 + lane % 4 * 2;
-      *reinterpret_cast<float2*>(mine + r * D + d) = make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(mine + (r + 8) * D + d) = make_float2(acc[n][2], acc[n][3]);
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        const int d = 2 * (lane % 4) * (D / 8) + 2 * n2;
+        *reinterpret_cast<float2*>(at(r, d)) = make_float2(acc[2 * n2][0], acc[2 * n2 + 1][0]);
+        *reinterpret_cast<float2*>(at(r, d + D / 8)) =
+            make_float2(acc[2 * n2][1], acc[2 * n2 + 1][1]);
+        *reinterpret_cast<float2*>(at(r + 8, d)) =
+            make_float2(acc[2 * n2][2], acc[2 * n2 + 1][2]);
+        *reinterpret_cast<float2*>(at(r + 8, d + D / 8)) =
+            make_float2(acc[2 * n2][3], acc[2 * n2 + 1][3]);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int d = n * 8 + lane % 4 * 2;
+        *reinterpret_cast<float2*>(mine + r * D + d) = make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(mine + (r + 8) * D + d) = make_float2(acc[n][2], acc[n][3]);
+      }
     }
   }
   __syncthreads();
@@ -735,11 +945,12 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
   float* part = n_live > 1 ? partial + (size_t)group * splits * partial_floats<D, BR>() : nullptr;
   for (int j = tid; j < nr * D / 4; j += kThreads) {
     const int r = j / (D / 4);
+    const int at = acc_granule<kInt8, D>(r, j % (D / 4));
     float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < NG; ++w) {
       const float f = m_w[w][r];
-      const float4 a = reinterpret_cast<const float4*>(acc_w + w * BR * D)[j];
+      const float4 a = reinterpret_cast<const float4*>(acc_w + w * BR * D)[at];
       out.x += a.x * f;
       out.y += a.y * f;
       out.z += a.z * f;
@@ -757,47 +968,49 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
                             &w_split[0][0], store4);
 }
 
-template <int D, int MT>
-int launch_mq(const void* q, const void* k_cache, const void* v_cache, const void* lengths,
-              const void* strides, void* o, void* partial, void* tickets, int B, int Tq,
-              int H, int KH, int C, int window, float sm_scale, int splits,
-              cudaStream_t st) {
-  constexpr int smem = mq_smem_bytes<D, MT>();
+template <typename T, int D, int MT>
+int launch_mq(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
+              const void* v_scales, const void* lengths, const void* strides, void* o,
+              void* partial, void* tickets, int B, int Tq, int H, int KH, int C, int window,
+              float sm_scale, int splits, cudaStream_t st) {
+  constexpr int smem = mq_smem_bytes<T, D, MT>();
   static bool ready[64] = {};  // the shared-memory opt-in, once per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(mq_attention_kernel<D, MT>,
+    err = cudaFuncSetAttribute(mq_attention_kernel<T, D, MT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
   const int rows = Tq * (H / KH);
   const dim3 grid((rows + 16 * MT - 1) / (16 * MT) * splits, KH, B);
-  mq_attention_kernel<D, MT><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), static_cast<const int*>(lengths),
+  mq_attention_kernel<T, D, MT><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_cache),
+      static_cast<const T*>(v_cache), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
       static_cast<const int*>(strides), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(partial), static_cast<int*>(tickets), Tq, H, KH, C, window,
       sm_scale, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_mq(const void* q, const void* k_cache, const void* v_cache, const void* lengths,
-                const void* strides, void* o, void* partial, void* tickets, int B, int Tq,
-                int H, int KH, int D, int C, int window, float sm_scale, int splits,
-                void* stream) {
+template <typename T>
+int dispatch_mq(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
+                const void* v_scales, const void* lengths, const void* strides, void* o,
+                void* partial, void* tickets, int B, int Tq, int H, int KH, int D, int C,
+                int window, float sm_scale, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Tq < 1 || C < 1 || KH < 1 || B > 65535 || KH > 65535 || H % KH != 0 ||
       H / KH > kMaxG || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (!partial || !tickets)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool two = mq_tiles(Tq * (H / KH)) == 2;
-#define AIOS_MQ_LAUNCH(D_, MT_)                                                        \
-  launch_mq<D_, MT_>(q, k_cache, v_cache, lengths, strides, o, partial, tickets, B, Tq, H, \
-                     KH, C, window, sm_scale, splits, st)
+#define AIOS_MQ_LAUNCH(D_, MT_)                                                          \
+  launch_mq<T, D_, MT_>(q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o,     \
+                        partial, tickets, B, Tq, H, KH, C, window, sm_scale, splits, st)
   switch (D) {
     case 64:
       return two ? AIOS_MQ_LAUNCH(64, 2) : AIOS_MQ_LAUNCH(64, 4);
@@ -825,10 +1038,9 @@ extern "C" int aios_decode_attention(const void* q, const void* k_cache,
                                      void* o, void* partial, void* tickets, int B,
                                      int H, int KH, int D, int C, int window,
                                      int splits, float sm_scale, void* stream) {
-  return dispatch<__nv_bfloat16, true, true>(q, k_cache, v_cache, nullptr, nullptr,
-                                             lengths, nullptr, o, B, 1, H, KH, D, C,
-                                             window, sm_scale, stream, splits, partial,
-                                             tickets);
+  return dispatch<__nv_bfloat16, true>(q, k_cache, v_cache, nullptr, nullptr, lengths, o,
+                                       partial, tickets, B, H, KH, D, C, window, sm_scale,
+                                       splits, stream);
 }
 
 // The same over an int8 cache: k_scales / v_scales are [B, C, KH] f32.
@@ -838,9 +1050,9 @@ extern "C" int aios_decode_attention_int8(const void* q, const void* k_cache,
                                           void* o, void* partial, void* tickets, int B,
                                           int H, int KH, int D, int C, int window,
                                           int splits, float sm_scale, void* stream) {
-  return dispatch<int8_t, false, true>(q, k_cache, v_cache, k_scales, v_scales, lengths,
-                                       nullptr, o, B, 1, H, KH, D, C, window, sm_scale,
-                                       stream, splits, partial, tickets);
+  return dispatch<int8_t, false>(q, k_cache, v_cache, k_scales, v_scales, lengths, o,
+                                 partial, tickets, B, H, KH, D, C, window, sm_scale, splits,
+                                 stream);
 }
 
 // T queries per slot over a bf16 cache, q and o [B, T, H, D]: B * KH *
@@ -849,18 +1061,20 @@ extern "C" int aios_multiquery_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* lengths,
     const void* strides, void* o, void* partial, void* tickets, int B, int T, int H,
     int KH, int D, int C, int window, int splits, float sm_scale, void* stream) {
-  return dispatch_mq(q, k_cache, v_cache, lengths, strides, o, partial, tickets, B, T, H,
-                     KH, D, C, window, sm_scale, splits, stream);
+  return dispatch_mq<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, lengths, strides,
+                                    o, partial, tickets, B, T, H, KH, D, C, window, sm_scale,
+                                    splits, stream);
 }
 
-// The same over an int8 cache with [B, C, KH] f32 scales, one split.
+// The same over an int8 cache with [B, C, KH] f32 scales, the same groups.
 extern "C" int aios_multiquery_decode_attention_int8(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
-    const void* v_scales, const void* lengths, const void* strides, void* o, int B,
-    int T, int H, int KH, int D, int C, int window, float sm_scale, void* stream) {
-  return dispatch<int8_t, false, false>(q, k_cache, v_cache, k_scales, v_scales, lengths,
-                                        strides, o, B, T, H, KH, D, C, window, sm_scale,
-                                        stream);
+    const void* v_scales, const void* lengths, const void* strides, void* o, void* partial,
+    void* tickets, int B, int T, int H, int KH, int D, int C, int window, int splits,
+    float sm_scale, void* stream) {
+  return dispatch_mq<int8_t>(q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o,
+                             partial, tickets, B, T, H, KH, D, C, window, sm_scale, splits,
+                             stream);
 }
 
 extern "C" const char* aios_error_string(int err) {

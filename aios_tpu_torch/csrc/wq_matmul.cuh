@@ -51,10 +51,13 @@
 #pragma once
 
 #include "hopper.cuh"
+#include "int8_bf16.cuh"
 
 namespace wq {
 
 using namespace hopper;
+using int8_bf16::gather;
+using int8_bf16::i8x4_to_bf16;
 constexpr int kWgCols = 64;  // weight columns per consumer warpgroup (wgmma's M)
 
 struct Args {
@@ -83,19 +86,6 @@ __device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
 
 // -- weight formats -----------------------------------------------------------
 
-// 4 int8 as two bf16x2 (bytes 0,1 and bytes 2,3), exactly: |q| <= 128 fits
-// bf16's 8 significant bits. 2^23 + (q + 128) is built as float bits and the
-// offset subtracted; the bf16 is then the float's upper half.
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t u, uint32_t& lo, uint32_t& hi) {
-  u ^= 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
 // nibbles (one per byte of v) b and b+1 as bf16x2 of bf16_rn(f32(q - 8) * scale)
 template <int B>
 __device__ __forceinline__ uint32_t nib_pair(uint32_t v, float scale) {
@@ -108,12 +98,9 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t v, float scale) {
 // A fragment rows g and g+8 of a warp are two ADJACENT weight columns (col,
 // col + 1), so a thread reads 2 bytes per weight row; its k pairs are rows
 // 2t, 2t+1 and 2t+8, 2t+9 of the k16 step, at byte offsets `even` and `odd`
-// within an even and an odd row of the swizzled raw tile (see raw_offset). The byte gather puts
-// (row 2t, col), (row 2t+1, col), (row 2t, col+1), (row 2t+1, col+1) in
-// bytes 0..3.
-__device__ __forceinline__ uint32_t gather(uint32_t row_a, uint32_t row_b) {
-  return __byte_perm(row_a, row_b, 0x5140);
-}
+// within an even and an odd row of the swizzled raw tile (see raw_offset).
+// gather (int8_bf16.cuh) puts (row 2t, col), (row 2t+1, col), (row 2t, col+1),
+// (row 2t+1, col+1) in bytes 0..3, and i8x4_to_bf16 makes them bf16x2 words.
 
 // K1: int8 [K, N], one f32 scale per column applied to the fp32 sum in the
 // epilogue (the TPU kernel's (acc * s) order).

@@ -124,9 +124,9 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     then B, (T,) H, KH, D, C, the window (0 for none) and, with ``split``,
     the ``split_plan`` splits, then 1/sqrt(D) and the stream. A split
     single-query launch has a group per (slot, kv head), partials of
-    MAX_GROUP rows; a split multi-query one (K6) a group per (tile of up to
-    MQ_BLOCK_ROWS query rows, kv head, slot), partials of MQ_BLOCK_ROWS
-    rows."""
+    MAX_GROUP rows; a split multi-query one (K6, K7) a group per (tile of
+    up to MQ_BLOCK_ROWS query rows, kv head, slot), partials of
+    MQ_BLOCK_ROWS rows."""
     check_launch(q, k_cache, v_cache, scales, index, window,
                  torch.int8 if scales else torch.bfloat16)
     out = torch.empty_like(q)

@@ -1,17 +1,18 @@
 """The split of a slot's visible rows over several blocks, shared by the
-decode attention kernels that split (K8 ``decode_attention``, K9
-``decode_attention_int8``, K6 ``multiquery_decode_attention``, K3
-``paged_decode_attention``, K4 ``paged_decode_attention_int8``): the
-Python side of ``csrc/attention_common.cuh``'s ``clip_to_split``,
-``merge_splits``, ``partial_floats`` and ``kMinShareRows``.
+decode attention kernels (K8 ``decode_attention``, K9
+``decode_attention_int8``, K6 ``multiquery_decode_attention``, K7
+``multiquery_decode_attention_int8``, K3 ``paged_decode_attention``, K4
+``paged_decode_attention_int8``): the Python side of
+``csrc/attention_common.cuh``'s ``clip_to_split``, ``merge_splits``,
+``partial_floats`` and ``kMinShareRows``.
 
 The host picks the number of splits from shapes alone; each block cuts its
 share of the rows on the device; the block that draws a group's last
 ticket merges the partials in split order, in the same launch. A group is
-a (slot, kv head), or for K6 a (tile of up to MQ_BLOCK_ROWS query rows,
-kv head, slot). The partials and tickets live in one workspace per device
-and stream, which the kernels share: they run in order on that stream, and
-every launch leaves the tickets at 0.
+a (slot, kv head), or for K6 and K7 a (tile of up to MQ_BLOCK_ROWS query
+rows, kv head, slot). The partials and tickets live in one workspace per
+device and stream, which the kernels share: they run in order on that
+stream, and every launch leaves the tickets at 0.
 """
 
 from __future__ import annotations
@@ -31,12 +32,12 @@ MAX_SPLITS = 8
 SPLIT_ALIGN = 32
 SPLIT_ROWS = 256
 BLOCKS_PER_SM = 2
-# kMinShareRows of the D = 128 builds of the int8 kernels that split (K4,
-# K9), the least rows of a share (one pass of a block's eight warps; the
-# D = 64 builds have none): split_share's min_rows
+# kMinShareRows of the D = 128 builds of the int8 kernels (K4, K9, K7), the
+# least rows of a share (one pass of a block's eight warps; the D = 64
+# builds have none): split_share's min_rows
 MIN_SHARE_ROWS_D128 = 256
-# kMqMaxRows: query rows a K6 block holds, four 16-row tiles; its partials
-# are sized for them
+# kMqMaxRows: query rows a K6 or K7 block holds, four 16-row tiles; their
+# partials are sized for them
 MQ_BLOCK_ROWS = 64
 
 
@@ -62,8 +63,8 @@ def split_share(c_lo: int, c_hi: int, z: int, splits: int,
 
 def partial_floats(D: int, rows: int = MAX_GROUP) -> int:
     """Floats of one split's partial (``partial_floats<D, R>``): ``rows``
-    query rows (MAX_GROUP for the decode kernels, MQ_BLOCK_ROWS for K6) of
-    D sums, then a max and a sum per row."""
+    query rows (MAX_GROUP for the decode kernels, MQ_BLOCK_ROWS for K6 and
+    K7) of D sums, then a max and a sum per row."""
     return rows * (D + 2)
 
 

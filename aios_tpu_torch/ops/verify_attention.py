@@ -6,21 +6,27 @@ slot over that slot's dense cache with a causal staircase: query t of slot b
 sits at row ``lengths[b] + t * strides[b]`` and sees the columns up to and
 including its own row, inside the sliding window. ``strides`` is 1 for active
 slots and 0 for inactive ones, which expose only column 0 to every query. On
-CUDA tensors ``multiquery_decode_attention`` runs the hand-written
-tensor-core kernel of ``csrc/dense_attention.cu`` (``mq_attention_kernel``):
-the T * H / KH query rows of a (slot, kv head) in 16-row tiles, up to 64
-rows a block, scored and summed with ``mma.sync`` over K/V chunks copied
-asynchronously into shared memory, each slot's visible rows split by
-``split_plan`` and merged in the same launch (``ops/split.py``). q enters
-the product unscaled and the scores take 1/sqrt(D) in f32 after it; p is
-rounded to the cache dtype for P V and the row sums take it unrounded. On
-CPU tensors it runs ``multiquery_decode_attention_reference``. A slot whose
-staircase runs past the cache end (``lengths[b] + T - 1 >= C``) is
-saturated: the kernel clamps its reads to the cache and its outputs are
-unconsumed by contract. ``multiquery_decode_attention_int8`` is the same
-over an int8 cache with [B, C, KH] f32 scales, on the single-split kernel
-of the decode entries (its T = 1 case is ``decode_attention_int8``); its
-arithmetic is f32 throughout.
+CUDA tensors ``multiquery_decode_attention`` (bf16 cache, K6) and
+``multiquery_decode_attention_int8`` (int8 cache with [B, C, KH] f32
+scales, K7) run one hand-written tensor-core kernel of
+``csrc/dense_attention.cu`` (``mq_attention_kernel``, templated on the cache
+element): the T * H / KH query rows of a (slot, kv head) in 16-row tiles,
+up to 64 rows a block, scored and summed with ``mma.sync`` over K/V chunks
+copied asynchronously into shared memory, each slot's visible rows split by
+``split_plan`` and merged in the same launch (``ops/split.py``). On CPU
+tensors they run their ``*_reference``. A slot whose staircase runs past
+the cache end (``lengths[b] + T - 1 >= C``) is saturated: the kernel clamps
+its reads to the cache and its outputs are unconsumed by contract.
+
+Arithmetic. Both enter q unscaled (it is bf16, so the product's operands
+are exact) and take 1/sqrt(D) on the scores in f32 after the product; the
+row sums take p unrounded. K6 rounds p to the cache dtype for P V, as the
+TPU kernel does. K7 follows the TPU kernel's f32 int8 path: the int8 K and
+V bytes are exact in bf16, the score is (q . k) * sm_scale * k_scale[row],
+and the P V weight w = p * v_scale[row] enters as three bf16 terms (each
+the bf16 of what the earlier ones left), which sum to w within f32's
+rounding; its split holds a D = 128 share to at least
+``split.MIN_SHARE_ROWS_D128`` rows, as K9's does.
 """
 
 from __future__ import annotations
@@ -122,13 +128,15 @@ def multiquery_decode_attention_int8(
     [B, C, KH] f32 scales folded into both products -> [B, T, H, D] in
     q.dtype. CPU operands take the reference; CUDA operands launch the kernel
     (bf16 q, int8 caches, contiguous f32 scales, int32 lengths and strides,
-    D in {64, 128}, H/KH <= 8, any T and any cache length C) or raise."""
+    D in {64, 128}, H/KH <= 8, any T and any cache length C), each slot's
+    rows split by ``split_plan``, or raise."""
     dev = build.device_of(q, k_cache, v_cache, k_scales, v_scales, lengths, strides)
     if dev.type == "cpu":
         return multiquery_decode_attention_int8_reference(
             q, k_cache, v_cache, k_scales, v_scales, lengths, strides, window=window)
     return launch(multiquery_decode_attention_int8, "aios_multiquery_decode_attention_int8",
-                  q, k_cache, v_cache, (k_scales, v_scales), (lengths, strides), window)
+                  q, k_cache, v_cache, (k_scales, v_scales), (lengths, strides), window,
+                  split=True)
 
 
 multiquery_decode_attention_int8.launches = 0

@@ -7,9 +7,9 @@ of a served window), so that two checkouts can be compared on one card.
 With ``--parent DIR`` it compares this checkout with the one in DIR in one
 call: it runs itself on parent, change, change, parent (a process each),
 prints each case's times side by side and whether the change's bits equal
-the parent's, and exits 1 if K7's or K8's bits differ (kernels this tree
-keeps as they were). Without it, it measures one tree and prints one line
-per case and, last, one JSON object.
+the parent's, and exits 1 if K6's, K8's or K9's bits differ (kernels this
+tree keeps as they were). Without it, it measures one tree and prints one
+line per case and, last, one JSON object.
 
 Inputs are made on the device from a seed by this script, in the same order
 for every tree; times are this checkout's ``chip_smoke.time_ms`` (CUDA
@@ -60,8 +60,13 @@ CASES = (  # (kernel, label, geometry, C, window, int8 cache, T, lengths)
      SERVED),
     ("multiquery_decode_attention", "TinyLlama C=2048 T=3", TINY, 2048, None, False, 3,
      TINY_LENS[:-1] + [2045]),
+    ("multiquery_decode_attention_int8", "Mistral C=8192 window=4096 T=8 served", MISTRAL, 8192,
+     4096, True, 8, SERVED),
+    ("multiquery_decode_attention_int8", "Mistral C=8192 window=4096 T=31", MISTRAL, 8192, 4096,
+     True, 31, MISTRAL_LENS[:-1] + [8161]),
 )
-KEPT = ("decode_attention", "multiquery_decode_attention_int8")  # K8, K7: bits as the parent's
+# K8, K9, K6: bits as the parent's
+KEPT = ("decode_attention", "decode_attention_int8", "multiquery_decode_attention")
 
 
 def compare(parent: str) -> int:
@@ -91,7 +96,7 @@ def compare(parent: str) -> int:
             differ.append(case)
         print(f"[compare] {case}: {ms}; bits {'equal' if same else 'differ'}", flush=True)
     if differ:
-        print(f"[compare] FAILED: K7/K8 bits differ from the parent's: {differ}", flush=True)
+        print(f"[compare] FAILED: K6/K8/K9 bits differ from the parent's: {differ}", flush=True)
     return 1 if differ else 0
 
 

@@ -7,10 +7,12 @@ Over the dense cache, at the shapes its servers give them: K8
 and Mistral-7B heads over 8192 rows with its 4096-row window; K9
 (``decode_attention_int8``) for Mistral-7B with and without the window;
 K6 (``multiquery_decode_attention``) for TinyLlama-1.1B's verify round
-(T = 8), at T = 31, and at Mistral-7B's heads with the window. Each at its
-headline lengths (those of ``chip_smoke.py``), all slots full, every slot
-at length 0 (one visible row: the launch's fixed cost) and, for K9 and K6,
-the lengths of a served window (8 slots, ~300 rows each).
+(T = 8), at T = 31, and at Mistral-7B's heads with the window; K7
+(``multiquery_decode_attention_int8``) for Mistral-7B's verify round (T = 8)
+with the window. Each at its headline lengths (those of ``chip_smoke.py``),
+all slots full, every slot at length 0 (one visible row: the launch's fixed
+cost) and, for K9, K6 and K7, the lengths of a served window (8 slots, ~300
+rows each).
 
 K3 (``paged_decode_attention``, bf16 pool) and K4
 (``paged_decode_attention_int8``, int8 pool) at the shapes the paged
@@ -78,6 +80,14 @@ CASES = (  # (kernel, label, (H, KH, D), C, window, T (None: one query), lengths
      8, [0] * 8),
     ("multiquery_decode_attention", "TinyLlama C=2048 T=8 served, ~300 rows", TINY, 2048,
      None, 8, SERVED),
+    ("multiquery_decode_attention_int8", "Mistral C=8192 window=4096 T=8", MISTRAL, 8192, 4096,
+     8, MISTRAL_LENS[:-1] + [8184]),
+    ("multiquery_decode_attention_int8", "Mistral C=8192 T=8 all full, no window", MISTRAL,
+     8192, None, 8, [8184] * 8),
+    ("multiquery_decode_attention_int8", "Mistral C=8192 T=8 all at length 0", MISTRAL, 8192,
+     None, 8, [0] * 8),
+    ("multiquery_decode_attention_int8", "Mistral C=8192 window=4096 T=8 served, ~300 rows",
+     MISTRAL, 8192, 4096, 8, SERVED),
 )
 PAGE = 128
 PAGED_CASES = (  # (kernel, label, H, KH, D, pages per slot, window, lengths)
@@ -177,7 +187,7 @@ def _sweep(module, name, label, operands, window, plan, failed):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", default=None,
-                    help="kernels to sweep (default: all five)")
+                    help="kernels to sweep (default: all six)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch

@@ -21,8 +21,11 @@ Phases, each printing its lines:
      (K3/K4 windowed too, K8 and K9 with one live slot, K9 with a window
      whose slots fit one share and windows deep in the cache); K6 also at
      T = 3 (24 query rows a kv head, a ragged 16-row tile) and at the
-     lengths of a served window (~300 rows); every decode-attention kernel
-     bit-identical on repeat;
+     lengths of a served window (~300 rows); K7 also at T = 31, at the
+     lengths of a served window and at lengths on and beside its split
+     shares (a window whose slots fit one share, one live slot, windows
+     deep in the cache); every decode-attention kernel bit-identical on
+     repeat;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1; LoadModel
      ``synthetic://tiny-test`` (head_dim 16, which no attention kernel takes)
      is refused with status error; LoadModel
@@ -741,6 +744,24 @@ K9_SPLIT_CASES = [
 ]
 # the lengths of a served window: 8 slots of ~300 rows
 SERVED_LENS = [290, 295, 300, 305, 310, 315, 320, 325]
+# K7 takes K6's tiles and split over the int8 cache, a D = 128 share of at
+# least 256 rows (4 splits at Mistral-7B's shapes). A slot's T = 8 queries
+# see its length + 8 rows (slot 0, inactive, length + 1): rows that fill
+# one, two or four shares exactly and one row to each side (256: one share;
+# 257: 256 and one; 1024: four of 256; 1025: four of 288); a window whose
+# slots fit one share (window 200: 207 rows); every slot at length 0 but
+# one; windows that start deep in the cache.
+K7_SPLIT_CASES = [
+    (f"split edges, Mistral C=8192 T={SPEC_T}", MISTRAL_GEOM, 8192, None, True, SPEC_T,
+     [255, 248, 249, 503, 504, 505, 1016, 1017], ()),
+    (f"split-local rows, Mistral C=8192 window=200 T={SPEC_T}", MISTRAL_GEOM, 8192, 200, True,
+     SPEC_T, [20, 24, 25, 26, 1000, 8184, 0, 300], ()),
+    (f"split: one slot live, Mistral C=8192 T={SPEC_T}", MISTRAL_GEOM, 8192, None, True, SPEC_T,
+     [0, 0, 0, 6700, 0, 0, 0, 0], ()),
+    (f"split edges and windows deep in the cache, Mistral C=8192 window={M_WINDOW} "
+     f"T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW, True, SPEC_T,
+     [5000, 7000, 8184, 1015, 1016, 1017, 4088, 0], ()),
+]
 
 
 def check_dense_attention(gen) -> dict:
@@ -783,6 +804,11 @@ def check_dense_attention(gen) -> dict:
              True, SPEC_T, mq_lens(MISTRAL_LENS, 8192), ()),
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}, slot 7 saturated", MISTRAL_GEOM,
              8192, M_WINDOW, True, SPEC_T, MISTRAL_LENS, (7,)),
+            (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}, served lengths", MISTRAL_GEOM,
+             8192, M_WINDOW, True, SPEC_T, SERVED_LENS, ()),
+            (f"Mistral C=8192 window={M_WINDOW} T=31", MISTRAL_GEOM, 8192, M_WINDOW, True, 31,
+             mq_lens(MISTRAL_LENS, 8192, 31), ()),
+            *K7_SPLIT_CASES,
         ],
     }
     measured = {}

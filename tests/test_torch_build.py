@@ -217,14 +217,14 @@ def test_flash_attention_entry_matches_its_binding():
 
 
 def test_decode_attention_entry_takes_the_split():
-    """K8's, K9's and K6's entries take the split workspace after the output
-    and the number of splits after the window: K8 7 pointers and 7 ints,
-    K9 9 and 7, K6 8 and 8, then sm_scale and the stream, as the wrapper
-    passes them; K7 keeps its arguments."""
+    """Every dense entry takes the split workspace after the output and the
+    number of splits after the window: K8 7 pointers and 7 ints, K9 9 and 7,
+    K6 8 and 8, K7 10 and 8, then sm_scale and the stream, as the wrapper
+    passes them."""
     assert _c_args("dense_attention.cu", "aios_decode_attention") == 16
     assert _c_args("dense_attention.cu", "aios_decode_attention_int8") == 18
     assert _c_args("dense_attention.cu", "aios_multiquery_decode_attention") == 18
-    assert _c_args("dense_attention.cu", "aios_multiquery_decode_attention_int8") == 17
+    assert _c_args("dense_attention.cu", "aios_multiquery_decode_attention_int8") == 20
 
 
 def test_plan_and_kernel_agree_on_blocks_per_sm():
