@@ -23,4 +23,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError(f"{dev} requested but no CUDA device is available")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        # with its index, as the tensors made on it report it (the split
+        # workspaces are keyed by it)
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

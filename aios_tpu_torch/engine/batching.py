@@ -15,7 +15,10 @@ With ``speculative=True`` every decode tick is a speculative dispatch
 (``TorchEngine.spec_step``, the n-gram proposer): greedy requests emit the
 same tokens in fewer dispatches, sampling requests one token per round. An
 acceptance EWMA suspends speculation while its drafts keep failing and
-re-probes later; ``degrade_spec`` switches it off from outside.
+re-probes later; ``degrade_spec`` switches it off from outside. On a CUDA
+engine every dispatch replays a graph; attaching captures those this
+batcher dispatches (its ``spec_draft_len`` and ``spec_ngram``) if the
+engine's warmup did not.
 
 Not here yet: chunked admission (every prompt takes whole-prompt prefill,
 as the JAX batcher does when the engine cannot honour a chunk size),
@@ -35,7 +38,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .engine import TorchEngine
+from .engine import SPEC_DRAFT_LEN, SPEC_NGRAM, TorchEngine
 from .paged import PoolExhausted
 
 log = logging.getLogger("aios.torch.batcher")
@@ -147,8 +150,8 @@ class ContinuousBatcher:
         self,
         engine: TorchEngine,
         speculative: bool = False,
-        spec_draft_len: int = 7,
-        spec_ngram: int = 3,
+        spec_draft_len: int = SPEC_DRAFT_LEN,
+        spec_ngram: int = SPEC_NGRAM,
         spec_min_accept: Optional[float] = None,  # auto-disable floor
         spec_reprobe_secs: Optional[float] = None,  # suspension length
     ) -> None:
@@ -198,6 +201,12 @@ class ContinuousBatcher:
         self._wake = threading.Event()
         self._stop = False
         self._ids = itertools.count()
+        # the graphs of this batcher's dispatches, before any dispatch (the
+        # JAX batcher's attach compiles its missing sizes); a failed capture
+        # raises here
+        engine.capture_step()
+        if self.speculative:
+            engine.capture_spec(self.spec_draft_len, self.spec_ngram)
         self._thread = threading.Thread(
             target=self._run, name="continuous-batcher", daemon=True
         )

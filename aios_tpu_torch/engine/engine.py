@@ -3,9 +3,19 @@ prefill, batched decode with on-device sampling, n-gram speculation.
 
 ``TorchEngine`` is the counterpart of ``aios_tpu``'s ``TPUEngine``. Weights,
 the KV cache and all per-slot decode state (lengths, last tokens,
-temperatures, top_p, active mask, token history, the sampling generator) live
-on the device; a decode dispatch moves only the page table in (paged) and the
-sampled tokens out.
+temperatures, top_p, active mask, token history, the device page table, the
+sampling generator) live on the device in buffers that keep their storage
+for the engine's life; a decode dispatch moves only the page table in
+(paged) and the sampled tokens out.
+
+On a CUDA engine every decode dispatch replays a CUDA graph (``graphs.py``),
+as the JAX engine dispatches compiled executables: ``warmup`` captures the
+decode step of the engine's cache and, where it speculates, the round of
+``spec_step``'s defaults; a (draft_len, ngram) not warmed is captured at
+first use, and counted. ``step(n)`` and ``spec_step(n)`` replay the one-step
+or one-round graph n times and read back once. On the CPU they run the same
+bodies eagerly; on the card ``step_eager`` and ``spec_step_eager`` do, like
+a kernel's plain twin, by name only.
 
 The cache is a shared page pool of ``paged_pool_rows`` rows, or, with
 ``paged_pool_rows=None``, a dense slot cache [L, S, C, KH, D] in which slot s
@@ -34,6 +44,7 @@ megagraph, window+sink KV compression, sharding and the pipelined
 
 from __future__ import annotations
 
+import functools
 import gc
 import logging
 import threading
@@ -45,12 +56,18 @@ import torch
 
 from .. import ops
 from ..device import resolve_device
+from ..ops import split
+from ..ops.quantized_matmul import counters_for, sm_count
 from . import model, paged, sampling, spec
 from .config import ModelConfig
+from .graphs import GraphSet
 
 log = logging.getLogger("aios.torch.engine")
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+# spec_step's defaults, and the round graph warmup captures
+SPEC_DRAFT_LEN = 7
+SPEC_NGRAM = 3
 
 
 def _to_device(tree, device: torch.device):
@@ -150,8 +167,18 @@ class TorchEngine:
         self.active_dev = torch.zeros(num_slots, dtype=torch.bool, device=dev)
         self.history = (spec.init_history(num_slots, self.max_context, dev)
                         if self.track_history else None)
+        # the device page table: the allocator's host tables, copied in
+        # before each dispatch
+        self.tables_dev = (torch.zeros(self.allocator.tables.shape, dtype=torch.int32,
+                                       device=dev) if self.paged else None)
+        self._slot_ids = torch.arange(num_slots, device=dev)
+        self._columns = torch.arange(spec.HISTORY_PAD, device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(0)
+        self.graphs = GraphSet(dev, self.generator)
+        # logits of the last step or round dispatched (on CUDA a graph's
+        # static output, overwritten by its next replay)
+        self.last_logits: Optional[torch.Tensor] = None
         # host mirrors for the scheduler
         self.active = np.zeros(num_slots, dtype=bool)
         self._host_lengths = np.zeros(num_slots, dtype=np.int64)
@@ -255,61 +282,170 @@ class TorchEngine:
     def _cache_scales(self):
         return (self.k_scales, self.v_scales) if self.quant_cache else None
 
+    def _step_body(self) -> torch.Tensor:
+        """One decode step of every slot on the static state, in place:
+        each slot's new K/V row, the sampled token into ``last_tokens`` and
+        the history, ``lengths`` + 1 (clamped at the cache end, inactive
+        slots too). Returns the step's logits [S, V]. What the eager loop
+        runs and a CUDA graph captures: it reads nothing back and branches
+        on no tensor."""
+        if self.paged:
+            logits = model.decode_step_paged(
+                self.params, self.cfg, self.last_tokens, self.lengths,
+                self.k_pool, self.v_pool, self.tables_dev, active=self.active_dev,
+                cache_scales=self._cache_scales(),
+            )
+        else:
+            logits = model.decode_step(
+                self.params, self.cfg, self.last_tokens, self.lengths,
+                self.k_pool, self.v_pool, active=self.active_dev,
+                cache_scales=self._cache_scales(),
+            )
+        sampling.sample(logits, self.generator, self.temps, self.top_ps,
+                        out=self.last_tokens)
+        if self.track_history:
+            # the new token's column is lengths+1 (<= C, inside the pad);
+            # inactive slots write the sacrificial last column
+            hcol = torch.where(
+                self.active_dev, self.lengths.long() + 1,
+                torch.full_like(self._slot_ids, self.history.shape[1] - 1))
+            self.history[self._slot_ids, hcol] = self.last_tokens
+        torch.clamp(self.lengths + 1, max=self.max_context - 1, out=self.lengths)
+        return logits
+
+    def _round_body(self, draft_len: int, ngram: int):
+        """One speculative round of every slot on the static state, in
+        place: propose, verify, accept, update ``last_tokens``, ``lengths``
+        and the history. Returns (tokens [S, K+1], counts [S], logits
+        [S, K+1, V]). Eager on the CPU, captured on CUDA, like
+        ``_step_body``."""
+        K, C = draft_len, self.max_context
+        drafts, _ = spec.propose_ngram(self.history, self.lengths, K, ngram, C)
+        # only greedy, active slots speculate; everyone else verifies a row
+        # of -1 drafts (accept count 0: a plain decode step)
+        ok = (self.temps < sampling.GREEDY_EPS) & self.active_dev
+        drafts = torch.where(ok[:, None], drafts, torch.full_like(drafts, -1))
+        feed = torch.cat([self.last_tokens[:, None], drafts], dim=1)
+        logits = model.verify_step(
+            self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
+            active=self.active_dev, cache_scales=self._cache_scales(),
+        )
+        g = logits.argmax(dim=-1)  # [S, K+1]
+        a = spec.accept_counts(drafts, g)  # [S] in [0, K]
+        # row 0 is a plain decode step's logits; sample() takes the argmax
+        # for greedy rows, so this covers both kinds of slot
+        g[:, 0] = sampling.sample(logits[:, 0], self.generator, self.temps, self.top_ps)
+        counts = a + 1  # tokens emitted this round per slot
+        # accepted tokens land at history columns lengths+1 .. lengths+1+K,
+        # inside the HISTORY_PAD margin: no clamp and no colliding writes
+        # for active slots
+        steps = self._columns[None, : K + 1]
+        hidx = torch.where(self.active_dev[:, None], self.lengths.long()[:, None] + 1 + steps,
+                           torch.full_like(steps, self.history.shape[1] - 1))
+        self.history[self._slot_ids[:, None], hidx] = g
+        torch.gather(g, 1, a[:, None], out=self.last_tokens[:, None])
+        self.lengths.copy_(torch.clamp(self.lengths + counts, max=C - 1))
+        return g, counts, logits
+
+    def _dispatcher(self, key, body, eager: bool):
+        """What runs one step or round: ``body`` itself on the CPU or when
+        ``eager``, else the replay of its graph, captured now (and counted)
+        if warmup did not. Caller holds the lock."""
+        if eager or not self.graphs.enabled:
+            return body
+        if key not in self.graphs:
+            self._capture(key, body)
+        return lambda: self.graphs.replay(key)
+
+    def _capture(self, key, body) -> None:
+        """Capture ``body`` as graph ``key`` and leave the engine's state as
+        it was: the capture runs nothing, and the eager pass before it runs
+        with every slot inactive (writing only the sacrificial page or each
+        dense slot's last row, and the history's sacrificial column), then
+        puts back the lengths, last tokens and active mask it moved.
+        Caller holds the lock."""
+        def prepare() -> None:
+            self._reserve_workspaces()
+            state = (self.lengths, self.last_tokens, self.active_dev)
+            saved = [t.clone() for t in state]
+            self.active_dev.zero_()
+            body()
+            for t, was in zip(state, saved):
+                t.copy_(was)
+
+        t0 = time.perf_counter()
+        graph = self.graphs.capture(key, body, prepare)
+        log.info("%s: captured the %s graph (%d kernel launches) in %.2fs", self.cfg.name,
+                 key, sum(graph.launches.values()), time.perf_counter() - t0)
+
+    def _reserve_workspaces(self) -> None:
+        """Make the current stream's split workspace at the largest launch
+        any graph of this engine can make (single-query attention over the
+        whole context; with speculation, the verify attention of the
+        longest draft spec_step takes) and its split-K ticket counters,
+        before a capture holds their addresses."""
+        dev, cfg = self.device, self.cfg
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        B, KH, D = self.num_slots, cfg.num_kv_heads, cfg.head_dim
+        splits = split.split_plan(self.max_context, B, KH, sm_count(dev.index))
+        query_rows = [0]
+        if self.spec_supported and self.track_history:
+            query_rows.append((spec.HISTORY_PAD - 1) * (cfg.num_heads // KH))
+        for rows in query_rows:
+            groups, partial_rows = split.launch_groups(B, KH, rows)
+            split.workspace(dev, stream, groups, splits, D, partial_rows)
+        counters_for(dev, stream)
+
+    def capture_step(self) -> None:
+        """Ensure the decode step's graph exists without dispatching (the
+        twin of the JAX ``compile_step_fn``); nothing to do off CUDA."""
+        if self.graphs.enabled:
+            with self._lock:
+                self._dispatcher("step", self._step_body, eager=False)
+
+    def capture_spec(self, draft_len: int = SPEC_DRAFT_LEN, ngram: int = SPEC_NGRAM) -> None:
+        """Ensure the round graph for (draft_len, ngram) exists without
+        dispatching (the twin of the JAX ``compile_spec_fn``); nothing to do
+        off CUDA or on an engine that cannot speculate."""
+        if not (self.graphs.enabled and self.spec_supported and self.track_history):
+            return
+        self._check_spec(draft_len, ngram)
+        with self._lock:
+            self._dispatcher(("spec", draft_len, ngram),
+                             functools.partial(self._round_body, draft_len, ngram),
+                             eager=False)
+
     def step(self, n_steps: int = 1) -> np.ndarray:
         """Run ``n_steps`` batched decode steps; returns tokens
         [n_steps, num_slots] (only active columns mean anything). Lengths
         advance for every slot, clamped at the cache end. One host readback
-        per call."""
+        per call; on CUDA each step is one replay of the step graph."""
+        return self._steps(n_steps, eager=False)
+
+    def step_eager(self, n_steps: int = 1) -> np.ndarray:
+        """``step`` through the eager body, the plain twin of the replayed
+        graph on the card: how a caller holds a replay against the same
+        kernels issued one by one. The serving path never calls it."""
+        return self._steps(n_steps, eager=True)
+
+    def _steps(self, n_steps: int, eager: bool) -> np.ndarray:
         with self._lock:
             if self.paged:
                 self._back_active_slots(n_steps)
-                tables = torch.from_numpy(self.allocator.tables).to(self.device)
+                self.tables_dev.copy_(torch.from_numpy(self.allocator.tables))
+            run = self._dispatcher("step", self._step_body, eager)
             out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
                               device=self.device)
-            slots = torch.arange(self.num_slots, device=self.device)
             for i in range(n_steps):
-                if self.paged:
-                    logits = model.decode_step_paged(
-                        self.params, self.cfg, self.last_tokens, self.lengths,
-                        self.k_pool, self.v_pool, tables, active=self.active_dev,
-                        cache_scales=self._cache_scales(),
-                    )
-                else:
-                    logits = model.decode_step(
-                        self.params, self.cfg, self.last_tokens, self.lengths,
-                        self.k_pool, self.v_pool, active=self.active_dev,
-                        cache_scales=self._cache_scales(),
-                    )
-                nxt = sampling.sample(logits, self.generator, self.temps, self.top_ps)
-                out[i] = nxt
-                if self.track_history:
-                    # the new token's column is lengths+1 (<= C, inside the
-                    # pad); inactive slots write the sacrificial last column
-                    hcol = torch.where(
-                        self.active_dev, self.lengths.long() + 1,
-                        torch.full_like(slots, self.history.shape[1] - 1))
-                    self.history[slots, hcol] = nxt
-                self.last_tokens = nxt
-                self.lengths = torch.clamp(self.lengths + 1, max=self.max_context - 1)
+                self.last_logits = run()
+                out[i] = self.last_tokens
             self.decode_steps += n_steps
             self._host_lengths = np.minimum(
                 self._host_lengths + n_steps, self.max_context - 1
             )
         return out.cpu().numpy()
 
-    def spec_step(self, n_rounds: int = 8, draft_len: int = 7,
-                  ngram: int = 3) -> Tuple[np.ndarray, np.ndarray]:
-        """Run ``n_rounds`` speculative decode rounds over the dense cache.
-
-        Returns (tokens [n_rounds, num_slots, draft_len+1], counts
-        [n_rounds, num_slots]): in round r, slot s emitted the first
-        ``counts[r, s]`` entries of ``tokens[r, s]`` — at least 1 (a plain
-        decode step's token), up to ``draft_len+1`` when the whole n-gram
-        draft was accepted. Greedy slots emit exactly the plain-greedy
-        sequence; temp > 0 slots never speculate and emit one sampled token
-        per round. Only columns where ``self.active`` are meaningful. Each
-        round draws from the generator once, like a decode step; one host
-        readback per call."""
+    def _check_spec(self, draft_len: int, ngram: int) -> None:
         # the upper bound keeps active slots' history writes strictly below
         # the sacrificial last pad column reserved for inactive slots
         if not 1 <= draft_len <= spec.HISTORY_PAD - 2:
@@ -327,42 +463,41 @@ class TorchEngine:
                 "speculative decoding needs the token history "
                 "(track_history=True; the n-gram proposer reads it)"
             )
-        S, C, K = self.num_slots, self.max_context, draft_len
-        dev = self.device
+
+    def spec_step(self, n_rounds: int = 8, draft_len: int = SPEC_DRAFT_LEN,
+                  ngram: int = SPEC_NGRAM) -> Tuple[np.ndarray, np.ndarray]:
+        """Run ``n_rounds`` speculative decode rounds over the dense cache.
+
+        Returns (tokens [n_rounds, num_slots, draft_len+1], counts
+        [n_rounds, num_slots]): in round r, slot s emitted the first
+        ``counts[r, s]`` entries of ``tokens[r, s]`` — at least 1 (a plain
+        decode step's token), up to ``draft_len+1`` when the whole n-gram
+        draft was accepted. Greedy slots emit exactly the plain-greedy
+        sequence; temp > 0 slots never speculate and emit one sampled token
+        per round. Only columns where ``self.active`` are meaningful. Each
+        round draws from the generator once, like a decode step; one host
+        readback per call. On CUDA each round is one replay of the round
+        graph of (draft_len, ngram)."""
+        return self._rounds(n_rounds, draft_len, ngram, eager=False)
+
+    def spec_step_eager(self, n_rounds: int = 8, draft_len: int = SPEC_DRAFT_LEN,
+                        ngram: int = SPEC_NGRAM) -> Tuple[np.ndarray, np.ndarray]:
+        """``spec_step`` through the eager body, the plain twin of the
+        replayed graph on the card (see ``step_eager``)."""
+        return self._rounds(n_rounds, draft_len, ngram, eager=True)
+
+    def _rounds(self, n_rounds: int, draft_len: int, ngram: int,
+                eager: bool) -> Tuple[np.ndarray, np.ndarray]:
+        self._check_spec(draft_len, ngram)
+        S, K = self.num_slots, draft_len
         with self._lock:
+            run = self._dispatcher(("spec", draft_len, ngram),
+                                   functools.partial(self._round_body, draft_len, ngram),
+                                   eager)
             # tokens [R, S, K+1] and, in the last column, counts: one readback
-            out = torch.empty((n_rounds, S, K + 2), dtype=torch.int64, device=dev)
-            slots = torch.arange(S, device=dev)[:, None]
-            steps = torch.arange(K + 1, device=dev)[None, :]
-            pad_col = self.history.shape[1] - 1
+            out = torch.empty((n_rounds, S, K + 2), dtype=torch.int64, device=self.device)
             for r in range(n_rounds):
-                drafts, _ = spec.propose_ngram(self.history, self.lengths, K, ngram, C)
-                # only greedy, active slots speculate; everyone else verifies
-                # a row of -1 drafts (accept count 0: a plain decode step)
-                ok = (self.temps < sampling.GREEDY_EPS) & self.active_dev
-                drafts = torch.where(ok[:, None], drafts, torch.full_like(drafts, -1))
-                feed = torch.cat([self.last_tokens[:, None], drafts], dim=1)
-                logits = model.verify_step(
-                    self.params, self.cfg, feed, self.lengths, self.k_pool,
-                    self.v_pool, active=self.active_dev,
-                    cache_scales=self._cache_scales(),
-                )
-                g = logits.argmax(dim=-1)  # [S, K+1]
-                a = spec.accept_counts(drafts, g)  # [S] in [0, K]
-                # row 0 is a plain decode step's logits; sample() takes the
-                # argmax for greedy rows, so this covers both kinds of slot
-                g[:, 0] = sampling.sample(logits[:, 0], self.generator, self.temps,
-                                          self.top_ps)
-                counts = a + 1  # tokens emitted this round per slot
-                # accepted tokens land at history columns lengths+1 ..
-                # lengths+1+K, inside the HISTORY_PAD margin: no clamp and no
-                # colliding writes for active slots
-                hidx = torch.where(self.active_dev[:, None],
-                                   self.lengths.long()[:, None] + 1 + steps,
-                                   torch.full_like(steps, pad_col))
-                self.history[slots, hidx] = g
-                self.last_tokens = g.gather(1, a[:, None])[:, 0]
-                self.lengths = torch.clamp(self.lengths + counts, max=C - 1).to(torch.int32)
+                g, counts, self.last_logits = run()
                 out[r, :, : K + 1] = g
                 out[r, :, K + 1] = counts
             self.decode_steps += n_rounds
@@ -405,6 +540,10 @@ class TorchEngine:
                 kv_pages_free=self.allocator.free_pages,
                 kv_pages_trimmed=self.kv_pages_trimmed,
             )
+        # the JAX engine's compile accounting (xla_compiles), for graphs
+        out.update(graph_captures=self.graphs.captures,
+                   graph_capture_seconds=round(self.graphs.capture_seconds, 3),
+                   graph_replays=self.graphs.replays)
         if self.spec_rounds:
             out["spec_rounds"] = self.spec_rounds
             # mean tokens emitted per slot per verify round (1.0 = nothing
@@ -415,16 +554,27 @@ class TorchEngine:
         return out
 
     def warmup(self) -> None:
-        """Build and load the kernel library on CUDA engines, so the first
-        request never waits for nvcc."""
-        if self.device.type == "cuda":
-            t0 = time.perf_counter()
-            ops.build_all()
-            log.info("%s: kernels ready in %.1fs", self.cfg.name, time.perf_counter() - t0)
+        """On a CUDA engine, build and load the kernel library, then capture
+        the decode step's graph and, where the engine speculates, the round
+        graph of spec_step's defaults: the twin of the JAX ``warmup``, which
+        compiles every serving graph behind the readiness gate, so the first
+        request waits for neither nvcc nor a capture. A failed capture
+        raises. The CPU runs the bodies eagerly and captures nothing."""
+        if self.device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        ops.build_all()
+        self.capture_step()
+        self.capture_spec()
+        log.info("%s: kernels and %d graphs ready in %.1fs", self.cfg.name,
+                 self.graphs.captures, time.perf_counter() - t0)
 
     def close(self) -> None:
-        """Drop weights and the cache now rather than at the next gc pass."""
+        """Drop graphs, weights and the cache now rather than at the next
+        gc pass."""
         with self._lock:
+            self.graphs.close()
+            self.last_logits = None
             self.params = None
             self.k_pool = self.v_pool = None
             self.k_scales = self.v_scales = None
@@ -445,8 +595,8 @@ class TorchEngine:
         slot: int = 0,
         chunk: int = 8,
         speculative: bool = False,
-        draft_len: int = 7,
-        ngram: int = 3,
+        draft_len: int = SPEC_DRAFT_LEN,
+        ngram: int = SPEC_NGRAM,
     ) -> List[int]:
         """Single-request generation loop (the continuous batcher in
         ``batching.py`` is the serving path). ``speculative=True`` decodes

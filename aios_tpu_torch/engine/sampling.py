@@ -10,6 +10,8 @@ replayed here, so sampled tokens agree with it in distribution only.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 GREEDY_EPS = 1e-4  # temperatures below this mean argmax
@@ -26,6 +28,7 @@ def sample(
     generator: torch.Generator,
     temperature: torch.Tensor,  # [B]
     top_p: torch.Tensor,  # [B]; 1.0 keeps the whole (capped) pool
+    out: Optional[torch.Tensor] = None,  # int64 [B]: written in place
 ) -> torch.Tensor:
     """One token per row (int64 [B]); rows with temperature < GREEDY_EPS
     take the argmax."""
@@ -42,4 +45,4 @@ def sample(
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     choice = torch.argmax(vals + gumbel, dim=-1)
     sampled = idx.gather(1, choice[:, None])[:, 0]
-    return torch.where(temperature < GREEDY_EPS, greedy, sampled)
+    return torch.where(temperature < GREEDY_EPS, greedy, sampled, out=out)

@@ -21,8 +21,9 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, Sequence, Tuple
 
 import torch
 
@@ -40,6 +41,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], object] = {}
+_tally = threading.local()  # .launches: the recording of this thread's capture
 
 
 def _nvcc() -> str:
@@ -144,6 +146,37 @@ def check(name: str, rc: int) -> None:
     if rc:
         msg = _libs[name].aios_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: one more in
+    ``wrapper.launches``, or, while this thread records a graph capture
+    (``recording_launches``), one more in the recording instead, since a
+    captured launch runs only when the graph replays."""
+    recording = getattr(_tally, "launches", None)
+    if recording is None:
+        wrapper.launches += 1
+    else:
+        recording[wrapper] = recording.get(wrapper, 0) + 1
+
+
+@contextmanager
+def recording_launches() -> Iterator[Dict[object, int]]:
+    """Record this thread's kernel launches as {wrapper: launches} instead
+    of counting them; the counters stay as they were. A graph adds the
+    recording to the counters each time it replays (``add_launches``)."""
+    outer = getattr(_tally, "launches", None)
+    _tally.launches = recording = {}
+    try:
+        yield recording
+    finally:
+        _tally.launches = outer
+
+
+def add_launches(recording: Dict[object, int]) -> None:
+    """Count the launches of one replay of a recorded capture."""
+    for wrapper, n in recording.items():
+        wrapper.launches += n
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

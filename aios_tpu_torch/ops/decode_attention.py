@@ -23,7 +23,7 @@ import torch
 
 from . import build
 from .quantized_matmul import sm_count
-from .split import MAX_GROUP, MQ_BLOCK_ROWS, split_plan, workspace
+from .split import MAX_GROUP, launch_groups, split_plan, workspace
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernels' builds
@@ -116,7 +116,8 @@ _argtypes: Dict[Tuple[int, int], list] = {}
 def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
            split: bool = False) -> torch.Tensor:
     """Check the operands, launch the entry point ``entry`` of
-    ``csrc/dense_attention.cu`` and add one to ``wrapper.launches``. ``q`` is
+    ``csrc/dense_attention.cu`` and count the launch
+    (``build.count_launch``). ``q`` is
     [B, H, D] with ``index = (lengths,)`` or [B, T, H, D] with
     ``index = (lengths, strides)``; ``scales`` is () for a bf16 cache or
     (k_scales, v_scales) for an int8 one. The entry takes the pointers (q,
@@ -139,10 +140,8 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     dims = (*q.shape[:-1], KH, D, C, window or 0)
     if split:
         splits = split_plan(C, B, KH, sm_count(dev.index))
-        groups, rows = B * KH, MAX_GROUP
-        if q.dim() == 4:
-            groups *= -(-q.shape[1] * (q.shape[2] // KH) // MQ_BLOCK_ROWS)
-            rows = MQ_BLOCK_ROWS
+        query_rows = q.shape[1] * (q.shape[2] // KH) if q.dim() == 4 else 0
+        groups, rows = launch_groups(B, KH, query_rows)
         ptrs += workspace(dev, stream, groups, splits, D, rows)
         dims += (splits,)
     argtypes = _argtypes.get((len(ptrs), len(dims)))
@@ -153,7 +152,7 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     fn = build.kernel("dense_attention", entry, argtypes)
     rc = fn(*ptrs, *dims, 1.0 / math.sqrt(D), stream)
     build.check("dense_attention", rc)
-    wrapper.launches += 1
+    build.count_launch(wrapper)
     return out
 
 

@@ -105,7 +105,7 @@ def flash_attention(
         build.stream(dev),
     )
     build.check("flash_attention", rc)
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out
 
 

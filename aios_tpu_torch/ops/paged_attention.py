@@ -154,8 +154,8 @@ def _check(q, pools, scales, tables, lengths, window, extra) -> None:
 def _launch(wrapper, entry, argtypes, q, pools, scales, tables, lengths, window,
             win_starts, sink) -> torch.Tensor:
     """Check the operands, launch ``entry`` of ``csrc/paged_attention.cu``
-    with each slot's visible rows split ``split_plan`` ways, and add one to
-    ``wrapper.launches``. The entry takes the pointers (q, pools, scales,
+    with each slot's visible rows split ``split_plan`` ways, and count the launch
+    (``build.count_launch``). The entry takes the pointers (q, pools, scales,
     tables, lengths, win_starts or null, out, the split workspace), then B,
     H, KH, D, P, MB, the window (0 for none), the sink, the splits,
     1/sqrt(D) and the stream."""
@@ -176,7 +176,7 @@ def _launch(wrapper, entry, argtypes, q, pools, scales, tables, lengths, window,
             *scratch, B, H, KH, D, P, MB, window or 0,
             int(sink) if win_starts is not None else 0, splits, 1.0 / math.sqrt(D), stream)
     build.check("paged_attention", rc)
-    wrapper.launches += 1
+    build.count_launch(wrapper)
     return out
 
 

@@ -117,9 +117,11 @@ def kernel_supported(K: int, N: int) -> bool:
     return K > 0 and K % 8 == 0 and N > 0 and N % 16 == 0
 
 
-def _counters_for(dev: torch.device, stream: int) -> torch.Tensor:
+def counters_for(dev: torch.device, stream: int) -> torch.Tensor:
     """The zeroed ticket counters of ``stream`` on ``dev``: each split
-    launch leaves them at 0 again."""
+    launch leaves them at 0 again. Made once and never replaced, so a CUDA
+    graph may hold their address; an engine makes its stream's before its
+    first capture, so that no capture records their zeroing."""
     key = (dev.index, stream)
     c = _counters.get(key)
     if c is None:
@@ -130,8 +132,8 @@ def _counters_for(dev: torch.device, stream: int) -> torch.Tensor:
 def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
            scale: torch.Tensor, N: int, K: int, kt: int) -> torch.Tensor:
     """Check the launch contract of the shared core (``csrc/wq_matmul.cuh``),
-    plan, launch ``entry`` of ``library`` and add one to
-    ``wrapper.launches``. ``w`` is the raw weight (int8 rows or packed
+    plan, launch ``entry`` of ``library`` and count the launch
+    (``build.count_launch``). ``w`` is the raw weight (int8 rows or packed
     nibbles) and ``scale`` its f32 scales."""
     build.require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
     build.require(scale.dtype == torch.float32, f"scale must be float32, got {scale.dtype}")
@@ -158,8 +160,10 @@ def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
     partial = counters = y
     if p.splits > 1:
         build.require(p.tiles <= COUNTERS, f"{p.tiles} split tiles exceed {COUNTERS} counters")
+        # under a graph capture this comes from the graph's private pool,
+        # whose addresses stay the graph's for its life
         partial = torch.empty(p.partial_floats, dtype=torch.float32, device=dev)
-        counters = _counters_for(dev, stream)
+        counters = counters_for(dev, stream)
     fn = build.kernel(library, entry, _ARGTYPES)
     rc = fn(
         build.ptr(x), build.ptr(w), build.ptr(scale), build.ptr(y), build.ptr(partial),
@@ -167,7 +171,7 @@ def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
         ctypes.c_void_p(stream),
     )
     build.check(library, rc)
-    wrapper.launches += 1
+    build.count_launch(wrapper)
     return y.reshape(*lead, N)
 
 

@@ -12,7 +12,10 @@ ticket merges the partials in split order, in the same launch. A group is
 a (slot, kv head), or for K6 and K7 a (tile of up to MQ_BLOCK_ROWS query
 rows, kv head, slot). The partials and tickets live in one workspace per
 device and stream, which the kernels share: they run in order on that
-stream, and every launch leaves the tickets at 0.
+stream, and every launch leaves the tickets at 0. A CUDA graph bakes in
+the addresses it captured, so the engine reserves its stream's workspace
+at the largest launch before its first capture, and a held workspace is
+never replaced.
 """
 
 from __future__ import annotations
@@ -68,7 +71,30 @@ def partial_floats(D: int, rows: int = MAX_GROUP) -> int:
     return rows * (D + 2)
 
 
-_workspaces: Dict[Tuple[int, int], tuple] = {}
+def launch_groups(B: int, KH: int, query_rows: int = 0) -> Tuple[int, int]:
+    """(groups, partial rows) of a split launch over B slots x KH kv heads:
+    a group per (slot, kv head) of MAX_GROUP rows for the single-query
+    kernels (``query_rows`` 0), or for K6 and K7, whose (slot, kv head)
+    holds ``query_rows`` = T x G query rows, a group per (tile of up to
+    MQ_BLOCK_ROWS of them, kv head, slot) of MQ_BLOCK_ROWS rows."""
+    if not query_rows:
+        return B * KH, MAX_GROUP
+    return B * KH * -(-query_rows // MQ_BLOCK_ROWS), MQ_BLOCK_ROWS
+
+
+class _Workspace:
+    """One stream's fp32 partials and group tickets, and the number of
+    holders: CUDA graphs whose captured launches hold its addresses."""
+
+    def __init__(self, floats: int, groups: int, dev: torch.device) -> None:
+        self.floats, self.groups = floats, groups
+        self.partial = torch.empty(floats, dtype=torch.float32, device=dev)
+        self.tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+        self.ptrs = (self.partial.data_ptr(), self.tickets.data_ptr())
+        self.holders = 0
+
+
+_workspaces: Dict[Tuple[int, int], _Workspace] = {}
 
 
 def workspace(dev: torch.device, stream: int, groups: int, splits: int,
@@ -77,15 +103,35 @@ def workspace(dev: torch.device, stream: int, groups: int, splits: int,
     ``groups`` groups split ``splits`` ways at head dim ``D``, partials of
     ``rows`` query rows: fp32 partials and the groups' tickets, zeroed (each
     split launch leaves them at 0 again); grown, never shrunk, as launches
-    ask."""
+    ask. Called before any capture it reserves that size. A workspace that
+    a captured graph holds (``hold``) is never replaced: a launch that would
+    grow it raises instead, since the graph would then read freed memory."""
     floats = groups * splits * partial_floats(D, rows)
     key = (dev.index, stream)
     have = _workspaces.get(key)
-    if have is None or have[0] < floats or have[1] < groups:
+    if have is None or have.floats < floats or have.groups < groups:
         if have is not None:
-            floats, groups = max(floats, have[0]), max(groups, have[1])
-        partial = torch.empty(floats, dtype=torch.float32, device=dev)
-        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
-        have = _workspaces[key] = (floats, groups, partial, tickets,
-                                   (partial.data_ptr(), tickets.data_ptr()))
-    return have[4]
+            if have.holders:
+                raise RuntimeError(
+                    f"the split workspace of stream {stream:#x} ({have.floats} floats, "
+                    f"{have.groups} tickets) is held by a captured CUDA graph; a launch "
+                    f"asking {floats} floats and {groups} tickets would replace it: "
+                    "reserve the largest launch before the first capture")
+            floats, groups = max(floats, have.floats), max(groups, have.groups)
+        have = _workspaces[key] = _Workspace(floats, groups, dev)
+    return have.ptrs
+
+
+def hold(dev: torch.device, stream: int) -> None:
+    """Mark the workspace of ``stream`` as captured by one more graph (it
+    must exist: reserve it first)."""
+    _workspaces[(dev.index, stream)].holders += 1
+
+
+def release(dev: torch.device, stream: int) -> None:
+    """Undo one ``hold``; the workspace is freed with its last holder."""
+    key = (dev.index, stream)
+    have = _workspaces[key]
+    have.holders -= 1
+    if not have.holders:
+        del _workspaces[key]

@@ -21,7 +21,10 @@ served from the dense cache. ``speculative`` turns on n-gram speculative
 decode dispatches (None reads ``AIOS_TPU_SPECULATIVE``); they run over the
 dense cache only, so with a paged pool the batcher warns and serves without.
 ``synthetic://<preset>`` sources build random weights on the target device
-from a seeded generator. Real GGUF/HF weights, replica pools, admission
+from a seeded generator. On CUDA a model lists READY only once its engine
+has built its kernels and captured the CUDA graphs its batcher dispatches
+(``TorchEngine.warmup``, the batcher's attach); a failed build or capture
+leaves it in ``error`` and fails ``LoadModel``. Real GGUF/HF weights, replica pools, admission
 control and the HBM budget wait for later slices.
 """
 
@@ -257,10 +260,10 @@ class ModelManager:
         if old is not None and old.state == STATE_READY:
             self._shutdown(old)
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
-                 "%s %s, speculative %s)", name, time.time() - t0, ctx, self.num_slots,
-                 self.device, self.quantize or "dense", self.cache_dtype,
+                 "%s %s, speculative %s, %d graphs captured)", name, time.time() - t0, ctx,
+                 self.num_slots, self.device, self.quantize or "dense", self.cache_dtype,
                  "page pool" if engine.paged else "dense cache",
-                 managed.batcher.speculative)
+                 managed.batcher.speculative, engine.graphs.captures)
         return managed
 
     def _load_weights(self, name: str, path: str, context_length: int):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Host cost of issuing the weight-quantized matmuls K1 and K5 and the
-attention kernels K2, K3 and K8, and the wall time of a TinyLlama decode
-step, for the ``aios_tpu_torch`` under ``--root``.
+attention kernels K2, K3 and K8, and what a served decode dispatch costs on
+the host and the device, for the ``aios_tpu_torch`` under ``--root``.
 
 The decode-step sequences of K1 (TinyLlama-1.1B, 89 launches at M=8 and
 M=64) and K5 (Mistral-7B, 129 launches at M=8) are issued through the
@@ -14,12 +14,22 @@ sequence is issued while the stream is held by a device sleep: the host's
 time per call is then the issue cost alone (``held`` says the device was
 still asleep when the host finished). One issue of each sequence runs
 under ``cProfile``; ``cuTensorMapEncodeTiled`` is timed through
-``ctypes``; a full-width TinyLlama engine (int8 weights, bf16 paged pool,
-8 slots at ~300 rows) times ``step(16)`` on the host clock and profiles
-one. Weights are random from a seed.
+``ctypes``.
+
+Then four served configurations at full width, 8 slots, each an engine made
+and warmed as ``ModelManager`` makes it: TinyLlama paged (int8 weights,
+bf16 pool), Mistral-7B paged (int4 weights, int8 pool, context 8192), and
+both over the dense cache with n-gram speculation. For each: the host wall
+per decode step (``step(16)``) or speculative round (``spec_step(8)``) with
+the slots at ~300 rows, the median of twelve dispatches; one dispatch under
+torch.profiler (device busy ms and share, kernels per step or round); and an
+8-slot wave through the ``ContinuousBatcher`` (8 requests of 129 tokens,
+host-clock tok/s). TinyLlama's paged ``step(16)`` also runs once under
+cProfile. Weights are random from a seed.
 
 Run from the repository root on a machine with one CUDA device, here or
-against another checkout of the package, to compare two trees on one host:
+against another checkout of the package, to compare two trees on one host
+(alternate them: parent, change, change, parent):
     python3 aios_tpu_torch/tools/issue_cost.py [--root DIR] [--label NAME]
 Prints profile lines and, last, one JSON object.
 """
@@ -185,34 +195,99 @@ def encode_cost():
     return t_enc, (time.perf_counter() - t0) / n * 1e6
 
 
-def step_wall(torch, gen):
-    """Host-clock ms per decode step of a full-width TinyLlama engine, 8
-    slots at ~300 rows: step(16) twice to warm, then twelve times timed
-    (their median and each), then once under cProfile (its top entries)."""
-    from aios_tpu_torch.engine.config import TINYLLAMA_1_1B
-    from aios_tpu_torch.engine.engine import TorchEngine
-    from aios_tpu_torch.engine.weights import init_params
+# the period-40 prompt of chip_smoke.py: the n-gram proposer finds drafts in it
+REPEATING = [256] + [(i % 40) * 5 + 33 for i in range(240)]
 
-    eng = TorchEngine(TINYLLAMA_1_1B, init_params(TINYLLAMA_1_1B, gen),
-                      paged_pool_rows=9 * 2048, quantize="int8", device="cuda")
+
+def served(torch, cfg, params, spec, label, **kw):
+    """Host wall per step or round, device busy per dispatch and the 8-slot
+    wave of one engine made with ``kw`` and warmed; see the module
+    docstring. Returns (numbers, cProfile text of one dispatch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aios_tpu_torch.engine.batching import ContinuousBatcher, Request
+    from aios_tpu_torch.engine.engine import TorchEngine
+
+    eng = TorchEngine(cfg, params, num_slots=8, track_history=spec, **kw)
+    t0 = time.perf_counter()
+    eng.warmup()
+    out = {"warmup_s": time.perf_counter() - t0}
+    n = 8 if spec else 16
     for s in range(eng.num_slots):
-        eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
-    eng.step(32)
+        if spec:
+            eng.prefill(s, REPEATING, temperature=0.0)
+        else:
+            eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
+    dispatch = (lambda: eng.spec_step(n)) if spec else (lambda: eng.step(n))
+    dispatch()
     torch.cuda.synchronize()
     walls = []
     for _ in range(12):
         t0 = time.perf_counter()
-        eng.step(16)
+        dispatch()
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) / 16 * 1e3)
-    prof = cProfile.Profile()
-    prof.enable()
-    eng.step(16)
-    torch.cuda.synchronize()
-    prof.disable()
-    out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
-    return statistics.median(walls), walls, out.getvalue()
+        walls.append((time.perf_counter() - t0) / n * 1e3)
+    out["ms"], out["ms_all"] = statistics.median(walls), walls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    out.update(busy_ms=busy / n, busy_share=busy / (wall * 1e3),
+               kernels=sum(e.count for e in kernels) / n)
+    text = ""
+    if label == "tinyllama_paged":
+        cp = cProfile.Profile()
+        cp.enable()
+        dispatch()
+        torch.cuda.synchronize()
+        cp.disable()
+        buf = io.StringIO()
+        pstats.Stats(cp, stream=buf).sort_stats("tottime").print_stats(15)
+        text = buf.getvalue()
+    for s in range(eng.num_slots):
+        eng.release(s)
+    batcher = ContinuousBatcher(eng, speculative=spec)
+    prompt = REPEATING if spec else [256] + list(range(100))
+    t0 = time.perf_counter()
+    hs = [batcher.submit(Request(prompt_ids=prompt, max_tokens=129,
+                                     temperature=0.0 if spec else 0.7))
+          for _ in range(eng.num_slots)]
+    tokens = sum(len(h.tokens()) for h in hs)
+    out["wave_tok_s"] = tokens / (time.perf_counter() - t0)
+    batcher.shutdown()
+    out["graph_captures"] = eng.stats().get("graph_captures")
+    eng.close()
+    return out, text
+
+
+def serving(torch, gen, label):
+    """``served`` for the four configurations, TinyLlama first."""
+    from aios_tpu_torch.engine.config import MISTRAL_7B, TINYLLAMA_1_1B
+    from aios_tpu_torch.engine.weights import init_params
+
+    out, text = {}, ""
+    for cfg, quant, cache, ctx in ((TINYLLAMA_1_1B, "int8", torch.bfloat16, 2048),
+                                   (MISTRAL_7B, "int4", torch.int8, 8192)):
+        params = init_params(cfg, gen)
+        name = "tinyllama" if cfg is TINYLLAMA_1_1B else "mistral"
+        for paged in (True, False):
+            key = f"{name}_{'paged' if paged else 'dense_spec'}"
+            kw = dict(quantize=quant, cache_dtype=cache, max_context=ctx)
+            if paged:
+                kw["paged_pool_rows"] = 9 * ctx
+            numbers, prof = served(torch, cfg, params, not paged, key, **kw)
+            text += prof
+            out.update({f"{key}_{k}": v for k, v in numbers.items()})
+            print(f"[{label}] {key}: {json.dumps(numbers)}", flush=True)
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out, text
 
 
 def main() -> int:
@@ -260,8 +335,9 @@ def main() -> int:
     print(f"[{args.label}] K3 TinyLlama step: {calls} calls, {us:.2f} us each\n{prof}")
     torch.cuda.empty_cache()
     out["encode_us"], out["ctypes_noop_us"] = encode_cost()
-    out["tinyllama_step_ms"], out["tinyllama_step_ms_all"], prof = step_wall(torch, gen)
-    print(f"[{args.label}] TinyLlama step(16) under cProfile\n{prof}")
+    numbers, prof = serving(torch, gen, args.label)
+    out.update(numbers)
+    print(f"[{args.label}] TinyLlama paged step(16) under cProfile\n{prof}")
     print(json.dumps(out), flush=True)
     return 0
 

@@ -34,7 +34,10 @@ Phases, each printing its lines:
      launched meanwhile;
   5. numerics — its prefill and decode-step logits through the kernels
      against the plain path, two identical greedy streams, TTFT, the decode
-     rate and a profiled decode window;
+     rate, the step's graph replay against its eager body (identical tokens,
+     bit-identical logits, exact launches), sampled replays that draw fresh
+     noise, and a decode window timed and profiled through the graph and
+     through the eager body (kernels and device time per op of the latter);
   6. serve Mistral-7B — after TinyLlama is unloaded, a second server with
      ``ModelManager(quantize="int4", kv_cache="int8")`` loads
      ``synthetic://mistral-7b`` at full width (int4 weights, int8 pool,
@@ -45,7 +48,8 @@ Phases, each printing its lines:
      decode step over the int8 pool, a greedy request that decodes past the
      4096-row window with trimmed pages returned (twice on the engine and
      once through the batcher, all three streams identical), TTFT per
-     bucket, the 8-slot decode rate and a profiled decode window;
+     bucket, the 8-slot decode rate and phase 5's graph checks and
+     profiles;
   8. serve TinyLlama dense — ``ModelManager(quantize="int8", kv_cache="bf16",
      paged_kv="off", speculative=True)``: the same window over the dense slot
      cache with n-gram speculation (per round 89 K1 and 22 K6, no K8), then
@@ -57,12 +61,18 @@ Phases, each printing its lines:
      of T decode steps, the invariants of a speculative round, a
      teacher-forced verify that accepts its own predictions, greedy
      speculative streams through the batcher (twice, identical), the
-     acceptance rate, the 8-slot decode rate with and without speculation and
-     a profiled speculative window;
+     acceptance rate, the 8-slot decode rate with and without speculation,
+     and phase 5's graph checks and profiles for the round and the step;
   10. serve Mistral-7B dense and its numerics — the same with
      ``ModelManager(quantize="int4", kv_cache="int8", paged_kv="off",
      speculative=True)`` at context 8192 (per round 129 K5 and 32 K7, per
      plain step 129 K5 and 32 K9) and a greedy request past the window.
+
+Every served decode dispatch is a CUDA graph replay: each served window
+also holds that ``LoadModel`` captured the graphs (the step, and with
+speculation the round) and that none is captured while serving, with one
+replay per dispatched step or round; the exact launch counts are counted
+through the replays.
 
 Then one ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -74,6 +84,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -879,12 +890,18 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
 
     eng, cfg = m.engine, m.config
+    # LoadModel captured the step graph and, with speculation, the round
+    # graph of the batcher's sizes: nothing is captured while serving
+    captured = eng.stats()["graph_captures"]
+    expect(captured == 1 + (not eng.paged and m.batcher.speculative),
+           f"{captured} graphs captured at LoadModel")
     # one short request first, so the counted window excludes one-time setup
     stub.Infer(runtime_pb2.InferRequest(prompt="warm up", max_tokens=4), timeout=300)
 
     for k in ops.KERNELS:
         k.launches = 0
     tokens0, steps0, prefills0 = m.batcher.tokens_emitted, eng.decode_steps, eng.prefills
+    replays0 = eng.stats()["graph_replays"]
     results, errors = {}, []
 
     def infer(i):
@@ -915,6 +932,11 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     launches = {k.__name__: k.launches for k in ops.KERNELS}
     tokens = m.batcher.tokens_emitted - tokens0
     prefills, steps = eng.prefills - prefills0, eng.decode_steps - steps0
+    stats = eng.stats()
+    replays = stats["graph_replays"] - replays0
+    expect(stats["graph_captures"] == captured,
+           f"{stats['graph_captures'] - captured} graphs captured while serving")
+    expect(replays == steps, f"{replays} graph replays for {steps} dispatched steps or rounds")
     for i in range(3):
         n_prompt = len(m.tokenizer.encode(render_chat(cfg.name, PROMPTS[i])))
         expect(results[i].tokens_used > n_prompt, f"Infer {i} returned no tokens")
@@ -930,7 +952,9 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
         f"[serve] {cfg.name}{tag}: 3 Infer + 1 StreamInfer (prompts {[len(p) for p in PROMPTS]} "
         f"chars, max_tokens {MAX_TOKENS}) in {wall:.3f} s: {tokens} tokens, "
         f"{tokens / wall:.1f} tok/s end to end on {card}; "
-        f"{prefills} prefills, {steps} decode steps; launches {launches}"
+        f"{prefills} prefills, {steps} decode steps, {replays} graph replays, graph "
+        f"captures flat at {captured} since LoadModel ({stats['graph_capture_seconds']} s); "
+        f"launches {launches}"
     )
     log(f"[serve] health: {health.details.get(m.name + '.serving')}")
     return dict(launches=launches, prefills=prefills, steps=steps)
@@ -974,11 +998,17 @@ def phase_serve(manager, stub, card: str) -> dict:
         f"{cfg.num_layers} layers, E={cfg.hidden_size}, V={cfg.vocab_size}, ctx={eng.max_context}, "
         f"int8 weights, bf16 pool of {eng.allocator.num_pages} pages x {eng.allocator.page_size} rows"
     )
-    launches = _served_window(manager, stub, m, card)["launches"]
+    w = _served_window(manager, stub, m, card)
+    launches, pre, steps = w["launches"], w["prefills"], w["steps"]
     for name in TINYLLAMA_KERNELS:
         expect(launches[name] > 0, f"kernel {name} never launched while serving")
-    for name in set(launches) - set(TINYLLAMA_KERNELS):
-        expect(launches[name] == 0, f"kernel {name} launched on the TinyLlama path")
+    want = dict.fromkeys(launches, 0)
+    want.update({"quantized_matmul": 89 * (pre + steps), "flash_attention": 22 * pre,
+                 "paged_decode_attention": 22 * steps})
+    expect(launches == want, f"launch counts {launches} != {want} for {pre} prefills, "
+           f"{steps} steps")
+    log(f"[serve] launch counts exact for {pre} prefills and {steps} decode steps "
+        f"(each step one graph replay): {launches}")
     return launches
 
 
@@ -1055,46 +1085,262 @@ def phase_numerics(manager, card: str) -> None:
         f"{steps} decode steps, {wall / max(steps, 1) * 1e3:.2f} ms per step (host clock, "
         f"prefills included), {card}")
 
+    _graph_vs_eager("[numerics]", eng, {"quantized_matmul": 89, "paged_decode_attention": 22},
+                    rounds=False)
+    _fresh_noise("[numerics]", eng, rounds=False)
     _profile_decode(eng, "tinyllama", 16, card)
 
 
-def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None:
-    """One profiled decode dispatch of ``n_steps`` with all slots active at
-    ~300 rows: device busy share and the top device kernels. With ``prompt``
-    the slots are greedy on that prompt and the dispatch is ``n_steps``
-    speculative rounds."""
-    for s in range(eng.num_slots):
-        if prompt is None:
-            eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
-        else:
-            eng.prefill(s, prompt, temperature=0.0)
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
+# -- the graphs: replay against the eager body, fresh noise, where the time goes
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        if prompt is None:
-            eng.step(n_steps)
-        else:
-            _, counts = eng.spec_step(n_steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+
+def _snapshot(eng):
+    """What a dispatch moves besides the cache rows it writes before it
+    reads them again: lengths, last tokens, the history and the host's
+    lengths. Restoring it replays a dispatch from the same state."""
+    moved = [eng.lengths, eng.last_tokens] + ([eng.history] if eng.track_history else [])
+    return moved, [t.clone() for t in moved], eng._host_lengths.copy()
+
+
+def _restore(eng, snap) -> None:
+    moved, saved, host = snap
+    for t, was in zip(moved, saved):
+        t.copy_(was)
+    eng._host_lengths[:] = host
+
+
+def _dispatchers(eng, rounds: bool):
+    """The served dispatch (a graph replay per step or round) and its eager
+    twin."""
+    if rounds:
+        return {"graph": eng.spec_step, "eager": eng.spec_step_eager}
+    return {"graph": eng.step, "eager": eng.step_eager}
+
+
+def _graph_vs_eager(tag: str, eng, per_dispatch: dict, rounds: bool) -> None:
+    """A greedy dispatch of 16 steps (8 rounds) through the graph and again
+    through the eager body from the same state: identical tokens,
+    bit-identical logits of the last step or round, and the exact launches
+    ``per_dispatch`` x n both ways (counted through replays for the
+    graph)."""
+    from aios_tpu_torch import ops
+
+    n = 8 if rounds else 16
+    prompt = REPEATING if rounds else [256] + list(range(300))
+    for s in range(eng.num_slots):
+        eng.prefill(s, prompt[: len(prompt) - 5 * s], temperature=0.0)
+    snap = _snapshot(eng)
+    runs = {}
+    for mode, fn in _dispatchers(eng, rounds).items():
+        _restore(eng, snap)
+        for k in ops.KERNELS:
+            k.launches = 0
+        out = fn(n)
+        launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+        runs[mode] = (out if rounds else (out,), eng.last_logits.clone(), launches)
     for s in range(eng.num_slots):
         eng.release(s)
-    events = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = {e.key: e.self_device_time_total for e in events if e.self_device_time_total > 0}
-    busy = sum(dev_us.values())
-    n_kernels = sum(e.count for e in events if e.self_device_time_total > 0)
-    what = "decode steps" if prompt is None else (
-        f"speculative rounds ({counts.sum() / counts.size:.2f} tokens per slot and round)")
-    rows = 300 if prompt is None else len(prompt)
-    log(f"[profile] {tag}: {n_steps} {what}, 8 slots at ~{rows} rows: wall "
-        f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-        f"({busy / 1e3 / (wall * 1e3):.1%} of wall), "
-        f"{n_kernels / n_steps:.0f} device kernels per step, {card}")
-    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[profile]   {us / 1e3:9.3f} ms  {key[:110]}")
+    (g_out, g_logits, g_n), (e_out, e_logits, e_n) = runs["graph"], runs["eager"]
+    want = {k: v * n for k, v in per_dispatch.items()}
+    what = f"{n} {'rounds' if rounds else 'steps'}"
+    expect(all((a == b).all() for a, b in zip(g_out, e_out)),
+           f"{tag} graph and eager tokens differ over {what}")
+    expect(torch.equal(g_logits, e_logits), f"{tag} graph and eager logits differ: "
+           f"max |d| {(g_logits - e_logits).abs().max().item():.3e}")
+    expect(g_n == want and e_n == want, f"{tag} launches: graph {g_n}, eager {e_n}, "
+           f"want {want}")
+    log(f"{tag} graph replay vs eager body, 8 greedy slots, {what}: tokens identical, "
+        f"logits of the last {'round' if rounds else 'step'} bit-identical, launches exact "
+        f"both ways ({per_dispatch} each)")
+
+
+def _fresh_noise(tag: str, eng, rounds: bool) -> None:
+    """Sampled slots over a flat distribution (temperature 1e4 over the
+    top-k pool): the same step replayed twice from the same state draws
+    other tokens, and 16 replays do not repeat one token."""
+    fn = _dispatchers(eng, rounds)["graph"]
+    for s in range(eng.num_slots):
+        eng.prefill(s, [256] + list(range(100 + s)), temperature=1e4, top_p=1.0)
+    snap = _snapshot(eng)
+
+    def one():
+        out = fn(1)
+        return out[0][0, :, 0] if rounds else out[0]
+
+    first = one()
+    _restore(eng, snap)
+    again = one()
+    more = [one() for _ in range(15)]
+    for s in range(eng.num_slots):
+        eng.release(s)
+    differ = int((first != again).sum())
+    distinct = [len({int(t[s]) for t in [again] + more}) for s in range(eng.num_slots)]
+    expect(differ >= eng.num_slots // 2 and min(distinct) >= 4,
+           f"{tag} sampled replays repeat their noise: {differ} of {eng.num_slots} slots "
+           f"differ on a replayed step, distinct tokens per slot over 16: {distinct}")
+    log(f"{tag} sampled graph replays draw fresh noise: the same "
+        f"{'round' if rounds else 'step'} replayed from the same state differs in {differ} "
+        f"of {eng.num_slots} slots; distinct tokens per slot over 16 replays {distinct}")
+
+
+# what the eager body's profile is broken down by: (range, module, function)
+RANGES = (
+    ("forward", "model", "decode_step_paged"), ("forward", "model", "decode_step"),
+    ("forward", "model", "verify_step"), ("qkv", "model", "_project_qkv"),
+    ("scatter_quant", "model", "scatter_quant"), ("mlp", "model", "_mlp"),
+    ("head", "model", "_final_logits"), ("propose", "spec", "propose_ngram"),
+    ("accept", "spec", "accept_counts"), ("sample", "sampling", "sample"),
+)
+
+
+def _annotated():
+    """Wrap the functions of RANGES in profiler ranges for the lifetime of
+    the context (the engine and the model look them up at each call)."""
+    from torch.profiler import record_function
+
+    from aios_tpu_torch.engine import model, sampling, spec
+
+    modules = {"model": model, "spec": spec, "sampling": sampling}
+
+    def wrap(name, fn):
+        def inner(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return inner
+
+    stack = contextlib.ExitStack()
+    for name, mod, attr in RANGES:
+        orig = getattr(modules[mod], attr)
+        setattr(modules[mod], attr, wrap(name, orig))
+        stack.callback(setattr, modules[mod], attr, orig)
+    return stack
+
+
+def _device_kernels(prof) -> dict:
+    """{name: (launches, device us)} of the device events of a profile
+    (kernels, copies and fills), without the ranges ``_annotated`` marks
+    on the device's timeline."""
+    ranges = {r[0] for r in RANGES}
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.self_device_time_total > 0 and e.key not in ranges}
+
+
+def _op_table(tag: str, prof, n: int, launches: dict) -> None:
+    """Kernels and device ms per step or round in each range of RANGES
+    (outer ranges counted without their inner ones) and in the engine's own
+    ops ("engine"), by the aten op that launched them; ``launches`` are the
+    wrappers' kernels, which the profiler links to no op."""
+    from collections import Counter
+
+    names = {r[0] for r in RANGES}
+    per = {}  # range -> [kernels, device us, Counter of kernels by op]
+
+    def walk(ev, owner):
+        if ev.name in names:
+            owner = ev.name
+        row = per.setdefault(owner, [0, 0.0, Counter()])
+        kernels = [k for k in ev.kernels if k.name not in names]
+        if kernels:
+            row[0] += len(kernels)
+            row[1] += sum(k.duration for k in kernels)
+            row[2][ev.name] += len(kernels)
+        for child in ev.cpu_children:
+            walk(child, owner)
+
+    for ev in prof.events():
+        if ev.cpu_parent is None and not str(ev.device_type).endswith("CUDA"):
+            walk(ev, "engine")
+    total = sum(c for c, _ in _device_kernels(prof).values())
+    linked = sum(row[0] for row in per.values())
+    wrappers = sum(launches.values())
+    log(f"[ops] {tag}: {total / n:g} device events per step, {linked / n:g} of them linked to "
+        f"an aten op, {wrappers / n:g} launched by the kernel wrappers "
+        f"({ {k: v / n for k, v in launches.items()} })")
+    for name, (k, us, ops) in sorted(per.items(), key=lambda kv: -kv[1][0]):
+        top = ", ".join(f"{op} {c / n:g}" for op, c in ops.most_common(12))
+        log(f"[ops]   {name}: {k / n:g} kernels, {us / 1e3 / n:.4f} ms per step: {top}")
+
+
+def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None:
+    """A decode dispatch of ``n_steps`` with all slots active at ~300 rows
+    through the graph and through the eager body, from the same state each
+    time: host wall per step (median of three unprofiled dispatches), the
+    device span of one (CUDA events), three under torch.profiler (device
+    busy share, the device events per step of each, the top kernels), and
+    for the eager body one more with its functions marked (``_op_table``).
+    With ``prompt`` the slots are greedy on that prompt and the dispatch is
+    ``n_steps`` speculative rounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aios_tpu_torch import ops
+
+    rounds = prompt is not None
+    for s in range(eng.num_slots):
+        if rounds:
+            eng.prefill(s, prompt, temperature=0.0)
+        else:
+            eng.prefill(s, [256] + list(range(300)), temperature=0.7, top_p=0.95)
+    snap = _snapshot(eng)
+    what = "speculative rounds" if rounds else "decode steps"
+    per = "round" if rounds else "step"
+    rows = len(prompt) if rounds else 300
+
+    def fresh():
+        _restore(eng, snap)
+        torch.cuda.synchronize()
+
+    for mode, fn in _dispatchers(eng, rounds).items():
+        walls = []
+        for _ in range(3):
+            fresh()
+            t0 = time.perf_counter()
+            fn(n_steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fresh()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(n_steps)
+        b.record()
+        torch.cuda.synchronize()
+        span = a.elapsed_time(b)
+        windows = []
+        for _ in range(3):
+            fresh()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn(n_steps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            windows.append((wall, _device_kernels(prof)))
+        wall, dev = windows[0]
+        busy = sum(us for _, us in dev.values()) / 1e3
+        counts = [sum(c for c, _ in d.values()) / n_steps for _, d in windows]
+        extra = ""
+        if rounds:
+            extra = f" ({out[1].sum() / out[1].size:.2f} tokens per slot and round)"
+        wall_ms = statistics.median(walls) * 1e3
+        log(f"[profile] {tag} {mode}: {n_steps} {what}{extra}, 8 slots at ~{rows} rows: host "
+            f"wall {wall_ms / n_steps:.3f} ms per {per} (median of 3, unprofiled), device span "
+            f"{span / n_steps:.3f} ms per {per} (CUDA events); profiled: wall {wall * 1e3:.2f} "
+            f"ms, device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%} of the profiled wall, "
+            f"{busy / (wall_ms):.1%} of the unprofiled), device events per {per} in three "
+            f"windows {counts}, {card}")
+        for key, (_, us) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"[profile]   {us / 1e3:9.3f} ms  {key[:110]}")
+        if mode == "eager":
+            fresh()
+            for k in ops.KERNELS:
+                k.launches = 0
+            with _annotated(), profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]) as prof:
+                fn(n_steps)
+                torch.cuda.synchronize()
+            launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+            _op_table(f"{tag} eager {per}", prof, n_steps, launches)
+    for s in range(eng.num_slots):
+        eng.release(s)
 
 
 # -- phase 6: serve Mistral-7B, int4 weights over an int8 pool ------------------
@@ -1284,6 +1530,9 @@ def phase_mistral_numerics(manager, card: str) -> None:
     log(f"[mistral] 8 slots x 129 tokens: {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tok/s, {steps} decode steps, "
         f"{wall / max(steps, 1) * 1e3:.2f} ms per step (host clock, prefills included), {card}")
+    _graph_vs_eager("[mistral]", eng, {"int4_matmul": 129, "paged_decode_attention_int8": 32},
+                    rounds=False)
+    _fresh_noise("[mistral]", eng, rounds=False)
     _profile_decode(eng, "mistral", 8, card)
 
 
@@ -1575,6 +1824,11 @@ def phase_dense_numerics(name: str):
                 f"{'rounds' if spec_on else 'steps'}, {wall / max(steps, 1) * 1e3:.2f} ms "
                 f"each (host clock, prefills included), {card}")
         m.batcher.degrade_spec = False
+        per, L = case["per_forward"], case["layers"]
+        _graph_vs_eager(tag, eng, {case["matmul"]: per, case["verify"]: L}, rounds=True)
+        _graph_vs_eager(tag, eng, {case["matmul"]: per, case["decode"]: L}, rounds=False)
+        _fresh_noise(tag, eng, rounds=True)
+        _fresh_noise(tag, eng, rounds=False)
         _profile_decode(eng, f"dense {name}", 8, card, prompt=REPEATING)
         _profile_decode(eng, f"dense {name}", 8, card)
 
