@@ -3,9 +3,13 @@
 The port of the main-path behaviour of ``aios_tpu/engine/batching.py``. A
 single scheduler thread assigns each waiting request a slot (highest
 effective priority first, with queue age as a tie-breaking boost), prefills
-its whole prompt, and advances every active slot together in dispatches of
+its prompt, and advances every active slot together in dispatches of
 ``CHUNK_STEPS`` tokens — ``ADMIT_CHUNK_STEPS`` while others wait, so
-admission latency stays low. Requests retire on a stop token, on
+admission latency stays low. A prompt longer than ``prefill_chunk`` (the
+engine's 512 by default) is admitted one chunk per scheduler pass, one such
+admission at a time on a reserved slot, with decode dispatches of the live
+slots between its chunks, so a long prompt never stalls the other streams
+for its whole prefill. Requests retire on a stop token, on
 ``max_tokens`` or at the cache end; cancelled ones free their slot at the
 next scheduler boundary. When the page pool cannot back a dispatch or an
 admission, the lowest-priority longest request is evicted (its stream ends
@@ -20,10 +24,8 @@ engine every dispatch replays a graph; attaching captures those this
 batcher dispatches (its ``spec_draft_len`` and ``spec_ngram``) if the
 engine's warmup did not.
 
-Not here yet: chunked admission (every prompt takes whole-prompt prefill,
-as the JAX batcher does when the engine cannot honour a chunk size),
-the pipelined decode loop, constrained decoding with jump-ahead, and the
-draft-model proposer.
+Not here yet: the pipelined decode loop, constrained decoding with
+jump-ahead, and the draft-model proposer.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .engine import SPEC_DRAFT_LEN, SPEC_NGRAM, TorchEngine
+from .engine import SPEC_DRAFT_LEN, SPEC_NGRAM, ChunkedPrefill, TorchEngine
 from .paged import PoolExhausted
 
 log = logging.getLogger("aios.torch.batcher")
@@ -154,8 +156,19 @@ class ContinuousBatcher:
         spec_ngram: int = SPEC_NGRAM,
         spec_min_accept: Optional[float] = None,  # auto-disable floor
         spec_reprobe_secs: Optional[float] = None,  # suspension length
+        prefill_chunk: Optional[int] = None,  # None: the engine's default; 0: off
     ) -> None:
         self.engine = engine
+        # prompts longer than this admit incrementally, one chunk per
+        # scheduler pass; off (whole-prompt prefill) when the engine's
+        # buckets cannot honour it
+        if prefill_chunk is None:
+            prefill_chunk = engine.prefill_chunk_default
+        self.prefill_chunk: Optional[int] = prefill_chunk or None
+        if self.prefill_chunk is not None and (
+                self.prefill_chunk not in engine.buckets
+                or engine.max_context % self.prefill_chunk):
+            self.prefill_chunk = None
         if speculative and not engine.spec_supported:
             log.warning("speculative decoding disabled: unsupported on this "
                         "engine config (paged KV pool)")
@@ -198,6 +211,10 @@ class ContinuousBatcher:
         self._qlock = threading.Lock()
         self._live: Dict[int, _Live] = {}  # guarded by _lock
         self._lock = threading.Lock()
+        # the admission in flight, chunk by chunk, and its reserved slot
+        # (inactive on the engine until the final chunk)
+        self._prefilling: Optional[Tuple[_Live, ChunkedPrefill]] = None
+        self._reserved_slot = -1
         self._wake = threading.Event()
         self._stop = False
         self._ids = itertools.count()
@@ -215,8 +232,9 @@ class ContinuousBatcher:
     # -- public API -------------------------------------------------------------
 
     def queue_depth(self) -> int:
+        """Requests waiting for a slot, the admission in flight included."""
         with self._qlock:
-            return len(self._waiting)
+            return len(self._waiting) + (self._prefilling is not None)
 
     def submit(self, req: Request) -> RequestHandle:
         if not req.prompt_ids:
@@ -250,10 +268,44 @@ class ContinuousBatcher:
 
     # -- scheduler loop -------------------------------------------------------
 
+    def _advance_prefill(self) -> None:
+        """Run one chunk of the admission in flight, if any. When the pool
+        cannot back the chunk, evict and retry the same chunk now (the next
+        pass would hand the freed pages to a new admission); when only
+        higher-priority streams hold the pool, keep the partial admission
+        for the next pass; with nobody to evict, the admission itself fails
+        and its pages return."""
+        if self._prefilling is None:
+            return
+        live, pc = self._prefilling
+        while True:
+            try:
+                first = pc.step()
+                break
+            except PoolExhausted:
+                outcome = self._evict_longest(requester_priority=live.req.priority)
+                if outcome == "blocked":
+                    return
+                if outcome == "empty":
+                    self._prefilling = None
+                    self._reserved_slot = -1
+                    live.done = True
+                    live.abort_reason = "evicted: KV pool exhausted"
+                    self.engine.release(live.slot)
+                    live.out_q.put(_END)
+                    return
+        if first is not None:
+            self._prefilling = None
+            self._reserved_slot = -1
+            live.first_token_at = time.monotonic()
+            with self._lock:
+                self._live[live.slot] = live
+            self._emit(live, first)
+
     def _admit(self) -> None:
         alloc = self.engine.allocator  # None over the dense cache
         while True:
-            free = self.engine.free_slots()
+            free = [s for s in self.engine.free_slots() if s != self._reserved_slot]
             if not free:
                 return
             with self._qlock:
@@ -270,6 +322,11 @@ class ContinuousBatcher:
             live.slot = slot
             ids = live.req.prompt_ids
             need_rows = min(len(ids), self.engine.max_context - 1)
+            window = self.engine.cfg.sliding_window
+            if alloc is not None and window is not None and self.prefill_chunk is not None:
+                # a windowed chunked admission trims as it goes: its peak is
+                # the window, one chunk in flight and a page of straddle
+                need_rows = min(need_rows, window + self.prefill_chunk + alloc.page_size)
             if alloc is not None and alloc.blocks_for(need_rows) > alloc.capacity_blocks():
                 # can NEVER fit: fail it now instead of evicting every
                 # co-resident stream on the way to the same conclusion
@@ -278,6 +335,17 @@ class ContinuousBatcher:
                 live.done = True
                 live.abort_reason = "prompt exceeds the KV page pool"
                 live.out_q.put(_END)
+                continue
+            if self.prefill_chunk is not None and len(ids) > self.prefill_chunk:
+                if self._prefilling is not None:
+                    # one incremental admission at a time; FIFO order holds
+                    with self._qlock:
+                        self._waiting.appendleft(live)
+                    return
+                self._prefilling = (live, self.engine.start_chunked_prefill(
+                    slot, ids, temperature=live.req.temperature, top_p=live.req.top_p,
+                    chunk=self.prefill_chunk))
+                self._reserved_slot = slot
                 continue
             try:
                 first = self.engine.prefill(
@@ -340,6 +408,12 @@ class ContinuousBatcher:
             live.done = True
             self.cancellations += 1
             live.out_q.put(_END)
+        if self._prefilling is not None and self._prefilling[0].cancelled:
+            # a cancelled admission releases its reserved slot mid-prefill
+            live = self._prefilling[0]
+            self._prefilling = None
+            self._reserved_slot = -1
+            self._finish(live, was_cancelled=True)
         with self._lock:
             cancelled = [l for l in self._live.values() if l.cancelled]
         for live in cancelled:
@@ -369,8 +443,13 @@ class ContinuousBatcher:
     def _terminate_outstanding(self, reason: str) -> None:
         """End every live and queued request with ``reason`` as its abort;
         called when no scheduler pass will run again."""
+        victims: List[_Live] = []
+        if self._prefilling is not None:
+            victims.append(self._prefilling[0])
+            self._prefilling = None
+            self._reserved_slot = -1
         with self._lock:
-            victims = list(self._live.values())
+            victims.extend(self._live.values())
             self._live.clear()
         with self._qlock:
             victims.extend(self._waiting)
@@ -476,17 +555,20 @@ class ContinuousBatcher:
 
     def _tick(self) -> None:
         self._reap_cancelled()
+        self._advance_prefill()
         self._admit()
         with self._lock:
             slots = dict(self._live)
         if not slots:
+            if self._prefilling is not None:
+                return  # nothing to decode; keep chunking
             self._wake.wait(timeout=0.05)
             self._wake.clear()
             return
         # two dispatch sizes only; overshooting a request's budget costs a
         # few ignored tokens
         with self._qlock:
-            anyone_waiting = bool(self._waiting)
+            anyone_waiting = bool(self._waiting) or self._prefilling is not None
         n = ADMIT_CHUNK_STEPS if anyone_waiting else CHUNK_STEPS
         proposer = None
         if self.speculative and not self.degrade_spec:

@@ -1,5 +1,6 @@
 """The decode engine: paged KV pool or dense slot cache, bucketed whole-prompt
-prefill, batched decode with on-device sampling, n-gram speculation.
+prefill, chunked admission, the prompt-prefix cache, batched decode with
+on-device sampling, n-gram speculation.
 
 ``TorchEngine`` is the counterpart of ``aios_tpu``'s ``TPUEngine``. Weights,
 the KV cache and all per-slot decode state (lengths, last tokens,
@@ -26,6 +27,19 @@ Inactive slots decode garbage against the sacrificial page, or the dense
 cache's last row; their outputs are ignored. Over the pool a sliding-window
 model returns each slot's pages below the window before a dispatch.
 
+A long prompt is admitted a chunk at a time (``start_chunked_prefill``, the
+``ChunkedPrefill`` driver): each ``step()`` writes one chunk's K/V rows and
+attends them over everything written so far (``model.prefill_chunk`` or
+``prefill_chunk_paged``, K6 or K7 with the chunk as T queries of one slot),
+and the caller runs decode dispatches of the other slots in between; the
+slot stays inactive, so those write only the sacrificial page or row, until
+the final chunk samples its first token and activates it. Over the pool,
+prompts' full leading blocks are published to a prefix index
+(``paged.RadixPrefixIndex`` by default, ``paged.PrefixIndex`` with
+``prefix_radix=False``): a later prompt whose leading blocks hash-match maps
+those pages shared, read-only, and admits only its tail through the chunked
+path.
+
 ``spec_step(n_rounds, draft_len, ngram)`` runs speculative rounds over the
 dense cache: propose drafts from the device token history (``spec.py``),
 verify them in one multi-token forward, accept the longest matching prefix.
@@ -35,8 +49,9 @@ Weights serve as int8 (``quantize="int8"``) or group-wise int4
 with f32 scales beside it ([L, N, P, KH] or [L, S, C, KH]), rows quantizing
 on write.
 
-Not here yet (later slices of the port): the prefix cache and host tier,
-chunked admission, speculation over the page pool (``verify_step_paged``),
+Not here yet (later slices of the port): the prefix cache's host tier,
+KVX1 export and the fleet digest, speculation over the page pool
+(``verify_step_paged``),
 the draft-model proposer, jump-ahead and masked steps, the multi-tick
 megagraph, window+sink KV compression, sharding and the pipelined
 ``step_async``.
@@ -47,6 +62,7 @@ from __future__ import annotations
 import functools
 import gc
 import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple, Union
@@ -70,6 +86,40 @@ SPEC_DRAFT_LEN = 7
 SPEC_NGRAM = 3
 
 
+def _env_flag(name: str) -> Optional[bool]:
+    """The JAX stack's tri-state boolean variables: None when unset."""
+    raw = os.environ.get(name, "").strip().lower()
+    if not raw:
+        return None
+    return raw in ("1", "true", "on", "yes")
+
+
+def workspace_launches(cfg: ModelConfig, num_slots: int, max_context: int, *,
+                       chunk: Optional[int], speculative: bool,
+                       sms: int) -> List[Tuple[int, int, int]]:
+    """(groups, splits, partial rows) of each split-attention launch shape
+    an engine makes: the single-query decode attention of every slot (K3,
+    K4, K8, K9), with speculation the verify attention of the longest draft
+    (K6, K7), and with ``chunk`` a chunk's attention, B = 1 and T = chunk
+    over the whole context (K6, K7). ``split.workspace`` sizes for them."""
+    KH, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    splits = split.split_plan(max_context, num_slots, KH, sms)
+    out = [(*split.launch_groups(num_slots, KH), splits)]
+    if speculative:
+        out.append((*split.launch_groups(num_slots, KH, (spec.HISTORY_PAD - 1) * G), splits))
+    if chunk:
+        out.append((*split.launch_groups(1, KH, chunk * G),
+                    split.split_plan(max_context, 1, KH, sms)))
+    return [(groups, s, rows) for groups, rows, s in out]
+
+
+def workspace_floats(launches, head_dim: int) -> int:
+    """The fp32 partials of the workspace that holds every launch of
+    ``workspace_launches``: the largest one's."""
+    return max(groups * s * split.partial_floats(head_dim, rows)
+               for groups, s, rows in launches)
+
+
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -81,7 +131,13 @@ class TorchEngine:
     paged KV pool of ``paged_pool_rows`` rows in pages of ``page_size``, or
     (``paged_pool_rows=None``) a dense cache of ``max_context`` rows per
     slot. ``track_history`` keeps the device token history that the n-gram
-    proposer of ``spec_step`` reads."""
+    proposer of ``spec_step`` reads. Over the pool ``prefix_cache`` (None:
+    on) keeps the prompt-prefix index, a radix tree unless ``prefix_radix``
+    is False (None reads the JAX stack's ``AIOS_TPU_PREFIX_RADIX``)."""
+
+    # admission granularity of long prompts: the batcher's default chunk and
+    # the chunk a prefix hit's tail admits at (the JAX engine's default)
+    prefill_chunk_default = 512
 
     def __init__(
         self,
@@ -96,6 +152,8 @@ class TorchEngine:
         quantize: Optional[str] = None,
         track_history: bool = True,
         device: Optional[Union[str, torch.device]] = None,
+        prefix_cache: Optional[bool] = None,
+        prefix_radix: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -151,6 +209,23 @@ class TorchEngine:
             shape = (num_pages, page_size)
         else:
             shape = (num_slots, self.max_context)
+        # prefix caching rides on the pool: prompts whose leading full blocks
+        # hash-match an earlier prompt's map those pages, and their tail
+        # admits through the chunked path at the largest bucket up to the
+        # default chunk that divides the context
+        self._prefix_chunk = max(
+            (b for b in self.buckets
+             if b <= self.prefill_chunk_default and self.max_context % b == 0),
+            default=None)
+        self.prefix_index = None
+        if prefix_cache is None:
+            prefix_cache = True
+        if self.paged and prefix_cache and self._prefix_chunk is not None:
+            if prefix_radix is None:
+                prefix_radix = _env_flag("AIOS_TPU_PREFIX_RADIX")
+            index_cls = (paged.PrefixIndex if prefix_radix is False
+                         else paged.RadixPrefixIndex)
+            self.prefix_index = index_cls(self.allocator, max_pages=num_pages)
         # the page pool [L, N, P, KH, D] or the dense cache [L, S, C, KH, D]
         self.k_pool, self.v_pool = model.init_kv_cache(
             cfg, *shape, cache_dtype, self.device
@@ -183,7 +258,9 @@ class TorchEngine:
         self.active = np.zeros(num_slots, dtype=bool)
         self._host_lengths = np.zeros(num_slots, dtype=np.int64)
         self.decode_steps = 0
-        self.prefills = 0
+        self.prefills = 0  # whole-prompt prefill forwards
+        self.prefill_chunks = 0  # chunk forwards of chunked admissions
+        self.prefix_rows_reused = 0
         self.kv_pages_trimmed = 0
         self.spec_rounds = 0
         self.spec_tokens = 0
@@ -202,8 +279,11 @@ class TorchEngine:
 
     def prefill(self, slot: int, token_ids: List[int], temperature: float = 0.0,
                 top_p: float = 1.0) -> int:
-        """Fill ``slot`` with a prompt in one whole-prompt pass at its bucket
-        and return the first generated token. The K/V rows are written
+        """Fill ``slot`` with a prompt and return the first generated token.
+        A prompt whose leading full blocks hit the prefix index maps those
+        pages and admits only its tail, through the chunked path at the
+        prefix chunk (the slot is released if that fails). Any other prompt
+        runs one whole-prompt pass at its bucket: the K/V rows are written
         straight into the page pool, or into rows [0, bucket) of the slot's
         dense cache, in place; rows of the bucket's padding land on the
         sacrificial page or past the prompt and are never read. Raises
@@ -215,6 +295,22 @@ class TorchEngine:
         true_len = len(token_ids)
         if true_len == 0:
             raise ValueError("empty prompt")
+        matched, hashes = 0, []
+        if self.prefix_index is not None:
+            with self._lock:
+                matched, hashes = self._match_prefix(slot, token_ids)
+        if matched:
+            pc = ChunkedPrefill(self, slot, token_ids, temperature, top_p,
+                                self._prefix_chunk, start_pos=matched, hashes=hashes)
+            try:
+                first = pc.step()
+                while first is None:
+                    first = pc.step()
+            except BaseException:
+                # the shared pages must not leak into the batcher's retry
+                self.release(slot)
+                raise
+            return first
         bucket = self.bucket_for(true_len)
         padded = torch.zeros((1, bucket), dtype=torch.int64)
         padded[0, :true_len] = torch.tensor(token_ids, dtype=torch.int64)
@@ -241,24 +337,121 @@ class TorchEngine:
             else:
                 self.k_pool[:, pages, offs] = ks[:, 0].to(self.k_pool.dtype)
                 self.v_pool[:, pages, offs] = vs[:, 0].to(self.v_pool.dtype)
-            temp = torch.tensor([temperature], dtype=torch.float32, device=dev)
-            tp = torch.tensor([top_p], dtype=torch.float32, device=dev)
-            first = sampling.sample(logits[0, true_len - 1][None], self.generator, temp, tp)
             if self.track_history:
-                # the whole padded bucket, then the first token over the
-                # padding's first column
+                # the whole padded bucket; _activate puts the first token
+                # over the padding's first column
                 self.history[slot, :bucket] = padded[0]
-                self.history[slot, true_len] = first[0]
-            self.lengths[slot] = true_len
-            self.last_tokens[slot] = first[0]
-            self.temps[slot] = temp[0]
-            self.top_ps[slot] = tp[0]
-            self.active_dev[slot] = True
-            self.active[slot] = True
-            self._host_lengths[slot] = true_len
+            first_token = self._activate(slot, logits[0, true_len - 1], true_len,
+                                         temperature, top_p)
             self.prefills += 1
-            first_token = int(first[0])
+            self._register_prefix(slot, token_ids, hashes)
         return first_token
+
+    def _activate(self, slot: int, row_logits: torch.Tensor, true_len: int,
+                  temperature: float, top_p: float) -> int:
+        """The end of an admission: sample the first token from the logits
+        row of the prompt's last token, put it in the history at column
+        ``true_len`` and make the slot live on the device and in the host
+        mirrors. Caller holds the lock."""
+        dev = self.device
+        temp = torch.tensor([temperature], dtype=torch.float32, device=dev)
+        tp = torch.tensor([top_p], dtype=torch.float32, device=dev)
+        first = sampling.sample(row_logits[None], self.generator, temp, tp)
+        if self.track_history:
+            self.history[slot, true_len] = first[0]
+        self.lengths[slot] = true_len
+        self.last_tokens[slot] = first[0]
+        self.temps[slot] = temp[0]
+        self.top_ps[slot] = tp[0]
+        self.active_dev[slot] = True
+        self.active[slot] = True
+        self._host_lengths[slot] = true_len
+        return int(first[0])
+
+    def start_chunked_prefill(self, slot: int, token_ids: List[int],
+                              temperature: float = 0.0, top_p: float = 1.0,
+                              chunk: int = 512) -> "ChunkedPrefill":
+        """Begin an incremental prefill of ``slot``: the caller calls
+        ``.step()`` once per chunk and may run decode dispatches of the
+        other slots in between (the continuous batcher does). ``chunk`` must
+        be a prefill bucket that divides max_context, so that chunk writes
+        never run past the cache end. A prompt whose leading blocks hit the
+        prefix index starts after its matched rows."""
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(f"slot {slot} out of range")
+        if chunk not in self.buckets or self.max_context % chunk:
+            raise ValueError(f"chunk {chunk} must be a prefill bucket dividing "
+                             f"max_context={self.max_context}")
+        ids = list(token_ids)[-(self.max_context - 1):]
+        matched, hashes = 0, []
+        if self.prefix_index is not None:
+            with self._lock:
+                matched, hashes = self._match_prefix(slot, ids)
+        return ChunkedPrefill(self, slot, ids, temperature, top_p, chunk,
+                              start_pos=matched, hashes=hashes)
+
+    def _chunk_forward(self, slot: int, tokens: torch.Tensor, start: int) -> torch.Tensor:
+        """One chunk of ``slot``'s admission, tokens [1, bucket] on the
+        device at rows [start, start+bucket): the K/V rows into the cache
+        and the tokens into the history (columns past its end collapse onto
+        the sacrificial last column: a prefix match de-aligns chunk starts,
+        so a final bucket's padding may overrun). Returns the chunk's
+        logits [1, bucket, V]. Caller holds the lock and has backed the
+        rows."""
+        if self.paged:
+            table_row = torch.from_numpy(self.allocator.tables[slot]).to(self.device)
+            logits = model.prefill_chunk_paged(
+                self.params, self.cfg, tokens, start, self.k_pool, self.v_pool, table_row,
+                cache_scales=self._cache_scales())
+        else:
+            logits = model.prefill_chunk(
+                self.params, self.cfg, tokens, slot, start, self.k_pool, self.v_pool,
+                cache_scales=self._cache_scales())
+        if self.track_history:
+            cols = torch.arange(start, start + tokens.shape[1], device=self.device)
+            self.history[slot, cols.clamp(max=self.history.shape[1] - 1)] = tokens[0]
+        self.prefill_chunks += 1
+        return logits
+
+    def _match_prefix(self, slot: int, ids: List[int]) -> Tuple[int, List[bytes]]:
+        """Map the longest hash-matched prefix of ``ids`` into ``slot``'s page
+        table as shared read-only pages and backfill its history. The match
+        is capped at the prompt's last full block minus one row, so every
+        write of the slot lands past the shared rows. Returns (matched rows,
+        the prompt's block hashes), the hashes even on a miss (registration
+        publishes them after the admission). Caller holds the lock.
+
+        The matched rows are page-aligned but not chunk-aligned: the tail's
+        chunk starts inherit the misalignment, which ``chunk_write_rows``
+        and the history's clamped write are built for."""
+        P = self.allocator.page_size
+        full = (len(ids) - 1) // P
+        if full <= 0:
+            return 0, []
+        hashes = paged.chain_hashes(ids, P, full)
+        pages = self.prefix_index.match(hashes)
+        if not pages:
+            return 0, hashes
+        self.allocator.map_shared(slot, pages)
+        matched = len(pages) * P
+        self.prefix_rows_reused += matched
+        if self.track_history:
+            self.history[slot, :matched] = torch.tensor(ids[:matched], dtype=torch.int64,
+                                                        device=self.device)
+        return matched, hashes
+
+    def _register_prefix(self, slot: int, ids: List[int], hashes: List[bytes]) -> None:
+        """After an admission, publish the slot's fully covered prompt
+        blocks to the index so that the next prompt with this prefix skips
+        their prefill. A slot that window trimming released leading blocks
+        of has nothing registrable (a chain starts at block 0). Caller holds
+        the lock."""
+        if self.prefix_index is None or not hashes:
+            return
+        if self.allocator.trimmed_blocks(slot):
+            return
+        pages = [int(self.allocator.tables[slot, b]) for b in range(len(hashes))]
+        self.prefix_index.put(hashes, pages)
 
     # -- decode -----------------------------------------------------------------
 
@@ -378,22 +571,36 @@ class TorchEngine:
         log.info("%s: captured the %s graph (%d kernel launches) in %.2fs", self.cfg.name,
                  key, sum(graph.launches.values()), time.perf_counter() - t0)
 
+    def _workspace_launches(self) -> List[Tuple[int, int, int]]:
+        """The split launches of this engine (``workspace_launches``): the
+        decode attention, the verify attention where it speculates, and a
+        chunk of ``prefill_chunk_default`` rows (the batcher's default
+        chunk and the prefix hit's)."""
+        return workspace_launches(
+            self.cfg, self.num_slots, self.max_context, chunk=self._prefix_chunk,
+            speculative=self.spec_supported and self.track_history,
+            sms=sm_count(self.device.index))
+
+    def workspace_bytes(self) -> int:
+        """Bytes of the split workspace the engine reserves on a stream (fp32
+        partials and int32 tickets), 0 off CUDA."""
+        if self.device.type != "cuda":
+            return 0
+        launches = self._workspace_launches()
+        groups = max(g for g, _, _ in launches)
+        return 4 * (workspace_floats(launches, self.cfg.head_dim) + groups)
+
     def _reserve_workspaces(self) -> None:
         """Make the current stream's split workspace at the largest launch
-        any graph of this engine can make (single-query attention over the
-        whole context; with speculation, the verify attention of the
-        longest draft spec_step takes) and its split-K ticket counters,
-        before a capture holds their addresses."""
-        dev, cfg = self.device, self.cfg
+        this engine makes (single-query attention over the whole context;
+        with speculation, the verify attention of the longest draft
+        spec_step takes; a chunk of the admission, B = 1 and T = its rows)
+        and its split-K ticket counters, before a capture holds their
+        addresses."""
+        dev = self.device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        B, KH, D = self.num_slots, cfg.num_kv_heads, cfg.head_dim
-        splits = split.split_plan(self.max_context, B, KH, sm_count(dev.index))
-        query_rows = [0]
-        if self.spec_supported and self.track_history:
-            query_rows.append((spec.HISTORY_PAD - 1) * (cfg.num_heads // KH))
-        for rows in query_rows:
-            groups, partial_rows = split.launch_groups(B, KH, rows)
-            split.workspace(dev, stream, groups, splits, D, partial_rows)
+        for groups, splits, rows in self._workspace_launches():
+            split.workspace(dev, stream, groups, splits, self.cfg.head_dim, rows)
         counters_for(dev, stream)
 
     def capture_step(self) -> None:
@@ -531,6 +738,7 @@ class TorchEngine:
         out = {
             "decode_steps": self.decode_steps,
             "prefills": self.prefills,
+            "prefill_chunks": self.prefill_chunks,
             "active_slots": active,
             "batch_occupancy": round(active / self.num_slots, 3) if self.num_slots else 0.0,
         }
@@ -540,6 +748,10 @@ class TorchEngine:
                 kv_pages_free=self.allocator.free_pages,
                 kv_pages_trimmed=self.kv_pages_trimmed,
             )
+        if self.prefix_index is not None:
+            out.update(prefix_hits=self.prefix_index.hits,
+                       prefix_misses=self.prefix_index.misses,
+                       prefix_rows_reused=self.prefix_rows_reused)
         # the JAX engine's compile accounting (xla_compiles), for graphs
         out.update(graph_captures=self.graphs.captures,
                    graph_capture_seconds=round(self.graphs.capture_seconds, 3),
@@ -559,11 +771,15 @@ class TorchEngine:
         graph of spec_step's defaults: the twin of the JAX ``warmup``, which
         compiles every serving graph behind the readiness gate, so the first
         request waits for neither nvcc nor a capture. A failed capture
-        raises. The CPU runs the bodies eagerly and captures nothing."""
+        raises. The split workspace of the current stream, where chunked
+        admission runs eagerly, is reserved here as well. The CPU runs the
+        bodies eagerly and captures nothing."""
         if self.device.type != "cuda":
             return
         t0 = time.perf_counter()
         ops.build_all()
+        with self._lock:
+            self._reserve_workspaces()
         self.capture_step()
         self.capture_spec()
         log.info("%s: kernels and %d graphs ready in %.1fs", self.cfg.name,
@@ -635,3 +851,67 @@ class TorchEngine:
                 if t in stop_tokens:
                     return out[: i + 1]
         return out
+
+
+class ChunkedPrefill:
+    """Driver of one slot's incremental prefill (the JAX engine's
+    ``ChunkedPrefill``). Each ``step()`` runs one chunk under the engine
+    lock; between calls the owner may run ``engine.step`` for the other
+    slots. While chunks are in flight the slot stays inactive, so the decode
+    dispatches in between write its (ignored) K/V to the sacrificial page or
+    the dense cache's last row and never touch the rows already admitted.
+    The final chunk, at ``bucket_for`` of the rows left, samples the first
+    token, activates the slot and publishes its prefix blocks."""
+
+    def __init__(self, engine: TorchEngine, slot: int, token_ids: List[int],
+                 temperature: float, top_p: float, chunk: int, start_pos: int = 0,
+                 hashes=()) -> None:
+        ids = list(token_ids)[-(engine.max_context - 1):]
+        if not ids:
+            raise ValueError("empty prompt")
+        self.engine = engine
+        self.slot = slot
+        self.ids = ids
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.chunk = int(chunk)
+        self.pos = int(start_pos)  # rows already in the cache (a matched prefix)
+        self.hashes = list(hashes)  # block hashes to publish when done
+        self.first_token: Optional[int] = None
+        # the final chunk's logits row the first token was sampled from
+        self.first_logits: Optional[torch.Tensor] = None
+
+    @property
+    def done(self) -> bool:
+        return self.first_token is not None
+
+    def step(self) -> Optional[int]:
+        """Run the next chunk; returns the first sampled token once the
+        prompt is admitted, else None. Over the pool the chunk's rows are
+        backed first (a sliding-window model first returns the blocks no
+        later chunk can see), so PoolExhausted leaves the admission as it
+        was."""
+        if self.done:
+            return self.first_token
+        eng = self.engine
+        remaining = len(self.ids) - self.pos
+        final = remaining <= self.chunk
+        n = min(self.chunk, remaining)
+        bucket = eng.bucket_for(n) if final else self.chunk
+        padded = torch.zeros((1, bucket), dtype=torch.int64)
+        padded[0, :n] = torch.tensor(self.ids[self.pos:self.pos + n], dtype=torch.int64)
+        with eng._lock:
+            if eng.paged:
+                window = eng.cfg.sliding_window
+                if window is not None:
+                    eng.kv_pages_trimmed += eng.allocator.trim_below_window(
+                        self.slot, self.pos, window)
+                eng.allocator.ensure(self.slot, self.pos + n)
+            logits = eng._chunk_forward(self.slot, padded.to(eng.device), self.pos)
+            if final:
+                self.first_logits = logits[0, n - 1].clone()
+                self.first_token = eng._activate(self.slot, self.first_logits,
+                                                 len(self.ids), self.temperature, self.top_p)
+                eng._register_prefix(self.slot, self.ids, self.hashes)
+        self.pos += n
+        return self.first_token

@@ -19,7 +19,8 @@ D=head_dim), layer leaves stacked on a leading [L] axis:
 f32}, with fused ``w_qkv`` and ``w_gateup``. The KV cache is a paged pool
 [L, N, P, KH, D] or a dense slot cache [L, S, C, KH, D], bf16 (or f32 in
 tests), or int8 with per-(row, kv head) f32 scales beside it
-(``cache_scales``). Every entry
+(``cache_scales``). ``prefill_chunk`` and ``prefill_chunk_paged`` admit a
+long prompt a chunk at a time into either cache. Every entry
 point takes ``kernels``: True runs the ops wrappers (the CUDA kernels on
 CUDA tensors, their plain twins on CPU tensors), False calls the plain
 ``*_reference`` functions by name — how a caller holds the kernel path
@@ -114,8 +115,9 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
                            quantize: Optional[str], pages_per_slot: int = 0) -> List[str]:
     """Every way ``cfg`` breaks the contract of a CUDA kernel on the path it
     would be served on: K2 for prefill; K3 (bf16 pool) or K4 (int8 pool)
-    for a paged decode, over at most ``pages_per_slot`` pages a slot, or
-    K6-K9 for the dense cache; and with ``quantize`` ("int8" or "int4")
+    for a paged decode, over at most ``pages_per_slot`` pages a slot, and
+    K6 or K7 for its chunked admission, or K6-K9 for the dense cache; and
+    with ``quantize`` ("int8" or "int4")
     K1/K5 for each serving leaf, as ``_quant_leaf`` would store it. The
     limits are the ones the wrappers check. Empty when every kernel takes
     it; the plain paths on the CPU serve any geometry."""
@@ -137,6 +139,10 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
         if pages_per_slot > MAX_STAGED_PAGES:
             faults.append(f"paged decode attention: {pages_per_slot} pages per slot, at "
                           f"most {MAX_STAGED_PAGES}")
+        # chunked admission attends a chunk over the slot's gathered pages
+        attention("multiquery_decode_attention_int8 (K7), chunked admission" if quant_cache
+                  else "multiquery_decode_attention (K6), chunked admission",
+                  DENSE_HEAD_DIMS, DENSE_MAX_GROUP)
     else:
         attention("decode_attention and multiquery_decode_attention (K6-K9)",
                   DENSE_HEAD_DIMS, DENSE_MAX_GROUP)
@@ -552,6 +558,159 @@ def verify_step(
     indeterminate, so callers must not consume its tokens."""
     return _dense_forward(params, cfg, tokens, lengths, k_cache, v_cache, active,
                           kernels, cache_scales, multi=True)
+
+
+# ---------------------------------------------------------------------------
+# Chunked admission: one chunk of a prompt against the cache
+# ---------------------------------------------------------------------------
+
+
+def _start_index(start, device) -> torch.Tensor:
+    """A chunk's start row as the [1] int32 ``lengths`` operand of the
+    multi-query attention (a host int is copied in; a device tensor is used
+    as it is, so that nothing is read back)."""
+    if isinstance(start, torch.Tensor):
+        return start.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(start)], dtype=torch.int32, device=device)
+
+
+def _chunk_forward(params: Params, cfg: ModelConfig, tokens, start, layer_io,
+                   kernels: bool):
+    """The body both chunk forwards share. Token t of ``tokens`` [1, Tc] sits
+    at row ``start + t``; per layer, ``layer_io(i, k_new, v_new)`` writes the
+    chunk's K/V rows [Tc, KH, D] into layer i of the cache and returns that
+    layer's view of the slot, (k, v) or (k, v, k_scales, v_scales) each
+    [1, C, ...]; chunk row t then attends over the rows ``<= start + t``
+    inside the sliding window: ``multiquery_decode_attention`` (K6) or its
+    int8 twin (K7) with B = 1, lengths = [start], strides = [1], T = Tc,
+    which is the visibility of the JAX ``blockwise_cache_attention``.
+    Returns logits [1, Tc, V] in fp32."""
+    Tc = tokens.shape[1]
+    dev = tokens.device
+    positions = start.long()[:, None] + torch.arange(Tc, device=dev)[None, :]
+    strides = torch.ones(1, dtype=torch.int32, device=dev)
+    x = params["embed"][tokens]  # [1, Tc, E]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for i, lp in enumerate(layer_params(params)):
+        q, k_new, v_new = _project_qkv(x, lp, cfg, cos, sin, kernels)
+        caches = layer_io(i, k_new[0], v_new[0])
+        if len(caches) == 4:
+            fn = (ops.multiquery_decode_attention_int8 if kernels
+                  else ops.multiquery_decode_attention_int8_reference)
+        else:
+            fn = (ops.multiquery_decode_attention if kernels
+                  else ops.multiquery_decode_attention_reference)
+        attn = fn(q.contiguous(), *caches, start, strides, window=cfg.sliding_window)
+        x = x + matmul(attn.reshape(1, Tc, -1), lp["wo"], kernels)
+        x = x + _mlp(x, lp, cfg, kernels)
+    return _final_logits(x, params, cfg, kernels)
+
+
+def prefill_chunk(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [1, Tc] — one chunk of one prompt
+    slot: int,  # the destination slot of the dense cache
+    start,  # int or [1] int32 tensor: the row of tokens[0, 0]
+    k_cache: torch.Tensor,  # [L, S, C, KH, D] — dense slot cache
+    v_cache: torch.Tensor,
+    kernels: bool = True,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One chunk of an incremental prefill against the dense slot cache;
+    returns logits [1, Tc, V] in fp32 (the caller samples the row of the
+    prompt's last token on the final chunk).
+
+    Unlike the JAX function, which returns updated caches, this writes the
+    chunk's K/V rows [start, start+Tc) of ``slot`` (and, int8, their
+    scales) IN PLACE, then attends each chunk row over the slot's own rows
+    ``k_cache[i][slot:slot+1]`` written so far (``_chunk_forward``). Rows of
+    a chunk that would run past the cache end collapse onto the last row;
+    the engine never issues one (its chunk divides the context)."""
+    dev = tokens.device
+    C = k_cache.shape[2]
+    start = _start_index(start, dev)
+    rows = (start.long() + torch.arange(tokens.shape[1], device=dev)).clamp(max=C - 1)
+
+    def layer_io(i, k_new, v_new):
+        own = slice(slot, slot + 1)
+        if cache_scales is not None:
+            k_s, v_s = cache_scales[0][i], cache_scales[1][i]
+            scatter_quant(k_cache[i], k_s, slot, rows, k_new)
+            scatter_quant(v_cache[i], v_s, slot, rows, v_new)
+            return k_cache[i][own], v_cache[i][own], k_s[own], v_s[own]
+        k_cache[i][slot, rows] = k_new.to(k_cache.dtype)
+        v_cache[i][slot, rows] = v_new.to(v_cache.dtype)
+        return k_cache[i][own], v_cache[i][own]
+
+    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels)
+
+
+def chunk_write_rows(table_row: torch.Tensor, start: torch.Tensor, Tc: int,
+                     P: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pages, offsets) [Tc] of a chunk's rows in the page pool, as the JAX
+    ``prefill_chunk_paged`` writes them. Chunk and page sizes are powers of
+    two, so a chunk either spans Tc/P whole pages from a page-aligned
+    ``start`` or sits inside one page. The table is padded with
+    sacrificial entries first, so that a final bucket whose padding runs
+    past the slot's last block (a prefix match de-aligns chunk starts)
+    writes its overflow rows on page 0."""
+    dev = table_row.device
+    if Tc >= P:
+        nb = Tc // P
+        ext = torch.cat([table_row, table_row.new_zeros(nb)]).long()
+        blocks = start.long() // P + torch.arange(nb, device=dev)
+        return ext[blocks].repeat_interleave(P), torch.arange(Tc, device=dev) % P
+    page = table_row.long()[start.long() // P]  # [1]
+    return page.expand(Tc), start.long() % P + torch.arange(Tc, device=dev)
+
+
+def prefill_chunk_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [1, Tc] — one chunk of one prompt
+    start,  # int or [1] int32 tensor: the row of tokens[0, 0]
+    k_pool: torch.Tensor,  # [L, N, P, KH, D] — shared page pool
+    v_pool: torch.Tensor,
+    table_row: torch.Tensor,  # [MB] int32 — the slot's block -> page map
+    kernels: bool = True,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One chunk of an incremental prefill against the PAGED pool; returns
+    logits [1, Tc, V] in fp32.
+
+    Unlike the JAX function, which returns updated pools, this writes the
+    chunk's K/V rows at ``chunk_write_rows`` IN PLACE (int8: quantized,
+    with their scales, through ``scatter_quant``), then gathers the slot's
+    logical view [1, MB*P, KH, D] through ``table_row`` (a copy, as the JAX
+    function does; int8: the bytes and the [1, MB*P, KH] scales, which K7
+    folds in f32) and attends each chunk row over it
+    (``_chunk_forward``). The caller must have backed rows
+    [0, start+Tc) that hold prompt tokens; unbacked blocks map the
+    sacrificial page, which no visible row reads. A final bucket may run
+    past the slot's MB*P rows (a de-aligned start after a prefix match):
+    its overflow rows land on page 0 and its queries past the end are
+    saturated, their outputs unconsumed."""
+    dev = tokens.device
+    P, KH, D = k_pool.shape[2], k_pool.shape[3], k_pool.shape[4]
+    MB = table_row.shape[0]
+    start = _start_index(start, dev)
+    pages, offs = chunk_write_rows(table_row, start, tokens.shape[1], P)
+    t = table_row.long()
+
+    def layer_io(i, k_new, v_new):
+        k_l, v_l = k_pool[i], v_pool[i]
+        if cache_scales is not None:
+            k_s, v_s = cache_scales[0][i], cache_scales[1][i]
+            scatter_quant(k_l, k_s, pages, offs, k_new)
+            scatter_quant(v_l, v_s, pages, offs, v_new)
+            return (k_l[t].reshape(1, MB * P, KH, D), v_l[t].reshape(1, MB * P, KH, D),
+                    k_s[t].reshape(1, MB * P, KH), v_s[t].reshape(1, MB * P, KH))
+        k_l[pages, offs] = k_new.to(k_l.dtype)
+        v_l[pages, offs] = v_new.to(v_l.dtype)
+        return k_l[t].reshape(1, MB * P, KH, D), v_l[t].reshape(1, MB * P, KH, D)
+
+    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Host-side page tables for the paged KV pool.
+"""Host-side page tables for the paged KV pool, and the prompt-prefix index.
 
 The device holds a fixed page pool ([L, N, P, KH, D] per k/v) and reads it
 through per-slot page tables; this module owns the mapping. Allocation is a
@@ -9,16 +9,28 @@ corrupting anyone's cache.
 Page 0 is the sacrificial page: never allocated, mapped by every unbacked
 table entry, and the write target of inactive slots.
 
-A copy of ``PageAllocator`` and ``PoolExhausted`` from
-``aios_tpu/engine/paged.py``, window trimming included, without what the
-port has not reached yet (replica partitions, shared prefix pages,
-window+sink pruning). The caller (the engine, under its lock) serializes
-access.
+Pages carry a reference count: a slot's table holds one reference on each
+page it maps, and the prefix index one on each page it caches, so a prompt's
+leading full blocks outlive the request that computed them and map, shared
+and read-only, into the next prompt with the same prefix
+(``PrefixIndex``, ``RadixPrefixIndex``, keyed by ``chain_hashes``). When the
+free list runs dry, the allocator asks the index (its ``reclaimer``) to drop
+cold pages that nothing else holds.
+
+Copies of ``PageAllocator``, ``PoolExhausted``, ``chain_hashes``,
+``PrefixIndex`` and ``RadixPrefixIndex`` from ``aios_tpu/engine/paged.py``,
+window trimming included, without what the port has not reached yet
+(replica partitions, window+sink pruning, the host spill tier and the
+fleet digest). The caller (the engine, under its lock) serializes access to
+the allocator; each index also has a lock of its own.
 """
 
 from __future__ import annotations
 
-from typing import List
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,7 +51,7 @@ class PoolExhausted(RuntimeError):
 class PageAllocator:
     """Free-list allocator over ``num_pages`` physical pages of
     ``page_size`` rows, mapping ``num_slots`` slots x ``max_blocks`` logical
-    blocks."""
+    blocks, with a reference count per page."""
 
     def __init__(self, num_pages: int, page_size: int, num_slots: int,
                  max_blocks: int) -> None:
@@ -54,8 +66,14 @@ class PageAllocator:
         self.tables = np.full((num_slots, max_blocks), SACRIFICIAL_PAGE,
                               dtype=np.int32)
         self._blocks_used = np.zeros(num_slots, dtype=np.int64)
-        # leading blocks of each slot already returned by trim_below_window
+        # leading blocks of each slot already returned by trim_below_window;
+        # their table entries are stale but never read until the slot frees
         self._trimmed = np.zeros(num_slots, dtype=np.int64)
+        # owners of each page (slot tables and the prefix index); 0 = free
+        self._rc = np.zeros(num_pages, dtype=np.int64)
+        # called with the shortfall when the free list runs dry; returns how
+        # many pages it reclaimed (the prefix index plugs in here)
+        self.reclaimer: Optional[Callable[[int], int]] = None
 
     @property
     def free_pages(self) -> int:
@@ -71,48 +89,493 @@ class PageAllocator:
     def blocks_for(self, rows: int) -> int:
         return -(-rows // self.page_size)
 
+    def _take(self, grow: int) -> None:
+        if grow > len(self._free) and self.reclaimer is not None:
+            self.reclaimer(grow - len(self._free))
+        if grow > len(self._free):
+            raise PoolExhausted(grow, len(self._free))
+
     def ensure(self, slot: int, rows: int) -> bool:
         """Back ``slot`` for ``rows`` logical rows, allocating any missing
-        pages. Returns True iff the table changed. Raises PoolExhausted,
-        leaving existing pages intact, when the free list cannot cover the
-        growth."""
+        pages (refcount 1). Returns True iff the table changed. Raises
+        PoolExhausted, leaving existing pages intact, when the free list
+        cannot cover the growth even after the reclaimer dropped cold
+        prefix pages."""
         need = min(self.blocks_for(rows), self.max_blocks)
         have = int(self._blocks_used[slot])
         if need <= have:
             return False
-        if need - have > len(self._free):
-            raise PoolExhausted(need - have, len(self._free))
+        self._take(need - have)
         for b in range(have, need):
-            self.tables[slot, b] = self._free.pop()
+            page = self._free.pop()
+            self._rc[page] = 1
+            self.tables[slot, b] = page
         self._blocks_used[slot] = need
         return True
 
+    def map_shared(self, slot: int, pages: Sequence[int]) -> None:
+        """Map already-resident pages (a matched prefix) as ``slot``'s
+        leading blocks, taking a reference on each. The slot must be empty
+        (a fresh admission)."""
+        assert int(self._blocks_used[slot]) == 0, "slot must be empty"
+        for b, page in enumerate(pages):
+            self._rc[page] += 1
+            self.tables[slot, b] = page
+        self._blocks_used[slot] = len(pages)
+
+    def alloc_pages(self, n: int) -> List[int]:
+        """Pop ``n`` fresh pages (refcount 1 each) without mapping them to a
+        slot (``append_owned`` maps them). Raises PoolExhausted, after
+        asking the reclaimer, with nothing allocated."""
+        self._take(n)
+        out: List[int] = []
+        for _ in range(n):
+            page = self._free.pop()
+            self._rc[page] = 1
+            out.append(page)
+        return out
+
+    def append_owned(self, slot: int, pages: Sequence[int]) -> None:
+        """Map pages ``alloc_pages`` returned as ``slot``'s next logical
+        blocks; their references are already taken."""
+        start = int(self._blocks_used[slot])
+        for b, page in enumerate(pages, start=start):
+            self.tables[slot, b] = page
+        self._blocks_used[slot] = start + len(pages)
+
+    def refcount(self, page: int) -> int:
+        """A page's reference count (0 = on the free list)."""
+        return int(self._rc[page])
+
+    def refcounts(self, pages) -> np.ndarray:
+        """``refcount`` of an array of page ids."""
+        return self._rc[np.asarray(pages, dtype=np.int64)]
+
+    def incref(self, page: int) -> None:
+        self._rc[page] += 1
+
+    def decref(self, page: int) -> None:
+        self._rc[page] -= 1
+        if self._rc[page] == 0:
+            self._free.append(page)
+        assert self._rc[page] >= 0, f"page {page} refcount underflow"
+
     def free_slot(self, slot: int) -> None:
-        """Return the slot's pages to the free list and remap its table row
-        to the sacrificial page. Blocks released earlier by window trimming
-        are already free and are skipped."""
+        """Drop the slot's reference on each of its pages; a page whose
+        count reaches 0 returns to the free list (shared prefix pages
+        survive under their other owners). Blocks released earlier by
+        window trimming were already dropped and are skipped."""
         used = int(self._blocks_used[slot])
         for b in range(int(self._trimmed[slot]), used):
-            self._free.append(int(self.tables[slot, b]))
+            self.decref(int(self.tables[slot, b]))
         self.tables[slot, :used] = SACRIFICIAL_PAGE
         self._blocks_used[slot] = 0
         self._trimmed[slot] = 0
 
     def trim_below_window(self, slot: int, length: int, window: int) -> int:
-        """Release the slot's leading blocks that sliding-window attention
-        can never read again: block b is dead once its last row
-        ``(b+1)*P - 1`` falls below ``length - window`` (window starts only
-        move forward, and the decode kernels start reading at
+        """Drop the slot's references on its leading blocks that
+        sliding-window attention can never read again: block b is dead once
+        its last row ``(b+1)*P - 1`` falls below ``length - window`` (window
+        starts only move forward; every reader starts at
         ``max(length + 1 - window, 0)``). The table entries keep their stale
         page ids; they are never read and ``ensure`` never rewinds. Returns
-        the blocks freed now."""
+        the blocks released now."""
         used = int(self._blocks_used[slot])
         dead = min(max(length - window, 0) // self.page_size, used)
         freed = 0
         for b in range(int(self._trimmed[slot]), dead):
-            self._free.append(int(self.tables[slot, b]))
+            self.decref(int(self.tables[slot, b]))
             freed += 1
         if dead > self._trimmed[slot]:
             self._trimmed[slot] = dead
         return freed
 
+    def trimmed_blocks(self, slot: int) -> int:
+        """Leading blocks of ``slot`` released by ``trim_below_window``."""
+        return int(self._trimmed[slot])
+
+    def slot_pages_resident(self, slot: int) -> int:
+        """Pages the slot references now: mapped blocks less trimmed ones."""
+        return int(self._blocks_used[slot]) - int(self._trimmed[slot])
+
+
+def chain_hashes(token_ids: Sequence[int], page_size: int,
+                 num_blocks: int) -> List[bytes]:
+    """sha256 per full prompt block, chained so that block b's hash commits
+    to every token of [0, (b+1)*P): matching block b matches the whole
+    prefix, which is the condition for its K/V to be the same. The bytes of
+    the JAX package's ``chain_hashes`` (int32 token bytes), so that both
+    stacks key a prefix alike."""
+    hashes: List[bytes] = []
+    h = b""
+    for b in range(num_blocks):
+        block = np.asarray(token_ids[b * page_size: (b + 1) * page_size], np.int32)
+        h = hashlib.sha256(h + block.tobytes()).digest()
+        hashes.append(h)
+    return hashes
+
+
+class _PrefixIndexBase:
+    """What both prefix indexes share: the allocator hook-up (the index is
+    the allocator's ``reclaimer``), hit and miss counters, and a lock of
+    the index's own. The flat hash-chain map (``PrefixIndex``) and the
+    radix tree (``RadixPrefixIndex``, the default) keep one page reference
+    per cached block."""
+
+    def __init__(self, allocator: PageAllocator, max_pages: int) -> None:
+        self.alloc = allocator
+        self.max_pages = max_pages
+        self.hits = 0
+        self.misses = 0
+        self._lock = threading.Lock()
+        allocator.reclaimer = self.reclaim
+
+    def reclaim(self, n: int) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _drop(self, evicted: List[Tuple[bytes, int]]) -> None:
+        """Release the page references of evicted entries, outside the
+        index lock (the callers hold the engine lock, which guards the
+        allocator)."""
+        for _, page in evicted:
+            self.alloc.decref(page)
+
+
+class PrefixIndex(_PrefixIndexBase):
+    """Content-addressed cache of prompt-prefix pages (chain hash -> page),
+    LRU. Matching a prompt's leading full blocks against it turns their
+    prefill into a table update. Shared pages are read-only by
+    construction: a match is capped at the prompt's last full block minus
+    one row, so every write of the slot (the tail, decode) lands past the
+    shared rows."""
+
+    def __init__(self, allocator: PageAllocator, max_pages: int) -> None:
+        super().__init__(allocator, max_pages)
+        self._index: "OrderedDict[bytes, int]" = OrderedDict()  # hash -> page
+
+    def snapshot(self) -> Dict[bytes, int]:
+        """hash -> page of every cached block."""
+        with self._lock:
+            return dict(self._index)
+
+    def match(self, hashes: Sequence[bytes]) -> List[int]:
+        """The pages of the longest indexed prefix of ``hashes`` (LRU
+        refreshed). No reference is taken: the caller maps the pages with
+        ``PageAllocator.map_shared``."""
+        pages: List[int] = []
+        with self._lock:
+            for h in hashes:
+                page = self._index.get(h)
+                if page is None:
+                    break
+                self._index.move_to_end(h)
+                pages.append(page)
+            if pages:
+                self.hits += 1
+            else:
+                self.misses += 1
+        return pages
+
+    def peek(self, hashes: Sequence[bytes]) -> int:
+        """Length of the longest indexed prefix of ``hashes``, touching
+        neither the counters nor the LRU order."""
+        n = 0
+        with self._lock:
+            for h in hashes:
+                if h not in self._index:
+                    break
+                n += 1
+        return n
+
+    def put(self, hashes: Sequence[bytes], pages: Sequence[int]) -> None:
+        """Register computed prefix blocks, one page reference each; LRU
+        entries past ``max_pages`` are evicted."""
+        evicted: List[Tuple[bytes, int]] = []
+        with self._lock:
+            for h, page in zip(hashes, pages):
+                if h in self._index:
+                    self._index.move_to_end(h)
+                    continue
+                self.alloc.incref(page)
+                self._index[h] = page
+            while len(self._index) > self.max_pages:
+                evicted.append(self._index.popitem(last=False))
+        self._drop(evicted)
+
+    def clear(self) -> None:
+        """Drop every entry and its page reference."""
+        with self._lock:
+            while self._index:
+                _, page = self._index.popitem(last=False)
+                self.alloc.decref(page)
+
+    def reclaimable(self) -> int:
+        """Entries ``reclaim`` could free now: pages held by the index
+        alone (refcount 1)."""
+        with self._lock:
+            if not self._index:
+                return 0
+            pages = np.fromiter(self._index.values(), dtype=np.int64,
+                                count=len(self._index))
+            return int(np.count_nonzero(self.alloc.refcounts(pages) == 1))
+
+    def reclaim(self, n: int) -> int:
+        """Drop up to ``n`` of the coldest entries whose pages only the
+        index holds; entries a live slot shares stay."""
+        evicted: List[Tuple[bytes, int]] = []
+        with self._lock:
+            for h in list(self._index):
+                if len(evicted) >= n:
+                    break
+                page = self._index[h]
+                if self.alloc.refcount(page) == 1:
+                    del self._index[h]
+                    evicted.append((h, page))
+        self._drop(evicted)
+        return len(evicted)
+
+
+class _RadixNode:
+    """A path-compressed run of consecutive prefix blocks (``entries``:
+    (chain hash, page) pairs) and its children, keyed by the first hash of
+    each child's run; ``stamp`` is the LRU clock at its last traversal."""
+
+    __slots__ = ("entries", "children", "parent", "stamp")
+
+    def __init__(self, parent: Optional["_RadixNode"]) -> None:
+        self.entries: List[Tuple[bytes, int]] = []
+        self.children: Dict[bytes, "_RadixNode"] = {}
+        self.parent = parent
+        self.stamp = 0
+
+
+class RadixPrefixIndex(_PrefixIndexBase):
+    """Refcounted radix tree over prompt-prefix blocks, the default index:
+    a prompt's chain hashes are its path, two prompts that share K leading
+    blocks share one K-entry path, and eviction pops the deepest blocks of
+    the least recently used leaves first, so a cached chain's prefix is
+    always cached too. ``put`` accepts a chain whose leading blocks are
+    cached already and grafts only the new suffix."""
+
+    def __init__(self, allocator: PageAllocator, max_pages: int) -> None:
+        super().__init__(allocator, max_pages)
+        self._root = _RadixNode(None)
+        self._size = 0  # entries, == pages the tree references
+        self._clock = 0
+
+    # -- internal helpers (caller holds self._lock) ---------------------------
+
+    def _split(self, node: _RadixNode, j: int) -> None:
+        """``entries[:j]`` stay on ``node``; the suffix moves to a new child
+        that takes node's children and its pre-touch stamp."""
+        suffix = node.entries[j:]
+        child = _RadixNode(node)
+        child.entries = suffix
+        child.children = node.children
+        child.stamp = node.stamp
+        for c in child.children.values():
+            c.parent = child
+        node.entries = node.entries[:j]
+        node.children = {suffix[0][0]: child}
+
+    def _leaves(self):
+        stack = [self._root]
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            elif n is not self._root:
+                yield n
+
+    def _detach(self, node: _RadixNode) -> None:
+        parent = node.parent
+        if parent is None:
+            return
+        for key, child in list(parent.children.items()):
+            if child is node:
+                del parent.children[key]
+                break
+
+    def _evict_overflow(self, evicted: List[Tuple[bytes, int]]) -> None:
+        """Pop the deepest blocks of the least recently used leaves until
+        the size fits ``max_pages``; one leaf scan per victim leaf."""
+        while self._size > self.max_pages:
+            best = None
+            for leaf in self._leaves():
+                if leaf.entries and (best is None or leaf.stamp < best.stamp):
+                    best = leaf
+            if best is None:
+                return
+            while best.entries and self._size > self.max_pages:
+                evicted.append(best.entries.pop())
+                self._size -= 1
+            if not best.entries:
+                self._detach(best)
+
+    # -- the index contract ---------------------------------------------------
+
+    def match(self, hashes: Sequence[bytes]) -> List[int]:
+        """The pages of the longest cached prefix of ``hashes`` (stamps
+        refreshed). A match that ends inside a node splits it, so that only
+        the matched run's recency refreshes. No reference is taken."""
+        pages: List[int] = []
+        with self._lock:
+            self._clock += 1
+            node, i = self._root, 0
+            while i < len(hashes):
+                child = node.children.get(hashes[i])
+                if child is None:
+                    break
+                j = 0
+                while (j < len(child.entries) and i < len(hashes)
+                       and child.entries[j][0] == hashes[i]):
+                    pages.append(child.entries[j][1])
+                    i += 1
+                    j += 1
+                if j < len(child.entries):
+                    self._split(child, j)
+                    child.stamp = self._clock
+                    break
+                child.stamp = self._clock
+                node = child
+            if pages:
+                self.hits += 1
+            else:
+                self.misses += 1
+        return pages
+
+    def peek(self, hashes: Sequence[bytes]) -> int:
+        """Length of the longest cached prefix, touching neither the
+        counters, the stamps nor the structure; a match that ends inside a
+        node counts the blocks it shares."""
+        n = 0
+        with self._lock:
+            node, i = self._root, 0
+            while i < len(hashes):
+                child = node.children.get(hashes[i])
+                if child is None:
+                    break
+                j = 0
+                while (j < len(child.entries) and i < len(hashes)
+                       and child.entries[j][0] == hashes[i]):
+                    n += 1
+                    i += 1
+                    j += 1
+                if j < len(child.entries):
+                    break
+                node = child
+        return n
+
+    def put(self, hashes: Sequence[bytes], pages: Sequence[int]) -> None:
+        """Register computed prefix blocks, one page reference per new
+        entry; blocks already cached are traversed (recency refreshed).
+        Entries past ``max_pages`` evict leaf-LRU."""
+        hashes = list(hashes)
+        pages = list(pages)
+        evicted: List[Tuple[bytes, int]] = []
+        with self._lock:
+            self._clock += 1
+            node, i = self._root, 0
+            while i < len(hashes):
+                child = node.children.get(hashes[i])
+                if child is None:
+                    break
+                j = 0
+                while (j < len(child.entries) and i < len(hashes)
+                       and child.entries[j][0] == hashes[i]):
+                    i += 1
+                    j += 1
+                if j < len(child.entries):
+                    # split before stamping: the unshared suffix keeps the
+                    # node's old stamp and ages on its own
+                    self._split(child, j)
+                    node = child
+                    child.stamp = self._clock
+                    break
+                child.stamp = self._clock
+                node = child
+            if i < len(hashes) and i < len(pages):
+                new = _RadixNode(node)
+                new.stamp = self._clock
+                for h, page in zip(hashes[i:], pages[i:]):
+                    self.alloc.incref(page)
+                    new.entries.append((h, page))
+                node.children[hashes[i]] = new
+                self._size += len(new.entries)
+            self._evict_overflow(evicted)
+        self._drop(evicted)
+
+    def clear(self) -> None:
+        """Drop every entry and its page reference."""
+        with self._lock:
+            stack = [self._root]
+            while stack:
+                n = stack.pop()
+                for _, page in n.entries:
+                    self.alloc.decref(page)
+                stack.extend(n.children.values())
+            self._root = _RadixNode(None)
+            self._size = 0
+
+    def reclaimable(self) -> int:
+        """Entries ``reclaim`` could free now: an entry whose page only the
+        tree holds and everything below which is reclaimable too (removal
+        takes suffixes of the tree only)."""
+        with self._lock:
+            total = 0
+            fully: Dict[int, bool] = {}
+            stack: List[Tuple[_RadixNode, bool]] = [(self._root, False)]
+            while stack:
+                node, seen = stack.pop()
+                if not seen:
+                    stack.append((node, True))
+                    for c in node.children.values():
+                        stack.append((c, False))
+                    continue
+                f = all(fully.pop(id(c)) for c in node.children.values())
+                if f:
+                    run = 0
+                    for _, page in reversed(node.entries):
+                        if self.alloc.refcount(page) == 1:
+                            run += 1
+                        else:
+                            break
+                    total += run
+                    f = run == len(node.entries)
+                fully[id(node)] = f
+            return total
+
+    def reclaim(self, n: int) -> int:
+        """Drop up to ``n`` cold entries whose pages only the tree holds,
+        bottom-up and least recently used first: tail entries of the
+        coldest leaves pop until a page a live slot shares stops that
+        chain; a leaf that empties detaches and exposes its parent's
+        tail."""
+        evicted: List[Tuple[bytes, int]] = []
+        with self._lock:
+            while len(evicted) < n:
+                cands = [leaf for leaf in self._leaves()
+                         if leaf.entries
+                         and self.alloc.refcount(leaf.entries[-1][1]) == 1]
+                if not cands:
+                    break
+                leaf = min(cands, key=lambda x: x.stamp)
+                while (leaf.entries and len(evicted) < n
+                       and self.alloc.refcount(leaf.entries[-1][1]) == 1):
+                    evicted.append(leaf.entries.pop())
+                    self._size -= 1
+                if not leaf.entries:
+                    self._detach(leaf)
+        self._drop(evicted)
+        return len(evicted)
+
+    def snapshot(self) -> Dict[bytes, int]:
+        """hash -> page of every cached block."""
+        with self._lock:
+            out: Dict[bytes, int] = {}
+            stack = [self._root]
+            while stack:
+                n = stack.pop()
+                out.update(n.entries)
+                stack.extend(n.children.values())
+            return out

@@ -17,7 +17,12 @@ None reads ``AIOS_TPU_PAGED_KV`` as the JAX stack parses it and, where that
 is unset, stays at ``auto``, the JAX boot config's default (the JAX
 ``ModelManager`` alone would serve dense there). A context the pool cannot
 page (not a multiple of 16, or an int8 cache and not a multiple of 128) is
-served from the dense cache. ``speculative`` turns on n-gram speculative
+served from the dense cache. Over the pool the prompt-prefix index is on
+(``prefix_cache``; None reads ``AIOS_TPU_PREFIX_CACHE``, on unless 0/false/
+off, as the JAX ``ModelManager`` does), a radix tree unless
+``AIOS_TPU_PREFIX_RADIX`` is 0, and every batcher admits a prompt longer
+than 512 tokens in 512-token chunks with decode dispatches between them.
+``speculative`` turns on n-gram speculative
 decode dispatches (None reads ``AIOS_TPU_SPECULATIVE``); they run over the
 dense cache only, so with a paged pool the batcher warns and serves without.
 ``synthetic://<preset>`` sources build random weights on the target device
@@ -174,7 +179,8 @@ class ModelManager:
                  quantize: Union[bool, str, None] = None,
                  kv_cache: Optional[str] = None,
                  paged_kv: Union[int, str, None] = None,
-                 speculative: Optional[bool] = None) -> None:
+                 speculative: Optional[bool] = None,
+                 prefix_cache: Optional[bool] = None) -> None:
         self.device = resolve_device(device)
         self.models: Dict[str, ManagedModel] = {}
         self.num_slots = num_slots
@@ -185,6 +191,10 @@ class ModelManager:
             speculative = os.environ.get(
                 "AIOS_TPU_SPECULATIVE", "").lower() in ("1", "true", "on")
         self.speculative = bool(speculative)
+        if prefix_cache is None:
+            prefix_cache = os.environ.get("AIOS_TPU_PREFIX_CACHE", "1").lower() not in (
+                "0", "false", "off")
+        self.prefix_cache = bool(prefix_cache)
         self._lock = threading.Lock()
 
     @property
@@ -214,9 +224,11 @@ class ModelManager:
                     rows = (self.num_slots + 1) * ctx
                 int8 = self.cache_dtype == torch.int8
                 if ctx % PAGE_SIZE == 0:
-                    kw = dict(paged_pool_rows=rows, page_size=PAGE_SIZE)
+                    kw = dict(paged_pool_rows=rows, page_size=PAGE_SIZE,
+                              prefix_cache=self.prefix_cache)
                 elif ctx % 16 == 0 and not int8:
-                    kw = dict(paged_pool_rows=rows, page_size=16)
+                    kw = dict(paged_pool_rows=rows, page_size=16,
+                              prefix_cache=self.prefix_cache)
                 else:
                     log.warning("AIOS_TPU_PAGED_KV ignored for %s: context %d needs "
                                 "a multiple of %d; serving dense", name, ctx,
@@ -260,10 +272,14 @@ class ModelManager:
         if old is not None and old.state == STATE_READY:
             self._shutdown(old)
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
-                 "%s %s, speculative %s, %d graphs captured)", name, time.time() - t0, ctx,
-                 self.num_slots, self.device, self.quantize or "dense", self.cache_dtype,
+                 "%s %s, prefix index %s, chunked admission %s, speculative %s, "
+                 "%d graphs captured, split workspace %d B a stream)", name,
+                 time.time() - t0, ctx, self.num_slots, self.device,
+                 self.quantize or "dense", self.cache_dtype,
                  "page pool" if engine.paged else "dense cache",
-                 managed.batcher.speculative, engine.graphs.captures)
+                 type(engine.prefix_index).__name__ if engine.prefix_index else "off",
+                 managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
+                 engine.graphs.captures, engine.workspace_bytes())
         return managed
 
     def _load_weights(self, name: str, path: str, context_length: int):

@@ -75,6 +75,7 @@ class RuntimeService(AIRuntimeServicer):
                 continue
             stats = engine.stats()
             stats.update(
+                prefill_chunk=batcher.prefill_chunk or 0,
                 pool_evictions=batcher.pool_evictions,
                 completed=batcher.completed,
                 cancelled=batcher.cancellations,

@@ -24,37 +24,54 @@ Phases, each printing its lines:
      lengths of a served window (~300 rows); K7 also at T = 31, at the
      lengths of a served window and at lengths on and beside its split
      shares (a window whose slots fit one share, one live slot, windows
-     deep in the cache); every decode-attention kernel bit-identical on
+     deep in the cache); K6 and K7 also at a chunk of an admission (B = 1,
+     T = 512, C = 2048 and 8192), K6 with a chunk whose last queries run
+     past the cache end; every decode-attention kernel bit-identical on
      repeat;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1; LoadModel
      ``synthetic://tiny-test`` (head_dim 16, which no attention kernel takes)
      is refused with status error; LoadModel
      ``synthetic://tinyllama-1.1b`` at full width (int8 weights, bf16 pool),
-     three Infer and one StreamInfer over gRPC, and proof that K1-K3
-     launched meanwhile;
+     three Infer and one StreamInfer over gRPC (the 960- and 1800-byte
+     prompts admitted in 512-row chunks through K6), and proof that K1-K3
+     and K6 launched meanwhile, exact counts; a 1536-token preamble with two
+     tails over gRPC, the second reusing its rows from the prefix index,
+     the hit's first-token logits bit-identical to a cold chunked
+     admission's; a hit whose final bucket runs past the cache end against
+     its plain version;
   5. numerics — its prefill and decode-step logits through the kernels
      against the plain path, two identical greedy streams, TTFT, the decode
      rate, the step's graph replay against its eager body (identical tokens,
      bit-identical logits, exact launches), sampled replays that draw fresh
      noise, and a decode window timed and profiled through the graph and
      through the eager body (kernels and device time per op of the latter);
+     an 1800-token prompt's chunks through the kernels against the plain
+     chunks on the same pool state (exact launches per chunk) and against a
+     whole-prompt prefill; the same prompt admitted while 7 streams decode,
+     chunked and whole-prompt: decode dispatches between the chunks, the
+     streams' longest inter-token gap, TTFT;
   6. serve Mistral-7B — after TinyLlama is unloaded, a second server with
      ``ModelManager(quantize="int4", kv_cache="int8")`` loads
      ``synthetic://mistral-7b`` at full width (int4 weights, int8 pool,
      context 8192, sliding window 4096) and answers three Infer and one
      StreamInfer; the launch counts must be exactly K5 = 129 and K2 = 32 per
-     prefill, K5 = 129 and K4 = 32 per decode step, K1 = K3 = 0;
+     whole-prompt prefill, K5 = 129 and K7 = 32 per admission chunk, K5 =
+     129 and K4 = 32 per decode step, K1 = K3 = 0;
   7. Mistral numerics — kernel against plain logits for a prefill and a
      decode step over the int8 pool, a greedy request that decodes past the
      4096-row window with trimmed pages returned (twice on the engine and
-     once through the batcher, all three streams identical), TTFT per
-     bucket, the 8-slot decode rate and phase 5's graph checks and
-     profiles;
+     once through the batcher, all three whole-prompt and identical), TTFT
+     per bucket, the 8-slot decode rate and phase 5's graph checks and
+     profiles; the 4090-token prompt's chunks through the kernels and
+     through the plain path, each on its own pool, exact launches per chunk;
+     its chunked admission through the batcher against whole-prompt (exact
+     launches, TTFT); a 7000-token prompt that trims pages during its
+     admission;
   8. serve TinyLlama dense — ``ModelManager(quantize="int8", kv_cache="bf16",
      paged_kv="off", speculative=True)``: the same window over the dense slot
      cache with n-gram speculation (per round 89 K1 and 22 K6, no K8), then
-     again with ``degrade_spec`` set (per step 89 K1 and 22 K8, no K6), exact
-     counts;
+     again with ``degrade_spec`` set (per step 89 K1 and 22 K8), exact
+     counts, each admission chunk 89 K1 and 22 K6;
   9. dense numerics — ``decode_step`` and ``verify_step`` through the
      kernels against the plain path (every sublayer on the same input, and
      the free-running logits), row t of a verify forward against the t-th
@@ -62,11 +79,14 @@ Phases, each printing its lines:
      teacher-forced verify that accepts its own predictions, greedy
      speculative streams through the batcher (twice, identical), the
      acceptance rate, the 8-slot decode rate with and without speculation,
-     and phase 5's graph checks and profiles for the round and the step;
+     and phase 5's graph checks and profiles for the round and the step; a
+     512-row chunk over the dense cache against the plain path, and a long
+     prompt admitted in chunks, then decoded in rounds, exact launches;
   10. serve Mistral-7B dense and its numerics — the same with
      ``ModelManager(quantize="int4", kv_cache="int8", paged_kv="off",
      speculative=True)`` at context 8192 (per round 129 K5 and 32 K7, per
-     plain step 129 K5 and 32 K9) and a greedy request past the window.
+     plain step 129 K5 and 32 K9, per admission chunk 129 K5 and 32 K7) and
+     a greedy request past the window.
 
 Every served decode dispatch is a CUDA graph replay: each served window
 also holds that ``LoadModel`` captured the graphs (the step, and with
@@ -159,7 +179,8 @@ KERNEL_META = {
         replaces="aios_tpu/ops/decode_attention.py:254",
     ),
 }
-TINYLLAMA_KERNELS = ("quantized_matmul", "flash_attention", "paged_decode_attention")
+TINYLLAMA_KERNELS = ("quantized_matmul", "flash_attention", "paged_decode_attention",
+                     "multiquery_decode_attention")
 
 
 class PhaseError(RuntimeError):
@@ -639,13 +660,15 @@ def check_paged_decode_attention_int8(gen) -> dict:
 
 
 def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
-                 timed=True):
+                 timed=True, rows=None):
     """One dense-cache attention kernel (T queries per slot; T = None the
     single-query decode kernel) against its plain version on ``geom`` =
     (H, KH, D) with a cache of C rows, bf16 or int8 + scales; a second launch
     on the same inputs must give the same bits. Slots listed in
     ``saturated`` run past the cache end: their outputs are unconsumed by
-    contract and only have to be finite. Untimed cases return no times."""
+    contract and only have to be finite; with ``rows`` only the queries
+    t < rows are compared (a chunk whose last queries run past the cache
+    end). Untimed cases return no times."""
     import torch.nn.functional as F
 
     from aios_tpu_torch import ops
@@ -684,7 +707,7 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
     want = ref(*args, **kw)
     torch.cuda.synchronize()
     keep = [b for b in range(B) if b not in saturated]
-    err = (out[keep].float() - want[keep].float()).abs().max().item()
+    err = (out[keep, :rows].float() - want[keep, :rows].float()).abs().max().item()
     ok = bool(torch.isfinite(out).all()) and err <= TOL and torch.equal(fn(*args, **kw), out)
     if not timed:
         return dict(ok=ok, max_abs_err=err)
@@ -775,6 +798,26 @@ K7_SPLIT_CASES = [
 ]
 
 
+# K6 and K7 at a chunk of an admission: B = 1, T = 512 queries from row
+# ``start`` (the third chunk of TinyLlama's 1800-token prompt, the last of
+# Mistral-7B's 4090 and of its 7000, deep in the window); and a chunk from row
+# 1664 (a 13-block prefix hit of a 2047-token prompt) whose last 128 queries
+# run past the cache end, compared on its first 384
+CHUNK_CASES = {
+    "multiquery_decode_attention": [
+        ("chunk: TinyLlama C=2048 T=512", TINY_GEOM, 2048, None, False, 512, [1024], ()),
+        ("saturated chunk: TinyLlama C=2048 T=512 from row 1664, rows < 384", TINY_GEOM,
+         2048, None, False, 512, [1664], (), 384),
+    ],
+    "multiquery_decode_attention_int8": [
+        (f"chunk: Mistral C=8192 window={M_WINDOW} T=512", MISTRAL_GEOM, 8192, M_WINDOW,
+         True, 512, [3584], ()),
+        (f"chunk: Mistral C=8192 window={M_WINDOW} T=512 past the window", MISTRAL_GEOM,
+         8192, M_WINDOW, True, 512, [6656], ()),
+    ],
+}
+
+
 def check_dense_attention(gen) -> dict:
     """K8, K9, K6 and K7 at the shapes the dense servers give them."""
     def mq_lens(lens, C, T=SPEC_T):
@@ -809,6 +852,7 @@ def check_dense_attention(gen) -> dict:
              mq_lens(TINY_LENS, 2048, 3), ()),
             (f"TinyLlama C=2048 T={SPEC_T}, served lengths", TINY_GEOM, 2048, None, False,
              SPEC_T, SERVED_LENS, ()),
+            *CHUNK_CASES["multiquery_decode_attention"],
         ],
         "multiquery_decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
@@ -820,21 +864,24 @@ def check_dense_attention(gen) -> dict:
             (f"Mistral C=8192 window={M_WINDOW} T=31", MISTRAL_GEOM, 8192, M_WINDOW, True, 31,
              mq_lens(MISTRAL_LENS, 8192, 31), ()),
             *K7_SPLIT_CASES,
+            *CHUNK_CASES["multiquery_decode_attention_int8"],
         ],
     }
     measured = {}
     for name, rows in cases.items():
         worst = 0.0
-        for i, (label, geom, C, window, quant, T, lens, sat) in enumerate(rows):
-            timed = not label.startswith("split")
-            r = _dense_check(gen, geom, C, window, quant, T, lens, STRIDES, sat, timed)
+        for i, (label, geom, C, window, quant, T, lens, sat, *valid) in enumerate(rows):
+            timed = not label.startswith(("split", "saturated"))
+            strides = STRIDES if len(lens) == len(STRIDES) else [1] * len(lens)
+            r = _dense_check(gen, geom, C, window, quant, T, lens, strides, sat, timed,
+                             *valid)
+            what = f"B={len(lens)} lengths={lens} {label}, repeat bit-identical"
             if timed:
-                _report(name, f"B=8 lengths={lens} {label}, repeat bit-identical", r["ms"],
-                        r["plain_ms"], r["library_ms"], (r["bound_ms"], r["bound_by"]),
-                        r["max_abs_err"], r["ok"])
+                _report(name, what, r["ms"], r["plain_ms"], r["library_ms"],
+                        (r["bound_ms"], r["bound_by"]), r["max_abs_err"], r["ok"])
             else:
-                log(f"[kernel] {name} B=8 lengths={lens} {label}, repeat bit-identical: "
-                    f"ok={r['ok']} max_abs_err={r['max_abs_err']:.3e} (checked only)")
+                log(f"[kernel] {name} {what}: ok={r['ok']} "
+                    f"max_abs_err={r['max_abs_err']:.3e} (checked only)")
             expect(r["ok"], f"{name} {label}: max err {r['max_abs_err']}")
             worst = max(worst, r["max_abs_err"])
             if i == 0:  # the headline: the shape its dense server launches
@@ -901,6 +948,7 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     for k in ops.KERNELS:
         k.launches = 0
     tokens0, steps0, prefills0 = m.batcher.tokens_emitted, eng.decode_steps, eng.prefills
+    admission_chunks0 = eng.prefill_chunks
     replays0 = eng.stats()["graph_replays"]
     results, errors = {}, []
 
@@ -932,6 +980,7 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     launches = {k.__name__: k.launches for k in ops.KERNELS}
     tokens = m.batcher.tokens_emitted - tokens0
     prefills, steps = eng.prefills - prefills0, eng.decode_steps - steps0
+    admission_chunks = eng.prefill_chunks - admission_chunks0
     stats = eng.stats()
     replays = stats["graph_replays"] - replays0
     expect(stats["graph_captures"] == captured,
@@ -952,12 +1001,13 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
         f"[serve] {cfg.name}{tag}: 3 Infer + 1 StreamInfer (prompts {[len(p) for p in PROMPTS]} "
         f"chars, max_tokens {MAX_TOKENS}) in {wall:.3f} s: {tokens} tokens, "
         f"{tokens / wall:.1f} tok/s end to end on {card}; "
-        f"{prefills} prefills, {steps} decode steps, {replays} graph replays, graph "
-        f"captures flat at {captured} since LoadModel ({stats['graph_capture_seconds']} s); "
-        f"launches {launches}"
+        f"{prefills} whole-prompt prefills, {admission_chunks} admission chunks, {steps} "
+        f"decode steps, "
+        f"{replays} graph replays, graph captures flat at {captured} since LoadModel "
+        f"({stats['graph_capture_seconds']} s); launches {launches}"
     )
     log(f"[serve] health: {health.details.get(m.name + '.serving')}")
-    return dict(launches=launches, prefills=prefills, steps=steps)
+    return dict(launches=launches, prefills=prefills, steps=steps, chunks=admission_chunks)
 
 
 def _refused_load(stub) -> None:
@@ -998,17 +1048,24 @@ def phase_serve(manager, stub, card: str) -> dict:
         f"{cfg.num_layers} layers, E={cfg.hidden_size}, V={cfg.vocab_size}, ctx={eng.max_context}, "
         f"int8 weights, bf16 pool of {eng.allocator.num_pages} pages x {eng.allocator.page_size} rows"
     )
+    log(f"[serve] chunked admission at {m.batcher.prefill_chunk} rows, prefix index "
+        f"{type(eng.prefix_index).__name__}, split workspace {eng.workspace_bytes()} B a "
+        f"stream (a 512-row chunk over {eng.max_context} rows)")
     w = _served_window(manager, stub, m, card)
-    launches, pre, steps = w["launches"], w["prefills"], w["steps"]
+    launches, pre, steps, chunks = w["launches"], w["prefills"], w["steps"], w["chunks"]
     for name in TINYLLAMA_KERNELS:
         expect(launches[name] > 0, f"kernel {name} never launched while serving")
     want = dict.fromkeys(launches, 0)
-    want.update({"quantized_matmul": 89 * (pre + steps), "flash_attention": 22 * pre,
-                 "paged_decode_attention": 22 * steps})
+    want.update({"quantized_matmul": 89 * (pre + chunks + steps), "flash_attention": 22 * pre,
+                 "paged_decode_attention": 22 * steps,
+                 "multiquery_decode_attention": 22 * chunks})
     expect(launches == want, f"launch counts {launches} != {want} for {pre} prefills, "
-           f"{steps} steps")
-    log(f"[serve] launch counts exact for {pre} prefills and {steps} decode steps "
-        f"(each step one graph replay): {launches}")
+           f"{chunks} chunks, {steps} steps")
+    log(f"[serve] launch counts exact for {pre} whole-prompt prefills, {chunks} admission "
+        f"chunks (the 960- and 1800-byte prompts) and {steps} decode steps (each step one "
+        f"graph replay): {launches}")
+    _prefix_over_grpc(m, stub, card)
+    _overrun_hit(m)
     return launches
 
 
@@ -1017,6 +1074,14 @@ def phase_serve(manager, stub, card: str) -> dict:
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _admission(m, n: int) -> str:
+    """How the batcher admits an n-token prompt."""
+    chunk = m.batcher.prefill_chunk
+    if chunk and n > chunk:
+        return f"{-(-n // chunk)} chunks of {chunk}"
+    return f"whole-prompt, bucket {m.engine.bucket_for(n)}"
 
 
 def phase_numerics(manager, card: str) -> None:
@@ -1061,19 +1126,24 @@ def phase_numerics(manager, card: str) -> None:
     )
     expect(ok, "kernel and plain logits disagree")
 
+    # two cold admissions (an index hit would admit the second through the
+    # chunk path, whose sums are taken in another order)
     ids = [256] + list(range(200))
+    eng.prefix_index.clear()
     a = m.batcher.generate(ids, max_tokens=32, temperature=0.0)
+    eng.prefix_index.clear()
     b = m.batcher.generate(ids, max_tokens=32, temperature=0.0)
     expect(len(a) == 32 and a == b, f"greedy streams differ: {a} vs {b}")
     log(f"[numerics] two greedy batcher streams of 32 tokens identical: {a[:8]}...")
 
-    # time to first token and decode rate on the idle server
+    # time to first token and decode rate on the idle server, cold index
     for n in (250, 1000):
+        eng.prefix_index.clear()
         h = m.batcher.submit(Request(prompt_ids=[256] + [65] * n, max_tokens=2,
                                      temperature=0.0))
         h.tokens()
         log(f"[serve] ttft_ms={h.ttft_ms:.2f} for a {n + 1}-token prompt "
-            f"(bucket {eng.bucket_for(n + 1)}) on an idle server, {card}")
+            f"({_admission(m, n + 1)}) on an idle server, {card}")
     hs = [m.batcher.submit(Request(prompt_ids=[256] + list(range(100)), max_tokens=129,
                                    temperature=0.7)) for _ in range(eng.num_slots)]
     steps0 = eng.decode_steps
@@ -1089,6 +1159,503 @@ def phase_numerics(manager, card: str) -> None:
                     rounds=False)
     _fresh_noise("[numerics]", eng, rounds=False)
     _profile_decode(eng, "tinyllama", 16, card)
+    _chunk_numerics(m, 1800, card)
+    _interleaved(m, 1800, card)
+
+
+# -- chunked admission and the prefix cache --------------------------------------
+
+
+def _reset_counts() -> None:
+    from aios_tpu_torch import ops
+
+    for k in ops.KERNELS:
+        k.launches = 0
+
+
+def _read_counts() -> dict:
+    from aios_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    return {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+
+
+def _counted(fn):
+    """``fn()`` with every kernel count set to 0 just before; returns its
+    result and the launches it made, {kernel: launches}."""
+    _reset_counts()
+    out = fn()
+    return out, _read_counts()
+
+
+def _busy_and_wall(fn):
+    """(device busy ms, host wall ms) of one eager ``fn()``: the busy time is
+    the sum of its device events under torch.profiler, the wall the median
+    of three unprofiled calls, synchronized."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(us for _, us in _device_kernels(prof).values()) / 1e3
+    return busy, statistics.median(walls) * 1e3
+
+
+def _chunk_plan(eng, n: int, chunk: int = 512, start: int = 0):
+    """(start, rows, bucket) of each chunk of an n-token admission from
+    ``start``, as ``ChunkedPrefill`` runs them."""
+    plan, pos = [], start
+    while pos < n:
+        rows = min(chunk, n - pos)
+        plan.append((pos, rows, eng.bucket_for(rows) if n - pos <= chunk else chunk))
+        pos += rows
+    return plan
+
+
+def _chunk_kernels(eng) -> dict:
+    """The launches one chunk of ``eng`` makes: every projection and the
+    lm_head, and a K6 (bf16 cache) or K7 (int8 cache) per layer."""
+    L = eng.cfg.num_layers
+    mm = "int4_matmul" if "q4" in eng.params["lm_head"] else "quantized_matmul"
+    attn = ("multiquery_decode_attention_int8" if eng.quant_cache
+            else "multiquery_decode_attention")
+    return {mm: 4 * L + 1, attn: L}
+
+
+def _layerwise_chunk(eng, toks, start: int, pools, table, rows: int):
+    """Each sublayer of one chunk over a one-slot pool run through the
+    kernels and through the plain versions on the SAME input (the plain
+    path's), each writing its K/V rows into its own copy of that layer's
+    pool, so that rounding does not compound over depth: the largest
+    max|difference| / max|output| over the attention and MLP sublayers of
+    every layer on the chunk's first ``rows`` rows, and the logits of both
+    paths from the plain path's final hidden state relative to
+    max|logit|."""
+    from aios_tpu_torch import ops
+    from aios_tpu_torch.engine import model
+
+    cfg, params = eng.cfg, eng.params
+    Tc, P, kh, d = toks.shape[1], pools[0].shape[2], pools[0].shape[3], pools[0].shape[4]
+    C = table.shape[0] * P
+    st = torch.tensor([start], dtype=torch.int32, device="cuda")
+    strides = torch.ones(1, dtype=torch.int32, device="cuda")
+    positions = st.long()[:, None] + torch.arange(Tc, device="cuda")[None, :]
+    cos, sin = model.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    pages, offs = model.chunk_write_rows(table, st, Tc, P)
+    t = table.long()
+    x = params["embed"][toks]
+    worst = 0.0
+    for i, lp in enumerate(model.layer_params(params)):
+        attn = {}
+        for kernels in (True, False):
+            q, k, v = model._project_qkv(x, lp, cfg, cos, sin, kernels)
+            kl, vl, ks, vs = (p[i].clone() for p in pools)
+            model.scatter_quant(kl, ks, pages, offs, k[0])
+            model.scatter_quant(vl, vs, pages, offs, v[0])
+            caches = (kl[t].reshape(1, C, kh, d), vl[t].reshape(1, C, kh, d),
+                      ks[t].reshape(1, C, kh), vs[t].reshape(1, C, kh))
+            fn = (ops.multiquery_decode_attention_int8 if kernels
+                  else ops.multiquery_decode_attention_int8_reference)
+            a = fn(q.contiguous(), *caches, st, strides, window=cfg.sliding_window)
+            attn[kernels] = model.matmul(a.reshape(1, Tc, -1), lp["wo"], kernels)
+        x = x + attn[False]
+        mlp = {kernels: model._mlp(x, lp, cfg, kernels) for kernels in (True, False)}
+        worst = max(worst, _rel(attn[True][0, :rows], attn[False][0, :rows]),
+                    _rel(mlp[True][0, :rows], mlp[False][0, :rows]))
+        x = x + mlp[False]
+    head = [model._final_logits(x, params, cfg, kernels)[0, :rows] for kernels in (True, False)]
+    return worst, _rel(*head)
+
+
+def _chunk_numerics(m, n: int, card: str) -> None:
+    """An n-token prompt admitted chunk by chunk over a private one-slot pool
+    shaped like the engine's, through the kernels and through the plain
+    path. TinyLlama: each kernel chunk against the plain chunk on the same
+    pool state (E2E_TOL), the chunked first-token logits against a
+    whole-prompt prefill (E2E_TOL). Mistral-7B (int8 pool): each path on its
+    own pool, free-running, the logits of every chunk within DRIFT_TOL (32
+    layers compound, as in its whole-prompt prefill), and the first chunk's
+    sublayers, each fed the plain path's input, within E2E_TOL. Every kernel
+    chunk makes exactly ``_chunk_kernels`` launches; one chunk is timed both
+    ways."""
+    from aios_tpu_torch.engine import model
+
+    eng, cfg = m.engine, m.config
+    tag = f"[chunks {cfg.name}]"
+    mistral = eng.quant_cache
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ids = torch.randint(0, 256, (n,), generator=gen, device="cuda")
+    L, _, Pg, kh, d = eng.k_pool.shape
+    pages = eng.max_context // Pg
+    shape = (L, 1 + pages, Pg, kh, d)
+    pools = [torch.zeros(shape, dtype=eng.k_pool.dtype, device="cuda") for _ in range(2)]
+    if eng.quant_cache:
+        pools += [torch.ones(shape[:4], dtype=torch.float32, device="cuda") for _ in range(2)]
+    plain_pools = [t.clone() for t in pools]
+    table = (torch.randperm(pages, generator=torch.Generator().manual_seed(5)) + 1)
+    table = table.to(torch.int32).cuda()
+
+    def chunk(toks, start, st, kernels):
+        return model.prefill_chunk_paged(
+            eng.params, cfg, toks, start, st[0], st[1], table, kernels=kernels,
+            cache_scales=(st[2], st[3]) if len(st) == 4 else None)
+
+    want = _chunk_kernels(eng)
+    rels, rows_k, timed, layers = [], [], None, None
+    plan = _chunk_plan(eng, n)
+    for i, (start, rows, bucket) in enumerate(plan):
+        toks = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+        toks[0, :rows] = ids[start:start + rows]
+        if mistral and i == 0:
+            layers = _layerwise_chunk(eng, toks, start, pools, table, rows)
+        before = None if mistral else [t.clone() for t in pools]
+        lk, launches = _counted(lambda: chunk(toks, start, pools, True))
+        expect(launches == want, f"{tag} chunk {i}: launches {launches}, want {want}")
+        lp = chunk(toks, start, plain_pools if mistral else before, False)
+        rels.append(_rel(lk[0, :rows], lp[0, :rows]))
+        expect(bool(torch.isfinite(lk[0, :rows]).all()), f"{tag} chunk {i}: non-finite logits")
+        if not mistral:
+            rows_k.append(lk[0, :rows])
+        if i == len(plan) // 2:  # a full chunk deep in the prompt, rewritten in place
+            st = before if before is not None else [t.clone() for t in pools]
+            timed = (start, _busy_and_wall(lambda: chunk(toks, start, pools, True)),
+                     _busy_and_wall(lambda: chunk(toks, start, st, False)))
+        del lp, before
+    limit = DRIFT_TOL if mistral else E2E_TOL
+    sublayers = ""
+    if mistral:
+        sublayers = (f"; first chunk, each sublayer fed the plain path's input: within "
+                     f"{layers[0]:.3e} of max|output|, logits from the same final hidden "
+                     f"state within {layers[1]:.3e} (limit {E2E_TOL})")
+    log(f"{tag} {n}-token prompt in {len(plan)} chunks {[(s, r, b) for s, r, b in plan]}: "
+        f"{'free-running ' if mistral else 'same pool state, '}kernel vs plain "
+        f"max|dlogit|/max|logit| per chunk {', '.join(f'{r:.3e}' for r in rels)} (limit "
+        f"{limit}){sublayers}; launches exact per chunk {want}; chunk at row {timed[0]}: "
+        f"kernel path device busy {timed[1][0]:.3f} ms, host wall {timed[1][1]:.3f} ms; "
+        f"plain path {timed[2][0]:.3f} / {timed[2][1]:.3f} ms; {card}")
+    expect(max(rels) <= limit and (layers is None or max(layers) <= E2E_TOL),
+           f"{tag} chunk logits disagree")
+    del pools, plain_pools
+    torch.cuda.empty_cache()
+    if mistral:
+        return
+    # the chunked admission against one whole-prompt prefill of the prompt
+    bucket = eng.bucket_for(n)
+    padded = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+    padded[0, :n] = ids
+    whole = model.prefill(eng.params, cfg, padded)[0][0, :n]
+    chunked = torch.cat(rows_k)
+    rel = _rel(chunked[-1], whole[-1])
+    agree = (chunked.argmax(-1) == whole.argmax(-1)).float().mean().item()
+    same = bool(chunked[-1].argmax() == whole[-1].argmax())
+    log(f"{tag} first-token logits, chunked (K6) vs whole-prompt prefill (K2, bucket "
+        f"{bucket}): max|dlogit|/max|logit|={rel:.3e} (limit {E2E_TOL}); first greedy token "
+        f"{'the same' if same else 'differs'}; argmax agreement over all {n} rows {agree:.3f}")
+    expect(rel <= E2E_TOL, f"{tag} chunked and whole-prompt first-token logits disagree")
+
+
+def _interleaved(m, n: int, card: str, streams: int = 7) -> None:
+    """``streams`` sampled streams decode while an n-token prompt is
+    admitted, chunked and then whole-prompt (``prefill_chunk`` off): the
+    decode dispatches between its chunks (at least chunks - 1), the longest
+    gap between two tokens of one stream during the admission, and its
+    TTFT; no graph is captured and no workspace error raised."""
+    from aios_tpu_torch.engine.batching import Request
+
+    eng = m.engine
+    trace = []
+    chunk_fwd, step = eng._chunk_forward, eng.step
+
+    def chunk_traced(*a):
+        trace.append(("C", time.perf_counter()))
+        return chunk_fwd(*a)
+
+    def step_traced(k):
+        trace.append(("S", time.perf_counter()))
+        return step(k)
+
+    captures0 = eng.stats()["graph_captures"]
+    prompt = [256] + [(i * 13 + 5) % 256 for i in range(n - 1)]
+    found = {}
+    eng._chunk_forward, eng.step = chunk_traced, step_traced
+    try:
+        for chunk in (eng.prefill_chunk_default, None):
+            m.batcher.prefill_chunk = chunk
+            eng.prefix_index.clear()
+            stamps = [[] for _ in range(streams)]
+            hs = [m.batcher.submit(Request(prompt_ids=[256] + list(range(40 + s)),
+                                           max_tokens=1500, temperature=0.7))
+                  for s in range(streams)]
+            threads = [threading.Thread(target=lambda h=h, st=st: st.extend(
+                time.perf_counter() for _ in h)) for h, st in zip(hs, stamps)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 120
+            while min(len(st) for st in stamps) < 8 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            del trace[:]
+            t0 = time.perf_counter()
+            big = m.batcher.submit(Request(prompt_ids=prompt, max_tokens=1, temperature=0.0))
+            big.tokens()
+            t1 = time.perf_counter()
+            events = list(trace)
+            for h in hs:
+                h.cancel()
+            for t in threads:
+                t.join(timeout=120)
+            chunks = [t for k, t in events if k == "C"]
+            between = sum(1 for k, t in events if k == "S" and chunks and chunks[0] < t < chunks[-1])
+            gap = max((b - a for st in stamps for a, b in zip(st, st[1:])
+                       if b >= t0 and a <= t1), default=0.0)
+            found[chunk] = (len(chunks), between, gap * 1e3, big.ttft_ms)
+    finally:
+        eng._chunk_forward, eng.step = chunk_fwd, step
+        m.batcher.prefill_chunk = eng.prefill_chunk_default
+    (nc, between, gap_c, ttft_c), (_, _, gap_w, ttft_w) = (
+        found[eng.prefill_chunk_default], found[None])
+    expect(nc == -(-n // eng.prefill_chunk_default) and between >= nc - 1,
+           f"{nc} chunks with {between} decode dispatches between them")
+    expect(eng.stats()["graph_captures"] == captures0, "a graph was captured while serving")
+    log(f"[chunks {m.config.name}] {n}-token admission with {streams} sampled streams "
+        f"decoding: {nc} chunks with {between} decode dispatches between them; longest gap "
+        f"between two tokens of a stream during the admission {gap_c:.2f} ms chunked, "
+        f"{gap_w:.2f} ms whole-prompt (prefill_chunk off); TTFT {ttft_c:.2f} / {ttft_w:.2f} "
+        f"ms; graph captures flat at {captures0}; {card}")
+
+
+def _batcher_admission(m, n: int, card: str) -> None:
+    """An n-token greedy prompt through the idle batcher, chunked and then
+    whole-prompt, each from a cold index: exact launches (a chunk:
+    ``_chunk_kernels``; the whole prompt: one prefill of K2 and the
+    projections) and TTFT."""
+    from aios_tpu_torch.engine.batching import Request
+
+    eng = m.engine
+    prompt = [256] + [(i * 7 + 3) % 256 for i in range(n - 1)]
+    per_chunk, L = _chunk_kernels(eng), eng.cfg.num_layers
+    mm = next(iter(per_chunk))
+    ttft = {}
+    try:
+        for chunk in (eng.prefill_chunk_default, None):
+            m.batcher.prefill_chunk = chunk
+            eng.prefix_index.clear()
+            chunks0, pre0 = eng.prefill_chunks, eng.prefills
+            _reset_counts()
+            h = m.batcher.submit(Request(prompt_ids=prompt, max_tokens=1, temperature=0.0))
+            toks = h.tokens()
+            launches = _read_counts()
+            chunks, pre = eng.prefill_chunks - chunks0, eng.prefills - pre0
+            want = ({k: v * chunks for k, v in per_chunk.items()} if chunk
+                    else {mm: 4 * L + 1, "flash_attention": L})
+            expect(len(toks) == 1 and launches == want and (chunks, pre) == (
+                (-(-n // chunk), 0) if chunk else (0, 1)),
+                f"{n}-token admission: {chunks} chunks, {pre} prefills, launches {launches}")
+            ttft[chunk] = (h.ttft_ms, chunks, launches)
+    finally:
+        m.batcher.prefill_chunk = eng.prefill_chunk_default
+    (tc, nc, lc), (tw, _, lw) = ttft[eng.prefill_chunk_default], ttft[None]
+    log(f"[chunks {m.config.name}] {n}-token prompt through the batcher: {nc} chunks, "
+        f"launches exact {lc}, ttft_ms={tc:.2f}; whole-prompt (bucket {eng.bucket_for(n)}) "
+        f"launches {lw}, ttft_ms={tw:.2f}; {card}")
+
+
+def _trimmed_admission(m, n: int) -> None:
+    """An n-token prompt longer than the window admits in chunks that return
+    the blocks no later chunk can see: pages trimmed during the admission,
+    the slot's resident pages at most window + chunk + a page, and nothing
+    registered in the index (its chain no longer starts at block 0)."""
+    eng = m.engine
+    window, P = eng.cfg.sliding_window, eng.allocator.page_size
+    bound = -(-(window + eng.prefill_chunk_default + P) // P)
+    eng.prefix_index.clear()
+    trimmed0 = eng.kv_pages_trimmed
+    prompt = [256] + [(i * 11 + 1) % 256 for i in range(n - 1)]
+    pc = eng.start_chunked_prefill(0, prompt, temperature=0.0,
+                                   chunk=eng.prefill_chunk_default)
+    peak, steps = 0, 0
+    while True:
+        first = pc.step()
+        steps += 1
+        peak = max(peak, eng.allocator.slot_pages_resident(0))
+        if first is not None:
+            break
+    trimmed = eng.kv_pages_trimmed - trimmed0
+    registered = len(eng.prefix_index.snapshot())
+    eng.release(0)
+    expect(trimmed > 0 and peak <= bound and not registered and bool(
+        torch.isfinite(pc.first_logits).all()),
+        f"{n}-token windowed admission: {trimmed} pages trimmed, peak {peak} pages "
+        f"(bound {bound}), {registered} blocks registered")
+    log(f"[chunks {m.config.name}] {n}-token prompt past the {window}-row window in {steps} "
+        f"chunks: {trimmed} pages trimmed during the admission, the slot's peak {peak} "
+        f"resident pages (bound ceil((window + chunk + page) / page) = {bound}), nothing "
+        f"registered in the prefix index; first token {first}")
+
+
+def _dense_chunks(tag: str, m, case: dict, card: str) -> None:
+    """The chunked admission over the dense cache: one 512-row chunk at row
+    512 through the kernels against the plain path on the same cache state,
+    then a long greedy prompt through the speculative batcher, admitted in
+    chunks, then decoded in rounds, with exact launches."""
+    from aios_tpu_torch.engine import model
+    from aios_tpu_torch.engine.batching import Request
+
+    eng, cfg = m.engine, m.config
+    quant = eng.quant_cache
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    state = _dense_state(eng.params, cfg, quant, gen, 2, 512, eng.max_context)
+    toks = torch.randint(0, 256, (1, 512), generator=gen, device="cuda")
+    outs = []
+    for kernels in (True, False):
+        st = [t.clone() for t in state]
+        outs.append(_counted(lambda: model.prefill_chunk(
+            eng.params, cfg, toks, 1, 512, st[0], st[1], kernels=kernels,
+            cache_scales=(st[2], st[3]) if quant else None)))
+    (lk, launches), (lp, _) = outs
+    rel = _rel(lk, lp)
+    expect(launches == _chunk_kernels(eng) and rel <= case["drift_tol"]
+           and bool(torch.isfinite(lk).all()),
+           f"{tag} dense chunk: rel {rel}, launches {launches}")
+    del state, outs, lk, lp
+    torch.cuda.empty_cache()
+    n = 1800 if not case["ctx"] else 4090
+    prompt = [256] + [(i * 3 + 7) % 256 for i in range(n - 1)]
+    chunks0, steps0, pre0 = eng.prefill_chunks, eng.decode_steps, eng.prefills
+    out, counts = _counted(lambda: m.batcher.generate(prompt, max_tokens=24, temperature=0.0))
+    chunks, rounds = eng.prefill_chunks - chunks0, eng.decode_steps - steps0
+    L, per = case["layers"], case["per_forward"]
+    want = {case["matmul"]: per * (chunks + rounds), case["verify"]: L * (chunks + rounds)}
+    expect(len(out) == 24 and eng.prefills == pre0 and chunks == -(-n // 512)
+           and counts == want, f"{tag} {n}-token chunked admission then rounds: "
+           f"{chunks} chunks, {rounds} rounds, launches {counts}")
+    log(f"{tag} dense chunk at row 512 through the kernels vs the plain path: "
+        f"max|dlogit|/max|logit|={rel:.3e} (limit {case['drift_tol']}), launches {launches}; "
+        f"a {n}-token greedy prompt through the speculative batcher: {chunks} chunks, then "
+        f"{rounds} rounds, launches exact {counts}; {card}")
+
+
+def _prefix_over_grpc(m, stub, card: str) -> None:
+    """A 1536-token preamble (the chat template's head included) with tail A,
+    then with tail B, over gRPC from a cold index: B reuses the 1536 rows
+    (HealthCheck's prefix_rows_reused) and its TTFT is printed beside A's
+    and beside B's own cold one. Then on the engine: 1536 is three whole
+    chunks, so the hit runs the tail's chunk on the same bytes as a cold
+    chunked admission of B, and its first-token logits equal the cold
+    ones bit for bit."""
+    from aios_tpu_torch.engine.tokenizer import render_chat
+    from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
+
+    eng, tok, name = m.engine, m.tokenizer, m.config.name
+    head = tok.encode(render_chat(name, "\x00")).index(0)  # tokens before the prompt
+    shared = 1536
+    preamble = ("Shared agent preamble: follow the plan, report status, never guess. "
+                * 40)[:shared - head]
+    tails = ("Tail A: list the failing services.", "Tail B: restart them in order.")
+    handles = []
+    submit = m.batcher.submit
+
+    def recorded(req):
+        handles.append(submit(req))
+        return handles[-1]
+
+    def reused() -> int:
+        details = stub.HealthCheck(common_pb2.Empty()).details[f"{m.name}.serving"]
+        return int(dict(kv.split("=") for kv in details.split(","))["prefix_rows_reused"])
+
+    m.batcher.submit = recorded
+    try:
+        runs = []
+        for tail, clear in ((tails[0], True), (tails[1], False), (tails[1], True)):
+            if clear:
+                eng.prefix_index.clear()
+            r0 = reused()
+            stub.Infer(runtime_pb2.InferRequest(prompt=preamble + tail, max_tokens=4),
+                       timeout=300)
+            runs.append((reused() - r0, handles[-1].ttft_ms))
+    finally:
+        m.batcher.submit = submit
+    (_, ttft_a), (hit_rows, ttft_hit), (cold_rows, ttft_cold) = runs
+    expect(hit_rows == shared and cold_rows == 0,
+           f"prefix rows reused {hit_rows} (hit), {cold_rows} (cold)")
+    ids = [tok.encode(render_chat(name, preamble + t)) for t in tails]
+
+    def admit(prompt):
+        pc = eng.start_chunked_prefill(0, prompt, temperature=0.0,
+                                       chunk=eng.prefill_chunk_default)
+        start = pc.pos
+        while pc.step() is None:
+            pass
+        eng.release(0)
+        return start, pc.first_logits
+
+    eng.prefix_index.clear()
+    admit(ids[0])
+    s_hit, hit = admit(ids[1])
+    eng.prefix_index.clear()
+    s_cold, cold = admit(ids[1])
+    expect(s_hit == shared and s_cold == 0 and torch.equal(hit, cold),
+           f"hit from row {s_hit}, cold from {s_cold}: first-token logits differ by "
+           f"{(hit - cold).abs().max().item():.3e}")
+    log(f"[prefix] over gRPC, {len(ids[1])}-token prompts sharing a {shared}-token preamble: "
+        f"the second reuses {hit_rows} rows (HealthCheck prefix_rows_reused), ttft_ms="
+        f"{ttft_hit:.2f} against {ttft_a:.2f} for the first and {ttft_cold:.2f} for the "
+        f"same prompt from a cold index; on the engine the hit's first-token logits equal the "
+        f"cold chunked admission's bit for bit; {card}")
+
+
+def _overrun_hit(m) -> None:
+    """A prefix hit whose final bucket runs past the cache end: a 2047-token
+    prompt whose first 13 blocks (1664 rows) are cached leaves a 383-row
+    tail, admitted as one 512-row bucket from row 1664 (rows past 2048 land
+    on the sacrificial page, its queries past the end are saturated). The
+    kernel chunk matches the plain chunk on rows < 383 within E2E_TOL, on
+    the same pool state; the engine's own hit admission of it runs."""
+    from aios_tpu_torch.engine import model
+
+    eng, cfg = m.engine, m.config
+    C, P = eng.max_context, eng.allocator.page_size
+    gen = torch.Generator().manual_seed(8)
+    x = [256] + torch.randint(0, 256, (C - 2,), generator=gen).tolist()
+    matched = 13 * P
+    y = x[:matched] + [(i * 5 + 1) % 256 for i in range(100)]
+    eng.prefix_index.clear()
+    eng.prefill(0, y, temperature=0.0)  # registers 13 blocks
+    eng.release(0)
+    with eng._lock:
+        got, _ = eng._match_prefix(0, x)
+        eng.allocator.ensure(0, len(x))
+        table = torch.from_numpy(eng.allocator.tables[0]).cuda()
+        n = len(x) - got
+        toks = torch.zeros((1, 512), dtype=torch.int64, device="cuda")
+        toks[0, :n] = torch.tensor(x[got:], device="cuda")
+        outs = []
+        for kernels in (True, False):
+            st = [t.clone() for t in (eng.k_pool, eng.v_pool)]
+            outs.append(model.prefill_chunk_paged(eng.params, cfg, toks, got, st[0], st[1],
+                                                  table, kernels=kernels))
+            del st
+    eng.release(0)
+    rel = _rel(outs[0][0, :n], outs[1][0, :n])
+    reused0 = eng.prefix_rows_reused
+    first = eng.prefill(0, x, temperature=0.0)  # the engine's hit path, same overrun
+    eng.release(0)
+    expect(got == matched and rel <= E2E_TOL and eng.prefix_rows_reused - reused0 == matched
+           and bool(torch.isfinite(outs[0][0, :n]).all()),
+           f"overrun hit: matched {got}, rel {rel}")
+    log(f"[prefix] a hit of {got} rows of a {len(x)}-token prompt: the {n}-row tail as one "
+        f"512-row bucket from row {got} runs to row {got + 512} > {C} (saturated queries, "
+        f"overflow rows on the sacrificial page); kernel vs plain chunk on rows < {n}: "
+        f"max|dlogit|/max|logit|={rel:.3e} (limit {E2E_TOL}); the engine's hit admission "
+        f"of it gives first token {first}")
+    del outs
+    torch.cuda.empty_cache()
 
 
 # -- the graphs: replay against the eager body, fresh noise, where the time goes
@@ -1371,12 +1938,15 @@ def phase_mistral_serve(manager, stub, card: str) -> dict:
         f"(values and scales); peak device memory {torch.cuda.max_memory_allocated()} B"
     )
     w = _served_window(manager, stub, m, card)
-    n, pre, steps = w["launches"], w["prefills"], w["steps"]
+    n, pre, steps, chunks = w["launches"], w["prefills"], w["steps"], w["chunks"]
     want = dict.fromkeys(n, 0)
-    want.update({"int4_matmul": 129 * (pre + steps), "flash_attention": 32 * pre,
-                 "paged_decode_attention_int8": 32 * steps})
-    expect(n == want, f"launch counts {n} != {want} for {pre} prefills, {steps} steps")
-    log(f"[mistral] launch counts exact for {pre} prefills and {steps} decode steps: {n}")
+    want.update({"int4_matmul": 129 * (pre + chunks + steps), "flash_attention": 32 * pre,
+                 "paged_decode_attention_int8": 32 * steps,
+                 "multiquery_decode_attention_int8": 32 * chunks})
+    expect(n == want, f"launch counts {n} != {want} for {pre} prefills, {chunks} chunks, "
+           f"{steps} steps")
+    log(f"[mistral] launch counts exact for {pre} whole-prompt prefills, {chunks} admission "
+        f"chunks and {steps} decode steps: {n}")
     return n
 
 
@@ -1416,12 +1986,13 @@ def _layerwise_prefill(params, cfg, tokens):
 
 def _windowed_greedy(eng, prompt, new_tokens: int):
     """One greedy slot on the engine, driven past the window; returns its
-    tokens and (host length, pages in use, pages the length alone needs)."""
+    tokens and (host length, pages the slot holds, pages the length alone
+    needs). Pages the slot trimmed may live on under the prefix index."""
     toks = [eng.prefill(0, prompt, temperature=0.0)]
     while len(toks) < new_tokens:
         toks += eng.step(min(16, new_tokens - len(toks)))[:, 0].tolist()
     n = eng.slot_length(0)
-    pages = (n, eng.allocator.pages_in_use(), eng.allocator.blocks_for(n + 1))
+    pages = (n, eng.allocator.slot_pages_resident(0), eng.allocator.blocks_for(n + 1))
     eng.release(0)
     return toks, pages
 
@@ -1492,18 +2063,26 @@ def phase_mistral_numerics(manager, card: str) -> None:
 
     # a greedy request whose prompt (bucket 4096) plus 160 new tokens runs
     # past the 4096-row window: twice on the engine, once through the batcher
+    # all three whole-prompt (the index cleared before each, the batcher's
+    # chunking off for its run): phase 7b admits the prompt in chunks
     prompt = [256] + [(i * 7 + 3) % 256 for i in range(4089)]
     trimmed0 = eng.kv_pages_trimmed
-    runs = [_windowed_greedy(eng, prompt, 160) for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        eng.prefix_index.clear()
+        runs.append(_windowed_greedy(eng, prompt, 160))
+    eng.prefix_index.clear()
+    m.batcher.prefill_chunk = None
     t0 = time.perf_counter()
     h = m.batcher.submit(Request(prompt_ids=prompt, max_tokens=160, temperature=0.0))
     served = h.tokens()
     wall = time.perf_counter() - t0
+    m.batcher.prefill_chunk = eng.prefill_chunk_default
     (a, (n, in_use, need)), (b, _) = runs
     log(
-        f"[mistral] windowed greedy: prompt {len(prompt)} tokens (bucket "
+        f"[mistral] windowed greedy: prompt {len(prompt)} tokens (whole-prompt, bucket "
         f"{eng.bucket_for(len(prompt))}) + 160 new: slot length {n} > window {M_WINDOW}, "
-        f"{in_use} pages in use where the length alone needs {need}, "
+        f"the slot holds {in_use} pages where the length alone needs {need}, "
         f"{eng.kv_pages_trimmed - trimmed0} pages trimmed over three runs; batcher run "
         f"ttft_ms={h.ttft_ms:.2f}, {len(served)} tokens in {wall:.3f} s, {card}"
     )
@@ -1513,13 +2092,14 @@ def phase_mistral_numerics(manager, card: str) -> None:
            f"greedy streams differ: {a[:8]}... / {b[:8]}... / {served[:8]}...")
     log(f"[mistral] three greedy streams of 160 tokens identical: {a[:8]}...")
 
-    # time to first token and decode rate on the idle server
+    # time to first token and decode rate on the idle server, cold index
     for n_prompt in (250, 500, 1000, 2000):
+        eng.prefix_index.clear()
         h = m.batcher.submit(Request(prompt_ids=[256] + [65] * n_prompt, max_tokens=2,
                                      temperature=0.0))
         h.tokens()
         log(f"[mistral] ttft_ms={h.ttft_ms:.2f} for a {n_prompt + 1}-token prompt "
-            f"(bucket {eng.bucket_for(n_prompt + 1)}) on an idle server, {card}")
+            f"({_admission(m, n_prompt + 1)}) on an idle server, {card}")
     hs = [m.batcher.submit(Request(prompt_ids=[256] + list(range(100)), max_tokens=129,
                                    temperature=0.7)) for _ in range(eng.num_slots)]
     steps0 = eng.decode_steps
@@ -1534,6 +2114,9 @@ def phase_mistral_numerics(manager, card: str) -> None:
                     rounds=False)
     _fresh_noise("[mistral]", eng, rounds=False)
     _profile_decode(eng, "mistral", 8, card)
+    _chunk_numerics(m, 4090, card)
+    _batcher_admission(m, 4090, card)
+    _trimmed_admission(m, 7000)
 
 
 # -- phases 8-10: the dense slot cache with n-gram speculation -------------------
@@ -1584,13 +2167,16 @@ def phase_dense_serve(name: str):
             m.batcher.degrade_spec = not spec_on
             w = _served_window(manager, stub, m, card,
                                " dense, speculative" if spec_on else " dense, degrade_spec")
-            n, pre, steps = w["launches"], w["prefills"], w["steps"]
+            n, pre, steps, chunks = w["launches"], w["prefills"], w["steps"], w["chunks"]
             want = dict.fromkeys(n, 0)
-            want.update({case["matmul"]: per * (pre + steps), "flash_attention": L * pre,
-                         case["verify" if spec_on else "decode"]: L * steps})
-            expect(n == want, f"launch counts {n} != {want} for {pre} prefills, "
-                   f"{steps} {'rounds' if spec_on else 'steps'}")
-            log(f"[dense {name}] launch counts exact for {pre} prefills and {steps} "
+            # a chunk of an admission attends through the verify kernel
+            want.update({case["matmul"]: per * (pre + chunks + steps),
+                         "flash_attention": L * pre, case["verify"]: L * chunks})
+            want[case["verify" if spec_on else "decode"]] += L * steps
+            expect(n == want, f"launch counts {n} != {want} for {pre} prefills, {chunks} "
+                   f"chunks, {steps} {'rounds' if spec_on else 'steps'}")
+            log(f"[dense {name}] launch counts exact for {pre} whole-prompt prefills, {chunks} "
+                f"admission chunks and {steps} "
                 f"{'speculative rounds' if spec_on else 'plain steps'}: "
                 f"{ {k: v for k, v in n.items() if v} }")
             for k, v in n.items():
@@ -1831,6 +2417,7 @@ def phase_dense_numerics(name: str):
         _fresh_noise(tag, eng, rounds=False)
         _profile_decode(eng, f"dense {name}", 8, card, prompt=REPEATING)
         _profile_decode(eng, f"dense {name}", 8, card)
+        _dense_chunks(tag, m, case, card)
 
     return run
 

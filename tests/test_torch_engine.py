@@ -36,9 +36,9 @@ def jax_params():
 def _engines(jax_params, **kw):
     kw.setdefault("num_slots", 2)
     kw.setdefault("paged_pool_rows", POOL_ROWS)
-    common = dict(max_context=128, quantize="int8", page_size=16, **kw)
-    jax_eng = TPUEngine(JAX_TINY, jax_params, cache_dtype=jnp.float32,
-                        prefix_cache=False, **common)
+    # the JAX engine's prefix index is off, and so is the port's
+    common = dict(max_context=128, quantize="int8", page_size=16, prefix_cache=False, **kw)
+    jax_eng = TPUEngine(JAX_TINY, jax_params, cache_dtype=jnp.float32, **common)
     port = TorchEngine(TINY_TEST, params_from_jax(jax.tree.map(np.asarray, jax_params)),
                        cache_dtype=torch.float32, device="cpu", **common)
     return jax_eng, port

@@ -69,7 +69,7 @@ def _port(torch_params, paged: bool, **kw) -> TorchEngine:
 def _pair(jax_params, torch_params, paged: bool):
     jax_eng = TPUEngine(JAX_TINY, jax_params, num_slots=3, max_context=CTX, quantize="int8",
                         cache_dtype=jnp.float32, prefix_cache=False, **_geometry(paged))
-    return jax_eng, _port(torch_params, paged)
+    return jax_eng, _port(torch_params, paged, prefix_cache=False)
 
 
 PAGED = pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])

@@ -237,9 +237,9 @@ def test_trim_below_window_matches_jax_allocator():
 def _engines(jax_params, cfg_j=JAX_TINY, cfg_t=TINY_TEST, **kw):
     kw.setdefault("num_slots", 2)
     kw.setdefault("paged_pool_rows", 256)
-    common = dict(max_context=128, quantize="int4", page_size=16, **kw)
-    jax_eng = TPUEngine(cfg_j, jax_params, cache_dtype=jnp.int8, prefix_cache=False,
-                        **common)
+    # the JAX engine's prefix index is off, and so is the port's
+    common = dict(max_context=128, quantize="int4", page_size=16, prefix_cache=False, **kw)
+    jax_eng = TPUEngine(cfg_j, jax_params, cache_dtype=jnp.int8, **common)
     port = TorchEngine(cfg_t, params_from_jax(_numpy_tree(jax_params)),
                        cache_dtype=torch.int8, device="cpu", **common)
     return jax_eng, port

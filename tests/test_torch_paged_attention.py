@@ -337,17 +337,18 @@ def test_every_preset_fits_every_kernel_contract(name, paged, quant_cache, quant
                                      pages_per_slot=cfg.max_context // 128) == []
 
 
-@pytest.mark.parametrize("paged,quant_cache,kernel", [
-    (True, False, "paged_decode_attention (K3)"),
-    (True, True, "paged_decode_attention_int8 (K4)"),
-    (False, False, "(K6-K9)"),
+@pytest.mark.parametrize("paged,quant_cache,kernels", [
+    (True, False, ("paged_decode_attention (K3)", "(K6), chunked admission")),
+    (True, True, ("paged_decode_attention_int8 (K4)", "(K7), chunked admission")),
+    (False, False, ("(K6-K9)",)),
 ])
-def test_tiny_test_breaks_the_attention_contracts(paged, quant_cache, kernel):
+def test_tiny_test_breaks_the_attention_contracts(paged, quant_cache, kernels):
     faults = tm.kernel_contract_faults(TINY_TEST, paged=paged, quant_cache=quant_cache,
                                        quantize="int8", pages_per_slot=1)
     assert "flash_attention (K2): head_dim 16 not in (64, 128)" in faults
-    assert any(kernel in f and "head_dim 16" in f for f in faults)
-    assert len(faults) == 2  # its matmul leaves suit K1
+    for kernel in kernels:  # a paged engine admits long prompts through K6 or K7
+        assert any(kernel in f and "head_dim 16" in f for f in faults)
+    assert len(faults) == 1 + len(kernels)  # its matmul leaves suit K1
 
 
 def test_contract_faults_name_the_group_and_the_matmul_leaves():
@@ -357,6 +358,8 @@ def test_contract_faults_name_the_group_and_the_matmul_leaves():
     assert faults == [
         "paged_decode_attention (K3): H/KH = 40/4, needs H % KH == 0 and H/KH <= 8",
         "paged decode attention: 4096 pages per slot, at most 2048",
+        "multiquery_decode_attention (K6), chunked admission: H/KH = 40/4, needs "
+        "H % KH == 0 and H/KH <= 8",
         "quantized_matmul (K1): w_gateup [K=5120, N=34808]: the int8 matmul kernel needs "
         "K % 8 == 0 and N % 16 == 0",
         "quantized_matmul (K1): w_down [K=17404, N=5120]: the int8 matmul kernel needs "
