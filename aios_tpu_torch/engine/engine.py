@@ -9,14 +9,22 @@ sampling generator) live on the device in buffers that keep their storage
 for the engine's life; a decode dispatch moves only the page table in
 (paged) and the sampled tokens out.
 
-On a CUDA engine every decode dispatch replays a CUDA graph (``graphs.py``),
-as the JAX engine dispatches compiled executables: ``warmup`` captures the
-decode step of the engine's cache and, where it speculates, the round of
-``spec_step``'s defaults; a (draft_len, ngram) not warmed is captured at
-first use, and counted. ``step(n)`` and ``spec_step(n)`` replay the one-step
-or one-round graph n times and read back once. On the CPU they run the same
-bodies eagerly; on the card ``step_eager`` and ``spec_step_eager`` do, like
-a kernel's plain twin, by name only.
+On a CUDA engine every decode and admission dispatch replays a CUDA graph
+(``graphs.py``), as the JAX engine dispatches compiled executables:
+``warmup`` captures the decode step of the engine's cache and, where it
+speculates, the round of ``spec_step``'s defaults, then the admission
+graphs (``capture_admission``): a whole-prompt prefill per bucket the pool
+can back, the mid chunk and every final bucket up to the batcher's chunk,
+and the same at the prefix hit's chunk, all in one shared memory pool. A
+size not warmed is captured at first use, and counted. ``step(n)`` and
+``spec_step(n)`` replay the one-step or one-round graph n times and read
+back once; ``prefill`` and each ``ChunkedPrefill.step`` replay one graph on
+operands staged into static device buffers (the slot, the start, the
+valid rows, the prompt's length, the temperature and top_p, the tokens),
+and only a final chunk or a prefill reads back, its first token. On the
+CPU they run the same bodies eagerly; on the card ``step_eager``,
+``spec_step_eager``, ``prefill_eager`` and ``ChunkedPrefill(eager=True)``
+do, like a kernel's plain twin, by name only.
 
 The cache is a shared page pool of ``paged_pool_rows`` rows, or, with
 ``paged_pool_rows=None``, a dense slot cache [L, S, C, KH, D] in which slot s
@@ -124,6 +132,41 @@ def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+class Staged:
+    """A device buffer that the host fills without waiting for the stream.
+
+    On CUDA the host writes a pinned twin (``host``, a numpy view of it)
+    and ``push`` copies it in asynchronously, in stream order, so a
+    dispatch's operands never put the host in lockstep with the card the
+    way a copy from pageable memory does. A pinned buffer must not change
+    before its queued copy has run, so ``host`` first waits for the event of
+    the twin's previous copy; where the stream has drained since (the
+    previous dispatch's readback) that wait is free. On the CPU the twin is
+    the buffer itself."""
+
+    def __init__(self, dev: torch.Tensor) -> None:
+        self.dev = dev
+        cuda = dev.device.type == "cuda"
+        self._twin = (torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+                      if cuda else dev)
+        self._np = self._twin.numpy()
+        self._copied = torch.cuda.Event() if cuda else None
+
+    @property
+    def host(self) -> np.ndarray:
+        if self._copied is not None:
+            self._copied.synchronize()
+        return self._np
+
+    def push(self, n: Optional[int] = None) -> None:
+        """Queue the copy of the twin's first ``n`` elements (all by
+        default) into the device buffer."""
+        if self._copied is None:
+            return
+        self.dev.view(-1)[:n].copy_(self._twin.view(-1)[:n], non_blocking=True)
+        self._copied.record()
 
 
 class TorchEngine:
@@ -246,11 +289,33 @@ class TorchEngine:
         # before each dispatch
         self.tables_dev = (torch.zeros(self.allocator.tables.shape, dtype=torch.int32,
                                        device=dev) if self.paged else None)
+        self._tables = Staged(self.tables_dev) if self.paged else None
         self._slot_ids = torch.arange(num_slots, device=dev)
         self._columns = torch.arange(spec.HISTORY_PAD, device=dev)
+        # the admission operands, the twins of the JAX admission
+        # executables' operands: [slot, start, n_valid, true_len, tokens of
+        # the bucket (zero-padded) ...] and [temperature, top_p]; and the
+        # admission's outputs, the first token and the logits row it was
+        # sampled from. Static for the engine's life (graphs hold them).
+        self._adm_ints = Staged(torch.zeros(4 + self.max_context, dtype=torch.int64,
+                                            device=dev))
+        self._adm_f32 = Staged(torch.zeros(2, dtype=torch.float32, device=dev))
+        ints = self._adm_ints.dev
+        self._adm_slot, self._adm_start, self._adm_n_valid, self._adm_true_len = (
+            ints[i:i + 1] for i in range(4))
+        self._adm_tokens = ints[4:].view(1, self.max_context)
+        self._adm_temp, self._adm_top_p = self._adm_f32.dev[0:1], self._adm_f32.dev[1:2]
+        self._adm_first = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._adm_logits = torch.zeros(cfg.vocab_size, dtype=torch.float32, device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(0)
         self.graphs = GraphSet(dev, self.generator)
+        # one memory pool for every admission graph (graphs.py's ownership
+        # rule), the bytes it took at warmup, and the chunk the split
+        # workspace is reserved for
+        self._admission_pool = self.graphs.new_pool()
+        self.admission_pool_bytes = 0
+        self._workspace_chunk = self._prefix_chunk
         # logits of the last step or round dispatched (on CUDA a graph's
         # static output, overwritten by its next replay)
         self.last_logits: Optional[torch.Tensor] = None
@@ -283,12 +348,25 @@ class TorchEngine:
         A prompt whose leading full blocks hit the prefix index maps those
         pages and admits only its tail, through the chunked path at the
         prefix chunk (the slot is released if that fails). Any other prompt
-        runs one whole-prompt pass at its bucket: the K/V rows are written
+        runs one whole-prompt pass at its bucket (``_prefill_body``; on
+        CUDA one replay of the bucket's graph): the K/V rows are written
         straight into the page pool, or into rows [0, bucket) of the slot's
         dense cache, in place; rows of the bucket's padding land on the
         sacrificial page or past the prompt and are never read. Raises
         PoolExhausted before touching any state when the pool cannot back
         the prompt."""
+        return self._prefill(slot, token_ids, temperature, top_p, eager=False)
+
+    def prefill_eager(self, slot: int, token_ids: List[int], temperature: float = 0.0,
+                      top_p: float = 1.0) -> int:
+        """``prefill`` through the eager bodies (a hit's tail too), the plain
+        twin of the replayed graphs on the card: how a caller holds a replay
+        against the same kernels issued one by one. The serving path never
+        calls it."""
+        return self._prefill(slot, token_ids, temperature, top_p, eager=True)
+
+    def _prefill(self, slot: int, token_ids: List[int], temperature: float,
+                 top_p: float, eager: bool) -> int:
         if not 0 <= slot < self.num_slots:
             raise ValueError(f"slot {slot} out of range")
         token_ids = list(token_ids)[-(self.max_context - 1):]
@@ -301,7 +379,8 @@ class TorchEngine:
                 matched, hashes = self._match_prefix(slot, token_ids)
         if matched:
             pc = ChunkedPrefill(self, slot, token_ids, temperature, top_p,
-                                self._prefix_chunk, start_pos=matched, hashes=hashes)
+                                self._prefix_chunk, start_pos=matched, hashes=hashes,
+                                eager=eager)
             try:
                 first = pc.step()
                 while first is None:
@@ -312,71 +391,151 @@ class TorchEngine:
                 raise
             return first
         bucket = self.bucket_for(true_len)
-        padded = torch.zeros((1, bucket), dtype=torch.int64)
-        padded[0, :true_len] = torch.tensor(token_ids, dtype=torch.int64)
         with self._lock:
-            dev = self.device
             if self.paged:
                 self.allocator.ensure(slot, true_len)
-                P = self.allocator.page_size
-                nb = -(-bucket // P)
-                pages = np.repeat(self.allocator.tables[slot, :nb], P)[:bucket]
-                pages = torch.from_numpy(pages.astype(np.int64)).to(dev)
-                offs = torch.arange(bucket, device=dev) % P
-            else:  # (slot, rows [0, bucket)) of the dense cache
-                pages, offs = slot, slice(0, bucket)
-            padded = padded.to(dev)
-            logits, ks, vs = model.prefill(self.params, self.cfg, padded)
-            if self.quant_cache:
-                kq, k_s = model.quantize_kv(ks[:, 0])  # [L, T, KH, D], [L, T, KH]
-                vq, v_s = model.quantize_kv(vs[:, 0])
-                self.k_pool[:, pages, offs] = kq
-                self.v_pool[:, pages, offs] = vq
-                self.k_scales[:, pages, offs] = k_s
-                self.v_scales[:, pages, offs] = v_s
-            else:
-                self.k_pool[:, pages, offs] = ks[:, 0].to(self.k_pool.dtype)
-                self.v_pool[:, pages, offs] = vs[:, 0].to(self.v_pool.dtype)
-            if self.track_history:
-                # the whole padded bucket; _activate puts the first token
-                # over the padding's first column
-                self.history[slot, :bucket] = padded[0]
-            first_token = self._activate(slot, logits[0, true_len - 1], true_len,
-                                         temperature, top_p)
+            self._stage_admission(slot, token_ids, 0, true_len, true_len, temperature,
+                                  top_p, bucket)
+            self._dispatcher(("prefill", bucket), functools.partial(self._prefill_body, bucket),
+                             eager, admission=True)()
+            first_token = self._admitted(slot, true_len)
             self.prefills += 1
             self._register_prefix(slot, token_ids, hashes)
         return first_token
 
-    def _activate(self, slot: int, row_logits: torch.Tensor, true_len: int,
-                  temperature: float, top_p: float) -> int:
-        """The end of an admission: sample the first token from the logits
-        row of the prompt's last token, put it in the history at column
-        ``true_len`` and make the slot live on the device and in the host
-        mirrors. Caller holds the lock."""
-        dev = self.device
-        temp = torch.tensor([temperature], dtype=torch.float32, device=dev)
-        tp = torch.tensor([top_p], dtype=torch.float32, device=dev)
-        first = sampling.sample(row_logits[None], self.generator, temp, tp)
+    def _stage_admission(self, slot: int, ids: List[int], start: int, n_valid: int,
+                         true_len: int, temperature: float, top_p: float,
+                         bucket: int) -> None:
+        """Stage one admission dispatch's operands into the static buffers
+        its body reads: the slot, the start row, the valid rows of the
+        bucket, the prompt's length, the tokens ``ids`` zero-padded to
+        ``bucket``, the temperature and top_p, and over the pool the page
+        tables. Caller holds the lock."""
+        host = self._adm_ints.host
+        host[:4] = (slot, start, n_valid, true_len)
+        host[4:4 + bucket] = 0
+        host[4:4 + len(ids)] = ids
+        self._adm_ints.push(4 + bucket)
+        self._adm_f32.host[:] = (temperature, top_p)
+        self._adm_f32.push()
+        if self.paged:
+            self._stage_tables()
+
+    def _stage_tables(self) -> None:
+        """Copy the allocator's page tables into ``tables_dev``. Caller
+        holds the lock."""
+        self._tables.host[:] = self.allocator.tables
+        self._tables.push()
+
+    def _prefill_body(self, bucket: int) -> None:
+        """Whole-prompt prefill at ``bucket`` on the staged operands (the
+        twin of the JAX ``_prefill_impl_paged`` and ``_prefill_impl``): the
+        forward over the tokens [1, bucket], their K/V rows into the pool
+        through the slot's row of ``tables_dev`` (a static repeat of its
+        first blocks, as the JAX function takes them), or into rows
+        [0, bucket) of the slot's dense cache, the padded bucket into the
+        history, then ``_activate_body`` on the logits row of the prompt's
+        last token. Reads only static storage, reads nothing back, branches
+        on no tensor and returns nothing: what the eager path runs and a
+        CUDA graph captures."""
+        tokens, slot = self._adm_tokens[:, :bucket], self._adm_slot
+        logits, ks, vs = model.prefill(self.params, self.cfg, tokens)
+        offs = torch.arange(bucket, device=self.device)
+        if self.paged:
+            P = self.allocator.page_size
+            row = self.tables_dev.index_select(0, slot)[0, : -(-bucket // P)].long()
+            pages, offs = model.page_rows(row, P, bucket), offs % P
+        else:  # (slot, rows [0, bucket)) of the dense cache
+            pages = slot.expand(bucket)
+        k, v = ks[:, 0], vs[:, 0]  # [L, T, KH, D]
+        if self.quant_cache:
+            (k, k_s), (v, v_s) = model.quantize_kv(k), model.quantize_kv(v)
+            self.k_scales[:, pages, offs] = k_s
+            self.v_scales[:, pages, offs] = v_s
+        self.k_pool[:, pages, offs] = k.to(self.k_pool.dtype)
+        self.v_pool[:, pages, offs] = v.to(self.v_pool.dtype)
         if self.track_history:
-            self.history[slot, true_len] = first[0]
-        self.lengths[slot] = true_len
-        self.last_tokens[slot] = first[0]
-        self.temps[slot] = temp[0]
-        self.top_ps[slot] = tp[0]
-        self.active_dev[slot] = True
+            # the whole padded bucket; the first token then goes over the
+            # padding's first column
+            self.history[slot, :bucket] = tokens
+        self._activate_body(logits[0].index_select(0, self._adm_n_valid - 1))
+
+    def _chunk_body(self, bucket: int, final: bool) -> None:
+        """One chunk of an admission on the staged operands (the twin of the
+        JAX ``_prefill_chunk_impl`` and, ``final``, ``_final_chunk_impl``):
+        tokens [1, bucket] at rows [start, start+bucket) of the slot, their
+        K/V rows into the cache and the tokens into the history (columns
+        past its end collapse onto the sacrificial last column: a prefix
+        match de-aligns chunk starts, so a final bucket's padding may
+        overrun), attended over everything the slot holds
+        (``model.prefill_chunk_paged`` through the slot's row of
+        ``tables_dev``, or ``model.prefill_chunk`` at the device slot); the
+        final chunk then runs ``_activate_body`` on the logits row of
+        valid row ``n_valid - 1``. The contract of ``_prefill_body``."""
+        tokens, slot, start = self._adm_tokens[:, :bucket], self._adm_slot, self._adm_start
+        if self.paged:
+            logits = model.prefill_chunk_paged(
+                self.params, self.cfg, tokens, start, self.k_pool, self.v_pool,
+                self.tables_dev.index_select(0, slot)[0], cache_scales=self._cache_scales())
+        else:
+            logits = model.prefill_chunk(
+                self.params, self.cfg, tokens, slot, start, self.k_pool, self.v_pool,
+                cache_scales=self._cache_scales())
+        if self.track_history:
+            cols = start + torch.arange(bucket, device=self.device)
+            self.history[slot, cols.clamp(max=self.history.shape[1] - 1)] = tokens[0]
+        if final:
+            self._activate_body(logits[0].index_select(0, self._adm_n_valid - 1))
+
+    def _chunk_forward(self, pc: "ChunkedPrefill", n: int, bucket: int, final: bool) -> None:
+        """Dispatch one chunk of ``pc``'s admission: its ``n`` tokens from
+        row ``pc.pos``, padded to ``bucket``, staged and run through
+        ``_chunk_body`` (on CUDA one replay, unless ``pc.eager``). Caller
+        holds the lock and has backed the rows."""
+        self._stage_admission(pc.slot, pc.ids[pc.pos:pc.pos + n], pc.pos, n, len(pc.ids),
+                              pc.temperature, pc.top_p, bucket)
+        self._dispatcher(("chunk", bucket, final),
+                         functools.partial(self._chunk_body, bucket, final),
+                         pc.eager, admission=True)()
+        self.prefill_chunks += 1
+
+    def _activate_body(self, row: torch.Tensor) -> None:
+        """The device half of the end of an admission, inside the bodies:
+        keep ``row`` [1, V] (the logits of the prompt's last token), sample
+        the first token from it, put it in the history at column
+        ``true_len`` and make the slot live at the device slot: its length,
+        last token, temperature, top_p and active flag. ``_admitted`` is
+        the host half."""
+        self._adm_logits.copy_(row[0])
+        sampling.sample(self._adm_logits[None], self.generator, self._adm_temp,
+                        self._adm_top_p, out=self._adm_first)
+        slot = self._adm_slot
+        if self.track_history:
+            self.history.index_put_((slot, self._adm_true_len), self._adm_first)
+        self.lengths.index_copy_(0, slot, self._adm_true_len.to(torch.int32))
+        self.last_tokens.index_copy_(0, slot, self._adm_first)
+        self.temps.index_copy_(0, slot, self._adm_temp)
+        self.top_ps.index_copy_(0, slot, self._adm_top_p)
+        self.active_dev.index_fill_(0, slot, True)
+
+    def _admitted(self, slot: int, true_len: int) -> int:
+        """The host half of the end of an admission, after its dispatch:
+        the host mirrors, and the admission's one readback, its first
+        token. Caller holds the lock."""
         self.active[slot] = True
         self._host_lengths[slot] = true_len
-        return int(first[0])
+        return int(self._adm_first.item())
 
     def start_chunked_prefill(self, slot: int, token_ids: List[int],
                               temperature: float = 0.0, top_p: float = 1.0,
-                              chunk: int = 512) -> "ChunkedPrefill":
+                              chunk: int = 512, eager: bool = False) -> "ChunkedPrefill":
         """Begin an incremental prefill of ``slot``: the caller calls
         ``.step()`` once per chunk and may run decode dispatches of the
         other slots in between (the continuous batcher does). ``chunk`` must
         be a prefill bucket that divides max_context, so that chunk writes
         never run past the cache end. A prompt whose leading blocks hit the
-        prefix index starts after its matched rows."""
+        prefix index starts after its matched rows. ``eager`` runs the
+        chunks through the eager body (``ChunkedPrefill``)."""
         if not 0 <= slot < self.num_slots:
             raise ValueError(f"slot {slot} out of range")
         if chunk not in self.buckets or self.max_context % chunk:
@@ -388,30 +547,7 @@ class TorchEngine:
             with self._lock:
                 matched, hashes = self._match_prefix(slot, ids)
         return ChunkedPrefill(self, slot, ids, temperature, top_p, chunk,
-                              start_pos=matched, hashes=hashes)
-
-    def _chunk_forward(self, slot: int, tokens: torch.Tensor, start: int) -> torch.Tensor:
-        """One chunk of ``slot``'s admission, tokens [1, bucket] on the
-        device at rows [start, start+bucket): the K/V rows into the cache
-        and the tokens into the history (columns past its end collapse onto
-        the sacrificial last column: a prefix match de-aligns chunk starts,
-        so a final bucket's padding may overrun). Returns the chunk's
-        logits [1, bucket, V]. Caller holds the lock and has backed the
-        rows."""
-        if self.paged:
-            table_row = torch.from_numpy(self.allocator.tables[slot]).to(self.device)
-            logits = model.prefill_chunk_paged(
-                self.params, self.cfg, tokens, start, self.k_pool, self.v_pool, table_row,
-                cache_scales=self._cache_scales())
-        else:
-            logits = model.prefill_chunk(
-                self.params, self.cfg, tokens, slot, start, self.k_pool, self.v_pool,
-                cache_scales=self._cache_scales())
-        if self.track_history:
-            cols = torch.arange(start, start + tokens.shape[1], device=self.device)
-            self.history[slot, cols.clamp(max=self.history.shape[1] - 1)] = tokens[0]
-        self.prefill_chunks += 1
-        return logits
+                              start_pos=matched, hashes=hashes, eager=eager)
 
     def _match_prefix(self, slot: int, ids: List[int]) -> Tuple[int, List[bytes]]:
         """Map the longest hash-matched prefix of ``ids`` into ``slot``'s page
@@ -436,9 +572,20 @@ class TorchEngine:
         matched = len(pages) * P
         self.prefix_rows_reused += matched
         if self.track_history:
-            self.history[slot, :matched] = torch.tensor(ids[:matched], dtype=torch.int64,
-                                                        device=self.device)
+            self._backfill_history(slot, ids[:matched])
         return matched, hashes
+
+    def _backfill_history(self, slot: int, ids: List[int]) -> None:
+        """Write a prefix hit's matched tokens into the history of ``slot``:
+        the twin of the JAX ``compile_hist_fn``, which compiles this write
+        per bucket because an XLA program is the only way to change a
+        device buffer there. Here it is one copy of the staged tokens into
+        the history, a single device-to-device copy that a graph would
+        issue no cheaper. Caller holds the lock."""
+        n = len(ids)
+        self._adm_ints.host[4:4 + n] = ids
+        self._adm_ints.push(4 + n)
+        self.history[slot, :n].copy_(self._adm_tokens[0, :n])
 
     def _register_prefix(self, slot: int, ids: List[int], hashes: List[bytes]) -> None:
         """After an admission, publish the slot's fully covered prompt
@@ -540,25 +687,32 @@ class TorchEngine:
         self.lengths.copy_(torch.clamp(self.lengths + counts, max=C - 1))
         return g, counts, logits
 
-    def _dispatcher(self, key, body, eager: bool):
-        """What runs one step or round: ``body`` itself on the CPU or when
+    def _dispatcher(self, key, body, eager: bool, admission: bool = False):
+        """What runs one dispatch: ``body`` itself on the CPU or when
         ``eager``, else the replay of its graph, captured now (and counted)
         if warmup did not. Caller holds the lock."""
         if eager or not self.graphs.enabled:
             return body
         if key not in self.graphs:
-            self._capture(key, body)
+            self._capture(key, body, admission)
         return lambda: self.graphs.replay(key)
 
-    def _capture(self, key, body) -> None:
-        """Capture ``body`` as graph ``key`` and leave the engine's state as
-        it was: the capture runs nothing, and the eager pass before it runs
-        with every slot inactive (writing only the sacrificial page or each
-        dense slot's last row, and the history's sacrificial column), then
-        puts back the lengths, last tokens and active mask it moved.
-        Caller holds the lock."""
+    def _capture(self, key, body, admission: bool = False) -> None:
+        """Capture ``body`` as graph ``key``. The capture runs nothing. The
+        eager pass before it must leave the engine's state as the dispatch
+        would: a step or round body runs with every slot inactive (writing
+        only the sacrificial page or each dense slot's last row, and the
+        history's sacrificial column), then puts back the lengths, last
+        tokens and active mask it moved. An admission body is idempotent
+        given its staged operands, so it runs on them as it is: it writes
+        what the replay then rewrites, and draws once more from the
+        generator. Admission graphs share one memory pool. Caller holds the
+        lock."""
         def prepare() -> None:
             self._reserve_workspaces()
+            if admission:
+                body()
+                return
             state = (self.lengths, self.last_tokens, self.active_dev)
             saved = [t.clone() for t in state]
             self.active_dev.zero_()
@@ -567,17 +721,19 @@ class TorchEngine:
                 t.copy_(was)
 
         t0 = time.perf_counter()
-        graph = self.graphs.capture(key, body, prepare)
+        graph = self.graphs.capture(key, body, prepare,
+                                    pool=self._admission_pool if admission else None)
         log.info("%s: captured the %s graph (%d kernel launches) in %.2fs", self.cfg.name,
                  key, sum(graph.launches.values()), time.perf_counter() - t0)
 
     def _workspace_launches(self) -> List[Tuple[int, int, int]]:
         """The split launches of this engine (``workspace_launches``): the
         decode attention, the verify attention where it speculates, and a
-        chunk of ``prefill_chunk_default`` rows (the batcher's default
-        chunk and the prefix hit's)."""
+        chunk of the prefix hit's rows (``prefill_chunk_default``, the
+        batcher's default chunk), or of the larger chunk ``warmup`` was
+        given."""
         return workspace_launches(
-            self.cfg, self.num_slots, self.max_context, chunk=self._prefix_chunk,
+            self.cfg, self.num_slots, self.max_context, chunk=self._workspace_chunk,
             speculative=self.spec_supported and self.track_history,
             sms=sm_count(self.device.index))
 
@@ -602,6 +758,73 @@ class TorchEngine:
         for groups, splits, rows in self._workspace_launches():
             split.workspace(dev, stream, groups, splits, self.cfg.head_dim, rows)
         counters_for(dev, stream)
+
+    def admission_plan(self, prefill_chunk: Optional[int] = None
+                       ) -> Tuple[List[int], List[Tuple[int, bool]]]:
+        """(prefill buckets, chunk keys (bucket, final)) of the admission
+        graphs ``capture_admission`` captures: the keys of the JAX warmup's
+        ``_prefill_fns`` (less its history backfills, one copy here:
+        ``_backfill_history``) and ``_chunk_fns`` on the same geometry. Every
+        bucket the pool can back (``blocks_for(bucket // 2 + 1)`` within
+        ``capacity_blocks()``); for the batcher's chunk (None:
+        ``prefill_chunk_default``, 0: none), where it is a bucket dividing
+        the context, the mid chunk (chunk, False) and a final (b, True) for
+        each bucket b up to it; with the prefix index, the same at
+        ``_prefix_chunk``."""
+        alloc = self.allocator
+        buckets = [b for b in self.buckets
+                   if alloc is None or alloc.blocks_for(b // 2 + 1) <= alloc.capacity_blocks()]
+        ck = self.prefill_chunk_default if prefill_chunk is None else prefill_chunk
+        chunks: List[Tuple[int, bool]] = []
+        for c in (ck, self._prefix_chunk if self.prefix_index is not None else None):
+            if c and c in self.buckets and self.max_context % c == 0:
+                for key in [(c, False)] + [(b, True) for b in self.buckets if b <= c]:
+                    if key not in chunks:
+                        chunks.append(key)
+        return buckets, chunks
+
+    def capture_admission(self, prefill_chunk: Optional[int] = None) -> int:
+        """Capture every graph of ``admission_plan(prefill_chunk)`` not
+        captured yet, largest prefill bucket first (so the shared memory
+        pool reaches its peak once), then the chunks: the twin of the JAX
+        warmup's ``compile_prefill_fn`` and ``compile_chunk_fn`` loops.
+        Returns how many it captured and adds the reserved bytes they took
+        to ``admission_pool_bytes``. The eager pass before each capture
+        runs on parked operands (slot 0, start 0, one token, page 0 of an
+        empty table), whose state it puts back; a dense cache keeps no
+        sacrificial slot, so this runs before the first admission, as
+        ``warmup`` does, and raises after one. Nothing to do off CUDA."""
+        if not self.graphs.enabled:
+            return 0
+        buckets, chunks = self.admission_plan(prefill_chunk)
+        todo = [(("prefill", b), functools.partial(self._prefill_body, b))
+                for b in sorted(buckets, reverse=True)]
+        todo += [(("chunk", b, final), functools.partial(self._chunk_body, b, final))
+                 for b, final in chunks]
+        todo = [(key, body) for key, body in todo if key not in self.graphs]
+        if not todo:
+            return 0
+        with self._lock:
+            if self.prefills or self.prefill_chunks:
+                raise RuntimeError("capture_admission captures on parked operands, which "
+                                   "would overwrite an admitted slot: call it before the "
+                                   "first admission (warmup does)")
+            moved = [self.lengths, self.last_tokens, self.temps, self.top_ps,
+                     self.active_dev] + ([self.history] if self.track_history else [])
+            saved = [t.clone() for t in moved]
+            before = self.graphs.reserved_bytes()
+            self._stage_admission(0, [0], 0, 1, 1, 0.0, 1.0, self.buckets[-1])
+            for key, body in todo:
+                self._capture(key, body, admission=True)
+            for t, was in zip(moved, saved):
+                t.copy_(was)
+            self.admission_pool_bytes += self.graphs.reserved_bytes() - before
+        return len(todo)
+
+    def admission_graphs(self) -> int:
+        """How many admission graphs the engine holds."""
+        return sum(isinstance(k, tuple) and k[0] in ("prefill", "chunk")
+                   for k in self.graphs.graphs)
 
     def capture_step(self) -> None:
         """Ensure the decode step's graph exists without dispatching (the
@@ -639,7 +862,7 @@ class TorchEngine:
         with self._lock:
             if self.paged:
                 self._back_active_slots(n_steps)
-                self.tables_dev.copy_(torch.from_numpy(self.allocator.tables))
+                self._stage_tables()
             run = self._dispatcher("step", self._step_body, eager)
             out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
                               device=self.device)
@@ -765,25 +988,33 @@ class TorchEngine:
             out["spec_accepted"] = max(self.spec_tokens - self.spec_slot_rounds, 0)
         return out
 
-    def warmup(self) -> None:
+    def warmup(self, prefill_chunk: Optional[int] = None) -> None:
         """On a CUDA engine, build and load the kernel library, then capture
         the decode step's graph and, where the engine speculates, the round
-        graph of spec_step's defaults: the twin of the JAX ``warmup``, which
-        compiles every serving graph behind the readiness gate, so the first
-        request waits for neither nvcc nor a capture. A failed capture
-        raises. The split workspace of the current stream, where chunked
-        admission runs eagerly, is reserved here as well. The CPU runs the
-        bodies eagerly and captures nothing."""
+        graph of spec_step's defaults, then the admission graphs at the
+        batcher's ``prefill_chunk`` (None: ``prefill_chunk_default``, 0: no
+        chunk graphs; ``capture_admission``): the twin of the JAX
+        ``warmup``, which compiles every serving graph behind the readiness
+        gate, so the first request waits for neither nvcc nor a capture. A
+        failed capture raises. The split workspace of the current stream,
+        where the eager twins run, is reserved here as well, for the
+        largest chunk planned. The CPU runs the bodies eagerly and captures
+        nothing."""
         if self.device.type != "cuda":
             return
         t0 = time.perf_counter()
         ops.build_all()
+        chunks = self.admission_plan(prefill_chunk)[1]
         with self._lock:
+            self._workspace_chunk = max([self._workspace_chunk or 0]
+                                        + [b for b, _ in chunks]) or None
             self._reserve_workspaces()
         self.capture_step()
         self.capture_spec()
-        log.info("%s: kernels and %d graphs ready in %.1fs", self.cfg.name,
-                 self.graphs.captures, time.perf_counter() - t0)
+        self.capture_admission(prefill_chunk)
+        log.info("%s: kernels and %d graphs (%d of admission, %d B of shared pool) ready "
+                 "in %.1fs", self.cfg.name, self.graphs.captures, self.admission_graphs(),
+                 self.admission_pool_bytes, time.perf_counter() - t0)
 
     def close(self) -> None:
         """Drop graphs, weights and the cache now rather than at the next
@@ -856,16 +1087,19 @@ class TorchEngine:
 class ChunkedPrefill:
     """Driver of one slot's incremental prefill (the JAX engine's
     ``ChunkedPrefill``). Each ``step()`` runs one chunk under the engine
-    lock; between calls the owner may run ``engine.step`` for the other
-    slots. While chunks are in flight the slot stays inactive, so the decode
-    dispatches in between write its (ignored) K/V to the sacrificial page or
-    the dense cache's last row and never touch the rows already admitted.
-    The final chunk, at ``bucket_for`` of the rows left, samples the first
-    token, activates the slot and publishes its prefix blocks."""
+    lock (on CUDA one replay of the chunk's graph, or the eager body when
+    ``eager``, the plain twin the serving path never takes); between calls
+    the owner may run ``engine.step`` for the other slots. A mid chunk
+    reads nothing back: the host returns once its dispatch is queued. While
+    chunks are in flight the slot stays inactive, so the decode dispatches
+    in between write its (ignored) K/V to the sacrificial page or the dense
+    cache's last row and never touch the rows already admitted. The final
+    chunk, at ``bucket_for`` of the rows left, samples the first token,
+    activates the slot and publishes its prefix blocks."""
 
     def __init__(self, engine: TorchEngine, slot: int, token_ids: List[int],
                  temperature: float, top_p: float, chunk: int, start_pos: int = 0,
-                 hashes=()) -> None:
+                 hashes=(), eager: bool = False) -> None:
         ids = list(token_ids)[-(engine.max_context - 1):]
         if not ids:
             raise ValueError("empty prompt")
@@ -877,8 +1111,10 @@ class ChunkedPrefill:
         self.chunk = int(chunk)
         self.pos = int(start_pos)  # rows already in the cache (a matched prefix)
         self.hashes = list(hashes)  # block hashes to publish when done
+        self.eager = eager
         self.first_token: Optional[int] = None
-        # the final chunk's logits row the first token was sampled from
+        # a copy of the final chunk's logits row the first token was sampled
+        # from (the engine's static row is the next admission's)
         self.first_logits: Optional[torch.Tensor] = None
 
     @property
@@ -898,8 +1134,6 @@ class ChunkedPrefill:
         final = remaining <= self.chunk
         n = min(self.chunk, remaining)
         bucket = eng.bucket_for(n) if final else self.chunk
-        padded = torch.zeros((1, bucket), dtype=torch.int64)
-        padded[0, :n] = torch.tensor(self.ids[self.pos:self.pos + n], dtype=torch.int64)
         with eng._lock:
             if eng.paged:
                 window = eng.cfg.sliding_window
@@ -907,11 +1141,10 @@ class ChunkedPrefill:
                     eng.kv_pages_trimmed += eng.allocator.trim_below_window(
                         self.slot, self.pos, window)
                 eng.allocator.ensure(self.slot, self.pos + n)
-            logits = eng._chunk_forward(self.slot, padded.to(eng.device), self.pos)
+            eng._chunk_forward(self, n, bucket, final)
             if final:
-                self.first_logits = logits[0, n - 1].clone()
-                self.first_token = eng._activate(self.slot, self.first_logits,
-                                                 len(self.ids), self.temperature, self.top_p)
+                self.first_token = eng._admitted(self.slot, len(self.ids))
+                self.first_logits = eng._adm_logits.clone()
                 eng._register_prefix(self.slot, self.ids, self.hashes)
         self.pos += n
         return self.first_token

@@ -1,24 +1,37 @@
-"""CUDA graphs of the engine's decode dispatches.
+"""CUDA graphs of the engine's decode and admission dispatches.
 
-The port's counterpart of the JAX engine's compiled step and round
-executables (``TPUEngine._compile_aot``, ``compile_step_fn`` and
-``compile_spec_fn`` in ``aios_tpu/engine/engine.py``): the JAX engine never
-issues a decode step op by op; it compiles each step and round once, behind
-the readiness gate, and dispatches the executable. Here the body of one
-decode step or one speculative round (embedding, every layer, the final
-norm and lm_head, on-device sampling, the state updates) is captured once
-into a CUDA graph on the engine's own stream and replayed once per step or
-round: one host dispatch for the thousand-odd kernels of a step.
+The port's counterpart of the JAX engine's compiled executables
+(``TPUEngine._compile_aot``, ``compile_step_fn``, ``compile_spec_fn``,
+``compile_prefill_fn`` and ``compile_chunk_fn`` in
+``aios_tpu/engine/engine.py``): the JAX engine never issues a decode step
+or an admission op by op; it compiles each once, behind the readiness gate,
+and dispatches the executable. Here the body of one decode step, one
+speculative round, one whole-prompt prefill at a bucket or one admission
+chunk (embedding, every layer, the final norm and lm_head, on-device
+sampling, the state updates) is captured once into a CUDA graph on the
+engine's own stream and replayed once per dispatch: one host dispatch for
+the thousand-odd kernels of a forward.
 
 A capture bakes in every address the body touches, so the body reads and
 writes only storage that lives as long as its graph: the engine's weights,
-caches and static state buffers, the graph's private memory pool, and the
+caches and static state buffers, the graph's memory pool, and the
 split workspace and ticket counters of the engine's stream, reserved before
 the first capture and held, never replaced, while a graph holds them
 (``ops/split.py``). The body reads nothing back and branches on no tensor.
 Capturing counts no kernel launch; each replay counts the launches its
 capture recorded (``build.recording_launches``), so the wrappers' counters
 read as if every launch had been issued one by one.
+
+The decode step and round each keep a private memory pool. The admission
+graphs of one engine share one pool (``pool``), so that its size is the
+largest admission's intermediates and not their sum. That is safe under
+one ownership rule: an admission graph returns no tensor from the shared
+pool and stores none on the engine; its results go into engine buffers
+allocated before the first capture. PyTorch asks graphs that share a pool
+to replay in capture order because a graph's outputs may live in the pool,
+where another graph's intermediates can overwrite them; with no output in
+the pool, any order is safe, and the batcher replays a mid chunk, a final
+chunk and a bucket in any order.
 """
 
 from __future__ import annotations
@@ -76,14 +89,30 @@ class GraphSet:
     def __contains__(self, key: Hashable) -> bool:
         return key in self.graphs
 
+    def new_pool(self):
+        """A memory pool for graphs to share (``capture``'s ``pool``); None
+        off CUDA."""
+        return torch.cuda.graph_pool_handle() if self.enabled else None
+
+    def reserved_bytes(self) -> int:
+        """Bytes the caching allocator holds on the device once its unused
+        cache is released, 0 off CUDA: read before and after captures, the
+        difference is what the captured graphs' pools took."""
+        if self.device.type != "cuda":
+            return 0
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(self.device)
+
     def capture(self, key: Hashable, body: Callable[[], object],
-                prepare: Callable[[], None]) -> Graph:
-        """Capture ``body()`` as graph ``key``. ``prepare()`` first runs
+                prepare: Callable[[], None], pool=None) -> Graph:
+        """Capture ``body()`` as graph ``key``, in a private memory pool or
+        in the shared ``pool`` (``new_pool``). ``prepare()`` first runs
         eagerly on the capture stream: it reserves the workspaces and runs
-        the body once where that touches no live state, so that every lazy
-        set-up (kernel libraries, plans, counters) happens outside the
-        capture. Raises if the capture fails: nothing falls back to the
-        eager body."""
+        the body once where that touches no live state, or rewrites what
+        the replay will rewrite, so that every lazy set-up (kernel
+        libraries, plans, counters) happens outside the capture. Raises if
+        the capture fails: nothing falls back to the eager body."""
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
@@ -96,7 +125,7 @@ class GraphSet:
         graph.register_generator_state(self.generator)
         # another engine may load, and launch, on another thread meanwhile
         with _capture_lock, build.recording_launches() as launches:
-            with torch.cuda.graph(graph, stream=self.stream,
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 outputs = body()
         if not self._holds_workspace:

@@ -610,7 +610,7 @@ def prefill_chunk(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [1, Tc] — one chunk of one prompt
-    slot: int,  # the destination slot of the dense cache
+    slot,  # int or [1] int64 tensor: the destination slot of the dense cache
     start,  # int or [1] int32 tensor: the row of tokens[0, 0]
     k_cache: torch.Tensor,  # [L, S, C, KH, D] — dense slot cache
     v_cache: torch.Tensor,
@@ -626,24 +626,43 @@ def prefill_chunk(
     scales) IN PLACE, then attends each chunk row over the slot's own rows
     ``k_cache[i][slot:slot+1]`` written so far (``_chunk_forward``). Rows of
     a chunk that would run past the cache end collapse onto the last row;
-    the engine never issues one (its chunk divides the context)."""
+    the engine never issues one (its chunk divides the context).
+
+    A device ``slot`` (a captured admission's operand, never read back)
+    writes through tensor indices and reads the slot's rows per layer by
+    ``index_select``: one copy of [1, C, KH, D] each for K and V (and of
+    the scales), as ``prefill_chunk_paged`` gathers its view; a host int
+    reads views of the cache."""
     dev = tokens.device
     C = k_cache.shape[2]
     start = _start_index(start, dev)
     rows = (start.long() + torch.arange(tokens.shape[1], device=dev)).clamp(max=C - 1)
+    if isinstance(slot, torch.Tensor):
+        def own(t):
+            return t.index_select(0, slot)
+    else:
+        def own(t):
+            return t[slot:slot + 1]
 
     def layer_io(i, k_new, v_new):
-        own = slice(slot, slot + 1)
         if cache_scales is not None:
             k_s, v_s = cache_scales[0][i], cache_scales[1][i]
             scatter_quant(k_cache[i], k_s, slot, rows, k_new)
             scatter_quant(v_cache[i], v_s, slot, rows, v_new)
-            return k_cache[i][own], v_cache[i][own], k_s[own], v_s[own]
+            return own(k_cache[i]), own(v_cache[i]), own(k_s), own(v_s)
         k_cache[i][slot, rows] = k_new.to(k_cache.dtype)
         v_cache[i][slot, rows] = v_new.to(v_cache.dtype)
-        return k_cache[i][own], v_cache[i][own]
+        return own(k_cache[i]), own(v_cache[i])
 
     return _chunk_forward(params, cfg, tokens, start, layer_io, kernels)
+
+
+def page_rows(pages: torch.Tensor, P: int, rows: int) -> torch.Tensor:
+    """The page of each of the first ``rows`` rows that ``pages`` [nb] hold,
+    P rows a page: a broadcast, not ``repeat_interleave``, whose output
+    size some PyTorch builds read back from the device (no capture takes
+    that)."""
+    return pages[:, None].expand(pages.shape[0], P).reshape(-1)[:rows]
 
 
 def chunk_write_rows(table_row: torch.Tensor, start: torch.Tensor, Tc: int,
@@ -660,7 +679,7 @@ def chunk_write_rows(table_row: torch.Tensor, start: torch.Tensor, Tc: int,
         nb = Tc // P
         ext = torch.cat([table_row, table_row.new_zeros(nb)]).long()
         blocks = start.long() // P + torch.arange(nb, device=dev)
-        return ext[blocks].repeat_interleave(P), torch.arange(Tc, device=dev) % P
+        return page_rows(ext[blocks], P, Tc), torch.arange(Tc, device=dev) % P
     page = table_row.long()[start.long() // P]  # [1]
     return page.expand(Tc), start.long() % P + torch.arange(Tc, device=dev)
 

@@ -244,12 +244,15 @@ class ModelManager:
                 **kw,
             )
             del params
-            engine.warmup()
+            # the batcher's admission chunk: warmup captures its graphs
+            chunk = engine.prefill_chunk_default
+            engine.warmup(prefill_chunk=chunk)
             managed = ManagedModel(
                 name=name,
                 config=cfg,
                 engine=engine,
-                batcher=ContinuousBatcher(engine, speculative=self.speculative),
+                batcher=ContinuousBatcher(engine, speculative=self.speculative,
+                                          prefill_chunk=chunk),
                 tokenizer=tokenizer,
                 state=STATE_READY,
                 loaded_at=int(time.time()),
@@ -273,13 +276,15 @@ class ModelManager:
             self._shutdown(old)
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
                  "%s %s, prefix index %s, chunked admission %s, speculative %s, "
-                 "%d graphs captured, split workspace %d B a stream)", name,
+                 "%d graphs captured (%d of admission, in a shared pool of %d B), "
+                 "split workspace %d B a stream)", name,
                  time.time() - t0, ctx, self.num_slots, self.device,
                  self.quantize or "dense", self.cache_dtype,
                  "page pool" if engine.paged else "dense cache",
                  type(engine.prefix_index).__name__ if engine.prefix_index else "off",
                  managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
-                 engine.graphs.captures, engine.workspace_bytes())
+                 engine.graphs.captures, engine.admission_graphs(),
+                 engine.admission_pool_bytes, engine.workspace_bytes())
         return managed
 
     def _load_weights(self, name: str, path: str, context_length: int):

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""First check of the decode graphs on a CUDA device, in under a minute of
-card time after the build: a full-width TinyLlama-1.1B engine (int8
-weights, random from a seed) over the paged pool and over the dense cache
-captures its graphs at ``warmup``; 8 greedy slots at ~300 rows then
+"""First check of the decode and admission graphs on a CUDA device, in about
+a minute of card time after the build: a full-width TinyLlama-1.1B engine
+(int8 weights, random from a seed) over the paged pool and over the dense
+cache captures its graphs at ``warmup``; every admission graph kind is held
+against its eager twin (``chip_smoke._admission_graphs``: a bucket, mid and
+final chunks, over the pool a prefix hit's tail; bit-identical logits and
+cache rows, exact launches, fresh noise, timed both ways); 8 greedy slots
+at ~300 rows then
 dispatch 16 steps (8 speculative rounds on the dense cache) through the
 graph and again through the eager body from the same state, and the
 tokens, the last logits and the launch counts must agree; both are timed
@@ -20,6 +24,7 @@ from __future__ import annotations
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -30,7 +35,8 @@ from aios_tpu_torch import ops  # noqa: E402
 from aios_tpu_torch.engine.config import TINYLLAMA_1_1B  # noqa: E402
 from aios_tpu_torch.engine.engine import TorchEngine  # noqa: E402
 from aios_tpu_torch.engine.weights import init_params  # noqa: E402
-from chip_smoke import REPEATING, _restore as restore, _snapshot as snapshot  # noqa: E402
+from chip_smoke import REPEATING, _admission_graphs  # noqa: E402
+from chip_smoke import _restore as restore, _snapshot as snapshot  # noqa: E402
 
 
 def against_eager(eng, graph, eager, n: int) -> bool:
@@ -77,7 +83,11 @@ def main() -> int:
         eng = TorchEngine(TINYLLAMA_1_1B, params, quantize="int8", device="cuda", **kw)
         t0 = time.perf_counter()
         eng.warmup()
-        print(f"paged={paged}: warmup {time.perf_counter() - t0:.2f}s, {eng.stats()}", flush=True)
+        print(f"paged={paged}: warmup {time.perf_counter() - t0:.2f}s, {eng.stats()}, "
+              f"{eng.admission_graphs()} admission graphs in a shared pool of "
+              f"{eng.admission_pool_bytes} B", flush=True)
+        _admission_graphs(f"[probe paged={paged}]", SimpleNamespace(engine=eng),
+                          torch.cuda.get_device_name(0))
         for s in range(8):
             eng.prefill(s, [256] + list(range(300 - 7 * s)), temperature=0.0)
         ok &= against_eager(eng, eng.step, eng.step_eager, 16)

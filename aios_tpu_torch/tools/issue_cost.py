@@ -25,7 +25,12 @@ the slots at ~300 rows, the median of twelve dispatches; one dispatch under
 torch.profiler (device busy ms and share, kernels per step or round); and an
 8-slot wave through the ``ContinuousBatcher`` (8 requests of 129 tokens,
 host-clock tok/s). TinyLlama's paged ``step(16)`` also runs once under
-cProfile. Weights are random from a seed.
+cProfile. The two paged configurations also time admission as the batcher
+calls it, from a cold prefix index: a whole-prompt ``prefill`` at buckets
+512 and 2048 and a 512-row mid chunk of ``start_chunked_prefill`` at row
+1024 (host wall, median of twelve synchronized calls; device busy of one
+under torch.profiler; for the chunk also the host's time to return from
+``step()``, unsynchronized). Weights are random from a seed.
 
 Run from the repository root on a machine with one CUDA device, here or
 against another checkout of the package, to compare two trees on one host
@@ -199,6 +204,83 @@ def encode_cost():
 REPEATING = [256] + [(i % 40) * 5 + 33 for i in range(240)]
 
 
+def _timed(torch, fn, n: int = 12):
+    """(median host wall ms of ``n`` synchronized calls, device busy ms of
+    one under torch.profiler) of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and e.self_device_time_total > 0) / 1e3
+    return statistics.median(walls), busy
+
+
+def admission(torch, eng):
+    """Host wall and device busy of whole-prompt prefills at buckets 512 and
+    2048 and of a 512-row mid chunk at row 1024, through the calls the
+    batcher makes, slot 0 from a cold index; the mid chunk's host time to
+    return from ``step()`` (median of twelve, unsynchronized). Returns
+    them and a cProfile of five mid chunks issued back to back."""
+    out = {}
+
+    def clear():
+        if eng.prefix_index is not None:
+            eng.prefix_index.clear()
+
+    def prompt(n):
+        return [256] + [(i * 7 + 3) % 256 for i in range(n - 1)]
+
+    for n in (500, 2000):
+        ids = prompt(n)
+
+        def admit(ids=ids):
+            clear()
+            eng.prefill(0, ids, temperature=0.0)
+            eng.release(0)
+
+        b = eng.bucket_for(n)
+        out[f"prefill_b{b}_ms"], out[f"prefill_b{b}_busy_ms"] = _timed(torch, admit)
+    clear()
+    pc = eng.start_chunked_prefill(0, prompt(2000), temperature=0.0, chunk=512)
+    pc.step()
+    pc.step()
+
+    def mid():
+        pc.pos = 1024
+        pc.step()
+
+    out["chunk_ms"], out["chunk_busy_ms"] = _timed(torch, mid)
+    issue = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mid()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    out["chunk_issue_ms"] = statistics.median(issue)
+    cp = cProfile.Profile()
+    cp.enable()
+    for _ in range(5):
+        mid()
+    cp.disable()
+    torch.cuda.synchronize()
+    eng.release(0)
+    buf = io.StringIO()
+    pstats.Stats(cp, stream=buf).sort_stats("tottime").print_stats(12)
+    return out, buf.getvalue()
+
+
 def served(torch, cfg, params, spec, label, **kw):
     """Host wall per step or round, device busy per dispatch and the 8-slot
     wave of one engine made with ``kw`` and warmed; see the module
@@ -251,6 +333,10 @@ def served(torch, cfg, params, spec, label, **kw):
         text = buf.getvalue()
     for s in range(eng.num_slots):
         eng.release(s)
+    if eng.paged:
+        numbers, chunk_prof = admission(torch, eng)
+        out.update(numbers)
+        text += f"[{label}] five mid chunks under cProfile\n{chunk_prof}"
     batcher = ContinuousBatcher(eng, speculative=spec)
     prompt = REPEATING if spec else [256] + list(range(100))
     t0 = time.perf_counter()

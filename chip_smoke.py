@@ -88,11 +88,22 @@ Phases, each printing its lines:
      plain step 129 K5 and 32 K9, per admission chunk 129 K5 and 32 K7) and
      a greedy request past the window.
 
-Every served decode dispatch is a CUDA graph replay: each served window
-also holds that ``LoadModel`` captured the graphs (the step, and with
-speculation the round) and that none is captured while serving, with one
-replay per dispatched step or round; the exact launch counts are counted
-through the replays.
+Every served decode and admission dispatch is a CUDA graph replay: each
+served window also holds that ``LoadModel`` captured the planned graphs
+(the step, with speculation the round, and the admission graphs: a
+whole-prompt prefill per bucket the pool backs, the 512-row mid chunk and
+each final bucket up to it, all in one shared pool whose bytes the
+LoadModel lines print) and that none is captured while serving, with one
+replay per dispatched step, round, prefill and chunk; the exact launch
+counts are counted through the replays. For TinyLlama and Mistral paged
+and TinyLlama dense each admission graph kind (a bucket, mid chunks, a
+final chunk, and over the pool a prefix hit's tail) is held against its
+eager twin (``prefill_eager``, ``ChunkedPrefill(eager=True)``) on the same
+state: the same first token, the first-token logits row and every cache
+byte written bit-identical, exact launches per replay; sampled first
+tokens draw fresh noise; and device busy and host wall per bucket (512,
+2048) and per 512-row mid chunk are timed both ways, with the host's issue
+time of a mid chunk.
 
 Then one ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -105,6 +116,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -937,11 +949,12 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
 
     eng, cfg = m.engine, m.config
-    # LoadModel captured the step graph and, with speculation, the round
-    # graph of the batcher's sizes: nothing is captured while serving
+    # LoadModel captured the step graph, with speculation the round graph of
+    # the batcher's sizes, and the admission graphs: nothing is captured
+    # while serving
     captured = eng.stats()["graph_captures"]
-    expect(captured == 1 + (not eng.paged and m.batcher.speculative),
-           f"{captured} graphs captured at LoadModel")
+    expect(captured == _planned_graphs(m), f"{captured} graphs captured at LoadModel, "
+           f"planned {_planned_graphs(m)}")
     # one short request first, so the counted window excludes one-time setup
     stub.Infer(runtime_pb2.InferRequest(prompt="warm up", max_tokens=4), timeout=300)
 
@@ -985,7 +998,9 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     replays = stats["graph_replays"] - replays0
     expect(stats["graph_captures"] == captured,
            f"{stats['graph_captures'] - captured} graphs captured while serving")
-    expect(replays == steps, f"{replays} graph replays for {steps} dispatched steps or rounds")
+    expect(replays == steps + prefills + admission_chunks,
+           f"{replays} graph replays for {steps} dispatched steps or rounds, {prefills} "
+           f"prefills and {admission_chunks} chunks")
     for i in range(3):
         n_prompt = len(m.tokenizer.encode(render_chat(cfg.name, PROMPTS[i])))
         expect(results[i].tokens_used > n_prompt, f"Infer {i} returned no tokens")
@@ -1008,6 +1023,22 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     )
     log(f"[serve] health: {health.details.get(m.name + '.serving')}")
     return dict(launches=launches, prefills=prefills, steps=steps, chunks=admission_chunks)
+
+
+def _planned_graphs(m) -> int:
+    """The graphs ``LoadModel`` captures for ``m``: the decode step, with
+    speculation the round, and the admission plan at the batcher's chunk."""
+    eng = m.engine
+    buckets, chunks = eng.admission_plan(eng.prefill_chunk_default)
+    return 1 + (not eng.paged and m.batcher.speculative) + len(buckets) + len(chunks)
+
+
+def _graphs_line(m, load_s: float) -> str:
+    eng = m.engine
+    return (f"LoadModel {load_s:.2f} s, {eng.graphs.captures} graphs captured in it "
+            f"({eng.graphs.capture_seconds:.2f} s of captures; {eng.admission_graphs()} of "
+            f"admission in a shared pool of {eng.admission_pool_bytes} B, reserved bytes "
+            f"before and after their captures)")
 
 
 def _refused_load(stub) -> None:
@@ -1048,6 +1079,7 @@ def phase_serve(manager, stub, card: str) -> dict:
         f"{cfg.num_layers} layers, E={cfg.hidden_size}, V={cfg.vocab_size}, ctx={eng.max_context}, "
         f"int8 weights, bf16 pool of {eng.allocator.num_pages} pages x {eng.allocator.page_size} rows"
     )
+    log(f"[serve] {cfg.name}: {_graphs_line(m, load_s)}")
     log(f"[serve] chunked admission at {m.batcher.prefill_chunk} rows, prefix index "
         f"{type(eng.prefix_index).__name__}, split workspace {eng.workspace_bytes()} B a "
         f"stream (a 512-row chunk over {eng.max_context} rows)")
@@ -1159,6 +1191,7 @@ def phase_numerics(manager, card: str) -> None:
                     rounds=False)
     _fresh_noise("[numerics]", eng, rounds=False)
     _profile_decode(eng, "tinyllama", 16, card)
+    _admission_graphs("[admission tinyllama]", m, card)
     _chunk_numerics(m, 1800, card)
     _interleaved(m, 1800, card)
 
@@ -1366,25 +1399,44 @@ def _interleaved(m, n: int, card: str, streams: int = 7) -> None:
     admitted, chunked and then whole-prompt (``prefill_chunk`` off): the
     decode dispatches between its chunks (at least chunks - 1), the longest
     gap between two tokens of one stream during the admission, and its
-    TTFT; no graph is captured and no workspace error raised."""
+    TTFT; the per-tick timeline of the admission (each chunk's or
+    prefill's dispatch and each decode dispatch, from its call to its
+    return, which for a decode dispatch or a prefill is its readback, the
+    dispatch in flight at the submit included). The first gap spans the
+    submit, so the decode dispatch in flight then (16 steps on an idle
+    queue) bounds it from below; the longest gap from a token that arrives
+    between the submit and the admission's first token (to the stream's
+    next token, which may come after it) is what the admission itself
+    costs the streams. No graph is captured since LoadModel and no
+    workspace error raised."""
     from aios_tpu_torch.engine.batching import Request
 
     eng = m.engine
     trace = []
-    chunk_fwd, step = eng._chunk_forward, eng.step
+    chunk_fwd, step, prefill = eng._chunk_forward, eng.step, eng.prefill
 
     def chunk_traced(*a):
-        trace.append(("C", time.perf_counter()))
-        return chunk_fwd(*a)
+        t0 = time.perf_counter()
+        out = chunk_fwd(*a)
+        trace.append(("C", t0, time.perf_counter()))
+        return out
 
     def step_traced(k):
-        trace.append(("S", time.perf_counter()))
-        return step(k)
+        t0 = time.perf_counter()
+        out = step(k)
+        trace.append(("S", t0, time.perf_counter()))
+        return out
+
+    def prefill_traced(*a, **kw):
+        t0 = time.perf_counter()
+        out = prefill(*a, **kw)
+        trace.append(("P", t0, time.perf_counter()))
+        return out
 
     captures0 = eng.stats()["graph_captures"]
     prompt = [256] + [(i * 13 + 5) % 256 for i in range(n - 1)]
     found = {}
-    eng._chunk_forward, eng.step = chunk_traced, step_traced
+    eng._chunk_forward, eng.step, eng.prefill = chunk_traced, step_traced, prefill_traced
     try:
         for chunk in (eng.prefill_chunk_default, None):
             m.batcher.prefill_chunk = chunk
@@ -1405,29 +1457,47 @@ def _interleaved(m, n: int, card: str, streams: int = 7) -> None:
             big = m.batcher.submit(Request(prompt_ids=prompt, max_tokens=1, temperature=0.0))
             big.tokens()
             t1 = time.perf_counter()
+            # each stream's next token after the admission, so that a gap
+            # that starts inside it is seen to its end
+            seen = [len(st) for st in stamps]
+            deadline = time.monotonic() + 30
+            while (any(len(st) <= n for st, n in zip(stamps, seen))
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
             events = list(trace)
             for h in hs:
                 h.cancel()
             for t in threads:
                 t.join(timeout=120)
-            chunks = [t for k, t in events if k == "C"]
-            between = sum(1 for k, t in events if k == "S" and chunks and chunks[0] < t < chunks[-1])
-            gap = max((b - a for st in stamps for a, b in zip(st, st[1:])
-                       if b >= t0 and a <= t1), default=0.0)
-            found[chunk] = (len(chunks), between, gap * 1e3, big.ttft_ms)
+            chunks = [t for k, t, _ in events if k == "C"]
+            between = sum(1 for k, t, _ in events
+                          if k == "S" and chunks and chunks[0] < t < chunks[-1])
+            pairs = [(a, b) for st in stamps for a, b in zip(st, st[1:])]
+            gap = max((b - a for a, b in pairs if b >= t0 and a <= t1), default=0.0)
+            inside = max((b - a for a, b in pairs if t0 <= a <= t1), default=0.0)
+            ticks = " ".join(f"{k}{(a - t0) * 1e3:.1f}-{(b - t0) * 1e3:.1f}"
+                             for k, a, b in events if b >= t0 and a <= t1)
+            found[chunk] = (len(chunks), between, gap * 1e3, big.ttft_ms, ticks, inside * 1e3)
     finally:
-        eng._chunk_forward, eng.step = chunk_fwd, step
+        eng._chunk_forward, eng.step, eng.prefill = chunk_fwd, step, prefill
         m.batcher.prefill_chunk = eng.prefill_chunk_default
-    (nc, between, gap_c, ttft_c), (_, _, gap_w, ttft_w) = (
+    (nc, between, gap_c, ttft_c, ticks_c, in_c), (_, _, gap_w, ttft_w, ticks_w, in_w) = (
         found[eng.prefill_chunk_default], found[None])
     expect(nc == -(-n // eng.prefill_chunk_default) and between >= nc - 1,
            f"{nc} chunks with {between} decode dispatches between them")
-    expect(eng.stats()["graph_captures"] == captures0, "a graph was captured while serving")
+    expect(eng.stats()["graph_captures"] == captures0 == _planned_graphs(m),
+           f"graphs captured: {eng.stats()['graph_captures']}, {captures0} before the "
+           f"admissions, {_planned_graphs(m)} planned at LoadModel")
+    log(f"[chunks {m.config.name}] timeline of the chunked admission, ms from its submit "
+        f"(C a chunk's dispatch, P a whole-prompt prefill to its readback, S a decode "
+        f"dispatch to its readback): {ticks_c}")
+    log(f"[chunks {m.config.name}] timeline of the whole-prompt admission: {ticks_w}")
     log(f"[chunks {m.config.name}] {n}-token admission with {streams} sampled streams "
         f"decoding: {nc} chunks with {between} decode dispatches between them; longest gap "
         f"between two tokens of a stream during the admission {gap_c:.2f} ms chunked, "
-        f"{gap_w:.2f} ms whole-prompt (prefill_chunk off); TTFT {ttft_c:.2f} / {ttft_w:.2f} "
-        f"ms; graph captures flat at {captures0}; {card}")
+        f"{gap_w:.2f} ms whole-prompt (prefill_chunk off), from a token that arrives "
+        f"inside it {in_c:.2f} / {in_w:.2f} ms; TTFT {ttft_c:.2f} / {ttft_w:.2f} "
+        f"ms; graph captures flat at the {captures0} of LoadModel; {card}")
 
 
 def _batcher_admission(m, n: int, card: str) -> None:
@@ -1656,6 +1726,163 @@ def _overrun_hit(m) -> None:
         f"of it gives first token {first}")
     del outs
     torch.cuda.empty_cache()
+
+
+# -- the admission graphs against their eager twins ------------------------------
+
+
+def _slot_rows(eng, slot: int, n: int):
+    """Rows [0, n) of ``slot`` in every cache tensor (values and, int8,
+    scales) through its page table, copied."""
+    out = []
+    for p in (eng.k_pool, eng.v_pool, eng.k_scales, eng.v_scales):
+        if p is None:
+            continue
+        if eng.paged:
+            P = eng.allocator.page_size
+            t = torch.from_numpy(eng.allocator.tables[slot, : -(-n // P)]).cuda().long()
+            p = p[:, t].flatten(1, 2)
+        else:
+            p = p[:, slot]
+        out.append(p[:, :n].clone())
+    return out
+
+
+def _admission_graphs(tag: str, m, card: str) -> None:
+    """Every admission graph kind against its eager twin from the same
+    state (a cold index, slot 0): a 400-token prompt's bucket of 512; a
+    1200-token prompt's two 512-row mid chunks and its final bucket of 256;
+    over the pool a prefix hit's 700-row tail (a mid chunk from row 768 and
+    a final bucket of 256). The same greedy first token, its logits row and
+    every cache byte the admission wrote (rows [0, n) of the slot)
+    bit-identical, and exact launches per replay (a bucket: the forward's
+    matmuls and one K2 a layer; a chunk: ``_chunk_kernels``), both ways;
+    no graph captured. Sampled first tokens of one prompt at temperature
+    1e4 differ across replays. Then device busy and host wall
+    (``_busy_and_wall``) per bucket (512 and 2048) and per 512-row mid chunk
+    at row 1024, graph against eager, and the host's issue time of a mid
+    chunk (from the call to its return, no readback)."""
+    eng = m.engine
+    L = eng.cfg.num_layers
+    per_chunk = _chunk_kernels(eng)
+    per_bucket = {next(iter(per_chunk)): 4 * L + 1, "flash_attention": L}
+    captures0 = eng.graphs.captures
+    gen = torch.Generator().manual_seed(9)
+
+    def prompt(n):
+        return [256] + torch.randint(0, 256, (n - 1,), generator=gen).tolist()
+
+    def clear():
+        if eng.prefix_index is not None:
+            eng.prefix_index.clear()
+
+    def whole(ids, eager):
+        clear()
+        fn = eng.prefill_eager if eager else eng.prefill
+        first, n = _counted(lambda: fn(0, ids, temperature=0.0))
+        out = (first, eng._adm_logits.clone(), _slot_rows(eng, 0, len(ids)), [n])
+        eng.release(0)
+        return out
+
+    def chunked(ids, eager):
+        clear()
+        pc = eng.start_chunked_prefill(0, ids, temperature=0.0,
+                                       chunk=eng.prefill_chunk_default, eager=eager)
+        per, first = [], None
+        while first is None:
+            first, n = _counted(pc.step)
+            per.append(n)
+        out = (first, pc.first_logits, _slot_rows(eng, 0, len(ids)), per)
+        eng.release(0)
+        return out
+
+    def hit(x, y, eager):
+        clear()
+        fn = eng.prefill_eager if eager else eng.prefill
+        fn(0, y, temperature=0.0)  # registers y's blocks
+        eng.release(0)
+        reused0 = eng.prefix_rows_reused
+        first, n = _counted(lambda: fn(0, x, temperature=0.0))
+        expect(eng.prefix_rows_reused - reused0 == 768, f"{tag} the hit reused "
+               f"{eng.prefix_rows_reused - reused0} rows, not 768")
+        out = (first, eng._adm_logits.clone(), _slot_rows(eng, 0, len(x)), [n])
+        eng.release(0)
+        return out
+
+    x = prompt(1468)
+    kinds = {
+        "bucket 512 (400 tokens)": (functools.partial(whole, prompt(400)), [per_bucket]),
+        "2 mid chunks + a final bucket of 256 (1200 tokens)":
+            (functools.partial(chunked, prompt(1200)), [per_chunk] * 3),
+    }
+    if eng.prefix_index is not None:
+        y = x[:768] + prompt(101)[1:]
+        kinds["a prefix hit's tail of 700 rows from row 768 (a mid chunk, a final bucket of "
+              "256)"] = (functools.partial(hit, x, y),
+                         [{k: 2 * v for k, v in per_chunk.items()}])
+    for what, (run, want) in kinds.items():
+        g, e = run(False), run(True)
+        same_rows = all(torch.equal(a, b) for a, b in zip(g[2], e[2]))
+        expect(g[0] == e[0] and torch.equal(g[1], e[1]) and same_rows,
+               f"{tag} {what}: graph and eager differ: first token {g[0]} / {e[0]}, logits "
+               f"max |d| {(g[1] - e[1]).abs().max().item():.3e}, rows equal {same_rows}")
+        expect(g[3] == want and e[3] == want, f"{tag} {what}: launches graph {g[3]}, "
+               f"eager {e[3]}, want {want}")
+        expect(bool(torch.isfinite(g[1]).all()), f"{tag} {what}: non-finite logits")
+        log(f"{tag} {what}: replay vs eager twin from the same state: first token {g[0]} "
+            f"both ways, its logits row and the {len(g[2])} cache tensors' rows written "
+            f"bit-identical, launches exact per replay {want}")
+    expect(eng.graphs.captures == captures0, f"{tag} a graph was captured")
+
+    # sampled first tokens draw fresh noise on every replay
+    ids = prompt(300)
+    firsts = []
+    for _ in range(12):
+        clear()
+        firsts.append(eng.prefill(0, ids, temperature=1e4, top_p=1.0))
+        eng.release(0)
+    expect(len(set(firsts)) >= 4, f"{tag} sampled first tokens repeat: {firsts}")
+    log(f"{tag} 12 sampled admissions of one prompt (temperature 1e4) through the bucket's "
+        f"graph: {len(set(firsts))} distinct first tokens")
+
+    # device busy and host wall, graph against eager
+    timed = []
+    for n in (400, 2000):
+        ids = prompt(n)
+        for name, fn in (("graph", eng.prefill), ("eager", eng.prefill_eager)):
+            def admit(fn=fn, ids=ids):
+                clear()
+                fn(0, ids, temperature=0.0)
+                eng.release(0)
+            busy, wall = _busy_and_wall(admit)
+            timed.append(f"bucket {eng.bucket_for(n)} {name} {busy:.3f} / {wall:.3f}")
+    ids = prompt(2000)
+    for eager in (False, True):
+        clear()
+        pc = eng.start_chunked_prefill(0, ids, temperature=0.0,
+                                       chunk=eng.prefill_chunk_default, eager=eager)
+        pc.step()
+        pc.step()
+
+        def mid(pc=pc):
+            pc.pos = 1024
+            pc.step()
+
+        busy, wall = _busy_and_wall(mid)
+        issue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mid()
+            issue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        eng.release(0)
+        timed.append(f"mid chunk {'eager' if eager else 'graph'} {busy:.3f} / {wall:.3f}, "
+                     f"issue {statistics.median(issue) * 1e3:.3f}")
+    log(f"{tag} device busy / host wall ms per admission dispatch (torch.profiler / host "
+        f"clock, median of 3 synchronized), and the host's issue time of a 512-row mid "
+        f"chunk at row 1024 (median of 5, to its return): {'; '.join(timed)}; {card}")
+    expect(eng.graphs.captures == captures0, f"{tag} a graph was captured")
 
 
 # -- the graphs: replay against the eager body, fresh noise, where the time goes
@@ -1937,6 +2164,7 @@ def phase_mistral_serve(manager, stub, card: str) -> dict:
         f"{eng.allocator.num_pages} pages x {eng.allocator.page_size} rows = {pool_bytes} B "
         f"(values and scales); peak device memory {torch.cuda.max_memory_allocated()} B"
     )
+    log(f"[mistral] {_graphs_line(m, load_s)}")
     w = _served_window(manager, stub, m, card)
     n, pre, steps, chunks = w["launches"], w["prefills"], w["steps"], w["chunks"]
     want = dict.fromkeys(n, 0)
@@ -2114,6 +2342,7 @@ def phase_mistral_numerics(manager, card: str) -> None:
                     rounds=False)
     _fresh_noise("[mistral]", eng, rounds=False)
     _profile_decode(eng, "mistral", 8, card)
+    _admission_graphs("[admission mistral]", m, card)
     _chunk_numerics(m, 4090, card)
     _batcher_admission(m, 4090, card)
     _trimmed_admission(m, 7000)
@@ -2161,6 +2390,7 @@ def phase_dense_serve(name: str):
             f"{eng.k_pool.dtype} cache {tuple(eng.k_pool.shape)} = {cache_bytes} B (values "
             f"and scales), speculation on (draft_len {m.batcher.spec_draft_len}, ngram "
             f"{m.batcher.spec_ngram})")
+        log(f"[dense {name}] {_graphs_line(m, load_s)}")
         total = {}
         L, per = case["layers"], case["per_forward"]
         for spec_on in (True, False):
@@ -2418,6 +2648,8 @@ def phase_dense_numerics(name: str):
         _profile_decode(eng, f"dense {name}", 8, card, prompt=REPEATING)
         _profile_decode(eng, f"dense {name}", 8, card)
         _dense_chunks(tag, m, case, card)
+        if not quant:
+            _admission_graphs(f"[admission dense {name}]", m, card)
 
     return run
 
