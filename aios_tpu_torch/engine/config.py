@@ -1,16 +1,17 @@
 """Model configurations for the Llama-family decoder (the dense presets).
 
 A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
-``ModelConfig`` geometry fields, the dense presets and the tiny test config.
-The serving knobs that ride on the JAX package's config (replicas, prefix
-host tier, megagraph, speculation, compression, MoE) belong to features the
-port has not reached yet.
+``ModelConfig`` geometry fields, the dense presets, the tiny test config and
+``from_gguf_metadata``. The serving knobs that ride on the JAX package's
+config (replicas, prefix host tier, megagraph, speculation, compression,
+MoE) belong to features the port has not reached yet, so a GGUF file of a
+mixture-of-experts model is refused.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 
 @dataclass(frozen=True)
@@ -115,3 +116,44 @@ TINY_TEST = ModelConfig(
     head_dim=16,
     max_context=128,
 )
+
+
+def from_gguf_metadata(md: Dict[str, Any]) -> ModelConfig:
+    """Build a config from GGUF metadata keys (llama/mistral/qwen archs), as
+    the JAX package's ``from_gguf_metadata`` does. A mixture-of-experts file
+    (``expert_count`` > 0) raises ValueError: the port has no MoE layer yet
+    (ROADMAP.md, Queue 1 item 13)."""
+    arch = md.get("general.architecture", "llama")
+
+    def key(suffix: str, default=None):
+        return md.get(f"{arch}.{suffix}", default)
+
+    num_experts = int(key("expert_count", 0) or 0)
+    if num_experts > 0:
+        raise ValueError(
+            f"{arch} file with expert_count={num_experts}: mixture-of-experts models "
+            "are not served by the PyTorch port yet (ROADMAP.md, Queue 1 item 13)")
+    heads = int(key("attention.head_count"))
+    kv_heads = int(key("attention.head_count_kv", heads))
+    hidden = int(key("embedding_length"))
+    head_dim = int(key("attention.key_length", hidden // heads))
+    vocab = int(md.get("tokenizer.ggml.tokens and vocab", 0)) or len(
+        md.get("tokenizer.ggml.tokens", [])
+    ) or int(key("vocab_size", 32000))
+    return ModelConfig(
+        name=md.get("general.name", arch).lower().replace(" ", "-"),
+        vocab_size=vocab,
+        hidden_size=hidden,
+        intermediate_size=int(key("feed_forward_length")),
+        num_layers=int(key("block_count")),
+        num_heads=heads,
+        num_kv_heads=kv_heads,
+        head_dim=head_dim,
+        max_context=int(key("context_length", 4096)),
+        rope_theta=float(key("rope.freq_base", 10000.0)),
+        rms_norm_eps=float(key("attention.layer_norm_rms_epsilon", 1e-5)),
+        sliding_window=(
+            int(key("attention.sliding_window")) if key("attention.sliding_window") else None
+        ),
+        qk_norm=arch.startswith("qwen3"),
+    )

@@ -223,10 +223,15 @@ class TorchEngine:
         if quantize not in (None, False, "int8", "int4"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
         params = _to_device(params, self.device)
+        self.quantize_seconds = 0.0  # making the serving leaves, device time included
         if model.is_quantized(params):
             self.quantized = True
         elif quantize:
+            t0 = time.perf_counter()
             params = model.quantize_params(params, mode=quantize)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.quantize_seconds = time.perf_counter() - t0
             self.quantized = True
         else:
             self.quantized = False

@@ -14,6 +14,10 @@ D=head_dim), layer leaves stacked on a leading [L] axis:
   final_norm [E]
   lm_head    [E, V]                                   (absent if tied)
 
+On CUDA ``quantize_params`` pads the serving lm_head's columns with zeros to
+a multiple of ``HEAD_PAD`` (the matmul kernels' N % 16), so a vocab such as
+32002 is served; the logits are cut back to [..., :V].
+
 ``quantize_params`` turns the matmul weights into int8 serving leaves
 {"q": int8, "s": f32}, or group-wise int4 leaves {"q4": packed uint8, "s4":
 f32}, with fused ``w_qkv`` and ``w_gateup``. The KV cache is a paged pool
@@ -53,6 +57,7 @@ QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 FUSED = {"w_qkv": ("wq", "wk", "wv"), "wo": ("wo",), "w_gateup": ("w_gate", "w_up"),
          "w_down": ("w_down",)}  # serving leaf -> the dense leaves it concatenates
 _RECIP_127 = float(torch.tensor(1 / 127, dtype=torch.float32))  # f32(1/127)
+HEAD_PAD = 16  # the serving lm_head's columns, padded on CUDA (K1/K5: N % 16 == 0)
 
 
 def matmul(x: torch.Tensor, w, kernels: bool = True) -> torch.Tensor:
@@ -100,14 +105,14 @@ def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor
 
 
 def serving_leaf_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
-    """[K, N] of each leaf ``quantize_params`` makes for ``cfg``: the
-    concatenations of FUSED and the [E, V] lm_head."""
+    """[K, N] of each leaf ``quantize_params`` makes for ``cfg`` on CUDA: the
+    concatenations of FUSED and the lm_head, [E, V] padded to HEAD_PAD."""
     E, F = cfg.hidden_size, cfg.intermediate_size
     dense = {"wq": (E, cfg.q_dim), "wk": (E, cfg.kv_dim), "wv": (E, cfg.kv_dim),
              "wo": (cfg.q_dim, E), "w_gate": (E, F), "w_up": (E, F), "w_down": (F, E)}
     shapes = {key: (dense[parts[0]][0], sum(dense[k][1] for k in parts))
               for key, parts in FUSED.items()}
-    shapes["lm_head"] = (E, cfg.vocab_size)
+    shapes["lm_head"] = (E, -(-cfg.vocab_size // HEAD_PAD) * HEAD_PAD)
     return shapes
 
 
@@ -155,14 +160,16 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
 
 
 def quantize_params(params: Params, include_head: bool = True,
-                    mode: str = "int8") -> Params:
+                    mode: str = "int8", pad_head: Optional[bool] = None) -> Params:
     """Serving leaves, the JAX package's ``quantize_params`` with fusion:
     wq|wk|wv concatenate into one [E, Q+2K] ``w_qkv`` and w_gate|w_up into
     one [E, 2F] ``w_gateup`` (4 weight matmuls per layer instead of 7), and
     a tied lm_head becomes its own quantized [E, V] matrix. ``mode`` is
     "int8" (per-column int8) or "int4" (group-wise int4, int8 for a leaf
     that cannot take it). Same bytes and scales as the JAX function for the
-    same input."""
+    same input. ``pad_head`` (None: on CUDA only) appends zero columns to the
+    head up to a multiple of HEAD_PAD; its real columns quantize as before,
+    each column on its own."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown weight quantization mode {mode!r}")
     out = dict(params)
@@ -177,6 +184,10 @@ def quantize_params(params: Params, include_head: bool = True,
         head = params.get("lm_head")
         if head is None:
             head = params["embed"].T
+        if pad_head is None:
+            pad_head = head.device.type == "cuda"
+        if pad_head and head.shape[-1] % HEAD_PAD:
+            head = F.pad(head, (0, -head.shape[-1] % HEAD_PAD))
         out["lm_head"] = _quant_leaf(head, mode, "lm_head")
     return out
 
@@ -301,12 +312,13 @@ def apply_block(x, lp, cfg: ModelConfig, cos, sin, attention, kernels: bool = Tr
 
 
 def _final_logits(x, params: Params, cfg: ModelConfig, kernels: bool = True):
-    """Final RMSNorm + (possibly tied, possibly int8) lm_head; fp32 logits."""
+    """Final RMSNorm + (possibly tied, possibly int8, possibly padded)
+    lm_head; fp32 logits [..., V]."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return matmul(x, head, kernels).to(torch.float32)
+    return matmul(x, head, kernels)[..., :cfg.vocab_size].to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

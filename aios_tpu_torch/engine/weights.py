@@ -1,6 +1,13 @@
-"""Parameters for the port: carried across from the JAX package, or made
-synthetically on the target device.
+"""Parameters for the port: read from a GGUF file, carried across from the
+JAX package, or made synthetically on the target device.
 
+``params_from_gguf`` is the twin of the JAX ``params_from_gguf`` followed by
+the JAX manager's cast to bf16: the same values (each element dequantized
+to f32 by the copied dequantizers, then rounded to bf16), the same llama.cpp
+q/k unpermute and (in, out) layout. It fills each stacked bf16 leaf on the
+target device a block of rows at a time (a whole tensor for q/k, which the
+unpermute reorders), the blocks dequantized on a few host threads a bounded
+number ahead of the copies, so the host never holds the model in f32.
 ``params_from_jax`` takes the JAX package's parameter tree already turned
 into numpy by the caller (this package imports no JAX) and keeps its layout:
 stacked [L, ...] layer leaves, quantized {"q", "s"} leaves as they are, so
@@ -11,12 +18,18 @@ two draw different numbers from the same seed.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import functools
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Deque, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .config import ModelConfig
+from ..device import resolve_device
+from . import gguf as gguf_mod
+from .config import ModelConfig, from_gguf_metadata
 
 Device = Optional[Union[str, torch.device]]
 
@@ -78,3 +91,151 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal(E, cfg.vocab_size)
     return params
+
+
+# ---------------------------------------------------------------------------
+# GGUF
+# ---------------------------------------------------------------------------
+
+ROW_BLOCK_ELEMENTS = 1 << 24  # f32 elements dequantized per block of rows
+DEQUANT_THREADS = 8  # numpy releases the GIL inside the dequantizers' array ops
+
+
+def _unpermute_llamacpp(w: np.ndarray, n_heads: int) -> np.ndarray:
+    """Invert convert_hf_to_gguf's q/k row permutation (interleaved -> HF)."""
+    out_dim, in_dim = w.shape
+    half = out_dim // n_heads // 2
+    return (
+        w.reshape(n_heads, half, 2, in_dim)
+        .swapaxes(1, 2)
+        .reshape(out_dim, in_dim)
+    )
+
+
+def _row_blocks(f: gguf_mod.GGUFFile, name: str,
+                heads: Optional[int] = None) -> Iterator[Tuple[int, int, Callable]]:
+    """(r0, r1, a function returning rows r0:r1 of the tensor as f32) in
+    blocks of about ROW_BLOCK_ELEMENTS; a row holds whole ggml blocks, so
+    each block of rows dequantizes exactly as the whole tensor would. With
+    ``heads`` one block, the whole tensor llama.cpp-unpermuted."""
+    info = f.tensors[name]
+    if info.ggml_type not in gguf_mod.BLOCK_LAYOUT:
+        kind = gguf_mod.GGML_TYPE_NAMES.get(info.ggml_type, info.ggml_type)
+        raise NotImplementedError(f"{name}: dequantization for ggml type {kind}")
+    rows = info.shape[0] if info.shape else 1
+    cols = info.n_elements // rows
+    elems, nbytes = gguf_mod.BLOCK_LAYOUT[info.ggml_type]
+    if heads is not None or cols % elems:  # the whole tensor at once
+        def whole():
+            w = f.load_tensor(name).reshape(rows, cols)
+            return w if heads is None else _unpermute_llamacpp(w, heads)
+        yield 0, rows, whole
+        return
+    raw, row_bytes = f.tensor_bytes(name), cols // elems * nbytes
+    step = max(1, ROW_BLOCK_ELEMENTS // cols)
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        yield r0, r1, functools.partial(_dequantize_rows, raw[r0 * row_bytes:r1 * row_bytes],
+                                        info.ggml_type, r1 - r0, cols)
+
+
+def _dequantize_rows(raw: np.ndarray, ggml_type: int, rows: int, cols: int) -> np.ndarray:
+    return gguf_mod.dequantize(raw, ggml_type, rows * cols).reshape(rows, cols)
+
+
+def _fill(f: gguf_mod.GGUFFile, jobs: List[tuple], device: torch.device,
+          spent: Dict[str, float]) -> None:
+    """Copy each job's tensor (dest, name, transpose, heads) into its leaf:
+    blocks of rows dequantize on a thread pool, at most 2 x DEQUANT_THREADS
+    blocks ahead of the copies (bounding the host's f32), and are copied in
+    order, transposed (out, in) -> (in, out) where asked."""
+    def blocks():
+        for dest, name, transpose, heads in jobs:
+            if name not in f.tensors:
+                raise ValueError(f"{f.path}: no tensor {name}")
+            for r0, r1, fn in _row_blocks(f, name, heads):
+                yield dest, transpose, r0, r1, fn
+
+    todo = blocks()
+    with ThreadPoolExecutor(DEQUANT_THREADS) as pool:
+        pending: Deque = deque()
+
+        def submit():
+            nxt = next(todo, None)
+            if nxt is not None:
+                pending.append((nxt, pool.submit(nxt[-1])))
+
+        for _ in range(2 * DEQUANT_THREADS):
+            submit()
+        while pending:
+            (dest, transpose, r0, r1, _), fut = pending.popleft()
+            submit()
+            t0 = time.perf_counter()
+            rows = fut.result()
+            t1 = time.perf_counter()
+            if not rows.flags.writeable:  # an F32 tensor is a view of the file
+                rows = rows.copy()
+            src = torch.from_numpy(rows).to(device)
+            if dest.dim() == 1:
+                dest.copy_(src.reshape(dest.shape))
+            elif transpose:
+                dest[:, r0:r1].copy_(src.T)
+            else:
+                dest[r0:r1].copy_(src)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            spent["dequantize_s"] += t1 - t0
+            spent["upload_s"] += time.perf_counter() - t1
+
+
+def params_from_gguf(path: Union[str, gguf_mod.GGUFFile], device: Device = None,
+                     dtype: torch.dtype = torch.bfloat16,
+                     timings: Optional[Dict[str, float]] = None) -> Tuple[Dict, ModelConfig]:
+    """Load a GGUF model file (a path, or the file already parsed) into the
+    port's stacked params on ``device`` (None: the CUDA device). Returns
+    (params, config). ``timings``, when given, gains the seconds the copies
+    waited on parsing and dequantizing (``dequantize_s``) and the seconds of
+    the copies to the device (``upload_s``)."""
+    device = resolve_device(device)
+    spent = {"dequantize_s": 0.0, "upload_s": 0.0}
+    t0 = time.perf_counter()
+    f = path if isinstance(path, gguf_mod.GGUFFile) else gguf_mod.GGUFFile(path)
+    cfg = from_gguf_metadata(f.metadata)
+    heads = ((cfg.num_heads, cfg.num_kv_heads) if f.architecture in ("llama", "mistral")
+             else (None, None))
+    spent["dequantize_s"] += time.perf_counter() - t0
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    L, E, F, D = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    layers = {
+        "attn_norm": empty(L, E), "ffn_norm": empty(L, E),
+        "wq": empty(L, E, cfg.q_dim), "wk": empty(L, E, cfg.kv_dim),
+        "wv": empty(L, E, cfg.kv_dim), "wo": empty(L, cfg.q_dim, E),
+        "w_gate": empty(L, E, F), "w_up": empty(L, E, F), "w_down": empty(L, F, E),
+    }
+    # leaf <- GGUF tensor, (out, in) -> (in, out), q/k unpermuted over heads
+    sources = [("attn_norm", "attn_norm", False, None), ("ffn_norm", "ffn_norm", False, None),
+               ("wq", "attn_q", True, heads[0]), ("wk", "attn_k", True, heads[1]),
+               ("wv", "attn_v", True, None), ("wo", "attn_output", True, None),
+               ("w_gate", "ffn_gate", True, None), ("w_up", "ffn_up", True, None),
+               ("w_down", "ffn_down", True, None)]
+    if cfg.qk_norm:
+        layers["q_norm"] = empty(L, D)
+        layers["k_norm"] = empty(L, D)
+        sources += [("q_norm", "attn_q_norm", False, None),
+                    ("k_norm", "attn_k_norm", False, None)]
+    jobs = [(layers[leaf][i], f"blk.{i}.{name}.weight", transpose, h)
+            for i in range(L) for leaf, name, transpose, h in sources]
+    params = {"embed": empty(cfg.vocab_size, E), "layers": layers, "final_norm": empty(E)}
+    jobs += [(params["embed"], "token_embd.weight", False, None),
+             (params["final_norm"], "output_norm.weight", False, None)]
+    if "output.weight" in f.tensors:
+        params["lm_head"] = empty(E, cfg.vocab_size)
+        jobs.append((params["lm_head"], "output.weight", True, None))
+    _fill(f, jobs, device, spent)
+    if timings is not None:
+        for k, v in spent.items():
+            timings[k] = timings.get(k, 0.0) + v
+    return params, cfg

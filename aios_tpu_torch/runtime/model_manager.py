@@ -26,20 +26,29 @@ than 512 tokens in 512-token chunks with decode dispatches between them.
 decode dispatches (None reads ``AIOS_TPU_SPECULATIVE``); they run over the
 dense cache only, so with a paged pool the batcher warns and serves without.
 ``synthetic://<preset>`` sources build random weights on the target device
-from a seeded generator. On CUDA a model lists READY only once its engine
+from a seeded generator; a ``.gguf`` path loads the file's weights
+(``weights.params_from_gguf``), its config from the metadata and its own
+tokenizer (SentencePiece or byte-level BPE, bytes when it carries none), as
+the JAX manager does. ``autoload`` scans ``AIOS_MODEL_DIR`` for ``*.gguf`` at
+startup, naming each model by its file stem and sizing its context by file
+size. On CUDA a model lists READY only once its engine
 has built its kernels and captured the CUDA graphs its batcher dispatches
 (``TorchEngine.warmup``, the batcher's attach); a failed build or capture
-leaves it in ``error`` and fails ``LoadModel``. Real GGUF/HF weights, replica pools, admission
-control and the HBM budget wait for later slices.
+leaves it in ``error`` and fails ``LoadModel``, as does a file that does
+not parse, a ggml type with no dequantizer, a mixture-of-experts file or a
+geometry no kernel takes. HF checkpoint directories, prepared checkpoints,
+replica pools, admission control and the HBM budget wait for later slices.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import resource
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -48,8 +57,9 @@ from ..device import resolve_device
 from ..engine.batching import ContinuousBatcher
 from ..engine.config import PRESETS, TINY_TEST, ModelConfig
 from ..engine.engine import TorchEngine
-from ..engine.tokenizer import BaseTokenizer, ByteTokenizer
-from ..engine.weights import init_params
+from ..engine.gguf import GGUFFile
+from ..engine.tokenizer import BaseTokenizer, ByteTokenizer, gguf_tokenizer
+from ..engine.weights import init_params, params_from_gguf
 
 log = logging.getLogger("aios.torch.runtime.models")
 
@@ -83,6 +93,9 @@ class ManagedModel:
     error: str = ""
     model_path: str = ""
     context_length: int = 0
+    # seconds of the load: dequantize_s (parse and dequantize), upload_s,
+    # quantize_s and capture_s
+    load_timings: Dict[str, float] = field(default_factory=dict)
 
     def touch(self) -> None:
         self.last_used = int(time.time())
@@ -90,6 +103,17 @@ class ManagedModel:
 
     def submit(self, req):
         return self.batcher.submit(req)
+
+
+def _context_for_file_size(n_bytes: int) -> int:
+    """Context length by GGUF file size, as the reference's auto-loader
+    chooses ctx/threads (runtime/src/main.rs:86-98)."""
+    gb = n_bytes / 1e9
+    if gb > 8:
+        return 8192
+    if gb > 2:
+        return 4096
+    return 2048
 
 
 def resolve_preset(name: str) -> ModelConfig:
@@ -196,6 +220,7 @@ class ModelManager:
                 "0", "false", "off")
         self.prefix_cache = bool(prefix_cache)
         self._lock = threading.Lock()
+        self._loading = threading.local()  # the timings of this thread's load
 
     @property
     def backend(self) -> str:
@@ -214,6 +239,8 @@ class ModelManager:
         ):
             return existing
         t0 = time.time()
+        timings: Dict[str, float] = {}
+        self._loading.timings = timings
         try:
             cfg, params, tokenizer = self._load_weights(name, path, context_length)
             ctx = context_length or cfg.max_context
@@ -247,6 +274,8 @@ class ModelManager:
             # the batcher's admission chunk: warmup captures its graphs
             chunk = engine.prefill_chunk_default
             engine.warmup(prefill_chunk=chunk)
+            timings.update(quantize_s=engine.quantize_seconds,
+                           capture_s=engine.graphs.capture_seconds)
             managed = ManagedModel(
                 name=name,
                 config=cfg,
@@ -258,6 +287,7 @@ class ModelManager:
                 loaded_at=int(time.time()),
                 model_path=path,
                 context_length=context_length or 0,
+                load_timings=timings,
             )
         except Exception as exc:
             with self._lock:
@@ -274,21 +304,30 @@ class ModelManager:
             self.models[name] = managed
         if old is not None and old.state == STATE_READY:
             self._shutdown(old)
+        pool_bytes = sum(t.numel() * t.element_size() for t in
+                         (engine.k_pool, engine.v_pool, engine.k_scales, engine.v_scales)
+                         if t is not None)
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
-                 "%s %s, prefix index %s, chunked admission %s, speculative %s, "
+                 "%s %s of %d B, prefix index %s, chunked admission %s, speculative %s, "
                  "%d graphs captured (%d of admission, in a shared pool of %d B), "
-                 "split workspace %d B a stream)", name,
+                 "split workspace %d B a stream; parse and dequantize %.2fs, upload "
+                 "%.2fs, quantize %.2fs, capture %.2fs, process peak RSS %d MB)", name,
                  time.time() - t0, ctx, self.num_slots, self.device,
                  self.quantize or "dense", self.cache_dtype,
-                 "page pool" if engine.paged else "dense cache",
+                 "page pool" if engine.paged else "dense cache", pool_bytes,
                  type(engine.prefix_index).__name__ if engine.prefix_index else "off",
                  managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
                  engine.graphs.captures, engine.admission_graphs(),
-                 engine.admission_pool_bytes, engine.workspace_bytes())
+                 engine.admission_pool_bytes, engine.workspace_bytes(),
+                 timings.get("dequantize_s", 0.0), timings.get("upload_s", 0.0),
+                 timings["quantize_s"], timings["capture_s"],
+                 resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024)
         return managed
 
     def _load_weights(self, name: str, path: str, context_length: int):
-        """Resolve (config, params, tokenizer) from a model source."""
+        """Resolve (config, params, tokenizer) from a model source; a GGUF
+        file adds its dequantize and upload seconds to the timings of the
+        load running on this thread."""
         if path.startswith("synthetic://") or not path:
             cfg = resolve_preset(path.removeprefix("synthetic://") or name)
             if context_length:
@@ -297,10 +336,43 @@ class ModelManager:
             gen.manual_seed(0)
             params = init_params(cfg, gen, dtype=torch.bfloat16, device=self.device)
             return cfg, params, ByteTokenizer()
-        raise ValueError(
-            f"unsupported model source {path!r}: this runtime loads "
-            "synthetic://<preset> weights only"
-        )
+        p = Path(path)
+        if p.is_file() and p.suffix == ".gguf":
+            timings = getattr(self._loading, "timings", {})
+            t0 = time.perf_counter()
+            f = GGUFFile(p)
+            timings["dequantize_s"] = time.perf_counter() - t0
+            params, cfg = params_from_gguf(f, self.device, timings=timings)
+            tokenizer = (gguf_tokenizer(f.metadata) if "tokenizer.ggml.tokens" in f.metadata
+                         else ByteTokenizer())
+            if context_length:
+                cfg = cfg.scaled(max_context=context_length)
+            return cfg, params, tokenizer
+        if p.is_dir():
+            raise ValueError(
+                f"{path}: HF checkpoint directories and prepared checkpoints are not "
+                "served by the PyTorch port yet (they need safetensors, transformers "
+                "and orbax); load a .gguf file or synthetic://<preset>")
+        raise FileNotFoundError(f"model path not found: {path}")
+
+    def autoload(self, model_dir: Optional[str] = None) -> List[str]:
+        """Scan AIOS_MODEL_DIR for *.gguf and load each (main.rs:65-132): in
+        sorted order, under the file's lower-cased stem, at the context its
+        size gives; a file that fails is skipped. Returns the names loaded."""
+        model_dir = model_dir or os.environ.get("AIOS_MODEL_DIR", "/var/lib/aios/models")
+        loaded: List[str] = []
+        d = Path(model_dir)
+        if not d.is_dir():
+            return loaded
+        for f in sorted(d.glob("*.gguf")):
+            name = f.stem.lower()
+            ctx = _context_for_file_size(f.stat().st_size)
+            try:
+                self.load_model(name, str(f), context_length=ctx)
+                loaded.append(name)
+            except Exception:
+                continue
+        return loaded
 
     # -- unloading --------------------------------------------------------------
 

@@ -229,4 +229,6 @@ def serve(address: Optional[str] = None, manager: Optional[ModelManager] = None,
 
 if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO)
-    serve()
+    manager = ModelManager()
+    manager.autoload()  # every *.gguf in AIOS_MODEL_DIR
+    serve(manager=manager)

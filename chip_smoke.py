@@ -26,8 +26,10 @@ Phases, each printing its lines:
      shares (a window whose slots fit one share, one live slot, windows
      deep in the cache); K6 and K7 also at a chunk of an admission (B = 1,
      T = 512, C = 2048 and 8192), K6 with a chunk whose last queries run
-     past the cache end; every decode-attention kernel bit-identical on
-     repeat;
+     past the cache end; K2 (T = 512, 2048), K3 (8 ragged slots, C = 8192)
+     and K6 (T = 8 and a 512-row chunk) also at Qwen3-14B's heads (H = 40,
+     KH = 8, D = 128: a GQA group of 5); every decode-attention kernel
+     bit-identical on repeat;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1; LoadModel
      ``synthetic://tiny-test`` (head_dim 16, which no attention kernel takes)
      is refused with status error; LoadModel
@@ -86,7 +88,30 @@ Phases, each printing its lines:
      ``ModelManager(quantize="int4", kv_cache="int8", paged_kv="off",
      speculative=True)`` at context 8192 (per round 129 K5 and 32 K7, per
      plain step 129 K5 and 32 K9, per admission chunk 129 K5 and 32 K7) and
-     a greedy request past the window.
+     a greedy request past the window;
+  11. serve GGUF files — with the serving defaults (int8 weights, bf16 pool),
+     LoadModel answers error, with the reason, for a corrupt header, a
+     mixture-of-experts file and a Q2_K tensor; then three files, written
+     one tensor at a time from a seeded generator with the port's streaming
+     writer into a temporary directory, each deleted after its turn: (a)
+     TinyLlama-1.1B at full width and depth in llama.cpp's layout (q/k
+     permuted; layer 0's attn_q/attn_k in F32, layer 1's FFN in Q4_0, the
+     rest Q8_0) with a 32000-piece SentencePiece vocab, (b)
+     DeepSeek-R1-Distill-Llama-8B and (c) Qwen3-14B at full width with 2
+     layers, byte-level BPE vocabs of 128256 and 151936 (``llama-bpe``,
+     ``qwen2``). For each: ``params_from_gguf`` on the card equals the CPU's
+     load bit for bit (and (a)'s F32 tensors come back bit for bit after
+     the unpermute); LoadModel by path, its timings (parse and dequantize,
+     upload, quantize, capture) and the process's peak RSS; three Infer and
+     one StreamInfer over gRPC with exact launches (per dispatch 4L+1 K1,
+     and L K2, K6 or K3); prefill and decode-step logits through the kernels
+     against the plain path within E2E_TOL; two identical greedy streams.
+     (a) also: a prompt of at least 1800 tokens admitted in 512-row chunks,
+     its encode time, and ``manager.autoload`` of its directory (the name
+     from the stem, context 2048 by file size); (b) and (c):
+     decode(encode(s)) == s on every served prompt and one request's
+     first-token logits; and a 2-layer TinyLlama-width file with 32002
+     tokens, its lm_head padded to 32016 columns, serves a request.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -124,6 +149,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate
@@ -152,6 +178,7 @@ MISTRAL_KN = {  # (K, N) of each int4 matmul; launches per decode step
     "lm_head": ((4096, 32000), 1),
 }
 M_H, M_KH, M_D, M_L, M_WINDOW = 32, 8, 128, 32, 4096
+Q_H, Q_KH, Q_D = 40, 8, 128  # Qwen3-14B's heads: a GQA group of 5
 
 KERNEL_META = {
     "quantized_matmul": dict(
@@ -446,8 +473,9 @@ FLASH_CASES = [
     *(((H, KH, D), 1, T, None, False) for T in (1, 63, 65, 127, 200, 1000)),
     ((H, KH, D), 2, 200, None, False),
     ((M_H, M_KH, M_D), 2, 1000, 256, False),
+    *(((Q_H, Q_KH, Q_D), 1, T, None, True) for T in (512, 2048)),
 ]
-FLASH_REPEATED = (512, 4096)  # launched twice: the bits must repeat
+FLASH_REPEATED = (512, 4096)  # launched twice: the bits must repeat (Qwen3's every T)
 
 
 def check_flash_attention(gen) -> dict:
@@ -467,7 +495,7 @@ def check_flash_attention(gen) -> dict:
             out.float(), ref.float(), atol=TOL, rtol=TOL)
         what = f"H={h} KH={kh} D={d} B={B} T={T} window={window}"
         expect(ok, f"flash_attention {what}: max err {err}")
-        if T in FLASH_REPEATED:
+        if T in FLASH_REPEATED or h == Q_H:
             expect(torch.equal(flash_attention(q, k, v, causal=True, window=window), out),
                    f"flash_attention {what}: a second launch gave other bits")
             what += ", repeat bit-identical"
@@ -557,13 +585,16 @@ def check_paged_decode_attention(gen) -> dict:
     ws = torch.tensor([0, 0, 0, 0, 256, 384, 1024, 1536], dtype=torch.int32, device="cuda")
     cases = [("no window", lengths, {}), ("window=512", lengths, {"window": 512}),
              ("sink=128 win_starts", lengths, {"win_starts": ws, "sink": sink}),
-             *K3_SPLIT_CASES]
+             *K3_SPLIT_CASES,
+             ("Qwen3 heads H=40 KH=8 D=128, C=8192", [0, 1, 127, 300, 1000, 2047, 4096, 8191],
+              {}, (Q_H, Q_KH, Q_D), 64)]
     worst = 0.0
     headline = None
-    for label, lens_, kw in cases:
-        tables, N = _paged_tables(lens_, MB, kw.get("window"), 7)
-        q = torch.randn(len(lens_), H, D, generator=gen, device="cuda").to(torch.bfloat16)
-        k_pool, v_pool = (torch.randn(N, P, KH, D, generator=gen, device="cuda")
+    for label, lens_, kw, *geom in cases:
+        (h, kh, d), MB_ = geom or ((H, KH, D), MB)
+        tables, N = _paged_tables(lens_, MB_, kw.get("window"), 7)
+        q = torch.randn(len(lens_), h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k_pool, v_pool = (torch.randn(N, P, kh, d, generator=gen, device="cuda")
                           .to(torch.bfloat16) for _ in range(2))
         lens = torch.tensor(lens_, dtype=torch.int32, device="cuda")
         args = (q, k_pool, v_pool, tables, lens)
@@ -583,17 +614,17 @@ def check_paged_decode_attention(gen) -> dict:
             continue
         ms = time_ms(lambda: paged_decode_attention(*args, **kw))
         plain = time_ms(lambda: paged_decode_attention_reference(*args, **kw))
-        live = _live_rows(lens, MB * P, kw.get("window"), kw.get("win_starts"), sink)
+        live = _live_rows(lens, MB_ * P, kw.get("window"), kw.get("win_starts"), sink)
         kg = gather_pages(k_pool, tables).transpose(1, 2).contiguous()  # [B, KH, C, D]
         vg = gather_pages(v_pool, tables).transpose(1, 2).contiguous()
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None, :], kg, vg, attn_mask=live[:, None, None, :], enable_gqa=True))
         rows = float(live.sum().item())
-        nbytes = (rows * KH * D * 2 * 2 + 2 * len(lens_) * H * D * 2 + tables.numel() * 4
+        nbytes = (rows * kh * d * 2 * 2 + 2 * len(lens_) * h * d * 2 + tables.numel() * 4
                   + len(lens_) * 4)
-        bnd = bound_ms(nbytes, 4.0 * rows * H * D)
+        bnd = bound_ms(nbytes, 4.0 * rows * h * d)
         _report("paged_decode_attention", what, ms, plain, lib, bnd, err, ok)
-        if not kw:
+        if not kw and not geom:
             headline = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd[0],
                             bound_by=bnd[1], measured_at="one launch, 8 ragged slots")
     headline["max_abs_err"] = worst
@@ -745,7 +776,7 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
                 bound_ms=bnd[0], bound_by=bnd[1])
 
 
-TINY_GEOM, MISTRAL_GEOM = (H, KH, D), (M_H, M_KH, M_D)
+TINY_GEOM, MISTRAL_GEOM, QWEN3_GEOM = (H, KH, D), (M_H, M_KH, M_D), (Q_H, Q_KH, Q_D)
 # slot 0 is inactive (length 0, stride 0); the last staircase ends on the last
 # cache row; in the saturated cases the last slot runs past the cache end
 TINY_LENS = [0, 1, 127, 128, 700, 1500, 2000, 2046]
@@ -865,6 +896,10 @@ def check_dense_attention(gen) -> dict:
             (f"TinyLlama C=2048 T={SPEC_T}, served lengths", TINY_GEOM, 2048, None, False,
              SPEC_T, SERVED_LENS, ()),
             *CHUNK_CASES["multiquery_decode_attention"],
+            (f"Qwen3 heads C=8192 T={SPEC_T}", QWEN3_GEOM, 8192, None, False, SPEC_T,
+             mq_lens(MISTRAL_LENS, 8192), ()),
+            ("chunk: Qwen3 heads C=8192 T=512", QWEN3_GEOM, 8192, None, False, 512, [3584],
+             ()),
         ],
         "multiquery_decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
@@ -941,9 +976,9 @@ def _load(manager, stub, name: str, path: str, ctx: int = 0):
     return manager.get(name), load_s
 
 
-def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
-    """Three Infer and one StreamInfer at once over gRPC, with every kernel
-    count set to 0 just before and read just after."""
+def _served_window(manager, stub, m, card: str, tag: str = "", prompts=PROMPTS) -> dict:
+    """Three Infer and one StreamInfer of ``prompts`` at once over gRPC, with
+    every kernel count set to 0 just before and read just after."""
     from aios_tpu_torch import ops
     from aios_tpu_torch.engine.tokenizer import render_chat
     from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
@@ -967,12 +1002,12 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
 
     def infer(i):
         r = stub.Infer(runtime_pb2.InferRequest(
-            prompt=PROMPTS[i], max_tokens=MAX_TOKENS, temperature=0.5), timeout=600)
+            prompt=prompts[i], max_tokens=MAX_TOKENS, temperature=0.5), timeout=600)
         results[i] = r
 
     def stream(i):
         results[i] = list(stub.StreamInfer(runtime_pb2.InferRequest(
-            prompt=PROMPTS[i], max_tokens=MAX_TOKENS, temperature=0.5), timeout=600))
+            prompt=prompts[i], max_tokens=MAX_TOKENS, temperature=0.5), timeout=600))
 
     def run(fn, i):
         try:
@@ -1002,7 +1037,7 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
            f"{replays} graph replays for {steps} dispatched steps or rounds, {prefills} "
            f"prefills and {admission_chunks} chunks")
     for i in range(3):
-        n_prompt = len(m.tokenizer.encode(render_chat(cfg.name, PROMPTS[i])))
+        n_prompt = len(m.tokenizer.encode(render_chat(cfg.name, prompts[i])))
         expect(results[i].tokens_used > n_prompt, f"Infer {i} returned no tokens")
     chunks = results[3]
     expect(chunks and chunks[-1].done and all(not c.done for c in chunks[:-1]),
@@ -1013,7 +1048,7 @@ def _served_window(manager, stub, m, card: str, tag: str = "") -> dict:
     expect([x.model_name for x in models.models] == [m.name], "ListModels")
     expect(health.details.get("backend") == "torch-cuda", f"HealthCheck {dict(health.details)}")
     log(
-        f"[serve] {cfg.name}{tag}: 3 Infer + 1 StreamInfer (prompts {[len(p) for p in PROMPTS]} "
+        f"[serve] {cfg.name}{tag}: 3 Infer + 1 StreamInfer (prompts {[len(p) for p in prompts]} "
         f"chars, max_tokens {MAX_TOKENS}) in {wall:.3f} s: {tokens} tokens, "
         f"{tokens / wall:.1f} tok/s end to end on {card}; "
         f"{prefills} whole-prompt prefills, {admission_chunks} admission chunks, {steps} "
@@ -1116,47 +1151,58 @@ def _admission(m, n: int) -> str:
     return f"whole-prompt, bucket {m.engine.bucket_for(n)}"
 
 
-def phase_numerics(manager, card: str) -> None:
+def _logits_gate(m, tag: str, vocab: int) -> None:
+    """Prefill (T = 512) and decode-step logits through the kernels against
+    the plain path on the served params, within E2E_TOL of max|logit|: the
+    prompt's tokens drawn below ``vocab``, the step for 8 ragged slots over
+    pools holding that prompt's K/V."""
     from aios_tpu_torch.engine import model
-    from aios_tpu_torch.engine.batching import Request
 
-    m = manager.get("tinyllama")
     eng, cfg, params = m.engine, m.config, m.engine.params
     gen = torch.Generator(device="cuda").manual_seed(1)
     T = 512
-    tokens = torch.randint(0, 256, (1, T), generator=gen, device="cuda")
+    tokens = torch.randint(0, vocab, (1, T), generator=gen, device="cuda")
     lk, _, _ = model.prefill(params, cfg, tokens, kernels=True)
     lp, ksp, vsp = model.prefill(params, cfg, tokens, kernels=False)
     rel_prefill = _rel(lk, lp)
-    # one decode step for 8 ragged slots over pools holding that prompt's K/V
-    B, L = 8, cfg.num_layers
+    B, L, kh, d = 8, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     nb = T // P
-    k_pool = torch.zeros((L, 1 + B * nb, P, KH, D), dtype=torch.bfloat16, device="cuda")
+    k_pool = torch.zeros((L, 1 + B * nb, P, kh, d), dtype=torch.bfloat16, device="cuda")
     v_pool = torch.zeros_like(k_pool)
     order = torch.randperm(B * nb, generator=torch.Generator().manual_seed(3)) + 1
     tables = order.reshape(B, nb).to(torch.int32)
     tables = torch.cat([tables, torch.zeros(B, 16 - nb, dtype=torch.int32)], 1).cuda()
     for b in range(B):
         pages = tables[b, :nb].long()
-        k_pool[:, pages] = ksp[:, 0].reshape(L, nb, P, KH, D).to(torch.bfloat16)
-        v_pool[:, pages] = vsp[:, 0].reshape(L, nb, P, KH, D).to(torch.bfloat16)
+        k_pool[:, pages] = ksp[:, 0].reshape(L, nb, P, kh, d).to(torch.bfloat16)
+        v_pool[:, pages] = vsp[:, 0].reshape(L, nb, P, kh, d).to(torch.bfloat16)
     lengths = torch.tensor([0, 5, 127, 128, 200, 300, 400, 510], dtype=torch.int32, device="cuda")
-    step_tokens = torch.randint(0, 256, (B,), generator=gen, device="cuda")
+    step_tokens = torch.randint(0, vocab, (B,), generator=gen, device="cuda")
     dk = model.decode_step_paged(params, cfg, step_tokens, lengths, k_pool.clone(),
                                  v_pool.clone(), tables, kernels=True)
     dp = model.decode_step_paged(params, cfg, step_tokens, lengths, k_pool.clone(),
                                  v_pool.clone(), tables, kernels=False)
     rel_decode = _rel(dk, dp)
     ok = (rel_prefill <= E2E_TOL and rel_decode <= E2E_TOL
-          and bool(torch.isfinite(lk).all()) and bool(torch.isfinite(dk).all()))
+          and bool(torch.isfinite(lk).all()) and bool(torch.isfinite(dk).all())
+          and lk.shape[-1] == dk.shape[-1] == cfg.vocab_size)
     log(
-        f"[numerics] kernel path vs plain path, full model: prefill T={T} "
+        f"{tag} kernel path vs plain path, full model: prefill T={T} "
         f"max|dlogit|/max|logit|={rel_prefill:.3e}, decode step B=8 "
         f"max|dlogit|/max|logit|={rel_decode:.3e} (limit {E2E_TOL}); "
         f"prefill argmax agreement {(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.3f}, "
-        f"decode {(dk.argmax(-1) == dp.argmax(-1)).float().mean().item():.3f}"
+        f"decode {(dk.argmax(-1) == dp.argmax(-1)).float().mean().item():.3f}; "
+        f"logits [..., {lk.shape[-1]}]"
     )
-    expect(ok, "kernel and plain logits disagree")
+    expect(ok, f"{tag} kernel and plain logits disagree")
+
+
+def phase_numerics(manager, card: str) -> None:
+    from aios_tpu_torch.engine.batching import Request
+
+    m = manager.get("tinyllama")
+    eng, cfg = m.engine, m.config
+    _logits_gate(m, "[numerics]", 256)
 
     # two cold admissions (an index hit would admit the second through the
     # chunk path, whose sums are taken in another order)
@@ -2654,6 +2700,524 @@ def phase_dense_numerics(name: str):
     return run
 
 
+# -- phase 11: serve GGUF files ------------------------------------------------------
+
+GGUF_SEED = 0
+# the files the phase writes: (a) TinyLlama-1.1B in llama.cpp's layout at full
+# width and depth (layer 0's attn_q/attn_k in F32, layer 1's FFN in Q4_0, the
+# rest Q8_0), (b) DeepSeek-R1-Distill-Llama-8B and (c) Qwen3-14B at full
+# width with 2 of their 32 and 40 layers; context 8192 as the presets
+GGUF_FILES = {
+    "tinyllama": dict(stem="tinyllama-1.1b-chat-v1.0.Q8_0", arch="llama",
+                      name="TinyLlama 1.1B Chat v1.0", layers=22, hidden=2048, ffn=5632,
+                      heads=32, kv_heads=4, head_dim=64, vocab=32000, ctx=2048,
+                      theta=10000.0, eps=1e-5, tokenizer="llama"),
+    "deepseek": dict(stem="DeepSeek-R1-Distill-Llama-8B.Q8_0", arch="llama",
+                     name="DeepSeek R1 Distill Llama 8B", layers=2, hidden=4096, ffn=14336,
+                     heads=32, kv_heads=8, head_dim=128, vocab=128256, ctx=8192,
+                     theta=500000.0, eps=1e-5, tokenizer="gpt2", pre="llama-bpe",
+                     specials=("<|begin_of_text|>", "<|end_of_text|>"), special_pad=256),
+    "qwen3": dict(stem="Qwen3-14B.Q8_0", arch="qwen3", name="Qwen3 14B", layers=2,
+                  hidden=5120, ffn=17408, heads=40, kv_heads=8, head_dim=128, vocab=151936,
+                  ctx=8192, theta=1000000.0, eps=1e-6, tokenizer="gpt2", pre="qwen2",
+                  specials=("<|endoftext|>", "<|im_start|>", "<|im_end|>"), special_pad=293),
+}
+WEIGHT_STD = 0.02
+GGUF_PROMPTS = (
+    "Summarize the state of the cluster and name the three services that restarted most.",
+    "List the failing services and why: disk 93% full on node-7, OOM kills in api-gateway.",
+    "Draft a remediation plan, step by step, for the storage tier. " * 6,
+)
+BPE_PROMPTS = (  # bytes of every width: the byte-level round trip must be exact
+    "Summarize the state of the cluster: 42 nodes, 3 degraded.",
+    "Résumé des incidents — 中文日志 🙂, naïve café; tabs\tand\r\nnewlines.",
+    "Draft a remediation plan, step by step, for the storage tier. " * 6,
+    "Explain every alert from the last hour (p99 latency 1834 ms, error rate 0.7%). " * 8,
+)
+
+
+def _sp_vocab(rng, n_pieces: int, added=()):
+    """A SentencePiece vocab: <unk>, <s>, </s>, the 256 byte tokens, the
+    characters of English text and then pieces, each two earlier pieces
+    joined (the short ones drawn more often), scores falling with rank in
+    tied groups of 4; ``added`` user-defined tokens last."""
+    import string
+
+    from aios_tpu_torch.engine.tokenizer import SPIECE_SPACE
+
+    chars = [SPIECE_SPACE] + list(string.ascii_letters + string.digits + ".,;:!?'\"()%-/")
+    pieces, seen = list(chars), set(chars)
+    while len(pieces) < n_pieces:
+        for a, b in rng.random((n_pieces, 2)) ** 3:
+            piece = pieces[int(a * len(pieces))] + pieces[int(b * len(pieces))]
+            if len(piece) <= 12 and piece not in seen:
+                seen.add(piece)
+                pieces.append(piece)
+                if len(pieces) == n_pieces:
+                    break
+    tokens = (["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)] + pieces
+              + list(added))
+    scores = [0.0] * 259 + [-float(i // 4) for i in range(n_pieces)] + [0.0] * len(added)
+    types = [2, 3, 3] + [6] * 256 + [1] * n_pieces + [4] * len(added)
+    return tokens, scores, types
+
+
+def _bpe_vocab(rng, vocab: int, specials, pad: int):
+    """A byte-level BPE vocab of ``vocab`` tokens: the 256 byte symbols, then
+    one token per merge of two earlier tokens (first pairs of letters and the
+    space symbol, then any two, the short ones drawn more often), and ``pad``
+    control tokens: ``specials`` and reserved ones."""
+    from aios_tpu_torch.engine.tokenizer import _bytes_to_unicode
+
+    b2u = _bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    letters = [b2u[b] for b in b"etaoinshrdlucmfwypvbgkqjxzETAOINSHRDLUC "]
+    seen, merges = set(tokens), []
+    n = vocab - pad
+    while len(tokens) < n:
+        for a, b in rng.random((n, 2)):
+            if len(tokens) < 256 + 1024:
+                left, right = letters[int(a * len(letters))], letters[int(b * len(letters))]
+            else:
+                left, right = tokens[int(a ** 3 * len(tokens))], tokens[int(b ** 3 * len(tokens))]
+            tok = left + right
+            if len(tok) <= 16 and tok not in seen:
+                seen.add(tok)
+                tokens.append(tok)
+                merges.append(f"{left} {right}")
+                if len(tokens) == n:
+                    break
+    control = list(specials) + [f"<|reserved_special_token_{i}|>"
+                                for i in range(pad - len(specials))]
+    return tokens + control, merges, [1] * n + [3] * pad
+
+
+def _q8_0(rng, rows: int, cols: int, std: float = WEIGHT_STD):
+    """Q8_0 blocks drawn directly: uniform int8 quants (std 73.9) under f16
+    scales of std/73.9 x U(0.75, 1.25)."""
+    nb = rows * cols // 32
+    blocks = rng.integers(0, 256, size=(nb, 34), dtype=np.uint8)
+    d = (std / 73.9 * rng.uniform(0.75, 1.25, nb)).astype(np.float16)
+    blocks[:, :2] = d.view(np.uint8).reshape(nb, 2)
+    return blocks
+
+
+def _q4_0(rng, rows: int, cols: int, std: float = WEIGHT_STD):
+    """Q4_0 blocks: uniform nibbles (q - 8 of std 4.61) under f16 scales."""
+    nb = rows * cols // 32
+    blocks = rng.integers(0, 256, size=(nb, 18), dtype=np.uint8)
+    d = (std / 4.61 * rng.uniform(0.75, 1.25, nb)).astype(np.float16)
+    blocks[:, :2] = d.view(np.uint8).reshape(nb, 2)
+    return blocks
+
+
+def _permute_hf_to_gguf(w, n_heads: int):
+    """convert_hf_to_gguf's q/k row permutation (HF half rotation ->
+    llama.cpp's interleaved rows)."""
+    out_dim = w.shape[0]
+    return (w.reshape(n_heads, 2, out_dim // n_heads // 2, w.shape[1])
+            .swapaxes(1, 2).reshape(w.shape))
+
+
+def _write_gguf_file(path, spec: dict, seed: int, vocab=None) -> dict:
+    """Write the model of ``spec`` with the port's streaming writer, one
+    tensor at a time, each drawn from its own generator (seed, tensor
+    index); the 2-D tensors are Q8_0 unless ``spec`` says otherwise
+    (``f32``: tensor names stored in F32, HF layout given and permuted as
+    llama.cpp writes them; ``q4_0``: names stored in Q4_0). Returns the F32
+    tensors in HF layout and the tokenizer vocab."""
+    from aios_tpu_torch.engine.gguf import F32, Q4_0, Q8_0, write_gguf_stream
+
+    arch, L, E, F_ = spec["arch"], spec["layers"], spec["hidden"], spec["ffn"]
+    H, KH, D, V = spec["heads"], spec["kv_heads"], spec["head_dim"], spec["vocab"]
+    rng = np.random.default_rng([seed, 0])
+    md = {
+        "general.architecture": arch, "general.name": spec["name"],
+        f"{arch}.block_count": L, f"{arch}.context_length": spec["ctx"],
+        f"{arch}.embedding_length": E, f"{arch}.feed_forward_length": F_,
+        f"{arch}.attention.head_count": H, f"{arch}.attention.head_count_kv": KH,
+        f"{arch}.attention.key_length": D, f"{arch}.attention.value_length": D,
+        f"{arch}.attention.layer_norm_rms_epsilon": spec["eps"],
+        f"{arch}.rope.freq_base": spec["theta"],
+    }
+    if vocab is None:
+        if spec["tokenizer"] == "llama":
+            added = spec.get("added", ())
+            vocab = _sp_vocab(rng, V - 259 - len(added), added)
+        else:
+            vocab = _bpe_vocab(rng, V, spec["specials"], spec["special_pad"])
+    if spec["tokenizer"] == "llama":
+        tokens, scores, types = vocab
+        md.update({"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+                   "tokenizer.ggml.scores": scores, "tokenizer.ggml.token_type": types,
+                   "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2})
+    else:
+        tokens, merges, types = vocab
+        specials = spec["specials"]
+        md.update({"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": spec["pre"],
+                   "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": merges,
+                   "tokenizer.ggml.token_type": types,
+                   "tokenizer.ggml.bos_token_id": tokens.index(specials[0]),
+                   "tokenizer.ggml.eos_token_id": tokens.index(specials[-1])})
+    expect(len(tokens) == V, f"vocab of {len(tokens)} tokens, expected {V}")
+
+    shapes = {"token_embd.weight": (V, E)}
+    heads = {}
+    for i in range(L):
+        p = f"blk.{i}."
+        shapes.update({p + "attn_norm.weight": (E,), p + "ffn_norm.weight": (E,)})
+        if spec.get("qk_norm", arch == "qwen3"):
+            shapes.update({p + "attn_q_norm.weight": (D,), p + "attn_k_norm.weight": (D,)})
+        shapes.update({p + "attn_q.weight": (H * D, E), p + "attn_k.weight": (KH * D, E),
+                       p + "attn_v.weight": (KH * D, E), p + "attn_output.weight": (E, H * D),
+                       p + "ffn_gate.weight": (F_, E), p + "ffn_up.weight": (F_, E),
+                       p + "ffn_down.weight": (E, F_)})
+        heads[p + "attn_q.weight"], heads[p + "attn_k.weight"] = H, KH
+    shapes["output_norm.weight"] = (E,)
+    shapes["output.weight"] = (V, E)
+    index = {name: i + 1 for i, name in enumerate(shapes)}
+    f32_hf = {}
+
+    def kind(name):
+        if len(shapes[name]) == 1 or name in spec.get("f32", ()):
+            return F32
+        return Q4_0 if name in spec.get("q4_0", ()) else Q8_0
+
+    def draw(name):
+        r = np.random.default_rng([seed, index[name]])
+        shape = shapes[name]
+        if len(shape) == 1:
+            return r.uniform(0.8, 1.2, shape).astype(np.float32)
+        if kind(name) == F32:
+            w = r.standard_normal(shape, dtype=np.float32) * WEIGHT_STD
+            f32_hf[name] = w
+            if arch in ("llama", "mistral") and name in heads:
+                w = _permute_hf_to_gguf(w, heads[name])
+            return np.ascontiguousarray(w)
+        return (_q4_0 if kind(name) == Q4_0 else _q8_0)(r, *shape)
+
+    write_gguf_stream(path, md, {name: (shapes[name], kind(name)) for name in shapes}, draw)
+    return dict(f32_hf=f32_hf, vocab=vocab)
+
+
+def _rss_mb() -> int:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
+
+
+def _loaded_leaves(params, prefix=""):
+    for k, v in params.items():
+        if isinstance(v, dict):
+            yield from _loaded_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _gguf_params_check(path, tag: str, spec: dict, f32_hf: dict) -> None:
+    """``params_from_gguf`` on the card against the same file on the CPU,
+    every leaf bit for bit; the F32 tensors (HF layout as drawn) read back
+    bit for bit after the unpermute, and their bf16 leaves equal them
+    rounded."""
+    from aios_tpu_torch.engine.gguf import GGUFFile
+    from aios_tpu_torch.engine.weights import _unpermute_llamacpp, params_from_gguf
+
+    t0 = time.perf_counter()
+    timings = {}
+    on_card, cfg = params_from_gguf(path, "cuda", timings=timings)
+    card_s = time.perf_counter() - t0
+    on_cpu, _ = params_from_gguf(path, "cpu")
+    cpu_s = time.perf_counter() - t0 - card_s
+    cpu_leaves = dict(_loaded_leaves(on_cpu))
+    n = 0
+    for name, leaf in _loaded_leaves(on_card):
+        expect(leaf.dtype == torch.bfloat16 and torch.equal(leaf.cpu(), cpu_leaves.pop(name)),
+               f"{tag} {name}: the card's load differs from the CPU's")
+        n += leaf.numel()
+    expect(not cpu_leaves, f"{tag}: leaves only on the CPU: {sorted(cpu_leaves)}")
+    f = GGUFFile(path)
+    leaf_of = {"attn_q": ("wq", spec["heads"]), "attn_k": ("wk", spec["kv_heads"])}
+    for name, w in f32_hf.items():
+        layer, kind = int(name.split(".")[1]), name.split(".")[2]
+        key, heads = leaf_of[kind]
+        back = _unpermute_llamacpp(f.load_tensor(name), heads)
+        expect(np.array_equal(back.view(np.uint32), w.view(np.uint32)),
+               f"{tag} {name}: F32 values differ after the unpermute")
+        want = torch.from_numpy(np.ascontiguousarray(w.T)).to(torch.bfloat16)
+        expect(torch.equal(on_cpu["layers"][key][layer], want),
+               f"{tag} {name}: the bf16 leaf is not the F32 tensor rounded")
+    log(f"{tag} params_from_gguf: {n} parameters in bf16 on the card equal the CPU's load "
+        f"bit for bit ({card_s:.2f} s to the card: parse and dequantize "
+        f"{timings['dequantize_s']:.2f} s, upload {timings['upload_s']:.2f} s; {cpu_s:.2f} s "
+        f"to the CPU); F32 tensors {sorted(f32_hf)} bit for bit after the unpermute; "
+        f"process peak RSS {_rss_mb()} MB")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def _gguf_load(manager, stub, tag: str, name: str, path, spec: dict):
+    """LoadModel by path at the file's own context, and its log line."""
+    m, load_s = _load(manager, stub, name, str(path))
+    eng, cfg = m.engine, m.config
+    want = (spec["layers"], spec["hidden"], spec["ffn"], spec["heads"], spec["kv_heads"],
+            spec["head_dim"], spec["vocab"], spec["ctx"], spec["arch"] == "qwen3")
+    got = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size, eng.max_context, cfg.qk_norm)
+    expect(got == want, f"{tag}: config {got} from the file, expected {want}")
+    expect(eng.quantized and eng.k_pool.dtype == torch.bfloat16 and eng.paged,
+           f"{tag}: expected int8 weights over a bf16 pool")
+    head = eng.params["lm_head"]["q"].shape[-1]
+    expect(head == -(-cfg.vocab_size // 16) * 16, f"{tag}: lm_head of {head} columns")
+    t = m.load_timings
+    pool_bytes = sum(x.numel() * x.element_size() for x in (eng.k_pool, eng.v_pool))
+    log(f"{tag} LoadModel {path.name} ready in {load_s:.2f} s: {cfg.name!r}, "
+        f"{cfg.num_layers} layers, E={cfg.hidden_size}, H/KH={cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, D={cfg.head_dim}, V={cfg.vocab_size} (lm_head {head} columns), "
+        f"ctx={eng.max_context}, {type(m.tokenizer).__name__}; parse and dequantize "
+        f"{t['dequantize_s']:.2f} s, upload {t['upload_s']:.2f} s, quantize "
+        f"{t['quantize_s']:.2f} s, capture {t['capture_s']:.2f} s; bf16 pool of "
+        f"{eng.allocator.num_pages} pages x {eng.allocator.page_size} rows = {pool_bytes} B; "
+        f"process peak RSS {_rss_mb()} MB")
+    log(f"{tag} {_graphs_line(m, load_s)}")
+    return m
+
+
+def _gguf_window(manager, stub, m, card: str, tag: str, prompts) -> dict:
+    """The served window over ``prompts``, its launches exact: per
+    whole-prompt prefill 4L+1 K1 and L K2, per admission chunk 4L+1 K1 and
+    L K6, per decode step 4L+1 K1 and L K3."""
+    w = _served_window(manager, stub, m, card, f" ({tag})", prompts)
+    L = m.config.num_layers
+    n, pre, steps, chunks = w["launches"], w["prefills"], w["steps"], w["chunks"]
+    want = dict.fromkeys(n, 0)
+    want.update({"quantized_matmul": (4 * L + 1) * (pre + chunks + steps),
+                 "flash_attention": L * pre, "paged_decode_attention": L * steps,
+                 "multiquery_decode_attention": L * chunks})
+    expect(n == want, f"{tag} launch counts {n} != {want} for {pre} prefills, {chunks} "
+           f"chunks, {steps} steps")
+    log(f"{tag} launch counts exact for {pre} whole-prompt prefills, {chunks} admission "
+        f"chunks and {steps} decode steps ({4 * L + 1} K1 and {L} K2, K6 or K3 each): {n}")
+    return w
+
+
+def _gguf_greedy(m, tag: str, prompt: str) -> None:
+    """Two greedy requests of one templated prompt, each admitted cold, give
+    one stream."""
+    from aios_tpu_torch.engine.tokenizer import render_chat
+
+    eng = m.engine
+    ids = m.tokenizer.encode(render_chat(m.config.name, prompt))
+    eng.prefix_index.clear()
+    a = m.batcher.generate(ids, max_tokens=24, temperature=0.0)
+    eng.prefix_index.clear()
+    b = m.batcher.generate(ids, max_tokens=24, temperature=0.0)
+    expect(a and a == b, f"{tag} greedy streams differ: {a} vs {b}")
+    log(f"{tag} two greedy streams of {len(a)} tokens for a {len(ids)}-token prompt "
+        f"identical: {a[:8]}... -> {m.tokenizer.decode(a)[:60]!r}")
+
+
+def _long_sp_prompt(tok, name: str, vocab, at_least: int) -> str:
+    """Text of the vocab's own pieces that templates to ``at_least`` tokens."""
+    from aios_tpu_torch.engine.tokenizer import SPIECE_SPACE, render_chat
+
+    pieces = [t for t, typ in zip(vocab[0], vocab[2]) if typ == 1]
+    rng = np.random.default_rng([GGUF_SEED, 99])
+    words = []
+    while True:
+        words += [pieces[i].replace(SPIECE_SPACE, " ")
+                  for i in rng.integers(0, len(pieces), 64)]
+        text = "".join(words)
+        if len(tok.encode(render_chat(name, text))) >= at_least:
+            return text
+
+
+def _bad_files(manager, stub, tmp) -> None:
+    """Files that cannot be served leave the model in ``error`` with the
+    reason in LoadModel's reply: a corrupt header, a mixture-of-experts
+    file and a tensor in a ggml type with no dequantizer (Q2_K)."""
+    import grpc
+
+    from aios_tpu_torch.engine.gguf import F32, Q2_K, Q8_0, quantize_q8_0, write_gguf
+    from aios_tpu_torch.proto_gen import common_pb2, runtime_pb2
+
+    E, H, D, F_, V = 128, 2, 64, 256, 512
+    md = {"general.architecture": "llama", "general.name": "bad",
+          "llama.block_count": 1, "llama.context_length": 256,
+          "llama.embedding_length": E, "llama.feed_forward_length": F_,
+          "llama.attention.head_count": H, "llama.attention.head_count_kv": H}
+    rng = np.random.default_rng([GGUF_SEED, 7])
+
+    def tensors(q2k: bool):
+        def mat(rows, cols, name):
+            if q2k and name == "blk.0.ffn_down.weight":
+                return ((rows, cols), Q2_K, rng.integers(0, 256, rows * cols // 256 * 84,
+                                                          dtype=np.uint8).tobytes())
+            w = rng.standard_normal(rows * cols).astype(np.float32) * WEIGHT_STD
+            return ((rows, cols), Q8_0, quantize_q8_0(w).tobytes())
+
+        out = {"token_embd.weight": mat(V, E, "token_embd.weight")}
+        for name, shape in (("attn_norm", E), ("ffn_norm", E)):
+            out[f"blk.0.{name}.weight"] = ((shape,), F32, np.ones(shape, np.float32).tobytes())
+        for name, (r, c) in (("attn_q", (H * D, E)), ("attn_k", (H * D, E)),
+                             ("attn_v", (H * D, E)), ("attn_output", (E, H * D)),
+                             ("ffn_gate", (F_, E)), ("ffn_up", (F_, E)),
+                             ("ffn_down", (E, F_))):
+            out[f"blk.0.{name}.weight"] = mat(r, c, f"blk.0.{name}.weight")
+        out["output_norm.weight"] = ((E,), F32, np.ones(E, np.float32).tobytes())
+        return out
+
+    bad = tmp / "bad"
+    bad.mkdir()
+    write_gguf(bad / "q2k.gguf", md, tensors(True))
+    write_gguf(bad / "moe.gguf", {**md, "llama.expert_count": 8}, tensors(False))
+    (bad / "corrupt.gguf").write_bytes((bad / "moe.gguf").read_bytes()[:40])
+    for name, why in (("corrupt", "unpack"), ("moe", "expert_count=8"), ("q2k", "Q2_K")):
+        try:
+            st = stub.LoadModel(runtime_pb2.LoadModelRequest(
+                model_name=name, model_path=str(bad / f"{name}.gguf")), timeout=300)
+            code, details = st.status, ""
+        except grpc.RpcError as exc:
+            code, details = exc.code().name, exc.details() or ""
+        listed = {x.model_name: x.status for x in stub.ListModels(common_pb2.Empty()).models}
+        expect(code == "INTERNAL" and why in details and listed.get(name) == "error",
+               f"LoadModel {name}.gguf: {code} {details!r}, listed {listed}")
+        log(f"[gguf] LoadModel {name}.gguf refused: {code}, listed as {listed[name]!r}: "
+            f"{details}")
+        expect(stub.UnloadModel(runtime_pb2.UnloadModelRequest(model_name=name)).success,
+               f"UnloadModel {name}")
+
+
+def phase_gguf(card: str) -> dict:
+    """Write the three GGUF files one at a time, hold each loader against
+    the CPU, serve each over gRPC through the kernels; TinyLlama also by
+    ``autoload`` and with a 32002-token vocab. Returns the launches of the
+    served windows."""
+    import tempfile
+    from pathlib import Path
+
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.engine.tokenizer import render_chat
+    from aios_tpu_torch.proto_gen import runtime_pb2
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+    from aios_tpu_torch.runtime.service import serve
+
+    totals: dict = {}
+
+    def count(w):
+        for k, v in w["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+
+    def unload(name):
+        expect(stub.UnloadModel(runtime_pb2.UnloadModelRequest(model_name=name)).success,
+               f"UnloadModel {name}")
+        torch.cuda.empty_cache()
+
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
+    server, _, port = serve("127.0.0.1:0", manager, block=False)
+    channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = services.AIRuntimeStub(channel)
+    try:
+        with tempfile.TemporaryDirectory(prefix="aios-gguf-") as tmp:
+            tmp = Path(tmp)
+            _bad_files(manager, stub, tmp)
+            # (a) TinyLlama, full width and depth
+            spec = dict(GGUF_FILES["tinyllama"], f32=("blk.0.attn_q.weight",
+                                                      "blk.0.attn_k.weight"),
+                        q4_0=("blk.1.ffn_gate.weight", "blk.1.ffn_up.weight",
+                              "blk.1.ffn_down.weight"))
+            models = tmp / "models"
+            models.mkdir()
+            path = models / f"{spec['stem']}.gguf"
+            t0 = time.perf_counter()
+            made = _write_gguf_file(path, spec, GGUF_SEED)
+            log(f"[gguf tinyllama] wrote {path.name}: {path.stat().st_size} B in "
+                f"{time.perf_counter() - t0:.2f} s (one tensor at a time; process peak RSS "
+                f"{_rss_mb()} MB)")
+            _gguf_params_check(path, "[gguf tinyllama]", spec, made["f32_hf"])
+            m = _gguf_load(manager, stub, "[gguf tinyllama]", "tinyllama-gguf", path, spec)
+            long_prompt = _long_sp_prompt(m.tokenizer, m.config.name, made["vocab"], 1800)
+            t0 = time.perf_counter()
+            n_long = len(m.tokenizer.encode(render_chat(m.config.name, long_prompt)))
+            encode_ms = (time.perf_counter() - t0) * 1e3
+            log(f"[gguf tinyllama] SentencePieceBPE.encode of the long prompt ({len(long_prompt)}"
+                f" chars, {n_long} tokens templated) took {encode_ms:.2f} ms on the host")
+            w = _gguf_window(manager, stub, m, card, "[gguf tinyllama]",
+                             GGUF_PROMPTS + (long_prompt,))
+            expect(w["chunks"] >= 4, f"the {n_long}-token prompt was not admitted in chunks")
+            count(w)
+            _logits_gate(m, "[gguf tinyllama]", m.config.vocab_size)
+            _gguf_greedy(m, "[gguf tinyllama]", GGUF_PROMPTS[0])
+            unload("tinyllama-gguf")
+            t0 = time.perf_counter()
+            names = manager.autoload(str(models))
+            stem = spec["stem"].lower()
+            m = manager.get(stem)
+            expect(names == [stem] and m is not None and m.engine.max_context == 2048
+                   and m.context_length == 2048,
+                   f"autoload loaded {names}, context {m and m.engine.max_context}")
+            r = stub.Infer(runtime_pb2.InferRequest(prompt=GGUF_PROMPTS[1], max_tokens=16,
+                                                    intelligence_level="operational"),
+                           timeout=300)
+            expect(r.model_used == stem and r.tokens_used > 0, f"autoload model: {r}")
+            log(f"[gguf tinyllama] autoload({models.name}/) in {time.perf_counter() - t0:.2f} s "
+                f"loaded {names} at context {m.engine.max_context} ({path.stat().st_size} B "
+                f"file); an operational Infer went to {r.model_used!r}")
+            unload(stem)
+            path.unlink()
+
+            # a TinyLlama-width file whose vocab (32002) the head pads to 32016
+            spec = dict(GGUF_FILES["tinyllama"], layers=2, vocab=32002,
+                        added=("<|im_start|>", "<|im_end|>"))
+            path = tmp / "tinyllama-32002.gguf"
+            _write_gguf_file(path, spec, GGUF_SEED + 1)
+            m = _gguf_load(manager, stub, "[gguf 32002]", "tinyllama-32002", path, spec)
+            _logits_gate(m, "[gguf 32002]", m.config.vocab_size)
+            r = stub.Infer(runtime_pb2.InferRequest(prompt=GGUF_PROMPTS[0], max_tokens=16),
+                           timeout=300)
+            expect(r.tokens_used > 0, f"Infer on the 32002-token vocab: {r}")
+            log(f"[gguf 32002] one Infer: {r.tokens_used} tokens, {r.text[:40]!r}")
+            unload("tinyllama-32002")
+            path.unlink()
+
+            # (b) DeepSeek-R1-8B and (c) Qwen3-14B, full width, 2 layers
+            for key, seed in (("deepseek", GGUF_SEED + 2), ("qwen3", GGUF_SEED + 3)):
+                tag, spec = f"[gguf {key}]", GGUF_FILES[key]
+                path = tmp / f"{spec['stem']}.gguf"
+                t0 = time.perf_counter()
+                _write_gguf_file(path, spec, seed)
+                log(f"{tag} wrote {path.name}: {path.stat().st_size} B in "
+                    f"{time.perf_counter() - t0:.2f} s")
+                _gguf_params_check(path, tag, spec, {})
+                m = _gguf_load(manager, stub, tag, key, path, spec)
+                for p in BPE_PROMPTS:
+                    ids = m.tokenizer.encode(p)
+                    expect(m.tokenizer.decode(ids) == p, f"{tag} round trip of {p!r}")
+                log(f"{tag} decode(encode(s)) == s for the {len(BPE_PROMPTS)} served prompts "
+                    f"({[len(m.tokenizer.encode(p)) for p in BPE_PROMPTS]} tokens)")
+                count(_gguf_window(manager, stub, m, card, tag, BPE_PROMPTS))
+                _logits_gate(m, tag, m.config.vocab_size)
+                _gguf_greedy(m, tag, BPE_PROMPTS[0])
+                ids = m.tokenizer.encode(render_chat(m.config.name, BPE_PROMPTS[1]))
+                m.engine.prefix_index.clear()
+                first = m.engine.prefill(0, ids, temperature=0.0)
+                row = m.engine._adm_logits
+                top = torch.topk(row, 3)
+                m.engine.release(0)
+                expect(first == int(top.indices[0]) and bool(torch.isfinite(row).all()),
+                       f"{tag} first token {first}, logits argmax {int(top.indices[0])}")
+                log(f"{tag} first-token logits of a {len(ids)}-token request: argmax {first} "
+                    f"({m.tokenizer.decode([first])!r}), top 3 {top.values.tolist()} at "
+                    f"{top.indices.tolist()}, max|logit| {row.abs().max().item():.4f}")
+                unload(key)
+                path.unlink()
+    finally:
+        manager.close()
+        channel.close()
+        server.stop(grace=None)
+    torch.cuda.empty_cache()
+    return totals
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2700,13 +3264,14 @@ def main() -> int:
     mistral_dense = _serve_phases(
         card, (phase_dense_serve("mistral"), phase_dense_numerics("mistral")),
         quantize="int4", kv_cache="int8", **dense)
+    gguf = phase_gguf(card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
         r = measured[name]
         tiny[name] += tiny_dense[name]
         mistral[name] += mistral_dense[name]
-        n = tiny[name] + mistral[name]
+        n = tiny[name] + mistral[name] + gguf.get(name, 0)
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -2716,7 +3281,8 @@ def main() -> int:
             "library_ms": r["library_ms"],
         })
         log(f"[kernels] {name}: ok, {n} launches while serving ({tiny[name]} TinyLlama, "
-            f"{mistral[name]} Mistral-7B), {r['measured_at']}: kernel {r['ms']:.4f} ms, "
+            f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files), "
+            f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(json.dumps({"kernels": kernels}), flush=True)
