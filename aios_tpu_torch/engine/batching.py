@@ -24,8 +24,21 @@ engine every dispatch replays a graph; attaching captures those this
 batcher dispatches (its ``spec_draft_len`` and ``spec_ngram``) if the
 engine's warmup did not.
 
-Not here yet: the pipelined decode loop, constrained decoding with
-jump-ahead, and the draft-model proposer.
+A request with ``json_mode`` (one JSON object) or ``json_schema`` (that
+schema's shape, ``jsonschema.py``) is grammar-constrained; the batcher
+needs the model's ``tokenizer`` for it. Its first token is the grammar's
+opener (``engine.force_pending_token``), and while any constrained request
+is live every tick is one dispatch: a jump (``engine.jump_step``) when some
+constrained slot's automaton forces a run of two or more tokens
+(jump-ahead, on unless ``jump_ahead`` is False, ``AIOS_TPU_JUMP_AHEAD`` or
+the config say otherwise; setting the ``jump_ahead`` attribute sheds it
+from outside), else
+one masked step (``engine.step_masked``) with the constrained slots' mask
+rows, cached on the device per automaton state; unconstrained slots decode
+in the same step with zero rows. Attaching captures every jump bucket when
+the engine holds the masked graph.
+
+Not here yet: the pipelined decode loop and the draft-model proposer.
 """
 
 from __future__ import annotations
@@ -36,11 +49,15 @@ import os
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .engine import SPEC_DRAFT_LEN, SPEC_NGRAM, ChunkedPrefill, TorchEngine
+import numpy as np
+
+from . import jsonmode, jsonschema
+from .engine import (JUMP_BUCKETS, SPEC_DRAFT_LEN, SPEC_NGRAM, ChunkedPrefill, TorchEngine,
+                     jump_ahead_enabled)
 from .paged import PoolExhausted
 
 log = logging.getLogger("aios.torch.batcher")
@@ -87,6 +104,13 @@ class Request:
     top_p: float = 0.95
     stop_ids: Tuple[int, ...] = ()
     request_id: str = ""
+    # grammar-constrained decoding: output restricted to one JSON object
+    # (the reference's non-streaming response_format=json_object)
+    json_mode: bool = False
+    # structured outputs: output restricted to the exact SHAPE of this
+    # schema (the jsonschema.py subset); wins over json_mode when both are
+    # set (the stricter guarantee)
+    json_schema: Optional[dict] = None
     # admission priority: higher admits first when slots are contended
     priority: int = 0
 
@@ -104,6 +128,7 @@ class _Live:
     # non-empty when the request was ABORTED (eviction, scheduler failure,
     # unload) rather than finished or cancelled
     abort_reason: str = ""
+    constraint: Optional[jsonmode.JsonConstraint] = None  # json_mode / json_schema
 
 
 class RequestHandle:
@@ -157,6 +182,8 @@ class ContinuousBatcher:
         spec_min_accept: Optional[float] = None,  # auto-disable floor
         spec_reprobe_secs: Optional[float] = None,  # suspension length
         prefill_chunk: Optional[int] = None,  # None: the engine's default; 0: off
+        tokenizer=None,  # enables json_mode / json_schema requests
+        jump_ahead: Optional[bool] = None,  # None: jump_ahead_enabled(cfg)
     ) -> None:
         self.engine = engine
         # prompts longer than this admit incrementally, one chunk per
@@ -198,9 +225,26 @@ class ContinuousBatcher:
         self._spec_probe_left = {p: 0 for p in self.spec_proposers}
         self._spec_probe_seen = {p: 0 for p in self.spec_proposers}
         self.spec_autodisables = 0
-        # set from outside to shed speculation under load; greedy streams are
-        # the same either way, so a flip mid-stream perturbs nothing
+        # set from outside to shed speculation under load; greedy streams
+        # are the same either way, so a flip mid-stream perturbs nothing
         self.degrade_spec = False
+        # grammar jump-ahead: chains of grammar-FORCED tokens emit host-side
+        # and append their K/V in one multi-token dispatch (over the pool
+        # too: the jump's verify forward is verify_step_paged); greedy
+        # streams are the same either way, so it may be flipped mid-stream
+        if jump_ahead is None:
+            jump_ahead = jump_ahead_enabled(engine.cfg)
+        self.jump_ahead = bool(jump_ahead)
+        self.jump_max = JUMP_BUCKETS[-1]
+        # constrained decoding: the token->bytes table, the shared json_mode
+        # mask cache and the per-schema caches (LRU, 16; the schema is
+        # client input), all built on first use
+        self.tokenizer = tokenizer
+        self._json_masks: Optional[jsonmode.JsonMaskCache] = None
+        self._json_masks_lock = threading.Lock()
+        self._token_table = None
+        self._byte_matrix = None  # (mat, lens) shared across mask caches
+        self._schema_caches: "OrderedDict[str, jsonschema.SchemaMaskCache]" = OrderedDict()
         self.pool_evictions = 0
         self.cancellations = 0
         self.completed = 0
@@ -224,6 +268,12 @@ class ContinuousBatcher:
         engine.capture_step()
         if self.speculative:
             engine.capture_spec(self.spec_draft_len, self.spec_ngram)
+        if self.jump_ahead and "masked" in engine.graphs:
+            # constrained serving was declared at warmup: every run-length
+            # bucket the constrained tick can dispatch is captured too; an
+            # engine never warmed for it captures both at first use
+            for k in JUMP_BUCKETS:
+                engine.capture_jump(k)
         self._thread = threading.Thread(
             target=self._run, name="continuous-batcher", daemon=True
         )
@@ -236,6 +286,58 @@ class ContinuousBatcher:
         with self._qlock:
             return len(self._waiting) + (self._prefilling is not None)
 
+    def _token_bytes(self):
+        """The shared token->bytes table (built once; caller holds the
+        lock)."""
+        if self._token_table is None:
+            if self.tokenizer is None:
+                raise ValueError("json_mode/json_schema requires the batcher to know "
+                                 "the tokenizer")
+            self._token_table = jsonmode.token_bytes_table(
+                self.tokenizer, self.engine.cfg.vocab_size)
+        return self._token_table
+
+    def _json_mask_cache(self) -> jsonmode.JsonMaskCache:
+        """The per-model json_mode mask cache, built once under the lock so
+        that concurrent first requests share one vocab walk. compact=True:
+        generation emits no structural whitespace, so grammar-forced
+        positions are SINGLETON states that jump-ahead collapses."""
+        with self._json_masks_lock:
+            if self._json_masks is None:
+                self._json_masks = jsonmode.JsonMaskCache(
+                    self._token_bytes(), getattr(self.tokenizer, "eos_id", None),
+                    compact=True, device=self.engine.device)
+            return self._json_masks
+
+    def _schema_mask_cache(self, schema: dict) -> jsonschema.SchemaMaskCache:
+        """The mask cache of ``schema``, compiled once and shared by every
+        request carrying it; LRU-bounded, with the vocab byte matrix built
+        once and shared. Raises ValueError on a schema outside the
+        supported subset or with a scalar root."""
+        key = jsonschema.schema_cache_key(schema)
+        with self._json_masks_lock:
+            cache = self._schema_caches.get(key)
+            if cache is not None:
+                self._schema_caches.move_to_end(key)
+                return cache
+            table = self._token_bytes()
+            if self._byte_matrix is None and self._json_masks is not None:
+                base = self._json_masks
+                self._byte_matrix = (base._byte_mat, base._byte_lens)
+            cache = jsonschema.SchemaMaskCache(
+                table, getattr(self.tokenizer, "eos_id", None), schema,
+                byte_matrix=self._byte_matrix, compact=True, device=self.engine.device)
+            if self._byte_matrix is None:
+                self._byte_matrix = (cache._byte_mat, cache._byte_lens)
+            if cache.start_token_id is None:
+                raise ValueError("json_schema root must be an object, array, or any "
+                                 "(scalar roots have no forced opener; wrap them in "
+                                 "an object)")
+            while len(self._schema_caches) >= 16:
+                self._schema_caches.popitem(last=False)
+            self._schema_caches[key] = cache
+            return cache
+
     def submit(self, req: Request) -> RequestHandle:
         if not req.prompt_ids:
             # fail on the caller's thread: a scheduler-thread exception would
@@ -244,6 +346,19 @@ class ContinuousBatcher:
         if not req.request_id:
             req.request_id = f"req-{next(self._ids)}"
         live = _Live(req=req, slot=-1, submitted_at=time.monotonic())
+        if req.json_schema is not None:
+            # built on the caller's thread: fail fast, and keep the vocab
+            # walk and the schema compile off the scheduler thread
+            cache = self._schema_mask_cache(req.json_schema)
+            min_bytes = cache._distance(cache.start())
+            if req.max_tokens * cache._byte_mat.shape[1] < min_bytes:
+                # even all-longest tokens cannot carry the schema's minimal
+                # completion: the output could only truncate
+                raise ValueError(f"max_tokens={req.max_tokens} cannot fit the schema's "
+                                 f"minimal completion ({min_bytes} bytes)")
+            live.constraint = jsonmode.JsonConstraint(cache)
+        elif req.json_mode:
+            live.constraint = jsonmode.JsonConstraint(self._json_mask_cache())
         with self._qlock:
             if self._closed:
                 raise RuntimeError("batcher is shut down")
@@ -297,6 +412,8 @@ class ContinuousBatcher:
         if first is not None:
             self._prefilling = None
             self._reserved_slot = -1
+            if live.constraint is not None:
+                first = self._constrained_first(live, first)
             live.first_token_at = time.monotonic()
             with self._lock:
                 self._live[live.slot] = live
@@ -364,10 +481,24 @@ class ContinuousBatcher:
                 # "blocked": only higher-priority streams hold the pool, the
                 # admission waits for them; "evicted": retry next pass
                 return
+            if live.constraint is not None:
+                first = self._constrained_first(live, first)
             live.first_token_at = time.monotonic()
             with self._lock:
                 self._live[slot] = live
             self._emit(live, first)
+
+    def _constrained_first(self, live: _Live, first: int) -> int:
+        """A constrained request's admission sampled its first token
+        unmasked: overwrite it with the grammar's forced opener ("{")."""
+        forced = live.constraint.cache.start_token_id
+        if forced is None:  # no "{" token in the vocab: fail open
+            log.warning("json_mode: vocab has no '{' token; unconstrained")
+            live.constraint = None
+            return first
+        self.engine.force_pending_token(live.slot, forced)
+        live.constraint.advance(forced)
+        return forced
 
     def _emit(self, live: _Live, token: int) -> None:
         if live.cancelled:
@@ -553,6 +684,79 @@ class ContinuousBatcher:
                         break
         self._spec_measure(proposer, counts, consumed)
 
+    # -- grammar jump-ahead (compressed-FSM run collapse) ----------------------
+
+    def _jump_tick(self, constrained: List[Tuple[int, _Live]]) -> bool:
+        """Collapse chains of grammar-FORCED tokens into one multi-token
+        dispatch (``engine.jump_step``) instead of one masked dispatch each.
+        Each constrained slot's automaton is probed for a forced run
+        (``JsonConstraint.forced_run``: states whose effective mask admits
+        exactly one token); runs of >= 2 tokens pay for a jump, and the
+        tokens emit host-side (they are the only tokens any sampler could
+        produce, so streams are those of the per-step path). Slots without
+        a run, and unconstrained co-residents, do not advance this
+        dispatch; the next tick serves them with a masked step. Returns
+        True when a jump was issued (the tick is done)."""
+        runs: Dict[int, List[int]] = {}
+        for s, live in constrained:
+            c = live.constraint
+            if c is None or c.failed:
+                continue
+            rem = live.req.max_tokens - live.produced
+            # the verify-write contract: post-run length <= C-2
+            room = self.engine.max_context - 2 - self.engine.slot_length(s)
+            cap = min(self.jump_max, rem, room)
+            if cap < 2:
+                continue
+            run = c.forced_run(cap, remaining=rem, stop_ids=live.req.stop_ids)
+            if len(run) >= 2:
+                runs[s] = run
+        if not runs:
+            return False
+        k = max(len(r) for r in runs.values())
+        forced = np.zeros((self.engine.num_slots, k), np.int64)
+        counts = np.zeros((self.engine.num_slots,), np.int64)
+        for s, run in runs.items():
+            forced[s, : len(run)] = run
+            counts[s] = len(run)
+        try:
+            self.engine.jump_step(forced, counts)
+        except PoolExhausted:
+            self._evict_longest()  # retry next tick
+            return True
+        by_slot = dict(constrained)
+        for s in sorted(runs):
+            live = by_slot[s]
+            for tok in runs[s]:
+                if live.done:
+                    break
+                live.constraint.advance(tok)
+                self._emit(live, tok)
+        return True
+
+    def _constrained_tick(self, slots: Dict[int, _Live],
+                          constrained: List[Tuple[int, _Live]]) -> None:
+        """One tick while constrained requests are live: a jump when one
+        pays, else one masked step, the constrained slots' rows (cached on
+        the device per automaton state) copied into the engine's mask, the
+        other slots' rows zero."""
+        if self.jump_ahead and self._jump_tick(constrained):
+            return
+        rows = {s: live.constraint.device_mask(
+            remaining=live.req.max_tokens - live.produced) for s, live in constrained}
+        try:
+            tokens = self.engine.step_masked(rows)
+        except PoolExhausted:
+            self._evict_longest()
+            return
+        for slot, live in slots.items():
+            if live.done:
+                continue
+            tok = int(tokens[0, slot])
+            if live.constraint is not None:
+                live.constraint.advance(tok)
+            self._emit(live, tok)
+
     def _tick(self) -> None:
         self._reap_cancelled()
         self._advance_prefill()
@@ -564,6 +768,12 @@ class ContinuousBatcher:
                 return  # nothing to decode; keep chunking
             self._wake.wait(timeout=0.05)
             self._wake.clear()
+            return
+        constrained = [(s, l) for s, l in slots.items() if l.constraint is not None]
+        if constrained:
+            # grammar masks change with every emitted token: constrained
+            # slots ride one-dispatch ticks
+            self._constrained_tick(slots, constrained)
             return
         # two dispatch sizes only; overshooting a request's budget costs a
         # few ignored tokens

@@ -1,8 +1,8 @@
 """Model configurations for the Llama-family decoder (the dense presets).
 
 A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
-``ModelConfig`` geometry fields, the dense presets, the tiny test config and
-``from_gguf_metadata``. The serving knobs that ride on the JAX package's
+``ModelConfig`` geometry fields and ``jump_ahead``, the dense presets, the
+tiny test config and ``from_gguf_metadata``. The serving knobs that ride on the JAX package's
 config (replicas, prefix host tier, megagraph, speculation, compression,
 MoE) belong to features the port has not reached yet, so a GGUF file of a
 mixture-of-experts model is refused.
@@ -30,6 +30,11 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     tie_word_embeddings: bool = False
     qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
+    # grammar jump-ahead for constrained decoding (batching.py
+    # _jump_tick): chains of grammar-FORCED tokens emit host-side and
+    # append their K/V in ONE multi-token dispatch instead of one masked
+    # dispatch each. AIOS_TPU_JUMP_AHEAD overrides at load time.
+    jump_ahead: bool = True
 
     @property
     def q_dim(self) -> int:

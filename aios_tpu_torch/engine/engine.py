@@ -52,17 +52,28 @@ path.
 dense cache: propose drafts from the device token history (``spec.py``),
 verify them in one multi-token forward, accept the longest matching prefix.
 
+Grammar-constrained decoding (``jsonmode.py``, ``jsonschema.py``, driven by
+the batcher) dispatches two more graphs over either cache: ``step_masked``,
+one decode step whose logits get the additive [S, V] f32 mask
+``step_mask`` before sampling (a static buffer of the "masked" graph, into
+which the caller's rows are copied on the device; unconstrained slots keep
+zero rows), and ``jump_step``, which appends a grammar-forced token run of
+up to ``JUMP_BUCKETS[-1]`` tokens per slot in one verify forward
+(``model.verify_step_paged`` over the pool, ``model.verify_step`` over the
+dense cache), bucketed to ``JUMP_BUCKETS``. ``warmup(masked_step=True)``
+captures both kinds; a constrained request on an engine not warmed for it
+captures them at first use.
+
 Weights serve as int8 (``quantize="int8"``) or group-wise int4
 (``quantize="int4"``); the cache is bf16, or int8 (``cache_dtype=torch.int8``)
 with f32 scales beside it ([L, N, P, KH] or [L, S, C, KH]), rows quantizing
 on write.
 
 Not here yet (later slices of the port): the prefix cache's host tier,
-KVX1 export and the fleet digest, speculation over the page pool
-(``verify_step_paged``),
-the draft-model proposer, jump-ahead and masked steps, the multi-tick
-megagraph, window+sink KV compression, sharding and the pipelined
-``step_async``.
+KVX1 export and the fleet digest, speculation over the page pool (its
+round, backing and trim over ``verify_step_paged``), the draft-model
+proposer, the multi-tick megagraph, window+sink KV compression, sharding
+and the pipelined ``step_async``.
 """
 
 from __future__ import annotations
@@ -92,6 +103,12 @@ DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 # spec_step's defaults, and the round graph warmup captures
 SPEC_DRAFT_LEN = 7
 SPEC_NGRAM = 3
+# Run-length buckets of the grammar jump-ahead graphs (jump_step): a forced
+# run of k tokens dispatches through the smallest bucket >= k, so warmup
+# captures len(JUMP_BUCKETS) graphs (the JAX engine's buckets). Bounded by
+# spec.HISTORY_PAD - 2: the history scatter stays inside the pad margin.
+JUMP_BUCKETS = (4, 16)
+assert JUMP_BUCKETS[-1] <= spec.HISTORY_PAD - 2
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -102,19 +119,28 @@ def _env_flag(name: str) -> Optional[bool]:
     return raw in ("1", "true", "on", "yes")
 
 
+def jump_ahead_enabled(cfg: ModelConfig) -> bool:
+    """Whether grammar jump-ahead serves: ``AIOS_TPU_JUMP_AHEAD`` when set,
+    else ``cfg.jump_ahead`` (the JAX stack's rule)."""
+    enabled = _env_flag("AIOS_TPU_JUMP_AHEAD")
+    return bool(cfg.jump_ahead) if enabled is None else enabled
+
+
 def workspace_launches(cfg: ModelConfig, num_slots: int, max_context: int, *,
                        chunk: Optional[int], speculative: bool,
                        sms: int) -> List[Tuple[int, int, int]]:
     """(groups, splits, partial rows) of each split-attention launch shape
     an engine makes: the single-query decode attention of every slot (K3,
-    K4, K8, K9), with speculation the verify attention of the longest draft
-    (K6, K7), and with ``chunk`` a chunk's attention, B = 1 and T = chunk
-    over the whole context (K6, K7). ``split.workspace`` sizes for them."""
+    K4, K8, K9), the verify attention of every slot (K6, K7) at its most
+    rows, the longest draft with speculation, else the largest jump-ahead
+    run (``JUMP_BUCKETS[-1] + 1`` tokens), and with ``chunk`` a chunk's
+    attention, B = 1 and T = chunk over the whole context (K6, K7).
+    ``split.workspace`` sizes for them."""
     KH, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
     splits = split.split_plan(max_context, num_slots, KH, sms)
     out = [(*split.launch_groups(num_slots, KH), splits)]
-    if speculative:
-        out.append((*split.launch_groups(num_slots, KH, (spec.HISTORY_PAD - 1) * G), splits))
+    verify_rows = spec.HISTORY_PAD - 1 if speculative else JUMP_BUCKETS[-1] + 1
+    out.append((*split.launch_groups(num_slots, KH, verify_rows * G), splits))
     if chunk:
         out.append((*split.launch_groups(1, KH, chunk * G),
                     split.split_plan(max_context, 1, KH, sms)))
@@ -238,8 +264,9 @@ class TorchEngine:
         self.params = params
 
         self.paged = paged_pool_rows is not None
-        # speculation verifies over the dense cache only: the paged verify
-        # forward (verify_step_paged) is not ported
+        # speculation runs over the dense cache only: its round over the
+        # pool (backing and trimming the drafted rows) is not ported; the
+        # jump's verify forward runs over either cache
         self.spec_supported = not self.paged
         self.allocator: Optional[paged.PageAllocator] = None
         if self.paged:
@@ -312,6 +339,14 @@ class TorchEngine:
         self._adm_temp, self._adm_top_p = self._adm_f32.dev[0:1], self._adm_f32.dev[1:2]
         self._adm_first = torch.zeros(1, dtype=torch.int64, device=dev)
         self._adm_logits = torch.zeros(cfg.vocab_size, dtype=torch.float32, device=dev)
+        # the masked step's additive logits mask (0 = allowed), the slots
+        # whose rows are set, and a jump's operands: [counts S][forced
+        # S x kb] for its bucket kb, staged from pinned memory
+        self.step_mask = torch.zeros((num_slots, cfg.vocab_size), dtype=torch.float32,
+                                     device=dev)
+        self._mask_rows: set = set()
+        self._jump_ops = Staged(torch.zeros(num_slots * (1 + JUMP_BUCKETS[-1]),
+                                            dtype=torch.int64, device=dev))
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(0)
         self.graphs = GraphSet(dev, self.generator)
@@ -335,6 +370,8 @@ class TorchEngine:
         self.spec_rounds = 0
         self.spec_tokens = 0
         self.spec_slot_rounds = 0  # (round, active slot) pairs
+        self.jump_dispatches = 0
+        self.jump_tokens = 0
 
     # -- admission ------------------------------------------------------------
 
@@ -627,13 +664,14 @@ class TorchEngine:
     def _cache_scales(self):
         return (self.k_scales, self.v_scales) if self.quant_cache else None
 
-    def _step_body(self) -> torch.Tensor:
+    def _step_body(self, masked: bool = False) -> torch.Tensor:
         """One decode step of every slot on the static state, in place:
         each slot's new K/V row, the sampled token into ``last_tokens`` and
         the history, ``lengths`` + 1 (clamped at the cache end, inactive
-        slots too). Returns the step's logits [S, V]. What the eager loop
-        runs and a CUDA graph captures: it reads nothing back and branches
-        on no tensor."""
+        slots too); ``masked`` adds ``step_mask`` to the logits before
+        sampling (the JAX ``_decode_body``'s mask). Returns the logits [S,
+        V] sampled from. What the eager loop runs and a CUDA graph
+        captures: it reads nothing back and branches on no tensor."""
         if self.paged:
             logits = model.decode_step_paged(
                 self.params, self.cfg, self.last_tokens, self.lengths,
@@ -646,6 +684,8 @@ class TorchEngine:
                 self.k_pool, self.v_pool, active=self.active_dev,
                 cache_scales=self._cache_scales(),
             )
+        if masked:
+            logits = logits + self.step_mask
         sampling.sample(logits, self.generator, self.temps, self.top_ps,
                         out=self.last_tokens)
         if self.track_history:
@@ -671,10 +711,7 @@ class TorchEngine:
         ok = (self.temps < sampling.GREEDY_EPS) & self.active_dev
         drafts = torch.where(ok[:, None], drafts, torch.full_like(drafts, -1))
         feed = torch.cat([self.last_tokens[:, None], drafts], dim=1)
-        logits = model.verify_step(
-            self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
-            active=self.active_dev, cache_scales=self._cache_scales(),
-        )
+        logits = self._verify_forward(feed)
         g = logits.argmax(dim=-1)  # [S, K+1]
         a = spec.accept_counts(drafts, g)  # [S] in [0, K]
         # row 0 is a plain decode step's logits; sample() takes the argmax
@@ -691,6 +728,53 @@ class TorchEngine:
         torch.gather(g, 1, a[:, None], out=self.last_tokens[:, None])
         self.lengths.copy_(torch.clamp(self.lengths + counts, max=C - 1))
         return g, counts, logits
+
+    def _verify_forward(self, feed: torch.Tensor) -> torch.Tensor:
+        """The multi-token forward of ``feed`` [S, W] ([last token, W-1
+        drafted or forced tokens]) over the engine's cache, its rows
+        written in place (the JAX ``_verify_feed``): ``verify_step_paged``
+        through ``tables_dev`` or ``verify_step``. Returns logits [S, W,
+        V]."""
+        if self.paged:
+            return model.verify_step_paged(
+                self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
+                self.tables_dev, active=self.active_dev, cache_scales=self._cache_scales())
+        return model.verify_step(
+            self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
+            active=self.active_dev, cache_scales=self._cache_scales())
+
+    def _jump_body(self, kb: int) -> torch.Tensor:
+        """One jump-ahead dispatch at bucket ``kb`` on the staged operands
+        (the twin of the JAX ``_jump_impl``): a slot with ``counts[s] = c >
+        0`` feeds [last token, forced[s, :c-1]] (and the padding after it)
+        through the verify forward, acceptance pinned to all: its K/V rows
+        land as c masked steps would leave them, ``last_tokens`` becomes
+        ``forced[s, c-1]`` (the pending token, written by the next
+        dispatch), ``lengths`` advances by c, clamped at C-1, and the run
+        goes into the history at columns lengths+1 .. lengths+kb. A slot
+        with ``counts == 0`` keeps its length, last token and history (its
+        row writes land at or past its length, where the next dispatch
+        rewrites them); nothing is sampled, so the generator is untouched.
+        Returns the verify logits [S, kb+1, V], which serve nothing. The
+        contract of ``_step_body``."""
+        S, C = self.num_slots, self.max_context
+        ops_ = self._jump_ops.dev
+        counts, forced = ops_[:S], ops_[S:S + S * kb].view(S, kb)
+        feed = torch.cat([self.last_tokens[:, None], forced], dim=1)
+        logits = self._verify_forward(feed)
+        jumped = counts > 0
+        new_last = torch.where(jumped, feed.gather(1, counts[:, None])[:, 0],
+                               self.last_tokens)
+        if self.track_history:
+            # inactive and non-jumping slots write the sacrificial last column
+            steps = self._columns[None, :kb]
+            hidx = torch.where((self.active_dev & jumped)[:, None],
+                               self.lengths.long()[:, None] + 1 + steps,
+                               torch.full_like(steps, self.history.shape[1] - 1))
+            self.history[self._slot_ids[:, None], hidx] = forced
+        self.last_tokens.copy_(new_last)
+        self.lengths.copy_(torch.clamp(self.lengths + counts, max=C - 1))
+        return logits
 
     def _dispatcher(self, key, body, eager: bool, admission: bool = False):
         """What runs one dispatch: ``body`` itself on the CPU or when
@@ -733,7 +817,8 @@ class TorchEngine:
 
     def _workspace_launches(self) -> List[Tuple[int, int, int]]:
         """The split launches of this engine (``workspace_launches``): the
-        decode attention, the verify attention where it speculates, and a
+        decode attention, the verify attention of a speculative round or a
+        jump, and a
         chunk of the prefix hit's rows (``prefill_chunk_default``, the
         batcher's default chunk), or of the larger chunk ``warmup`` was
         given."""
@@ -754,8 +839,8 @@ class TorchEngine:
     def _reserve_workspaces(self) -> None:
         """Make the current stream's split workspace at the largest launch
         this engine makes (single-query attention over the whole context;
-        with speculation, the verify attention of the longest draft
-        spec_step takes; a chunk of the admission, B = 1 and T = its rows)
+        the verify attention of the longest draft spec_step takes, or of
+        the largest jump; a chunk of the admission, B = 1 and T = its rows)
         and its split-K ticket counters, before a capture holds their
         addresses."""
         dev = self.device
@@ -838,6 +923,25 @@ class TorchEngine:
             with self._lock:
                 self._dispatcher("step", self._step_body, eager=False)
 
+    def capture_masked(self) -> None:
+        """Ensure the masked step's graph exists without dispatching (the
+        twin of the JAX ``compile_masked_fn``); nothing to do off CUDA."""
+        if self.graphs.enabled:
+            with self._lock:
+                self._dispatcher("masked", functools.partial(self._step_body, True),
+                                 eager=False)
+
+    def capture_jump(self, k_bucket: int) -> None:
+        """Ensure the jump graph of bucket ``k_bucket`` exists without
+        dispatching (the twin of the JAX ``compile_jump_fn``); nothing to do
+        off CUDA."""
+        if k_bucket not in JUMP_BUCKETS:
+            raise ValueError(f"jump bucket {k_bucket} not in {JUMP_BUCKETS}")
+        if self.graphs.enabled:
+            with self._lock:
+                self._dispatcher(("jump", k_bucket),
+                                 functools.partial(self._jump_body, k_bucket), eager=False)
+
     def capture_spec(self, draft_len: int = SPEC_DRAFT_LEN, ngram: int = SPEC_NGRAM) -> None:
         """Ensure the round graph for (draft_len, ngram) exists without
         dispatching (the twin of the JAX ``compile_spec_fn``); nothing to do
@@ -863,12 +967,40 @@ class TorchEngine:
         kernels issued one by one. The serving path never calls it."""
         return self._steps(n_steps, eager=True)
 
-    def _steps(self, n_steps: int, eager: bool) -> np.ndarray:
+    def step_masked(self, rows) -> np.ndarray:
+        """One batched decode step whose logits get an ADDITIVE mask before
+        sampling (grammar-constrained decoding, ``jsonmode.py``): ``rows``
+        maps slot -> [vocab] f32 row (0 = allowed, ``jsonmode.NEG_INF`` =
+        forbidden; a device tensor, a host tensor or a numpy array), copied
+        into ``step_mask`` on the device; every other slot decodes with a
+        zero row. Returns tokens [1, num_slots]. On CUDA one replay of the
+        "masked" graph."""
+        return self._steps(1, eager=False, rows=rows)
+
+    def step_masked_eager(self, rows) -> np.ndarray:
+        """``step_masked`` through the eager body (see ``step_eager``)."""
+        return self._steps(1, eager=True, rows=rows)
+
+    def _write_mask(self, rows) -> None:
+        """Copy ``rows`` into ``step_mask`` and zero the rows set before
+        that ``rows`` leaves out. Caller holds the lock."""
+        for s in self._mask_rows - set(rows):
+            self.step_mask[s].zero_()
+        for s, row in rows.items():
+            self.step_mask[s].copy_(torch.as_tensor(row))
+        self._mask_rows = set(rows)
+
+    def _steps(self, n_steps: int, eager: bool, rows=None) -> np.ndarray:
         with self._lock:
             if self.paged:
                 self._back_active_slots(n_steps)
                 self._stage_tables()
-            run = self._dispatcher("step", self._step_body, eager)
+            if rows is None:
+                run = self._dispatcher("step", self._step_body, eager)
+            else:
+                self._write_mask(rows)
+                run = self._dispatcher("masked", functools.partial(self._step_body, True),
+                                       eager)
             out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
                               device=self.device)
             for i in range(n_steps):
@@ -880,6 +1012,64 @@ class TorchEngine:
             )
         return out.cpu().numpy()
 
+    def jump_step(self, forced: np.ndarray, counts: np.ndarray) -> None:
+        """Append grammar-FORCED token runs in ONE multi-token dispatch
+        (compressed-FSM jump-ahead; the batcher's constrained tick).
+
+        ``forced`` [num_slots, k] holds each jumping slot's run (padded
+        past its count); ``counts`` [num_slots] in [0, k], 0 marking a slot
+        this dispatch must not advance. k buckets up to the smallest
+        ``JUMP_BUCKETS`` size; a longer run raises. The caller clamps each
+        run so ``slot_length + counts[s] <= max_context - 2`` and emits the
+        run tokens itself: they ARE the dispatch's output. Over the pool
+        ``kb + 1`` rows of every active slot are backed first, so
+        PoolExhausted leaves the state untouched. On CUDA one replay of
+        the bucket's graph (``_jump_body``)."""
+        self._jump(forced, counts, eager=False)
+
+    def jump_step_eager(self, forced: np.ndarray, counts: np.ndarray) -> None:
+        """``jump_step`` through the eager body (see ``step_eager``)."""
+        self._jump(forced, counts, eager=True)
+
+    def _jump(self, forced: np.ndarray, counts: np.ndarray, eager: bool) -> None:
+        forced = np.asarray(forced)
+        k = int(forced.shape[1])
+        kb = next((b for b in JUMP_BUCKETS if b >= k), None)
+        if kb is None:
+            raise ValueError(f"jump run of {k} tokens exceeds the largest bucket "
+                             f"({JUMP_BUCKETS[-1]}); clamp runs to jump_max")
+        S = self.num_slots
+        counts = np.asarray(counts, dtype=np.int64)
+        with self._lock:
+            if self.paged:
+                self._back_active_slots(kb + 1)
+                self._stage_tables()
+            host = self._jump_ops.host
+            host[:S] = counts
+            block = host[S:S + S * kb].reshape(S, kb)
+            block[:] = 0
+            block[:, :k] = forced
+            self._jump_ops.push(S + S * kb)
+            self.last_logits = self._dispatcher(
+                ("jump", kb), functools.partial(self._jump_body, kb), eager)()
+            self.decode_steps += 1
+            self.jump_dispatches += 1
+            self.jump_tokens += int(counts.sum())
+            self._host_lengths = np.minimum(self._host_lengths + counts,
+                                            self.max_context - 1)
+
+    def force_pending_token(self, slot: int, token_id: int) -> None:
+        """Replace ``slot``'s pending (sampled, not yet consumed) token.
+        Grammar-constrained requests use it right after their admission:
+        the first token is sampled unmasked, so the batcher overwrites it
+        with the grammar's forced opener ("{") before any decode dispatch
+        consumes it, in ``last_tokens`` and at the history's column of the
+        slot's length."""
+        with self._lock:
+            self.last_tokens[slot] = token_id
+            if self.track_history:
+                self.history[slot, int(self._host_lengths[slot])] = token_id
+
     def _check_spec(self, draft_len: int, ngram: int) -> None:
         # the upper bound keeps active slots' history writes strictly below
         # the sacrificial last pad column reserved for inactive slots
@@ -889,9 +1079,9 @@ class TorchEngine:
             raise ValueError("ngram must be >= 1")
         if not self.spec_supported:
             raise ValueError(
-                "speculative decoding is unsupported over the paged pool "
-                "(verify_step_paged is not ported); serve the dense cache, "
-                "paged_pool_rows=None"
+                "speculative decoding is unsupported over the paged pool (its "
+                "round over verify_step_paged is not ported); serve the dense "
+                "cache, paged_pool_rows=None"
             )
         if not self.track_history:
             raise ValueError(
@@ -991,12 +1181,17 @@ class TorchEngine:
             out["spec_tokens_per_round"] = round(
                 self.spec_tokens / max(self.spec_slot_rounds, 1), 2)
             out["spec_accepted"] = max(self.spec_tokens - self.spec_slot_rounds, 0)
+        if self.jump_dispatches:
+            out["jump_dispatches"] = self.jump_dispatches
+            out["jump_tokens"] = self.jump_tokens
         return out
 
-    def warmup(self, prefill_chunk: Optional[int] = None) -> None:
+    def warmup(self, prefill_chunk: Optional[int] = None, masked_step: bool = False) -> None:
         """On a CUDA engine, build and load the kernel library, then capture
         the decode step's graph and, where the engine speculates, the round
-        graph of spec_step's defaults, then the admission graphs at the
+        graph of spec_step's defaults, with ``masked_step`` the masked
+        step's graph and, where ``jump_ahead_enabled``, the jump graph of
+        each of ``JUMP_BUCKETS``, then the admission graphs at the
         batcher's ``prefill_chunk`` (None: ``prefill_chunk_default``, 0: no
         chunk graphs; ``capture_admission``): the twin of the JAX
         ``warmup``, which compiles every serving graph behind the readiness
@@ -1016,6 +1211,11 @@ class TorchEngine:
             self._reserve_workspaces()
         self.capture_step()
         self.capture_spec()
+        if masked_step:  # json-mode deployments dispatch step_masked
+            self.capture_masked()
+            if jump_ahead_enabled(self.cfg):
+                for k in JUMP_BUCKETS:
+                    self.capture_jump(k)
         self.capture_admission(prefill_chunk)
         log.info("%s: kernels and %d graphs (%d of admission, %d B of shared pool) ready "
                  "in %.1fs", self.cfg.name, self.graphs.captures, self.admission_graphs(),

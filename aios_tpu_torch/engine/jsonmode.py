@@ -1,0 +1,684 @@
+"""Grammar-constrained JSON decoding: byte-level pushdown automaton +
+per-state token masks.
+
+A copy of ``aios_tpu/engine/jsonmode.py`` (numpy only): the automaton,
+``token_bytes_table``, ``JsonMaskCache``, ``JsonConstraint`` and its
+``forced_run``, giving the same mask, closing and distance rows, singleton
+tokens and forced runs for the same vocabulary. Two differences:
+
+  * ``device_row`` and ``zeros_row`` hold torch tensors on the cache's
+    ``device`` (the engine's), not JAX arrays; as in the JAX module only
+    the persistent per-state rows are cached there, at most 512 of them;
+  * ``token_bytes_table`` reads the port's ``ByteTokenizer``,
+    ``SentencePieceBPE`` and ``ByteLevelBPE``; the JAX module's branch for
+    a Hugging Face tokenizer is left out, since the port serves none, and
+    any other tokenizer raises.
+
+The reference forces ``response_format={"type": "json_object"}`` on every
+non-streaming local inference and relies on llama-server's GBNF grammar
+engine to make the output parse. Here a bounded-depth JSON automaton over
+BYTES is compiled lazily into per-state vocabulary masks that the decode
+step adds to the logits (``TorchEngine.step_masked``): sampling can only
+pick tokens every byte of which keeps the output inside the JSON grammar.
+
+Design notes:
+  * the automaton lives on the HOST; the device sees only the [slots,
+    vocab] additive fp32 mask of the masked step, a static buffer of its
+    CUDA graph into which the batcher copies the rows of the constrained
+    slots (unconstrained slots keep zero rows);
+  * masks are cached per automaton state. Generations revisit a small set
+    of states (in-string, after-comma, ...), so the vocab walk amortizes to
+    near zero after the first few steps; the cache is shared by every
+    request on the model;
+  * token -> bytes comes from the tokenizer (``token_bytes_table``): GPT-2
+    byte-level vocabs map through the byte<->unicode table, SentencePiece
+    vocabs through the ▁ convention and <0xNN> byte tokens; control/special
+    tokens get None and are never sampled inside JSON.
+
+States are small tuples (phase, stack, ...); ``stack`` is a string of
+'o'/'a' frames capped at ``max_depth`` (deeper nesting is simply
+disallowed — the model must close something first).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .tokenizer import (
+    SPIECE_SPACE,
+    TOKEN_TYPE_BYTE,
+    TOKEN_TYPE_CONTROL,
+    TOKEN_TYPE_USER_DEFINED,
+    ByteLevelBPE,
+    ByteTokenizer,
+    SentencePieceBPE,
+)
+
+NEG_INF = -1e30
+_WS = frozenset(b" \t\n\r")
+_HEX = frozenset(b"0123456789abcdefABCDEF")
+_DIGITS = frozenset(b"0123456789")
+# number sub-states where the number is a complete value
+_NUM_DONE = frozenset("0if E")  # '0'=lone zero, 'i'=int, 'f'=frac, 'E'=exp
+
+State = Tuple
+
+
+def start_state(require_object: bool = True) -> State:
+    """Initial state: json_object mode only admits whitespace then '{'."""
+    return ("V0", "") if require_object else ("V", "")
+
+
+def is_terminal(state: State) -> bool:
+    """EOS is legal here: one complete top-level value, nothing open."""
+    return state[0] == "E" and state[1] == ""
+
+
+def next_state(state: State, b: int, max_depth: int = 16,
+               compact: bool = False) -> Optional[State]:
+    """One byte transition; None = the byte leaves the grammar.
+
+    ``compact`` disallows inter-element whitespace (string CONTENT keeps
+    its spaces): the grammar then admits exactly canonical compact JSON.
+    Generation-side callers (the batcher's mask caches) use it so that
+    structural positions become SINGLETON states — the compressed-FSM
+    property jump-ahead decoding collapses into multi-token runs — and
+    so a constrained model can never dither on whitespace at the budget
+    edge. Acceptor-side callers keep the default lenient grammar."""
+    phase, stack = state[0], state[1]
+
+    # -- value-complete: expect ',' / closer / ws (or nothing at top level)
+    if phase == "E":
+        if b in _WS:
+            return None if compact else state
+        if not stack:
+            return None
+        top = stack[-1]
+        if b == ord(","):
+            return ("K1", stack) if top == "o" else ("V", stack)
+        if b == ord("}") and top == "o":
+            return ("E", stack[:-1])
+        if b == ord("]") and top == "a":
+            return ("E", stack[:-1])
+        return None
+
+    # -- expecting a value ('V0' top-level object-only; 'A' value-or-']')
+    if phase in ("V", "V0", "A"):
+        if b in _WS:
+            return None if compact else state
+        if phase == "A" and b == ord("]"):
+            return ("E", stack[:-1])
+        if b == ord("{"):
+            if phase == "A":
+                pass  # value inside array: fall through with same stack
+            if len(stack) >= max_depth:
+                return None
+            return ("K", stack + "o")
+        if phase == "V0":
+            return None  # top level must be an object
+        if b == ord("["):
+            if len(stack) >= max_depth:
+                return None
+            return ("A", stack + "a")
+        if b == ord('"'):
+            return ("S", stack, False)
+        if b == ord("-"):
+            return ("N", stack, "-")
+        if b == ord("0"):
+            return ("N", stack, "0")
+        if b in _DIGITS:
+            return ("N", stack, "i")
+        if b == ord("t"):
+            return ("L", stack, "true", 1)
+        if b == ord("f"):
+            return ("L", stack, "false", 1)
+        if b == ord("n"):
+            return ("L", stack, "null", 1)
+        return None
+
+    # -- object: expecting a key ('K' also allows '}'; 'K1' after comma)
+    if phase in ("K", "K1"):
+        if b in _WS:
+            return None if compact else state
+        if b == ord('"'):
+            return ("S", stack, True)
+        if phase == "K" and b == ord("}"):
+            return ("E", stack[:-1])
+        return None
+
+    # -- expecting ':' after a key
+    if phase == "C":
+        if b in _WS:
+            return None if compact else state
+        if b == ord(":"):
+            return ("V", stack)
+        return None
+
+    # -- inside a string (value or key); bytes >= 0x20 except '"' and '\'
+    if phase == "S":
+        is_key = state[2]
+        if b == ord('"'):
+            return ("C", stack) if is_key else ("E", stack)
+        if b == ord("\\"):
+            return ("X", stack, is_key)
+        if b >= 0x20:  # includes UTF-8 continuation bytes
+            return state
+        return None
+
+    # -- escape after backslash
+    if phase == "X":
+        is_key = state[2]
+        if b in b'"\\/bfnrt':
+            return ("S", stack, is_key)
+        if b == ord("u"):
+            return ("U", stack, is_key, 0)
+        return None
+
+    # -- \uXXXX hex digits
+    if phase == "U":
+        is_key, n = state[2], state[3]
+        if b in _HEX:
+            if n == 3:
+                return ("S", stack, is_key)
+            return ("U", stack, is_key, n + 1)
+        return None
+
+    # -- literal true/false/null
+    if phase == "L":
+        lit, pos = state[2], state[3]
+        if b == ord(lit[pos]):
+            if pos + 1 == len(lit):
+                return ("E", stack)
+            return ("L", stack, lit, pos + 1)
+        return None
+
+    # -- number; sub: '-', '0' (lone zero), 'i' int digits, '.', 'f' frac
+    #    digits, 'e', 's' exp sign, 'E' exp digits
+    if phase == "N":
+        sub = state[2]
+        if sub == "-":
+            if b == ord("0"):
+                return ("N", stack, "0")
+            if b in _DIGITS:
+                return ("N", stack, "i")
+            return None
+        if sub in ("0", "i"):
+            if sub == "i" and b in _DIGITS:
+                return state
+            if b == ord("."):
+                return ("N", stack, ".")
+            if b in (ord("e"), ord("E")):
+                return ("N", stack, "e")
+        if sub == ".":
+            if b in _DIGITS:
+                return ("N", stack, "f")
+            return None
+        if sub == "f":
+            if b in _DIGITS:
+                return state
+            if b in (ord("e"), ord("E")):
+                return ("N", stack, "e")
+        if sub == "e":
+            if b in (ord("+"), ord("-")):
+                return ("N", stack, "s")
+            if b in _DIGITS:
+                return ("N", stack, "E")
+            return None
+        if sub == "s":
+            if b in _DIGITS:
+                return ("N", stack, "E")
+            return None
+        if sub == "E" and b in _DIGITS:
+            return state
+        # a complete number is terminated by whatever may follow a value
+        if sub in _NUM_DONE:
+            return next_state(("E", stack), b, max_depth, compact)
+        return None
+
+    return None
+
+
+def run_bytes(state: State, data: bytes, max_depth: int = 16,
+              compact: bool = False) -> Optional[State]:
+    for b in data:
+        state = next_state(state, b, max_depth, compact)
+        if state is None:
+            return None
+    return state
+
+
+# ---------------------------------------------------------------------------
+# token byte tables
+# ---------------------------------------------------------------------------
+
+
+def token_bytes_table(tokenizer, vocab_size: int) -> List[Optional[bytes]]:
+    """Per-token raw bytes for mask computation; None = never sample inside
+    JSON (control/special tokens, unknowable pieces)."""
+
+    table: List[Optional[bytes]] = [None] * vocab_size
+    if isinstance(tokenizer, ByteLevelBPE):
+        for i, tok in enumerate(tokenizer.tokens[:vocab_size]):
+            typ = (
+                tokenizer.token_types[i]
+                if i < len(tokenizer.token_types)
+                else 1
+            )
+            if typ in (TOKEN_TYPE_CONTROL, TOKEN_TYPE_USER_DEFINED):
+                continue
+            table[i] = bytes(
+                tokenizer._u2b[c] for c in tok if c in tokenizer._u2b
+            )
+    elif isinstance(tokenizer, SentencePieceBPE):
+        for i, tok in enumerate(tokenizer.tokens[:vocab_size]):
+            typ = (
+                tokenizer.token_types[i]
+                if i < len(tokenizer.token_types)
+                else 1
+            )
+            if typ == TOKEN_TYPE_CONTROL:
+                continue
+            if typ == TOKEN_TYPE_BYTE:
+                table[i] = bytes([int(tok[3:-1], 16)])
+            else:
+                table[i] = tok.replace(SPIECE_SPACE, " ").encode("utf-8")
+    elif isinstance(tokenizer, ByteTokenizer):
+        for i in range(min(256, vocab_size)):
+            table[i] = bytes([i])
+    else:
+        raise TypeError(
+            f"no token byte table for {type(tokenizer).__name__}: the port's "
+            "constrained decoding reads ByteTokenizer, SentencePieceBPE and "
+            "ByteLevelBPE vocabularies")
+    return table
+
+
+def distance_to_terminal(state: State) -> int:
+    """Minimal BYTES to reach a terminal state — an upper bound on the
+    tokens a completion needs (every token carries >= 1 byte). The budget
+    feasibility gate and the closing walk both rely on this being exact:
+    an underestimate admits tokens whose completion cannot fit the
+    remaining budget (observed: truncation inside a \\uXXXX escape)."""
+    phase, stack = state[0], state[1]
+    d = len(stack)  # one closer byte per open container
+    if phase == "E":
+        return d
+    if phase == "N":
+        return d if state[2] in _NUM_DONE else d + 1
+    if phase in ("S", "X", "U"):
+        is_key = state[2]
+        # finish the string itself...
+        if phase == "S":
+            extra = 1  # closing quote
+        elif phase == "X":
+            extra = 2  # escape char + closing quote
+        else:  # U: remaining hex digits + closing quote
+            extra = (4 - state[3]) + 1
+        # ...keys additionally need ':' and a minimal value ('0')
+        return d + extra + (2 if is_key else 0)
+    if phase == "C":
+        return d + 2  # ':' + minimal value
+    if phase == "K1":
+        return d + 4  # '""' + ':' + minimal value (empty key is legal)
+    if phase == "K":
+        return d  # '}' closes (counted in the stack)
+    if phase == "L":
+        return d + len(state[2]) - state[3]
+    if phase == "V0":
+        return d + 2  # '{}'
+    if phase in ("V", "A"):
+        return d + (0 if phase == "A" else 1)  # A may close; V needs '0'
+    return d + 1
+
+
+class JsonMaskCache:
+    """Per-model shared cache: automaton state -> additive logits row."""
+
+    def __init__(
+        self,
+        token_bytes: List[Optional[bytes]],
+        eos_id: Optional[int],
+        require_object: bool = True,
+        max_depth: int = 16,
+        byte_matrix=None,  # prebuilt (mat, lens) shared across caches
+        compact: bool = False,  # canonical compact JSON (no structural ws)
+        device=None,  # where device_row puts rows (the engine's device)
+    ) -> None:
+        self.device = torch.device(device or "cpu")
+        self.token_bytes = token_bytes
+        self.vocab_size = len(token_bytes)
+        self.eos_id = eos_id
+        self.require_object = require_object
+        self.max_depth = max_depth
+        self.compact = compact
+        self._masks: Dict[State, np.ndarray] = {}
+        self._closing: Dict[State, np.ndarray] = {}
+        self._dist_rows: Dict[State, np.ndarray] = {}
+        # singleton cache: state -> the ONE admissible token id, or None.
+        # Jump-ahead decoding (engine/batching.py) chains these into
+        # multi-token forced runs emitted in a single dispatch.
+        self._singleton: Dict[State, Optional[int]] = {}
+        self._dev: Dict[int, object] = {}  # id(np row) -> (row, device)
+        self._row_state: object = None  # state of the last mask_row call
+        # vectorized-walk precompute: padded byte matrix + global automaton
+        # state registry (row construction is numpy over the whole vocab
+        # per byte position, not a python loop per token — a fresh state's
+        # row costs ~ms even on 150k vocabs, cheap enough for the
+        # scheduler thread)
+        if byte_matrix is not None:
+            self._byte_mat, self._byte_lens = byte_matrix
+        else:
+            lens = np.array(
+                [len(tb) if tb else 0 for tb in token_bytes], np.int32
+            )
+            lmax = int(lens.max()) if len(lens) else 1
+            mat = np.zeros((self.vocab_size, max(lmax, 1)), np.uint8)
+            for i, tb in enumerate(token_bytes):
+                if tb:
+                    mat[i, : len(tb)] = np.frombuffer(tb, np.uint8)
+            self._byte_mat = mat
+            self._byte_lens = lens
+        self._states: List[State] = []
+        self._sindex: Dict[State, int] = {}
+        self._dists: List[int] = []
+        self._trans: Dict[Tuple[int, int], int] = {}
+        # the canonical forced first token: "{" (single byte)
+        self.start_token_id: Optional[int] = None
+        for i, tb in enumerate(token_bytes):
+            if tb == b"{":
+                self.start_token_id = i
+                break
+
+    # -- grammar hooks (override for other grammars, e.g. jsonschema.py) ---
+
+    def start(self) -> State:
+        return start_state(self.require_object)
+
+    def _transition(self, state: State, b: int) -> Optional[State]:
+        return next_state(state, b, self.max_depth, self.compact)
+
+    def _terminal(self, state: State) -> bool:
+        return is_terminal(state)
+
+    def _distance(self, state: State) -> int:
+        return distance_to_terminal(state)
+
+    def run(self, state: State, data: bytes) -> Optional[State]:
+        for byte in data:
+            state = self._transition(state, byte)
+            if state is None:
+                return None
+        return state
+
+    # ----------------------------------------------------------------------
+
+    def _state_idx(self, state: State) -> int:
+        i = self._sindex.get(state)
+        if i is None:
+            i = len(self._states)
+            self._states.append(state)
+            self._sindex[state] = i
+            self._dists.append(self._distance(state))
+        return i
+
+    def _walk_vocab(self, state: State) -> np.ndarray:
+        """Run every token's bytes through the automaton AT ONCE: returns
+        [vocab] int32 of final global state indices (-1 = leaves the
+        grammar). One numpy pass per byte position; per-(state, byte)
+        transitions memoized globally across rows."""
+        cur = np.full((self.vocab_size,), self._state_idx(state), np.int32)
+        cur[self._byte_lens == 0] = -1  # specials / empties: never allowed
+        for p in range(self._byte_mat.shape[1]):
+            act = (cur >= 0) & (p < self._byte_lens)
+            if not act.any():
+                break
+            keys = cur[act] * 256 + self._byte_mat[act, p].astype(np.int32)
+            uniq = np.unique(keys)
+            dest = np.empty(len(uniq), np.int32)
+            for j, k in enumerate(uniq):
+                si, b = divmod(int(k), 256)
+                t = self._trans.get((si, b))
+                if t is None:
+                    ns = self._transition(self._states[si], b)
+                    t = -1 if ns is None else self._state_idx(ns)
+                    self._trans[(si, b)] = t
+                dest[j] = t
+            cur[act] = dest[np.searchsorted(uniq, keys)]
+        return cur
+
+    def mask_row(self, state: State) -> np.ndarray:
+        """fp32 [vocab]: 0 where the token keeps the output in-grammar,
+        NEG_INF elsewhere; EOS unmasked only at terminal states."""
+        row = self._masks.get(state)
+        if row is not None:
+            return row
+        final = self._walk_vocab(state)
+        row = np.where(final >= 0, np.float32(0.0), np.float32(NEG_INF))
+        if self.eos_id is not None and self._terminal(state):
+            row[self.eos_id] = 0.0
+        if not (row == 0.0).any():
+            # dead end (can't happen from reachable states — whitespace and
+            # closers are always single-byte tokens in real vocabs); fail
+            # open rather than forcing argmax over -inf everywhere
+            row[:] = 0.0
+        self._masks[state] = row
+        return row
+
+    def closing_row(self, state: State) -> np.ndarray:
+        """Like mask_row but keeps only the allowed tokens whose resulting
+        state minimizes distance_to_terminal — used when a request's token
+        budget is nearly spent, so the output CLOSES instead of truncating
+        mid-structure (every closing step strictly walks toward terminal:
+        '}'/']' pop, '\"' ends strings, digits complete numbers). At a
+        terminal state only EOS survives."""
+        row = self._closing.get(state)
+        if row is not None:
+            return row
+        if self.eos_id is not None and self._terminal(state):
+            row = np.full((self.vocab_size,), NEG_INF, np.float32)
+            row[self.eos_id] = 0.0
+            self._closing[state] = row
+            return row
+        fd = self.dist_row(state)
+        row = np.full((self.vocab_size,), NEG_INF, np.float32)
+        if fd.min() < np.iinfo(np.int32).max:
+            row[fd == fd.min()] = 0.0
+        else:
+            row[:] = 0.0  # same fail-open rule as mask_row
+        self._closing[state] = row
+        return row
+
+    def dist_row(self, state: State) -> np.ndarray:
+        """int32 [vocab]: distance-to-terminal of the state each token
+        leads to (INT32_MAX for out-of-grammar tokens). The budget
+        feasibility gate reads this; cached per state."""
+        cached = self._dist_rows.get(state)
+        if cached is not None:
+            return cached
+        final = self._walk_vocab(state)
+        valid = final >= 0
+        dists = np.asarray(self._dists, np.int32)
+        fd = np.where(
+            valid, dists[np.maximum(final, 0)], np.iinfo(np.int32).max
+        ).astype(np.int32)
+        self._dist_rows[state] = fd
+        return fd
+
+    def effective_row(self, state: State, remaining: Optional[int] = None
+                      ) -> np.ndarray:
+        """The row a constrained dispatch actually applies from ``state``.
+        With ``remaining`` (token budget left), tokens are additionally
+        gated on BUDGET FEASIBILITY: a token is allowed only if the state
+        it leads to can still complete within remaining-1 more tokens
+        (distances are bytes, an upper bound on tokens, so feasibility is
+        conservative). By induction the output always completes once the
+        budget ever covered the current distance; a budget infeasible
+        from the start degrades to the pure min-distance closing walk."""
+        self._row_state = state  # device_row cacheability hint
+        base = self.mask_row(state)
+        if remaining is None:
+            return base
+        fd = self.dist_row(state)
+        finite = fd[fd < np.iinfo(np.int32).max]
+        if finite.size and int(finite.min()) > remaining - 1:
+            # nothing fits: close as fast as possible (margin was blown
+            # before the constraint started, e.g. max_tokens < minimal
+            # completion)
+            return self.closing_row(state)
+        if finite.size and int(finite.max()) <= remaining - 1:
+            return base  # every in-grammar token fits: cached row as-is
+        row = np.where(
+            (base == 0.0) & (fd <= remaining - 1),
+            np.float32(0.0),
+            np.float32(NEG_INF),
+        )
+        if self.eos_id is not None and self._terminal(state):
+            row[self.eos_id] = 0.0
+        return row
+
+    def singleton_token(self, state: State) -> Optional[int]:
+        """The single admissible token from ``state``, or None when the
+        mask admits several (or fail-opened). Singleton states are where
+        the grammar FORCES the next token — schema key literals, ``":``,
+        ``",``, closing braces — and chains of them are emitted as one
+        jump-ahead run instead of one masked dispatch each."""
+        tok = self._singleton.get(state, -1)
+        if tok != -1:
+            return tok
+        row = self.mask_row(state)
+        nz = np.flatnonzero(row == 0.0)
+        tok = int(nz[0]) if nz.size == 1 else None
+        self._singleton[state] = tok
+        return tok
+
+    def device_row(self, row: np.ndarray) -> torch.Tensor:
+        """Device-resident copy of a mask row: the batcher copies it into
+        the masked step's static [slots, vocab] mask on the device, so
+        steady-state constrained decoding moves no mask bytes over PCIe.
+
+        The cache entry PINS the numpy row (id()-keyed lookups are only
+        sound while the array is alive — a temporary row's recycled id
+        must never alias a stale device mask) and the dict is bounded:
+        budget-hybrid rows near the end of a generation are fresh arrays,
+        one per step."""
+        key = id(row)
+        got = self._dev.get(key)
+        if got is not None and got[0] is row:
+            return got[1]
+        dev = torch.from_numpy(row).to(self.device)
+        # only PERSISTENT rows (the per-state entries of _masks/_closing)
+        # earn a cache slot — budget-hybrid rows are one-shot temporaries
+        # and would pin host+device memory until the wholesale clear
+        if row is self._masks.get(self._row_state) or row is (
+            self._closing.get(self._row_state)
+        ):
+            if len(self._dev) > 512:
+                self._dev.clear()
+            self._dev[key] = (row, dev)
+        return dev
+
+    def zeros_row(self) -> torch.Tensor:
+        """Device-resident all-zeros (unconstrained) row, for single-row
+        callers (tests, external grammars); the batcher leaves the rows of
+        unconstrained slots at zero in the masked step's own buffer."""
+        got = self._dev.get("zeros")
+        if got is None:
+            got = torch.zeros((self.vocab_size,), dtype=torch.float32, device=self.device)
+            self._dev["zeros"] = got
+        return got
+
+
+class JsonConstraint:
+    """Per-request automaton cursor over a shared JsonMaskCache."""
+
+    def __init__(self, cache: JsonMaskCache) -> None:
+        self.cache = cache
+        self.state: State = cache.start()
+        self.failed = False
+
+    def mask_row(self, remaining: Optional[int] = None) -> np.ndarray:
+        """Mask for the next step — ``JsonMaskCache.effective_row`` at the
+        cursor's state (budget-feasibility gating documented there)."""
+        return self.cache.effective_row(self.state, remaining)
+
+    def forced_run(
+        self,
+        max_len: int,
+        remaining: Optional[int] = None,
+        stop_ids: Tuple[int, ...] = (),
+    ) -> List[int]:
+        """Longest chain of grammar-FORCED tokens from the current state
+        (compressed-FSM jump-ahead): each step's effective mask admits
+        exactly one token, so ANY sampler must emit it — the batcher
+        emits the whole run host-side and appends its KV in one
+        multi-token dispatch (engine.jump_step) instead of len(run)
+        masked single-token dispatches. Does NOT advance the cursor
+        (``advance`` each token after the dispatch lands).
+
+        Detection stops — conservatively, keeping token streams identical
+        to the per-step path — when the budget-feasibility gate would
+        alter the cached base row, at EOS/stop tokens, or at ``max_len``.
+        """
+        if self.failed or max_len <= 0:
+            return []
+        out: List[int] = []
+        cache, state, rem = self.cache, self.state, remaining
+        imax = np.iinfo(np.int32).max
+        while len(out) < max_len:
+            if rem is not None:
+                fd = cache.dist_row(state)
+                finite = fd[fd < imax]
+                if not finite.size or int(finite.max()) > rem - 1:
+                    break  # budget gating kicks in: per-step path decides
+            tok = cache.singleton_token(state)
+            if tok is None:
+                break
+            out.append(tok)
+            if tok == cache.eos_id or tok in stop_ids:
+                break
+            tb = (
+                cache.token_bytes[tok]
+                if 0 <= tok < cache.vocab_size
+                else None
+            )
+            if not tb:
+                break  # byteless singleton: the cursor would freeze
+            nxt = cache.run(state, tb)
+            if nxt is None:
+                break  # unreachable for an admitted token; fail safe
+            state = nxt
+            if rem is not None:
+                rem -= 1
+        return out
+
+    def device_mask(self, remaining: Optional[int] = None):
+        """Device-resident mask row for the next step (no per-step PCIe)."""
+        return self.cache.device_row(self.mask_row(remaining))
+
+    def advance(self, token_id: int) -> None:
+        """Feed an emitted token. EOS (or any masked-out id, which only a
+        raced/failed state produces) freezes the cursor."""
+        if self.failed:
+            return
+        if token_id == self.cache.eos_id:
+            return
+        tb = (
+            self.cache.token_bytes[token_id]
+            if 0 <= token_id < self.cache.vocab_size
+            else None
+        )
+        if not tb:
+            self.failed = True
+            return
+        nxt = self.cache.run(self.state, tb)
+        if nxt is None:
+            self.failed = True
+            return
+        self.state = nxt
+
+    @property
+    def satisfied(self) -> bool:
+        return not self.failed and self.cache._terminal(self.state)

@@ -24,7 +24,8 @@ f32}, with fused ``w_qkv`` and ``w_gateup``. The KV cache is a paged pool
 [L, N, P, KH, D] or a dense slot cache [L, S, C, KH, D], bf16 (or f32 in
 tests), or int8 with per-(row, kv head) f32 scales beside it
 (``cache_scales``). ``prefill_chunk`` and ``prefill_chunk_paged`` admit a
-long prompt a chunk at a time into either cache. Every entry
+long prompt a chunk at a time into either cache; ``verify_step`` and
+``verify_step_paged`` score T tokens of every slot in one forward. Every entry
 point takes ``kernels``: True runs the ops wrappers (the CUDA kernels on
 CUDA tensors, their plain twins on CPU tensors), False calls the plain
 ``*_reference`` functions by name — how a caller holds the kernel path
@@ -121,7 +122,8 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
     """Every way ``cfg`` breaks the contract of a CUDA kernel on the path it
     would be served on: K2 for prefill; K3 (bf16 pool) or K4 (int8 pool)
     for a paged decode, over at most ``pages_per_slot`` pages a slot, and
-    K6 or K7 for its chunked admission, or K6-K9 for the dense cache; and
+    K6 or K7 for its chunked admission and its jump-ahead dispatches
+    (``verify_step_paged``), or K6-K9 for the dense cache; and
     with ``quantize`` ("int8" or "int4")
     K1/K5 for each serving leaf, as ``_quant_leaf`` would store it. The
     limits are the ones the wrappers check. Empty when every kernel takes
@@ -144,9 +146,11 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
         if pages_per_slot > MAX_STAGED_PAGES:
             faults.append(f"paged decode attention: {pages_per_slot} pages per slot, at "
                           f"most {MAX_STAGED_PAGES}")
-        # chunked admission attends a chunk over the slot's gathered pages
-        attention("multiquery_decode_attention_int8 (K7), chunked admission" if quant_cache
-                  else "multiquery_decode_attention (K6), chunked admission",
+        # chunked admission attends a chunk over the slot's gathered pages,
+        # a jump every slot's forced run over its own
+        attention("multiquery_decode_attention_int8 (K7), chunked admission and jump"
+                  if quant_cache else
+                  "multiquery_decode_attention (K6), chunked admission and jump",
                   DENSE_HEAD_DIMS, DENSE_MAX_GROUP)
     else:
         attention("decode_attention and multiquery_decode_attention (K6-K9)",
@@ -419,6 +423,78 @@ def decode_step_paged(
         x = x + matmul(attn.reshape(B, 1, -1), lp["wo"], kernels)
         x = x + _mlp(x, lp, cfg, kernels)
     return _final_logits(x[:, 0], params, cfg, kernels)
+
+
+def verify_step_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] — [last_token, T-1 drafted or forced tokens]
+    lengths: torch.Tensor,  # [B] int32 — logical rows already in each slot
+    k_pool: torch.Tensor,  # [L, N, P, KH, D] — shared page pool
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,  # [B, MB] int32 — logical block -> physical page
+    active: torch.Tensor = None,  # [B] bool
+    kernels: bool = True,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """``verify_step`` over the PAGED pool; returns logits [B, T, V] in
+    fp32.
+
+    Unlike the JAX function, which returns updated pools, this writes the T
+    rows ``lengths[b] .. lengths[b]+T-1`` of every slot IN PLACE through its
+    page table (rows past the slot's C = MB*P clamp to C-1); an inactive
+    slot writes all T to the sacrificial page 0, row P-1. An int8 pool
+    (``cache_scales``, [L, N, P, KH] f32) quantizes them on write
+    (``scatter_quant``). Then each slot's logical view [B, C, KH, D] (int8:
+    and its [B, C, KH] scales) is gathered through ``tables``, as the JAX
+    function gathers it, and query t of slot b attends over the columns
+    ``<= lengths[b] + t`` inside the sliding window (an inactive slot over
+    column 0 only): ``multiquery_decode_attention`` (K6) or its int8 twin
+    (K7) with B slots, lengths ``where(active, lengths, 0)`` and strides
+    ``active``; without ``kernels`` their ``*_reference``. The caller must
+    have BACKED rows ``lengths[b] .. lengths[b]+T-1`` of every active slot.
+    Rows clamped at the cache end collide, as in ``verify_step``: callers
+    must not consume the tokens of a saturated slot."""
+    B, T = tokens.shape
+    MB = tables.shape[1]
+    P, KH, D = k_pool.shape[2], k_pool.shape[3], k_pool.shape[4]
+    C = MB * P
+    dev = tokens.device
+    if active is None:
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+    positions = lengths[:, None] + torch.arange(T, device=dev, dtype=lengths.dtype)[None, :]
+    rows = positions.clamp(max=C - 1).long()
+    pages = torch.where(active[:, None], tables.long().gather(1, rows // P),
+                        torch.zeros_like(rows))
+    offs = torch.where(active[:, None], rows % P, torch.full_like(rows, P - 1))
+    read_base = torch.where(active, lengths, torch.zeros_like(lengths))
+    strides = active.to(torch.int32)
+    t = tables.long()
+    x = params["embed"][tokens]  # [B, T, E]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if cache_scales is not None:
+        attn_fn = (ops.multiquery_decode_attention_int8 if kernels
+                   else ops.multiquery_decode_attention_int8_reference)
+    else:
+        attn_fn = (ops.multiquery_decode_attention if kernels
+                   else ops.multiquery_decode_attention_reference)
+    for i, lp in enumerate(layer_params(params)):
+        q, k_new, v_new = _project_qkv(x, lp, cfg, cos, sin, kernels)
+        k_l, v_l = k_pool[i], v_pool[i]
+        if cache_scales is not None:
+            k_s, v_s = cache_scales[0][i], cache_scales[1][i]
+            scatter_quant(k_l, k_s, pages, offs, k_new)
+            scatter_quant(v_l, v_s, pages, offs, v_new)
+            views = (k_l[t].reshape(B, C, KH, D), v_l[t].reshape(B, C, KH, D),
+                     k_s[t].reshape(B, C, KH), v_s[t].reshape(B, C, KH))
+        else:
+            k_l[pages, offs] = k_new.to(k_l.dtype)
+            v_l[pages, offs] = v_new.to(v_l.dtype)
+            views = (k_l[t].reshape(B, C, KH, D), v_l[t].reshape(B, C, KH, D))
+        attn = attn_fn(q.contiguous(), *views, read_base, strides, window=cfg.sliding_window)
+        x = x + matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
+        x = x + _mlp(x, lp, cfg, kernels)
+    return _final_logits(x, params, cfg, kernels)
 
 
 def _dense_attend(q, caches, read_base, strides, mask, cfg: ModelConfig,

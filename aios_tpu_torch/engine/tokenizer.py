@@ -10,10 +10,11 @@ routes:
   linked list of symbols (llama.cpp's SPM tokenizer), O(n log n) in the
   text's length, where the JAX class rescans every pair after each merge;
 * ``ByteLevelBPE`` pretokenizes with the standard library's ``re``: the
-  ``\\p{L}``/``\\p{N}`` classes of the JAX patterns are built from
-  ``unicodedata`` and ``\\s`` is spelled as Unicode's White_Space set (the
-  ``regex`` package's ``\\s``; ``re``'s also takes U+001C-U+001F), so the
-  port needs no ``regex``.
+  ``\\p{L}``, ``\\p{N}`` and ``\\s`` of the JAX patterns are spelled out as
+  the code point ranges the ``regex`` package matches
+  (``unicode_classes.py``, taken from ``regex`` by
+  ``tools/unicode_classes.py``; ``re``'s own ``\\s`` also takes
+  U+001C-U+001F), so the port needs no ``regex``.
 
 The HF-directory tokenizer and the checkpoint (de)serializers wait for the
 HF and prepared-checkpoint loaders.
@@ -23,9 +24,10 @@ from __future__ import annotations
 
 import heapq
 import re
-import unicodedata
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import unicode_classes
 
 # token_type values in GGUF (llama.cpp llama_token_type)
 TOKEN_TYPE_NORMAL = 1
@@ -222,24 +224,15 @@ _PRE_ALIASES = {
     "gpt-2": "gpt2",
 }
 
-# Unicode's White_Space property: what regex's \s matches
-_WHITE_SPACE = "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
 _CLASSES: Dict[str, str] = {}
-_MAX_UNICODE = 0x10FFFF
 
 
-def _category_ranges(major: str) -> str:
-    """A character-class body of every code point whose general category
-    starts with ``major`` ("L" letters, "N" numbers), as ranges."""
-    out, start = [], None
-    for cp in range(_MAX_UNICODE + 2):
-        hit = cp <= _MAX_UNICODE and unicodedata.category(chr(cp))[0] == major
-        if hit and start is None:
-            start = cp
-        elif not hit and start is not None:
-            a, b = re.escape(chr(start)), re.escape(chr(cp - 1))
-            out.append(a if start == cp - 1 else f"{a}-{b}")
-            start = None
+def _class_body(ranges: Tuple[Tuple[int, int], ...]) -> str:
+    """A character-class body (no brackets) of inclusive code point runs."""
+    out = []
+    for a, b in ranges:
+        a_, b_ = re.escape(chr(a)), re.escape(chr(b))
+        out.append(a_ if a == b else f"{a_}-{b_}")
     return "".join(out)
 
 
@@ -247,7 +240,9 @@ def _compile_pre(pattern: str) -> "re.Pattern":
     """``pattern`` (regex-package syntax) for ``re``: \\p{L}, \\p{N} and \\s
     become explicit classes, inside a bracket and outside one."""
     if not _CLASSES:
-        _CLASSES.update(L=_category_ranges("L"), N=_category_ranges("N"), s=_WHITE_SPACE)
+        _CLASSES.update(L=_class_body(unicode_classes.LETTER),
+                        N=_class_body(unicode_classes.NUMBER),
+                        s=_class_body(unicode_classes.WHITE_SPACE))
     out, i, in_class = [], 0, False
     while i < len(pattern):
         c = pattern[i]

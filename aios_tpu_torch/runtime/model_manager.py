@@ -25,6 +25,10 @@ than 512 tokens in 512-token chunks with decode dispatches between them.
 ``speculative`` turns on n-gram speculative
 decode dispatches (None reads ``AIOS_TPU_SPECULATIVE``); they run over the
 dense cache only, so with a paged pool the batcher warns and serves without.
+Every batcher knows its model's tokenizer and so serves grammar-constrained
+requests (``json_schema``, ``json_mode``); under ``AIOS_TPU_JSON_MODE=force``
+(``json_mode_forced``) ``LoadModel`` also captures the masked step's graph
+and the jump graphs, since every non-streaming Infer is then constrained.
 ``synthetic://<preset>`` sources build random weights on the target device
 from a seeded generator; a ``.gguf`` path loads the file's weights
 (``weights.params_from_gguf``), its config from the metadata and its own
@@ -77,6 +81,13 @@ LEVEL_LADDERS: Dict[str, List[str]] = {
 }
 
 PAGE_SIZE = 128
+
+
+def json_mode_forced() -> bool:
+    """AIOS_TPU_JSON_MODE=force: every non-streaming Infer is grammar-
+    constrained to one JSON object (the reference's response_format
+    behaviour); read by the service per request and here at load."""
+    return os.environ.get("AIOS_TPU_JSON_MODE", "").lower() in ("force", "1", "on")
 
 
 @dataclass
@@ -271,9 +282,10 @@ class ModelManager:
                 **kw,
             )
             del params
-            # the batcher's admission chunk: warmup captures its graphs
+            # the batcher's admission chunk: warmup captures its graphs, and
+            # with forced JSON mode the masked step and the jump buckets
             chunk = engine.prefill_chunk_default
-            engine.warmup(prefill_chunk=chunk)
+            engine.warmup(prefill_chunk=chunk, masked_step=json_mode_forced())
             timings.update(quantize_s=engine.quantize_seconds,
                            capture_s=engine.graphs.capture_seconds)
             managed = ManagedModel(
@@ -281,7 +293,7 @@ class ModelManager:
                 config=cfg,
                 engine=engine,
                 batcher=ContinuousBatcher(engine, speculative=self.speculative,
-                                          prefill_chunk=chunk),
+                                          prefill_chunk=chunk, tokenizer=tokenizer),
                 tokenizer=tokenizer,
                 state=STATE_READY,
                 loaded_at=int(time.time()),

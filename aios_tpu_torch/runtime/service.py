@@ -6,13 +6,21 @@ The port of ``aios_tpu/runtime/service.py`` for the main path:
     with no big model FAILED_PRECONDITION ("route via api-gateway");
   * defaults: max_tokens 512, temperature 0.7 (proto3 0 means unset);
   * StreamInfer streams incremental detokenized text per token and ends with
-    a done=true chunk; a client that goes away cancels its request.
-Metrics, tracing, SLOs, the fleet plane, admission control and
-grammar-constrained output (``json_schema``) wait for later slices.
+    a done=true chunk; a client that goes away cancels its request;
+  * ``InferRequest.json_schema`` constrains the output to the schema's shape
+    (the ``engine/jsonschema.py`` subset): malformed JSON or a root that is
+    not an object is INVALID_ARGUMENT "invalid json_schema", a construct the
+    compiler rejects INVALID_ARGUMENT "unsupported json_schema";
+    ``AIOS_TPU_JSON_MODE=force`` constrains every non-streaming Infer
+    without a schema to one JSON object (the reference's llama-server
+    ``response_format``).
+Metrics, tracing, SLOs, the fleet plane and admission control are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from typing import Iterator, Optional
@@ -24,7 +32,7 @@ from ..engine.batching import Request
 from ..engine.tokenizer import render_chat
 from ..proto_gen import common_pb2, runtime_pb2
 from ..services import RUNTIME, AIRuntimeServicer, service_address
-from .model_manager import ManagedModel, ModelManager
+from .model_manager import ManagedModel, ModelManager, json_mode_forced
 
 log = logging.getLogger("aios.torch.runtime")
 
@@ -101,7 +109,7 @@ class RuntimeService(AIRuntimeServicer):
         m = self._resolve_model(request, context)
         if m is None:
             return runtime_pb2.InferResponse()
-        handle, n_prompt = self._submit(m, request, context)
+        handle, n_prompt = self._submit(m, request, context, streaming=False)
         token_ids = [t for t in handle if t != m.tokenizer.eos_id]
         if handle.aborted:
             context.abort(grpc.StatusCode.UNAVAILABLE,
@@ -117,7 +125,7 @@ class RuntimeService(AIRuntimeServicer):
         m = self._resolve_model(request, context)
         if m is None:
             return
-        handle, _ = self._submit(m, request, context)
+        handle, _ = self._submit(m, request, context, streaming=True)
         emitted = ""
         ids = []
         try:
@@ -143,10 +151,15 @@ class RuntimeService(AIRuntimeServicer):
 
     # -- helpers ------------------------------------------------------------
 
-    def _submit(self, m: ManagedModel, request, context):
+    def _submit(self, m: ManagedModel, request, context, streaming: bool):
+        schema = None
         if request.json_schema:
-            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
-                          "json_schema is not supported by this runtime yet")
+            try:
+                schema = json.loads(request.json_schema)
+                if not isinstance(schema, dict):
+                    raise ValueError("schema must be a JSON object")
+            except ValueError as e:  # json.JSONDecodeError is one
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"invalid json_schema: {e}")
         m.touch()
         prompt_ids = m.tokenizer.encode(
             render_chat(m.config.name, request.prompt, request.system_prompt)
@@ -161,12 +174,21 @@ class RuntimeService(AIRuntimeServicer):
             top_p=DEFAULT_TOP_P,
             stop_ids=stop,
             request_id=request.task_id or "",
+            # the reference forces response_format=json_object on every
+            # NON-streaming local inference; the JAX stack's default is off
+            # (it would garble plain-text flows) and force restores it
+            json_mode=schema is None and not streaming and json_mode_forced(),
+            json_schema=schema,
             priority=LEVEL_PRIORITY.get(request.intelligence_level.lower(), 0),
         )
         try:
             handle = m.submit(req)
         except RuntimeError as e:  # raced UnloadModel's shutdown
             context.abort(grpc.StatusCode.UNAVAILABLE, f"model {m.name} is unloading: {e}")
+        except ValueError as e:  # an unsupported schema construct or a scalar root
+            if schema is None:
+                raise
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"unsupported json_schema: {e}")
         if not context.add_callback(handle.cancel):
             handle.cancel()  # the RPC already ended
         return handle, len(prompt_ids)

@@ -111,7 +111,39 @@ Phases, each printing its lines:
      from the stem, context 2048 by file size); (b) and (c):
      decode(encode(s)) == s on every served prompt and one request's
      first-token logits; and a 2-layer TinyLlama-width file with 32002
-     tokens, its lm_head padded to 32016 columns, serves a request.
+     tokens, its lm_head padded to 32016 columns, serves a request;
+  12. constrained decoding (``phase_constrained``) — (a)'s TinyLlama file
+     loaded without and then with ``AIOS_TPU_JSON_MODE=force`` (the masked
+     step's graph and both jump graphs captured at load, capture seconds
+     both ways), then four Infer at once (two with the orchestrator's
+     tool-call schema over a dozen tool names, one with a schema of enums,
+     integers, booleans and a nested object, one plain under forced JSON
+     mode) beside an unconstrained StreamInfer, greedy and at temperature
+     0.7: every reply parses, the schema replies end in a terminal state of
+     their schema's machine with catalog tool names, exact launches per
+     prefill, chunk, masked or plain step and jump; malformed and
+     unsupported schemas answer INVALID_ARGUMENT; one tool-call Infer with
+     jump-ahead on and off (wall, dispatches); greedy requests with
+     jump-ahead on and off (agreement, streams part only at free choices of
+     the grammar; dispatches); the engine checks of ``_constrained_dispatches`` (the masked
+     step and each jump bucket replayed against their eager bodies bit for
+     bit with exact launches, the jump's ``verify_step_paged`` at T = 5 and
+     17 through the kernels against the plain path (logits and written
+     rows), a jump's K/V rows against masked steps
+     forcing the same tokens, layer 0 within TOL and every layer within the
+     logits' drift tolerance, host wall and device busy per
+     dispatch, the page gather of a jump timed alone); (b)'s DeepSeek file
+     answers a tool-call request; the host time of a JsonMaskCache and a
+     fresh state's row at vocab 32000, 128256 and 151936; Mistral-7B paged
+     (int4 weights, int8 pool, window 4096): a tool-call request a slot, one
+     with a 4100-token prompt, jump-ahead on and off (a regression gate of
+     >= 2x fewer dispatches on the enum-heavy tool-call shape over its byte
+     vocabulary; the orchestrator's tool-call schema reported only), a jump
+     past the window that writes only live blocks, and the engine checks;
+     phases 9 and 10 run the engine checks over the dense cache too. The
+     launches of the engine checks are gated there and not added to the
+     kernels line, which counts only the served windows, the DeepSeek
+     request and Mistral's batcher run.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -841,6 +873,27 @@ K7_SPLIT_CASES = [
 ]
 
 
+# K6 and K7 in a jump of grammar-forced tokens: B = 8 slots, T = kb + 1 = 5
+# or 17 (JUMP_BUCKETS 4 and 16) over each slot's gathered page view (C =
+# MB * P) or its dense cache, slot 0 inactive (length 0, stride 0) as an
+# idle slot is; at the served lengths, and for Mistral-7B deep in the cache
+# past its window
+JUMP_LENS = [0] + SERVED_LENS[1:]
+JUMP_CASES = {
+    "multiquery_decode_attention": [
+        (f"jump: TinyLlama C=2048 T={T}, served lengths", TINY_GEOM, 2048, None, False, T,
+         JUMP_LENS, ()) for T in (5, 17)
+    ],
+    "multiquery_decode_attention_int8": [
+        case for T in (5, 17) for case in (
+            (f"jump: Mistral C=8192 window={M_WINDOW} T={T}, served lengths", MISTRAL_GEOM,
+             8192, M_WINDOW, True, T, JUMP_LENS, ()),
+            (f"jump: Mistral C=8192 window={M_WINDOW} T={T}, past the window", MISTRAL_GEOM,
+             8192, M_WINDOW, True, T, MISTRAL_LENS[:-1] + [8192 - T], ()))
+    ],
+}
+
+
 # K6 and K7 at a chunk of an admission: B = 1, T = 512 queries from row
 # ``start`` (the third chunk of TinyLlama's 1800-token prompt, the last of
 # Mistral-7B's 4090 and of its 7000, deep in the window); and a chunk from row
@@ -900,6 +953,7 @@ def check_dense_attention(gen) -> dict:
              mq_lens(MISTRAL_LENS, 8192), ()),
             ("chunk: Qwen3 heads C=8192 T=512", QWEN3_GEOM, 8192, None, False, 512, [3584],
              ()),
+            *JUMP_CASES["multiquery_decode_attention"],
         ],
         "multiquery_decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
@@ -912,6 +966,7 @@ def check_dense_attention(gen) -> dict:
              mq_lens(MISTRAL_LENS, 8192, 31), ()),
             *K7_SPLIT_CASES,
             *CHUNK_CASES["multiquery_decode_attention_int8"],
+            *JUMP_CASES["multiquery_decode_attention_int8"],
         ],
     }
     measured = {}
@@ -2693,6 +2748,11 @@ def phase_dense_numerics(name: str):
         _fresh_noise(tag, eng, rounds=False)
         _profile_decode(eng, f"dense {name}", 8, card, prompt=REPEATING)
         _profile_decode(eng, f"dense {name}", 8, card)
+        # the masked step and the jumps over the dense cache (captured now)
+        _constrained_dispatches(f"[constrained dense {name}]", eng,
+                                {case["matmul"]: per, case["decode"]: L},
+                                {case["matmul"]: per, case["verify"]: L}, card, timed=False,
+                                drift_tol=case["drift_tol"])
         _dense_chunks(tag, m, case, card)
         if not quant:
             _admission_graphs(f"[admission dense {name}]", m, card)
@@ -3218,6 +3278,745 @@ def phase_gguf(card: str) -> dict:
     return totals
 
 
+
+# -- phase 12: grammar-constrained decoding ------------------------------------------
+
+# a catalog of a dozen tool names for the orchestrator's reasoning-reply schema
+TOOL_CATALOG = ("read_file", "write_file", "list_dir", "search_logs", "restart_service",
+                "scale_deployment", "query_metrics", "open_ticket", "page_oncall",
+                "run_playbook", "check_health", "rollback_release")
+
+
+def toolcalls_schema(catalog) -> dict:
+    """The orchestrator's reasoning-reply schema (``toolcalls_schema`` of
+    aios_tpu/orchestrator/autonomy.py): a free thought, tool calls whose
+    names are the catalog's enum with free-form args, and done."""
+    return {
+        "type": "object",
+        "properties": {
+            "thought": {"type": "string"},
+            "tool_calls": {"type": "array", "items": {
+                "type": "object",
+                "properties": {"tool": {"type": "string", "enum": list(catalog)},
+                               "args": {"type": "object"}},
+                "required": ["tool"]}},
+            "done": {"type": "boolean"},
+        },
+        "required": ["done"],
+    }
+
+
+# enums, integers, booleans and a nested object
+MIXED_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "severity": {"type": "string", "enum": ["low", "medium", "high", "critical"]},
+        "count": {"type": "integer"},
+        "paged": {"type": "boolean"},
+        "owner": {"type": "object", "properties": {
+            "team": {"type": "string", "enum": ["storage", "network", "compute"]},
+            "shift": {"type": "integer"}}, "required": ["team", "shift"]},
+    },
+    "required": ["severity", "count", "paged", "owner"],
+}
+# the enum-heavy tool-call shape of tests/test_structured_fastpath.py, over
+# the catalog: every position is forced once an enum's first bytes decide it
+FORCED_SCHEMA = {
+    "type": "object",
+    "properties": {"tool": {"type": "string", "enum": list(TOOL_CATALOG)},
+                   "path": {"type": "string", "enum": ["slash_tmp", "slash_var_log"]},
+                   "recursive": {"type": "boolean"}},
+    "required": ["tool", "path", "recursive"],
+}
+CONSTRAINED_PROMPTS = (
+    "Decide the next tool call for the incident: disk 93% full on node-7.",
+    "Pick a tool and report whether the rollout is done.",
+    "Classify the alert storm from the last hour and name the owning team.",
+    "Summarize the cluster state as one JSON object.",
+)
+GREEDY = 1e-5  # below the sampler's GREEDY_EPS: 0 on the wire means unset
+
+
+def _conforms(schema: dict, text: str) -> bool:
+    """Whether ``text`` is a complete value of ``schema`` (the port's
+    SchemaMachine, lenient whitespace)."""
+    from aios_tpu_torch.engine import jsonschema
+
+    machine = jsonschema.SchemaMachine(*jsonschema.compile_schema(schema))
+    st = machine.start()
+    for b in text.encode("utf-8"):
+        st = machine.step(st, b)
+        if st is None:
+            return False
+    return machine.terminal(st)
+
+
+def _tool_names(parsed: dict):
+    return [c.get("tool") for c in parsed.get("tool_calls", [])]
+
+
+def _constrained_window(m, stub, tag: str, temperature: float, card: str) -> dict:
+    """Four Infer at once (two with the tool-call schema, one with
+    MIXED_SCHEMA, one plain under forced JSON mode) and one StreamInfer
+    beside them, every kernel count set to 0 just before and read just
+    after: every reply parses to an object, the schema replies end in a
+    terminal state of their schema's machine with tool names from the
+    catalog, the stream was not constrained, the launches are exact (per
+    prefill, admission chunk, masked or plain step and jump) and every
+    dispatch was a graph replay."""
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    eng, L = m.engine, m.config.num_layers
+    per = 4 * L + 1
+    tools = json.dumps(toolcalls_schema(TOOL_CATALOG))
+    reqs = [(CONSTRAINED_PROMPTS[0], tools), (CONSTRAINED_PROMPTS[1], tools),
+            (CONSTRAINED_PROMPTS[2], json.dumps(MIXED_SCHEMA)), (CONSTRAINED_PROMPTS[3], "")]
+    seen, orig = [], m.submit
+    m.submit = lambda req: seen.append(req) or orig(req)
+    captured = eng.stats()["graph_captures"]
+    _reset_counts()
+    before = (eng.decode_steps, eng.jump_dispatches, eng.jump_tokens, eng.prefills,
+              eng.prefill_chunks, eng.graphs.replays)
+    results, errors = {}, []
+
+    def infer(i):
+        prompt, schema = reqs[i]
+        results[i] = stub.Infer(runtime_pb2.InferRequest(
+            prompt=prompt, max_tokens=256, temperature=temperature, json_schema=schema),
+            timeout=600)
+
+    def stream():
+        results["stream"] = list(stub.StreamInfer(runtime_pb2.InferRequest(
+            prompt=CONSTRAINED_PROMPTS[3], max_tokens=48, temperature=temperature),
+            timeout=600))
+
+    def run(fn, *a):
+        try:
+            fn(*a)
+        except Exception as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(infer, i)) for i in range(4)]
+    threads.append(threading.Thread(target=run, args=(stream,)))
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+    finally:
+        m.submit = orig
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    expect(not errors and all(not t.is_alive() for t in threads),
+           f"{tag} requests failed: {errors!r}")
+    steps, jumps, jump_tokens, pre, chunks, replays = (
+        now - was for now, was in zip((eng.decode_steps, eng.jump_dispatches,
+                                       eng.jump_tokens, eng.prefills, eng.prefill_chunks,
+                                       eng.graphs.replays), before))
+    replies = []
+    for i, (_, schema) in enumerate(reqs):
+        text = results[i].text
+        try:
+            parsed = json.loads(text)
+        except ValueError:
+            parsed = None
+        expect(isinstance(parsed, dict), f"{tag} Infer {i} is not a JSON object: {text!r}")
+        if schema:
+            expect(_conforms(json.loads(schema), text),
+                   f"{tag} Infer {i} does not end in a terminal state of its schema: {text!r}")
+        expect(all(t in TOOL_CATALOG for t in _tool_names(parsed)),
+               f"{tag} tool names outside the catalog: {text!r}")
+        replies.append(text)
+    flags = sorted((r.json_mode, r.json_schema is not None) for r in seen)
+    expect(flags == [(False, False), (False, True), (False, True), (False, True),
+                     (True, False)],
+           f"{tag} constrained flags of the five requests: {flags} (the stream must be "
+           "unconstrained, the plain Infer in forced JSON mode)")
+    chunks_ = results["stream"]
+    expect(chunks_ and chunks_[-1].done, f"{tag} StreamInfer did not end with done")
+    want = {"quantized_matmul": per * (pre + chunks + steps), "flash_attention": L * pre,
+            "paged_decode_attention": L * (steps - jumps),
+            "multiquery_decode_attention": L * (chunks + jumps)}
+    want = {k: v for k, v in want.items() if v}
+    expect(launches == want, f"{tag} launches {launches} != {want} for {pre} prefills, "
+           f"{chunks} chunks, {steps - jumps} steps, {jumps} jumps")
+    expect(eng.stats()["graph_captures"] == captured and replays == steps + pre + chunks,
+           f"{tag} {eng.stats()['graph_captures'] - captured} graphs captured while "
+           f"serving, {replays} replays for {steps + pre + chunks} dispatches")
+    log(f"{tag} 4 constrained Infer (2 tool-call schema, 1 mixed schema, 1 forced JSON "
+        f"mode) + 1 unconstrained StreamInfer at temperature {temperature}: {wall:.3f} s, "
+        f"{steps} decode dispatches ({jumps} jumps carrying {jump_tokens} tokens, "
+        f"{jump_tokens / max(jumps, 1):.2f} a jump), {pre} prefills, {chunks} chunks, every "
+        f"one a graph replay, captures flat at {captured}; launches exact {launches}; "
+        f"{card}")
+    for i, text in enumerate(replies):
+        log(f"{tag}   reply {i}: {text[:150]!r}")
+    return launches
+
+
+def _jump_arms(m, tag: str, requests, card: str, schema_name: str) -> dict:
+    """The same greedy requests through the batcher with jump-ahead on and
+    then off: the streams, the dispatches and wall of each arm; where the
+    two streams part, the token is a free choice of the grammar (never a
+    forced one), and the fraction of positions where they agree."""
+    from aios_tpu_torch.engine.batching import Request
+
+    eng, b = m.engine, m.batcher
+    for h in [b.submit(Request(**r)) for r in requests]:
+        h.tokens()  # the automaton's mask rows are built on first use: not timed
+    arms = {}
+    for jump in (True, False):
+        b.jump_ahead = jump
+        if eng.prefix_index is not None:
+            eng.prefix_index.clear()
+        steps0, t0 = eng.decode_steps, time.perf_counter()
+        jumps0, carried0 = eng.jump_dispatches, eng.jump_tokens
+        hs = [b.submit(Request(**r)) for r in requests]
+        outs = [h.tokens() for h in hs]
+        arms[jump] = (outs, eng.decode_steps - steps0, time.perf_counter() - t0)
+        if jump:
+            jumps, carried = eng.jump_dispatches - jumps0, eng.jump_tokens - carried0
+    b.jump_ahead = True
+    (on, on_steps, on_wall), (off, off_steps, off_wall) = arms[True], arms[False]
+    agree = total = 0
+    for r, x, y in zip(requests, on, off):
+        cache = (b._schema_mask_cache(r["json_schema"]) if r.get("json_schema")
+                 else b._json_mask_cache())
+        from aios_tpu_torch.engine.jsonmode import JsonConstraint
+
+        con = JsonConstraint(cache)
+        con.advance(cache.start_token_id)
+        for i, (p, q) in enumerate(zip(x[1:], y[1:])):
+            if p != q:
+                expect(cache.singleton_token(con.state) is None,
+                       f"{tag} jump and masked streams part at a forced token")
+                break
+            con.advance(p)
+        total += max(len(x), len(y))
+        agree += sum(p == q for p, q in zip(x, y))
+    log(f"{tag} {len(requests)} greedy {schema_name} requests, jump-ahead on vs off: "
+        f"{on_steps} vs {off_steps} decode dispatches (x{off_steps / max(on_steps, 1):.2f}; "
+        f"{jumps} jumps carrying {carried} tokens, {carried / max(jumps, 1):.2f} a jump), "
+        f"{on_wall:.3f} vs {off_wall:.3f} s; the streams agree at {agree / total:.3f} of "
+        f"positions and part only at free choices of the grammar; {card}")
+    return dict(on_steps=on_steps, off_steps=off_steps, agree=agree / total)
+
+
+def _forcing_rows(eng, tokens_):
+    """Mask rows that admit only ``tokens_[s]`` for every slot."""
+    from aios_tpu_torch.engine.jsonmode import NEG_INF
+
+    rows = {}
+    for s, t in enumerate(tokens_):
+        row = torch.full((eng.cfg.vocab_size,), NEG_INF, dtype=torch.float32,
+                         device=eng.device)
+        row[int(t)] = 0.0
+        rows[s] = row
+    return rows
+
+
+def _written_rows(eng, lengths, n: int):
+    """Rows [lengths[s], lengths[s] + n) of every slot in every cache tensor,
+    copied (int8 values dequantized with their scales)."""
+    out = []
+    for s, start in enumerate(lengths):
+        rows = _slot_rows(eng, s, start + n)
+        if eng.quant_cache:
+            rows = [rows[0].float() * rows[2][..., None], rows[1].float() * rows[3][..., None]]
+        out.append([r[:, start:start + n].float() for r in rows])
+    return out
+
+
+def _busy(fn, snap, eng) -> float:
+    """Median device busy ms of ``fn()`` over three profiled windows, each
+    from ``snap``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = []
+    for _ in range(3):
+        _restore(eng, snap)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy.append(sum(us for _, us in _device_kernels(prof).values()) / 1e3)
+    return statistics.median(busy)
+
+
+def _wall(fn, snap, eng) -> float:
+    """Median host wall ms of ``fn()`` over five synchronized runs, each
+    from ``snap``."""
+    walls = []
+    for _ in range(5):
+        _restore(eng, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def _constrained_dispatches(tag: str, eng, per_masked: dict, per_jump: dict, card: str,
+                            timed: bool = True, drift_tol: float = E2E_TOL) -> None:
+    """On 8 greedy slots at ~300 rows, from one state each time: the masked
+    step's replay against its eager body and each jump bucket's replay
+    against its eager body (tokens or lengths and last tokens, the logits
+    and every cache row written, bit for bit), their launches exact through
+    the replays (``per_masked``, ``per_jump``); over the pool, the jump's
+    forward (``verify_step_paged``) through the kernels against the plain
+    path at each bucket (``_paged_verify_gate``); the K/V rows one jump of
+    16 writes against those 16 masked steps forcing the same tokens write
+    (layer 0 within TOL of max |row|, every layer within ``drift_tol``);
+    with ``timed``, host wall and device busy of
+    a plain step, a masked step, and a jump of 4 and 16 against 4 and 16
+    masked steps, and over the pool the device time of a jump's page
+    gather alone. A check on a test state, not the served path: the
+    launches it makes are gated here and counted nowhere else."""
+    from aios_tpu_torch.engine.engine import JUMP_BUCKETS
+    from aios_tpu_torch.engine.jsonmode import NEG_INF
+
+    S, V = eng.num_slots, eng.cfg.vocab_size
+    if eng.prefix_index is not None:
+        eng.prefix_index.clear()
+    for s in range(S):
+        eng.prefill(s, [1] + list(range(3, 300 - 5 * s)), temperature=0.0)
+    eng.capture_masked()
+    for kb in JUMP_BUCKETS:
+        eng.capture_jump(kb)
+    snap = _snapshot(eng)
+    lengths = [eng.slot_length(s) for s in range(S)]
+    gen = np.random.default_rng(0)
+    rows = {}
+    for s in range(0, S, 2):  # half the slots constrained, the rest zero rows
+        row = torch.full((V,), NEG_INF, dtype=torch.float32, device=eng.device)
+        row[torch.from_numpy(gen.choice(V, 64, replace=False)).to(eng.device)] = 0.0
+        rows[s] = row
+
+    def both(name, graph_fn, eager_fn, per, n_rows):
+        runs = {}
+        for mode, fn in (("graph", graph_fn), ("eager", eager_fn)):
+            _restore(eng, snap)
+            out, launches = _counted(fn)
+            runs[mode] = (out, eng.last_logits.clone(), eng.lengths.clone(),
+                          eng.last_tokens.clone(), _written_rows(eng, lengths, n_rows),
+                          launches)
+        g, e = runs["graph"], runs["eager"]
+        same = ((g[0] is None or (g[0] == e[0]).all()) and torch.equal(g[1], e[1])
+                and torch.equal(g[2], e[2]) and torch.equal(g[3], e[3])
+                and all(torch.equal(a, b) for x, y in zip(g[4], e[4]) for a, b in zip(x, y)))
+        expect(same, f"{tag} {name}: graph replay and eager body differ")
+        expect(g[5] == per and e[5] == per, f"{tag} {name} launches: graph {g[5]}, eager "
+               f"{e[5]}, planned {per}")
+        log(f"{tag} {name}: graph replay vs eager body bit-identical (tokens, logits, "
+            f"lengths, last tokens, the {n_rows} rows written a slot), launches exact both "
+            f"ways {per}")
+
+    both("masked step", lambda: eng.step_masked(rows), lambda: eng.step_masked_eager(rows),
+         per_masked, 1)
+    for kb in JUMP_BUCKETS:
+        forced = gen.integers(3, min(V, 30000), (S, kb))
+        counts = np.array([kb, kb - 1, 0, kb, 1, kb, kb // 2, kb])
+        both(f"jump at bucket {kb}", lambda: eng.jump_step(forced, counts),
+             lambda: eng.jump_step_eager(forced, counts), per_jump, kb + 1)
+        _restore(eng, snap)
+        if eng.paged:
+            _paged_verify_gate(tag, eng, snap, lengths, forced, drift_tol)
+
+    # one jump of 16 against 16 masked steps forcing the same tokens
+    kb = JUMP_BUCKETS[-1]
+    forced = gen.integers(3, min(V, 30000), (S, kb))
+    _restore(eng, snap)
+    eng.jump_step(forced, np.full(S, kb))
+    jumped = _written_rows(eng, lengths, kb)
+    _restore(eng, snap)
+    stepped = []
+    for i in range(kb):
+        stepped.append(eng.step_masked(_forcing_rows(eng, forced[:, i]))[0])
+    expect((np.stack(stepped, 1) == forced).all(), f"{tag} forcing masked steps sampled "
+           "other tokens")
+    masked_rows = _written_rows(eng, lengths, kb)
+    # per layer, max |d| / max |row| over the slots, K and V: layer 0 sees
+    # the same input both ways (only the matmul tiles differ); deeper layers
+    # see hidden states that drifted through the layers before, as the
+    # logits do (E2E_TOL, Mistral's free-running DRIFT_TOL)
+    per_layer = torch.stack([(a - b).abs().amax(dim=(1, 2, 3)) / b.abs().amax(dim=(1, 2, 3))
+                             for x, y in zip(jumped, masked_rows)
+                             for a, b in zip(x, y)]).amax(0).tolist()
+    bits = all(torch.equal(a, b) for x, y in zip(jumped, masked_rows) for a, b in zip(x, y))
+    expect(per_layer[0] <= TOL and max(per_layer) <= drift_tol,
+           f"{tag} K/V rows of a jump vs masked steps: layer 0 {per_layer[0]:.3e} (limit "
+           f"{TOL}), deepest {max(per_layer):.3e} (limit {drift_tol})")
+    log(f"{tag} K/V rows one jump of {kb} writes vs {kb} masked steps forcing the same "
+        f"tokens, max |d| / max |row| per layer: layer 0 {per_layer[0]:.3e} (limit {TOL}), "
+        f"layer {len(per_layer) // 2} {per_layer[len(per_layer) // 2]:.3e}, last "
+        f"{per_layer[-1]:.3e}, largest {max(per_layer):.3e} (limit {drift_tol}); bit-equal: "
+        f"{bits}")
+
+    if timed:
+        plain_w, plain_b = _wall(lambda: eng.step(1), snap, eng), _busy(
+            lambda: eng.step(1), snap, eng)
+        mask_w, mask_b = (_wall(lambda: eng.step_masked(rows), snap, eng),
+                          _busy(lambda: eng.step_masked(rows), snap, eng))
+        log(f"[constrained time] {tag} one plain step: host wall {plain_w:.3f} ms, device "
+            f"busy {plain_b:.3f} ms; one masked step (4 of 8 slots constrained): host wall "
+            f"{mask_w:.3f} ms, device busy {mask_b:.3f} ms; {card}")
+        for kb in JUMP_BUCKETS:
+            forced = gen.integers(3, min(V, 30000), (S, kb))
+            counts = np.full(S, kb)
+            forcing = [_forcing_rows(eng, forced[:, i]) for i in range(kb)]
+
+            def masked_run(forcing=forcing):
+                for r in forcing:
+                    eng.step_masked(r)
+
+            jw = _wall(lambda: eng.jump_step(forced, counts), snap, eng)
+            jb = _busy(lambda: eng.jump_step(forced, counts), snap, eng)
+            mw, mb = _wall(masked_run, snap, eng), _busy(masked_run, snap, eng)
+            log(f"[constrained time] {tag} a jump of {kb} tokens a slot: host wall "
+                f"{jw:.3f} ms, device busy {jb:.3f} ms; {kb} masked steps: host wall "
+                f"{mw:.3f} ms, device busy {mb:.3f} ms (x{mw / jw:.2f} wall, x{mb / jb:.2f} "
+                f"busy); {card}")
+        if eng.paged:
+            t = eng.tables_dev.long()
+            pools = [p for p in (eng.k_pool, eng.v_pool, eng.k_scales, eng.v_scales)
+                     if p is not None]
+
+            def gather():
+                for i in range(eng.cfg.num_layers):
+                    for p in pools:
+                        p[i][t]
+
+            # the views written; the entries past a slot's blocks all read
+            # the sacrificial page, so most reads hit the L2
+            nbytes = sum(p[0][t].numel() * p.element_size() for p in pools) \
+                * eng.cfg.num_layers
+            log(f"[constrained time] {tag} the page gather of one paged jump (every "
+                f"layer's [S, C] views, {nbytes} B written) timed alone: "
+                f"{time_ms(gather):.3f} ms device (CUDA events); {card}")
+    _restore(eng, snap)
+    for s in range(S):
+        eng.release(s)
+
+
+def _paged_verify_gate(tag: str, eng, snap, lengths, forced, drift_tol: float) -> None:
+    """The jump's forward, ``model.verify_step_paged``, fed [last token,
+    ``forced``] (T = kb + 1) from the state ``snap``, through the kernels
+    (K1/K5, K6/K7 with B = 8 over the gathered page views) and through the
+    plain path, on the engine's own pool, slot 2 inactive: the logits of
+    the active slots within ``drift_tol`` of max |logit| (the free-running
+    logits gate), the K/V rows each writes within TOL of max |row| at layer
+    0 (the projections alone) and within ``drift_tol`` at every layer."""
+    from aios_tpu_torch.engine import model
+
+    S, kb = eng.num_slots, forced.shape[1]
+    keep = [s for s in range(S) if s != 2]
+    active = torch.ones(S, dtype=torch.bool, device=eng.device)
+    active[2] = False
+    feed = torch.cat([eng.last_tokens.view(S, 1).long(),
+                      torch.from_numpy(forced).to(eng.device).long()], 1)
+    with eng._lock:  # the rows the jump backs (backed already by the jumps above)
+        eng._back_active_slots(kb + 1)
+        eng._stage_tables()
+    runs = {}
+    for kernels in (True, False):
+        _restore(eng, snap)
+        logits = model.verify_step_paged(
+            eng.params, eng.cfg, feed, eng.lengths, eng.k_pool, eng.v_pool, eng.tables_dev,
+            active=active, kernels=kernels, cache_scales=eng._cache_scales())
+        runs[kernels] = (logits[keep], [_written_rows(eng, lengths, kb + 1)[s] for s in keep])
+    _restore(eng, snap)
+    (lk, rk), (lp, rp) = runs[True], runs[False]
+    rel_logits = _rel(lk, lp)
+    per_layer = torch.stack([(a - b).abs().amax(dim=(1, 2, 3)) / b.abs().amax(dim=(1, 2, 3))
+                             for x, y in zip(rk, rp) for a, b in zip(x, y)]).amax(0).tolist()
+    ok = (bool(torch.isfinite(lk).all()) and rel_logits <= drift_tol
+          and per_layer[0] <= TOL and max(per_layer) <= drift_tol)
+    log(f"{tag} the jump's forward at bucket {kb} (verify_step_paged, B={S}, T={kb + 1}, "
+        f"slot 2 inactive), kernels vs plain path on the same pool: max|dlogit|/max|logit| "
+        f"{rel_logits:.3e} (limit {drift_tol}), argmax agreement "
+        f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.3f}; rows written, "
+        f"max |d| / max |row|: layer 0 {per_layer[0]:.3e} (limit {TOL}), largest "
+        f"{max(per_layer):.3e} (limit {drift_tol})")
+    expect(ok, f"{tag} verify_step_paged at T={kb + 1}: kernel and plain paths disagree")
+
+
+def _window_jump(tag: str, m, card: str) -> None:
+    """A slot past Mistral's window jumps: before it backs its rows the jump
+    returns the block its window left behind, every row it writes lands on
+    a live block of the slot's table, the sacrificial page keeps its rows
+    but the inactive slots' row P-1, and the pages in use move by exactly
+    the slot's resident blocks."""
+    eng, alloc = m.engine, m.engine.allocator
+    P, W = alloc.page_size, eng.cfg.sliding_window
+    eng.prefix_index.clear()
+    n = W + P + 10  # block 0 falls out of the window at the jump
+    eng.prefill(0, [1] + [(i * 7 + 3) % 256 for i in range(n - 1)], temperature=0.0)
+    eng.prefix_index.clear()  # the slot alone holds its pages
+    before, res_before = alloc.pages_in_use(), alloc.slot_pages_resident(0)
+    page0 = [p[:, 0, : P - 1].clone() for p in (eng.k_pool, eng.v_pool)]
+    kb = 16
+    eng.jump_step(np.full((eng.num_slots, kb), 65), np.array([kb] + [0] * (eng.num_slots - 1)))
+    after, res_after = alloc.pages_in_use(), alloc.slot_pages_resident(0)
+    dead = (n - W) // P
+    live = range(alloc.trimmed_blocks(0), alloc.blocks_for(n + kb + 1))
+    written = range(n // P, (n + kb) // P + 1)
+    expect(alloc.trimmed_blocks(0) == dead
+           and all(b in live and alloc.tables[0, b] > 0 for b in written),
+           f"{tag} a jump row on a block not backed: trimmed {alloc.trimmed_blocks(0)}, "
+           f"written blocks {list(written)}, live {live}")
+    expect(all(torch.equal(a, p[:, 0, : P - 1]) for a, p in zip(page0, (eng.k_pool, eng.v_pool))),
+           f"{tag} the jump wrote the sacrificial page")
+    expect(res_after == len(live) and after - before == res_after - res_before,
+           f"{tag} pages in use {before} -> {after}, resident blocks {res_before} -> "
+           f"{res_after}, planned {len(live)}")
+    log(f"{tag} a jump of {kb} past the {W}-row window from row {n}: pages in use "
+        f"{before} -> {after} (the slot's resident blocks {res_before} -> {res_after}: "
+        f"{dead} left the window), every written row on a live block, the sacrificial "
+        f"page's rows 0..{P - 2} untouched; {card}")
+    eng.release(0)
+
+
+def _mask_build_times(vocabs) -> None:
+    """Host seconds of a JsonMaskCache (token byte table and byte matrix)
+    and a fresh state's mask row for each of ``vocabs`` {name: tokenizer}."""
+    from aios_tpu_torch.engine import jsonmode
+
+    for name, tok in vocabs.items():
+        V = tok.vocab_size
+        t0 = time.perf_counter()
+        table = jsonmode.token_bytes_table(tok, V)
+        t1 = time.perf_counter()
+        cache = jsonmode.JsonMaskCache(table, tok.eos_id, compact=True, device="cuda")
+        t2 = time.perf_counter()
+        st = cache.run(cache.start(), b'{"')
+        cache.mask_row(st)
+        t3 = time.perf_counter()
+        log(f"[constrained time] host: vocab {V} ({name}): token byte table "
+            f"{(t1 - t0) * 1e3:.1f} ms, JsonMaskCache (byte matrix "
+            f"{cache._byte_mat.shape}) {(t2 - t1) * 1e3:.1f} ms, a fresh state's mask row "
+            f"{(t3 - t2) * 1e3:.1f} ms")
+
+
+def phase_constrained(card: str) -> dict:
+    """Grammar-constrained decoding over gRPC and on the engines, with
+    LoadModel under AIOS_TPU_JSON_MODE=force: (1) the TinyLlama-1.1B GGUF
+    file (SentencePiece, 32000) loaded without and with forced JSON mode
+    (capture seconds both ways; the masked graph and both jump graphs
+    captured at load), two constrained windows (greedy and temperature
+    0.7), malformed and unsupported schemas refused, the dispatch checks of
+    ``_constrained_dispatches``, and jump-ahead on against off on the
+    enum-heavy tool-call shape and the tool-call schema; (2) the 2-layer
+    DeepSeek-R1-8B file (byte-level, 128256): one tool-call request parses;
+    (3) Mistral-7B paged (int4 weights, int8 pool, window 4096): one
+    tool-call request per slot, one with a 4100-token prompt, jump on
+    against off, a jump past the window, the dispatch checks. Returns the
+    launches counted."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import grpc
+
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.engine.batching import Request
+    from aios_tpu_torch.engine.engine import JUMP_BUCKETS
+    from aios_tpu_torch.engine.tokenizer import ByteLevelBPE
+    from aios_tpu_torch.proto_gen import runtime_pb2
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+    from aios_tpu_torch.runtime.service import serve
+
+    totals: dict = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def unload(stub, name):
+        expect(stub.UnloadModel(runtime_pb2.UnloadModelRequest(model_name=name)).success,
+               f"UnloadModel {name}")
+        torch.cuda.empty_cache()
+
+    old_mode = os.environ.get("AIOS_TPU_JSON_MODE")
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
+    server, _, port = serve("127.0.0.1:0", manager, block=False)
+    channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = services.AIRuntimeStub(channel)
+    try:
+        with tempfile.TemporaryDirectory(prefix="aios-constrained-") as tmp:
+            tmp = Path(tmp)
+            spec = GGUF_FILES["tinyllama"]
+            path = tmp / f"{spec['stem']}.gguf"
+            made = _write_gguf_file(path, spec, GGUF_SEED)
+            os.environ.pop("AIOS_TPU_JSON_MODE", None)
+            m, plain_s = _load(manager, stub, "tinyllama-json", str(path))
+            plain = (m.engine.graphs.captures, m.engine.graphs.capture_seconds)
+            unload(stub, "tinyllama-json")
+            os.environ["AIOS_TPU_JSON_MODE"] = "force"
+            m, load_s = _load(manager, stub, "tinyllama-json", str(path))
+            eng = m.engine
+            # forced JSON mode adds the masked step and a jump graph a bucket
+            expect(eng.graphs.captures == plain[0] + 1 + len(JUMP_BUCKETS)
+                   and "masked" in eng.graphs
+                   and all(("jump", k) in eng.graphs for k in JUMP_BUCKETS),
+                   f"[constrained] LoadModel under forced JSON mode captured "
+                   f"{eng.graphs.captures} graphs, {plain[0]} without")
+            log(f"[constrained] TinyLlama GGUF ({type(m.tokenizer).__name__}, vocab "
+                f"{m.config.vocab_size}): LoadModel {plain_s:.2f} s with {plain[0]} graphs "
+                f"({plain[1]:.2f} s of captures) without forced JSON mode, {load_s:.2f} s with "
+                f"{eng.graphs.captures} ({eng.graphs.capture_seconds:.2f} s of captures: the "
+                f"masked step and the jumps at {JUMP_BUCKETS} added) under "
+                f"AIOS_TPU_JSON_MODE=force; {card}")
+            for temperature in (GREEDY, 0.7):
+                count(_constrained_window(m, stub, f"[constrained tinyllama t={temperature}]",
+                                          temperature, card))
+            for schema, why in (("{not json", "invalid json_schema"),
+                                ('["a"]', "invalid json_schema"),
+                                (json.dumps({"type": "tuple"}), "unsupported json_schema"),
+                                (json.dumps({"type": "string"}), "unsupported json_schema")):
+                try:
+                    stub.Infer(runtime_pb2.InferRequest(prompt="x", max_tokens=8,
+                                                        json_schema=schema), timeout=60)
+                    code, details = "OK", ""
+                except grpc.RpcError as exc:
+                    code, details = exc.code(), exc.details() or ""
+                expect(code == grpc.StatusCode.INVALID_ARGUMENT and details.startswith(why),
+                       f"[constrained] schema {schema!r}: {code} {details!r}")
+            log("[constrained] malformed JSON, a non-object root, an unsupported type and a "
+                "scalar root: INVALID_ARGUMENT, invalid/unsupported json_schema")
+            # one tool-call Infer alone, jump-ahead on and off
+            for jump in (True, False):
+                m.batcher.jump_ahead = jump
+                eng.prefix_index.clear()
+                steps0, t0 = eng.decode_steps, time.perf_counter()
+                r = stub.Infer(runtime_pb2.InferRequest(
+                    prompt=CONSTRAINED_PROMPTS[0], max_tokens=256, temperature=GREEDY,
+                    json_schema=json.dumps(toolcalls_schema(TOOL_CATALOG))), timeout=300)
+                expect(_conforms(toolcalls_schema(TOOL_CATALOG), r.text),
+                       f"[constrained] {r.text!r}")
+                log(f"[constrained time] a greedy tool-call Infer (max_tokens 256) alone, "
+                    f"jump-ahead {'on' if jump else 'off'}: {time.perf_counter() - t0:.3f} s "
+                    f"wall, {eng.decode_steps - steps0} decode dispatches, {r.tokens_used} "
+                    f"tokens used; {card}")
+            m.batcher.jump_ahead = True
+            tok = m.tokenizer
+            ids = [tok.encode(render) for render in CONSTRAINED_PROMPTS]
+            forced_reqs = [dict(prompt_ids=p, max_tokens=96, temperature=0.0,
+                                stop_ids=(tok.eos_id,), json_schema=FORCED_SCHEMA)
+                           for p in ids * 2]
+            # not gated: a SentencePiece vocab spells most forced bytes several
+            # ways ("t", "to", "tool" ...), so its grammar has few singleton
+            # states for jump-ahead to chain (the byte vocab of Mistral's
+            # synthetic model below has them at every forced byte)
+            _jump_arms(m, "[constrained tinyllama]", forced_reqs, card, "enum-heavy tool-call")
+            _jump_arms(m, "[constrained tinyllama]",
+                       [dict(r, json_schema=toolcalls_schema(TOOL_CATALOG), max_tokens=256)
+                        for r in forced_reqs], card, "tool-call schema")
+            _constrained_dispatches(
+                "[constrained tinyllama paged]", eng,
+                {"quantized_matmul": 89, "paged_decode_attention": 22},
+                {"quantized_matmul": 89, "multiquery_decode_attention": 22}, card)
+            vocabs = {"TinyLlama SentencePiece": m.tokenizer}
+            unload(stub, "tinyllama-json")
+            path.unlink()
+            del made
+
+            spec = GGUF_FILES["deepseek"]
+            path = tmp / f"{spec['stem']}.gguf"
+            made = _write_gguf_file(path, spec, GGUF_SEED + 2)
+            m, load_s = _load(manager, stub, "deepseek-json", str(path))
+            _reset_counts()
+            r = stub.Infer(runtime_pb2.InferRequest(
+                prompt=CONSTRAINED_PROMPTS[0], max_tokens=256, temperature=0.7,
+                json_schema=json.dumps(toolcalls_schema(TOOL_CATALOG))), timeout=300)
+            count(_read_counts())
+            expect(_conforms(toolcalls_schema(TOOL_CATALOG), r.text)
+                   and all(t in TOOL_CATALOG for t in _tool_names(json.loads(r.text))),
+                   f"[constrained deepseek] {r.text!r}")
+            log(f"[constrained deepseek] ({type(m.tokenizer).__name__}, vocab "
+                f"{m.config.vocab_size}, 2 layers): LoadModel {load_s:.2f} s under forced JSON "
+                f"mode ({m.engine.graphs.captures} graphs); a tool-call Infer at t=0.7 parses "
+                f"and conforms: {r.text[:150]!r}; jumps {m.engine.jump_dispatches} carrying "
+                f"{m.engine.jump_tokens} tokens")
+            vocabs["DeepSeek-R1 byte-level"] = m.tokenizer
+            unload(stub, "deepseek-json")
+            path.unlink()
+            qspec = GGUF_FILES["qwen3"]
+            tokens, merges, types = _bpe_vocab(np.random.default_rng([GGUF_SEED + 3, 0]),
+                                               qspec["vocab"], qspec["specials"],
+                                               qspec["special_pad"])
+            vocabs["Qwen3 byte-level"] = ByteLevelBPE(
+                tokens=tokens, merges=merges, token_types=types,
+                eos_id=tokens.index(qspec["specials"][-1]), pre=qspec["pre"])
+            _mask_build_times(vocabs)
+    finally:
+        manager.close()
+        channel.close()
+        server.stop(grace=None)
+        if old_mode is None:
+            os.environ.pop("AIOS_TPU_JSON_MODE", None)
+        else:
+            os.environ["AIOS_TPU_JSON_MODE"] = old_mode
+    torch.cuda.empty_cache()
+
+    # (3) Mistral-7B paged: int4 weights, int8 pool, window 4096
+    os.environ["AIOS_TPU_JSON_MODE"] = "force"
+    manager = ModelManager(num_slots=8, quantize="int4", kv_cache="int8")
+    server, _, port = serve("127.0.0.1:0", manager, block=False)
+    channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = services.AIRuntimeStub(channel)
+    try:
+        m, load_s = _load(manager, stub, "mistral-json", "synthetic://mistral-7b", 8192)
+        eng = m.engine
+        expect(eng.paged and eng.quant_cache and eng.cfg.sliding_window == M_WINDOW
+               and "masked" in eng.graphs, "[constrained mistral] not the paged int8 engine "
+               "with the masked graph")
+        tok = m.tokenizer
+        prompts = [tok.encode(p) for p in CONSTRAINED_PROMPTS] * 2
+        prompts[3] = tok.encode("Explain every alert from the last hour. " * 103)[:4100]
+        reqs = [dict(prompt_ids=p, max_tokens=160, temperature=0.0, stop_ids=(tok.eos_id,),
+                     json_schema=toolcalls_schema(TOOL_CATALOG)) for p in prompts]
+        _reset_counts()
+        hs = [m.batcher.submit(Request(**r)) for r in reqs]
+        outs = [h.tokens() for h in hs]
+        count(_read_counts())
+        for o in outs:
+            text = tok.decode([t for t in o if t != tok.eos_id])
+            expect(_conforms(toolcalls_schema(TOOL_CATALOG), text),
+                   f"[constrained mistral] {text!r}")
+        log(f"[constrained mistral] 8 greedy tool-call requests, one a slot, one with a "
+            f"{len(prompts[3])}-token prompt past the {M_WINDOW}-row window: every reply "
+            f"parses and conforms; {eng.kv_pages_trimmed} pages trimmed, {card}")
+        # a regression gate of the jump tick on a shape where every forced
+        # byte is a singleton state; the orchestrator's tool-call schema
+        # (the next arms) is reported, not gated: on random weights its free
+        # strings are sampled a token at a time and a jump tick stalls the
+        # slots that do not jump, so it saves no dispatches there
+        forced_reqs = [dict(r, json_schema=FORCED_SCHEMA, max_tokens=96) for r in reqs]
+        arms = _jump_arms(m, "[constrained mistral]", forced_reqs, card, "enum-heavy tool-call")
+        expect(arms["off_steps"] >= 2 * arms["on_steps"],
+               f"[constrained mistral] jump-ahead saved less than 2x on the enum-heavy "
+               f"tool call: {arms}")
+        _jump_arms(m, "[constrained mistral]", reqs, card, "tool-call schema")
+        _window_jump("[constrained mistral]", m, card)
+        _constrained_dispatches(
+            "[constrained mistral paged]", eng,
+            {"int4_matmul": 129, "paged_decode_attention_int8": 32},
+            {"int4_matmul": 129, "multiquery_decode_attention_int8": 32}, card,
+            drift_tol=DRIFT_TOL)
+    finally:
+        manager.close()
+        channel.close()
+        server.stop(grace=None)
+        if old_mode is None:
+            os.environ.pop("AIOS_TPU_JSON_MODE", None)
+        else:
+            os.environ["AIOS_TPU_JSON_MODE"] = old_mode
+    torch.cuda.empty_cache()
+    return totals
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -3265,13 +4064,14 @@ def main() -> int:
         card, (phase_dense_serve("mistral"), phase_dense_numerics("mistral")),
         quantize="int4", kv_cache="int8", **dense)
     gguf = phase_gguf(card)
+    constrained = phase_constrained(card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
         r = measured[name]
         tiny[name] += tiny_dense[name]
         mistral[name] += mistral_dense[name]
-        n = tiny[name] + mistral[name] + gguf.get(name, 0)
+        n = tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -3281,7 +4081,8 @@ def main() -> int:
             "library_ms": r["library_ms"],
         })
         log(f"[kernels] {name}: ok, {n} launches while serving ({tiny[name]} TinyLlama, "
-            f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files), "
+            f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files, "
+            f"{constrained.get(name, 0)} constrained), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

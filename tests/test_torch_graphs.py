@@ -321,8 +321,9 @@ def test_a_held_workspace_raises_instead_of_being_replaced():
 def test_the_reserved_workspace_takes_every_launch_a_graph_can_make(
         torch_params, monkeypatch, paged, track, sms=132):
     """An engine reserves its stream's workspace at the largest launch of
-    any graph it can capture (every draft_len spec_step takes), so that a
-    held workspace never has to grow; and the split-K counters."""
+    any graph it can capture (every draft_len spec_step takes, and every
+    jump bucket), so that a held workspace never has to grow; and the
+    split-K counters."""
     stream = 0xCAB1E
 
     class Stream:
@@ -342,8 +343,12 @@ def test_the_reserved_workspace_takes_every_launch_a_graph_can_make(
             for draft_len in range(1, engine_mod.spec.HISTORY_PAD - 1):
                 groups, rows = split.launch_groups(B, KH, (draft_len + 1) * G)
                 split.workspace(dev, stream, groups, splits, D, rows)
-        else:  # a round would need more than a step: nothing reserved for it
-            groups, rows = split.launch_groups(B, KH, 8 * G)
+        else:  # every jump fits; a verify launch of one more query tile would not
+            for kb in engine_mod.JUMP_BUCKETS:
+                groups, rows = split.launch_groups(B, KH, (kb + 1) * G)
+                split.workspace(dev, stream, groups, splits, D, rows)
+            largest = -(-(engine_mod.JUMP_BUCKETS[-1] + 1) * G // split.MQ_BLOCK_ROWS)
+            groups, rows = split.launch_groups(B, KH, largest * split.MQ_BLOCK_ROWS + G)
             with pytest.raises(RuntimeError, match="held"):
                 split.workspace(dev, stream, groups, splits, D, rows)
         assert qmm.counters_for(dev, stream) is qmm._counters[key]

@@ -32,6 +32,7 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
         "import aios_tpu_torch, aios_tpu_torch.runtime.service\n"
         "import aios_tpu_torch.engine.engine, aios_tpu_torch.ops\n"
         "import aios_tpu_torch.engine.spec, aios_tpu_torch.engine.batching\n"
+        "import aios_tpu_torch.engine.jsonmode, aios_tpu_torch.engine.jsonschema\n"
         "import aios_tpu_torch.ops.decode_attention, aios_tpu_torch.ops.verify_attention\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'aios_tpu' or n.startswith('aios_tpu.'))\n"

@@ -358,7 +358,7 @@ def test_contract_faults_name_the_group_and_the_matmul_leaves():
     assert faults == [
         "paged_decode_attention (K3): H/KH = 40/4, needs H % KH == 0 and H/KH <= 8",
         "paged decode attention: 4096 pages per slot, at most 2048",
-        "multiquery_decode_attention (K6), chunked admission: H/KH = 40/4, needs "
+        "multiquery_decode_attention (K6), chunked admission and jump: H/KH = 40/4, needs "
         "H % KH == 0 and H/KH <= 8",
         "quantized_matmul (K1): w_gateup [K=5120, N=34808]: the int8 matmul kernel needs "
         "K % 8 == 0 and N % 16 == 0",

@@ -207,10 +207,10 @@ def test_gguf_tokenizer_dispatch_matches_jax():
 
 
 def test_unicode_classes_match_regex_on_assigned_code_points():
-    """The classes built from unicodedata against the regex package's
-    \\p{L}, \\p{N} and \\s over every code point assigned in the standard
-    library's Unicode version; and the pretokenizers split a string of all
-    of them alike."""
+    """The classes built from the checked-in table against the regex
+    package's \\p{L}, \\p{N} and \\s over every code point assigned in the
+    standard library's Unicode version; and the pretokenizers split a string
+    of all of them alike."""
     assigned = "".join(chr(c) for c in range(0x110000)
                        if unicodedata.category(chr(c)) != "Cn"
                        and not 0xD800 <= c <= 0xDFFF)
@@ -221,6 +221,40 @@ def test_unicode_classes_match_regex_on_assigned_code_points():
     sample = assigned[::97] + " 'S 'll\r\n 12345 "
     for family, pattern in tt._PRE_PATTERNS.items():
         assert tt._compile_pre(pattern).findall(sample) == regex.findall(pattern, sample)
+
+
+# every code point but the surrogates, which no text the tokenizer is given holds
+ALL_CODE_POINTS = "".join(chr(c) for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF)
+
+
+@pytest.mark.parametrize("name,pattern", [("L", r"\p{L}"), ("N", r"\p{N}"), ("s", r"\s")])
+def test_unicode_classes_match_regex_on_every_code_point(name, pattern):
+    """The pretokenizer's classes match what the installed regex package
+    matches on every code point, the ones assigned after the standard
+    library's Unicode version included, and the table was taken from that
+    regex version."""
+    from aios_tpu_torch.engine import unicode_classes
+
+    assert unicode_classes.REGEX_VERSION == regex.__version__
+    tt._compile_pre("")  # builds the classes
+    got = re.findall(f"[{tt._CLASSES[name]}]", ALL_CODE_POINTS)
+    assert got == regex.findall(pattern, ALL_CODE_POINTS)
+
+
+LATE_CODE_POINTS = "ab\u088fcd 12"  # U+088F: a letter assigned after Unicode 15.0
+
+
+@pytest.mark.parametrize("pre", PRES)
+def test_code_points_assigned_after_unicode_15_split_and_encode_as_jax(pre):
+    """U+088F is a letter to regex and unassigned to Python 3.12's
+    unicodedata: the port's pretokenizer splits the text where the JAX one
+    does, and the ids are the JAX ids."""
+    jax_tok, port = BPE[pre]
+    assert port._pat.findall(LATE_CODE_POINTS) == jax_tok._pat.findall(LATE_CODE_POINTS)
+    assert any("\u088f" in w and "ab" in w for w in port._pat.findall(LATE_CODE_POINTS))
+    ids = port.encode(LATE_CODE_POINTS)
+    assert ids == jax_tok.encode(LATE_CODE_POINTS)
+    assert port.decode(ids) == LATE_CODE_POINTS
 
 
 def test_tokenizer_needs_no_regex_package():
