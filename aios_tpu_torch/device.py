@@ -28,3 +28,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         # workspaces are keyed by it)
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# The abort reason of every request a device fault ends, and the prefix of
+# the error its model then reports.
+DEVICE_FAULT_REASON = "device fault"
+
+
+class DeviceFault(RuntimeError):
+    """A submit to a model whose device faulted: nothing on it can run
+    again in this process, so the caller must not retry here."""
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is a CUDA error. Such an error is sticky: it poisons
+    the process's CUDA context, which every replica of a card shares, so no
+    respawn or retry can get past it (``torch.AcceleratorError``, or a
+    RuntimeError whose text starts with "CUDA error" on a build without that
+    class)."""
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error")

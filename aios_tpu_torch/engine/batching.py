@@ -38,6 +38,24 @@ rows, cached on the device per automaton state; unconstrained slots decode
 in the same step with zero rows. Attaching captures every jump bucket when
 the engine holds the masked graph.
 
+For the serving plane (``serving/``) the batcher carries what the JAX
+batcher gives its replica pool: each request's flight-recorder timeline
+(``Request.rec``: queue wait, one event per prefill, chunk and dispatch, the
+terminal event) and its failover controller (``Request.failover``: an
+abort the controller claims leaves the terminal event to it), the live
+numbers the router and admission read (``outstanding_tokens``,
+``tokens_per_second``, ``active_count``, ``queue_wait_obs``), the degrade
+switches (``degrade_spec``, ``degrade_jump``), the metric families of
+``obs/instruments.py`` and two fault points: ``dispatch.delay`` before a
+decode dispatch and ``pool.scheduler_crash`` on a tick with live slots.
+A scheduler failure aborts every outstanding request (slots and their
+page references released) and is kept in ``last_error``; the pool then
+respawns the batcher over the same engine. A CUDA error is not such a
+failure: it poisons the context every replica shares, so the scheduler
+aborts its requests with ``device fault`` (no cause failover retries),
+keeps the error in ``device_fault``, calls ``on_device_fault`` and stops;
+nothing respawns it.
+
 Not here yet: the pipelined decode loop and the draft-model proposer.
 """
 
@@ -49,12 +67,17 @@ import os
 import queue
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import faults
+from ..device import DEVICE_FAULT_REASON, is_device_fault
+from ..obs import flightrec
+from ..obs import instruments as obs
 from . import jsonmode, jsonschema
 from .engine import (JUMP_BUCKETS, SPEC_DRAFT_LEN, SPEC_NGRAM, ChunkedPrefill, TorchEngine,
                      jump_ahead_enabled)
@@ -79,6 +102,9 @@ ADMIT_CHUNK_STEPS = 2
 SPEC_REPROBE_SECS = 10.0
 SPEC_EWMA_ALPHA = 0.3
 SPEC_PROBE_DISPATCHES = 3
+
+# Backoff hint of a retryable abort (the JAX batcher's default).
+DEFAULT_RETRY_AFTER_MS = 1000
 
 
 def _env_float(name: str, ok, why: str) -> Optional[float]:
@@ -113,6 +139,14 @@ class Request:
     json_schema: Optional[dict] = None
     # admission priority: higher admits first when slots are contended
     priority: int = 0
+    # flight-recorder timeline riding the request through admission ->
+    # routing -> scheduling; opened by the runtime service, the pool or the
+    # batcher, whoever sees the request first. None when recording is off.
+    rec: object = field(default=None, repr=False, compare=False)
+    # transparent-failover controller (serving/failover.py), set by the
+    # pool: it claims a retryable abort's terminal event and resumes the
+    # stream on a surviving replica. None = no failover.
+    failover: object = field(default=None, repr=False, compare=False)
 
 
 @dataclass
@@ -123,6 +157,7 @@ class _Live:
     out_q: "queue.Queue" = field(default_factory=queue.Queue)
     first_token_at: float = 0.0
     submitted_at: float = 0.0
+    admitted_at: float = 0.0  # first slot assignment (queue-wait boundary)
     done: bool = False
     cancelled: bool = False
     # non-empty when the request was ABORTED (eviction, scheduler failure,
@@ -162,6 +197,18 @@ class RequestHandle:
     @property
     def abort_reason(self) -> str:
         return self._live.abort_reason
+
+    @property
+    def retry_after_ms(self) -> int:
+        """Backoff hint of a RETRYABLE abort (0 when not aborted, or when a
+        retry cannot help); the runtime service returns it as
+        ``retry-after-ms`` trailing metadata."""
+        reason = self._live.abort_reason
+        if not reason:
+            return 0
+        if flightrec.abort_cause(reason) in flightrec.RETRYABLE_ABORT_CAUSES:
+            return DEFAULT_RETRY_AFTER_MS
+        return 0
 
     @property
     def ttft_ms(self) -> float:
@@ -225,13 +272,16 @@ class ContinuousBatcher:
         self._spec_probe_left = {p: 0 for p in self.spec_proposers}
         self._spec_probe_seen = {p: 0 for p in self.spec_proposers}
         self.spec_autodisables = 0
-        # set from outside to shed speculation under load; greedy streams
-        # are the same either way, so a flip mid-stream perturbs nothing
+        # the degrade ladder's switches (ReplicaPool.set_degrade_level):
+        # speculation first, then grammar jump-ahead; greedy streams are the
+        # same either way, so a flip mid-stream perturbs nothing (plain bool
+        # stores, flipped cross-thread)
         self.degrade_spec = False
+        self.degrade_jump = False
         # grammar jump-ahead: chains of grammar-FORCED tokens emit host-side
         # and append their K/V in one multi-token dispatch (over the pool
-        # too: the jump's verify forward is verify_step_paged); greedy
-        # streams are the same either way, so it may be flipped mid-stream
+        # too: the jump's verify forward is verify_step_paged); the
+        # degrade ladder sheds it through degrade_jump
         if jump_ahead is None:
             jump_ahead = jump_ahead_enabled(engine.cfg)
         self.jump_ahead = bool(jump_ahead)
@@ -250,6 +300,10 @@ class ContinuousBatcher:
         self.completed = 0
         self.tokens_emitted = 0
         self.last_error: Optional[BaseException] = None
+        # a CUDA error that stopped the scheduler for good, and the hook the
+        # pool sets to hear of it (called once, on the scheduler thread)
+        self.device_fault: Optional[BaseException] = None
+        self.on_device_fault = None
         self._closed = False
         self._waiting: "deque[_Live]" = deque()  # guarded by _qlock
         self._qlock = threading.Lock()
@@ -262,6 +316,30 @@ class ContinuousBatcher:
         self._wake = threading.Event()
         self._stop = False
         self._ids = itertools.count()
+        # metric children resolved once (labels() is a locked dict lookup);
+        # the queue-depth gauge reads live state through a weakref
+        model_name = engine.cfg.name
+        self._obs_tokens = obs.ENGINE_TOKENS.labels(model=model_name)
+        self._obs_ttft = obs.ENGINE_TTFT.labels(model=model_name)
+        self._obs_completed = obs.ENGINE_REQUESTS_COMPLETED.labels(model=model_name)
+        self._obs_cancelled = obs.ENGINE_REQUESTS_CANCELLED.labels(model=model_name)
+        self._obs_evictions = obs.ENGINE_POOL_EVICTIONS.labels(model=model_name)
+        self._obs_tps = obs.ENGINE_TOKENS_PER_SECOND.labels(model=model_name)
+        ref = weakref.ref(self)
+        obs.ENGINE_QUEUE_DEPTH.labels(model=model_name).set_function(
+            lambda: float(ref().queue_depth()) if ref() is not None else 0.0)
+        # tokens/sec over a ~1 s window, refreshed by the scheduler; last_tps
+        # keeps the last non-zero rate, so that the deadline gate's estimate
+        # survives idle gaps
+        self._rate_tokens = 0
+        self._rate_t0 = time.monotonic()
+        self.last_tps = 0.0
+        # the host gap between decode dispatches (None after an idle tick)
+        self._gap_mark: Optional[float] = None
+        self._prefill_chunks = 0  # chunks run, for the timelines
+        # serving-layer hook: a Histogram child observed with each admitted
+        # request's submit -> slot wait (the pool sets it)
+        self.queue_wait_obs = None
         # the graphs of this batcher's dispatches, before any dispatch (the
         # JAX batcher's attach compiles its missing sizes); a failed capture
         # raises here
@@ -285,6 +363,38 @@ class ContinuousBatcher:
         """Requests waiting for a slot, the admission in flight included."""
         with self._qlock:
             return len(self._waiting) + (self._prefilling is not None)
+
+    def outstanding_tokens(self) -> int:
+        """Work queued on this batcher, in tokens: a waiting request counts
+        prompt + budget, a live one its remaining budget, each capped at
+        what the cache can hold (a prompt keeps its last max_context - 1
+        ids, and decode retires at the cache end). The router's
+        least-loaded score and the deadline gate read it."""
+        cap = self.engine.max_context
+        with self._qlock:
+            waiting = list(self._waiting)
+            if self._prefilling is not None:
+                waiting.append(self._prefilling[0])
+        total = 0
+        for l in waiting:
+            p = min(len(l.req.prompt_ids), cap - 1)
+            total += p + max(min(l.req.max_tokens, cap - p), 0)
+        with self._lock:
+            total += sum(
+                max(min(l.req.max_tokens - l.produced,
+                        cap - self.engine.slot_length(l.slot)), 0)
+                for l in self._live.values())
+        return total
+
+    def tokens_per_second(self) -> float:
+        """The last non-zero observed decode rate (tokens/sec across all
+        slots); 0.0 until the first measured window."""
+        return self.last_tps
+
+    @property
+    def active_count(self) -> int:
+        with self._lock:
+            return len(self._live)
 
     def _token_bytes(self):
         """The shared token->bytes table (built once; caller holds the
@@ -345,6 +455,14 @@ class ContinuousBatcher:
             raise ValueError("empty prompt")
         if not req.request_id:
             req.request_id = f"req-{next(self._ids)}"
+        if req.rec is None:
+            # direct batcher callers still get a timeline; served requests
+            # arrive with one already open
+            req.rec = flightrec.RECORDER.begin(
+                self.engine.cfg.name, req.request_id,
+                prompt_tokens=len(req.prompt_ids), priority=req.priority)
+        elif not req.rec.request_id:
+            req.rec.request_id = req.request_id  # the id assigned above
         live = _Live(req=req, slot=-1, submitted_at=time.monotonic())
         if req.json_schema is not None:
             # built on the caller's thread: fail fast, and keep the vocab
@@ -362,6 +480,8 @@ class ContinuousBatcher:
         with self._qlock:
             if self._closed:
                 raise RuntimeError("batcher is shut down")
+            if self.device_fault is not None:
+                raise RuntimeError(f"{DEVICE_FAULT_REASON}: {self.device_fault!r}")
             self._waiting.append(live)
         self._wake.set()
         return RequestHandle(live, self)
@@ -379,6 +499,8 @@ class ContinuousBatcher:
             log.error("batcher scheduler did not stop after 70s; outstanding "
                       "requests are NOT terminated (wedged dispatch?)")
             return
+        # zeroed after the join, so that a last tick cannot set it again
+        self._obs_tps.set(0.0)
         self._terminate_outstanding("model unloading")
 
     # -- scheduler loop -------------------------------------------------------
@@ -393,6 +515,7 @@ class ContinuousBatcher:
         if self._prefilling is None:
             return
         live, pc = self._prefilling
+        t0, pos0, reused0 = time.monotonic(), pc.pos, self.engine.prefix_rows_reused
         while True:
             try:
                 first = pc.step()
@@ -407,14 +530,19 @@ class ContinuousBatcher:
                     live.done = True
                     live.abort_reason = "evicted: KV pool exhausted"
                     self.engine.release(live.slot)
+                    self._rec_close(live)
                     live.out_q.put(_END)
                     return
+        # tokens = rows consumed by this chunk (the final one is partial)
+        self._prefill_chunks += 1
+        self._rec_prefill(live, pc.pos - pos0, t0, reused0, chunk=self._prefill_chunks)
         if first is not None:
             self._prefilling = None
             self._reserved_slot = -1
             if live.constraint is not None:
                 first = self._constrained_first(live, first)
             live.first_token_at = time.monotonic()
+            self._obs_ttft.observe(live.first_token_at - live.submitted_at)
             with self._lock:
                 self._live[live.slot] = live
             self._emit(live, first)
@@ -435,6 +563,17 @@ class ContinuousBatcher:
                     + (now - l.submitted_at) / PRIORITY_AGING_SECS,
                 )
                 self._waiting.remove(live)
+            if not live.admitted_at:
+                # the first slot assignment ends the queue wait (requeues
+                # keep their original boundary)
+                live.admitted_at = time.monotonic()
+                wait = live.admitted_at - live.submitted_at
+                if self.queue_wait_obs is not None:
+                    self.queue_wait_obs.observe(wait)
+                rec = live.req.rec
+                if rec is not None:
+                    rec.queue_wait_ms = wait * 1000.0
+                    rec.event("queue", wait_ms=round(wait * 1000.0, 3))
             slot = free[0]
             live.slot = slot
             ids = live.req.prompt_ids
@@ -451,6 +590,7 @@ class ContinuousBatcher:
                             "KV page pool; failing it", live.req.request_id, len(ids))
                 live.done = True
                 live.abort_reason = "prompt exceeds the KV page pool"
+                self._rec_close(live)
                 live.out_q.put(_END)
                 continue
             if self.prefill_chunk is not None and len(ids) > self.prefill_chunk:
@@ -464,6 +604,7 @@ class ContinuousBatcher:
                     chunk=self.prefill_chunk))
                 self._reserved_slot = slot
                 continue
+            t0, reused0 = time.monotonic(), self.engine.prefix_rows_reused
             try:
                 first = self.engine.prefill(
                     slot, ids, temperature=live.req.temperature, top_p=live.req.top_p
@@ -477,13 +618,16 @@ class ContinuousBatcher:
                         self._waiting.popleft()
                     live.done = True
                     live.abort_reason = "prompt exceeds the KV page pool"
+                    self._rec_close(live)
                     live.out_q.put(_END)
                 # "blocked": only higher-priority streams hold the pool, the
                 # admission waits for them; "evicted": retry next pass
                 return
+            self._rec_prefill(live, min(len(ids), self.engine.max_context - 1), t0, reused0)
             if live.constraint is not None:
                 first = self._constrained_first(live, first)
             live.first_token_at = time.monotonic()
+            self._obs_ttft.observe(live.first_token_at - live.submitted_at)
             with self._lock:
                 self._live[slot] = live
             self._emit(live, first)
@@ -505,6 +649,8 @@ class ContinuousBatcher:
             return  # reaped (slot freed) at the next tick boundary
         live.produced += 1
         self.tokens_emitted += 1
+        self._obs_tokens.inc()
+        self._rate_tokens += 1
         live.out_q.put(token)
         hit_stop = token in live.req.stop_ids
         out_of_budget = live.produced >= live.req.max_tokens
@@ -522,8 +668,11 @@ class ContinuousBatcher:
         self.engine.release(live.slot)
         if was_cancelled:
             self.cancellations += 1
+            self._obs_cancelled.inc()
         else:
             self.completed += 1
+            self._obs_completed.inc()
+        self._rec_close(live)
         # _END goes last: when a consumer unblocks, the slot is already free
         live.out_q.put(_END)
 
@@ -538,6 +687,8 @@ class ContinuousBatcher:
         for live in dropped:
             live.done = True
             self.cancellations += 1
+            self._obs_cancelled.inc()
+            self._rec_close(live)
             live.out_q.put(_END)
         if self._prefilling is not None and self._prefilling[0].cancelled:
             # a cancelled admission releases its reserved slot mid-prefill
@@ -568,12 +719,14 @@ class ContinuousBatcher:
                     "%d rows) to free pages", victim.req.request_id,
                     victim.req.priority, self.engine.slot_length(victim.slot))
         self.pool_evictions += 1
+        self._obs_evictions.inc()
         self._finish(victim, abort_reason="evicted: KV pool exhausted")
         return "evicted"
 
     def _terminate_outstanding(self, reason: str) -> None:
-        """End every live and queued request with ``reason`` as its abort;
-        called when no scheduler pass will run again."""
+        """End every live and queued request with ``reason`` as its abort,
+        releasing its slot and the slot's page references; called on a
+        scheduler failure and at shutdown."""
         victims: List[_Live] = []
         if self._prefilling is not None:
             victims.append(self._prefilling[0])
@@ -590,6 +743,7 @@ class ContinuousBatcher:
             live.abort_reason = reason
             if live.slot >= 0:
                 self.engine.release(live.slot)
+            self._rec_close(live)
             live.out_q.put(_END)
 
     def _run(self) -> None:
@@ -598,8 +752,90 @@ class ContinuousBatcher:
                 self._tick()
             except Exception as exc:  # noqa: BLE001 - the loop must survive
                 self.last_error = exc
+                if is_device_fault(exc):
+                    # sticky: no later launch in this process can succeed, so
+                    # the requests end with a cause nothing retries, and the
+                    # scheduler stops rather than loop on a dead context
+                    # (the owner hears first, so a client that sees its
+                    # abort finds the model already out of service)
+                    self.device_fault = exc
+                    log.exception("CUDA error in the scheduler; the device is lost")
+                    try:
+                        if self.on_device_fault is not None:
+                            self.on_device_fault(exc)
+                    finally:
+                        self._terminate_outstanding(f"{DEVICE_FAULT_REASON}: {exc!r}"[:200])
+                    return
+                # a scheduler failure must surface, not strand callers: every
+                # outstanding request aborts and the pool respawns the batcher
                 log.exception("continuous batcher scheduler failed; aborting requests")
                 self._terminate_outstanding(f"scheduler failed: {exc!r}"[:200])
+
+    def _note_dispatch(self) -> Optional[float]:
+        """Call just before a decode dispatch: returns the host gap since the
+        previous one ends (None after an idle tick) and runs the
+        ``dispatch.delay`` fault point, whose sleep lands in that gap."""
+        act = faults.point("dispatch.delay", self.engine.cfg.name)
+        if act is not None and act.delay_s > 0:
+            time.sleep(act.delay_s)
+        if self._gap_mark is None:
+            return None
+        return max(time.monotonic() - self._gap_mark, 0.0)
+
+    # -- flight-recorder hooks (obs/flightrec.py) ---------------------------------
+    # One event per DISPATCH per live request, never per token; a request
+    # without a timeline costs nothing.
+
+    def _rec_dispatch(self, lives, kind: str, n: int, gap: Optional[float],
+                      dur_s: float, **extra) -> None:
+        fields = dict(n=n, occ=len(lives), **extra)
+        if gap is not None:
+            fields["gap_ms"] = round(gap * 1e3, 3)
+        fields["dur_ms"] = round(dur_s * 1e3, 3)
+        for live in lives:
+            rec = live.req.rec
+            if rec is not None and not live.done:
+                rec.event(kind, **fields)
+
+    def _rec_prefill(self, live: _Live, tokens: int, t0: float, reused0: int,
+                     chunk: Optional[int] = None) -> None:
+        rec = live.req.rec
+        if rec is None:
+            return
+        fields = dict(tokens=tokens, dur_ms=round((time.monotonic() - t0) * 1e3, 3))
+        cached = self.engine.prefix_rows_reused - reused0
+        if cached:
+            fields["cached_rows"] = int(cached)
+        if chunk is not None:
+            fields["chunk"] = chunk
+        rec.event("prefill", **fields)
+
+    def _rec_close(self, live: _Live) -> None:
+        """Finalize the request's timeline, on every end-of-life path, just
+        before its end of stream. Accounting is cumulative over the timeline
+        (under failover one request spans several attempts): tokens add up,
+        TTFT anchors to the timeline's origin, TPOT spreads the rest of the
+        wall over every token the client received. An abort that the
+        request's failover controller claims leaves the terminal event to
+        the controller."""
+        rec = live.req.rec
+        if rec is None:
+            return
+        rec.tokens_out += live.produced
+        if live.first_token_at and not rec.ttft_ms:
+            rec.ttft_ms = (live.first_token_at - rec.t0) * 1000.0
+        if rec.ttft_ms and rec.tokens_out > 1:
+            rec.tpot_ms = (((time.monotonic() - rec.t0) * 1000.0 - rec.ttft_ms)
+                           / (rec.tokens_out - 1))
+        if live.abort_reason:
+            fo = live.req.failover
+            if fo is not None and fo.claims(live.abort_reason):
+                return
+            flightrec.RECORDER.finish(rec, "aborted", abort_reason=live.abort_reason)
+        elif live.cancelled:
+            flightrec.RECORDER.finish(rec, "cancelled")
+        else:
+            flightrec.RECORDER.finish(rec, "retired")
 
     # -- speculation auto-disable (per-proposer EWMA acceptance floor) ---------
 
@@ -670,8 +906,12 @@ class ContinuousBatcher:
         """One speculative dispatch of ``n`` rounds: emit each round's
         accepted run in order; ``_emit`` retires requests inside the dispatch
         as usual."""
+        gap = self._note_dispatch()
+        t0 = time.monotonic()
         tokens, counts = self.engine.spec_step(
             n, draft_len=self.spec_draft_len, ngram=self.spec_ngram)
+        self._gap_mark = time.monotonic()
+        dur_ms = round((self._gap_mark - t0) * 1e3, 3)
         consumed: Dict[int, int] = {}
         for r in range(tokens.shape[0]):
             for slot, live in slots.items():
@@ -682,6 +922,15 @@ class ContinuousBatcher:
                     self._emit(live, int(tokens[r, slot, j]))
                     if live.done:
                         break
+        for slot, live in slots.items():
+            rounds = consumed.get(slot)
+            if live.req.rec is not None and rounds:
+                # emitted = rounds + accepted drafts of the slot's served rounds
+                live.req.rec.event(
+                    "spec", rounds=rounds, proposer=proposer,
+                    emitted=int(counts[:rounds, slot].sum()),
+                    draft_len=self.spec_draft_len, dur_ms=dur_ms,
+                    **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}))
         self._spec_measure(proposer, counts, consumed)
 
     # -- grammar jump-ahead (compressed-FSM run collapse) ----------------------
@@ -720,13 +969,21 @@ class ContinuousBatcher:
             forced[s, : len(run)] = run
             counts[s] = len(run)
         try:
+            gap = self._note_dispatch()
+            t0 = time.monotonic()
             self.engine.jump_step(forced, counts)
+            self._gap_mark = time.monotonic()
         except PoolExhausted:
             self._evict_longest()  # retry next tick
             return True
         by_slot = dict(constrained)
+        dur_ms = round((self._gap_mark - t0) * 1e3, 3)
         for s in sorted(runs):
             live = by_slot[s]
+            if live.req.rec is not None and not live.done:
+                live.req.rec.event(
+                    "jump", k=len(runs[s]), occ=len(runs), dur_ms=dur_ms,
+                    **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}))
             for tok in runs[s]:
                 if live.done:
                     break
@@ -740,15 +997,20 @@ class ContinuousBatcher:
         pays, else one masked step, the constrained slots' rows (cached on
         the device per automaton state) copied into the engine's mask, the
         other slots' rows zero."""
-        if self.jump_ahead and self._jump_tick(constrained):
+        if self.jump_ahead and not self.degrade_jump and self._jump_tick(constrained):
             return
         rows = {s: live.constraint.device_mask(
             remaining=live.req.max_tokens - live.produced) for s, live in constrained}
         try:
+            gap = self._note_dispatch()
+            t0 = time.monotonic()
             tokens = self.engine.step_masked(rows)
+            self._gap_mark = time.monotonic()
         except PoolExhausted:
             self._evict_longest()
             return
+        self._rec_dispatch(slots.values(), "decode", 1, gap, self._gap_mark - t0,
+                           constrained=True)
         for slot, live in slots.items():
             if live.done:
                 continue
@@ -758,12 +1020,28 @@ class ContinuousBatcher:
             self._emit(live, tok)
 
     def _tick(self) -> None:
+        now = time.monotonic()
+        if now - self._rate_t0 >= 1.0:
+            rate = self._rate_tokens / (now - self._rate_t0)
+            self._obs_tps.set(rate)
+            if rate > 0:
+                self.last_tps = rate
+            self._rate_tokens = 0
+            self._rate_t0 = now
         self._reap_cancelled()
         self._advance_prefill()
         self._admit()
         with self._lock:
             slots = dict(self._live)
+        if slots:
+            # chaos: a scheduler crash mid-decode, gated on live slots so
+            # that idle ticks consume no hits (nth:N counts decode ticks)
+            act = faults.point("pool.scheduler_crash", self.engine.cfg.name)
+            if act is not None:
+                raise faults.InjectedFault(
+                    f"injected scheduler crash ({act.mode}, hit {act.hit})")
         if not slots:
+            self._gap_mark = None
             if self._prefilling is not None:
                 return  # nothing to decode; keep chunking
             self._wake.wait(timeout=0.05)
@@ -787,12 +1065,16 @@ class ContinuousBatcher:
             self._spec_tick(proposer, n, slots)
             return
         try:
+            gap = self._note_dispatch()
+            t0 = time.monotonic()
             tokens = self.engine.step(n)  # [n, num_slots]
+            self._gap_mark = time.monotonic()
         except PoolExhausted:
             # the failed ensure() left engine state untouched: retire a
             # victim and retry on the next tick
             self._evict_longest()
             return
+        self._rec_dispatch(slots.values(), "decode", n, gap, self._gap_mark - t0)
         for step_row in tokens:
             for slot, live in slots.items():
                 if not live.done:

@@ -1,10 +1,11 @@
 """Model configurations for the Llama-family decoder (the dense presets).
 
 A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
-``ModelConfig`` geometry fields and ``jump_ahead``, the dense presets, the
-tiny test config and ``from_gguf_metadata``. The serving knobs that ride on the JAX package's
-config (replicas, prefix host tier, megagraph, speculation, compression,
-MoE) belong to features the port has not reached yet, so a GGUF file of a
+``ModelConfig`` geometry fields, ``jump_ahead``, ``replicas`` and
+``draft_model``, the dense presets, the tiny test config and
+``from_gguf_metadata``. The serving knobs that ride on the JAX package's
+config (prefix host tier, megagraph, speculation, compression, MoE) belong
+to features the port has not reached yet, so a GGUF file of a
 mixture-of-experts model is refused.
 """
 
@@ -35,6 +36,12 @@ class ModelConfig:
     # append their K/V in ONE multi-token dispatch instead of one masked
     # dispatch each. AIOS_TPU_JUMP_AHEAD overrides at load time.
     jump_ahead: bool = True
+    # serving replicas per managed model (serving/): N engine+batcher
+    # replicas behind one cache-aware router; AIOS_TPU_REPLICAS overrides
+    replicas: int = 1
+    # draft-model speculation source (AIOS_TPU_DRAFT_MODEL overrides); the
+    # port has no draft proposer yet and serves without it
+    draft_model: str = ""
 
     @property
     def q_dim(self) -> int:

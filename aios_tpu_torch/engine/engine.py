@@ -617,6 +617,35 @@ class TorchEngine:
             self._backfill_history(slot, ids[:matched])
         return matched, hashes
 
+    def prefix_hashes(self, token_ids: List[int]) -> List[bytes]:
+        """Chain hashes of the prompt's full blocks, truncated as admission
+        truncates: computed once per request by the serving pool and shared
+        by its replicas' overlap probes (replicas of one model share page
+        size and truncation)."""
+        if self.prefix_index is None:
+            return []
+        ids = list(token_ids)[-(self.max_context - 1):]
+        P = self.allocator.page_size
+        full = (len(ids) - 1) // P
+        if full <= 0:
+            return []
+        return paged.chain_hashes(ids, P, full)
+
+    def prefix_overlap_rows(self, token_ids: List[int],
+                            hashes: Optional[List[bytes]] = None) -> int:
+        """How many leading prompt rows this engine's prefix index holds: the
+        router's cache-aware score. Read-only: no hit or miss counted, no
+        LRU refresh, no page mapped, and only the index's own lock taken,
+        never the engine's, so a replica mid-dispatch cannot stall routing.
+        0 without an index or when no full block matches."""
+        if self.prefix_index is None:
+            return 0
+        if hashes is None:
+            hashes = self.prefix_hashes(token_ids)
+        if not hashes:
+            return 0
+        return self.prefix_index.peek(hashes) * self.allocator.page_size
+
     def _backfill_history(self, slot: int, ids: List[int]) -> None:
         """Write a prefix hit's matched tokens into the history of ``slot``:
         the twin of the JAX ``compile_hist_fn``, which compiles this write

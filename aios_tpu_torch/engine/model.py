@@ -196,6 +196,21 @@ def quantize_params(params: Params, include_head: bool = True,
     return out
 
 
+def serving_weight_bytes(params: Params) -> int:
+    """Bytes of weight data a decode step streams (every layer leaf and the
+    lm_head, scales included; the embedding gather reads one row): the JAX
+    package's ``serving_weight_bytes``."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, torch.Tensor):
+            yield tree
+
+    return sum(t.numel() * t.element_size()
+               for t in (*leaves(params["layers"]), *leaves(params.get("lm_head", {}))))
+
+
 def is_quantized(params: Params) -> bool:
     """Whether the layers hold serving leaves (int8 {"q", "s"} or int4
     {"q4", "s4"})."""

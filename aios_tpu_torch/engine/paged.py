@@ -22,7 +22,8 @@ Copies of ``PageAllocator``, ``PoolExhausted``, ``chain_hashes``,
 window trimming included, without what the port has not reached yet
 (replica partitions, window+sink pruning, the host spill tier and the
 fleet digest). The caller (the engine, under its lock) serializes access to
-the allocator; each index also has a lock of its own.
+the allocator; each index also has a lock of its own. The allocator's
+``allocator.pressure`` fault point raises ``PoolExhausted`` on demand.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import faults
 
 SACRIFICIAL_PAGE = 0
 
@@ -90,6 +93,11 @@ class PageAllocator:
         return -(-rows // self.page_size)
 
     def _take(self, grow: int) -> None:
+        act = faults.point("allocator.pressure")
+        if act is not None:
+            # chaos: synthetic pool pressure, through the real PoolExhausted
+            # recovery (a victim's eviction at a decode grow or an admission)
+            raise PoolExhausted(grow, len(self._free))
         if grow > len(self._free) and self.reclaimer is not None:
             self.reclaimer(grow - len(self._free))
         if grow > len(self._free):

@@ -1,0 +1,142 @@
+"""The port's metric catalog: the instruments its serving plane registers.
+
+Copied from ``aios_tpu/obs/instruments.py``: the families that the replica
+pool, admission, failover, the batcher, the runtime service and the fault
+points touch, under the JAX package's names. The names do not collide when
+both packages run in one process (the parity tests): each package's
+instruments register in its own ``metrics.REGISTRY``, so one name lives
+once in each registry and never twice in one. The other JAX families (RPC
+interceptors, devprof, SLOs, the autoscaler, the fleet plane, the tsdb)
+wait for the modules that emit them. An HTTP ``/metrics`` endpoint is not
+ported yet: ``metrics.REGISTRY.render()`` gives the exposition text.
+
+Hot paths resolve label children once and hold them (``labels()`` is a
+dict lookup under a lock, fine per request, too slow per decoded token).
+"""
+
+from __future__ import annotations
+
+from .metrics import Counter, Gauge, Histogram
+
+# -- engine: the continuous batcher -----------------------------------------
+
+ENGINE_TOKENS = Counter(
+    "aios_tpu_engine_generated_tokens_total",
+    "Tokens emitted to request streams by the continuous batcher",
+    ("model",),
+)
+
+ENGINE_TOKENS_PER_SECOND = Gauge(
+    "aios_tpu_engine_tokens_per_second",
+    "Recent decode throughput per model (tokens/sec/chip, ~1 s window)",
+    ("model",),
+)
+
+ENGINE_TTFT = Histogram(
+    "aios_tpu_engine_ttft_seconds",
+    "Submission -> first sampled token through the continuous batcher",
+    ("model",),
+)
+
+ENGINE_QUEUE_DEPTH = Gauge(
+    "aios_tpu_engine_queue_depth_total",
+    "Requests waiting for a slot (admission backlog, scrape-time)",
+    ("model",),
+)
+
+ENGINE_REQUESTS_COMPLETED = Counter(
+    "aios_tpu_engine_requests_completed_total",
+    "Requests retired normally (EOS / max_tokens / full cache)",
+    ("model",),
+)
+
+ENGINE_REQUESTS_CANCELLED = Counter(
+    "aios_tpu_engine_requests_cancelled_total",
+    "Requests cancelled by the caller (gRPC disconnect, unload)",
+    ("model",),
+)
+
+ENGINE_POOL_EVICTIONS = Counter(
+    "aios_tpu_engine_pool_evictions_total",
+    "Live requests retired to free KV pages under pool exhaustion",
+    ("model",),
+)
+
+# -- runtime service -------------------------------------------------------
+
+RUNTIME_INFER_LATENCY = Histogram(
+    "aios_tpu_runtime_infer_latency_seconds",
+    "Per-model inference RPC wall time (rpc = Infer|StreamInfer)",
+    ("model", "rpc"),
+)
+
+RUNTIME_STREAM_CHUNKS = Counter(
+    "aios_tpu_runtime_stream_chunks_total",
+    "Text chunks emitted by StreamInfer",
+    ("model",),
+)
+
+# -- serving layer (replica pool, router, admission, failover) --------------
+# Labeled by the MANAGED model name (pool name), not the config name;
+# ``replica`` is the replica index (bounded by the replica count).
+
+SERVING_REPLICAS = Gauge(
+    "aios_tpu_serving_replicas_total",
+    "Live replicas in the pool (scrape-time)",
+    ("model",),
+)
+
+SERVING_REPLICA_OCCUPANCY = Gauge(
+    "aios_tpu_serving_replica_occupancy_ratio",
+    "Per-replica active decode slots / total slots (scrape-time)",
+    ("model", "replica"),
+)
+
+SERVING_ROUTING_DECISIONS = Counter(
+    "aios_tpu_serving_routing_decisions_total",
+    "Replica selections by reason (prefix|sticky|least_loaded|spill|single)",
+    ("model", "reason"),
+)
+
+SERVING_SHED = Counter(
+    "aios_tpu_serving_shed_total",
+    "Requests shed at the front door, by cause "
+    "(quota|deadline|queue_full|draining)",
+    ("model", "cause"),
+)
+
+SERVING_QUOTA_REJECTIONS = Counter(
+    "aios_tpu_serving_quota_rejections_total",
+    "Token-bucket quota rejections per tenant",
+    ("tenant",),
+)
+
+SERVING_QUEUE_WAIT = Histogram(
+    "aios_tpu_serving_queue_wait_seconds",
+    "Submission -> batcher admission (slot assignment) wall time",
+    ("model",),
+)
+
+SERVING_REPLICA_RESTARTS = Counter(
+    "aios_tpu_serving_replica_restarts_total",
+    "Replica batchers respawned after a scheduler crash "
+    "(the spawner-style restart counter, serving-side)",
+    ("model",),
+)
+
+SERVING_FAILOVERS = Counter(
+    "aios_tpu_serving_failover_total",
+    "In-flight requests re-routed after a replica failure, by outcome "
+    "(resumed = resubmitted to a surviving replica; exhausted = retry "
+    "budget spent, surfaced as UNAVAILABLE + retry-after)",
+    ("model", "outcome"),
+)
+
+# -- fault injection (faults/) ---------------------------------------------
+
+FAULTS_INJECTED = Counter(
+    "aios_tpu_faults_injected_total",
+    "Faults fired by the seeded injection layer (point = injection-point "
+    "name from faults.POINTS, mode = nth|prob|after)",
+    ("point", "mode"),
+)

@@ -42,6 +42,9 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], object] = {}
 _tally = threading.local()  # .launches: the recording of this thread's capture
+# the wrappers' counters are read-modify-writes shared by every thread that
+# launches (one scheduler thread per replica): one lock keeps them exact
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -155,7 +158,8 @@ def count_launch(wrapper) -> None:
     captured launch runs only when the graph replays."""
     recording = getattr(_tally, "launches", None)
     if recording is None:
-        wrapper.launches += 1
+        with _count_lock:
+            wrapper.launches += 1
     else:
         recording[wrapper] = recording.get(wrapper, 0) + 1
 
@@ -175,8 +179,9 @@ def recording_launches() -> Iterator[Dict[object, int]]:
 
 def add_launches(recording: Dict[object, int]) -> None:
     """Count the launches of one replay of a recorded capture."""
-    for wrapper, n in recording.items():
-        wrapper.launches += n
+    with _count_lock:
+        for wrapper, n in recording.items():
+            wrapper.launches += n
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

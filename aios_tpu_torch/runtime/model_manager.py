@@ -1,9 +1,36 @@
 """Model lifecycle and intelligence-level routing for the PyTorch runtime.
 
-The single-replica port of ``aios_tpu/runtime/model_manager.py``: a model is
-an in-process ``TorchEngine`` + ``ContinuousBatcher`` + tokenizer in one of
-the states loading/ready/error/unloading, and requests resolve by exact or
-partial name or by the reference's intelligence-level ladders.
+The port of ``aios_tpu/runtime/model_manager.py``: a model is a
+``ReplicaPool`` (``serving/``) of ``TorchEngine`` + ``ContinuousBatcher``
+replicas with a tokenizer, in one of the states loading/ready/error/
+unloading, and requests resolve by exact or partial name or by the
+reference's intelligence-level ladders. ``ManagedModel.submit`` goes through
+the pool: admission, cache-aware routing, one replica's batcher, failover.
+
+Replicas: ``ServingConfig.from_env`` is read once per ``LoadModel``
+(``AIOS_TPU_REPLICAS``, quotas, queue bound, deadlines, failover); replica 0
+quantizes the weights and replicas 1..N-1 are built over its serving
+leaves, so the replicas of one card share one copy of the weights, while
+each owns its page pool, prefix index, CUDA graphs and graph stream. A
+``LoadModel`` of a READY name with another source, context or replica
+count hot-swaps it: the new pool serves at once and the old one drains on
+a thread, then frees its memory; a failed reload keeps the READY entry
+serving. A CUDA error in any replica's scheduler is not a crash the pool
+respawns: the card's context is poisoned, so the model goes to ``error``
+and its requests end without a retry hint.
+
+Memory budget: each load estimates what it pins on the card as the JAX
+manager does (serving weights, dense leaves times the quantization factor,
+plus each replica's KV pool), against 0.85 of the card's memory
+(``AIOS_TPU_HBM_GB``, else ``torch.cuda.mem_get_info``'s total; the JAX
+default of 16 GB on the CPU or where neither can be read) less the
+co-resident models (a still-READY same-name entry during a hot swap
+included), and warns when over budget; one card has no sp axis to shard
+the cache over. Unlike the JAX replicas, the port's share their weights, so
+the weights count once. ``hbm_chip_bytes``, which later loads are budgeted
+against, also adds each replica's admission graph pool as measured after
+its captures, memory the JAX estimate does not see (687,865,856 B for
+TinyLlama, 9,114,222,592 B for Mistral-7B on the card).
 
 Serving defaults: int8 weights on CUDA (dense on the CPU, where int8 would
 only add a dequantize to every matmul), a bf16 KV cache, and a paged pool
@@ -40,8 +67,8 @@ has built its kernels and captured the CUDA graphs its batcher dispatches
 (``TorchEngine.warmup``, the batcher's attach); a failed build or capture
 leaves it in ``error`` and fails ``LoadModel``, as does a file that does
 not parse, a ggml type with no dequantizer, a mixture-of-experts file or a
-geometry no kernel takes. HF checkpoint directories, prepared checkpoints,
-replica pools, admission control and the HBM budget wait for later slices.
+geometry no kernel takes. HF checkpoint directories, prepared checkpoints
+and the SLO autoscaler wait for later slices.
 """
 
 from __future__ import annotations
@@ -57,13 +84,15 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from ..device import resolve_device
+from ..device import DEVICE_FAULT_REASON, resolve_device
+from ..engine import model as model_mod
 from ..engine.batching import ContinuousBatcher
 from ..engine.config import PRESETS, TINY_TEST, ModelConfig
 from ..engine.engine import TorchEngine
 from ..engine.gguf import GGUFFile
 from ..engine.tokenizer import BaseTokenizer, ByteTokenizer, gguf_tokenizer
 from ..engine.weights import init_params, params_from_gguf
+from ..serving import ReplicaPool, ServingConfig
 
 log = logging.getLogger("aios.torch.runtime.models")
 
@@ -94,6 +123,8 @@ def json_mode_forced() -> bool:
 class ManagedModel:
     name: str
     config: ModelConfig
+    # replica 0's engine and batcher, for single-replica callers and
+    # HealthCheck; the POOL is the serving entry point
     engine: Optional[TorchEngine]
     batcher: Optional[ContinuousBatcher]
     tokenizer: BaseTokenizer
@@ -105,15 +136,22 @@ class ManagedModel:
     model_path: str = ""
     context_length: int = 0
     # seconds of the load: dequantize_s (parse and dequantize), upload_s,
-    # quantize_s and capture_s
+    # quantize_s and capture_s (every replica's captures)
     load_timings: Dict[str, float] = field(default_factory=dict)
+    # estimated card memory this model pins (weights, KV pools, admission
+    # graph pools); co-resident loads are budgeted against it
+    hbm_chip_bytes: float = 0.0
+    # the replica pool fronting this model; None only for error entries
+    pool: Optional[ReplicaPool] = None
 
     def touch(self) -> None:
         self.last_used = int(time.time())
         self.request_count += 1
 
-    def submit(self, req):
-        return self.batcher.submit(req)
+    def submit(self, req, tenant: str = "anonymous", deadline_s: Optional[float] = None):
+        """Serving entry point: through the pool (admission, routing,
+        failover). Raises serving.AdmissionError when the request is shed."""
+        return self.pool.submit(req, tenant=tenant, deadline_s=deadline_s)
 
 
 def _context_for_file_size(n_bytes: int) -> int:
@@ -191,6 +229,26 @@ def _paged_rows(paged_kv: Union[int, str, None]) -> Union[int, str, None]:
     return None
 
 
+def _chip_hbm_bytes(device: torch.device) -> float:
+    """The card's memory: AIOS_TPU_HBM_GB, else the CUDA device's total,
+    else the JAX manager's default (16 GB), which the CPU takes."""
+    env = os.environ.get("AIOS_TPU_HBM_GB", "")
+    if env:
+        try:
+            return float(env) * 1e9
+        except ValueError:
+            log.warning("AIOS_TPU_HBM_GB=%r ignored (not a number)", env)
+    if device.type == "cuda":
+        return float(torch.cuda.mem_get_info(device)[1])
+    return 16e9
+
+
+def _kv_row_bytes(cfg: ModelConfig, cache_dtype: torch.dtype) -> float:
+    """Bytes one KV row (k and v, every layer) takes."""
+    item = 1 if cache_dtype == torch.int8 else 2
+    return 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * item
+
+
 def _cache_dtype(kv_cache: Optional[str]) -> torch.dtype:
     """The KV pool's dtype: bf16 by default, int8 on request."""
     if kv_cache is None:
@@ -242,18 +300,27 @@ class ModelManager:
     def load_model(self, name: str, path: str = "", context_length: int = 0) -> ManagedModel:
         with self._lock:
             existing = self.models.get(name)
-        if (
-            existing is not None
-            and existing.state == STATE_READY
-            and existing.model_path == path
-            and existing.context_length == (context_length or 0)
-        ):
-            return existing
+        if existing is not None and existing.state == STATE_READY:
+            want = ServingConfig.from_env(existing.config.replicas).replicas
+            have = len(existing.pool.replicas)
+            if (existing.model_path == path
+                    and existing.context_length == (context_length or 0)
+                    and have == want):
+                return existing
+            # another source, geometry or replica count: build the new pool,
+            # swap it in, and drain the old one in the background
+            log.info("%s: reload with changed config; hot-swapping the pool", name)
         t0 = time.time()
         timings: Dict[str, float] = {}
         self._loading.timings = timings
         try:
             cfg, params, tokenizer = self._load_weights(name, path, context_length)
+            serving_cfg = ServingConfig.from_env(cfg.replicas,
+                                                 draft_model_default=cfg.draft_model)
+            if serving_cfg.draft_model:
+                log.warning("%s: draft-model speculation (%r) is not ported yet; "
+                            "serving without it", name, serving_cfg.draft_model)
+            n_replicas = max(1, serving_cfg.replicas)
             ctx = context_length or cfg.max_context
             kw = {}  # empty: the dense slot cache
             rows = self.paged_pool_rows
@@ -271,37 +338,80 @@ class ModelManager:
                     log.warning("AIOS_TPU_PAGED_KV ignored for %s: context %d needs "
                                 "a multiple of %d; serving dense", name, ctx,
                                 PAGE_SIZE if int8 else 16)
-            engine = TorchEngine(
-                cfg, params,
-                num_slots=self.num_slots,
-                max_context=ctx,
-                cache_dtype=self.cache_dtype,
-                quantize=self.quantize,
-                track_history=self.speculative,
-                device=self.device,
-                **kw,
-            )
-            del params
+            weight_bytes, kv_bytes = self._budget(name, cfg, params, ctx, kw, n_replicas)
             # the batcher's admission chunk: warmup captures its graphs, and
             # with forced JSON mode the masked step and the jump buckets
-            chunk = engine.prefill_chunk_default
-            engine.warmup(prefill_chunk=chunk, masked_step=json_mode_forced())
-            timings.update(quantize_s=engine.quantize_seconds,
-                           capture_s=engine.graphs.capture_seconds)
+            chunk = TorchEngine.prefill_chunk_default
+            engines: List[TorchEngine] = []
+            try:
+                for i in range(n_replicas):
+                    # replica 0 makes the serving leaves; the others are
+                    # built over them (quantize=None over quantized leaves),
+                    # so the replicas share one copy of the weights
+                    engine = TorchEngine(
+                        cfg, params if i == 0 else engines[0].params,
+                        num_slots=self.num_slots,
+                        max_context=ctx,
+                        cache_dtype=self.cache_dtype,
+                        quantize=self.quantize if i == 0 else None,
+                        track_history=self.speculative,
+                        device=self.device,
+                        **kw,
+                    )
+                    if i == 0:
+                        del params  # the dense leaves, once quantized
+                    engine.warmup(prefill_chunk=chunk, masked_step=json_mode_forced())
+                    engines.append(engine)
+            except BaseException:
+                # a failed replica must not strand its siblings' memory
+                for e in engines:
+                    e.close()
+                raise
+            timings.update(quantize_s=engines[0].quantize_seconds,
+                           capture_s=sum(e.graphs.capture_seconds for e in engines))
+
+            def batcher_factory(eng, _tok=tokenizer, _spec=self.speculative, _chunk=chunk):
+                # the pool's spawn and crash-respawn path
+                return ContinuousBatcher(eng, speculative=_spec, prefill_chunk=_chunk,
+                                         tokenizer=_tok)
+
+            try:
+                pool = ReplicaPool(name, engines, batcher_factory, serving_cfg)
+            except BaseException:
+                # the pool shuts its partial batchers down; the engines are ours
+                for e in engines:
+                    e.close()
+                raise
+            engine = engines[0]
             managed = ManagedModel(
                 name=name,
                 config=cfg,
                 engine=engine,
-                batcher=ContinuousBatcher(engine, speculative=self.speculative,
-                                          prefill_chunk=chunk, tokenizer=tokenizer),
+                batcher=pool.replicas[0].batcher,
                 tokenizer=tokenizer,
                 state=STATE_READY,
                 loaded_at=int(time.time()),
                 model_path=path,
                 context_length=context_length or 0,
                 load_timings=timings,
+                # one copy of the weights, a KV pool and an admission graph
+                # pool (measured) per replica
+                hbm_chip_bytes=weight_bytes + kv_bytes * n_replicas
+                + sum(e.admission_pool_bytes for e in engines),
+                pool=pool,
             )
+
+            def _sync_batcher(idx, b, _m=managed):
+                # keep the replica-0 snapshot fresh across crash-respawns
+                if idx == 0:
+                    _m.batcher = b
+
+            pool.on_respawn = _sync_batcher
+            pool.on_device_fault = lambda exc, _m=managed: self._device_lost(_m, exc)
         except Exception as exc:
+            # a failed hot swap must not clobber the model still serving:
+            # keep the READY entry; register an error entry only when there
+            # was nothing working to preserve
             with self._lock:
                 cur = self.models.get(name)
                 if cur is None or cur.state != STATE_READY:
@@ -309,32 +419,62 @@ class ModelManager:
                         name=name, config=TINY_TEST, engine=None, batcher=None,
                         tokenizer=ByteTokenizer(), state=STATE_ERROR, error=str(exc),
                     )
-            log.error("model %s failed to load: %s", name, exc)
+            if cur is not None and cur.state == STATE_READY:
+                log.error("model %s reload failed (%s); the previous pool keeps "
+                          "serving", name, exc)
+            else:
+                log.error("model %s failed to load: %s", name, exc)
             raise
         with self._lock:
             old = self.models.get(name)
             self.models[name] = managed
-        if old is not None and old.state == STATE_READY:
-            self._shutdown(old)
+        if old is not None and old is not managed and old.state == STATE_READY:
+            self._retire_async(old)
         pool_bytes = sum(t.numel() * t.element_size() for t in
                          (engine.k_pool, engine.v_pool, engine.k_scales, engine.v_scales)
                          if t is not None)
-        log.info("model %s ready in %.1fs (ctx=%d, %d slots, %s, weights %s, "
-                 "%s %s of %d B, prefix index %s, chunked admission %s, speculative %s, "
-                 "%d graphs captured (%d of admission, in a shared pool of %d B), "
-                 "split workspace %d B a stream; parse and dequantize %.2fs, upload "
-                 "%.2fs, quantize %.2fs, capture %.2fs, process peak RSS %d MB)", name,
-                 time.time() - t0, ctx, self.num_slots, self.device,
+        log.info("model %s ready in %.1fs (ctx=%d, %d slots, %d replica%s sharing one copy "
+                 "of the weights, %s, weights %s, "
+                 "%s %s of %d B a replica, prefix index %s, chunked admission %s, "
+                 "speculative %s, "
+                 "%d graphs captured a replica (%d of admission, in a shared pool of %d B), "
+                 "split workspace %d B a stream; budgeted %d B; parse and dequantize %.2fs, "
+                 "upload %.2fs, quantize %.2fs, capture %.2fs, process peak RSS %d MB)", name,
+                 time.time() - t0, ctx, self.num_slots, n_replicas,
+                 "" if n_replicas == 1 else "s", self.device,
                  self.quantize or "dense", self.cache_dtype,
                  "page pool" if engine.paged else "dense cache", pool_bytes,
                  type(engine.prefix_index).__name__ if engine.prefix_index else "off",
                  managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
                  engine.graphs.captures, engine.admission_graphs(),
                  engine.admission_pool_bytes, engine.workspace_bytes(),
+                 int(managed.hbm_chip_bytes),
                  timings.get("dequantize_s", 0.0), timings.get("upload_s", 0.0),
                  timings["quantize_s"], timings["capture_s"],
                  resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024)
         return managed
+
+    def _budget(self, name: str, cfg: ModelConfig, params, ctx: int, kw: dict,
+                n_replicas: int):
+        """The JAX manager's per-chip estimate for this load, (serving weight
+        bytes, one replica's KV bytes), and its warning when they do not fit
+        0.85 of the card beside the co-resident models. The replicas share
+        the weights, so those count once."""
+        factor = 1.0 if model_mod.is_quantized(params) else {
+            "int8": 0.5, "int4": 0.25}.get(self.quantize, 1.0)
+        weight_bytes = model_mod.serving_weight_bytes(params) * factor
+        kv_bytes = _kv_row_bytes(cfg, self.cache_dtype) * (
+            kw.get("paged_pool_rows") or self.num_slots * ctx)
+        with self._lock:
+            resident = sum(mm.hbm_chip_bytes for mm in self.models.values()
+                           if mm.name != name or mm.state == STATE_READY)
+        budget = _chip_hbm_bytes(self.device) * 0.85 - weight_bytes - resident
+        if kv_bytes * n_replicas > max(budget, 0.0):
+            log.warning("%s: KV cache needs ~%.1f GB/chip (budget ~%.1f GB) and the "
+                        "seq-sharded degradation is unavailable (no sp axis on one "
+                        "card) — loading anyway and HBM may overflow", name,
+                        kv_bytes * n_replicas / 1e9, max(budget, 0.0) / 1e9)
+        return weight_bytes, kv_bytes
 
     def _load_weights(self, name: str, path: str, context_length: int):
         """Resolve (config, params, tokenizer) from a model source; a GGUF
@@ -388,23 +528,43 @@ class ModelManager:
 
     # -- unloading --------------------------------------------------------------
 
-    @staticmethod
-    def _shutdown(m: ManagedModel) -> None:
-        m.state = STATE_UNLOADING
-        if m.batcher is not None:
-            m.batcher.shutdown()
-        if m.engine is not None:
-            m.engine.close()
-        m.engine = None
-        m.batcher = None
-
     def unload_model(self, name: str) -> bool:
         with self._lock:
             managed = self.models.pop(name, None)
         if managed is None:
             return False
-        self._shutdown(managed)
+        managed.state = STATE_UNLOADING
+        # the pool shuts every replica down and closes its engine, freeing
+        # its memory now rather than at a gc pass; after a device fault no
+        # CUDA call can succeed, and the memory goes with the process
+        if managed.pool is not None and managed.pool.device_fault is None:
+            managed.pool.shutdown()
+        managed.engine = None
+        managed.batcher = None
         return True
+
+    @staticmethod
+    def _device_lost(managed: ManagedModel, exc: BaseException) -> None:
+        """A CUDA error in one of the model's schedulers: the context is
+        poisoned, so the model leaves service in ``error`` (the pool already
+        refuses work) and HealthCheck stops reading its engines. Only a new
+        process can serve again."""
+        managed.state = STATE_ERROR
+        managed.error = f"{DEVICE_FAULT_REASON}: {exc!r}"
+        managed.engine = None
+        managed.batcher = None
+
+    def _retire_async(self, old: ManagedModel) -> None:
+        """Hot-swap retirement: the new pool already serves; the old one
+        drains its streams (30 s at most) on a thread, then frees its
+        memory. The old entry's engine and batcher are nulled at once, so
+        that HealthCheck never reads a closing engine."""
+        old.state = STATE_UNLOADING
+        pool = old.pool
+        old.engine = None
+        old.batcher = None
+        threading.Thread(target=pool.shutdown, kwargs={"drain_timeout": 30.0},
+                         name=f"retire-{old.name}", daemon=True).start()
 
     def close(self) -> None:
         for name in list(self.models):

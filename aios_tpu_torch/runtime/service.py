@@ -13,9 +13,21 @@ The port of ``aios_tpu/runtime/service.py`` for the main path:
     compiler rejects INVALID_ARGUMENT "unsupported json_schema";
     ``AIOS_TPU_JSON_MODE=force`` constrains every non-streaming Infer
     without a schema to one JSON object (the reference's llama-server
-    ``response_format``).
-Metrics, tracing, SLOs, the fleet plane and admission control are not
-ported yet.
+    ``response_format``);
+  * the serving front door: every Infer/StreamInfer goes through the
+    model's ``ReplicaPool`` with its tenant (``tenant_of`` under the pool's
+    ``tenant_by``) and the gRPC deadline (``context.time_remaining()``, a
+    year or more read as none); a shed is RESOURCE_EXHAUSTED with
+    ``retry-after-ms`` trailing metadata (INVALID_ARGUMENT when no retry
+    can fit it), a submit racing an unload UNAVAILABLE, and a stream whose
+    failover budget ran out UNAVAILABLE with ``retry-after-ms``; a CUDA
+    error (the port's own case) is INTERNAL with no hint, since the card's
+    context is lost for the process;
+  * one flight-recorder timeline per request, opened here with the tenant
+    (an empty trace id: tracing is not ported); HealthCheck's
+    ``<model>.serving`` is ``pool.stats()``.
+Tracing, SLOs, the HTTP metrics endpoint and the fleet plane are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,9 +40,13 @@ from typing import Iterator, Optional
 import grpc
 
 from .. import rpc
+from ..device import DEVICE_FAULT_REASON, DeviceFault
 from ..engine.batching import Request
 from ..engine.tokenizer import render_chat
+from ..obs import flightrec
+from ..obs import instruments as obs
 from ..proto_gen import common_pb2, runtime_pb2
+from ..serving import AdmissionError, tenant_of
 from ..services import RUNTIME, AIRuntimeServicer, service_address
 from .model_manager import ManagedModel, ModelManager, json_mode_forced
 
@@ -78,18 +94,14 @@ class RuntimeService(AIRuntimeServicer):
         details = {m.name: m.state for m in models}
         details["backend"] = self.manager.backend
         for m in models:
-            engine, batcher = m.engine, m.batcher  # unload may null them
-            if engine is None or batcher is None:
+            # snapshot: an unload or a hot swap nulls these mid-iteration
+            pool, engine, batcher = m.pool, m.engine, m.batcher
+            if pool is None or engine is None or batcher is None:
                 continue
-            stats = engine.stats()
-            stats.update(
-                prefill_chunk=batcher.prefill_chunk or 0,
-                pool_evictions=batcher.pool_evictions,
-                completed=batcher.completed,
-                cancelled=batcher.cancellations,
-                waiting=batcher.queue_depth(),
-                num_slots=engine.num_slots,
-            )
+            # the pool-level engine.stats(): counters summed across
+            # replicas, routing, shed and restart tallies
+            stats = pool.stats()
+            stats["prefill_chunk"] = batcher.prefill_chunk or 0
             details[f"{m.name}.serving"] = ",".join(
                 f"{k}={v}" for k, v in sorted(stats.items())
             )
@@ -111,7 +123,17 @@ class RuntimeService(AIRuntimeServicer):
             return runtime_pb2.InferResponse()
         handle, n_prompt = self._submit(m, request, context, streaming=False)
         token_ids = [t for t in handle if t != m.tokenizer.eos_id]
+        obs.RUNTIME_INFER_LATENCY.labels(model=m.name, rpc="Infer").observe(time.time() - t0)
         if handle.aborted:
+            # a truncation is an error; a retryable cause (a crashed replica
+            # whose failover budget ran out) carries a backoff hint, and a
+            # device fault is final in this process
+            if handle.abort_reason.startswith(DEVICE_FAULT_REASON):
+                context.abort(grpc.StatusCode.INTERNAL,
+                              f"request aborted: {handle.abort_reason}")
+            if handle.retry_after_ms:
+                context.set_trailing_metadata(
+                    (("retry-after-ms", str(handle.retry_after_ms)),))
             context.abort(grpc.StatusCode.UNAVAILABLE,
                           f"request aborted: {handle.abort_reason}")
         return runtime_pb2.InferResponse(
@@ -122,10 +144,12 @@ class RuntimeService(AIRuntimeServicer):
         )
 
     def StreamInfer(self, request, context) -> Iterator[runtime_pb2.InferChunk]:
+        t0 = time.time()
         m = self._resolve_model(request, context)
         if m is None:
             return
         handle, _ = self._submit(m, request, context, streaming=True)
+        chunk_counter = obs.RUNTIME_STREAM_CHUNKS.labels(model=m.name)
         emitted = ""
         ids = []
         try:
@@ -138,9 +162,23 @@ class RuntimeService(AIRuntimeServicer):
                 delta = text[len(emitted):] if text.startswith(emitted) else text
                 if delta:
                     emitted = text
+                    chunk_counter.inc()
                     yield runtime_pb2.InferChunk(text=delta, done=False)
+            obs.RUNTIME_INFER_LATENCY.labels(model=m.name, rpc="StreamInfer").observe(
+                time.time() - t0)
             if handle.aborted:
-                context.set_code(grpc.StatusCode.ABORTED)
+                # an error status, never a done chunk: a retryable cause
+                # (failover budget spent) is UNAVAILABLE with a backoff
+                # hint, a deliberate abort (unload) stays ABORTED, and a
+                # device fault, final in this process, is INTERNAL
+                if handle.abort_reason.startswith(DEVICE_FAULT_REASON):
+                    context.set_code(grpc.StatusCode.INTERNAL)
+                elif handle.retry_after_ms:
+                    context.set_trailing_metadata(
+                        (("retry-after-ms", str(handle.retry_after_ms)),))
+                    context.set_code(grpc.StatusCode.UNAVAILABLE)
+                else:
+                    context.set_code(grpc.StatusCode.ABORTED)
                 context.set_details(f"stream aborted: {handle.abort_reason}")
                 return
             yield runtime_pb2.InferChunk(text="", done=True)
@@ -181,8 +219,28 @@ class RuntimeService(AIRuntimeServicer):
             json_schema=schema,
             priority=LEVEL_PRIORITY.get(request.intelligence_level.lower(), 0),
         )
+        # the front door: the tenant's quota, the bounded queue and the
+        # deadline's feasibility, with the gRPC deadline as the budget
+        tenant = tenant_of(request, m.pool.cfg.tenant_by)
+        req.rec = flightrec.RECORDER.begin(
+            m.name, req.request_id, tenant, trace_id="",
+            prompt_tokens=len(prompt_ids), priority=req.priority)
+        deadline_s = None
+        remaining = context.time_remaining()
+        if remaining is not None and remaining < 3600 * 24 * 365:
+            deadline_s = remaining
         try:
-            handle = m.submit(req)
+            handle = m.submit(req, tenant=tenant, deadline_s=deadline_s)
+        except AdmissionError as e:
+            # shed: a backoff hint instead of an unbounded queue; a cost no
+            # bucket refill can cover is permanent, so no retry is invited
+            if not e.retriable:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              f"request not admittable ({e.cause}): {e}")
+            context.set_trailing_metadata((("retry-after-ms", str(e.retry_after_ms)),))
+            context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, f"request shed ({e.cause}): {e}")
+        except DeviceFault as e:  # the card failed; no retry can succeed here
+            context.abort(grpc.StatusCode.INTERNAL, str(e))
         except RuntimeError as e:  # raced UnloadModel's shutdown
             context.abort(grpc.StatusCode.UNAVAILABLE, f"model {m.name} is unloading: {e}")
         except ValueError as e:  # an unsupported schema construct or a scalar root

@@ -34,8 +34,10 @@ under torch.profiler; for the chunk also the host's time to return from
 
 Run from the repository root on a machine with one CUDA device, here or
 against another checkout of the package, to compare two trees on one host
-(alternate them: parent, change, change, parent):
+(alternate them: parent, change, change, parent); ``--configs`` names the
+served configurations to run (all four by default):
     python3 aios_tpu_torch/tools/issue_cost.py [--root DIR] [--label NAME]
+        [--configs tinyllama_paged,mistral_paged,tinyllama_dense_spec,mistral_dense_spec]
 Prints profile lines and, last, one JSON object.
 """
 
@@ -56,6 +58,7 @@ TINYLLAMA = (22, {"w_qkv": (2048, 2560), "wo": (2048, 2048), "w_gateup": (2048, 
                   "w_down": (5632, 2048)}, (2048, 32000))
 MISTRAL = (32, {"w_qkv": (4096, 6144), "wo": (4096, 4096), "w_gateup": (4096, 28672),
                 "w_down": (14336, 4096)}, (4096, 32000))
+CONFIGS = ("tinyllama_paged", "tinyllama_dense_spec", "mistral_paged", "mistral_dense_spec")
 HOLD_CYCLES = 200_000_000  # about 0.1 s of SM clock: longer than any sequence's issue
 REPEATS = 30
 
@@ -351,18 +354,24 @@ def served(torch, cfg, params, spec, label, **kw):
     return out, text
 
 
-def serving(torch, gen, label):
-    """``served`` for the four configurations, TinyLlama first."""
+def serving(torch, gen, label, configs):
+    """``served`` for the configurations named in ``configs``, TinyLlama
+    first."""
     from aios_tpu_torch.engine.config import MISTRAL_7B, TINYLLAMA_1_1B
     from aios_tpu_torch.engine.weights import init_params
 
     out, text = {}, ""
     for cfg, quant, cache, ctx in ((TINYLLAMA_1_1B, "int8", torch.bfloat16, 2048),
                                    (MISTRAL_7B, "int4", torch.int8, 8192)):
-        params = init_params(cfg, gen)
         name = "tinyllama" if cfg is TINYLLAMA_1_1B else "mistral"
+        keys = {paged: f"{name}_{'paged' if paged else 'dense_spec'}" for paged in (True, False)}
+        if not set(keys.values()) & configs:
+            continue
+        params = init_params(cfg, gen)
         for paged in (True, False):
-            key = f"{name}_{'paged' if paged else 'dense_spec'}"
+            key = keys[paged]
+            if key not in configs:
+                continue
             kw = dict(quantize=quant, cache_dtype=cache, max_context=ctx)
             if paged:
                 kw["paged_pool_rows"] = 9 * ctx
@@ -381,7 +390,12 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="directory holding the aios_tpu_torch package to measure")
     ap.add_argument("--label", default="")
+    ap.add_argument("--configs", default=",".join(CONFIGS),
+                    help="comma-separated served configurations to run")
     args = ap.parse_args()
+    configs = set(args.configs.split(","))
+    if not configs <= set(CONFIGS):
+        ap.error(f"--configs takes {', '.join(CONFIGS)}")
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -421,7 +435,7 @@ def main() -> int:
     print(f"[{args.label}] K3 TinyLlama step: {calls} calls, {us:.2f} us each\n{prof}")
     torch.cuda.empty_cache()
     out["encode_us"], out["ctypes_noop_us"] = encode_cost()
-    numbers, prof = serving(torch, gen, args.label)
+    numbers, prof = serving(torch, gen, args.label, configs)
     out.update(numbers)
     print(f"[{args.label}] TinyLlama paged step(16) under cProfile\n{prof}")
     print(json.dumps(out), flush=True)

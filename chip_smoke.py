@@ -143,7 +143,29 @@ Phases, each printing its lines:
      phases 9 and 10 run the engine checks over the dense cache too. The
      launches of the engine checks are gated there and not added to the
      kernels line, which counts only the served windows, the DeepSeek
-     request and Mistral's batcher run.
+     request and Mistral's batcher run;
+  13. the serving front door (``phase_serving``) — TinyLlama-1.1B at full
+     width (int8 weights, bf16 pool, 8 slots a replica) through gRPC and its
+     ``ReplicaPool``: a 16 x 129-token wave on one replica; a hot swap to
+     ``AIOS_TPU_REPLICAS=2`` while a stream is live (the stream ends whole,
+     the new pool serves the next request, the old engines' bytes are
+     released within 30 s up to their admission graph pool); the two
+     replicas share every weight tensor (equal data_ptrs) and the second
+     adds its page pool and graphs, not the weights; each replica's step
+     replay against its eager body; a 1536-token preamble routed
+     ``least_loaded``, the request sharing it ``prefix`` to the replica
+     holding it (a prefix hit there), a new task id ``least_loaded`` and
+     its repeat ``sticky``; the wave on two replicas with exact launches
+     summed over both (and with the flight recorder on and off); a greedy
+     64-token StreamInfer across an injected ``pool.scheduler_crash`` ends
+     whole with one respawn and one resumed failover (its re-admission a
+     prefix hit through K6), beside the fault-free stream; then, reloaded
+     with ``AIOS_TPU_FAILOVER_RETRIES=0``, a tenant quota and a queue bound
+     of 1: the crash as UNAVAILABLE with ``retry-after-ms``, an agent's
+     second request RESOURCE_EXHAUSTED (quota), a burst shedding
+     ``queue_full``, and a request under a 100 ms deadline behind a busy
+     replica shed ``deadline`` without a slot. Its counted windows add to
+     the kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -175,6 +197,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3372,7 +3395,7 @@ def _constrained_window(m, stub, tag: str, temperature: float, card: str) -> dic
     reqs = [(CONSTRAINED_PROMPTS[0], tools), (CONSTRAINED_PROMPTS[1], tools),
             (CONSTRAINED_PROMPTS[2], json.dumps(MIXED_SCHEMA)), (CONSTRAINED_PROMPTS[3], "")]
     seen, orig = [], m.submit
-    m.submit = lambda req: seen.append(req) or orig(req)
+    m.submit = lambda req, **kw: seen.append(req) or orig(req, **kw)
     captured = eng.stats()["graph_captures"]
     _reset_counts()
     before = (eng.decode_steps, eng.jump_dispatches, eng.jump_tokens, eng.prefills,
@@ -4020,6 +4043,489 @@ def phase_constrained(card: str) -> dict:
 # -- main ----------------------------------------------------------------------
 
 
+# -- phase 13: the serving front door over two replicas ----------------------------
+
+SERVING_MODEL = "tinyllama-serve"
+SERVING_KNOBS = ("AIOS_TPU_REPLICAS", "AIOS_TPU_TENANT_TOKENS_PER_SEC",
+                 "AIOS_TPU_TENANT_BURST_TOKENS", "AIOS_TPU_TENANT_BY", "AIOS_TPU_MAX_QUEUE",
+                 "AIOS_TPU_ASSUMED_TPS", "AIOS_TPU_ROUTE_OVERLAP_MIN",
+                 "AIOS_TPU_FAILOVER_RETRIES", "AIOS_TPU_FAILOVER_BACKOFF_MS")
+FAILOVER_PROMPT = "Failover drill: summarize the incident timeline, step by step. " * 6
+
+
+def _knobs(**env) -> None:
+    """Set the serving knobs that the next LoadModel reads (``ServingConfig``
+    is read once per load), every other one unset."""
+    for k in SERVING_KNOBS:
+        os.environ.pop(k, None)
+    for k, v in env.items():
+        os.environ[k] = str(v)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _pool_counters(m) -> dict:
+    keys = ("prefills", "prefill_chunks", "decode_steps", "graph_replays", "graph_captures")
+    out = dict.fromkeys(keys, 0)
+    for r in m.pool.replicas:
+        st = r.engine.stats()
+        for k in keys:
+            out[k] += st[k]
+    return out
+
+
+def _pool_window(m, fn, what: str):
+    """``fn()`` with every kernel count set to 0 just before and read just
+    after, the replicas' dispatches summed: the launches must be exactly
+    89 K1 per prefill, chunk and step, 22 K2 per prefill, 22 K6 per chunk and
+    22 K3 per step, one graph replay per dispatch and no capture. Returns
+    (fn's result, launches, dispatches)."""
+    c0 = _pool_counters(m)
+    _reset_counts()
+    out = fn()
+    launches = _read_counts()
+    d = {k: v - c0[k] for k, v in _pool_counters(m).items()}
+    pre, chunks, steps = d["prefills"], d["prefill_chunks"], d["decode_steps"]
+    want = {"quantized_matmul": 89 * (pre + chunks + steps), "flash_attention": 22 * pre,
+            "paged_decode_attention": 22 * steps, "multiquery_decode_attention": 22 * chunks}
+    want = {k: v for k, v in want.items() if v}
+    expect(launches == want, f"[serving] {what}: launches {launches} != {want} for {pre} "
+           f"prefills, {chunks} chunks, {steps} steps over {len(m.pool.replicas)} replicas")
+    expect(d["graph_captures"] == 0 and d["graph_replays"] == pre + chunks + steps,
+           f"[serving] {what}: {d['graph_replays']} replays, {d['graph_captures']} captures "
+           f"for {pre + chunks + steps} dispatches")
+    return out, launches, d
+
+
+class _Recorded:
+    """A served handle whose tokens and their arrival times are kept."""
+
+    def __init__(self, handle) -> None:
+        self.handle, self.tokens, self.times = handle, [], []
+
+    def __iter__(self):
+        for t in self.handle:
+            self.times.append(time.perf_counter())
+            self.tokens.append(t)
+            yield t
+
+    def __getattr__(self, name):
+        return getattr(self.handle, name)
+
+
+@contextlib.contextmanager
+def _recording(m):
+    """Keep every handle ``m.submit`` hands the service while inside."""
+    got = []
+    submit = m.submit
+
+    def recorded(req, **kw):
+        got.append(_Recorded(submit(req, **kw)))
+        return got[-1]
+
+    m.submit = recorded
+    try:
+        yield got
+    finally:
+        del m.submit
+
+
+def _wave(m, n: int, tag: str) -> tuple:
+    """``n`` requests of 129 tokens through the pool at once (8 slots a
+    replica): (tokens, wall s, decode steps summed over replicas)."""
+    from aios_tpu_torch.engine.batching import Request
+
+    steps0 = _pool_counters(m)["decode_steps"]
+    t0 = time.perf_counter()
+    hs = [m.submit(Request(prompt_ids=[256] + list(range(100 + i % 8)), max_tokens=129,
+                           temperature=0.7, request_id=f"{tag}-{i}"), tenant=f"wave-{i}")
+          for i in range(n)]
+    tokens = sum(len(h.tokens()) for h in hs)
+    wall = time.perf_counter() - t0
+    expect(not any(h.aborted for h in hs) and tokens == 129 * n,
+           f"[serving] {tag}: {tokens} tokens, aborted {[h.abort_reason for h in hs if h.aborted]}")
+    return tokens, wall, _pool_counters(m)["decode_steps"] - steps0
+
+
+def _stream(stub, prompt: str, max_tokens: int, temperature: float, **fields):
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    return list(stub.StreamInfer(runtime_pb2.InferRequest(
+        prompt=prompt, max_tokens=max_tokens, temperature=temperature, **fields), timeout=600))
+
+
+def _routes(pool, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in pool._routed.items() if v - before.get(k, 0)}
+
+
+def _serving_memory_and_swap(manager, stub, card: str) -> dict:
+    """One replica, then a hot swap to two while a stream is live: the wave
+    on one replica; the stream ends whole on the old pool; the new pool's
+    replicas share one copy of the weights (equal data_ptrs) and its second
+    replica adds its page pool and graph pool, not the weights; the old
+    engines' bytes are released within 30 s, up to their admission graph
+    pool's bytes."""
+    from aios_tpu_torch import faults
+    from aios_tpu_torch.engine import model as model_mod
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    _knobs(AIOS_TPU_REPLICAS=1)
+    m1, load1 = _load(manager, stub, SERVING_MODEL, "synthetic://tinyllama-1.1b")
+    one = torch.cuda.memory_allocated() - base
+    tok1, wall1, steps1 = _wave(m1, 16, "wave1")
+    log(f"[serving] 1 replica: LoadModel {load1:.2f} s, {one} B allocated; 16 x 129-token "
+        f"wave {tok1} tokens in {wall1:.3f} s = {tok1 / wall1:.1f} tok/s, {steps1} decode "
+        f"steps, {card}")
+
+    # a stream live across the swap: a delay before each of its decode
+    # dispatches (only batcher ticks sleep) keeps it decoding past the load
+    old_pool, old_adm = m1.pool, m1.engine.admission_pool_bytes
+    errors = []
+
+    def live_stream():
+        try:
+            chunks.extend(_stream(stub, "Stream across the swap.", 1500, 0.5))
+        except Exception as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    chunks = []
+    faults.activate("dispatch.delay=prob:1.0,delay_ms=60")
+    try:
+        with _recording(m1) as got:
+            t = threading.Thread(target=live_stream)
+            t.start()
+            t0 = time.perf_counter()
+            while not (got and got[0].tokens) and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+            expect(bool(got and got[0].tokens), "[serving] the live stream never started")
+            h = got[0]
+            at_start = len(h.tokens)
+            _knobs(AIOS_TPU_REPLICAS=2)
+            torch.cuda.synchronize()
+            before_swap = torch.cuda.memory_allocated()
+            m2, load2 = _load(manager, stub, SERVING_MODEL, "synthetic://tinyllama-1.1b")
+            two = torch.cuda.memory_allocated() - before_swap
+            at_end, live_after = len(h.tokens), t.is_alive()
+    finally:
+        faults.deactivate()
+    t.join(timeout=600)
+    expect(not errors and not t.is_alive(), f"[serving] the live stream failed: {errors!r}")
+    eos = m1.tokenizer.eos_id
+    whole = (chunks and chunks[-1].done and not h.aborted
+             and (len(h.tokens) == 1500 or h.tokens[-1] == eos))
+    expect(m2 is not m1 and len(m2.pool.replicas) == 2 and whole and 0 < at_start < at_end
+           and live_after,
+           f"[serving] hot swap: stream whole {whole} ({len(h.tokens)} tokens, aborted "
+           f"{h.aborted}), {at_start} tokens when LoadModel began, {at_end} when it returned, "
+           f"live after it {live_after}")
+    r0 = dict(m2.pool._routed)
+    r = stub.Infer(runtime_pb2.InferRequest(prompt="after the swap", max_tokens=8), timeout=300)
+    expect(r.tokens_used > 0 and sum(_routes(m2.pool, r0).values()) == 1,
+           "[serving] the new pool did not serve the next request")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 30 and not old_pool._closed:
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    released = before_swap + two - after
+    # what is left of the old model beside the new one: within its graph pool
+    left = after - (base + two)
+    expect(old_pool._closed and left <= old_adm,
+           f"[serving] old pool closed {old_pool._closed}; {left} B of the old model left "
+           f"after {time.perf_counter() - t0:.1f} s (its admission graph pool {old_adm} B)")
+    log(f"[serving] hot swap to 2 replicas while a 1500-token stream was live (tokens "
+        f"{at_start} at the LoadModel, {at_end} at its return, 60 ms before each dispatch): "
+        f"LoadModel {load2:.2f} s, the stream ended whole ({len(h.tokens)} tokens), the new "
+        f"pool served the next request, the old pool drained and released {released} B in "
+        f"{time.perf_counter() - t0:.2f} s ({left} B left beside the new model, admission "
+        f"graph pool {old_adm} B); {card}")
+
+    # the two replicas: one copy of the weights, a pool and graph pool each
+    e0, e1 = (r.engine for r in m2.pool.replicas)
+    l0, l1 = dict(_leaves(e0.params)), dict(_leaves(e1.params))
+    shared = l0.keys() == l1.keys() and all(l0[k].data_ptr() == l1[k].data_ptr() for k in l0)
+    weights = sum(t.numel() * t.element_size() for t in l0.values())
+    pool_b = sum(t.numel() * t.element_size() for t in (e1.k_pool, e1.v_pool))
+    second = two - one
+    # the second replica adds its page pool, its graphs' memory and a few
+    # static buffers, never a copy of the weights
+    room = pool_b + e1.admission_pool_bytes + e1.workspace_bytes() + (256 << 20)
+    expect(shared and e0.k_pool.data_ptr() != e1.k_pool.data_ptr() and second < weights
+           and second <= room,
+           f"[serving] replicas share weights {shared}; the second replica added {second} B "
+           f"against {weights} B of weights and {room} B of pool, graph pool and slack")
+    log(f"[serving] 2 replicas share every one of {len(l0)} weight tensors (equal data_ptr, "
+        f"{weights} B, {model_mod.serving_weight_bytes(e0.params)} B streamed a step): "
+        f"1 replica {one} B, 2 replicas {two} B allocated, so the second replica adds {second} B "
+        f"(its page pool {pool_b} B, admission graph pool {e1.admission_pool_bytes} B, split "
+        f"workspace {e1.workspace_bytes()} B a stream); graph streams "
+        f"{e0.graphs.stream.cuda_stream:#x} / {e1.graphs.stream.cuda_stream:#x}; budgeted "
+        f"{int(m2.hbm_chip_bytes)} B; {card}")
+    return dict(load1=load1, load2=load2, wave1=(tok1, wall1, steps1))
+
+
+def _serving_routes(m, stub, card: str) -> dict:
+    """A 1536-token preamble, then a second request sharing it: routed
+    ``prefix`` to the replica that holds it and a prefix hit there; a new
+    task id ``least_loaded``, the same again ``sticky``."""
+    from aios_tpu_torch.engine.tokenizer import render_chat
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    pool, tok, name = m.pool, m.tokenizer, m.config.name
+    for r in pool.replicas:
+        r.engine.prefix_index.clear()
+    head = tok.encode(render_chat(name, "\x00")).index(0)
+    preamble = ("Shared agent preamble: follow the plan, report status, never guess. "
+                * 40)[:1536 - head]
+    hits0 = [r.engine.prefix_index.hits for r in pool.replicas]
+    r0 = dict(pool._routed)
+
+    def prefix_pair():
+        for tail in ("Tail A: list the failing services.", "Tail B: restart them in order."):
+            stub.Infer(runtime_pb2.InferRequest(prompt=preamble + tail, max_tokens=4),
+                       timeout=300)
+
+    _, launches, _ = _pool_window(m, prefix_pair, "prefix routing")
+    ids = tok.encode(render_chat(name, preamble + "Tail C"))
+    holders = [r.idx for r in pool.replicas if r.overlap_rows(ids) >= 1536]
+    hits = [r.engine.prefix_index.hits - h for r, h in zip(pool.replicas, hits0)]
+    routed = _routes(pool, r0)
+    expect(routed == {"least_loaded": 1, "prefix": 1} and len(holders) == 1
+           and hits[holders[0]] == 1 and sum(hits) == 1,
+           f"[serving] prefix routing: routed {routed}, holders {holders}, hits {hits}")
+    r1 = dict(pool._routed)
+    for _ in range(2):
+        stub.Infer(runtime_pb2.InferRequest(prompt="status of task 7", max_tokens=4,
+                                            task_id="serving-task-7"), timeout=300)
+    sticky = _routes(pool, r1)
+    expect(sticky == {"least_loaded": 1, "sticky": 1}, f"[serving] task routing: {sticky}")
+    log(f"[serving] routing over gRPC, 2 replicas: a 1536-token preamble went least_loaded, "
+        f"the request sharing it prefix to replica {holders[0]} (prefix hits by replica "
+        f"{hits}); a new task id least_loaded, its repeat sticky; exact launches {launches}")
+    return launches
+
+
+def _serving_failover(m, stub, card: str) -> dict:
+    """A greedy 64-token StreamInfer crossing an injected scheduler crash
+    ends whole, with one respawn and one resumed failover; its agreement
+    with the fault-free stream and the longest gap between tokens are
+    printed."""
+    from aios_tpu_torch import faults
+    from aios_tpu_torch.obs import instruments as obs
+
+    pool = m.pool
+    resumed = obs.SERVING_FAILOVERS.labels(model=m.name, outcome="resumed")
+    runs = {}
+    for arm in ("fault-free", "crash"):
+        for r in pool.replicas:  # both arms admit cold
+            r.engine.prefix_index.clear()
+        restarts0, resumed0 = pool.restarts, resumed.value
+
+        def go():
+            with _recording(m) as got:
+                chunks = _stream(stub, FAILOVER_PROMPT, 64, GREEDY)
+            return chunks, got[0]
+
+        if arm == "crash":
+            faults.activate("pool.scheduler_crash=nth:3")
+        try:
+            (chunks, h), launches, d = _pool_window(m, go, f"failover {arm}")
+        finally:
+            faults.deactivate()
+        gaps = np.diff(h.times) * 1e3
+        runs[arm] = dict(tokens=h.tokens, gap=float(gaps.max()), launches=launches, d=d,
+                         restarts=pool.restarts - restarts0, resumed=resumed.value - resumed0,
+                         whole=bool(chunks and chunks[-1].done and not h.aborted))
+    free, crash = runs["fault-free"], runs["crash"]
+    agree = float(np.mean([a == b for a, b in zip(free["tokens"], crash["tokens"])]))
+    expect(crash["whole"] and len(crash["tokens"]) == 64 and crash["restarts"] == 1
+           and crash["resumed"] == 1 and free["restarts"] == 0,
+           f"[serving] failover: whole {crash['whole']}, {len(crash['tokens'])} tokens, "
+           f"restarts {crash['restarts']}, resumed {crash['resumed']}")
+    expect(crash["launches"].get("multiquery_decode_attention", 0) > 0,
+           "[serving] the resumed prompt did not admit through the chunk path (K6)")
+    log(f"[serving] failover: a greedy 64-token StreamInfer across an injected scheduler "
+        f"crash ended whole (64 tokens, no abort, replica_restarts 1, failover resumed 1); "
+        f"agreement with the fault-free stream {agree:.3f}; longest inter-token gap "
+        f"{crash['gap']:.2f} ms against {free['gap']:.2f} ms fault-free; the resume re-admitted "
+        f"through {crash['d']['prefill_chunks']} chunk(s), launches {crash['launches']}; {card}")
+    return crash["launches"]
+
+
+def _serving_sheds(manager, stub, card: str) -> None:
+    """With AIOS_TPU_FAILOVER_RETRIES=0, a tenant quota, a queue bound of 1
+    and an assumed rate: the crash surfaces UNAVAILABLE with retry-after-ms;
+    an agent's second request RESOURCE_EXHAUSTED (quota) with a positive
+    retry-after-ms; a burst sheds queue_full; a request under a 100 ms
+    deadline behind a busy replica sheds deadline without taking a slot."""
+    import grpc
+
+    from aios_tpu_torch import faults
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    stub.UnloadModel(runtime_pb2.UnloadModelRequest(model_name=SERVING_MODEL))
+    _knobs(AIOS_TPU_REPLICAS=2, AIOS_TPU_FAILOVER_RETRIES=0, AIOS_TPU_TENANT_TOKENS_PER_SEC=1,
+           AIOS_TPU_TENANT_BURST_TOKENS=2000, AIOS_TPU_MAX_QUEUE=1, AIOS_TPU_ASSUMED_TPS=1000)
+    m, load_s = _load(manager, stub, SERVING_MODEL, "synthetic://tinyllama-1.1b")
+    pool = m.pool
+    expect((pool.cfg.failover_retries, pool.cfg.max_queue) == (0, 1), f"{pool.cfg}")
+
+    def rpc_error(fn):
+        try:
+            fn()
+        except grpc.RpcError as e:
+            return e
+        return None
+
+    faults.activate("pool.scheduler_crash=nth:3")
+    try:
+        err = rpc_error(lambda: _stream(stub, FAILOVER_PROMPT, 64, GREEDY,
+                                        requesting_agent="crash-agent"))
+    finally:
+        faults.deactivate()
+    retry = int(dict(err.trailing_metadata() or ()).get("retry-after-ms", 0)) if err else 0
+    expect(err is not None and err.code() == grpc.StatusCode.UNAVAILABLE and retry > 0,
+           f"[serving] retries 0: {err and err.code()} retry-after-ms {retry}")
+    log(f"[serving] AIOS_TPU_FAILOVER_RETRIES=0: the crash surfaced as UNAVAILABLE with "
+        f"retry-after-ms {retry} ({err.details()!r})")
+
+    quota = [rpc_error(lambda: stub.Infer(runtime_pb2.InferRequest(
+        prompt="Q" * 1400, max_tokens=8, requesting_agent="quota-agent"), timeout=300))
+        for _ in range(2)]
+    qretry = int(dict(quota[1].trailing_metadata() or ()).get("retry-after-ms", 0)) \
+        if quota[1] else 0
+    expect(quota[0] is None and quota[1] is not None
+           and quota[1].code() == grpc.StatusCode.RESOURCE_EXHAUSTED and qretry > 0
+           and "quota" in quota[1].details(),
+           f"[serving] quota: {[q and (q.code(), q.details()) for q in quota]}")
+
+    shed0 = dict(pool._shed)
+    codes = []
+
+    def burst(i):
+        e = rpc_error(lambda: stub.Infer(runtime_pb2.InferRequest(
+            prompt=f"burst request {i}", max_tokens=32, requesting_agent=f"burst-{i}"),
+            timeout=300))
+        codes.append("OK" if e is None else f"{e.code().name}:{e.details().split(':')[0]}")
+
+    threads = [threading.Thread(target=burst, args=(i,)) for i in range(48)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    full = codes.count("RESOURCE_EXHAUSTED:request shed (queue_full)")
+    expect(len(codes) == 48 and full >= 1 and codes.count("OK") + full == 48
+           and pool._shed["queue_full"] - shed0["queue_full"] == full,
+           f"[serving] burst of 48 with AIOS_TPU_MAX_QUEUE=1: {sorted(set(codes))}")
+
+    time.sleep(1.2)  # a rate window closes on every replica
+    busy = threading.Thread(target=lambda: _stream(stub, "Busy stream.", 600, 0.7,
+                                                   requesting_agent="busy-agent"))
+    busy.start()
+    time.sleep(0.3)
+    held = sum(r.batcher.active_count + r.queue_depth() for r in pool.replicas)
+    deadline0 = pool._shed["deadline"]
+    t0 = time.perf_counter()
+    err = rpc_error(lambda: stub.Infer(runtime_pb2.InferRequest(
+        prompt="late request", max_tokens=1024, requesting_agent="deadline-agent"), timeout=0.1))
+    shed_ms = (time.perf_counter() - t0) * 1e3
+    held_after = sum(r.batcher.active_count + r.queue_depth() for r in pool.replicas)
+    rates = [round(r.tokens_per_second(), 1) for r in pool.replicas]
+    busy.join(timeout=300)
+    # the shed is the server's verdict; the client's own 100 ms timer may
+    # read it as DEADLINE_EXCEEDED first
+    codes_ok = err is not None and (
+        (err.code() == grpc.StatusCode.RESOURCE_EXHAUSTED and "deadline" in err.details())
+        or err.code() == grpc.StatusCode.DEADLINE_EXCEEDED)
+    expect(codes_ok and pool._shed["deadline"] == deadline0 + 1 and held_after == held == 1,
+           f"[serving] deadline: {err and (err.code(), err.details())}, slots+queue {held} -> "
+           f"{held_after}")
+    log(f"[serving] LoadModel {load_s:.2f} s with quota 1 tok/s (burst 2000), queue bound 1; "
+        f"an agent's second 1400-byte request: RESOURCE_EXHAUSTED (quota), retry-after-ms "
+        f"{qretry}; a burst of 48: {codes.count('OK')} served, {full} shed queue_full; a "
+        f"100 ms deadline behind a busy replica shed deadline ({err.code().name}) in "
+        f"{shed_ms:.1f} ms without a slot (observed rates {rates} tok/s); {card}")
+
+
+def phase_serving(card: str) -> dict:
+    """The serving front door on TinyLlama-1.1B at full width (int8 weights,
+    bf16 pool ``auto``, 8 slots a replica) with two replicas, through gRPC:
+    the replicas' shared weights and memory, a hot swap, each replica's
+    replays against its eager body, prefix / least-loaded / sticky routing,
+    exact launches with both replicas busy, the recorder's cost, failover,
+    and the three sheds. Returns the served windows' launches."""
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.obs import flightrec
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+    from aios_tpu_torch.runtime.service import serve
+
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
+    server, _, port = serve("127.0.0.1:0", manager, block=False)
+    channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = services.AIRuntimeStub(channel)
+    served = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            served[k] = served.get(k, 0) + v
+
+    try:
+        first = _serving_memory_and_swap(manager, stub, card)
+        m = manager.get(SERVING_MODEL)
+        expect(len(m.pool.replicas) == 2, "two replicas expected")
+        streams = set()
+        probe = threading.Thread(
+            target=lambda: streams.add(torch.cuda.current_stream().cuda_stream))
+        probe.start()
+        probe.join()
+        log(f"[serving] every batcher thread replays on its current stream, the legacy "
+            f"default stream ({sorted(streams)}): the replicas' work is ordered one after "
+            f"another on the device, each graph with its own split workspace")
+        for r in m.pool.replicas:
+            _graph_vs_eager(f"[serving replica {r.idx}]", r.engine,
+                            {"quantized_matmul": 89, "paged_decode_attention": 22},
+                            rounds=False)
+        add(_serving_routes(m, stub, card))
+        (tok2, wall2, steps2), launches, d = _pool_window(m, lambda: _wave(m, 16, "wave2"),
+                                                          "16 x 129 wave on 2 replicas")
+        add(launches)
+        tok1, wall1, steps1 = first["wave1"]
+        log(f"[serving] 16 x 129-token wave: 1 replica {tok1 / wall1:.1f} tok/s ({wall1:.3f} s, "
+            f"{steps1} steps), 2 replicas {tok2 / wall2:.1f} tok/s ({wall2:.3f} s, {steps2} "
+            f"steps summed, {d['prefills']} prefills); launches exact with both replicas busy: "
+            f"{launches}; LoadModel 1 replica {first['load1']:.2f} s, 2 replicas "
+            f"{first['load2']:.2f} s; {card}")
+        cost = {}
+        for enabled in (True, False, True, False):
+            flightrec.RECORDER.enabled = enabled
+            tok, wall, steps = _wave(m, 16, f"rec-{enabled}")
+            cost.setdefault(enabled, []).append(wall / (steps / 2) * 1e3)
+        flightrec.RECORDER.enabled = True
+        log(f"[serving] host wall per replayed step (a 16 x 129 wave on 2 replicas, wall over "
+            f"each replica's steps): recorder on {[round(x, 3) for x in cost[True]]} ms, off "
+            f"{[round(x, 3) for x in cost[False]]} ms; {card}")
+        add(_serving_failover(m, stub, card))
+        _serving_sheds(manager, stub, card)
+        for name in ("quantized_matmul", "flash_attention", "paged_decode_attention",
+                     "multiquery_decode_attention"):
+            expect(served.get(name, 0) > 0, f"[serving] kernel {name} never launched")
+    finally:
+        _knobs()
+        manager.close()
+        channel.close()
+        server.stop(grace=None)
+    torch.cuda.empty_cache()
+    return served
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -4065,13 +4571,15 @@ def main() -> int:
         quantize="int4", kv_cache="int8", **dense)
     gguf = phase_gguf(card)
     constrained = phase_constrained(card)
+    serving = phase_serving(card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
         r = measured[name]
         tiny[name] += tiny_dense[name]
         mistral[name] += mistral_dense[name]
-        n = tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
+        n = (tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
+             + serving.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -4082,7 +4590,7 @@ def main() -> int:
         })
         log(f"[kernels] {name}: ok, {n} launches while serving ({tiny[name]} TinyLlama, "
             f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files, "
-            f"{constrained.get(name, 0)} constrained), "
+            f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

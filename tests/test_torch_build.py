@@ -265,3 +265,47 @@ def test_launch_contract_is_checked_before_any_launch(bad, match):
         qmm.launch(qmm.quantized_matmul, "quantized_matmul", "aios_quantized_matmul",
                    x, w, s, N, K, qmm.KT)
     assert qmm.quantized_matmul.launches == before
+
+
+@pytest.mark.parametrize("threads", [2, 8])
+def test_launch_counts_stay_exact_across_threads(threads):
+    """Replicas replay graphs on one scheduler thread each: recordings added
+    and single launches counted from several threads at once lose no
+    update. The stand-in wrappers yield the interpreter inside every read
+    of their counter, the window a lost read-modify-write needs."""
+    import threading
+
+    class Wrapper:
+        def __init__(self):
+            self._n = 0
+
+        @property
+        def launches(self):
+            n = self._n
+            time.sleep(0)  # another thread may run between the read and the write
+            return n
+
+        @launches.setter
+        def launches(self, n):
+            self._n = n
+
+    a, b = Wrapper(), Wrapper()
+    with build.recording_launches() as recording:
+        build.count_launch(a)
+        build.count_launch(a)
+        build.count_launch(b)
+    assert recording == {a: 2, b: 1} and a.launches == 0
+    rounds = 300
+
+    def work():
+        for _ in range(rounds):
+            build.add_launches(recording)
+            build.count_launch(b)
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in pool)
+    assert (a.launches, b.launches) == (2 * rounds * threads, 2 * rounds * threads)

@@ -487,7 +487,7 @@ def test_forced_json_mode_constrains_infer_and_not_streams(runtime, monkeypatch)
     m = manager.get("tiny")
     seen = []
     orig = m.submit
-    monkeypatch.setattr(m, "submit", lambda req: seen.append(req) or orig(req))
+    monkeypatch.setattr(m, "submit", lambda req, **kw: seen.append(req) or orig(req, **kw))
     r = stub.Infer(runtime_pb2.InferRequest(prompt="status?", max_tokens=48))
     assert isinstance(json.loads(r.text), dict)
     chunks = list(stub.StreamInfer(runtime_pb2.InferRequest(prompt="status?", max_tokens=8)))

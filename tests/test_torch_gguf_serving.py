@@ -259,7 +259,7 @@ def test_greedy_infer_over_grpc_equals_the_jax_engine(tmp_path, runtime, case):
     assert isinstance(m.tokenizer, SentencePieceBPE if case == "llama" else ByteLevelBPE)
     got = []
     submit = m.submit
-    m.submit = lambda req: _Recorded(submit(req), got)
+    m.submit = lambda req, **kw: _Recorded(submit(req, **kw), got)
     prompt = "the cat sat on a mat, then it ran!"
     r = stub.Infer(runtime_pb2.InferRequest(prompt=prompt, max_tokens=12, temperature=1e-5))
     assert r.model_used == "m"
