@@ -15,14 +15,19 @@ next scheduler boundary. When the page pool cannot back a dispatch or an
 admission, the lowest-priority longest request is evicted (its stream ends
 as an abort) and the work retries.
 
-With ``speculative=True`` every decode tick is a speculative dispatch
-(``TorchEngine.spec_step``, the n-gram proposer): greedy requests emit the
-same tokens in fewer dispatches, sampling requests one token per round. An
-acceptance EWMA suspends speculation while its drafts keep failing and
-re-probes later; ``degrade_spec`` switches it off from outside. On a CUDA
-engine every dispatch replays a graph; attaching captures those this
-batcher dispatches (its ``spec_draft_len`` and ``spec_ngram``) if the
-engine's warmup did not.
+With ``speculative=True`` every decode tick is a speculative dispatch over
+either cache: greedy requests emit the same tokens in fewer dispatches,
+sampling requests one token per round. The proposer ladder is the JAX
+batcher's: the engine's draft model (``TorchEngine.spec_step_draft``) when
+it carries one and a greedy request is live, then prompt lookup
+(``spec_step``, the n-gram proposer). Each proposer keeps its own
+acceptance EWMA (accepted over proposed tokens for the draft), suspension
+and probe budget, so a collapsed draft falls back to n-gram and a
+collapsed n-gram to plain ticks, each re-probed later; ``degrade_spec``
+switches speculation off from outside. On a CUDA engine every dispatch
+replays a graph; attaching captures those this batcher dispatches (its
+``spec_draft_len`` and ``spec_ngram``, and the draft's round and ingest
+widths) if the engine's warmup did not.
 
 A request with ``json_mode`` (one JSON object) or ``json_schema`` (that
 schema's shape, ``jsonschema.py``) is grammar-constrained; the batcher
@@ -56,7 +61,7 @@ aborts its requests with ``device fault`` (no cause failover retries),
 keeps the error in ``device_fault``, calls ``on_device_fault`` and stops;
 nothing respawns it.
 
-Not here yet: the pipelined decode loop and the draft-model proposer.
+Not here yet: the pipelined decode loop.
 """
 
 from __future__ import annotations
@@ -82,6 +87,8 @@ from . import jsonmode, jsonschema
 from .engine import (JUMP_BUCKETS, SPEC_DRAFT_LEN, SPEC_NGRAM, ChunkedPrefill, TorchEngine,
                      jump_ahead_enabled)
 from .paged import PoolExhausted
+from .sampling import GREEDY_EPS
+from .spec import SPEC_PROPOSERS
 
 log = logging.getLogger("aios.torch.batcher")
 
@@ -105,6 +112,9 @@ SPEC_PROBE_DISPATCHES = 3
 
 # Backoff hint of a retryable abort (the JAX batcher's default).
 DEFAULT_RETRY_AFTER_MS = 1000
+
+# Live batchers by model name: the acceptance gauge averages their EWMAs.
+_BATCHERS_BY_MODEL: Dict[str, "weakref.WeakSet"] = {}
 
 
 def _env_float(name: str, ok, why: str) -> Optional[float]:
@@ -243,10 +253,6 @@ class ContinuousBatcher:
                 self.prefill_chunk not in engine.buckets
                 or engine.max_context % self.prefill_chunk):
             self.prefill_chunk = None
-        if speculative and not engine.spec_supported:
-            log.warning("speculative decoding disabled: unsupported on this "
-                        "engine config (paged KV pool)")
-            speculative = False
         self.speculative = speculative
         self.spec_draft_len = spec_draft_len
         self.spec_ngram = spec_ngram
@@ -264,9 +270,13 @@ class ContinuousBatcher:
                 "AIOS_TPU_SPEC_REPROBE_SECS", lambda v: v > 0, "must be > 0")
         self.spec_reprobe_secs = (SPEC_REPROBE_SECS if spec_reprobe_secs is None
                                   else spec_reprobe_secs)
-        # per proposer, as in the JAX batcher, whose ladder also has a
-        # draft-model rung: acceptance EWMA, suspension end, probe budget
-        self.spec_proposers: Tuple[str, ...] = ("ngram",)
+        # the proposer ladder: the draft model when the engine carries one,
+        # prompt lookup always (its floor); the constrained tick's jump-ahead
+        # outranks both. Per proposer: acceptance EWMA, suspension end,
+        # probe budget, so an auto-disable falls one rung (draft -> ngram ->
+        # off)
+        self.spec_proposers: Tuple[str, ...] = (
+            ("draft", "ngram") if engine.draft is not None else ("ngram",))
         self.spec_ewma: Dict[str, Optional[float]] = {p: None for p in self.spec_proposers}
         self._spec_off_until = {p: 0.0 for p in self.spec_proposers}
         self._spec_probe_left = {p: 0 for p in self.spec_proposers}
@@ -328,6 +338,19 @@ class ContinuousBatcher:
         ref = weakref.ref(self)
         obs.ENGINE_QUEUE_DEPTH.labels(model=model_name).set_function(
             lambda: float(ref().queue_depth()) if ref() is not None else 0.0)
+        peers = _BATCHERS_BY_MODEL.setdefault(model_name, weakref.WeakSet())
+        peers.add(self)
+
+        def acceptance(proposer: str):
+            def read() -> float:
+                vals = [v for v in (b.spec_ewma.get(proposer) for b in list(peers))
+                        if v is not None]
+                return float(sum(vals) / len(vals)) if vals else 0.0
+            return read
+
+        for p in SPEC_PROPOSERS:
+            obs.SPEC_ACCEPTANCE.labels(model=model_name, proposer=p).set_function(
+                acceptance(p))
         # tokens/sec over a ~1 s window, refreshed by the scheduler; last_tps
         # keeps the last non-zero rate, so that the deadline gate's estimate
         # survives idle gaps
@@ -346,6 +369,7 @@ class ContinuousBatcher:
         engine.capture_step()
         if self.speculative:
             engine.capture_spec(self.spec_draft_len, self.spec_ngram)
+            engine.capture_draft(self.spec_draft_len)
         if self.jump_ahead and "masked" in engine.graphs:
             # constrained serving was declared at warmup: every run-length
             # bucket the constrained tick can dispatch is captured too; an
@@ -839,13 +863,18 @@ class ContinuousBatcher:
 
     # -- speculation auto-disable (per-proposer EWMA acceptance floor) ---------
 
-    def _spec_proposer(self) -> Optional[str]:
+    def _spec_proposer(self, greedy_live: bool = True) -> Optional[str]:
         """The proposer the next decode tick dispatches with, or None while
         every one is suspended. An expired suspension grants the proposer
         SPEC_PROBE_DISPATCHES probe dispatches on a fresh cumulative average
-        before the floor judges again."""
+        before the floor judges again. ``greedy_live=False`` skips the draft
+        rung: with no greedy slot live its K draft steps buy nothing and
+        measure no acceptance, so the tick falls through to n-gram, whose
+        zero-acceptance EWMA suspends speculation properly."""
         now = time.monotonic()
         for p in self.spec_proposers:
+            if p == "draft" and not greedy_live:
+                continue
             off = self._spec_off_until[p]
             if off:
                 if now < off:
@@ -863,15 +892,22 @@ class ContinuousBatcher:
             return False
         return self._spec_proposer() is not None
 
-    def _spec_measure(self, proposer: str, counts, consumed: Dict[int, int]) -> None:
+    def _spec_measure(self, proposer: str, counts, consumed: Dict[int, int],
+                      proposed=None) -> None:
         """Fold one speculative dispatch's acceptance into ``proposer``'s
         EWMA and suspend it when that falls below the floor. ``counts`` is
         the dispatch's [rounds, num_slots] emitted-token matrix; ``consumed``
         maps slot -> rounds whose tokens were actually emitted (each emits
         1 + accepted drafts). Rounds past a request's retirement inside the
         dispatch are excluded: their drafts score a continuation that is
-        never served."""
-        possible = sum(consumed.values()) * self.spec_draft_len
+        never served. ``proposed`` (the draft proposer's [rounds,
+        num_slots] offered tokens) is the denominator where given, so
+        rounds with nothing proposed do not read as rejection; n-gram keeps
+        its every-round denominator."""
+        if proposed is None:
+            possible = sum(consumed.values()) * self.spec_draft_len
+        else:
+            possible = sum(float(proposed[:r, s].sum()) for s, r in consumed.items())
         if not possible:
             return
         accepted = sum(float(counts[:r, s].sum()) - r for s, r in consumed.items())
@@ -906,11 +942,22 @@ class ContinuousBatcher:
         """One speculative dispatch of ``n`` rounds: emit each round's
         accepted run in order; ``_emit`` retires requests inside the dispatch
         as usual."""
-        gap = self._note_dispatch()
-        t0 = time.monotonic()
-        tokens, counts = self.engine.spec_step(
-            n, draft_len=self.spec_draft_len, ngram=self.spec_ngram)
-        self._gap_mark = time.monotonic()
+        proposed = None
+        try:
+            gap = self._note_dispatch()
+            t0 = time.monotonic()
+            if proposer == "draft":
+                tokens, counts, proposed = self.engine.spec_step_draft(
+                    n, draft_len=self.spec_draft_len)
+            else:
+                tokens, counts = self.engine.spec_step(
+                    n, draft_len=self.spec_draft_len, ngram=self.spec_ngram)
+            self._gap_mark = time.monotonic()
+        except PoolExhausted:
+            # the failed backing left the engine's state untouched: retire
+            # a victim and retry on the next tick
+            self._evict_longest()
+            return
         dur_ms = round((self._gap_mark - t0) * 1e3, 3)
         consumed: Dict[int, int] = {}
         for r in range(tokens.shape[0]):
@@ -931,7 +978,7 @@ class ContinuousBatcher:
                     emitted=int(counts[:rounds, slot].sum()),
                     draft_len=self.spec_draft_len, dur_ms=dur_ms,
                     **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}))
-        self._spec_measure(proposer, counts, consumed)
+        self._spec_measure(proposer, counts, consumed, proposed)
 
     # -- grammar jump-ahead (compressed-FSM run collapse) ----------------------
 
@@ -1060,7 +1107,9 @@ class ContinuousBatcher:
         n = ADMIT_CHUNK_STEPS if anyone_waiting else CHUNK_STEPS
         proposer = None
         if self.speculative and not self.degrade_spec:
-            proposer = self._spec_proposer()
+            # the draft rung needs a greedy slot to propose for
+            greedy_live = any(l.req.temperature < GREEDY_EPS for l in slots.values())
+            proposer = self._spec_proposer(greedy_live)
         if proposer is not None:
             self._spec_tick(proposer, n, slots)
             return

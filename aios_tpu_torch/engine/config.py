@@ -39,8 +39,8 @@ class ModelConfig:
     # serving replicas per managed model (serving/): N engine+batcher
     # replicas behind one cache-aware router; AIOS_TPU_REPLICAS overrides
     replicas: int = 1
-    # draft-model speculation source (AIOS_TPU_DRAFT_MODEL overrides); the
-    # port has no draft proposer yet and serves without it
+    # draft-model speculation source (AIOS_TPU_DRAFT_MODEL overrides): a
+    # preset name or a .gguf path, paired by the model manager
     draft_model: str = ""
 
     @property

@@ -48,9 +48,18 @@ prompts' full leading blocks are published to a prefix index
 those pages shared, read-only, and admits only its tail through the chunked
 path.
 
-``spec_step(n_rounds, draft_len, ngram)`` runs speculative rounds over the
-dense cache: propose drafts from the device token history (``spec.py``),
-verify them in one multi-token forward, accept the longest matching prefix.
+``spec_step(n_rounds, draft_len, ngram)`` runs speculative rounds over
+either cache: propose drafts from the device token history (``spec.py``),
+verify them in one multi-token forward (``verify_step_paged`` over the pool,
+after backing ``n_rounds * (draft_len + 1)`` rows of every active slot and
+returning a windowed model's pages below the window), accept the longest
+matching prefix. With a draft model (``draft=spec.DraftModel``),
+``spec_step_draft(n_rounds, draft_len)`` runs the fused draft round instead:
+teacher-forced catch-up of the draft's own dense cache, ``draft_len`` greedy
+draft steps, the serving verify, acceptance, and the draft lengths clamped to
+the verified length; a freshly admitted slot's draft cache first catches up
+through bulk ingest dispatches at ``DRAFT_INGEST_BUCKETS`` widths. The round
+and each ingest width are CUDA graphs on the card.
 
 Grammar-constrained decoding (``jsonmode.py``, ``jsonschema.py``, driven by
 the batcher) dispatches two more graphs over either cache: ``step_masked``,
@@ -70,10 +79,8 @@ with f32 scales beside it ([L, N, P, KH] or [L, S, C, KH]), rows quantizing
 on write.
 
 Not here yet (later slices of the port): the prefix cache's host tier,
-KVX1 export and the fleet digest, speculation over the page pool (its
-round, backing and trim over ``verify_step_paged``), the draft-model
-proposer, the multi-tick megagraph, window+sink KV compression, sharding
-and the pipelined ``step_async``.
+KVX1 export and the fleet digest, the multi-tick megagraph, window+sink KV
+compression, sharding and the pipelined ``step_async``.
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -91,6 +99,7 @@ import torch
 
 from .. import ops
 from ..device import resolve_device
+from ..obs import instruments as obs
 from ..ops import split
 from ..ops.quantized_matmul import counters_for, sm_count
 from . import model, paged, sampling, spec
@@ -109,6 +118,16 @@ SPEC_NGRAM = 3
 # spec.HISTORY_PAD - 2: the history scatter stays inside the pad margin.
 JUMP_BUCKETS = (4, 16)
 assert JUMP_BUCKETS[-1] <= spec.HISTORY_PAD - 2
+# Widths of the draft's bulk ingest graphs (the JAX engine's buckets): a
+# freshly admitted slot's draft cache trails the serving state by its whole
+# prompt, and spec_step_draft catches it up in these teacher-forced chunks
+# before the fused rounds take over (whose own catch-up is draft_len + 1
+# wide; the steady gap is 0 or 1). One graph per width up to the context.
+DRAFT_INGEST_BUCKETS = (32, 64, 128, 256, 512)
+
+# Live engines by model name: replica engines share the (model,) label of the
+# speculative families, so the gauges read the SUM over this set.
+_ENGINES_BY_MODEL: Dict[str, "weakref.WeakSet"] = {}
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -145,6 +164,21 @@ def workspace_launches(cfg: ModelConfig, num_slots: int, max_context: int, *,
         out.append((*split.launch_groups(1, KH, chunk * G),
                     split.split_plan(max_context, 1, KH, sms)))
     return [(groups, s, rows) for groups, rows, s in out]
+
+
+def draft_workspace_launches(dcfg: ModelConfig, num_slots: int, max_context: int, *,
+                             sms: int) -> List[Tuple[int, int, int]]:
+    """(groups, splits, partial rows) of the split launches of a draft model
+    ``dcfg`` over its dense cache of ``max_context`` rows a slot: its decode
+    steps (K8), the fused round's catch-up (K6 at T up to ``HISTORY_PAD -
+    1``) and the widest bulk ingest (K6 at T = ``DRAFT_INGEST_BUCKETS[-1]``),
+    every slot at once; partials at the draft's head dim."""
+    KH, G = dcfg.num_kv_heads, dcfg.num_heads // dcfg.num_kv_heads
+    splits = split.split_plan(max_context, num_slots, KH, sms)
+    out = [split.launch_groups(num_slots, KH)]
+    for T in (spec.HISTORY_PAD - 1, min(DRAFT_INGEST_BUCKETS[-1], max_context)):
+        out.append(split.launch_groups(num_slots, KH, T * G))
+    return [(groups, splits, rows) for groups, rows in out]
 
 
 def workspace_floats(launches, head_dim: int) -> int:
@@ -202,7 +236,9 @@ class TorchEngine:
     slot. ``track_history`` keeps the device token history that the n-gram
     proposer of ``spec_step`` reads. Over the pool ``prefix_cache`` (None:
     on) keeps the prompt-prefix index, a radix tree unless ``prefix_radix``
-    is False (None reads the JAX stack's ``AIOS_TPU_PREFIX_RADIX``)."""
+    is False (None reads the JAX stack's ``AIOS_TPU_PREFIX_RADIX``).
+    ``draft`` (a ``spec.DraftModel`` of the same vocabulary, shared
+    read-only between engines) enables ``spec_step_draft``."""
 
     # admission granularity of long prompts: the batcher's default chunk and
     # the chunk a prefix hit's tail admits at (the JAX engine's default)
@@ -223,6 +259,7 @@ class TorchEngine:
         device: Optional[Union[str, torch.device]] = None,
         prefix_cache: Optional[bool] = None,
         prefix_radix: Optional[bool] = None,
+        draft: Optional[spec.DraftModel] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -264,10 +301,6 @@ class TorchEngine:
         self.params = params
 
         self.paged = paged_pool_rows is not None
-        # speculation runs over the dense cache only: its round over the
-        # pool (backing and trimming the drafted rows) is not ported; the
-        # jump's verify forward runs over either cache
-        self.spec_supported = not self.paged
         self.allocator: Optional[paged.PageAllocator] = None
         if self.paged:
             if page_size < 1 or page_size & (page_size - 1):
@@ -323,7 +356,8 @@ class TorchEngine:
                                        device=dev) if self.paged else None)
         self._tables = Staged(self.tables_dev) if self.paged else None
         self._slot_ids = torch.arange(num_slots, device=dev)
-        self._columns = torch.arange(spec.HISTORY_PAD, device=dev)
+        self._columns = torch.arange(max(spec.HISTORY_PAD, DRAFT_INGEST_BUCKETS[-1]),
+                                     device=dev)
         # the admission operands, the twins of the JAX admission
         # executables' operands: [slot, start, n_valid, true_len, tokens of
         # the bucket (zero-padded) ...] and [temperature, top_p]; and the
@@ -370,8 +404,73 @@ class TorchEngine:
         self.spec_rounds = 0
         self.spec_tokens = 0
         self.spec_slot_rounds = 0  # (round, active slot) pairs
+        self.spec_proposer_rounds = {p: 0 for p in spec.SPEC_PROPOSERS}
+        self.spec_proposer_accepted = {p: 0 for p in spec.SPEC_PROPOSERS}
         self.jump_dispatches = 0
         self.jump_tokens = 0
+        self._init_draft(draft, cache_dtype)
+        self._register_obs()
+
+    def _init_draft(self, draft: Optional[spec.DraftModel], cache_dtype: torch.dtype) -> None:
+        """Attach ``draft`` (the JAX engine's draft set-up): its dense
+        cache and lengths as static device buffers, which the draft graphs
+        read in place, and the host mirrors of the draft lengths and of
+        which slots decode greedily (set at admission: only greedy slots
+        propose, so bulk ingest skips sampling ones). A vocabulary other
+        than the serving model's raises, as does on CUDA a draft geometry
+        no kernel of its path takes; without the token history the draft is
+        ignored, with a warning."""
+        S = self.num_slots
+        self.draft: Optional[spec.DraftModel] = None
+        self.draft_state: Optional[Dict[str, torch.Tensor]] = None
+        self._draft_params = None
+        self._draft_host_lengths = np.zeros(S, dtype=np.int64)
+        self._host_greedy = np.zeros(S, dtype=bool)
+        self.draft_ingest_dispatches = 0
+        self.draft_proposed_tokens = 0
+        # the ingest graphs' memory pool (they return nothing: any replay
+        # order is safe, as for the admission graphs) and its bytes
+        self._draft_pool = None
+        self.draft_pool_bytes = 0
+        if draft is None:
+            return
+        if draft.cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab ({draft.cfg.vocab_size}) must match the serving "
+                f"model's ({self.cfg.vocab_size}): they must share one tokenizer")
+        if self.device.type == "cuda":
+            faults = model.kernel_contract_faults(draft.cfg, paged=False, quant_cache=False,
+                                                  quantize=draft.quant_mode)
+            if faults:
+                raise ValueError(f"draft {draft.cfg.name} cannot be served on "
+                                 f"{self.device}: " + "; ".join(faults))
+        if not self.track_history:
+            log.warning("%s: draft-model speculation needs the token history "
+                        "(track_history=True); draft model ignored", self.cfg.name)
+            return
+        self.draft = draft
+        self._draft_params = _to_device(draft.params, self.device)
+        self.draft_state = draft.init_state(S, self.max_context, cache_dtype, self.device)
+        self._draft_pool = self.graphs.new_pool()
+
+    def _register_obs(self) -> None:
+        """The speculative families of ``obs/instruments.py``, one series a
+        proposer, each the sum of its engine counter over the live engines
+        of this model (the JAX engine's WeakSet pattern)."""
+        name = self.cfg.name
+        engines = _ENGINES_BY_MODEL.setdefault(name, weakref.WeakSet())
+        engines.add(self)
+
+        def proposer_sum(attr: str, proposer: str):
+            def read() -> float:
+                return float(sum(getattr(e, attr).get(proposer, 0) for e in list(engines)))
+            return read
+
+        for p in spec.SPEC_PROPOSERS:
+            obs.SPEC_ROUNDS.labels(model=name, proposer=p).set_function(
+                proposer_sum("spec_proposer_rounds", p))
+            obs.SPEC_ACCEPTED.labels(model=name, proposer=p).set_function(
+                proposer_sum("spec_proposer_accepted", p))
 
     # -- admission ------------------------------------------------------------
 
@@ -440,7 +539,7 @@ class TorchEngine:
                                   top_p, bucket)
             self._dispatcher(("prefill", bucket), functools.partial(self._prefill_body, bucket),
                              eager, admission=True)()
-            first_token = self._admitted(slot, true_len)
+            first_token = self._admitted(slot, true_len, temperature)
             self.prefills += 1
             self._register_prefix(slot, token_ids, hashes)
         return first_token
@@ -560,11 +659,12 @@ class TorchEngine:
         self.top_ps.index_copy_(0, slot, self._adm_top_p)
         self.active_dev.index_fill_(0, slot, True)
 
-    def _admitted(self, slot: int, true_len: int) -> int:
+    def _admitted(self, slot: int, true_len: int, temperature: float) -> int:
         """The host half of the end of an admission, after its dispatch:
         the host mirrors, and the admission's one readback, its first
         token. Caller holds the lock."""
         self.active[slot] = True
+        self._host_greedy[slot] = temperature < sampling.GREEDY_EPS
         self._host_lengths[slot] = true_len
         return int(self._adm_first.item())
 
@@ -741,6 +841,17 @@ class TorchEngine:
         drafts = torch.where(ok[:, None], drafts, torch.full_like(drafts, -1))
         feed = torch.cat([self.last_tokens[:, None], drafts], dim=1)
         logits = self._verify_forward(feed)
+        g, counts = self._accept_body(drafts, logits)
+        return g, counts, logits
+
+    def _accept_body(self, drafts: torch.Tensor, logits: torch.Tensor):
+        """The end of a speculative round, shared by the n-gram and the
+        draft rounds: accept the longest prefix of ``drafts`` [S, K] that
+        matches the verify ``logits`` [S, K+1, V] argmax, sample row 0 (one
+        draw from the generator), write the emitted tokens into the history
+        and advance ``last_tokens`` and ``lengths``. Returns (tokens [S,
+        K+1], counts [S])."""
+        K, C = drafts.shape[1], self.max_context
         g = logits.argmax(dim=-1)  # [S, K+1]
         a = spec.accept_counts(drafts, g)  # [S] in [0, K]
         # row 0 is a plain decode step's logits; sample() takes the argmax
@@ -756,7 +867,82 @@ class TorchEngine:
         self.history[self._slot_ids[:, None], hidx] = g
         torch.gather(g, 1, a[:, None], out=self.last_tokens[:, None])
         self.lengths.copy_(torch.clamp(self.lengths + counts, max=C - 1))
-        return g, counts, logits
+        return g, counts
+
+    # -- draft-model speculation (spec.DraftModel) ------------------------------
+    # The draft's dense cache rows [0, d_len) mirror history[:, 0:d_len), the
+    # contract the serving cache keeps with its lengths: accept, reject and
+    # release move d_len and never rewrite rows. Accepted rows were written
+    # by the draft itself while proposing; rejected ones lie past the clamped
+    # d_len and are overwritten before they can be read.
+
+    def _draft_ingest_body(self, width: int) -> None:
+        """Teacher-forced catch-up of the draft cache (the JAX
+        ``_draft_ingest_body`` on greedy slots, as ``_draft_ingest_impl``
+        gates it): up to ``width`` history tokens a slot from column d_len
+        go through the draft's ``verify_step``, which writes their K/V rows
+        at [d_len, d_len + width) and stops before the lm_head (the JAX
+        function discards the logits); d_len advances by min(gap, width)
+        toward the serving length. Slots caught up, sampling or inactive
+        write the sacrificial row. Reads only static storage and returns
+        nothing: the bulk ingest graph of width ``width``, and the first
+        step of the fused draft round."""
+        d = self.draft_state
+        d_len = d["lengths"]
+        gap = torch.clamp(self.lengths - d_len, min=0)
+        ing = self.active_dev & (self.temps < sampling.GREEDY_EPS) & (gap > 0)
+        idx = (d_len.long()[:, None] + self._columns[None, :width]).clamp(
+            max=self.history.shape[1] - 1)
+        feed = self.history.gather(1, idx)
+        model.verify_step(self._draft_params, self.draft.cfg, feed, d_len, d["k"], d["v"],
+                          active=ing, logits=False)
+        d_len.add_(torch.where(ing, torch.clamp(gap, max=width), torch.zeros_like(gap)))
+
+    def _draft_propose_body(self, ok: torch.Tensor, draft_len: int) -> torch.Tensor:
+        """``draft_len`` greedy draft steps through the draft's
+        ``decode_step`` (the JAX ``_draft_propose_body``): the first takes
+        the serving model's pending token and writes its draft row at d_len,
+        the later ones take the draft's own argmax. A slot not ``ok`` still
+        runs (fixed shapes), writes the sacrificial row and keeps its
+        length. Returns the drafts [S, K], -1 rows where not ``ok``."""
+        d = self.draft_state
+        C = d["k"].shape[2]
+        tok, length = self.last_tokens, d["lengths"]
+        out = []
+        for _ in range(draft_len):
+            logits = model.decode_step(self._draft_params, self.draft.cfg, tok, length,
+                                       d["k"], d["v"], active=ok)
+            tok = logits.argmax(dim=-1)
+            length = torch.where(ok, torch.clamp(length + 1, max=C - 1), length)
+            out.append(tok)
+        d["lengths"].copy_(length)
+        drafts = torch.stack(out, dim=1)
+        return torch.where(ok[:, None], drafts, torch.full_like(drafts, -1))
+
+    def _draft_round_body(self, draft_len: int):
+        """One draft-model round of every slot on the static state, in place
+        (the JAX ``_draft_spec_impl``'s round): catch-up of width
+        ``draft_len + 1``, the draft's K greedy steps where a slot is greedy,
+        active, its draft length equal to its serving length and
+        ``lengths + K <= C - 2``, the serving verify (``_verify_forward``),
+        ``_accept_body``, and the draft lengths clamped to the verified
+        length (rows of rejected drafts, or the bonus token's unwritten row,
+        become unreadable). Sampling and inactive slots take one plain step,
+        as in ``_round_body``. Returns (tokens [S, K+1], counts [S],
+        proposed [S], logits [S, K+1, V]); the contract of ``_step_body``."""
+        K, C = draft_len, self.max_context
+        d_len = self.draft_state["lengths"]
+        self._draft_ingest_body(K + 1)
+        ok = ((self.temps < sampling.GREEDY_EPS) & self.active_dev
+              & (d_len == self.lengths) & (self.lengths + K <= C - 2))
+        drafts = self._draft_propose_body(ok, K)
+        proposed = torch.where(ok, torch.full_like(self._slot_ids, K),
+                               torch.zeros_like(self._slot_ids))
+        feed = torch.cat([self.last_tokens[:, None], drafts], dim=1)
+        logits = self._verify_forward(feed)
+        g, counts = self._accept_body(drafts, logits)
+        torch.minimum(d_len, self.lengths, out=d_len)
+        return g, counts, proposed, logits
 
     def _verify_forward(self, feed: torch.Tensor) -> torch.Tensor:
         """The multi-token forward of ``feed`` [S, W] ([last token, W-1
@@ -805,17 +991,17 @@ class TorchEngine:
         self.lengths.copy_(torch.clamp(self.lengths + counts, max=C - 1))
         return logits
 
-    def _dispatcher(self, key, body, eager: bool, admission: bool = False):
+    def _dispatcher(self, key, body, eager: bool, admission: bool = False, pool=None):
         """What runs one dispatch: ``body`` itself on the CPU or when
         ``eager``, else the replay of its graph, captured now (and counted)
         if warmup did not. Caller holds the lock."""
         if eager or not self.graphs.enabled:
             return body
         if key not in self.graphs:
-            self._capture(key, body, admission)
+            self._capture(key, body, admission, pool)
         return lambda: self.graphs.replay(key)
 
-    def _capture(self, key, body, admission: bool = False) -> None:
+    def _capture(self, key, body, admission: bool = False, pool=None) -> None:
         """Capture ``body`` as graph ``key``. The capture runs nothing. The
         eager pass before it must leave the engine's state as the dispatch
         would: a step or round body runs with every slot inactive (writing
@@ -824,14 +1010,17 @@ class TorchEngine:
         tokens and active mask it moved. An admission body is idempotent
         given its staged operands, so it runs on them as it is: it writes
         what the replay then rewrites, and draws once more from the
-        generator. Admission graphs share one memory pool. Caller holds the
-        lock."""
+        generator. Admission graphs share one memory pool; a body that
+        returns nothing may share ``pool`` (the draft's ingest graphs).
+        Caller holds the lock."""
         def prepare() -> None:
             self._reserve_workspaces()
             if admission:
                 body()
                 return
             state = (self.lengths, self.last_tokens, self.active_dev)
+            if self.draft is not None:
+                state += (self.draft_state["lengths"],)
             saved = [t.clone() for t in state]
             self.active_dev.zero_()
             body()
@@ -840,21 +1029,25 @@ class TorchEngine:
 
         t0 = time.perf_counter()
         graph = self.graphs.capture(key, body, prepare,
-                                    pool=self._admission_pool if admission else None)
+                                    pool=self._admission_pool if admission else pool)
         log.info("%s: captured the %s graph (%d kernel launches) in %.2fs", self.cfg.name,
                  key, sum(graph.launches.values()), time.perf_counter() - t0)
 
-    def _workspace_launches(self) -> List[Tuple[int, int, int]]:
-        """The split launches of this engine (``workspace_launches``): the
-        decode attention, the verify attention of a speculative round or a
-        jump, and a
-        chunk of the prefix hit's rows (``prefill_chunk_default``, the
-        batcher's default chunk), or of the larger chunk ``warmup`` was
-        given."""
-        return workspace_launches(
+    def _workspace_launches(self) -> List[Tuple[int, int, int, int]]:
+        """The split launches of this engine as (groups, splits, partial
+        rows, head dim): ``workspace_launches`` (the decode attention, the
+        verify attention of a speculative round or a jump, and a chunk of
+        the prefix hit's rows (``prefill_chunk_default``, the batcher's
+        default chunk), or of the larger chunk ``warmup`` was given), and
+        with a draft model ``draft_workspace_launches`` at its head dim."""
+        sms = sm_count(self.device.index)
+        out = [(*launch, self.cfg.head_dim) for launch in workspace_launches(
             self.cfg, self.num_slots, self.max_context, chunk=self._workspace_chunk,
-            speculative=self.spec_supported and self.track_history,
-            sms=sm_count(self.device.index))
+            speculative=self.track_history, sms=sms)]
+        if self.draft is not None:
+            out += [(*launch, self.draft.cfg.head_dim) for launch in draft_workspace_launches(
+                self.draft.cfg, self.num_slots, self.max_context, sms=sms)]
+        return out
 
     def workspace_bytes(self) -> int:
         """Bytes of the split workspace the engine reserves on a stream (fp32
@@ -862,20 +1055,20 @@ class TorchEngine:
         if self.device.type != "cuda":
             return 0
         launches = self._workspace_launches()
-        groups = max(g for g, _, _ in launches)
-        return 4 * (workspace_floats(launches, self.cfg.head_dim) + groups)
+        floats = max(g * s * split.partial_floats(d, rows) for g, s, rows, d in launches)
+        return 4 * (floats + max(g for g, _, _, _ in launches))
 
     def _reserve_workspaces(self) -> None:
         """Make the current stream's split workspace at the largest launch
         this engine makes (single-query attention over the whole context;
         the verify attention of the longest draft spec_step takes, or of
-        the largest jump; a chunk of the admission, B = 1 and T = its rows)
-        and its split-K ticket counters, before a capture holds their
-        addresses."""
+        the largest jump; a chunk of the admission, B = 1 and T = its rows;
+        a draft's steps, catch-up and widest ingest) and its split-K ticket
+        counters, before a capture holds their addresses."""
         dev = self.device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for groups, splits, rows in self._workspace_launches():
-            split.workspace(dev, stream, groups, splits, self.cfg.head_dim, rows)
+        for groups, splits, rows, head_dim in self._workspace_launches():
+            split.workspace(dev, stream, groups, splits, head_dim, rows)
         counters_for(dev, stream)
 
     def admission_plan(self, prefill_chunk: Optional[int] = None
@@ -974,14 +1167,43 @@ class TorchEngine:
     def capture_spec(self, draft_len: int = SPEC_DRAFT_LEN, ngram: int = SPEC_NGRAM) -> None:
         """Ensure the round graph for (draft_len, ngram) exists without
         dispatching (the twin of the JAX ``compile_spec_fn``); nothing to do
-        off CUDA or on an engine that cannot speculate."""
-        if not (self.graphs.enabled and self.spec_supported and self.track_history):
+        off CUDA or without the token history."""
+        if not (self.graphs.enabled and self.track_history):
             return
         self._check_spec(draft_len, ngram)
         with self._lock:
             self._dispatcher(("spec", draft_len, ngram),
                              functools.partial(self._round_body, draft_len, ngram),
                              eager=False)
+
+    def capture_draft(self, draft_len: int = SPEC_DRAFT_LEN) -> None:
+        """Ensure the fused draft round of ``draft_len`` and every bulk
+        ingest width exist without dispatching (the twins of the JAX
+        ``compile_draft_spec_fn`` and ``compile_draft_ingest_fns``), the
+        ingest graphs, widest first, in their own shared pool, whose bytes
+        go to ``draft_pool_bytes``; nothing to do off CUDA or without a
+        draft model."""
+        if not (self.graphs.enabled and self.draft is not None):
+            return
+        self._check_spec(draft_len, SPEC_NGRAM)
+        with self._lock:
+            self._dispatcher(("draft_spec", draft_len),
+                             functools.partial(self._draft_round_body, draft_len), eager=False)
+            todo = [w for w in sorted(self._draft_ingest_buckets(), reverse=True)
+                    if ("draft_ingest", w) not in self.graphs]
+            if todo:
+                before = self.graphs.reserved_bytes()
+                for w in todo:
+                    self._dispatcher(("draft_ingest", w),
+                                     functools.partial(self._draft_ingest_body, w),
+                                     eager=False, pool=self._draft_pool)
+                self.draft_pool_bytes += self.graphs.reserved_bytes() - before
+
+    def draft_graphs(self) -> int:
+        """How many draft graphs (fused rounds and ingest widths) the engine
+        holds."""
+        return sum(isinstance(k, tuple) and k[0] in ("draft_spec", "draft_ingest")
+                   for k in self.graphs.graphs)
 
     def step(self, n_steps: int = 1) -> np.ndarray:
         """Run ``n_steps`` batched decode steps; returns tokens
@@ -1106,12 +1328,6 @@ class TorchEngine:
             raise ValueError(f"draft_len must be in [1, {spec.HISTORY_PAD - 2}]")
         if ngram < 1:
             raise ValueError("ngram must be >= 1")
-        if not self.spec_supported:
-            raise ValueError(
-                "speculative decoding is unsupported over the paged pool (its "
-                "round over verify_step_paged is not ported); serve the dense "
-                "cache, paged_pool_rows=None"
-            )
         if not self.track_history:
             raise ValueError(
                 "speculative decoding needs the token history "
@@ -1120,7 +1336,7 @@ class TorchEngine:
 
     def spec_step(self, n_rounds: int = 8, draft_len: int = SPEC_DRAFT_LEN,
                   ngram: int = SPEC_NGRAM) -> Tuple[np.ndarray, np.ndarray]:
-        """Run ``n_rounds`` speculative decode rounds over the dense cache.
+        """Run ``n_rounds`` speculative decode rounds over the engine's cache.
 
         Returns (tokens [n_rounds, num_slots, draft_len+1], counts
         [n_rounds, num_slots]): in round r, slot s emitted the first
@@ -1130,8 +1346,11 @@ class TorchEngine:
         sequence; temp > 0 slots never speculate and emit one sampled token
         per round. Only columns where ``self.active`` are meaningful. Each
         round draws from the generator once, like a decode step; one host
-        readback per call. On CUDA each round is one replay of the round
-        graph of (draft_len, ngram)."""
+        readback per call. Over the pool ``n_rounds * (draft_len + 1)`` rows
+        of every active slot are backed first (full acceptance every round;
+        unused pages recycle at release), so PoolExhausted leaves the state
+        untouched. On CUDA each round is one replay of the round graph of
+        (draft_len, ngram)."""
         return self._rounds(n_rounds, draft_len, ngram, eager=False)
 
     def spec_step_eager(self, n_rounds: int = 8, draft_len: int = SPEC_DRAFT_LEN,
@@ -1145,6 +1364,9 @@ class TorchEngine:
         self._check_spec(draft_len, ngram)
         S, K = self.num_slots, draft_len
         with self._lock:
+            if self.paged:
+                self._back_active_slots(n_rounds * (K + 1))
+                self._stage_tables()
             run = self._dispatcher(("spec", draft_len, ngram),
                                    functools.partial(self._round_body, draft_len, ngram),
                                    eager)
@@ -1156,26 +1378,128 @@ class TorchEngine:
                 out[r, :, K + 1] = counts
             self.decode_steps += n_rounds
             self.spec_rounds += n_rounds
+            self.spec_proposer_rounds["ngram"] += n_rounds
             # acceptance denominator: (round, active slot) pairs, a per-slot
             # rate that does not scale with batch occupancy
-            self.spec_slot_rounds += n_rounds * int(self.active.sum())
+            active_rounds = n_rounds * int(self.active.sum())
+            self.spec_slot_rounds += active_rounds
         host = out.cpu().numpy()
         tokens, counts = host[:, :, : K + 1], host[:, :, K + 1]
         with self._lock:
-            self.spec_tokens += int(counts[:, self.active].sum())
+            emitted = int(counts[:, self.active].sum())
+            self.spec_tokens += emitted
+            self.spec_proposer_accepted["ngram"] += max(emitted - active_rounds, 0)
             self._host_lengths = np.minimum(
                 self._host_lengths + counts.sum(axis=0), self.max_context - 1
             )
         return tokens, counts
 
+    def spec_step_draft(self, n_rounds: int = 8, draft_len: int = SPEC_DRAFT_LEN
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Run ``n_rounds`` draft-model speculative rounds: the attached
+        draft proposes ``draft_len`` tokens a greedy slot and the serving
+        model verifies them, catch-up, proposal, verify, acceptance and the
+        draft's sync in one fused round (bulk ingest for freshly admitted
+        slots first, ``_draft_catchup``). Returns (tokens [n_rounds,
+        num_slots, draft_len+1], counts [n_rounds, num_slots], proposed
+        [n_rounds, num_slots]): tokens and counts as ``spec_step``'s,
+        ``proposed`` the draft tokens offered a (round, slot), 0 or
+        draft_len, the acceptance denominator. Greedy slots emit the
+        plain-greedy sequence; temp > 0 slots never propose. Over the pool
+        ``n_rounds * (draft_len + 1)`` rows of every active slot are backed
+        first. One host readback per call (and one per ingest dispatch); on
+        CUDA each round is one replay of the fused round's graph, each
+        ingest one replay of its width's graph."""
+        return self._draft_rounds(n_rounds, draft_len, eager=False)
+
+    def spec_step_draft_eager(self, n_rounds: int = 8, draft_len: int = SPEC_DRAFT_LEN
+                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``spec_step_draft`` through the eager bodies, ingest included
+        (see ``step_eager``)."""
+        return self._draft_rounds(n_rounds, draft_len, eager=True)
+
+    def _draft_rounds(self, n_rounds: int, draft_len: int, eager: bool):
+        if self.draft is None:
+            raise ValueError("no draft model attached (TorchEngine(draft=...) / "
+                             "AIOS_TPU_DRAFT_MODEL)")
+        self._check_spec(draft_len, SPEC_NGRAM)
+        self._draft_catchup(draft_len + 1, eager)
+        S, K = self.num_slots, draft_len
+        with self._lock:
+            if self.paged:
+                self._back_active_slots(n_rounds * (K + 1))
+                self._stage_tables()
+            run = self._dispatcher(("draft_spec", K),
+                                   functools.partial(self._draft_round_body, K), eager)
+            # tokens, counts and proposed [R, S, K+3], then the draft lengths
+            # after the last round: one readback
+            out = torch.empty((n_rounds, S, K + 3), dtype=torch.int64, device=self.device)
+            for r in range(n_rounds):
+                g, counts, proposed, self.last_logits = run()
+                out[r, :, : K + 1] = g
+                out[r, :, K + 1] = counts
+                out[r, :, K + 2] = proposed
+            flat = torch.cat([out.view(-1), self.draft_state["lengths"].long()])
+            self.decode_steps += n_rounds
+            self.spec_rounds += n_rounds
+            self.spec_proposer_rounds["draft"] += n_rounds
+            active_rounds = n_rounds * int(self.active.sum())
+            self.spec_slot_rounds += active_rounds
+        flat = flat.cpu().numpy()
+        host = flat[: -S].reshape(n_rounds, S, K + 3)
+        tokens, counts, proposed = host[:, :, : K + 1], host[:, :, K + 1], host[:, :, K + 2]
+        with self._lock:
+            emitted = int(counts[:, self.active].sum())
+            self.spec_tokens += emitted
+            self.spec_proposer_accepted["draft"] += max(emitted - active_rounds, 0)
+            self.draft_proposed_tokens += int(proposed[:, self.active].sum())
+            self._host_lengths = np.minimum(
+                self._host_lengths + counts.sum(axis=0), self.max_context - 1)
+            self._draft_host_lengths = flat[-S:].copy()
+        return tokens, counts, proposed
+
+    def _draft_ingest_buckets(self) -> Tuple[int, ...]:
+        return tuple(b for b in DRAFT_INGEST_BUCKETS if b <= self.max_context) or \
+            DRAFT_INGEST_BUCKETS[:1]
+
+    def _draft_catchup(self, headroom: int, eager: bool) -> None:
+        """Bulk-ingest history into the draft cache until every active
+        greedy slot's draft gap fits the fused round's catch-up width
+        (``headroom``): each dispatch advances every lagging slot by up to
+        the smallest ``DRAFT_INGEST_BUCKETS`` width that covers the largest
+        gap (the widest if none does), then reads the draft lengths back
+        (the JAX ``_draft_catchup``). Dispatches all come from one thread,
+        so the host mirrors cannot race the device state."""
+        buckets = self._draft_ingest_buckets()
+        while True:
+            gaps = (self._host_lengths - self._draft_host_lengths)[
+                self.active & self._host_greedy]
+            gap_max = int(gaps.max()) if gaps.size else 0
+            if gap_max <= headroom:
+                return
+            w = next((b for b in buckets if b >= gap_max), buckets[-1])
+            with self._lock:
+                self._dispatcher(("draft_ingest", w),
+                                 functools.partial(self._draft_ingest_body, w), eager,
+                                 pool=self._draft_pool)()
+                self.draft_ingest_dispatches += 1
+                d_len = self.draft_state["lengths"].long()
+            self._draft_host_lengths = d_len.cpu().numpy()
+
     def release(self, slot: int) -> None:
         self.active[slot] = False
         self._host_lengths[slot] = 0
+        self._draft_host_lengths[slot] = 0
+        self._host_greedy[slot] = False
         with self._lock:
             if self.paged:
                 self.allocator.free_slot(slot)
             self.lengths[slot] = 0
             self.active_dev[slot] = False
+            if self.draft_state is not None:
+                # the next occupant's draft rows rebuild from the history by
+                # ingest: zeroing the length is the whole reset
+                self.draft_state["lengths"][slot] = 0
 
     def slot_length(self, slot: int) -> int:
         return int(self._host_lengths[slot])
@@ -1210,6 +1534,16 @@ class TorchEngine:
             out["spec_tokens_per_round"] = round(
                 self.spec_tokens / max(self.spec_slot_rounds, 1), 2)
             out["spec_accepted"] = max(self.spec_tokens - self.spec_slot_rounds, 0)
+            for p in spec.SPEC_PROPOSERS:
+                if self.spec_proposer_rounds[p]:
+                    out[f"spec_{p}_rounds"] = self.spec_proposer_rounds[p]
+                    out[f"spec_{p}_accepted"] = self.spec_proposer_accepted[p]
+        if self.draft is not None:
+            out["draft_ingest_dispatches"] = self.draft_ingest_dispatches
+            out["draft_proposed_tokens"] = self.draft_proposed_tokens
+            if self.draft_proposed_tokens:
+                out["draft_acceptance"] = round(
+                    self.spec_proposer_accepted["draft"] / self.draft_proposed_tokens, 3)
         if self.jump_dispatches:
             out["jump_dispatches"] = self.jump_dispatches
             out["jump_tokens"] = self.jump_tokens
@@ -1218,7 +1552,8 @@ class TorchEngine:
     def warmup(self, prefill_chunk: Optional[int] = None, masked_step: bool = False) -> None:
         """On a CUDA engine, build and load the kernel library, then capture
         the decode step's graph and, where the engine speculates, the round
-        graph of spec_step's defaults, with ``masked_step`` the masked
+        graph of spec_step's defaults (with a draft model also its fused
+        round and every ingest width, ``capture_draft``), with ``masked_step`` the masked
         step's graph and, where ``jump_ahead_enabled``, the jump graph of
         each of ``JUMP_BUCKETS``, then the admission graphs at the
         batcher's ``prefill_chunk`` (None: ``prefill_chunk_default``, 0: no
@@ -1240,15 +1575,17 @@ class TorchEngine:
             self._reserve_workspaces()
         self.capture_step()
         self.capture_spec()
+        self.capture_draft()
         if masked_step:  # json-mode deployments dispatch step_masked
             self.capture_masked()
             if jump_ahead_enabled(self.cfg):
                 for k in JUMP_BUCKETS:
                     self.capture_jump(k)
         self.capture_admission(prefill_chunk)
-        log.info("%s: kernels and %d graphs (%d of admission, %d B of shared pool) ready "
-                 "in %.1fs", self.cfg.name, self.graphs.captures, self.admission_graphs(),
-                 self.admission_pool_bytes, time.perf_counter() - t0)
+        log.info("%s: kernels and %d graphs (%d of admission, %d B of shared pool; %d of "
+                 "the draft, %d B of ingest pool) ready in %.1fs", self.cfg.name,
+                 self.graphs.captures, self.admission_graphs(), self.admission_pool_bytes,
+                 self.draft_graphs(), self.draft_pool_bytes, time.perf_counter() - t0)
 
     def close(self) -> None:
         """Drop graphs, weights and the cache now rather than at the next
@@ -1260,6 +1597,10 @@ class TorchEngine:
             self.k_pool = self.v_pool = None
             self.k_scales = self.v_scales = None
             self.history = None
+            # the DraftModel's leaves may be shared with other replicas
+            self.draft = None
+            self.draft_state = None
+            self._draft_params = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1275,13 +1616,14 @@ class TorchEngine:
         stop_tokens: Tuple[int, ...] = (),
         slot: int = 0,
         chunk: int = 8,
-        speculative: bool = False,
+        speculative: Union[bool, str] = False,
         draft_len: int = SPEC_DRAFT_LEN,
         ngram: int = SPEC_NGRAM,
     ) -> List[int]:
         """Single-request generation loop (the continuous batcher in
         ``batching.py`` is the serving path). ``speculative=True`` decodes
-        through n-gram speculative rounds: identical greedy output in fewer
+        through n-gram speculative rounds, ``speculative="draft"`` through
+        the attached draft model's: identical greedy output in fewer
         dispatches; a sampling request takes one token per round."""
         first = self.prefill(slot, token_ids, temperature, top_p)
         out = [first]
@@ -1292,8 +1634,12 @@ class TorchEngine:
                 break
             if speculative:
                 pre = self.slot_length(slot)  # before the dispatch moves it
-                toks, counts = self.spec_step(min(budget, room), draft_len=draft_len,
-                                              ngram=ngram)
+                if speculative == "draft":
+                    toks, counts, _ = self.spec_step_draft(min(budget, room),
+                                                           draft_len=draft_len)
+                else:
+                    toks, counts = self.spec_step(min(budget, room), draft_len=draft_len,
+                                                  ngram=ngram)
                 new: List[int] = []
                 for r in range(toks.shape[0]):
                     if pre >= self.max_context - 1:
@@ -1377,7 +1723,7 @@ class ChunkedPrefill:
                 eng.allocator.ensure(self.slot, self.pos + n)
             eng._chunk_forward(self, n, bucket, final)
             if final:
-                self.first_token = eng._admitted(self.slot, len(self.ids))
+                self.first_token = eng._admitted(self.slot, len(self.ids), self.temperature)
                 self.first_logits = eng._adm_logits.clone()
                 eng._register_prefix(self.slot, self.ids, self.hashes)
         self.pos += n

@@ -218,6 +218,15 @@ def is_quantized(params: Params) -> bool:
                for v in params["layers"].values())
 
 
+def quantized_mode(params: Params) -> Optional[str]:
+    """"int4" when any layer leaf is int4, "int8" when they are int8, None
+    for dense layers."""
+    if not is_quantized(params):
+        return None
+    return "int4" if any(isinstance(v, dict) and "q4" in v
+                         for v in params["layers"].values()) else "int8"
+
+
 def layer_params(params: Params) -> List[Dict[str, object]]:
     """Per-layer views of the stacked [L, ...] leaves (no copies)."""
     L = params["layers"]["attn_norm"].shape[0]
@@ -582,10 +591,12 @@ def _dense_attention_sublayer(x, lp, cfg: ModelConfig, cos, sin, caches, plan,
 
 
 def _dense_forward(params: Params, cfg: ModelConfig, tokens, lengths, k_cache,
-                   v_cache, active, kernels: bool, cache_scales, multi: bool):
+                   v_cache, active, kernels: bool, cache_scales, multi: bool,
+                   logits: bool = True):
     """The body ``decode_step`` (T = 1) and ``verify_step`` share: write the
     T new K/V rows of every slot into the dense cache in place, attend, and
-    return logits [B, T, V]."""
+    return logits [B, T, V], or None without ``logits`` (no final norm and
+    lm_head)."""
     T, C = tokens.shape[1], k_cache.shape[2]
     positions, plan = _dense_plan(cfg, lengths, active, T, C, kernels, multi)
     x = params["embed"][tokens]  # [B, T, E]
@@ -596,7 +607,7 @@ def _dense_forward(params: Params, cfg: ModelConfig, tokens, lengths, k_cache,
             caches += (cache_scales[0][i], cache_scales[1][i])
         x = x + _dense_attention_sublayer(x, lp, cfg, cos, sin, caches, plan, kernels)
         x = x + _mlp(x, lp, cfg, kernels)
-    return _final_logits(x, params, cfg, kernels)
+    return _final_logits(x, params, cfg, kernels) if logits else None
 
 
 def decode_step(
@@ -639,9 +650,13 @@ def verify_step(
     active: torch.Tensor = None,  # [B] bool
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> torch.Tensor:
+    logits: bool = True,
+) -> Optional[torch.Tensor]:
     """Batched multi-token decode for speculative verification; returns
-    logits [B, T, V] in fp32.
+    logits [B, T, V] in fp32, or None when ``logits`` is False: the draft's
+    bulk ingest writes K/V rows only and stops before the final norm and
+    lm_head (the JAX function computes the logits and its caller discards
+    them).
 
     The T tokens of a slot are its pending last token followed by T-1 draft
     tokens (-1 where there is no draft: it embeds as the last vocabulary row
@@ -660,7 +675,7 @@ def verify_step(
     saturated: all its writes collide on the last row and its outputs are
     indeterminate, so callers must not consume its tokens."""
     return _dense_forward(params, cfg, tokens, lengths, k_cache, v_cache, active,
-                          kernels, cache_scales, multi=True)
+                          kernels, cache_scales, multi=True, logits=logits)
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,13 @@ in fewer dispatches. Slots sampling at temperature > 0 do not speculate: they
 emit one sampled token per round from the first logits row. The two kinds of
 slot mix freely in one batch.
 
+Beside prompt lookup, ``DraftModel`` turns a small model into a proposer:
+it runs K greedy decode steps a round over its own dense cache, and the
+serving model verifies the draft in the same forward (``TorchEngine``'s
+``spec_step_draft``).
+
 The port of ``aios_tpu/engine/spec.py``: integer functions whose results
-equal the JAX ones exactly. The draft-model proposer (``DraftModel``) is not
-ported yet.
+equal the JAX ones exactly, and ``DraftModel``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
-# The closed proposer enum of the JAX package; the port runs "ngram" only.
+# The closed proposer enum of the JAX package: the ``proposer`` label of the
+# speculative metric families and the batcher's ladder (draft -> ngram).
 SPEC_PROPOSERS = ("ngram", "draft")
 
 # Extra columns appended to the history buffer beyond max_context so the
@@ -109,6 +114,62 @@ def propose_ngram(
     drafts = history.gather(1, (start[:, None] + steps).clamp(0, W - 1))
     drafts = torch.where(steps < num[:, None], drafts, torch.full_like(drafts, -1))
     return drafts, num
+
+
+class DraftModel:
+    """A small model as the draft proposer beside ``propose_ngram`` (the
+    JAX ``spec.DraftModel``): K greedy steps a round through its own
+    ``decode_step``, verified by the serving model in one forward. Holds
+    the draft's config and serving leaves only, shared read-only by every
+    replica engine of a managed model; each engine makes its own slot-
+    aligned cache with ``init_state`` and keeps the invariant that draft
+    cache rows [0, d_len) hold the K/V of ``history[:, 0:d_len)``, so a
+    rejected draft row is unreadable once d_len is clamped back to the
+    verified length. The draft must share the serving model's tokenizer
+    (its proposals are token ids of the serving vocabulary).
+
+    ``quantize`` is "int4" (the default), "int8" (True too) or None for
+    dense leaves; params that already hold serving leaves keep their
+    stored mode."""
+
+    def __init__(self, cfg, params, *, quantize: Optional[str] = "int4"):
+        from . import model  # model imports nothing of this module, but engine does
+
+        self.cfg = cfg
+        if quantize is True:
+            quantize = "int8"
+        elif not quantize:
+            quantize = None
+        elif quantize not in ("int8", "int4"):
+            raise ValueError(f"unknown draft quantize mode {quantize!r}")
+        if model.is_quantized(params):
+            self.quant_mode = model.quantized_mode(params)
+        else:
+            if quantize is not None:
+                params = model.quantize_params(params, mode=quantize)
+            self.quant_mode = quantize
+        self.params = params
+
+    def init_state(self, num_slots: int, max_context: int,
+                   cache_dtype: torch.dtype = torch.bfloat16, device=None):
+        """A fresh draft state on ``device`` (None: the draft's): a dense
+        cache [L, S, C, KH, D] sized to the SERVING model's context (rows
+        map 1:1 onto history columns) and the [S] int32 lengths. bf16
+        stands in for an int8 serving cache: the draft path keeps no
+        scales."""
+        from . import model
+
+        if cache_dtype == torch.int8:
+            cache_dtype = torch.bfloat16
+        device = self.params["embed"].device if device is None else device
+        k, v = model.init_kv_cache(self.cfg, num_slots, max_context, cache_dtype, device)
+        return {"k": k, "v": v,
+                "lengths": torch.zeros(num_slots, dtype=torch.int32, device=device)}
+
+    def weight_bytes(self) -> int:
+        from . import model
+
+        return model.serving_weight_bytes(self.params)
 
 
 def accept_counts(drafts: torch.Tensor, argmax_rows: torch.Tensor) -> torch.Tensor:

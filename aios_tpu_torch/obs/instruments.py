@@ -1,8 +1,8 @@
 """The port's metric catalog: the instruments its serving plane registers.
 
 Copied from ``aios_tpu/obs/instruments.py``: the families that the replica
-pool, admission, failover, the batcher, the runtime service and the fault
-points touch, under the JAX package's names. The names do not collide when
+pool, admission, failover, the batcher, the engine's speculation, the
+runtime service and the fault points touch, under the JAX package's names. The names do not collide when
 both packages run in one process (the parity tests): each package's
 instruments register in its own ``metrics.REGISTRY``, so one name lives
 once in each registry and never twice in one. The other JAX families (RPC
@@ -60,6 +60,34 @@ ENGINE_POOL_EVICTIONS = Counter(
     "aios_tpu_engine_pool_evictions_total",
     "Live requests retired to free KV pages under pool exhaustion",
     ("model",),
+)
+
+# -- speculative decoding (engine.spec_step / spec_step_draft) -------------
+# Rounds and accepted tokens are engine counters summed over the live
+# replica engines of a model; the acceptance ratio is the batchers' EWMA
+# that drives the AIOS_TPU_SPEC_MIN_ACCEPT auto-disable, averaged over the
+# live replica batchers. The ``proposer`` label is the closed enum
+# spec.SPEC_PROPOSERS (ngram | draft).
+
+SPEC_ROUNDS = Gauge(
+    "aios_tpu_spec_rounds_total",
+    "Speculative verify rounds dispatched by proposer (ngram|draft; "
+    "monotonic, summed over replica engines)",
+    ("model", "proposer"),
+)
+SPEC_ACCEPTED = Gauge(
+    "aios_tpu_spec_accepted_total",
+    "Draft tokens accepted by speculative verify (emitted tokens minus "
+    "the one guaranteed token per slot-round; by proposer, monotonic, "
+    "summed over replica engines)",
+    ("model", "proposer"),
+)
+SPEC_ACCEPTANCE = Gauge(
+    "aios_tpu_spec_acceptance_ratio",
+    "EWMA draft-acceptance ratio (accepted / proposed) per model and "
+    "proposer, averaged over replica batchers; drives the per-proposer "
+    "AIOS_TPU_SPEC_MIN_ACCEPT auto-disable ladder",
+    ("model", "proposer"),
 )
 
 # -- runtime service -------------------------------------------------------

@@ -49,9 +49,18 @@ served from the dense cache. Over the pool the prompt-prefix index is on
 off, as the JAX ``ModelManager`` does), a radix tree unless
 ``AIOS_TPU_PREFIX_RADIX`` is 0, and every batcher admits a prompt longer
 than 512 tokens in 512-token chunks with decode dispatches between them.
-``speculative`` turns on n-gram speculative
-decode dispatches (None reads ``AIOS_TPU_SPECULATIVE``); they run over the
-dense cache only, so with a paged pool the batcher warns and serves without.
+``speculative`` turns on speculative decode
+dispatches over either cache (None reads ``AIOS_TPU_SPECULATIVE``). A model
+paired with a draft (``AIOS_TPU_DRAFT_MODEL``, else the config's
+``draft_model``: a preset name such as ``tinyllama`` or a ``.gguf`` path)
+serves speculatively whatever that knob says, through the batcher's ladder
+draft -> n-gram: the draft is loaded once as an int4 ``spec.DraftModel``
+shared read-only by the replicas, each of which keeps its own dense draft
+cache; its weights count once in the budget and its cache once per replica.
+A pairing that cannot serve (an unknown source, a file that does not load,
+an HF directory, another vocabulary or tokenizer, a geometry no kernel
+takes) logs and serves with n-gram speculation, as the JAX manager does; a
+CUDA error while the draft loads propagates.
 Every batcher knows its model's tokenizer and so serves grammar-constrained
 requests (``json_schema``, ``json_mode``); under ``AIOS_TPU_JSON_MODE=force``
 (``json_mode_forced``) ``LoadModel`` also captures the masked step's graph
@@ -84,8 +93,9 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from ..device import DEVICE_FAULT_REASON, resolve_device
+from ..device import DEVICE_FAULT_REASON, is_device_fault, resolve_device
 from ..engine import model as model_mod
+from ..engine import spec as spec_mod
 from ..engine.batching import ContinuousBatcher
 from ..engine.config import PRESETS, TINY_TEST, ModelConfig
 from ..engine.engine import TorchEngine
@@ -139,8 +149,12 @@ class ManagedModel:
     # quantize_s and capture_s (every replica's captures)
     load_timings: Dict[str, float] = field(default_factory=dict)
     # estimated card memory this model pins (weights, KV pools, admission
-    # graph pools); co-resident loads are budgeted against it
+    # graph pools, the draft's weights and caches); co-resident loads are
+    # budgeted against it
     hbm_chip_bytes: float = 0.0
+    # the paired draft's part of it: its weights once, its bf16 cache once
+    # a replica (0 without a draft)
+    draft_chip_bytes: float = 0.0
     # the replica pool fronting this model; None only for error entries
     pool: Optional[ReplicaPool] = None
 
@@ -317,11 +331,18 @@ class ModelManager:
             cfg, params, tokenizer = self._load_weights(name, path, context_length)
             serving_cfg = ServingConfig.from_env(cfg.replicas,
                                                  draft_model_default=cfg.draft_model)
-            if serving_cfg.draft_model:
-                log.warning("%s: draft-model speculation (%r) is not ported yet; "
-                            "serving without it", name, serving_cfg.draft_model)
             n_replicas = max(1, serving_cfg.replicas)
             ctx = context_length or cfg.max_context
+            # a paired draft is loaded once (its leaves shared by every
+            # replica engine, each with its own dense draft cache) and
+            # implies speculative serving: the draft exists for nothing else
+            draft, spec_on, draft_bytes = None, self.speculative, 0.0
+            if serving_cfg.draft_model:
+                draft = self._build_draft(serving_cfg.draft_model, cfg, ctx, tokenizer)
+                if draft is not None:
+                    spec_on = True
+                    draft_bytes = (draft.weight_bytes() + _kv_row_bytes(
+                        draft.cfg, torch.bfloat16) * self.num_slots * ctx * n_replicas)
             kw = {}  # empty: the dense slot cache
             rows = self.paged_pool_rows
             if rows is not None:
@@ -338,7 +359,8 @@ class ModelManager:
                     log.warning("AIOS_TPU_PAGED_KV ignored for %s: context %d needs "
                                 "a multiple of %d; serving dense", name, ctx,
                                 PAGE_SIZE if int8 else 16)
-            weight_bytes, kv_bytes = self._budget(name, cfg, params, ctx, kw, n_replicas)
+            weight_bytes, kv_bytes = self._budget(name, cfg, params, ctx, kw, n_replicas,
+                                                  draft_bytes)
             # the batcher's admission chunk: warmup captures its graphs, and
             # with forced JSON mode the masked step and the jump buckets
             chunk = TorchEngine.prefill_chunk_default
@@ -354,8 +376,9 @@ class ModelManager:
                         max_context=ctx,
                         cache_dtype=self.cache_dtype,
                         quantize=self.quantize if i == 0 else None,
-                        track_history=self.speculative,
+                        track_history=spec_on,
                         device=self.device,
+                        draft=draft,
                         **kw,
                     )
                     if i == 0:
@@ -370,8 +393,9 @@ class ModelManager:
             timings.update(quantize_s=engines[0].quantize_seconds,
                            capture_s=sum(e.graphs.capture_seconds for e in engines))
 
-            def batcher_factory(eng, _tok=tokenizer, _spec=self.speculative, _chunk=chunk):
-                # the pool's spawn and crash-respawn path
+            def batcher_factory(eng, _tok=tokenizer, _spec=spec_on, _chunk=chunk):
+                # the pool's spawn and crash-respawn path; the ladder reads
+                # eng.draft, so a respawned replica keeps its draft rung
                 return ContinuousBatcher(eng, speculative=_spec, prefill_chunk=_chunk,
                                          tokenizer=_tok)
 
@@ -395,9 +419,11 @@ class ModelManager:
                 context_length=context_length or 0,
                 load_timings=timings,
                 # one copy of the weights, a KV pool and an admission graph
-                # pool (measured) per replica
-                hbm_chip_bytes=weight_bytes + kv_bytes * n_replicas
-                + sum(e.admission_pool_bytes for e in engines),
+                # pool (measured) per replica; the draft's weights once, its
+                # cache and ingest graph pool (measured) per replica
+                hbm_chip_bytes=weight_bytes + kv_bytes * n_replicas + draft_bytes
+                + sum(e.admission_pool_bytes + e.draft_pool_bytes for e in engines),
+                draft_chip_bytes=draft_bytes,
                 pool=pool,
             )
 
@@ -436,7 +462,8 @@ class ModelManager:
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %d replica%s sharing one copy "
                  "of the weights, %s, weights %s, "
                  "%s %s of %d B a replica, prefix index %s, chunked admission %s, "
-                 "speculative %s, "
+                 "speculative %s (proposers %s; draft %s: %d B of weights, a %d B cache "
+                 "and %d graphs a replica, ingest pool %d B), "
                  "%d graphs captured a replica (%d of admission, in a shared pool of %d B), "
                  "split workspace %d B a stream; budgeted %d B; parse and dequantize %.2fs, "
                  "upload %.2fs, quantize %.2fs, capture %.2fs, process peak RSS %d MB)", name,
@@ -446,6 +473,12 @@ class ModelManager:
                  "page pool" if engine.paged else "dense cache", pool_bytes,
                  type(engine.prefix_index).__name__ if engine.prefix_index else "off",
                  managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
+                 "/".join(managed.batcher.spec_proposers),
+                 draft.cfg.name if draft is not None else "none",
+                 draft.weight_bytes() if draft is not None else 0,
+                 sum(t.numel() * t.element_size() for t in engine.draft_state.values())
+                 if engine.draft_state is not None else 0,
+                 engine.draft_graphs(), engine.draft_pool_bytes,
                  engine.graphs.captures, engine.admission_graphs(),
                  engine.admission_pool_bytes, engine.workspace_bytes(),
                  int(managed.hbm_chip_bytes),
@@ -455,11 +488,12 @@ class ModelManager:
         return managed
 
     def _budget(self, name: str, cfg: ModelConfig, params, ctx: int, kw: dict,
-                n_replicas: int):
+                n_replicas: int, draft_bytes: float = 0.0):
         """The JAX manager's per-chip estimate for this load, (serving weight
         bytes, one replica's KV bytes), and its warning when they do not fit
-        0.85 of the card beside the co-resident models. The replicas share
-        the weights, so those count once."""
+        0.85 of the card beside the co-resident models and the paired
+        draft's ``draft_bytes``. The replicas share the weights, so those
+        count once."""
         factor = 1.0 if model_mod.is_quantized(params) else {
             "int8": 0.5, "int4": 0.25}.get(self.quantize, 1.0)
         weight_bytes = model_mod.serving_weight_bytes(params) * factor
@@ -468,13 +502,71 @@ class ModelManager:
         with self._lock:
             resident = sum(mm.hbm_chip_bytes for mm in self.models.values()
                            if mm.name != name or mm.state == STATE_READY)
-        budget = _chip_hbm_bytes(self.device) * 0.85 - weight_bytes - resident
+        budget = _chip_hbm_bytes(self.device) * 0.85 - weight_bytes - resident - draft_bytes
         if kv_bytes * n_replicas > max(budget, 0.0):
             log.warning("%s: KV cache needs ~%.1f GB/chip (budget ~%.1f GB) and the "
                         "seq-sharded degradation is unavailable (no sp axis on one "
                         "card) — loading anyway and HBM may overflow", name,
                         kv_bytes * n_replicas / 1e9, max(budget, 0.0) / 1e9)
         return weight_bytes, kv_bytes
+
+    def _build_draft(self, source: str, cfg: ModelConfig, ctx: int,
+                     tokenizer: BaseTokenizer) -> Optional[spec_mod.DraftModel]:
+        """The paired draft model (a preset name such as "tinyllama", or a
+        ``.gguf`` path) as an int4 ``spec.DraftModel``, or None when the
+        pairing cannot serve (the JAX manager's ``_build_draft``): lenient
+        like every serving knob, a config error logs and serves with n-gram
+        speculation. A CUDA error raises."""
+        def vocab_mismatch(dcfg: ModelConfig) -> bool:
+            if dcfg.vocab_size == cfg.vocab_size:
+                return False
+            log.warning("%s: draft model %s vocab (%d) does not match the serving vocab "
+                        "(%d); they must share one tokenizer; serving with n-gram "
+                        "speculation", cfg.name, dcfg.name, dcfg.vocab_size, cfg.vocab_size)
+            return True
+
+        try:
+            p = Path(source)
+            if source.endswith(".gguf") or "/" in source or p.exists():
+                dcfg, dparams, dtok = self._load_weights(p.stem.lower() or "draft", source, 0)
+            else:
+                # a preset's vocabulary is known before its weights are made
+                if vocab_mismatch(resolve_preset(source)):
+                    return None
+                dcfg, dparams, dtok = self._load_weights(source, "", 0)
+        except Exception as exc:  # noqa: BLE001 - the lenient knob, config errors only
+            if is_device_fault(exc):
+                raise
+            log.warning("%s: draft model %r failed to load (%s); serving with n-gram "
+                        "speculation", cfg.name, source, exc)
+            return None
+        if vocab_mismatch(dcfg):
+            return None
+        # equal vocabulary SIZES do not make one tokenizer (32000 is every
+        # Llama-family size): a mismatch would propose garbage ids forever
+        try:
+            probe = 'The quick brown fox ran 42 {"tool": "call"}'
+            if dtok.encode(probe) != tokenizer.encode(probe):
+                log.warning("%s: draft model %s tokenizes differently (same vocab size, "
+                            "another tokenizer); serving with n-gram speculation",
+                            cfg.name, dcfg.name)
+                return None
+        except Exception as exc:  # noqa: BLE001 - the lenient knob
+            log.warning("%s: draft tokenizer probe failed (%s); pairing on vocab size "
+                        "alone", cfg.name, exc)
+        if self.device.type == "cuda":
+            faults = model_mod.kernel_contract_faults(dcfg, paged=False, quant_cache=False,
+                                                      quantize="int4")
+            if faults:
+                log.warning("%s: draft model %s cannot be served on %s (%s); serving with "
+                            "n-gram speculation", cfg.name, dcfg.name, self.device,
+                            "; ".join(faults))
+                return None
+        draft = spec_mod.DraftModel(dcfg, dparams, quantize="int4")
+        del dparams
+        log.info("%s: paired draft model %s (%d B of serving weights, ctx %d)", cfg.name,
+                 dcfg.name, draft.weight_bytes(), ctx)
+        return draft
 
     def _load_weights(self, name: str, path: str, context_length: int):
         """Resolve (config, params, tokenizer) from a model source; a GGUF

@@ -4,8 +4,8 @@ A copy of ``aios_tpu/serving/config.py``: one dataclass read once per
 ``LoadModel`` (ModelManager.load_model), so a running pool's policy is
 immutable, with the same ``AIOS_TPU_*`` knobs and the same lenient
 parsing: a malformed knob logs and falls back instead of taking down a
-model load. ``draft_model`` stays a field; the port's model manager logs
-that draft-model speculation is not ported yet and serves without it.
+model load. ``draft_model`` names the draft the model manager pairs with
+the model (``runtime/model_manager.py``, ``_build_draft``).
 """
 
 from __future__ import annotations
@@ -75,9 +75,9 @@ class ServingConfig:
     # draft-model speculation source paired with this managed model
     # (AIOS_TPU_DRAFT_MODEL overrides ModelConfig.draft_model): a preset
     # name or weights path loaded as an int4 draft (engine/spec.py
-    # DraftModel). "" = n-gram prompt-lookup speculation only. The pool
-    # falls back to n-gram when it cannot carry a draft (dp-replicated
-    # pools, sharded plans, vocab mismatch) — see docs/ENGINE_PERF.md.
+    # DraftModel). "" = n-gram prompt-lookup speculation only. The manager
+    # falls back to n-gram when it cannot carry the draft (a source that
+    # does not load, another vocabulary or tokenizer).
     draft_model: str = ""
 
     @classmethod

@@ -165,7 +165,32 @@ Phases, each printing its lines:
      second request RESOURCE_EXHAUSTED (quota), a burst shedding
      ``queue_full``, and a request under a 100 ms deadline behind a busy
      replica shed ``deadline`` without a slot. Its counted windows add to
-     the kernels line.
+     the kernels line;
+  14. speculation over the page pool and the draft rung
+     (``phase_spec_paged``) — TinyLlama-1.1B paged (int8 weights, bf16
+     pool, speculative) loaded with ``AIOS_TPU_DRAFT_MODEL=deepseek``: the
+     128,256-vocab draft is refused with a warning and the n-gram rung
+     serves; the paged round's replay against its eager body (89 K1 and 22
+     K6 a round) and its host wall and device busy against a plain step;
+     then an engine over the same leaves with ``DraftModel(cfg, params,
+     "int8")``: each ingest width's replay and the fused draft round's
+     against their eager bodies (draft cache, lengths, tokens and logits
+     bit for bit, exact launches), the draft round's cost, and 8 greedy
+     129-token requests with the draft (acceptance >= 0.5) and without
+     (dispatches, tok/s, the streams' agreement). Mistral-7B paged (int4
+     weights, int8 pool, window 4096) with ``AIOS_TPU_DRAFT_MODEL=tinyllama``
+     through LoadModel and gRPC: the int4 TinyLlama draft pairs, its cache
+     is 1,476,395,008 B and its weights and cache are in the budget, the
+     draft graphs are in HealthCheck's captures; 3 Infer + 1 StreamInfer
+     (the n-gram rung: sampled requests), then 8 greedy requests of 129
+     tokens through the draft rung (K5, K6, K7 and K8 launched); the
+     n-gram round's replay against its eager body (129 K5 and 32 K7), both
+     rounds' cost, and a 4340-row slot whose rounds back 32 rows first and
+     return the block below the window. The served window and the greedy
+     wave add to the kernels line. Phase 3 also checks K8 over the draft's
+     cache (TinyLlama's heads, C = 8192), K6 at its ingest widths (B = 8, T
+     = 32 and 512), K6 and K7 at T = 8 over gathered pages, and K5 at
+     TinyLlama's shapes (M = 8, 64; 4096 timed).
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -197,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -415,15 +441,16 @@ CHECKED_M = (1, 8, 16, 32, 64, 128, 512)
 REPEATED = (8, 16, 32, 64, 512)  # launched twice: the split-K sum must repeat bit for bit
 
 
-def _check_weight_matmul(gen, name, kn, largest, make) -> dict:
+def _check_weight_matmul(gen, name, kn, largest, make, checked=CHECKED_M,
+                         forwards=FORWARDS, tag: str = "") -> dict:
     """K1 or K5 (``name``) against its plain version at every projection
-    ``kn`` of one model, at every M of CHECKED_M, each within TOL of
+    ``kn`` of one model, at every M of ``checked``, each within TOL of
     max|ref|; at M in REPEATED a second launch on the same inputs must give
     the same bits. At ``largest`` (the model's largest prefill bucket) only
     the kernel and ``torch.matmul`` on the bf16 dequantized weight are
     timed. ``make(K, N)`` returns (weight, scales, bf16 weight, weight and
-    scale bytes). One line per shape, then one per forward in FORWARDS and at
-    ``largest``."""
+    scale bytes). One line per shape, then one per forward in ``forwards``
+    and at ``largest``."""
     from aios_tpu_torch import ops
 
     fn = getattr(ops, name)
@@ -431,8 +458,8 @@ def _check_weight_matmul(gen, name, kn, largest, make) -> dict:
     launches = sum(per for _, per in kn.values())
     worst = 0.0
     fwd = {M: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-           for M in (*FORWARDS, largest)}
-    for M in (*CHECKED_M, largest):
+           for M in (*forwards, largest)}
+    for M in (*checked, largest):
         for key, ((K, N), per_step) in kn.items():
             x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
             w, s, w_bf16, wbytes = make(K, N)
@@ -456,7 +483,7 @@ def _check_weight_matmul(gen, name, kn, largest, make) -> dict:
             nbytes = M * K * 2 + wbytes + M * N * 2
             flops = 2.0 * M * N * K
             bnd = bound_ms(nbytes, flops)
-            what = f"{key} M={M} K={K} N={N}"
+            what = f"{tag}{key} M={M} K={K} N={N}"
             if M == largest:
                 log(f"[kernel] {name} {what}: kernel_ms={ms:.4f} library_ms={lib:.4f} "
                     f"bound_ms={bnd[0]:.4f} ({bnd[1]}) (timed only)")
@@ -466,7 +493,8 @@ def _check_weight_matmul(gen, name, kn, largest, make) -> dict:
             if M in fwd:
                 _add_forward(fwd[M], per_step, ms, plain, lib, nbytes, flops)
             del x, w, s, w_bf16, y
-    bnds = {M: _log_forward(name, FORWARDS.get(M, "one prefill forward"), launches, M, acc)
+    bnds = {M: _log_forward(name, tag + forwards.get(M, "one prefill forward"), launches, M,
+                            acc)
             for M, acc in fwd.items()}
     step = fwd[8]
     return dict(max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
@@ -686,7 +714,7 @@ def check_paged_decode_attention(gen) -> dict:
     return headline
 
 
-def check_int4_matmul(gen) -> dict:
+def _int4_maker(gen):
     from aios_tpu_torch.ops import dequantize_int4
 
     def make(K, N):
@@ -694,7 +722,23 @@ def check_int4_matmul(gen) -> dict:
         s = torch.rand(K // 128, 1, N, generator=gen, device="cuda") * (0.04 / 7) + 1e-5
         return packed, s, dequantize_int4(packed, s), K * N // 2 + (K // 128) * N * 4
 
-    return _check_weight_matmul(gen, "int4_matmul", MISTRAL_KN, 4096, make)
+    return make
+
+
+def check_int4_matmul(gen) -> dict:
+    return _check_weight_matmul(gen, "int4_matmul", MISTRAL_KN, 4096, _int4_maker(gen))
+
+
+# the int4 TinyLlama draft beside Mistral-7B: a draft step over 8 slots (M =
+# 8), the fused round's catch-up (8 slots x 8 rows) and the widest bulk
+# ingest (8 slots x 512 rows, timed only)
+DRAFT_FORWARDS = {8: "one draft step", 64: "one draft catch-up forward"}
+
+
+def check_int4_matmul_draft(gen) -> None:
+    _check_weight_matmul(gen, "int4_matmul", TINYLLAMA_KN, 4096, _int4_maker(gen),
+                         checked=(8, 64), forwards=DRAFT_FORWARDS,
+                         tag="TinyLlama draft ")
 
 
 def check_paged_decode_attention_int8(gen) -> dict:
@@ -917,6 +961,32 @@ JUMP_CASES = {
 }
 
 
+# The draft rung (TinyLlama-1.1B proposing for Mistral-7B): K8 over the
+# draft's dense bf16 cache at Mistral's context (C = 8192) at TinyLlama's
+# heads, 8 slots at the served lengths; K6 for its bulk ingest, B = 8 at the
+# narrowest and widest buckets (T = 32, 512) from the served lengths; and
+# the serving verify of a paged round, K6 (TinyLlama) and K7 (Mistral) at T
+# = 8 over each slot's gathered pages (the [B, MB x P, KH, D] view
+# ``verify_step_paged`` gathers), slot 0 idle.
+DRAFT_CASES = {
+    "decode_attention": [
+        ("draft step: TinyLlama heads C=8192, served lengths", TINY_GEOM, 8192, None, False,
+         None, SERVED_LENS, ()),
+    ],
+    "multiquery_decode_attention": [
+        (f"draft ingest: TinyLlama heads C=8192 T={T}, served lengths", TINY_GEOM, 8192,
+         None, False, T, SERVED_LENS, ()) for T in (32, 512)
+    ] + [
+        (f"paged round over gathered pages: TinyLlama C=2048 T={SPEC_T}", TINY_GEOM, 2048,
+         None, False, SPEC_T, JUMP_LENS, ()),
+    ],
+    "multiquery_decode_attention_int8": [
+        (f"paged round over gathered pages: Mistral C=8192 window={M_WINDOW} T={SPEC_T}",
+         MISTRAL_GEOM, 8192, M_WINDOW, True, SPEC_T, JUMP_LENS, ()),
+    ],
+}
+
+
 # K6 and K7 at a chunk of an admission: B = 1, T = 512 queries from row
 # ``start`` (the third chunk of TinyLlama's 1800-token prompt, the last of
 # Mistral-7B's 4090 and of its 7000, deep in the window); and a chunk from row
@@ -948,6 +1018,7 @@ def check_dense_attention(gen) -> dict:
             (f"Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM, 8192, M_WINDOW, False,
              None, MISTRAL_LENS, ()),
             *K8_SPLIT_CASES,
+            *DRAFT_CASES["decode_attention"],
         ],
         "decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW}", MISTRAL_GEOM, 8192, M_WINDOW, True,
@@ -977,6 +1048,7 @@ def check_dense_attention(gen) -> dict:
             ("chunk: Qwen3 heads C=8192 T=512", QWEN3_GEOM, 8192, None, False, 512, [3584],
              ()),
             *JUMP_CASES["multiquery_decode_attention"],
+            *DRAFT_CASES["multiquery_decode_attention"],
         ],
         "multiquery_decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
@@ -990,6 +1062,7 @@ def check_dense_attention(gen) -> dict:
             *K7_SPLIT_CASES,
             *CHUNK_CASES["multiquery_decode_attention_int8"],
             *JUMP_CASES["multiquery_decode_attention_int8"],
+            *DRAFT_CASES["multiquery_decode_attention_int8"],
         ],
     }
     measured = {}
@@ -1022,7 +1095,7 @@ def phase_kernels() -> dict:
     # every per-launch time below, and so under every per-step sum
     log(f"[kernel] timing floor: an empty kernel under time_ms takes "
         f"{time_ms(lambda: torch.cuda._sleep(1)):.4f} ms")
-    return {
+    measured = {
         "quantized_matmul": check_quantized_matmul(gen),
         "flash_attention": check_flash_attention(gen),
         "paged_decode_attention": check_paged_decode_attention(gen),
@@ -1030,6 +1103,8 @@ def phase_kernels() -> dict:
         "int4_matmul": check_int4_matmul(gen),
         **check_dense_attention(gen),
     }
+    check_int4_matmul_draft(gen)
+    return measured
 
 
 # -- phase 4: serve TinyLlama-1.1B over gRPC through the kernels ---------------
@@ -1074,7 +1149,7 @@ def _served_window(manager, stub, m, card: str, tag: str = "", prompts=PROMPTS) 
     for k in ops.KERNELS:
         k.launches = 0
     tokens0, steps0, prefills0 = m.batcher.tokens_emitted, eng.decode_steps, eng.prefills
-    admission_chunks0 = eng.prefill_chunks
+    admission_chunks0, ingest0 = eng.prefill_chunks, eng.draft_ingest_dispatches
     replays0 = eng.stats()["graph_replays"]
     results, errors = {}, []
 
@@ -1107,13 +1182,14 @@ def _served_window(manager, stub, m, card: str, tag: str = "", prompts=PROMPTS) 
     tokens = m.batcher.tokens_emitted - tokens0
     prefills, steps = eng.prefills - prefills0, eng.decode_steps - steps0
     admission_chunks = eng.prefill_chunks - admission_chunks0
+    ingest = eng.draft_ingest_dispatches - ingest0
     stats = eng.stats()
     replays = stats["graph_replays"] - replays0
     expect(stats["graph_captures"] == captured,
            f"{stats['graph_captures'] - captured} graphs captured while serving")
-    expect(replays == steps + prefills + admission_chunks,
+    expect(replays == steps + prefills + admission_chunks + ingest,
            f"{replays} graph replays for {steps} dispatched steps or rounds, {prefills} "
-           f"prefills and {admission_chunks} chunks")
+           f"prefills, {admission_chunks} chunks and {ingest} draft ingests")
     for i in range(3):
         n_prompt = len(m.tokenizer.encode(render_chat(cfg.name, prompts[i])))
         expect(results[i].tokens_used > n_prompt, f"Infer {i} returned no tokens")
@@ -1140,10 +1216,13 @@ def _served_window(manager, stub, m, card: str, tag: str = "", prompts=PROMPTS) 
 
 def _planned_graphs(m) -> int:
     """The graphs ``LoadModel`` captures for ``m``: the decode step, with
-    speculation the round, and the admission plan at the batcher's chunk."""
+    speculation the round (over either cache), with a draft its fused round
+    and one ingest graph per width, and the admission plan at the batcher's
+    chunk."""
     eng = m.engine
     buckets, chunks = eng.admission_plan(eng.prefill_chunk_default)
-    return 1 + (not eng.paged and m.batcher.speculative) + len(buckets) + len(chunks)
+    draft = 1 + len(eng._draft_ingest_buckets()) if eng.draft is not None else 0
+    return 1 + m.batcher.speculative + draft + len(buckets) + len(chunks)
 
 
 def _graphs_line(m, load_s: float) -> str:
@@ -2014,17 +2093,22 @@ def _admission_graphs(tag: str, m, card: str) -> None:
 
 def _snapshot(eng):
     """What a dispatch moves besides the cache rows it writes before it
-    reads them again: lengths, last tokens, the history and the host's
-    lengths. Restoring it replays a dispatch from the same state."""
+    reads them again: lengths, last tokens, the history, with a draft its
+    lengths, and the host's mirrors of the lengths. Restoring it replays a
+    dispatch from the same state."""
     moved = [eng.lengths, eng.last_tokens] + ([eng.history] if eng.track_history else [])
-    return moved, [t.clone() for t in moved], eng._host_lengths.copy()
+    if eng.draft is not None:
+        moved.append(eng.draft_state["lengths"])
+    return (moved, [t.clone() for t in moved],
+            (eng._host_lengths.copy(), eng._draft_host_lengths.copy()))
 
 
 def _restore(eng, snap) -> None:
-    moved, saved, host = snap
+    moved, saved, (host, draft_host) = snap
     for t, was in zip(moved, saved):
         t.copy_(was)
     eng._host_lengths[:] = host
+    eng._draft_host_lengths[:] = draft_host
 
 
 def _dispatchers(eng, rounds: bool):
@@ -4526,6 +4610,374 @@ def phase_serving(card: str) -> dict:
     return served
 
 
+# -- phase 14: speculation over the page pool and the draft-model rung ----------
+
+SPEC_TINY, SPEC_MISTRAL = "tinyllama-spec", "mistral-draft"
+# a draft-model round over 8 slots: the fused round's catch-up (the draft's
+# verify_step without its lm_head: 4 weight matmuls a layer, K6 at T = 8),
+# 7 draft steps (every layer's 4 and the lm_head, K8), the serving verify
+DRAFT_STEPS = 7
+
+
+class _Warnings(logging.Handler):
+    """The WARNING records of the port's loggers while it is attached."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.WARNING)
+        self.lines = []
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+
+def _draft_round_launches(eng) -> dict:
+    """The launches of one fused draft round on ``eng``: its wrappers and
+    counts for the serving verify over the pool (K1 or K5 on its 4 weight
+    matmuls a layer and the lm_head, K6 or K7 a layer) and the draft's
+    catch-up and steps (K1 or K5, K6 and K8 a draft layer)."""
+    cfg, dcfg = eng.cfg, eng.draft.cfg
+    serve_mm = "int4_matmul" if eng.params["lm_head"].get("q4") is not None else "quantized_matmul"
+    draft_mm = "int4_matmul" if eng.draft.quant_mode == "int4" else "quantized_matmul"
+    verify = ("multiquery_decode_attention_int8" if eng.quant_cache
+              else "multiquery_decode_attention")
+    want = {}
+    for name, n in ((serve_mm, 4 * cfg.num_layers + 1),
+                    (draft_mm, 4 * dcfg.num_layers + DRAFT_STEPS * (4 * dcfg.num_layers + 1)),
+                    (verify, cfg.num_layers),
+                    ("multiquery_decode_attention", dcfg.num_layers),
+                    ("decode_attention", DRAFT_STEPS * dcfg.num_layers)):
+        want[name] = want.get(name, 0) + n
+    return want
+
+
+def _spec_prompts(n: int = 8, base: int = 300):
+    return [[256] + [(i * 13 + 7 * s) % 250 + 1 for i in range(base + 7 * s)]
+            for s in range(n)]
+
+
+def _round_cost(tag: str, eng, card: str, draft: bool = False) -> dict:
+    """Host wall and device busy of one paged round (``spec_step``, draft
+    length 7, n-gram 3, or with ``draft`` the fused draft round) against one
+    plain step, 8 greedy slots at ~300 rows, each timed from one state."""
+    for s, p in enumerate(_spec_prompts()):
+        eng.prefill(s, p, temperature=0.0)
+    if draft:
+        eng._draft_catchup(DRAFT_STEPS + 1, eager=False)
+    snap = _snapshot(eng)
+    fns = {"step": lambda: eng.step(1),
+           "round": (lambda: eng.spec_step_draft(1)) if draft else (lambda: eng.spec_step(1))}
+    out = {k: (_wall(fn, snap, eng), _busy(fn, snap, eng)) for k, fn in fns.items()}
+    for s in range(eng.num_slots):
+        eng.release(s)
+    (ws, bs), (wr, br) = out["step"], out["round"]
+    log(f"{tag} 8 greedy slots at ~300 rows, from one state each time: a plain step "
+        f"{ws:.3f} ms host wall, {bs:.3f} ms device busy; a {'draft' if draft else 'n-gram'} "
+        f"round {wr:.3f} ms wall, {br:.3f} ms busy ({wr / ws:.2f}x / {br / bs:.2f}x the step); "
+        f"{card}")
+    return out
+
+
+def _ingest_vs_eager(tag: str, eng) -> None:
+    """Each ingest width's replay against its eager body from one state (8
+    greedy slots whose draft cache is empty): the draft lengths and every
+    draft cache byte identical, the launches exact both ways (the draft's
+    verify_step without its lm_head)."""
+    dcfg = eng.draft.cfg
+    mm = "int4_matmul" if eng.draft.quant_mode == "int4" else "quantized_matmul"
+    want = {mm: 4 * dcfg.num_layers, "multiquery_decode_attention": dcfg.num_layers}
+    d = eng.draft_state
+    for w in eng._draft_ingest_buckets():
+        saved = d["lengths"].clone()
+        runs = {}
+        for mode in ("graph", "eager"):
+            d["lengths"].copy_(saved)
+            _reset_counts()
+            with eng._lock:
+                eng._dispatcher(("draft_ingest", w),
+                                functools.partial(eng._draft_ingest_body, w),
+                                eager=mode == "eager", pool=eng._draft_pool)()
+            runs[mode] = (d["lengths"].clone(), d["k"].clone(), d["v"].clone(), _read_counts())
+        (gl, gk, gv, gn), (el, ek, ev, en) = runs["graph"], runs["eager"]
+        expect(torch.equal(gl, el) and torch.equal(gk, ek) and torch.equal(gv, ev),
+               f"{tag} ingest {w}: replay and eager body differ")
+        expect(gn == want and en == want, f"{tag} ingest {w} launches: graph {gn}, eager "
+               f"{en}, want {want}")
+        expect(int(gl.min()) == min(w, int(eng.lengths.min())), f"{tag} ingest {w}: draft "
+               f"lengths {gl.tolist()}")
+        d["lengths"].copy_(saved)
+        del runs
+    log(f"{tag} each ingest width {eng._draft_ingest_buckets()} (B = {eng.num_slots}): "
+        f"replay vs eager body, draft lengths and every draft cache byte identical, "
+        f"launches exact both ways ({want} each)")
+
+
+def _draft_round_vs_eager(tag: str, eng, rounds: int = 4) -> None:
+    """The fused draft round's replay against its eager body from one
+    caught-up state: tokens, counts, proposed and the draft lengths equal,
+    the last round's logits bit-identical, the launches exact both ways."""
+    eng._draft_catchup(DRAFT_STEPS + 1, eager=False)
+    snap = _snapshot(eng)
+    per = _draft_round_launches(eng)
+    runs = {}
+    for mode, fn in (("graph", eng.spec_step_draft), ("eager", eng.spec_step_draft_eager)):
+        _restore(eng, snap)
+        _reset_counts()
+        out = fn(rounds)
+        runs[mode] = (out, eng.last_logits.clone(), eng.draft_state["lengths"].clone(),
+                      _read_counts())
+    (g_out, g_logits, g_dl, g_n), (e_out, e_logits, e_dl, e_n) = runs["graph"], runs["eager"]
+    want = {k: v * rounds for k, v in per.items()}
+    expect(all((a == b).all() for a, b in zip(g_out, e_out)) and torch.equal(g_dl, e_dl),
+           f"{tag} draft round: replay and eager tokens, counts or draft lengths differ")
+    expect(torch.equal(g_logits, e_logits), f"{tag} draft round logits differ: max |d| "
+           f"{(g_logits - e_logits).abs().max().item():.3e}")
+    expect(g_n == want and e_n == want, f"{tag} draft round launches: graph {g_n}, eager "
+           f"{e_n}, want {want}")
+    log(f"{tag} fused draft round, replay vs eager body, 8 greedy slots, {rounds} rounds: "
+        f"tokens, counts, proposed and draft lengths identical, logits of the last round "
+        f"bit-identical, launches exact both ways ({per} a round); tokens a round "
+        f"{g_out[1][:, :].mean():.2f}")
+
+
+def _self_draft(tag: str, m, card: str) -> dict:
+    """(b) TinyLlama paged with ``DraftModel(cfg, the same params, "int8")``:
+    each ingest width and the fused round against their eager twins, then 8
+    greedy 129-token requests through a speculative batcher (the draft
+    rung) and a plain one on the same engine: acceptance >= 0.5, tokens a
+    round, the streams' agreement, dispatches both ways."""
+    from aios_tpu_torch.engine.batching import ContinuousBatcher, Request
+    from aios_tpu_torch.engine.engine import TorchEngine
+    from aios_tpu_torch.engine.spec import DraftModel
+
+    cfg, params = m.config, m.engine.params
+    draft = DraftModel(cfg, params, quantize="int8")
+    expect(draft.params is params and draft.quant_mode == "int8",
+           f"{tag} the draft must hold the serving int8 leaves")
+    t0 = time.perf_counter()
+    eng = TorchEngine(cfg, params, paged_pool_rows=9 * cfg.max_context, page_size=128,
+                      num_slots=8, max_context=cfg.max_context, cache_dtype=torch.bfloat16,
+                      prefix_cache=False, draft=draft)
+    try:
+        eng.warmup(prefill_chunk=0)
+        log(f"{tag} engine over the serving leaves with the int8 self-draft: "
+            f"{eng.graphs.captures} graphs in {time.perf_counter() - t0:.2f} s "
+            f"({eng.draft_graphs()} of the draft, ingest pool {eng.draft_pool_bytes} B); "
+            f"draft cache {sum(eng.draft_state[k].numel() * 2 for k in ('k', 'v'))} B")
+        for s, p in enumerate(_spec_prompts()):
+            eng.prefill(s, p, temperature=0.0)
+        _ingest_vs_eager(tag, eng)
+        _draft_round_vs_eager(tag, eng)
+        for s in range(eng.num_slots):
+            eng.release(s)
+        cost = _round_cost(tag, eng, card, draft=True)
+        prompts = _spec_prompts(base=100)
+
+        def wave(speculative: bool):
+            b = ContinuousBatcher(eng, speculative=speculative, prefill_chunk=0)
+            st0 = eng.stats()
+            t = time.perf_counter()
+            try:
+                hs = [b.submit(Request(prompt_ids=p, max_tokens=129, temperature=0.0))
+                      for p in prompts]
+                outs = [h.tokens() for h in hs]
+            finally:
+                b.shutdown()
+            wall = time.perf_counter() - t
+            st = eng.stats()
+            expect(b.last_error is None and all(len(o) == 129 for o in outs),
+                   f"{tag} wave: {[len(o) for o in outs]} tokens, {b.last_error!r}")
+            return outs, wall, {k: st.get(k, 0) - st0.get(k, 0) for k in st}, b
+
+        plain, wall_p, d_p, _ = wave(False)
+        drafted, wall_d, d_d, b = wave(True)
+        expect(b.spec_proposers == ("draft", "ngram"), f"{tag} ladder {b.spec_proposers}")
+        proposed, accepted = d_d["draft_proposed_tokens"], d_d["spec_draft_accepted"]
+        acceptance = accepted / max(proposed, 1)
+        expect(proposed > 0 and acceptance >= 0.5,
+               f"{tag} the self-draft accepted {accepted} of {proposed} proposed tokens")
+        agree = [next((i for i, (a, c) in enumerate(zip(x, y)) if a != c), len(x)) / len(x)
+                 for x, y in zip(plain, drafted)]
+        slot_rounds = eng.spec_slot_rounds  # cumulative; the wave's own below
+        log(f"{tag} 8 x 129 greedy tokens: plain {d_p['decode_steps']} step replays in "
+            f"{wall_p:.3f} s ({8 * 129 / wall_p:.1f} tok/s); with the draft "
+            f"{d_d['decode_steps']} round replays + {d_d['draft_ingest_dispatches']} ingest "
+            f"replays in {wall_d:.3f} s ({8 * 129 / wall_d:.1f} tok/s); draft acceptance "
+            f"{acceptance:.3f} ({accepted} of {proposed}); engine tokens a round "
+            f"{eng.stats()['spec_tokens_per_round']} over {slot_rounds} slot-rounds; greedy "
+            f"streams agree with the plain path over {[round(a, 3) for a in agree]} of "
+            f"their length (first divergence / 129); {card}")
+        return dict(cost=cost, acceptance=acceptance)
+    finally:
+        eng.close()
+
+
+def _backing_and_trim(tag: str, eng) -> None:
+    """A 4340-token greedy prompt on Mistral-7B (34 blocks), then 4 rounds
+    of draft length 7: before the dispatch every active slot's next 32 rows
+    are backed (a 35th block, whatever the rounds accept), and the blocks
+    wholly below the 4096-row window go back to the pool first."""
+    P, W = eng.allocator.page_size, eng.cfg.sliding_window
+    ids = [256] + [(i * 7) % 250 + 1 for i in range(4339)]
+    eng.prefill(0, ids, temperature=0.0)
+    n0, trimmed0, free0 = eng.slot_length(0), eng.kv_pages_trimmed, eng.allocator.free_pages
+    tokens, counts = eng.spec_step(4)
+    blocks = eng.allocator.blocks_for(min(n0 + 4 * (DRAFT_STEPS + 1), eng.max_context))
+    dead = (n0 - W) // P
+    expect(eng.allocator._blocks_used[0] == blocks,
+           f"{tag} {eng.allocator._blocks_used[0]} blocks backed, want {blocks}")
+    expect(eng.allocator._trimmed[0] == dead and eng.kv_pages_trimmed - trimmed0 == dead > 0,
+           f"{tag} trimmed {eng.allocator._trimmed[0]} blocks, want {dead}")
+    expect(eng.slot_length(0) == n0 + int(counts[:, 0].sum()), f"{tag} lengths")
+    eng.release(0)
+    log(f"{tag} a {n0}-row slot, 4 rounds: {blocks} blocks backed before the dispatch "
+        f"(its rows + 4 x 8), {dead} blocks below the {W}-row window returned first "
+        f"({free0} free pages before, {eng.allocator.free_pages} after the release)")
+
+
+def _spec_tiny(card: str) -> None:
+    """(a), (b) and (d) on TinyLlama-1.1B paged (int8 weights, bf16 pool,
+    8 slots, speculative): the vocabulary mismatch of a 128,256-vocab
+    draft, the paged round against its eager body and its cost, and the
+    self-draft."""
+    from aios_tpu_torch.engine.batching import Request
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16", speculative=True)
+    warned = _Warnings()
+    logging.getLogger("aios.torch").addHandler(warned)
+    os.environ["AIOS_TPU_DRAFT_MODEL"] = "deepseek"
+    try:
+        t0 = time.perf_counter()
+        m = manager.load_model(SPEC_TINY, "synthetic://tinyllama-1.1b")
+        load_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("AIOS_TPU_DRAFT_MODEL")
+        logging.getLogger("aios.torch").removeHandler(warned)
+    try:
+        eng = m.engine
+        mismatch = [x for x in warned.lines if "does not match the serving vocab" in x]
+        expect(mismatch and eng.draft is None and m.batcher.spec_proposers == ("ngram",)
+               and m.batcher.speculative and eng.paged,
+               f"[spec tinyllama] a 128,256-vocab draft: warnings {warned.lines}, "
+               f"proposers {m.batcher.spec_proposers}")
+        expect(eng.graphs.captures == _planned_graphs(m), f"[spec tinyllama] "
+               f"{eng.graphs.captures} graphs, planned {_planned_graphs(m)}")
+        h = m.submit(Request(prompt_ids=_spec_prompts(1)[0], max_tokens=32, temperature=0.0))
+        expect(len(h.tokens()) == 32 and eng.stats().get("spec_ngram_rounds", 0) > 0,
+               "[spec tinyllama] the n-gram rung did not serve")
+        log(f"[spec tinyllama] AIOS_TPU_DRAFT_MODEL=deepseek: \"{mismatch[0]}\"; served "
+            f"with the n-gram rung over the pool ({eng.stats()['spec_ngram_rounds']} rounds); "
+            f"LoadModel {load_s:.2f} s, {eng.graphs.captures} graphs (the paged round among "
+            f"them)")
+        _graph_vs_eager("[spec tinyllama]", eng,
+                        {"quantized_matmul": 89, "multiquery_decode_attention": 22},
+                        rounds=True)
+        _round_cost("[spec tinyllama]", eng, card)
+        _self_draft("[spec self-draft]", m, card)
+    finally:
+        manager.close()
+    torch.cuda.empty_cache()
+
+
+def _spec_mistral(card: str) -> dict:
+    """(c) Mistral-7B paged (int4 weights, int8 pool, window 4096) with
+    ``AIOS_TPU_DRAFT_MODEL=tinyllama`` through LoadModel and gRPC, then (a)
+    on the same engine: the n-gram round against its eager body, its cost,
+    the backing and trim; and the draft round's cost. Returns the served
+    launches (3 Infer + 1 StreamInfer, and an 8-request greedy wave)."""
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.engine.batching import Request
+    from aios_tpu_torch.proto_gen import common_pb2
+    from aios_tpu_torch.runtime import model_manager as mm
+    from aios_tpu_torch.runtime.service import serve
+
+    manager = mm.ModelManager(num_slots=8, quantize="int4", kv_cache="int8")
+    server, _, port = serve("127.0.0.1:0", manager, block=False)
+    channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = services.AIRuntimeStub(channel)
+    os.environ["AIOS_TPU_DRAFT_MODEL"] = "tinyllama"
+    try:
+        try:
+            m, load_s = _load(manager, stub, SPEC_MISTRAL, "synthetic://mistral-7b", 8192)
+        finally:
+            os.environ.pop("AIOS_TPU_DRAFT_MODEL")
+        eng = m.engine
+        draft = eng.draft
+        expect(draft is not None and draft.cfg.name == "tinyllama-1.1b"
+               and draft.quant_mode == "int4" and m.batcher.speculative
+               and m.batcher.spec_proposers == ("draft", "ngram"),
+               f"[spec mistral] the tinyllama draft did not pair: {draft}")
+        cache = sum(eng.draft_state[k].numel() * eng.draft_state[k].element_size()
+                    for k in ("k", "v"))
+        expect(cache == 1_476_395_008, f"[spec mistral] draft cache {cache} B")
+        expect(m.draft_chip_bytes == draft.weight_bytes() + cache
+               and m.hbm_chip_bytes >= m.draft_chip_bytes + eng.draft_pool_bytes
+               + eng.admission_pool_bytes,
+               f"[spec mistral] budget {m.hbm_chip_bytes} B, draft {m.draft_chip_bytes} B")
+        log(f"[spec mistral] LoadModel with AIOS_TPU_DRAFT_MODEL=tinyllama ready in "
+            f"{load_s:.2f} s: {eng.graphs.captures} graphs ({eng.draft_graphs()} of the draft, "
+            f"ingest pool {eng.draft_pool_bytes} B); budgeted {int(m.hbm_chip_bytes)} B, of "
+            f"which the draft {int(m.draft_chip_bytes)} B = int4 weights "
+            f"{draft.weight_bytes()} B + cache {cache} B (22 layers x K and V x 8 slots x "
+            f"8192 rows x 4 heads x 64 x 2 B); {card}")
+        served = {}
+
+        def add(launches):
+            for k, v in launches.items():
+                served[k] = served.get(k, 0) + v
+
+        add(_served_window(manager, stub, m, card, " with the tinyllama draft")["launches"])
+        health = stub.HealthCheck(common_pb2.Empty()).details.get(m.name + ".serving", "")
+        fields = dict(kv.split("=", 1) for kv in health.split(","))
+        expect("draft_proposed_tokens" in fields and "draft_ingest_dispatches" in fields
+               and int(fields["graph_captures"]) == _planned_graphs(m),
+               f"[spec mistral] HealthCheck: {health}")
+        st0 = eng.stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        hs = [m.submit(Request(prompt_ids=p, max_tokens=129, temperature=1e-5))
+              for p in _spec_prompts(base=100)]
+        outs = [h.tokens() for h in hs]
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        add(launches)
+        st = eng.stats()
+        d = {k: st.get(k, 0) - st0.get(k, 0) for k in st}
+        expect(all(len(o) == 129 for o in outs) and d["spec_draft_rounds"] > 0
+               and d["draft_ingest_dispatches"] > 0,
+               f"[spec mistral] greedy wave: {[len(o) for o in outs]}, {d}")
+        for k in ("int4_matmul", "multiquery_decode_attention",
+                  "multiquery_decode_attention_int8", "decode_attention"):
+            expect(launches.get(k, 0) > 0, f"[spec mistral] {k} never launched in the wave")
+        log(f"[spec mistral] 8 greedy requests x 129 tokens through the draft rung in "
+            f"{wall:.3f} s ({8 * 129 / wall:.1f} tok/s): {d['spec_draft_rounds']} draft "
+            f"rounds, {d['draft_ingest_dispatches']} ingests, acceptance "
+            f"{d['spec_draft_accepted']} of {d['draft_proposed_tokens']} proposed; launches "
+            f"{launches}; {card}")
+        _graph_vs_eager("[spec mistral]", eng,
+                        {"int4_matmul": 129, "multiquery_decode_attention_int8": 32},
+                        rounds=True)
+        _round_cost("[spec mistral]", eng, card)
+        _round_cost("[spec mistral]", eng, card, draft=True)
+        _backing_and_trim("[spec mistral]", eng)
+    finally:
+        manager.close()
+        channel.close()
+        server.stop(grace=None)
+    torch.cuda.empty_cache()
+    return served
+
+
+def phase_spec_paged(card: str) -> dict:
+    """Speculation over the page pool and the draft-model rung (phase 14).
+    Returns the served launches of Mistral-7B with its draft."""
+    t0 = time.perf_counter()
+    _spec_tiny(card)
+    served = _spec_mistral(card)
+    log(f"[spec] phase done in {time.perf_counter() - t0:.1f} s")
+    return served
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -4572,6 +5024,7 @@ def main() -> int:
     gguf = phase_gguf(card)
     constrained = phase_constrained(card)
     serving = phase_serving(card)
+    spec_paged = phase_spec_paged(card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -4579,7 +5032,7 @@ def main() -> int:
         tiny[name] += tiny_dense[name]
         mistral[name] += mistral_dense[name]
         n = (tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
-             + serving.get(name, 0))
+             + serving.get(name, 0) + spec_paged.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -4590,7 +5043,8 @@ def main() -> int:
         })
         log(f"[kernels] {name}: ok, {n} launches while serving ({tiny[name]} TinyLlama, "
             f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files, "
-            f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas), "
+            f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas, "
+            f"{spec_paged.get(name, 0)} Mistral-7B with its draft), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

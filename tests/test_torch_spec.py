@@ -132,7 +132,7 @@ def _engines(jax_params, torch_params, cache="f32", quantize=None, **kw):
     jax_eng = TPUEngine(JAX_TINY, jax_params, cache_dtype=jdt, quantize=quantize, **kw)
     port = TorchEngine(TINY_TEST, torch_params, cache_dtype=tdt, quantize=quantize,
                        device="cpu", **kw)
-    assert not port.paged and port.allocator is None and port.spec_supported
+    assert not port.paged and port.allocator is None
     return jax_eng, port
 
 
@@ -258,9 +258,13 @@ def test_spec_step_argument_checks(torch_params):
     paged = TorchEngine(TINY_TEST, torch_params, num_slots=2, max_context=64,
                         paged_pool_rows=128, page_size=16, cache_dtype=torch.float32,
                         device="cpu")
-    assert paged.paged and not paged.spec_supported
-    with pytest.raises(ValueError, match="verify_step_paged"):
-        paged.spec_step(1)
+    # the round runs over the pool too (verify_step_paged); its argument
+    # checks are the dense engine's
+    assert paged.paged
+    with pytest.raises(ValueError, match="draft_len"):
+        paged.spec_step(1, draft_len=spec.HISTORY_PAD - 1)
+    _, counts = paged.spec_step(1)
+    assert counts.shape == (1, 2)
     paged.close()
 
 
@@ -333,9 +337,10 @@ def test_speculative_on_a_paged_engine_warns_and_serves_plain(torch_params, capl
     with caplog.at_level(logging.WARNING, logger="aios.torch.batcher"):
         b = ContinuousBatcher(eng, speculative=True)
     try:
-        assert not b.speculative and "speculative decoding disabled" in caplog.text
+        # speculation now runs over the pool: no warning, rounds dispatched
+        assert b.speculative and "speculative decoding disabled" not in caplog.text
         assert len(b.generate([1, 2, 3], max_tokens=6, temperature=0.0)) == 6
-        assert eng.spec_rounds == 0
+        assert eng.spec_rounds > 0
     finally:
         b.shutdown()
         eng.close()
@@ -466,8 +471,9 @@ def test_manager_pages_what_it_can_and_serves_the_rest_dense(caplog):
             eng = m.load_model("a", "synthetic://tiny-test", context_length=128).engine
             assert eng.paged and eng.allocator.page_size == 128
             assert eng.allocator.num_pages == 1 + 3  # 300 rows in pages of 128
-            assert not m.get("a").batcher.speculative  # paged: warned, plain ticks
-            assert "speculative decoding disabled" in caplog.text
+            # speculation runs over the pool: no warning, speculative ticks
+            assert m.get("a").batcher.speculative
+            assert "speculative decoding disabled" not in caplog.text
             eng = m.load_model("b", "synthetic://tiny-test", context_length=48).engine
             assert eng.paged and eng.allocator.page_size == 16
             eng = m.load_model("c", "synthetic://tiny-test", context_length=40).engine
