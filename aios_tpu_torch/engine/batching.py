@@ -539,7 +539,8 @@ class ContinuousBatcher:
         if self._prefilling is None:
             return
         live, pc = self._prefilling
-        t0, pos0, reused0 = time.monotonic(), pc.pos, self.engine.prefix_rows_reused
+        t0, pos0 = time.monotonic(), pc.pos
+        reused0, restored0 = self.engine.prefix_rows_reused, self.engine.prefix_rows_restored
         while True:
             try:
                 first = pc.step()
@@ -559,7 +560,8 @@ class ContinuousBatcher:
                     return
         # tokens = rows consumed by this chunk (the final one is partial)
         self._prefill_chunks += 1
-        self._rec_prefill(live, pc.pos - pos0, t0, reused0, chunk=self._prefill_chunks)
+        self._rec_prefill(live, pc.pos - pos0, t0, reused0, restored0,
+                          chunk=self._prefill_chunks)
         if first is not None:
             self._prefilling = None
             self._reserved_slot = -1
@@ -628,7 +630,8 @@ class ContinuousBatcher:
                     chunk=self.prefill_chunk))
                 self._reserved_slot = slot
                 continue
-            t0, reused0 = time.monotonic(), self.engine.prefix_rows_reused
+            t0 = time.monotonic()
+            reused0, restored0 = self.engine.prefix_rows_reused, self.engine.prefix_rows_restored
             try:
                 first = self.engine.prefill(
                     slot, ids, temperature=live.req.temperature, top_p=live.req.top_p
@@ -647,7 +650,8 @@ class ContinuousBatcher:
                 # "blocked": only higher-priority streams hold the pool, the
                 # admission waits for them; "evicted": retry next pass
                 return
-            self._rec_prefill(live, min(len(ids), self.engine.max_context - 1), t0, reused0)
+            self._rec_prefill(live, min(len(ids), self.engine.max_context - 1), t0, reused0,
+                              restored0)
             if live.constraint is not None:
                 first = self._constrained_first(live, first)
             live.first_token_at = time.monotonic()
@@ -822,14 +826,17 @@ class ContinuousBatcher:
                 rec.event(kind, **fields)
 
     def _rec_prefill(self, live: _Live, tokens: int, t0: float, reused0: int,
-                     chunk: Optional[int] = None) -> None:
+                     restored0: int, chunk: Optional[int] = None) -> None:
         rec = live.req.rec
         if rec is None:
             return
         fields = dict(tokens=tokens, dur_ms=round((time.monotonic() - t0) * 1e3, 3))
         cached = self.engine.prefix_rows_reused - reused0
+        restored = self.engine.prefix_rows_restored - restored0
         if cached:
             fields["cached_rows"] = int(cached)
+        if restored:
+            fields["restored_rows"] = int(restored)
         if chunk is not None:
             fields["chunk"] = chunk
         rec.event("prefill", **fields)

@@ -1,12 +1,12 @@
 """Model configurations for the Llama-family decoder (the dense presets).
 
 A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
-``ModelConfig`` geometry fields, ``jump_ahead``, ``replicas`` and
-``draft_model``, the dense presets, the tiny test config and
-``from_gguf_metadata``. The serving knobs that ride on the JAX package's
-config (prefix host tier, megagraph, speculation, compression, MoE) belong
-to features the port has not reached yet, so a GGUF file of a
-mixture-of-experts model is refused.
+``ModelConfig`` geometry fields, ``jump_ahead``, ``replicas``,
+``draft_model`` and ``prefix_host_bytes``, the dense presets, the tiny test
+config and ``from_gguf_metadata``. The other serving knobs that ride on the
+JAX package's config (megagraph, compression, MoE) belong to features the
+port has not reached yet, so a GGUF file of a mixture-of-experts model is
+refused.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ class ModelConfig:
     # draft-model speculation source (AIOS_TPU_DRAFT_MODEL overrides): a
     # preset name or a .gguf path, paired by the model manager
     draft_model: str = ""
+    # host-RAM spill tier behind the prefix cache (paged.HostPageStore):
+    # evicted prefix pages' K/V is copied to host memory within this byte
+    # budget and restored on a later chain hit instead of being prefilled
+    # again. 0 = off; AIOS_TPU_PREFIX_HOST_BYTES overrides at load time.
+    prefix_host_bytes: int = 0
 
     @property
     def q_dim(self) -> int:

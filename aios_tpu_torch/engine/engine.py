@@ -78,9 +78,18 @@ Weights serve as int8 (``quantize="int8"``) or group-wise int4
 with f32 scales beside it ([L, N, P, KH] or [L, S, C, KH]), rows quantizing
 on write.
 
-Not here yet (later slices of the port): the prefix cache's host tier,
-KVX1 export and the fleet digest, the multi-tick megagraph, window+sink KV
-compression, sharding and the pipelined ``step_async``.
+With ``prefix_host_bytes`` (``AIOS_TPU_PREFIX_HOST_BYTES``) the prefix
+index gets a host-RAM tier (``paged.HostPageStore``): an evicted prefix
+page's K/V is gathered on the dispatch stream, copied to pinned memory on a
+side stream and landed in the store by a worker thread; an admission whose
+chain goes on there allocates pages and copies the K/V back (one
+``index_copy_`` a pool tensor) before its tail chunk, instead of prefilling
+those rows. ``export_prefix`` hands a cached chain to another engine's store
+(the KVX1 wire format is ``paged.pack_entry``), ``prefix_digest`` summarizes
+the cached chains for a fleet.
+
+Not here yet (later slices of the port): the multi-tick megagraph,
+window+sink KV compression, sharding and the pipelined ``step_async``.
 """
 
 from __future__ import annotations
@@ -89,6 +98,7 @@ import functools
 import gc
 import logging
 import os
+import queue
 import threading
 import time
 import weakref
@@ -97,8 +107,10 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import ops
+from .. import faults, ops
+from ..analysis.locks import make_lock
 from ..device import resolve_device
+from ..obs import flightrec
 from ..obs import instruments as obs
 from ..ops import split
 from ..ops.quantized_matmul import counters_for, sm_count
@@ -128,6 +140,14 @@ DRAFT_INGEST_BUCKETS = (32, 64, 128, 256, 512)
 # Live engines by model name: replica engines share the (model,) label of the
 # speculative families, so the gauges read the SUM over this set.
 _ENGINES_BY_MODEL: Dict[str, "weakref.WeakSet"] = {}
+# Live host stores by model name, for the aios_tpu_prefix_host_* families
+# (the JAX engine's _HOST_STORES_BY_MODEL): the gauges read their sum.
+_HOST_STORES_BY_MODEL: Dict[str, "weakref.WeakSet"] = {}
+# The keys of a host-tier entry, in the order of ``_pool_tensors``.
+HOST_ENTRY_KEYS = ("k", "v", "k_s", "v_s")
+# Most device bytes of spilled pages that may wait for the spill worker by
+# default (at least 16 pages, at most the pool's worth).
+SPILL_STAGING_BYTES = 1 << 30
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -229,6 +249,75 @@ class Staged:
         self._copied.record()
 
 
+def _numpy_bits(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of host tensor ``t``; a bf16 tensor as its uint16 bits
+    (numpy has no bfloat16: the host tier's and KVX1's convention)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+class _PageCopy:
+    """The copy of some pool pages to the host, as a spill or an export
+    takes it.
+
+    Under the engine lock only the gather is enqueued (one ``index_select``
+    of each pool tensor over the page axis) on the current stream, the
+    stream the engine's dispatches and graph replays run on: it reads the
+    pages before any later dispatch can rewrite them, and the host waits for
+    nothing. ``wait``, off the lock (the spill worker, or an export's
+    caller), then copies the gathered pages to pinned host memory on a side
+    stream that waits for the gather's event, so neither the pinned
+    allocation nor the transfer holds up the dispatch stream or the lock,
+    and waits on that copy's event alone. Off CUDA the gather is the copy."""
+
+    def __init__(self, tensors: List[torch.Tensor], ids: torch.Tensor, side) -> None:
+        self.side = side
+        cuda = ids.device.type == "cuda"
+        ev = functools.partial(torch.cuda.Event, enable_timing=True)
+        self.events = (ev(), ev(), ev(), ev()) if cuda else None
+        if cuda:
+            self.events[0].record()
+        self.gathered = [t.index_select(1, ids) for t in tensors]
+        if cuda:
+            self.events[1].record()
+
+    def wait(self) -> List[np.ndarray]:
+        """The pages on the host, [L, n, ...] per pool tensor; the device
+        staging is released."""
+        if self.events is None:
+            host = self.gathered
+        else:
+            host = [torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                    for g in self.gathered]
+            self.side.wait_event(self.events[1])
+            with torch.cuda.stream(self.side):
+                self.events[2].record(self.side)
+                for h, g in zip(host, self.gathered):
+                    h.copy_(g, non_blocking=True)
+                    g.record_stream(self.side)
+                self.events[3].record(self.side)
+            self.events[3].synchronize()
+        self.gathered = None
+        return [_numpy_bits(h) for h in host]
+
+    def device_ms(self) -> Tuple[float, float]:
+        """(gather, device-to-host copy) ms by CUDA events, after ``wait``;
+        (0, 0) off CUDA."""
+        if self.events is None:
+            return 0.0, 0.0
+        e = self.events
+        return e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])
+
+
+def _page_entries(host: List[np.ndarray], n: int) -> List[Dict[str, np.ndarray]]:
+    """The ``n`` pages of a ``_PageCopy`` as host-tier entries (owned
+    arrays). One thread: the spill worker runs beside the dispatches, and
+    more threads copying there slowed an admission's restore on the card."""
+    return [{k: np.ascontiguousarray(a[:, i]) for k, a in zip(HOST_ENTRY_KEYS, host)}
+            for i in range(n)]
+
+
 class TorchEngine:
     """Single-model decode engine over a fixed set of batch slots and a
     paged KV pool of ``paged_pool_rows`` rows in pages of ``page_size``, or
@@ -236,9 +325,12 @@ class TorchEngine:
     slot. ``track_history`` keeps the device token history that the n-gram
     proposer of ``spec_step`` reads. Over the pool ``prefix_cache`` (None:
     on) keeps the prompt-prefix index, a radix tree unless ``prefix_radix``
-    is False (None reads the JAX stack's ``AIOS_TPU_PREFIX_RADIX``).
-    ``draft`` (a ``spec.DraftModel`` of the same vocabulary, shared
-    read-only between engines) enables ``spec_step_draft``."""
+    is False (None reads the JAX stack's ``AIOS_TPU_PREFIX_RADIX``), with
+    a host tier of ``prefix_host_bytes`` behind it (None: the config's
+    ``prefix_host_bytes``; 0: none) whose chains restore from
+    ``host_restore_min_pages`` blocks on. ``draft`` (a ``spec.DraftModel``
+    of the same vocabulary, shared read-only between engines) enables
+    ``spec_step_draft``."""
 
     # admission granularity of long prompts: the batcher's default chunk and
     # the chunk a prefix hit's tail admits at (the JAX engine's default)
@@ -260,9 +352,14 @@ class TorchEngine:
         prefix_cache: Optional[bool] = None,
         prefix_radix: Optional[bool] = None,
         draft: Optional[spec.DraftModel] = None,
+        prefix_host_bytes: Optional[int] = None,
+        host_restore_min_pages: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the sampler's candidate pool (AIOS_TPU_SAMPLE_POOL), read once: the
+        # graphs bake it in, so an eager body and its graph never disagree
+        self.sample_pool = sampling.topk_cap()
         self.num_slots = num_slots
         self.track_history = bool(track_history)
         self.max_context = int(max_context or cfg.max_context)
@@ -400,6 +497,7 @@ class TorchEngine:
         self.prefills = 0  # whole-prompt prefill forwards
         self.prefill_chunks = 0  # chunk forwards of chunked admissions
         self.prefix_rows_reused = 0
+        self.prefix_rows_restored = 0
         self.kv_pages_trimmed = 0
         self.spec_rounds = 0
         self.spec_tokens = 0
@@ -409,6 +507,8 @@ class TorchEngine:
         self.jump_dispatches = 0
         self.jump_tokens = 0
         self._init_draft(draft, cache_dtype)
+        self._init_host_tier(cfg.prefix_host_bytes if prefix_host_bytes is None
+                             else prefix_host_bytes, host_restore_min_pages)
         self._register_obs()
 
     def _init_draft(self, draft: Optional[spec.DraftModel], cache_dtype: torch.dtype) -> None:
@@ -453,6 +553,81 @@ class TorchEngine:
         self.draft_state = draft.init_state(S, self.max_context, cache_dtype, self.device)
         self._draft_pool = self.graphs.new_pool()
 
+    def _init_host_tier(self, max_bytes: int, restore_min_pages: Optional[int]) -> None:
+        """The host tier behind the prefix index (the JAX engine's set-up):
+        with an index and ``max_bytes`` > 0, a ``paged.HostPageStore`` of
+        that budget, the spill queue and its worker thread, and the index's
+        ``spill`` hook; else nothing, and an eviction frees its pages.
+
+        A spill's pages wait for the worker in a device staging copy, so
+        what may wait is capped (``spill_cap_bytes``): the pool's worth, as
+        the JAX engine caps the same backlog, but at most
+        ``SPILL_STAGING_BYTES``, and at least 16 pages; past it a spill
+        becomes a plain eviction with a warning."""
+        self.host_store: Optional[paged.HostPageStore] = None
+        self.host_restore_min_pages = max(int(restore_min_pages or 1), 1)
+        self.host_restore_seconds = 0.0
+        self._obs_restore_hist = None
+        self._spill_q: Optional[queue.Queue] = None
+        self._spill_thread: Optional[threading.Thread] = None
+        self._spill_lock = make_lock("engine_spill")
+        self._spill_pending = 0  #: guarded_by _spill_lock; bytes staged for the worker
+        self.spill_cap_bytes = 0
+        # device and host time of the spills the worker has landed (CUDA
+        # events; the host copies on the worker's clock), and the most bytes
+        # that ever waited in staging
+        self.spill_timing = dict(pages=0, bytes=0, gather_ms=0.0, d2h_ms=0.0, copy_s=0.0)
+        self.spill_staging_peak = 0
+        self.spill_drops = 0  # pages a full backlog turned into plain evictions
+        # (copy to the card, scatter) CUDA events of the last restore, and
+        # the host seconds of the probes (the crc checks) and of the staging
+        # into pinned memory
+        self.last_restore_events: Optional[Tuple[torch.cuda.Event, ...]] = None
+        self.host_probe_seconds = 0.0
+        self.host_staging_seconds = 0.0
+        # the restore's pinned staging, reused; its last copy's event
+        self._restore_pinned: Optional[torch.Tensor] = None
+        self._restore_copied: Optional[torch.cuda.Event] = None
+        self._copy_stream = None  # the side stream of device-to-host copies
+        if self.prefix_index is None or int(max_bytes) <= 0:
+            return
+        self.host_store = paged.HostPageStore(int(max_bytes))
+        page = self.page_bytes()
+        self.spill_cap_bytes = max(16 * page, min(self.allocator.capacity_blocks() * page,
+                                                  SPILL_STAGING_BYTES))
+        self._spill_q = queue.Queue()
+        # the worker must not hold the engine (a bound method would pin the
+        # weights and the pool for good when an engine is dropped without
+        # close()): it takes the queue, the store and the lock, and reaches
+        # the engine's counters through a weak reference
+        self._spill_thread = threading.Thread(
+            target=TorchEngine._spill_worker,
+            args=(self._spill_q, self.host_store, self._spill_lock, weakref.ref(self)),
+            name=f"prefix-host-spill-{self.cfg.name}", daemon=True)
+        self._spill_thread.start()
+        self.prefix_index.spill = self._spill_pages
+
+    def _pool_tensors(self) -> List[torch.Tensor]:
+        """The pool's tensors in ``HOST_ENTRY_KEYS`` order: k and v, and over
+        an int8 pool their scales."""
+        out = [self.k_pool, self.v_pool]
+        if self.quant_cache:
+            out += [self.k_scales, self.v_scales]
+        return out
+
+    def page_bytes(self) -> int:
+        """Bytes one page holds across every layer (K, V and their scales):
+        one host-tier entry."""
+        return sum(t[:, 0].numel() * t.element_size() for t in self._pool_tensors())
+
+    def host_staging_bytes(self) -> int:
+        """Device bytes the host tier may hold beyond the pool: the spill
+        backlog's cap and one restore of a whole slot's pages (its copy on
+        the card before the scatter). 0 without the tier."""
+        if self.host_store is None:
+            return 0
+        return self.spill_cap_bytes + self.allocator.max_blocks * self.page_bytes()
+
     def _register_obs(self) -> None:
         """The speculative families of ``obs/instruments.py``, one series a
         proposer, each the sum of its engine counter over the live engines
@@ -471,6 +646,26 @@ class TorchEngine:
                 proposer_sum("spec_proposer_rounds", p))
             obs.SPEC_ACCEPTED.labels(model=name, proposer=p).set_function(
                 proposer_sum("spec_proposer_accepted", p))
+        if self.host_store is None:
+            return
+        # the host-tier families, each the sum over the live stores of this
+        # model's replicas (they share the model label)
+        stores = _HOST_STORES_BY_MODEL.setdefault(name, weakref.WeakSet())
+        stores.add(self.host_store)
+
+        def store_sum(attr: str):
+            def read() -> float:
+                return float(sum(getattr(s, attr) for s in list(stores)))
+            return read
+
+        for family, attr in ((obs.PREFIX_HOST_BYTES, "bytes_resident"),
+                             (obs.PREFIX_HOST_SPILLS, "spills"),
+                             (obs.PREFIX_HOST_RESTORES, "restores"),
+                             (obs.PREFIX_HOST_HITS, "hits"),
+                             (obs.PREFIX_HOST_MISSES, "misses"),
+                             (obs.PREFIX_HOST_MISSES_CORRUPT, "corruptions")):
+            family.labels(model=name).set_function(store_sum(attr))
+        self._obs_restore_hist = obs.PREFIX_HOST_RESTORE_SECONDS.labels(model=name)
 
     # -- admission ------------------------------------------------------------
 
@@ -649,7 +844,7 @@ class TorchEngine:
         the host half."""
         self._adm_logits.copy_(row[0])
         sampling.sample(self._adm_logits[None], self.generator, self._adm_temp,
-                        self._adm_top_p, out=self._adm_first)
+                        self._adm_top_p, out=self._adm_first, pool=self.sample_pool)
         slot = self._adm_slot
         if self.track_history:
             self.history.index_put_((slot, self._adm_true_len), self._adm_first)
@@ -693,11 +888,15 @@ class TorchEngine:
 
     def _match_prefix(self, slot: int, ids: List[int]) -> Tuple[int, List[bytes]]:
         """Map the longest hash-matched prefix of ``ids`` into ``slot``'s page
-        table as shared read-only pages and backfill its history. The match
-        is capped at the prompt's last full block minus one row, so every
-        write of the slot lands past the shared rows. Returns (matched rows,
-        the prompt's block hashes), the hashes even on a miss (registration
-        publishes them after the admission). Caller holds the lock.
+        table and backfill its history. Blocks in the pool map as shared
+        read-only pages; where the chain goes on in the host tier, for at
+        least ``host_restore_min_pages`` blocks, fresh pages are allocated
+        and the stored K/V is copied back into them (``_restore_from_host``).
+        The match is capped at the prompt's last full block minus one row,
+        so every write of the slot lands past the matched rows, restored ones
+        too. Returns (matched rows, the prompt's block hashes), the hashes
+        even on a miss (registration publishes them after the admission).
+        Caller holds the lock.
 
         The matched rows are page-aligned but not chunk-aligned: the tail's
         chunk starts inherit the misalignment, which ``chunk_write_rows``
@@ -708,14 +907,286 @@ class TorchEngine:
             return 0, []
         hashes = paged.chain_hashes(ids, P, full)
         pages = self.prefix_index.match(hashes)
-        if not pages:
+        entries = []
+        if self.host_store is not None and len(pages) < full:
+            t0 = time.perf_counter()
+            entries = self.host_store.match_chain(hashes[len(pages):])
+            self.host_probe_seconds += time.perf_counter() - t0
+            if len(entries) < self.host_restore_min_pages:
+                entries = []  # below the floor a prefill beats the copy
+        if not pages and not entries:
             return 0, hashes
-        self.allocator.map_shared(slot, pages)
-        matched = len(pages) * P
-        self.prefix_rows_reused += matched
+        if pages:
+            # map the pool's hits first: the slot's reference keeps the
+            # restore's allocation from reclaiming the pages just matched
+            self.allocator.map_shared(slot, pages)
+            self.prefix_rows_reused += len(pages) * P
+        restored = (self._restore_from_host(slot, entries, hashes[:len(pages)], pages)
+                    if entries else [])
+        matched = (len(pages) + len(restored)) * P
+        if not matched:
+            return 0, hashes
         if self.track_history:
             self._backfill_history(slot, ids[:matched])
         return matched, hashes
+
+    # -- the prefix cache's host tier ------------------------------------------
+
+    def _stage_page_ids(self, pages: List[int]) -> torch.Tensor:
+        """``pages`` as an int64 device tensor, copied from fresh pinned
+        memory: no host sync, not even on the previous copy (PyTorch's host
+        allocator reuses the pinned block only once its copy has run).
+        Caller holds the lock."""
+        ids = torch.tensor(pages, dtype=torch.int64)
+        if self.device.type != "cuda":
+            return ids
+        return ids.pin_memory().to(self.device, non_blocking=True)
+
+    def _copy_pages(self, pages: List[int]) -> _PageCopy:
+        """Enqueue the copy of ``pages`` to the host (``_PageCopy``). Caller
+        holds the lock."""
+        if self._copy_stream is None and self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return _PageCopy(self._pool_tensors(), self._stage_page_ids(pages), self._copy_stream)
+
+    def _spill_pages(self, evicted: List[Tuple[bytes, int]]) -> None:
+        """The index's eviction hook: enqueue the gather of the evicted pages
+        (``_PageCopy``) and hand it to the spill worker, which copies it to
+        the host and lands it in the store off the lock. The pages are free, and may be
+        rewritten by the next dispatch, once this returns: the gather is
+        enqueued before any such dispatch, on the same stream. A backlog
+        past ``spill_cap_bytes`` drops the spill (a plain eviction), as a
+        failed gather does. Caller holds the lock."""
+        nbytes = len(evicted) * self.page_bytes()
+        with self._spill_lock:
+            pending = self._spill_pending
+            if pending + nbytes <= self.spill_cap_bytes:
+                self._spill_pending += nbytes
+                self.spill_staging_peak = max(self.spill_staging_peak, self._spill_pending)
+                pending = -1
+        if pending >= 0:
+            self.spill_drops += len(evicted)
+            log.warning("%s: host-tier spill backlog at %d B; dropping %d page(s)",
+                        self.cfg.name, pending, len(evicted))
+            return
+        try:
+            copy = self._copy_pages([p for _, p in evicted])
+        except BaseException:
+            # give the reservation back, or the backlog gate would shut for
+            # good; the index turns this into a plain eviction
+            with self._spill_lock:
+                self._spill_pending -= nbytes
+            raise
+        self._spill_q.put(([h for h, _ in evicted], nbytes, copy))
+        flightrec.RECORDER.model_event(self.cfg.name, "spill", pages=len(evicted))
+
+    @staticmethod
+    def _spill_worker(q: queue.Queue, store: paged.HostPageStore, lock, eng_ref) -> None:
+        """Land spilled pages in the store: copy each gather to the host
+        (``_PageCopy.wait``), cut it into one owned entry a page and
+        ``put`` them. Best effort: a
+        failure loses those pages (a later hit recomputes them), never
+        corrupts. Static, so that it does not hold the engine: the pending
+        counter and the timings go through ``eng_ref``, and a worker whose
+        engine was collected without ``close()`` winds down at its next
+        idle minute."""
+        while True:
+            try:
+                item = q.get(timeout=60)
+            except queue.Empty:
+                if eng_ref() is None:
+                    return
+                continue
+            if item is None:
+                return
+            hashes, nbytes, copy = item
+            gather_ms = d2h_ms = copy_s = 0.0
+            try:
+                host = copy.wait()
+                gather_ms, d2h_ms = copy.device_ms()
+                t0 = time.perf_counter()
+                entries = _page_entries(host, len(hashes))
+                copy_s = time.perf_counter() - t0
+                copy.host = host = None  # the pinned staging goes back now
+                for h, e in zip(hashes, entries):
+                    store.put(h, e)
+            except Exception:  # noqa: BLE001 - a spill is best effort
+                log.exception("host-tier spill worker failed")
+            finally:
+                eng = eng_ref()
+                if eng is not None:
+                    with lock:
+                        eng._spill_pending -= nbytes
+                        t = eng.spill_timing
+                        t["pages"] += len(hashes)
+                        t["bytes"] += nbytes
+                        t["gather_ms"] += gather_ms
+                        t["d2h_ms"] += d2h_ms
+                        t["copy_s"] += copy_s
+
+    def spill_backlog(self) -> int:
+        """Bytes of spills the worker has not landed yet."""
+        with self._spill_lock:
+            return self._spill_pending
+
+    def _restore_from_host(self, slot: int, entries, lead_hashes=(), lead_pages=()
+                           ) -> List[int]:
+        """Allocate pages for a host-tier chain hit, copy the stored K/V back
+        into them, map them as ``slot``'s next blocks and publish their
+        hashes in the index again (with the pool's matched ``lead`` of the
+        chain, so that the radix tree grafts them in place). Returns the new
+        pages; empty when the pool cannot back them or the restore fails, in
+        which case every page allocated here is given back and the caller
+        prefills instead. Caller holds the lock."""
+        # clamp to what the pool can back before allocating: an allocation
+        # bound to fail would first evict (and spill) cold entries for nothing
+        avail = self.allocator.free_pages + self.prefix_index.reclaimable()
+        if len(entries) > avail:
+            entries = entries[:avail]
+            if len(entries) < self.host_restore_min_pages:
+                return []
+        try:
+            pages = self.allocator.alloc_pages(len(entries))
+        except paged.PoolExhausted:
+            return []
+        t0 = time.perf_counter()
+        n = len(pages)
+        ok = False
+        try:
+            act = faults.point("host_store.restore_fail", self.cfg.name)
+            if act is not None:
+                # chaos: the restore dies mid-flight; recovery is the real
+                # fallback below (pages given back, a prefill)
+                raise faults.InjectedFault(f"injected restore failure (hit {act.hit})")
+            self._scatter_pages(pages, [e for _, e in entries])
+            ok = True
+        except Exception:  # noqa: BLE001 - a failed restore recomputes
+            log.exception("%s: host-tier restore failed; recomputing %d page(s)",
+                          self.cfg.name, n)
+        finally:
+            if not ok:
+                for p in pages:
+                    self.allocator.decref(p)
+                self.host_store.note_failed_restore()
+        if not ok:
+            return []
+        dt = time.perf_counter() - t0
+        self.host_restore_seconds += dt
+        if self._obs_restore_hist is not None:
+            self._obs_restore_hist.observe(dt)
+        self.allocator.append_owned(slot, pages)
+        hashes = [h for h, _ in entries]
+        self.prefix_index.put(list(lead_hashes) + hashes, list(lead_pages) + pages)
+        self.host_store.discard(hashes, restored=True)
+        self.prefix_rows_restored += n * self.allocator.page_size
+        flightrec.RECORDER.model_event(self.cfg.name, "restore", pages=n,
+                                       rows=n * self.allocator.page_size)
+        return pages
+
+    def _scatter_pages(self, pages: List[int], entries: List[Dict[str, np.ndarray]]) -> None:
+        """Copy host-tier ``entries`` into pool ``pages``: each pool tensor's
+        pages are stacked into pinned memory ([L, n, ...], on the host-copy
+        threads), copied to the card without a host sync and written with
+        one ``index_copy_`` over every layer, all on the current stream,
+        ahead of the tail chunk's replay. The pinned staging is the
+        engine's, reused: it first waits for the event of its previous copy.
+        Raises ValueError on an entry whose shape or dtype is not the pool's.
+        Eager, as ``_backfill_history`` is. Caller holds the lock."""
+        cuda = self.device.type == "cuda"
+        pools = self._pool_tensors()
+        n = len(pages)
+        shapes = [(p.shape[0], n) + tuple(p.shape[2:]) for p in pools]
+        for key, pool, shape in zip(HOST_ENTRY_KEYS, pools, shapes):
+            want = (shape[:1] + shape[2:], _numpy_bits(torch.empty(0, dtype=pool.dtype)).dtype)
+            for e in entries:
+                if (e[key].shape, e[key].dtype) != want:
+                    raise ValueError(f"host-tier entry {key!r} is {e[key].dtype} "
+                                     f"{e[key].shape}, the pool's pages {want[1]} {want[0]}")
+        t0 = time.perf_counter()
+        if cuda:
+            sizes = [int(np.prod(sh)) * p.element_size() for sh, p in zip(shapes, pools)]
+            offs = np.cumsum([0] + [-(-b // 256) * 256 for b in sizes])
+            raw = self._restore_buffer(int(offs[-1]))
+            bufs = [raw[o:o + b].view(p.dtype).view(sh)
+                    for o, b, p, sh in zip(offs, sizes, pools, shapes)]
+        else:
+            bufs = [torch.empty(sh, dtype=p.dtype) for sh, p in zip(shapes, pools)]
+        outs = [_numpy_bits(b) for b in bufs]
+
+        def fill(i: int) -> None:
+            for out, key in zip(outs, HOST_ENTRY_KEYS):
+                out[:, i] = entries[i][key]
+
+        paged.host_map(fill, range(n), sum(b.numel() * b.element_size() for b in bufs))
+        self.host_staging_seconds += time.perf_counter() - t0
+        ids = self._stage_page_ids(pages)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else None
+        if cuda:
+            ev[0].record()
+            srcs = [b.to(self.device, non_blocking=True) for b in bufs]
+            ev[1].record()
+            self._restore_copied = ev[1]
+        else:
+            srcs = bufs
+        for pool, src in zip(pools, srcs):
+            pool.index_copy_(1, ids, src)
+        if cuda:
+            ev[2].record()
+            self.last_restore_events = tuple(ev)
+
+    def _restore_buffer(self, nbytes: int) -> torch.Tensor:
+        """The restore's pinned staging of at least ``nbytes``, once its
+        previous copy to the card has run (a larger one replaces it)."""
+        if self._restore_copied is not None:
+            self._restore_copied.synchronize()
+        if self._restore_pinned is None or self._restore_pinned.numel() < nbytes:
+            self._restore_pinned = None
+            self._restore_pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return self._restore_pinned
+
+    def export_prefix(self, token_ids: List[int], max_pages: int = 0):
+        """A copy of the longest pool-resident chain prefix of the prompt, as
+        [(hash, entry)] in the host tier's layout: what another engine
+        ``put``s into its store to restore it (the fleet's push-on-prefill
+        source). Empty without an index or when no full block is cached."""
+        return self.export_hashes(self.prefix_hashes(token_ids), max_pages)
+
+    def export_hashes(self, hashes: List[bytes], max_pages: int = 0):
+        """``export_prefix`` by chain hashes (a peer's pull). The gather is
+        enqueued under the lock, like a spill's, and the copy is waited for
+        outside it."""
+        if self.prefix_index is None or not hashes:
+            return []
+        with self._lock:
+            snap = self.prefix_index.snapshot()
+            chain = []
+            for h in hashes:
+                page = snap.get(h)
+                if page is None:
+                    break
+                chain.append((h, page))
+            if max_pages:
+                chain = chain[:max_pages]
+            if not chain:
+                return []
+            copy = self._copy_pages([p for _, p in chain])
+        host = copy.wait()
+        return list(zip([h for h, _ in chain], _page_entries(host, len(chain))))
+
+    def prefix_digest(self, max_tails: int = 256) -> Dict[str, int]:
+        """A bounded digest of the cached chains for the fleet's prefix
+        index: the chain hash's first 16 hex digits -> depth in blocks (0 =
+        unknown); the pool's entries first, then the host tier's in what the
+        cap leaves."""
+        if self.prefix_index is None:
+            return {}
+        out: Dict[str, int] = {}
+        for h, blocks in self.prefix_index.digest(max_tails):
+            out[h.hex()[:16]] = blocks
+        if self.host_store is not None and len(out) < max_tails:
+            for h in self.host_store.stored_hashes(max_tails - len(out)):
+                out.setdefault(h.hex()[:16], 0)
+        return out
 
     def prefix_hashes(self, token_ids: List[int]) -> List[bytes]:
         """Chain hashes of the prompt's full blocks, truncated as admission
@@ -733,18 +1204,27 @@ class TorchEngine:
 
     def prefix_overlap_rows(self, token_ids: List[int],
                             hashes: Optional[List[bytes]] = None) -> int:
-        """How many leading prompt rows this engine's prefix index holds: the
+        """How many leading prompt rows this engine's prefix cache holds: the
         router's cache-aware score. Read-only: no hit or miss counted, no
-        LRU refresh, no page mapped, and only the index's own lock taken,
-        never the engine's, so a replica mid-dispatch cannot stall routing.
-        0 without an index or when no full block matches."""
+        LRU refresh, no page mapped, and only the index's and the host
+        store's own locks taken, never the engine's, so a replica
+        mid-dispatch cannot stall routing. Rows only the host tier holds
+        count at ``paged.HOST_OVERLAP_DISCOUNT`` (where they clear the
+        restore floor). 0 without an index or when no full block matches."""
         if self.prefix_index is None:
             return 0
         if hashes is None:
             hashes = self.prefix_hashes(token_ids)
         if not hashes:
             return 0
-        return self.prefix_index.peek(hashes) * self.allocator.page_size
+        P = self.allocator.page_size
+        n_pool = self.prefix_index.peek(hashes)
+        rows = n_pool * P
+        if self.host_store is not None and n_pool < len(hashes):
+            n_host = self.host_store.peek_chain(hashes[n_pool:])
+            if n_host >= self.host_restore_min_pages:
+                rows += int(n_host * P * paged.HOST_OVERLAP_DISCOUNT)
+        return rows
 
     def _backfill_history(self, slot: int, ids: List[int]) -> None:
         """Write a prefix hit's matched tokens into the history of ``slot``:
@@ -816,7 +1296,7 @@ class TorchEngine:
         if masked:
             logits = logits + self.step_mask
         sampling.sample(logits, self.generator, self.temps, self.top_ps,
-                        out=self.last_tokens)
+                        out=self.last_tokens, pool=self.sample_pool)
         if self.track_history:
             # the new token's column is lengths+1 (<= C, inside the pad);
             # inactive slots write the sacrificial last column
@@ -856,7 +1336,8 @@ class TorchEngine:
         a = spec.accept_counts(drafts, g)  # [S] in [0, K]
         # row 0 is a plain decode step's logits; sample() takes the argmax
         # for greedy rows, so this covers both kinds of slot
-        g[:, 0] = sampling.sample(logits[:, 0], self.generator, self.temps, self.top_ps)
+        g[:, 0] = sampling.sample(logits[:, 0], self.generator, self.temps, self.top_ps,
+                                  pool=self.sample_pool)
         counts = a + 1  # tokens emitted this round per slot
         # accepted tokens land at history columns lengths+1 .. lengths+1+K,
         # inside the HISTORY_PAD margin: no clamp and no colliding writes
@@ -1523,6 +2004,17 @@ class TorchEngine:
             out.update(prefix_hits=self.prefix_index.hits,
                        prefix_misses=self.prefix_index.misses,
                        prefix_rows_reused=self.prefix_rows_reused)
+        if self.host_store is not None:
+            st = self.host_store
+            out.update(prefix_rows_restored=self.prefix_rows_restored,
+                       host_tier_bytes=st.bytes_resident,
+                       host_tier_capacity_bytes=st.max_bytes,
+                       host_tier_spills=st.spills,
+                       host_tier_restores=st.restores,
+                       host_tier_hits=st.hits,
+                       host_tier_misses=st.misses,
+                       host_tier_corrupt=st.corruptions,
+                       host_tier_restore_s=round(self.host_restore_seconds, 3))
         # the JAX engine's compile accounting (xla_compiles), for graphs
         out.update(graph_captures=self.graphs.captures,
                    graph_capture_seconds=round(self.graphs.capture_seconds, 3),
@@ -1559,7 +2051,8 @@ class TorchEngine:
         batcher's ``prefill_chunk`` (None: ``prefill_chunk_default``, 0: no
         chunk graphs; ``capture_admission``): the twin of the JAX
         ``warmup``, which compiles every serving graph behind the readiness
-        gate, so the first request waits for neither nvcc nor a capture. A
+        gate, so the first request waits for neither nvcc nor a capture
+        (with the host tier, nor for the restore's pinned staging). A
         failed capture raises. The split workspace of the current stream,
         where the eager twins run, is reserved here as well, for the
         largest chunk planned. The CPU runs the bodies eagerly and captures
@@ -1582,6 +2075,11 @@ class TorchEngine:
                 for k in JUMP_BUCKETS:
                     self.capture_jump(k)
         self.capture_admission(prefill_chunk)
+        if self.host_store is not None:
+            # the restore's pinned staging at a whole slot's pages, so that
+            # no restore pays for pinning host memory
+            self._restore_buffer(self.allocator.max_blocks * self.page_bytes()
+                                 + 256 * len(self._pool_tensors()))
         log.info("%s: kernels and %d graphs (%d of admission, %d B of shared pool; %d of "
                  "the draft, %d B of ingest pool) ready in %.1fs", self.cfg.name,
                  self.graphs.captures, self.admission_graphs(), self.admission_pool_bytes,
@@ -1589,7 +2087,17 @@ class TorchEngine:
 
     def close(self) -> None:
         """Drop graphs, weights and the cache now rather than at the next
-        gc pass."""
+        gc pass; first stop taking spills and let the spill worker drain
+        (its queued copies hold device staging of their own, not the pool)
+        and stop, then empty the host store."""
+        if self._spill_q is not None:
+            self.prefix_index.spill = None
+            self._spill_q.put(None)
+            if self._spill_thread is not None:
+                self._spill_thread.join(timeout=5)
+            self._spill_thread = None
+        if self.host_store is not None:
+            self.host_store.clear()
         with self._lock:
             self.graphs.close()
             self.last_logits = None

@@ -17,27 +17,55 @@ and read-only, into the next prompt with the same prefix
 free list runs dry, the allocator asks the index (its ``reclaimer``) to drop
 cold pages that nothing else holds.
 
+Behind the index sits an optional host-RAM tier (``HostPageStore``): an
+evicted prefix page's K/V is handed to the index's ``spill`` hook before its
+reference drops, copied to host memory, and a later prompt whose chain
+continues there gets it back with a copy instead of a prefill forward. The
+tier's entries cross processes in the KVX1 wire format (``pack_entry``,
+``unpack_entry``), and both indexes and the tier feed the fleet's prefix
+digest (``digest``, ``HostPageStore.stored_hashes``).
+
 Copies of ``PageAllocator``, ``PoolExhausted``, ``chain_hashes``,
-``PrefixIndex`` and ``RadixPrefixIndex`` from ``aios_tpu/engine/paged.py``,
-window trimming included, without what the port has not reached yet
-(replica partitions, window+sink pruning, the host spill tier and the
-fleet digest). The caller (the engine, under its lock) serializes access to
-the allocator; each index also has a lock of its own. The allocator's
-``allocator.pressure`` fault point raises ``PoolExhausted`` on demand.
+``PrefixIndex``, ``RadixPrefixIndex``, ``HostPageStore`` and the KVX1 wire
+format from ``aios_tpu/engine/paged.py``, window trimming included, without
+what the port has not reached yet (replica partitions, window+sink
+pruning). The caller (the engine, under its lock) serializes access to the
+allocator; each index and the host store also have a lock of their own. The
+allocator's ``allocator.pressure`` fault point raises ``PoolExhausted`` on
+demand; ``host_store.corrupt`` flips a byte of a matched host entry.
+
+A bf16 page is kept on the host as its 2-byte bit patterns (a ``uint16``
+array: numpy has no bfloat16) and travels as the dtype string ``<V2``, the
+string the JAX package writes for ``ml_dtypes.bfloat16``; ``<V2`` and ``|V2``
+read back as those bits. The checksum runs over the buffer, so it is the same
+either way.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
+import os
+import struct
 import threading
+import zlib
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import faults
+from ..analysis.locks import make_lock
+
+log = logging.getLogger("aios.torch.paged")
 
 SACRIFICIAL_PAGE = 0
+
+# How the serving router scores prefix rows that only the host tier holds: a
+# restore saves the prefill forward but still pays the pages, the copy and
+# the scatter, so it counts for less than rows already in the pool.
+HOST_OVERLAP_DISCOUNT = 0.5
 
 
 class PoolExhausted(RuntimeError):
@@ -223,30 +251,334 @@ def chain_hashes(token_ids: Sequence[int], page_size: int,
     return hashes
 
 
+# -- the host tier's wire format (KVX1) ------------------------------------------
+
+# One HostPageStore entry as self-describing bytes: the magic, the tensor
+# count, then per tensor (in sorted key order) its key, dtype string, shape
+# and raw buffer. The crc32 travels beside the payload; a receiver derives it
+# again from the unpacked arrays (``HostPageStore._entry_crc``).
+_WIRE_MAGIC = b"KVX1"
+# ml_dtypes' bfloat16 ``dtype.str``, under which the JAX package writes a bf16
+# page; the port holds such a page as uint16 bits
+BF16_WIRE_DTYPE = "<V2"
+
+
+# Threads that checksum (and the engine's restore stages) a chain's pages at
+# once: zlib and numpy's copies release the GIL, and a 12-page chain of a 7B
+# model is about 100 MB, which one core takes tens of milliseconds over.
+HOST_COPY_THREADS = min(8, os.cpu_count() or 1)
+# below this many bytes in all, a thread hand-off costs more than it saves
+HOST_COPY_MIN_BYTES = 1 << 20
+_host_pool: Optional[ThreadPoolExecutor] = None
+_host_pool_lock = threading.Lock()
+
+
+def host_map(fn, items, nbytes: int) -> list:
+    """``[fn(x) for x in items]`` over ``nbytes`` bytes in all, on
+    ``HOST_COPY_THREADS`` threads when there are several items and at least
+    ``HOST_COPY_MIN_BYTES`` (a process-wide pool, made at first use)."""
+    global _host_pool
+    items = list(items)
+    if len(items) < 2 or HOST_COPY_THREADS < 2 or nbytes < HOST_COPY_MIN_BYTES:
+        return [fn(x) for x in items]
+    with _host_pool_lock:
+        if _host_pool is None:
+            _host_pool = ThreadPoolExecutor(HOST_COPY_THREADS, thread_name_prefix="host-copy")
+    return list(_host_pool.map(fn, items))
+
+
+def _wire_dtype(a: np.ndarray) -> str:
+    if a.dtype == np.uint16 or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        return BF16_WIRE_DTYPE
+    return a.dtype.str
+
+
+def _host_dtype(s: str) -> np.dtype:
+    if s in ("<V2", "|V2"):
+        return np.dtype(np.uint16)
+    return np.dtype(s)
+
+
+def pack_entry(entry: Dict[str, np.ndarray]) -> bytes:
+    """Serialize one page entry (sorted keys, so the bytes, like the crc, do
+    not depend on insertion order): the JAX package's bytes for the same
+    arrays, a bf16 page (uint16 bits here) included."""
+    parts = [_WIRE_MAGIC, struct.pack("<B", len(entry))]
+    for key in sorted(entry):
+        a = np.ascontiguousarray(entry[key])
+        kb = key.encode("utf-8")
+        db = _wire_dtype(a).encode("ascii")
+        parts.append(struct.pack("<B", len(kb)))
+        parts.append(kb)
+        parts.append(struct.pack("<B", len(db)))
+        parts.append(db)
+        parts.append(struct.pack("<B", a.ndim))
+        parts.append(struct.pack(f"<{a.ndim}I", *a.shape))
+        parts.append(struct.pack("<Q", a.nbytes))
+        parts.append(a.tobytes())
+    return b"".join(parts)
+
+
+def unpack_entry(data: bytes) -> Dict[str, np.ndarray]:
+    """Inverse of ``pack_entry``; raises ``ValueError`` on a bad magic, a
+    truncated payload, trailing bytes or any other broken framing. The
+    arrays are writable copies; a bf16 tensor comes back as uint16 bits."""
+    if data[:4] != _WIRE_MAGIC:
+        raise ValueError("bad page-entry magic")
+    off = 4
+    try:
+        (n,) = struct.unpack_from("<B", data, off)
+        off += 1
+        entry: Dict[str, np.ndarray] = {}
+        for _ in range(n):
+            (klen,) = struct.unpack_from("<B", data, off)
+            off += 1
+            key = data[off: off + klen].decode("utf-8")
+            off += klen
+            (dlen,) = struct.unpack_from("<B", data, off)
+            off += 1
+            dtype = _host_dtype(data[off: off + dlen].decode("ascii"))
+            off += dlen
+            (ndim,) = struct.unpack_from("<B", data, off)
+            off += 1
+            shape = struct.unpack_from(f"<{ndim}I", data, off)
+            off += 4 * ndim
+            (nbytes,) = struct.unpack_from("<Q", data, off)
+            off += 8
+            if off + nbytes > len(data):
+                raise ValueError("page-entry payload truncated")
+            a = np.frombuffer(data[off: off + nbytes], dtype=dtype).reshape(shape).copy()
+            off += nbytes
+            entry[key] = a
+    except struct.error as exc:
+        raise ValueError(f"bad page-entry framing: {exc}") from exc
+    if off != len(data):
+        raise ValueError("trailing bytes after page-entry payload")
+    return entry
+
+
+class HostPageStore:
+    """The host-RAM tier behind the prefix index: chain hash -> the page's
+    K/V as numpy arrays ({"k", "v"} and, over an int8 pool, {"k_s", "v_s"};
+    [L, P, KH, D] and [L, P, KH]), least recently used first out past
+    ``max_bytes``.
+
+    The engine's spill worker inserts evicted pages (``put``); an admission
+    whose chain misses the pool probes here (``match_chain``) and restores
+    what it finds; the router peeks without touching anything
+    (``peek_chain``). Every entry carries a crc32 taken at insert and checked
+    at each probe and export: a mismatch drops the entry, counts a
+    corruption and truncates the chain there, so the caller recomputes
+    rather than scatter bad bytes into the pool. The store has its own lock
+    (the worker writes from its thread, the engine probes under its own
+    lock, the router under neither); checksums run outside it."""
+
+    def __init__(self, max_bytes: int) -> None:
+        self.max_bytes = int(max_bytes)
+        #: guarded_by _lock
+        self._entries: "OrderedDict[bytes, Dict[str, np.ndarray]]" = OrderedDict()
+        #: guarded_by _lock
+        self._crcs: Dict[bytes, int] = {}
+        self.bytes_resident = 0  #: guarded_by _lock
+        self.spills = 0  # entries accepted from evictions
+        self.restores = 0  # entries promoted back into pool pages
+        self.hits = 0  # probes that found at least one entry
+        self.misses = 0
+        self.corruptions = 0  # entries dropped on a crc32 mismatch
+        self._lock = make_lock("host_store")
+
+    @staticmethod
+    def _entry_bytes(entry: Dict[str, np.ndarray]) -> int:
+        return sum(int(a.nbytes) for a in entry.values())
+
+    @staticmethod
+    def _entry_crc(entry: Dict[str, np.ndarray]) -> int:
+        """crc32 over the arrays' buffers in sorted key order (no copy)."""
+        crc = 0
+        for key in sorted(entry):
+            crc = zlib.crc32(np.ascontiguousarray(entry[key]), crc)
+        return crc
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def put(self, h: bytes, entry: Dict[str, np.ndarray]) -> None:
+        """Insert a page as the newest entry; the least recently used go past
+        the byte budget, and an entry larger than the whole budget is
+        dropped. The crc is taken outside the lock."""
+        nb = self._entry_bytes(entry)
+        if nb > self.max_bytes:
+            return
+        crc = self._entry_crc(entry)
+        with self._lock:
+            old = self._entries.pop(h, None)
+            if old is not None:
+                self.bytes_resident -= self._entry_bytes(old)
+            self._entries[h] = entry
+            self._crcs[h] = crc
+            self.bytes_resident += nb
+            self.spills += 1
+            while self.bytes_resident > self.max_bytes and self._entries:
+                dropped_h, dropped = self._entries.popitem(last=False)
+                self._crcs.pop(dropped_h, None)
+                self.bytes_resident -= self._entry_bytes(dropped)
+
+    def _verified(self, candidates, hashes: Sequence[bytes], where: str):
+        """The leading ``candidates`` ((hash, entry, crc)) whose crc holds;
+        the first that fails is dropped (if it is still the stored entry)
+        and counted, and the chain ends there. The checksums run on the
+        host-copy threads (``host_map``)."""
+        out, bad = [], None
+        entries = [e for _, e, _ in candidates]
+        crcs = host_map(self._entry_crc, entries, sum(map(self._entry_bytes, entries)))
+        for (h, e, crc), got in zip(candidates, crcs):
+            if crc != got:
+                bad = (h, e)
+                break
+            out.append((h, e, crc))
+        if bad is not None:
+            with self._lock:
+                if self._entries.get(bad[0]) is bad[1]:
+                    self._entries.pop(bad[0], None)
+                    self._crcs.pop(bad[0], None)
+                    self.bytes_resident -= self._entry_bytes(bad[1])
+                    self.corruptions += 1
+            log.error("host-tier page failed crc32 %s; dropped (chain truncated at %d of %d)",
+                      where, len(out), len(hashes))
+        return out
+
+    def match_chain(self, hashes: Sequence[bytes]
+                    ) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+        """The longest stored prefix of ``hashes`` (LRU refreshed, one hit or
+        miss counted), each entry's crc verified. Entries stay until the
+        caller confirms the restore with ``discard``: a failed restore must
+        not lose them."""
+        candidates = []
+        with self._lock:
+            for h in hashes:
+                e = self._entries.get(h)
+                if e is None:
+                    break
+                self._entries.move_to_end(h)
+                candidates.append((h, e, self._crcs.get(h)))
+        if candidates and faults.point("host_store.corrupt") is not None:
+            # chaos: flip the first byte of the chain's first array, only on
+            # a probe that matched, so that the recovery path really runs
+            a = next(iter(candidates[0][1].values()))
+            a.reshape(-1).view(np.uint8)[0] ^= 0xFF
+        out = [(h, e) for h, e, _ in self._verified(candidates, hashes, "at restore probe")]
+        with self._lock:
+            if out:
+                self.hits += 1
+            else:
+                self.misses += 1
+        return out
+
+    def note_failed_restore(self) -> None:
+        """A probe hit but the restore failed: count a miss too, since the
+        request paid a full recompute."""
+        with self._lock:
+            self.misses += 1
+
+    def peek_chain(self, hashes: Sequence[bytes]) -> int:
+        """Length of the longest stored prefix of ``hashes``, touching
+        neither the LRU order nor the counters (the router's probe)."""
+        n = 0
+        with self._lock:
+            for h in hashes:
+                if h not in self._entries:
+                    break
+                n += 1
+        return n
+
+    def export_chain(self, hashes: Sequence[bytes], budget_bytes: int = 0
+                     ) -> List[Tuple[bytes, int, Dict[str, np.ndarray]]]:
+        """The longest stored prefix of ``hashes`` as (hash, crc32, entry)
+        for another host, without LRU refresh or hit and miss counts; with
+        ``budget_bytes`` > 0 the chain stops before the entry that would
+        pass it (one entry at least). Each crc is checked before it ships."""
+        candidates = []
+        total = 0
+        with self._lock:
+            for h in hashes:
+                e = self._entries.get(h)
+                if e is None:
+                    break
+                total += self._entry_bytes(e)
+                if budget_bytes and total > budget_bytes and candidates:
+                    break
+                candidates.append((h, e, self._crcs.get(h)))
+        return [(h, crc, e) for h, e, crc in self._verified(candidates, hashes, "at export")]
+
+    def stored_hashes(self, limit: int) -> List[bytes]:
+        """Up to ``limit`` most recently used hashes (the tier's part of the
+        prefix digest); read-only."""
+        with self._lock:
+            keys = list(self._entries.keys())
+        return keys[-limit:] if limit else []
+
+    def discard(self, hashes: Sequence[bytes], *, restored: bool = False) -> None:
+        """Drop entries (a restore's promotion, or invalidation); with
+        ``restored`` each dropped entry counts a restore."""
+        with self._lock:
+            for h in hashes:
+                e = self._entries.pop(h, None)
+                self._crcs.pop(h, None)
+                if e is not None:
+                    self.bytes_resident -= self._entry_bytes(e)
+                    if restored:
+                        self.restores += 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._crcs.clear()
+            self.bytes_resident = 0
+
+
 class _PrefixIndexBase:
     """What both prefix indexes share: the allocator hook-up (the index is
-    the allocator's ``reclaimer``), hit and miss counters, and a lock of
-    the index's own. The flat hash-chain map (``PrefixIndex``) and the
-    radix tree (``RadixPrefixIndex``, the default) keep one page reference
-    per cached block."""
+    the allocator's ``reclaimer``), hit and miss counters, the host tier's
+    ``spill`` hook and a lock of the index's own. The flat hash-chain map
+    (``PrefixIndex``) and the radix tree (``RadixPrefixIndex``, the
+    default) keep one page reference per cached block."""
 
     def __init__(self, allocator: PageAllocator, max_pages: int) -> None:
         self.alloc = allocator
         self.max_pages = max_pages
         self.hits = 0
         self.misses = 0
-        self._lock = threading.Lock()
+        # called with the evicted (hash, page) pairs before their references
+        # drop (the engine sets it when a HostPageStore is configured: it
+        # enqueues the copy of the pages' contents there); None frees them
+        self.spill: Optional[Callable[[List[Tuple[bytes, int]]], None]] = None
+        self._lock = make_lock("prefix_index")
         allocator.reclaimer = self.reclaim
 
     def reclaim(self, n: int) -> int:  # pragma: no cover - abstract
         raise NotImplementedError
 
     def _drop(self, evicted: List[Tuple[bytes, int]]) -> None:
-        """Release the page references of evicted entries, outside the
-        index lock (the callers hold the engine lock, which guards the
-        allocator)."""
-        for _, page in evicted:
-            self.alloc.decref(page)
+        """Spill evicted entries (hook set), then release their page
+        references, outside the index lock (the callers hold the engine
+        lock, which guards the allocator). The references drop only after
+        the spill has captured the contents, so a freed page cannot be
+        handed out and rewritten before the copy; a spill that fails becomes
+        a plain eviction."""
+        if not evicted:
+            return
+        try:
+            if self.spill is not None:
+                try:
+                    self.spill(evicted)
+                except Exception:  # noqa: BLE001 - degrade to a plain eviction
+                    log.exception("host-tier spill failed; dropping %d page(s)", len(evicted))
+        finally:
+            # the entries are out of the index already: skipping the decref
+            # on a BaseException would leak their pages for good
+            for _, page in evicted:
+                self.alloc.decref(page)
 
 
 class PrefixIndex(_PrefixIndexBase):
@@ -265,6 +597,14 @@ class PrefixIndex(_PrefixIndexBase):
         """hash -> page of every cached block."""
         with self._lock:
             return dict(self._index)
+
+    def digest(self, limit: int) -> List[Tuple[bytes, int]]:
+        """Up to ``limit`` most recently used (chain hash, depth in blocks)
+        pairs for the fleet's prefix digest; the flat map keeps no depth and
+        says 0. Read-only."""
+        with self._lock:
+            keys = list(self._index.keys())
+        return [(h, 0) for h in keys[-limit:]] if limit else []
 
     def match(self, hashes: Sequence[bytes]) -> List[int]:
         """The pages of the longest indexed prefix of ``hashes`` (LRU
@@ -587,3 +927,24 @@ class RadixPrefixIndex(_PrefixIndexBase):
                 out.update(n.entries)
                 stack.extend(n.children.values())
             return out
+
+    def digest(self, limit: int) -> List[Tuple[bytes, int]]:
+        """Up to ``limit`` (chain hash, depth in blocks) pairs for the
+        fleet's prefix digest, breadth first, so that where the cap bites
+        the shallow blocks stay (a shorter remote prompt still finds its
+        prefix). Read-only."""
+        if not limit:
+            return []
+        out: List[Tuple[bytes, int]] = []
+        with self._lock:
+            queue: List[Tuple[_RadixNode, int]] = [(self._root, 0)]
+            while queue and len(out) < limit:
+                node, d = queue.pop(0)
+                for h, _ in node.entries:
+                    d += 1
+                    out.append((h, d))
+                    if len(out) >= limit:
+                        break
+                for child in node.children.values():
+                    queue.append((child, d))
+        return out

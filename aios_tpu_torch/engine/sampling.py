@@ -6,10 +6,16 @@ Vectorized over slots with per-slot temperature and top_p, like
 the categorical draw is a Gumbel-max over that pool with noise from the
 caller's ``torch.Generator``. The JAX sampler's threefry stream cannot be
 replayed here, so sampled tokens agree with it in distribution only.
+
+``AIOS_TPU_SAMPLE_POOL`` sets the pool's size, as in the JAX package. The
+engine reads it once, when it is built, and passes it to every ``sample``:
+its CUDA graphs bake the size in, as a JAX trace does, so that an eager body
+and its graph never disagree.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -19,8 +25,20 @@ DEFAULT_TOPK_CAP = 64
 
 
 def topk_cap() -> int:
-    """Size of the candidate pool nucleus sampling works on."""
-    return DEFAULT_TOPK_CAP
+    """Size of the candidate pool nucleus sampling works on:
+    ``AIOS_TPU_SAMPLE_POOL``, else 64. Not an integer, or below 1, raises
+    ``ValueError`` (0 does not mean "off": that would sort the whole vocab
+    every step, and a silent pool of 1 would make all sampling greedy)."""
+    raw = os.environ.get("AIOS_TPU_SAMPLE_POOL", "")
+    if not raw:
+        return DEFAULT_TOPK_CAP
+    try:
+        cap = int(raw)
+    except ValueError:
+        raise ValueError(f"AIOS_TPU_SAMPLE_POOL={raw!r} is not an integer") from None
+    if cap < 1:
+        raise ValueError("AIOS_TPU_SAMPLE_POOL must be >= 1")
+    return cap
 
 
 def sample(
@@ -29,10 +47,11 @@ def sample(
     temperature: torch.Tensor,  # [B]
     top_p: torch.Tensor,  # [B]; 1.0 keeps the whole (capped) pool
     out: Optional[torch.Tensor] = None,  # int64 [B]: written in place
+    pool: int = DEFAULT_TOPK_CAP,  # the candidate pool (the engine's topk_cap())
 ) -> torch.Tensor:
     """One token per row (int64 [B]); rows with temperature < GREEDY_EPS
     take the argmax."""
-    K = min(topk_cap(), logits.shape[-1])
+    K = min(pool, logits.shape[-1])
     greedy = torch.argmax(logits, dim=-1)
     temp = torch.clamp(temperature, min=GREEDY_EPS)[:, None]
     vals, idx = torch.topk(logits / temp, K, dim=-1)  # sorted descending

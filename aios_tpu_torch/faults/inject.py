@@ -2,12 +2,14 @@
 
 A copy of ``aios_tpu/faults/inject.py``: the same catalog, grammar, seeded
 per-point generators and journal, so one seed and one schedule fire the
-same faults in both packages. The port compiles four of the points into
+same faults in both packages. The port compiles six of the points into
 its hot paths: ``pool.scheduler_crash`` and ``dispatch.delay`` (the
-batcher), ``allocator.pressure`` (the page allocator) and
-``admission.clock_skew`` (the admission controller). The others parse as
-in the JAX package and wait for the modules that call them (the host KV
-tier, the rpc interceptors, the fleet plane, the megagraph). A fired fault
+batcher), ``allocator.pressure`` (the page allocator),
+``admission.clock_skew`` (the admission controller),
+``host_store.corrupt`` (the host tier's probe) and
+``host_store.restore_fail`` (the engine's restore). The others parse as
+in the JAX package and wait for the modules that call them (the rpc
+interceptors, the fleet plane, the megagraph). A fired fault
 is counted and lands on the flight recorder's model lane; incident bundles
 are not ported.
 

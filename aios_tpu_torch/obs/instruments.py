@@ -1,9 +1,10 @@
 """The port's metric catalog: the instruments its serving plane registers.
 
 Copied from ``aios_tpu/obs/instruments.py``: the families that the replica
-pool, admission, failover, the batcher, the engine's speculation, the
-runtime service and the fault points touch, under the JAX package's names. The names do not collide when
-both packages run in one process (the parity tests): each package's
+pool, admission, failover, the batcher, the engine's speculation and its
+prefix cache's host tier, the runtime service and the fault points touch,
+under the JAX package's names. The names do not collide when both packages
+run in one process (the parity tests): each package's
 instruments register in its own ``metrics.REGISTRY``, so one name lives
 once in each registry and never twice in one. The other JAX families (RPC
 interceptors, devprof, SLOs, the autoscaler, the fleet plane, the tsdb)
@@ -88,6 +89,52 @@ SPEC_ACCEPTANCE = Gauge(
     "proposer, averaged over replica batchers; drives the per-proposer "
     "AIOS_TPU_SPEC_MIN_ACCEPT auto-disable ladder",
     ("model", "proposer"),
+)
+
+# -- the prefix cache's host tier (engine/paged.py HostPageStore) -------------
+# Monotonic store counters surface as count-valued gauges read at scrape time,
+# each the sum over the live stores of a model's replicas; only the restore
+# latency is a histogram observed on the restore path.
+
+PREFIX_HOST_BYTES = Gauge(
+    "aios_tpu_prefix_host_resident_bytes",
+    "Host-RAM bytes holding spilled prefix-page KV (scrape-time)",
+    ("model",),
+)
+PREFIX_HOST_SPILLS = Gauge(
+    "aios_tpu_prefix_host_spills_total",
+    "Prefix pages spilled device->host on HBM eviction (monotonic)",
+    ("model",),
+)
+PREFIX_HOST_RESTORES = Gauge(
+    "aios_tpu_prefix_host_restores_total",
+    "Prefix pages restored host->device into fresh pool pages (monotonic)",
+    ("model",),
+)
+PREFIX_HOST_HITS = Gauge(
+    "aios_tpu_prefix_host_hits_total",
+    "Host-tier chain probes that found at least one spilled page "
+    "(monotonic)",
+    ("model",),
+)
+PREFIX_HOST_MISSES = Gauge(
+    "aios_tpu_prefix_host_misses_total",
+    "Host-tier chain probes that found nothing (monotonic)",
+    ("model",),
+)
+PREFIX_HOST_MISSES_CORRUPT = Gauge(
+    "aios_tpu_prefix_host_corrupt_total",
+    "Spilled pages whose crc32 failed verification at restore probe "
+    "time — dropped and recomputed instead of restored (monotonic)",
+    ("model",),
+)
+PREFIX_HOST_RESTORE_SECONDS = Histogram(
+    "aios_tpu_prefix_host_restore_seconds",
+    "Host-side wall time to stage + dispatch one host->device prefix "
+    "restore (the scatter itself is async and overlaps tail prefill)",
+    ("model",),
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+             0.5, 1.0),
 )
 
 # -- runtime service -------------------------------------------------------

@@ -49,6 +49,13 @@ served from the dense cache. Over the pool the prompt-prefix index is on
 off, as the JAX ``ModelManager`` does), a radix tree unless
 ``AIOS_TPU_PREFIX_RADIX`` is 0, and every batcher admits a prompt longer
 than 512 tokens in 512-token chunks with decode dispatches between them.
+``AIOS_TPU_PREFIX_HOST_BYTES`` (else the config's ``prefix_host_bytes``; off
+by default) gives each replica's index a host-RAM tier of that many bytes of
+its own, and ``AIOS_TPU_HOST_RESTORE_MIN_PAGES`` its restore floor; an
+invalid value warns and is ignored, as in the JAX manager. The tier's device
+staging counts in the budget. Each serving knob of the JAX stack that the
+port does not honour yet (``UNPORTED_KNOBS``) and that is set logs a
+warning naming it.
 ``speculative`` turns on speculative decode
 dispatches over either cache (None reads ``AIOS_TPU_SPECULATIVE``). A model
 paired with a draft (``AIOS_TPU_DRAFT_MODEL``, else the config's
@@ -98,7 +105,7 @@ from ..engine import model as model_mod
 from ..engine import spec as spec_mod
 from ..engine.batching import ContinuousBatcher
 from ..engine.config import PRESETS, TINY_TEST, ModelConfig
-from ..engine.engine import TorchEngine
+from ..engine.engine import SPILL_STAGING_BYTES, TorchEngine
 from ..engine.gguf import GGUFFile
 from ..engine.tokenizer import BaseTokenizer, ByteTokenizer, gguf_tokenizer
 from ..engine.weights import init_params, params_from_gguf
@@ -120,6 +127,45 @@ LEVEL_LADDERS: Dict[str, List[str]] = {
 }
 
 PAGE_SIZE = 128
+
+# Serving knobs that the JAX stack honours and the port does not yet: each one
+# that is set logs a warning naming it when a ModelManager is built. A slice
+# that ports a knob deletes it here. A name ending in "*" is a prefix.
+UNPORTED_KNOBS = (
+    "AIOS_TPU_DECODE_PIPELINE", "AIOS_TPU_UNIFIED_STEP", "AIOS_TPU_MEGA_TICKS",
+    "AIOS_TPU_KV_COMPRESS_AFTER", "AIOS_TPU_KV_SINK_PAGES", "AIOS_TPU_KV_WINDOW_PAGES",
+    "AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH",
+    "AIOS_TPU_AUTOSCALE", "AIOS_TPU_AUTOSCALE_*",
+)
+
+
+def unported_knobs_set() -> List[str]:
+    """The names in ``UNPORTED_KNOBS`` that are set (non-empty), sorted."""
+    found = set()
+    for name, value in os.environ.items():
+        if not value:
+            continue
+        for knob in UNPORTED_KNOBS:
+            if name == knob or (knob.endswith("*") and name.startswith(knob[:-1])):
+                found.add(name)
+    return sorted(found)
+
+
+def _env_int(name: str, least: int) -> Optional[int]:
+    """A non-negative integer knob the JAX manager's way: unset is None, a
+    value that is not a number or is below ``least`` logs a warning and is
+    ignored (None); ``1e9`` reads as 10**9."""
+    raw = os.environ.get(name, "")
+    if not raw:
+        return None
+    try:
+        v = int(float(raw))
+        if v < least:
+            raise ValueError(f"must be >= {least}")
+        return v
+    except ValueError:
+        log.warning("%s=%r ignored (expected an integer >= %d)", name, raw, least)
+        return None
 
 
 def json_mode_forced() -> bool:
@@ -302,6 +348,14 @@ class ModelManager:
             prefix_cache = os.environ.get("AIOS_TPU_PREFIX_CACHE", "1").lower() not in (
                 "0", "false", "off")
         self.prefix_cache = bool(prefix_cache)
+        # the prefix cache's host tier: AIOS_TPU_PREFIX_HOST_BYTES (None
+        # defers to the model config's prefix_host_bytes; 0 forces it off)
+        # and the restore floor AIOS_TPU_HOST_RESTORE_MIN_PAGES (default 1)
+        self.prefix_host_bytes = _env_int("AIOS_TPU_PREFIX_HOST_BYTES", 0)
+        self.host_restore_min_pages = _env_int("AIOS_TPU_HOST_RESTORE_MIN_PAGES", 1)
+        for knob in unported_knobs_set():
+            log.warning("%s is set but the PyTorch port does not honour it yet; serving "
+                        "without it", knob)
         self._lock = threading.Lock()
         self._loading = threading.local()  # the timings of this thread's load
 
@@ -349,12 +403,18 @@ class ModelManager:
                 if rows == "auto":
                     rows = (self.num_slots + 1) * ctx
                 int8 = self.cache_dtype == torch.int8
+                # the host tier: the variable wins over the model config
+                host_bytes = self.prefix_host_bytes
+                if host_bytes is None:
+                    host_bytes = cfg.prefix_host_bytes
+                tier = dict(prefix_host_bytes=host_bytes,
+                            host_restore_min_pages=self.host_restore_min_pages)
                 if ctx % PAGE_SIZE == 0:
                     kw = dict(paged_pool_rows=rows, page_size=PAGE_SIZE,
-                              prefix_cache=self.prefix_cache)
+                              prefix_cache=self.prefix_cache, **tier)
                 elif ctx % 16 == 0 and not int8:
                     kw = dict(paged_pool_rows=rows, page_size=16,
-                              prefix_cache=self.prefix_cache)
+                              prefix_cache=self.prefix_cache, **tier)
                 else:
                     log.warning("AIOS_TPU_PAGED_KV ignored for %s: context %d needs "
                                 "a multiple of %d; serving dense", name, ctx,
@@ -422,7 +482,8 @@ class ModelManager:
                 # pool (measured) per replica; the draft's weights once, its
                 # cache and ingest graph pool (measured) per replica
                 hbm_chip_bytes=weight_bytes + kv_bytes * n_replicas + draft_bytes
-                + sum(e.admission_pool_bytes + e.draft_pool_bytes for e in engines),
+                + sum(e.admission_pool_bytes + e.draft_pool_bytes + e.host_staging_bytes()
+                      for e in engines),
                 draft_chip_bytes=draft_bytes,
                 pool=pool,
             )
@@ -461,7 +522,8 @@ class ModelManager:
                          if t is not None)
         log.info("model %s ready in %.1fs (ctx=%d, %d slots, %d replica%s sharing one copy "
                  "of the weights, %s, weights %s, "
-                 "%s %s of %d B a replica, prefix index %s, chunked admission %s, "
+                 "%s %s of %d B a replica, prefix index %s (host tier %s), "
+                 "chunked admission %s, "
                  "speculative %s (proposers %s; draft %s: %d B of weights, a %d B cache "
                  "and %d graphs a replica, ingest pool %d B), "
                  "%d graphs captured a replica (%d of admission, in a shared pool of %d B), "
@@ -472,6 +534,9 @@ class ModelManager:
                  self.quantize or "dense", self.cache_dtype,
                  "page pool" if engine.paged else "dense cache", pool_bytes,
                  type(engine.prefix_index).__name__ if engine.prefix_index else "off",
+                 f"{engine.host_store.max_bytes} B, device staging up to "
+                 f"{engine.host_staging_bytes()} B, restore floor "
+                 f"{engine.host_restore_min_pages} page(s)" if engine.host_store else "off",
                  managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
                  "/".join(managed.batcher.spec_proposers),
                  draft.cfg.name if draft is not None else "none",
@@ -497,8 +562,15 @@ class ModelManager:
         factor = 1.0 if model_mod.is_quantized(params) else {
             "int8": 0.5, "int4": 0.25}.get(self.quantize, 1.0)
         weight_bytes = model_mod.serving_weight_bytes(params) * factor
-        kv_bytes = _kv_row_bytes(cfg, self.cache_dtype) * (
-            kw.get("paged_pool_rows") or self.num_slots * ctx)
+        row_bytes = _kv_row_bytes(cfg, self.cache_dtype)
+        kv_bytes = row_bytes * (kw.get("paged_pool_rows") or self.num_slots * ctx)
+        if kw.get("prefix_cache") and kw.get("prefix_host_bytes"):
+            # the host tier's device staging (TorchEngine.host_staging_bytes):
+            # the spill backlog's cap and one slot's restore
+            page = row_bytes * kw["page_size"]
+            pages = -(-kw["paged_pool_rows"] // kw["page_size"])
+            kv_bytes += max(16 * page, min(pages * page, SPILL_STAGING_BYTES)) + (
+                ctx // kw["page_size"]) * page
         with self._lock:
             resident = sum(mm.hbm_chip_bytes for mm in self.models.values()
                            if mm.name != name or mm.state == STATE_READY)

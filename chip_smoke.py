@@ -190,7 +190,27 @@ Phases, each printing its lines:
      wave add to the kernels line. Phase 3 also checks K8 over the draft's
      cache (TinyLlama's heads, C = 8192), K6 at its ingest widths (B = 8, T
      = 32 and 512), K6 and K7 at T = 8 over gathered pages, and K5 at
-     TinyLlama's shapes (M = 8, 64; 4096 timed).
+     TinyLlama's shapes (M = 8, 64; 4096 timed);
+  15. the prefix cache's host tier (``phase_host_tier``) — TinyLlama-1.1B
+     paged (int8 weights, bf16 pool) and Mistral-7B paged (int4 weights,
+     int8 pool, window 4096), each loaded through LoadModel with
+     ``AIOS_TPU_PREFIX_HOST_BYTES`` = 2 GiB and a 128-page pool: a 1585-token
+     prompt (1574 on Mistral's template) whose 1536-row preamble is 12 pages,
+     cold, as a pool hit, then after distinct prompts have spilled those
+     pages (``host_tier_spills`` >= 12, none dropped, the index's peek 0,
+     the worker drained) restored: exactly 1536 rows restored and none
+     reused, the 12 restored pages equal to the spilled bytes, the
+     first-token logits and a 9-token greedy stream equal to the pool hit's
+     bit for bit; TTFT cold / hit / restored through the batcher (3 each,
+     exact launches), the restore's probe, staging, issue and device ms,
+     the link's GB/s both ways, a spill's gather, copy and worker ms a
+     page, the peak spill staging, crc32 on 1 and 8 threads; with
+     ``host_store.corrupt`` and with ``host_store.restore_fail`` a counted
+     recompute with the cold stream (the failed restore's pages given
+     back); ``export_prefix`` through ``pack_entry`` / ``unpack_entry`` into
+     a second engine's store, restored there with the pool hit's logits bit
+     for bit; ``prefix_digest`` sizes. The batcher's runs add to the
+     kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -4978,6 +4998,328 @@ def phase_spec_paged(card: str) -> dict:
     return served
 
 
+# -- phase 15: the prefix cache's host tier ---------------------------------------
+
+HOST_TIER_BYTES = 2 << 30  # AIOS_TPU_PREFIX_HOST_BYTES for the phase
+HOST_POOL_ROWS = 16384  # AIOS_TPU_PAGED_KV: 128 pages, so that a spill takes few admissions
+HOST_PRESSURE = 4000  # rows of a distinct prompt (under Mistral's window and the context)
+
+
+def _kernel_plan(eng, d: dict) -> dict:
+    """The launches ``d`` (deltas of prefills, prefill_chunks, decode_steps)
+    make on ``eng``: every projection and the lm_head per forward; K2 per
+    layer a prefill, K6/K7 a chunk, K3/K4 a step."""
+    L = eng.cfg.num_layers
+    mm = "int4_matmul" if "q4" in eng.params["lm_head"] else "quantized_matmul"
+    q = eng.quant_cache
+    out = {mm: (4 * L + 1) * (d["prefills"] + d["prefill_chunks"] + d["decode_steps"]),
+           "flash_attention": L * d["prefills"],
+           "multiquery_decode_attention_int8" if q else "multiquery_decode_attention":
+           L * d["prefill_chunks"],
+           "paged_decode_attention_int8" if q else "paged_decode_attention":
+           L * d["decode_steps"]}
+    return {k: v for k, v in out.items() if v}
+
+
+def _link_gbps(nbytes: int):
+    """(host-to-device, device-to-host) GB/s of one pinned copy of ``nbytes``
+    (CUDA events, the median of 5)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = []
+    for src, dst in ((host, dev), (dev, host)):
+        ms = []
+        for _ in range(6):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        out.append(nbytes / (statistics.median(ms[1:]) * 1e-3) / 1e9)
+    return tuple(out)
+
+
+def _host_tier_model(tag: str, m, card: str) -> dict:
+    """The host tier on one model: a 1536-row preamble's prompt cold, as a
+    pool hit, then restored from the host after distinct prompts pushed
+    its 12 pages out (TTFT of each through the batcher; on the engine the
+    restored pages against the spilled bytes and the first-token logits and
+    greedy stream against the hit's, bit for bit); each fault point ending
+    in a counted recompute with the cold stream; the chain exported,
+    through KVX1 and restored on a second engine. Returns the launches of
+    the batcher's runs."""
+    from aios_tpu_torch import faults
+    from aios_tpu_torch.engine import paged
+    from aios_tpu_torch.engine.batching import Request
+    from aios_tpu_torch.engine.engine import HOST_ENTRY_KEYS, TorchEngine
+    from aios_tpu_torch.engine.tokenizer import render_chat
+
+    eng, tok, cfg = m.engine, m.tokenizer, m.config
+    st, P = eng.host_store, eng.allocator.page_size
+    expect(st is not None and st.max_bytes == HOST_TIER_BYTES,
+           f"{tag} no host store of {HOST_TIER_BYTES} B")
+    head = tok.encode(render_chat(cfg.name, "\x00")).index(0)
+    shared = 12 * P
+    preamble = ("Shared agent preamble: follow the plan, report status, never guess. "
+                * 40)[:shared - head]
+    ids = tok.encode(render_chat(cfg.name, preamble + "Tail B: restart them in order."))
+    chain = eng.prefix_hashes(ids)
+    expect(len(chain) == 12, f"{tag} {len(ids)}-token prompt: {len(chain)} full blocks")
+    gen = torch.Generator().manual_seed(15)
+    pressure_len = min(HOST_PRESSURE, eng.max_context - 48)
+
+    def drain():
+        t0 = time.perf_counter()
+        while eng.spill_backlog() and time.perf_counter() - t0 < 60:
+            time.sleep(0.005)
+        expect(eng.spill_backlog() == 0, f"{tag} the spill worker did not drain")
+
+    def spill():
+        """Distinct prompts until the preamble's chain has left the pool,
+        the worker drained after each (so that no spill meets a full
+        backlog)."""
+        n, t0 = 0, time.perf_counter()
+        while eng.prefix_index.peek(chain) and n < 40:
+            p = [256] + torch.randint(0, 256, (pressure_len - 1,), generator=gen).tolist()
+            eng.prefill(0, p, temperature=0.0)
+            eng.release(0)
+            drain()
+            n += 1
+        expect(eng.prefix_index.peek(chain) == 0 and st.peek_chain(chain) == 12,
+               f"{tag} after {n} prompts: {eng.prefix_index.peek(chain)} blocks in the pool, "
+               f"{st.peek_chain(chain)} on the host")
+        return n, time.perf_counter() - t0
+
+    def admit(other=None, eager=False):
+        """Admit ``ids`` on slot 0 at the batcher's chunk, then 8 greedy
+        steps: (start row, first-token logits, stream, the slot's first 12
+        pages as host arrays)."""
+        e = other or eng
+        pc = e.start_chunked_prefill(0, ids, temperature=0.0, chunk=e.prefill_chunk_default,
+                                     eager=eager)
+        start = pc.pos
+        while pc.step() is None:
+            pass
+        stream = [pc.first_token] + (e.step_eager(8) if eager else e.step(8))[:, 0].tolist()
+        pages = [int(p) for p in e.allocator.tables[0, :12]]
+        with e._lock:
+            copy = e._copy_pages(pages)
+        host = copy.wait()
+        e.release(0)
+        return start, pc.first_logits, stream, host
+
+    def ttft() -> float:
+        h = m.batcher.submit(Request(prompt_ids=ids, max_tokens=2, temperature=0.0))
+        h.tokens()
+        return h.ttft_ms
+
+    served = {}
+
+    def counted_ttft() -> float:
+        keys = ("prefills", "prefill_chunks", "decode_steps")
+        s0 = eng.stats()
+        out, launches = _counted(ttft)
+        s1 = eng.stats()
+        want = _kernel_plan(eng, {k: s1[k] - s0[k] for k in keys})
+        expect(launches == want, f"{tag} launches {launches} != {want}")
+        for k, v in launches.items():
+            served[k] = served.get(k, 0) + v
+        return out
+
+    eng.prefix_index.clear()
+    st.clear()
+    _, cold_logits, cold_stream, _ = admit()
+    t_cold = []
+    for _ in range(3):
+        eng.prefix_index.clear()
+        t_cold.append(counted_ttft())
+    t_hit = [counted_ttft() for _ in range(3)]
+    reused0 = eng.prefix_rows_reused
+    s_hit, hit_logits, hit_stream, _ = admit()
+    expect(s_hit == shared and eng.prefix_rows_reused - reused0 == shared,
+           f"{tag} the hit started at row {s_hit}")
+
+    # spill: the preamble's pages leave the pool for the host
+    spills0, timing0 = st.spills, dict(eng.spill_timing)
+    n_press, t_press = spill()
+    spilled = {h: {k: a.copy() for k, a in st._entries[h].items()} for h in chain}
+    d = {k: eng.spill_timing[k] - timing0[k] for k in timing0}
+    expect(st.spills - spills0 >= 12 and eng.spill_drops == 0,
+           f"{tag} {st.spills - spills0} pages spilled, {eng.spill_drops} dropped")
+    reused1, restored1 = eng.prefix_rows_reused, eng.prefix_rows_restored
+    hs = (eng.host_probe_seconds, eng.host_staging_seconds, eng.host_restore_seconds)
+    s_r, r_logits, r_stream, r_pages = admit()
+    probe_ms, staging_ms, restore_wall = (
+        (b - a) * 1e3 for a, b in zip(hs, (eng.host_probe_seconds, eng.host_staging_seconds,
+                                           eng.host_restore_seconds)))
+    e0, e1, e2 = eng.last_restore_events
+    h2d_ms, scatter_ms = e0.elapsed_time(e1), e1.elapsed_time(e2)
+    same_bytes = all(np.array_equal(r_pages[j][:, i], spilled[h][k])
+                     for i, h in enumerate(chain) for j, k in enumerate(HOST_ENTRY_KEYS)
+                     if k in spilled[h])
+    expect(s_r == shared and eng.prefix_rows_restored - restored1 == shared
+           and eng.prefix_rows_reused == reused1,
+           f"{tag} restored from row {s_r}: {eng.prefix_rows_restored - restored1} rows "
+           f"restored, {eng.prefix_rows_reused - reused1} reused")
+    expect(same_bytes, f"{tag} the restored pages differ from the spilled bytes")
+    expect(torch.equal(r_logits, hit_logits) and r_stream == hit_stream,
+           f"{tag} restored vs hit: logits differ by "
+           f"{(r_logits - hit_logits).abs().max().item():.3e}, streams {r_stream} / {hit_stream}")
+    nbytes = 12 * eng.page_bytes()
+    log(f"{tag} a {len(ids)}-token prompt's 1536-row preamble (12 pages, {nbytes} B) spilled "
+        f"after {n_press} distinct {pressure_len}-token prompts ({t_press:.2f} s, the worker "
+        f"drained after each) and restored: {shared} rows from the host tier, 0 from the pool; "
+        f"the 12 pages equal the spilled bytes and the first-token logits and 9-token greedy "
+        f"stream equal the pool hit's bit for bit; {card}")
+    log(f"{tag} spill: gather {d['gather_ms'] / max(d['pages'], 1):.4f} ms a page, "
+        f"device-to-host {d['d2h_ms'] / max(d['pages'], 1):.4f} ms a page "
+        f"({d['bytes'] / max(d['d2h_ms'], 1e-9) / 1e6:.2f} GB/s), the worker's host copy "
+        f"{d['copy_s'] * 1e3 / max(d['pages'], 1):.4f} ms a page over {d['pages']} pages; "
+        f"peak spill staging {eng.spill_staging_peak} B (cap {eng.spill_cap_bytes} B); "
+        f"restore of 12 pages: the probe (crc32 of each page) {probe_ms:.3f} ms, host wall "
+        f"{restore_wall:.3f} ms (staging into pinned memory {staging_ms:.3f} ms, then the "
+        f"issue), device {h2d_ms:.3f} ms host-to-device ({nbytes / (h2d_ms * 1e-3) / 1e9:.2f} "
+        f"GB/s) + {scatter_ms:.3f} ms scatter; {card}")
+    entries = list(spilled.values())
+    crc_ms = []
+    for threads in (1, paged.HOST_COPY_THREADS):
+        was, paged.HOST_COPY_THREADS = paged.HOST_COPY_THREADS, threads
+        t0 = time.perf_counter()
+        paged.host_map(paged.HostPageStore._entry_crc, entries, nbytes)
+        crc_ms.append((threads, (time.perf_counter() - t0) * 1e3))
+        paged.HOST_COPY_THREADS = was
+    log(f"{tag} crc32 of the 12 spilled pages on the host: " + ", ".join(
+        f"{t} thread(s) {ms:.3f} ms" for t, ms in crc_ms))
+    t_restored, parts = [], []
+    for _ in range(3):
+        spill()
+        restored2 = eng.prefix_rows_restored
+        hs = (eng.host_probe_seconds, eng.host_staging_seconds, eng.host_restore_seconds)
+        t_restored.append(counted_ttft())
+        parts.append(tuple(round((b - a) * 1e3, 3) for a, b in zip(
+            hs, (eng.host_probe_seconds, eng.host_staging_seconds, eng.host_restore_seconds))))
+        expect(eng.prefix_rows_restored - restored2 == shared, f"{tag} the batcher's run "
+               f"restored {eng.prefix_rows_restored - restored2} rows")
+    up, down = _link_gbps(nbytes)
+    med = statistics.median
+    log(f"{tag} TTFT through the batcher, a {len(ids)}-token prompt, the median of 3 (each "
+        f"run): cold {med(t_cold):.2f} ms ({', '.join(f'{t:.2f}' for t in t_cold)}), pool hit "
+        f"{med(t_hit):.2f} ms ({', '.join(f'{t:.2f}' for t in t_hit)}), restored from the "
+        f"host {med(t_restored):.2f} ms ({', '.join(f'{t:.2f}' for t in t_restored)}; of "
+        f"each the probe, the staging, the staging and issue: {parts} ms); a pinned "
+        f"copy of the 12 pages' bytes: host-to-device {up:.2f} GB/s, device-to-host "
+        f"{down:.2f} GB/s; host_tier_bytes {eng.stats()['host_tier_bytes']}; {card}")
+
+    # the fault points: each a counted recompute with the cold stream
+    for point in ("host_store.corrupt", "host_store.restore_fail"):
+        spill()
+        s0 = eng.stats()
+        around = []
+        restore = eng._restore_from_host
+
+        def watched(*a, **kw):
+            def obtainable():
+                return eng.allocator.free_pages + eng.prefix_index.reclaimable()
+
+            before = (eng.allocator.free_pages, obtainable())
+            got = restore(*a, **kw)
+            around.append((before, (eng.allocator.free_pages, obtainable()), len(got)))
+            return got
+
+        eng._restore_from_host = watched
+        faults.activate(f"{point}=nth:1")
+        try:
+            s_f, f_logits, f_stream, _ = admit()
+        finally:
+            faults.deactivate()
+            del eng._restore_from_host
+        s1 = eng.stats()
+        expect(s_f == 0 and f_stream == cold_stream,
+               f"{tag} {point}: started at row {s_f}, stream {f_stream} vs cold {cold_stream}")
+        if point == "host_store.corrupt":
+            expect(s1["host_tier_corrupt"] - s0["host_tier_corrupt"] == 1 and not around,
+                   f"{tag} corrupt: {s1['host_tier_corrupt'] - s0['host_tier_corrupt']} counted")
+            what = "the chain truncated at its first page, 1 corruption counted"
+        else:
+            expect(len(around) == 1 and around[0][2] == 0 and around[0][0][1] == around[0][1][1]
+                   and s1["host_tier_misses"] - s0["host_tier_misses"] == 1,
+                   f"{tag} restore_fail: {around}")
+            what = (f"the 12 pages given back (free pages {around[0][0][0]} -> "
+                    f"{around[0][1][0]}, free or reclaimable {around[0][0][1]} -> "
+                    f"{around[0][1][1]}), 1 miss counted")
+        log(f"{tag} {point}: {what}; the recompute from row 0 gives the cold stream "
+            f"(logits vs cold: max diff {(f_logits - cold_logits).abs().max().item():.3e})")
+
+    # KVX1 across engines: export, pack, unpack, put, restore on a second engine
+    exported = eng.export_prefix(ids)
+    wire = [(h, paged.pack_entry(e)) for h, e in exported]
+    other = TorchEngine(cfg, eng.params, paged_pool_rows=HOST_POOL_ROWS, page_size=P,
+                        num_slots=eng.num_slots, max_context=eng.max_context,
+                        cache_dtype=eng.k_pool.dtype, quantize=None, track_history=False,
+                        prefix_host_bytes=HOST_TIER_BYTES)
+    try:
+        for h, payload in wire:
+            other.host_store.put(h, paged.unpack_entry(payload))
+        s_o, o_logits, o_stream, _ = admit(other, eager=True)
+        expect(len(exported) == 12 and s_o == shared and other.prefix_rows_restored == shared
+               and torch.equal(o_logits, hit_logits),
+               f"{tag} KVX1: {len(exported)} entries, the second engine from row {s_o}, logits "
+               f"vs the hit {(o_logits - hit_logits).abs().max().item():.3e}")
+        log(f"{tag} KVX1: 12 pages exported ({sum(len(p) for _, p in wire)} B on the wire), "
+            f"unpacked into a second engine's store and restored there ({shared} rows), its "
+            f"first-token logits equal the first engine's pool hit bit for bit; prefix_digest "
+            f"sizes: first engine {len(eng.prefix_digest())}, second "
+            f"{len(other.prefix_digest())} (cap 256); {card}")
+    finally:
+        other.close()
+    return {"served": served}
+
+
+def phase_host_tier(card: str) -> dict:
+    """TinyLlama-1.1B paged (int8 weights, bf16 pool) and Mistral-7B paged
+    (int4 weights, int8 pool, window 4096) at full width, each loaded
+    through LoadModel with ``AIOS_TPU_PREFIX_HOST_BYTES`` = 2 GiB and a pool
+    of 128 pages, through ``_host_tier_model``. Returns the launches of the
+    batcher's runs."""
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+    from aios_tpu_torch.runtime.service import serve
+
+    t0 = time.perf_counter()
+    served = {}
+    os.environ["AIOS_TPU_PREFIX_HOST_BYTES"] = str(HOST_TIER_BYTES)
+    try:
+        for name, path, kw in (("tinyllama-host", "synthetic://tinyllama-1.1b",
+                                dict(quantize="int8", kv_cache="bf16")),
+                               ("mistral-host", "synthetic://mistral-7b",
+                                dict(quantize="int4", kv_cache="int8"))):
+            manager = ModelManager(num_slots=8, paged_kv=HOST_POOL_ROWS, **kw)
+            server, _, port = serve("127.0.0.1:0", manager, block=False)
+            channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+            try:
+                m, load_s = _load(manager, services.AIRuntimeStub(channel), name, path)
+                log(f"[host {name}] LoadModel {load_s:.2f} s: {m.engine.allocator.num_pages} "
+                    f"pages of {m.engine.page_bytes()} B, host tier {HOST_TIER_BYTES} B, "
+                    f"device staging up to {m.engine.host_staging_bytes()} B")
+                out = _host_tier_model(f"[host {name}]", m, card)
+                for k, v in out["served"].items():
+                    served[k] = served.get(k, 0) + v
+            finally:
+                manager.close()
+                channel.close()
+                server.stop(grace=None)
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("AIOS_TPU_PREFIX_HOST_BYTES", None)
+    for k in ("quantized_matmul", "paged_decode_attention", "multiquery_decode_attention",
+              "int4_matmul", "paged_decode_attention_int8",
+              "multiquery_decode_attention_int8"):
+        expect(served.get(k, 0) > 0, f"[host] kernel {k} never launched")
+    log(f"[host] phase done in {time.perf_counter() - t0:.1f} s; launches {served}")
+    return served
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -5005,6 +5347,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; nothing ran",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     measured = phase_kernels()
@@ -5025,6 +5368,7 @@ def main() -> int:
     constrained = phase_constrained(card)
     serving = phase_serving(card)
     spec_paged = phase_spec_paged(card)
+    host = phase_host_tier(card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -5032,7 +5376,7 @@ def main() -> int:
         tiny[name] += tiny_dense[name]
         mistral[name] += mistral_dense[name]
         n = (tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
-             + serving.get(name, 0) + spec_paged.get(name, 0))
+             + serving.get(name, 0) + spec_paged.get(name, 0) + host.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -5044,10 +5388,12 @@ def main() -> int:
         log(f"[kernels] {name}: ok, {n} launches while serving ({tiny[name]} TinyLlama, "
             f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files, "
             f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas, "
-            f"{spec_paged.get(name, 0)} Mistral-7B with its draft), "
+            f"{spec_paged.get(name, 0)} Mistral-7B with its draft, {host.get(name, 0)} over "
+            f"the host tier), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,140 @@
+"""The serving knobs on the port: each knob of the JAX stack that the port
+does not honour yet logs one warning naming it when a ``ModelManager`` is
+built, the honoured ones log none, and ``AIOS_TPU_SAMPLE_POOL`` sizes the
+sampler's candidate pool with the JAX package's errors, read once when an
+engine is built. The port imports no ``ml_dtypes`` (the host tier keeps
+bf16 pages as their uint16 bits)."""
+
+import ast
+import logging
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from aios_tpu.engine import sampling as jsampling
+from aios_tpu_torch.engine import sampling
+from aios_tpu_torch.engine.config import TINY_TEST
+from aios_tpu_torch.engine.engine import TorchEngine
+from aios_tpu_torch.engine.weights import init_params
+from aios_tpu_torch.runtime import model_manager
+from aios_tpu_torch.runtime.model_manager import ModelManager
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+LOGGER = "aios.torch.runtime.models"
+NOT_HONOURED = "does not honour it yet"
+
+UNPORTED = ["AIOS_TPU_DECODE_PIPELINE", "AIOS_TPU_UNIFIED_STEP", "AIOS_TPU_MEGA_TICKS",
+            "AIOS_TPU_KV_COMPRESS_AFTER", "AIOS_TPU_KV_SINK_PAGES", "AIOS_TPU_KV_WINDOW_PAGES",
+            "AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_AUTOSCALE",
+            "AIOS_TPU_AUTOSCALE_MAX_REPLICAS", "AIOS_TPU_AUTOSCALE_UP_BURN",
+            "AIOS_TPU_AUTOSCALE_COOLDOWN_SECS"]
+HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_MIN_PAGES": "2",
+            "AIOS_TPU_SAMPLE_POOL": "16", "AIOS_TPU_REPLICAS": "2",
+            "AIOS_TPU_PREFIX_RADIX": "0", "AIOS_TPU_PREFIX_CACHE": "1",
+            "AIOS_TPU_JUMP_AHEAD": "1", "AIOS_TPU_KV_CACHE": "bf16",
+            "AIOS_TPU_MAX_QUEUE": "4", "AIOS_TPU_DRAFT_MODEL": "tinyllama"}
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    for name in list(os.environ):
+        if name.startswith("AIOS_TPU_") and name not in ("AIOS_TPU_LOCK_DEBUG",):
+            monkeypatch.delenv(name)
+    return monkeypatch
+
+
+def _warnings(caplog):
+    return [r.getMessage() for r in caplog.records
+            if r.name == LOGGER and NOT_HONOURED in r.getMessage()]
+
+
+@pytest.mark.parametrize("knob", UNPORTED)
+def test_each_unported_knob_warns_once_by_name(clean_env, caplog, knob):
+    clean_env.setenv(knob, "1")
+    with caplog.at_level(logging.WARNING, logger=LOGGER):
+        ModelManager(num_slots=2, device="cpu")
+    got = _warnings(caplog)
+    assert len(got) == 1 and got[0].startswith(knob + " is set")
+
+
+def test_all_unported_knobs_at_once(clean_env, caplog):
+    for knob in UNPORTED:
+        clean_env.setenv(knob, "1")
+    clean_env.setenv("AIOS_TPU_MESH", "")  # empty means unset
+    with caplog.at_level(logging.WARNING, logger=LOGGER):
+        ModelManager(num_slots=2, device="cpu")
+    named = sorted(m.split(" ")[0] for m in _warnings(caplog))
+    assert named == sorted(k for k in UNPORTED if k != "AIOS_TPU_MESH")
+    assert model_manager.unported_knobs_set() == named
+
+
+@pytest.mark.parametrize("knob", sorted(HONOURED))
+def test_honoured_knobs_log_no_such_warning(clean_env, caplog, knob):
+    clean_env.setenv(knob, HONOURED[knob])
+    with caplog.at_level(logging.WARNING, logger=LOGGER):
+        ModelManager(num_slots=2, device="cpu")
+    assert _warnings(caplog) == []
+
+
+def test_sample_pool_sizes_the_candidate_pool(clean_env):
+    clean_env.setenv("AIOS_TPU_SAMPLE_POOL", "16")
+    assert sampling.topk_cap() == jsampling.topk_cap() == 16
+    params = init_params(TINY_TEST, torch.Generator().manual_seed(0), dtype=torch.float32,
+                         device="cpu")
+    eng = TorchEngine(TINY_TEST, params, device="cpu", num_slots=2)
+    assert eng.sample_pool == 16
+    clean_env.setenv("AIOS_TPU_SAMPLE_POOL", "3")
+    assert eng.sample_pool == 16  # read once, when the engine was built
+    # a flat distribution at a high temperature: every draw is among the 16
+    # largest logits, and most of those 16 are drawn
+    logits = torch.linspace(0.0, 1e-3, TINY_TEST.vocab_size)[None].expand(512, -1).contiguous()
+    gen = torch.Generator().manual_seed(3)
+    toks = sampling.sample(logits, gen, torch.full((512,), 5.0), torch.ones(512),
+                           pool=eng.sample_pool)
+    top = set(torch.topk(logits[0], 16).indices.tolist())
+    assert set(toks.tolist()) <= top and len(set(toks.tolist())) >= 12
+    clean_env.delenv("AIOS_TPU_SAMPLE_POOL")
+    assert sampling.topk_cap() == jsampling.topk_cap() == 64
+
+
+@pytest.mark.parametrize("raw,message", [("0", "must be >= 1"), ("-3", "must be >= 1"),
+                                         ("x", "is not an integer"),
+                                         ("1.5", "is not an integer")])
+def test_sample_pool_errors_are_the_jax_errors(clean_env, raw, message):
+    clean_env.setenv("AIOS_TPU_SAMPLE_POOL", raw)
+    with pytest.raises(ValueError) as want:
+        jsampling.topk_cap()
+    with pytest.raises(ValueError, match=message) as got:
+        sampling.topk_cap()
+    assert str(got.value) == str(want.value)
+    params = init_params(TINY_TEST, torch.Generator().manual_seed(0), dtype=torch.float32,
+                         device="cpu")
+    with pytest.raises(ValueError, match=message):
+        TorchEngine(TINY_TEST, params, device="cpu", num_slots=2)
+
+
+def test_port_imports_no_ml_dtypes():
+    code = ("import sys\n"
+            "import aios_tpu_torch.engine.engine, aios_tpu_torch.engine.paged\n"
+            "import aios_tpu_torch.runtime.service, aios_tpu_torch.runtime.model_manager\n"
+            "sys.exit(1 if 'ml_dtypes' in sys.modules else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    offenders = []
+    for path in sorted((ROOT / "aios_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] == "ml_dtypes"]
+    assert not offenders, offenders
