@@ -33,6 +33,16 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int
       : "memory");
 }
 
+// the same for a 3-D tensor map (c0 the innermost coordinate)
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
 // the same for a 4-D tensor map (c0 the innermost coordinate)
 __device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                        int c2, int c3, uint32_t bar) {

@@ -33,6 +33,27 @@ extern "C" int aios_quantized_matmul(const void* x, const void* w, const void* s
                                   k_per_split, stream);
 }
 
+// The expert-batched entry on the same core (quantized_matmul_experts in
+// ops/quantized_matmul.py). Replaces no Pallas kernel: the JAX package
+// computes its mixture-of-experts products as XLA einsums over int8 expert
+// stacks (aios_tpu/engine/moe.py, `_expert_einsum` and `pick_einsum`).
+// y[b] = x[b] (x_batched) or x (shared) @ w[index[b]] (b without an index),
+// times that expert's column scales, for b < batches: w [X, K, N] int8, s
+// [X, N], y [batches, M, N] bf16. Bound like K1 by the weight bytes at
+// decode (8 rows per expert, or one row per pick) and by the tensor cores at
+// a 512-row chunk: the same tiles, split K and plan, with a grid of batches x
+// row tiles and a 3-D weight map whose expert coordinate each block reads
+// from the index in device memory.
+extern "C" int aios_quantized_matmul_experts(const void* x, const void* w, const void* s,
+                                             const void* index, void* y, void* partial,
+                                             void* counters, int batches, int M, int x_batched,
+                                             int experts, int N, int K, int block_t, int block_n,
+                                             int splits, int k_per_split, void* stream) {
+  return wq::run_experts<wq::Int8Weights>(x, w, s, static_cast<const int*>(index), y, partial,
+                                          counters, batches, M, x_batched, experts, N, K, block_t,
+                                          block_n, splits, k_per_split, stream);
+}
+
 extern "C" const char* aios_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -41,6 +41,18 @@
 // atomics), applies the epilogue, writes bf16 and sets the counter back to 0
 // for the next launch on the stream.
 //
+// The expert-batched entry (EX, int8 weights only: run_experts) adds a batch
+// axis: w is a stack [X, K, N] of experts with scales [X, N], the output
+// [B, M, N] holds B batches of M rows, and each batch b multiplies its rows
+// by expert index[b] (b itself without an index). Its rows are x's batch b
+// when x is batched ([B, M, K]) and all of x ([M, K]) when it is shared. The
+// grid's x axis walks (batch, row tile); each block reads its batch's expert
+// from the index in device memory and takes that expert's rows through a 3-D
+// weight map (an expert outside [0, X) reads as zeros), so routing never
+// leaves the device and a launch captures into a CUDA graph. Split K and
+// the tiles are K1's; the scale multiplies each expert's fp32 sums in the
+// epilogue, before anything sums over experts.
+//
 // Launch contract (checked by run()): x, w, s 16-byte aligned; K % 8 == 0;
 // N % 16 == 0; k_per_split a multiple of the policy's KT; (block_t, block_n)
 // one of the tiles run() lists; partial holds splits * tiles * BT * COLS
@@ -61,14 +73,44 @@ using int8_bf16::i8x4_to_bf16;
 constexpr int kWgCols = 64;  // weight columns per consumer warpgroup (wgmma's M)
 
 struct Args {
-  CUtensorMap x_map;  // x [M, K] bf16: boxes of 64 k x BT rows, 128-byte swizzle
-  CUtensorMap w_map;  // raw weight rows [K or K/2, N] u8: boxes of COLS x 64 rows, swizzled
-  const float* s;     // [N] per-column scales or [K/128, N] group scales
-  __nv_bfloat16* y;        // [M, N] bf16
+  // x [M, K] bf16 (experts: [B or 1, M, K]): boxes of 64 k x BT rows, 128-byte swizzle
+  CUtensorMap x_map;
+  // raw weight rows [K or K/2, N] u8 (experts: [X, K, N]): boxes of COLS x 64 rows, swizzled
+  CUtensorMap w_map;
+  const float* s;     // [N] per-column scales or [K/128, N] group scales (experts: [X, N])
+  __nv_bfloat16* y;        // [M, N] bf16 (experts: [B, M, N])
   float* partial;          // split-K partials, fragment order
   int* counters;           // one ticket counter per output tile, 0 between launches
   int M, N, K, k_per_split, splits;
+  // the expert entry only
+  const int* index;  // [B] the expert of each batch, or null: batch b is expert b
+  int m_tiles;       // row tiles per batch
+  int x_batched;     // x holds a batch axis (else every batch reads all of x)
+  int experts;       // X
 };
+
+// What a block works on: its first row within its batch, the batch's x
+// coordinate and expert, its output rows and its expert's scales. K1 and K5
+// have one batch: row tile blockIdx.x of y and s themselves.
+struct Tile {
+  int m0, xb, e;
+  __nv_bfloat16* y;
+  const float* s;
+};
+
+template <bool EX>
+__device__ __forceinline__ Tile tile_of(const Args& a, int bt) {
+  if constexpr (!EX) {
+    return Tile{static_cast<int>(blockIdx.x) * bt, 0, 0, a.y, a.s};
+  } else {
+    const int b = blockIdx.x / a.m_tiles;
+    const int e = a.index ? __ldg(a.index + b) : b;
+    // an expert out of range reads zero weights; any finite scale keeps its sums 0
+    const int es = min(max(e, 0), a.experts - 1);
+    return Tile{(static_cast<int>(blockIdx.x) % a.m_tiles) * bt, a.x_batched ? b : 0, e,
+                a.y + static_cast<size_t>(b) * a.M * a.N, a.s + static_cast<size_t>(es) * a.N};
+  }
+}
 
 // -- shared-memory loads of the raw weight tile --------------------------------
 
@@ -249,14 +291,14 @@ __device__ __forceinline__ size_t partial_offset(int splits, int z) {
 // Epilogue of four sums of one fragment: v = (col n, row m), (n, m + 1),
 // (n + 1, m), (n + 1, m + 1), scaled by the policy and rounded to bf16.
 template <class P>
-__device__ __forceinline__ void store_pair(const Args& a, int m, int n, float4 v) {
+__device__ __forceinline__ void store_pair(const Args& a, const Tile& tl, int m, int n, float4 v) {
   if (n >= a.N) return;  // N % 16 == 0: n + 1 is in range with n
-  const float2 sc = P::out_scale(a.s, n);
+  const float2 sc = P::out_scale(tl.s, n);
   if (m < a.M)
-    *reinterpret_cast<__nv_bfloat162*>(a.y + static_cast<size_t>(m) * a.N + n) =
+    *reinterpret_cast<__nv_bfloat162*>(tl.y + static_cast<size_t>(m) * a.N + n) =
         __floats2bfloat162_rn(v.x * sc.x, v.z * sc.y);
   if (m + 1 < a.M)
-    *reinterpret_cast<__nv_bfloat162*>(a.y + static_cast<size_t>(m + 1) * a.N + n) =
+    *reinterpret_cast<__nv_bfloat162*>(tl.y + static_cast<size_t>(m + 1) * a.N + n) =
         __floats2bfloat162_rn(v.y * sc.x, v.w * sc.y);
 }
 
@@ -267,7 +309,7 @@ __device__ __forceinline__ void store_pair(const Args& a, int m, int n, float4 v
 // in flight each, applies the epilogue and sets the counter back to 0 for the
 // next launch on the stream.
 template <class P, int BT, int NC>
-__device__ __forceinline__ void reduce_splits(const Args& a, int* last) {
+__device__ __forceinline__ void reduce_splits(const Args& a, const Tile& tl, int* last) {
   constexpr int THREADS = Config<P, BT, NC>::THREADS;
   constexpr int SLOTS = NC * kWarpgroup * BT / 8;  // float4 per split tile
   constexpr int PER_THREAD = BT / 8;               // float4 per consumer thread
@@ -281,7 +323,7 @@ __device__ __forceinline__ void reduce_splits(const Args& a, int* last) {
   if (!*last) return;
   __threadfence();
   const float4* part = reinterpret_cast<const float4*>(a.partial + partial_offset<BT, NC>(a.splits, 0));
-  const int m0 = blockIdx.x * BT, n0 = blockIdx.y * NC * kWgCols;
+  const int m0 = tl.m0, n0 = blockIdx.y * NC * kWgCols;
   for (int q0 = tid; q0 < SLOTS; q0 += 2 * THREADS) {
     const int q[2] = {q0, q0 + THREADS};
     float4 sum[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
@@ -307,13 +349,13 @@ __device__ __forceinline__ void reduce_splits(const Args& a, int* last) {
     for (int h = 0; h < 2; ++h) {
       if (q[h] >= SLOTS) continue;
       const int ctid = q[h] / PER_THREAD, j = q[h] % PER_THREAD;
-      store_pair<P>(a, m0 + 8 * j + 2 * (ctid % 4), n0 + fragment_col(ctid), sum[h]);
+      store_pair<P>(a, tl, m0 + 8 * j + 2 * (ctid % 4), n0 + fragment_col(ctid), sum[h]);
     }
   }
   if (tid == 0) a.counters[tile] = 0;  // every split has drawn its ticket
 }
 
-template <class P, int BT, int NC>
+template <class P, int BT, int NC, bool EX>
 __global__ void __launch_bounds__(Config<P, BT, NC>::THREADS, Config<P, BT, NC>::MIN_BLOCKS)
 wq_matmul_kernel(const __grid_constant__ Args args) {
   using C = Config<P, BT, NC>;
@@ -327,7 +369,8 @@ wq_matmul_kernel(const __grid_constant__ Args args) {
   int* last = reinterpret_cast<int*>(smem + (bars + 16 * STAGES - smem_u32(smem)));
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BT;
+  const Tile tl = tile_of<EX>(args, BT);
+  const int m0 = tl.m0;
   const int n0 = blockIdx.y * C::COLS;
   const int k_begin = blockIdx.z * args.k_per_split;
   const int k_end = min(args.K, k_begin + args.k_per_split);
@@ -354,17 +397,24 @@ wq_matmul_kernel(const __grid_constant__ Args args) {
         const int kb = k_begin + i * P::KT;
         const uint32_t full = bars + 8 * s;
         mbar_expect_tx(full, C::X_BYTES + C::RAW_BYTES + sc_bytes);
+        if constexpr (EX) {
 #pragma unroll
-        for (int c = 0; c < P::KT / 64; ++c)
-          tma_2d(xs + s * C::X_BYTES + c * (BT * 128), &args.x_map, kb + 64 * c, m0, full);
-        tma_2d(raws + s * C::RAW_BYTES, &args.w_map, n0, P::raw_row(kb), full);
+          for (int c = 0; c < P::KT / 64; ++c)
+            tma_3d(xs + s * C::X_BYTES + c * (BT * 128), &args.x_map, kb + 64 * c, m0, tl.xb, full);
+          tma_3d(raws + s * C::RAW_BYTES, &args.w_map, n0, P::raw_row(kb), tl.e, full);
+        } else {
+#pragma unroll
+          for (int c = 0; c < P::KT / 64; ++c)
+            tma_2d(xs + s * C::X_BYTES + c * (BT * 128), &args.x_map, kb + 64 * c, m0, full);
+          tma_2d(raws + s * C::RAW_BYTES, &args.w_map, n0, P::raw_row(kb), full);
+        }
         if constexpr (P::kGroupScales)
-          bulk_copy(scs + s * C::SC_BYTES, args.s + static_cast<size_t>(kb / P::KT) * args.N + n0,
+          bulk_copy(scs + s * C::SC_BYTES, tl.s + static_cast<size_t>(kb / P::KT) * args.N + n0,
                     sc_bytes, full);
       }
     }
     __syncwarp();
-    if (args.splits > 1) reduce_splits<P, BT, NC>(args, last);  // it helps sum the splits
+    if (args.splits > 1) reduce_splits<P, BT, NC>(args, tl, last);  // it helps sum the splits
     return;
   }
 
@@ -432,12 +482,12 @@ wq_matmul_kernel(const __grid_constant__ Args args) {
 #pragma unroll
     for (int i = 0; i < BT / 2; i += 4)
       __stcg(reinterpret_cast<float4*>(mine + i), make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]));
-    reduce_splits<P, BT, NC>(args, last);
+    reduce_splits<P, BT, NC>(args, tl, last);
     return;
   }
 #pragma unroll
   for (int j = 0; j < BT / 8; ++j)
-    store_pair<P>(args, m0 + 8 * j + 2 * t, n0 + col,
+    store_pair<P>(args, tl, m0 + 8 * j + 2 * t, n0 + col,
                   make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
 }
 
@@ -451,29 +501,79 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, cons
   return encode<2>(map, type, ptr, dims, strides, box, swizzle);
 }
 
-template <class P, int BT, int NC>
-cudaError_t launch(Args& a, const void* x, const void* w, cudaStream_t stream) {
+// A 3-D row-major tensor [batches, rows, cols], read in boxes of one batch's
+// box_cols x box_rows; out-of-range elements read as zero.
+inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
+                      int batches, int rows, int cols, int box_rows, int box_cols,
+                      CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * elem,
+                                 static_cast<cuuint64_t>(rows) * cols * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  return encode<3>(map, type, ptr, dims, strides, box, swizzle);
+}
+
+// `batches` is the expert entry's B (1 for K1 and K5): the grid's x axis
+// holds B x the row tiles.
+template <class P, int BT, int NC, bool EX>
+cudaError_t launch(Args& a, const void* x, const void* w, cudaStream_t stream, int batches) {
   using C = Config<P, BT, NC>;
+  const CUtensorMapSwizzle w_swizzle =
+      C::COLS == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   // the maps hold this launch's pointers: encoded per launch, never cached
-  if (!encode_2d(&a.x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, a.M, a.K, BT, 64,
-                 CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(&a.w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, P::raw_row(a.K), a.N, 64, C::COLS,
-                 C::COLS == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B))
-    return cudaErrorInvalidValue;
+  if constexpr (EX) {
+    if (!encode_3d(&a.x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, a.x_batched ? batches : 1,
+                   a.M, a.K, BT, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode_3d(&a.w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, a.experts, P::raw_row(a.K), a.N,
+                   64, C::COLS, w_swizzle))
+      return cudaErrorInvalidValue;
+  } else {
+    if (!encode_2d(&a.x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, a.M, a.K, BT, 64,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode_2d(&a.w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, P::raw_row(a.K), a.N, 64,
+                   C::COLS, w_swizzle))
+      return cudaErrorInvalidValue;
+  }
   static bool ready[64] = {};  // the shared-memory opt-in, once per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(wq_matmul_kernel<P, BT, NC>,
+    err = cudaFuncSetAttribute(wq_matmul_kernel<P, BT, NC, EX>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  const dim3 grid((a.M + BT - 1) / BT, (a.N + C::COLS - 1) / C::COLS, a.splits);
-  wq_matmul_kernel<P, BT, NC><<<grid, C::THREADS, C::SMEM, stream>>>(a);
+  a.m_tiles = (a.M + BT - 1) / BT;
+  const dim3 grid(a.m_tiles * batches, (a.N + C::COLS - 1) / C::COLS, a.splits);
+  wq_matmul_kernel<P, BT, NC, EX><<<grid, C::THREADS, C::SMEM, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The instance of the tile (block_t activation rows x block_n weight columns).
+template <class P, bool EX>
+cudaError_t launch_tile(Args& a, const void* x, const void* w, cudaStream_t st, int batches,
+                        int block_t, int block_n) {
+  switch (block_t * 1000 + block_n) {
+    case 8064: return launch<P, 8, 1, EX>(a, x, w, st, batches);
+    case 16064: return launch<P, 16, 1, EX>(a, x, w, st, batches);
+    case 32064: return launch<P, 32, 1, EX>(a, x, w, st, batches);
+    case 64064: return launch<P, 64, 1, EX>(a, x, w, st, batches);
+    case 128128: return launch<P, 128, 2, EX>(a, x, w, st, batches);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The launch contract both entries share.
+template <class P>
+bool valid(const void* x, const void* w, const void* s, const void* partial,
+           const void* counters, int M, int N, int K, int splits, int k_per_split) {
+  return M > 0 && N > 0 && K > 0 && K % 8 == 0 && N % 16 == 0 && splits >= 1 &&
+         k_per_split > 0 && k_per_split % P::KT == 0 && (splits - 1) * k_per_split < K &&
+         aligned16(x) && aligned16(w) && aligned16(s) && (splits == 1 || (partial && counters));
 }
 
 // The C entry of both libraries: checks the launch contract, picks the
@@ -489,21 +589,32 @@ int run(const void* x, const void* w, const void* s, void* y, void* partial, voi
   a.partial = static_cast<float*>(partial);
   a.counters = static_cast<int*>(counters);
   a.M = M, a.N = N, a.K = K, a.k_per_split = k_per_split, a.splits = splits;
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 16 || splits < 1 || k_per_split <= 0 ||
-      k_per_split % P::KT || (splits - 1) * k_per_split >= K || !aligned16(x) ||
-      !aligned16(w) || !aligned16(s) || (splits > 1 && (!partial || !counters)))
+  if (!valid<P>(x, w, s, partial, counters, M, N, K, splits, k_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (block_t * 1000 + block_n) {
-    case 8064: err = launch<P, 8, 1>(a, x, w, st); break;
-    case 16064: err = launch<P, 16, 1>(a, x, w, st); break;
-    case 32064: err = launch<P, 32, 1>(a, x, w, st); break;
-    case 64064: err = launch<P, 64, 1>(a, x, w, st); break;
-    case 128128: err = launch<P, 128, 2>(a, x, w, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      launch_tile<P, false>(a, x, w, static_cast<cudaStream_t>(stream), 1, block_t, block_n));
+}
+
+// The expert-batched entry: y[b] = x[b or all] @ w[index[b] or b] scaled by
+// that expert's s, for b < batches; M rows a batch, X = experts.
+template <class P>
+int run_experts(const void* x, const void* w, const void* s, const int* index, void* y,
+                void* partial, void* counters, int batches, int M, int x_batched, int experts,
+                int N, int K, int block_t, int block_n, int splits, int k_per_split,
+                void* stream) {
+  Args a{};
+  a.s = static_cast<const float*>(s);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.partial = static_cast<float*>(partial);
+  a.counters = static_cast<int*>(counters);
+  a.M = M, a.N = N, a.K = K, a.k_per_split = k_per_split, a.splits = splits;
+  a.index = index, a.x_batched = x_batched, a.experts = experts;
+  if (!valid<P>(x, w, s, partial, counters, M, N, K, splits, k_per_split) || batches <= 0 ||
+      experts <= 0 || (!index && batches > experts) ||
+      static_cast<long long>((M + 7) / 8) * batches > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_tile<P, true>(a, x, w, static_cast<cudaStream_t>(stream), batches, block_t, block_n));
 }
 
 }  // namespace wq

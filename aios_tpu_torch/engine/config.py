@@ -1,12 +1,14 @@
-"""Model configurations for the Llama-family decoder (the dense presets).
+"""Model configurations for the Llama-family decoder, dense and
+mixture-of-experts.
 
 A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
-``ModelConfig`` geometry fields, ``jump_ahead``, ``replicas``,
-``draft_model`` and ``prefix_host_bytes``, the dense presets, the tiny test
-config and ``from_gguf_metadata``. The other serving knobs that ride on the
-JAX package's config (megagraph, compression, MoE) belong to features the
-port has not reached yet, so a GGUF file of a mixture-of-experts model is
-refused.
+``ModelConfig`` geometry fields with the mixture-of-experts ones
+(``num_experts``, ``num_experts_per_tok``, ``moe_intermediate_size``,
+``norm_topk_prob``), ``jump_ahead``, ``replicas``, ``draft_model`` and
+``prefix_host_bytes``, the presets (the dense tiers, Qwen3-30B-A3B and
+Mixtral-8x7B), the tiny test configs and ``from_gguf_metadata``. The other
+serving knobs that ride on the JAX package's config (megagraph, compression)
+belong to features the port has not reached yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     tie_word_embeddings: bool = False
     qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
+    # Mixture-of-experts (0 experts = dense FFN). The router picks
+    # num_experts_per_tok experts per token; their gate weights are softmax
+    # probabilities renormalized over the selected set when norm_topk_prob.
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    norm_topk_prob: bool = True
     # grammar jump-ahead for constrained decoding (batching.py
     # _jump_tick): chains of grammar-FORCED tokens emit host-side and
     # append their K/V in ONE multi-token dispatch instead of one masked
@@ -49,6 +58,14 @@ class ModelConfig:
     prefix_host_bytes: int = 0
 
     @property
+    def moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def expert_dim(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
+
+    @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
@@ -58,6 +75,31 @@ class ModelConfig:
 
     def scaled(self, **overrides) -> "ModelConfig":
         return replace(self, **overrides)
+
+    def num_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks + head)."""
+        e = self.vocab_size * self.hidden_size
+        attn = self.hidden_size * self.q_dim * 2 + self.hidden_size * self.kv_dim * 2
+        if self.moe:
+            mlp = self.hidden_size * self.num_experts + (
+                self.num_experts * 3 * self.hidden_size * self.expert_dim)
+        else:
+            mlp = 3 * self.hidden_size * self.intermediate_size
+        norms = 2 * self.hidden_size
+        head = 0 if self.tie_word_embeddings else e
+        return e + self.num_layers * (attn + mlp + norms) + self.hidden_size + head
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: only the routed experts' FFNs), the
+        number that sets decode FLOPs; ``num_params`` sets the footprint."""
+        if not self.moe:
+            return self.num_params()
+        e = self.vocab_size * self.hidden_size
+        attn = self.hidden_size * self.q_dim * 2 + self.hidden_size * self.kv_dim * 2
+        mlp = self.hidden_size * self.num_experts + (
+            self.num_experts_per_tok * 3 * self.hidden_size * self.expert_dim)
+        head = 0 if self.tie_word_embeddings else e
+        return e + self.num_layers * (attn + mlp) + head
 
 
 TINYLLAMA_1_1B = ModelConfig(
@@ -116,8 +158,44 @@ QWEN3_14B = ModelConfig(
     qk_norm=True,
 )
 
+QWEN3_30B_A3B = ModelConfig(
+    # the mixture-of-experts tier: 30B parameters on the card, about 3B
+    # active per token
+    name="qwen3-30b-a3b",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=6144,
+    num_layers=48,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=128,
+    max_context=32768,
+    rope_theta=1000000.0,
+    rms_norm_eps=1e-6,
+    qk_norm=True,
+    num_experts=128,
+    num_experts_per_tok=8,
+    moe_intermediate_size=768,
+)
+
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    max_context=32768,
+    rope_theta=1000000.0,
+    num_experts=8,
+    num_experts_per_tok=2,
+)
+
 PRESETS: Dict[str, ModelConfig] = {
-    c.name: c for c in (TINYLLAMA_1_1B, MISTRAL_7B, DEEPSEEK_R1_8B, QWEN3_14B)
+    c.name: c for c in (TINYLLAMA_1_1B, MISTRAL_7B, DEEPSEEK_R1_8B, QWEN3_14B,
+                        QWEN3_30B_A3B, MIXTRAL_8X7B)
 }
 
 # Tiny variant for tests (same code paths, trivial sizes). vocab 512 covers
@@ -134,22 +212,33 @@ TINY_TEST = ModelConfig(
     max_context=128,
 )
 
+TINY_MOE = ModelConfig(
+    name="tiny-moe",
+    vocab_size=512,
+    hidden_size=64,
+    intermediate_size=128,
+    num_layers=2,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=16,
+    max_context=128,
+    num_experts=4,
+    num_experts_per_tok=2,
+    moe_intermediate_size=32,
+)
+
 
 def from_gguf_metadata(md: Dict[str, Any]) -> ModelConfig:
-    """Build a config from GGUF metadata keys (llama/mistral/qwen archs), as
-    the JAX package's ``from_gguf_metadata`` does. A mixture-of-experts file
-    (``expert_count`` > 0) raises ValueError: the port has no MoE layer yet
-    (ROADMAP.md, Queue 1 item 13)."""
+    """Build a config from GGUF metadata keys (llama/mistral/qwen archs, and
+    their mixture-of-experts variants through ``expert_count``,
+    ``expert_used_count``, ``expert_feed_forward_length`` and
+    ``expert_weights_norm``), as the JAX package's ``from_gguf_metadata``
+    does."""
     arch = md.get("general.architecture", "llama")
 
     def key(suffix: str, default=None):
         return md.get(f"{arch}.{suffix}", default)
 
-    num_experts = int(key("expert_count", 0) or 0)
-    if num_experts > 0:
-        raise ValueError(
-            f"{arch} file with expert_count={num_experts}: mixture-of-experts models "
-            "are not served by the PyTorch port yet (ROADMAP.md, Queue 1 item 13)")
     heads = int(key("attention.head_count"))
     kv_heads = int(key("attention.head_count_kv", heads))
     hidden = int(key("embedding_length"))
@@ -157,7 +246,16 @@ def from_gguf_metadata(md: Dict[str, Any]) -> ModelConfig:
     vocab = int(md.get("tokenizer.ggml.tokens and vocab", 0)) or len(
         md.get("tokenizer.ggml.tokens", [])
     ) or int(key("vocab_size", 32000))
+    num_experts = int(key("expert_count", 0) or 0)
     return ModelConfig(
+        num_experts=num_experts,
+        num_experts_per_tok=int(key("expert_used_count", 2) or 2),
+        moe_intermediate_size=(
+            int(key("expert_feed_forward_length"))
+            if key("expert_feed_forward_length")
+            else None
+        ),
+        norm_topk_prob=bool(key("expert_weights_norm", True)),
         name=md.get("general.name", arch).lower().replace(" ", "-"),
         vocab_size=vocab,
         hidden_size=hidden,

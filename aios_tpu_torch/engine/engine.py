@@ -396,6 +396,16 @@ class TorchEngine:
         else:
             self.quantized = False
         self.params = params
+        # MoE decode (the JAX engine's static choice): the gathered path
+        # streams only the routed experts' blocks when every slot's picks
+        # together touch fewer experts than exist, opted into with
+        # AIOS_TPU_MOE_GATHER (dense is the default); decode and
+        # verify-shaped dispatches only, and AIOS_TPU_MOE_IMPL overrides it
+        # when a graph is captured (moe.resolve_impl)
+        self._moe_impl: Optional[str] = None
+        if (cfg.moe and num_slots * cfg.num_experts_per_tok < cfg.num_experts
+                and os.environ.get("AIOS_TPU_MOE_GATHER", "").lower() in ("1", "true", "on")):
+            self._moe_impl = "gather"
 
         self.paged = paged_pool_rows is not None
         self.allocator: Optional[paged.PageAllocator] = None
@@ -1285,13 +1295,13 @@ class TorchEngine:
             logits = model.decode_step_paged(
                 self.params, self.cfg, self.last_tokens, self.lengths,
                 self.k_pool, self.v_pool, self.tables_dev, active=self.active_dev,
-                cache_scales=self._cache_scales(),
+                cache_scales=self._cache_scales(), moe_impl=self._moe_impl,
             )
         else:
             logits = model.decode_step(
                 self.params, self.cfg, self.last_tokens, self.lengths,
                 self.k_pool, self.v_pool, active=self.active_dev,
-                cache_scales=self._cache_scales(),
+                cache_scales=self._cache_scales(), moe_impl=self._moe_impl,
             )
         if masked:
             logits = logits + self.step_mask
@@ -1425,19 +1435,32 @@ class TorchEngine:
         torch.minimum(d_len, self.lengths, out=d_len)
         return g, counts, proposed, logits
 
+    def _verify_moe_impl(self, feed_width: int) -> Optional[str]:
+        """The MoE path of a verify-shaped dispatch (n-gram and draft rounds,
+        jumps): feeding W tokens a slot gathers S*W*k expert blocks, so the
+        gather the engine chose falls back to dense once that reaches the
+        expert count (the JAX ``_verify_moe_impl``)."""
+        if (self._moe_impl == "gather"
+                and self.num_slots * feed_width * self.cfg.num_experts_per_tok
+                >= self.cfg.num_experts):
+            return None
+        return self._moe_impl
+
     def _verify_forward(self, feed: torch.Tensor) -> torch.Tensor:
         """The multi-token forward of ``feed`` [S, W] ([last token, W-1
         drafted or forced tokens]) over the engine's cache, its rows
         written in place (the JAX ``_verify_feed``): ``verify_step_paged``
-        through ``tables_dev`` or ``verify_step``. Returns logits [S, W,
-        V]."""
+        through ``tables_dev`` or ``verify_step``, on the MoE path of
+        ``_verify_moe_impl``. Returns logits [S, W, V]."""
+        impl = self._verify_moe_impl(feed.shape[1])
         if self.paged:
             return model.verify_step_paged(
                 self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
-                self.tables_dev, active=self.active_dev, cache_scales=self._cache_scales())
+                self.tables_dev, active=self.active_dev, cache_scales=self._cache_scales(),
+                moe_impl=impl)
         return model.verify_step(
             self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
-            active=self.active_dev, cache_scales=self._cache_scales())
+            active=self.active_dev, cache_scales=self._cache_scales(), moe_impl=impl)
 
     def _jump_body(self, kb: int) -> torch.Tensor:
         """One jump-ahead dispatch at bucket ``kb`` on the staged operands

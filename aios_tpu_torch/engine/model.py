@@ -11,6 +11,13 @@ D=head_dim), layer leaves stacked on a leading [L] axis:
   layers/wo  [L, Q, E]
   layers/w_gate [L, E, F]   layers/w_up [L, E, F] layers/w_down [L, F, E]
   layers/q_norm [L, D]      layers/k_norm [L, D]      (only if cfg.qk_norm)
+
+or, for a mixture-of-experts config (X experts of width F = expert_dim), in
+place of the three FFN leaves:
+
+  layers/w_router [L, E, X]
+  layers/we_gate [L, X, E, F]  layers/we_up [L, X, E, F]  layers/we_down [L, X, F, E]
+
   final_norm [E]
   lm_head    [E, V]                                   (absent if tied)
 
@@ -20,8 +27,9 @@ a multiple of ``HEAD_PAD`` (the matmul kernels' N % 16), so a vocab such as
 
 ``quantize_params`` turns the matmul weights into int8 serving leaves
 {"q": int8, "s": f32}, or group-wise int4 leaves {"q4": packed uint8, "s4":
-f32}, with fused ``w_qkv`` and ``w_gateup``. The KV cache is a paged pool
-[L, N, P, KH, D] or a dense slot cache [L, S, C, KH, D], bf16 (or f32 in
+f32}, with fused ``w_qkv`` and ``w_gateup`` (MoE: ``we_gateup``; the expert
+stacks stay int8 in int4 mode and the router stays dense). The KV cache is
+a paged pool [L, N, P, KH, D] or a dense slot cache [L, S, C, KH, D], bf16 (or f32 in
 tests), or int8 with per-(row, kv head) f32 scales beside it
 (``cache_scales``). ``prefill_chunk`` and ``prefill_chunk_paged`` admit a
 long prompt a chunk at a time into either cache; ``verify_step`` and
@@ -29,7 +37,9 @@ long prompt a chunk at a time into either cache; ``verify_step`` and
 point takes ``kernels``: True runs the ops wrappers (the CUDA kernels on
 CUDA tensors, their plain twins on CPU tensors), False calls the plain
 ``*_reference`` functions by name — how a caller holds the kernel path
-against the plain path on the card.
+against the plain path on the card. The forwards also take ``moe_impl``, the
+path of an MoE sublayer (``moe.resolve_impl``: ``AIOS_TPU_MOE_IMPL`` first,
+then this static choice, then dense).
 """
 
 from __future__ import annotations
@@ -50,13 +60,18 @@ from ..ops.paged_attention import MAX_GROUP as PAGED_MAX_GROUP
 from ..ops.paged_attention import MAX_STAGED_PAGES
 from ..ops.int4_matmul import kernel_supported, pick_group, supports_int4
 from ..ops.quantized_matmul import kernel_supported as int8_kernel_supported
+from . import moe
 from .config import ModelConfig
 
 Params = Dict[str, object]
 
-QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "we_gate", "we_up",
+              "we_down")
+# serving leaf -> the dense leaves it concatenates; a tree has the FFN leaves
+# of one kind, dense (w_*) or experts (we_*)
 FUSED = {"w_qkv": ("wq", "wk", "wv"), "wo": ("wo",), "w_gateup": ("w_gate", "w_up"),
-         "w_down": ("w_down",)}  # serving leaf -> the dense leaves it concatenates
+         "w_down": ("w_down",), "we_gateup": ("we_gate", "we_up"), "we_down": ("we_down",)}
+EXPERT_LEAVES = ("we_gateup", "we_down")  # int8 in every mode: the expert entry takes them
 _RECIP_127 = float(torch.tensor(1 / 127, dtype=torch.float32))  # f32(1/127)
 HEAD_PAD = 16  # the serving lm_head's columns, padded on CUDA (K1/K5: N % 16 == 0)
 
@@ -92,9 +107,12 @@ def _leaf_format(K: int, N: int, mode: str, cpu: bool) -> Tuple[str, Optional[st
 
 
 def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor]:
-    """One serving leaf, stored as ``_leaf_format`` says; a leaf no kernel
+    """One serving leaf, stored as ``_leaf_format`` says (an expert stack
+    int8 in every mode, as the JAX package forces it); a leaf no kernel
     would serve raises, naming ``name``."""
     K, N = w.shape[-2], w.shape[-1]
+    if name in EXPERT_LEAVES:
+        mode = "int8"
     fmt, fault = _leaf_format(K, N, mode, w.device.type == "cpu")
     if fault:
         raise ValueError(f"{name} {fault}")
@@ -107,12 +125,17 @@ def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor
 
 def serving_leaf_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
     """[K, N] of each leaf ``quantize_params`` makes for ``cfg`` on CUDA: the
-    concatenations of FUSED and the lm_head, [E, V] padded to HEAD_PAD."""
+    concatenations of FUSED (for an MoE config each expert's [K, N] of
+    ``we_gateup`` and ``we_down``) and the lm_head, [E, V] padded to
+    HEAD_PAD."""
     E, F = cfg.hidden_size, cfg.intermediate_size
+    Fm = cfg.expert_dim
     dense = {"wq": (E, cfg.q_dim), "wk": (E, cfg.kv_dim), "wv": (E, cfg.kv_dim),
-             "wo": (cfg.q_dim, E), "w_gate": (E, F), "w_up": (E, F), "w_down": (F, E)}
+             "wo": (cfg.q_dim, E), "w_gate": (E, F), "w_up": (E, F), "w_down": (F, E),
+             "we_gate": (E, Fm), "we_up": (E, Fm), "we_down": (Fm, E)}
+    ffn = ("we_gateup", "we_down") if cfg.moe else ("w_gateup", "w_down")
     shapes = {key: (dense[parts[0]][0], sum(dense[k][1] for k in parts))
-              for key, parts in FUSED.items()}
+              for key, parts in FUSED.items() if key in ("w_qkv", "wo") + ffn}
     shapes["lm_head"] = (E, -(-cfg.vocab_size // HEAD_PAD) * HEAD_PAD)
     return shapes
 
@@ -125,7 +148,8 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
     K6 or K7 for its chunked admission and its jump-ahead dispatches
     (``verify_step_paged``), or K6-K9 for the dense cache; and
     with ``quantize`` ("int8" or "int4")
-    K1/K5 for each serving leaf, as ``_quant_leaf`` would store it. The
+    K1/K5 for each serving leaf, as ``_quant_leaf`` would store it (K1's
+    expert entry for an MoE config's expert stacks). The
     limits are the ones the wrappers check. Empty when every kernel takes
     it; the plain paths on the CPU serve any geometry."""
     D, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -157,9 +181,12 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
                   DENSE_HEAD_DIMS, DENSE_MAX_GROUP)
     if quantize:
         for name, (K, N) in serving_leaf_shapes(cfg).items():
-            fault = _leaf_format(K, N, quantize, cpu=False)[1]
+            expert = name in EXPERT_LEAVES
+            fault = _leaf_format(K, N, "int8" if expert else quantize, cpu=False)[1]
             if fault:
-                faults.append(f"quantized_matmul (K1): {name} {fault}")
+                kernel = ("quantized_matmul_experts (K1's expert entry)" if expert
+                          else "quantized_matmul (K1)")
+                faults.append(f"{kernel}: {name} {fault}")
     return faults
 
 
@@ -167,7 +194,9 @@ def quantize_params(params: Params, include_head: bool = True,
                     mode: str = "int8", pad_head: Optional[bool] = None) -> Params:
     """Serving leaves, the JAX package's ``quantize_params`` with fusion:
     wq|wk|wv concatenate into one [E, Q+2K] ``w_qkv`` and w_gate|w_up into
-    one [E, 2F] ``w_gateup`` (4 weight matmuls per layer instead of 7), and
+    one [E, 2F] ``w_gateup`` (4 weight matmuls per layer instead of 7; an
+    MoE tree's we_gate|we_up into [X, E, 2F] ``we_gateup`` beside
+    ``we_down``, int8 in either mode, its router left as it is), and
     a tied lm_head becomes its own quantized [E, V] matrix. ``mode`` is
     "int8" (per-column int8) or "int4" (group-wise int4, int8 for a leaf
     that cannot take it). Same bytes and scales as the JAX function for the
@@ -181,6 +210,8 @@ def quantize_params(params: Params, include_head: bool = True,
     layers = {k: v for k, v in src.items() if k not in QUANT_KEYS}
     # one fused matrix at a time, so only one concatenated copy exists
     for key, parts in FUSED.items():
+        if parts[0] not in src:  # the other kind of FFN
+            continue
         w = torch.cat([src[k] for k in parts], dim=-1) if len(parts) > 1 else src[key]
         layers[key] = _quant_leaf(w, mode, key)
     out["layers"] = layers
@@ -196,19 +227,30 @@ def quantize_params(params: Params, include_head: bool = True,
     return out
 
 
-def serving_weight_bytes(params: Params) -> int:
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def serving_weight_bytes(params: Params, picks: Optional[int] = None) -> int:
     """Bytes of weight data a decode step streams (every layer leaf and the
     lm_head, scales included; the embedding gather reads one row): the JAX
-    package's ``serving_weight_bytes``."""
-    def leaves(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                yield from leaves(v)
-        elif isinstance(tree, torch.Tensor):
-            yield tree
-
-    return sum(t.numel() * t.element_size()
-               for t in (*leaves(params["layers"]), *leaves(params.get("lm_head", {}))))
+    package's ``serving_weight_bytes``, which is also the footprint, since
+    the dense MoE path streams every expert. ``picks`` counts the expert
+    stacks as the gather path streams them instead: ``picks`` expert blocks
+    a layer (N*k, duplicates streamed again)."""
+    layers = params["layers"]
+    total = sum(t.numel() * t.element_size()
+                for t in (*_leaves(layers), *_leaves(params.get("lm_head", {}))))
+    if picks is not None:
+        for key in EXPERT_LEAVES + ("we_gate", "we_up"):
+            for t in _leaves(layers.get(key, {})):
+                X = t.shape[1]  # [L, X, ...]
+                total -= t.numel() * t.element_size() * (X - picks) // X
+    return total
 
 
 def is_quantized(params: Params) -> bool:
@@ -314,9 +356,13 @@ def _project_qkv(x, lp, cfg: ModelConfig, cos, sin, kernels: bool = True):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True):
-    """Dense SwiGLU FFN sublayer."""
+def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True, moe_impl: Optional[str] = None):
+    """The FFN sublayer: dense SwiGLU, or for a layer with a router the
+    mixture-of-experts FFN on the path ``moe.resolve_impl(moe_impl)``
+    names."""
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
+    if "w_router" in lp:
+        return moe.moe_ffn(h, lp, cfg, kernels, moe_impl)
     if "w_gateup" in lp:  # fused serving layout (quantize_params)
         F_ = cfg.intermediate_size
         gu = matmul(h, lp["w_gateup"], kernels)
@@ -328,14 +374,15 @@ def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True):
     return matmul(gate * up, lp["w_down"], kernels)
 
 
-def apply_block(x, lp, cfg: ModelConfig, cos, sin, attention, kernels: bool = True):
+def apply_block(x, lp, cfg: ModelConfig, cos, sin, attention, kernels: bool = True,
+                moe_impl: Optional[str] = None):
     """One transformer block on [B, T, E]; returns (x', (k, v)).
     ``attention(q, k, v)`` maps [B, T, H, D] queries to [B, T, H, D]."""
     B, T = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(x, lp, cfg, cos, sin, kernels)
     attn = attention(q, k, v)
     x = x + matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
-    x = x + _mlp(x, lp, cfg, kernels)
+    x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return x, (k, v)
 
 
@@ -355,7 +402,7 @@ def _final_logits(x, params: Params, cfg: ModelConfig, kernels: bool = True):
 
 
 def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                     kernels: bool = True):
+                     kernels: bool = True, moe_impl: Optional[str] = None):
     B, T = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(T, device=tokens.device).expand(B, T)
@@ -367,23 +414,23 @@ def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     ks, vs = [], []
     for lp in layer_params(params):
-        x, (k, v) = apply_block(x, lp, cfg, cos, sin, attention, kernels)
+        x, (k, v) = apply_block(x, lp, cfg, cos, sin, attention, kernels, moe_impl)
         ks.append(k)
         vs.append(v)
     return _final_logits(x, params, cfg, kernels), torch.stack(ks), torch.stack(vs)
 
 
 def forward_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 kernels: bool = True) -> torch.Tensor:
+                 kernels: bool = True, moe_impl: Optional[str] = None) -> torch.Tensor:
     """Full-sequence causal forward; logits [B, T, V] in fp32."""
-    return _forward_with_kv(params, cfg, tokens, kernels)[0]
+    return _forward_with_kv(params, cfg, tokens, kernels, moe_impl)[0]
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            kernels: bool = True):
+            kernels: bool = True, moe_impl: Optional[str] = None):
     """Causal forward returning (logits [B,T,V], k [L,B,T,KH,D], v [...]);
     the engine scatters the K/V rows into the page pool."""
-    return _forward_with_kv(params, cfg, tokens, kernels)
+    return _forward_with_kv(params, cfg, tokens, kernels, moe_impl)
 
 
 def decode_step_paged(
@@ -397,6 +444,7 @@ def decode_step_paged(
     active: torch.Tensor = None,  # [B] bool
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    moe_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """One batched decode step over the paged cache; returns logits [B, V]
     in fp32.
@@ -445,7 +493,7 @@ def decode_step_paged(
         attn = attn_fn(q[:, 0].contiguous(), *pools, tables, read_lengths,
                        window=cfg.sliding_window)
         x = x + matmul(attn.reshape(B, 1, -1), lp["wo"], kernels)
-        x = x + _mlp(x, lp, cfg, kernels)
+        x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x[:, 0], params, cfg, kernels)
 
 
@@ -460,6 +508,7 @@ def verify_step_paged(
     active: torch.Tensor = None,  # [B] bool
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    moe_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """``verify_step`` over the PAGED pool; returns logits [B, T, V] in
     fp32.
@@ -517,7 +566,7 @@ def verify_step_paged(
             views = (k_l[t].reshape(B, C, KH, D), v_l[t].reshape(B, C, KH, D))
         attn = attn_fn(q.contiguous(), *views, read_base, strides, window=cfg.sliding_window)
         x = x + matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
-        x = x + _mlp(x, lp, cfg, kernels)
+        x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x, params, cfg, kernels)
 
 
@@ -592,7 +641,7 @@ def _dense_attention_sublayer(x, lp, cfg: ModelConfig, cos, sin, caches, plan,
 
 def _dense_forward(params: Params, cfg: ModelConfig, tokens, lengths, k_cache,
                    v_cache, active, kernels: bool, cache_scales, multi: bool,
-                   logits: bool = True):
+                   logits: bool = True, moe_impl: Optional[str] = None):
     """The body ``decode_step`` (T = 1) and ``verify_step`` share: write the
     T new K/V rows of every slot into the dense cache in place, attend, and
     return logits [B, T, V], or None without ``logits`` (no final norm and
@@ -606,7 +655,7 @@ def _dense_forward(params: Params, cfg: ModelConfig, tokens, lengths, k_cache,
         if cache_scales is not None:
             caches += (cache_scales[0][i], cache_scales[1][i])
         x = x + _dense_attention_sublayer(x, lp, cfg, cos, sin, caches, plan, kernels)
-        x = x + _mlp(x, lp, cfg, kernels)
+        x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x, params, cfg, kernels) if logits else None
 
 
@@ -620,6 +669,7 @@ def decode_step(
     active: torch.Tensor = None,  # [B] bool
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    moe_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """One batched decode step over the dense slot cache; returns logits
     [B, V] in fp32.
@@ -637,7 +687,8 @@ def decode_step(
     (k_scales, v_scales) [L, B, C, KH] f32 — marks an int8 cache: rows
     quantize on write."""
     return _dense_forward(params, cfg, tokens[:, None], lengths, k_cache, v_cache,
-                          active, kernels, cache_scales, multi=False)[:, 0]
+                          active, kernels, cache_scales, multi=False,
+                          moe_impl=moe_impl)[:, 0]
 
 
 def verify_step(
@@ -651,6 +702,7 @@ def verify_step(
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     logits: bool = True,
+    moe_impl: Optional[str] = None,
 ) -> Optional[torch.Tensor]:
     """Batched multi-token decode for speculative verification; returns
     logits [B, T, V] in fp32, or None when ``logits`` is False: the draft's
@@ -675,7 +727,8 @@ def verify_step(
     saturated: all its writes collide on the last row and its outputs are
     indeterminate, so callers must not consume its tokens."""
     return _dense_forward(params, cfg, tokens, lengths, k_cache, v_cache, active,
-                          kernels, cache_scales, multi=True, logits=logits)
+                          kernels, cache_scales, multi=True, logits=logits,
+                          moe_impl=moe_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -693,7 +746,7 @@ def _start_index(start, device) -> torch.Tensor:
 
 
 def _chunk_forward(params: Params, cfg: ModelConfig, tokens, start, layer_io,
-                   kernels: bool):
+                   kernels: bool, moe_impl: Optional[str] = None):
     """The body both chunk forwards share. Token t of ``tokens`` [1, Tc] sits
     at row ``start + t``; per layer, ``layer_io(i, k_new, v_new)`` writes the
     chunk's K/V rows [Tc, KH, D] into layer i of the cache and returns that
@@ -720,7 +773,7 @@ def _chunk_forward(params: Params, cfg: ModelConfig, tokens, start, layer_io,
                   else ops.multiquery_decode_attention_reference)
         attn = fn(q.contiguous(), *caches, start, strides, window=cfg.sliding_window)
         x = x + matmul(attn.reshape(1, Tc, -1), lp["wo"], kernels)
-        x = x + _mlp(x, lp, cfg, kernels)
+        x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x, params, cfg, kernels)
 
 
@@ -734,6 +787,7 @@ def prefill_chunk(
     v_cache: torch.Tensor,
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    moe_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """One chunk of an incremental prefill against the dense slot cache;
     returns logits [1, Tc, V] in fp32 (the caller samples the row of the
@@ -772,7 +826,7 @@ def prefill_chunk(
         v_cache[i][slot, rows] = v_new.to(v_cache.dtype)
         return own(k_cache[i]), own(v_cache[i])
 
-    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels)
+    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels, moe_impl)
 
 
 def page_rows(pages: torch.Tensor, P: int, rows: int) -> torch.Tensor:
@@ -812,6 +866,7 @@ def prefill_chunk_paged(
     table_row: torch.Tensor,  # [MB] int32 — the slot's block -> page map
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    moe_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """One chunk of an incremental prefill against the PAGED pool; returns
     logits [1, Tc, V] in fp32.
@@ -847,7 +902,7 @@ def prefill_chunk_paged(
         v_l[pages, offs] = v_new.to(v_l.dtype)
         return k_l[t].reshape(1, MB * P, KH, D), v_l[t].reshape(1, MB * P, KH, D)
 
-    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels)
+    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels, moe_impl)
 
 
 # ---------------------------------------------------------------------------

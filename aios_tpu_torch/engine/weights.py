@@ -13,7 +13,11 @@ into numpy by the caller (this package imports no JAX) and keeps its layout:
 stacked [L, ...] layer leaves, quantized {"q", "s"} leaves as they are, so
 both packages multiply the same int8 bytes. ``init_params`` is the torch twin
 of the JAX ``init_params`` (scaled-normal init) for synthetic models; the
-two draw different numbers from the same seed.
+two draw different numbers from the same seed. ``init_serving_params`` makes
+the same random model as ``init_params`` followed by
+``model.quantize_params``, one layer at a time, so that a mixture-of-experts
+model never holds its whole bf16 tree (the job ``init_quantized_params`` does
+for the JAX package).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from . import gguf as gguf_mod
+from . import model as model_mod
 from .config import ModelConfig, from_gguf_metadata
 
 Device = Optional[Union[str, torch.device]]
@@ -55,20 +60,55 @@ def params_from_jax(tree: Dict, device: Device = None) -> Dict:
     }
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16, device: Device = None) -> Dict:
-    """Random params (scaled-normal init, 0.02) made on ``device`` from
-    ``generator`` (which must live on the same device type)."""
-    device = torch.device(device) if device is not None else generator.device
-
+def _normal(generator: torch.Generator, dtype: torch.dtype, device: torch.device):
     def normal(*shape):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         return (w * 0.02).to(dtype)
+    return normal
+
+
+def _moe_layer(cfg: ModelConfig, normal) -> Dict[str, torch.Tensor]:
+    """One MoE layer's random matrices, in the order both initializers draw
+    them."""
+    E, X, Fm = cfg.hidden_size, cfg.num_experts, cfg.expert_dim
+    return {"wq": normal(E, cfg.q_dim), "wk": normal(E, cfg.kv_dim),
+            "wv": normal(E, cfg.kv_dim), "wo": normal(cfg.q_dim, E),
+            "w_router": normal(E, X), "we_gate": normal(X, E, Fm),
+            "we_up": normal(X, E, Fm), "we_down": normal(X, Fm, E)}
+
+
+def _norms(cfg: ModelConfig, dtype: torch.dtype, device: torch.device) -> Dict:
+    L, E, D = cfg.num_layers, cfg.hidden_size, cfg.head_dim
+    norms = {"attn_norm": torch.ones(L, E, dtype=dtype, device=device),
+             "ffn_norm": torch.ones(L, E, dtype=dtype, device=device)}
+    if cfg.qk_norm:
+        norms["q_norm"] = torch.ones(L, D, dtype=dtype, device=device)
+        norms["k_norm"] = torch.ones(L, D, dtype=dtype, device=device)
+    return norms
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16, device: Device = None) -> Dict:
+    """Random params (scaled-normal init, 0.02) made on ``device`` from
+    ``generator`` (which must live on the same device type). An MoE config
+    draws its matrices layer by layer (``_moe_layer``), the order
+    ``init_serving_params`` follows."""
+    device = torch.device(device) if device is not None else generator.device
+    normal = _normal(generator, dtype, device)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
     L, E, F, D = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    if cfg.moe:
+        drawn = [_moe_layer(cfg, normal) for _ in range(L)]
+        layers = {**_norms(cfg, dtype, device),
+                  **{k: torch.stack([d[k] for d in drawn]) for k in drawn[0]}}
+        del drawn
+        params = {"embed": normal(cfg.vocab_size, E), "layers": layers, "final_norm": ones(E)}
+        if not cfg.tie_word_embeddings:
+            params["lm_head"] = normal(E, cfg.vocab_size)
+        return params
     layers = {
         "attn_norm": ones(L, E),
         "ffn_norm": ones(L, E),
@@ -98,6 +138,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 ROW_BLOCK_ELEMENTS = 1 << 24  # f32 elements dequantized per block of rows
+EXPERTS = "experts"  # a job's transpose of an expert stack [X, out, in] -> [X, in, out]
 DEQUANT_THREADS = 8  # numpy releases the GIL inside the dequantizers' array ops
 
 
@@ -148,7 +189,9 @@ def _fill(f: gguf_mod.GGUFFile, jobs: List[tuple], device: torch.device,
     """Copy each job's tensor (dest, name, transpose, heads) into its leaf:
     blocks of rows dequantize on a thread pool, at most 2 x DEQUANT_THREADS
     blocks ahead of the copies (bounding the host's f32), and are copied in
-    order, transposed (out, in) -> (in, out) where asked."""
+    order, transposed (out, in) -> (in, out) where asked. ``transpose`` ==
+    EXPERTS marks an expert stack [X, out, in]: its rows are whole experts,
+    each swapped to dest's [in, out]."""
     def blocks():
         for dest, name, transpose, heads in jobs:
             if name not in f.tensors:
@@ -178,6 +221,9 @@ def _fill(f: gguf_mod.GGUFFile, jobs: List[tuple], device: torch.device,
             src = torch.from_numpy(rows).to(device)
             if dest.dim() == 1:
                 dest.copy_(src.reshape(dest.shape))
+            elif transpose == EXPERTS:
+                n_in, n_out = dest.shape[1], dest.shape[2]
+                dest[r0:r1].copy_(src.reshape(r1 - r0, n_out, n_in).transpose(1, 2))
             elif transpose:
                 dest[:, r0:r1].copy_(src.T)
             else:
@@ -213,14 +259,24 @@ def params_from_gguf(path: Union[str, gguf_mod.GGUFFile], device: Device = None,
         "attn_norm": empty(L, E), "ffn_norm": empty(L, E),
         "wq": empty(L, E, cfg.q_dim), "wk": empty(L, E, cfg.kv_dim),
         "wv": empty(L, E, cfg.kv_dim), "wo": empty(L, cfg.q_dim, E),
-        "w_gate": empty(L, E, F), "w_up": empty(L, E, F), "w_down": empty(L, F, E),
     }
     # leaf <- GGUF tensor, (out, in) -> (in, out), q/k unpermuted over heads
     sources = [("attn_norm", "attn_norm", False, None), ("ffn_norm", "ffn_norm", False, None),
                ("wq", "attn_q", True, heads[0]), ("wk", "attn_k", True, heads[1]),
-               ("wv", "attn_v", True, None), ("wo", "attn_output", True, None),
-               ("w_gate", "ffn_gate", True, None), ("w_up", "ffn_up", True, None),
-               ("w_down", "ffn_down", True, None)]
+               ("wv", "attn_v", True, None), ("wo", "attn_output", True, None)]
+    if cfg.moe:
+        # the router [X, E] -> [E, X]; expert stacks [X, out, in] -> [X, in, out]
+        X, Fm = cfg.num_experts, cfg.expert_dim
+        layers.update(w_router=empty(L, E, X), we_gate=empty(L, X, E, Fm),
+                      we_up=empty(L, X, E, Fm), we_down=empty(L, X, Fm, E))
+        sources += [("w_router", "ffn_gate_inp", True, None),
+                    ("we_gate", "ffn_gate_exps", EXPERTS, None),
+                    ("we_up", "ffn_up_exps", EXPERTS, None),
+                    ("we_down", "ffn_down_exps", EXPERTS, None)]
+    else:
+        layers.update(w_gate=empty(L, E, F), w_up=empty(L, E, F), w_down=empty(L, F, E))
+        sources += [("w_gate", "ffn_gate", True, None), ("w_up", "ffn_up", True, None),
+                    ("w_down", "ffn_down", True, None)]
     if cfg.qk_norm:
         layers["q_norm"] = empty(L, D)
         layers["k_norm"] = empty(L, D)
@@ -239,3 +295,45 @@ def params_from_gguf(path: Union[str, gguf_mod.GGUFFile], device: Device = None,
         for k, v in spent.items():
             timings[k] = timings.get(k, 0.0) + v
     return params, cfg
+
+
+def init_serving_params(cfg: ModelConfig, generator: torch.Generator, mode: str = "int8",
+                        dtype: torch.dtype = torch.bfloat16, device: Device = None) -> Dict:
+    """``model.quantize_params(init_params(cfg, generator, dtype, device),
+    mode=mode)`` for an MoE config, made one layer at a time: each layer's
+    matrices are drawn in ``init_params``' order and quantized into
+    preallocated [L, ...] serving leaves before the next layer is drawn, so
+    the peak is the serving bytes plus about one layer in ``dtype`` (with
+    its f32 quantization temporaries). Each leaf is quantized as a [1, ...]
+    stack, which takes the stacked arithmetic of ``quantize_params``; the
+    result equals it bit for bit on the same device."""
+    if not cfg.moe:
+        raise ValueError(f"{cfg.name} is not a mixture-of-experts config")
+    device = torch.device(device) if device is not None else generator.device
+    normal = _normal(generator, dtype, device)
+    L, E = cfg.num_layers, cfg.hidden_size
+    layers: Dict = dict(_norms(cfg, dtype, device))
+    for i in range(L):
+        drawn = _moe_layer(cfg, normal)
+        one = model_mod.quantize_params(
+            {"layers": {k: v[None] for k, v in drawn.items()}}, include_head=False,
+            mode=mode)["layers"]
+        del drawn
+        for key, leaf in one.items():
+            if i == 0:
+                layers[key] = ({k: torch.empty((L, *t.shape[1:]), dtype=t.dtype, device=device)
+                                for k, t in leaf.items()} if isinstance(leaf, dict)
+                               else torch.empty((L, *leaf.shape[1:]), dtype=leaf.dtype,
+                                                device=device))
+            if isinstance(leaf, dict):
+                for k, t in leaf.items():
+                    layers[key][k][i].copy_(t[0])
+            else:
+                layers[key][i].copy_(leaf[0])
+        del one
+    params = {"embed": normal(cfg.vocab_size, E), "layers": layers,
+              "final_norm": torch.ones(E, dtype=dtype, device=device)}
+    head = params["embed"].T if cfg.tie_word_embeddings else normal(E, cfg.vocab_size)
+    params["lm_head"] = model_mod.quantize_params(
+        {"layers": {}, "embed": params["embed"], "lm_head": head}, mode=mode)["lm_head"]
+    return params

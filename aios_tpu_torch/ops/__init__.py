@@ -3,7 +3,9 @@ plain PyTorch version.
 
   * ``quantized_matmul`` — int8-weight x bf16-activation matmul with
     per-output-channel scales; every projection and the lm_head of int8
-    serving.
+    serving. ``quantized_matmul_experts`` is the same kernel's
+    expert-batched entry: the stacked int8 experts of a mixture-of-experts
+    layer, the expert of each row batch read on the device.
   * ``flash_attention`` — blockwise causal GQA attention for prefill.
   * ``paged_decode_attention`` — one query per slot over the paged KV pool;
     ``paged_decode_attention_int8`` the same over an int8 pool + scales.
@@ -49,6 +51,8 @@ from .quantized_matmul import (
     dequantize,
     quantize_int8,
     quantized_matmul,
+    quantized_matmul_experts,
+    quantized_matmul_experts_reference,
     quantized_matmul_reference,
 )
 from .verify_attention import (
@@ -60,7 +64,8 @@ from .verify_attention import (
 
 KERNELS = (quantized_matmul, flash_attention, paged_decode_attention,
            paged_decode_attention_int8, int4_matmul, multiquery_decode_attention,
-           multiquery_decode_attention_int8, decode_attention, decode_attention_int8)
+           multiquery_decode_attention_int8, decode_attention, decode_attention_int8,
+           quantized_matmul_experts)
 
 __all__ = [
     "KERNELS",
@@ -87,5 +92,7 @@ __all__ = [
     "quantize_int4",
     "quantize_int8",
     "quantized_matmul",
+    "quantized_matmul_experts",
+    "quantized_matmul_experts_reference",
     "quantized_matmul_reference",
 ]

@@ -5,6 +5,11 @@ Symmetric per-output-channel int8 (scale = absmax / 127 over the contraction
 axis), the serving format of ``quantize_params``. On CUDA tensors the product
 runs in the hand-written kernel ``csrc/quantized_matmul.cu``; on CPU tensors
 in ``quantized_matmul_reference``, which dequantizes first.
+
+``quantized_matmul_experts`` is the kernel's expert-batched entry, for the
+stacked int8 experts of a mixture-of-experts layer ([X, K, N] with [X, 1, N]
+scales): every expert over shared rows, each expert over its own rows, or
+each row over the expert its pick names, the picks read on the device.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +37,7 @@ KT = 64  # K rows per pipeline stage of the int8 kernel (int4: one 128-row group
 COUNTERS = 1024  # split-K ticket counters per (device, stream): one per tile
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_EXPERT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -80,11 +86,12 @@ def sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)  # a pure function of its ints, asked once per launch
-def plan(M: int, N: int, K: int, sms: int, kt: int = KT) -> Plan:
+def plan(M: int, N: int, K: int, sms: int, kt: int = KT, batches: int = 1) -> Plan:
     """The tile and K split of an [M, K] @ [K, N] launch, from the
     shapes and the SM count alone (so the same launch always sums in the
     same order). ``kt`` is the kernel's K rows per stage; splits hold whole
-    stages and none is empty.
+    stages and none is empty. ``batches`` (the expert entry's experts or
+    picks) multiplies the output tiles: one launch holds them all.
 
     Weight streaming (M <= 64): one block per 64 weight columns, K split
     into as many parts as one wave of resident blocks (three or two per
@@ -98,15 +105,15 @@ def plan(M: int, N: int, K: int, sms: int, kt: int = KT) -> Plan:
     k_tiles = math.ceil(K / kt)
     if M <= STREAM_ROWS[-1]:
         block_t, cols = next(r for r in STREAM_ROWS if r >= M), WG_COLS
-        tiles = math.ceil(N / cols)
+        tiles = batches * math.ceil(N / cols)
         least = 8 if block_t == STREAM_ROWS[-1] else 1  # stages per part
         splits = max(1, min(BLOCKS_PER_SM[block_t] * sms // tiles, k_tiles // least))
         per = math.ceil(k_tiles / splits)
         return Plan(block_t, cols, tiles, math.ceil(k_tiles / per), per * kt)
     block_t, cols = PREFILL_ROWS, 2 * WG_COLS
-    if math.ceil(M / block_t) * math.ceil(N / cols) <= sms // 2:
+    if batches * math.ceil(M / block_t) * math.ceil(N / cols) <= sms // 2:
         block_t, cols = STREAM_ROWS[-1], WG_COLS
-    tiles = math.ceil(M / block_t) * math.ceil(N / cols)
+    tiles = batches * math.ceil(M / block_t) * math.ceil(N / cols)
     return Plan(block_t, cols, tiles, 1, k_tiles * kt)
 
 
@@ -129,12 +136,9 @@ def counters_for(dev: torch.device, stream: int) -> torch.Tensor:
     return c
 
 
-def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
-           scale: torch.Tensor, N: int, K: int, kt: int) -> torch.Tensor:
-    """Check the launch contract of the shared core (``csrc/wq_matmul.cuh``),
-    plan, launch ``entry`` of ``library`` and count the launch
-    (``build.count_launch``). ``w`` is the raw weight (int8 rows or packed
-    nibbles) and ``scale`` its f32 scales."""
+def _require_contract(library: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      N: int, K: int) -> None:
+    """The launch contract of the shared core (``csrc/wq_matmul.cuh``)."""
     build.require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
     build.require(scale.dtype == torch.float32, f"scale must be float32, got {scale.dtype}")
     build.require(x.shape[-1] == K,
@@ -147,6 +151,28 @@ def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
                   f"{library} needs K % 8 == 0 and N % 16 == 0, got K={K} N={N}")
     build.require((x.data_ptr() | w.data_ptr() | scale.data_ptr()) % 16 == 0,
                   f"{library} needs 16-byte aligned operands")
+
+
+def _split_scratch(p: Plan, dev: torch.device, stream: int, y: torch.Tensor):
+    """(partial, counters) of a launch: the split-K partials and the ticket
+    counters of ``stream`` when ``p`` splits K, else ``y`` for both (never
+    read)."""
+    if p.splits == 1:
+        return y, y
+    build.require(p.tiles <= COUNTERS, f"{p.tiles} split tiles exceed {COUNTERS} counters")
+    # under a graph capture this comes from the graph's private pool, whose
+    # addresses stay the graph's for its life
+    return (torch.empty(p.partial_floats, dtype=torch.float32, device=dev),
+            counters_for(dev, stream))
+
+
+def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
+           scale: torch.Tensor, N: int, K: int, kt: int) -> torch.Tensor:
+    """Check the launch contract of the shared core (``csrc/wq_matmul.cuh``),
+    plan, launch ``entry`` of ``library`` and count the launch
+    (``build.count_launch``). ``w`` is the raw weight (int8 rows or packed
+    nibbles) and ``scale`` its f32 scales."""
+    _require_contract(library, x, w, scale, N, K)
     dev = x.device
     lead = x.shape[:-1]
     M = math.prod(lead)
@@ -157,13 +183,7 @@ def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
     # the host's cost per launch is most of a decode step's: one stream
     # query serves the counters and the launch
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partial = counters = y
-    if p.splits > 1:
-        build.require(p.tiles <= COUNTERS, f"{p.tiles} split tiles exceed {COUNTERS} counters")
-        # under a graph capture this comes from the graph's private pool,
-        # whose addresses stay the graph's for its life
-        partial = torch.empty(p.partial_floats, dtype=torch.float32, device=dev)
-        counters = counters_for(dev, stream)
+    partial, counters = _split_scratch(p, dev, stream, y)
     fn = build.kernel(library, entry, _ARGTYPES)
     rc = fn(
         build.ptr(x), build.ptr(w), build.ptr(scale), build.ptr(y), build.ptr(partial),
@@ -193,3 +213,82 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
 
 
 quantized_matmul.launches = 0
+
+
+def quantized_matmul_experts_reference(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                                       picks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of ``quantized_matmul_experts``, expert by expert:
+    each expert's fp32 product with its int8 rows, times its column scales,
+    cast to x's dtype (the JAX ``_expert_einsum`` and ``pick_einsum``
+    order). Builds no dequantized stack; the per-pick form runs every row
+    through every expert and keeps the picked one."""
+    X, N = w_q.shape[0], w_q.shape[-1]
+    s = scale.reshape(X, 1, N).to(torch.float32)
+    xf = x.to(torch.float32)
+    if picks is None:
+        rows = [xf[e] if x.dim() == 3 else xf for e in range(X)]
+        return torch.stack([(r @ w_q[e].to(torch.float32)) * s[e]
+                            for e, r in enumerate(rows)]).to(x.dtype)
+    y = xf.new_zeros(x.shape[0], N)
+    for e in range(X):
+        y = torch.where((picks == e)[:, None], (xf @ w_q[e].to(torch.float32)) * s[e], y)
+    return y.to(x.dtype)
+
+
+def quantized_matmul_experts(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                             picks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stacked int8 experts w_q [X, K, N] with scales [X, 1, N] in one
+    launch, in three row layouts:
+
+      * shared: x [M, K] through every expert -> [X, M, N];
+      * per expert: x [X, C, K], expert e's own C rows -> [X, C, N];
+      * per pick: x [P, K] with ``picks`` [P] int32, row p through expert
+        picks[p] -> [P, N].
+
+    Each expert's scale multiplies its fp32 sums before the cast to bf16, as
+    ``_expert_einsum`` scales before any sum over experts. CPU operands take
+    ``quantized_matmul_experts_reference``; CUDA operands launch the
+    kernel's expert entry (``csrc/quantized_matmul.cu``, K1's contract:
+    bf16 activations, contiguous 16-byte aligned operands, K % 8 == 0,
+    N % 16 == 0) or raise. The picks stay on the device."""
+    dev = build.device_of(x, w_q, scale, *(() if picks is None else (picks,)))
+    if dev.type == "cpu":
+        return quantized_matmul_experts_reference(x, w_q, scale, picks)
+    library = "quantized_matmul"
+    build.require(w_q.dim() == 3 and w_q.dtype == torch.int8,
+                  f"w_q must be int8 [X, K, N], got {w_q.dtype} {tuple(w_q.shape)}")
+    X, K, N = w_q.shape
+    build.require(scale.numel() == X * N, f"scale has {scale.numel()} entries for X={X} N={N}")
+    if picks is not None:
+        build.require(x.dim() == 2 and picks.shape == (x.shape[0],)
+                      and picks.dtype == torch.int32 and picks.is_contiguous(),
+                      f"picks must be int32 [P] for x [P, K], got {picks.dtype} "
+                      f"{tuple(picks.shape)} for x {tuple(x.shape)}")
+        batches, M, x_batched, out = x.shape[0], 1, 1, (x.shape[0], N)
+    elif x.dim() == 3:
+        build.require(x.shape[0] == X, f"x {tuple(x.shape)} holds no rows of {X} experts")
+        batches, M, x_batched, out = X, x.shape[1], 1, (X, x.shape[1], N)
+    else:
+        build.require(x.dim() == 2, f"x must be [M, K], [X, C, K] or [P, K], got "
+                                    f"{tuple(x.shape)}")
+        batches, M, x_batched, out = X, x.shape[0], 0, (X, x.shape[0], N)
+    _require_contract(library, x, w_q, scale, N, K)
+    y = torch.empty(out, dtype=torch.bfloat16, device=dev)
+    if batches * M == 0:
+        return y
+    p = plan(M, N, K, sm_count(dev.index), KT, batches)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial, counters = _split_scratch(p, dev, stream, y)
+    fn = build.kernel(library, "aios_quantized_matmul_experts", _EXPERT_ARGTYPES)
+    rc = fn(
+        build.ptr(x), build.ptr(w_q), build.ptr(scale),
+        None if picks is None else build.ptr(picks), build.ptr(y), build.ptr(partial),
+        build.ptr(counters), batches, M, x_batched, X, N, K, p.block_t, p.cols, p.splits,
+        p.k_per_split, ctypes.c_void_p(stream),
+    )
+    build.check(library, rc)
+    build.count_launch(quantized_matmul_experts)
+    return y
+
+
+quantized_matmul_experts.launches = 0

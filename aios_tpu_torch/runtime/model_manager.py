@@ -30,7 +30,13 @@ the cache over. Unlike the JAX replicas, the port's share their weights, so
 the weights count once. ``hbm_chip_bytes``, which later loads are budgeted
 against, also adds each replica's admission graph pool as measured after
 its captures, memory the JAX estimate does not see (687,865,856 B for
-TinyLlama, 9,114,222,592 B for Mistral-7B on the card).
+TinyLlama, 9,114,222,592 B for Mistral-7B on the card). Before the load the
+budget also counts that pool's largest transient, estimated from the
+shapes (``admission_bytes``: the f32 logits of the largest whole-prompt
+bucket and, for a mixture-of-experts model, the dense expert path's
+intermediates over one slice of its rows), and an ``auto`` pool that would leave no
+room for it is cut down to the rows that do fit (with a warning; never
+below one slot's context).
 
 Serving defaults: int8 weights on CUDA (dense on the CPU, where int8 would
 only add a dequantize to every matmul), a bf16 KV cache, and a paged pool
@@ -73,7 +79,11 @@ requests (``json_schema``, ``json_mode``); under ``AIOS_TPU_JSON_MODE=force``
 (``json_mode_forced``) ``LoadModel`` also captures the masked step's graph
 and the jump graphs, since every non-streaming Infer is then constrained.
 ``synthetic://<preset>`` sources build random weights on the target device
-from a seeded generator; a ``.gguf`` path loads the file's weights
+from a seeded generator (a mixture-of-experts preset with quantized serving
+one layer at a time straight into its serving leaves,
+``weights.init_serving_params``, so that Qwen3-30B-A3B never holds its
+61 GB bf16 tree); presets resolve by ``resolve_preset``, the JAX manager's
+order; a ``.gguf`` path loads the file's weights
 (``weights.params_from_gguf``), its config from the metadata and its own
 tokenizer (SentencePiece or byte-level BPE, bytes when it carries none), as
 the JAX manager does. ``autoload`` scans ``AIOS_MODEL_DIR`` for ``*.gguf`` at
@@ -82,9 +92,10 @@ size. On CUDA a model lists READY only once its engine
 has built its kernels and captured the CUDA graphs its batcher dispatches
 (``TorchEngine.warmup``, the batcher's attach); a failed build or capture
 leaves it in ``error`` and fails ``LoadModel``, as does a file that does
-not parse, a ggml type with no dequantizer, a mixture-of-experts file or a
-geometry no kernel takes. HF checkpoint directories, prepared checkpoints
-and the SLO autoscaler wait for later slices.
+not parse, a ggml type with no dequantizer or a geometry no kernel takes
+(a mixture-of-experts model's expert stacks included). HF checkpoint
+directories, prepared checkpoints and the SLO autoscaler wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -104,11 +115,12 @@ from ..device import DEVICE_FAULT_REASON, is_device_fault, resolve_device
 from ..engine import model as model_mod
 from ..engine import spec as spec_mod
 from ..engine.batching import ContinuousBatcher
-from ..engine.config import PRESETS, TINY_TEST, ModelConfig
-from ..engine.engine import SPILL_STAGING_BYTES, TorchEngine
+from ..engine.config import PRESETS, TINY_MOE, TINY_TEST, ModelConfig
+from ..engine.engine import DEFAULT_BUCKETS, SPILL_STAGING_BYTES, TorchEngine
 from ..engine.gguf import GGUFFile
+from ..engine.moe import DENSE_TOKEN_CHUNK
 from ..engine.tokenizer import BaseTokenizer, ByteTokenizer, gguf_tokenizer
-from ..engine.weights import init_params, params_from_gguf
+from ..engine.weights import init_params, init_serving_params, params_from_gguf
 from ..serving import ReplicaPool, ServingConfig
 
 log = logging.getLogger("aios.torch.runtime.models")
@@ -192,7 +204,8 @@ class ManagedModel:
     model_path: str = ""
     context_length: int = 0
     # seconds of the load: dequantize_s (parse and dequantize), upload_s,
-    # quantize_s and capture_s (every replica's captures)
+    # init_s (a synthetic MoE model made in its serving leaves), quantize_s
+    # and capture_s (every replica's captures)
     load_timings: Dict[str, float] = field(default_factory=dict)
     # estimated card memory this model pins (weights, KV pools, admission
     # graph pools, the draft's weights and caches); co-resident loads are
@@ -226,10 +239,16 @@ def _context_for_file_size(n_bytes: int) -> int:
 
 
 def resolve_preset(name: str) -> ModelConfig:
+    """A preset by name, as the JAX manager's ``_resolve_preset`` resolves
+    it: the tiny test configs, then an exact preset name, and only then the
+    first preset that contains the name, is contained in it or shares its
+    family (``qwen3`` is Qwen3-14B, but ``qwen3-30b-a3b`` is itself)."""
     low = name.lower()
     if low in ("tiny-test", "tiny"):
         return TINY_TEST
-    if low in PRESETS:
+    if low == "tiny-moe":
+        return TINY_MOE
+    if low in PRESETS:  # an exact name wins before any fuzzy match
         return PRESETS[low]
     for key, cfg in PRESETS.items():
         if low in key or key in low or key.split("-")[0] in low:
@@ -307,6 +326,24 @@ def _kv_row_bytes(cfg: ModelConfig, cache_dtype: torch.dtype) -> float:
     """Bytes one KV row (k and v, every layer) takes."""
     item = 1 if cache_dtype == torch.int8 else 2
     return 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * item
+
+
+def admission_bytes(cfg: ModelConfig, ctx: int) -> float:
+    """The transient peak of the largest whole-prompt prefill the engine
+    captures at context ``ctx`` (its bucket N, the largest of
+    ``DEFAULT_BUCKETS`` up to ``ctx``), estimated from the shapes: the
+    logits (the lm_head's bf16 [N, V] and their f32 copy), the prompt's K/V
+    rows of every layer twice (the per-layer rows and their stack) and, for
+    a mixture-of-experts model, the dense expert path's peak over one slice
+    of ``moe.DENSE_TOKEN_CHUNK`` rows (the fused gate|up output [X, n, 2F]
+    bf16, its f32 gate copy and the bf16 product [X, n, F]). They add up: a
+    graph's private pool keeps blocks of every size it has held."""
+    N = max((b for b in DEFAULT_BUCKETS if b <= ctx), default=ctx)
+    logits = N * cfg.vocab_size * (2 + 4)
+    n = min(N, DENSE_TOKEN_CHUNK)
+    experts = cfg.num_experts * n * cfg.expert_dim * (4 + 4 + 2) if cfg.moe else 0
+    kv = 2 * 2 * cfg.num_layers * N * cfg.num_kv_heads * cfg.head_dim * 2
+    return float(logits + experts + kv)
 
 
 def _cache_dtype(kv_cache: Optional[str]) -> torch.dtype:
@@ -420,7 +457,8 @@ class ModelManager:
                                 "a multiple of %d; serving dense", name, ctx,
                                 PAGE_SIZE if int8 else 16)
             weight_bytes, kv_bytes = self._budget(name, cfg, params, ctx, kw, n_replicas,
-                                                  draft_bytes)
+                                                  draft_bytes,
+                                                  auto=self.paged_pool_rows == "auto")
             # the batcher's admission chunk: warmup captures its graphs, and
             # with forced JSON mode the masked step and the jump buckets
             chunk = TorchEngine.prefill_chunk_default
@@ -553,17 +591,37 @@ class ModelManager:
         return managed
 
     def _budget(self, name: str, cfg: ModelConfig, params, ctx: int, kw: dict,
-                n_replicas: int, draft_bytes: float = 0.0):
+                n_replicas: int, draft_bytes: float = 0.0, auto: bool = False):
         """The JAX manager's per-chip estimate for this load, (serving weight
         bytes, one replica's KV bytes), and its warning when they do not fit
-        0.85 of the card beside the co-resident models and the paired
-        draft's ``draft_bytes``. The replicas share the weights, so those
-        count once."""
+        0.85 of the card beside the co-resident models, the paired draft's
+        ``draft_bytes`` and each replica's admission transient
+        (``admission_bytes``). The replicas share the weights, so those
+        count once. An ``auto`` pool (``kw["paged_pool_rows"]``) that does
+        not fit is cut, in place, to the whole pages that do, never below
+        one slot's context."""
         factor = 1.0 if model_mod.is_quantized(params) else {
             "int8": 0.5, "int4": 0.25}.get(self.quantize, 1.0)
         weight_bytes = model_mod.serving_weight_bytes(params) * factor
         row_bytes = _kv_row_bytes(cfg, self.cache_dtype)
-        kv_bytes = row_bytes * (kw.get("paged_pool_rows") or self.num_slots * ctx)
+        transient = admission_bytes(cfg, ctx) * n_replicas
+        with self._lock:
+            resident = sum(mm.hbm_chip_bytes for mm in self.models.values()
+                           if mm.name != name or mm.state == STATE_READY)
+        budget = (_chip_hbm_bytes(self.device) * 0.85 - weight_bytes - resident - draft_bytes
+                  - transient)
+        rows = kw.get("paged_pool_rows")
+        if auto and rows and row_bytes * rows * n_replicas > budget:
+            page = kw["page_size"]
+            fit = int(max(budget, 0.0) // (row_bytes * n_replicas)) // page * page
+            cut = max(fit, -(-ctx // page) * page)
+            if cut < rows:
+                log.warning("%s: the auto page pool of %d rows (%.1f GB a replica) leaves no "
+                            "room for the admission transient (~%.1f GB a replica); serving "
+                            "%d rows", name, rows, row_bytes * rows / 1e9,
+                            transient / n_replicas / 1e9, cut)
+                kw["paged_pool_rows"] = rows = cut
+        kv_bytes = row_bytes * (rows or self.num_slots * ctx)
         if kw.get("prefix_cache") and kw.get("prefix_host_bytes"):
             # the host tier's device staging (TorchEngine.host_staging_bytes):
             # the spill backlog's cap and one slot's restore
@@ -571,10 +629,6 @@ class ModelManager:
             pages = -(-kw["paged_pool_rows"] // kw["page_size"])
             kv_bytes += max(16 * page, min(pages * page, SPILL_STAGING_BYTES)) + (
                 ctx // kw["page_size"]) * page
-        with self._lock:
-            resident = sum(mm.hbm_chip_bytes for mm in self.models.values()
-                           if mm.name != name or mm.state == STATE_READY)
-        budget = _chip_hbm_bytes(self.device) * 0.85 - weight_bytes - resident - draft_bytes
         if kv_bytes * n_replicas > max(budget, 0.0):
             log.warning("%s: KV cache needs ~%.1f GB/chip (budget ~%.1f GB) and the "
                         "seq-sharded degradation is unavailable (no sp axis on one "
@@ -650,6 +704,15 @@ class ModelManager:
                 cfg = cfg.scaled(max_context=context_length)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
+            if cfg.moe and self.quantize:
+                # straight into the serving leaves, a layer at a time
+                t0 = time.perf_counter()
+                params = init_serving_params(cfg, gen, mode=self.quantize,
+                                             dtype=torch.bfloat16, device=self.device)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                getattr(self._loading, "timings", {})["init_s"] = time.perf_counter() - t0
+                return cfg, params, ByteTokenizer()
             params = init_params(cfg, gen, dtype=torch.bfloat16, device=self.device)
             return cfg, params, ByteTokenizer()
         p = Path(path)

@@ -28,8 +28,16 @@ Phases, each printing its lines:
      T = 512, C = 2048 and 8192), K6 with a chunk whose last queries run
      past the cache end; K2 (T = 512, 2048), K3 (8 ragged slots, C = 8192)
      and K6 (T = 8 and a 512-row chunk) also at Qwen3-14B's heads (H = 40,
-     KH = 8, D = 128: a GQA group of 5); every decode-attention kernel
-     bit-identical on repeat;
+     KH = 8, D = 128: a GQA group of 5), and K2 (T = 512, 2048, 8192), K3 (C =
+     32768) and K6 (T = 8, and 512-row chunks at rows 1024 and 30720 of C =
+     32768) at Qwen3-30B-A3B's (H = 32, KH = 4, D = 128: a group of 8); every
+     decode-attention kernel bit-identical on repeat; K1's expert entry
+     (``quantized_matmul_experts``) in its three row layouts at
+     Qwen3-30B-A3B's dense decode (8 rows over 128 experts), its gather at 8
+     slots (64 picks) and at 1 (8 picks), its 512-row chunk, and Mixtral-8x7B's
+     stacks at M = 8 and 512, each within TOL of its plain twin and
+     bit-identical on repeat, beside ``torch.matmul``/``torch.bmm`` on the
+     dequantized bf16 stack, summed per decode step, gather step and chunk;
   4. serve TinyLlama — ``ModelManager`` + ``serve()`` on 127.0.0.1; LoadModel
      ``synthetic://tiny-test`` (head_dim 16, which no attention kernel takes)
      is refused with status error; LoadModel
@@ -91,7 +99,8 @@ Phases, each printing its lines:
      a greedy request past the window;
   11. serve GGUF files — with the serving defaults (int8 weights, bf16 pool),
      LoadModel answers error, with the reason, for a corrupt header, a
-     mixture-of-experts file and a Q2_K tensor; then three files, written
+     mixture-of-experts header without its expert tensors and a Q2_K
+     tensor; then three files, written
      one tensor at a time from a seeded generator with the port's streaming
      writer into a temporary directory, each deleted after its turn: (a)
      TinyLlama-1.1B at full width and depth in llama.cpp's layout (q/k
@@ -211,6 +220,21 @@ Phases, each printing its lines:
      a second engine's store, restored there with the pool hit's logits bit
      for bit; ``prefix_digest`` sizes. The batcher's runs add to the
      kernels line.
+  16. mixture-of-experts (``phase_moe``) — after every earlier model is
+     unloaded, ``LoadModel`` of ``synthetic://qwen3-30b-a3b`` at full width and
+     depth (48 layers, 128 experts of 768, top-8; int8 weights made a layer at
+     a time, bf16 pool sized auto at context 32768): load seconds, serving
+     and pool bytes, peak device memory; 3 Infer + 1 StreamInfer and a wave
+     of 8 greedy requests through the pool, every dispatch a graph replay,
+     exact launches (per dispatch 97 K1 and 96 expert launches, 48 K2, K3 or
+     K6); layer 0's attention, router and FFN and every layer's sublayers
+     through the kernels against the plain path (E2E_TOL), the free-running
+     logits (DRIFT_TOL); TTFT of a 1001-token prompt; the step's replay
+     against its eager body and its profile; then the served model
+     unloaded, an engine over the same leaves with ``AIOS_TPU_MOE_GATHER=1``
+     (context 4096): its first decode step's logits and greedy streams
+     against the dense engine's, and the same wave through its batcher. The
+     served windows and waves add to the kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -280,6 +304,7 @@ MISTRAL_KN = {  # (K, N) of each int4 matmul; launches per decode step
 }
 M_H, M_KH, M_D, M_L, M_WINDOW = 32, 8, 128, 32, 4096
 Q_H, Q_KH, Q_D = 40, 8, 128  # Qwen3-14B's heads: a GQA group of 5
+A_H, A_KH, A_D, A_L = 32, 4, 128, 48  # Qwen3-30B-A3B's heads (a GQA group of 8) and layers
 
 KERNEL_META = {
     "quantized_matmul": dict(
@@ -317,6 +342,12 @@ KERNEL_META = {
     "decode_attention_int8": dict(
         source="aios_tpu_torch/csrc/dense_attention.cu",
         replaces="aios_tpu/ops/decode_attention.py:254",
+    ),
+    # K1's expert-batched entry: the JAX package's expert products are XLA
+    # einsums (no Pallas kernel), _expert_einsum and the gather's pick_einsum
+    "quantized_matmul_experts": dict(
+        source="aios_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="aios_tpu/engine/moe.py:39",
     ),
 }
 TINYLLAMA_KERNELS = ("quantized_matmul", "flash_attention", "paged_decode_attention",
@@ -577,6 +608,7 @@ FLASH_CASES = [
     ((H, KH, D), 2, 200, None, False),
     ((M_H, M_KH, M_D), 2, 1000, 256, False),
     *(((Q_H, Q_KH, Q_D), 1, T, None, True) for T in (512, 2048)),
+    *(((A_H, A_KH, A_D), 1, T, None, True) for T in (512, 2048, 8192)),
 ]
 FLASH_REPEATED = (512, 4096)  # launched twice: the bits must repeat (Qwen3's every T)
 
@@ -598,7 +630,7 @@ def check_flash_attention(gen) -> dict:
             out.float(), ref.float(), atol=TOL, rtol=TOL)
         what = f"H={h} KH={kh} D={d} B={B} T={T} window={window}"
         expect(ok, f"flash_attention {what}: max err {err}")
-        if T in FLASH_REPEATED or h == Q_H:
+        if T in FLASH_REPEATED or (h, kh) in ((Q_H, Q_KH), (A_H, A_KH)):
             expect(torch.equal(flash_attention(q, k, v, causal=True, window=window), out),
                    f"flash_attention {what}: a second launch gave other bits")
             what += ", repeat bit-identical"
@@ -690,7 +722,9 @@ def check_paged_decode_attention(gen) -> dict:
              ("sink=128 win_starts", lengths, {"win_starts": ws, "sink": sink}),
              *K3_SPLIT_CASES,
              ("Qwen3 heads H=40 KH=8 D=128, C=8192", [0, 1, 127, 300, 1000, 2047, 4096, 8191],
-              {}, (Q_H, Q_KH, Q_D), 64)]
+              {}, (Q_H, Q_KH, Q_D), 64),
+             ("Qwen3-30B-A3B heads H=32 KH=4 D=128, C=32768",
+              [0, 1, 127, 300, 1000, 4096, 16000, 32767], {}, (A_H, A_KH, A_D), 256)]
     worst = 0.0
     headline = None
     for label, lens_, kw, *geom in cases:
@@ -896,6 +930,7 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
 
 
 TINY_GEOM, MISTRAL_GEOM, QWEN3_GEOM = (H, KH, D), (M_H, M_KH, M_D), (Q_H, Q_KH, Q_D)
+MOE_GEOM = (A_H, A_KH, A_D)
 # slot 0 is inactive (length 0, stride 0); the last staircase ends on the last
 # cache row; in the saturated cases the last slot runs past the cache end
 TINY_LENS = [0, 1, 127, 128, 700, 1500, 2000, 2046]
@@ -1067,6 +1102,12 @@ def check_dense_attention(gen) -> dict:
              mq_lens(MISTRAL_LENS, 8192), ()),
             ("chunk: Qwen3 heads C=8192 T=512", QWEN3_GEOM, 8192, None, False, 512, [3584],
              ()),
+            (f"Qwen3-30B-A3B heads C=32768 T={SPEC_T}", MOE_GEOM, 32768, None, False, SPEC_T,
+             [0, 1, 127, 300, 1000, 4096, 16000, 32760], ()),
+            ("chunk: Qwen3-30B-A3B heads C=32768 T=512", MOE_GEOM, 32768, None, False, 512,
+             [1024], ()),
+            ("chunk: Qwen3-30B-A3B heads C=32768 T=512 deep in the cache", MOE_GEOM, 32768,
+             None, False, 512, [30720], ()),
             *JUMP_CASES["multiquery_decode_attention"],
             *DRAFT_CASES["multiquery_decode_attention"],
         ],
@@ -1109,6 +1150,137 @@ def check_dense_attention(gen) -> dict:
     return measured
 
 
+# -- K1's expert entry: the stacked int8 experts of a mixture-of-experts layer --
+
+# (X, K, N) of each expert stack: Qwen3-30B-A3B's fused gate|up and down (48
+# layers) and Mixtral-8x7B's
+QWEN3_MOE_EXPERTS = {"we_gateup": (128, 2048, 1536), "we_down": (128, 768, 2048)}
+MIXTRAL_EXPERTS = {"we_gateup": (8, 4096, 28672), "we_down": (8, 14336, 4096)}
+MOE_K = 8  # Qwen3-30B-A3B's experts a token
+
+
+def _expert_stack(gen, X, K, N):
+    """A random int8 stack [X, K, N] with [X, 1, N] scales, made in place
+    (an int64 draw of Mixtral's 940 MB stack would take 7.5 GB)."""
+    q = torch.empty((X, K, N), dtype=torch.int8, device="cuda").random_(-127, 128, generator=gen)
+    s = torch.rand(X, 1, N, generator=gen, device="cuda") * (0.04 / 127) + 1e-5
+    return q, s
+
+
+def _pick_rows(gen, tokens: int, X: int, k: int) -> torch.Tensor:
+    """[tokens * k] int32 picks, k distinct experts a token, as top-k routes."""
+    return torch.stack([torch.randperm(X, generator=gen, device="cuda")[:k]
+                        for _ in range(tokens)]).reshape(-1).to(torch.int32)
+
+
+def _expert_case(gen, label, X, K, N, layout, rows, picks=None) -> dict:
+    """One expert-entry launch against its plain twin within TOL of max|ref|
+    and bit-identical on repeat; its time, the plain twin's, one library
+    call's (``torch.matmul``/``torch.bmm`` on the bf16 dequantized stack,
+    the picks gathered first) and the bound: x, every expert the launch
+    reads (the distinct picks of a per-pick launch), the scales and y."""
+    from aios_tpu_torch import ops
+
+    q, s = _expert_stack(gen, X, K, N)
+    if layout == "shared":
+        x = torch.randn(rows, K, generator=gen, device="cuda").to(torch.bfloat16)
+        n_rows = X * rows
+    elif layout == "per expert":
+        x = torch.randn(X, rows, K, generator=gen, device="cuda").to(torch.bfloat16)
+        n_rows = X * rows
+    else:
+        x = torch.randn(picks.numel(), K, generator=gen, device="cuda").to(torch.bfloat16)
+        n_rows = picks.numel()
+    y = ops.quantized_matmul_experts(x, q, s, picks)
+    ref = ops.quantized_matmul_experts_reference(x, q, s, picks)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = (bool(torch.isfinite(y).all()) and err <= TOL * scale
+          and torch.equal(ops.quantized_matmul_experts(x, q, s, picks), y))
+    expect(ok, f"quantized_matmul_experts {label}: err {err} vs max|ref| {scale}")
+    del ref
+    ms = time_ms(lambda: ops.quantized_matmul_experts(x, q, s, picks))
+    plain = time_ms(lambda: ops.quantized_matmul_experts_reference(x, q, s, picks), iters=5,
+                    warmup=1)
+    w = (q.float() * s).to(torch.bfloat16)
+    if picks is None:
+        lib = time_ms(lambda: torch.matmul(x, w) if layout == "shared" else torch.bmm(x, w))
+        touched = X
+    else:
+        pl = picks.long()
+        lib = time_ms(lambda: torch.bmm(x[:, None, :], w[pl]))
+        touched = int(torch.unique(picks).numel())
+    del w
+    nbytes = x.numel() * 2 + touched * (K * N + N * 4) + y.numel() * 2
+    bnd = bound_ms(nbytes, 2.0 * n_rows * K * N)
+    _report("quantized_matmul_experts", f"{label} {layout} x {tuple(x.shape)} over "
+            f"[{X}, {K}, {N}] ({touched} experts read), repeat bit-identical", ms, plain, lib,
+            bnd, err, ok)
+    del q, s, x, y
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes, bound_ms=bnd[0],
+                bound_by=bnd[1], max_abs_err=err)
+
+
+def check_quantized_matmul_experts(gen) -> dict:
+    """The expert entry in its three row layouts at the shapes the MoE path
+    gives it: Qwen3-30B-A3B's dense decode step (8 slots over all 128
+    experts: gate|up over shared rows, down over each expert's own rows),
+    its gather at 8 slots (P = 64 picks) and at one (P = 8), its 512-row
+    chunk, and Mixtral-8x7B's stacks at M = 8 and 512; then the sums of a
+    Qwen3-30B-A3B decode step, gather step and chunk (48 layers, two
+    launches each)."""
+    gu, dn = QWEN3_MOE_EXPERTS["we_gateup"], QWEN3_MOE_EXPERTS["we_down"]
+    cases = {
+        "decode": [("Qwen3-30B-A3B decode gate|up", *gu, "shared", 8, None),
+                   ("Qwen3-30B-A3B decode down", *dn, "per expert", 8, None)],
+        "gather8": [("Qwen3-30B-A3B gather 8 slots gate|up", *gu, "per pick", 0,
+                     _pick_rows(gen, 8, gu[0], MOE_K)),
+                    ("Qwen3-30B-A3B gather 8 slots down", *dn, "per pick", 0,
+                     _pick_rows(gen, 8, gu[0], MOE_K))],
+        "gather1": [("Qwen3-30B-A3B gather 1 slot gate|up", *gu, "per pick", 0,
+                     _pick_rows(gen, 1, gu[0], MOE_K)),
+                    ("Qwen3-30B-A3B gather 1 slot down", *dn, "per pick", 0,
+                     _pick_rows(gen, 1, gu[0], MOE_K))],
+        "chunk": [("Qwen3-30B-A3B 512-row chunk gate|up", *gu, "shared", 512, None),
+                  ("Qwen3-30B-A3B 512-row chunk down", *dn, "per expert", 512, None)],
+        "mixtral": [(f"Mixtral-8x7B {name} M={M}", *xkn,
+                     "shared" if name == "we_gateup" else "per expert", M, None)
+                    for M in (8, 512) for name, xkn in MIXTRAL_EXPERTS.items()],
+    }
+    out, worst = {}, 0.0
+    for key, rows in cases.items():
+        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by=set())
+        for label, X, K, N, layout, M, picks in rows:
+            r = _expert_case(gen, label, X, K, N, layout, M, picks)
+            worst = max(worst, r["max_abs_err"])
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                acc[f] += r[f]
+            acc["by"].add(r["bound_by"])
+        out[key] = acc
+    per_layer = out["decode"]["bound_ms"]
+    log(f"[kernel] quantized_matmul_experts Qwen3-30B-A3B dense decode: bound "
+        f"{per_layer:.4f} ms a layer by bytes (every expert's int8 rows and scales at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    for key, what in (("decode", "one dense decode step, 8 slots"),
+                      ("gather8", "one gather decode step, 8 slots (P = 64)"),
+                      ("gather1", "one gather decode step, 1 slot (P = 8)"),
+                      ("chunk", "one 512-row chunk")):
+        a = out[key]
+        log(f"[kernel] quantized_matmul_experts Qwen3-30B-A3B {what} ({2 * A_L} launches): "
+            f"kernel_ms={A_L * a['ms']:.4f} plain_ms={A_L * a['plain_ms']:.4f} "
+            f"library_ms={A_L * a['library_ms']:.4f} bound_ms={A_L * a['bound_ms']:.4f} "
+            f"x{a['ms'] / a['bound_ms']:.2f} of bound, x{a['ms'] / a['library_ms']:.2f} of "
+            f"torch.matmul/bmm on the dequantized stack")
+    d = out["decode"]
+    return dict(max_abs_err=worst, ms=A_L * d["ms"], plain_ms=A_L * d["plain_ms"],
+                library_ms=A_L * d["library_ms"], bound_ms=A_L * d["bound_ms"],
+                bound_by="/".join(sorted(d["by"])),
+                measured_at=f"one Qwen3-30B-A3B dense decode step: {2 * A_L} launches, 8 slots "
+                            "over 128 experts")
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # what time_ms reads for a kernel that does nothing: the floor under
@@ -1122,6 +1294,7 @@ def phase_kernels() -> dict:
         "paged_decode_attention_int8": check_paged_decode_attention_int8(gen),
         "int4_matmul": check_int4_matmul(gen),
         **check_dense_attention(gen),
+        "quantized_matmul_experts": check_quantized_matmul_experts(gen),
     }
     check_int4_matmul_draft(gen)
     return measured
@@ -1328,9 +1501,9 @@ def _admission(m, n: int) -> str:
     return f"whole-prompt, bucket {m.engine.bucket_for(n)}"
 
 
-def _logits_gate(m, tag: str, vocab: int) -> None:
+def _logits_gate(m, tag: str, vocab: int, tol: float = E2E_TOL) -> None:
     """Prefill (T = 512) and decode-step logits through the kernels against
-    the plain path on the served params, within E2E_TOL of max|logit|: the
+    the plain path on the served params, within ``tol`` of max|logit|: the
     prompt's tokens drawn below ``vocab``, the step for 8 ragged slots over
     pools holding that prompt's K/V."""
     from aios_tpu_torch.engine import model
@@ -1360,13 +1533,13 @@ def _logits_gate(m, tag: str, vocab: int) -> None:
     dp = model.decode_step_paged(params, cfg, step_tokens, lengths, k_pool.clone(),
                                  v_pool.clone(), tables, kernels=False)
     rel_decode = _rel(dk, dp)
-    ok = (rel_prefill <= E2E_TOL and rel_decode <= E2E_TOL
+    ok = (rel_prefill <= tol and rel_decode <= tol
           and bool(torch.isfinite(lk).all()) and bool(torch.isfinite(dk).all())
           and lk.shape[-1] == dk.shape[-1] == cfg.vocab_size)
     log(
         f"{tag} kernel path vs plain path, full model: prefill T={T} "
         f"max|dlogit|/max|logit|={rel_prefill:.3e}, decode step B=8 "
-        f"max|dlogit|/max|logit|={rel_decode:.3e} (limit {E2E_TOL}); "
+        f"max|dlogit|/max|logit|={rel_decode:.3e} (limit {tol}); "
         f"prefill argmax agreement {(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.3f}, "
         f"decode {(dk.argmax(-1) == dp.argmax(-1)).float().mean().item():.3f}; "
         f"logits [..., {lk.shape[-1]}]"
@@ -3221,7 +3394,8 @@ def _long_sp_prompt(tok, name: str, vocab, at_least: int) -> str:
 def _bad_files(manager, stub, tmp) -> None:
     """Files that cannot be served leave the model in ``error`` with the
     reason in LoadModel's reply: a corrupt header, a mixture-of-experts
-    file and a tensor in a ggml type with no dequantizer (Q2_K)."""
+    header without its router and expert tensors and a tensor in a ggml
+    type with no dequantizer (Q2_K)."""
     import grpc
 
     from aios_tpu_torch.engine.gguf import F32, Q2_K, Q8_0, quantize_q8_0, write_gguf
@@ -3258,7 +3432,8 @@ def _bad_files(manager, stub, tmp) -> None:
     write_gguf(bad / "q2k.gguf", md, tensors(True))
     write_gguf(bad / "moe.gguf", {**md, "llama.expert_count": 8}, tensors(False))
     (bad / "corrupt.gguf").write_bytes((bad / "moe.gguf").read_bytes()[:40])
-    for name, why in (("corrupt", "unpack"), ("moe", "expert_count=8"), ("q2k", "Q2_K")):
+    for name, why in (("corrupt", "unpack"), ("moe", "no tensor blk.0.ffn_gate_inp.weight"),
+                      ("q2k", "Q2_K")):
         try:
             st = stub.LoadModel(runtime_pb2.LoadModelRequest(
                 model_name=name, model_path=str(bad / f"{name}.gguf")), timeout=300)
@@ -5320,6 +5495,272 @@ def phase_host_tier(card: str) -> dict:
     return served
 
 
+# -- phase 16: mixture-of-experts, Qwen3-30B-A3B at full depth on one card --------
+
+MOE_MODEL = "qwen3-moe"
+# 8 prompts of 301-350 tokens, no two sharing a first block (no prefix hits)
+MOE_WAVE_PROMPTS = [[256] + [(7 * i + j) % 256 for j in range(300 + 7 * i)] for i in range(8)]
+MOE_WAVE_TOKENS = 128
+MOE_GATHER_CTX = 4096  # the gather engine's context: its pool beside the served weights
+# per dispatch of Qwen3-30B-A3B: w_qkv and wo a layer and the lm_head (K1), gate|up
+# and down a layer (the expert entry), one attention a layer
+MOE_K1, MOE_EXPERT_LAUNCHES = 2 * A_L + 1, 2 * A_L
+
+
+def _moe_want(launches: dict, pre: int, chunks: int, steps: int) -> dict:
+    want = dict.fromkeys(launches, 0)
+    want.update({"quantized_matmul": MOE_K1 * (pre + chunks + steps),
+                 "quantized_matmul_experts": MOE_EXPERT_LAUNCHES * (pre + chunks + steps),
+                 "flash_attention": A_L * pre, "paged_decode_attention": A_L * steps,
+                 "multiquery_decode_attention": A_L * chunks})
+    return want
+
+
+def _moe_wave(eng, submit, tag: str, card: str) -> dict:
+    """The 8 greedy MOE_WAVE_PROMPTS at once through ``submit`` (a batcher's
+    or a pool's), MOE_WAVE_TOKENS each, every kernel count set to 0 just
+    before: tokens, tok/s, steps and exact launches, each dispatch a graph
+    replay and none captured."""
+    from aios_tpu_torch.engine.batching import Request
+
+    eng.prefix_index.clear()
+    captured = eng.stats()["graph_captures"]
+    replays0, steps0 = eng.stats()["graph_replays"], eng.decode_steps
+    pre0, chunks0 = eng.prefills, eng.prefill_chunks
+    _reset_counts()
+    t0 = time.perf_counter()
+    hs = [submit(Request(prompt_ids=p, max_tokens=MOE_WAVE_TOKENS, temperature=0.0))
+          for p in MOE_WAVE_PROMPTS]
+    outs = [h.tokens() for h in hs]
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    tokens = sum(len(o) for o in outs)
+    steps, pre = eng.decode_steps - steps0, eng.prefills - pre0
+    chunks = eng.prefill_chunks - chunks0
+    stats = eng.stats()
+    expect(tokens == MOE_WAVE_TOKENS * len(hs), f"{tag}: {tokens} tokens")
+    expect(stats["graph_captures"] == captured, f"{tag}: graphs captured while serving")
+    expect(stats["graph_replays"] - replays0 == steps + pre + chunks,
+           f"{tag}: {stats['graph_replays'] - replays0} replays for {steps} steps, {pre} "
+           f"prefills and {chunks} chunks")
+    want = {k: v for k, v in _moe_want(launches, pre, chunks, steps).items() if v}
+    expect(launches == want, f"{tag}: launches {launches} != {want}")
+    log(f"[moe] {tag}: 8 greedy requests x {MOE_WAVE_TOKENS} tokens at once (prompts of "
+        f"{len(MOE_WAVE_PROMPTS[0])}-{len(MOE_WAVE_PROMPTS[-1])} tokens): {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tok/s end to end, {steps} decode steps "
+        f"({wall / max(steps, 1) * 1e3:.2f} ms a step on the host clock, admissions "
+        f"included), {pre} whole-prompt prefills, every dispatch a graph replay; launches "
+        f"exact: {launches}; {card}")
+    return dict(launches=launches, outs=outs, tok_s=tokens / wall)
+
+
+def _moe_layer_gate(params, cfg, tokens) -> None:
+    """Layer 0 of a T = 512 prefill, sublayer by sublayer through the kernels
+    and the plain path on the same input: the attention sublayer (K1, K2),
+    the router on the hidden states each attention left (the same code:
+    picks and probabilities), and the FFN (the expert entry over 128
+    experts) within E2E_TOL of max|output|."""
+    from aios_tpu_torch import ops
+    from aios_tpu_torch.engine import model, moe
+
+    B, T = tokens.shape
+    lp = model.layer_params(params)[0]
+    x = params["embed"][tokens]
+    cos, sin = model.rope_tables(torch.arange(T, device="cuda").expand(B, T), cfg.head_dim,
+                                 cfg.rope_theta)
+    attn = {}
+    for kernels in (True, False):
+        fn = ops.flash_attention if kernels else ops.flash_attention_reference
+        q, k, v = model._project_qkv(x, lp, cfg, cos, sin, kernels)
+        a = fn(q, k, v, causal=True, window=cfg.sliding_window)
+        attn[kernels] = model.matmul(a.reshape(B, T, -1), lp["wo"], kernels)
+    routes = {}
+    for kernels in (True, False):
+        h = model.rms_norm(x + attn[kernels], lp["ffn_norm"], cfg.rms_norm_eps)
+        routes[kernels] = moe.route(h.reshape(B * T, -1), lp["w_router"], cfg)
+    same = (routes[True][2] == routes[False][2]).float().mean().item()
+    dprob = (routes[True][0] - routes[False][0]).abs().max().item()
+    x = x + attn[False]
+    ffn = {kernels: model._mlp(x, lp, cfg, kernels) for kernels in (True, False)}
+    r_attn, r_ffn = _rel(attn[True], attn[False]), _rel(ffn[True], ffn[False])
+    log(f"[moe] layer 0, T={T}, kernels vs plain on the same input: attention sublayer "
+        f"max|d|/max={r_attn:.3e}, FFN (128 experts, top-8) max|d|/max={r_ffn:.3e} (limit "
+        f"{E2E_TOL}); router on each path's attention output: {same:.4f} of the picks equal, "
+        f"max|dprob|={dprob:.3e}")
+    expect(r_attn <= E2E_TOL and r_ffn <= E2E_TOL, "[moe] layer 0 sublayers disagree")
+
+
+def phase_moe_serve(manager, stub, card: str, state: dict) -> dict:
+    from aios_tpu_torch.engine import model
+
+    torch.cuda.reset_peak_memory_stats()
+    m, load_s = _load(manager, stub, MOE_MODEL, "synthetic://qwen3-30b-a3b")
+    eng, cfg = m.engine, m.config
+    expect((cfg.num_layers, cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok,
+            cfg.expert_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size,
+            eng.max_context) == (A_L, 2048, 128, MOE_K, 768, A_H, A_KH, A_D, 151936, 32768),
+           f"not the full Qwen3-30B-A3B geometry: {cfg}")
+    layers = eng.params["layers"]
+    expect(layers["we_gateup"]["q"].dtype == torch.int8
+           and tuple(layers["we_gateup"]["q"].shape) == (A_L, 128, 2048, 1536)
+           and tuple(layers["we_down"]["q"].shape) == (A_L, 128, 768, 2048)
+           and layers["w_qkv"]["q"].dtype == torch.int8 and eng.k_pool.dtype == torch.bfloat16,
+           "expected int8 expert stacks and attention leaves over a bf16 pool")
+    experts = sum(t.numel() * t.element_size() for k in ("we_gateup", "we_down")
+                  for t in layers[k].values())
+    weights = model.serving_weight_bytes(eng.params)
+    pool = eng.k_pool.numel() * 2 * 2
+    rows = (eng.allocator.num_pages - 1) * eng.allocator.page_size
+    log(f"[moe] LoadModel synthetic://qwen3-30b-a3b ready in {load_s:.2f} s (made a layer at "
+        f"a time in its serving leaves: {m.load_timings.get('init_s', 0.0):.2f} s, captures "
+        f"{m.load_timings['capture_s']:.2f} s): {cfg.num_layers} layers, E={cfg.hidden_size}, "
+        f"{cfg.num_experts} experts of {cfg.expert_dim}, top-{cfg.num_experts_per_tok}, "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads}, D={cfg.head_dim}, V={cfg.vocab_size}, "
+        f"ctx={eng.max_context}; serving weights {weights} B (expert stacks {experts} B, int8 "
+        f"with scales), {model.serving_weight_bytes(eng.params, picks=8 * MOE_K)} B a gather "
+        f"step of 8 slots; bf16 pool of {rows} rows = {pool} B (auto: 9 x 32768 rows, less "
+        f"what the admission transient needs); budgeted {int(m.hbm_chip_bytes)} B; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} B, allocated now "
+        f"{torch.cuda.memory_allocated()} B of {torch.cuda.get_device_properties(0).total_memory}"
+        f" B; {card}")
+    log(f"[moe] {_graphs_line(m, load_s)}")
+    w = _served_window(manager, stub, m, card)
+    n, pre, steps, chunks = w["launches"], w["prefills"], w["steps"], w["chunks"]
+    want = _moe_want(n, pre, chunks, steps)
+    expect(n == want, f"[moe] launch counts {n} != {want} for {pre} prefills, {chunks} chunks, "
+           f"{steps} steps")
+    log(f"[moe] launch counts exact for {pre} whole-prompt prefills, {chunks} admission chunks "
+        f"and {steps} decode steps: {n}")
+    wave = _moe_wave(eng, m.submit, "dense wave through the pool", card)
+    for k, v in wave["launches"].items():
+        n[k] = n.get(k, 0) + v
+    state["dense_wave"] = wave
+    return n
+
+
+def _greedy_state(eng, prompts, steps: int):
+    """Admit ``prompts`` greedily into slots 0.. and decode ``steps``: the
+    first tokens, the logits of the first decode step, and the tokens
+    [steps, slots]; the slots are released after."""
+    eng.prefix_index.clear()
+    first = [eng.prefill(s, p, temperature=0.0) for s, p in enumerate(prompts)]
+    toks = [eng.step(1)]
+    logits = eng.last_logits.clone()
+    toks.append(eng.step(steps - 1))
+    for s in range(len(prompts)):
+        eng.release(s)
+    return first, logits, np.concatenate(toks, axis=0)
+
+
+def _agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean over slots of the share of tokens before the first difference."""
+    same = []
+    for s in range(a.shape[1]):
+        diff = np.nonzero(a[:, s] != b[:, s])[0]
+        same.append((diff[0] if len(diff) else a.shape[0]) / a.shape[0])
+    return float(np.mean(same))
+
+
+def phase_moe_numerics(manager, card: str, state: dict) -> dict:
+    """The MoE numerics, the decode profile, and the gather path: layer 0's
+    sublayers, every layer's sublayers (E2E_TOL) and the free-running
+    logits (DRIFT_TOL) through the kernels against the plain path; TTFT of
+    a ~1000-token prompt (two chunks); the step's replay against its eager
+    body and its profile; then, the served model unloaded and its weights
+    kept, an engine of MOE_GATHER_CTX built with AIOS_TPU_MOE_GATHER=1 over
+    the same leaves, its greedy streams and first decode logits against the
+    served dense engine's, and the wave through its batcher."""
+    from aios_tpu_torch.engine.batching import ContinuousBatcher, Request
+    from aios_tpu_torch.engine.engine import TorchEngine
+
+    m = manager.get(MOE_MODEL)
+    eng, cfg, params = m.engine, m.config, m.engine.params
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, 256, (1, 512), generator=gen, device="cuda")
+    _moe_layer_gate(params, cfg, tokens)
+    per_layer, rel_head = _layerwise_prefill(params, cfg, tokens)
+    worst = max(range(len(per_layer)), key=lambda i: per_layer[i])
+    log(f"[moe] prefill T=512, each sublayer fed the plain path's input: worst layer {worst} "
+        f"max|d|/max={per_layer[worst]:.3e} (limit {E2E_TOL}), lm_head {rel_head:.3e}")
+    expect(max(per_layer) <= E2E_TOL and rel_head <= E2E_TOL, "[moe] a sublayer disagrees")
+    _logits_gate(m, "[moe]", 256, tol=DRIFT_TOL)
+
+    eng.prefix_index.clear()
+    h = m.batcher.submit(Request(prompt_ids=[256] + [65] * 1000, max_tokens=2, temperature=0.0))
+    h.tokens()
+    log(f"[moe] ttft_ms={h.ttft_ms:.2f} for a 1001-token prompt ({_admission(m, 1001)}) on an "
+        f"idle server, {card}")
+    _graph_vs_eager("[moe]", eng, {"quantized_matmul": MOE_K1,
+                                   "quantized_matmul_experts": MOE_EXPERT_LAUNCHES,
+                                   "paged_decode_attention": A_L}, rounds=False)
+    _profile_decode(eng, "qwen3-30b-a3b", 8, card)
+
+    dense_first, dense_logits, dense_toks = _greedy_state(eng, MOE_WAVE_PROMPTS, 32)
+    dense_wave = state["dense_wave"]
+    manager.unload_model(MOE_MODEL)  # its pool and graphs go; the leaves stay with `params`
+    torch.cuda.empty_cache()
+    os.environ["AIOS_TPU_MOE_GATHER"] = "1"
+    try:
+        g = TorchEngine(cfg, params, num_slots=8, max_context=MOE_GATHER_CTX,
+                        paged_pool_rows=9 * MOE_GATHER_CTX, page_size=128, device="cuda",
+                        track_history=False)
+    finally:
+        del os.environ["AIOS_TPU_MOE_GATHER"]
+    launches = {}
+    try:
+        expect(g._moe_impl == "gather" and g._verify_moe_impl(8) is None,
+               f"[moe] the gather engine chose {g._moe_impl!r}")
+        t0 = time.perf_counter()
+        g.warmup(prefill_chunk=512)
+        log(f"[moe] gather engine (AIOS_TPU_MOE_GATHER=1, 8 slots x 8 picks < 128 experts, "
+            f"ctx {MOE_GATHER_CTX}) over the served leaves: warmup {time.perf_counter() - t0:.2f}"
+            f" s, {g.graphs.captures} graphs")
+        first, logits, toks = _greedy_state(g, MOE_WAVE_PROMPTS, 32)
+        gap = _rel(logits, dense_logits)
+        log(f"[moe] gather vs dense, 8 greedy slots: first tokens "
+            f"{'equal' if first == dense_first else 'differ'} (both from the dense prefill), "
+            f"first decode step's logits max|d|/max|logit|={gap:.3e} (argmax agreement "
+            f"{(logits.argmax(-1) == dense_logits.argmax(-1)).float().mean().item():.3f}), "
+            f"greedy agreement over 32 steps {_agreement(toks, dense_toks):.3f} (bf16 near-ties "
+            f"flip argmax, so the streams may part)")
+        expect(first == dense_first and gap <= E2E_TOL and bool(torch.isfinite(logits).all()),
+               "[moe] the gather step's logits disagree with the dense step's")
+        b = ContinuousBatcher(g, prefill_chunk=512)
+        try:
+            wave = _moe_wave(g, b.submit, "gather wave through the batcher", card)
+        finally:
+            b.shutdown()
+        launches = wave["launches"]
+        agree = np.mean([_agreement(np.array(a)[:, None], np.array(d)[:, None])
+                         for a, d in zip(wave["outs"], dense_wave["outs"])])
+        log(f"[moe] gather wave {wave['tok_s']:.1f} tok/s against the dense wave's "
+            f"{dense_wave['tok_s']:.1f} tok/s (same prompts, greedy; stream agreement "
+            f"{agree:.3f}), {card}")
+    finally:
+        g.close()
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(card: str) -> dict:
+    """Qwen3-30B-A3B served through LoadModel at full depth (int8, bf16 pool
+    sized auto), its numerics and the gather engine; the served windows'
+    launches."""
+    served, state = {}, {}
+
+    def serve_(manager, stub, card_):
+        served.update(phase_moe_serve(manager, stub, card_, state))
+        return served
+
+    def numerics(manager, card_):
+        for k, v in phase_moe_numerics(manager, card_, state).items():
+            served[k] = served.get(k, 0) + v
+
+    _serve_phases(card, (serve_, numerics), quantize="int8", kv_cache="bf16")
+    return served
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -5369,6 +5810,7 @@ def main() -> int:
     serving = phase_serving(card)
     spec_paged = phase_spec_paged(card)
     host = phase_host_tier(card)
+    moe = phase_moe(card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -5376,7 +5818,8 @@ def main() -> int:
         tiny[name] += tiny_dense[name]
         mistral[name] += mistral_dense[name]
         n = (tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
-             + serving.get(name, 0) + spec_paged.get(name, 0) + host.get(name, 0))
+             + serving.get(name, 0) + spec_paged.get(name, 0) + host.get(name, 0)
+             + moe.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -5389,7 +5832,7 @@ def main() -> int:
             f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files, "
             f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas, "
             f"{spec_paged.get(name, 0)} Mistral-7B with its draft, {host.get(name, 0)} over "
-            f"the host tier), "
+            f"the host tier, {moe.get(name, 0)} Qwen3-30B-A3B), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

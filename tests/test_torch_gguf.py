@@ -236,7 +236,15 @@ def test_from_gguf_metadata_field_for_field(case):
 
 @pytest.mark.parametrize("arch", ["llama", "qwen3moe"])
 def test_from_gguf_metadata_refuses_moe(arch):
-    md = _md(arch, **{f"{arch}.expert_count": 8, f"{arch}.expert_used_count": 2})
-    assert jcfg.from_gguf_metadata(md).num_experts == 8  # JAX serves it
-    with pytest.raises(ValueError, match="expert_count=8.*Queue 1 item 13"):
-        tcfg.from_gguf_metadata(md)
+    """A mixture-of-experts file is no longer refused: its expert keys give
+    the JAX package's config, field for field (expert count, picks per
+    token, expert width, renormalization off)."""
+    md = _md(arch, **{f"{arch}.expert_count": 8, f"{arch}.expert_used_count": 2,
+                      f"{arch}.expert_feed_forward_length": 96,
+                      f"{arch}.expert_weights_norm": False})
+    got, want = tcfg.from_gguf_metadata(md), jcfg.from_gguf_metadata(md)
+    assert want.num_experts == 8
+    for f in dataclasses.fields(tcfg.ModelConfig):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert (got.moe, got.expert_dim, got.num_experts_per_tok, got.norm_topk_prob) == (
+        True, 96, 2, False)

@@ -278,16 +278,18 @@ def test_greedy_infer_over_grpc_equals_the_jax_engine(tmp_path, runtime, case):
 
 
 def test_load_refusals_leave_the_model_in_error(tmp_path, runtime):
-    """A corrupt header, a mixture-of-experts file, a ggml type with no
-    dequantizer and a directory: LoadModel answers error with the reason,
-    the model lists as error, and nothing falls back to synthetic weights."""
+    """A corrupt header, a mixture-of-experts header without its expert
+    tensors, a ggml type with no dequantizer and a directory: LoadModel
+    answers error with the reason, the model lists as error, and nothing
+    falls back to synthetic weights."""
     stub, manager = runtime
     good = write_model(tmp_path / "good.gguf")
     (tmp_path / "corrupt.gguf").write_bytes(good.read_bytes()[:40])
     write_model(tmp_path / "moe.gguf", extra_md={"llama.expert_count": 8})
     write_model(tmp_path / "q2k.gguf", types={"blk.0.ffn_down.weight": jg.Q2_K})
     (tmp_path / "hf").mkdir()
-    cases = {"corrupt": "unpack", "moe": "mixture-of-experts", "q2k": "ggml type Q2_K",
+    cases = {"corrupt": "unpack", "moe": "no tensor blk.0.ffn_gate_inp.weight",
+             "q2k": "ggml type Q2_K",
              "hf": "HF checkpoint directories", "missing": "not found"}
     for name, why in cases.items():
         path = tmp_path / (name if name in ("hf", "missing") else f"{name}.gguf")

@@ -33,6 +33,7 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
         "import aios_tpu_torch.engine.engine, aios_tpu_torch.ops\n"
         "import aios_tpu_torch.engine.spec, aios_tpu_torch.engine.batching\n"
         "import aios_tpu_torch.engine.jsonmode, aios_tpu_torch.engine.jsonschema\n"
+        "import aios_tpu_torch.engine.moe, aios_tpu_torch.engine.weights\n"
         "import aios_tpu_torch.ops.decode_attention, aios_tpu_torch.ops.verify_attention\n"
         "import aios_tpu_torch.analysis.locks, aios_tpu_torch.faults.inject\n"
         "import aios_tpu_torch.obs.metrics, aios_tpu_torch.obs.instruments\n"

@@ -38,7 +38,8 @@ HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_M
             "AIOS_TPU_SAMPLE_POOL": "16", "AIOS_TPU_REPLICAS": "2",
             "AIOS_TPU_PREFIX_RADIX": "0", "AIOS_TPU_PREFIX_CACHE": "1",
             "AIOS_TPU_JUMP_AHEAD": "1", "AIOS_TPU_KV_CACHE": "bf16",
-            "AIOS_TPU_MAX_QUEUE": "4", "AIOS_TPU_DRAFT_MODEL": "tinyllama"}
+            "AIOS_TPU_MAX_QUEUE": "4", "AIOS_TPU_DRAFT_MODEL": "tinyllama",
+            "AIOS_TPU_MOE_IMPL": "gather", "AIOS_TPU_MOE_GATHER": "1"}
 
 
 @pytest.fixture
@@ -138,3 +139,44 @@ def test_port_imports_no_ml_dtypes():
                 continue
             offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] == "ml_dtypes"]
     assert not offenders, offenders
+
+
+def test_moe_knobs_are_honoured_not_listed():
+    assert not {"AIOS_TPU_MOE_IMPL", "AIOS_TPU_MOE_GATHER"} & set(model_manager.UNPORTED_KNOBS)
+
+
+@pytest.mark.parametrize("raw", ["bogus", "GATHER", "sparse"])
+def test_a_bad_moe_impl_serves_dense_as_in_jax(clean_env, raw):
+    """AIOS_TPU_MOE_IMPL names a path or falls through to dense, in both
+    packages, and beats the engine's static gather; both packages' MoE
+    FFNs run the dense function for it."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from aios_tpu.engine import model as jm
+    from aios_tpu.engine import moe as jmoe
+    from aios_tpu.engine.config import TINY_MOE as JAX_TINY_MOE
+    from aios_tpu_torch.engine import model as tm
+    from aios_tpu_torch.engine import moe as tmoe
+    from aios_tpu_torch.engine.config import TINY_MOE
+
+    clean_env.setenv("AIOS_TPU_MOE_IMPL", raw)
+    assert tmoe.resolve_impl("gather") == "dense"
+    jp = jm.init_params(JAX_TINY_MOE, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = {k: torch.from_numpy(np.array(v[0])) for k, v in jp["layers"].items()}
+    jl = {k: v[0] for k, v in jp["layers"].items()}
+    h = np.random.default_rng(2).standard_normal((1, 3, 64)).astype(np.float32)
+    calls = []
+    for mod in (jmoe, tmoe):
+        real = mod.moe_ffn_dense
+
+        def spy(*a, _real=real, _mod=mod.__name__, **k):
+            calls.append(_mod)
+            return _real(*a, **k)
+
+        clean_env.setattr(mod, "moe_ffn_dense", spy)
+    want = jm._mlp(jnp.asarray(h), jl, JAX_TINY_MOE, moe_impl="gather")
+    got = tm._mlp(torch.from_numpy(h), tp, TINY_MOE, moe_impl="gather")
+    assert calls == ["aios_tpu.engine.moe", "aios_tpu_torch.engine.moe"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
