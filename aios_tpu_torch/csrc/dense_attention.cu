@@ -4,7 +4,15 @@
 // pos = lengths[b] + t * strides[b] and sees the cache rows col <= pos and,
 // with a sliding window, col > pos - window. An int8 cache carries f32 scales
 // [B, C, KH] for K and for V, one per (cache row, kv head), as the engine
-// stores them. T = 1 is the single-query decode step.
+// stores them. T = 1 is the single-query decode step. The multi-query
+// entries' `_sink` twins take window+sink compression's predicate, K3's and
+// K4's: slot b sees only the rows col < sink or col >= win_starts[b] (its
+// pruned middle, [sink, win_starts[b]), is never scored). Both bounds are
+// whole pages and the wrapper holds them to multiples of 32 rows, the
+// alignment of a warp's slice of a chunk (16 or 32 rows, from a share start
+// that is a multiple of 32; there is no window under compression): a slice
+// is then pruned whole or not at all, so the kernel skips pruned slices and
+// tests no row.
 //
 // Replaces: aios_tpu/ops/decode_attention.py, `decode_attention` (bf16 cache)
 // and `decode_attention_int8` (int8 cache + scales), the Pallas
@@ -560,14 +568,14 @@ __device__ __forceinline__ int acc_granule(int r, int c4) {
 // One block: MT 16-row tiles of one (slot, kv head)'s query rows over one
 // split's share of the rows they see. T is the cache element: bf16 (K6) or
 // int8 with [B, C, KH] f32 scales (K7).
-template <typename T, int D, int MT>
+template <typename T, int D, int MT, bool kSink>
 __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
     const T* __restrict__ v_cache, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ lengths,
     const int* __restrict__ strides, __nv_bfloat16* __restrict__ o,
     float* __restrict__ partial, int* __restrict__ tickets, int Tq, int H, int KH, int C,
-    int window, float sm_scale, int splits) {
+    int window, float sm_scale, int splits, const int* __restrict__ win_starts, int sink) {
   using Sm = MqSmem<T, D>;
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr int BR = 16 * MT;        // query rows of the block
@@ -604,6 +612,10 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
   const int nr = min(BR, Tq * G - r0);  // query rows of this block
   const int base = lengths[b];
   const int stride = strides[b];
+  // the sink predicate of the `_sink` entries (kSink): rows [sink, ws) are
+  // pruned; without it the code is the plain kernel's
+  [[maybe_unused]] int ws = 0;
+  if constexpr (kSink) ws = win_starts[b];
   const int pos_lo = base + (r0 / G) * stride;
   const int pos_hi = base + ((r0 + nr - 1) / G) * stride;
   int c_lo = window > 0 ? max(pos_lo + 1 - window, 0) : 0;
@@ -695,6 +707,7 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
     cp_async_commit();
     const int col0 = c_lo + c * kMqChunk + kg * KW;  // the warp's first column
     if (!tile_live || col0 >= tile_hi || col0 + KW <= tile_lo) continue;
+    if constexpr (kSink) if (col0 >= sink && col0 < ws) continue;  // a pruned slice
     const uint32_t k_src = ring_smem + (c % S) * STAGE + kg * KW * Sm::kPitchK;
     const uint32_t v_src = ring_smem + (c % S) * STAGE + Sm::kOffV + kg * KW * Sm::kPitchV;
 
@@ -968,11 +981,11 @@ __global__ void __launch_bounds__(kThreads) mq_attention_kernel(
                             &w_split[0][0], store4);
 }
 
-template <typename T, int D, int MT>
+template <typename T, int D, int MT, bool kSink>
 int launch_mq(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
               const void* v_scales, const void* lengths, const void* strides, void* o,
               void* partial, void* tickets, int B, int Tq, int H, int KH, int C, int window,
-              float sm_scale, int splits, cudaStream_t st) {
+              float sm_scale, int splits, const void* win_starts, int sink, cudaStream_t st) {
   constexpr int smem = mq_smem_bytes<T, D, MT>();
   static bool ready[64] = {};  // the shared-memory opt-in, once per device
   int dev = 0;
@@ -980,20 +993,20 @@ int launch_mq(const void* q, const void* k_cache, const void* v_cache, const voi
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(mq_attention_kernel<T, D, MT>,
+    err = cudaFuncSetAttribute(mq_attention_kernel<T, D, MT, kSink>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
   const int rows = Tq * (H / KH);
   const dim3 grid((rows + 16 * MT - 1) / (16 * MT) * splits, KH, B);
-  mq_attention_kernel<T, D, MT><<<grid, kThreads, smem, st>>>(
+  mq_attention_kernel<T, D, MT, kSink><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
       static_cast<const int*>(strides), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(partial), static_cast<int*>(tickets), Tq, H, KH, C, window,
-      sm_scale, splits);
+      sm_scale, splits, static_cast<const int*>(win_starts), sink);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1001,7 +1014,8 @@ template <typename T>
 int dispatch_mq(const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
                 const void* v_scales, const void* lengths, const void* strides, void* o,
                 void* partial, void* tickets, int B, int Tq, int H, int KH, int D, int C,
-                int window, float sm_scale, int splits, void* stream) {
+                int window, float sm_scale, int splits, void* stream,
+                const void* win_starts = nullptr, int sink = 0) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Tq < 1 || C < 1 || KH < 1 || B > 65535 || KH > 65535 || H % KH != 0 ||
       H / KH > kMaxG || splits < 1 || splits > kMaxSplits ||
@@ -1009,8 +1023,14 @@ int dispatch_mq(const void* q, const void* k_cache, const void* v_cache, const v
     return static_cast<int>(cudaErrorInvalidValue);
   const bool two = mq_tiles(Tq * (H / KH)) == 2;
 #define AIOS_MQ_LAUNCH(D_, MT_)                                                          \
-  launch_mq<T, D_, MT_>(q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o,     \
-                        partial, tickets, B, Tq, H, KH, C, window, sm_scale, splits, st)
+  (win_starts ? launch_mq<T, D_, MT_, true>(q, k_cache, v_cache, k_scales, v_scales,     \
+                                            lengths, strides, o, partial, tickets, B, Tq, \
+                                            H, KH, C, window, sm_scale, splits,           \
+                                            win_starts, sink, st)                         \
+              : launch_mq<T, D_, MT_, false>(q, k_cache, v_cache, k_scales, v_scales,    \
+                                             lengths, strides, o, partial, tickets, B,   \
+                                             Tq, H, KH, C, window, sm_scale, splits,     \
+                                             nullptr, 0, st))
   switch (D) {
     case 64:
       return two ? AIOS_MQ_LAUNCH(64, 2) : AIOS_MQ_LAUNCH(64, 4);
@@ -1075,6 +1095,29 @@ extern "C" int aios_multiquery_decode_attention_int8(
   return dispatch_mq<int8_t>(q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o,
                              partial, tickets, B, T, H, KH, D, C, window, sm_scale, splits,
                              stream);
+}
+
+// The two above with window+sink compression's predicate: win_starts [B]
+// int32, query rows of slot b see only cache rows col < sink or col >=
+// win_starts[b] (and their staircase and window). The same groups.
+extern "C" int aios_multiquery_decode_attention_sink(
+    const void* q, const void* k_cache, const void* v_cache, const void* lengths,
+    const void* strides, const void* win_starts, void* o, void* partial, void* tickets, int B,
+    int T, int H, int KH, int D, int C, int window, int sink, int splits, float sm_scale,
+    void* stream) {
+  return dispatch_mq<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, lengths, strides,
+                                    o, partial, tickets, B, T, H, KH, D, C, window, sm_scale,
+                                    splits, stream, win_starts, sink);
+}
+
+extern "C" int aios_multiquery_decode_attention_int8_sink(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scales,
+    const void* v_scales, const void* lengths, const void* strides, const void* win_starts,
+    void* o, void* partial, void* tickets, int B, int T, int H, int KH, int D, int C,
+    int window, int sink, int splits, float sm_scale, void* stream) {
+  return dispatch_mq<int8_t>(q, k_cache, v_cache, k_scales, v_scales, lengths, strides, o,
+                             partial, tickets, B, T, H, KH, D, C, window, sm_scale, splits,
+                             stream, win_starts, sink);
 }
 
 extern "C" const char* aios_error_string(int err) {

@@ -61,7 +61,19 @@ aborts its requests with ``device fault`` (no cause failover retries),
 keeps the error in ``device_fault``, calls ``on_device_fault`` and stops;
 nothing respawns it.
 
-Not here yet: the pipelined decode loop.
+The decode loop's modes (the JAX batcher's): with ``pipeline``
+(``AIOS_TPU_DECODE_PIPELINE``) a plain decode tick hands dispatch N+1 to
+the engine's dispatch worker (``engine.step_async``) before it emits
+dispatch N's tokens, a depth-2 double buffer; each in-flight dispatch
+carries the live map it was issued for and the lengths after it, so
+retirement reads what the sync loop would read and the streams are the
+same. The pipeline drains first (``_flush_pending``) at a constrained or
+speculative tick, an eviction and an idle tick, and a scheduler failure
+drops it. With the engine's ``mega_ticks`` a plain tick is one megagraph
+dispatch of up to ``min(n, mega_ticks)`` ticks (``engine.mega_step``, or
+``mega_step_async`` pipelined) with each slot's first stop ids and its
+remaining budget on the device (``_mega_operands``); its tokens retire
+against the per-tick lengths. Speculative ticks never pipeline.
 """
 
 from __future__ import annotations
@@ -84,7 +96,8 @@ from ..device import DEVICE_FAULT_REASON, is_device_fault
 from ..obs import flightrec
 from ..obs import instruments as obs
 from . import jsonmode, jsonschema
-from .engine import (JUMP_BUCKETS, SPEC_DRAFT_LEN, SPEC_NGRAM, ChunkedPrefill, TorchEngine,
+from .engine import (JUMP_BUCKETS, MEGA_STOP_SLOTS, SPEC_DRAFT_LEN, SPEC_NGRAM,
+                     ChunkedPrefill, PendingDecode, TorchEngine, _env_flag,
                      jump_ahead_enabled)
 from .paged import PoolExhausted
 from .sampling import GREEDY_EPS
@@ -176,6 +189,19 @@ class _Live:
     constraint: Optional[jsonmode.JsonConstraint] = None  # json_mode / json_schema
 
 
+@dataclass
+class _PendingTick:
+    """One pipelined decode dispatch in flight: the engine's handle, the
+    live map as it was when the dispatch was issued (its tokens belong to
+    those requests; one retired since has ``done`` set and its column is
+    dropped at consume) and the flight-recorder events recorded at issue,
+    which a megagraph's real tick count joins at consume."""
+
+    pending: PendingDecode
+    lives: Dict[int, "_Live"]
+    evs: tuple = ()
+
+
 class RequestHandle:
     """Caller-side view of an in-flight request (blocking token iterator)."""
 
@@ -241,8 +267,30 @@ class ContinuousBatcher:
         prefill_chunk: Optional[int] = None,  # None: the engine's default; 0: off
         tokenizer=None,  # enables json_mode / json_schema requests
         jump_ahead: Optional[bool] = None,  # None: jump_ahead_enabled(cfg)
+        pipeline: Optional[bool] = None,  # depth-2 pipelined decode loop
+        chunk_steps: int = CHUNK_STEPS,
+        admit_chunk_steps: int = ADMIT_CHUNK_STEPS,
     ) -> None:
         self.engine = engine
+        self.chunk_steps = chunk_steps
+        self.admit_chunk_steps = admit_chunk_steps
+        # the pipelined decode loop (AIOS_TPU_DECODE_PIPELINE, else the
+        # config's decode_pipeline): dispatch N+1 is issued before dispatch
+        # N's tokens are emitted, so the host's emit and retire overlap the
+        # card; it drains at constrained and speculative ticks, evictions
+        # and idle ticks (_flush_pending)
+        if pipeline is None:
+            pipeline = _env_flag("AIOS_TPU_DECODE_PIPELINE")
+        if pipeline is None:
+            pipeline = bool(engine.cfg.decode_pipeline)
+        self.pipeline = bool(pipeline)
+        self._pending: Optional[_PendingTick] = None
+        self.flushes = 0
+        # the host's time between decode dispatches, less the time a
+        # pipelined tick waited on the card for the previous tokens
+        self.decode_dispatches = 0
+        self.host_gap_seconds = 0.0
+        self._gap_wait = 0.0
         # prompts longer than this admit incrementally, one chunk per
         # scheduler pass; off (whole-prompt prefill) when the engine's
         # buckets cannot honour it
@@ -335,11 +383,14 @@ class ContinuousBatcher:
         self._obs_cancelled = obs.ENGINE_REQUESTS_CANCELLED.labels(model=model_name)
         self._obs_evictions = obs.ENGINE_POOL_EVICTIONS.labels(model=model_name)
         self._obs_tps = obs.ENGINE_TOKENS_PER_SECOND.labels(model=model_name)
+        self._obs_gap = obs.ENGINE_DISPATCH_HOST_GAP.labels(model=model_name)
         ref = weakref.ref(self)
         obs.ENGINE_QUEUE_DEPTH.labels(model=model_name).set_function(
             lambda: float(ref().queue_depth()) if ref() is not None else 0.0)
         peers = _BATCHERS_BY_MODEL.setdefault(model_name, weakref.WeakSet())
         peers.add(self)
+        obs.ENGINE_DISPATCH_INFLIGHT.labels(model=model_name).set_function(
+            lambda: float(sum(1 for b in list(peers) if b._pending is not None)))
 
         def acceptance(proposer: str):
             def read() -> float:
@@ -367,6 +418,13 @@ class ContinuousBatcher:
         # JAX batcher's attach compiles its missing sizes); a failed capture
         # raises here
         engine.capture_step()
+        engine.capture_unified(max(self.chunk_steps, self.admit_chunk_steps))
+        if engine.mega_ticks:
+            # the megagraph windows this batcher dispatches, each size
+            # capped at K and bucketed (warmup covers them already unless
+            # the batcher's sizes differ)
+            for n in {self.admit_chunk_steps, self.chunk_steps}:
+                engine.capture_mega(engine.mega_bucket(min(n, engine.mega_ticks)))
         if self.speculative:
             engine.capture_spec(self.spec_draft_len, self.spec_ngram)
             engine.capture_draft(self.spec_draft_len)
@@ -672,7 +730,7 @@ class ContinuousBatcher:
         live.constraint.advance(forced)
         return forced
 
-    def _emit(self, live: _Live, token: int) -> None:
+    def _emit(self, live: _Live, token: int, slot_len: Optional[int] = None) -> None:
         if live.cancelled:
             return  # reaped (slot freed) at the next tick boundary
         live.produced += 1
@@ -682,7 +740,13 @@ class ContinuousBatcher:
         live.out_q.put(token)
         hit_stop = token in live.req.stop_ids
         out_of_budget = live.produced >= live.req.max_tokens
-        out_of_cache = self.engine.slot_length(live.slot) >= self.engine.max_context - 1
+        # a pipelined or megagraph consume passes the slot's length as of
+        # the dispatch (tick) that produced the token: the engine's live
+        # length already counts the dispatch in flight, and reading it would
+        # retire a request a dispatch early
+        if slot_len is None:
+            slot_len = self.engine.slot_length(live.slot)
+        out_of_cache = slot_len >= self.engine.max_context - 1
         if hit_stop or out_of_budget or out_of_cache:
             self._finish(live)
 
@@ -734,6 +798,10 @@ class ContinuousBatcher:
         level (it frees the most pages). An admission (``requester_priority``
         set) never evicts a victim that strictly outranks it. Returns
         "evicted", "empty" or "blocked"."""
+        # land the pipelined dispatch first: the victim keeps what it
+        # produced (as in the sync loop), and a retirement in the flush may
+        # free the pages this hunt is after
+        self._flush_pending("evict")
         with self._lock:
             if not self._live:
                 return "empty"
@@ -756,6 +824,15 @@ class ContinuousBatcher:
         releasing its slot and the slot's page references; called on a
         scheduler failure and at shutdown."""
         victims: List[_Live] = []
+        # an in-flight pipelined dispatch dies with the scheduler: its tokens
+        # would extend streams that end as truncations anyway, so they are
+        # dropped; the releases below wait until it no longer runs
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            try:
+                pending.pending.wait()
+            except Exception:  # noqa: BLE001 - its outcome is being dropped
+                log.warning("dropped pipelined dispatch failed", exc_info=True)
         if self._prefilling is not None:
             victims.append(self._prefilling[0])
             self._prefilling = None
@@ -801,29 +878,160 @@ class ContinuousBatcher:
 
     def _note_dispatch(self) -> Optional[float]:
         """Call just before a decode dispatch: returns the host gap since the
-        previous one ends (None after an idle tick) and runs the
-        ``dispatch.delay`` fault point, whose sleep lands in that gap."""
+        previous one ends (None after an idle tick), less the time a
+        pipelined tick waited on the card for the previous tokens (device
+        time, not host work), records it, and runs the ``dispatch.delay``
+        fault point, whose sleep lands in that gap."""
         act = faults.point("dispatch.delay", self.engine.cfg.name)
         if act is not None and act.delay_s > 0:
             time.sleep(act.delay_s)
-        if self._gap_mark is None:
-            return None
-        return max(time.monotonic() - self._gap_mark, 0.0)
+        gap = None
+        if self._gap_mark is not None:
+            gap = max(time.monotonic() - self._gap_mark - self._gap_wait, 0.0)
+            self.host_gap_seconds += gap
+            self.decode_dispatches += 1
+            self._obs_gap.observe(gap)
+        self._gap_wait = 0.0
+        return gap
+
+    # -- the pipelined decode loop (depth-2 double buffer) ----------------------
+
+    def _consume(self, tick: _PendingTick) -> None:
+        """Emit a finished dispatch's tokens to whoever is still live, each
+        retiring against the lengths as of its own dispatch, or for a
+        megagraph its own tick. A PoolExhausted from the dispatch (its
+        backing failed; the state is untouched) retires a victim here
+        instead, after collecting the next dispatch, which was issued
+        against the same exhausted pool: its failure is the same event."""
+        t0 = time.monotonic()
+        try:
+            tokens = tick.pending.wait()
+        except PoolExhausted:
+            self._gap_wait += time.monotonic() - t0
+            nxt, self._pending = self._pending, None
+            if nxt is not None:
+                try:
+                    nxt.pending.wait()
+                except PoolExhausted:
+                    pass  # state untouched; the tick after the eviction retries
+                else:
+                    self._pending = nxt  # it ran after all: deliver it
+            self._evict_longest()
+            return
+        self._gap_wait += time.monotonic() - t0
+        lengths = tick.pending.lengths
+        if lengths.ndim == 2:
+            # a megagraph: its events recorded at issue learn the real k
+            for ev in tick.evs:
+                ev["n"] = tick.pending.ticks
+        self._emit_rows(tick.lives, tokens, lengths)
+
+    def _emit_rows(self, lives: Dict[int, _Live], tokens, lengths) -> None:
+        """Emit a dispatch's token rows [n, S] to the requests of ``lives``
+        still live, each retiring against the slot lengths after its
+        dispatch (``lengths`` [S]) or, for a megagraph, after its own tick
+        (``lengths`` [k, S])."""
+        for i, row in enumerate(tokens):
+            lrow = lengths[i] if lengths.ndim == 2 else lengths
+            for slot, live in lives.items():
+                if not live.done:
+                    self._emit(live, int(row[slot]), slot_len=int(lrow[slot]))
+
+    def _flush_pending(self, cause: str) -> None:
+        """Consume the pipelined dispatch in flight now: before a tick that
+        cannot be issued ahead of the tokens (a constrained tick, whose mask
+        depends on every token; a speculative one), an eviction (the
+        victim's tokens land before its stream aborts) and an idle tick. No
+        dispatch in flight, nothing to do."""
+        tick = self._pending
+        if tick is None:
+            return
+        self._pending = None
+        self.flushes += 1
+        obs.ENGINE_DISPATCH_FLUSHES.labels(model=self.engine.cfg.name, cause=cause).inc()
+        self._consume(tick)
+
+    def _mega_operands(self, slots: Dict[int, _Live]) -> Tuple[np.ndarray, np.ndarray]:
+        """A megagraph window's device operands: each slot's first
+        MEGA_STOP_SLOTS stop ids [S, MEGA_STOP_SLOTS] (pad -1; best effort,
+        ``_emit`` checks the whole set) and its remaining budget [S] (0 for
+        a slot with no live request, so an empty column never holds the
+        loop open)."""
+        eng = self.engine
+        stops = np.full((eng.num_slots, MEGA_STOP_SLOTS), -1, np.int32)
+        budgets = np.zeros((eng.num_slots,), np.int32)
+        for slot, live in slots.items():
+            if live.done:
+                continue
+            ids = tuple(live.req.stop_ids)[:MEGA_STOP_SLOTS]
+            if ids:
+                stops[slot, :len(ids)] = ids
+            budgets[slot] = max(live.req.max_tokens - live.produced, 0)
+        return stops, budgets
+
+    def _mega_tick(self, n: int, slots: Dict[int, _Live]) -> None:
+        """One megagraph dispatch of up to ``min(n, mega_ticks)`` ticks
+        (pipelined: issued before the previous dispatch is consumed). A
+        slot already at the context cap can run no tick (the device's live
+        predicate excludes it): it finishes here, or a dispatch of no ticks
+        would emit nothing and the scheduler would spin on it."""
+        eng = self.engine
+        window = min(n, eng.mega_ticks)
+        cap = eng.max_context - 1
+        for slot, live in list(slots.items()):
+            if not live.done and eng.slot_length(slot) >= cap:
+                self._finish(live)
+        slots = {s_: l for s_, l in slots.items() if not l.done}
+        if not slots:
+            return
+        stops, budgets = self._mega_operands(slots)
+        if self.pipeline:
+            prev = self._pending
+            gap = self._note_dispatch()
+            handle = eng.mega_step_async(window, stops, budgets)
+            self._gap_mark = time.monotonic()
+            # recorded with the window asked; the real k joins at consume
+            evs = self._rec_dispatch(slots.values(), "decode", window, gap, None,
+                                     pipelined=True, graph="mega")
+            self._pending = _PendingTick(handle, slots, tuple(evs))
+            if prev is not None:
+                self._consume(prev)
+            return
+        try:
+            gap = self._note_dispatch()
+            t0 = time.monotonic()
+            tokens, lengths, k = eng.mega_step(window, stops, budgets)
+            self._gap_mark = time.monotonic()
+        except PoolExhausted:
+            self._evict_longest()
+            return
+        self._rec_dispatch(slots.values(), "decode", k, gap, self._gap_mark - t0,
+                           graph="mega")
+        self._emit_rows(slots, tokens, lengths)
 
     # -- flight-recorder hooks (obs/flightrec.py) ---------------------------------
     # One event per DISPATCH per live request, never per token; a request
     # without a timeline costs nothing.
 
     def _rec_dispatch(self, lives, kind: str, n: int, gap: Optional[float],
-                      dur_s: float, **extra) -> None:
+                      dur_s: Optional[float], **extra) -> list:
+        """Record one dispatch on every live timeline; returns the events
+        (a pipelined megagraph's real tick count joins them at consume).
+        ``dur_s`` None for a pipelined issue, whose duration the host does
+        not see."""
         fields = dict(n=n, occ=len(lives), **extra)
         if gap is not None:
             fields["gap_ms"] = round(gap * 1e3, 3)
-        fields["dur_ms"] = round(dur_s * 1e3, 3)
+        if dur_s is not None:
+            fields["dur_ms"] = round(dur_s * 1e3, 3)
+        evs = []
         for live in lives:
             rec = live.req.rec
             if rec is not None and not live.done:
-                rec.event(kind, **fields)
+                ev = rec.event(kind, **fields)
+                if ev is not None:
+                    evs.append(ev)
+        return evs
 
     def _rec_prefill(self, live: _Live, tokens: int, t0: float, reused0: int,
                      restored0: int, chunk: Optional[int] = None) -> None:
@@ -1082,6 +1290,11 @@ class ContinuousBatcher:
                 self.last_tps = rate
             self._rate_tokens = 0
             self._rate_t0 = now
+        if self._pending is not None:
+            # ordering fence: the dispatch handed to the worker last tick
+            # holds the engine lock before this tick's engine calls
+            # (releases, admissions, chunks), which must land after it
+            self._pending.pending.wait_started()
         self._reap_cancelled()
         self._advance_prefill()
         self._admit()
@@ -1095,6 +1308,9 @@ class ContinuousBatcher:
                 raise faults.InjectedFault(
                     f"injected scheduler crash ({act.mode}, hit {act.hit})")
         if not slots:
+            # nothing live now: land what the last pipelined dispatch made
+            # (its requests retired, so this drops their columns) first
+            self._flush_pending("idle")
             self._gap_mark = None
             if self._prefilling is not None:
                 return  # nothing to decode; keep chunking
@@ -1104,21 +1320,42 @@ class ContinuousBatcher:
         constrained = [(s, l) for s, l in slots.items() if l.constraint is not None]
         if constrained:
             # grammar masks change with every emitted token: constrained
-            # slots ride one-dispatch ticks
+            # slots ride one-dispatch ticks, and the next mask depends on
+            # every token so far, so the pipeline drains first
+            self._flush_pending("constrained")
             self._constrained_tick(slots, constrained)
             return
         # two dispatch sizes only; overshooting a request's budget costs a
         # few ignored tokens
         with self._qlock:
             anyone_waiting = bool(self._waiting) or self._prefilling is not None
-        n = ADMIT_CHUNK_STEPS if anyone_waiting else CHUNK_STEPS
+        n = self.admit_chunk_steps if anyone_waiting else self.chunk_steps
         proposer = None
         if self.speculative and not self.degrade_spec:
             # the draft rung needs a greedy slot to propose for
             greedy_live = any(l.req.temperature < GREEDY_EPS for l in slots.values())
             proposer = self._spec_proposer(greedy_live)
         if proposer is not None:
+            # a speculative dispatch consumes its own output (acceptance
+            # gates the emit), so it never pipelines
+            self._flush_pending("spec")
             self._spec_tick(proposer, n, slots)
+            return
+        if self.engine.mega_ticks:
+            self._mega_tick(n, slots)
+            return
+        if self.pipeline:
+            # depth 2: hand dispatch N+1 to the dispatch worker, then
+            # consume dispatch N while it runs; each carries its live map
+            # and lengths, so the streams are the sync loop's
+            prev = self._pending
+            gap = self._note_dispatch()
+            handle = self.engine.step_async(n)
+            self._gap_mark = time.monotonic()
+            evs = self._rec_dispatch(slots.values(), "decode", n, gap, None, pipelined=True)
+            self._pending = _PendingTick(handle, slots, tuple(evs))
+            if prev is not None:
+                self._consume(prev)
             return
         try:
             gap = self._note_dispatch()

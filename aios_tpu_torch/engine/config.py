@@ -4,11 +4,13 @@ mixture-of-experts.
 A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
 ``ModelConfig`` geometry fields with the mixture-of-experts ones
 (``num_experts``, ``num_experts_per_tok``, ``moe_intermediate_size``,
-``norm_topk_prob``), ``jump_ahead``, ``replicas``, ``draft_model`` and
-``prefix_host_bytes``, the presets (the dense tiers, Qwen3-30B-A3B and
-Mixtral-8x7B), the tiny test configs and ``from_gguf_metadata``. The other
-serving knobs that ride on the JAX package's config (megagraph, compression)
-belong to features the port has not reached yet.
+``norm_topk_prob``), the serving knobs (``jump_ahead``, ``replicas``,
+``draft_model``, ``prefix_host_bytes``, the decode loop's
+``decode_pipeline``, ``unified_step`` and ``mega_ticks``, and window+sink
+compression's ``kv_compress_after``, ``kv_sink_pages`` and
+``kv_window_pages``), the presets (the dense tiers, Qwen3-30B-A3B and
+Mixtral-8x7B), the tiny test configs and ``from_gguf_metadata``. The
+sequence-sharded prefill's floor waits for the multi-card port.
 """
 
 from __future__ import annotations
@@ -56,6 +58,31 @@ class ModelConfig:
     # budget and restored on a later chain hit instead of being prefilled
     # again. 0 = off; AIOS_TPU_PREFIX_HOST_BYTES overrides at load time.
     prefix_host_bytes: int = 0
+    # pipelined decode loop (batching.py): decode dispatch N+1 is issued
+    # before dispatch N's tokens are emitted, so the host's emit and retire
+    # overlap the card's work. AIOS_TPU_DECODE_PIPELINE overrides.
+    decode_pipeline: bool = False
+    # unified decode step: one graph serves every decode chunk size (the
+    # port's single-tick graph already does; the knob keeps the JAX
+    # stack's contract). AIOS_TPU_UNIFIED_STEP overrides.
+    unified_step: bool = False
+    # multi-tick decode megagraph (engine.py mega_step): up to this many
+    # decode ticks a dispatch in one CUDA graph, sampling, stop, budget
+    # and context-cap checks on the device, and an early exit when no slot
+    # needs another tick. 0 = off. AIOS_TPU_MEGA_TICKS overrides.
+    mega_ticks: int = 0
+    # window+sink KV compression: past this many rows a slot's pages are
+    # pruned to kv_sink_pages leading pages plus a kv_window_pages trailing
+    # window, the middle returns to the pool and every attention masks it.
+    # 0 = off (exact attention). Paged, unreplicated pools of models
+    # without a sliding window only. AIOS_TPU_KV_COMPRESS_AFTER overrides.
+    kv_compress_after: int = 0
+    # leading pages kept under compression (the attention sinks; >= 1);
+    # AIOS_TPU_KV_SINK_PAGES overrides
+    kv_sink_pages: int = 1
+    # trailing window pages kept under compression (>= 1);
+    # AIOS_TPU_KV_WINDOW_PAGES overrides
+    kv_window_pages: int = 8
 
     @property
     def moe(self) -> bool:

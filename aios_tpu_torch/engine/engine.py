@@ -88,8 +88,24 @@ those rows. ``export_prefix`` hands a cached chain to another engine's store
 (the KVX1 wire format is ``paged.pack_entry``), ``prefix_digest`` summarizes
 the cached chains for a fleet.
 
-Not here yet (later slices of the port): the multi-tick megagraph,
-window+sink KV compression, sharding and the pipelined ``step_async``.
+The decode loop's other modes (the JAX engine's): ``step_async`` and
+``mega_step_async`` run a dispatch on the engine's dispatch worker thread
+and return a ``PendingDecode`` (the pipelined batcher emits dispatch N's
+tokens while N+1 runs); ``mega_step`` runs up to ``mega_ticks`` decode
+ticks in one dispatch with sampling, stop, budget and context-cap checks on
+the device and an early exit once no slot needs another tick (on CUDA one
+replay of a graph whose ticks are conditional nodes, ``ops/mega_graph.py``,
+one graph per power-of-two bucket, captured at warmup); with
+``unified_step`` a CUDA engine's ``step(n)`` replays one such graph gated
+on n alone instead of n replays of the one-tick graph. Window+sink KV
+compression (``kv_compress_after``) prunes a long slot's pool pages to its
+sink pages and a trailing window (``PageAllocator.prune_range``); the
+slot's live-window start rides beside the page tables as a staged device
+operand every paged graph reads, and K3/K4 and K6/K7 mask the pruned
+middle with their sink predicate.
+
+Not here yet (later slices of the port): sharding and the
+sequence-sharded prefill.
 """
 
 from __future__ import annotations
@@ -102,6 +118,7 @@ import queue
 import threading
 import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -112,7 +129,7 @@ from ..analysis.locks import make_lock
 from ..device import resolve_device
 from ..obs import flightrec
 from ..obs import instruments as obs
-from ..ops import split
+from ..ops import build, mega_graph, split
 from ..ops.quantized_matmul import counters_for, sm_count
 from . import model, paged, sampling, spec
 from .config import ModelConfig
@@ -136,6 +153,10 @@ assert JUMP_BUCKETS[-1] <= spec.HISTORY_PAD - 2
 # before the fused rounds take over (whose own catch-up is draft_len + 1
 # wide; the steady gap is 0 or 1). One graph per width up to the context.
 DRAFT_INGEST_BUCKETS = (32, 64, 128, 256, 512)
+# Stop ids per slot that the megagraph checks on the device ([S,
+# MEGA_STOP_SLOTS], pad -1): best effort, as in the JAX engine; the
+# batcher's emit stays the authority over the full stop set.
+MEGA_STOP_SLOTS = 4
 
 # Live engines by model name: replica engines share the (model,) label of the
 # speculative families, so the gauges read the SUM over this set.
@@ -148,6 +169,22 @@ HOST_ENTRY_KEYS = ("k", "v", "k_s", "v_s")
 # Most device bytes of spilled pages that may wait for the spill worker by
 # default (at least 16 pages, at most the pool's worth).
 SPILL_STAGING_BYTES = 1 << 30
+
+
+def _env_int(name: str) -> Optional[int]:
+    """The JAX stack's lenient integer variables: None when unset, blank or
+    malformed (a bad knob logs and falls back rather than failing a load)."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    try:
+        value = int(float(raw))
+        if value < 0:
+            raise ValueError("must be >= 0")
+        return value
+    except ValueError:
+        log.warning("%s=%r ignored (expected a non-negative integer)", name, raw)
+        return None
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -318,6 +355,56 @@ def _page_entries(host: List[np.ndarray], n: int) -> List[Dict[str, np.ndarray]]
             for i in range(n)]
 
 
+class PendingDecode:
+    """A decode dispatch running on the engine's dispatch worker
+    (``step_async``, ``mega_step_async``): the twin of the JAX
+    ``PendingDecode``. The worker runs the whole dispatch, lock, replay
+    and token readback, so the caller's thread overlaps its own host work
+    with it.
+
+    ``wait()`` returns the host tokens [ticks, S]. ``lengths`` (after
+    ``wait()``) snapshots the host slot lengths after THIS dispatch: [S]
+    for a step, or for a megagraph the per-tick [k, S]; the batcher's
+    out-of-cache retirement reads them, never the engine's live lengths,
+    which later dispatches have moved. ``ticks`` is the real tick count
+    (a megagraph's k). ``wait_started()`` blocks until the dispatch holds
+    the engine lock: the fence for engine calls that must land after it.
+    """
+
+    __slots__ = ("_fut", "_started", "n_steps", "tokens", "lengths", "ticks")
+
+    def __init__(self, fut, n_steps: int, started: threading.Event) -> None:
+        self._fut = fut
+        self._started = started
+        self.n_steps = int(n_steps)
+        self.tokens: Optional[np.ndarray] = None
+        self.lengths: Optional[np.ndarray] = None
+        self.ticks = int(n_steps)
+
+    def wait_started(self) -> None:
+        if self.tokens is not None or self._fut.done():
+            return
+        self._started.wait()
+
+    def wait(self) -> np.ndarray:
+        if self.tokens is None:
+            self.tokens, self.lengths, self.ticks = self._fut.result()
+        return self.tokens
+
+
+class _TickGraph:
+    """The static buffers of one multi-tick graph (a megagraph bucket, or
+    the unified step's): the tokens of its ``m`` ticks [m, S], each tick's
+    gate [m], and the kernel launches of one tick's body, which a replay
+    adds once per tick that ran."""
+
+    def __init__(self, m: int, num_slots: int, device: torch.device) -> None:
+        self.m = m
+        self.tokens = torch.zeros((m, num_slots), dtype=torch.int64, device=device)
+        self.go = torch.zeros(m, dtype=torch.int32, device=device)
+        self.tick_launches: Dict[object, int] = {}
+
+
 class TorchEngine:
     """Single-model decode engine over a fixed set of batch slots and a
     paged KV pool of ``paged_pool_rows`` rows in pages of ``page_size``, or
@@ -330,7 +417,10 @@ class TorchEngine:
     ``prefix_host_bytes``; 0: none) whose chains restore from
     ``host_restore_min_pages`` blocks on. ``draft`` (a ``spec.DraftModel``
     of the same vocabulary, shared read-only between engines) enables
-    ``spec_step_draft``."""
+    ``spec_step_draft``. ``unified_step``, ``mega_ticks``,
+    ``kv_compress_after``, ``kv_sink_pages`` and ``kv_window_pages`` are
+    the decode loop's knobs (None: the JAX stack's variable, else the
+    config's value)."""
 
     # admission granularity of long prompts: the batcher's default chunk and
     # the chunk a prefix hit's tail admits at (the JAX engine's default)
@@ -354,6 +444,11 @@ class TorchEngine:
         draft: Optional[spec.DraftModel] = None,
         prefix_host_bytes: Optional[int] = None,
         host_restore_min_pages: Optional[int] = None,
+        unified_step: Optional[bool] = None,
+        mega_ticks: Optional[int] = None,
+        kv_compress_after: Optional[int] = None,
+        kv_sink_pages: Optional[int] = None,
+        kv_window_pages: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -424,6 +519,8 @@ class TorchEngine:
             shape = (num_pages, page_size)
         else:
             shape = (num_slots, self.max_context)
+        self._init_decode_knobs(unified_step, mega_ticks, kv_compress_after,
+                                kv_sink_pages, kv_window_pages)
         # prefix caching rides on the pool: prompts whose leading full blocks
         # hash-match an earlier prompt's map those pages, and their tail
         # admits through the chunked path at the largest bucket up to the
@@ -457,11 +554,17 @@ class TorchEngine:
         self.active_dev = torch.zeros(num_slots, dtype=torch.bool, device=dev)
         self.history = (spec.init_history(num_slots, self.max_context, dev)
                         if self.track_history else None)
-        # the device page table: the allocator's host tables, copied in
-        # before each dispatch
-        self.tables_dev = (torch.zeros(self.allocator.tables.shape, dtype=torch.int32,
-                                       device=dev) if self.paged else None)
-        self._tables = Staged(self.tables_dev) if self.paged else None
+        # the device page table and, beside it, each slot's live-window
+        # start (window+sink compression; 0 = uncompressed): the
+        # allocator's host tables and ``_win_starts``, copied in before each
+        # dispatch as one staged buffer
+        self.tables_dev = self.win_starts_dev = self._tables = None
+        if self.paged:
+            n_tab = self.allocator.tables.size
+            self._tables = Staged(torch.zeros(n_tab + num_slots, dtype=torch.int32,
+                                              device=dev))
+            self.tables_dev = self._tables.dev[:n_tab].view(self.allocator.tables.shape)
+            self.win_starts_dev = self._tables.dev[n_tab:]
         self._slot_ids = torch.arange(num_slots, device=dev)
         self._columns = torch.arange(max(spec.HISTORY_PAD, DRAFT_INGEST_BUCKETS[-1]),
                                      device=dev)
@@ -516,10 +619,89 @@ class TorchEngine:
         self.spec_proposer_accepted = {p: 0 for p in spec.SPEC_PROPOSERS}
         self.jump_dispatches = 0
         self.jump_tokens = 0
+        self._init_ticks()
         self._init_draft(draft, cache_dtype)
         self._init_host_tier(cfg.prefix_host_bytes if prefix_host_bytes is None
                              else prefix_host_bytes, host_restore_min_pages)
         self._register_obs()
+
+    def _init_decode_knobs(self, unified_step, mega_ticks, kv_compress_after,
+                           kv_sink_pages, kv_window_pages) -> None:
+        """The decode loop's knobs as the JAX engine resolves them (an
+        explicit argument, else its variable, else the config): the
+        unified step, the megagraph's tick cap and window+sink compression,
+        which arms only over the pool of a model without a sliding window,
+        its threshold raised to the sink + window floor."""
+        cfg = self.cfg
+
+        def knob(explicit, env: str, default) -> int:
+            if explicit is not None:
+                return int(explicit)
+            value = _env_int(env)
+            return int(default) if value is None else value
+
+        if unified_step is None:
+            unified_step = _env_flag("AIOS_TPU_UNIFIED_STEP")
+        self.unified_step = bool(cfg.unified_step if unified_step is None else unified_step)
+        self._unified_max = 0
+        self.mega_ticks = max(knob(mega_ticks, "AIOS_TPU_MEGA_TICKS", cfg.mega_ticks), 0)
+        self.mega_dispatches = 0
+        self.mega_tick_total = 0
+        self.kv_compress_after = knob(kv_compress_after, "AIOS_TPU_KV_COMPRESS_AFTER",
+                                      cfg.kv_compress_after)
+        self.kv_sink_pages = max(knob(kv_sink_pages, "AIOS_TPU_KV_SINK_PAGES",
+                                      cfg.kv_sink_pages), 1)
+        self.kv_window_pages = max(knob(kv_window_pages, "AIOS_TPU_KV_WINDOW_PAGES",
+                                        cfg.kv_window_pages), 1)
+        self.kv_compress_armed = False
+        self._sink_rows = 0
+        if self.kv_compress_after > 0:
+            if not self.paged:
+                log.warning("%s: kv_compress_after needs a paged, unreplicated KV pool; "
+                            "compression disabled", cfg.name)
+            elif cfg.sliding_window is not None:
+                log.warning("%s: kv_compress_after is redundant under a model sliding "
+                            "window (residency is already bounded); compression disabled",
+                            cfg.name)
+            else:
+                P = self.allocator.page_size
+                # sink + window must fit under the threshold, or an armed slot
+                # could prune rows it is still exact below the threshold for
+                floor = (self.kv_sink_pages + self.kv_window_pages) * P
+                if self.kv_compress_after < floor:
+                    log.info("%s: kv_compress_after %d raised to sink+window floor %d",
+                             cfg.name, self.kv_compress_after, floor)
+                    self.kv_compress_after = floor
+                if self.device.type == "cuda" and P % split.SPLIT_ALIGN:
+                    # K6/K7 skip a pruned warp slice whole (ops/verify_attention)
+                    raise ValueError(f"{cfg.name}: window+sink compression on {self.device} "
+                                     f"needs pages of a multiple of {split.SPLIT_ALIGN} "
+                                     f"rows, got {P}")
+                self.kv_compress_armed = True
+                self._sink_rows = self.kv_sink_pages * P
+        # each slot's live-window start in rows (0 = uncompressed), staged
+        # beside the page tables
+        self._win_starts = np.zeros(self.num_slots, dtype=np.int32)
+        self.kv_compress_slots = 0  # slots that crossed the threshold
+        self.kv_pages_pruned = 0  # pages released by pruning
+
+    def _init_ticks(self) -> None:
+        """The multi-tick graphs' operands (staged [cap, budgets S, stops S
+        x MEGA_STOP_SLOTS] int32), the per-slot stop flags their ticks set,
+        the side stream and memory pool their tick bodies are captured on,
+        and the dispatch worker behind ``step_async`` (made at first use)."""
+        S = self.num_slots
+        self._tick_ops = Staged(torch.zeros(1 + S + S * MEGA_STOP_SLOTS, dtype=torch.int32,
+                                            device=self.device))
+        t = self._tick_ops.dev
+        self._tick_cap, self._tick_rem = t[:1], t[1:1 + S]
+        self._tick_stops = t[1 + S:].view(S, MEGA_STOP_SLOTS)
+        self._tick_done = torch.zeros(S, dtype=torch.bool, device=self.device)
+        self._tick_graphs: Dict[Tuple[str, int], _TickGraph] = {}
+        self._tick_stream = None
+        self._tick_pool = None
+        self._tick_pool_refs = 0
+        self._dispatch_pool: Optional[ThreadPoolExecutor] = None
 
     def _init_draft(self, draft: Optional[spec.DraftModel], cache_dtype: torch.dtype) -> None:
         """Attach ``draft`` (the JAX engine's draft set-up): its dense
@@ -656,6 +838,20 @@ class TorchEngine:
                 proposer_sum("spec_proposer_rounds", p))
             obs.SPEC_ACCEPTED.labels(model=name, proposer=p).set_function(
                 proposer_sum("spec_proposer_accepted", p))
+
+        def engines_sum(read):
+            def total() -> float:
+                return float(sum(read(e) for e in list(engines)))
+            return total
+
+        # the megagraph's and compression's families (the JAX engine's)
+        for family, read in ((obs.ENGINE_MEGA_DISPATCHES, lambda e: e.mega_dispatches),
+                             (obs.ENGINE_MEGA_TICKS, lambda e: e.mega_tick_total),
+                             (obs.KV_COMPRESS_SLOTS, lambda e: e.kv_compress_slots),
+                             (obs.KV_COMPRESS_PAGES_PRUNED, lambda e: e.kv_pages_pruned),
+                             (obs.KV_COMPRESS_RESIDENT,
+                              lambda e: e.compressed_resident_pages())):
+            family.labels(model=name).set_function(engines_sum(read))
         if self.host_store is None:
             return
         # the host-tier families, each the sum over the live stores of this
@@ -768,10 +964,17 @@ class TorchEngine:
             self._stage_tables()
 
     def _stage_tables(self) -> None:
-        """Copy the allocator's page tables into ``tables_dev``. Caller
-        holds the lock."""
-        self._tables.host[:] = self.allocator.tables
-        self._tables.push()
+        """Copy the allocator's page tables into ``tables_dev`` and, where
+        compression is armed, the live-window starts into
+        ``win_starts_dev``. Caller holds the lock."""
+        host = self._tables.host
+        n_tab = self.allocator.tables.size
+        host[:n_tab] = self.allocator.tables.reshape(-1)
+        if self.kv_compress_armed:
+            host[n_tab:] = self._win_starts
+            self._tables.push()
+        else:
+            self._tables.push(n_tab)
 
     def _prefill_body(self, bucket: int) -> None:
         """Whole-prompt prefill at ``bucket`` on the staged operands (the
@@ -820,9 +1023,15 @@ class TorchEngine:
         valid row ``n_valid - 1``. The contract of ``_prefill_body``."""
         tokens, slot, start = self._adm_tokens[:, :bucket], self._adm_slot, self._adm_start
         if self.paged:
+            sink = {}
+            if self.kv_compress_armed:
+                # a prompt can cross the threshold mid-admission
+                sink = dict(win_start=self.win_starts_dev.index_select(0, slot),
+                            sink_rows=self._sink_rows)
             logits = model.prefill_chunk_paged(
                 self.params, self.cfg, tokens, start, self.k_pool, self.v_pool,
-                self.tables_dev.index_select(0, slot)[0], cache_scales=self._cache_scales())
+                self.tables_dev.index_select(0, slot)[0], cache_scales=self._cache_scales(),
+                **sink)
         else:
             logits = model.prefill_chunk(
                 self.params, self.cfg, tokens, slot, start, self.k_pool, self.v_pool,
@@ -1252,23 +1461,75 @@ class TorchEngine:
         """After an admission, publish the slot's fully covered prompt
         blocks to the index so that the next prompt with this prefix skips
         their prefill. A slot that window trimming released leading blocks
-        of has nothing registrable (a chain starts at block 0). Caller holds
-        the lock."""
+        of has nothing registrable (a chain starts at block 0); one whose
+        middle window+sink pruning released during the admission registers
+        only its sink blocks, a valid chain prefix (the rest map the
+        sacrificial page). Caller holds the lock."""
         if self.prefix_index is None or not hashes:
             return
         if self.allocator.trimmed_blocks(slot):
             return
+        lo, hi = self.allocator.pruned_range(slot)
+        if hi:
+            hashes = hashes[:lo]
+            if not hashes:
+                return
         pages = [int(self.allocator.tables[slot, b]) for b in range(len(hashes))]
         self.prefix_index.put(hashes, pages)
 
     # -- decode -----------------------------------------------------------------
 
+    def _maybe_compress(self, slot: int, length: Optional[int] = None) -> None:
+        """Window+sink KV compression (the JAX ``_maybe_compress``): once
+        ``slot``'s length passes the threshold, release its blocks between
+        the sink blocks and the trailing window back to the pool and move
+        its live-window start, the mask operand every later dispatch reads.
+        A page shared with the prefix index keeps the index's reference
+        (and spills through the host tier like any cold prefix page); only
+        the slot's reference drops. Monotone: the start never rewinds.
+        ``length`` is given by a mid-admission caller (the slot is not
+        active yet and its host length is 0). Caller holds the lock."""
+        if not self.kv_compress_armed:
+            return
+        if length is None:
+            if not self.active[slot]:
+                return
+            length = int(self._host_lengths[slot])
+        if length <= self.kv_compress_after:
+            return
+        P = self.allocator.page_size
+        # the last block wholly below the trailing window [L - window rows, L]
+        wb = (length - self.kv_window_pages * P) // P
+        if wb <= self.kv_sink_pages:
+            return
+        if self._win_starts[slot] == 0:
+            self.kv_compress_slots += 1
+            flightrec.RECORDER.model_event(self.cfg.name, "kv_compress", slot=slot,
+                                           length=length)
+        self.kv_pages_pruned += self.allocator.prune_range(slot, self.kv_sink_pages, wb)
+        self._win_starts[slot] = wb * P
+
+    def compressed_resident_pages(self) -> int:
+        """Pages resident for the slots window+sink compression has pruned
+        (sink, trailing window and the partial block): the
+        ``aios_tpu_kv_compress_resident_pages`` gauge."""
+        if not self.kv_compress_armed:
+            return 0
+        return sum(self.allocator.slot_pages_resident(s) for s in range(self.num_slots)
+                   if self._win_starts[s] > 0)
+
+    def win_starts(self) -> np.ndarray:
+        """A copy of each slot's live-window start in rows (0 =
+        uncompressed)."""
+        return self._win_starts.copy()
+
     def _back_active_slots(self, grow_rows: int) -> None:
         """Back every active slot's next ``grow_rows`` rows BEFORE a
         dispatch, so PoolExhausted surfaces with state untouched and the
         batcher can retire a victim and retry; a windowed model first
-        returns the pages attention can no longer reach. Caller holds the
-        lock."""
+        returns the pages attention can no longer reach, and an engine with
+        compression armed prunes each slot past the threshold to its sink
+        and window (``_maybe_compress``). Caller holds the lock."""
         window = self.cfg.sliding_window
         for s in range(self.num_slots):
             if self.active[s]:
@@ -1276,12 +1537,21 @@ class TorchEngine:
                     self.kv_pages_trimmed += self.allocator.trim_below_window(
                         s, int(self._host_lengths[s]), window
                     )
+                self._maybe_compress(s)
                 self.allocator.ensure(
                     s, min(int(self._host_lengths[s]) + grow_rows, self.max_context)
                 )
 
     def _cache_scales(self):
         return (self.k_scales, self.v_scales) if self.quant_cache else None
+
+    def _sink_operands(self) -> Dict[str, object]:
+        """The paged forwards' compression operands: the staged live-window
+        starts and the sink rows where compression is armed, else none (the
+        graphs of an unarmed engine are those of the exact path)."""
+        if not self.kv_compress_armed:
+            return {}
+        return dict(win_starts=self.win_starts_dev, sink_rows=self._sink_rows)
 
     def _step_body(self, masked: bool = False) -> torch.Tensor:
         """One decode step of every slot on the static state, in place:
@@ -1296,6 +1566,7 @@ class TorchEngine:
                 self.params, self.cfg, self.last_tokens, self.lengths,
                 self.k_pool, self.v_pool, self.tables_dev, active=self.active_dev,
                 cache_scales=self._cache_scales(), moe_impl=self._moe_impl,
+                **self._sink_operands(),
             )
         else:
             logits = model.decode_step(
@@ -1324,7 +1595,11 @@ class TorchEngine:
         [S, K+1, V]). Eager on the CPU, captured on CUDA, like
         ``_step_body``."""
         K, C = draft_len, self.max_context
-        drafts, _ = spec.propose_ngram(self.history, self.lengths, K, ngram, C)
+        # a pruned slot proposes only from matches inside its live window,
+        # never from context its verify can no longer read
+        drafts, _ = spec.propose_ngram(self.history, self.lengths, K, ngram, C,
+                                       min_pos=self.win_starts_dev
+                                       if self.kv_compress_armed else None)
         # only greedy, active slots speculate; everyone else verifies a row
         # of -1 drafts (accept count 0: a plain decode step)
         ok = (self.temps < sampling.GREEDY_EPS) & self.active_dev
@@ -1426,6 +1701,10 @@ class TorchEngine:
         self._draft_ingest_body(K + 1)
         ok = ((self.temps < sampling.GREEDY_EPS) & self.active_dev
               & (d_len == self.lengths) & (self.lengths + K <= C - 2))
+        if self.kv_compress_armed:
+            # the draft's dense cache mirrors the whole history, which a
+            # pruned slot's verify no longer sees: it takes the plain step
+            ok = ok & (self.win_starts_dev == 0)
         drafts = self._draft_propose_body(ok, K)
         proposed = torch.where(ok, torch.full_like(self._slot_ids, K),
                                torch.zeros_like(self._slot_ids))
@@ -1457,7 +1736,7 @@ class TorchEngine:
             return model.verify_step_paged(
                 self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
                 self.tables_dev, active=self.active_dev, cache_scales=self._cache_scales(),
-                moe_impl=impl)
+                moe_impl=impl, **self._sink_operands())
         return model.verify_step(
             self.params, self.cfg, feed, self.lengths, self.k_pool, self.v_pool,
             active=self.active_dev, cache_scales=self._cache_scales(), moe_impl=impl)
@@ -1746,26 +2025,324 @@ class TorchEngine:
         self._mask_rows = set(rows)
 
     def _steps(self, n_steps: int, eager: bool, rows=None) -> np.ndarray:
+        return self._step_dispatch(n_steps, eager=eager, rows=rows)[0]
+
+    def _step_dispatch(self, n_steps: int, started: Optional[threading.Event] = None,
+                       eager: bool = False, rows=None) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The decode dispatch (the JAX ``_step_dispatch``): under the lock,
+        back and stage, run ``n_steps`` steps (n replays of the one-step
+        graph, or with ``unified_step`` on CUDA one replay of the unified
+        graph), advance the host lengths; then read the tokens back outside
+        the lock. Returns (tokens [n, S], the host lengths after this
+        dispatch, n). ``started`` (the dispatch worker's) is set once the
+        lock is held."""
         with self._lock:
+            if started is not None:
+                started.set()
             if self.paged:
                 self._back_active_slots(n_steps)
                 self._stage_tables()
-            if rows is None:
-                run = self._dispatcher("step", self._step_body, eager)
-            else:
+            if rows is not None:
                 self._write_mask(rows)
                 run = self._dispatcher("masked", functools.partial(self._step_body, True),
                                        eager)
-            out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
-                              device=self.device)
-            for i in range(n_steps):
-                self.last_logits = run()
-                out[i] = self.last_tokens
+            elif self.unified_step and self.graphs.enabled and not eager:
+                run = None
+            else:
+                run = self._dispatcher("step", self._step_body, eager)
+            if run is None:
+                self._stage_ticks(n_steps)
+                out = self._unified_replay(n_steps)
+                self.last_logits = None
+            else:
+                out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
+                                  device=self.device)
+                for i in range(n_steps):
+                    self.last_logits = run()
+                    out[i] = self.last_tokens
             self.decode_steps += n_steps
             self._host_lengths = np.minimum(
                 self._host_lengths + n_steps, self.max_context - 1
             )
-        return out.cpu().numpy()
+            lengths = self._host_lengths.copy()
+        return out.cpu().numpy(), lengths, n_steps
+
+    def _dispatch_worker(self) -> ThreadPoolExecutor:
+        """The single dispatch worker of ``step_async`` and
+        ``mega_step_async`` (made at first use): FIFO, so dispatches run in
+        the order they were issued."""
+        if self._dispatch_pool is None:
+            self._dispatch_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"decode-dispatch-{self.cfg.name}")
+        return self._dispatch_pool
+
+    def step_async(self, n_steps: int = 1) -> PendingDecode:
+        """``step(n_steps)`` on the engine's dispatch worker; returns at once
+        (the JAX ``step_async``). The worker runs the whole dispatch,
+        replays and readback, so the pipelined batcher emits dispatch N's
+        tokens while N+1 runs. A PoolExhausted from backing the slots
+        surfaces at ``wait()`` with the state untouched. Dispatches are FIFO
+        and take the engine lock like every other engine call;
+        ``wait_started()`` orders later calls after this one."""
+        started = threading.Event()
+        fut = self._dispatch_worker().submit(self._step_dispatch, n_steps, started)
+        return PendingDecode(fut, n_steps, started)
+
+    # -- multi-tick graphs: the megagraph and the unified step ----------------
+
+    def mega_bucket(self, n: int) -> int:
+        """The power-of-two megagraph bucket serving an ``n``-tick window
+        (the smallest captured K >= n; the dispatch stages the true n)."""
+        m = 1
+        while m < n:
+            m *= 2
+        return m
+
+    def _stage_ticks(self, cap: int, stops: Optional[np.ndarray] = None,
+                     budgets: Optional[np.ndarray] = None) -> None:
+        """Stage a multi-tick dispatch's operands: the tick cap, and for a
+        megagraph each slot's remaining budget and stop ids (pad -1).
+        Caller holds the lock."""
+        S = self.num_slots
+        host = self._tick_ops.host
+        host[0] = cap
+        if budgets is None:
+            self._tick_ops.push(1)
+            return
+        host[1:1 + S] = budgets
+        host[1 + S:] = np.asarray(stops, dtype=np.int32).reshape(-1)
+        self._tick_ops.push()
+
+    def _tick_body(self, i: int, tg: _TickGraph, mega: bool) -> None:
+        """Tick ``i`` of a multi-tick dispatch on the static state: one
+        decode step (``_step_body``), its tokens into row i of ``tg``'s
+        tokens and, for a megagraph, each slot's stop flag (the sampled
+        token is one of its stop ids) and budget. What the eager loop runs
+        and what a graph captures into tick i's conditional node."""
+        self._step_body()
+        tg.tokens[i].copy_(self.last_tokens)
+        if mega:
+            hit = (self.last_tokens[:, None] == self._tick_stops).any(dim=1)
+            torch.logical_or(self._tick_done, hit, out=self._tick_done)
+            self._tick_rem.sub_(1)
+
+    def _ticks_eager(self, tg: _TickGraph, mega: bool) -> int:
+        """The ticks of ``tg`` one by one, each after its gate
+        (``ops.mega_gate``, read back): the CPU's path and the card's eager
+        twin of the replayed graph. Returns the ticks that ran."""
+        if mega:
+            self._tick_done.zero_()
+        tg.go.zero_()
+        for i in range(tg.m):
+            ops.mega_gate(i, self._tick_cap, self.active_dev, self._tick_done, self._tick_rem,
+                          self.lengths, self.max_context - 1, tg.go, need_live=mega)
+            if not int(tg.go[i]):
+                return i
+            self._tick_body(i, tg, mega)
+        return tg.m
+
+    def _capture_ticks(self, key: Tuple[str, int]) -> None:
+        """Capture the multi-tick graph ``key`` = ("mega" or "uni", m): a
+        prologue, then for each of the m ticks the gate and a conditional
+        node whose body is ``_tick_body`` (``ops.mega_graph.mega_tick``),
+        then the readback, the m token rows and the tick count in one
+        tensor. The bodies are captured on the engine's tick stream into
+        one memory pool every tick graph shares (they run one at a time on
+        the engine's stream and return nothing); the eager pass before the
+        capture runs one tick with every slot inactive and puts the state
+        back, as ``_capture`` does. Caller holds the lock."""
+        kind, m = key
+        mega = kind == "mega"
+        tg = _TickGraph(m, self.num_slots, self.device)
+        if self._tick_pool is None:
+            self._tick_pool = self.graphs.new_pool()
+            if self.device.type == "cuda":
+                self._tick_stream = torch.cuda.Stream(self.device)
+        ctx = self.max_context - 1
+
+        def prepare() -> None:
+            self._reserve_workspaces()
+            state = (self.lengths, self.last_tokens, self.active_dev, self._tick_done,
+                     self._tick_ops.dev)
+            saved = [t.clone() for t in state]
+            self.active_dev.zero_()
+            self._tick_body(0, tg, mega)
+            ops.mega_gate(0, self._tick_cap, self.active_dev, self._tick_done, self._tick_rem,
+                          self.lengths, ctx, tg.go, need_live=mega)
+            for t, was in zip(state, saved):
+                t.copy_(was)
+
+        def body() -> torch.Tensor:
+            tg.go.zero_()
+            if mega:
+                self._tick_done.zero_()
+            for i in range(m):
+                with mega_graph.mega_tick(self._tick_stream, self._tick_pool, i,
+                                          self._tick_cap, self.active_dev, self._tick_done,
+                                          self._tick_rem, self.lengths, ctx, tg.go,
+                                          need_live=mega):
+                    self._tick_pool_refs += 1
+                    with build.recording_launches() as launches:
+                        self._tick_body(i, tg, mega)
+                if i == 0:
+                    tg.tick_launches = launches
+            return torch.cat([tg.tokens.view(-1), tg.go.sum().view(1).to(torch.int64)])
+
+        t0 = time.perf_counter()
+        self._tick_graphs[key] = tg
+        self.graphs.capture(key, body, prepare)
+        log.info("%s: captured the %s graph (%d ticks, %d kernel launches a tick) in %.2fs",
+                 self.cfg.name, key, m, sum(tg.tick_launches.values()),
+                 time.perf_counter() - t0)
+
+    def _replay_ticks(self, key: Tuple[str, int]) -> Tuple[torch.Tensor, int]:
+        """Replay the multi-tick graph ``key`` (captured now if need be) on
+        the staged operands; read back its tokens and tick count k (the
+        one readback) and count the launches of the k ticks that ran.
+        Returns (tokens [k, S] on the host, k). Caller holds the lock."""
+        if key not in self.graphs:
+            self._capture_ticks(key)
+        tg = self._tick_graphs[key]
+        host = self.graphs.replay(key).cpu()
+        k = int(host[-1])
+        build.add_launches(tg.tick_launches, k)
+        return host[:-1].view(tg.m, self.num_slots)[:k], k
+
+    def _unified_replay(self, n_steps: int) -> torch.Tensor:
+        """The unified step (the JAX ``_unified_impl``): one replay of the
+        tick graph of the power-of-two bound m >= n (one graph for every n
+        up to the largest asked so far), its ticks gated on the cap n
+        alone. Returns the tokens [n, S]. Caller holds the lock and has
+        staged the cap."""
+        m = self._unified_max
+        if m < n_steps:
+            m = self.mega_bucket(n_steps)
+            self._unified_max = m
+        tokens, k = self._replay_ticks(("uni", m))
+        if k != n_steps:
+            raise RuntimeError(f"the unified step ran {k} of {n_steps} ticks")
+        return tokens
+
+    def capture_unified(self, n_steps: int) -> None:
+        """Ensure the unified step's graph serving ``n_steps`` exists
+        without dispatching (the twin of the JAX ``compile_step_fn`` in
+        unified mode); nothing to do off CUDA or without ``unified_step``."""
+        if not (self.graphs.enabled and self.unified_step):
+            return
+        with self._lock:
+            m = self._unified_max
+            if m < n_steps:
+                m = self.mega_bucket(n_steps)
+                self._unified_max = m
+            if ("uni", m) not in self.graphs:
+                self._capture_ticks(("uni", m))
+
+    def capture_mega(self, k_bucket: int) -> None:
+        """Ensure the ``k_bucket``-tick megagraph exists without
+        dispatching (the twin of the JAX ``compile_mega_fn``); nothing to do
+        off CUDA or with the megagraph off."""
+        if not (self.graphs.enabled and self.mega_ticks):
+            return
+        with self._lock:
+            if ("mega", k_bucket) not in self.graphs:
+                self._capture_ticks(("mega", k_bucket))
+
+    def capture_decode_loop(self, step_sizes: Tuple[int, ...] = (16,)) -> None:
+        """Capture the decode loop's multi-tick graphs that ``warmup``
+        covers: with ``unified_step`` the unified graph serving every size
+        up to the largest of ``step_sizes``; with ``mega_ticks`` every
+        power-of-two megagraph bucket up to ``mega_bucket(mega_ticks)``
+        (the batcher's window is min(chunk, mega_ticks), and shorter
+        windows bucket down). Nothing to do off CUDA."""
+        if step_sizes:
+            self.capture_unified(max(step_sizes))
+        if self.mega_ticks:
+            m = 1
+            while m <= self.mega_bucket(self.mega_ticks):
+                self.capture_mega(m)
+                m *= 2
+
+    def mega_graphs(self) -> int:
+        """How many megagraph buckets the engine holds."""
+        return sum(isinstance(k, tuple) and k[0] == "mega" for k in self.graphs.graphs)
+
+    def _mega_dispatch(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray,
+                       started: Optional[threading.Event] = None, eager: bool = False
+                       ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The megagraph dispatch (the JAX ``_mega_dispatch``): under the
+        lock, back and stage, take the ``pool.megatick_abort`` fault into
+        the cap, run up to ``n_ticks`` ticks (one replay of the bucket's
+        graph, or the eager loop), read back the tokens and the real tick
+        count k (under the lock: the host lengths advance by k), and
+        advance by k. Returns (tokens [k, S], per-tick host length snapshots
+        [k, S], k)."""
+        S = self.num_slots
+        stops = np.asarray(stops, dtype=np.int32).reshape(S, MEGA_STOP_SLOTS)
+        budgets = np.asarray(budgets, dtype=np.int32).reshape(S)
+        with self._lock:
+            if started is not None:
+                started.set()
+            if self.paged:
+                self._back_active_slots(n_ticks)
+                self._stage_tables()
+            abort_after = n_ticks
+            act = faults.point("pool.megatick_abort", self.cfg.name)
+            if act is not None and n_ticks > 1:
+                # injected host-attention demand: the device loop stops
+                # mid-window with slots still live
+                abort_after = min(max(act.ticks or n_ticks // 2, 1), n_ticks - 1)
+            m = self.mega_bucket(n_ticks)
+            self._stage_ticks(min(n_ticks, abort_after, m), stops, budgets)
+            if eager or not self.graphs.enabled:
+                tg = self._tick_graphs.get(("eager", m))
+                if tg is None:
+                    tg = self._tick_graphs[("eager", m)] = _TickGraph(m, S, self.device)
+                k = self._ticks_eager(tg, mega=True)
+                # a copy: the buffer is the next dispatch's, which a
+                # pipelined caller issues before it reads these
+                tokens = tg.tokens[:k].to("cpu", copy=True)
+            else:
+                tokens, k = self._replay_ticks(("mega", m))
+            self.last_logits = None
+            self.mega_dispatches += 1
+            self.mega_tick_total += k
+            self.decode_steps += k
+            base = self._host_lengths.copy()
+            self._host_lengths = np.minimum(base + k, self.max_context - 1)
+        # row j: every slot's length as of tick j, the anchor of the
+        # batcher's out-of-cache retirement for that tick's tokens
+        lengths = np.minimum(base[None, :] + np.arange(1, k + 1, dtype=np.int64)[:, None],
+                             self.max_context - 1)
+        return tokens.numpy(), lengths, k
+
+    def mega_step(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Run up to ``n_ticks`` decode ticks in ONE dispatch (the JAX
+        ``mega_step``), with an early exit the moment no slot needs another
+        tick: a slot is live while it is active, has not sampled one of its
+        ``stops`` ids ([S, MEGA_STOP_SLOTS] int32, pad -1), has ``budgets``
+        left ([S] int32, tokens still to produce) and is below the context
+        cap. Returns (tokens [k, S], per-tick length snapshots [k, S], k), k
+        <= n_ticks the ticks that ran. On CUDA one replay of the bucket's
+        graph (``mega_bucket``), whose ticks are conditional nodes."""
+        return self._mega_dispatch(n_ticks, stops, budgets)
+
+    def mega_step_eager(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """``mega_step`` through the eager loop (each gate read back), the
+        plain twin of the replayed graph on the card (see ``step_eager``)."""
+        return self._mega_dispatch(n_ticks, stops, budgets, eager=True)
+
+    def mega_step_async(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
+                        ) -> PendingDecode:
+        """``mega_step`` on the dispatch worker (the JAX
+        ``mega_step_async``): ``step_async``'s contract; after ``wait()``
+        the handle's ``ticks`` is k and its ``lengths`` the [k, S]
+        snapshots."""
+        started = threading.Event()
+        fut = self._dispatch_worker().submit(self._mega_dispatch, n_ticks, stops, budgets,
+                                             started)
+        return PendingDecode(fut, n_ticks, started)
 
     def jump_step(self, forced: np.ndarray, counts: np.ndarray) -> None:
         """Append grammar-FORCED token runs in ONE multi-token dispatch
@@ -1991,11 +2568,14 @@ class TorchEngine:
             self._draft_host_lengths = d_len.cpu().numpy()
 
     def release(self, slot: int) -> None:
-        self.active[slot] = False
-        self._host_lengths[slot] = 0
-        self._draft_host_lengths[slot] = 0
-        self._host_greedy[slot] = False
+        # the host mirrors change under the lock: a dispatch on the dispatch
+        # worker advances the host lengths under it meanwhile
         with self._lock:
+            self.active[slot] = False
+            self._host_lengths[slot] = 0
+            self._win_starts[slot] = 0  # the next occupant starts uncompressed
+            self._draft_host_lengths[slot] = 0
+            self._host_greedy[slot] = False
             if self.paged:
                 self.allocator.free_slot(slot)
             self.lengths[slot] = 0
@@ -2023,6 +2603,14 @@ class TorchEngine:
                 kv_pages_free=self.allocator.free_pages,
                 kv_pages_trimmed=self.kv_pages_trimmed,
             )
+        if self.kv_compress_armed:
+            out["kv_compress_slots"] = self.kv_compress_slots
+            out["kv_compress_pages_pruned"] = self.kv_pages_pruned
+            out["kv_compress_resident_pages"] = self.compressed_resident_pages()
+        if self.mega_dispatches:
+            out["mega_dispatches"] = self.mega_dispatches
+            # the ticks that ran (k a dispatch, <= K on an early exit)
+            out["mega_ticks"] = self.mega_tick_total
         if self.prefix_index is not None:
             out.update(prefix_hits=self.prefix_index.hits,
                        prefix_misses=self.prefix_index.misses,
@@ -2064,9 +2652,14 @@ class TorchEngine:
             out["jump_tokens"] = self.jump_tokens
         return out
 
-    def warmup(self, prefill_chunk: Optional[int] = None, masked_step: bool = False) -> None:
+    def warmup(self, prefill_chunk: Optional[int] = None, masked_step: bool = False,
+               step_sizes: Tuple[int, ...] = (16,)) -> None:
         """On a CUDA engine, build and load the kernel library, then capture
-        the decode step's graph and, where the engine speculates, the round
+        the decode step's graph (with ``unified_step`` also the unified
+        graph serving every size up to ``step_sizes``' largest, the batcher's
+        dispatch sizes; with ``mega_ticks`` every power-of-two megagraph
+        bucket up to ``mega_bucket(mega_ticks)``, as the JAX warmup compiles
+        them) and, where the engine speculates, the round
         graph of spec_step's defaults (with a draft model also its fused
         round and every ingest width, ``capture_draft``), with ``masked_step`` the masked
         step's graph and, where ``jump_ahead_enabled``, the jump graph of
@@ -2090,6 +2683,7 @@ class TorchEngine:
                                         + [b for b, _ in chunks]) or None
             self._reserve_workspaces()
         self.capture_step()
+        self.capture_decode_loop(step_sizes)
         self.capture_spec()
         self.capture_draft()
         if masked_step:  # json-mode deployments dispatch step_masked
@@ -2104,15 +2698,20 @@ class TorchEngine:
             self._restore_buffer(self.allocator.max_blocks * self.page_bytes()
                                  + 256 * len(self._pool_tensors()))
         log.info("%s: kernels and %d graphs (%d of admission, %d B of shared pool; %d of "
-                 "the draft, %d B of ingest pool) ready in %.1fs", self.cfg.name,
-                 self.graphs.captures, self.admission_graphs(), self.admission_pool_bytes,
-                 self.draft_graphs(), self.draft_pool_bytes, time.perf_counter() - t0)
+                 "the draft, %d B of ingest pool; %d megagraph buckets) ready in %.1fs",
+                 self.cfg.name, self.graphs.captures, self.admission_graphs(),
+                 self.admission_pool_bytes, self.draft_graphs(), self.draft_pool_bytes,
+                 self.mega_graphs(), time.perf_counter() - t0)
 
     def close(self) -> None:
         """Drop graphs, weights and the cache now rather than at the next
         gc pass; first stop taking spills and let the spill worker drain
         (its queued copies hold device staging of their own, not the pool)
-        and stop, then empty the host store."""
+        and stop, then empty the host store. The dispatch worker finishes
+        what it was given and stops."""
+        if self._dispatch_pool is not None:
+            self._dispatch_pool.shutdown(wait=True)
+            self._dispatch_pool = None
         if self._spill_q is not None:
             self.prefix_index.spill = None
             self._spill_q.put(None)
@@ -2123,6 +2722,11 @@ class TorchEngine:
             self.host_store.clear()
         with self._lock:
             self.graphs.close()
+            self._tick_graphs.clear()
+            if self._tick_pool_refs:
+                # the tick bodies' pool, now that no graph replays them
+                mega_graph.release_pool(self.device, self._tick_pool, self._tick_pool_refs)
+                self._tick_pool_refs = 0
             self.last_logits = None
             self.params = None
             self.k_pool = self.v_pool = None
@@ -2251,6 +2855,9 @@ class ChunkedPrefill:
                 if window is not None:
                     eng.kv_pages_trimmed += eng.allocator.trim_below_window(
                         self.slot, self.pos, window)
+                # an armed engine prunes the same way once the admitted rows
+                # pass the threshold: the peak is sink + window + a chunk
+                eng._maybe_compress(self.slot, length=self.pos)
                 eng.allocator.ensure(self.slot, self.pos + n)
             eng._chunk_forward(self, n, bucket, final)
             if final:

@@ -445,6 +445,8 @@ def decode_step_paged(
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     moe_impl: Optional[str] = None,
+    win_starts: Optional[torch.Tensor] = None,  # [B] int32 live-window start
+    sink_rows: int = 0,  # sink rows (window+sink KV compression)
 ) -> torch.Tensor:
     """One batched decode step over the paged cache; returns logits [B, V]
     in fp32.
@@ -459,12 +461,21 @@ def decode_step_paged(
     ``cache_scales`` — (k_scales, v_scales) [L, N, P, KH] f32 — marks an
     int8 pool: rows quantize on write (values and scales in place) and
     attention streams the int8 pages with the scales folded into both
-    products (``paged_decode_attention_int8``)."""
+    products (``paged_decode_attention_int8``).
+
+    ``win_starts`` and ``sink_rows`` (window+sink KV compression, the JAX
+    function's operands) mask each active slot's pruned middle: slot b
+    attends only rows < sink_rows or >= win_starts[b] (K3's and K4's sink
+    predicate); its pruned blocks map the sacrificial page. An inactive
+    slot's start is taken as 0."""
     B = tokens.shape[0]
     P = k_pool.shape[2]
     if active is None:
         active = torch.ones(B, dtype=torch.bool, device=tokens.device)
     zero = torch.zeros_like(lengths)
+    sink = {}
+    if win_starts is not None:
+        sink = dict(win_starts=torch.where(active, win_starts, zero), sink=sink_rows)
     read_lengths = torch.where(active, lengths, zero)
     blk = (read_lengths // P).long()
     pages = torch.where(active, tables.gather(1, blk[:, None])[:, 0], zero).long()
@@ -491,7 +502,7 @@ def decode_step_paged(
             v_l[pages, offs] = v_new[:, 0].to(v_l.dtype)
             pools = (k_l, v_l)
         attn = attn_fn(q[:, 0].contiguous(), *pools, tables, read_lengths,
-                       window=cfg.sliding_window)
+                       window=cfg.sliding_window, **sink)
         x = x + matmul(attn.reshape(B, 1, -1), lp["wo"], kernels)
         x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x[:, 0], params, cfg, kernels)
@@ -509,6 +520,8 @@ def verify_step_paged(
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     moe_impl: Optional[str] = None,
+    win_starts: Optional[torch.Tensor] = None,  # [B] int32 live-window start
+    sink_rows: int = 0,  # sink rows (window+sink KV compression)
 ) -> torch.Tensor:
     """``verify_step`` over the PAGED pool; returns logits [B, T, V] in
     fp32.
@@ -527,7 +540,10 @@ def verify_step_paged(
     ``active``; without ``kernels`` their ``*_reference``. The caller must
     have BACKED rows ``lengths[b] .. lengths[b]+T-1`` of every active slot.
     Rows clamped at the cache end collide, as in ``verify_step``: callers
-    must not consume the tokens of a saturated slot."""
+    must not consume the tokens of a saturated slot. ``win_starts`` and
+    ``sink_rows`` mask each active slot's pruned middle, as in
+    ``decode_step_paged``, through K6's and K7's sink predicate (the verify
+    rows themselves land past the live window's start)."""
     B, T = tokens.shape
     MB = tables.shape[1]
     P, KH, D = k_pool.shape[2], k_pool.shape[3], k_pool.shape[4]
@@ -542,6 +558,10 @@ def verify_step_paged(
     offs = torch.where(active[:, None], rows % P, torch.full_like(rows, P - 1))
     read_base = torch.where(active, lengths, torch.zeros_like(lengths))
     strides = active.to(torch.int32)
+    sink = {}
+    if win_starts is not None:
+        sink = dict(win_starts=torch.where(active, win_starts, torch.zeros_like(win_starts)),
+                    sink=sink_rows)
     t = tables.long()
     x = params["embed"][tokens]  # [B, T, E]
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -564,7 +584,8 @@ def verify_step_paged(
             k_l[pages, offs] = k_new.to(k_l.dtype)
             v_l[pages, offs] = v_new.to(v_l.dtype)
             views = (k_l[t].reshape(B, C, KH, D), v_l[t].reshape(B, C, KH, D))
-        attn = attn_fn(q.contiguous(), *views, read_base, strides, window=cfg.sliding_window)
+        attn = attn_fn(q.contiguous(), *views, read_base, strides, window=cfg.sliding_window,
+                       **sink)
         x = x + matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
         x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x, params, cfg, kernels)
@@ -746,7 +767,8 @@ def _start_index(start, device) -> torch.Tensor:
 
 
 def _chunk_forward(params: Params, cfg: ModelConfig, tokens, start, layer_io,
-                   kernels: bool, moe_impl: Optional[str] = None):
+                   kernels: bool, moe_impl: Optional[str] = None, win_start=None,
+                   sink_rows: int = 0):
     """The body both chunk forwards share. Token t of ``tokens`` [1, Tc] sits
     at row ``start + t``; per layer, ``layer_io(i, k_new, v_new)`` writes the
     chunk's K/V rows [Tc, KH, D] into layer i of the cache and returns that
@@ -754,10 +776,13 @@ def _chunk_forward(params: Params, cfg: ModelConfig, tokens, start, layer_io,
     [1, C, ...]; chunk row t then attends over the rows ``<= start + t``
     inside the sliding window: ``multiquery_decode_attention`` (K6) or its
     int8 twin (K7) with B = 1, lengths = [start], strides = [1], T = Tc,
-    which is the visibility of the JAX ``blockwise_cache_attention``.
-    Returns logits [1, Tc, V] in fp32."""
+    which is the visibility of the JAX ``blockwise_cache_attention``; a
+    ``win_start`` ([1] int32, window+sink compression mid-admission) hides
+    the rows [sink_rows, win_start) as its ``live_from`` does. Returns
+    logits [1, Tc, V] in fp32."""
     Tc = tokens.shape[1]
     dev = tokens.device
+    sink = {} if win_start is None else dict(win_starts=win_start, sink=sink_rows)
     positions = start.long()[:, None] + torch.arange(Tc, device=dev)[None, :]
     strides = torch.ones(1, dtype=torch.int32, device=dev)
     x = params["embed"][tokens]  # [1, Tc, E]
@@ -771,7 +796,7 @@ def _chunk_forward(params: Params, cfg: ModelConfig, tokens, start, layer_io,
         else:
             fn = (ops.multiquery_decode_attention if kernels
                   else ops.multiquery_decode_attention_reference)
-        attn = fn(q.contiguous(), *caches, start, strides, window=cfg.sliding_window)
+        attn = fn(q.contiguous(), *caches, start, strides, window=cfg.sliding_window, **sink)
         x = x + matmul(attn.reshape(1, Tc, -1), lp["wo"], kernels)
         x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return _final_logits(x, params, cfg, kernels)
@@ -867,6 +892,8 @@ def prefill_chunk_paged(
     kernels: bool = True,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     moe_impl: Optional[str] = None,
+    win_start: Optional[torch.Tensor] = None,  # [1] int32 live-window start
+    sink_rows: int = 0,  # sink rows (window+sink KV compression)
 ) -> torch.Tensor:
     """One chunk of an incremental prefill against the PAGED pool; returns
     logits [1, Tc, V] in fp32.
@@ -882,7 +909,9 @@ def prefill_chunk_paged(
     sacrificial page, which no visible row reads. A final bucket may run
     past the slot's MB*P rows (a de-aligned start after a prefix match):
     its overflow rows land on page 0 and its queries past the end are
-    saturated, their outputs unconsumed."""
+    saturated, their outputs unconsumed. A ``win_start`` (a prompt that
+    crossed the compression threshold mid-admission) masks the pruned
+    rows [sink_rows, win_start), whose blocks map the sacrificial page."""
     dev = tokens.device
     P, KH, D = k_pool.shape[2], k_pool.shape[3], k_pool.shape[4]
     MB = table_row.shape[0]
@@ -902,7 +931,8 @@ def prefill_chunk_paged(
         v_l[pages, offs] = v_new.to(v_l.dtype)
         return k_l[t].reshape(1, MB * P, KH, D), v_l[t].reshape(1, MB * P, KH, D)
 
-    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels, moe_impl)
+    return _chunk_forward(params, cfg, tokens, start, layer_io, kernels, moe_impl,
+                          win_start=win_start, sink_rows=sink_rows)
 
 
 # ---------------------------------------------------------------------------

@@ -100,6 +100,10 @@ class PageAllocator:
         # leading blocks of each slot already returned by trim_below_window;
         # their table entries are stale but never read until the slot frees
         self._trimmed = np.zeros(num_slots, dtype=np.int64)
+        # blocks [lo, hi) of each slot released by prune_range (window+sink
+        # compression; hi = 0: none): their entries map the sacrificial page
+        self._pruned_lo = np.zeros(num_slots, dtype=np.int64)
+        self._pruned_hi = np.zeros(num_slots, dtype=np.int64)
         # owners of each page (slot tables and the prefix index); 0 = free
         self._rc = np.zeros(num_pages, dtype=np.int64)
         # called with the shortfall when the free list runs dry; returns how
@@ -200,13 +204,18 @@ class PageAllocator:
         """Drop the slot's reference on each of its pages; a page whose
         count reaches 0 returns to the free list (shared prefix pages
         survive under their other owners). Blocks released earlier by
-        window trimming were already dropped and are skipped."""
+        window trimming or window+sink pruning were already dropped and are
+        skipped."""
         used = int(self._blocks_used[slot])
+        plo, phi = int(self._pruned_lo[slot]), int(self._pruned_hi[slot])
         for b in range(int(self._trimmed[slot]), used):
-            self.decref(int(self.tables[slot, b]))
+            if not plo <= b < phi:
+                self.decref(int(self.tables[slot, b]))
         self.tables[slot, :used] = SACRIFICIAL_PAGE
         self._blocks_used[slot] = 0
         self._trimmed[slot] = 0
+        self._pruned_lo[slot] = 0
+        self._pruned_hi[slot] = 0
 
     def trim_below_window(self, slot: int, length: int, window: int) -> int:
         """Drop the slot's references on its leading blocks that
@@ -230,9 +239,46 @@ class PageAllocator:
         """Leading blocks of ``slot`` released by ``trim_below_window``."""
         return int(self._trimmed[slot])
 
+    def prune_range(self, slot: int, lo: int, hi: int) -> int:
+        """Window+sink KV compression (the JAX ``prune_range``): drop the
+        slot's references on its logical blocks [lo, hi), the dead middle
+        between the sink blocks [0, lo) and the trailing window, and map
+        their entries to the sacrificial page, so that a stale read (a
+        gathered view, a kernel's staged entry) reads deterministic garbage
+        that the pruned mask never exposes, never a page another slot now
+        owns. A page shared with the prefix index or another slot survives
+        under its other owners. The range only grows forward: a later call
+        releases [max(lo, previous hi), hi). Returns the blocks released
+        now. The caller (the engine, under its lock) masks these rows from
+        the next dispatch on."""
+        hi = min(hi, int(self._blocks_used[slot]))
+        prev_hi = int(self._pruned_hi[slot])
+        start = max(lo, prev_hi)
+        if hi <= start:
+            return 0
+        for b in range(start, hi):
+            self.decref(int(self.tables[slot, b]))
+            self.tables[slot, b] = SACRIFICIAL_PAGE
+        if prev_hi == 0:
+            self._pruned_lo[slot] = lo
+        self._pruned_hi[slot] = hi
+        return hi - start
+
+    def pruned_blocks(self, slot: int) -> int:
+        """Blocks of ``slot`` released by ``prune_range`` so far."""
+        hi = int(self._pruned_hi[slot])
+        return hi - int(self._pruned_lo[slot]) if hi else 0
+
+    def pruned_range(self, slot: int) -> Tuple[int, int]:
+        """The blocks [lo, hi) of ``slot`` that ``prune_range`` released
+        ((0, 0) when none)."""
+        return int(self._pruned_lo[slot]), int(self._pruned_hi[slot])
+
     def slot_pages_resident(self, slot: int) -> int:
-        """Pages the slot references now: mapped blocks less trimmed ones."""
-        return int(self._blocks_used[slot]) - int(self._trimmed[slot])
+        """Pages the slot references now: mapped blocks less trimmed and
+        pruned ones."""
+        return max(int(self._blocks_used[slot]) - int(self._trimmed[slot])
+                   - self.pruned_blocks(slot), 0)
 
 
 def chain_hashes(token_ids: Sequence[int], page_size: int,

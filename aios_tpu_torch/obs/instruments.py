@@ -1,8 +1,9 @@
 """The port's metric catalog: the instruments its serving plane registers.
 
 Copied from ``aios_tpu/obs/instruments.py``: the families that the replica
-pool, admission, failover, the batcher, the engine's speculation and its
-prefix cache's host tier, the runtime service and the fault points touch,
+pool, admission, failover, the batcher and its pipelined loop, the engine's
+speculation, megagraph, window+sink compression and prefix cache's host
+tier, the runtime service and the fault points touch,
 under the JAX package's names. The names do not collide when both packages
 run in one process (the parity tests): each package's
 instruments register in its own ``metrics.REGISTRY``, so one name lives
@@ -89,6 +90,72 @@ SPEC_ACCEPTANCE = Gauge(
     "proposer, averaged over replica batchers; drives the per-proposer "
     "AIOS_TPU_SPEC_MIN_ACCEPT auto-disable ladder",
     ("model", "proposer"),
+)
+
+# -- the decode dispatch loop (the pipelined batcher, AIOS_TPU_DECODE_PIPELINE)
+# The host side of the decode loop: the host's time between consecutive
+# decode dispatches (the card idles through it in the sync loop; the
+# pipeline exists to hide it), whether a pipelined dispatch is in flight, and
+# how often the pipeline drained early.
+
+ENGINE_DISPATCH_HOST_GAP = Histogram(
+    "aios_tpu_engine_dispatch_host_gap_seconds",
+    "Host wall time between consecutive decode dispatches (emit/detok/"
+    "retire/bookkeeping; the device idles through this unless pipelined)",
+    ("model",),
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+             0.05, 0.1, 0.25, 1.0),
+)
+ENGINE_DISPATCH_INFLIGHT = Gauge(
+    "aios_tpu_engine_dispatch_inflight_total",
+    "Pipelined decode dispatches enqueued but not yet consumed, summed "
+    "over the model's replica batchers (0..replicas; scrape-time)",
+    ("model",),
+)
+ENGINE_DISPATCH_FLUSHES = Counter(
+    "aios_tpu_engine_dispatch_flushes_total",
+    "Pipelined decode flushes by cause "
+    "(constrained|spec|evict|idle)",
+    ("model", "cause"),
+)
+
+# -- the multi-tick decode megagraph (engine.mega_step): monotonic engine
+# counters read at scrape time, summed over the model's live replica engines.
+# dispatches * K - ticks is what the early exits saved.
+
+ENGINE_MEGA_DISPATCHES = Gauge(
+    "aios_tpu_engine_mega_dispatches_total",
+    "Multi-tick decode megagraph dispatches (each replaced up to K "
+    "single-tick dispatches; monotonic, summed over replica engines)",
+    ("model",),
+)
+ENGINE_MEGA_TICKS = Gauge(
+    "aios_tpu_engine_mega_ticks_total",
+    "REAL decode ticks run inside megagraph dispatches (k per dispatch, "
+    "k <= K on early exit; monotonic, summed over replica engines)",
+    ("model",),
+)
+
+# -- window+sink KV compression: monotonic engine counters and the live
+# residency of compressed slots, summed over the model's replica engines.
+
+KV_COMPRESS_SLOTS = Gauge(
+    "aios_tpu_kv_compress_slots_total",
+    "Slots whose KV crossed the compression threshold and pruned to "
+    "sink + window pages (monotonic, summed over replica engines)",
+    ("model",),
+)
+KV_COMPRESS_PAGES_PRUNED = Gauge(
+    "aios_tpu_kv_compress_pages_pruned_total",
+    "KV pages released back to the pool by window+sink pruning "
+    "(monotonic, summed over replica engines)",
+    ("model",),
+)
+KV_COMPRESS_RESIDENT = Gauge(
+    "aios_tpu_kv_compress_resident_pages",
+    "Pages currently resident for compressed slots (sink + trailing "
+    "window + partial block; scrape-time, summed over replica engines)",
+    ("model",),
 )
 
 # -- the prefix cache's host tier (engine/paged.py HostPageStore) -------------

@@ -15,7 +15,11 @@ plain PyTorch version.
     ``decode_attention_int8`` the same over an int8 cache + scales.
   * ``multiquery_decode_attention`` — T queries per slot over the dense slot
     cache, the attention of a speculative verify forward;
-    ``multiquery_decode_attention_int8`` the same over an int8 cache.
+    ``multiquery_decode_attention_int8`` the same over an int8 cache; both
+    take window+sink compression's sink predicate.
+  * ``mega_gate`` — the decode megagraph's gate: whether tick i of a
+    dispatch runs, set into the tick's conditional graph node
+    (``mega_graph.mega_tick``); the JAX loop's ``cond``, not a Pallas kernel.
 
 There is no gate: each wrapper runs its plain ``*_reference`` twin for CPU
 tensors and its kernel for CUDA tensors (or raises). Callers that want the
@@ -34,6 +38,7 @@ from .decode_attention import (
     decode_attention_reference,
 )
 from .flash_attention import flash_attention, flash_attention_reference
+from .mega_graph import mega_gate, mega_gate_reference
 from .int4_matmul import (
     dequantize_int4,
     int4_matmul,
@@ -65,7 +70,7 @@ from .verify_attention import (
 KERNELS = (quantized_matmul, flash_attention, paged_decode_attention,
            paged_decode_attention_int8, int4_matmul, multiquery_decode_attention,
            multiquery_decode_attention_int8, decode_attention, decode_attention_int8,
-           quantized_matmul_experts)
+           quantized_matmul_experts, mega_gate)
 
 __all__ = [
     "KERNELS",
@@ -81,6 +86,8 @@ __all__ = [
     "gather_pages",
     "int4_matmul",
     "int4_matmul_reference",
+    "mega_gate",
+    "mega_gate_reference",
     "multiquery_decode_attention",
     "multiquery_decode_attention_int8",
     "multiquery_decode_attention_int8_reference",

@@ -31,7 +31,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("quantized_matmul", "flash_attention", "paged_attention", "int4_matmul",
-           "dense_attention")
+           "dense_attention", "mega_graph")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -177,11 +177,35 @@ def recording_launches() -> Iterator[Dict[object, int]]:
         _tally.launches = outer
 
 
-def add_launches(recording: Dict[object, int]) -> None:
-    """Count the launches of one replay of a recorded capture."""
+def add_launches(recording: Dict[object, int], times: int = 1) -> None:
+    """Count the launches of ``times`` runs of a recorded capture (a
+    replay, or the ticks a megagraph replay ran)."""
     with _count_lock:
         for wrapper, n in recording.items():
-            wrapper.launches += n
+            wrapper.launches += n * times
+
+
+def scratch_stream(stream: int) -> int:
+    """The stream whose split workspace and ticket counters a launch on
+    ``stream`` uses: ``stream`` itself, or while this thread captures a
+    megagraph tick on a side stream (``scratch_alias``), the graph's own
+    capture stream, whose workspace the graph holds. The tick's nodes run
+    in the graph's order, after and before the rest of it, so sharing it
+    is safe."""
+    aliases = getattr(_tally, "aliases", None)
+    return stream if aliases is None else aliases.get(stream, stream)
+
+
+@contextmanager
+def scratch_alias(side: int, stream: int) -> Iterator[None]:
+    """Launches of this thread on stream ``side`` use the workspace and
+    counters of ``stream`` (``scratch_stream``) inside the block."""
+    outer = getattr(_tally, "aliases", None)
+    _tally.aliases = {**(outer or {}), side: stream}
+    try:
+        yield
+    finally:
+        _tally.aliases = outer
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

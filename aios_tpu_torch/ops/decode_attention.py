@@ -114,7 +114,7 @@ _argtypes: Dict[Tuple[int, int], list] = {}
 
 
 def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
-           split: bool = False) -> torch.Tensor:
+           split: bool = False, sink: Optional[int] = None) -> torch.Tensor:
     """Check the operands, launch the entry point ``entry`` of
     ``csrc/dense_attention.cu`` and count the launch
     (``build.count_launch``). ``q`` is
@@ -137,12 +137,12 @@ def launch(wrapper, entry: str, q, k_cache, v_cache, scales, index, window,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = tuple(t.data_ptr() for t in (q, k_cache, v_cache, *scales, *index, out))
     B, C, KH, D = q.shape[0], k_cache.shape[1], k_cache.shape[2], q.shape[-1]
-    dims = (*q.shape[:-1], KH, D, C, window or 0)
+    dims = (*q.shape[:-1], KH, D, C, window or 0) + ((int(sink),) if sink is not None else ())
     if split:
         splits = split_plan(C, B, KH, sm_count(dev.index))
         query_rows = q.shape[1] * (q.shape[2] // KH) if q.dim() == 4 else 0
         groups, rows = launch_groups(B, KH, query_rows)
-        ptrs += workspace(dev, stream, groups, splits, D, rows)
+        ptrs += workspace(dev, build.scratch_stream(stream), groups, splits, D, rows)
         dims += (splits,)
     argtypes = _argtypes.get((len(ptrs), len(dims)))
     if argtypes is None:

@@ -169,7 +169,7 @@ def _launch(wrapper, entry, argtypes, q, pools, scales, tables, lengths, window,
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     splits = split_plan(MB * P, B, KH, sm_count(dev.index))
-    scratch = workspace(dev, stream, B * KH, splits, D)
+    scratch = workspace(dev, build.scratch_stream(stream), B * KH, splits, D)
     fn = build.kernel("paged_attention", entry, argtypes)
     rc = fn(q.data_ptr(), *(t.data_ptr() for t in (*pools, *scales, tables, lengths)),
             win_starts.data_ptr() if win_starts is not None else None, out.data_ptr(),

@@ -183,7 +183,7 @@ def launch(wrapper, library: str, entry: str, x: torch.Tensor, w: torch.Tensor,
     # the host's cost per launch is most of a decode step's: one stream
     # query serves the counters and the launch
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partial, counters = _split_scratch(p, dev, stream, y)
+    partial, counters = _split_scratch(p, dev, build.scratch_stream(stream), y)
     fn = build.kernel(library, entry, _ARGTYPES)
     rc = fn(
         build.ptr(x), build.ptr(w), build.ptr(scale), build.ptr(y), build.ptr(partial),
@@ -278,7 +278,7 @@ def quantized_matmul_experts(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Te
         return y
     p = plan(M, N, K, sm_count(dev.index), KT, batches)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partial, counters = _split_scratch(p, dev, stream, y)
+    partial, counters = _split_scratch(p, dev, build.scratch_stream(stream), y)
     fn = build.kernel(library, "aios_quantized_matmul_experts", _EXPERT_ARGTYPES)
     rc = fn(
         build.ptr(x), build.ptr(w_q), build.ptr(scale),

@@ -14,7 +14,14 @@ element): the T * H / KH query rows of a (slot, kv head) in 16-row tiles,
 up to 64 rows a block, scored and summed with ``mma.sync`` over K/V chunks
 copied asynchronously into shared memory, each slot's visible rows split by
 ``split_plan`` and merged in the same launch (``ops/split.py``). On CPU
-tensors they run their ``*_reference``. A slot whose staircase runs past
+tensors they run their ``*_reference``. With ``win_starts`` [B] int32 and
+``sink`` (window+sink KV compression, the predicate K3 and K4 take) slot b
+sees only the rows below ``sink`` or from ``win_starts[b]`` on: the
+kernel's ``_sink`` entry points, whose pruned middle is never scored
+(both bounds multiples of 32 rows, no window: the kernel skips a pruned
+warp slice whole); without them the entries and launches are those of the
+plain kernels. A
+slot whose staircase runs past
 the cache end (``lengths[b] + T - 1 >= C``) is saturated: the kernel clamps
 its reads to the cache and its outputs are unconsumed by contract.
 
@@ -38,6 +45,7 @@ import torch
 
 from . import build
 from .decode_attention import NEG_INF, dequantize_cache, launch
+from .split import SPLIT_ALIGN
 
 
 def multiquery_decode_attention_reference(
@@ -48,9 +56,12 @@ def multiquery_decode_attention_reference(
     strides: torch.Tensor,  # [B] int32: 1 active, 0 inactive
     *,
     window: Optional[int] = None,
+    win_starts: Optional[torch.Tensor] = None,  # [B] int32
+    sink: Optional[int] = None,
 ) -> torch.Tensor:
     """Mask the whole cache per query and attend: the plain version of the
-    kernel (the JAX package's ``multiquery_decode_attention_reference``)."""
+    kernel (the JAX package's ``multiquery_decode_attention_reference``,
+    with the sink predicate of its ``verify_step_paged`` mask)."""
     B, T, H, D = q.shape
     C, KH = k_cache.shape[1], k_cache.shape[2]
     steps = torch.arange(T, device=q.device)[None, :]
@@ -59,6 +70,8 @@ def multiquery_decode_attention_reference(
     mask = cols <= qpos[..., None]  # [B, T, C]
     if window is not None:
         mask = mask & (cols > qpos[..., None] - window)
+    if win_starts is not None:
+        mask = mask & ((cols < int(sink)) | (cols >= win_starts.to(torch.int64)[:, None, None]))
     qg = q.reshape(B, T, KH, H // KH, D)
     s = torch.einsum("btkgd,bckd->bkgtc", qg, k_cache).to(torch.float32)
     s = s / math.sqrt(D)
@@ -78,6 +91,8 @@ def multiquery_decode_attention_int8_reference(
     strides: torch.Tensor,
     *,
     window: Optional[int] = None,
+    win_starts: Optional[torch.Tensor] = None,
+    sink: Optional[int] = None,
 ) -> torch.Tensor:
     """Dequantize-then-attend in f32, the plain version of the int8 kernel
     (the JAX package's ``multiquery_decode_attention_int8_reference``); the
@@ -85,8 +100,28 @@ def multiquery_decode_attention_int8_reference(
     out = multiquery_decode_attention_reference(
         q.to(torch.float32), dequantize_cache(k_cache, k_scales),
         dequantize_cache(v_cache, v_scales), lengths, strides, window=window,
+        win_starts=win_starts, sink=sink,
     )
     return out.to(q.dtype)
+
+
+def _sink_operands(win_starts: Optional[torch.Tensor], sink: Optional[int]) -> tuple:
+    """(win_starts,) when the sink predicate applies, else ()."""
+    if win_starts is None:
+        return ()
+    if sink is None:
+        raise ValueError("win_starts needs a sink row count")
+    return (win_starts,)
+
+
+def _check_sink(extra: tuple, sink: Optional[int], window: Optional[int]) -> None:
+    """The kernels' sink contract: the sink and every live-window start a
+    multiple of SPLIT_ALIGN rows (whole pages of at least 32 rows; the
+    starts, on the device, are the caller's to keep so) and no sliding
+    window, so that each warp's slice is pruned whole or not at all."""
+    if extra and (sink % SPLIT_ALIGN or window is not None):
+        raise ValueError(f"the sink predicate takes a sink of a multiple of {SPLIT_ALIGN} "
+                         f"rows and no window, got sink={sink} window={window}")
 
 
 def multiquery_decode_attention(
@@ -97,17 +132,26 @@ def multiquery_decode_attention(
     strides: torch.Tensor,
     *,
     window: Optional[int] = None,
+    win_starts: Optional[torch.Tensor] = None,
+    sink: Optional[int] = None,
 ) -> torch.Tensor:
-    """Ragged multi-query decode attention -> [B, T, H, D]. CPU operands
-    take the reference; CUDA operands launch the kernel (bf16 q and caches,
-    int32 lengths and strides, D in {64, 128}, H/KH <= 8, any T and any cache
-    length C), each slot's rows split by ``split_plan``, or raise."""
-    dev = build.device_of(q, k_cache, v_cache, lengths, strides)
+    """Ragged multi-query decode attention -> [B, T, H, D]; with
+    ``win_starts`` and ``sink`` slot b sees only rows < sink or >=
+    win_starts[b]. CPU operands take the reference; CUDA operands launch the
+    kernel (bf16 q and caches, int32 lengths, strides and win_starts, D in
+    {64, 128}, H/KH <= 8, any T and any cache length C), each slot's rows
+    split by ``split_plan``, or raise."""
+    extra = _sink_operands(win_starts, sink)
+    dev = build.device_of(q, k_cache, v_cache, lengths, strides, *extra)
     if dev.type == "cpu":
         return multiquery_decode_attention_reference(
-            q, k_cache, v_cache, lengths, strides, window=window)
-    return launch(multiquery_decode_attention, "aios_multiquery_decode_attention", q,
-                  k_cache, v_cache, (), (lengths, strides), window, split=True)
+            q, k_cache, v_cache, lengths, strides, window=window,
+            win_starts=win_starts, sink=sink)
+    _check_sink(extra, sink, window)
+    return launch(multiquery_decode_attention, "aios_multiquery_decode_attention"
+                  + ("_sink" if extra else ""), q, k_cache, v_cache, (),
+                  (lengths, strides, *extra), window, split=True,
+                  sink=sink if extra else None)
 
 
 multiquery_decode_attention.launches = 0
@@ -123,20 +167,27 @@ def multiquery_decode_attention_int8(
     strides: torch.Tensor,
     *,
     window: Optional[int] = None,
+    win_starts: Optional[torch.Tensor] = None,
+    sink: Optional[int] = None,
 ) -> torch.Tensor:
     """Ragged multi-query decode attention over an int8 cache with
     [B, C, KH] f32 scales folded into both products -> [B, T, H, D] in
-    q.dtype. CPU operands take the reference; CUDA operands launch the kernel
-    (bf16 q, int8 caches, contiguous f32 scales, int32 lengths and strides,
-    D in {64, 128}, H/KH <= 8, any T and any cache length C), each slot's
-    rows split by ``split_plan``, or raise."""
-    dev = build.device_of(q, k_cache, v_cache, k_scales, v_scales, lengths, strides)
+    q.dtype; the sink predicate as ``multiquery_decode_attention``'s. CPU
+    operands take the reference; CUDA operands launch the kernel (bf16 q,
+    int8 caches, contiguous f32 scales, int32 lengths, strides and
+    win_starts, D in {64, 128}, H/KH <= 8, any T and any cache length C),
+    each slot's rows split by ``split_plan``, or raise."""
+    extra = _sink_operands(win_starts, sink)
+    dev = build.device_of(q, k_cache, v_cache, k_scales, v_scales, lengths, strides, *extra)
     if dev.type == "cpu":
         return multiquery_decode_attention_int8_reference(
-            q, k_cache, v_cache, k_scales, v_scales, lengths, strides, window=window)
-    return launch(multiquery_decode_attention_int8, "aios_multiquery_decode_attention_int8",
-                  q, k_cache, v_cache, (k_scales, v_scales), (lengths, strides), window,
-                  split=True)
+            q, k_cache, v_cache, k_scales, v_scales, lengths, strides, window=window,
+            win_starts=win_starts, sink=sink)
+    _check_sink(extra, sink, window)
+    return launch(multiquery_decode_attention_int8, "aios_multiquery_decode_attention_int8"
+                  + ("_sink" if extra else ""), q, k_cache, v_cache, (k_scales, v_scales),
+                  (lengths, strides, *extra), window, split=True,
+                  sink=sink if extra else None)
 
 
 multiquery_decode_attention_int8.launches = 0

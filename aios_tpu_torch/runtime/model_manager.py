@@ -59,9 +59,14 @@ than 512 tokens in 512-token chunks with decode dispatches between them.
 by default) gives each replica's index a host-RAM tier of that many bytes of
 its own, and ``AIOS_TPU_HOST_RESTORE_MIN_PAGES`` its restore floor; an
 invalid value warns and is ignored, as in the JAX manager. The tier's device
-staging counts in the budget. Each serving knob of the JAX stack that the
-port does not honour yet (``UNPORTED_KNOBS``) and that is set logs a
-warning naming it.
+staging counts in the budget. The decode loop's knobs are read by each
+engine and batcher as the JAX stack reads them: ``AIOS_TPU_DECODE_PIPELINE``
+(the pipelined loop), ``AIOS_TPU_UNIFIED_STEP``, ``AIOS_TPU_MEGA_TICKS``
+(the megagraph; its buckets are captured at load) and window+sink
+compression's ``AIOS_TPU_KV_COMPRESS_AFTER``, ``AIOS_TPU_KV_SINK_PAGES`` and
+``AIOS_TPU_KV_WINDOW_PAGES`` (logged when armed). Each serving knob of the
+JAX stack that the port does not honour yet (``UNPORTED_KNOBS``) and that
+is set logs a warning naming it.
 ``speculative`` turns on speculative decode
 dispatches over either cache (None reads ``AIOS_TPU_SPECULATIVE``). A model
 paired with a draft (``AIOS_TPU_DRAFT_MODEL``, else the config's
@@ -144,8 +149,6 @@ PAGE_SIZE = 128
 # that is set logs a warning naming it when a ModelManager is built. A slice
 # that ports a knob deletes it here. A name ending in "*" is a prefix.
 UNPORTED_KNOBS = (
-    "AIOS_TPU_DECODE_PIPELINE", "AIOS_TPU_UNIFIED_STEP", "AIOS_TPU_MEGA_TICKS",
-    "AIOS_TPU_KV_COMPRESS_AFTER", "AIOS_TPU_KV_SINK_PAGES", "AIOS_TPU_KV_WINDOW_PAGES",
     "AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH",
     "AIOS_TPU_AUTOSCALE", "AIOS_TPU_AUTOSCALE_*",
 )
@@ -490,6 +493,12 @@ class ModelManager:
                 raise
             timings.update(quantize_s=engines[0].quantize_seconds,
                            capture_s=sum(e.graphs.capture_seconds for e in engines))
+            # the engines resolve the compression knobs (a variable over the
+            # config): the load log is where an operator sees the policy
+            if engines[0].kv_compress_armed:
+                log.info("%s: window+sink KV compression armed (threshold %d rows; %d sink "
+                         "+ %d window pages/slot)", name, engines[0].kv_compress_after,
+                         engines[0].kv_sink_pages, engines[0].kv_window_pages)
 
             def batcher_factory(eng, _tok=tokenizer, _spec=spec_on, _chunk=chunk):
                 # the pool's spawn and crash-respawn path; the ladder reads

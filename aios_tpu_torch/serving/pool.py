@@ -609,6 +609,12 @@ class ReplicaPool:
             out[f"replica{r.idx}_occupancy"] = round(r.occupancy(), 3)
         if occ:
             out["batch_occupancy"] = round(sum(occ) / len(occ), 3)
+        # the armed megagraph window: the engines sum mega_dispatches and
+        # mega_ticks; K is configuration, so the pool reports it (dispatches
+        # x K - ticks is what the early exits saved)
+        mega_k = max((r.engine.mega_ticks for r in self.replicas), default=0)
+        if mega_k:
+            out["mega_k"] = mega_k
         with self._lock:
             for reason, n in self._routed.items():
                 out[f"routed_{reason}"] = n

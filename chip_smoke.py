@@ -235,6 +235,27 @@ Phases, each printing its lines:
      (context 4096): its first decode step's logits and greedy streams
      against the dense engine's, and the same wave through its batcher. The
      served windows and waves add to the kernels line.
+  17. the decode loop's modes and window+sink compression
+     (``phase_decode_loop``, run before phase 16) — TinyLlama-1.1B (int8
+     weights, bf16 pool) loaded through ``LoadModel`` once a mode: the sync
+     loop, ``AIOS_TPU_DECODE_PIPELINE``, ``AIOS_TPU_UNIFIED_STEP``,
+     ``AIOS_TPU_MEGA_TICKS=8`` without and with the pipeline (its four
+     buckets captured at load), 8 greedy requests through the pool each,
+     token for token the sync loop's, with tok/s, the host gap a dispatch,
+     mega dispatches and k, and the host wall and device time a tick of a
+     16-tick dispatch over 8 slots (and what 7 skipped ticks cost); on the
+     megagraph, a wave whose budgets and a stop id end windows early and
+     one under ``pool.megatick_abort``; Mistral-7B (int4, int8 pool) sync
+     and with the megagraph pipelined, identical; TinyLlama with
+     compression (1 sink + 8 window pages, threshold 1152) over the bf16
+     and then the int8 pool: a 1001-token prompt decoded to 1951 rows
+     (resident pages per dispatch, every page back after), the first
+     logits after a prune through the kernels against the plain path under
+     the same mask, and a 1900-token prompt pruned mid-admission (K6/K7's
+     ``_sink`` entries) that registers only its sink block. Phase 3 checks
+     the gate (``mega_gate``) against its plain version and K6/K7 with the
+     sink predicate (``SINK_CASES``). Its served runs add to the kernels
+     line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -348,6 +369,12 @@ KERNEL_META = {
     "quantized_matmul_experts": dict(
         source="aios_tpu_torch/csrc/quantized_matmul.cu",
         replaces="aios_tpu/engine/moe.py:39",
+    ),
+    # the megagraph's gate: the JAX package's device loop is a lax.while_loop
+    # whose cond XLA evaluates between ticks (no Pallas kernel)
+    "mega_gate": dict(
+        source="aios_tpu_torch/csrc/mega_graph.cu",
+        replaces="aios_tpu/engine/engine.py:1438",
     ),
 }
 TINYLLAMA_KERNELS = ("quantized_matmul", "flash_attention", "paged_decode_attention",
@@ -856,7 +883,7 @@ def check_paged_decode_attention_int8(gen) -> dict:
 
 
 def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
-                 timed=True, rows=None):
+                 timed=True, rows=None, sink=None):
     """One dense-cache attention kernel (T queries per slot; T = None the
     single-query decode kernel) against its plain version on ``geom`` =
     (H, KH, D) with a cache of C rows, bf16 or int8 + scales; a second launch
@@ -864,7 +891,10 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
     ``saturated`` run past the cache end: their outputs are unconsumed by
     contract and only have to be finite; with ``rows`` only the queries
     t < rows are compared (a chunk whose last queries run past the cache
-    end). Untimed cases return no times."""
+    end). ``sink`` = (win_starts, sink rows) takes the multi-query
+    kernels' ``_sink`` entry: each slot sees only its rows below the sink
+    or from its live-window start on (window+sink compression). Untimed
+    cases return no times."""
     import torch.nn.functional as F
 
     from aios_tpu_torch import ops
@@ -889,6 +919,9 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     strd = torch.tensor(strides, dtype=torch.int32, device="cuda")
     kw = {"window": window}
+    if sink is not None:
+        kw.update(win_starts=torch.tensor(sink[0], dtype=torch.int32, device="cuda"),
+                  sink=sink[1])
     if multi:
         fn, ref = ((ops.multiquery_decode_attention_int8,
                     ops.multiquery_decode_attention_int8_reference) if quant else
@@ -916,6 +949,8 @@ def _dense_check(gen, geom, C, window, quant, T, lengths, strides, saturated=(),
     mask = cols <= qpos[..., None]
     if window is not None:
         mask &= cols > qpos[..., None] - window
+    if sink is not None:
+        mask &= (cols < sink[1]) | (cols >= kw["win_starts"].long()[:, None, None])
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kd, vd))  # [B, KH, C, D]
     qt = q.transpose(1, 2).contiguous()  # [B, H, T, D]
     lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1062,6 +1097,33 @@ CHUNK_CASES = {
 }
 
 
+# K6 and K7 with window+sink compression's predicate (the ``_sink`` entries):
+# the verify forward of 8 slots (T = 8) over their gathered pages, slot 0
+# idle, the others at ~1200-2000 rows with live-window starts of 0 (not yet
+# pruned) to 1024 rows behind a sink of 128 rows, at TinyLlama's heads over
+# the bf16 and the int8 pool and at Mistral-7B's over the int8 pool; and the
+# chunk of an admission that crossed the threshold (B = 1, T = 512 from row
+# 1536, start 512: the 1900-token prompt's last chunk at sink 1 + window 8).
+SINK_LENS = [0, 1200, 1300, 1500, 1700, 1900, 1950, 2000]
+SINK_STARTS = [0, 0, 256, 512, 640, 896, 896, 1024]
+SINK_CASES = {
+    "multiquery_decode_attention": [
+        (f"sink=128 win_starts={SINK_STARTS}: TinyLlama C=2048 T={SPEC_T}", TINY_GEOM, 2048,
+         None, False, SPEC_T, SINK_LENS, (), None, (SINK_STARTS, P)),
+        ("sink=128 win_start=512, chunk: TinyLlama C=2048 T=512", TINY_GEOM, 2048, None,
+         False, 512, [1536], (), None, ([512], P)),
+    ],
+    "multiquery_decode_attention_int8": [
+        (f"sink=128 win_starts={SINK_STARTS}: TinyLlama int8 C=2048 T={SPEC_T}", TINY_GEOM,
+         2048, None, True, SPEC_T, SINK_LENS, (), None, (SINK_STARTS, P)),
+        ("sink=128 win_start=512, chunk: TinyLlama int8 C=2048 T=512", TINY_GEOM, 2048,
+         None, True, 512, [1536], (), None, ([512], P)),
+        (f"sink=128 win_starts={SINK_STARTS}: Mistral C=8192 T={SPEC_T}", MISTRAL_GEOM, 8192,
+         None, True, SPEC_T, SINK_LENS, (), None, (SINK_STARTS, P)),
+    ],
+}
+
+
 def check_dense_attention(gen) -> dict:
     """K8, K9, K6 and K7 at the shapes the dense servers give them."""
     def mq_lens(lens, C, T=SPEC_T):
@@ -1110,6 +1172,7 @@ def check_dense_attention(gen) -> dict:
              None, False, 512, [30720], ()),
             *JUMP_CASES["multiquery_decode_attention"],
             *DRAFT_CASES["multiquery_decode_attention"],
+            *SINK_CASES["multiquery_decode_attention"],
         ],
         "multiquery_decode_attention_int8": [
             (f"Mistral C=8192 window={M_WINDOW} T={SPEC_T}", MISTRAL_GEOM, 8192, M_WINDOW,
@@ -1124,6 +1187,7 @@ def check_dense_attention(gen) -> dict:
             *CHUNK_CASES["multiquery_decode_attention_int8"],
             *JUMP_CASES["multiquery_decode_attention_int8"],
             *DRAFT_CASES["multiquery_decode_attention_int8"],
+            *SINK_CASES["multiquery_decode_attention_int8"],
         ],
     }
     measured = {}
@@ -1281,6 +1345,46 @@ def check_quantized_matmul_experts(gen) -> dict:
                             "over 128 experts")
 
 
+def check_mega_gate(gen) -> dict:
+    """The megagraph's gate (``ops.mega_gate``, launched without a
+    conditional handle) against its plain version over 8 slots: random live
+    flags at every tick of an 8-tick window, each slot alone live, no slot
+    live and ticks past the cap; and with ``need_live`` off. Times one
+    launch beside the plain version's ops."""
+    from aios_tpu_torch import ops
+
+    S, K, ctx = 8, 8, 2047
+    go = torch.zeros(K, dtype=torch.int32, device="cuda")
+    worst, n = 0, 0
+    for trial in range(24):
+        cap = torch.tensor([trial % (K + 1)], dtype=torch.int32, device="cuda")
+        active = torch.rand(S, generator=gen, device="cuda") < 0.6
+        done = torch.rand(S, generator=gen, device="cuda") < 0.3
+        rem = torch.randint(-1, 3, (S,), generator=gen, device="cuda").to(torch.int32)
+        lengths = torch.randint(ctx - 3, ctx + 1, (S,), generator=gen,
+                                device="cuda").to(torch.int32)
+        if trial < S:  # one slot live alone
+            active.zero_(), done.zero_(), rem.zero_()
+            active[trial], rem[trial], lengths[trial] = True, 5, 10
+        for need_live in (True, False):
+            for tick in range(K):
+                ops.mega_gate(tick, cap, active, done, rem, lengths, ctx, go, need_live)
+                want = ops.mega_gate_reference(tick, cap, active, done, rem, lengths, ctx,
+                                               need_live)
+                worst = max(worst, abs(int(go[tick]) - int(want[0])))
+                n += 1
+    expect(worst == 0, "mega_gate disagrees with its plain version")
+    cap = torch.tensor([K], dtype=torch.int32, device="cuda")
+    args = (3, cap, active, done, rem, lengths, ctx)
+    ms = time_ms(lambda: ops.mega_gate(*args, go))
+    plain = time_ms(lambda: ops.mega_gate_reference(*args))
+    bnd = bound_ms(S * (1 + 1 + 4 + 4) + 4 + 4, 4.0 * S)
+    _report("mega_gate", f"{n} gates of 8 slots (random flags, one live slot, none, past "
+            "the cap, need_live on and off)", ms, plain, None, bnd, float(worst), True)
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+                max_abs_err=float(worst), measured_at="one launch, 8 slots")
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # what time_ms reads for a kernel that does nothing: the floor under
@@ -1288,6 +1392,7 @@ def phase_kernels() -> dict:
     log(f"[kernel] timing floor: an empty kernel under time_ms takes "
         f"{time_ms(lambda: torch.cuda._sleep(1)):.4f} ms")
     measured = {
+        "mega_gate": check_mega_gate(gen),
         "quantized_matmul": check_quantized_matmul(gen),
         "flash_attention": check_flash_attention(gen),
         "paged_decode_attention": check_paged_decode_attention(gen),
@@ -5761,6 +5866,401 @@ def phase_moe(card: str) -> dict:
     return served
 
 
+# -- phase 17: the decode loop's modes and window+sink compression --------------
+
+LOOP_KNOBS = ("AIOS_TPU_DECODE_PIPELINE", "AIOS_TPU_UNIFIED_STEP", "AIOS_TPU_MEGA_TICKS",
+              "AIOS_TPU_KV_COMPRESS_AFTER", "AIOS_TPU_KV_SINK_PAGES", "AIOS_TPU_KV_WINDOW_PAGES")
+LOOP_MODES = (
+    ("sync", {}),
+    ("pipeline", {"AIOS_TPU_DECODE_PIPELINE": 1}),
+    ("unified", {"AIOS_TPU_UNIFIED_STEP": 1}),
+    ("mega", {"AIOS_TPU_MEGA_TICKS": 8}),
+    ("mega+pipeline", {"AIOS_TPU_MEGA_TICKS": 8, "AIOS_TPU_DECODE_PIPELINE": 1}),
+)
+# 8 distinct prompts of 181 to 321 tokens (whole-prompt admissions, no shared
+# 128-row block: no prefix hit inside a wave)
+LOOP_PROMPTS = tuple([256] + [(31 * i + 7 * j + 3) % 256 for j in range(180 + 20 * i)]
+                     for i in range(8))
+LOOP_TOKENS = 96
+MISTRAL_LOOP_TOKENS = 48
+LOOP_TICKS = 16  # ticks of a timed dispatch: the batcher's chunk
+COMPRESS_KNOBS = {"AIOS_TPU_KV_COMPRESS_AFTER": 1152, "AIOS_TPU_KV_SINK_PAGES": 1,
+                  "AIOS_TPU_KV_WINDOW_PAGES": 8}
+COMPRESS_PROMPT = [256] + [(17 * j + 5) % 256 for j in range(1000)]  # 1001 tokens
+COMPRESS_TOKENS = 950  # decoded to 1951 rows
+MIDFLIGHT_PROMPT = [256] + [(11 * j + 3) % 256 for j in range(1899)]  # 1900 tokens
+
+
+def _loop_knobs(**env) -> None:
+    """Set the decode loop's knobs that the next LoadModel reads, every
+    other one unset."""
+    for k in LOOP_KNOBS:
+        os.environ.pop(k, None)
+    for k, v in env.items():
+        os.environ[k] = str(v)
+
+
+def _record_ticks(eng) -> list:
+    """A list that each megagraph dispatch of ``eng`` appends its real
+    tick count k to."""
+    ticks = []
+    real = eng._mega_dispatch
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        ticks.append(int(out[2]))
+        return out
+
+    eng._mega_dispatch = spy
+    return ticks
+
+
+def _loop_wave(m, reqs):
+    """(prompt, max_tokens, stop ids) requests, greedy, through the model's
+    pool at once, every kernel count set to 0 just before and read just
+    after: (streams, wall seconds, launches)."""
+    from aios_tpu_torch.engine.batching import Request
+
+    def run():
+        t0 = time.perf_counter()
+        hs = [m.submit(Request(prompt_ids=list(p), max_tokens=n, temperature=0.0,
+                               stop_ids=tuple(st))) for p, n, st in reqs]
+        out = [h.tokens() for h in hs]
+        return out, time.perf_counter() - t0
+
+    (streams, wall), launches = _counted(run)
+    return streams, wall, launches
+
+
+def _tick_cost(fn, ticks: int):
+    """(host wall ms, device ms) a tick of ``fn``, a dispatch of ``ticks``
+    ticks that reads its tokens back: medians of three runs after one
+    warm-up, the wall on the host's clock, the device's between CUDA events
+    recorded around the dispatch."""
+    fn()
+    walls, devs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        devs.append(a.elapsed_time(b))
+    return statistics.median(walls) * 1e3 / ticks, statistics.median(devs) / ticks
+
+
+def _loop_dispatch(eng, mode: str, ticks: int, budget: int = 10 ** 6):
+    """One dispatch of ``ticks`` decode ticks over the live slots as
+    ``mode`` issues it: ``step`` (the one-tick graph replayed, or with the
+    unified step one graph), ``step_async`` waited for, or megagraph
+    dispatches of K ticks each with ``budget`` tokens a slot."""
+    S = eng.num_slots
+    stops = np.full((S, 4), -1, np.int32)
+    budgets = np.full(S, budget, np.int32)
+    if mode.startswith("mega"):
+        K = min(eng.mega_ticks, ticks)
+
+        def fn():
+            for _ in range(max(ticks // K, 1)):
+                eng.mega_step(K, stops, budgets)
+        return fn
+    if mode == "pipeline":
+        return lambda: eng.step_async(ticks).wait()
+    return lambda: eng.step(ticks)
+
+
+def _loop_mode(manager, stub, card: str, tag: str, path: str, mode: str, env: dict, reqs,
+               base, timing: bool = True):
+    """LoadModel ``path`` with the mode's knobs, a wave of ``reqs`` through
+    the pool (streams token for token ``base``'s when given), the per-tick
+    cost of a dispatch over 8 live slots; the model stays loaded. Returns
+    (managed model, streams, launches, tick counts)."""
+    name = f"loop-{tag}"
+    _loop_knobs(**env)
+    m, load_s = _load(manager, stub, name, path)
+    eng, b = m.engine, m.batcher
+    mega = int(env.get("AIOS_TPU_MEGA_TICKS", 0))
+    expect(b.pipeline == ("AIOS_TPU_DECODE_PIPELINE" in env)
+           and eng.unified_step == ("AIOS_TPU_UNIFIED_STEP" in env) and eng.mega_ticks == mega,
+           f"[loop {tag}] {mode}: the knobs did not reach the engine and batcher")
+    if mega:
+        expect(eng.mega_graphs() == 4, f"[loop {tag}] {mode}: LoadModel captured "
+               f"{eng.mega_graphs()} megagraph buckets, not 1, 2, 4 and 8")
+    captured = eng.stats()["graph_captures"]
+    ticks = _record_ticks(eng)
+    gap0, disp0 = b.host_gap_seconds, b.decode_dispatches
+    streams, wall, launches = _loop_wave(m, reqs)
+    expect(eng.stats()["graph_captures"] == captured,
+           f"[loop {tag}] {mode}: a graph was captured while serving")
+    n_tok = sum(len(t) for t in streams)
+    expect(all(len(t) == n for t, (_, n, _) in zip(streams, reqs)),
+           f"[loop {tag}] {mode}: a stream ended short")
+    if base is not None:
+        bad = [i for i, (x, y) in enumerate(zip(streams, base)) if x != y]
+        expect(not bad, f"[loop {tag}] {mode}: streams {bad} differ from the sync loop's")
+    gap = (b.host_gap_seconds - gap0) / max(b.decode_dispatches - disp0, 1) * 1e3
+    line = (f"[loop {tag}] {mode}: LoadModel {load_s:.2f} s ({eng.stats()['graph_captures']} "
+            f"graphs, {eng.mega_graphs()} megagraph buckets); {len(reqs)} greedy requests: "
+            f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s, host gap "
+            f"{gap:.3f} ms a dispatch, {eng.mega_dispatches} mega dispatches of "
+            f"{eng.mega_tick_total} ticks (k {ticks}); streams "
+            f"{'identical to the sync loop' if base is not None else 'the reference'}")
+    if timing:
+        eng.prefix_index.clear()
+        for s_, p in enumerate(reqs[:eng.num_slots]):
+            eng.prefill(s_, list(p[0]), temperature=0.0)
+        wall_t, dev_t = _tick_cost(_loop_dispatch(eng, mode, LOOP_TICKS), LOOP_TICKS)
+        line += (f"; a {LOOP_TICKS}-tick dispatch over 8 slots: {wall_t:.3f} ms host wall and "
+                 f"{dev_t:.3f} ms device a tick")
+        if mega:
+            # what the skipped ticks of an early exit cost: a bucket-8
+            # dispatch that runs 1 tick against the 1-tick bucket
+            one = _tick_cost(_loop_dispatch(eng, mode, 1, budget=1), 1)
+            eight = _tick_cost(lambda: eng.mega_step(8, np.full((8, 4), -1, np.int32),
+                                                     np.ones(8, np.int32)), 1)
+            line += (f"; 7 dead ticks cost {eight[0] - one[0]:.3f} ms host wall and "
+                     f"{eight[1] - one[1]:.3f} ms device (bucket 8 at k=1 {eight[0]:.3f} / "
+                     f"{eight[1]:.3f} ms, bucket 1 {one[0]:.3f} / {one[1]:.3f} ms)")
+        for s_ in range(eng.num_slots):
+            eng.release(s_)
+    log(line + f", {card}")
+    return m, streams, launches, ticks
+
+
+def _early_exits(m, card: str, base) -> dict:
+    """On the megagraph engine: a wave whose budgets and a stop id end its
+    windows early (k per dispatch printed; the streams are the sync loop's
+    truncated), then a wave under ``pool.megatick_abort`` (the first
+    dispatch ends after 3 of 8 ticks; the streams are the sync loop's).
+    Returns the launches."""
+    from aios_tpu_torch import faults
+
+    eng = m.engine
+    stop = base[0][9]
+    reqs = [(p, 3 + 5 * i, ()) for i, p in enumerate(LOOP_PROMPTS)]
+    reqs[0] = (LOOP_PROMPTS[0], 40, (stop,))
+    want = [t[:n] for t, (_, n, _) in zip(base, reqs)]
+    want[0] = base[0][:base[0].index(stop) + 1]
+    eng.prefix_index.clear()
+    ticks = _record_ticks(eng)
+    streams, _, launches = _loop_wave(m, reqs)
+    expect(streams == want, "[loop] the early-exit wave's streams are not the sync loop's")
+    expect(any(k < 8 for k in ticks), f"[loop] no dispatch exited early: k {ticks}")
+    log(f"[loop] early exits (budgets 3..38, request 0 stopping on token {stop} after "
+        f"{len(want[0])} tokens): k per dispatch {ticks}, streams the sync loop's, {card}")
+    eng.prefix_index.clear()
+    ticks = _record_ticks(eng)
+    faults.activate("seed=1;pool.megatick_abort=nth:1,ticks=3")
+    try:
+        streams, _, more = _loop_wave(m, [(p, 24, ()) for p in LOOP_PROMPTS])
+    finally:
+        faults.deactivate()
+    expect(ticks and ticks[0] == 3, f"[loop] pool.megatick_abort: first dispatch ran {ticks}")
+    expect(streams == [t[:24] for t in base],
+           "[loop] the streams under pool.megatick_abort are not the sync loop's")
+    log(f"[loop] pool.megatick_abort (ticks=3) on the first dispatch: k per dispatch {ticks}, "
+        f"streams the sync loop's, {card}")
+    for k_, v in more.items():
+        launches[k_] = launches.get(k_, 0) + v
+    return launches
+
+
+def _add(acc: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def phase_loop_tinyllama(manager, stub, card: str) -> dict:
+    """TinyLlama-1.1B (int8 weights, bf16 pool) in each decode-loop mode,
+    its streams the sync loop's, and the megagraph's early exits."""
+    acc, base = {}, None
+    reqs = [(p, LOOP_TOKENS, ()) for p in LOOP_PROMPTS]
+    for mode, env in LOOP_MODES:
+        m, streams, launches, _ = _loop_mode(manager, stub, card, "tinyllama",
+                                              "synthetic://tinyllama-1.1b", mode, env, reqs,
+                                              base)
+        _add(acc, launches)
+        if base is None:
+            base = streams
+        if mode == "mega":
+            _add(acc, _early_exits(m, card, base))
+        manager.unload_model(m.name)
+    _loop_knobs()
+    return acc
+
+
+def phase_loop_mistral(manager, stub, card: str) -> dict:
+    """Mistral-7B (int4 weights, int8 pool) in the sync loop and with the
+    megagraph pipelined: the same streams."""
+    acc, base = {}, None
+    reqs = [(p, MISTRAL_LOOP_TOKENS, ()) for p in LOOP_PROMPTS]
+    for mode, env in (LOOP_MODES[0], LOOP_MODES[-1]):
+        m, streams, launches, _ = _loop_mode(manager, stub, card, "mistral",
+                                              "synthetic://mistral-7b", mode, env, reqs, base)
+        _add(acc, launches)
+        base = base or streams
+        manager.unload_model(m.name)
+    _loop_knobs()
+    return acc
+
+
+def _compression_logits(eng, tag: str) -> None:
+    """The first logits after a slot's first prune, through the kernels
+    (K3 or K4 with the sink mask; K6 or K7 with the new predicate for a
+    verify forward of 8 tokens) against the plain path under the same
+    mask, on the same state: within E2E_TOL of max|logit|."""
+    from aios_tpu_torch.engine import model
+
+    eng.prefix_index.clear()
+    eng.prefill(0, COMPRESS_PROMPT, temperature=0.0)
+    while int(eng.win_starts()[0]) == 0:
+        eng.step(LOOP_TICKS)
+    with eng._lock:
+        eng._back_active_slots(8)
+        eng._stage_tables()
+    snap = _snapshot(eng)
+    kw = dict(active=eng.active_dev, cache_scales=eng._cache_scales(),
+              win_starts=eng.win_starts_dev, sink_rows=eng._sink_rows)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    feed = torch.cat([eng.last_tokens[:, None],
+                      torch.randint(0, 256, (eng.num_slots, 7), generator=gen, device="cuda")],
+                     1)
+    out = {}
+    for kernels in (True, False):
+        out[("step", kernels)] = model.decode_step_paged(
+            eng.params, eng.cfg, eng.last_tokens, eng.lengths, eng.k_pool, eng.v_pool,
+            eng.tables_dev, kernels=kernels, **kw)[0]
+        _restore(eng, snap)
+        out[("verify", kernels)] = model.verify_step_paged(
+            eng.params, eng.cfg, feed, eng.lengths, eng.k_pool, eng.v_pool, eng.tables_dev,
+            kernels=kernels, **kw)[0]
+        _restore(eng, snap)
+    rel_step = _rel(out[("step", True)], out[("step", False)])
+    rel_verify = _rel(out[("verify", True)], out[("verify", False)])
+    ws, L = int(eng.win_starts()[0]), eng.slot_length(0)
+    eng.release(0)
+    log(f"{tag} first logits after the first prune (length {L}, live window from row {ws}, "
+        f"sink {eng._sink_rows} rows): decode step max|dlogit|/max|logit|={rel_step:.3e}, "
+        f"verify T=8 {rel_verify:.3e} (limit {E2E_TOL})")
+    expect(rel_step <= E2E_TOL and rel_verify <= E2E_TOL
+           and bool(torch.isfinite(out[("step", True)]).all()),
+           f"{tag} kernel and plain logits under the sink mask disagree")
+
+
+def phase_loop_compression(manager, stub, card: str, kv: str) -> dict:
+    """TinyLlama-1.1B with window+sink compression armed (1 sink + 8
+    window pages, threshold 1152 rows, the floor) over the ``kv`` pool:
+    a 1001-token prompt decoded to 1951 rows through the batcher, each
+    dispatch's residency, the pages back in the pool afterwards; the first
+    logits after a prune through the kernels against the plain path; a
+    1900-token prompt pruned mid-admission (K6/K7 with the sink predicate),
+    registering only its sink block. Returns the served runs' launches."""
+    tag = f"[compress {kv}]"
+    _loop_knobs(**COMPRESS_KNOBS)
+    m, load_s = _load(manager, stub, f"compress-{kv}", "synthetic://tinyllama-1.1b")
+    eng = m.engine
+    alloc = eng.allocator
+    sink, window, P_ = eng.kv_sink_pages, eng.kv_window_pages, alloc.page_size
+    expect(eng.kv_compress_armed and eng.kv_compress_after == 1152
+           and eng._sink_rows == sink * P_, f"{tag} compression not armed as asked")
+    eng.prefix_index.clear()
+    free0 = alloc.free_pages
+    samples = []
+    real = eng._back_active_slots
+
+    def spy(grow_rows):
+        real(grow_rows)
+        for s_ in range(eng.num_slots):
+            if eng.active[s_] and eng._win_starts[s_] > 0:
+                L = int(eng._host_lengths[s_])
+                resident = alloc.slot_pages_resident(s_)
+                ahead = int(alloc._blocks_used[s_]) - alloc.blocks_for(L + 1)
+                samples.append((resident, resident - ahead))
+
+    eng._back_active_slots = spy
+    streams, wall, launches = _loop_wave(m, [(COMPRESS_PROMPT, COMPRESS_TOKENS, ())])
+    eng._back_active_slots = real
+    pruned = eng.kv_pages_pruned
+    expect(len(streams[0]) == COMPRESS_TOKENS and pruned > 0 and samples,
+           f"{tag} the long slot did not prune ({pruned} pages)")
+    most = max(r for r, _ in samples)
+    most_rows = max(r for _, r in samples)
+    expect(most_rows <= sink + window + 1 and most <= sink + window + 2,
+           f"{tag} residency {most} pages ({most_rows} holding rows) past sink {sink} + "
+           f"window {window} + 1")
+    eng.prefix_index.clear()
+    expect(alloc.free_pages == free0, f"{tag} {free0 - alloc.free_pages} pages not returned")
+    log(f"{tag} LoadModel {load_s:.2f} s, threshold {eng.kv_compress_after} rows; a "
+        f"{len(COMPRESS_PROMPT)}-token prompt decoded to {len(COMPRESS_PROMPT) + COMPRESS_TOKENS} "
+        f"rows in {wall:.3f} s: {pruned} pages pruned, resident pages at most {most_rows} "
+        f"holding rows (sink {sink} + window {window} + 1) and {most} with the dispatch's "
+        f"backing, over {len(samples)} dispatches; every page back in the pool after, "
+        f"{card}")
+    _compression_logits(eng, tag)
+    # a prompt past the threshold, pruned between its chunks
+    eng.prefix_index.clear()
+    calls = []
+    real_c = eng._maybe_compress
+
+    def spy_c(slot, length=None):
+        before = int(eng._win_starts[slot])
+        real_c(slot, length)
+        if length is not None and int(eng._win_starts[slot]) != before:
+            calls.append((length, int(eng._win_starts[slot])))
+
+    eng._maybe_compress = spy_c
+    pruned0 = eng.kv_pages_pruned
+    streams, _, more = _loop_wave(m, [(MIDFLIGHT_PROMPT, 4, ())])
+    eng._maybe_compress = real_c
+    attn = "multiquery_decode_attention_int8" if kv == "int8" else "multiquery_decode_attention"
+    expect(calls and len(streams[0]) == 4 and more.get(attn, 0) > 0,
+           f"{tag} the 1900-token admission did not prune mid-flight ({calls})")
+    overlap = eng.prefix_overlap_rows(MIDFLIGHT_PROMPT)
+    expect(overlap == sink * P_, f"{tag} the pruned admission registered {overlap} rows, "
+           f"not its {sink * P_} sink rows")
+    log(f"{tag} a {len(MIDFLIGHT_PROMPT)}-token prompt admitted in chunks of "
+        f"{m.batcher.prefill_chunk}: pruned mid-admission at {calls} (admitted rows, live "
+        f"window start), {eng.kv_pages_pruned - pruned0} pages, {more.get(attn, 0)} {attn} "
+        f"launches with the sink predicate; only its sink block registered ({overlap} rows)")
+    _add(launches, more)
+    manager.unload_model(m.name)
+    _loop_knobs()
+    return launches
+
+
+def phase_decode_loop(card: str) -> dict:
+    """Phase 17: the decode loop's modes on TinyLlama-1.1B and Mistral-7B
+    and window+sink compression on TinyLlama over both pools, all through
+    LoadModel and the batcher; the served runs' launches."""
+    t0 = time.perf_counter()
+    acc = {}
+
+    def tiny(manager, stub, card_):
+        _add(acc, phase_loop_tinyllama(manager, stub, card_))
+        _add(acc, phase_loop_compression(manager, stub, card_, "bf16"))
+        return acc
+
+    def int8_pool(manager, stub, card_):
+        _add(acc, phase_loop_compression(manager, stub, card_, "int8"))
+        return acc
+
+    def mistral(manager, stub, card_):
+        _add(acc, phase_loop_mistral(manager, stub, card_))
+        return acc
+
+    def nothing(manager, card_):
+        pass
+
+    _serve_phases(card, (tiny, nothing), quantize="int8", kv_cache="bf16")
+    _serve_phases(card, (int8_pool, nothing), quantize="int8", kv_cache="int8")
+    _serve_phases(card, (mistral, nothing), quantize="int4", kv_cache="int8")
+    log(f"[loop] phase done in {time.perf_counter() - t0:.1f} s; launches {acc}")
+    return acc
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -5783,6 +6283,16 @@ def _serve_phases(card: str, phases, **manager_kw) -> dict:
     return launches
 
 
+def _phase_clock():
+    """A runner that logs each phase's seconds on the host's clock."""
+    def run(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        log(f"[chip_smoke] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing ran",
@@ -5790,36 +6300,41 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
-    measured = phase_kernels()
+    timed = _phase_clock()
+    timed("build", phase_build)
+    measured = timed("kernels", phase_kernels)
 
-    tiny = _serve_phases(card, (phase_serve, phase_numerics),
-                         quantize="int8", kv_cache="bf16")
+    tiny = timed("tinyllama", _serve_phases, card, (phase_serve, phase_numerics),
+                 quantize="int8", kv_cache="bf16")
     torch.cuda.reset_peak_memory_stats()
-    mistral = _serve_phases(card, (phase_mistral_serve, phase_mistral_numerics),
-                            quantize="int4", kv_cache="int8")
+    mistral = timed("mistral", _serve_phases, card,
+                    (phase_mistral_serve, phase_mistral_numerics),
+                    quantize="int4", kv_cache="int8")
     dense = {"paged_kv": "off", "speculative": True}
-    tiny_dense = _serve_phases(
-        card, (phase_dense_serve("tinyllama"), phase_dense_numerics("tinyllama")),
+    tiny_dense = timed(
+        "tinyllama dense", _serve_phases, card,
+        (phase_dense_serve("tinyllama"), phase_dense_numerics("tinyllama")),
         quantize="int8", kv_cache="bf16", **dense)
-    mistral_dense = _serve_phases(
-        card, (phase_dense_serve("mistral"), phase_dense_numerics("mistral")),
+    mistral_dense = timed(
+        "mistral dense", _serve_phases, card,
+        (phase_dense_serve("mistral"), phase_dense_numerics("mistral")),
         quantize="int4", kv_cache="int8", **dense)
-    gguf = phase_gguf(card)
-    constrained = phase_constrained(card)
-    serving = phase_serving(card)
-    spec_paged = phase_spec_paged(card)
-    host = phase_host_tier(card)
-    moe = phase_moe(card)
+    gguf = timed("gguf", phase_gguf, card)
+    constrained = timed("constrained", phase_constrained, card)
+    serving = timed("serving", phase_serving, card)
+    spec_paged = timed("spec paged", phase_spec_paged, card)
+    host = timed("host tier", phase_host_tier, card)
+    loop = timed("decode loop", phase_decode_loop, card)
+    moe = timed("moe", phase_moe, card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
         r = measured[name]
-        tiny[name] += tiny_dense[name]
-        mistral[name] += mistral_dense[name]
-        n = (tiny[name] + mistral[name] + gguf.get(name, 0) + constrained.get(name, 0)
-             + serving.get(name, 0) + spec_paged.get(name, 0) + host.get(name, 0)
-             + moe.get(name, 0))
+        tiny[name] = tiny.get(name, 0) + tiny_dense.get(name, 0)
+        mistral[name] = mistral.get(name, 0) + mistral_dense.get(name, 0)
+        n = (tiny.get(name, 0) + mistral.get(name, 0) + gguf.get(name, 0)
+             + constrained.get(name, 0) + serving.get(name, 0) + spec_paged.get(name, 0)
+             + host.get(name, 0) + loop.get(name, 0) + moe.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -5832,9 +6347,11 @@ def main() -> int:
             f"{mistral[name]} Mistral-7B, {gguf.get(name, 0)} GGUF files, "
             f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas, "
             f"{spec_paged.get(name, 0)} Mistral-7B with its draft, {host.get(name, 0)} over "
-            f"the host tier, {moe.get(name, 0)} Qwen3-30B-A3B), "
-            f"{r['measured_at']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"the host tier, {loop.get(name, 0)} in the decode loop's modes, "
+            f"{moe.get(name, 0)} Qwen3-30B-A3B), "
+            f"{r['measured_at']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
+            f"{'' if r['library_ms'] is None else ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

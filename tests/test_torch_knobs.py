@@ -1,6 +1,8 @@
 """The serving knobs on the port: each knob of the JAX stack that the port
 does not honour yet logs one warning naming it when a ``ModelManager`` is
-built, the honoured ones log none, and ``AIOS_TPU_SAMPLE_POOL`` sizes the
+built, the honoured ones log none (the decode loop's six change the engine
+and the batcher that LoadModel builds, as in the JAX stack), and
+``AIOS_TPU_SAMPLE_POOL`` sizes the
 sampler's candidate pool with the JAX package's errors, read once when an
 engine is built. The port imports no ``ml_dtypes`` (the host tier keeps
 bf16 pages as their uint16 bits)."""
@@ -29,9 +31,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 LOGGER = "aios.torch.runtime.models"
 NOT_HONOURED = "does not honour it yet"
 
-UNPORTED = ["AIOS_TPU_DECODE_PIPELINE", "AIOS_TPU_UNIFIED_STEP", "AIOS_TPU_MEGA_TICKS",
-            "AIOS_TPU_KV_COMPRESS_AFTER", "AIOS_TPU_KV_SINK_PAGES", "AIOS_TPU_KV_WINDOW_PAGES",
-            "AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_AUTOSCALE",
+# the decode loop's knobs, honoured since the pipelined loop, the unified
+# step, the megagraph and window+sink compression were ported
+DECODE_LOOP = {"AIOS_TPU_DECODE_PIPELINE": "1", "AIOS_TPU_UNIFIED_STEP": "1",
+               "AIOS_TPU_MEGA_TICKS": "8", "AIOS_TPU_KV_COMPRESS_AFTER": "100",
+               "AIOS_TPU_KV_SINK_PAGES": "2", "AIOS_TPU_KV_WINDOW_PAGES": "3"}
+UNPORTED = ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_AUTOSCALE",
             "AIOS_TPU_AUTOSCALE_MAX_REPLICAS", "AIOS_TPU_AUTOSCALE_UP_BURN",
             "AIOS_TPU_AUTOSCALE_COOLDOWN_SECS"]
 HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_MIN_PAGES": "2",
@@ -39,7 +44,7 @@ HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_M
             "AIOS_TPU_PREFIX_RADIX": "0", "AIOS_TPU_PREFIX_CACHE": "1",
             "AIOS_TPU_JUMP_AHEAD": "1", "AIOS_TPU_KV_CACHE": "bf16",
             "AIOS_TPU_MAX_QUEUE": "4", "AIOS_TPU_DRAFT_MODEL": "tinyllama",
-            "AIOS_TPU_MOE_IMPL": "gather", "AIOS_TPU_MOE_GATHER": "1"}
+            "AIOS_TPU_MOE_IMPL": "gather", "AIOS_TPU_MOE_GATHER": "1", **DECODE_LOOP}
 
 
 @pytest.fixture
@@ -139,6 +144,79 @@ def test_port_imports_no_ml_dtypes():
                 continue
             offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] == "ml_dtypes"]
     assert not offenders, offenders
+
+
+def test_decode_loop_knobs_are_honoured_not_listed():
+    assert not set(DECODE_LOOP) & set(model_manager.UNPORTED_KNOBS)
+    assert sorted(model_manager.UNPORTED_KNOBS) == sorted(
+        ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_AUTOSCALE",
+         "AIOS_TPU_AUTOSCALE_*"])
+
+
+def _load(monkeypatch, env, caplog, level=logging.INFO):
+    """LoadModel of tiny-test at a pageable context with ``env`` set; the
+    managed model and the log."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    manager = ModelManager(num_slots=2, device="cpu")
+    with caplog.at_level(level):
+        managed = manager.load_model("tiny", "synthetic://tiny-test", context_length=1024)
+    return manager, managed
+
+
+@pytest.mark.parametrize("knob", sorted(DECODE_LOOP))
+def test_decode_loop_knob_changes_the_engine(clean_env, caplog, knob):
+    """Each decode-loop knob, set alone (with compression's threshold for
+    its sink and window pages), warns of nothing and changes what LoadModel
+    builds as it does in the JAX stack: the batcher's pipeline, the
+    engine's unified step and megagraph cap (the pool reports K),
+    compression armed at the sink + window floor with the JAX message."""
+    env = {knob: DECODE_LOOP[knob]}
+    if knob in ("AIOS_TPU_KV_SINK_PAGES", "AIOS_TPU_KV_WINDOW_PAGES"):
+        env["AIOS_TPU_KV_COMPRESS_AFTER"] = "100"
+    manager, managed = _load(clean_env, env, caplog)
+    try:
+        eng = managed.engine
+        assert _warnings(caplog) == []
+        assert managed.batcher.pipeline == (knob == "AIOS_TPU_DECODE_PIPELINE")
+        assert eng.unified_step == (knob == "AIOS_TPU_UNIFIED_STEP")
+        assert eng.mega_ticks == (8 if knob == "AIOS_TPU_MEGA_TICKS" else 0)
+        assert ("mega_k" in managed.pool.stats()) == (knob == "AIOS_TPU_MEGA_TICKS")
+        armed = "AIOS_TPU_KV_COMPRESS_AFTER" in env
+        assert eng.kv_compress_armed == armed
+        if armed:
+            sink = int(env.get("AIOS_TPU_KV_SINK_PAGES", 1))
+            window = int(env.get("AIOS_TPU_KV_WINDOW_PAGES", 8))
+            assert (eng.kv_sink_pages, eng.kv_window_pages) == (sink, window)
+            assert eng.kv_compress_after == (sink + window) * eng.allocator.page_size
+            msgs = [r.getMessage() for r in caplog.records]
+            assert any(f"raised to sink+window floor {eng.kv_compress_after}" in m
+                       for m in msgs)
+            assert any("window+sink KV compression armed" in m for m in msgs)
+    finally:
+        manager.unload_model("tiny")
+
+
+@pytest.mark.parametrize("case", ["dense", "sliding-window"])
+def test_compression_disarmed_with_the_jax_warning(clean_env, caplog, case):
+    """AIOS_TPU_KV_COMPRESS_AFTER over the dense cache, or on a model with
+    a sliding window, leaves compression disarmed with the JAX engine's
+    warning."""
+    clean_env.setenv("AIOS_TPU_KV_COMPRESS_AFTER", "256")
+    params = init_params(TINY_TEST, torch.Generator().manual_seed(0), dtype=torch.float32,
+                         device="cpu")
+    cfg, kw = TINY_TEST, dict(paged_pool_rows=1024, page_size=16)
+    if case == "dense":
+        kw = {}
+    else:
+        cfg = TINY_TEST.scaled(sliding_window=32)
+    with caplog.at_level(logging.WARNING):
+        eng = TorchEngine(cfg, params, device="cpu", num_slots=2, **kw)
+    assert eng.kv_compress_after == 256 and not eng.kv_compress_armed
+    want = ("needs a paged, unreplicated KV pool" if case == "dense"
+            else "is redundant under a model sliding window")
+    assert any(want in r.getMessage() for r in caplog.records)
+    eng.close()
 
 
 def test_moe_knobs_are_honoured_not_listed():
