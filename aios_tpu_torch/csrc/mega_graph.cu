@@ -9,8 +9,7 @@
 // the node's body graph, and whose handle the one-thread gate kernel below
 // sets from the live flags just before it: a tick runs while its index is
 // below the dispatch's cap and some slot is live (active, no stop id sampled,
-// budget left, below the context cap); the unified step's graph gates on
-// the cap alone. A tick that does not run writes
+// budget left, below the context cap). A tick that does not run writes
 // nothing; once one is skipped every later gate sees the same state and
 // skips too, so the ticks that ran are a prefix and their count is k.
 //
@@ -27,13 +26,12 @@
 namespace {
 
 __global__ void mega_gate_kernel(cudaGraphConditionalHandle handle, int has_handle, int tick,
-                                 int need_live, const int* __restrict__ cap,
+                                 const int* __restrict__ cap,
                                  const bool* __restrict__ active, const bool* __restrict__ done,
                                  const int* __restrict__ rem, const int* __restrict__ lengths,
                                  int ctx_cap, int slots, int* __restrict__ go_out) {
   int go = 0;
   if (tick < *cap) {
-    go = !need_live;
     for (int s = 0; s < slots && !go; ++s)
       go = active[s] && !done[s] && rem[s] > 0 && lengths[s] < ctx_cap;
   }
@@ -43,16 +41,16 @@ __global__ void mega_gate_kernel(cudaGraphConditionalHandle handle, int has_hand
 
 }  // namespace
 
-// go_out[tick] = 1 when tick < *cap and, with need_live, some slot s <
-// slots has active[s], !done[s], rem[s] > 0 and lengths[s] < ctx_cap, else
-// 0; with has_handle, the conditional handle is set to the same value
-// (inside a graph launch only). One thread.
+// go_out[tick] = 1 when tick < *cap and some slot s < slots has active[s],
+// !done[s], rem[s] > 0 and lengths[s] < ctx_cap, else 0; with has_handle,
+// the conditional handle is set to the same value (inside a graph launch
+// only). One thread.
 extern "C" int aios_mega_gate(unsigned long long handle, int has_handle, int tick,
-                              int need_live, const void* cap, const void* active,
-                              const void* done, const void* rem, const void* lengths,
-                              int ctx_cap, int slots, void* go_out, void* stream) {
+                              const void* cap, const void* active, const void* done,
+                              const void* rem, const void* lengths, int ctx_cap, int slots,
+                              void* go_out, void* stream) {
   mega_gate_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<cudaGraphConditionalHandle>(handle), has_handle, tick, need_live,
+      static_cast<cudaGraphConditionalHandle>(handle), has_handle, tick,
       static_cast<const int*>(cap), static_cast<const bool*>(active),
       static_cast<const bool*>(done), static_cast<const int*>(rem),
       static_cast<const int*>(lengths), ctx_cap, slots, static_cast<int*>(go_out));

@@ -418,7 +418,6 @@ class ContinuousBatcher:
         # JAX batcher's attach compiles its missing sizes); a failed capture
         # raises here
         engine.capture_step()
-        engine.capture_unified(max(self.chunk_steps, self.admit_chunk_steps))
         if engine.mega_ticks:
             # the megagraph windows this batcher dispatches, each size
             # capped at K and bucketed (warmup covers them already unless

@@ -95,9 +95,10 @@ tokens while N+1 runs); ``mega_step`` runs up to ``mega_ticks`` decode
 ticks in one dispatch with sampling, stop, budget and context-cap checks on
 the device and an early exit once no slot needs another tick (on CUDA one
 replay of a graph whose ticks are conditional nodes, ``ops/mega_graph.py``,
-one graph per power-of-two bucket, captured at warmup); with
-``unified_step`` a CUDA engine's ``step(n)`` replays one such graph gated
-on n alone instead of n replays of the one-tick graph. Window+sink KV
+one graph per power-of-two bucket, captured at warmup). The JAX
+``unified_step`` (one graph for every decode chunk size) is the port's
+shape already: ``step(n)`` replays the one-step graph n times for every n,
+so the knob is resolved and reported and changes no dispatch. Window+sink KV
 compression (``kv_compress_after``) prunes a long slot's pool pages to its
 sink pages and a trailing window (``PageAllocator.prune_range``); the
 slot's live-window start rides beside the page tables as a staged device
@@ -393,10 +394,9 @@ class PendingDecode:
 
 
 class _TickGraph:
-    """The static buffers of one multi-tick graph (a megagraph bucket, or
-    the unified step's): the tokens of its ``m`` ticks [m, S], each tick's
-    gate [m], and the kernel launches of one tick's body, which a replay
-    adds once per tick that ran."""
+    """The static buffers of one megagraph bucket: the tokens of its ``m``
+    ticks [m, S], each tick's gate [m], and the kernel launches of one
+    tick's body, which a replay adds once per tick that ran."""
 
     def __init__(self, m: int, num_slots: int, device: torch.device) -> None:
         self.m = m
@@ -629,7 +629,8 @@ class TorchEngine:
                            kv_sink_pages, kv_window_pages) -> None:
         """The decode loop's knobs as the JAX engine resolves them (an
         explicit argument, else its variable, else the config): the
-        unified step, the megagraph's tick cap and window+sink compression,
+        unified step (served by the one-step graph as it stands), the
+        megagraph's tick cap and window+sink compression,
         which arms only over the pool of a model without a sliding window,
         its threshold raised to the sink + window floor."""
         cfg = self.cfg
@@ -643,7 +644,6 @@ class TorchEngine:
         if unified_step is None:
             unified_step = _env_flag("AIOS_TPU_UNIFIED_STEP")
         self.unified_step = bool(cfg.unified_step if unified_step is None else unified_step)
-        self._unified_max = 0
         self.mega_ticks = max(knob(mega_ticks, "AIOS_TPU_MEGA_TICKS", cfg.mega_ticks), 0)
         self.mega_dispatches = 0
         self.mega_tick_total = 0
@@ -2031,9 +2031,9 @@ class TorchEngine:
                        eager: bool = False, rows=None) -> Tuple[np.ndarray, np.ndarray, int]:
         """The decode dispatch (the JAX ``_step_dispatch``): under the lock,
         back and stage, run ``n_steps`` steps (n replays of the one-step
-        graph, or with ``unified_step`` on CUDA one replay of the unified
-        graph), advance the host lengths; then read the tokens back outside
-        the lock. Returns (tokens [n, S], the host lengths after this
+        graph, which serves every n, with ``unified_step`` or without),
+        advance the host lengths; then read the tokens back outside the
+        lock. Returns (tokens [n, S], the host lengths after this
         dispatch, n). ``started`` (the dispatch worker's) is set once the
         lock is held."""
         with self._lock:
@@ -2046,20 +2046,13 @@ class TorchEngine:
                 self._write_mask(rows)
                 run = self._dispatcher("masked", functools.partial(self._step_body, True),
                                        eager)
-            elif self.unified_step and self.graphs.enabled and not eager:
-                run = None
             else:
                 run = self._dispatcher("step", self._step_body, eager)
-            if run is None:
-                self._stage_ticks(n_steps)
-                out = self._unified_replay(n_steps)
-                self.last_logits = None
-            else:
-                out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
-                                  device=self.device)
-                for i in range(n_steps):
-                    self.last_logits = run()
-                    out[i] = self.last_tokens
+            out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
+                              device=self.device)
+            for i in range(n_steps):
+                self.last_logits = run()
+                out[i] = self.last_tokens
             self.decode_steps += n_steps
             self._host_lengths = np.minimum(
                 self._host_lengths + n_steps, self.max_context - 1
@@ -2088,7 +2081,7 @@ class TorchEngine:
         fut = self._dispatch_worker().submit(self._step_dispatch, n_steps, started)
         return PendingDecode(fut, n_steps, started)
 
-    # -- multi-tick graphs: the megagraph and the unified step ----------------
+    # -- the megagraph ---------------------------------------------------------
 
     def mega_bucket(self, n: int) -> int:
         """The power-of-two megagraph bucket serving an ``n``-tick window
@@ -2098,51 +2091,44 @@ class TorchEngine:
             m *= 2
         return m
 
-    def _stage_ticks(self, cap: int, stops: Optional[np.ndarray] = None,
-                     budgets: Optional[np.ndarray] = None) -> None:
-        """Stage a multi-tick dispatch's operands: the tick cap, and for a
-        megagraph each slot's remaining budget and stop ids (pad -1).
-        Caller holds the lock."""
+    def _stage_ticks(self, cap: int, stops: np.ndarray, budgets: np.ndarray) -> None:
+        """Stage a megagraph dispatch's operands: the tick cap, each slot's
+        remaining budget and stop ids (pad -1). Caller holds the lock."""
         S = self.num_slots
         host = self._tick_ops.host
         host[0] = cap
-        if budgets is None:
-            self._tick_ops.push(1)
-            return
         host[1:1 + S] = budgets
         host[1 + S:] = np.asarray(stops, dtype=np.int32).reshape(-1)
         self._tick_ops.push()
 
-    def _tick_body(self, i: int, tg: _TickGraph, mega: bool) -> None:
-        """Tick ``i`` of a multi-tick dispatch on the static state: one
+    def _tick_body(self, i: int, tg: _TickGraph) -> None:
+        """Tick ``i`` of a megagraph dispatch on the static state: one
         decode step (``_step_body``), its tokens into row i of ``tg``'s
-        tokens and, for a megagraph, each slot's stop flag (the sampled
-        token is one of its stop ids) and budget. What the eager loop runs
-        and what a graph captures into tick i's conditional node."""
+        tokens, each slot's stop flag (the sampled token is one of its stop
+        ids) and budget. What the eager loop runs and what a graph captures
+        into tick i's conditional node."""
         self._step_body()
         tg.tokens[i].copy_(self.last_tokens)
-        if mega:
-            hit = (self.last_tokens[:, None] == self._tick_stops).any(dim=1)
-            torch.logical_or(self._tick_done, hit, out=self._tick_done)
-            self._tick_rem.sub_(1)
+        hit = (self.last_tokens[:, None] == self._tick_stops).any(dim=1)
+        torch.logical_or(self._tick_done, hit, out=self._tick_done)
+        self._tick_rem.sub_(1)
 
-    def _ticks_eager(self, tg: _TickGraph, mega: bool) -> int:
+    def _ticks_eager(self, tg: _TickGraph) -> int:
         """The ticks of ``tg`` one by one, each after its gate
         (``ops.mega_gate``, read back): the CPU's path and the card's eager
         twin of the replayed graph. Returns the ticks that ran."""
-        if mega:
-            self._tick_done.zero_()
+        self._tick_done.zero_()
         tg.go.zero_()
         for i in range(tg.m):
             ops.mega_gate(i, self._tick_cap, self.active_dev, self._tick_done, self._tick_rem,
-                          self.lengths, self.max_context - 1, tg.go, need_live=mega)
+                          self.lengths, self.max_context - 1, tg.go)
             if not int(tg.go[i]):
                 return i
-            self._tick_body(i, tg, mega)
+            self._tick_body(i, tg)
         return tg.m
 
-    def _capture_ticks(self, key: Tuple[str, int]) -> None:
-        """Capture the multi-tick graph ``key`` = ("mega" or "uni", m): a
+    def _capture_ticks(self, m: int) -> None:
+        """Capture the megagraph bucket ``("mega", m)``: a
         prologue, then for each of the m ticks the gate and a conditional
         node whose body is ``_tick_body`` (``ops.mega_graph.mega_tick``),
         then the readback, the m token rows and the tick count in one
@@ -2151,8 +2137,7 @@ class TorchEngine:
         the engine's stream and return nothing); the eager pass before the
         capture runs one tick with every slot inactive and puts the state
         back, as ``_capture`` does. Caller holds the lock."""
-        kind, m = key
-        mega = kind == "mega"
+        key = ("mega", m)
         tg = _TickGraph(m, self.num_slots, self.device)
         if self._tick_pool is None:
             self._tick_pool = self.graphs.new_pool()
@@ -2166,24 +2151,22 @@ class TorchEngine:
                      self._tick_ops.dev)
             saved = [t.clone() for t in state]
             self.active_dev.zero_()
-            self._tick_body(0, tg, mega)
+            self._tick_body(0, tg)
             ops.mega_gate(0, self._tick_cap, self.active_dev, self._tick_done, self._tick_rem,
-                          self.lengths, ctx, tg.go, need_live=mega)
+                          self.lengths, ctx, tg.go)
             for t, was in zip(state, saved):
                 t.copy_(was)
 
         def body() -> torch.Tensor:
             tg.go.zero_()
-            if mega:
-                self._tick_done.zero_()
+            self._tick_done.zero_()
             for i in range(m):
                 with mega_graph.mega_tick(self._tick_stream, self._tick_pool, i,
                                           self._tick_cap, self.active_dev, self._tick_done,
-                                          self._tick_rem, self.lengths, ctx, tg.go,
-                                          need_live=mega):
+                                          self._tick_rem, self.lengths, ctx, tg.go):
                     self._tick_pool_refs += 1
                     with build.recording_launches() as launches:
-                        self._tick_body(i, tg, mega)
+                        self._tick_body(i, tg)
                 if i == 0:
                     tg.tick_launches = launches
             return torch.cat([tg.tokens.view(-1), tg.go.sum().view(1).to(torch.int64)])
@@ -2195,47 +2178,19 @@ class TorchEngine:
                  self.cfg.name, key, m, sum(tg.tick_launches.values()),
                  time.perf_counter() - t0)
 
-    def _replay_ticks(self, key: Tuple[str, int]) -> Tuple[torch.Tensor, int]:
-        """Replay the multi-tick graph ``key`` (captured now if need be) on
+    def _replay_ticks(self, m: int) -> Tuple[torch.Tensor, int]:
+        """Replay the megagraph bucket ``m`` (captured now if need be) on
         the staged operands; read back its tokens and tick count k (the
         one readback) and count the launches of the k ticks that ran.
         Returns (tokens [k, S] on the host, k). Caller holds the lock."""
+        key = ("mega", m)
         if key not in self.graphs:
-            self._capture_ticks(key)
+            self._capture_ticks(m)
         tg = self._tick_graphs[key]
         host = self.graphs.replay(key).cpu()
         k = int(host[-1])
         build.add_launches(tg.tick_launches, k)
         return host[:-1].view(tg.m, self.num_slots)[:k], k
-
-    def _unified_replay(self, n_steps: int) -> torch.Tensor:
-        """The unified step (the JAX ``_unified_impl``): one replay of the
-        tick graph of the power-of-two bound m >= n (one graph for every n
-        up to the largest asked so far), its ticks gated on the cap n
-        alone. Returns the tokens [n, S]. Caller holds the lock and has
-        staged the cap."""
-        m = self._unified_max
-        if m < n_steps:
-            m = self.mega_bucket(n_steps)
-            self._unified_max = m
-        tokens, k = self._replay_ticks(("uni", m))
-        if k != n_steps:
-            raise RuntimeError(f"the unified step ran {k} of {n_steps} ticks")
-        return tokens
-
-    def capture_unified(self, n_steps: int) -> None:
-        """Ensure the unified step's graph serving ``n_steps`` exists
-        without dispatching (the twin of the JAX ``compile_step_fn`` in
-        unified mode); nothing to do off CUDA or without ``unified_step``."""
-        if not (self.graphs.enabled and self.unified_step):
-            return
-        with self._lock:
-            m = self._unified_max
-            if m < n_steps:
-                m = self.mega_bucket(n_steps)
-                self._unified_max = m
-            if ("uni", m) not in self.graphs:
-                self._capture_ticks(("uni", m))
 
     def capture_mega(self, k_bucket: int) -> None:
         """Ensure the ``k_bucket``-tick megagraph exists without
@@ -2245,17 +2200,14 @@ class TorchEngine:
             return
         with self._lock:
             if ("mega", k_bucket) not in self.graphs:
-                self._capture_ticks(("mega", k_bucket))
+                self._capture_ticks(k_bucket)
 
-    def capture_decode_loop(self, step_sizes: Tuple[int, ...] = (16,)) -> None:
-        """Capture the decode loop's multi-tick graphs that ``warmup``
-        covers: with ``unified_step`` the unified graph serving every size
-        up to the largest of ``step_sizes``; with ``mega_ticks`` every
-        power-of-two megagraph bucket up to ``mega_bucket(mega_ticks)``
-        (the batcher's window is min(chunk, mega_ticks), and shorter
-        windows bucket down). Nothing to do off CUDA."""
-        if step_sizes:
-            self.capture_unified(max(step_sizes))
+    def capture_decode_loop(self) -> None:
+        """Capture the megagraph buckets that ``warmup`` covers: with
+        ``mega_ticks`` every power-of-two bucket up to
+        ``mega_bucket(mega_ticks)`` (the batcher's window is min(chunk,
+        mega_ticks), and shorter windows bucket down). Nothing to do off
+        CUDA or with the megagraph off."""
         if self.mega_ticks:
             m = 1
             while m <= self.mega_bucket(self.mega_ticks):
@@ -2297,12 +2249,12 @@ class TorchEngine:
                 tg = self._tick_graphs.get(("eager", m))
                 if tg is None:
                     tg = self._tick_graphs[("eager", m)] = _TickGraph(m, S, self.device)
-                k = self._ticks_eager(tg, mega=True)
+                k = self._ticks_eager(tg)
                 # a copy: the buffer is the next dispatch's, which a
                 # pipelined caller issues before it reads these
                 tokens = tg.tokens[:k].to("cpu", copy=True)
             else:
-                tokens, k = self._replay_ticks(("mega", m))
+                tokens, k = self._replay_ticks(m)
             self.last_logits = None
             self.mega_dispatches += 1
             self.mega_tick_total += k
@@ -2326,12 +2278,6 @@ class TorchEngine:
         <= n_ticks the ticks that ran. On CUDA one replay of the bucket's
         graph (``mega_bucket``), whose ticks are conditional nodes."""
         return self._mega_dispatch(n_ticks, stops, budgets)
-
-    def mega_step_eager(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
-                        ) -> Tuple[np.ndarray, np.ndarray, int]:
-        """``mega_step`` through the eager loop (each gate read back), the
-        plain twin of the replayed graph on the card (see ``step_eager``)."""
-        return self._mega_dispatch(n_ticks, stops, budgets, eager=True)
 
     def mega_step_async(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
                         ) -> PendingDecode:
@@ -2652,14 +2598,11 @@ class TorchEngine:
             out["jump_tokens"] = self.jump_tokens
         return out
 
-    def warmup(self, prefill_chunk: Optional[int] = None, masked_step: bool = False,
-               step_sizes: Tuple[int, ...] = (16,)) -> None:
+    def warmup(self, prefill_chunk: Optional[int] = None, masked_step: bool = False) -> None:
         """On a CUDA engine, build and load the kernel library, then capture
-        the decode step's graph (with ``unified_step`` also the unified
-        graph serving every size up to ``step_sizes``' largest, the batcher's
-        dispatch sizes; with ``mega_ticks`` every power-of-two megagraph
-        bucket up to ``mega_bucket(mega_ticks)``, as the JAX warmup compiles
-        them) and, where the engine speculates, the round
+        the decode step's graph (with ``mega_ticks`` also every power-of-two
+        megagraph bucket up to ``mega_bucket(mega_ticks)``, as the JAX
+        warmup compiles them) and, where the engine speculates, the round
         graph of spec_step's defaults (with a draft model also its fused
         round and every ingest width, ``capture_draft``), with ``masked_step`` the masked
         step's graph and, where ``jump_ahead_enabled``, the jump graph of
@@ -2683,7 +2626,7 @@ class TorchEngine:
                                         + [b for b, _ in chunks]) or None
             self._reserve_workspaces()
         self.capture_step()
-        self.capture_decode_loop(step_sizes)
+        self.capture_decode_loop()
         self.capture_spec()
         self.capture_draft()
         if masked_step:  # json-mode deployments dispatch step_masked

@@ -12,8 +12,6 @@ tick's decode step, captured straight into the node's own graph on a side
 stream (``mega_tick``). A tick past the real count k runs nothing, so it
 writes no pool row, length, history or token; every gate after a skipped
 tick sees the same state and skips too, so the ticks that ran are a prefix.
-The unified step uses the same graph with the cap alone (``need_live``
-off): one graph serves every step count.
 
 On CPU tensors ``mega_gate`` computes the gate with plain tensor ops (the
 eager loop breaks on it); on CUDA tensors it launches the kernel without a
@@ -33,23 +31,20 @@ import torch
 from . import build
 
 _V = ctypes.c_void_p
-# handle, has_handle, tick, need_live, then cap, active, done, rem, lengths,
-# ctx_cap, slots, go, the stream
-_GATE_ARGTYPES = ([ctypes.c_ulonglong] + [ctypes.c_int] * 3 + [_V] * 5
+# handle, has_handle, tick, then cap, active, done, rem, lengths, ctx_cap,
+# slots, go, the stream
+_GATE_ARGTYPES = ([ctypes.c_ulonglong] + [ctypes.c_int] * 2 + [_V] * 5
                   + [ctypes.c_int] * 2 + [_V, _V])
 
 
 def mega_gate_reference(tick: int, cap: torch.Tensor, active: torch.Tensor,
                         done: torch.Tensor, rem: torch.Tensor, lengths: torch.Tensor,
-                        ctx_cap: int, need_live: bool = True) -> torch.Tensor:
+                        ctx_cap: int) -> torch.Tensor:
     """The gate in plain tensor ops, int32 [1]: 1 when ``tick < cap[0]``
-    and (with ``need_live``) some slot s has active[s], not done[s],
-    rem[s] > 0 and lengths[s] < ctx_cap (the JAX loop's ``cond``)."""
-    go = cap[:1] > tick
-    if need_live:
-        live = active & ~done & (rem > 0) & (lengths < ctx_cap)
-        go = go & live.any()
-    return go.to(torch.int32)
+    and some slot s has active[s], not done[s], rem[s] > 0 and lengths[s]
+    < ctx_cap (the JAX loop's ``cond``)."""
+    live = active & ~done & (rem > 0) & (lengths < ctx_cap)
+    return ((cap[:1] > tick) & live.any()).to(torch.int32)
 
 
 def _check(cap, active, done, rem, lengths, go) -> None:
@@ -65,15 +60,13 @@ def _check(cap, active, done, rem, lengths, go) -> None:
                   "go must be a contiguous int32 vector")
 
 
-def _gate_args(tick, cap, active, done, rem, lengths, ctx_cap, go, need_live):
-    return (int(tick), int(need_live), *(build.ptr(t) for t in (cap, active, done, rem,
-                                                                 lengths)),
+def _gate_args(tick, cap, active, done, rem, lengths, ctx_cap, go):
+    return (int(tick), *(build.ptr(t) for t in (cap, active, done, rem, lengths)),
             int(ctx_cap), active.shape[0], build.ptr(go))
 
 
 def mega_gate(tick: int, cap: torch.Tensor, active: torch.Tensor, done: torch.Tensor,
-              rem: torch.Tensor, lengths: torch.Tensor, ctx_cap: int, go: torch.Tensor,
-              need_live: bool = True) -> None:
+              rem: torch.Tensor, lengths: torch.Tensor, ctx_cap: int, go: torch.Tensor) -> None:
     """Write the gate of tick ``tick`` into ``go[tick]``
     (``mega_gate_reference``). CPU operands take the plain version; CUDA
     operands launch the kernel (int32 cap [1], rem and lengths [S], bool
@@ -82,11 +75,11 @@ def mega_gate(tick: int, cap: torch.Tensor, active: torch.Tensor, done: torch.Te
     build.require(0 <= tick < go.shape[0], f"tick {tick} outside go[{go.shape[0]}]")
     if dev.type == "cpu":
         go[tick:tick + 1] = mega_gate_reference(tick, cap, active, done, rem, lengths,
-                                                ctx_cap, need_live)
+                                                ctx_cap)
         return
     _check(cap, active, done, rem, lengths, go)
     fn = build.kernel("mega_graph", "aios_mega_gate", _GATE_ARGTYPES)
-    rc = fn(0, 0, *_gate_args(tick, cap, active, done, rem, lengths, ctx_cap, go, need_live),
+    rc = fn(0, 0, *_gate_args(tick, cap, active, done, rem, lengths, ctx_cap, go),
             build.stream(dev))
     build.check("mega_graph", rc)
     build.count_launch(mega_gate)
@@ -98,8 +91,7 @@ mega_gate.launches = 0
 @contextmanager
 def mega_tick(body_stream: torch.cuda.Stream, pool, tick: int, cap: torch.Tensor,
               active: torch.Tensor, done: torch.Tensor, rem: torch.Tensor,
-              lengths: torch.Tensor, ctx_cap: int, go: torch.Tensor,
-              need_live: bool = True) -> Iterator[None]:
+              lengths: torch.Tensor, ctx_cap: int, go: torch.Tensor) -> Iterator[None]:
     """Inside a CUDA graph capture on the current stream: append the gate
     of tick ``tick`` (with a fresh conditional handle of the graph) and an
     IF node on that handle, then capture the block's work into the node's
@@ -116,7 +108,7 @@ def mega_tick(body_stream: torch.cuda.Stream, pool, tick: int, cap: torch.Tensor
     build.check("mega_graph", mk(_V(graph_stream), ctypes.byref(handle)))
     gate = build.kernel("mega_graph", "aios_mega_gate", _GATE_ARGTYPES)
     build.check("mega_graph", gate(handle.value, 1, *_gate_args(
-        tick, cap, active, done, rem, lengths, ctx_cap, go, need_live), _V(graph_stream)))
+        tick, cap, active, done, rem, lengths, ctx_cap, go), _V(graph_stream)))
     build.count_launch(mega_gate)
     begin = build.kernel("mega_graph", "aios_cond_if_begin", [_V, _V, ctypes.c_ulonglong])
     build.check("mega_graph", begin(_V(graph_stream), _V(body_stream.cuda_stream),

@@ -1349,14 +1349,14 @@ def check_mega_gate(gen) -> dict:
     """The megagraph's gate (``ops.mega_gate``, launched without a
     conditional handle) against its plain version over 8 slots: random live
     flags at every tick of an 8-tick window, each slot alone live, no slot
-    live and ticks past the cap; and with ``need_live`` off. Times one
-    launch beside the plain version's ops."""
+    live and ticks past the cap. Times one launch beside the plain
+    version's ops."""
     from aios_tpu_torch import ops
 
     S, K, ctx = 8, 8, 2047
     go = torch.zeros(K, dtype=torch.int32, device="cuda")
     worst, n = 0, 0
-    for trial in range(24):
+    for trial in range(48):
         cap = torch.tensor([trial % (K + 1)], dtype=torch.int32, device="cuda")
         active = torch.rand(S, generator=gen, device="cuda") < 0.6
         done = torch.rand(S, generator=gen, device="cuda") < 0.3
@@ -1366,13 +1366,11 @@ def check_mega_gate(gen) -> dict:
         if trial < S:  # one slot live alone
             active.zero_(), done.zero_(), rem.zero_()
             active[trial], rem[trial], lengths[trial] = True, 5, 10
-        for need_live in (True, False):
-            for tick in range(K):
-                ops.mega_gate(tick, cap, active, done, rem, lengths, ctx, go, need_live)
-                want = ops.mega_gate_reference(tick, cap, active, done, rem, lengths, ctx,
-                                               need_live)
-                worst = max(worst, abs(int(go[tick]) - int(want[0])))
-                n += 1
+        for tick in range(K):
+            ops.mega_gate(tick, cap, active, done, rem, lengths, ctx, go)
+            want = ops.mega_gate_reference(tick, cap, active, done, rem, lengths, ctx)
+            worst = max(worst, abs(int(go[tick]) - int(want[0])))
+            n += 1
     expect(worst == 0, "mega_gate disagrees with its plain version")
     cap = torch.tensor([K], dtype=torch.int32, device="cuda")
     args = (3, cap, active, done, rem, lengths, ctx)
@@ -1380,7 +1378,7 @@ def check_mega_gate(gen) -> dict:
     plain = time_ms(lambda: ops.mega_gate_reference(*args))
     bnd = bound_ms(S * (1 + 1 + 4 + 4) + 4 + 4, 4.0 * S)
     _report("mega_gate", f"{n} gates of 8 slots (random flags, one live slot, none, past "
-            "the cap, need_live on and off)", ms, plain, None, bnd, float(worst), True)
+            "the cap)", ms, plain, None, bnd, float(worst), True)
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
                 max_abs_err=float(worst), measured_at="one launch, 8 slots")
 
@@ -5954,8 +5952,8 @@ def _tick_cost(fn, ticks: int):
 
 def _loop_dispatch(eng, mode: str, ticks: int, budget: int = 10 ** 6):
     """One dispatch of ``ticks`` decode ticks over the live slots as
-    ``mode`` issues it: ``step`` (the one-tick graph replayed, or with the
-    unified step one graph), ``step_async`` waited for, or megagraph
+    ``mode`` issues it: ``step`` (the one-tick graph replayed, with the
+    unified step or without), ``step_async`` waited for, or megagraph
     dispatches of K ticks each with ``budget`` tokens a slot."""
     S = eng.num_slots
     stops = np.full((S, 4), -1, np.int32)
@@ -5972,6 +5970,49 @@ def _loop_dispatch(eng, mode: str, ticks: int, budget: int = 10 ** 6):
     return lambda: eng.step(ticks)
 
 
+def _tick_profile(eng, tag: str, card: str) -> None:
+    """Where a megagraph tick's extra device time goes: one window of
+    LOOP_TICKS ticks over the live slots as megagraph dispatches of 8 and
+    as LOOP_TICKS replays of the one-tick step graph, from the same state,
+    each under torch.profiler after one unprofiled run: device events and
+    device ms a tick of each, and the kernels whose device time a tick
+    differs most between the two (the body's kernels, or the gate and what
+    the conditional nodes add)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    S = eng.num_slots
+    stops = np.full((S, 4), -1, np.int32)
+    budgets = np.full(S, 10 ** 6, np.int32)
+    runs = {"megagraph": lambda: [eng.mega_step(8, stops, budgets)
+                                  for _ in range(LOOP_TICKS // 8)],
+            "step graph": lambda: eng.step(LOOP_TICKS)}
+    snap = _snapshot(eng)
+    per = {}
+    for name, fn in runs.items():
+        fn()
+        _restore(eng, snap)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        _restore(eng, snap)
+        per[name] = {k: (c / LOOP_TICKS, us / LOOP_TICKS)
+                     for k, (c, us) in _device_kernels(prof).items()}
+    mega, step = per["megagraph"], per["step graph"]
+    expect(mega and step, f"[loop {tag}] the profiler saw no device time")
+    diff = sorted(set(mega) | set(step),
+                  key=lambda k: -abs(mega.get(k, (0, 0))[1] - step.get(k, (0, 0))[1]))
+    top = "; ".join(f"{k[:60]} {mega.get(k, (0, 0))[1] - step.get(k, (0, 0))[1]:+.1f} us "
+                    f"({mega.get(k, (0, 0))[0]:.2f} vs {step.get(k, (0, 0))[0]:.2f} a tick)"
+                    for k in diff[:8])
+    log(f"[loop {tag}] profile of {LOOP_TICKS} ticks over {S} slots, a tick: megagraph "
+        f"{sum(c for c, _ in mega.values()):.2f} device events, "
+        f"{sum(us for _, us in mega.values()) / 1e3:.4f} ms; step graph "
+        f"{sum(c for c, _ in step.values()):.2f} events, "
+        f"{sum(us for _, us in step.values()) / 1e3:.4f} ms; the kernels that differ most "
+        f"(megagraph less step graph, launches a tick): {top}, {card}")
+
+
 def _loop_mode(manager, stub, card: str, tag: str, path: str, mode: str, env: dict, reqs,
                base, timing: bool = True):
     """LoadModel ``path`` with the mode's knobs, a wave of ``reqs`` through
@@ -5986,9 +6027,8 @@ def _loop_mode(manager, stub, card: str, tag: str, path: str, mode: str, env: di
     expect(b.pipeline == ("AIOS_TPU_DECODE_PIPELINE" in env)
            and eng.unified_step == ("AIOS_TPU_UNIFIED_STEP" in env) and eng.mega_ticks == mega,
            f"[loop {tag}] {mode}: the knobs did not reach the engine and batcher")
-    if mega:
-        expect(eng.mega_graphs() == 4, f"[loop {tag}] {mode}: LoadModel captured "
-               f"{eng.mega_graphs()} megagraph buckets, not 1, 2, 4 and 8")
+    expect(eng.mega_graphs() == (4 if mega else 0), f"[loop {tag}] {mode}: LoadModel "
+           f"captured {eng.mega_graphs()} megagraph buckets, not {4 if mega else 0}")
     captured = eng.stats()["graph_captures"]
     ticks = _record_ticks(eng)
     gap0, disp0 = b.host_gap_seconds, b.decode_dispatches
@@ -6024,6 +6064,8 @@ def _loop_mode(manager, stub, card: str, tag: str, path: str, mode: str, env: di
             line += (f"; 7 dead ticks cost {eight[0] - one[0]:.3f} ms host wall and "
                      f"{eight[1] - one[1]:.3f} ms device (bucket 8 at k=1 {eight[0]:.3f} / "
                      f"{eight[1]:.3f} ms, bucket 1 {one[0]:.3f} / {one[1]:.3f} ms)")
+        if mode == "mega":
+            _tick_profile(eng, tag, card)
         for s_ in range(eng.num_slots):
             eng.release(s_)
     log(line + f", {card}")

@@ -10,7 +10,7 @@ multi-card port). Both packages run TINY_TEST on the same f32 weights
 batcher's, the tick count k of every megagraph dispatch to the JAX
 dispatch's; sampled streams only to the port's own sync loop (the JAX
 sampler's threefry stream is not the port's generator). On the CPU the
-port runs its graph bodies eagerly: the multi-tick graphs' plumbing (keys,
+port runs its graph bodies eagerly: the graphs' plumbing (keys,
 buckets, one graph for every step count, no capture after warmup) runs
 against a stand-in for the CUDA graphs whose replay runs the eager ticks.
 """
@@ -259,9 +259,9 @@ class _Replay:
 
 class _StandInGraphs(graphs.GraphSet):
     """A GraphSet enabled on the CPU. ``capture`` runs ``prepare`` and keeps
-    a replay: a multi-tick graph's runs the engine's eager ticks of its
-    bucket and packs them as the graph's readback (the m token rows, then
-    k); any other graph's reruns its body."""
+    a replay: a megagraph's runs the engine's eager ticks of its bucket
+    and packs them as the graph's readback (the m token rows, then k); any
+    other graph's reruns its body."""
 
     def __init__(self, eng):
         super().__init__(torch.device("cpu"), eng.generator)
@@ -274,11 +274,11 @@ class _StandInGraphs(graphs.GraphSet):
     def capture(self, key, body, prepare, pool=None):
         prepare()
         eng = self.eng
-        if isinstance(key, tuple) and key[0] in ("mega", "uni"):
+        if isinstance(key, tuple) and key[0] == "mega":
             tg = eng._tick_graphs[key]
 
             def run():
-                k = eng._ticks_eager(tg, key[0] == "mega")
+                k = eng._ticks_eager(tg)
                 return torch.cat([tg.tokens.view(-1), torch.tensor([k])])
         else:
             def run():
@@ -302,15 +302,21 @@ def _close(eng):
     eng.close()
 
 
-def _warm(eng, prefill_chunk=None, masked_step=False, step_sizes=(16,)):
+def _warm(eng, prefill_chunk=None, masked_step=False):
     """What ``warmup`` captures after the kernel build (which needs the
-    card): the step, the decode loop's tick graphs, the masked step and
-    the admission graphs."""
+    card): the step, the megagraph buckets, the masked step and the
+    admission graphs."""
     eng.capture_step()
-    eng.capture_decode_loop(step_sizes)
+    eng.capture_decode_loop()
     if masked_step:
         eng.capture_masked()
     eng.capture_admission(prefill_chunk)
+
+
+def _decode_graphs(gs):
+    """The keys of the stand-in's graphs other than the whole-prompt
+    prefill's."""
+    return [k for k in gs.graphs if not (isinstance(k, tuple) and k[0] == "prefill")]
 
 
 def _port_engine(torch_params, **kw):
@@ -320,14 +326,14 @@ def _port_engine(torch_params, **kw):
 
 def test_no_capture_after_warmup_serving_sweep(torch_params, monkeypatch):
     """Warmup captures every graph the decode loop dispatches (the step,
-    the unified graph, every megagraph bucket, the admission graphs): a
-    sweep of every step size, the masked step and a mega wave after it
-    captures nothing."""
+    every megagraph bucket, the admission graphs): a sweep of every step
+    size, the unified step's among them, the masked step and a mega wave
+    after it captures nothing."""
     eng = _port_engine(torch_params, unified_step=True, mega_ticks=8)
     gs = _stand_in(eng, monkeypatch)
     _warm(eng, prefill_chunk=32, masked_step=True)
     keys = set(gs.graphs)
-    assert {("uni", 16), ("mega", 1), ("mega", 2), ("mega", 4), ("mega", 8)} <= keys
+    assert {"step", ("mega", 1), ("mega", 2), ("mega", 4), ("mega", 8)} <= keys
     before = gs.captures
     eng.prefill(0, [3, 17, 91, 4], temperature=0.0)
     for n in (1, 2, 8, 16, 5):
@@ -342,16 +348,16 @@ def test_no_capture_after_warmup_serving_sweep(torch_params, monkeypatch):
 
 
 def test_unified_step_greedy_identical_one_graph(torch_params, jax_params, monkeypatch):
-    """AIOS_TPU_UNIFIED_STEP: one graph, the tick graph of the largest
-    size, serves every step count (warmed or not) with no capture, and
-    the greedy stream is the one-step graph's and the JAX unified
-    engine's."""
+    """AIOS_TPU_UNIFIED_STEP: one graph, the one-step graph, serves every
+    step count (the sizes of a JAX warmup and two it never warms) with no
+    capture, and the greedy stream is the engine's without the knob and
+    the JAX unified engine's."""
     uni = _port_engine(torch_params, unified_step=True)
     ref = _port_engine(torch_params)
     gs = _stand_in(uni, monkeypatch)
-    _warm(uni, prefill_chunk=0, step_sizes=(1, 2, 8, 16))
-    assert sorted(k for k in gs.graphs if isinstance(k, tuple) and k[0] == "uni") == [
-        ("uni", 16)]
+    _warm(uni, prefill_chunk=0)
+    assert uni.unified_step and not ref.unified_step
+    assert _decode_graphs(gs) == ["step"]
     before = gs.captures
     je = TPUEngine(JAX_CFG, jax_params, num_slots=4, max_context=CTX,
                    cache_dtype=jnp.float32, unified_step=True)
@@ -364,7 +370,7 @@ def test_unified_step_greedy_identical_one_graph(torch_params, jax_params, monke
         plain += [int(t) for t in ref.step(n)[:, 0]]
         want += [int(t) for t in je.step(n)[:, 0]]
     assert got == plain == want
-    assert gs.captures == before
+    assert gs.captures == before and _decode_graphs(gs) == ["step"]
     assert uni.decode_steps == ref.decode_steps == 35
     _close(uni)
     ref.close()
@@ -373,15 +379,15 @@ def test_unified_step_greedy_identical_one_graph(torch_params, jax_params, monke
 
 def test_batcher_attach_captures_missing_sizes_without_dispatch(torch_params, monkeypatch):
     """A batcher whose sizes the engine's warmup did not cover captures
-    them when it attaches (the unified bound, the megagraph buckets), and
-    the engine's state does not move."""
+    them when it attaches (the step, the megagraph buckets of its windows),
+    and the engine's state does not move."""
     eng = _port_engine(torch_params, unified_step=True, mega_ticks=16)
     gs = _stand_in(eng, monkeypatch)
-    _warm(eng, prefill_chunk=0, step_sizes=(4,))
-    assert ("uni", 4) in gs.graphs and ("mega", 16) in gs.graphs
+    assert eng.mega_graphs() == 0 and not gs.graphs
     b = ContinuousBatcher(eng, chunk_steps=5, admit_chunk_steps=3)
     try:
-        assert ("uni", 8) in gs.graphs and eng._unified_max == 8
+        assert {"step", ("mega", 4), ("mega", 8)} <= set(gs.graphs)
+        assert eng.mega_graphs() == 2
         assert eng.decode_steps == 0 and not eng.active.any()
         assert int(eng.lengths.abs().sum()) == 0
     finally:
@@ -430,7 +436,8 @@ def test_each_mode_over_the_pool_is_the_jax_stream(torch_params, pool_reference,
                                                    monkeypatch):
     """Over the page pool, each mode of the port's loop gives the JAX
     batcher's greedy streams (the unified step through the stand-in for the
-    CUDA graphs, so that its one graph serves the dispatches)."""
+    CUDA graphs, so that its one graph, the one-step graph, serves the
+    dispatches)."""
     reqs, want = pool_reference
     kw = dict(MODES[mode])
     eng = TorchEngine(CFG, torch_params, cache_dtype=torch.float32, device="cpu",
@@ -447,7 +454,7 @@ def test_each_mode_over_the_pool_is_the_jax_stream(torch_params, pool_reference,
         b.shutdown()
     assert got == want
     if mode == "unified":
-        assert [k for k in gs.graphs if k[0] == "uni"] == [("uni", 4)]
+        assert "step" in gs.graphs and eng.mega_graphs() == 0
         _close(eng)
     else:
         assert (eng.mega_dispatches > 0) == ("mega" in mode)
@@ -637,8 +644,7 @@ def test_mega_failover_mid_megadispatch_resumes(torch_params, jax_params, no_fau
 def test_mega_gate_reference_is_the_jax_cond():
     """The gate's plain version (the CPU's, and the kernel's check on the
     card) is the JAX loop's cond: tick < cap and some slot active, not
-    done, with budget and below the context cap; with need_live off, the
-    cap alone."""
+    done, with budget and below the context cap."""
     S = 4
     cap = torch.tensor([3], dtype=torch.int32)
     active = torch.tensor([True, True, False, True])
@@ -653,8 +659,12 @@ def test_mega_gate_reference_is_the_jax_cond():
     go.zero_()
     ops.mega_gate(0, cap, active, done, rem, lengths, 127, go)
     assert int(go[0]) == 0
-    ops.mega_gate(1, cap, active, done, rem, lengths, 127, go, need_live=False)
-    assert int(go[1]) == 1
-    ops.mega_gate(3, cap, active, done, rem, lengths, 127, go, need_live=False)
-    assert int(go[3]) == 0
+    lengths[3] = 126
+    done[3] = True  # slot 3 done: no slot live
+    ops.mega_gate(1, cap, active, done, rem, lengths, 127, go)
+    assert int(go[1]) == 0
+    rem[0] = 1  # slot 0 with budget again: live
+    ops.mega_gate(1, cap, active, done, rem, lengths, 127, go)
+    ops.mega_gate(3, cap, active, done, rem, lengths, 127, go)
+    assert go.tolist() == [0, 1, 0, 0]
     assert go.shape == (S,)
