@@ -1196,6 +1196,15 @@ class ContinuousBatcher:
 
     # -- grammar jump-ahead (compressed-FSM run collapse) ----------------------
 
+    def _grammar_budget(self, slot: int, live: _Live) -> int:
+        """Tokens a constrained request may still emit: what its max_tokens
+        leaves, and no more than its cache rows hold (``_emit`` retires it
+        at row C - 1), so the grammar's closing walk ends the structure
+        before either runs out. (The JAX batcher bounds it by max_tokens
+        alone, so a budget past the cache end truncates the structure.)"""
+        room = self.engine.max_context - 1 - self.engine.slot_length(slot)
+        return max(min(live.req.max_tokens - live.produced, room), 1)
+
     def _jump_tick(self, constrained: List[Tuple[int, _Live]]) -> bool:
         """Collapse chains of grammar-FORCED tokens into one multi-token
         dispatch (``engine.jump_step``) instead of one masked dispatch each.
@@ -1212,7 +1221,7 @@ class ContinuousBatcher:
             c = live.constraint
             if c is None or c.failed:
                 continue
-            rem = live.req.max_tokens - live.produced
+            rem = self._grammar_budget(s, live)
             # the verify-write contract: post-run length <= C-2
             room = self.engine.max_context - 2 - self.engine.slot_length(s)
             cap = min(self.jump_max, rem, room)
@@ -1260,8 +1269,8 @@ class ContinuousBatcher:
         other slots' rows zero."""
         if self.jump_ahead and not self.degrade_jump and self._jump_tick(constrained):
             return
-        rows = {s: live.constraint.device_mask(
-            remaining=live.req.max_tokens - live.produced) for s, live in constrained}
+        rows = {s: live.constraint.device_mask(remaining=self._grammar_budget(s, live))
+                for s, live in constrained}
         try:
             gap = self._note_dispatch()
             t0 = time.monotonic()

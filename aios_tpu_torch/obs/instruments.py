@@ -3,8 +3,9 @@
 Copied from ``aios_tpu/obs/instruments.py``: the families that the replica
 pool, admission, failover, the batcher and its pipelined loop, the engine's
 speculation, megagraph, window+sink compression and prefix cache's host
-tier, the runtime service and the fault points touch,
-under the JAX package's names. The names do not collide when both packages
+tier, the runtime service and the fault points touch, and those of the service
+plane (orchestrator, agents, gateway, memory tiers, tools), under the JAX
+package's names. The names do not collide when both packages
 run in one process (the parity tests): each package's
 instruments register in its own ``metrics.REGISTRY``, so one name lives
 once in each registry and never twice in one. The other JAX families (RPC
@@ -281,4 +282,72 @@ FAULTS_INJECTED = Counter(
     "Faults fired by the seeded injection layer (point = injection-point "
     "name from faults.POINTS, mode = nth|prob|after)",
     ("point", "mode"),
+)
+
+# -- orchestrator ----------------------------------------------------------
+
+GOAL_TASKS = Counter(
+    "aios_tpu_goal_tasks_total",
+    "Task outcomes recorded by the result aggregator (outcome=success|failure)",
+    ("outcome",),
+)
+GOAL_TASK_TOKENS = Counter(
+    "aios_tpu_goal_task_tokens_total",
+    "Model tokens consumed by recorded task outcomes",
+)
+GOAL_TASK_DURATION = Histogram(
+    "aios_tpu_goal_task_duration_seconds",
+    "Wall time of recorded task outcomes",
+)
+DECISIONS = Counter(
+    "aios_tpu_decisions_total",
+    "Decisions logged, by intelligence level",
+    ("level",),
+)
+SCHEDULER_FIRED = Counter(
+    "aios_tpu_scheduler_fired_total",
+    "Cron schedules fired into goal submission",
+)
+ROUTER_TASKS = Counter(
+    "aios_tpu_router_tasks_total",
+    "Task routing outcomes (outcome=routed|ai_path|no_capable_agent)",
+    ("outcome",),
+)
+
+# -- agents ----------------------------------------------------------------
+
+AGENT_RESTARTS = Counter(
+    "aios_tpu_agent_restarts_total",
+    "Agent child-process restarts by the spawner",
+    ("agent",),
+)
+
+# -- api gateway -----------------------------------------------------------
+
+GATEWAY_SPEND = Counter(
+    "aios_tpu_gateway_spend_usd_total",
+    "Cloud spend recorded against provider budgets (USD)",
+    ("provider",),
+)
+GATEWAY_TOKENS = Counter(
+    "aios_tpu_gateway_tokens_total",
+    "Cloud tokens by provider and direction (input|output)",
+    ("provider", "direction"),
+)
+
+# -- memory tiers ----------------------------------------------------------
+
+MEMORY_TIER_LOOKUPS = Counter(
+    "aios_tpu_memory_tier_lookups_total",
+    "Tier lookups (tier=operational|working|longterm|knowledge, "
+    "result=hit|miss)",
+    ("tier", "result"),
+)
+
+# -- tools -----------------------------------------------------------------
+
+TOOL_INVOCATIONS = Counter(
+    "aios_tpu_tool_invocations_total",
+    "Tool executions recorded in the audit ledger (outcome=success|failure)",
+    ("tool", "outcome"),
 )

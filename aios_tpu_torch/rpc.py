@@ -1,11 +1,11 @@
 """Programmatic gRPC stub/servicer construction.
 
-A copy of the parts of ``aios_tpu/rpc.py`` the runtime surface needs: each
+A copy of the parts of ``aios_tpu/rpc.py`` the services need: each
 service is described once by a ``ServiceSpec`` (method name -> request and
 response classes + streaming flags) and turned, at import time, into what
 grpcio-tools would generate — a Stub class, an abstract Servicer base and a
-registration function. The observability and fault-injection interceptors
-of the JAX package arrive with the port's serving plane.
+registration function. The JAX package's observability, fault-injection and
+per-edge network-fault interceptors are not ported yet.
 """
 
 from __future__ import annotations
@@ -107,10 +107,10 @@ _CHANNEL_OPTIONS = (
 )
 
 
-def create_server() -> grpc.Server:
+def create_server(max_workers: int = 16) -> grpc.Server:
     """A threaded gRPC server with aiOS-standard channel options."""
     return grpc.server(
-        concurrent.futures.ThreadPoolExecutor(max_workers=16),
+        concurrent.futures.ThreadPoolExecutor(max_workers=max_workers),
         options=list(_CHANNEL_OPTIONS),
     )
 

@@ -45,6 +45,7 @@ from ..engine.batching import Request
 from ..engine.tokenizer import render_chat
 from ..obs import flightrec
 from ..obs import instruments as obs
+from ..obs.http import maybe_start_metrics_server
 from ..proto_gen import common_pb2, runtime_pb2
 from ..serving import AdmissionError, tenant_of
 from ..services import RUNTIME, AIRuntimeServicer, service_address
@@ -294,13 +295,16 @@ class RuntimeService(AIRuntimeServicer):
 
 def serve(address: Optional[str] = None, manager: Optional[ModelManager] = None,
           block: bool = True):
-    """Start the runtime gRPC server; returns (server, service, port)."""
-    address = address or service_address()
+    """Start the runtime gRPC server; returns (server, service, port).
+    AIOS_RUNTIME_METRICS_PORT only warns: the metrics endpoint is not
+    ported yet."""
+    address = address or service_address("runtime")
     server = rpc.create_server()
     service = RuntimeService(manager)
     rpc.add_to_server(RUNTIME, service, server)
     port = server.add_insecure_port(address)
     server.start()
+    maybe_start_metrics_server("runtime")
     log.info("AIRuntime (%s) listening on %s", service.manager.backend, address)
     if block:
         server.wait_for_termination()
@@ -308,7 +312,15 @@ def serve(address: Optional[str] = None, manager: Optional[ModelManager] = None,
 
 
 if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(description="The AIRuntime gRPC service.")
+    parser.add_argument(
+        "--device", default=None,
+        help="the torch device to serve on: the CUDA device by default (it "
+             "raises without one); 'cpu' serves the plain PyTorch path")
+    args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
-    manager = ModelManager()
+    manager = ModelManager(device=args.device)
     manager.autoload()  # every *.gguf in AIOS_MODEL_DIR
     serve(manager=manager)

@@ -256,6 +256,29 @@ Phases, each printing its lines:
      the gate (``mega_gate``) against its plain version and K6/K7 with the
      sink predicate (``SINK_CASES``). Its served runs add to the kernels
      line.
+  18. the aiOS service plane (``phase_stack``, last) — in this process on
+     random 127.0.0.1 ports, every piece from the port: memory, tools (an
+     executor under a temporary directory whose registry holds only
+     ``READ_ONLY_TOOLS``: idempotent tools that read local state, so a model
+     with random weights can spawn, kill, write, install or reach the
+     network with none), the runtime serving TinyLlama-1.1B at full width
+     over 8192 rows (int8 weights, bf16 pool ``auto``, graphs captured at
+     LoadModel), the gateway with its local provider only (cloud keys
+     unset) and the orchestrator from ``build_orchestrator`` with its
+     autonomy loop live:
+     8 heuristic goals ("check cpu usage", completed through ``monitor.cpu``
+     over the tools gRPC; p50 SubmitGoal -> completed), a goal routed to a
+     SystemAgent thread, 8 gateway Infer beside 8 direct runtime Infer of
+     the same prompts and one gateway StreamInfer (``local/`` models, K1-K3
+     launched across them; p50s), a goal no heuristic takes under
+     ``AIOS_TPU_GUIDED_TOOLCALLS=1`` (every reply parses with catalog tools
+     that ran over the tools gRPC, the goal terminal; reasoning calls,
+     masked steps, jumps, the runtime's share of the goal's wall) and the
+     console's ``/api/status`` and ``/api/serving``; then the supervisor
+     boots the five services as processes by ``default_services`` (the
+     runtime child on the card), answers one LoadModel, one gateway Infer and
+     one heuristic goal and shuts down with no process left. Its
+     in-process runs add to the kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -6303,6 +6326,546 @@ def phase_decode_loop(card: str) -> dict:
     return acc
 
 
+# -- phase 18: the aiOS service plane on the port's runtime -----------------------
+
+STACK_MODEL = "tinyllama-stack"
+STACK_SOURCE = "synthetic://tinyllama-1.1b"
+STACK_GOALS = 8  # heuristic goals, one after another
+STACK_INFERS = 8  # pairs of one direct runtime Infer and one gateway Infer
+STACK_INFER_TOKENS = 32
+STACK_TIMEOUT = 240.0  # seconds any one goal may take to reach a terminal state
+# TinyLlama's rows in the phase: a reasoning prompt holds the goal's earlier
+# replies, and random weights' replies are bytes that decode to U+FFFD (three
+# bytes each again), so by the fourth call a prompt passes 2048 byte tokens;
+# 8192 holds it and the 2048-token budget the autonomy loop asks
+STACK_CONTEXT = 8192
+HEURISTIC_GOAL = "check cpu usage"
+AGENT_GOAL = "check memory usage and report status"
+# operational (one reasoning round a try), and no heuristic takes it
+GUIDED_GOAL = "Summarize how this host is doing for the operator"
+TERMINAL_GOAL = ("completed", "failed", "cancelled")
+CLOUD_KEYS = ("CLAUDE_API_KEY", "OPENAI_API_KEY", "QWEN3_API_KEY")
+# The tools a model with random weights may reach here: idempotent, and their
+# handlers only read local state (no subprocess, no socket past 127.0.0.1, no
+# write, no walk of a whole tree).
+READ_ONLY_TOOLS = (
+    "fs.disk_usage", "fs.list", "fs.read", "fs.stat", "hw.info", "monitor.cpu",
+    "monitor.disk", "monitor.memory", "monitor.network", "net.interfaces",
+    "plugin.list", "process.cgroup", "process.info", "process.list", "sec.audit",
+    "sec.audit_query", "sec.scan_rootkits", "self.health", "self.inspect",
+)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def read_only_registry(executor) -> None:
+    """Cut ``executor.registry`` to ``READ_ONLY_TOOLS``, each idempotent."""
+    for name in READ_ONLY_TOOLS:
+        expect(executor.registry[name].idempotent, f"{name} is not idempotent")
+    for name in list(executor.registry):
+        if name not in READ_ONLY_TOOLS:
+            del executor.registry[name]
+
+
+class Stack:
+    """The port's five services in this process on 127.0.0.1:0: memory,
+    tools (an executor under ``tmp`` holding ``READ_ONLY_TOOLS`` only), the
+    runtime over ``manager``, the gateway with its local provider only (the
+    cloud keys unset) and the orchestrator from ``build_orchestrator`` with
+    its autonomy loop live and its console on a free port. ``setenv(name,
+    value)`` sets the environment (None unsets); the caller restores it."""
+
+    def __init__(self, tmp: str, manager, setenv) -> None:
+        self.tmp, self.manager, self.setenv = tmp, manager, setenv
+        self.servers, self.channels = [], []
+        self.ports = {}
+        self.autonomy = self.console = None
+        self.timeout = STACK_TIMEOUT  # seconds a goal may take to be terminal
+
+    def start(self) -> "Stack":
+        from aios_tpu_torch import rpc, services
+        from aios_tpu_torch.gateway.router import RequestRouter
+        from aios_tpu_torch.gateway.service import serve as serve_gateway
+        from aios_tpu_torch.memory.service import serve as serve_memory
+        from aios_tpu_torch.orchestrator.autonomy import AutonomyConfig
+        from aios_tpu_torch.orchestrator.clients import ServiceClients
+        from aios_tpu_torch.orchestrator.main import build_orchestrator
+        from aios_tpu_torch.orchestrator.management import ManagementConsole
+        from aios_tpu_torch.orchestrator.service import serve as serve_orch
+        from aios_tpu_torch.runtime.service import serve as serve_runtime
+        from aios_tpu_torch.tools.executor import ToolExecutor
+        from aios_tpu_torch.tools.service import serve as serve_tools
+
+        for k in CLOUD_KEYS + ("AIOS_TPU_GUIDED_TOOLCALLS",):
+            self.setenv(k, None)
+        here = "127.0.0.1:0"
+        server, _, self.ports["memory"] = serve_memory(
+            address=here, data_dir=os.path.join(self.tmp, "memory"), block=False)
+        self.servers.append(server)
+        self.executor = ToolExecutor(
+            audit_path=os.path.join(self.tmp, "audit.db"),
+            backup_dir=os.path.join(self.tmp, "backups"),
+            plugin_dir=os.path.join(self.tmp, "plugins"),
+        )
+        read_only_registry(self.executor)
+        server, _, self.ports["tools"] = serve_tools(address=here, executor=self.executor,
+                                                     block=False)
+        self.servers.append(server)
+        server, self.runtime_service, self.ports["runtime"] = serve_runtime(
+            here, self.manager, block=False)
+        self.servers.append(server)
+        self.router = RequestRouter(runtime_address=f"127.0.0.1:{self.ports['runtime']}")
+        server, _, self.ports["gateway"] = serve_gateway(address=here, router=self.router,
+                                                         block=False)
+        self.servers.append(server)
+        addr = {n: f"127.0.0.1:{p}" for n, p in self.ports.items()}
+        for name, a in addr.items():
+            self.setenv(f"AIOS_{name.upper()}_ADDR", a)
+        clients = ServiceClients(runtime_addr=addr["runtime"], tools_addr=addr["tools"],
+                                 memory_addr=addr["memory"], gateway_addr=addr["gateway"])
+        (self.orch_service, self.autonomy, _scheduler, _proactive, _health, _bus,
+         serving) = build_orchestrator(
+            data_dir=os.path.join(self.tmp, "orchestrator"), clients=clients,
+            autonomy_config=AutonomyConfig(tick_interval=0.05))
+        self.autonomy.start()
+        server, _, self.ports["orchestrator"] = serve_orch(
+            address=here, service=self.orch_service, block=False)
+        self.servers.append(server)
+        self.setenv("AIOS_ORCHESTRATOR_ADDR", f"127.0.0.1:{self.ports['orchestrator']}")
+        self.console = ManagementConsole(self.orch_service, port=0, serving_stats=serving)
+        self.console.start()
+
+        def stub(name, cls):
+            ch = rpc.insecure_channel(f"127.0.0.1:{self.ports[name]}")
+            self.channels.append(ch)
+            return cls(ch)
+
+        self.orch = stub("orchestrator", services.OrchestratorStub)
+        self.runtime = stub("runtime", services.AIRuntimeStub)
+        self.gateway = stub("gateway", services.ApiGatewayStub)
+        self.memory = stub("memory", services.MemoryServiceStub)
+        self.tools = stub("tools", services.ToolRegistryStub)
+        return self
+
+    def stop(self) -> None:
+        if self.autonomy is not None:
+            self.autonomy.stop()
+        if self.console is not None:
+            self.console.stop()
+        for ch in self.channels:
+            ch.close()
+        for server in self.servers:
+            server.stop(grace=None)
+
+    def load(self, source: str, context_length: int = 0):
+        """LoadModel ``source`` as ``STACK_MODEL`` over gRPC; its ManagedModel."""
+        from aios_tpu_torch.proto_gen import runtime_pb2
+
+        st = self.runtime.LoadModel(runtime_pb2.LoadModelRequest(
+            model_name=STACK_MODEL, model_path=source, context_length=context_length),
+            timeout=1200)
+        expect(st.status == "ready", f"LoadModel {source} returned {st.status!r}")
+        return self.manager.get(STACK_MODEL)
+
+    def goal(self, description: str):
+        return wait_goal(self.orch, description, self.timeout)
+
+
+def wait_goal(orch, description: str, timeout: float = STACK_TIMEOUT):
+    """Submit ``description`` and poll every 5 ms until the goal is
+    terminal; (GoalStatusResponse, ms from SubmitGoal to terminal)."""
+    from aios_tpu_torch.proto_gen import common_pb2, orchestrator_pb2
+
+    t0 = time.perf_counter()
+    gid = orch.SubmitGoal(orchestrator_pb2.SubmitGoalRequest(
+        description=description, source="chip_smoke"), timeout=30).id
+    while True:
+        st = orch.GetGoalStatus(common_pb2.GoalId(id=gid), timeout=30)
+        if st.goal.status in TERMINAL_GOAL:
+            return st, (time.perf_counter() - t0) * 1e3
+        expect(time.perf_counter() - t0 < timeout,
+               f"goal {description!r} not terminal after {timeout} s: {st.goal.status}")
+        time.sleep(0.005)
+
+
+def _p50(xs) -> float:
+    return statistics.median(xs)
+
+
+def stack_heuristic(st: Stack, n: int = STACK_GOALS) -> float:
+    """``n`` heuristic goals, one after another: each completes through
+    ``monitor.cpu`` over the tools gRPC. The p50 of SubmitGoal -> completed."""
+    ms = []
+    for _ in range(n):
+        status, t = st.goal(HEURISTIC_GOAL)
+        expect(status.goal.status == "completed",
+               f"heuristic goal {status.goal.status}: {[t.error for t in status.tasks]}")
+        out = json.loads(status.tasks[0].output_json)
+        expect(out["tool_results"][0]["tool"] == "monitor.cpu"
+               and out["tool_results"][0]["success"], f"heuristic goal's tools: {out}")
+        ms.append(t)
+    return _p50(ms)
+
+
+def stack_agent(st: Stack) -> float:
+    """A SystemAgent thread registers, polls its task, runs it over the tools
+    gRPC and reports back; the goal completes, assigned to it. Its ms."""
+    from aios_tpu_torch.agents.catalog import SystemAgent
+
+    agent = SystemAgent(name="system_agent-stack")
+    agent.run(block=False)
+    try:
+        status, t = st.goal(AGENT_GOAL)
+    finally:
+        agent.shutdown()
+    expect(status.goal.status == "completed",
+           f"agent goal {status.goal.status}: {[t.error for t in status.tasks]}")
+    expect(status.tasks[0].assigned_agent == "system_agent-stack",
+           f"agent goal assigned to {status.tasks[0].assigned_agent!r}")
+    return t
+
+
+def stack_infer(st: Stack, n: int = STACK_INFERS) -> dict:
+    """``n`` pairs of one runtime Infer and one gateway Infer of the same
+    prompt and max_tokens (a fresh prompt a pair: the gateway caches
+    replies), alternating which goes first, then one gateway StreamInfer.
+    The gateway's replies come from the local provider with tokens. p50s."""
+    from aios_tpu_torch.proto_gen import api_gateway_pb2, runtime_pb2
+
+    st.runtime.Infer(runtime_pb2.InferRequest(prompt="warm up", max_tokens=4), timeout=300)
+    direct, gateway = [], []
+    for i in range(n):
+        prompt = f"Report the state of service {i} in one line."
+
+        def run_direct():
+            t0 = time.perf_counter()
+            r = st.runtime.Infer(runtime_pb2.InferRequest(
+                prompt=prompt, max_tokens=STACK_INFER_TOKENS, temperature=0.7), timeout=300)
+            direct.append((time.perf_counter() - t0) * 1e3)
+            expect(r.tokens_used > 0, f"runtime Infer {i}: no tokens")
+
+        def run_gateway():
+            t0 = time.perf_counter()
+            r = st.gateway.Infer(api_gateway_pb2.ApiInferRequest(
+                prompt=prompt, max_tokens=STACK_INFER_TOKENS, temperature=0.7), timeout=300)
+            gateway.append((time.perf_counter() - t0) * 1e3)
+            expect(r.model_used.startswith("local/") and r.tokens_used > 0,
+                   f"gateway Infer {i}: model_used {r.model_used!r}, tokens {r.tokens_used}")
+
+        for fn in ((run_direct, run_gateway) if i % 2 == 0 else (run_gateway, run_direct)):
+            fn()
+    chunks = list(st.gateway.StreamInfer(api_gateway_pb2.ApiInferRequest(
+        prompt="Stream the state of the fleet.", max_tokens=STACK_INFER_TOKENS,
+        temperature=0.7), timeout=300))
+    # random weights mostly sample ids the byte tokenizer does not print,
+    # so the stream may carry no text: its end and its provider are checked
+    expect(chunks and chunks[-1].done and not any(c.done for c in chunks[:-1]),
+           f"gateway StreamInfer: {len(chunks)} chunks, done at "
+           f"{[i for i, c in enumerate(chunks) if c.done]}")
+    expect(all(c.provider == "local" for c in chunks if c.provider),
+           f"gateway StreamInfer providers {sorted({c.provider for c in chunks})}")
+    return {"direct_p50": _p50(direct), "gateway_p50": _p50(gateway),
+            "stream_chunks": len(chunks)}
+
+
+def stack_guided(st: Stack, m) -> dict:
+    """A goal no heuristic takes, with ``AIOS_TPU_GUIDED_TOOLCALLS=1``: every
+    reasoning round sends the tool-call schema through the gateway to the
+    runtime's constrained decoding. Every reply parses, its tools are in the
+    catalog (``READ_ONLY_TOOLS``) and ran over the tools gRPC; the goal ends
+    terminal. Counts and times of the runtime's part."""
+    import functools as ft
+
+    from aios_tpu_torch.proto_gen import tools_pb2
+
+    catalog = sorted(t.name for t in st.tools.ListTools(tools_pb2.ListToolsRequest(),
+                                                        timeout=30).tools)
+    expect(catalog == sorted(READ_ONLY_TOOLS), f"tools catalog {catalog}")
+    st.setenv("AIOS_TPU_GUIDED_TOOLCALLS", "1")
+    replies, runtime_ms, executed = [], [], []
+    autonomy, local = st.autonomy, st.router.providers["local"]
+    eng, ex = m.engine, st.executor
+    gateway_infer, infer, execute = autonomy.gateway_infer, local.infer, ex.execute
+    masked = [0]
+    step_masked = eng.step_masked
+
+    @ft.wraps(gateway_infer)
+    def recorded_reply(prompt, *a, **kw):
+        text = gateway_infer(prompt, *a, **kw)
+        replies.append((kw.get("json_schema", ""), text, len(prompt.encode())))
+        return text
+
+    @ft.wraps(infer)
+    def timed_infer(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return infer(*a, **kw)
+        finally:
+            runtime_ms.append((time.perf_counter() - t0) * 1e3)
+
+    @ft.wraps(execute)
+    def recorded_execute(*a, **kw):
+        executed.append(kw.get("tool_name", a[1] if len(a) > 1 else ""))
+        return execute(*a, **kw)
+
+    def counted_masked(rows):
+        masked[0] += 1
+        return step_masked(rows)
+
+    autonomy.gateway_infer, local.infer, ex.execute = recorded_reply, timed_infer, recorded_execute
+    eng.step_masked = counted_masked
+    jumps0, carried0, steps0 = eng.jump_dispatches, eng.jump_tokens, eng.decode_steps
+    try:
+        status, goal_ms = st.goal(GUIDED_GOAL)
+    finally:
+        autonomy.gateway_infer, local.infer, ex.execute = gateway_infer, infer, execute
+        del eng.step_masked
+        st.setenv("AIOS_TPU_GUIDED_TOOLCALLS", None)
+    expect(replies, "the guided goal made no reasoning call")
+    calls = []
+    for i, (schema, text, prompt_bytes) in enumerate(replies):
+        expect(schema, "a reasoning call went without the tool-call schema")
+        try:
+            reply = json.loads(text)
+        except ValueError:
+            raise PhaseError(
+                f"guided reply {i} of {len(replies)} ({len(text)} chars, its prompt "
+                f"{prompt_bytes} bytes) does not parse: {text[:200]!r} ... "
+                f"{text[-200:]!r}") from None
+        expect(isinstance(reply, dict) and isinstance(reply.get("done"), bool),
+               f"a guided reply is not the tool-call shape: {text[:300]!r}")
+        for call in reply.get("tool_calls") or []:
+            expect(call.get("tool") in READ_ONLY_TOOLS, f"a reply names {call.get('tool')!r}")
+            calls.append(call["tool"])
+    expect(executed == calls, f"tool calls {calls} but the tools service ran {executed}")
+    expect(len(runtime_ms) == len(replies),
+           f"{len(replies)} replies, {len(runtime_ms)} runtime calls (a cached reply?)")
+    return {"status": status.goal.status, "goal_ms": goal_ms, "rounds": len(replies),
+            "prompt_bytes": [b for _, _, b in replies],
+            "runtime_calls": len(runtime_ms), "runtime_ms": sum(runtime_ms),
+            "masked_steps": masked[0], "decode_steps": eng.decode_steps - steps0,
+            "jumps": eng.jump_dispatches - jumps0, "jump_tokens": eng.jump_tokens - carried0,
+            "tool_calls": calls, "errors": [t.error for t in status.tasks if t.error]}
+
+
+def _http_json(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        expect(resp.status == 200, f"GET {path}: HTTP {resp.status}")
+        return json.loads(body)
+    finally:
+        conn.close()
+
+
+def stack_console(st: Stack) -> dict:
+    """The console's ``/api/status`` and ``/api/serving`` over HTTP; the
+    latter names the served model."""
+    status = _http_json(st.console.bound_port, "/api/status")
+    serving = _http_json(st.console.bound_port, "/api/serving")
+    expect(STACK_MODEL in serving.get("models", {}), f"/api/serving: {serving}")
+    return {"status": status, "serving": serving}
+
+
+def _descendants(pid: int) -> list:
+    import psutil
+
+    try:
+        return psutil.Process(pid).children(recursive=True)
+    except psutil.NoSuchProcess:
+        return []
+
+
+def stack_boot(tmp: str, source: str, device=None) -> dict:
+    """The port's supervisor boots the five services as processes by
+    ``default_services`` (free ports through ``AIOS_<NAME>_ADDR``, every
+    directory under ``tmp``, no agent processes, the runtime child on
+    ``device``: the card unless ``"cpu"``); one LoadModel of ``source`` over
+    gRPC, one gateway Infer and one heuristic goal; then a clean shutdown
+    that leaves no process behind. Seconds of each part."""
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.boot.config import AiosConfig, _default_sections
+    from aios_tpu_torch.boot.supervisor import Supervisor, default_services
+    from aios_tpu_torch.proto_gen import api_gateway_pb2, runtime_pb2
+
+    data = os.path.join(tmp, "boot")
+    agents = os.path.join(data, "agents")  # every agent disabled: the orchestrator
+    os.makedirs(agents, exist_ok=True)     # child does not reap its agents on SIGTERM
+    with open(os.path.join(agents, "system.toml"), "w") as f:
+        f.write('[agent]\ntype = "system"\nenabled = false\n')
+    sections = _default_sections()
+    sections["system"]["data_dir"] = data
+    sections["boot"]["health_timeout_seconds"] = 300
+    config = AiosConfig(sections=sections)
+    defs = default_services(config)
+    expect(sorted(defs) == ["gateway", "memory", "orchestrator", "runtime", "tools"]
+           and all(d.module.startswith("aios_tpu_torch.") for d in defs.values()),
+           f"default_services: {[(d.name, d.module) for d in defs.values()]}")
+    ports = {name: _free_port() for name in defs}
+    env = {
+        "AIOS_DATA_DIR": data, "AIOS_AUDIT_DB": os.path.join(data, "audit.db"),
+        "AIOS_MODEL_DIR": os.path.join(data, "no-models"), "AIOS_AGENT_CONFIG_DIR": agents,
+        **{f"AIOS_{n.upper()}_ADDR": f"127.0.0.1:{p}" for n, p in ports.items()},
+    }
+    for name, d in defs.items():
+        d.port = ports[name]
+        d.env.update(env)
+    if device is not None:
+        defs["runtime"].args = ["--device", str(device)]
+    sup = Supervisor(config=config, services=defs)
+    out, channels, procs = {}, [], []
+    t0 = time.perf_counter()
+    try:
+        started = sup.boot()
+        out["boot_s"] = time.perf_counter() - t0
+        expect(started[-1] == "orchestrator", f"boot order {started}")
+
+        def stub(name, cls):
+            ch = rpc.insecure_channel(f"127.0.0.1:{ports[name]}")
+            channels.append(ch)
+            return cls(ch)
+
+        t1 = time.perf_counter()
+        st = stub("runtime", services.AIRuntimeStub).LoadModel(runtime_pb2.LoadModelRequest(
+            model_name=STACK_MODEL, model_path=source), timeout=1200)
+        out["load_s"] = time.perf_counter() - t1
+        expect(st.status == "ready", f"the runtime child's LoadModel: {st.status!r}")
+        r = stub("gateway", services.ApiGatewayStub).Infer(api_gateway_pb2.ApiInferRequest(
+            prompt="Report the state of the booted stack.", max_tokens=STACK_INFER_TOKENS,
+            temperature=0.7), timeout=300)
+        expect(r.model_used.startswith("local/") and r.tokens_used > 0,
+               f"the booted gateway's Infer: {r.model_used!r}, {r.tokens_used} tokens")
+        status, out["goal_ms"] = wait_goal(stub("orchestrator", services.OrchestratorStub),
+                                           HEURISTIC_GOAL)
+        expect(status.goal.status == "completed", f"the booted goal: {status.goal.status}")
+    finally:
+        procs = [e.process for e in sup.supervised.values() if e.process is not None]
+        procs += [c for p in list(procs) for c in _descendants(p.pid)]
+        for ch in channels:
+            ch.close()
+        t2 = time.perf_counter()
+        sup.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t2
+    left = [p.pid for p in procs if _alive(p)]
+    expect(not left, f"processes left after the shutdown: {left}")
+    expect(os.path.exists(os.path.join(data, "clean-shutdown")), "no clean-shutdown flag")
+    out["processes"] = len(procs)
+    return out
+
+
+def _alive(proc) -> bool:
+    """A Popen or psutil process still running (a zombie counts as gone)."""
+    import psutil
+
+    if isinstance(proc, subprocess.Popen):
+        return proc.poll() is None
+    try:
+        return proc.is_running() and proc.status() != psutil.STATUS_ZOMBIE
+    except psutil.NoSuchProcess:
+        return False
+
+
+def phase_stack(card: str) -> dict:
+    """Phase 18: the aiOS service plane on the port. In this process, on
+    random 127.0.0.1 ports: memory, tools (read-only registry), the runtime
+    serving TinyLlama-1.1B at full width over 8192 rows (int8 weights, bf16
+    pool ``auto``, graphs captured at LoadModel), the gateway's local
+    provider and the orchestrator's autonomy loop; heuristic goals, an agent-routed goal,
+    gateway Infer / StreamInfer beside direct runtime Infers (K1-K3 launched
+    across them), a guided reasoning goal and the console. Then the
+    supervisor boots the five services as processes, the runtime child on
+    the card. The in-process runs' launches."""
+    import shutil
+    import tempfile
+
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+
+    t0 = time.perf_counter()
+    saved = {}
+
+    def setenv(k, v):
+        saved.setdefault(k, os.environ.get(k))
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+    tmp = tempfile.mkdtemp(prefix="aios-stack-")
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
+    st = Stack(tmp, manager, setenv)
+    try:
+        st.start()
+        t1 = time.perf_counter()
+        m = st.load(STACK_SOURCE, STACK_CONTEXT)
+        eng, cfg = m.engine, m.config
+        expect((cfg.num_layers, cfg.hidden_size, eng.max_context) == (22, 2048, STACK_CONTEXT)
+               and eng.quantized and eng.k_pool.dtype == torch.bfloat16,
+               f"not TinyLlama at full width over a bf16 pool: {cfg}")
+        log(f"[stack] services up on {st.ports}; {_graphs_line(m, time.perf_counter() - t1)}")
+        _reset_counts()
+        heur = stack_heuristic(st)
+        log(f"[stack] {STACK_GOALS} heuristic goals {HEURISTIC_GOAL!r}: completed through "
+            f"monitor.cpu; p50 SubmitGoal -> completed {heur:.1f} ms")
+        agent_ms = stack_agent(st)
+        log(f"[stack] agent-routed goal {AGENT_GOAL!r}: completed by system_agent-stack in "
+            f"{agent_ms:.1f} ms (the agent polls every 2 s)")
+        before = _read_counts()
+        inf = stack_infer(st)
+        after = _read_counts()
+        for k in TINYLLAMA_KERNELS[:3]:
+            expect(after.get(k, 0) > before.get(k, 0), f"{k} did not launch across the "
+                   f"gateway's Infer and StreamInfer")
+        log(f"[stack] {STACK_INFERS} x gateway Infer against direct runtime Infer, "
+            f"{STACK_INFER_TOKENS} tokens each: p50 {inf['gateway_p50']:.2f} vs "
+            f"{inf['direct_p50']:.2f} ms (the plane's cost "
+            f"{inf['gateway_p50'] - inf['direct_p50']:.2f} ms); StreamInfer "
+            f"{inf['stream_chunks']} chunks from local; launches across them "
+            f"{ {k: after.get(k, 0) - before.get(k, 0) for k in after} } on {card}")
+        g = stack_guided(st, m)
+        log(f"[stack] guided reasoning goal {GUIDED_GOAL!r}: {g['status']} in "
+            f"{g['goal_ms']:.1f} ms; {g['rounds']} reasoning calls, every reply parsed with "
+            f"catalog tools; {g['runtime_calls']} runtime calls took {g['runtime_ms']:.1f} ms "
+            f"({100 * g['runtime_ms'] / g['goal_ms']:.1f}% of the goal); prompts "
+            f"{g['prompt_bytes']} bytes; "
+            f"{g['masked_steps']} masked steps of {g['decode_steps']} decode steps, "
+            f"{g['jumps']} jumps carrying {g['jump_tokens']} tokens; tool calls over the "
+            f"tools gRPC {g['tool_calls']}; task errors {g['errors']}")
+        con = stack_console(st)
+        log(f"[stack] console /api/status {sorted(con['status'])}, /api/serving "
+            f"{sorted(con['serving']['models'])}")
+        launches = _read_counts()
+    finally:
+        st.stop()
+        manager.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    try:
+        boot = stack_boot(tmp, STACK_SOURCE)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[stack] supervisor: the five services booted as processes by default_services "
+        f"in {boot['boot_s']:.1f} s (the runtime child on the card), LoadModel "
+        f"{boot['load_s']:.2f} s, gateway Infer served, heuristic goal completed in "
+        f"{boot['goal_ms']:.1f} ms, shutdown {boot['shutdown_s']:.1f} s, none of its "
+        f"{boot['processes']} processes left")
+    log(f"[stack] phase done in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -6368,6 +6931,7 @@ def main() -> int:
     host = timed("host tier", phase_host_tier, card)
     loop = timed("decode loop", phase_decode_loop, card)
     moe = timed("moe", phase_moe, card)
+    stack = timed("stack", phase_stack, card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -6376,7 +6940,8 @@ def main() -> int:
         mistral[name] = mistral.get(name, 0) + mistral_dense.get(name, 0)
         n = (tiny.get(name, 0) + mistral.get(name, 0) + gguf.get(name, 0)
              + constrained.get(name, 0) + serving.get(name, 0) + spec_paged.get(name, 0)
-             + host.get(name, 0) + loop.get(name, 0) + moe.get(name, 0))
+             + host.get(name, 0) + loop.get(name, 0) + moe.get(name, 0)
+             + stack.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -6390,7 +6955,8 @@ def main() -> int:
             f"{constrained.get(name, 0)} constrained, {serving.get(name, 0)} two replicas, "
             f"{spec_paged.get(name, 0)} Mistral-7B with its draft, {host.get(name, 0)} over "
             f"the host tier, {loop.get(name, 0)} in the decode loop's modes, "
-            f"{moe.get(name, 0)} Qwen3-30B-A3B), "
+            f"{moe.get(name, 0)} Qwen3-30B-A3B, {stack.get(name, 0)} under the service "
+            f"plane), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
             f"{'' if r['library_ms'] is None else ' ms'}, "

@@ -50,11 +50,38 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+HOST_ONLY = ("aios_tpu_torch.memory.service", "aios_tpu_torch.tools.service",
+             "aios_tpu_torch.gateway.service", "aios_tpu_torch.orchestrator.main",
+             "aios_tpu_torch.agents.run", "aios_tpu_torch.boot.supervisor")
+
+
+def test_host_only_subpackages_load_no_torch():
+    # each service process of the plane, and every agent the spawner starts,
+    # imports one of these: none may pay for torch (nor jax, nor aios_tpu)
+    code = (
+        "import importlib, sys\n"
+        f"for name in {HOST_ONLY!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from aios_tpu_torch import native\n"
+        "assert 'torch' not in sys.modules\n"
+        "bad = sorted(n for n in sys.modules if n in ('torch', 'jax', 'aios_tpu')\n"
+        "             or n.startswith(('torch.', 'jax.', 'aios_tpu.')))\n"
+        "print(bad)\n"
+        "from aios_tpu_torch import resolve_device\n"
+        "assert 'torch' in sys.modules and callable(resolve_device)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120, env=ONE_THREAD)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_port_sources_name_no_jax_or_aios_tpu_import():
     offenders = []
     sources = sorted(PKG.rglob("*.py"))
-    # the serving plane's subpackages are scanned with the rest
-    for sub in ("analysis", "faults", "obs", "serving"):
+    # the serving plane's and the service plane's subpackages are scanned too
+    for sub in ("analysis", "faults", "obs", "serving", "memory", "tools", "handlers",
+                "gateway", "orchestrator", "agents", "boot", "native"):
         assert any(p.parent.name == sub for p in sources), sub
     for path in sources + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
