@@ -17,6 +17,8 @@ nothing of JAX or of ``aios_tpu``: where it needs a piece of a jax-free
 
 __all__ = ["resolve_device"]
 
+__version__ = "0.1.0"
+
 
 def __getattr__(name: str):
     # lazy: the host-only subpackages (memory, tools, gateway, orchestrator,

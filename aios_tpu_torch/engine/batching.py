@@ -200,6 +200,7 @@ class _PendingTick:
     pending: PendingDecode
     lives: Dict[int, "_Live"]
     evs: tuple = ()
+    graph: str = "step"
 
 
 class RequestHandle:
@@ -289,6 +290,10 @@ class ContinuousBatcher:
         # the host's time between decode dispatches, less the time a
         # pipelined tick waited on the card for the previous tokens
         self.decode_dispatches = 0
+        # the decode dispatches this batcher's engine ran, by devprof graph
+        # kind (step, masked, mega, spec, draft_spec, jump): a pipelined one
+        # counts once its tokens are collected
+        self.dispatches_by_graph: Dict[str, int] = {}
         self.host_gap_seconds = 0.0
         self._gap_wait = 0.0
         # prompts longer than this admit incrementally, one chunk per
@@ -918,6 +923,13 @@ class ContinuousBatcher:
             self._evict_longest()
             return
         self._gap_wait += time.monotonic() - t0
+        self._count_dispatch(tick.graph)
+        dev = tick.pending.device_s
+        if dev is not None:
+            # the late devprof join: the worker's sample of this dispatch
+            # onto the events recorded at its issue (scheduler thread only)
+            for ev in tick.evs:
+                ev["dev_us"] = round(dev * 1e6, 1)
         lengths = tick.pending.lengths
         if lengths.ndim == 2:
             # a megagraph: its events recorded at issue learn the real k
@@ -991,8 +1003,8 @@ class ContinuousBatcher:
             self._gap_mark = time.monotonic()
             # recorded with the window asked; the real k joins at consume
             evs = self._rec_dispatch(slots.values(), "decode", window, gap, None,
-                                     pipelined=True, graph="mega")
-            self._pending = _PendingTick(handle, slots, tuple(evs))
+                                     graph="mega", join_sample=False, pipelined=True)
+            self._pending = _PendingTick(handle, slots, tuple(evs), "mega")
             if prev is not None:
                 self._consume(prev)
             return
@@ -1004,6 +1016,7 @@ class ContinuousBatcher:
         except PoolExhausted:
             self._evict_longest()
             return
+        self._count_dispatch("mega")
         self._rec_dispatch(slots.values(), "decode", k, gap, self._gap_mark - t0,
                            graph="mega")
         self._emit_rows(slots, tokens, lengths)
@@ -1012,17 +1025,34 @@ class ContinuousBatcher:
     # One event per DISPATCH per live request, never per token; a request
     # without a timeline costs nothing.
 
+    def _count_dispatch(self, graph: str) -> None:
+        self.dispatches_by_graph[graph] = self.dispatches_by_graph.get(graph, 0) + 1
+
     def _rec_dispatch(self, lives, kind: str, n: int, gap: Optional[float],
-                      dur_s: Optional[float], **extra) -> list:
+                      dur_s: Optional[float], graph: str = "step",
+                      join_sample: bool = True, **extra) -> list:
         """Record one dispatch on every live timeline; returns the events
-        (a pipelined megagraph's real tick count joins them at consume).
-        ``dur_s`` None for a pipelined issue, whose duration the host does
-        not see."""
-        fields = dict(n=n, occ=len(lives), **extra)
+        (a pipelined dispatch's real tick count and devprof sample join
+        them at consume). ``dur_s`` None for a pipelined issue, whose
+        duration the host does not see. ``graph`` names the devprof
+        GRAPH_KINDS entry the dispatch ran as: with devprof armed, a fresh
+        sample of that kind joins the event as ``dev_us``
+        (``join_sample=False`` for a pipelined issue, whose sample lands at
+        consume) and the ledger's mean device time, split by occupancy,
+        accrues on each timeline's ``device_us``."""
+        occ = len(lives)
+        fields = dict(n=n, occ=occ, **extra)
         if gap is not None:
             fields["gap_ms"] = round(gap * 1e3, 3)
         if dur_s is not None:
             fields["dur_ms"] = round(dur_s * 1e3, 3)
+        est = None
+        if self.engine._devprof is not None:
+            if join_sample:
+                s = self.engine.devprof_take_sample()
+                if s is not None and s[0] == graph:
+                    fields["dev_us"] = round(s[1] * 1e6, 1)
+            est = self.engine.devprof_est_s(graph)
         evs = []
         for live in lives:
             rec = live.req.rec
@@ -1030,14 +1060,29 @@ class ContinuousBatcher:
                 ev = rec.event(kind, **fields)
                 if ev is not None:
                     evs.append(ev)
+                if est:
+                    rec.device_us += est * 1e6 / max(occ, 1)
         return evs
 
     def _rec_prefill(self, live: _Live, tokens: int, t0: float, reused0: int,
                      restored0: int, chunk: Optional[int] = None) -> None:
+        # pop the engine's sample first (even for a request with no
+        # timeline), so that a prefill's sample never joins a later event
+        sample = None
+        if self.engine._devprof is not None:
+            sample = self.engine.devprof_take_sample()
         rec = live.req.rec
         if rec is None:
             return
-        fields = dict(tokens=tokens, dur_ms=round((time.monotonic() - t0) * 1e3, 3))
+        dur_s = time.monotonic() - t0
+        fields = dict(tokens=tokens, dur_ms=round(dur_s * 1e3, 3))
+        if sample is not None and sample[0] in ("prefill", "chunk", "seq_prefill"):
+            fields["dev_us"] = round(sample[1] * 1e6, 1)
+        if self.engine._devprof is not None:
+            # an admission is the request's alone and the engine call blocked
+            # through it: bill the measured wall (an upper bound on device
+            # time)
+            rec.device_us += dur_s * 1e6
         cached = self.engine.prefix_rows_reused - reused0
         restored = self.engine.prefix_rows_restored - restored0
         if cached:
@@ -1069,6 +1114,12 @@ class ContinuousBatcher:
             fo = live.req.failover
             if fo is not None and fo.claims(live.abort_reason):
                 return
+        # terminal from here on: bill the tenant's estimated device seconds
+        # once (a failover-resumed request reaches this on its last attempt,
+        # device_us summed over every attempt)
+        if self.engine._devprof is not None and rec.device_us and not rec.finished_at:
+            obs.DEVPROF_TENANT_SECONDS.labels(tenant=rec.tenant).inc(rec.device_us / 1e6)
+        if live.abort_reason:
             flightrec.RECORDER.finish(rec, "aborted", abort_reason=live.abort_reason)
         elif live.cancelled:
             flightrec.RECORDER.finish(rec, "cancelled")
@@ -1173,6 +1224,17 @@ class ContinuousBatcher:
             self._evict_longest()
             return
         dur_ms = round((self._gap_mark - t0) * 1e3, 3)
+        graph = "draft_spec" if proposer == "draft" else "spec"
+        self._count_dispatch(graph)
+        dev_us = None
+        est_us = 0.0
+        if self.engine._devprof is not None:
+            s_ = self.engine.devprof_take_sample()
+            if s_ is not None and s_[0] == graph:
+                dev_us = round(s_[1] * 1e6, 1)
+            est = self.engine.devprof_est_s(graph)
+            if est:
+                est_us = est * 1e6 / max(len(slots), 1)
         consumed: Dict[int, int] = {}
         for r in range(tokens.shape[0]):
             for slot, live in slots.items():
@@ -1191,7 +1253,9 @@ class ContinuousBatcher:
                     "spec", rounds=rounds, proposer=proposer,
                     emitted=int(counts[:rounds, slot].sum()),
                     draft_len=self.spec_draft_len, dur_ms=dur_ms,
-                    **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}))
+                    **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}),
+                    **({"dev_us": dev_us} if dev_us is not None else {}))
+                live.req.rec.device_us += est_us
         self._spec_measure(proposer, counts, consumed, proposed)
 
     # -- grammar jump-ahead (compressed-FSM run collapse) ----------------------
@@ -1246,14 +1310,28 @@ class ContinuousBatcher:
         except PoolExhausted:
             self._evict_longest()  # retry next tick
             return True
+        self._count_dispatch("jump")
         by_slot = dict(constrained)
         dur_ms = round((self._gap_mark - t0) * 1e3, 3)
+        dev_us = None
+        est_us = 0.0
+        if self.engine._devprof is not None:
+            # a jump reads nothing back: its sample lands at a later
+            # readback, so only an earlier jump's can be here to pop
+            s_ = self.engine.devprof_take_sample()
+            if s_ is not None and s_[0] == "jump":
+                dev_us = round(s_[1] * 1e6, 1)
+            est = self.engine.devprof_est_s("jump")
+            if est:
+                est_us = est * 1e6 / max(len(runs), 1)
         for s in sorted(runs):
             live = by_slot[s]
             if live.req.rec is not None and not live.done:
                 live.req.rec.event(
                     "jump", k=len(runs[s]), occ=len(runs), dur_ms=dur_ms,
-                    **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}))
+                    **({"gap_ms": round(gap * 1e3, 3)} if gap is not None else {}),
+                    **({"dev_us": dev_us} if dev_us is not None else {}))
+                live.req.rec.device_us += est_us
             for tok in runs[s]:
                 if live.done:
                     break
@@ -1279,8 +1357,9 @@ class ContinuousBatcher:
         except PoolExhausted:
             self._evict_longest()
             return
+        self._count_dispatch("masked")
         self._rec_dispatch(slots.values(), "decode", 1, gap, self._gap_mark - t0,
-                           constrained=True)
+                           graph="masked", constrained=True)
         for slot, live in slots.items():
             if live.done:
                 continue
@@ -1360,7 +1439,8 @@ class ContinuousBatcher:
             gap = self._note_dispatch()
             handle = self.engine.step_async(n)
             self._gap_mark = time.monotonic()
-            evs = self._rec_dispatch(slots.values(), "decode", n, gap, None, pipelined=True)
+            evs = self._rec_dispatch(slots.values(), "decode", n, gap, None,
+                                     join_sample=False, pipelined=True)
             self._pending = _PendingTick(handle, slots, tuple(evs))
             if prev is not None:
                 self._consume(prev)
@@ -1375,6 +1455,7 @@ class ContinuousBatcher:
             # victim and retry on the next tick
             self._evict_longest()
             return
+        self._count_dispatch("step")
         self._rec_dispatch(slots.values(), "decode", n, gap, self._gap_mark - t0)
         for step_row in tokens:
             for slot, live in slots.items():

@@ -128,7 +128,7 @@ import torch
 from .. import faults, ops
 from ..analysis.locks import make_lock
 from ..device import resolve_device
-from ..obs import flightrec
+from ..obs import devprof, flightrec
 from ..obs import instruments as obs
 from ..ops import build, mega_graph, split
 from ..ops.quantized_matmul import counters_for, sm_count
@@ -368,11 +368,12 @@ class PendingDecode:
     for a step, or for a megagraph the per-tick [k, S]; the batcher's
     out-of-cache retirement reads them, never the engine's live lengths,
     which later dispatches have moved. ``ticks`` is the real tick count
-    (a megagraph's k). ``wait_started()`` blocks until the dispatch holds
+    (a megagraph's k), ``device_s`` the dispatch's devprof sample in
+    device seconds when it took one. ``wait_started()`` blocks until the dispatch holds
     the engine lock: the fence for engine calls that must land after it.
     """
 
-    __slots__ = ("_fut", "_started", "n_steps", "tokens", "lengths", "ticks")
+    __slots__ = ("_fut", "_started", "n_steps", "tokens", "lengths", "ticks", "device_s")
 
     def __init__(self, fut, n_steps: int, started: threading.Event) -> None:
         self._fut = fut
@@ -381,6 +382,8 @@ class PendingDecode:
         self.tokens: Optional[np.ndarray] = None
         self.lengths: Optional[np.ndarray] = None
         self.ticks = int(n_steps)
+        # the dispatch's devprof sample (device seconds), when it took one
+        self.device_s: Optional[float] = None
 
     def wait_started(self) -> None:
         if self.tokens is not None or self._fut.done():
@@ -389,7 +392,7 @@ class PendingDecode:
 
     def wait(self) -> np.ndarray:
         if self.tokens is None:
-            self.tokens, self.lengths, self.ticks = self._fut.result()
+            self.tokens, self.lengths, self.ticks, self.device_s = self._fut.result()
         return self.tokens
 
 
@@ -623,6 +626,7 @@ class TorchEngine:
         self._init_draft(draft, cache_dtype)
         self._init_host_tier(cfg.prefix_host_bytes if prefix_host_bytes is None
                              else prefix_host_bytes, host_restore_min_pages)
+        self._init_devprof()
         self._register_obs()
 
     def _init_decode_knobs(self, unified_step, mega_ticks, kv_compress_after,
@@ -852,6 +856,8 @@ class TorchEngine:
                              (obs.KV_COMPRESS_RESIDENT,
                               lambda e: e.compressed_resident_pages())):
             family.labels(model=name).set_function(engines_sum(read))
+        if self._devprof is not None:
+            self._register_devprof_gauges()
         if self.host_store is None:
             return
         # the host-tier families, each the sum over the live stores of this
@@ -872,6 +878,187 @@ class TorchEngine:
                              (obs.PREFIX_HOST_MISSES_CORRUPT, "corruptions")):
             family.labels(model=name).set_function(store_sum(attr))
         self._obs_restore_hist = obs.PREFIX_HOST_RESTORE_SECONDS.labels(model=name)
+
+    # -- device-time attribution (obs/devprof.py) -------------------------------
+    # Off by default: the hot paths pay one attribute None check. Armed
+    # (AIOS_TPU_DEVPROF, read here), every dispatch is counted by graph kind
+    # with its analytic cost, and every Nth is timed by CUDA events recorded
+    # around its replays on the dispatching stream (``devprof.Timing``); the
+    # elapsed time is read where the dispatch reads its result back. A
+    # dispatch that reads nothing back (a mid chunk, a jump, a restore) is
+    # read at the next dispatch's readback, which ordered it. Kind arguments
+    # are devprof.GRAPH_KINDS literals.
+
+    def _init_devprof(self) -> None:
+        self._devprof: Optional[devprof.DevprofLedger] = None
+        self._devprof_deferred: List[devprof.Timing] = []
+        self._dp_lock = threading.Lock()  # the deferred tokens only
+        if not devprof.enabled():
+            return
+        self._devprof = devprof.DevprofLedger(
+            self.cfg.name, device_kind=devprof.local_device_kind(self.device))
+        # the bytes a forward streams: the layer leaves and the lm_head (the
+        # embedding table when the head is tied), and one position's K and V
+        # over every layer, scales included
+        wb = model.serving_weight_bytes(self.params)
+        if "lm_head" not in self.params:
+            embed = self.params["embed"]
+            wb += embed.numel() * embed.element_size()
+        self._dp_weight_bytes = float(wb)
+        cfg = self.cfg
+        row = cfg.num_kv_heads * cfg.head_dim * self.k_pool.element_size()
+        if self.quant_cache:
+            row += cfg.num_kv_heads * self.k_scales.element_size()
+        self._dp_kv_row_bytes = float(2 * cfg.num_layers * row)
+
+    def _register_devprof_gauges(self) -> None:
+        """The devprof families: per-graph children over the closed
+        GRAPH_KINDS enum, each the sum over the model's live replica
+        ledgers; the MFU and HBM-utilization gauges only where the card's
+        peaks are known (the JAX engine's registration)."""
+        name = self.cfg.name
+        ledgers = devprof.ledgers_for(name)
+
+        def ledger_sum(kind, idx):
+            def read() -> float:
+                return float(sum(led.totals(kind)[idx] for led in list(ledgers)))
+            return read
+
+        def ledger_device_s(kind):
+            def read() -> float:
+                return float(sum(led.device_seconds(kind) for led in list(ledgers)))
+            return read
+
+        def ledger_util(kind, idx, peak_idx):
+            # weighted across replicas: summed sampled flops or bytes over
+            # summed sampled seconds
+            def read() -> float:
+                leds = list(ledgers)
+                num = sum(led.totals(kind)[idx] for led in leds)
+                den = sum(led.totals(kind)[4] for led in leds)
+                peaks = next((led.peaks for led in leds if led.peaks is not None), None)
+                if not den or peaks is None:
+                    return 0.0
+                return float(num / den / peaks[peak_idx])
+            return read
+
+        roofline = self._devprof.peaks is not None
+        for g in devprof.GRAPH_KINDS:
+            obs.DEVPROF_DISPATCHES.labels(model=name, graph=g).set_function(
+                ledger_sum(g, 0))
+            obs.DEVPROF_DEVICE_SECONDS.labels(model=name, graph=g).set_function(
+                ledger_device_s(g))
+            if roofline:
+                obs.DEVPROF_MFU.labels(model=name, graph=g).set_function(
+                    ledger_util(g, 5, 0))
+                obs.DEVPROF_HBM_UTIL.labels(model=name, graph=g).set_function(
+                    ledger_util(g, 6, 1))
+
+    def devprof_cost(self, kind: str, key=None, lens=None, start: int = 0,
+                     n: int = 1) -> Optional[Tuple[float, float]]:
+        """(FLOPs, bytes) of one dispatch of graph ``key`` of ``kind``
+        (``devprof.forward_cost`` over the rows it runs): ``n`` passes of a
+        decode-shaped graph (a step, a masked step, a megagraph tick, a
+        jump of ``key[1]`` tokens or a speculative round of ``key[1]``
+        drafts, T rows a slot a pass) whose slots attend from ``lens`` on
+        (the active slots' lengths; None: every slot at the full context,
+        the graph's own shape), a whole-prompt prefill at bucket ``key[1]``
+        (causal over the bucket), or a chunk of ``key[1]`` rows from row
+        ``start``. None for a kind with no forward (a copy)."""
+        cfg, S, C = self.cfg, self.num_slots, self.max_context
+        if kind in ("prefill", "chunk"):
+            b = key[1]
+            attended = b * start + b * (b + 1) / 2
+            kv_read = start + b if kind == "chunk" else 0
+            return devprof.forward_cost(cfg, b, attended, b, self._dp_weight_bytes,
+                                        kv_read, self._dp_kv_row_bytes)
+        if kind in ("step", "masked", "mega"):
+            T = 1
+        elif kind in ("jump", "spec", "draft_spec"):
+            T = key[1] + 1
+        else:
+            return None
+        lens = (np.full(S, C - T, dtype=np.float64) if lens is None
+                else np.asarray(lens, dtype=np.float64))
+        A = lens.size
+        base = float(lens.sum())
+        # pass p: each slot's T query rows attend len + p*T + t + 1 rows and
+        # read len + (p + 1) * T rows
+        attended = n * T * base + A * (T * T * n * (n - 1) / 2 + n * T * (T + 1) / 2)
+        kv_read = n * base + A * T * n * (n + 1) / 2
+        return devprof.forward_cost(cfg, n * S * T, attended, n * S * T,
+                                    n * self._dp_weight_bytes, kv_read,
+                                    self._dp_kv_row_bytes)
+
+    def _active_lens(self) -> np.ndarray:
+        return self._host_lengths[self.active]
+
+    def _devprof_note(self, kind: str, key=None, cost=None, need_slack: bool = False):
+        """Count one dispatch of ``kind`` (charging ``cost``); when it is due
+        a sample, its timing token (started right before the dispatch's first
+        launch, ``_timed``), else None. Caller checked ``self._devprof is not
+        None``."""
+        dp = self._devprof
+        due = dp.note(kind, key, cost)
+        if due and need_slack and dp.queue_depth() > 1:
+            # a dispatch is queued behind this one on the worker: skip the
+            # sample rather than ever delay it
+            due = False
+        return devprof.Timing(kind, key, cost, self.device) if due else None
+
+    @staticmethod
+    def _timed(run, tok):
+        """``run``, whose first call marks ``tok``'s start just before it
+        launches (``run`` itself when nothing is timed)."""
+        if tok is None:
+            return run
+
+        def timed():
+            tok.begin()
+            return run()
+        return timed
+
+    def _devprof_sample(self, tok) -> Optional[float]:
+        """Land ``tok``'s sample (after the dispatch's readback), and those
+        of earlier dispatches that read nothing back; returns ``tok``'s
+        device seconds."""
+        if self._devprof_deferred:
+            # those this readback ordered; one issued since (on another
+            # thread) waits for a later readback
+            with self._dp_lock:
+                ready = [t for t in self._devprof_deferred if t.done()]
+                self._devprof_deferred = [t for t in self._devprof_deferred
+                                          if not t.done()]
+            for t in ready:
+                self._devprof.sample(t.kind, t.key, t.seconds(), t.cost)
+        if tok is None:
+            return None
+        secs = tok.seconds()
+        self._devprof.sample(tok.kind, tok.key, secs, tok.cost)
+        return secs
+
+    def _devprof_defer(self, tok) -> None:
+        """Hold the token of a dispatch that reads nothing back until a
+        later dispatch's readback."""
+        if tok is not None:
+            with self._dp_lock:
+                self._devprof_deferred.append(tok)
+
+    def devprof_est_s(self, kind: str) -> Optional[float]:
+        """Mean sampled device-seconds per ``kind`` dispatch (None when
+        devprof is off or unsampled): the batcher's per-request rate."""
+        dp = self._devprof
+        return dp.mean_s(kind) if dp is not None else None
+
+    def devprof_take_sample(self):
+        """Pop the ledger's most recent (kind, seconds) sample."""
+        dp = self._devprof
+        return dp.take_last_sample() if dp is not None else None
+
+    def devprof_snapshot(self) -> Optional[dict]:
+        """The per-graph ledger as a JSON-shaped dict."""
+        dp = self._devprof
+        return dp.snapshot() if dp is not None else None
 
     # -- admission ------------------------------------------------------------
 
@@ -933,16 +1120,27 @@ class TorchEngine:
                 raise
             return first
         bucket = self.bucket_for(true_len)
+        dtok = None
         with self._lock:
             if self.paged:
                 self.allocator.ensure(slot, true_len)
             self._stage_admission(slot, token_ids, 0, true_len, true_len, temperature,
                                   top_p, bucket)
-            self._dispatcher(("prefill", bucket), functools.partial(self._prefill_body, bucket),
-                             eager, admission=True)()
+            key = ("prefill", bucket)
+            run = self._dispatcher(key, functools.partial(self._prefill_body, bucket),
+                                   eager, admission=True)
+            if self._devprof is not None:
+                dtok = self._devprof_note("prefill", key,
+                                          self.devprof_cost("prefill", key))
+            self._timed(run, dtok)()
+            if dtok is not None:
+                dtok.stop()
             first_token = self._admitted(slot, true_len, temperature)
             self.prefills += 1
             self._register_prefix(slot, token_ids, hashes)
+        if self._devprof is not None:
+            # the first token's readback above ordered the dispatch
+            self._devprof_sample(dtok)
         return first_token
 
     def _stage_admission(self, slot: int, ids: List[int], start: int, n_valid: int,
@@ -1049,10 +1247,21 @@ class TorchEngine:
         holds the lock and has backed the rows."""
         self._stage_admission(pc.slot, pc.ids[pc.pos:pc.pos + n], pc.pos, n, len(pc.ids),
                               pc.temperature, pc.top_p, bucket)
-        self._dispatcher(("chunk", bucket, final),
-                         functools.partial(self._chunk_body, bucket, final),
-                         pc.eager, admission=True)()
+        key = ("chunk", bucket, final)
+        run = self._dispatcher(key, functools.partial(self._chunk_body, bucket, final),
+                               pc.eager, admission=True)
+        dtok = None
+        if self._devprof is not None:
+            dtok = self._devprof_note("chunk", key,
+                                      self.devprof_cost("chunk", key, start=pc.pos))
+        self._timed(run, dtok)()
         self.prefill_chunks += 1
+        if dtok is not None:
+            dtok.stop()
+            if final:
+                pc.dtok = dtok  # read once the first token is back
+            else:
+                self._devprof_defer(dtok)  # a mid chunk reads nothing back
 
     def _activate_body(self, row: torch.Tensor) -> None:
         """The device half of the end of an admission, inside the bodies:
@@ -1277,7 +1486,15 @@ class TorchEngine:
                 # chaos: the restore dies mid-flight; recovery is the real
                 # fallback below (pages given back, a prefill)
                 raise faults.InjectedFault(f"injected restore failure (hit {act.hit})")
+            dtok = None
+            if self._devprof is not None:
+                dtok = self._devprof_note("restore", n)
+                if dtok is not None:
+                    dtok.begin()
             self._scatter_pages(pages, [e for _, e in entries])
+            if dtok is not None:
+                dtok.stop()
+                self._devprof_defer(dtok)  # the copies read nothing back
             ok = True
         except Exception:  # noqa: BLE001 - a failed restore recomputes
             log.exception("%s: host-tier restore failed; recomputing %d page(s)",
@@ -1453,6 +1670,8 @@ class TorchEngine:
         the history, a single device-to-device copy that a graph would
         issue no cheaper. Caller holds the lock."""
         n = len(ids)
+        if self._devprof is not None:
+            self._devprof.note("hist", ("hist", n))  # counted, never timed
         self._adm_ints.host[4:4 + n] = ids
         self._adm_ints.push(4 + n)
         self.history[slot, :n].copy_(self._adm_tokens[0, :n])
@@ -1813,8 +2032,21 @@ class TorchEngine:
         t0 = time.perf_counter()
         graph = self.graphs.capture(key, body, prepare,
                                     pool=self._admission_pool if admission else pool)
+        dt = time.perf_counter() - t0
         log.info("%s: captured the %s graph (%d kernel launches) in %.2fs", self.cfg.name,
-                 key, sum(graph.launches.values()), time.perf_counter() - t0)
+                 key, sum(graph.launches.values()), dt)
+        self._devprof_register(key, dt)
+
+    def _devprof_register(self, key, capture_s: float, n: int = 1) -> None:
+        """Register a captured graph with the ledger: its capture seconds and
+        the analytic cost of one replay at the graph's own shapes (every
+        slot at the full context; ``n`` ticks for a megagraph bucket)."""
+        if self._devprof is None:
+            return
+        kind = key if isinstance(key, str) else key[0]
+        start = self.max_context - key[1] if kind == "chunk" else 0
+        self._devprof.register(kind, key, self.devprof_cost(kind, key, start=start, n=n),
+                               capture_s)
 
     def _workspace_launches(self) -> List[Tuple[int, int, int, int]]:
         """The split launches of this engine as (groups, splits, partial
@@ -2034,8 +2266,15 @@ class TorchEngine:
         graph, which serves every n, with ``unified_step`` or without),
         advance the host lengths; then read the tokens back outside the
         lock. Returns (tokens [n, S], the host lengths after this
-        dispatch, n). ``started`` (the dispatch worker's) is set once the
-        lock is held."""
+        dispatch, n, the devprof sample's device seconds or None).
+        ``started`` (the dispatch worker's) is set once the lock is held."""
+        try:
+            return self._step_dispatch_locked(n_steps, started, eager, rows)
+        finally:
+            if started is not None and self._devprof is not None:
+                self._devprof.dequeue()
+
+    def _step_dispatch_locked(self, n_steps: int, started, eager: bool, rows):
         with self._lock:
             if started is not None:
                 started.set()
@@ -2044,21 +2283,34 @@ class TorchEngine:
                 self._stage_tables()
             if rows is not None:
                 self._write_mask(rows)
-                run = self._dispatcher("masked", functools.partial(self._step_body, True),
-                                       eager)
+                kind = "masked"
+                run = self._dispatcher(kind, functools.partial(self._step_body, True), eager)
             else:
-                run = self._dispatcher("step", self._step_body, eager)
+                kind = "step"
+                run = self._dispatcher(kind, self._step_body, eager)
+            dtok = None
+            if self._devprof is not None:
+                # the worker samples only with nothing queued behind it
+                dtok = self._devprof_note(
+                    kind, kind, self.devprof_cost(kind, lens=self._active_lens(), n=n_steps),
+                    need_slack=started is not None)
             out = torch.empty((n_steps, self.num_slots), dtype=torch.int64,
                               device=self.device)
+            run = self._timed(run, dtok)
             for i in range(n_steps):
                 self.last_logits = run()
                 out[i] = self.last_tokens
+            if dtok is not None:
+                dtok.stop()
             self.decode_steps += n_steps
             self._host_lengths = np.minimum(
                 self._host_lengths + n_steps, self.max_context - 1
             )
             lengths = self._host_lengths.copy()
-        return out.cpu().numpy(), lengths, n_steps
+        tokens = out.cpu().numpy()
+        # the readback just ordered the dispatch: its sample costs no sync
+        sample_s = self._devprof_sample(dtok) if self._devprof is not None else None
+        return tokens, lengths, n_steps, sample_s
 
     def _dispatch_worker(self) -> ThreadPoolExecutor:
         """The single dispatch worker of ``step_async`` and
@@ -2078,6 +2330,8 @@ class TorchEngine:
         and take the engine lock like every other engine call;
         ``wait_started()`` orders later calls after this one."""
         started = threading.Event()
+        if self._devprof is not None:
+            self._devprof.enqueue()  # the worker's sampling slack
         fut = self._dispatch_worker().submit(self._step_dispatch, n_steps, started)
         return PendingDecode(fut, n_steps, started)
 
@@ -2174,20 +2428,27 @@ class TorchEngine:
         t0 = time.perf_counter()
         self._tick_graphs[key] = tg
         self.graphs.capture(key, body, prepare)
+        dt = time.perf_counter() - t0
         log.info("%s: captured the %s graph (%d ticks, %d kernel launches a tick) in %.2fs",
-                 self.cfg.name, key, m, sum(tg.tick_launches.values()),
-                 time.perf_counter() - t0)
+                 self.cfg.name, key, m, sum(tg.tick_launches.values()), dt)
+        self._devprof_register(key, dt, n=m)
 
-    def _replay_ticks(self, m: int) -> Tuple[torch.Tensor, int]:
+    def _replay_ticks(self, m: int, dtok=None) -> Tuple[torch.Tensor, int]:
         """Replay the megagraph bucket ``m`` (captured now if need be) on
         the staged operands; read back its tokens and tick count k (the
         one readback) and count the launches of the k ticks that ran.
+        ``dtok`` (a devprof timing) is stopped right after the replay.
         Returns (tokens [k, S] on the host, k). Caller holds the lock."""
         key = ("mega", m)
         if key not in self.graphs:
             self._capture_ticks(m)
         tg = self._tick_graphs[key]
-        host = self.graphs.replay(key).cpu()
+        if dtok is not None:
+            dtok.begin()
+        out = self.graphs.replay(key)
+        if dtok is not None:
+            dtok.stop()
+        host = out.cpu()
         k = int(host[-1])
         build.add_launches(tg.tick_launches, k)
         return host[:-1].view(tg.m, self.num_slots)[:k], k
@@ -2227,7 +2488,14 @@ class TorchEngine:
         graph, or the eager loop), read back the tokens and the real tick
         count k (under the lock: the host lengths advance by k), and
         advance by k. Returns (tokens [k, S], per-tick host length snapshots
-        [k, S], k)."""
+        [k, S], k, the devprof sample's device seconds or None)."""
+        try:
+            return self._mega_dispatch_locked(n_ticks, stops, budgets, started, eager)
+        finally:
+            if started is not None and self._devprof is not None:
+                self._devprof.dequeue()
+
+    def _mega_dispatch_locked(self, n_ticks, stops, budgets, started, eager):
         S = self.num_slots
         stops = np.asarray(stops, dtype=np.int32).reshape(S, MEGA_STOP_SLOTS)
         budgets = np.asarray(budgets, dtype=np.int32).reshape(S)
@@ -2245,16 +2513,32 @@ class TorchEngine:
                 abort_after = min(max(act.ticks or n_ticks // 2, 1), n_ticks - 1)
             m = self.mega_bucket(n_ticks)
             self._stage_ticks(min(n_ticks, abort_after, m), stops, budgets)
+            dtok = lens = None
+            if self._devprof is not None:
+                # the cost joins once k is read back: k ticks of a step;
+                # the whole replay is timed, never tick by tick
+                lens = self._active_lens()
+                dtok = self._devprof_note("mega", ("mega", m), (0.0, 0.0),
+                                          need_slack=started is not None)
             if eager or not self.graphs.enabled:
                 tg = self._tick_graphs.get(("eager", m))
                 if tg is None:
                     tg = self._tick_graphs[("eager", m)] = _TickGraph(m, S, self.device)
+                if dtok is not None:
+                    dtok.begin()
                 k = self._ticks_eager(tg)
+                if dtok is not None:
+                    dtok.stop()
                 # a copy: the buffer is the next dispatch's, which a
                 # pipelined caller issues before it reads these
                 tokens = tg.tokens[:k].to("cpu", copy=True)
             else:
-                tokens, k = self._replay_ticks(m)
+                tokens, k = self._replay_ticks(m, dtok)
+            if self._devprof is not None:
+                cost = self.devprof_cost("mega", lens=lens, n=k)
+                self._devprof.charge("mega", cost)
+                if dtok is not None:
+                    dtok.cost = cost
             self.last_logits = None
             self.mega_dispatches += 1
             self.mega_tick_total += k
@@ -2265,7 +2549,8 @@ class TorchEngine:
         # batcher's out-of-cache retirement for that tick's tokens
         lengths = np.minimum(base[None, :] + np.arange(1, k + 1, dtype=np.int64)[:, None],
                              self.max_context - 1)
-        return tokens.numpy(), lengths, k
+        sample_s = self._devprof_sample(dtok) if self._devprof is not None else None
+        return tokens.numpy(), lengths, k, sample_s
 
     def mega_step(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
                   ) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -2277,7 +2562,7 @@ class TorchEngine:
         cap. Returns (tokens [k, S], per-tick length snapshots [k, S], k), k
         <= n_ticks the ticks that ran. On CUDA one replay of the bucket's
         graph (``mega_bucket``), whose ticks are conditional nodes."""
-        return self._mega_dispatch(n_ticks, stops, budgets)
+        return self._mega_dispatch(n_ticks, stops, budgets)[:3]
 
     def mega_step_async(self, n_ticks: int, stops: np.ndarray, budgets: np.ndarray
                         ) -> PendingDecode:
@@ -2286,6 +2571,8 @@ class TorchEngine:
         the handle's ``ticks`` is k and its ``lengths`` the [k, S]
         snapshots."""
         started = threading.Event()
+        if self._devprof is not None:
+            self._devprof.enqueue()
         fut = self._dispatch_worker().submit(self._mega_dispatch, n_ticks, stops, budgets,
                                              started)
         return PendingDecode(fut, n_ticks, started)
@@ -2328,8 +2615,16 @@ class TorchEngine:
             block[:] = 0
             block[:, :k] = forced
             self._jump_ops.push(S + S * kb)
-            self.last_logits = self._dispatcher(
-                ("jump", kb), functools.partial(self._jump_body, kb), eager)()
+            key = ("jump", kb)
+            run = self._dispatcher(key, functools.partial(self._jump_body, kb), eager)
+            dtok = None
+            if self._devprof is not None:
+                dtok = self._devprof_note("jump", key, self.devprof_cost(
+                    "jump", key, lens=self._active_lens()))
+            self.last_logits = self._timed(run, dtok)()
+            if dtok is not None:
+                dtok.stop()
+                self._devprof_defer(dtok)  # a jump reads nothing back
             self.decode_steps += 1
             self.jump_dispatches += 1
             self.jump_tokens += int(counts.sum())
@@ -2394,15 +2689,22 @@ class TorchEngine:
             if self.paged:
                 self._back_active_slots(n_rounds * (K + 1))
                 self._stage_tables()
-            run = self._dispatcher(("spec", draft_len, ngram),
-                                   functools.partial(self._round_body, draft_len, ngram),
+            key = ("spec", draft_len, ngram)
+            run = self._dispatcher(key, functools.partial(self._round_body, draft_len, ngram),
                                    eager)
+            dtok = None
+            if self._devprof is not None:
+                dtok = self._devprof_note("spec", key, self.devprof_cost(
+                    "spec", key, lens=self._active_lens(), n=n_rounds))
             # tokens [R, S, K+1] and, in the last column, counts: one readback
             out = torch.empty((n_rounds, S, K + 2), dtype=torch.int64, device=self.device)
+            run = self._timed(run, dtok)
             for r in range(n_rounds):
                 g, counts, self.last_logits = run()
                 out[r, :, : K + 1] = g
                 out[r, :, K + 1] = counts
+            if dtok is not None:
+                dtok.stop()
             self.decode_steps += n_rounds
             self.spec_rounds += n_rounds
             self.spec_proposer_rounds["ngram"] += n_rounds
@@ -2411,6 +2713,8 @@ class TorchEngine:
             active_rounds = n_rounds * int(self.active.sum())
             self.spec_slot_rounds += active_rounds
         host = out.cpu().numpy()
+        if self._devprof is not None:
+            self._devprof_sample(dtok)
         tokens, counts = host[:, :, : K + 1], host[:, :, K + 1]
         with self._lock:
             emitted = int(counts[:, self.active].sum())
@@ -2456,23 +2760,34 @@ class TorchEngine:
             if self.paged:
                 self._back_active_slots(n_rounds * (K + 1))
                 self._stage_tables()
-            run = self._dispatcher(("draft_spec", K),
-                                   functools.partial(self._draft_round_body, K), eager)
+            key = ("draft_spec", K)
+            run = self._dispatcher(key, functools.partial(self._draft_round_body, K), eager)
+            dtok = None
+            if self._devprof is not None:
+                # the serving model's verify rows (the draft's steps are not
+                # charged)
+                dtok = self._devprof_note("draft_spec", key, self.devprof_cost(
+                    "draft_spec", key, lens=self._active_lens(), n=n_rounds))
             # tokens, counts and proposed [R, S, K+3], then the draft lengths
             # after the last round: one readback
             out = torch.empty((n_rounds, S, K + 3), dtype=torch.int64, device=self.device)
+            run = self._timed(run, dtok)
             for r in range(n_rounds):
                 g, counts, proposed, self.last_logits = run()
                 out[r, :, : K + 1] = g
                 out[r, :, K + 1] = counts
                 out[r, :, K + 2] = proposed
             flat = torch.cat([out.view(-1), self.draft_state["lengths"].long()])
+            if dtok is not None:
+                dtok.stop()
             self.decode_steps += n_rounds
             self.spec_rounds += n_rounds
             self.spec_proposer_rounds["draft"] += n_rounds
             active_rounds = n_rounds * int(self.active.sum())
             self.spec_slot_rounds += active_rounds
         flat = flat.cpu().numpy()
+        if self._devprof is not None:
+            self._devprof_sample(dtok)
         host = flat[: -S].reshape(n_rounds, S, K + 3)
         tokens, counts, proposed = host[:, :, : K + 1], host[:, :, K + 1], host[:, :, K + 2]
         with self._lock:
@@ -2506,12 +2821,20 @@ class TorchEngine:
                 return
             w = next((b for b in buckets if b >= gap_max), buckets[-1])
             with self._lock:
-                self._dispatcher(("draft_ingest", w),
-                                 functools.partial(self._draft_ingest_body, w), eager,
-                                 pool=self._draft_pool)()
+                key = ("draft_ingest", w)
+                run = self._dispatcher(key, functools.partial(self._draft_ingest_body, w),
+                                       eager, pool=self._draft_pool)
+                dtok = None
+                if self._devprof is not None:
+                    dtok = self._devprof_note("draft_ingest", key)
+                self._timed(run, dtok)()
+                if dtok is not None:
+                    dtok.stop()
                 self.draft_ingest_dispatches += 1
                 d_len = self.draft_state["lengths"].long()
             self._draft_host_lengths = d_len.cpu().numpy()
+            if self._devprof is not None:
+                self._devprof_sample(dtok)
 
     def release(self, slot: int) -> None:
         # the host mirrors change under the lock: a dispatch on the dispatch
@@ -2774,6 +3097,7 @@ class ChunkedPrefill:
         # a copy of the final chunk's logits row the first token was sampled
         # from (the engine's static row is the next admission's)
         self.first_logits: Optional[torch.Tensor] = None
+        self.dtok = None  # the final chunk's devprof timing, if sampled
 
     @property
     def done(self) -> bool:
@@ -2808,4 +3132,6 @@ class ChunkedPrefill:
                 self.first_logits = eng._adm_logits.clone()
                 eng._register_prefix(self.slot, self.ids, self.hashes)
         self.pos += n
+        if final and eng._devprof is not None:
+            eng._devprof_sample(self.dtok)
         return self.first_token

@@ -1,18 +1,5 @@
 """Deterministic, seeded fault injection for the serving plane.
 
-A copy of ``aios_tpu/faults/inject.py``: the same catalog, grammar, seeded
-per-point generators and journal, so one seed and one schedule fire the
-same faults in both packages. The port compiles six of the points into
-its hot paths: ``pool.scheduler_crash`` and ``dispatch.delay`` (the
-batcher), ``allocator.pressure`` (the page allocator),
-``admission.clock_skew`` (the admission controller),
-``host_store.corrupt`` (the host tier's probe) and
-``host_store.restore_fail`` (the engine's restore). The others parse as
-in the JAX package and wait for the modules that call them (the rpc
-interceptors, the fleet plane, the megagraph). A fired fault
-is counted and lands on the flight recorder's model lane; incident bundles
-are not ported.
-
 The reference aiOS survives component failure by design — the spawner
 restarts crashed agents and the intelligence hierarchy degrades tier by
 tier — but recovery code nobody can *provoke* is recovery code nobody
@@ -95,12 +82,12 @@ POINTS = (
     "rpc.unavailable",
     "allocator.pressure",
     "admission.clock_skew",
-    # decode-host loss mid-handoff (aios_tpu/fleet/disagg.py): the
+    # decode-host loss mid-handoff (aios_tpu_torch/fleet/disagg.py): the
     # servicer aborts the stream — or, with exit=1, kills the whole
     # process (the disagg smoke's real host kill) — and the prefill
     # host re-hands the stream to a survivor
     "fleet.host_kill",
-    # per-EDGE network faults (aios_tpu/faults/net.py): scoped by
+    # per-EDGE network faults (aios_tpu_torch/faults/net.py): scoped by
     # src=/dst= host-id params (string-valued) and an optional
     # surface= filter ("rpc" | "http"), hit-counted PER EDGE so the
     # k-th send on one edge fires deterministically no matter how
@@ -272,12 +259,17 @@ class FaultPlan:
         """Observability for a fired fault — outside the plan lock (the
         recorder and metric children take their own)."""
         obs.FAULTS_INJECTED.labels(point=act.point, mode=act.mode).inc()
-        from ..obs import flightrec  # late: obs import order
+        from ..obs import flightrec, incidents  # late: obs import order
 
         flightrec.RECORDER.model_event(
             model or "faults", "fault",
             point=act.point, mode=act.mode, hit=act.hit,
         )
+        # a fired fault is an incident trigger — the bundle freezes the
+        # telemetry window around the injection (no-op when unarmed;
+        # the per-(model, cause) cooldown keeps fault storms bounded)
+        incidents.notify(model or "faults", "fault",
+                         point=act.point, mode=act.mode, hit=act.hit)
         log.warning(
             "fault injected: %s (%s, hit %d)%s",
             act.point, act.mode, act.hit,

@@ -1,21 +1,36 @@
 """Serving-plane flight recorder: one structured timeline per request.
 
-A copy of ``aios_tpu/obs/flightrec.py`` without its tracing half: the
-closed enums (event kinds, shed causes, abort causes and the retryable
-ones), ``abort_cause``, ``Timeline``, ``FlightRecorder`` (bounded
-per-model rings of finished timelines, the model lane, anomaly snapshots)
-and the process-wide ``RECORDER``. Span folding (``export_span``,
-``install_span_export``) waits for the port's tracing, the Chrome-trace
-export for its HTTP debug routes, and incident bundles for
-``obs/incidents.py``; the service opens timelines with an empty trace id.
+RTP-LLM (PAPERS.md) treats request-level timelines as the operability
+backbone of a serving engine: when a request is slow, was shed, or came
+back truncated, the operator needs WHAT HAPPENED TO *THIS* REQUEST, not
+another aggregate. The recorder answers that question for every request
+through the serving plane:
 
-Every request through the serving plane is recorded: the admission
-decision (shed cause and retry-after), the route (replica, reason, overlap
-rows), the queue wait, each prefill or chunk, one event per decode
-DISPATCH (never per token), and the terminal event (retire, cancel, abort
-with a closed-enum cause). Records live in bounded rings, and
-``AIOS_TPU_FLIGHTREC=0`` disables the recorder without changing a single
-dispatch.
+    admission decision (quota/deadline/shed cause + retry-after)
+      -> route choice (replica, reason, overlap rows incl. the
+         host-discounted ones)
+      -> queue wait -> prefill chunks (cached / restored rows)
+      -> per-dispatch decode ticks (step count, batch occupancy,
+         pipeline host gap) / jump-ahead runs / spec rounds
+      -> retirement (or abort / shed, with a CLOSED-ENUM cause)
+
+Everything is host-side bookkeeping: events are appended per DISPATCH or
+per DECISION (never per token), records live in a bounded per-model ring
+buffer, and the whole thing can be disabled (``AIOS_TPU_FLIGHTREC=0``)
+without changing a single dispatch — the engine's compile counters and
+dispatch counts are identical recorder ON vs OFF (the engine's
+dispatch invariant, extended to observability).
+
+Timelines correlate with the span tree through the request's trace id:
+``install_span_export`` wires the previously-dormant
+``tracing.set_exporter`` hook so finished RPC spans fold into the
+matching timeline as ``span`` events.
+
+Export surfaces (obs/http.py): ``/debug/requests`` (recent timelines as
+JSON), ``/debug/trace`` (Chrome trace-event / Perfetto JSON),
+``/debug/spans`` (the finished-span ring), and anomaly auto-snapshots —
+a shed spike, crash-respawn, SLO breach, or abort freezes the last N
+timelines so the evidence survives the ring (docs/RUNBOOK.md section 4).
 """
 
 from __future__ import annotations
@@ -25,7 +40,7 @@ import logging
 import os
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..analysis.locks import make_lock
@@ -47,7 +62,7 @@ log = logging.getLogger("aios.obs")
 # finished tracing span, "respawn" a replica crash-respawn (model lane),
 # "failover" an in-flight re-route to a surviving replica after a crash
 # (serving/failover.py), "fault" an injected fault firing (model lane,
-# aios_tpu/faults/), "kv_compress" a slot crossing the window+sink
+# aios_tpu_torch/faults/), "kv_compress" a slot crossing the window+sink
 # compression threshold and "seq_prefill" a sequence-sharded whole-mesh
 # prefill admission (model lane, docs/ENGINE_PERF.md "Long-context
 # tier").
@@ -64,19 +79,19 @@ EVENT_KINDS = (
     # timelines
     "fleet_member",
     # "handoff": a disaggregated prefill->decode transfer of an
-    # in-flight stream to a peer host (aios_tpu/fleet/disagg.py) — on
+    # in-flight stream to a peer host (aios_tpu_torch/fleet/disagg.py) — on
     # the request timeline when it rides one, else the model lane
     "handoff",
     # "quarantine": a per-peer circuit-breaker state edge (closed/open/
     # half_open) on the "fleet" pseudo-model lane
-    # (aios_tpu/fleet/breaker.py) — the gray-host evidence trail
+    # (aios_tpu_torch/fleet/breaker.py) — the gray-host evidence trail
     "quarantine",
     # "drain": a graceful-drain phase edge (serving -> draining ->
-    # leaving) on the "fleet" pseudo-model lane (aios_tpu/fleet/drain.py)
+    # leaving) on the "fleet" pseudo-model lane (aios_tpu_torch/fleet/drain.py)
     "drain",
     # "incident": an incident bundle frozen on the model lane — the tsdb
     # window + snapshot + fault journal + devprof + lock-watchdog state
-    # around an anomaly trigger (aios_tpu/obs/incidents.py)
+    # around an anomaly trigger (aios_tpu_torch/obs/incidents.py)
     "incident",
 )
 
@@ -86,7 +101,7 @@ EVENT_KINDS = (
 # the protected floor) requests shed while the pool digs out of an SLO
 # burn — the reactive/operational tiers keep admitting.
 #
-# "draining_host" is the fleet drain protocol (aios_tpu/fleet/drain.py):
+# "draining_host" is the fleet drain protocol (aios_tpu_torch/fleet/drain.py):
 # the whole HOST is leaving, so unlike the per-pool "draining" cause the
 # retry hint points clients at the surviving fleet, not this process.
 SHED_CAUSES = ("quota", "deadline", "queue_full", "draining", "degraded",
@@ -151,6 +166,10 @@ SNAPSHOT_COOLDOWN_SECS = 30.0
 SHED_SPIKE_N = 20
 SHED_SPIKE_WINDOW_SECS = 10.0
 
+# trace_id -> timeline index bound (client-driven cardinality).
+_MAX_TRACE_INDEX = 4096
+
+
 class Timeline:
     """One request's flight record. Mutated only by the threads that own
     the request at the time (gRPC handler -> pool -> scheduler thread, a
@@ -200,7 +219,7 @@ class Timeline:
         can join late-arriving per-dispatch data (the pipelined decode
         worker's sampled device-µs lands at consume time) — readers only
         see FINISHED timelines (the rings), so an owner-side join on a
-        live one never races a reader's copy."""
+        live one never races a /debug copy."""
         if len(self.events) >= MAX_EVENTS:
             self.dropped_events += 1
             return None
@@ -268,6 +287,10 @@ class FlightRecorder:
         self._lock = make_lock("recorder")
         self._rings: Dict[str, deque] = {}  #: guarded_by _lock
         self._model_events: Dict[str, deque] = {}  #: guarded_by _lock
+        # trace_id -> recent timelines sharing it: an agent task's RPCs
+        # all propagate ONE traceparent, so a single-slot map would make
+        # every begin() steal the previous request's span correlation
+        self._by_trace: "OrderedDict[str, deque]" = OrderedDict()
         self._snapshots: deque = deque(maxlen=MAX_SNAPSHOTS)
         self._snapshot_at: Dict[Tuple[str, str], float] = {}
         self._shed_marks: Dict[str, deque] = {}
@@ -286,8 +309,19 @@ class FlightRecorder:
         call site guards on that)."""
         if not self.enabled:
             return None
-        return Timeline(model, request_id, tenant, trace_id, prompt_tokens,
-                        priority)
+        tl = Timeline(model, request_id, tenant, trace_id, prompt_tokens,
+                      priority)
+        if trace_id:
+            with self._lock:
+                peers = self._by_trace.get(trace_id)
+                if peers is None:
+                    peers = self._by_trace[trace_id] = deque(maxlen=8)
+                else:
+                    self._by_trace.move_to_end(trace_id)
+                peers.append(tl)
+                while len(self._by_trace) > _MAX_TRACE_INDEX:
+                    self._by_trace.popitem(last=False)
+        return tl
 
     def add_listener(self, fn: Callable[[Timeline], None]) -> None:
         self._listeners.append(fn)
@@ -379,6 +413,36 @@ class FlightRecorder:
                 model, deque(maxlen=MAX_EVENTS)
             ).append(entry)
 
+    # -- span folding (the dormant tracing.set_exporter hook) --------------
+
+    def export_span(self, span) -> None:
+        """tracing exporter callback: fold a finished span into the
+        timeline sharing its trace id (live or recently finished — RPC
+        server spans close AFTER the request retires). An agent task's
+        RPCs share ONE propagated traceparent, so among the trace's
+        recent timelines the span lands on the newest one whose lifetime
+        overlaps it (1 s grace for clock jitter), not blindly on the
+        latest begin()."""
+        if not self.enabled:
+            return
+        with self._lock:
+            peers = self._by_trace.get(span.trace_id)
+            candidates = list(peers) if peers else ()
+        if not candidates:
+            return
+        start = getattr(span, "start", 0.0)
+        end = getattr(span, "end", 0.0) or time.time()
+        tl = candidates[-1]
+        for cand in reversed(candidates):  # newest first
+            cand_end = cand.t0_wall + cand.duration_ms / 1000.0
+            if cand.t0_wall - 1.0 <= end and start <= cand_end + 1.0:
+                tl = cand
+                break
+        tl.event(
+            "span", name=span.name, dur_ms=round(span.duration_s * 1e3, 3),
+            status=span.status, span_id=span.span_id,
+        )
+
     # -- reads --------------------------------------------------------------
 
     def recent(self, model: str = "", limit: int = 64) -> List[Timeline]:
@@ -455,6 +519,15 @@ class FlightRecorder:
         }
         with self._lock:
             self._snapshots.append(snap)
+        # Every fired snapshot is also an incident trigger: the bundle
+        # freezes the tsdb window + fault journal + devprof state around
+        # the same anomaly. Hooked here — after the append — so the
+        # incident's flightrec section always finds the snapshot it
+        # belongs to. Late import: flightrec loads before incidents in
+        # the obs package; notify() is a no-op when the store is
+        # unarmed, and runs its own per-(model, cause) cooldown.
+        from . import incidents as _incidents
+        _incidents.notify(model, cause)
         dump_dir = os.environ.get("AIOS_TPU_FLIGHTREC_DUMP_DIR", "")
         if dump_dir:
             try:
@@ -471,7 +544,7 @@ class FlightRecorder:
         else:
             log.warning(
                 "flight recorder snapshot frozen (%s/%s, %d timelines); "
-                "RECORDER.snapshots() reads it", model, cause,
+                "GET /debug/snapshots to read it", model, cause,
                 len(snap["timelines"]),
             )
         return snap
@@ -485,11 +558,143 @@ class FlightRecorder:
         with self._lock:
             self._rings.clear()
             self._model_events.clear()
+            self._by_trace.clear()
             self._snapshots.clear()
             self._snapshot_at.clear()
             self._shed_marks.clear()
 
 
-# -- process-wide instance ----------------------------------------------------
+# -- Chrome trace-event export ----------------------------------------------
+
+# Event kinds rendered as zero-duration instants unless they carry dur_ms.
+_PHASE_NAMES = {
+    "prefill": "prefill", "decode": "decode", "jump": "jump-ahead",
+    "spec": "speculative", "span": "span",
+}
+
+
+def _tl_view(tl) -> tuple:
+    """Uniform view over a live :class:`Timeline` or a frozen snapshot's
+    ``to_dict()`` dict, so one renderer serves both (the snapshot path
+    must not drift from the live one): (model, request_id, tenant,
+    state, t0_wall, duration_ms, queue_wait_ms, events, summary_args)
+    with events as (t_rel_s, kind, fields) tuples."""
+    if isinstance(tl, dict):
+        events = [
+            (e.get("t_ms", 0.0) / 1e3, e.get("kind", ""),
+             {k: v for k, v in e.items() if k not in ("t_ms", "kind")})
+            for e in tl.get("events", ())
+        ]
+        return (
+            tl.get("model", ""), tl.get("request_id", ""),
+            tl.get("tenant", ""), tl.get("state", ""),
+            tl.get("submitted_at", 0.0), tl.get("duration_ms", 0.0),
+            tl.get("queue_wait_ms", 0.0), events,
+            {k: v for k, v in tl.items() if k != "events"},
+        )
+    return (
+        tl.model, tl.request_id, tl.tenant, tl.state, tl.t0_wall,
+        tl.duration_ms, tl.queue_wait_ms, list(tl.events),
+        tl.to_dict(events=False),
+    )
+
+
+def chrome_trace(timelines: list, model_events: List[tuple] = ()) -> dict:
+    """Render timelines (live :class:`Timeline` objects or a snapshot's
+    frozen dicts) as Chrome trace-event JSON (chrome://tracing /
+    Perfetto "JSON Object Format"): one pid per model, one tid per
+    request, X (complete) events for the request envelope + queue wait +
+    dur-carrying dispatches, i (instant) events for decisions. ts/dur
+    are microseconds of wall time. ``model_events`` are the recorder's
+    (wall_ts, model, kind, fields) lane tuples, rendered on tid 0."""
+    events: List[dict] = []
+    pids: Dict[str, int] = {}
+
+    def pid_of(model: str) -> int:
+        pid = pids.get(model)
+        if pid is None:
+            pid = pids[model] = len(pids) + 1
+            events.append({
+                "ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+                "args": {"name": f"model:{model}"},
+            })
+            events.append({
+                "ph": "M", "pid": pid, "tid": 0, "name": "thread_name",
+                "args": {"name": "engine lane"},
+            })
+        return pid
+
+    for tid, tl in enumerate(timelines, start=1):
+        (model, request_id, tenant, state, t0_wall, duration_ms,
+         queue_wait_ms, tl_events, summary) = _tl_view(tl)
+        pid = pid_of(model)
+        base_us = t0_wall * 1e6
+        events.append({
+            "ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
+            "args": {"name": f"{request_id or 'req'} ({tenant})"},
+        })
+        events.append({
+            "ph": "X", "pid": pid, "tid": tid,
+            "name": f"request[{state}]",
+            "cat": "request", "ts": base_us,
+            "dur": max(duration_ms * 1e3, 1.0),
+            "args": summary,
+        })
+        if queue_wait_ms:
+            events.append({
+                "ph": "X", "pid": pid, "tid": tid, "name": "queue",
+                "cat": "queue", "ts": base_us,
+                "dur": max(queue_wait_ms * 1e3, 1.0),
+                "args": {"wait_ms": round(queue_wait_ms, 3)},
+            })
+        for t_rel, kind, fields in tl_events:
+            ts = base_us + t_rel * 1e6
+            dur_ms = fields.get("dur_ms")
+            if dur_ms is not None:
+                events.append({
+                    "ph": "X", "pid": pid, "tid": tid,
+                    "name": _PHASE_NAMES.get(kind, kind), "cat": kind,
+                    "ts": ts - float(dur_ms) * 1e3,
+                    "dur": max(float(dur_ms) * 1e3, 1.0),
+                    "args": dict(fields),
+                })
+            else:
+                events.append({
+                    "ph": "i", "pid": pid, "tid": tid, "name": kind,
+                    "cat": kind, "ts": ts, "s": "t",
+                    "args": dict(fields),
+                })
+    for wall, model, kind, fields in model_events:
+        events.append({
+            "ph": "i", "pid": pid_of(model), "tid": 0, "name": kind,
+            "cat": kind, "ts": wall * 1e6, "s": "p", "args": dict(fields),
+        })
+    events.sort(key=lambda e: e.get("ts", 0))
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def snapshot_trace(snap: dict) -> dict:
+    """A frozen anomaly snapshot in Chrome trace shape — same renderer
+    as the live path (snapshots store to_dict() timelines and the
+    engine-lane events; both survive the freeze)."""
+    lane = [
+        (e.get("t_wall", 0.0), snap.get("model", ""), e.get("kind", ""),
+         {k: v for k, v in e.items() if k not in ("t_wall", "kind")})
+        for e in snap.get("model_events", ())
+    ]
+    return chrome_trace(snap.get("timelines", ()), lane)
+
+
+# -- process-wide instance + tracing hookup ---------------------------------
 
 RECORDER = FlightRecorder()
+
+
+def install_span_export() -> None:
+    """Wire the dormant ``tracing.set_exporter`` hook to the recorder —
+    only when nothing else claimed it (a deployment's own exporter
+    wins)."""
+    from . import tracing
+
+    if tracing.get_exporter() is None:
+        tracing.set_exporter(RECORDER.export_span)

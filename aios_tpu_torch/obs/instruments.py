@@ -1,17 +1,17 @@
 """The port's metric catalog: the instruments its serving plane registers.
 
-Copied from ``aios_tpu/obs/instruments.py``: the families that the replica
-pool, admission, failover, the batcher and its pipelined loop, the engine's
-speculation, megagraph, window+sink compression and prefix cache's host
-tier, the runtime service and the fault points touch, and those of the service
-plane (orchestrator, agents, gateway, memory tiers, tools), under the JAX
-package's names. The names do not collide when both packages
-run in one process (the parity tests): each package's
-instruments register in its own ``metrics.REGISTRY``, so one name lives
-once in each registry and never twice in one. The other JAX families (RPC
-interceptors, devprof, SLOs, the autoscaler, the fleet plane, the tsdb)
-wait for the modules that emit them. An HTTP ``/metrics`` endpoint is not
-ported yet: ``metrics.REGISTRY.render()`` gives the exposition text.
+Copied from ``aios_tpu/obs/instruments.py``: the families that the RPC
+interceptors, the replica pool, admission, failover, the autoscaler, the
+batcher and its pipelined loop, the engine's speculation, megagraph,
+window+sink compression, prefix cache's host tier and device ledger
+(devprof), the runtime service, the SLO engine, the tsdb, incident bundles
+and the fault points touch, the process-identity gauge, and those of the
+service plane (orchestrator, agents, gateway, memory tiers, tools), under
+the JAX package's names and types. The names do not collide when both
+packages run in one process (the parity tests): each package's instruments
+register in its own ``metrics.REGISTRY``, so one name lives once in each
+registry and never twice in one. The fleet plane's families wait for the
+fleet slice. ``obs/http.py`` serves the registry at ``/metrics``.
 
 Hot paths resolve label children once and hold them (``labels()`` is a
 dict lookup under a lock, fine per request, too slow per decoded token).
@@ -20,6 +20,24 @@ dict lookup under a lock, fine per request, too slow per decoded token).
 from __future__ import annotations
 
 from .metrics import Counter, Gauge, Histogram
+
+# -- RPC layer (client + server interceptors, aios_tpu_torch/rpc.py) --------
+
+RPC_REQUESTS = Counter(
+    "aios_tpu_rpc_requests_total",
+    "RPCs started, by side (client|server), service, and method",
+    ("side", "service", "method"),
+)
+RPC_ERRORS = Counter(
+    "aios_tpu_rpc_errors_total",
+    "RPCs finished non-OK, by side, service, method, and status code",
+    ("side", "service", "method", "code"),
+)
+RPC_LATENCY = Histogram(
+    "aios_tpu_rpc_latency_seconds",
+    "RPC wall time start->termination (streams: until exhausted)",
+    ("side", "service", "method"),
+)
 
 # -- engine: the continuous batcher -----------------------------------------
 
@@ -282,6 +300,142 @@ FAULTS_INJECTED = Counter(
     "Faults fired by the seeded injection layer (point = injection-point "
     "name from faults.POINTS, mode = nth|prob|after)",
     ("point", "mode"),
+)
+
+# -- SLO engine (obs/slo.py, fed by the obs/flightrec.py recorder) ---------
+# Labeled (model, objective) with ``objective`` drawn from the closed
+# slo.OBJECTIVES enum (ttft|tpot|availability); the per-tenant breakdown
+# stays in /debug/slo JSON (a tenant x model label product is unbounded).
+
+SLO_ATTAINMENT = Gauge(
+    "aios_tpu_slo_attainment_ratio",
+    "Fraction of windowed requests meeting the objective's target "
+    "(objective=ttft|tpot|availability; scrape-time, sliding window)",
+    ("model", "objective"),
+)
+SLO_BURN_RATE = Gauge(
+    "aios_tpu_slo_burn_rate_ratio",
+    "Error-budget burn rate: (1 - attainment) / (1 - target); 1.0 burns "
+    "exactly at budget, >1 eats future budget (scrape-time)",
+    ("model", "objective"),
+)
+SLO_BREACHES = Counter(
+    "aios_tpu_slo_breaches_total",
+    "Windowed attainment fell below target (edge-triggered per "
+    "(model, objective); each breach freezes a flight-recorder snapshot)",
+    ("model", "objective"),
+)
+
+# -- SLO autoscaler (serving/autoscale.py) ----------------------------------
+# ``action`` and ``cause`` are the closed autoscale.ACTIONS / CAUSES enums,
+# every child pre-registered at controller construction.
+
+AUTOSCALE_ACTIONS = Counter(
+    "aios_tpu_autoscale_actions_total",
+    "SLO-burn autoscaler actions (action=scale_up|scale_down|degrade|"
+    "restore off the windowed burn rate; cause=burn|ceiling|recovery|"
+    "kill_switch). Every action also lands on the flight recorder's "
+    "model lane with level/replica evidence",
+    ("model", "action", "cause"),
+)
+
+# -- device-time attribution (obs/devprof.py) --------------------------------
+# Armed by AIOS_TPU_DEVPROF; every series' ``graph`` label is drawn from the
+# closed devprof.GRAPH_KINDS enum (the engine registers the children by
+# iterating it), and the per-graph series are monotonic ledger counters read
+# at scrape time, summed over the model's live replica ledgers. Only the
+# tenant counter is a true Counter, labeled by tenant alone.
+
+DEVPROF_DISPATCHES = Gauge(
+    "aios_tpu_devprof_dispatches_total",
+    "Device dispatches per serving-graph kind (graph in the closed "
+    "devprof.GRAPH_KINDS enum; monotonic, summed over replica ledgers)",
+    ("model", "graph"),
+)
+DEVPROF_DEVICE_SECONDS = Gauge(
+    "aios_tpu_devprof_device_seconds_total",
+    "Estimated device-busy seconds per graph kind: mean sampled "
+    "CUDA-event time extrapolated over all dispatches (summed over "
+    "replica ledgers; raw even when the roofline is unknown)",
+    ("model", "graph"),
+)
+DEVPROF_MFU = Gauge(
+    "aios_tpu_devprof_mfu_ratio",
+    "Model FLOPs utilization per graph kind: the analytic FLOPs of "
+    "sampled dispatches / their CUDA-event seconds / the device's peak "
+    "dense bf16 FLOP/s (devprof.DEVICE_PEAKS; omitted on unknown devices)",
+    ("model", "graph"),
+)
+DEVPROF_HBM_UTIL = Gauge(
+    "aios_tpu_devprof_hbm_bandwidth_utilization_ratio",
+    "HBM bandwidth utilization per graph kind: the analytic bytes of "
+    "sampled dispatches / their CUDA-event seconds / the device's peak "
+    "HBM bytes/s (devprof.DEVICE_PEAKS; omitted on unknown devices)",
+    ("model", "graph"),
+)
+DEVPROF_TENANT_SECONDS = Counter(
+    "aios_tpu_devprof_tenant_device_seconds_total",
+    "Estimated device-seconds billed per tenant at request retirement "
+    "(timeline attribution: per-dispatch ledger means split by batch "
+    "occupancy + measured prefill time; per-model detail in "
+    "/debug/devprof)",
+    ("tenant",),
+)
+
+# -- black-box time series (obs/tsdb.py) ------------------------------------
+# Armed by AIOS_TPU_TSDB; the queries counter's ``verb`` label is the closed
+# tsdb.QUERY_VERBS enum, pre-registered at ring construction.
+
+TSDB_SAMPLES = Counter(
+    "aios_tpu_tsdb_sample_passes_total",
+    "Sampler passes completed (one pass reads the whole registry and "
+    "appends one point per live series)",
+)
+TSDB_SERIES = Gauge(
+    "aios_tpu_tsdb_series_total",
+    "Series currently tracked by the ring (scrape-time; bounded by "
+    "AIOS_TPU_TSDB_MAX_SERIES)",
+)
+TSDB_DROPPED = Gauge(
+    "aios_tpu_tsdb_dropped_series_total",
+    "Distinct series refused by the cardinality cap (monotonic, "
+    "scrape-time) — the no-silent-truncation contract: a non-zero value "
+    "means the ring is blind to that many series",
+)
+TSDB_QUERIES = Counter(
+    "aios_tpu_tsdb_queries_total",
+    "/debug/tsdb expressions evaluated, by verb (the closed "
+    "tsdb.QUERY_VERBS enum: raw|rate|avg|min|max|p50|p90|p95|p99)",
+    ("verb",),
+)
+
+# -- incident bundles (obs/incidents.py) ------------------------------------
+# ``cause`` is the closed incidents.TRIGGER_CAUSES enum, pre-registered at
+# store construction; fired + suppressed is the true trigger rate.
+
+INCIDENTS = Counter(
+    "aios_tpu_incidents_total",
+    "Incident bundles frozen, by trigger cause (closed "
+    "incidents.TRIGGER_CAUSES enum; each bundle = tsdb window + "
+    "flightrec snapshot + fault journal + devprof + lock-watchdog "
+    "state, served at /debug/incidents)",
+    ("cause",),
+)
+INCIDENTS_SUPPRESSED = Counter(
+    "aios_tpu_incidents_suppressed_total",
+    "Triggers swallowed by the per-(model, cause) cooldown — a burst "
+    "freezes exactly one bundle; this counter keeps the rest visible",
+    ("cause",),
+)
+
+# -- process identity (stamped by every metrics endpoint, obs/http.py) -------
+
+PROCESS_INFO = Gauge(
+    "aios_tpu_process_info",
+    "Process identity info-gauge (constant 1): host id, rank, service "
+    "role, package version — joins scrapes to the process that produced "
+    "them",
+    ("host", "rank", "role", "version"),
 )
 
 # -- orchestrator ----------------------------------------------------------

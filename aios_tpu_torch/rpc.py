@@ -1,22 +1,36 @@
 """Programmatic gRPC stub/servicer construction.
 
-A copy of the parts of ``aios_tpu/rpc.py`` the services need: each
-service is described once by a ``ServiceSpec`` (method name -> request and
-response classes + streaming flags) and turned, at import time, into what
-grpcio-tools would generate — a Stub class, an abstract Servicer base and a
-registration function. The JAX package's observability, fault-injection and
-per-edge network-fault interceptors are not ported yet.
+The environment has no grpcio-tools, so instead of checked-in generated
+`*_pb2_grpc.py` files each service is described once by a `ServiceSpec`
+(method name -> request/response classes + streaming flags) and this module
+builds, at import time, the same three artifacts grpcio-tools would emit:
+
+  * ``make_stub(spec)``      -> a Stub class taking a ``grpc.Channel``
+  * ``make_servicer(spec)``  -> an abstract Servicer base class
+  * ``add_to_server(spec, servicer, server)`` -> registers generic handlers
+
+All aiOS services are unary-unary or unary-stream; the builder supports all
+four cardinalities anyway for completeness.
+
+Reference parity: replaces the generated tonic (Rust) / grpcio (Python) stubs
+of agent-core/proto (SURVEY.md section 1, "IPC protos" row).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import os
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import grpc
 
-_MAX_MESSAGE = 64 * 1024 * 1024
+
+def _obs_enabled() -> bool:
+    """Observability interceptors are on by default on every server and
+    channel this module builds; AIOS_OBS_DISABLED=1 opts out (perf A/B,
+    debugging the interceptors themselves)."""
+    return os.environ.get("AIOS_OBS_DISABLED", "") not in ("1", "true", "on")
 
 
 @dataclass(frozen=True)
@@ -101,19 +115,85 @@ def add_to_server(spec: ServiceSpec, servicer: Any, server: grpc.Server) -> None
     )
 
 
-_CHANNEL_OPTIONS = (
-    ("grpc.max_send_message_length", _MAX_MESSAGE),
-    ("grpc.max_receive_message_length", _MAX_MESSAGE),
-)
+class _FaultUnavailableInterceptor(grpc.ServerInterceptor):
+    """Chaos hook (docs/FAULTS.md): when the ``rpc.unavailable`` fault
+    point fires, the RPC aborts UNAVAILABLE with ``retry-after-ms``
+    trailing metadata instead of reaching the servicer — the exact shape
+    a client sees when a whole serving process is mid-restart, for
+    driving client retry/backoff paths on demand. A no-op (one global
+    load in ``faults.point``) unless a fault schedule is armed."""
+
+    def intercept_service(self, continuation, handler_call_details):
+        handler = continuation(handler_call_details)
+        if handler is None:
+            return None
+        from . import faults
+
+        act = faults.point("rpc.unavailable")
+        if act is None:
+            return handler
+
+        def abort(request, context):
+            context.set_trailing_metadata(
+                (("retry-after-ms", str(act.retry_after_ms)),)
+            )
+            context.abort(
+                grpc.StatusCode.UNAVAILABLE,
+                f"injected rpc.unavailable (hit {act.hit})",
+            )
+
+        if handler.unary_unary is not None:
+            return grpc.unary_unary_rpc_method_handler(
+                abort,
+                request_deserializer=handler.request_deserializer,
+                response_serializer=handler.response_serializer,
+            )
+        if handler.unary_stream is not None:
+            return grpc.unary_stream_rpc_method_handler(
+                abort,
+                request_deserializer=handler.request_deserializer,
+                response_serializer=handler.response_serializer,
+            )
+        return handler  # stream-request cardinalities: not injected
 
 
-def create_server(max_workers: int = 16) -> grpc.Server:
-    """A threaded gRPC server with aiOS-standard channel options."""
+def create_server(
+    max_workers: int = 16, options: Tuple[Tuple[str, Any], ...] | None = None
+) -> grpc.Server:
+    """A threaded gRPC server with aiOS-standard channel options and the
+    observability interceptors (per-RPC span + rpc_* metrics)."""
+    opts = list(
+        options
+        or (
+            ("grpc.max_send_message_length", 64 * 1024 * 1024),
+            ("grpc.max_receive_message_length", 64 * 1024 * 1024),
+        )
+    )
+    # the fault interceptor goes INNERMOST (last): an injected
+    # UNAVAILABLE must still flow through the obs interceptors' metrics
+    # and spans — the operator drilling chaos is watching exactly those
+    interceptors: Tuple[Any, ...] = (_FaultUnavailableInterceptor(),)
+    if _obs_enabled():
+        from .obs.interceptors import server_interceptors
+
+        interceptors = tuple(server_interceptors()) + interceptors
     return grpc.server(
         concurrent.futures.ThreadPoolExecutor(max_workers=max_workers),
-        options=list(_CHANNEL_OPTIONS),
+        options=opts,
+        interceptors=interceptors,
     )
 
 
 def insecure_channel(address: str) -> grpc.Channel:
-    return grpc.insecure_channel(address, options=list(_CHANNEL_OPTIONS))
+    channel = grpc.insecure_channel(
+        address,
+        options=[
+            ("grpc.max_send_message_length", 64 * 1024 * 1024),
+            ("grpc.max_receive_message_length", 64 * 1024 * 1024),
+        ],
+    )
+    if _obs_enabled():
+        from .obs.interceptors import intercept_client_channel
+
+        channel = intercept_client_channel(channel)
+    return channel

@@ -98,9 +98,10 @@ has built its kernels and captured the CUDA graphs its batcher dispatches
 (``TorchEngine.warmup``, the batcher's attach); a failed build or capture
 leaves it in ``error`` and fails ``LoadModel``, as does a file that does
 not parse, a ggml type with no dequantizer or a geometry no kernel takes
-(a mixture-of-experts model's expert stacks included). HF checkpoint
-directories, prepared checkpoints and the SLO autoscaler wait for later
-slices.
+(a mixture-of-experts model's expert stacks included). With
+``AIOS_TPU_AUTOSCALE`` each pool gets the SLO autoscaler
+(``serving/autoscale.py``), whose scale-ups share replica 0's weights. HF
+checkpoint directories and prepared checkpoints wait for later slices.
 """
 
 from __future__ import annotations
@@ -148,10 +149,7 @@ PAGE_SIZE = 128
 # Serving knobs that the JAX stack honours and the port does not yet: each one
 # that is set logs a warning naming it when a ModelManager is built. A slice
 # that ports a knob deletes it here. A name ending in "*" is a prefix.
-UNPORTED_KNOBS = (
-    "AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH",
-    "AIOS_TPU_AUTOSCALE", "AIOS_TPU_AUTOSCALE_*",
-)
+UNPORTED_KNOBS = ("AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH")
 
 
 def unported_knobs_set() -> List[str]:
@@ -542,6 +540,31 @@ class ModelManager:
 
             pool.on_respawn = _sync_batcher
             pool.on_device_fault = lambda exc, _m=managed: self._device_lost(_m, exc)
+            # the SLO autoscaler (AIOS_TPU_AUTOSCALE): a per-pool controller
+            # scales replicas off the windowed burn rate and walks the
+            # degrade ladder at the ceiling. Its engines are built over
+            # replica 0's live serving leaves, so a scale-up adds only its
+            # own pool and graphs; the controller builds and warms them
+            # outside every pool lock (each engine captures on its own
+            # stream while the other replicas replay)
+            from ..serving.autoscale import AutoscaleController
+            from ..serving.autoscale import enabled as autoscale_enabled
+
+            if autoscale_enabled():
+                def engine_factory(_cfg=cfg, _ctx=ctx, _kw=kw, _spec=spec_on,
+                                   _draft=draft, _pool=pool, _chunk=chunk):
+                    eng = TorchEngine(
+                        _cfg, _pool.replicas[0].engine.params,
+                        num_slots=self.num_slots, max_context=_ctx,
+                        cache_dtype=self.cache_dtype, quantize=None,
+                        track_history=_spec, device=self.device, draft=_draft, **_kw,
+                    )
+                    eng.warmup(prefill_chunk=_chunk, masked_step=json_mode_forced())
+                    return eng
+
+                AutoscaleController(pool, engine_factory=engine_factory, start=True)
+                log.info("%s: SLO autoscaler attached (ceiling %d replicas)", name,
+                         pool.autoscaler.cfg.max_replicas)
         except Exception as exc:
             # a failed hot swap must not clobber the model still serving:
             # keep the READY entry; register an error entry only when there

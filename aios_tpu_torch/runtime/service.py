@@ -24,16 +24,21 @@ The port of ``aios_tpu/runtime/service.py`` for the main path:
     error (the port's own case) is INTERNAL with no hint, since the card's
     context is lost for the process;
   * one flight-recorder timeline per request, opened here with the tenant
-    (an empty trace id: tracing is not ported); HealthCheck's
-    ``<model>.serving`` is ``pool.stats()``.
-Tracing, SLOs, the HTTP metrics endpoint and the fleet plane are not ported
-yet.
+    and the trace id of the RPC's server span (the interceptor's, current
+    on the handler thread), and a ``runtime.decode`` span, its child, around
+    the token stream; HealthCheck's ``<model>.serving`` is ``pool.stats()``
+    and ``<model>.slo`` the SLO engine's windowed attainment;
+  * ``serve(metrics_port=...)`` (or ``AIOS_RUNTIME_METRICS_PORT``) starts the
+    /metrics, /healthz and /debug endpoint, whose /healthz folds the SLO
+    view in (503 on a breach).
+The fleet plane is not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from typing import Iterator, Optional
 
@@ -43,7 +48,7 @@ from .. import rpc
 from ..device import DEVICE_FAULT_REASON, DeviceFault
 from ..engine.batching import Request
 from ..engine.tokenizer import render_chat
-from ..obs import flightrec
+from ..obs import devprof, flightrec, slo, tracing
 from ..obs import instruments as obs
 from ..obs.http import maybe_start_metrics_server
 from ..proto_gen import common_pb2, runtime_pb2
@@ -63,6 +68,8 @@ class RuntimeService(AIRuntimeServicer):
     def __init__(self, manager: Optional[ModelManager] = None):
         self.manager = manager or ModelManager()
         self.started_at = time.time()
+        self.metrics_server = None
+        self.metrics_port: Optional[int] = None
 
     # -- lifecycle RPCs -----------------------------------------------------
 
@@ -106,6 +113,14 @@ class RuntimeService(AIRuntimeServicer):
             details[f"{m.name}.serving"] = ",".join(
                 f"{k}={v}" for k, v in sorted(stats.items())
             )
+        # the SLO view (obs/slo.py): windowed attainment per objective,
+        # breached ones flagged, the gRPC twin of /healthz's degradation
+        for name in slo.ENGINE.models():
+            ev = slo.ENGINE.evaluate(name)
+            details[f"{name}.slo"] = ",".join(
+                f"{o}={v['attainment']:.4f}" + ("!breach" if v["breached"] else "")
+                for o, v in sorted(ev.items())
+            )
         ready = len(self.manager.ready_models())
         return common_pb2.HealthStatus(
             healthy=True,
@@ -123,7 +138,11 @@ class RuntimeService(AIRuntimeServicer):
         if m is None:
             return runtime_pb2.InferResponse()
         handle, n_prompt = self._submit(m, request, context, streaming=False)
-        token_ids = [t for t in handle if t != m.tokenizer.eos_id]
+        # decode span: a child of the interceptor's RPC server span (same
+        # handler thread), the leaf of goal -> task -> agent -> RPC -> decode
+        with tracing.start_span("runtime.decode", model=m.name, rpc="Infer") as span:
+            token_ids = [t for t in handle if t != m.tokenizer.eos_id]
+            span.set_attribute("tokens", len(token_ids))
         obs.RUNTIME_INFER_LATENCY.labels(model=m.name, rpc="Infer").observe(time.time() - t0)
         if handle.aborted:
             # a truncation is an error; a retryable cause (a crashed replica
@@ -154,17 +173,20 @@ class RuntimeService(AIRuntimeServicer):
         emitted = ""
         ids = []
         try:
-            for tok in handle:
-                if tok == m.tokenizer.eos_id:
-                    break
-                ids.append(tok)
-                # incremental detokenization: emit the stable text delta
-                text = m.tokenizer.decode(ids)
-                delta = text[len(emitted):] if text.startswith(emitted) else text
-                if delta:
-                    emitted = text
-                    chunk_counter.inc()
-                    yield runtime_pb2.InferChunk(text=delta, done=False)
+            with tracing.start_span("runtime.decode", model=m.name,
+                                    rpc="StreamInfer") as span:
+                for tok in handle:
+                    if tok == m.tokenizer.eos_id:
+                        break
+                    ids.append(tok)
+                    # incremental detokenization: emit the stable text delta
+                    text = m.tokenizer.decode(ids)
+                    delta = text[len(emitted):] if text.startswith(emitted) else text
+                    if delta:
+                        emitted = text
+                        chunk_counter.inc()
+                        yield runtime_pb2.InferChunk(text=delta, done=False)
+                span.set_attribute("tokens", len(ids))
             obs.RUNTIME_INFER_LATENCY.labels(model=m.name, rpc="StreamInfer").observe(
                 time.time() - t0)
             if handle.aborted:
@@ -223,8 +245,13 @@ class RuntimeService(AIRuntimeServicer):
         # the front door: the tenant's quota, the bounded queue and the
         # deadline's feasibility, with the gRPC deadline as the budget
         tenant = tenant_of(request, m.pool.cfg.tenant_by)
+        # the timeline opens where model, tenant and the RPC's trace
+        # identity are all known: the interceptor's server span is current
+        # on this handler thread
+        span = tracing.current_span()
         req.rec = flightrec.RECORDER.begin(
-            m.name, req.request_id, tenant, trace_id="",
+            m.name, req.request_id, tenant,
+            trace_id=span.trace_id if span is not None else "",
             prompt_tokens=len(prompt_ids), priority=req.priority)
         deadline_s = None
         remaining = context.time_remaining()
@@ -294,17 +321,32 @@ class RuntimeService(AIRuntimeServicer):
 
 
 def serve(address: Optional[str] = None, manager: Optional[ModelManager] = None,
-          block: bool = True):
-    """Start the runtime gRPC server; returns (server, service, port).
-    AIOS_RUNTIME_METRICS_PORT only warns: the metrics endpoint is not
-    ported yet."""
+          block: bool = True, metrics_port: Optional[int] = None):
+    """Start the runtime gRPC server; returns (server, service, port). With
+    ``metrics_port`` (0: any free port) or ``AIOS_RUNTIME_METRICS_PORT`` the
+    /metrics, /healthz and /debug endpoint starts beside it
+    (``service.metrics_server``, ``service.metrics_port``)."""
     address = address or service_address("runtime")
     server = rpc.create_server()
     service = RuntimeService(manager)
     rpc.add_to_server(RUNTIME, service, server)
     port = server.add_insecure_port(address)
     server.start()
-    maybe_start_metrics_server("runtime")
+    if service.manager.device.type == "cuda" and os.environ.get("AIOS_TPU_DEVPROF_DUMP_DIR"):
+        # /debug/profile captures on an HTTP thread: the profiler must first
+        # initialize on this one (devprof.prepare_capture)
+        devprof.prepare_capture()
+    service.metrics_server, service.metrics_port = maybe_start_metrics_server(
+        "runtime",
+        metrics_port,
+        # the SLO view rides the probe: a breached objective flips the
+        # status to "degraded", which the endpoint answers with HTTP 503
+        health_fn=lambda: slo.annotate_health({
+            "status": "ok",
+            "service": "runtime",
+            "models_ready": len(service.manager.ready_models()),
+        }),
+    )
     log.info("AIRuntime (%s) listening on %s", service.manager.backend, address)
     if block:
         server.wait_for_termination()

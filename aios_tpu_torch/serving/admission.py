@@ -1,8 +1,9 @@
 """The pool's front door: quotas, deadlines, bounded queues, load shedding.
 
-A copy of ``aios_tpu/serving/admission.py``. ``devprof_rate_fn`` stays a
-hook that nothing installs until the port has a device ledger, so a cold
-pool's deadline gate uses ``AIOS_TPU_ASSUMED_TPS`` or never sheds.
+A copy of ``aios_tpu/serving/admission.py``. The pool installs
+``devprof_rate_fn``: with the device ledger armed (``AIOS_TPU_DEVPROF``) a
+cold pool's deadline gate takes its rate from the sampled step times, else
+from ``AIOS_TPU_ASSUMED_TPS``, or never sheds.
 
 RTP-LLM (arXiv:2605.29639) frames the overload problem: an unbounded
 admission queue converts overload into client-side timeouts for EVERY

@@ -6,8 +6,9 @@ model manager builds replicas 1..N-1 over replica 0's serving leaves);
 each owns its page pool, prefix index, CUDA graphs and graph stream, and
 its batcher thread replays on that thread's current stream, the device's
 legacy default stream, which orders the replicas' work one after another.
-The autoscaler that drives ``add_replica`` / ``remove_replica`` and the
-devprof rate seed wait for later slices (``_devprof_rate`` returns 0).
+The SLO autoscaler (``serving/autoscale.py``) drives ``add_replica`` /
+``remove_replica`` and the degrade ladder; the devprof ledger seeds the
+deadline gate's cold-start rate (``_devprof_rate``).
 
 Sits between ``RuntimeService`` and the engines with no wire-format
 change: ``LoadModel``/``UnloadModel`` operate on the pool, every
@@ -137,9 +138,13 @@ class ReplicaPool:
         # when to move — lives in the controller. Plain int, flipped
         # cross-thread by set_degrade_level.
         self.degrade_level = 0
-        # cold-start deadline feasibility: the hook the devprof ledger's
-        # per-graph step means will seed (env knob wins — see
-        # AdmissionController.assumed_rate)
+        # set by an attached AutoscaleController; shutdown() stops it so
+        # an unload/hot-swap can never leave a controller scaling a
+        # drained pool
+        self.autoscaler = None
+        # cold-start deadline feasibility: seed the assumed decode rate
+        # from the devprof ledger's per-graph step means when devprof is
+        # armed (env knob wins — see AdmissionController.assumed_rate)
         self.admission.devprof_rate_fn = self._devprof_rate
         # optional hook fired as on_respawn(replica_idx, new_batcher) —
         # ModelManager uses it to keep ManagedModel's replica-0 batcher
@@ -173,9 +178,27 @@ class ReplicaPool:
         return b
 
     def _devprof_rate(self) -> float:
-        """Devprof-seeded cold-start decode rate: 0.0 (the deadline gate
-        stays cold-disabled) until the port has a device ledger."""
-        return 0.0
+        """Devprof-seeded cold-start decode rate: chunk_steps tokens per
+        decode dispatch over the ledger's mean sampled step seconds — a
+        conservative single-slot tokens/sec floor for the deadline
+        feasibility gate. 0.0 (gate stays cold-disabled) when devprof is
+        unarmed or has no step samples yet."""
+        from ..obs import devprof
+
+        reps = self.replicas
+        if not reps:
+            return 0.0
+        steps = getattr(reps[0].batcher, "chunk_steps", 0)
+        if steps <= 0:
+            return 0.0
+        means = [
+            m for m in (
+                led.mean_s("step") for led in devprof.ledgers_for(self.name)
+            ) if m
+        ]
+        if not means:
+            return 0.0
+        return steps / (sum(means) / len(means))
 
     def _register_gauges(self) -> None:
         ref = weakref.ref(self)
@@ -495,7 +518,7 @@ class ReplicaPool:
                 if self.on_respawn is not None:
                     self.on_respawn(r.idx, r.batcher)
 
-    # -- elastic lifecycle (the autoscaler will drive these) ---------------
+    # -- elastic lifecycle (serving/autoscale.py drives these) --------------
 
     def set_degrade_level(self, level: int) -> int:
         """Move the degrade ladder: 0 healthy, 1 speculation off, 2 +
@@ -566,6 +589,10 @@ class ReplicaPool:
         """Shut every replica down (optionally draining first) and free
         engine HBM deterministically."""
         self._draining = True
+        # stop the attached autoscaler FIRST: a controller tick racing
+        # shutdown must not spawn a replica onto a draining pool
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         if drain_timeout > 0:
             self.drain(drain_timeout)
         self._closed = True

@@ -279,6 +279,30 @@ Phases, each printing its lines:
      runtime child on the card), answers one LoadModel, one gateway Infer and
      one heuristic goal and shuts down with no process left. Its
      in-process runs add to the kernels line.
+  19. the observability and storm plane (``phase_storm``, last) —
+     ``scenarios/storm_reference.toml`` as committed but for its model
+     source, ``synthetic://tinyllama-1.1b`` at full width (int8 weights,
+     bf16 pool; 2 replicas sharing their weights, 4 slots, context 512),
+     with ``AIOS_TPU_DEVPROF=1`` (every 4th dispatch sampled),
+     ``AIOS_TPU_TSDB=1``, ``AIOS_TPU_INCIDENTS=1`` and the metrics endpoint
+     on port 0: the storm twice over the live gRPC service, each on a fresh
+     manager (the same deterministic verdict, no stuck or errored request,
+     every quota shed with a retry-after, every RPC counted by
+     ``aios_tpu_rpc_requests_total``; per-tenant TTFT/TPOT, attainment and
+     the ``/debug/slo`` surface printed); then on the second run's live
+     server each replica's ledger against its batcher's and engine's own
+     dispatch counts, the sampled step against 20 replays timed directly by
+     CUDA events (within 10%), the MFU and HBM gauges of the step and the
+     prefill in (0, 1.05), ``/debug/profile?secs=2`` (a second request
+     409, the trace naming K1's and K3's kernels), a client span's trace id
+     through StreamInfer to the decode span, the flight recorder's timeline
+     and ``/debug/requests?trace=``; the autoscaler from 1 replica to its
+     ceiling of 2 under tight targets (the scale-up sharing the weights),
+     one degrade rung and its restore, greedy streams equal to the control
+     wave across them and an incident bundle with the tsdb window and the
+     devprof ledger; and the 8-slot, 129-token wave and a 32-token Infer
+     with devprof, the tsdb and the interceptors on and off (the Infer
+     within 2%). Its served runs add to the kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -1743,6 +1767,41 @@ def _counted(fn):
     return out, _read_counts()
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """Set (a value) or unset (None) variables for the block; yields
+    ``setenv(name, value)`` for more within it. Every variable set either
+    way is restored on the way out."""
+    saved = {}
+
+    def setenv(k, v):
+        saved.setdefault(k, os.environ.get(k))
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+
+    try:
+        for k, v in kv.items():
+            setenv(k, v)
+        yield setenv
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _set_knobs(names, env: dict) -> None:
+    """Set ``env``'s knobs, which the next LoadModel reads, and unset every
+    other one of ``names``."""
+    for k in names:
+        os.environ.pop(k, None)
+    for k, v in env.items():
+        os.environ[k] = str(v)
+
+
 def _busy_and_wall(fn):
     """(device busy ms, host wall ms) of one eager ``fn()``: the busy time is
     the sum of its device events under torch.profiler, the wall the median
@@ -2587,9 +2646,11 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None
     """A decode dispatch of ``n_steps`` with all slots active at ~300 rows
     through the graph and through the eager body, from the same state each
     time: host wall per step (median of three unprofiled dispatches), the
-    device span of one (CUDA events), three under torch.profiler (device
-    busy share, the device events per step of each, the top kernels), and
-    for the eager body one more with its functions marked (``_op_table``).
+    device span of one (CUDA events), three under torch.profiler for the
+    graph and one for the eager body, whose thousands of host ops a step
+    make each profile cost tens of seconds to read (device busy share, the
+    device events per step of each, the top kernels), and for the eager
+    body one more with its functions marked (``_op_table``).
     With ``prompt`` the slots are greedy on that prompt and the dispatch is
     ``n_steps`` speculative rounds."""
     from torch.profiler import ProfilerActivity, profile
@@ -2627,7 +2688,7 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None
         torch.cuda.synchronize()
         span = a.elapsed_time(b)
         windows = []
-        for _ in range(3):
+        for _ in range(3 if mode == "graph" else 1):
             fresh()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -2646,8 +2707,8 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None
             f"wall {wall_ms / n_steps:.3f} ms per {per} (median of 3, unprofiled), device span "
             f"{span / n_steps:.3f} ms per {per} (CUDA events); profiled: wall {wall * 1e3:.2f} "
             f"ms, device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%} of the profiled wall, "
-            f"{busy / (wall_ms):.1%} of the unprofiled), device events per {per} in three "
-            f"windows {counts}, {card}")
+            f"{busy / (wall_ms):.1%} of the unprofiled), device events per {per} in "
+            f"{len(counts)} window{'s' if len(counts) > 1 else ''} {counts}, {card}")
         for key, (_, us) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
             log(f"[profile]   {us / 1e3:9.3f} ms  {key[:110]}")
         if mode == "eager":
@@ -4461,10 +4522,7 @@ FAILOVER_PROMPT = "Failover drill: summarize the incident timeline, step by step
 def _knobs(**env) -> None:
     """Set the serving knobs that the next LoadModel reads (``ServingConfig``
     is read once per load), every other one unset."""
-    for k in SERVING_KNOBS:
-        os.environ.pop(k, None)
-    for k, v in env.items():
-        os.environ[k] = str(v)
+    _set_knobs(SERVING_KNOBS, env)
 
 
 def _leaves(tree, prefix=""):
@@ -5915,10 +5973,7 @@ MIDFLIGHT_PROMPT = [256] + [(11 * j + 3) % 256 for j in range(1899)]  # 1900 tok
 def _loop_knobs(**env) -> None:
     """Set the decode loop's knobs that the next LoadModel reads, every
     other one unset."""
-    for k in LOOP_KNOBS:
-        os.environ.pop(k, None)
-    for k, v in env.items():
-        os.environ[k] = str(v)
+    _set_knobs(LOOP_KNOBS, env)
 
 
 def _record_ticks(eng) -> list:
@@ -6791,67 +6846,55 @@ def phase_stack(card: str) -> dict:
     from aios_tpu_torch.runtime.model_manager import ModelManager
 
     t0 = time.perf_counter()
-    saved = {}
-
-    def setenv(k, v):
-        saved.setdefault(k, os.environ.get(k))
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-
     tmp = tempfile.mkdtemp(prefix="aios-stack-")
     manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
-    st = Stack(tmp, manager, setenv)
-    try:
-        st.start()
-        t1 = time.perf_counter()
-        m = st.load(STACK_SOURCE, STACK_CONTEXT)
-        eng, cfg = m.engine, m.config
-        expect((cfg.num_layers, cfg.hidden_size, eng.max_context) == (22, 2048, STACK_CONTEXT)
-               and eng.quantized and eng.k_pool.dtype == torch.bfloat16,
-               f"not TinyLlama at full width over a bf16 pool: {cfg}")
-        log(f"[stack] services up on {st.ports}; {_graphs_line(m, time.perf_counter() - t1)}")
-        _reset_counts()
-        heur = stack_heuristic(st)
-        log(f"[stack] {STACK_GOALS} heuristic goals {HEURISTIC_GOAL!r}: completed through "
-            f"monitor.cpu; p50 SubmitGoal -> completed {heur:.1f} ms")
-        agent_ms = stack_agent(st)
-        log(f"[stack] agent-routed goal {AGENT_GOAL!r}: completed by system_agent-stack in "
-            f"{agent_ms:.1f} ms (the agent polls every 2 s)")
-        before = _read_counts()
-        inf = stack_infer(st)
-        after = _read_counts()
-        for k in TINYLLAMA_KERNELS[:3]:
-            expect(after.get(k, 0) > before.get(k, 0), f"{k} did not launch across the "
-                   f"gateway's Infer and StreamInfer")
-        log(f"[stack] {STACK_INFERS} x gateway Infer against direct runtime Infer, "
-            f"{STACK_INFER_TOKENS} tokens each: p50 {inf['gateway_p50']:.2f} vs "
-            f"{inf['direct_p50']:.2f} ms (the plane's cost "
-            f"{inf['gateway_p50'] - inf['direct_p50']:.2f} ms); StreamInfer "
-            f"{inf['stream_chunks']} chunks from local; launches across them "
-            f"{ {k: after.get(k, 0) - before.get(k, 0) for k in after} } on {card}")
-        g = stack_guided(st, m)
-        log(f"[stack] guided reasoning goal {GUIDED_GOAL!r}: {g['status']} in "
-            f"{g['goal_ms']:.1f} ms; {g['rounds']} reasoning calls, every reply parsed with "
-            f"catalog tools; {g['runtime_calls']} runtime calls took {g['runtime_ms']:.1f} ms "
-            f"({100 * g['runtime_ms'] / g['goal_ms']:.1f}% of the goal); prompts "
-            f"{g['prompt_bytes']} bytes; "
-            f"{g['masked_steps']} masked steps of {g['decode_steps']} decode steps, "
-            f"{g['jumps']} jumps carrying {g['jump_tokens']} tokens; tool calls over the "
-            f"tools gRPC {g['tool_calls']}; task errors {g['errors']}")
-        con = stack_console(st)
-        log(f"[stack] console /api/status {sorted(con['status'])}, /api/serving "
-            f"{sorted(con['serving']['models'])}")
-        launches = _read_counts()
-    finally:
-        st.stop()
-        manager.close()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    with _env() as setenv:
+        st = Stack(tmp, manager, setenv)
+        try:
+            st.start()
+            t1 = time.perf_counter()
+            m = st.load(STACK_SOURCE, STACK_CONTEXT)
+            eng, cfg = m.engine, m.config
+            expect((cfg.num_layers, cfg.hidden_size, eng.max_context)
+                   == (22, 2048, STACK_CONTEXT) and eng.quantized
+                   and eng.k_pool.dtype == torch.bfloat16,
+                   f"not TinyLlama at full width over a bf16 pool: {cfg}")
+            log(f"[stack] services up on {st.ports}; {_graphs_line(m, time.perf_counter() - t1)}")
+            _reset_counts()
+            heur = stack_heuristic(st)
+            log(f"[stack] {STACK_GOALS} heuristic goals {HEURISTIC_GOAL!r}: completed through "
+                f"monitor.cpu; p50 SubmitGoal -> completed {heur:.1f} ms")
+            agent_ms = stack_agent(st)
+            log(f"[stack] agent-routed goal {AGENT_GOAL!r}: completed by system_agent-stack in "
+                f"{agent_ms:.1f} ms (the agent polls every 2 s)")
+            before = _read_counts()
+            inf = stack_infer(st)
+            after = _read_counts()
+            for k in TINYLLAMA_KERNELS[:3]:
+                expect(after.get(k, 0) > before.get(k, 0), f"{k} did not launch across the "
+                       f"gateway's Infer and StreamInfer")
+            log(f"[stack] {STACK_INFERS} x gateway Infer against direct runtime Infer, "
+                f"{STACK_INFER_TOKENS} tokens each: p50 {inf['gateway_p50']:.2f} vs "
+                f"{inf['direct_p50']:.2f} ms (the plane's cost "
+                f"{inf['gateway_p50'] - inf['direct_p50']:.2f} ms); StreamInfer "
+                f"{inf['stream_chunks']} chunks from local; launches across them "
+                f"{ {k: after.get(k, 0) - before.get(k, 0) for k in after} } on {card}")
+            g = stack_guided(st, m)
+            log(f"[stack] guided reasoning goal {GUIDED_GOAL!r}: {g['status']} in "
+                f"{g['goal_ms']:.1f} ms; {g['rounds']} reasoning calls, every reply parsed with "
+                f"catalog tools; {g['runtime_calls']} runtime calls took {g['runtime_ms']:.1f} ms "
+                f"({100 * g['runtime_ms'] / g['goal_ms']:.1f}% of the goal); prompts "
+                f"{g['prompt_bytes']} bytes; "
+                f"{g['masked_steps']} masked steps of {g['decode_steps']} decode steps, "
+                f"{g['jumps']} jumps carrying {g['jump_tokens']} tokens; tool calls over the "
+                f"tools gRPC {g['tool_calls']}; task errors {g['errors']}")
+            con = stack_console(st)
+            log(f"[stack] console /api/status {sorted(con['status'])}, /api/serving "
+                f"{sorted(con['serving']['models'])}")
+            launches = _read_counts()
+        finally:
+            st.stop()
+            manager.close()
     torch.cuda.empty_cache()
     try:
         boot = stack_boot(tmp, STACK_SOURCE)
@@ -6863,6 +6906,636 @@ def phase_stack(card: str) -> dict:
         f"{boot['goal_ms']:.1f} ms, shutdown {boot['shutdown_s']:.1f} s, none of its "
         f"{boot['processes']} processes left")
     log(f"[stack] phase done in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+# -- phase 19: the observability and storm plane -----------------------------------
+
+STORM_SCENARIO = "scenarios/storm_reference.toml"
+STORM_SOURCE = "synthetic://tinyllama-1.1b"  # the one substitution: bench.py loads tiny-test
+STORM_OBS_ENV = {"AIOS_TPU_DEVPROF": "1", "AIOS_TPU_DEVPROF_SAMPLE": "4",
+                 "AIOS_TPU_TSDB": "1", "AIOS_TPU_INCIDENTS": "1",
+                 # a bundle waits out the window's second half before it freezes
+                 "AIOS_TPU_INCIDENT_WINDOW_SECS": "2"}
+STORM_DIRECT_REPLAYS = 20  # the step timed directly with CUDA events
+STORM_STEP_DISPATCHES = 512  # one-step dispatches the ledger samples (every 4th),
+# about 2 s: the tsdb (a pass a second) runs through them
+OBS_WAVE_TOKENS = 129
+OBS_INFER_PAIRS = 16  # 32-token Infers with the interceptors on and off, alternating
+K1_NAME, K3_NAME = "wq_matmul_kernel", "paged_decode_kernel"
+
+
+def _get_json(port: int, path: str):
+    """(HTTP status, JSON body) of a GET on the metrics endpoint."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode() or "{}")
+
+
+def _metric_lines(port: int, prefix: str) -> dict:
+    """{series: value} of the /metrics lines starting with ``prefix``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+def _same_weights(a, b) -> bool:
+    """Whether two engines' parameter trees hold the same device storage."""
+    def ptrs(tree):
+        if isinstance(tree, dict):
+            return [p for k in sorted(tree) for p in ptrs(tree[k])]
+        return [tree.data_ptr()]
+    return ptrs(a.params) == ptrs(b.params)
+
+
+def _rpc_served(port: int) -> float:
+    """Server-side Infer + StreamInfer RPCs the runtime counted."""
+    return sum(v for k, v in _metric_lines(port, "aios_tpu_rpc_requests_total").items()
+               if 'side="server"' in k and 'service="aios.runtime.AIRuntime"' in k
+               and ('method="Infer"' in k or 'method="StreamInfer"' in k))
+
+
+def _storm_run(sc, trace, tag: str, card: str, checks=None) -> dict:
+    """One storm over a fresh manager and the live gRPC service (metrics
+    endpoint on port 0), as ``bench.py --storm``'s run does; ``checks(m,
+    stub, port, report)`` runs on the live server after the storm."""
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.loadgen import StormDriver, build_report
+    from aios_tpu_torch.obs import slo
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+    from aios_tpu_torch.runtime.service import serve
+
+    slo.ENGINE.clear()
+    env = dict(AIOS_TPU_REPLICAS=sc.replicas, AIOS_TPU_PAGED_KV="auto",
+               AIOS_TPU_MAX_QUEUE=sc.max_queue,
+               AIOS_TPU_TENANT_TOKENS_PER_SEC=sc.tenant_tokens_per_sec,
+               AIOS_TPU_TENANT_BURST_TOKENS=sc.tenant_burst_tokens)
+    manager = ModelManager(num_slots=sc.num_slots, quantize="int8", kv_cache="bf16")
+    server = service = channel = None
+    out = {}
+    try:
+        with _env(**env):
+            t1 = time.perf_counter()
+            m = manager.load_model(sc.model, STORM_SOURCE, context_length=sc.context)
+            load_s = time.perf_counter() - t1
+            server, service, port = serve("127.0.0.1:0", manager, block=False,
+                                          metrics_port=0)
+        cfg, eng = m.config, m.engine
+        expect((cfg.num_layers, cfg.hidden_size, eng.max_context, len(m.pool.replicas))
+               == (22, 2048, sc.context, sc.replicas) and eng.quantized
+               and eng.k_pool.dtype == torch.bfloat16 and eng._devprof is not None,
+               f"[storm {tag}] not TinyLlama at full width over {sc.replicas} replicas of a "
+               f"bf16 pool with devprof armed: {cfg}")
+        expect(_same_weights(m.pool.replicas[1].engine, eng),
+               f"[storm {tag}] the replicas do not share their weights")
+        log(f"[storm {tag}] {_graphs_line(m, load_s)}; metrics endpoint :{service.metrics_port}")
+        _reset_counts()
+        rpc0, wall0 = _rpc_served(service.metrics_port), time.time()
+        driver = StormDriver(f"127.0.0.1:{port}", sc.model, metrics_port=service.metrics_port)
+        try:
+            driver.warmup()
+            t1 = time.perf_counter()
+            outcomes = driver.run(trace)
+            storm_s = time.perf_counter() - t1
+            surface = driver.slo_surface()
+        finally:
+            driver.close()
+        report = build_report(sc, trace, outcomes, surface)
+        out.update(report=report, outcomes=outcomes, storm_s=storm_s,
+                   rpcs=_rpc_served(service.metrics_port) - rpc0,
+                   recorded=_recorded_latency(sc.model, wall0))
+        if checks is not None:
+            channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+            out.update(checks(m, services.AIRuntimeStub(channel), service.metrics_port,
+                              report) or {})
+        out["launches"] = _read_counts()
+    finally:
+        if channel is not None:
+            channel.close()
+        if server is not None:
+            server.stop(grace=None)
+        if service is not None and service.metrics_server is not None:
+            service.metrics_server.shutdown()
+            service.metrics_server.server_close()
+        manager.close()
+        slo.ENGINE.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recorded_latency(model: str, since: float) -> dict:
+    """Per tenant, from the flight recorder's finished timelines (the
+    plane's own clock: TTFT to the first sampled token, TPOT over the rest):
+    (requests, TTFT p50, p99, TPOT p50, p99) in ms."""
+    from aios_tpu_torch.obs import flightrec
+
+    by = {}
+    for tl in flightrec.RECORDER.recent(model=model, limit=4096):
+        if tl.state == "retired" and tl.ttft_ms > 0 and tl.t0_wall >= since:
+            by.setdefault(tl.tenant, []).append((tl.ttft_ms, tl.tpot_ms))
+
+    def pct(xs, p):
+        xs = sorted(xs)
+        return xs[min(int(p * (len(xs) - 1) + 0.5), len(xs) - 1)] if xs else 0.0
+
+    return {t: (len(v), pct([a for a, _ in v], 0.5), pct([a for a, _ in v], 0.99),
+                pct([b for _, b in v if b > 0], 0.5), pct([b for _, b in v if b > 0], 0.99))
+            for t, v in sorted(by.items())}
+
+
+def _storm_tenants(report: dict, card: str, tag: str) -> None:
+    """Per tenant (each scenario tenant has a class of its own): the
+    driver's TTFT (to the first printed text, streaming calls only) and TPOT
+    p50/p99, counts, and the live /debug/slo surface."""
+    for klass, c in report["measured"]["classes"].items():
+        log(f"[storm {tag}] {klass}: {c['ok']}/{c['requests']} ok, TTFT p50 "
+            f"{c['ttft_p50_ms']} p99 {c['ttft_p99_ms']} ms, TPOT p50 {c['tpot_p50_ms']} p99 "
+            f"{c['tpot_p99_ms']} ms, wall p50 {c['wall_p50_ms']} ms; {card}")
+    ms = report["measured"]
+    log(f"[storm {tag}] attainment TTFT {ms['ttft_attainment']} TPOT {ms['tpot_attainment']} "
+        f"(targets {ms['targets']}), availability {ms['availability']}, sheds "
+        f"{ms['shed_causes']}, deadline tenants {ms['deadline_tenants']}")
+    for model, v in ms["slo_surface"].get("models", {}).items():
+        obj = {o: (e["attainment"], e["samples"]) for o, e in v["objectives"].items()}
+        log(f"[storm {tag}] /debug/slo {model}: objectives (attainment, samples) {obj}; "
+            f"tenants {v['tenants']}")
+
+
+def _devprof_checks(m, port: int, card: str) -> dict:
+    """The ledgers against the batchers' and engines' own counts, the step's
+    sampled device time against direct CUDA-event timing of its replay, and
+    the roofline gauges."""
+    out = {}
+
+    def settled(r) -> bool:
+        # a pipelined dispatch issued past the last token is collected (and
+        # counted by the batcher) at a later idle tick
+        graphs = r.engine.devprof_snapshot()["graphs"]
+        return all(g["dispatches"] == r.batcher.dispatches_by_graph.get(k, 0)
+                   for k, g in graphs.items()
+                   if k in ("step", "masked", "mega", "spec", "draft_spec", "jump"))
+
+    deadline = time.monotonic() + 30
+    while not all(settled(r) for r in m.pool.replicas) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    for r in m.pool.replicas:
+        snap = r.engine.devprof_snapshot()["graphs"]
+        got = {k: g["dispatches"] for k, g in snap.items()}
+        own = dict(r.batcher.dispatches_by_graph)
+        own.update(prefill=r.engine.prefills, chunk=r.engine.prefill_chunks)
+        for kind, n in own.items():
+            expect(got.get(kind, 0) == n, f"[devprof] replica {r.idx}: the ledger counted "
+                   f"{got.get(kind, 0)} {kind} dispatches, its batcher/engine {n}")
+        for kind in ("step", "prefill"):
+            expect(snap.get(kind, {}).get("samples", 0) > 0,
+                   f"[devprof] replica {r.idx}: no {kind} samples ({snap.get(kind)})")
+        for kind, g in sorted(snap.items()):
+            if g["dispatches"]:
+                log(f"[devprof] replica {r.idx} {kind}: {g['dispatches']} dispatches, "
+                    f"{g['samples']} sampled, mean "
+                    f"{1e3 * g.get('device_seconds_per_dispatch', 0.0):.4f} ms, MFU "
+                    f"{g.get('mfu', 'n/a')}, HBM share {g.get('hbm_bw_util', 'n/a')}; {card}")
+    # the step: one-step dispatches on the idle replica 0 (every 4th sampled),
+    # with the tsdb's sampler running as configured (the gate), then paused
+    # (a pass holds the interpreter for milliseconds; a sample whose start
+    # mark precedes such a hold on an idle card counts it as device time)
+    from aios_tpu_torch.obs import tsdb
+
+    eng = m.pool.replicas[0].engine
+    led = eng._devprof
+
+    def sampled_step_ms(tag):
+        before, passes0 = led.totals("step"), tsdb.TSDB.stats()["passes"]
+        for _ in range(STORM_STEP_DISPATCHES):
+            eng.step(1)
+        after, passes = led.totals("step"), tsdb.TSDB.stats()["passes"] - passes0
+        n = after[3] - before[3]
+        expect(n >= STORM_STEP_DISPATCHES // led.sample_n,
+               f"[devprof] {n} step samples over {STORM_STEP_DISPATCHES} dispatches ({tag})")
+        return (after[4] - before[4]) / n * 1e3, int(n), passes
+
+    expect(tsdb.TSDB is not None and tsdb.TSDB._thread is not None,
+           "[devprof] the tsdb sampler is not running")
+    sampled_ms, n_samples, passes = sampled_step_ms("tsdb armed")
+    tsdb.TSDB.stop()
+    try:
+        paused_ms, _, _ = sampled_step_ms("tsdb paused")
+    finally:
+        tsdb.TSDB.start()
+    # directly: a pair of CUDA events around each of 20 replays, each on an
+    # idle card as a dispatch finds it; then the 20 back to back, where each
+    # replay's launch hides behind the one before
+    replay = (lambda: eng.graphs.replay("step")) if eng.graphs.enabled else eng._step_body
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(STORM_DIRECT_REPLAYS + 1)]
+    with eng._lock:
+        replay()
+        torch.cuda.synchronize()
+        for start, stop in events[:-1]:
+            start.record()
+            replay()
+            stop.record()
+            stop.synchronize()
+        start, stop = events[-1]
+        start.record()
+        for _ in range(STORM_DIRECT_REPLAYS):
+            replay()
+        stop.record()
+        stop.synchronize()
+    direct_ms = sum(a.elapsed_time(b) for a, b in events[:-1]) / STORM_DIRECT_REPLAYS
+    packed_ms = start.elapsed_time(stop) / STORM_DIRECT_REPLAYS
+    log(f"[devprof] a step: ledger's sampled mean {sampled_ms:.4f} ms ({n_samples} "
+        f"samples of one-step dispatches, CUDA events at the dispatch, the tsdb armed: "
+        f"{passes} passes meanwhile; {paused_ms:.4f} ms with it paused, "
+        f"{100 * (sampled_ms / paused_ms - 1):+.2f}%) against "
+        f"{direct_ms:.4f} ms timed directly around each of {STORM_DIRECT_REPLAYS} replays "
+        f"({packed_ms:.4f} ms a replay back to back); {card}")
+    expect(abs(sampled_ms - direct_ms) <= 0.10 * direct_ms,
+           f"[devprof] the sampled step ({sampled_ms:.4f} ms) is not within 10% of the "
+           f"direct timing ({direct_ms:.4f} ms)")
+    gauges = _metric_lines(port, "aios_tpu_devprof_")
+    for kind in ("step", "prefill"):
+        for fam in ("aios_tpu_devprof_mfu_ratio",
+                    "aios_tpu_devprof_hbm_bandwidth_utilization_ratio"):
+            # engine families carry the config's name, as in the JAX engine
+            key = f'{fam}{{model="{m.config.name}",graph="{kind}"}}'
+            v = gauges.get(key)
+            expect(v is not None and 0.0 < v < 1.05,
+                   f"[devprof] {key} = {v}: not in (0, 1.05) (card {torch.cuda.get_device_name()})")
+            out[f"{kind}_{'mfu' if 'mfu' in fam else 'hbm'}"] = v
+    log(f"[devprof] gauges: step MFU {out['step_mfu']:.4g}, HBM share {out['step_hbm']:.4g}; "
+        f"prefill MFU {out['prefill_mfu']:.4g}, HBM share {out['prefill_hbm']:.4g} (analytic "
+        f"cost over sampled CUDA-event seconds against {torch.cuda.get_device_name()}'s "
+        f"989 TFLOP/s and 3.35 TB/s); {card}")
+    out.update(step_sampled_ms=sampled_ms, step_paused_ms=paused_ms, step_direct_ms=direct_ms,
+               step_packed_ms=packed_ms)
+    return out
+
+
+def _profile_check(stub, port: int, card: str) -> None:
+    """/debug/profile?secs=2 over live traffic: a second request while it
+    runs answers 409, and the trace names K1's and K3's kernels."""
+    from aios_tpu_torch.obs import devprof
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    status, body = _get_json(port, "/debug/profile?secs=2")
+    expect(status == 200 and body.get("profiling"), f"[profile] {status} {body}")
+    status2, body2 = _get_json(port, "/debug/profile?secs=2")
+    expect(status2 == 409, f"[profile] a second capture answered {status2} {body2}")
+    # traffic through the whole window (the profiler may start collecting a
+    # while after it answers), a short request every 0.2 s: a few thousand
+    # kernels, not a trace of hundreds of megabytes
+    deadline = time.monotonic() + 120
+    while devprof.capture_status()["busy"] and time.monotonic() < deadline:
+        stub.Infer(runtime_pb2.InferRequest(prompt="profile me", max_tokens=4,
+                                            temperature=0.7), timeout=120)
+        time.sleep(0.2)
+    st = devprof.capture_status()
+    expect(not st["busy"] and not st["error"], f"[profile] capture did not finish: {st}")
+    path = os.path.join(body["path"], "trace.json")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    k1 = sorted(n for n in names if K1_NAME in n)
+    k3 = sorted(n for n in names if K3_NAME in n)
+    if not (k1 and k3):
+        expect(False, f"[profile] the trace names no {K1_NAME} ({len(k1)}) or {K3_NAME} "
+               f"({len(k3)}) kernel among {len(names)} kernel names")
+        return
+    log(f"[profile] /debug/profile?secs=2 -> {path} ({os.path.getsize(path)} B, "
+        f"{len(events)} events; a second request 409); kernels named: {k1[0][:60]}..., "
+        f"{k3[0][:60]}...; {card}")
+
+
+def _trace_check(m, stub, port: int) -> None:
+    """A client span's traceparent on a StreamInfer: the server's decode
+    span, the flight recorder's timeline and /debug/requests?trace= carry
+    its trace id."""
+    from aios_tpu_torch.obs import flightrec, tracing
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    with tracing.start_span("chip_smoke.client") as client:
+        chunks = list(stub.StreamInfer(runtime_pb2.InferRequest(
+            prompt="trace this", max_tokens=8, temperature=0.7, task_id="storm-traced"),
+            timeout=120))
+    expect(chunks and chunks[-1].done, f"[trace] StreamInfer ended with {chunks[-1:]}")
+    tid = client.trace_id
+    decode = [s for s in tracing.recent_spans("runtime.decode") if s.trace_id == tid]
+    tls = [t for t in flightrec.RECORDER.recent(model=m.name, limit=256)
+           if t.request_id == "storm-traced"]
+    expect(decode and decode[-1].attributes.get("rpc") == "StreamInfer",
+           f"[trace] no decode span in trace {tid}")
+    expect(tls and tls[-1].trace_id == tid, f"[trace] the timeline's trace id is "
+           f"{tls[-1].trace_id if tls else None!r}, not the client's {tid}")
+    status, body = _get_json(port, f"/debug/requests?trace={tid}")
+    expect(status == 200 and [r["request_id"] for r in body["requests"]] == ["storm-traced"],
+           f"[trace] /debug/requests?trace={tid} -> {status} {body}")
+    status, body = _get_json(port, f"/debug/trace?model={m.name}&limit=8")
+    expect(status == 200 and tid in json.dumps(body), f"[trace] /debug/trace lacks {tid}")
+    log(f"[trace] traceparent {client.traceparent}: decode span {decode[-1].span_id} "
+        f"(parent {decode[-1].parent_id}), timeline trace_id {tls[-1].trace_id}, "
+        f"/debug/requests?trace= and /debug/trace hit")
+
+
+def _storm_live_checks(card: str):
+    def checks(m, stub, port, report):
+        out = _devprof_checks(m, port, card)
+        _profile_check(stub, port, card)
+        _trace_check(m, stub, port)
+        status, body = _get_json(port, "/debug/tsdb")
+        expect(status == 200 and body["stats"]["series"] > 0, f"[tsdb] {status} {body}")
+        status, idx = _get_json(port, "/debug")
+        expect(status == 200 and len(idx["routes"]) == 19, f"[debug] {status} {idx}")
+        fleet = [_get_json(port, p)[0] for p in ("/metrics/fleet", "/debug/trace/fleet",
+                                                 "/debug/tsdb/fleet")]
+        expect(fleet == [404, 404, 404], f"[debug] fleet routes answered {fleet}")
+        log(f"[obs] /debug lists {len(idx['routes'])} routes; /debug/tsdb holds "
+            f"{body['stats']['series']} series; the fleet routes answer 404 not armed")
+        return out
+    return checks
+
+
+def _autoscale_arm(manager, card: str) -> dict:
+    """The autoscaler on the card (``bench.py`` ``_storm_autoscale_arms``):
+    one replica with ``AIOS_TPU_AUTOSCALE=1`` and a ceiling of 2; tight
+    targets make real latencies burn, so the controller scales up (the new
+    replica's pool only: it shares replica 0's weights) and degrades one
+    rung; generous targets then restore it; every greedy wave across the
+    transitions equals the first, untouched one."""
+    from aios_tpu_torch.engine import model as model_mod
+    from aios_tpu_torch.engine.batching import Request
+    from aios_tpu_torch.obs import flightrec
+    from aios_tpu_torch.obs.slo import SLOConfig, SLOEngine
+
+    env = dict(AIOS_TPU_AUTOSCALE="1", AIOS_TPU_AUTOSCALE_MAX_REPLICAS="2",
+               AIOS_TPU_AUTOSCALE_HOLD_TICKS="1", AIOS_TPU_AUTOSCALE_COOLDOWN_SECS="0",
+               AIOS_TPU_AUTOSCALE_INTERVAL_SECS="0.05", AIOS_TPU_REPLICAS="1")
+    with _env(**env):
+        m = manager.load_model("storm-auto", STORM_SOURCE, context_length=512)
+    pool, ctl = m.pool, m.pool.autoscaler
+    expect(ctl is not None and len(pool.replicas) == 1, "[autoscale] no controller attached")
+    # an engine with no samples: the controller idles through the control wave
+    ctl.slo = SLOEngine(SLOConfig(min_samples=4))
+
+    def wave(tag, n=6, max_tokens=24):
+        hs = [pool.submit(Request(prompt_ids=[256, 3 + i, 7, 11, 13], priority=1,
+                                  max_tokens=max_tokens, temperature=0.0,
+                                  request_id=f"auto-{tag}-{i}")) for i in range(n)]
+        return [h.tokens() for h in hs]
+
+    want = wave("control")
+    streams = {}
+    tight = SLOEngine(SLOConfig(ttft_ms=0.01, tpot_ms=0.01, target=0.99, window_secs=600,
+                                min_samples=4))
+    for tl in flightrec.RECORDER.recent(model=pool.name, limit=64):
+        tight.observe(tl)
+    bytes0 = torch.cuda.memory_allocated()
+    t_up = time.perf_counter()
+    ctl.slo = tight  # real latencies now burn: scale up, then degrade at the ceiling
+    # the wave runs on replica 0 while the controller captures replica 1's graphs
+    up = threading.Thread(target=lambda: streams.__setitem__("during scale-up", wave("up")))
+    up.start()
+    deadline = time.monotonic() + 90
+    while time.monotonic() < deadline and len(pool.replicas) < 2:
+        time.sleep(0.002)
+    scale_s = time.perf_counter() - t_up
+    added = torch.cuda.memory_allocated() - bytes0
+    expect(len(pool.replicas) == 2, f"[autoscale] no scale-up: {ctl.actions()}")
+    r0, r1 = pool.replicas[0].engine, pool.replicas[1].engine
+    pool_bytes = sum(t.numel() * t.element_size() for t in (r1.k_pool, r1.v_pool))
+    weight_bytes = model_mod.serving_weight_bytes(r0.params)
+    expect(_same_weights(r1, r0) and added < weight_bytes,
+           f"[autoscale] the scale-up added {added} B (weights {weight_bytes} B, shared "
+           f"{_same_weights(r1, r0)})")
+    while time.monotonic() < deadline and pool.degrade_level < 1:
+        time.sleep(0.002)
+    calm_ok = SLOEngine(SLOConfig(ttft_ms=60_000, tpot_ms=60_000, target=0.9,
+                                  window_secs=600, min_samples=4))
+    ctl.slo = calm_ok  # no samples yet: the controller idles
+    level = pool.degrade_level
+    up.join()
+    streams["degraded"] = wave("degraded")
+    for tl in flightrec.RECORDER.recent(model=pool.name, limit=64):
+        calm_ok.observe(tl)  # burn 0: restore, then scale back down
+    while time.monotonic() < deadline and (pool.degrade_level > 0 or len(pool.replicas) > 1):
+        time.sleep(0.02)
+    streams["restored"] = wave("restored")
+    ctl.stop()
+    actions = [(a["action"], a["cause"], a.get("rung")) for a in ctl.actions()]
+    expect(actions[0][0] == "scale_up" and ("degrade", "ceiling", "spec_off") in actions
+           and any(a[0] == "restore" for a in actions) and pool.degrade_level == 0,
+           f"[autoscale] actions {actions}, level {pool.degrade_level}")
+    for k, got in streams.items():
+        expect(got == want, f"[autoscale] greedy streams {k} differ from the control wave")
+    from aios_tpu_torch.obs.http import start_metrics_server
+
+    server, port = start_metrics_server(port=0)
+    try:
+        deadline = time.monotonic() + 30
+        bundles = []
+        while time.monotonic() < deadline and not bundles:
+            status, body = _get_json(port, "/debug/incidents")
+            expect(status == 200, f"[autoscale] /debug/incidents {status} {body}")
+            bundles = [b for b in body["incidents"]
+                       if b["cause"] == "autoscale" and b["model"] == pool.name]
+            time.sleep(0.2)
+        expect(bundles, "[autoscale] no autoscale incident bundle")
+        status, full = _get_json(port, f"/debug/incidents?id={bundles[0]['id']}")
+        expect(status == 200 and full["tsdb"]["armed"] and full["tsdb"]["series"]
+               and m.config.name in full["devprof"]["models"],
+               f"[autoscale] incident {bundles[0]['id']} lacks the tsdb window or devprof")
+        status = f"{len(bundles)} (first: {bundles[0]['tsdb_series']} tsdb series)"
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"[autoscale] actions {actions} (deepest rung {level}); scale-up to 2 replicas in "
+        f"{scale_s:.2f} s (burn on to the second replica serving, its graphs captured), "
+        f"{added} B more allocated on the card (its KV pool {pool_bytes} B, its graphs' pools "
+        f"and split workspace; the {weight_bytes} B of weights shared); greedy streams "
+        f"identical to the control wave across {sorted(streams)}; {status} autoscale "
+        f"incident bundles at /debug/incidents; {card}")
+    manager.unload_model("storm-auto")
+    return {"scale_s": scale_s, "added": added}
+
+
+def _obs_cost(manager, card: str) -> dict:
+    """The 8-slot, 129-token wave over gRPC with devprof, the tsdb and the
+    interceptors on, and with them off, alternating, on two engines of one
+    model source (devprof is armed when an engine is built)."""
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.obs import tsdb
+    from aios_tpu_torch.proto_gen import runtime_pb2
+    from aios_tpu_torch.runtime.service import serve
+
+    arms = {}
+    with _env(AIOS_TPU_REPLICAS="1", AIOS_TPU_DEVPROF="1", AIOS_TPU_DEVPROF_SAMPLE="4"):
+        arms["on"] = manager.load_model("obs-on", STORM_SOURCE, context_length=512)
+    with _env(AIOS_TPU_REPLICAS="1", AIOS_TPU_DEVPROF=None):
+        arms["off"] = manager.load_model("obs-off", STORM_SOURCE, context_length=512)
+    expect(arms["on"].engine._devprof is not None and arms["off"].engine._devprof is None,
+           "[obs cost] devprof not armed on one engine only")
+    ends = {}
+    for arm, disabled in (("on", None), ("off", "1")):
+        with _env(AIOS_OBS_DISABLED=disabled):
+            server, _, port = serve("127.0.0.1:0", manager, block=False)
+            channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+        ends[arm] = (server, channel, services.AIRuntimeStub(channel))
+    ring = tsdb.TSDB
+    expect(ring is not None, "[obs cost] the tsdb is not armed")
+    res = {"on": [], "off": []}
+    infer = {"on": [], "off": []}
+    try:
+        for arm in ("on", "off", "off", "on"):
+            if arm == "on":
+                ring.start()
+            else:
+                ring.stop()
+            stub, m = ends[arm][2], arms[arm]
+            eng = m.engine
+            steps0 = eng.decode_steps
+
+            def one(i, out, stub=stub, m=m):
+                r = stub.Infer(runtime_pb2.InferRequest(
+                    model=m.name, prompt=f"Wave {i}: " + "report " * 20,
+                    max_tokens=OBS_WAVE_TOKENS, temperature=0.7), timeout=300)
+                out.append(r.tokens_used)
+
+            got = []
+            t1 = time.perf_counter()
+            ths = [threading.Thread(target=one, args=(i, got)) for i in range(8)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            wall = time.perf_counter() - t1
+            steps = eng.decode_steps - steps0
+            expect(len(got) == 8, f"[obs cost] {arm}: {len(got)} of 8 Infers answered")
+            res[arm].append((8 * OBS_WAVE_TOKENS / wall, wall / max(steps, 1) * 1e3))
+        for i in range(OBS_INFER_PAIRS):
+            for arm in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                t1 = time.perf_counter()
+                r = ends[arm][2].Infer(runtime_pb2.InferRequest(
+                    model=arms[arm].name, prompt=f"Report the state of service {i}.",
+                    max_tokens=32, temperature=0.7), timeout=300)
+                infer[arm].append((time.perf_counter() - t1) * 1e3)
+                expect(r.tokens_used > 0, f"[obs cost] {arm} Infer {i}: no tokens")
+    finally:
+        ring.start()
+        for server, channel, _ in ends.values():
+            channel.close()
+            server.stop(grace=None)
+        manager.unload_model("obs-on")
+        manager.unload_model("obs-off")
+    p50 = {arm: _p50(v) for arm, v in infer.items()}
+    for arm in ("on", "off"):
+        log(f"[obs cost] 8 slots x {OBS_WAVE_TOKENS} tokens over gRPC, devprof + tsdb + "
+            f"interceptors {arm}: " + ", ".join(f"{t:.1f} tok/s, {w:.3f} ms host wall a step"
+                                                  for t, w in res[arm]) + f"; {card}")
+    log(f"[obs cost] 32-token Infer p50 over {OBS_INFER_PAIRS} alternating calls: interceptors "
+        f"and devprof on {p50['on']:.2f} ms, off {p50['off']:.2f} ms "
+        f"({100 * (p50['on'] / p50['off'] - 1):+.2f}%); {card}")
+    expect(p50["on"] <= 1.02 * p50["off"],
+           f"[obs cost] a 32-token Infer with the interceptors on ({p50['on']:.2f} ms) is "
+           f"more than 2% above off ({p50['off']:.2f} ms)")
+    return {"waves": res, "infer_p50": p50}
+
+
+def phase_storm(card: str) -> dict:
+    """Phase 19: the observability and storm plane. ``storm_reference.toml``
+    as committed, its model source ``synthetic://tinyllama-1.1b`` at full
+    width (int8 weights, bf16 pool), devprof (every 4th dispatch sampled),
+    the tsdb and incident bundles armed and the metrics endpoint on port 0:
+    the storm twice over the live gRPC service (identical deterministic
+    verdicts, no stuck or errored request, every quota shed with a
+    retry-after; per-tenant TTFT/TPOT and the /debug/slo surface printed),
+    devprof against the batchers' counts and direct CUDA-event timing with
+    its roofline gauges, /debug/profile's trace naming K1 and K3, a trace id
+    carried end to end, the autoscaler on the card and the cost of the
+    observability. Returns the storms' launches."""
+    import shutil
+    import tempfile
+
+    from aios_tpu_torch.loadgen import build_trace, load_scenario
+    from aios_tpu_torch.obs import incidents, tsdb
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    sc = load_scenario(os.path.join(here, STORM_SCENARIO))
+    trace = build_trace(sc)
+    dump = tempfile.mkdtemp(prefix="aios-devprof-")
+    launches = {}
+    try:
+        with _env(AIOS_TPU_DEVPROF_DUMP_DIR=dump, **STORM_OBS_ENV):
+            runs = {"a": _storm_run(sc, trace, "a", card),
+                    "b": _storm_run(sc, trace, "b", card, _storm_live_checks(card))}
+            for r in runs.values():
+                _add(launches, r["launches"])
+            a, b = runs["a"]["report"], runs["b"]["report"]
+            for tag, r in runs.items():
+                rep = r["report"]
+                v = rep["verdict"]
+                log(f"[storm {tag}] {sc.name} seed {sc.seed}: {v['calls']} calls in "
+                    f"{r['storm_s']:.1f} s, tenants {v['tenants']}, {len(v['stream_hashes'])} "
+                    f"pinned greedy streams, errors {v['errors']} stuck {v['stuck']}, pass "
+                    f"{v['pass']}; {r['rpcs']:.0f} Infer/StreamInfer RPCs counted by "
+                    f"aios_tpu_rpc_requests_total")
+                _storm_tenants(rep, card, tag)
+                log(f"[storm {tag}] the recorder's TTFT / TPOT per tenant (requests, TTFT p50, "
+                    f"p99, TPOT p50, p99 ms): "
+                    + "; ".join(f"{t} {n}, {a:.2f}, {b:.2f}, {c:.2f}, {d:.2f}"
+                                for t, (n, a, b, c, d) in r["recorded"].items()) + f"; {card}")
+                expect(v["errors"] == 0 and v["stuck"] == 0 and v["pass"],
+                       f"[storm {tag}] errors {rep['measured']['error_detail']}, stuck "
+                       f"{v['stuck']}, pass {v['pass']}")
+                expect(r["rpcs"] == len(trace) + 3, f"[storm {tag}] {r['rpcs']} RPCs counted, "
+                       f"{len(trace) + 3} issued (the trace and 3 warmups)")
+                quota = [o for o in r["outcomes"] if o.call.klass == "abusive"
+                         and o.status != "ok"]
+                expect(quota and all(o.status == "shed" and o.shed_cause == "quota"
+                                     and o.retry_after_ms > 0 for o in quota),
+                       f"[storm {tag}] the quota storm's refusals: "
+                       f"{[(o.status, o.shed_cause, o.retry_after_ms) for o in quota][:8]}")
+            if a != b and a["verdict"] != b["verdict"]:
+                diff = {k: (a["verdict"].get(k), b["verdict"].get(k))
+                        for k in set(a["verdict"]) | set(b["verdict"])
+                        if a["verdict"].get(k) != b["verdict"].get(k)}
+                expect(False, f"[storm] the two runs' verdicts differ: {diff}")
+            log(f"[storm] the deterministic verdict is identical over the two runs "
+                f"(trace {a['verdict']['trace_sha']}); {card}")
+            manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
+            try:
+                _reset_counts()
+                auto = _autoscale_arm(manager, card)
+                cost = _obs_cost(manager, card)
+                _add(launches, _read_counts())
+            finally:
+                manager.close()
+    finally:
+        ring = tsdb.install(None)
+        if ring is not None:
+            ring.stop()
+        store = incidents.install(None)
+        if store is not None:
+            store.stop()
+        shutil.rmtree(dump, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[storm] phase done in {time.perf_counter() - t0:.1f} s; launches {launches}; "
+        f"step sampled {runs['b']['step_sampled_ms']:.4f} vs direct "
+        f"{runs['b']['step_direct_ms']:.4f} ms; scale-up {auto['scale_s']:.2f} s "
+        f"+{auto['added']} B; {card}")
     return launches
 
 
@@ -6932,6 +7605,7 @@ def main() -> int:
     loop = timed("decode loop", phase_decode_loop, card)
     moe = timed("moe", phase_moe, card)
     stack = timed("stack", phase_stack, card)
+    storm = timed("storm", phase_storm, card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -6941,7 +7615,7 @@ def main() -> int:
         n = (tiny.get(name, 0) + mistral.get(name, 0) + gguf.get(name, 0)
              + constrained.get(name, 0) + serving.get(name, 0) + spec_paged.get(name, 0)
              + host.get(name, 0) + loop.get(name, 0) + moe.get(name, 0)
-             + stack.get(name, 0))
+             + stack.get(name, 0) + storm.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -6956,7 +7630,7 @@ def main() -> int:
             f"{spec_paged.get(name, 0)} Mistral-7B with its draft, {host.get(name, 0)} over "
             f"the host tier, {loop.get(name, 0)} in the decode loop's modes, "
             f"{moe.get(name, 0)} Qwen3-30B-A3B, {stack.get(name, 0)} under the service "
-            f"plane), "
+            f"plane, {storm.get(name, 0)} in the storm phase), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
             f"{'' if r['library_ms'] is None else ' ms'}, "

@@ -1,13 +1,15 @@
 """The port's boot layer: its supervisor's topology, the runtime child's
-device argument, the metrics-endpoint knobs the port does not honour yet,
-and (slow, as the JAX package's own process boot) the five services booted
+device argument, the metrics-endpoint knobs (each starts the endpoint on
+the port it names), and (slow, as the JAX package's own process boot) the five services booted
 as processes by ``default_services`` on the CPU."""
 
+import json
 import logging
 import os
 import pathlib
 import subprocess
 import sys
+import urllib.request
 
 import pytest
 
@@ -57,30 +59,45 @@ def test_runtime_child_serves_the_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("service", ["memory", "tools", "gateway", "orchestrator",
                                      "runtime"])
 def test_metrics_port_knob_warns_and_starts_nothing(service, monkeypatch, caplog):
+    """The knob starts the endpoint (the name predates it; the test keeps
+    its name): unset, nothing starts and nothing is logged; set, the
+    endpoint serves on the port it names (0: any free port), as the JAX
+    services' does."""
     from aios_tpu_torch.obs.http import maybe_start_metrics_server
 
     knob = f"AIOS_{service.upper()}_METRICS_PORT"
     monkeypatch.delenv(knob, raising=False)
-    with caplog.at_level(logging.WARNING, logger="aios.obs.http"):
+    with caplog.at_level(logging.WARNING, logger="aios.obs"):
         assert maybe_start_metrics_server(service) == (None, None)
     assert not caplog.records
     monkeypatch.setenv(knob, "0")
-    with caplog.at_level(logging.WARNING, logger="aios.obs.http"):
-        assert maybe_start_metrics_server(service) == (None, None)
-    assert [r.getMessage() for r in caplog.records if knob in r.getMessage()
-            and "ROADMAP" in r.getMessage()]
+    server, port = maybe_start_metrics_server(service)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            assert json.loads(r.read()) == {"status": "ok", "metrics_port": port}
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def test_booted_memory_service_warns_on_its_metrics_knob(monkeypatch, caplog, tmp_path):
+    """The booted memory service starts the endpoint its knob names (the
+    name predates the endpoint; the test keeps its name), and its /healthz
+    carries the service's own health."""
     from aios_tpu_torch.memory.service import serve
 
-    monkeypatch.setenv("AIOS_MEMORY_METRICS_PORT", "9")
-    with caplog.at_level(logging.WARNING, logger="aios.obs.http"):
-        server, service, _ = serve(address="127.0.0.1:0", data_dir=str(tmp_path),
-                                   block=False)
-    server.stop(grace=None)
-    assert service.metrics_server is None and service.metrics_port is None
-    assert any("AIOS_MEMORY_METRICS_PORT" in r.getMessage() for r in caplog.records)
+    monkeypatch.setenv("AIOS_MEMORY_METRICS_PORT", "0")
+    server, service, _ = serve(address="127.0.0.1:0", data_dir=str(tmp_path), block=False)
+    try:
+        assert service.metrics_server is not None and service.metrics_port > 0
+        url = f"http://127.0.0.1:{service.metrics_port}/healthz"
+        with urllib.request.urlopen(url, timeout=10) as r:
+            body = json.loads(r.read())
+        assert body["status"] == "ok" and body["metrics_port"] == service.metrics_port
+    finally:
+        server.stop(grace=None)
+        service.metrics_server.shutdown()
+        service.metrics_server.server_close()
 
 
 @pytest.mark.slow

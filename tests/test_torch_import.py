@@ -40,6 +40,10 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
         "import aios_tpu_torch.obs.flightrec, aios_tpu_torch.serving.pool\n"
         "import aios_tpu_torch.serving.router, aios_tpu_torch.serving.admission\n"
         "import aios_tpu_torch.serving.failover, aios_tpu_torch.serving.config\n"
+        "import aios_tpu_torch.obs.tracing, aios_tpu_torch.obs.interceptors\n"
+        "import aios_tpu_torch.obs.slo, aios_tpu_torch.obs.tsdb, aios_tpu_torch.obs.http\n"
+        "import aios_tpu_torch.obs.incidents, aios_tpu_torch.obs.devprof\n"
+        "import aios_tpu_torch.serving.autoscale, aios_tpu_torch.loadgen\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'aios_tpu' or n.startswith('aios_tpu.'))\n"
         "print(bad)\n"
@@ -81,7 +85,7 @@ def test_port_sources_name_no_jax_or_aios_tpu_import():
     sources = sorted(PKG.rglob("*.py"))
     # the serving plane's and the service plane's subpackages are scanned too
     for sub in ("analysis", "faults", "obs", "serving", "memory", "tools", "handlers",
-                "gateway", "orchestrator", "agents", "boot", "native"):
+                "gateway", "orchestrator", "agents", "boot", "native", "loadgen"):
         assert any(p.parent.name == sub for p in sources), sub
     for path in sources + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -36,15 +36,17 @@ NOT_HONOURED = "does not honour it yet"
 DECODE_LOOP = {"AIOS_TPU_DECODE_PIPELINE": "1", "AIOS_TPU_UNIFIED_STEP": "1",
                "AIOS_TPU_MEGA_TICKS": "8", "AIOS_TPU_KV_COMPRESS_AFTER": "100",
                "AIOS_TPU_KV_SINK_PAGES": "2", "AIOS_TPU_KV_WINDOW_PAGES": "3"}
-UNPORTED = ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_AUTOSCALE",
-            "AIOS_TPU_AUTOSCALE_MAX_REPLICAS", "AIOS_TPU_AUTOSCALE_UP_BURN",
-            "AIOS_TPU_AUTOSCALE_COOLDOWN_SECS"]
+# the SLO autoscaler's knobs, honoured since serving/autoscale.py was ported
+AUTOSCALE = {"AIOS_TPU_AUTOSCALE": "1", "AIOS_TPU_AUTOSCALE_MAX_REPLICAS": "2",
+             "AIOS_TPU_AUTOSCALE_UP_BURN": "1.5", "AIOS_TPU_AUTOSCALE_COOLDOWN_SECS": "5"}
+UNPORTED = ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH"]
 HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_MIN_PAGES": "2",
             "AIOS_TPU_SAMPLE_POOL": "16", "AIOS_TPU_REPLICAS": "2",
             "AIOS_TPU_PREFIX_RADIX": "0", "AIOS_TPU_PREFIX_CACHE": "1",
             "AIOS_TPU_JUMP_AHEAD": "1", "AIOS_TPU_KV_CACHE": "bf16",
             "AIOS_TPU_MAX_QUEUE": "4", "AIOS_TPU_DRAFT_MODEL": "tinyllama",
-            "AIOS_TPU_MOE_IMPL": "gather", "AIOS_TPU_MOE_GATHER": "1", **DECODE_LOOP}
+            "AIOS_TPU_MOE_IMPL": "gather", "AIOS_TPU_MOE_GATHER": "1", **DECODE_LOOP,
+            **AUTOSCALE}
 
 
 @pytest.fixture
@@ -149,8 +151,7 @@ def test_port_imports_no_ml_dtypes():
 def test_decode_loop_knobs_are_honoured_not_listed():
     assert not set(DECODE_LOOP) & set(model_manager.UNPORTED_KNOBS)
     assert sorted(model_manager.UNPORTED_KNOBS) == sorted(
-        ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_AUTOSCALE",
-         "AIOS_TPU_AUTOSCALE_*"])
+        ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH"])
 
 
 def _load(monkeypatch, env, caplog, level=logging.INFO):

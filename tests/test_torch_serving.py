@@ -730,7 +730,9 @@ def test_hot_swap_keeps_the_live_stream_whole(served, monkeypatch):
     chunks.extend(it)
     assert chunks[-1].done and not any(c.done for c in chunks[:-1])
     deadline = time.time() + 30
-    while not old_pool._closed and time.time() < deadline:
+    # shutdown marks the pool closed before it closes the engines
+    while not (old_pool._closed and old_pool.replicas[0].engine.params is None) \
+            and time.time() < deadline:
         time.sleep(0.02)
     assert old_pool._closed and old_pool.replicas[0].engine.params is None
     assert stub.Infer(runtime_pb2.InferRequest(prompt="new", max_tokens=3)).tokens_used > 0
