@@ -539,6 +539,12 @@ class ContinuousBatcher:
             # fail on the caller's thread: a scheduler-thread exception would
             # strand every waiter
             raise ValueError("empty prompt")
+        vocab = self.engine.cfg.vocab_size
+        bad = next((t for t in req.prompt_ids if not 0 <= t < vocab), None)
+        if bad is not None:
+            # the embedding gather would raise on the scheduler thread (a
+            # tokenizer with more ids than the model has rows)
+            raise ValueError(f"prompt token id {bad} is outside the model's vocab of {vocab}")
         if not req.request_id:
             req.request_id = f"req-{next(self._ids)}"
         if req.rec is None:

@@ -9,8 +9,9 @@ A copy of the parts of ``aios_tpu/engine/config.py`` the port serves: the
 ``decode_pipeline``, ``unified_step`` and ``mega_ticks``, and window+sink
 compression's ``kv_compress_after``, ``kv_sink_pages`` and
 ``kv_window_pages``), the presets (the dense tiers, Qwen3-30B-A3B and
-Mixtral-8x7B), the tiny test configs and ``from_gguf_metadata``. The
-sequence-sharded prefill's floor waits for the multi-card port.
+Mixtral-8x7B), the tiny test configs, ``from_gguf_metadata`` and
+``from_hf_config``. The sequence-sharded prefill's floor waits for the
+multi-card port.
 """
 
 from __future__ import annotations
@@ -298,4 +299,34 @@ def from_gguf_metadata(md: Dict[str, Any]) -> ModelConfig:
             int(key("attention.sliding_window")) if key("attention.sliding_window") else None
         ),
         qk_norm=arch.startswith("qwen3"),
+    )
+
+
+def from_hf_config(hf: Dict[str, Any], name: str = "hf-model") -> ModelConfig:
+    """Build a config from a HuggingFace ``config.json`` dict
+    (Llama/Mistral/Qwen3/Mixtral/Qwen3-MoE), field for field as the JAX
+    package's ``from_hf_config``."""
+    heads = hf["num_attention_heads"]
+    # num_local_experts (mixtral) / num_experts (qwen3_moe)
+    num_experts = hf.get("num_local_experts") or hf.get("num_experts") or 0
+    return ModelConfig(
+        name=name,
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
+        max_context=hf.get("max_position_embeddings", 4096),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        sliding_window=hf.get("sliding_window"),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        qk_norm=hf.get("model_type", "") in ("qwen3", "qwen3_moe"),
+        num_experts=num_experts,
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+        moe_intermediate_size=hf.get("moe_intermediate_size"),
+        # mixtral always renormalizes the top-k weights; qwen3_moe gates it
+        norm_topk_prob=hf.get("norm_topk_prob", True),
     )

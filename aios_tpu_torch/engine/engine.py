@@ -484,6 +484,8 @@ class TorchEngine:
         self.quantize_seconds = 0.0  # making the serving leaves, device time included
         if model.is_quantized(params):
             self.quantized = True
+            if self.device.type == "cuda":
+                params = model.pad_serving_head(params)
         elif quantize:
             t0 = time.perf_counter()
             params = model.quantize_params(params, mode=quantize)

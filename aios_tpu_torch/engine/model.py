@@ -39,7 +39,11 @@ CUDA tensors, their plain twins on CPU tensors), False calls the plain
 ``*_reference`` functions by name — how a caller holds the kernel path
 against the plain path on the card. The forwards also take ``moe_impl``, the
 path of an MoE sublayer (``moe.resolve_impl``: ``AIOS_TPU_MOE_IMPL`` first,
-then this static choice, then dense).
+then this static choice, then dense). ``forward_full(..., with_aux=True)``
+is the training forward: it also returns the mean per-layer MoE
+load-balancing loss (0.0 for a dense model), and ``remat=True``
+recomputes each block in the backward pass (``torch.utils.checkpoint``)
+instead of keeping its activations.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import ops
 from ..ops.decode_attention import HEAD_DIMS as DENSE_HEAD_DIMS
@@ -106,14 +111,16 @@ def _leaf_format(K: int, N: int, mode: str, cpu: bool) -> Tuple[str, Optional[st
                     f"K % 8 == 0 and N % 16 == 0")
 
 
-def _quant_leaf(w: torch.Tensor, mode: str, name: str) -> Dict[str, torch.Tensor]:
-    """One serving leaf, stored as ``_leaf_format`` says (an expert stack
-    int8 in every mode, as the JAX package forces it); a leaf no kernel
-    would serve raises, naming ``name``."""
+def _quant_leaf(w: torch.Tensor, mode: str, name: str,
+                cpu: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+    """One serving leaf, stored as ``_leaf_format`` says under the CPU's
+    rules or the kernels' (None: those of the leaf's device; an expert
+    stack int8 in every mode, as the JAX package forces it); a leaf no
+    kernel would serve raises, naming ``name``."""
     K, N = w.shape[-2], w.shape[-1]
     if name in EXPERT_LEAVES:
         mode = "int8"
-    fmt, fault = _leaf_format(K, N, mode, w.device.type == "cpu")
+    fmt, fault = _leaf_format(K, N, mode, w.device.type == "cpu" if cpu is None else cpu)
     if fault:
         raise ValueError(f"{name} {fault}")
     if fmt == "int4":
@@ -191,7 +198,8 @@ def kernel_contract_faults(cfg: ModelConfig, *, paged: bool, quant_cache: bool,
 
 
 def quantize_params(params: Params, include_head: bool = True,
-                    mode: str = "int8", pad_head: Optional[bool] = None) -> Params:
+                    mode: str = "int8", pad_head: Optional[bool] = None,
+                    target: Optional[str] = None) -> Params:
     """Serving leaves, the JAX package's ``quantize_params`` with fusion:
     wq|wk|wv concatenate into one [E, Q+2K] ``w_qkv`` and w_gate|w_up into
     one [E, 2F] ``w_gateup`` (4 weight matmuls per layer instead of 7; an
@@ -200,11 +208,16 @@ def quantize_params(params: Params, include_head: bool = True,
     a tied lm_head becomes its own quantized [E, V] matrix. ``mode`` is
     "int8" (per-column int8) or "int4" (group-wise int4, int8 for a leaf
     that cannot take it). Same bytes and scales as the JAX function for the
-    same input. ``pad_head`` (None: on CUDA only) appends zero columns to the
-    head up to a multiple of HEAD_PAD; its real columns quantize as before,
-    each column on its own."""
+    same input. ``target`` is the device type whose rules pick each leaf's
+    format (None: the leaves' own): "cuda" stores int4 only where K5 serves
+    it (the JAX package's strict ``target="tpu"``), so a checkpoint
+    prepared on the CPU serves on the card. ``pad_head`` (None: for a
+    "cuda" target) appends zero columns to the head up to a multiple of
+    HEAD_PAD; its real columns quantize as before, each column on its
+    own."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown weight quantization mode {mode!r}")
+    cpu = None if target is None else target == "cpu"
     out = dict(params)
     src = params["layers"]
     layers = {k: v for k, v in src.items() if k not in QUANT_KEYS}
@@ -213,18 +226,36 @@ def quantize_params(params: Params, include_head: bool = True,
         if parts[0] not in src:  # the other kind of FFN
             continue
         w = torch.cat([src[k] for k in parts], dim=-1) if len(parts) > 1 else src[key]
-        layers[key] = _quant_leaf(w, mode, key)
+        layers[key] = _quant_leaf(w, mode, key, cpu)
     out["layers"] = layers
     if include_head:
         head = params.get("lm_head")
         if head is None:
             head = params["embed"].T
         if pad_head is None:
-            pad_head = head.device.type == "cuda"
+            pad_head = (target or head.device.type) == "cuda"
         if pad_head and head.shape[-1] % HEAD_PAD:
             head = F.pad(head, (0, -head.shape[-1] % HEAD_PAD))
-        out["lm_head"] = _quant_leaf(head, mode, "lm_head")
+        out["lm_head"] = _quant_leaf(head, mode, "lm_head", cpu)
     return out
+
+
+def pad_serving_head(params: Params) -> Params:
+    """Stored serving leaves whose quantized lm_head has columns short of a
+    multiple of HEAD_PAD (a checkpoint quantized for the CPU), with zero
+    weight columns appended (int8 0, int4 nibbles of 8, scales 1), as
+    ``quantize_params`` pads on CUDA; the logits are cut back to V."""
+    head = params.get("lm_head")
+    if not isinstance(head, dict):
+        return params
+    q, fill = (head["q"], 0) if "q" in head else (head["q4"], 0x88)
+    pad = -q.shape[-1] % HEAD_PAD
+    if not pad:
+        return params
+    s = head["s"] if "q" in head else head["s4"]
+    padded = {("q" if "q" in head else "q4"): F.pad(q, (0, pad), value=fill),
+              ("s" if "q" in head else "s4"): F.pad(s, (0, pad), value=1.0)}
+    return {**params, "lm_head": padded}
 
 
 def _leaves(tree):
@@ -356,13 +387,15 @@ def _project_qkv(x, lp, cfg: ModelConfig, cos, sin, kernels: bool = True):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True, moe_impl: Optional[str] = None):
+def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True, moe_impl: Optional[str] = None,
+         with_aux: bool = False):
     """The FFN sublayer: dense SwiGLU, or for a layer with a router the
-    mixture-of-experts FFN on the path ``moe.resolve_impl(moe_impl)``
-    names."""
+    mixture-of-experts FFN on the path ``moe.resolve_impl`` names. With
+    ``with_aux`` (the training forward) it returns (out, the router's
+    load-balancing loss: 0.0 for a dense FFN)."""
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
     if "w_router" in lp:
-        return moe.moe_ffn(h, lp, cfg, kernels, moe_impl)
+        return moe.moe_ffn(h, lp, cfg, kernels, moe_impl, with_aux)
     if "w_gateup" in lp:  # fused serving layout (quantize_params)
         F_ = cfg.intermediate_size
         gu = matmul(h, lp["w_gateup"], kernels)
@@ -371,17 +404,22 @@ def _mlp(x, lp, cfg: ModelConfig, kernels: bool = True, moe_impl: Optional[str] 
         gate_pre = matmul(h, lp["w_gate"], kernels)
         up = matmul(h, lp["w_up"], kernels)
     gate = F.silu(gate_pre.to(torch.float32)).to(h.dtype)
-    return matmul(gate * up, lp["w_down"], kernels)
+    out = matmul(gate * up, lp["w_down"], kernels)
+    return (out, torch.zeros((), dtype=torch.float32, device=x.device)) if with_aux else out
 
 
 def apply_block(x, lp, cfg: ModelConfig, cos, sin, attention, kernels: bool = True,
-                moe_impl: Optional[str] = None):
-    """One transformer block on [B, T, E]; returns (x', (k, v)).
-    ``attention(q, k, v)`` maps [B, T, H, D] queries to [B, T, H, D]."""
+                moe_impl: Optional[str] = None, with_aux: bool = False):
+    """One transformer block on [B, T, E]; returns (x', (k, v)), or with
+    ``with_aux`` (x', (k, v, moe_aux)). ``attention(q, k, v)`` maps [B, T,
+    H, D] queries to [B, T, H, D]."""
     B, T = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(x, lp, cfg, cos, sin, kernels)
     attn = attention(q, k, v)
     x = x + matmul(attn.reshape(B, T, -1), lp["wo"], kernels)
+    if with_aux:
+        out, aux = _mlp(x, lp, cfg, kernels, moe_impl, with_aux=True)
+        return x + out, (k, v, aux)
     x = x + _mlp(x, lp, cfg, kernels, moe_impl)
     return x, (k, v)
 
@@ -401,10 +439,11 @@ def _final_logits(x, params: Params, cfg: ModelConfig, kernels: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                     kernels: bool = True, moe_impl: Optional[str] = None):
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, kernels: bool):
+    """A full-sequence forward's inputs: the embedded tokens, the rope
+    tables of positions 0..T-1 and causal attention (K2 or its plain
+    twin)."""
     B, T = tokens.shape
-    x = params["embed"][tokens]
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     attn_fn = ops.flash_attention if kernels else ops.flash_attention_reference
@@ -412,6 +451,12 @@ def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     def attention(q, k, v):
         return attn_fn(q, k, v, causal=True, window=cfg.sliding_window)
 
+    return params["embed"][tokens], cos, sin, attention
+
+
+def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                     kernels: bool = True, moe_impl: Optional[str] = None):
+    x, cos, sin, attention = _embed(params, cfg, tokens, kernels)
     ks, vs = [], []
     for lp in layer_params(params):
         x, (k, v) = apply_block(x, lp, cfg, cos, sin, attention, kernels, moe_impl)
@@ -421,9 +466,34 @@ def _forward_with_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 kernels: bool = True, moe_impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence causal forward; logits [B, T, V] in fp32."""
-    return _forward_with_kv(params, cfg, tokens, kernels, moe_impl)[0]
+                 kernels: bool = True, moe_impl: Optional[str] = None,
+                 with_aux: bool = False, remat: bool = False):
+    """Full-sequence causal forward; logits [B, T, V] in fp32. With
+    ``with_aux`` (the training forward, as in JAX) it returns (logits, the
+    mean per-layer MoE load-balancing loss; 0.0 for a dense model), the
+    MoE sublayers taking the capacity dispatch at 1024 tokens or more when
+    nothing names a path. ``remat`` recomputes each block in the backward
+    pass (non-reentrant ``torch.utils.checkpoint``): the same logits and
+    gradients, one block's activations held at a time. The trainer runs it
+    with ``kernels=False``: the CUDA kernels have no backward."""
+    if not with_aux and not remat:
+        return _forward_with_kv(params, cfg, tokens, kernels, moe_impl)[0]
+    x, cos, sin, attention = _embed(params, cfg, tokens, kernels)
+
+    def block(x, lp):
+        x, (_, _, aux) = apply_block(x, lp, cfg, cos, sin, attention, kernels, moe_impl,
+                                     with_aux=True)
+        return x, aux
+
+    auxs = []
+    for lp in layer_params(params):
+        if remat:
+            x, aux = checkpoint(block, x, lp, use_reentrant=False)
+        else:
+            x, aux = block(x, lp)
+        auxs.append(aux)
+    logits = _final_logits(x, params, cfg, kernels)
+    return (logits, torch.stack(auxs).mean()) if with_aux else logits
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

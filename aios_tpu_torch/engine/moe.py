@@ -50,12 +50,16 @@ from .config import ModelConfig
 # slicing changes no bit of the kernel path.
 DENSE_TOKEN_CHUNK = 1024
 
-def resolve_impl(moe_impl: Optional[str]) -> str:
+def resolve_impl(moe_impl: Optional[str], n_tok: int = 0, allow_dispatch: bool = False) -> str:
     """The path an MoE sublayer takes, with the JAX ``_mlp_aux``'s
     precedence: ``AIOS_TPU_MOE_IMPL`` (the operator's override), then the
     caller's static choice ``moe_impl``, then auto, which is dense on every
-    serving path. A value that names no path is dense, as in JAX."""
+    serving path and, on the training forward (``allow_dispatch``), the
+    capacity dispatch at 1024 tokens or more. A value that names no path is
+    dense, as in JAX."""
     impl = os.environ.get("AIOS_TPU_MOE_IMPL") or moe_impl or "auto"
+    if impl == "auto" and allow_dispatch and n_tok >= 1024:
+        return "dispatch"
     return impl if impl in ("gather", "dispatch") else "dense"
 
 
@@ -222,12 +226,15 @@ def moe_ffn_dispatch(h: torch.Tensor, lp, cfg: ModelConfig, capacity_factor: flo
 
 
 def moe_ffn(h: torch.Tensor, lp, cfg: ModelConfig, kernels: bool = True,
-            moe_impl: Optional[str] = None) -> torch.Tensor:
-    """The serving MoE sublayer on the path ``resolve_impl(moe_impl)``
-    names, without the aux loss (no serving path reads it)."""
-    impl = resolve_impl(moe_impl)
+            moe_impl: Optional[str] = None, with_aux: bool = False):
+    """The MoE sublayer on the path ``resolve_impl`` names: the serving
+    forwards' out, without the aux loss (no serving path reads it), or with
+    ``with_aux`` (the training forward) (out, aux)."""
+    impl = resolve_impl(moe_impl, h.shape[0] * h.shape[1], allow_dispatch=with_aux)
     if impl == "dispatch":
-        return moe_ffn_dispatch(h, lp, cfg, kernels=kernels, aux=False)[0]
-    if impl == "gather":
-        return moe_ffn_gather(h, lp, cfg, kernels, aux=False)[0]
-    return moe_ffn_dense(h, lp, cfg, kernels, aux=False)[0]
+        out = moe_ffn_dispatch(h, lp, cfg, kernels=kernels, aux=with_aux)
+    elif impl == "gather":
+        out = moe_ffn_gather(h, lp, cfg, kernels, aux=with_aux)
+    else:
+        out = moe_ffn_dense(h, lp, cfg, kernels, aux=with_aux)
+    return out if with_aux else out[0]

@@ -16,16 +16,31 @@ routes:
   ``tools/unicode_classes.py``; ``re``'s own ``\\s`` also takes
   U+001C-U+001F), so the port needs no ``regex``.
 
-The HF-directory tokenizer and the checkpoint (de)serializers wait for the
-HF and prepared-checkpoint loaders.
+``HFTokenizer`` reads an HF directory's ``tokenizer.json`` (with
+``tokenizer_config.json`` and ``special_tokens_map.json`` for BOS, EOS and
+the decode cleanup) without ``transformers`` or ``tokenizers``, and gives
+the ids the JAX ``HFTokenizer`` gets from ``AutoTokenizer`` with
+``add_special_tokens=False``: the added tokens split out of the text first,
+then the normalizers, the pre-tokenizers and the BPE model of the file, as
+the ``tokenizers`` library runs them. A Llama/Mistral ``tokenizer.json`` is
+a BPE of ranked merges with byte fallback behind a ``▁`` normalizer or a
+``Metaspace`` pre-tokenizer, not a SentencePiece score table; a Qwen or
+Llama-3 one a byte-level BPE behind a regex ``Split``. Both run through one
+merge loop: a heap of adjacent pairs keyed on (merge rank, the left
+symbol's position), the ``tokenizers`` library's ``Word::merge_all``.
+``tokenizer_to_dict`` / ``tokenizer_from_dict`` carry a tokenizer into a
+prepared checkpoint, as the JAX functions do.
 """
 
 from __future__ import annotations
 
 import heapq
+import json
 import re
+import unicodedata
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from . import unicode_classes
 
@@ -423,6 +438,435 @@ def gguf_tokenizer(md: dict) -> BaseTokenizer:
     return SentencePieceBPE.from_gguf_metadata(md)
 
 
+# ---------------------------------------------------------------------------
+# HF tokenizer.json (no transformers, no tokenizers)
+# ---------------------------------------------------------------------------
+
+HF_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json")
+Piece = Tuple[str, int]  # a piece of text and its start offset in the encoded text
+
+
+def _pattern(spec: dict, where: str) -> "re.Pattern":
+    """A ``{"String": s}`` or ``{"Regex": r}`` pattern of tokenizer.json."""
+    if "String" in spec:
+        return re.compile(re.escape(spec["String"]))
+    if "Regex" in spec:
+        return _compile_pre(spec["Regex"])
+    raise ValueError(f"tokenizer.json: {where} pattern {spec!r}")
+
+
+def _unsupported(kind: str, spec: dict) -> ValueError:
+    return ValueError(f"tokenizer.json: {kind} {spec.get('type')!r} is not supported "
+                      f"by the port's HFTokenizer")
+
+
+def _normalizer(spec: Optional[dict]) -> Callable[[str], str]:
+    if not spec:
+        return lambda s: s
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_normalizer(n) for n in spec["normalizers"]]
+
+        def run(s: str) -> str:
+            for step in steps:
+                s = step(s)
+            return s
+        return run
+    if kind == "Prepend":
+        return lambda s: spec["prepend"] + s if s else s
+    if kind == "Replace":
+        pat = _pattern(spec["pattern"], "Replace")
+        return lambda s: pat.sub(lambda _: spec["content"], s)
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return lambda s: unicodedata.normalize(kind, s)
+    raise _unsupported("normalizer", spec)
+
+
+def _split_isolated(pieces: List[Piece], pat: "re.Pattern", keep: bool) -> List[Piece]:
+    """Each match becomes a piece of its own (``keep``; removed otherwise),
+    the text between matches another; empty pieces go."""
+    out: List[Piece] = []
+    for text, start in pieces:
+        at = 0
+        for m in pat.finditer(text):
+            if m.start() > at:
+                out.append((text[at:m.start()], start + at))
+            if keep and m.end() > m.start():
+                out.append((m.group(), start + m.start()))
+            at = m.end()
+        if at < len(text):
+            out.append((text[at:], start + at))
+    return out
+
+
+_GPT2_SPLIT = None
+
+
+def _pre_tokenizer(spec: Optional[dict]) -> Callable[[List[Piece]], List[Piece]]:
+    if not spec:
+        return lambda pieces: pieces
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_pre_tokenizer(p) for p in spec["pretokenizers"]]
+
+        def run(pieces: List[Piece]) -> List[Piece]:
+            for step in steps:
+                pieces = step(pieces)
+            return pieces
+        return run
+    if kind == "Split":
+        behavior = spec.get("behavior", "Isolated")
+        if spec.get("invert") or behavior not in ("Isolated", "Removed"):
+            raise ValueError(f"tokenizer.json: Split with behavior {behavior!r}"
+                             f"{' inverted' if spec.get('invert') else ''} is not supported "
+                             f"by the port's HFTokenizer")
+        pat = _pattern(spec["pattern"], "Split")
+        return lambda pieces: _split_isolated(pieces, pat, behavior == "Isolated")
+    if kind == "ByteLevel":
+        global _GPT2_SPLIT
+        if _GPT2_SPLIT is None:
+            _GPT2_SPLIT = _compile_pre(_PRE_PATTERNS["gpt2"])
+        b2u = _bytes_to_unicode()
+        prefix, use_regex = spec.get("add_prefix_space", False), spec.get("use_regex", True)
+
+        def byte_level(pieces: List[Piece]) -> List[Piece]:
+            if prefix:
+                pieces = [(t if t.startswith(" ") else " " + t, s) for t, s in pieces]
+            if use_regex:
+                pieces = _split_isolated(pieces, _GPT2_SPLIT, True)
+            return [("".join(b2u[b] for b in t.encode("utf-8")), s) for t, s in pieces]
+        return byte_level
+    if kind == "Metaspace":
+        rep = spec.get("replacement", SPIECE_SPACE)
+        scheme = spec.get("prepend_scheme") or (
+            "always" if spec.get("add_prefix_space", True) else "never")
+        split = spec.get("split", True)
+
+        def metaspace(pieces: List[Piece]) -> List[Piece]:
+            out: List[Piece] = []
+            for text, start in pieces:
+                text = text.replace(" ", rep)
+                if not text.startswith(rep) and (
+                        scheme == "always" or (scheme == "first" and start == 0)):
+                    text = rep + text
+                if not split:
+                    out.append((text, start))
+                    continue
+                cuts = [i for i, c in enumerate(text) if c == rep and i > 0]
+                for a, b in zip([0] + cuts, cuts + [len(text)]):
+                    out.append((text[a:b], start + a))
+            return out
+        return metaspace
+    raise _unsupported("pre-tokenizer", spec)
+
+
+def _byte_fallback_tokens(tokens: List[str]) -> List[str]:
+    """The ByteFallback decoder: runs of ``<0xXX>`` tokens become their
+    UTF-8 text, or one U+FFFD a byte where the run is not valid UTF-8."""
+    out: List[str] = []
+    run: List[int] = []
+
+    def flush() -> None:
+        if run:
+            try:
+                out.append(bytes(run).decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("�" for _ in run)
+            run.clear()
+
+    for t in tokens:
+        if len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
+            try:
+                run.append(int(t[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        flush()
+        out.append(t)
+    flush()
+    return out
+
+
+def _strip_tokens(tokens: List[str], content: str, start: int, stop: int) -> List[str]:
+    out = []
+    for t in tokens:
+        a = 0
+        while a < min(start, len(t)) and t[a] == content:
+            a += 1
+        b = len(t)
+        while len(t) - b < stop and b > a and t[b - 1] == content:
+            b -= 1
+        out.append(t[a:b])
+    return out
+
+
+def _decoder(spec: Optional[dict]) -> Callable[[List[str]], List[str]]:
+    if not spec:
+        return lambda tokens: [" ".join(tokens)]
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_decoder(d) for d in spec["decoders"]]
+
+        def run(tokens: List[str]) -> List[str]:
+            for step in steps:
+                tokens = step(tokens)
+            return tokens
+        return run
+    if kind == "Replace":
+        pat = _pattern(spec["pattern"], "Replace")
+        return lambda tokens: [pat.sub(lambda _: spec["content"], t) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback_tokens
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        return lambda tokens: _strip_tokens(tokens, spec["content"], spec.get("start", 0),
+                                            spec.get("stop", 0))
+    if kind == "Metaspace":
+        rep = spec.get("replacement", SPIECE_SPACE)
+        scheme = spec.get("prepend_scheme") or (
+            "always" if spec.get("add_prefix_space", True) else "never")
+        # the first token loses its replacement characters, the rest become spaces
+        return lambda tokens: [
+            "".join("" if c == rep and i == 0 and scheme != "never" else " " if c == rep
+                    else c for c in t) for i, t in enumerate(tokens)]
+    if kind == "ByteLevel":
+        u2b = {c: b for b, c in _bytes_to_unicode().items()}
+
+        def byte_level(tokens: List[str]) -> List[str]:
+            data = bytearray()
+            for t in tokens:
+                if all(c in u2b for c in t):
+                    data.extend(u2b[c] for c in t)
+                else:
+                    data.extend(t.encode("utf-8"))
+            return [data.decode("utf-8", errors="replace")]
+        return byte_level
+    raise _unsupported("decoder", spec)
+
+
+def _clean_up_tokenization(text: str) -> str:
+    """transformers' ``clean_up_tokenization``."""
+    for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                 (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+                 (" 're", "'re")):
+        text = text.replace(a, b)
+    return text
+
+
+class HFTokenizer(BaseTokenizer):
+    """An HF model directory's ``tokenizer.json``, run without
+    ``transformers``: the JAX ``HFTokenizer``'s ids for the same text.
+
+    ``encode(text, add_bos)``: the ``add_special_tokens=False`` ids, with
+    ``bos_id`` prepended when asked and the tokenizer has one. The text is
+    first split on the added tokens (longest first at the leftmost match,
+    their ``lstrip``/``rstrip`` honoured; tokens marked ``normalized`` are
+    matched after the normalizer); every other piece is normalized,
+    pre-tokenized and run through the BPE model: each character's token,
+    else its ``<0xXX>`` byte tokens (``byte_fallback``), else ``unk``
+    (consecutive unknowns fused with ``fuse_unk``), then the merges by rank
+    (``ignore_merges``: a piece that is itself in the vocab is one token).
+    ``decode`` drops special tokens and runs the decoder chain, then
+    transformers' cleanup where ``clean_up_tokenization_spaces`` is set.
+    BOS and EOS come from ``tokenizer_config.json`` (else
+    ``special_tokens_map.json``). A component the port does not implement
+    raises ``ValueError`` naming it when the tokenizer is built."""
+
+    def __init__(self, path: str):
+        self.path = str(path)
+        d = Path(path)
+        # the files' bytes, which ``save`` writes again: a prepared
+        # checkpoint carries them whatever becomes of the source directory
+        self._files = {name: (d / name).read_bytes() for name in HF_TOKENIZER_FILES
+                       if (d / name).is_file() or name == "tokenizer.json"}
+        spec = json.loads(self._files["tokenizer.json"])
+        config = json.loads(self._files.get("tokenizer_config.json", b"{}"))
+        special_map = json.loads(self._files.get("special_tokens_map.json", b"{}"))
+        model = spec.get("model") or {}
+        if model.get("type", "BPE") != "BPE":
+            raise _unsupported("model", model)
+        for key in ("continuing_subword_prefix", "end_of_word_suffix", "dropout"):
+            if model.get(key):
+                raise ValueError(f"tokenizer.json: BPE {key} {model[key]!r} is not "
+                                 f"supported by the port's HFTokenizer")
+        self._vocab: Dict[str, int] = dict(model.get("vocab") or {})
+        self._merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        for rank, merge in enumerate(model.get("merges") or []):
+            a, b = merge.split(" ", 1) if isinstance(merge, str) else merge
+            ids = (self._vocab.get(a), self._vocab.get(b), self._vocab.get(a + b))
+            if None in ids:
+                raise ValueError(f"tokenizer.json: merge {a!r} {b!r} names a token "
+                                 f"outside the vocab")
+            self._merges[(ids[0], ids[1])] = (rank, ids[2])
+        unk = model.get("unk_token")
+        self._unk_id = self._vocab.get(unk) if unk is not None else None
+        self._fuse_unk = bool(model.get("fuse_unk", False))
+        self._byte_fallback = bool(model.get("byte_fallback", False))
+        self._ignore_merges = bool(model.get("ignore_merges", False))
+        self._id_to_token = {i: t for t, i in self._vocab.items()}
+        added = spec.get("added_tokens") or []
+        self._added = {a["content"]: a for a in added}
+        for a in added:
+            self._id_to_token[a["id"]] = a["content"]
+        self._normalize = _normalizer(spec.get("normalizer"))
+        self._pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self._decode = _decoder(spec.get("decoder"))
+        self._raw_split = self._added_pattern([a for a in added if not a.get("normalized")])
+        self._normalized_split = self._added_pattern([a for a in added if a.get("normalized")])
+        self._clean_up = bool(config.get("clean_up_tokenization_spaces", False))
+        self._cache: Dict[str, List[int]] = {}
+
+        def special(name: str) -> Optional[str]:
+            v = config.get(name) if config.get(name) is not None else special_map.get(name)
+            return v.get("content") if isinstance(v, dict) else v
+
+        self._special_ids = {a["id"] for a in added if a.get("special")}
+        for name in ("bos_token", "eos_token", "unk_token", "pad_token"):
+            tid = self._token_id(special(name))
+            if tid is not None:
+                self._special_ids.add(tid)
+        self.bos_id = self._token_id(special("bos_token"))
+        self.eos_id = self._token_id(special("eos_token"))
+
+    def _token_id(self, token: Optional[str]) -> Optional[int]:
+        if token is None:
+            return None
+        if token in self._added:
+            return self._added[token]["id"]
+        return self._vocab.get(token)
+
+    @staticmethod
+    def _added_pattern(tokens: List[dict]) -> Optional["re.Pattern"]:
+        if not tokens:
+            return None
+        contents = sorted({a["content"] for a in tokens}, key=len, reverse=True)
+        return re.compile("|".join(re.escape(c) for c in contents))
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._id_to_token)
+
+    def _split_added(self, pieces: List[Tuple[str, int, Optional[int]]],
+                     pat: Optional["re.Pattern"]) -> List[Tuple[str, int, Optional[int]]]:
+        """Cut the added tokens ``pat`` matches out of the pieces not yet
+        tokenized: (text, start, None) pieces and (content, start, id)
+        tokens; ``lstrip``/``rstrip`` take the whitespace beside a token."""
+        if pat is None:
+            return pieces
+        out: List[Tuple[str, int, Optional[int]]] = []
+        for text, start, tid in pieces:
+            if tid is not None:
+                out.append((text, start, tid))
+                continue
+            at = 0
+            for m in pat.finditer(text):
+                tok = self._added[m.group()]
+                if tok.get("single_word") and (
+                        (m.start() > 0 and text[m.start() - 1].isalnum())
+                        or (m.end() < len(text) and text[m.end()].isalnum())):
+                    continue
+                a, b = m.start(), m.end()
+                if tok.get("lstrip"):
+                    while a > at and text[a - 1].isspace():
+                        a -= 1
+                if tok.get("rstrip"):
+                    while b < len(text) and text[b].isspace():
+                        b += 1
+                if a > at:
+                    out.append((text[at:a], start + at, None))
+                out.append((m.group(), start + m.start(), tok["id"]))
+                at = b
+            if at < len(text):
+                out.append((text[at:], start + at, None))
+        return out
+
+    def _bpe(self, word: str) -> List[int]:
+        """The BPE model on one pre-tokenized piece (``tokenizers``'
+        ``BPE::merge_word`` and ``Word::merge_all``)."""
+        if self._ignore_merges and word in self._vocab:
+            return [self._vocab[word]]
+        cached = self._cache.get(word)
+        if cached is not None:
+            return cached
+        ids: List[int] = []
+        unk = False  # an unknown character waits, to fuse with the next one
+        for ch in word:
+            tid = self._vocab.get(ch)
+            if tid is not None:
+                if unk:
+                    ids.append(self._unk_id)
+                    unk = False
+                ids.append(tid)
+                continue
+            if self._byte_fallback:
+                byte_ids = [self._vocab.get(f"<0x{b:02X}>") for b in ch.encode("utf-8")]
+                if None not in byte_ids:
+                    ids.extend(byte_ids)
+                    continue
+            if self._unk_id is not None:
+                if unk and not self._fuse_unk:
+                    ids.append(self._unk_id)
+                unk = True
+        if unk:
+            ids.append(self._unk_id)
+        n = len(ids)
+        prev, nxt, alive = list(range(-1, n - 1)), list(range(1, n)) + [-1], [True] * n
+        heap = [(m[0], i, m[1]) for i in range(n - 1)
+                for m in (self._merges.get((ids[i], ids[i + 1])),) if m is not None]
+        heapq.heapify(heap)
+        while heap:
+            _, pos, new = heapq.heappop(heap)
+            right = nxt[pos]
+            if not alive[pos] or right < 0:
+                continue
+            m = self._merges.get((ids[pos], ids[right]))
+            if m is None or m[1] != new:
+                continue  # stale: a side has merged since the push
+            ids[pos], alive[right] = new, False
+            nxt[pos] = nxt[right]
+            if nxt[pos] >= 0:
+                prev[nxt[pos]] = pos
+            for left in (prev[pos], pos):
+                if left >= 0 and nxt[left] >= 0:
+                    m = self._merges.get((ids[left], ids[nxt[left]]))
+                    if m is not None:
+                        heapq.heappush(heap, (m[0], left, m[1]))
+        out = [t for t, live in zip(ids, alive) if live]
+        if len(self._cache) < 65536:
+            self._cache[word] = out
+        return out
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        ids: List[int] = []
+        if add_bos and self.bos_id is not None:
+            ids.append(self.bos_id)
+        pieces = self._split_added([(text, 0, None)], self._raw_split)
+        pieces = [(t, s, i) if i is not None else (self._normalize(t), s, None)
+                  for t, s, i in pieces]
+        for t, s, tid in self._split_added(pieces, self._normalized_split):
+            if tid is not None:
+                ids.append(tid)
+                continue
+            for word, _ in self._pre_tokenize([(t, s)]):
+                if word:
+                    ids.extend(self._bpe(word))
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        tokens = [self._id_to_token[i] for i in ids
+                  if i in self._id_to_token and i not in self._special_ids]
+        text = "".join(self._decode(tokens))
+        return _clean_up_tokenization(text) if self._clean_up else text
+
+    def save(self, directory: str) -> None:
+        """Write the tokenizer's files, as read, into ``directory``."""
+        out = Path(directory)
+        out.mkdir(parents=True, exist_ok=True)
+        for name, data in self._files.items():
+            (out / name).write_bytes(data)
+
+
 class ByteTokenizer(BaseTokenizer):
     """256-symbol byte tokenizer — synthetic models, benches, smoke tests."""
 
@@ -439,6 +883,45 @@ class ByteTokenizer(BaseTokenizer):
 
     def decode(self, ids: Sequence[int]) -> str:
         return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+
+
+# ---------------------------------------------------------------------------
+# Serialization (a prepared checkpoint carries its tokenizer, as a GGUF does)
+# ---------------------------------------------------------------------------
+
+
+def tokenizer_to_dict(tok: BaseTokenizer) -> dict:
+    """The JAX ``tokenizer_to_dict``: the vocab of a GGUF tokenizer, the
+    source directory of an HF one."""
+    if isinstance(tok, SentencePieceBPE):
+        return {"type": "spbpe", "tokens": tok.tokens, "scores": tok.scores,
+                "token_types": tok.token_types, "bos_id": tok.bos_id, "eos_id": tok.eos_id,
+                "add_prefix_space": tok.add_prefix_space}
+    if isinstance(tok, ByteLevelBPE):
+        return {"type": "blbpe", "tokens": tok.tokens, "merges": tok.merges,
+                "token_types": tok.token_types, "bos_id": tok.bos_id, "eos_id": tok.eos_id,
+                "pre": tok.pre, "add_bos": tok.add_bos}
+    if isinstance(tok, HFTokenizer):
+        return {"type": "hf", "path": tok.path}
+    return {"type": "byte"}
+
+
+def tokenizer_from_dict(d: dict) -> BaseTokenizer:
+    """The JAX ``tokenizer_from_dict``."""
+    t = d.get("type", "byte")
+    if t == "spbpe":
+        return SentencePieceBPE(tokens=list(d["tokens"]), scores=list(d["scores"]),
+                                token_types=list(d["token_types"]), bos_id=d.get("bos_id"),
+                                eos_id=d.get("eos_id"),
+                                add_prefix_space=d.get("add_prefix_space", True))
+    if t == "blbpe":
+        return ByteLevelBPE(tokens=list(d["tokens"]), merges=list(d["merges"]),
+                            token_types=list(d["token_types"]), bos_id=d.get("bos_id"),
+                            eos_id=d.get("eos_id"), pre=d.get("pre", "gpt2"),
+                            add_bos=bool(d.get("add_bos", False)))
+    if t == "hf":
+        return HFTokenizer(d["path"])
+    return ByteTokenizer()
 
 
 def render_chat(family: str, prompt: str, system_prompt: str = "") -> str:

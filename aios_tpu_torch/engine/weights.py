@@ -11,7 +11,10 @@ number ahead of the copies, so the host never holds the model in f32.
 ``params_from_jax`` takes the JAX package's parameter tree already turned
 into numpy by the caller (this package imports no JAX) and keeps its layout:
 stacked [L, ...] layer leaves, quantized {"q", "s"} leaves as they are, so
-both packages multiply the same int8 bytes. ``init_params`` is the torch twin
+both packages multiply the same int8 bytes. ``params_from_hf_state_dict`` is the twin of
+the JAX function of that name: a transformers state dict (Llama, Mistral,
+Qwen3 and both mixture-of-experts namings) as the port's stacked params.
+``init_params`` is the torch twin
 of the JAX ``init_params`` (scaled-normal init) for synthetic models; the
 two draw different numbers from the same seed. ``init_serving_params`` makes
 the same random model as ``init_params`` followed by
@@ -295,6 +298,83 @@ def params_from_gguf(path: Union[str, gguf_mod.GGUFFile], device: Device = None,
         for k, v in spent.items():
             timings[k] = timings.get(k, 0.0) + v
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# HF transformers state dicts (safetensors checkpoint directories)
+# ---------------------------------------------------------------------------
+
+
+def params_from_hf_state_dict(sd: Dict, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                              device: Device = None) -> Dict:
+    """A transformers Llama/Mistral/Qwen3 (``q_norm``/``k_norm``) state dict,
+    or a mixture-of-experts one (``mlp.experts.N.{gate,up,down}_proj`` or
+    Mixtral's ``block_sparse_moe.experts.N.{w1,w3,w2}``), as the port's
+    stacked params in ``dtype`` on ``device`` (None: the CUDA device):
+    [out, in] matrices transposed to [in, out], ``lm_head`` only when the
+    dict has one (tied embeddings have none). Values may be torch tensors
+    or numpy arrays; each is cast on the device and copied into its
+    preallocated [L, ...] leaf."""
+    device = resolve_device(device)
+
+    def get(name: str, copy: bool = False) -> torch.Tensor:
+        v = sd[name]
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        return v.to(device=device, dtype=dtype, copy=copy)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    L, E, F, D = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    layers = {"attn_norm": empty(L, E), "ffn_norm": empty(L, E),
+              "wq": empty(L, E, cfg.q_dim), "wk": empty(L, E, cfg.kv_dim),
+              "wv": empty(L, E, cfg.kv_dim), "wo": empty(L, cfg.q_dim, E)}
+    # leaf <- HF name within the layer, transposed
+    sources = [("attn_norm", "input_layernorm", False),
+               ("ffn_norm", "post_attention_layernorm", False),
+               ("wq", "self_attn.q_proj", True), ("wk", "self_attn.k_proj", True),
+               ("wv", "self_attn.v_proj", True), ("wo", "self_attn.o_proj", True)]
+    experts = []
+    if cfg.moe:
+        X, Fm = cfg.num_experts, cfg.expert_dim
+        layers.update(w_router=empty(L, E, X), we_gate=empty(L, X, E, Fm),
+                      we_up=empty(L, X, E, Fm), we_down=empty(L, X, Fm, E))
+        # qwen3_moe: mlp.gate + mlp.experts.N.{gate,up,down}_proj;
+        # mixtral: block_sparse_moe.gate + its experts.N.{w1,w3,w2}
+        if "model.layers.0.mlp.gate.weight" in sd:
+            sources.append(("w_router", "mlp.gate", True))
+            experts = [("we_gate", "mlp.experts.{}.gate_proj"),
+                       ("we_up", "mlp.experts.{}.up_proj"),
+                       ("we_down", "mlp.experts.{}.down_proj")]
+        else:
+            sources.append(("w_router", "block_sparse_moe.gate", True))
+            experts = [("we_gate", "block_sparse_moe.experts.{}.w1"),
+                       ("we_up", "block_sparse_moe.experts.{}.w3"),
+                       ("we_down", "block_sparse_moe.experts.{}.w2")]
+    else:
+        layers.update(w_gate=empty(L, E, F), w_up=empty(L, E, F), w_down=empty(L, F, E))
+        sources += [("w_gate", "mlp.gate_proj", True), ("w_up", "mlp.up_proj", True),
+                    ("w_down", "mlp.down_proj", True)]
+    if cfg.qk_norm:
+        layers["q_norm"] = empty(L, D)
+        layers["k_norm"] = empty(L, D)
+        sources += [("q_norm", "self_attn.q_norm", False),
+                    ("k_norm", "self_attn.k_norm", False)]
+    for i in range(L):
+        p = f"model.layers.{i}."
+        for leaf, name, transpose in sources:
+            w = get(f"{p}{name}.weight")
+            layers[leaf][i].copy_(w.T if transpose else w)
+        for leaf, name in experts:
+            for j in range(cfg.num_experts):
+                layers[leaf][i, j].copy_(get(f"{p}{name.format(j)}.weight").T)
+    # copies: a leaf never aliases the caller's arrays or a file's map
+    params = {"embed": get("model.embed_tokens.weight", copy=True), "layers": layers,
+              "final_norm": get("model.norm.weight", copy=True)}
+    if "lm_head.weight" in sd:
+        params["lm_head"] = get("lm_head.weight").T.contiguous()
+    return params
 
 
 def init_serving_params(cfg: ModelConfig, generator: torch.Generator, mode: str = "int8",

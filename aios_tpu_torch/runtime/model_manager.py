@@ -70,14 +70,15 @@ is set logs a warning naming it.
 ``speculative`` turns on speculative decode
 dispatches over either cache (None reads ``AIOS_TPU_SPECULATIVE``). A model
 paired with a draft (``AIOS_TPU_DRAFT_MODEL``, else the config's
-``draft_model``: a preset name such as ``tinyllama`` or a ``.gguf`` path)
+``draft_model``: a preset name such as ``tinyllama``, a ``.gguf`` path or a
+directory)
 serves speculatively whatever that knob says, through the batcher's ladder
 draft -> n-gram: the draft is loaded once as an int4 ``spec.DraftModel``
 shared read-only by the replicas, each of which keeps its own dense draft
 cache; its weights count once in the budget and its cache once per replica.
-A pairing that cannot serve (an unknown source, a file that does not load,
-an HF directory, another vocabulary or tokenizer, a geometry no kernel
-takes) logs and serves with n-gram speculation, as the JAX manager does; a
+A pairing that cannot serve (an unknown source, a file or directory that
+does not load, another vocabulary or tokenizer, a geometry no kernel takes)
+logs and serves with n-gram speculation, as the JAX manager does; a
 CUDA error while the draft loads propagates.
 Every batcher knows its model's tokenizer and so serves grammar-constrained
 requests (``json_schema``, ``json_mode``); under ``AIOS_TPU_JSON_MODE=force``
@@ -91,7 +92,12 @@ one layer at a time straight into its serving leaves,
 order; a ``.gguf`` path loads the file's weights
 (``weights.params_from_gguf``), its config from the metadata and its own
 tokenizer (SentencePiece or byte-level BPE, bytes when it carries none), as
-the JAX manager does. ``autoload`` scans ``AIOS_MODEL_DIR`` for ``*.gguf`` at
+the JAX manager does; a directory is a prepared checkpoint
+(``prepare_model``: its leaves restored as stored, so an int8 or int4 one
+skips the quantize pass, ``quantize_seconds`` 0) or else an HF checkpoint
+directory (``config.json``, ``*.safetensors`` read by the port's own
+reader, cast to bf16 on the device, and ``HFTokenizer`` on its
+``tokenizer.json``). ``autoload`` scans ``AIOS_MODEL_DIR`` for ``*.gguf`` at
 startup, naming each model by its file stem and sizing its context by file
 size. On CUDA a model lists READY only once its engine
 has built its kernels and captured the CUDA graphs its batcher dispatches
@@ -100,12 +106,12 @@ leaves it in ``error`` and fails ``LoadModel``, as does a file that does
 not parse, a ggml type with no dequantizer or a geometry no kernel takes
 (a mixture-of-experts model's expert stacks included). With
 ``AIOS_TPU_AUTOSCALE`` each pool gets the SLO autoscaler
-(``serving/autoscale.py``), whose scale-ups share replica 0's weights. HF
-checkpoint directories and prepared checkpoints wait for later slices.
+(``serving/autoscale.py``), whose scale-ups share replica 0's weights.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import resource
@@ -118,15 +124,18 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from ..device import DEVICE_FAULT_REASON, is_device_fault, resolve_device
+from ..engine import checkpoint as ckpt_mod
 from ..engine import model as model_mod
 from ..engine import spec as spec_mod
 from ..engine.batching import ContinuousBatcher
-from ..engine.config import PRESETS, TINY_MOE, TINY_TEST, ModelConfig
+from ..engine.config import PRESETS, TINY_MOE, TINY_TEST, ModelConfig, from_hf_config
 from ..engine.engine import DEFAULT_BUCKETS, SPILL_STAGING_BYTES, TorchEngine
 from ..engine.gguf import GGUFFile
 from ..engine.moe import DENSE_TOKEN_CHUNK
-from ..engine.tokenizer import BaseTokenizer, ByteTokenizer, gguf_tokenizer
-from ..engine.weights import init_params, init_serving_params, params_from_gguf
+from ..engine.safetensors import load_dir
+from ..engine.tokenizer import BaseTokenizer, ByteTokenizer, HFTokenizer, gguf_tokenizer
+from ..engine.weights import (init_params, init_serving_params, params_from_gguf,
+                              params_from_hf_state_dict)
 from ..serving import ReplicaPool, ServingConfig
 
 log = logging.getLogger("aios.torch.runtime.models")
@@ -226,6 +235,17 @@ class ManagedModel:
         """Serving entry point: through the pool (admission, routing,
         failover). Raises serving.AdmissionError when the request is shed."""
         return self.pool.submit(req, tenant=tenant, deadline_s=deadline_s)
+
+
+def _bf16_dense(tree):
+    """Every dense floating leaf in bf16, the serving dtype of every source
+    (a checkpoint prepared with ``--dtype f32`` included); quantized leaves
+    ({"q", "s"}, {"q4", "s4"}) as they are."""
+    if isinstance(tree, dict):
+        if "q" in tree or "q4" in tree:
+            return tree
+        return {k: _bf16_dense(v) for k, v in tree.items()}
+    return tree.to(torch.bfloat16) if tree.is_floating_point() else tree
 
 
 def _context_for_file_size(n_bytes: int) -> int:
@@ -670,8 +690,8 @@ class ModelManager:
 
     def _build_draft(self, source: str, cfg: ModelConfig, ctx: int,
                      tokenizer: BaseTokenizer) -> Optional[spec_mod.DraftModel]:
-        """The paired draft model (a preset name such as "tinyllama", or a
-        ``.gguf`` path) as an int4 ``spec.DraftModel``, or None when the
+        """The paired draft model (a preset name such as "tinyllama", a
+        ``.gguf`` path or a directory) as an int4 ``spec.DraftModel``, or None when the
         pairing cannot serve (the JAX manager's ``_build_draft``): lenient
         like every serving knob, a config error logs and serves with n-gram
         speculation. A CUDA error raises."""
@@ -760,11 +780,38 @@ class ModelManager:
                 cfg = cfg.scaled(max_context=context_length)
             return cfg, params, tokenizer
         if p.is_dir():
-            raise ValueError(
-                f"{path}: HF checkpoint directories and prepared checkpoints are not "
-                "served by the PyTorch port yet (they need safetensors, transformers "
-                "and orbax); load a .gguf file or synthetic://<preset>")
+            return self._load_dir(name, p, context_length)
         raise FileNotFoundError(f"model path not found: {path}")
+
+    def _load_dir(self, name: str, p: Path, context_length: int):
+        """A prepared checkpoint (its leaves restored as stored, quantized
+        ones with no quantize pass after, the dense ones in bf16 as from
+        every other source; ``context_length`` scales its config), else an
+        HF checkpoint directory: ``config.json``, every ``*.safetensors``
+        in sorted order cast to bf16 on the device, and ``tokenizer.json``:
+        the JAX manager's order and casts. The seconds of reading and
+        placing the weights go to the load's ``upload_s``."""
+        timings = getattr(self._loading, "timings", {})
+        t0 = time.perf_counter()
+        if ckpt_mod.is_model_checkpoint(str(p)):
+            cfg, params, tokenizer = ckpt_mod.load_model_checkpoint(str(p), self.device)
+            params = _bf16_dense(params)
+            if context_length:
+                cfg = cfg.scaled(max_context=context_length)
+        elif (p / "config.json").is_file():
+            with open(p / "config.json") as fh:
+                cfg = from_hf_config(json.load(fh), name=name)
+            params = params_from_hf_state_dict(load_dir(p), cfg, dtype=torch.bfloat16,
+                                               device=self.device)
+            tokenizer = HFTokenizer(str(p))
+        else:
+            raise FileNotFoundError(
+                f"{p} holds neither a prepared checkpoint ({ckpt_mod.MODEL_META_NAME}) nor "
+                "the config.json that HF checkpoint directories carry")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        timings["upload_s"] = time.perf_counter() - t0
+        return cfg, params, tokenizer
 
     def autoload(self, model_dir: Optional[str] = None) -> List[str]:
         """Scan AIOS_MODEL_DIR for *.gguf and load each (main.rs:65-132): in

@@ -89,7 +89,8 @@ Phases, each printing its lines:
      teacher-forced verify that accepts its own predictions, greedy
      speculative streams through the batcher (twice, identical), the
      acceptance rate, the 8-slot decode rate with and without speculation,
-     and phase 5's graph checks and profiles for the round and the step; a
+     phase 5's graph checks for the round and the step and its profile of
+     the round (the step's profile is phase 5's over another kernel); a
      512-row chunk over the dense cache against the plain path, and a long
      prompt admitted in chunks, then decoded in rounds, exact launches;
   10. serve Mistral-7B dense and its numerics — the same with
@@ -303,6 +304,21 @@ Phases, each printing its lines:
      devprof ledger; and the 8-slot, 129-token wave and a 32-token Infer
      with devprof, the tsdb and the interceptors on and off (the Infer
      within 2%). Its served runs add to the kernels line.
+  20. model files and training (``phase_files``, after the storm) —
+     TinyLlama-1.1B at full width from seed 0 written as an HF directory
+     (its published config.json, bf16 ``model.safetensors`` by the port's
+     writer, a 32000-piece ``tokenizer.json`` made by the script), then
+     LoadModel of it (int8 weights, bf16 pool ``auto``): 4 greedy Infer
+     and 1 StreamInfer equal token for token to an engine built over the
+     same params; ``prepare_model --quantize int8`` of the directory and
+     LoadModel of the result (``quantize_seconds`` 0, the same streams);
+     the same model trained in f32 on one seeded batch (the loss falls
+     after the first step's rate of 0; step time, tokens/s, achieved
+     FLOP/s against the dense FP32 peak, peak memory); the resume at 2
+     layers (the save read back bit for bit; the resumed run's params
+     within ``RESUME_TOL`` of the straight run's); the trained weights
+     prepared as int8 and served 2 requests. Every write and read is timed
+     and deleted at the end. Its served windows add to the kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -2647,10 +2663,10 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None
     through the graph and through the eager body, from the same state each
     time: host wall per step (median of three unprofiled dispatches), the
     device span of one (CUDA events), three under torch.profiler for the
-    graph and one for the eager body, whose thousands of host ops a step
-    make each profile cost tens of seconds to read (device busy share, the
-    device events per step of each, the top kernels), and for the eager
-    body one more with its functions marked (``_op_table``).
+    graph and one for the eager body with its functions marked, whose
+    thousands of host ops a step make each profile cost tens of seconds to
+    read (device busy share, the device events per step of each, the top
+    kernels, and for the eager body the ops by function, ``_op_table``).
     With ``prompt`` the slots are greedy on that prompt and the dispatch is
     ``n_steps`` speculative rounds."""
     from torch.profiler import ProfilerActivity, profile
@@ -2690,7 +2706,11 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None
         windows = []
         for _ in range(3 if mode == "graph" else 1):
             fresh()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in ops.KERNELS:
+                k.launches = 0
+            marked = _annotated() if mode == "eager" else contextlib.nullcontext()
+            with marked, profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 out = fn(n_steps)
                 torch.cuda.synchronize()
@@ -2712,13 +2732,6 @@ def _profile_decode(eng, tag: str, n_steps: int, card: str, prompt=None) -> None
         for key, (_, us) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
             log(f"[profile]   {us / 1e3:9.3f} ms  {key[:110]}")
         if mode == "eager":
-            fresh()
-            for k in ops.KERNELS:
-                k.launches = 0
-            with _annotated(), profile(activities=[ProfilerActivity.CPU,
-                                                   ProfilerActivity.CUDA]) as prof:
-                fn(n_steps)
-                torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
             _op_table(f"{tag} eager {per}", prof, n_steps, launches)
     for s in range(eng.num_slots):
@@ -3233,8 +3246,10 @@ def phase_dense_numerics(name: str):
         _graph_vs_eager(tag, eng, {case["matmul"]: per, case["decode"]: L}, rounds=False)
         _fresh_noise(tag, eng, rounds=True)
         _fresh_noise(tag, eng, rounds=False)
+        # the round only: the plain step's eager glue and its graph's busy
+        # share are the paged phases' step profiles over another attention
+        # kernel, whose own time phase 3 measures
         _profile_decode(eng, f"dense {name}", 8, card, prompt=REPEATING)
-        _profile_decode(eng, f"dense {name}", 8, card)
         # the masked step and the jumps over the dense cache (captured now)
         _constrained_dispatches(f"[constrained dense {name}]", eng,
                                 {case["matmul"]: per, case["decode"]: L},
@@ -4590,6 +4605,7 @@ def _recording(m):
 
     def recorded(req, **kw):
         got.append(_Recorded(submit(req, **kw)))
+        got[-1].req = req
         return got[-1]
 
     m.submit = recorded
@@ -7539,6 +7555,433 @@ def phase_storm(card: str) -> dict:
     return launches
 
 
+# -- phase 20: model files and training -------------------------------------------
+
+# TinyLlama-1.1B-Chat-v1.0's published config.json (the keys the loaders read
+# and the ones HF writes beside them)
+TINYLLAMA_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 32000,
+    "hidden_size": 2048, "intermediate_size": 5632, "num_hidden_layers": 22,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "max_position_embeddings": 2048,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "rope_scaling": None,
+    "tie_word_embeddings": False, "hidden_act": "silu", "attention_bias": False,
+    "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16", "use_cache": True,
+}
+FILES_PROMPTS = (
+    "What is the capital of France?",
+    "List three ways to cut the disk usage of a log directory.",
+    "Write one sentence about the ocean at night.",
+    "Explain what a page table is in two short sentences.",
+    "Name a prime number above 100 and say why it is prime.",
+)
+FILES_TOKENS = 32  # new tokens of each greedy stream
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 512, 5  # one seeded batch, repeated
+RESUME_B, RESUME_T, RESUME_LAYERS = 2, 256, 2  # the resume check, cut to 2 layers
+RESUME_TOL = 1e-5  # each leaf, relative Frobenius norm, straight against resumed
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, dense float32 outside the tensor cores
+
+
+def _hf_llama_tokenizer_json(rng, vocab: int) -> dict:
+    """A Llama-style ``tokenizer.json`` of ``vocab`` pieces from ``rng``:
+    <unk> <s> </s>, the 256 ``<0xXX>`` byte tokens, ``▁`` and printable
+    ASCII, then ranked merges of two existing pieces into a new one (at
+    most 12 characters) up to ``vocab``; TinyLlama's normalizer (Prepend
+    ``▁``, spaces to ``▁``), byte fallback and decoder."""
+    specials = ["<unk>", "<s>", "</s>"]
+    base = ["▁"] + [chr(c) for c in range(33, 127)]
+    tokens = specials + [f"<0x{b:02X}>" for b in range(256)] + base
+    seen, merges = set(tokens), []
+    pool = list(base)
+    while len(tokens) < vocab:
+        a, b = pool[int(rng.integers(0, len(pool)))], pool[int(rng.integers(0, len(pool)))]
+        if len(a) + len(b) <= 12 and a + b not in seen:
+            seen.add(a + b)
+            tokens.append(a + b)
+            pool.append(a + b)
+            merges.append(f"{a} {b}")
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, t in enumerate(specials)]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None, "post_processor": None,
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": {t: i for i, t in enumerate(tokens)}, "merges": merges},
+    }
+
+
+def _hf_state_dict(params, cfg) -> dict:
+    """The port's dense params as a transformers Llama state dict ([out, in]
+    matrices, one tensor a layer), contiguous on the card."""
+    lay = params["layers"]
+    names = {"attn_norm": "input_layernorm", "ffn_norm": "post_attention_layernorm",
+             "wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T.contiguous()}
+    for i in range(cfg.num_layers):
+        for leaf, name in names.items():
+            w = lay[leaf][i]
+            sd[f"model.layers.{i}.{name}.weight"] = w if w.dim() == 1 else w.T.contiguous()
+    return sd
+
+
+def _write_hf_dir(path, params, cfg, rng) -> dict:
+    """``config.json``, ``model.safetensors`` (the port's writer) and the
+    tokenizer files of a TinyLlama HF directory; returns the seconds and
+    bytes of the weights' write."""
+    from aios_tpu_torch.engine import safetensors
+
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(TINYLLAMA_HF_CONFIG))
+    (path / "tokenizer.json").write_text(json.dumps(_hf_llama_tokenizer_json(rng, cfg.vocab_size)))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+        "clean_up_tokenization_spaces": False, "tokenizer_class": "LlamaTokenizer"}))
+    sd = _hf_state_dict(params, cfg)
+    t0 = time.perf_counter()
+    n = safetensors.save_file(sd, path / "model.safetensors", metadata={"format": "pt"})
+    return {"seconds": time.perf_counter() - t0, "bytes": n}
+
+
+def _greedy_window(stub, m, tag: str, prompts, want=None) -> tuple:
+    """4 Infer and 1 StreamInfer of ``prompts`` at once over gRPC at a
+    temperature the sampler takes as greedy, every count set to 0 just
+    before and read just after: (the streamed ids, launches). With
+    ``want``, each stream must equal it token for token."""
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    stub.Infer(runtime_pb2.InferRequest(prompt="warm up", max_tokens=4), timeout=300)
+    results, errors = {}, []
+
+    def run(i):
+        try:
+            req = runtime_pb2.InferRequest(prompt=prompts[i], max_tokens=FILES_TOKENS,
+                                           temperature=1e-5)
+            if i == len(prompts) - 1:
+                results[i] = list(stub.StreamInfer(req, timeout=600))
+            else:
+                results[i] = stub.Infer(req, timeout=600)
+        except Exception as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    with _recording(m) as handles:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+        _reset_counts()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches = _read_counts()
+    expect(not errors and all(not t.is_alive() for t in threads), f"{tag} requests: {errors!r}")
+    expect(results[len(prompts) - 1][-1].done, f"{tag} StreamInfer did not end with done")
+    eos = m.tokenizer.eos_id
+    by_prompt = {}
+    for h in handles:
+        by_prompt[tuple(h.req.prompt_ids)] = [t for t in h.tokens if t != eos]
+    streams = [by_prompt[tuple(p)] for p in want[0]] if want else list(by_prompt.values())
+    if want:
+        expect(streams == want[1], f"{tag} greedy streams differ from the engine's: "
+               f"{[s[:6] for s in streams]} vs {[s[:6] for s in want[1]]}")
+    return streams, launches
+
+
+def _files_served_launches(launches: dict, L: int, tag: str) -> None:
+    for name in ("quantized_matmul", "flash_attention", "paged_decode_attention"):
+        expect(launches.get(name, 0) > 0, f"{tag} {name} launched no time: {launches}")
+    expect(launches.get("quantized_matmul", 0) % (4 * L + 1) == 0
+           and launches.get("flash_attention", 0) % L == 0, f"{tag} launches {launches}")
+
+
+def _train_flops(cfg, B: int, T: int) -> float:
+    """FLOPs of one remat train step: per token 2 x (every matmul weight:
+    q, k, v, o and the three FFN projections of each layer, and the
+    lm_head) for the forward, as much again for the forward recomputed
+    under remat and twice that for the backward (8 x in all); attention's
+    QK^T and PV over the whole T x T (the plain path scores every pair,
+    masked after), 4 B T^2 H D a layer forward, times 4 likewise."""
+    E, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    matmul = L * (E * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * E + 3 * E * Fd)
+    matmul += E * cfg.vocab_size
+    attention = L * 4 * B * T * T * cfg.num_heads * cfg.head_dim
+    return 8.0 * matmul * B * T + 4.0 * attention
+
+
+def _state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def _train_full(cfg, params, card: str) -> tuple:
+    """TRAIN_STEPS f32 steps on one seeded batch; returns the trained
+    params (the optimizer's state freed) and the step's numbers."""
+    from aios_tpu_torch.engine import train
+
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_T)))
+             .cuda(), "loss_mask": torch.ones(TRAIN_B, TRAIN_T, device="cuda")}
+    init, step = train.make_train_step(
+        cfg, optimizer=train.make_optimizer(warmup_steps=1, total_steps=TRAIN_STEPS))
+    state = init(params)
+    del params
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        expect(np.isfinite(loss), f"[files train] a loss of {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    expect(losses[0] == losses[1] and all(b < a for a, b in zip(losses[1:], losses[2:])),
+           f"[files train] losses {losses}: the first step runs at rate 0, then they must fall")
+    step_s = statistics.median(times[1:])
+    flops = _train_flops(cfg, TRAIN_B, TRAIN_T)
+    state_bytes = _state_bytes(state["params"]) + _state_bytes(state["opt_state"])
+    log(f"[files train] TinyLlama-1.1B f32, {cfg.num_params()} parameters, remat, "
+        f"kernels=False (the plain path), batch {TRAIN_B} x {TRAIN_T}, "
+        f"make_optimizer(warmup_steps=1, total_steps={TRAIN_STEPS}): losses "
+        f"{[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} ms), {TRAIN_B * TRAIN_T / step_s:.0f} "
+        f"tokens/s, {flops:.4g} FLOP a step = {flops / step_s / 1e12:.2f} TFLOP/s achieved, "
+        f"{flops / step_s / FP32_FLOPS_PER_S:.3f} of the H100's dense FP32 peak "
+        f"({FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s at 700 W; {card}); params + Adam moments "
+        f"{state_bytes} B, peak allocated {peak} B (grads and activations included)")
+    params = state["params"]
+    del state
+    for p in train._leaves(params):
+        p.requires_grad_(False)
+    return params, {"step_ms": step_s * 1e3, "peak": peak, "losses": losses}
+
+
+def _resume_check(cfg, tmp, card: str) -> None:
+    """At full width cut to RESUME_LAYERS layers: 4 steps straight, and 2
+    steps, a save and a fresh ``train_loop`` that resumes from it for the
+    other 2; the saved state reads back bit for bit, and the two runs'
+    params agree within RESUME_TOL (the embedding's and the loss's
+    backward scatter-add with atomics on the card, so two runs of the same
+    step can round apart)."""
+    from aios_tpu_torch.engine import train
+    from aios_tpu_torch.engine.checkpoint import CheckpointManager
+    from aios_tpu_torch.engine.weights import init_params
+
+    cut = cfg.scaled(num_layers=RESUME_LAYERS)
+    rng = np.random.default_rng(1)
+    batches = [{"tokens": torch.from_numpy(rng.integers(0, cut.vocab_size, (RESUME_B, RESUME_T)))
+                .cuda(), "loss_mask": torch.ones(RESUME_B, RESUME_T, device="cuda")}
+               for _ in range(4)]
+    opt = train.make_optimizer(warmup_steps=1, total_steps=4)
+
+    def fresh():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return init_params(cut, gen, torch.float32, "cuda")
+
+    straight = train.train_loop(cut, fresh(), batches, optimizer=opt)
+    init, step = train.make_train_step(cut, optimizer=opt)
+    state = init(fresh())
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    mgr = CheckpointManager(str(tmp / "train"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(2, state)
+    save_s = time.perf_counter() - t0
+    nbytes = _state_bytes(state["params"]) + _state_bytes(state["opt_state"])
+    t0 = time.perf_counter()
+    back = mgr.restore(like=state)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    for (k, a), (_, b) in zip(_leaves(state), _leaves(back)):
+        expect(torch.equal(a.detach(), b) if isinstance(a, torch.Tensor) else a == b,
+               f"[files resume] {k} did not read back bit for bit")
+    expect(back["step"] == 2 and back["opt_state"]["count"] == 2, "[files resume] step")
+    del state, back
+    resumed = train.train_loop(cut, fresh(), batches[2:], optimizer=opt,
+                               checkpoint_dir=str(tmp / "train"))
+    expect(resumed["step"] == 4 and CheckpointManager(str(tmp / "train")).latest_step() == 4,
+           "[files resume] the resumed run did not reach step 4")
+    worst, worst_elem = 0.0, 0.0
+    for (k, a), (_, b) in zip(_leaves(straight["params"]), _leaves(resumed["params"])):
+        a, b = a.detach().double(), b.detach().double()
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
+        worst_elem = max(worst_elem, ((a - b).abs().max() / b.abs().max()).item())
+    expect(worst <= RESUME_TOL, f"[files resume] params {worst:.3e} apart (limit {RESUME_TOL})")
+    log(f"[files resume] {RESUME_LAYERS} layers at full width, batches {RESUME_B} x "
+        f"{RESUME_T}: a save of {nbytes} B in {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s, "
+        f"fsync'd), read back bit for bit in {read_s:.2f} s ({nbytes / read_s / 1e9:.2f} GB/s, "
+        f"warm); resumed at step 2 to step 4: each leaf within {worst:.3e} of the straight "
+        f"run (relative Frobenius norm, limit {RESUME_TOL}; elementwise {worst_elem:.3e} of "
+        f"max|param|) on {card}")
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+
+def _cast(tree, dtype):
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+
+
+def phase_files(card: str) -> dict:
+    """Phase 20: model files and training. TinyLlama-1.1B at full width from
+    seed 0 written as an HF directory (its config.json, bf16
+    model.safetensors by the port's writer, a 32000-piece tokenizer.json),
+    LoadModel of it and of its ``prepare_model --quantize int8`` checkpoint
+    (int8 weights, bf16 pool ``auto``), each with 4 greedy Infer and 1
+    StreamInfer equal to an engine built over the same params; f32 training
+    of the same model (the loss falls); a resume at 2 layers; the trained
+    weights prepared as int8 and served again. Returns the served
+    windows' launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from aios_tpu_torch import prepare_model, rpc, services
+    from aios_tpu_torch.engine import checkpoint, model
+    from aios_tpu_torch.engine.config import from_hf_config
+    from aios_tpu_torch.engine.engine import TorchEngine
+    from aios_tpu_torch.engine.tokenizer import HFTokenizer, render_chat
+    from aios_tpu_torch.engine.weights import init_params
+    from aios_tpu_torch.proto_gen import runtime_pb2
+    from aios_tpu_torch.runtime.model_manager import ModelManager
+    from aios_tpu_torch.runtime.service import serve
+
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    cfg = from_hf_config(TINYLLAMA_HF_CONFIG, name="tinyllama-hf")
+    L = cfg.num_layers
+    tmp = Path(tempfile.mkdtemp(prefix="aios-files-"))
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16")
+    server, _, port = serve("127.0.0.1:0", manager, block=False)
+    channel = rpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = services.AIRuntimeStub(channel)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def unload(name):
+        expect(stub.UnloadModel(runtime_pb2.UnloadModelRequest(model_name=name)).success,
+               f"UnloadModel {name}")
+        torch.cuda.empty_cache()
+
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, torch.bfloat16, "cuda")
+        hf = tmp / "tinyllama-hf"
+        wrote = _write_hf_dir(hf, params, cfg, np.random.default_rng(0))
+        log(f"[files] wrote {hf.name}: config.json, model.safetensors {wrote['bytes']} B in "
+            f"{wrote['seconds']:.2f} s ({wrote['bytes'] / wrote['seconds'] / 1e9:.2f} GB/s, "
+            f"into the page cache), tokenizer.json of {cfg.vocab_size} pieces")
+        tok = HFTokenizer(str(hf))
+        ids = [tok.encode(render_chat(cfg.name, p)) for p in FILES_PROMPTS]
+        expect(all(len(x) < 128 for x in ids), f"[files] prompts of {[len(x) for x in ids]} "
+               "tokens: a full 128-row block would be served from the prefix index")
+        # the reference: an engine built directly over the same params, the
+        # served engines' pool and quantization
+        ref = TorchEngine(cfg, params, num_slots=8, max_context=2048, quantize="int8",
+                          paged_pool_rows=9 * 2048, page_size=128, prefix_cache=False)
+        want = [ref.generate(x, max_new_tokens=FILES_TOKENS, temperature=0.0,
+                             stop_tokens=(tok.eos_id,)) for x in ids]
+        want = [[t for t in w if t != tok.eos_id] for w in want]
+        ref.close()
+        del ref, params
+        torch.cuda.empty_cache()
+
+        m, load_s = _load(manager, stub, "tinyllama-hf", str(hf))
+        eng, t = m.engine, m.load_timings
+        expect(isinstance(m.tokenizer, HFTokenizer) and eng.quantized
+               and eng.k_pool.dtype == torch.bfloat16 and eng.max_context == 2048
+               and (m.config.num_layers, m.config.hidden_size) == (22, 2048),
+               f"[files] the HF load: {m.config}")
+        log(f"[files] LoadModel {hf.name} ready in {load_s:.2f} s: read and placed in "
+            f"{t['upload_s']:.2f} s ({wrote['bytes'] / t['upload_s'] / 1e9:.2f} GB/s, warm "
+            f"page cache), quantize {t['quantize_s']:.2f} s, capture {t['capture_s']:.2f} s")
+        _, launches = _greedy_window(stub, m, "[files hf]", FILES_PROMPTS, (ids, want))
+        _files_served_launches(launches, L, "[files hf]")
+        add(launches)
+        log(f"[files hf] 4 greedy Infer + 1 StreamInfer equal to the engine built over the "
+            f"same params, token for token ({[len(w) for w in want]} tokens); launches "
+            f"{launches}")
+        unload("tinyllama-hf")
+
+        prepared = tmp / "tinyllama-int8"
+        t0 = time.perf_counter()
+        expect(prepare_model.main([str(hf), str(prepared), "--quantize", "int8"]) == 0,
+               "[files] prepare_model failed")
+        prep_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(prepared / checkpoint.PARAMS_NAME)
+        shutil.rmtree(hf)
+        m, load_s = _load(manager, stub, "tinyllama-int8", str(prepared))
+        t = m.load_timings
+        expect(m.engine.quantize_seconds == 0.0 and t["quantize_s"] == 0.0,
+               f"[files] the prepared load quantized again ({m.engine.quantize_seconds} s)")
+        log(f"[files] prepare_model --quantize int8: {prep_s:.2f} s (read, quantize on the "
+            f"card, write {nbytes} B fsync'd); LoadModel {prepared.name} ready in {load_s:.2f} s: read "
+            f"and placed in {t['upload_s']:.2f} s ({nbytes / t['upload_s'] / 1e9:.2f} GB/s, "
+            f"warm), quantize_seconds 0, capture {t['capture_s']:.2f} s")
+        _, launches = _greedy_window(stub, m, "[files int8]", FILES_PROMPTS, (ids, want))
+        _files_served_launches(launches, L, "[files int8]")
+        add(launches)
+        log(f"[files int8] the prepared checkpoint's 5 greedy streams equal too; launches "
+            f"{launches}")
+        unload("tinyllama-int8")
+        shutil.rmtree(prepared)
+
+        # training: every serving engine is gone before the f32 state exists
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen.manual_seed(0)  # the served model's bf16 weights, in f32
+        trained, _ = _train_full(cfg, _cast(init_params(cfg, gen, torch.bfloat16, "cuda"),
+                                            torch.float32), card)
+        serving = model.quantize_params(_cast(trained, torch.bfloat16), mode="int8",
+                                        target="cuda")
+        del trained
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        checkpoint.save_model_checkpoint(str(tmp / "trained-int8"), cfg, serving, tok)
+        save_s = time.perf_counter() - t0
+        del serving
+        torch.cuda.empty_cache()
+        _resume_check(cfg, tmp, card)
+
+        m, load_s = _load(manager, stub, "tinyllama-trained", str(tmp / "trained-int8"))
+        expect(m.engine.quantize_seconds == 0.0, "[files trained] quantized again at load")
+        results = []
+        with _recording(m):
+            _reset_counts()
+            for p in FILES_PROMPTS[:2]:
+                results.append(stub.Infer(runtime_pb2.InferRequest(
+                    prompt=p, max_tokens=FILES_TOKENS, temperature=1e-5), timeout=600))
+            launches = _read_counts()
+        expect(all(r.tokens_used > 0 for r in results), "[files trained] no tokens")
+        _files_served_launches(launches, L, "[files trained]")
+        add(launches)
+        log(f"[files trained] the trained weights as an int8 checkpoint (saved in "
+            f"{save_s:.2f} s) served 2 requests after LoadModel in {load_s:.2f} s: "
+            f"{[r.tokens_used for r in results]} tokens used; launches {launches}")
+        unload("tinyllama-trained")
+    finally:
+        manager.close()
+        channel.close()
+        server.stop(grace=None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[files] phase 20 done in {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -7606,6 +8049,7 @@ def main() -> int:
     moe = timed("moe", phase_moe, card)
     stack = timed("stack", phase_stack, card)
     storm = timed("storm", phase_storm, card)
+    files = timed("files", phase_files, card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -7615,7 +8059,7 @@ def main() -> int:
         n = (tiny.get(name, 0) + mistral.get(name, 0) + gguf.get(name, 0)
              + constrained.get(name, 0) + serving.get(name, 0) + spec_paged.get(name, 0)
              + host.get(name, 0) + loop.get(name, 0) + moe.get(name, 0)
-             + stack.get(name, 0) + storm.get(name, 0))
+             + stack.get(name, 0) + storm.get(name, 0) + files.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -7630,7 +8074,8 @@ def main() -> int:
             f"{spec_paged.get(name, 0)} Mistral-7B with its draft, {host.get(name, 0)} over "
             f"the host tier, {loop.get(name, 0)} in the decode loop's modes, "
             f"{moe.get(name, 0)} Qwen3-30B-A3B, {stack.get(name, 0)} under the service "
-            f"plane, {storm.get(name, 0)} in the storm phase), "
+            f"plane, {storm.get(name, 0)} in the storm phase, {files.get(name, 0)} from model "
+            f"files), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
             f"{'' if r['library_ms'] is None else ' ms'}, "

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: it imports neither JAX nor aios_tpu, and its
-entry points refuse to fall back to the CPU when no CUDA device exists."""
+"""The PyTorch port stands alone: it imports neither JAX nor aios_tpu (nor
+safetensors, transformers, tokenizers, optax or orbax, none of which is on
+the card), and its entry points refuse to fall back to the CPU when no CUDA
+device exists."""
 
 import ast
 import os
@@ -19,10 +21,15 @@ PKG = ROOT / "aios_tpu_torch"
 ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1"}
 
 
+# packages the card does not have, whose formats the port reads itself
+OFF_CARD = ("safetensors", "transformers", "tokenizers", "optax", "orbax")
+
+
 def _is_jax_or_reference(name: str) -> bool:
     # "aios_tpu_torch".startswith("aios_tpu") is true: match whole names
     return (name == "jax" or name.startswith("jax.")
-            or name == "aios_tpu" or name.startswith("aios_tpu."))
+            or name == "aios_tpu" or name.startswith("aios_tpu.")
+            or name.split(".")[0] in OFF_CARD)
 
 
 def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
@@ -44,8 +51,13 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
         "import aios_tpu_torch.obs.slo, aios_tpu_torch.obs.tsdb, aios_tpu_torch.obs.http\n"
         "import aios_tpu_torch.obs.incidents, aios_tpu_torch.obs.devprof\n"
         "import aios_tpu_torch.serving.autoscale, aios_tpu_torch.loadgen\n"
+        "import aios_tpu_torch.engine.safetensors, aios_tpu_torch.engine.checkpoint\n"
+        "import aios_tpu_torch.engine.train, aios_tpu_torch.prepare_model\n"
+        "import aios_tpu_torch.engine.tokenizer, aios_tpu_torch.engine.config\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "             or n == 'aios_tpu' or n.startswith('aios_tpu.'))\n"
+        "             or n == 'aios_tpu' or n.startswith('aios_tpu.')\n"
+        "             or n.split('.')[0] in ('safetensors', 'transformers', 'tokenizers',\n"
+        "                                    'optax', 'orbax'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
