@@ -44,7 +44,7 @@ log = logging.getLogger("aios.analysis.locks")
 
 __all__ = [
     "DebugLock", "LockOrderError", "make_lock", "debug_enabled",
-    "watchdog_trips", "reset_debug_state",
+    "watchdog_trips", "order_errors", "observed_edges", "reset_debug_state",
 ]
 
 
@@ -82,6 +82,9 @@ _edges: Dict[Tuple[str, str], str] = {}
 _held_now: Dict[int, Tuple[str, int, float]] = {}
 _watchdog_trips: List[dict] = []
 _watchdog_thread: Optional[threading.Thread] = None
+# every LockOrderError raised, also where a serving thread's handler
+# swallowed it: (the two roles, the raising thread's name)
+_order_errors: List[dict] = []
 
 
 def watchdog_trips() -> List[dict]:
@@ -90,12 +93,25 @@ def watchdog_trips() -> List[dict]:
     return list(_watchdog_trips)
 
 
+def order_errors() -> List[dict]:
+    """Lock-order inversions raised so far, on any thread: {held,
+    acquiring, thread}."""
+    return list(_order_errors)
+
+
+def observed_edges() -> List[Tuple[str, str]]:
+    """The (held, acquired) role pairs observed so far, sorted."""
+    with _state_lock:
+        return sorted(_edges)
+
+
 def reset_debug_state() -> None:
     """Forget observed edges/trips — test isolation only."""
     with _state_lock:
         _edges.clear()
         _watchdog_trips.clear()
         _held_now.clear()
+        _order_errors.clear()
 
 
 def _watchdog_secs() -> float:
@@ -222,6 +238,10 @@ class DebugLock:
             if bad:
                 victim = sorted(bad)[0]
                 _, opposite_stack = first_hop[victim]
+                _order_errors.append({
+                    "held": victim, "acquiring": self.name,
+                    "thread": threading.current_thread().name,
+                })
                 current = "".join(traceback.format_stack())
                 raise LockOrderError(
                     f"lock-order inversion: thread holds "

@@ -92,6 +92,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import faults
+from ..analysis.locks import make_lock
 from ..device import DEVICE_FAULT_REASON, is_device_fault
 from ..obs import flightrec
 from ..obs import instruments as obs
@@ -354,7 +355,7 @@ class ContinuousBatcher:
         # client input), all built on first use
         self.tokenizer = tokenizer
         self._json_masks: Optional[jsonmode.JsonMaskCache] = None
-        self._json_masks_lock = threading.Lock()
+        self._json_masks_lock = make_lock("json_masks")
         self._token_table = None
         self._byte_matrix = None  # (mat, lens) shared across mask caches
         self._schema_caches: "OrderedDict[str, jsonschema.SchemaMaskCache]" = OrderedDict()
@@ -368,10 +369,10 @@ class ContinuousBatcher:
         self.device_fault: Optional[BaseException] = None
         self.on_device_fault = None
         self._closed = False
-        self._waiting: "deque[_Live]" = deque()  # guarded by _qlock
-        self._qlock = threading.Lock()
-        self._live: Dict[int, _Live] = {}  # guarded by _lock
-        self._lock = threading.Lock()
+        self._waiting: "deque[_Live]" = deque()  #: guarded_by _qlock
+        self._qlock = make_lock("batcher_queue")
+        self._live: Dict[int, _Live] = {}  #: guarded_by _lock
+        self._lock = make_lock("batcher")
         # the admission in flight, chunk by chunk, and its reserved slot
         # (inactive on the engine until the final chunk)
         self._prefilling: Optional[Tuple[_Live, ChunkedPrefill]] = None

@@ -111,6 +111,7 @@ sequence-sharded prefill.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import logging
@@ -291,7 +292,9 @@ def _numpy_bits(t: torch.Tensor) -> np.ndarray:
     """A numpy view of host tensor ``t``; a bf16 tensor as its uint16 bits
     (numpy has no bfloat16: the host tier's and KVX1's convention)."""
     if t.dtype == torch.bfloat16:
+        # aios: waive(lock-readback): t is host memory (the restore's pinned staging, a spill's landed copy): .numpy() is a view, no device sync
         return t.view(torch.int16).numpy().view(np.uint16)
+    # aios: waive(lock-readback): t is host memory, as above: a view, no device sync
     return t.numpy()
 
 
@@ -477,7 +480,7 @@ class TorchEngine:
         self.buckets = tuple(
             b for b in DEFAULT_BUCKETS if b <= self.max_context
         ) or (self.max_context,)
-        self._lock = threading.Lock()
+        self._lock = make_lock("engine")
         if quantize not in (None, False, "int8", "int4"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
         params = _to_device(params, self.device)
@@ -626,6 +629,8 @@ class TorchEngine:
         self.jump_tokens = 0
         self._init_ticks()
         self._init_draft(draft, cache_dtype)
+        self._spill_lock = make_lock("engine_spill")
+        self._spill_pending = 0  #: guarded_by _spill_lock; bytes staged for the worker
         self._init_host_tier(cfg.prefix_host_bytes if prefix_host_bytes is None
                              else prefix_host_bytes, host_restore_min_pages)
         self._init_devprof()
@@ -768,8 +773,6 @@ class TorchEngine:
         self._obs_restore_hist = None
         self._spill_q: Optional[queue.Queue] = None
         self._spill_thread: Optional[threading.Thread] = None
-        self._spill_lock = make_lock("engine_spill")
-        self._spill_pending = 0  #: guarded_by _spill_lock; bytes staged for the worker
         self.spill_cap_bytes = 0
         # device and host time of the spills the worker has landed (CUDA
         # events; the host copies on the worker's clock), and the most bytes
@@ -892,9 +895,10 @@ class TorchEngine:
     # are devprof.GRAPH_KINDS literals.
 
     def _init_devprof(self) -> None:
+        devprof.track_engine(self)
         self._devprof: Optional[devprof.DevprofLedger] = None
         self._devprof_deferred: List[devprof.Timing] = []
-        self._dp_lock = threading.Lock()  # the deferred tokens only
+        self._dp_lock = make_lock("engine_dp")  # the deferred tokens only
         if not devprof.enabled():
             return
         self._devprof = devprof.DevprofLedger(
@@ -1291,6 +1295,7 @@ class TorchEngine:
         self.active[slot] = True
         self._host_greedy[slot] = temperature < sampling.GREEDY_EPS
         self._host_lengths[slot] = true_len
+        # aios: waive(lock-readback): the admission's one readback stays under the engine lock, as the JAX prefill's int(first) does: _adm_first is a static buffer that the next admission rewrites
         return int(self._adm_first.item())
 
     def start_chunked_prefill(self, slot: int, token_ids: List[int],
@@ -1576,6 +1581,7 @@ class TorchEngine:
         """The restore's pinned staging of at least ``nbytes``, once its
         previous copy to the card has run (a larger one replaces it)."""
         if self._restore_copied is not None:
+            # aios: waive(lock-readback): waits only for the previous restore's copy to the card, which that admission's first-token readback already ordered (the batcher keeps one admission in flight), so it returns at once while serving; the pinned staging is the engine's and is rewritten under its lock
             self._restore_copied.synchronize()
         if self._restore_pinned is None or self._restore_pinned.numel() < nbytes:
             self._restore_pinned = None
@@ -2002,6 +2008,7 @@ class TorchEngine:
         if eager or not self.graphs.enabled:
             return body
         if key not in self.graphs:
+            # aios: waive(graph-warmup): a key warmup did not capture (a spec round, jump bucket or admission shape first asked for later) is captured once here and counted in GraphSet.captures, HealthCheck's <model>.serving.graph_captures, which stays flat while serving after LoadModel
             self._capture(key, body, admission, pool)
         return lambda: self.graphs.replay(key)
 
@@ -2443,6 +2450,7 @@ class TorchEngine:
         Returns (tokens [k, S] on the host, k). Caller holds the lock."""
         key = ("mega", m)
         if key not in self.graphs:
+            # aios: waive(graph-warmup): a bucket warmup did not capture (mega_ticks raised after LoadModel) is captured once here and counted in GraphSet.captures, HealthCheck's <model>.serving.graph_captures
             self._capture_ticks(m)
         tg = self._tick_graphs[key]
         if dtok is not None:
@@ -2450,6 +2458,7 @@ class TorchEngine:
         out = self.graphs.replay(key)
         if dtok is not None:
             dtok.stop()
+        # aios: waive(lock-readback): the tick count k is read back under the engine lock, as the JAX _mega_dispatch does: the host lengths advance by k before the next dispatch stages, and out is the graph's static output, which the next replay rewrites
         host = out.cpu()
         k = int(host[-1])
         build.add_launches(tg.tick_launches, k)
@@ -2533,6 +2542,7 @@ class TorchEngine:
                     dtok.stop()
                 # a copy: the buffer is the next dispatch's, which a
                 # pipelined caller issues before it reads these
+                # aios: waive(lock-readback): the eager twin of _replay_ticks' readback: k and the tokens are read under the engine lock, as the JAX _mega_dispatch does
                 tokens = tg.tokens[:k].to("cpu", copy=True)
             else:
                 tokens, k = self._replay_ticks(m, dtok)
@@ -2858,6 +2868,13 @@ class TorchEngine:
 
     def slot_length(self, slot: int) -> int:
         return int(self._host_lengths[slot])
+
+    @contextlib.contextmanager
+    def quiesced(self):
+        """Hold off this engine's dispatches for the block (its lock): the
+        on-demand profiler starts and stops under it (``devprof``)."""
+        with self._lock:
+            yield
 
     def stats(self) -> Dict[str, float]:
         active = int(self.active.sum())

@@ -36,17 +36,17 @@ chunk and a bucket in any order.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, Hashable
 
 import torch
 
+from ..analysis.locks import make_lock
 from ..ops import build, split
 
 # one capture at a time in the process (the caching allocator's rule); the
 # engines' replays and eager work go on meanwhile
-_capture_lock = threading.Lock()
+_capture_lock = make_lock("graph_capture")
 
 
 class Graph:
@@ -100,6 +100,7 @@ class GraphSet:
         difference is what the captured graphs' pools took."""
         if self.device.type != "cuda":
             return 0
+        # aios: waive(lock-readback): read only around load-time captures (capture_admission, capture_draft), under the capturing engine's lock before it serves: the device must be idle for the reading to be the captures' bytes
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         return torch.cuda.memory_reserved(self.device)
@@ -146,6 +147,7 @@ class GraphSet:
         """Drop every graph (and its private memory) and release the
         workspace they held, once the device is done with them."""
         if self.enabled:
+            # aios: waive(lock-readback): once, at the engine's close, under its lock so that no replay is issued meanwhile: the graphs' memory goes only after the device has run their last replays
             torch.cuda.synchronize(self.device)
         self.graphs.clear()
         if self._holds_workspace:

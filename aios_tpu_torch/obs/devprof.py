@@ -30,7 +30,11 @@ contract: one attribute ``None`` check when it is off. What differs:
   * **Capture.** ``/debug/profile?secs=N`` runs a bounded, one-at-a-time
     ``torch.profiler`` trace (CUDA activity) into
     ``AIOS_TPU_DEVPROF_DUMP_DIR``. The profiler can drop events under load:
-    a capture is a triage aid and feeds no gauge.
+    a capture is a triage aid and feeds no gauge. It starts and stops the
+    profiler only while no engine dispatches (every live engine's lock
+    held, :func:`track_engine`): a stop that raced a CUDA graph replay on a
+    serving thread hung the whole process on the card, the capture thread
+    inside the profiler's stop and the scheduler inside ``replay``.
 
 With devprof on, token streams and dispatch counts are those with it off.
 This module imports no torch when it is imported.
@@ -38,6 +42,7 @@ This module imports no torch when it is imported.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -195,6 +200,32 @@ _reg_lock = threading.Lock()
 def ledgers_for(model: str) -> "weakref.WeakSet[DevprofLedger]":
     with _reg_lock:
         return _LEDGERS.setdefault(model, weakref.WeakSet())
+
+
+# every live engine: a profiler capture starts and stops only while it holds
+# each one's dispatch lock (``quiesced``), so that no replay or launch runs
+# on a serving thread meanwhile
+_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def track_engine(engine) -> None:
+    """Register ``engine`` (an object with a ``quiesced()`` context manager
+    that holds off its dispatches) with the on-demand capture."""
+    with _reg_lock:
+        _ENGINES.add(engine)
+
+
+@contextlib.contextmanager
+def _engines_quiesced():
+    """Hold off every live engine's dispatches for the block: each one's
+    ``quiesced()`` entered in a fixed order (by id), none while another
+    lock of this module is held."""
+    with _reg_lock:
+        engines = sorted(_ENGINES, key=id)
+    with contextlib.ExitStack() as stack:
+        for engine in engines:
+            stack.enter_context(engine.quiesced())
+        yield
 
 
 Cost = Optional[Tuple[float, float]]
@@ -466,7 +497,7 @@ class CaptureDisabled(RuntimeError):
     """AIOS_TPU_DEVPROF_DUMP_DIR is not set (HTTP 403)."""
 
 
-_capture_lock = threading.Lock()  # capture start/stop only, never hot-path
+_capture_lock = make_lock("profile_capture")  # capture start/stop only, never hot-path
 _capture = {"busy": False, "path": "", "started": 0.0, "secs": 0.0,
             "error": ""}
 
@@ -526,8 +557,14 @@ def start_capture(secs: float) -> dict:
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
             os.makedirs(path, exist_ok=True)
-            with profile(activities=activities) as prof:
+            prof = profile(activities=activities)
+            with _engines_quiesced():
+                prof.start()
+            try:
                 time.sleep(secs)
+            finally:
+                with _engines_quiesced():
+                    prof.stop()
             prof.export_chrome_trace(os.path.join(path, "trace.json"))
             log.warning("devprof capture (%.2fs) -> %s", secs, path)
         except Exception as exc:  # noqa: BLE001 - capture must never crash serving

@@ -65,8 +65,10 @@ engine and batcher as the JAX stack reads them: ``AIOS_TPU_DECODE_PIPELINE``
 (the megagraph; its buckets are captured at load) and window+sink
 compression's ``AIOS_TPU_KV_COMPRESS_AFTER``, ``AIOS_TPU_KV_SINK_PAGES`` and
 ``AIOS_TPU_KV_WINDOW_PAGES`` (logged when armed). Each serving knob of the
-JAX stack that the port does not honour yet (``UNPORTED_KNOBS``) and that
-is set logs a warning naming it.
+JAX stack that the port does not honour yet (``UNPORTED_KNOBS``: the
+fleet's, multihost's and the sequence-parallel ones) and that is set logs a
+warning naming it; so does each knob that does not carry over to the port
+(``NOT_CARRIED_KNOBS``: the Pallas and crossover gates), with its reason.
 ``speculative`` turns on speculative decode
 dispatches over either cache (None reads ``AIOS_TPU_SPECULATIVE``). A model
 paired with a draft (``AIOS_TPU_DRAFT_MODEL``, else the config's
@@ -123,6 +125,7 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from ..analysis.locks import make_lock
 from ..device import DEVICE_FAULT_REASON, is_device_fault, resolve_device
 from ..engine import checkpoint as ckpt_mod
 from ..engine import model as model_mod
@@ -157,20 +160,67 @@ PAGE_SIZE = 128
 
 # Serving knobs that the JAX stack honours and the port does not yet: each one
 # that is set logs a warning naming it when a ModelManager is built. A slice
-# that ports a knob deletes it here. A name ending in "*" is a prefix.
-UNPORTED_KNOBS = ("AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH")
+# that ports a knob deletes it here. A name ending in "*" is a prefix. Every
+# row of docs/CONFIG.md is read by the port or named here or in
+# NOT_CARRIED_KNOBS (the analyzer's knob-docs rule).
+UNPORTED_KNOBS = (
+    # multi-card serving and sequence-parallel prefill (parallel/)
+    "AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_SEQ_PREFILL_IMPL",
+    "AIOS_TPU_SEQ_SHARD_KV",
+    # multihost process groups
+    "AIOS_TPU_COORDINATOR", "AIOS_TPU_MULTIHOST", "AIOS_TPU_NUM_PROCESSES",
+    "AIOS_TPU_PROCESS_ID",
+    # the fleet plane (obs/fleet.py, fleet/)
+    "AIOS_TPU_FLEET", "AIOS_TPU_FLEET_PEERS", "AIOS_TPU_FLEET_INTERVAL_SECS",
+    "AIOS_TPU_FLEET_SUSPECT_SECS", "AIOS_TPU_FLEET_DEAD_SECS", "AIOS_TPU_FLEET_SEED_PORT",
+    "AIOS_TPU_FLEET_SCRAPE_TIMEOUT", "AIOS_TPU_FLEET_TARGET",
+    "AIOS_TPU_FLEET_KVX_CHUNK_BYTES", "AIOS_TPU_FLEET_KVX_TIMEOUT_SECS",
+    "AIOS_TPU_FLEET_KVX_BUDGET_BYTES", "AIOS_TPU_FLEET_KVX_GBPS",
+    "AIOS_TPU_FLEET_GPREFIX_MAX", "AIOS_TPU_FLEET_OVERLAP_GAIN",
+    "AIOS_TPU_FLEET_HANDOFF_RETRIES", "AIOS_TPU_FLEET_BREAKER_THRESHOLD",
+    "AIOS_TPU_FLEET_BREAKER_COOLDOWN_SECS", "AIOS_TPU_FLEET_BREAKER_MAX_COOLDOWN_SECS",
+    "AIOS_TPU_FLEET_BREAKER_PROBES", "AIOS_TPU_FLEET_BREAKER_LAT_SECS",
+    "AIOS_TPU_FLEET_DRAIN_TIMEOUT_SECS", "AIOS_TPU_FLEET_DRAIN_PUSH_BYTES",
+)
+
+# Knobs of the JAX stack that do not carry over to the port, each with its
+# reason: they pick between a Pallas kernel and an XLA path, and the port has
+# one hand-written kernel per path and no switch. Each one that is set logs a
+# warning naming it and its reason when a ModelManager is built.
+NOT_CARRIED_KNOBS = {
+    "AIOS_TPU_NO_PALLAS": "it forces the JAX reference kernels; the port has no kernel "
+                          "switch (call a *_reference function by name for the plain path)",
+    "AIOS_TPU_PALLAS_QMM": "it picks the Pallas int8 matmul over XLA's mixed dot; every "
+                           "int8 projection of the port runs its own kernel",
+    "AIOS_TPU_RAGGED_MIN_C": "it is the cache length where the ragged Pallas decode kernel "
+                             "beats XLA's fused read; every decode of the port runs its own "
+                             "kernel",
+    "AIOS_TPU_INT8_RAGGED": "it routes int8-KV decode through the ragged Pallas kernels; "
+                            "the port's int8 decode always runs its own kernels",
+}
 
 
-def unported_knobs_set() -> List[str]:
-    """The names in ``UNPORTED_KNOBS`` that are set (non-empty), sorted."""
+def _set(knobs) -> List[str]:
+    """The names among ``knobs`` that are set (non-empty), sorted; a name
+    ending in "*" is a prefix."""
     found = set()
     for name, value in os.environ.items():
         if not value:
             continue
-        for knob in UNPORTED_KNOBS:
+        for knob in knobs:
             if name == knob or (knob.endswith("*") and name.startswith(knob[:-1])):
                 found.add(name)
     return sorted(found)
+
+
+def unported_knobs_set() -> List[str]:
+    """The names in ``UNPORTED_KNOBS`` that are set (non-empty), sorted."""
+    return _set(UNPORTED_KNOBS)
+
+
+def not_carried_knobs_set() -> List[str]:
+    """The names in ``NOT_CARRIED_KNOBS`` that are set (non-empty), sorted."""
+    return _set(NOT_CARRIED_KNOBS)
 
 
 def _env_int(name: str, least: int) -> Optional[int]:
@@ -414,7 +464,10 @@ class ModelManager:
         for knob in unported_knobs_set():
             log.warning("%s is set but the PyTorch port does not honour it yet; serving "
                         "without it", knob)
-        self._lock = threading.Lock()
+        for knob in not_carried_knobs_set():
+            log.warning("%s is set but does not carry over to the PyTorch port (%s); "
+                        "serving without it", knob, NOT_CARRIED_KNOBS[knob])
+        self._lock = make_lock("model_manager")
         self._loading = threading.local()  # the timings of this thread's load
 
     @property

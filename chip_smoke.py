@@ -337,6 +337,20 @@ tokens draw fresh noise; and device busy and host wall per bucket (512,
 2048) and per 512-row mid chunk are timed both ways, with the host's issue
 time of a mid chunk.
 
+The stack and storm phases (18, 19) run with ``AIOS_TPU_LOCK_DEBUG=1``, set
+before their managers are built (``make_lock`` reads it at construction;
+the module-level locks of the registry are rebuilt for the phase): every
+declared lock of ``aios_tpu_torch.analysis.registry`` is then an
+order-checking ``DebugLock`` under real threads and card traffic, and the
+phase fails on any lock-order inversion (raised on any thread) or any
+lock held past ``LOCK_WATCHDOG_S``.
+
+Every phase runs under a ``faulthandler`` budget (``PHASE_BUDGETS_S``, cut
+to what is left of ``RUN_BUDGET_S``): a phase that hangs dumps every
+thread's Python stack to stderr after the line that names it, and the run
+exits 1 without a result line instead of printing nothing until it is
+killed.
+
 Then one ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase exits non-zero without the result line; so does a machine
@@ -348,7 +362,9 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import functools
+import importlib
 import json
 import logging
 import os
@@ -6939,6 +6955,8 @@ STORM_STEP_DISPATCHES = 512  # one-step dispatches the ledger samples (every 4th
 OBS_WAVE_TOKENS = 129
 OBS_INFER_PAIRS = 16  # 32-token Infers with the interceptors on and off, alternating
 K1_NAME, K3_NAME = "wq_matmul_kernel", "paged_decode_kernel"
+PROFILE_WAIT_S = 60  # past the capture's window, the most /debug/profile may take
+PROFILE_INFER_TIMEOUT_S = 20
 
 
 def _get_json(port: int, path: str):
@@ -7206,20 +7224,26 @@ def _profile_check(stub, port: int, card: str) -> None:
     from aios_tpu_torch.obs import devprof
     from aios_tpu_torch.proto_gen import runtime_pb2
 
+    t0 = time.monotonic()
     status, body = _get_json(port, "/debug/profile?secs=2")
     expect(status == 200 and body.get("profiling"), f"[profile] {status} {body}")
     status2, body2 = _get_json(port, "/debug/profile?secs=2")
     expect(status2 == 409, f"[profile] a second capture answered {status2} {body2}")
     # traffic through the whole window (the profiler may start collecting a
     # while after it answers), a short request every 0.2 s: a few thousand
-    # kernels, not a trace of hundreds of megabytes
-    deadline = time.monotonic() + 120
+    # kernels, not a trace of hundreds of megabytes. The wait is bounded: a
+    # capture still busy PROFILE_WAIT_S after the window fails the phase
+    # with its status
+    deadline = t0 + body["secs"] + PROFILE_WAIT_S
     while devprof.capture_status()["busy"] and time.monotonic() < deadline:
         stub.Infer(runtime_pb2.InferRequest(prompt="profile me", max_tokens=4,
-                                            temperature=0.7), timeout=120)
+                                            temperature=0.7), timeout=PROFILE_INFER_TIMEOUT_S)
         time.sleep(0.2)
     st = devprof.capture_status()
-    expect(not st["busy"] and not st["error"], f"[profile] capture did not finish: {st}")
+    expect(not st["busy"] and not st["error"],
+           f"[profile] capture did not finish within {body['secs'] + PROFILE_WAIT_S:.0f} s "
+           f"of its start: {st}")
+    waited = time.monotonic() - t0
     path = os.path.join(body["path"], "trace.json")
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
@@ -7231,8 +7255,8 @@ def _profile_check(stub, port: int, card: str) -> None:
                f"({len(k3)}) kernel among {len(names)} kernel names")
         return
     log(f"[profile] /debug/profile?secs=2 -> {path} ({os.path.getsize(path)} B, "
-        f"{len(events)} events; a second request 409); kernels named: {k1[0][:60]}..., "
-        f"{k3[0][:60]}...; {card}")
+        f"{len(events)} events, done {waited:.1f} s after the request; a second request "
+        f"409); kernels named: {k1[0][:60]}..., {k3[0][:60]}...; {card}")
 
 
 def _trace_check(m, stub, port: int) -> None:
@@ -8004,14 +8028,73 @@ def _serve_phases(card: str, phases, **manager_kw) -> dict:
     return launches
 
 
-def _phase_clock():
-    """A runner that logs each phase's seconds on the host's clock."""
+# Each phase's faulthandler budget on the host's clock, in seconds: about
+# 1.6 times the most it took in four full runs on an H100 at 700 W, whose
+# totals were 988.7-1128.3 s. A budget is cut to what is left of
+# RUN_BUDGET_S since main() began, so that a hang anywhere ends the run with
+# every thread's stack and exit 1 before the 1200 s limit.
+PHASE_BUDGETS_S = {
+    "device": 60, "build": 120, "kernels": 90, "tinyllama": 120, "mistral": 160,
+    "tinyllama dense": 120, "mistral dense": 190, "gguf": 140, "constrained": 200,
+    "serving": 70, "spec paged": 90, "host tier": 60, "decode loop": 120, "moe": 210,
+    "stack": 120, "storm": 150, "files": 80,
+}
+RUN_BUDGET_S = 1185
+LOCK_WATCHDOG_S = 30  # a lock held longer than this fails a lock-debug phase
+
+
+def _phase_clock(t_start: float):
+    """A runner that logs each phase's seconds on the host's clock, under a
+    faulthandler budget (``PHASE_BUDGETS_S``): past it every thread's
+    Python stack goes to stderr and the process exits 1."""
     def run(name, fn, *a, **kw):
+        left = RUN_BUDGET_S - (time.perf_counter() - t_start)
+        budget = max(min(PHASE_BUDGETS_S[name], left), 1.0)
+        log(f"[chip_smoke] phase {name}: started; stacks dumped and exit 1 past "
+            f"{budget:.0f} s")
+        faulthandler.dump_traceback_later(budget, exit=True)
         t0 = time.perf_counter()
-        out = fn(*a, **kw)
+        try:
+            out = fn(*a, **kw)
+        finally:
+            faulthandler.cancel_dump_traceback_later()
         log(f"[chip_smoke] phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
     return run
+
+
+def _lock_debug(tag: str, fn, *a, **kw):
+    """``fn(*a, **kw)`` with ``AIOS_TPU_LOCK_DEBUG=1``: the locks built
+    meanwhile (``make_lock`` reads it at construction) and the registry's
+    module-level locks, rebuilt for the call and put back after, are
+    order-checking DebugLocks. Fails on any lock-order inversion raised on
+    any thread, or any lock held past ``LOCK_WATCHDOG_S``."""
+    from aios_tpu_torch.analysis import locks, registry
+
+    with _env(AIOS_TPU_LOCK_DEBUG="1", AIOS_TPU_LOCK_WATCHDOG_SECS=LOCK_WATCHDOG_S):
+        trips0, errors0 = len(locks.watchdog_trips()), len(locks.order_errors())
+        edges0 = set(locks.observed_edges())
+        module_locks = []
+        for d in registry.LOCKS:
+            if d.module_level:
+                mod = importlib.import_module(d.module)
+                module_locks.append((mod, d.attr, getattr(mod, d.attr)))
+                setattr(mod, d.attr, locks.make_lock(d.name))
+        try:
+            out = fn(*a, **kw)
+        finally:
+            for mod, attr, lock in module_locks:
+                setattr(mod, attr, lock)
+        trips = locks.watchdog_trips()[trips0:]
+        errors = locks.order_errors()[errors0:]
+    expect(not errors, f"[{tag}] lock-order inversions under AIOS_TPU_LOCK_DEBUG=1: {errors}")
+    expect(not trips, f"[{tag}] locks held past {LOCK_WATCHDOG_S} s: "
+           f"{[(t['lock'], t['held_secs']) for t in trips]}\n{trips[0]['stack'] if trips else ''}")
+    edges = sorted(set(locks.observed_edges()) - edges0)
+    log(f"[{tag}] lock debug on: {len(registry.LOCKS)} declared roles as DebugLocks, no "
+        f"inversion, no lock held past {LOCK_WATCHDOG_S} s; nested acquisitions seen "
+        f"{['->'.join(e) for e in edges]}")
+    return out
 
 
 def main() -> int:
@@ -8019,9 +8102,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; nothing ran",
               file=sys.stderr)
         return 2
+    faulthandler.enable()
     t_start = time.perf_counter()
-    card = phase_device()
-    timed = _phase_clock()
+    timed = _phase_clock(t_start)
+    card = timed("device", phase_device)
     timed("build", phase_build)
     measured = timed("kernels", phase_kernels)
 
@@ -8047,8 +8131,8 @@ def main() -> int:
     host = timed("host tier", phase_host_tier, card)
     loop = timed("decode loop", phase_decode_loop, card)
     moe = timed("moe", phase_moe, card)
-    stack = timed("stack", phase_stack, card)
-    storm = timed("storm", phase_storm, card)
+    stack = timed("stack", _lock_debug, "stack", phase_stack, card)
+    storm = timed("storm", _lock_debug, "storm", phase_storm, card)
     files = timed("files", phase_files, card)
 
     kernels = []

@@ -19,12 +19,14 @@ JAX = ROOT / "aios_tpu"
 PORT = ROOT / "aios_tpu_torch"
 SUBPACKAGES = ("memory", "tools", "gateway", "orchestrator", "agents", "boot", "native",
                "loadgen")
-# the observability plane's host modules, the autoscaler, the fault points
-# and the gRPC plumbing (obs/devprof.py is redesigned for the card, not
-# copied; obs/metrics.py and obs/instruments.py carry the port's own catalog)
+# the observability plane's host modules, the autoscaler, the fault points,
+# the gRPC plumbing and the analyzer's AST substrate (obs/devprof.py is
+# redesigned for the card, not copied; obs/metrics.py and obs/instruments.py
+# carry the port's own catalog; the analyzer's registry and rules are the
+# port's own, held to the JAX analyzer by tests/test_torch_analysis.py)
 MODULES = ("rpc.py", "faults/inject.py", "obs/tracing.py", "obs/interceptors.py",
            "obs/flightrec.py", "obs/slo.py", "obs/tsdb.py", "obs/incidents.py",
-           "obs/http.py", "serving/autoscale.py")
+           "obs/http.py", "serving/autoscale.py", "analysis/core.py")
 # proto stubs and the C++ source: byte for byte, no rewrite
 IDENTICAL = tuple(f"proto_gen/{n}_pb2.py" for n in (
     "common", "runtime", "agent", "api_gateway", "memory", "orchestrator", "tools",
@@ -34,7 +36,7 @@ _WORD = re.compile(r"\baios_tpu\b")
 
 # the port's dev scripts share the tools/ directory; they are not copies
 PORT_ONLY = {"tools/dense_compare.py", "tools/graph_probe.py", "tools/issue_cost.py",
-             "tools/split_sweep.py", "tools/unicode_classes.py"}
+             "tools/split_sweep.py", "tools/storm_probe.py", "tools/unicode_classes.py"}
 
 FLEET_REASON = ("the fleet plane (obs/fleet.py) is not ported: /healthz carries no fleet "
                 "rollup until it is")
@@ -56,6 +58,14 @@ ACCEL_REASON = ("device probe: the port reports the CUDA devices through torch, 
                 "inside the function as JAX imports jax there; no key goes missing")
 
 HUNKS = {
+    "analysis/core.py": [
+        ("Every rule (and the migrated source checks in ``tests/test_obs_lint.py``)\n"
+         "works from the same three primitives so there is ONE way to read the\n"
+         "tree:\n",
+         "Every rule works from the same three primitives so there is ONE way to\n"
+         "read the tree:\n",
+         "the port has no migrated lint tests: its rules are the substrate's only users"),
+    ],
     "obs/flightrec.py": [
         ("dispatch counts are identical recorder ON vs OFF (the PR 6/7 invariant,\n"
          "extended to observability).\n",

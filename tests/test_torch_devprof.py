@@ -313,3 +313,91 @@ def test_megagraph_decode_events_carry_the_jax_fields(torch_params, armed, pipel
     finally:
         b.shutdown()
         eng.close()
+
+
+class _FakeProfile:
+    """Stands in for torch.profiler.profile: records whether every tracked
+    engine was quiesced when the capture started and stopped it."""
+
+    events: list = []
+    engines: list = []
+
+    def __init__(self, activities):
+        pass
+
+    def start(self):
+        self.events.append(("start", [e.held for e in self.engines]))
+
+    def stop(self):
+        self.events.append(("stop", [e.held for e in self.engines]))
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            f.write('{"traceEvents": []}')
+
+
+def _capture_done(timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while devprof.capture_status()["busy"] and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return devprof.capture_status()
+
+
+def test_a_capture_starts_and_stops_the_profiler_with_every_engine_quiesced(
+        monkeypatch, tmp_path):
+    """/debug/profile's capture thread starts and stops the profiler only
+    while it holds every live engine's dispatch lock: on the card a stop
+    that raced a graph replay on a serving thread hung the process (the
+    capture thread in the profiler's stop, the scheduler in ``replay``).
+    The window between them runs with the engines free."""
+    import contextlib
+
+    class Engine:
+        def __init__(self):
+            self.held = False
+
+        @contextlib.contextmanager
+        def quiesced(self):
+            self.held = True
+            try:
+                yield
+            finally:
+                self.held = False
+
+    engines = [Engine(), Engine()]
+    for e in engines:
+        devprof.track_engine(e)
+    _FakeProfile.events, _FakeProfile.engines = [], engines
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setenv("AIOS_TPU_DEVPROF_DUMP_DIR", str(tmp_path))
+    try:
+        out = devprof.start_capture(0.05)
+        st = _capture_done()
+        assert not st["busy"] and not st["error"], st
+        assert _FakeProfile.events == [("start", [True, True]), ("stop", [True, True])]
+        assert not any(e.held for e in engines)
+        assert (tmp_path / out["path"].split("/")[-1] / "trace.json").exists()
+    finally:
+        _FakeProfile.engines = []
+        for e in engines:
+            devprof._ENGINES.discard(e)
+
+
+def test_a_capture_waits_for_a_dispatch_in_flight(torch_params, monkeypatch, tmp_path):
+    """A real engine: while its lock is held (a dispatch in flight) the
+    capture does not start the profiler; it starts once the lock is free."""
+    eng = TorchEngine(TINY_TEST, torch_params, cache_dtype=torch.float32, device="cpu",
+                      num_slots=2, max_context=CTX)
+    _FakeProfile.events, _FakeProfile.engines = [], []
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setenv("AIOS_TPU_DEVPROF_DUMP_DIR", str(tmp_path))
+    try:
+        with eng._lock:
+            devprof.start_capture(0.05)
+            time.sleep(0.3)
+            assert _FakeProfile.events == [] and devprof.capture_status()["busy"]
+        st = _capture_done()
+        assert not st["busy"] and not st["error"], st
+        assert [kind for kind, _ in _FakeProfile.events] == ["start", "stop"]
+    finally:
+        eng.close()

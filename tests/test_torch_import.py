@@ -43,6 +43,8 @@ def test_port_import_pulls_in_no_jax_and_no_aios_tpu():
         "import aios_tpu_torch.engine.moe, aios_tpu_torch.engine.weights\n"
         "import aios_tpu_torch.ops.decode_attention, aios_tpu_torch.ops.verify_attention\n"
         "import aios_tpu_torch.analysis.locks, aios_tpu_torch.faults.inject\n"
+        "import aios_tpu_torch.analysis.core, aios_tpu_torch.analysis.registry\n"
+        "import aios_tpu_torch.analysis.rules, aios_tpu_torch.analysis.__main__\n"
         "import aios_tpu_torch.obs.metrics, aios_tpu_torch.obs.instruments\n"
         "import aios_tpu_torch.obs.flightrec, aios_tpu_torch.serving.pool\n"
         "import aios_tpu_torch.serving.router, aios_tpu_torch.serving.admission\n"
@@ -86,6 +88,23 @@ def test_host_only_subpackages_load_no_torch():
         "from aios_tpu_torch import resolve_device\n"
         "assert 'torch' in sys.modules and callable(resolve_device)\n"
         "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120, env=ONE_THREAD)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_analyzer_loads_no_torch_jax_or_reference():
+    # the engine imports analysis.locks at its own import: the package stays
+    # light, and running it over the tree (as the CLI does) needs no torch
+    code = (
+        "import sys\n"
+        "from aios_tpu_torch.analysis import __main__ as cli, run_analysis\n"
+        "findings = run_analysis()\n"
+        "bad = sorted(n for n in sys.modules if n in ('torch', 'jax', 'aios_tpu')\n"
+        "             or n.startswith(('torch.', 'jax.', 'aios_tpu.')))\n"
+        "print(bad, len(findings))\n"
+        "sys.exit(1 if bad or not findings else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120, env=ONE_THREAD)

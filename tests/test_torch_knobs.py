@@ -1,6 +1,8 @@
 """The serving knobs on the port: each knob of the JAX stack that the port
 does not honour yet logs one warning naming it when a ``ModelManager`` is
-built, the honoured ones log none (the decode loop's six change the engine
+built, and so does each knob that does not carry over, with its reason;
+every ``AIOS_TPU_*`` row of ``docs/CONFIG.md`` is read by the port or is one
+of those; the honoured ones log none (the decode loop's six change the engine
 and the batcher that LoadModel builds, as in the JAX stack), and
 ``AIOS_TPU_SAMPLE_POOL`` sizes the
 sampler's candidate pool with the JAX package's errors, read once when an
@@ -11,6 +13,7 @@ import ast
 import logging
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -39,7 +42,21 @@ DECODE_LOOP = {"AIOS_TPU_DECODE_PIPELINE": "1", "AIOS_TPU_UNIFIED_STEP": "1",
 # the SLO autoscaler's knobs, honoured since serving/autoscale.py was ported
 AUTOSCALE = {"AIOS_TPU_AUTOSCALE": "1", "AIOS_TPU_AUTOSCALE_MAX_REPLICAS": "2",
              "AIOS_TPU_AUTOSCALE_UP_BURN": "1.5", "AIOS_TPU_AUTOSCALE_COOLDOWN_SECS": "5"}
-UNPORTED = ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH"]
+# multi-card, sequence-parallel, multihost and fleet knobs: they wait for
+# the ports of parallel/ and of the fleet plane
+FLEET = ["AIOS_TPU_FLEET"] + [f"AIOS_TPU_FLEET_{k}" for k in (
+    "PEERS", "INTERVAL_SECS", "SUSPECT_SECS", "DEAD_SECS", "SEED_PORT", "SCRAPE_TIMEOUT",
+    "TARGET", "KVX_CHUNK_BYTES", "KVX_TIMEOUT_SECS", "KVX_BUDGET_BYTES", "KVX_GBPS",
+    "GPREFIX_MAX", "OVERLAP_GAIN", "HANDOFF_RETRIES", "BREAKER_THRESHOLD",
+    "BREAKER_COOLDOWN_SECS", "BREAKER_MAX_COOLDOWN_SECS", "BREAKER_PROBES",
+    "BREAKER_LAT_SECS", "DRAIN_TIMEOUT_SECS", "DRAIN_PUSH_BYTES")]
+UNPORTED = ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_SEQ_PREFILL_IMPL",
+            "AIOS_TPU_SEQ_SHARD_KV", "AIOS_TPU_COORDINATOR", "AIOS_TPU_MULTIHOST",
+            "AIOS_TPU_NUM_PROCESSES", "AIOS_TPU_PROCESS_ID"] + FLEET
+# the Pallas and crossover gates, whose JAX paths the port has no twin for
+NOT_CARRIED = ["AIOS_TPU_NO_PALLAS", "AIOS_TPU_PALLAS_QMM", "AIOS_TPU_RAGGED_MIN_C",
+               "AIOS_TPU_INT8_RAGGED"]
+NOT_CARRIED_SAYS = "does not carry over to the PyTorch port"
 HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_MIN_PAGES": "2",
             "AIOS_TPU_SAMPLE_POOL": "16", "AIOS_TPU_REPLICAS": "2",
             "AIOS_TPU_PREFIX_RADIX": "0", "AIOS_TPU_PREFIX_CACHE": "1",
@@ -150,8 +167,63 @@ def test_port_imports_no_ml_dtypes():
 
 def test_decode_loop_knobs_are_honoured_not_listed():
     assert not set(DECODE_LOOP) & set(model_manager.UNPORTED_KNOBS)
-    assert sorted(model_manager.UNPORTED_KNOBS) == sorted(
-        ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH"])
+    assert sorted(model_manager.UNPORTED_KNOBS) == sorted(UNPORTED)
+
+
+def _knob_strings(tree):
+    pattern = re.compile(r"AIOS_TPU_[A-Z0-9_]+")
+    return {n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and pattern.fullmatch(n.value)}
+
+
+def test_every_config_knob_is_read_warned_or_not_carried():
+    """Each AIOS_TPU_* row of docs/CONFIG.md is read somewhere in the port,
+    or warns when set (UNPORTED_KNOBS), or is declared not to carry over
+    with a one-line reason (NOT_CARRIED_KNOBS); the groups do not overlap
+    and name only rows of the document."""
+    doc = set(re.findall(r"AIOS_TPU_[A-Z0-9_]+", (ROOT / "docs/CONFIG.md").read_text()))
+    declared = {"UNPORTED_KNOBS", "NOT_CARRIED_KNOBS"}
+    read = set()
+    for path in sorted((ROOT / "aios_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        if path.name == "model_manager.py":
+            tree.body = [n for n in tree.body if not (
+                isinstance(n, ast.Assign) and any(
+                    isinstance(t, ast.Name) and t.id in declared for t in n.targets))]
+        read |= _knob_strings(tree)
+    unported, not_carried = set(model_manager.UNPORTED_KNOBS), set(
+        model_manager.NOT_CARRIED_KNOBS)
+    assert sorted(not_carried) == sorted(NOT_CARRIED)
+    assert not unported & not_carried
+    assert (unported | not_carried) <= doc
+    assert not (not_carried & read), "a knob declared not to carry over is read"
+    assert doc - read - unported - not_carried == set()
+    assert sorted(doc - read) == sorted(set(UNPORTED + NOT_CARRIED) - read)
+    for knob, reason in model_manager.NOT_CARRIED_KNOBS.items():
+        assert reason.strip() and "\n" not in reason, knob
+
+
+def test_fleet_knob_warns_once_on_a_cpu_manager(clean_env, caplog):
+    clean_env.setenv("AIOS_TPU_FLEET", "1")
+    with caplog.at_level(logging.WARNING, logger=LOGGER):
+        ModelManager(num_slots=2, device="cpu")
+    got = [m for m in (r.getMessage() for r in caplog.records if r.name == LOGGER)
+           if "AIOS_TPU_FLEET" in m]
+    assert got == ["AIOS_TPU_FLEET is set but the PyTorch port does not honour it yet; "
+                   "serving without it"]
+
+
+@pytest.mark.parametrize("knob", NOT_CARRIED)
+def test_each_not_carried_knob_warns_once_with_its_reason(clean_env, caplog, knob):
+    clean_env.setenv(knob, "1")
+    with caplog.at_level(logging.WARNING, logger=LOGGER):
+        ModelManager(num_slots=2, device="cpu")
+    got = [r.getMessage() for r in caplog.records
+           if r.name == LOGGER and NOT_CARRIED_SAYS in r.getMessage()]
+    assert got == [f"{knob} is set but {NOT_CARRIED_SAYS} "
+                   f"({model_manager.NOT_CARRIED_KNOBS[knob]}); serving without it"]
+    assert _warnings(caplog) == []
 
 
 def _load(monkeypatch, env, caplog, level=logging.INFO):
