@@ -82,6 +82,23 @@ LOCKS: Tuple[LockDecl, ...] = (
     # autoscale: pure bookkeeping (hold counters, action journal, the
     # added-engine list); engine builds and pool mutations run outside
     LockDecl("autoscale", f"{_S}.autoscale", "AutoscaleController", "_lock"),
+    # fleet: pure bookkeeping (member table, transition journal, peer
+    # set); announces/scrapes (urllib) and metric/recorder emission for
+    # state edges always run outside it
+    LockDecl("fleet", f"{_O}.fleet", "FleetRegistry", "_lock"),
+    # handoff: cancel/terminal flags and the live local-handle ref on a
+    # disaggregated stream; the transfer RPCs themselves (push, fetch,
+    # the handoff stream) always run outside it
+    LockDecl("handoff", "aios_tpu_torch.fleet.disagg", "HandoffHandle", "_lock"),
+    # quarantine: per-peer breaker bookkeeping (EWMAs, state, probe
+    # budget); the cross-host calls whose outcomes feed it always run
+    # outside, and metric/recorder emission for state edges happens
+    # after release (no quarantine->recorder lock edge)
+    LockDecl("quarantine", "aios_tpu_torch.fleet.breaker", "BreakerBoard", "_lock"),
+    # drain: the phase flag and the one-shot worker handle; the drain
+    # protocol itself (pool drain, kvx pushes, the leaving announce)
+    # runs on its worker thread outside the lock
+    LockDecl("drain", "aios_tpu_torch.fleet.drain", "DrainCoordinator", "_lock"),
     # tsdb: the series map and per-series ring/wheel deques; registry
     # reads (which take metric locks) run before it, metric emission
     # after release; queries copy points under it and aggregate outside
@@ -171,6 +188,9 @@ CONTEXT_FNS: Dict[Tuple[str, str], Tuple[str, ...]] = {
     # ring accessor contract: only FlightRecorder.finish calls it, under
     # the recorder lock (the lazy setdefault would race otherwise)
     (f"{_O}.flightrec", "FlightRecorder._ring"): ("recorder",),
+    # journal appends happen inside the state-transition critical
+    # sections of _observe/tick (see _journal_append's comment)
+    (f"{_O}.fleet", "FleetRegistry._journal_append"): ("fleet",),
 }
 
 # hook attributes whose call target is registered dynamically:

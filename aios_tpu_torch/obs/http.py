@@ -16,16 +16,24 @@ Routes:
     payload's status is not ``ok`` — a degraded service or an SLO
     breach takes the replica out of LB rotation, without the process
     kill a liveness probe would cause;
-  * ``/metrics/fleet``, ``/fleet/members``, ``/fleet/announce``,
-    ``/fleet/drain``, ``/debug/trace/fleet`` and ``/debug/tsdb/fleet``
-    — the fleet plane's routes, which the port does not carry yet: each
-    answers 404 as the JAX endpoint does while the fleet plane is not
-    armed;
+  * ``/metrics/fleet`` — federation: the union of every live fleet
+    member's /metrics with a ``host`` label injected (404 until
+    obs/fleet.py is armed);
+  * ``/fleet/members`` — the fleet membership table + transition
+    journal (JSON; what fleetctl renders);
+  * ``/fleet/announce`` — POST: one member's heartbeat descriptor in,
+    ours + known peers back (the membership gossip hop);
+  * ``/fleet/drain`` — POST: start this host's graceful drain
+    (fleet/drain.py; 202 + current phase, ``?timeout=S`` bounds the
+    in-flight wait; ``fleetctl drain`` drives it);
   * ``/debug/requests``  — recent flight-recorder timelines (JSON;
     ``?model=&limit=&events=0&trace=<id>``);
   * ``/debug/trace``     — the same timelines as Chrome trace-event /
     Perfetto JSON (``?model=&limit=``, or ``?snapshot=<id>`` to render a
     frozen anomaly snapshot);
+  * ``/debug/trace/fleet`` — one trace id stitched ACROSS the fleet:
+    matching timelines fetched from every live peer's recorder, merged
+    into per-host Chrome-trace lanes (``?trace=<id>``);
   * ``/debug/spans``     — the finished-span ring (``?name=&limit=``);
   * ``/debug/slo``       — per-model objective evaluation + per-tenant
     breakdown;
@@ -40,6 +48,8 @@ Routes:
   * ``/debug/tsdb``      — the black-box time-series ring
     (``?name=&verb=&window=&match=k:v``; stats when no name; 404
     until ``AIOS_TPU_TSDB`` arms obs/tsdb.py);
+  * ``/debug/tsdb/fleet`` — the same query answered by every live
+    fleet member, keyed by host (404 until fleet is armed);
   * ``/debug/incidents`` — frozen incident bundles (``?id=`` for one
     full bundle, metadata list otherwise; 404 until obs/incidents.py
     is armed);
@@ -116,7 +126,7 @@ def _debug_response(
     because the obs package __init__ imports THIS module before them
     (they are package-level imports everywhere else — every process
     importing aios_tpu_torch.obs has them loaded)."""
-    from . import devprof, flightrec, incidents, slo, tracing
+    from . import devprof, fleet, flightrec, incidents, slo, tracing
     from . import tsdb as tsdb_mod
 
     def q(name: str, default: str = "") -> str:
@@ -138,8 +148,11 @@ def _debug_response(
             ],
         })
     elif path == "/debug/tsdb/fleet":
-        body = json.dumps({"error": "fleet telemetry not armed"})
-        status = 404
+        if fleet.FLEET is None:
+            body = json.dumps({"error": "fleet telemetry not armed"})
+            status = 404
+        else:
+            body = json.dumps(fleet.FLEET.federate_tsdb(query))
     elif path == "/debug/tsdb":
         payload, status = tsdb_mod.handle_query(query)
         body = json.dumps(payload)
@@ -188,8 +201,16 @@ def _debug_response(
             ],
         })
     elif path == "/debug/trace/fleet":
-        body = json.dumps({"error": "fleet telemetry not armed"})
-        status = 404
+        if fleet.FLEET is None:
+            body = json.dumps({"error": "fleet telemetry not armed"})
+            status = 404
+        elif not q("trace"):
+            body = json.dumps({"error": "trace id required (?trace=<id>)"})
+            status = 400
+        else:
+            body = json.dumps(fleet.FLEET.stitch(
+                q("trace"), limit=qint("limit", 64)
+            ))
     elif path == "/debug/trace":
         snap_id = qint("snapshot", 0)
         if snap_id:
@@ -307,10 +328,30 @@ def start_metrics_server(
             if path == "/metrics":
                 body = reg.render().encode("utf-8")
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
-            elif path in ("/metrics/fleet", "/fleet/members"):
-                body = b'{"error":"fleet telemetry not armed"}'
+            elif path == "/metrics/fleet":
+                from . import fleet
+
+                if fleet.FLEET is None:
+                    body = b'{"error":"fleet telemetry not armed"}'
+                    ctype = "application/json"
+                    status = 404
+                else:
+                    body = fleet.FLEET.federate().encode("utf-8")
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+            elif path == "/fleet/members":
+                from . import fleet
+
+                if fleet.FLEET is None:
+                    body = b'{"error":"fleet telemetry not armed"}'
+                    status = 404
+                else:
+                    body = json.dumps({
+                        "self": fleet.FLEET.identity,
+                        "members": fleet.FLEET.members(),
+                        "journal": fleet.FLEET.journal(),
+                        "summary": fleet.FLEET.health_summary(),
+                    }).encode("utf-8")
                 ctype = "application/json"
-                status = 404
             elif path == "/livez":
                 # pure liveness: always 200 while the process answers.
                 # Point k8s livenessProbe HERE — /healthz 503s on SLO
@@ -373,16 +414,75 @@ def start_metrics_server(
             self.wfile.write(body)
 
         def do_POST(self):  # noqa: N802 - BaseHTTPRequestHandler API
+            from . import fleet
+
             parsed = urlparse(self.path)
             if parsed.path == "/fleet/drain":
-                self.send_error(
-                    404, "drain coordinator not armed on this host"
-                )
+                # graceful drain trigger (fleet/drain.py; fleetctl drain
+                # drives it): 202 — the protocol runs on a worker thread
+                from ..fleet import drain
+
+                if drain.COORD is None:
+                    self.send_error(
+                        404, "drain coordinator not armed on this host"
+                    )
+                    return
+                q = parse_qs(parsed.query)
+                try:
+                    timeout_s = float(q["timeout"][0]) if "timeout" in q \
+                        else None
+                except ValueError:
+                    timeout_s = None
+                phase = drain.request_drain(timeout_s)
+                body = json.dumps({
+                    "phase": phase,
+                    "host": fleet.FLEET.identity["host"]
+                    if fleet.FLEET is not None else "",
+                }).encode("utf-8")
+                self.send_response(202)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
                 return
             if parsed.path != "/fleet/announce":
                 self.send_error(404)
                 return
-            self.send_error(404, "fleet telemetry not armed")
+            if fleet.FLEET is None:
+                self.send_error(404, "fleet telemetry not armed")
+                return
+            try:
+                n = min(int(self.headers.get("Content-Length", 0)),
+                        4 << 20)
+                desc = json.loads(self.rfile.read(n).decode("utf-8"))
+                if not isinstance(desc, dict):
+                    raise ValueError("announce body must be an object")
+                # the server side of a seeded per-edge partition
+                # (faults/net.py): the REPLY travels the self->announcer
+                # edge — a fired one-way partition still folds the
+                # peer's descriptor (their bytes reached us) but
+                # withholds the reply; a full partition refuses both
+                from ..faults import net
+
+                fold, reply = net.gate_announce(str(desc.get("host", "")))
+                if not fold:
+                    self.send_error(503, "announce refused: partitioned")
+                    return
+                reply_body = fleet.FLEET.receive(desc)
+                if not reply:
+                    self.send_error(503, "announce reply withheld")
+                    return
+                body = json.dumps(reply_body).encode("utf-8")
+                status = 200
+            except Exception as exc:  # noqa: BLE001 - a malformed
+                # announce must not take down the exposition endpoint
+                body = json.dumps({"error": repr(exc)[:200]}).encode("utf-8")
+                status = 400
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
         def log_message(self, *args):  # scrapes must not spam stderr
             pass
@@ -424,44 +524,16 @@ def maybe_start_metrics_server(
         port=metrics_port, host=host, health_fn=health_fn
     )
     # the service name + ACTUAL port in one startup line: with
-    # AIOS_<SVC>_METRICS_PORT=0 this log (plus /healthz) is how anything
-    # finds the endpoint
+    # AIOS_<SVC>_METRICS_PORT=0 this log (plus /healthz and the
+    # fleet announce) is how anything finds the endpoint
     log.info("%s metrics endpoint bound on port %d", service_name,
              bound)
-    from . import incidents, tsdb
+    from . import fleet, incidents, tsdb
 
-    stamp_process_info(service_name)
+    fleet.maybe_start(service_name, bound, host=host)
     # the history planes ride the same arming pass: every real
     # serving process comes through here, and both are env-gated
     # no-ops (module global stays None) unless asked for
     tsdb.maybe_start()
     incidents.maybe_start()
     return server, bound
-
-
-def process_identity(role: str = "") -> dict:
-    """The process's identity on the ``aios_tpu_process_info`` gauge: host
-    id (AIOS_TPU_FLEET_HOST, else hostname:pid), role (AIOS_TPU_FLEET_ROLE,
-    else the service name), rank 0 (one process per host until the fleet
-    plane is ported) and the package version."""
-    import socket
-
-    from .. import __version__
-
-    return {
-        "host": os.environ.get("AIOS_TPU_FLEET_HOST", "")
-        or f"{socket.gethostname()}:{os.getpid()}",
-        "role": os.environ.get("AIOS_TPU_FLEET_ROLE", "") or role or "service",
-        "rank": "0",
-        "version": __version__,
-    }
-
-
-def stamp_process_info(role: str = "") -> dict:
-    """Set the ``aios_tpu_process_info`` info-gauge (value 1, identity in
-    labels) and return the identity."""
-    from . import instruments
-
-    ident = process_identity(role)
-    instruments.PROCESS_INFO.labels(**ident).set(1.0)
-    return ident

@@ -428,7 +428,82 @@ INCIDENTS_SUPPRESSED = Counter(
     ("cause",),
 )
 
-# -- process identity (stamped by every metrics endpoint, obs/http.py) -------
+# -- fleet telemetry plane (obs/fleet.py, docs/OBSERVABILITY.md) -----------
+# Every series is labeled (host, role) — host ids are one-per-process
+# (bounded by fleet size, never per-request), and the transitions
+# counter's ``state`` label is the CLOSED fleet.MEMBER_STATES enum
+# (up|suspect|dead); the registry pre-registers every (host, role,
+# state) child by iterating the tuple when a member is first seen (the
+# autoscale/SLO registration pattern).
+
+FLEET_MEMBER_UP = Gauge(
+    "aios_tpu_fleet_member_up_total",
+    "1 while the member's heartbeat is fresh, 0 once the failure "
+    "detector marks it suspect/dead (the fleet 'up' boolean, per host "
+    "and role)",
+    ("host", "role"),
+)
+FLEET_TRANSITIONS = Counter(
+    "aios_tpu_fleet_member_transitions_total",
+    "Membership state-machine edges by destination state (state in the "
+    "closed fleet.MEMBER_STATES enum: up|suspect|dead; every edge also "
+    "lands in the transition journal and on the fleet recorder lane)",
+    ("host", "role", "state"),
+)
+FLEET_SCRAPE_FAILURES = Counter(
+    "aios_tpu_fleet_scrape_failures_total",
+    "Federation/stitch fetches of a live member's endpoint that failed "
+    "(the host drops out of that /metrics/fleet response — absence plus "
+    "this counter is the signal)",
+    ("host", "role"),
+)
+FLEET_KVX_PAGES = Counter(
+    "aios_tpu_fleet_kvx_pages_total",
+    "HostPageStore entries shipped over the fleet transfer plane, by "
+    "direction (closed kvx.KVX_DIRECTIONS enum: push = prefill host "
+    "streaming pages out, pull = decode host fetching on miss)",
+    ("model", "direction"),
+)
+FLEET_KVX_BYTES = Counter(
+    "aios_tpu_fleet_kvx_bytes_total",
+    "Payload bytes shipped over the fleet transfer plane, by direction "
+    "(same closed direction enum as the pages counter; packed wire "
+    "bytes, crc envelopes excluded)",
+    ("model", "direction"),
+)
+FLEET_KVX_FAILURES = Counter(
+    "aios_tpu_fleet_kvx_failures_total",
+    "Transfers that failed and fell back to local prefill, by cause "
+    "(closed kvx.KVX_FAIL_CAUSES enum — crc_mismatch is the receiving "
+    "end of the verified-at-both-ends contract rejecting a payload)",
+    ("model", "cause"),
+)
+FLEET_ROUTE = Counter(
+    "aios_tpu_fleet_route_total",
+    "Fleet-level routing decisions by reason (closed "
+    "router.FLEET_ROUTE_REASONS enum: the sticky -> overlap -> "
+    "least-loaded ladder extended fleet-wide, plus the disagg handoff "
+    "outcomes)",
+    ("model", "reason"),
+)
+FLEET_PEER_BREAKER = Gauge(
+    "aios_tpu_fleet_peer_breaker_state_total",
+    "Per-peer circuit-breaker state as an index into the closed "
+    "breaker.BREAKER_STATES enum (0=closed, 1=open, 2=half_open; "
+    "anything non-zero means the peer is quarantined — routed around "
+    "until consecutive successful probes clear it). host is the "
+    "OBSERVING side of the edge",
+    ("host", "peer"),
+)
+FLEET_ANNOUNCE_FAILURES = Counter(
+    "aios_tpu_fleet_announce_failures_total",
+    "Heartbeat announces that never got a reply, per peer address — "
+    "a climbing single-peer count with members still up is the "
+    "asymmetric-partition signature (RUNBOOK §11)",
+    ("peer",),
+)
+
+# -- process identity (obs/fleet.py stamp, every metrics endpoint) ---------
 
 PROCESS_INFO = Gauge(
     "aios_tpu_process_info",

@@ -311,7 +311,14 @@ flightrec.RECORDER.add_listener(ENGINE.observe)
 def annotate_health(payload: dict) -> dict:
     """Fold the SLO view into a /healthz payload (obs/http.py calls this
     on every probe): adds the ``slo`` section when samples exist and
-    downgrades ``status`` to ``degraded`` on any active breach."""
+    downgrades ``status`` to ``degraded`` on any active breach. When the
+    fleet telemetry plane is armed (obs/fleet.py), the fleet rollup —
+    member counts by state, worst-burn host, per-objective fleet
+    attainment — rides the same probe as a ``fleet`` section."""
+    from . import fleet
+
+    if fleet.FLEET is not None:
+        payload.setdefault("fleet", fleet.FLEET.health_summary())
     h = ENGINE.health()
     if not h:
         return payload

@@ -8,6 +8,7 @@ from . import agent_pb2
 from . import tools_pb2
 from . import api_gateway_pb2
 from . import memory_pb2
+from . import fleet_pb2
 
 __all__ = [
     "common_pb2",
@@ -17,4 +18,5 @@ __all__ = [
     "tools_pb2",
     "api_gateway_pb2",
     "memory_pb2",
+    "fleet_pb2",
 ]

@@ -157,6 +157,73 @@ class _FaultUnavailableInterceptor(grpc.ServerInterceptor):
         return handler  # stream-request cardinalities: not injected
 
 
+class _NetFaultClientInterceptor(
+    grpc.UnaryUnaryClientInterceptor,
+    grpc.UnaryStreamClientInterceptor,
+    grpc.StreamUnaryClientInterceptor,
+    grpc.StreamStreamClientInterceptor,
+):
+    """Chaos hook (docs/FAULTS.md "Per-edge network faults"): every
+    channel this module builds carries one of these, so KVX, Handoff,
+    and every other cross-host RPC traverse the same seeded per-edge
+    fault surface as the fleet HTTP helpers. A fired partition raises
+    :class:`aios_tpu_torch.faults.net.NetFaultRefused` (an UNAVAILABLE-coded
+    grpc.RpcError) before the wire; a fired ``net.drop_after`` lets a
+    unary-stream call start and severs it after ``after_msgs``
+    messages. A no-op — one global None check — unless a fault schedule
+    is armed."""
+
+    def __init__(self, address: str) -> None:
+        self._address = address
+
+    def intercept_unary_unary(self, continuation, client_call_details,
+                              request):
+        from . import faults
+
+        if faults.active():
+            from .faults import net
+
+            net.check_send(self._address, "rpc")
+        return continuation(client_call_details, request)
+
+    def intercept_unary_stream(self, continuation, client_call_details,
+                               request):
+        from . import faults
+
+        if not faults.active():
+            return continuation(client_call_details, request)
+        from .faults import net
+
+        net.check_send(self._address, "rpc")
+        return net.sever_stream(
+            self._address, continuation(client_call_details, request)
+        )
+
+    def intercept_stream_unary(self, continuation, client_call_details,
+                               request_iterator):
+        from . import faults
+
+        if faults.active():
+            from .faults import net
+
+            net.check_send(self._address, "rpc")
+        return continuation(client_call_details, request_iterator)
+
+    def intercept_stream_stream(self, continuation, client_call_details,
+                                request_iterator):
+        from . import faults
+
+        if not faults.active():
+            return continuation(client_call_details, request_iterator)
+        from .faults import net
+
+        net.check_send(self._address, "rpc")
+        return net.sever_stream(
+            self._address,
+            continuation(client_call_details, request_iterator),
+        )
+
+
 def create_server(
     max_workers: int = 16, options: Tuple[Tuple[str, Any], ...] | None = None
 ) -> grpc.Server:
@@ -196,4 +263,9 @@ def insecure_channel(address: str) -> grpc.Channel:
         from .obs.interceptors import intercept_client_channel
 
         channel = intercept_client_channel(channel)
-    return channel
+    # the net-fault interceptor goes OUTERMOST: a refused send never
+    # happened, so it must not count on the client rpc_* metrics — the
+    # caller's recovery path (and the faults journal) carry the evidence
+    return grpc.intercept_channel(
+        channel, _NetFaultClientInterceptor(address)
+    )

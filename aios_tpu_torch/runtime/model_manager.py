@@ -170,17 +170,6 @@ UNPORTED_KNOBS = (
     # multihost process groups
     "AIOS_TPU_COORDINATOR", "AIOS_TPU_MULTIHOST", "AIOS_TPU_NUM_PROCESSES",
     "AIOS_TPU_PROCESS_ID",
-    # the fleet plane (obs/fleet.py, fleet/)
-    "AIOS_TPU_FLEET", "AIOS_TPU_FLEET_PEERS", "AIOS_TPU_FLEET_INTERVAL_SECS",
-    "AIOS_TPU_FLEET_SUSPECT_SECS", "AIOS_TPU_FLEET_DEAD_SECS", "AIOS_TPU_FLEET_SEED_PORT",
-    "AIOS_TPU_FLEET_SCRAPE_TIMEOUT", "AIOS_TPU_FLEET_TARGET",
-    "AIOS_TPU_FLEET_KVX_CHUNK_BYTES", "AIOS_TPU_FLEET_KVX_TIMEOUT_SECS",
-    "AIOS_TPU_FLEET_KVX_BUDGET_BYTES", "AIOS_TPU_FLEET_KVX_GBPS",
-    "AIOS_TPU_FLEET_GPREFIX_MAX", "AIOS_TPU_FLEET_OVERLAP_GAIN",
-    "AIOS_TPU_FLEET_HANDOFF_RETRIES", "AIOS_TPU_FLEET_BREAKER_THRESHOLD",
-    "AIOS_TPU_FLEET_BREAKER_COOLDOWN_SECS", "AIOS_TPU_FLEET_BREAKER_MAX_COOLDOWN_SECS",
-    "AIOS_TPU_FLEET_BREAKER_PROBES", "AIOS_TPU_FLEET_BREAKER_LAT_SECS",
-    "AIOS_TPU_FLEET_DRAIN_TIMEOUT_SECS", "AIOS_TPU_FLEET_DRAIN_PUSH_BYTES",
 )
 
 # Knobs of the JAX stack that do not carry over to the port, each with its
@@ -679,7 +668,8 @@ class ModelManager:
                  type(engine.prefix_index).__name__ if engine.prefix_index else "off",
                  f"{engine.host_store.max_bytes} B, device staging up to "
                  f"{engine.host_staging_bytes()} B, restore floor "
-                 f"{engine.host_restore_min_pages} page(s)" if engine.host_store else "off",
+                 f"{engine.host_restore_min_pages} page(s)"
+                 if engine.host_store is not None else "off",
                  managed.batcher.prefill_chunk or "off", managed.batcher.speculative,
                  "/".join(managed.batcher.spec_proposers),
                  draft.cfg.name if draft is not None else "none",

@@ -30,8 +30,14 @@ The port of ``aios_tpu/runtime/service.py`` for the main path:
     and ``<model>.slo`` the SLO engine's windowed attainment;
   * ``serve(metrics_port=...)`` (or ``AIOS_RUNTIME_METRICS_PORT``) starts the
     /metrics, /healthz and /debug endpoint, whose /healthz folds the SLO
-    view in (503 on a breach).
-The fleet plane is not ported yet.
+    view in (503 on a breach);
+  * the fleet plane: ``aios.fleet.KvTransfer`` (Fetch, Push, Handoff) rides
+    the same gRPC server, every submit goes through the data plane's rung
+    (``fleet.disagg.route_submit``: exactly ``m.submit`` while the plane is
+    disarmed), and on a configured fleet (``AIOS_TPU_FLEET``,
+    ``AIOS_TPU_FLEET_PEERS`` or ``AIOS_TPU_FLEET_ROLE``) the heartbeat
+    carries the pools' stats, the transfer endpoint and the prefix digest,
+    and the handoff rung and the graceful drain are armed.
 """
 
 from __future__ import annotations
@@ -48,12 +54,15 @@ from .. import rpc
 from ..device import DEVICE_FAULT_REASON, DeviceFault
 from ..engine.batching import Request
 from ..engine.tokenizer import render_chat
-from ..obs import devprof, flightrec, slo, tracing
+from ..fleet import disagg as fleet_disagg
+from ..fleet import drain as fleet_drain
+from ..fleet import gprefix as fleet_gprefix
+from ..obs import devprof, fleet, flightrec, slo, tracing
 from ..obs import instruments as obs
 from ..obs.http import maybe_start_metrics_server
 from ..proto_gen import common_pb2, runtime_pb2
 from ..serving import AdmissionError, tenant_of
-from ..services import RUNTIME, AIRuntimeServicer, service_address
+from ..services import KVTRANSFER, RUNTIME, AIRuntimeServicer, service_address
 from .model_manager import ManagedModel, ModelManager, json_mode_forced
 
 log = logging.getLogger("aios.torch.runtime")
@@ -258,7 +267,11 @@ class RuntimeService(AIRuntimeServicer):
         if remaining is not None and remaining < 3600 * 24 * 365:
             deadline_s = remaining
         try:
-            handle = m.submit(req, tenant=tenant, deadline_s=deadline_s)
+            # the fleet data plane's rung: exactly m.submit while the plane
+            # is disarmed; on a prefill-role host the handle hands the
+            # stream to a decode host after the first token
+            handle = fleet_disagg.route_submit(m, req, tenant=tenant,
+                                               deadline_s=deadline_s)
         except AdmissionError as e:
             # shed: a backoff hint instead of an unbounded queue; a cost no
             # bucket refill can cover is permanent, so no retry is invited
@@ -330,8 +343,29 @@ def serve(address: Optional[str] = None, manager: Optional[ModelManager] = None,
     server = rpc.create_server()
     service = RuntimeService(manager)
     rpc.add_to_server(RUNTIME, service, server)
+    # the fleet transfer plane rides the same server, registered always
+    # (answering Fetch/Push/Handoff on a solo host is harmless), so arming
+    # the fleet later needs no restart
+    rpc.add_to_server(KVTRANSFER, fleet_disagg.DisaggService(service.manager), server)
     port = server.add_insecure_port(address)
     server.start()
+    # pool stats ride every fleet heartbeat, registered before the metrics
+    # endpoint so that its registry's first announce carries them
+    fleet.add_stats_provider(lambda: {
+        m.name: m.pool.heartbeat_stats()
+        for m in service.manager.ready_models()
+        if m.pool is not None
+    })
+    # this process's transfer endpoint and prefix digest on the heartbeat
+    host = address.rsplit(":", 1)[0].strip("[]")
+    reach = "127.0.0.1" if host in ("", "0.0.0.0", "::", "localhost") else host
+    fleet.set_transfer_addr(f"{reach}:{port}")
+    fleet.add_digest_provider(fleet_gprefix.provider(service.manager))
+    # the routing rung and the drain arm only on a configured fleet (or an
+    # explicit role): a solo host keeps the plain submit path
+    if fleet.FleetConfig().active() or os.environ.get("AIOS_TPU_FLEET_ROLE"):
+        fleet_disagg.arm(service.manager)
+        fleet_drain.arm(service.manager)
     if service.manager.device.type == "cuda" and os.environ.get("AIOS_TPU_DEVPROF_DUMP_DIR"):
         # /debug/profile captures on an HTTP thread: the profiler must first
         # initialize on this one (devprof.prepare_capture)

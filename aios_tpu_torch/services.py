@@ -3,8 +3,7 @@
 One `ServiceSpec` per proto service; `aios_tpu_torch.rpc` turns these into stub and
 servicer classes at import time. The method lists mirror the proto files in
 `aios_tpu/protos/` exactly (which in turn are wire-compatible with the
-reference's agent-core/proto). The fleet plane's aios.fleet.KvTransfer is not
-ported yet.
+reference's agent-core/proto).
 
 Default port assignments follow the reference truth table (SURVEY.md section 1):
 orchestrator 50051, tools 50052, memory 50053, api-gateway 50054, runtime 50055,
@@ -19,6 +18,7 @@ from .proto_gen import (
     agent_pb2,
     api_gateway_pb2,
     common_pb2,
+    fleet_pb2,
     memory_pb2,
     orchestrator_pb2,
     runtime_pb2,
@@ -208,6 +208,29 @@ MEMORY = ServiceSpec(
     },
 )
 
+# ---------------------------------------------------------------------------
+# aios.fleet.KvTransfer — the fleet data plane (aios_tpu_torch/fleet/): cross-host
+# HostPageStore transfer (pull-on-miss Fetch, push-on-prefill Push) and the
+# disaggregated prefill->decode Handoff stream. No reference counterpart.
+# ---------------------------------------------------------------------------
+
+KVTRANSFER = ServiceSpec(
+    "aios.fleet.KvTransfer",
+    {
+        "Fetch": Method(
+            fleet_pb2.FetchRequest, fleet_pb2.PageChunk,
+            server_streaming=True,
+        ),
+        "Push": Method(
+            fleet_pb2.PageChunk, fleet_pb2.PushAck, client_streaming=True,
+        ),
+        "Handoff": Method(
+            fleet_pb2.HandoffRequest, fleet_pb2.HandoffChunk,
+            server_streaming=True,
+        ),
+    },
+)
+
 ALL_SPECS = {
     "runtime": RUNTIME,
     "orchestrator": ORCHESTRATOR,
@@ -215,6 +238,7 @@ ALL_SPECS = {
     "tools": TOOLS,
     "gateway": GATEWAY,
     "memory": MEMORY,
+    "kvtransfer": KVTRANSFER,
 }
 
 # Stub / servicer classes (equivalent surface to grpcio-tools output).
@@ -230,3 +254,5 @@ ApiGatewayStub = make_stub(GATEWAY)
 ApiGatewayServicer = make_servicer(GATEWAY)
 MemoryServiceStub = make_stub(MEMORY)
 MemoryServiceServicer = make_servicer(MEMORY)
+KvTransferStub = make_stub(KVTRANSFER)
+KvTransferServicer = make_servicer(KVTRANSFER)

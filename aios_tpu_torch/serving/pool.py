@@ -648,3 +648,17 @@ class ReplicaPool:
             for cause, n in self._shed.items():
                 out[f"shed_{cause}"] = n
         return out
+
+    def heartbeat_stats(self) -> Dict[str, float]:
+        """The compact per-pool slice a fleet heartbeat carries
+        (obs/fleet.py): enough for peers to rank hosts by load and spot
+        degraded pools, small enough to ride every announce."""
+        s = self.stats()
+        return {
+            k: s[k]
+            for k in ("replicas", "replica_restarts", "degrade_level",
+                      "batch_occupancy", "waiting", "completed",
+                      "num_slots", "mega_dispatches", "mega_ticks",
+                      "mega_k")
+            if k in s
+        }

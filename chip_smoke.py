@@ -319,6 +319,27 @@ Phases, each printing its lines:
      within ``RESUME_TOL`` of the straight run's); the trained weights
      prepared as int8 and served 2 requests. Every write and read is timed
      and deleted at the end. Its served windows add to the kernels line.
+  21. the fleet plane (``phase_fleet``, after the files) — three
+     ``python -m aios_tpu_torch.fleet.worker`` processes on the card, each
+     serving TinyLlama-1.1B at full width (int8 weights, bf16 pool of 16384
+     rows): prefill host A, decode hosts B and C (1 GiB host tiers; C also
+     serves a second copy of the model). A serves a 1536-token greedy
+     request alone (``route_total{no_peer}`` 1); then B and C join and the
+     same request is prefilled on A, its KV chain pushed over
+     ``aios.fleet.KvTransfer`` and the stream handed to B, which the seeded
+     ``fleet.host_kill`` point kills (exit 17) at its third token; A
+     re-hands it to C, which restores the chain from its host tier and
+     decodes to the end: the stream equals the reference token for token,
+     with exactly one ``handoff``, one ``handoff_resume``, no
+     ``fallback_local``, and each push the whole chain. Then C's prefix
+     digest gossiped to A, ``/metrics/fleet`` (A and C), one trace stitched
+     across A and C, and C's graceful drain: a stream in flight ends whole,
+     new requests are shed with ``draining`` (the pool being drained) and
+     ``draining_host`` (the pool not reached yet), C exits 0 and A sees it
+     leave. A's TTFT, each push's ms and GB/s over loopback gRPC with its
+     crc32 share, the longest inter-token gap across the kill and resume,
+     C's decode rate and each child's LoadModel seconds and peak memory
+     are printed; the children's launches add to the kernels line.
 
 Every served decode and admission dispatch is a CUDA graph replay: each
 served window also holds that ``LoadModel`` captured the planned graphs
@@ -8006,6 +8027,546 @@ def phase_files(card: str) -> dict:
     return totals
 
 
+# -- phase 21: the fleet plane, three port processes on one card -----------------
+
+FLEET_MODEL = "tinyllama-fleet"
+FLEET_SOURCE = "synthetic://tinyllama-1.1b"
+FLEET_CONTEXT = 4096
+FLEET_PROMPT_TOKENS = 1536  # 12 pages of 128 rows, the chat template included
+FLEET_TOKENS = 64
+FLEET_SHORT_TOKENS = 300  # a prompt C admits whole, through K2
+FLEET_DRAIN_TOKENS = 1024  # the stream in flight on C while it drains
+FLEET_POOL_ROWS = 16384  # each process's paged_kv, as the host-tier phase sets it
+FLEET_HOST_BYTES = 1 << 30  # AIOS_TPU_PREFIX_HOST_BYTES of the decode hosts
+FLEET_KILL = "seed=1;fleet.host_kill=nth:3,exit=1"  # B dies at its 3rd relayed token
+FLEET_RELAYED_BY_B = 2  # tokens B relays before the kill fires
+FLEET_WINDOWS = {"AIOS_TPU_FLEET_INTERVAL_SECS": "0.3", "AIOS_TPU_FLEET_SUSPECT_SECS": "1.5",
+                 "AIOS_TPU_FLEET_DEAD_SECS": "3.0", "AIOS_TPU_FLEET_DRAIN_TIMEOUT_SECS": "60"}
+FLEET_WAIT_S = 60.0  # the most any one wait of the round may take
+KILL_EXIT_STATUS = 17  # fleet.disagg.KILL_EXIT_STATUS
+FLEET_SECOND = "tinyllama-fleet-2"  # C's second model, the same weights
+
+
+class FleetChild:
+    """One ``python -m aios_tpu_torch.fleet.worker`` process of the fleet
+    round: its stdout lines are read on a thread so that every wait on them
+    is bounded, its stderr goes to ``<log_dir>/<host>.log``."""
+
+    def __init__(self, host: str, role: str, worker_args, log_dir: str, peers: str = "",
+                 faults: str = "", env=None) -> None:
+        import queue
+
+        self.host = host
+        self.err_path = os.path.join(log_dir, f"{host}.log")
+        full = {**os.environ, **FLEET_WINDOWS, **(env or {}),
+                "AIOS_TPU_FLEET": "1", "AIOS_TPU_FLEET_HOST": host,
+                "AIOS_TPU_FLEET_ROLE": role, "AIOS_TPU_FLEET_PEERS": peers,
+                "OMP_NUM_THREADS": "1"}
+        full.pop("AIOS_TPU_FAULTS", None)
+        if faults:
+            full["AIOS_TPU_FAULTS"] = faults
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "aios_tpu_torch.fleet.worker", *worker_args],
+                cwd=here, env=full, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=err, text=True)
+        self.lines = queue.Queue()
+        self.exit_report = None
+        threading.Thread(target=self._read, name=f"fleet-{host}-stdout",
+                         daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def tail(self, n: int = 30) -> str:
+        try:
+            with open(self.err_path) as f:
+                return "".join(f.readlines()[-n:])
+        except OSError:
+            return ""
+
+    def line(self, prefix: str, timeout: float = FLEET_WAIT_S) -> dict:
+        """The JSON of this child's next stdout line that starts with
+        ``prefix``, within ``timeout`` seconds."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                expect(False, f"[fleet] {self.host}: no {prefix.strip()} line within "
+                       f"{timeout:.0f} s (exit {self.proc.poll()}); stderr ends:\n"
+                       f"{self.tail()}")
+            try:
+                line = self.lines.get(timeout=left)
+            except queue.Empty:
+                continue
+            if line is None:
+                self.lines.put(None)  # the end stays visible to a later wait
+                expect(False, f"[fleet] {self.host} exited {self.wait()} before its "
+                       f"{prefix.strip()} line; stderr ends:\n{self.tail()}")
+            if line.startswith(prefix):
+                out = json.loads(line[len(prefix):])
+                if prefix.startswith("FLEET_WORKER_EXIT"):
+                    self.exit_report = out
+                return out
+
+    def send(self, obj: dict) -> None:
+        self.proc.stdin.write(json.dumps(obj) + "\n")
+        self.proc.stdin.flush()
+
+    def wait(self, timeout: float = FLEET_WAIT_S) -> int:
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            expect(False, f"[fleet] {self.host} still running after {timeout:.0f} s; "
+                   f"stderr ends:\n{self.tail()}")
+
+    def stop(self, timeout: float = 30.0) -> None:
+        """Close stdin (the worker's shutdown signal), then kill past
+        ``timeout``; reaps the process either way."""
+        try:
+            if self.proc.stdin and not self.proc.stdin.closed:
+                self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _fleet_get(port: int, path: str, text: bool = False):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        body = r.read().decode("utf-8")
+    return body if text else json.loads(body)
+
+
+def _fleet_poll(fn, what: str, timeout: float = FLEET_WAIT_S):
+    """Call ``fn()``, which returns (done, what it saw), until done, within
+    ``timeout`` seconds; returns what it saw, or fails naming ``what`` and
+    the last thing seen."""
+    deadline = time.monotonic() + timeout
+    seen = None
+    while time.monotonic() < deadline:
+        done, seen = fn()
+        if done:
+            return seen
+        time.sleep(0.1)
+    expect(False, f"[fleet] {what}: not within {timeout:.0f} s; last seen {seen!r}"[:2000])
+
+
+def _sample(metrics_text: str, name: str, **labels) -> float:
+    """One sample's value from a text exposition (0.0 when absent: a
+    pre-registered child renders 0)."""
+    import re
+
+    want = {k: str(v) for k, v in labels.items()}
+    for line in metrics_text.splitlines():
+        m = re.match(rf"^{re.escape(name)}\{{([^}}]*)\}} (\S+)$", line)
+        if m and dict(re.findall(r'(\w+)="([^"]*)"', m.group(1))) == want:
+            return float(m.group(2))
+    return 0.0
+
+
+def _fleet_prompt(source: str, tokens: int, salt: str) -> str:
+    """A prompt whose chat-rendered bytes, BOS included, are ``tokens`` ids
+    of the synthetic models' byte tokenizer."""
+    from aios_tpu_torch.engine.tokenizer import ByteTokenizer, render_chat
+    from aios_tpu_torch.runtime.model_manager import resolve_preset
+
+    family = resolve_preset(source.removeprefix("synthetic://")).name
+    head = len(ByteTokenizer().encode(render_chat(family, "")))
+    text = (f"{salt}: the prefill host computes the prompt pages once, pushes the chain "
+            f"over the wire, and a decode host carries the tokens home. " * 64)
+    text = text[:tokens - head]
+    expect(len(ByteTokenizer().encode(render_chat(family, text))) == tokens,
+           f"[fleet] prompt of {tokens} tokens")
+    return text
+
+
+def _health(stub, name: str) -> dict:
+    """HealthCheck's ``<name>.serving`` pool stats as numbers."""
+    from aios_tpu_torch.proto_gen import common_pb2
+
+    value = stub.HealthCheck(common_pb2.Empty(), timeout=30).details[f"{name}.serving"]
+    return {k: float(v) for k, v in (kv.split("=") for kv in value.split(",") if kv)}
+
+
+def fleet_round(tmp: str, device=None, source: str = FLEET_SOURCE,
+                context: int = FLEET_CONTEXT, prompt_tokens: int = FLEET_PROMPT_TOKENS,
+                max_tokens: int = FLEET_TOKENS, short_tokens: int = FLEET_SHORT_TOKENS,
+                drain_tokens: int = FLEET_DRAIN_TOKENS, worker_args=()) -> dict:
+    """The disaggregation round on three worker processes: prefill host A and
+    decode hosts B and C load at once (B and C held until A has served);
+    A serves the reference request alone (``no_peer``), then the same
+    request hands off to B, which the seeded ``fleet.host_kill`` point
+    kills at its third relayed token, and A re-hands it to C, with exact
+    route counts and whole pushes; the stream must be whole and start with
+    the reference's first token (the caller holds the rest of it to the
+    reference: ``first_difference``). Then C's gossiped prefix digest,
+    federation and one trace stitched across A and C, and C's graceful
+    drain: its stream in flight ends whole while new requests are shed,
+    with ``draining`` by the pool being drained and ``draining_host`` by
+    the one it has not reached. Every child is reaped, also on a failure.
+    Returns what the round measured and the children's exit reports."""
+    import grpc
+
+    from aios_tpu_torch import rpc, services
+    from aios_tpu_torch.obs import tracing
+    from aios_tpu_torch.proto_gen import runtime_pb2
+
+    name = FLEET_MODEL
+    common = ["--name", name, "--source", source, "--context", str(context), "--record",
+              *(["--device", device] if device else []), *worker_args]
+    decode_env = {"AIOS_TPU_PREFIX_HOST_BYTES": str(FLEET_HOST_BYTES)}
+    t0 = time.perf_counter()
+    kids = {"hostA": FleetChild("hostA", "prefill", common, tmp)}
+    kids["hostB"] = FleetChild("hostB", "decode", [*common, "--hold"], tmp,
+                               faults=FLEET_KILL, env=decode_env)
+    # C serves a second model, loaded after the first, so that its drain,
+    # held on the first pool by a stream in flight, has a pool still open
+    kids["hostC"] = FleetChild("hostC", "decode", [*common, "--name", FLEET_SECOND, "--hold"],
+                               tmp, env=decode_env)
+    channels = []
+
+    def stub_of(port: int):
+        ch = rpc.insecure_channel(f"127.0.0.1:{port}")
+        channels.append(ch)
+        return services.AIRuntimeStub(ch)
+
+    def infer(stub, prompt: str, tokens: int, rid: str):
+        return stub.Infer(runtime_pb2.InferRequest(
+            model=name, prompt=prompt, max_tokens=tokens, temperature=GREEDY, task_id=rid),
+            timeout=FLEET_WAIT_S)
+
+    out = {"hosts": {}}
+    try:
+        ready_a = kids["hostA"].line("FLEET_WORKER_READY ")
+        a = stub_of(ready_a["grpc_port"])
+        ma = ready_a["metrics_port"]
+        prompt = _fleet_prompt(source, prompt_tokens, "fleet")
+        # 1. the single-host reference: no decode peer is up yet
+        infer(a, prompt, max_tokens, "fleet-ref")
+        routes = {r: _sample(_fleet_get(ma, "/metrics", text=True), "aios_tpu_fleet_route_total",
+                             model=name, reason=r)
+                  for r in ("no_peer", "handoff")}
+        expect(routes == {"no_peer": 1.0, "handoff": 0.0},
+               f"[fleet] A's routes after the reference: {routes}")
+        # 2. B and C join, seeded with A's endpoint
+        loaded = {h: kids[h].line("FLEET_WORKER_LOADED ") for h in ("hostB", "hostC")}
+        for h in ("hostB", "hostC"):
+            kids[h].send({"AIOS_TPU_FLEET_PEERS": f"127.0.0.1:{ma}"})
+        ready = {h: kids[h].line("FLEET_WORKER_READY ") for h in ("hostB", "hostC")}
+        ready["hostA"] = ready_a
+        for h in ("hostB", "hostC"):
+            ready[h]["load_s"] = loaded[h]["load_s"]
+        out["ready"] = ready
+        out["startup_s"] = time.perf_counter() - t0
+
+        def decoders_up():
+            rows = _fleet_get(ma, "/fleet/members")["members"]
+            up = {r["host"] for r in rows if r["state"] == "up" and r.get("role") == "decode"
+                  and r.get("kvx_addr")}
+            return {"hostB", "hostC"} <= up, sorted((r["host"], r["state"]) for r in rows)
+
+        _fleet_poll(decoders_up, "B and C up with a kvx_addr in A's /fleet/members")
+        # 3. the same request, disaggregated: A -> B (killed) -> C
+        infer(a, prompt, max_tokens, "fleet-disagg")
+        out["b_status"] = kids["hostB"].wait()
+        expect(out["b_status"] == KILL_EXIT_STATUS,
+               f"[fleet] B exited {out['b_status']}, not {KILL_EXIT_STATUS}; stderr ends:\n"
+               f"{kids['hostB'].tail()}")
+        text = _fleet_get(ma, "/metrics", text=True)
+        out["routes"] = {r: _sample(text, "aios_tpu_fleet_route_total", model=name, reason=r)
+                         for r in ("no_peer", "handoff", "handoff_resume", "fallback_local",
+                                   "local", "remote_pull")}
+        expect(out["routes"] == {"no_peer": 1.0, "handoff": 1.0, "handoff_resume": 1.0,
+                                 "fallback_local": 0.0, "local": 0.0, "remote_pull": 0.0},
+               f"[fleet] A's routes: {out['routes']}")
+        out["pushed_pages"] = _sample(text, "aios_tpu_fleet_kvx_pages_total", model=name,
+                                      direction="push")
+        out["kvx_failures"] = {c: _sample(text, "aios_tpu_fleet_kvx_failures_total",
+                                          model=name, cause=c)
+                               for c in ("unavailable", "timeout", "crc_mismatch",
+                                         "decode_error", "empty", "breaker_open")}
+        c = stub_of(ready["hostC"]["grpc_port"])
+        mc = ready["hostC"]["metrics_port"]
+        out["c_serving"] = _health(c, name)
+        # 4. C advertises the chain it restored
+        def c_digest():
+            rows = _fleet_get(ma, "/fleet/members")["members"]
+            row = next((r for r in rows if r["host"] == "hostC"), {})
+            tails = ((row.get("gprefix") or {}).get(name) or {}).get("tails") or {}
+            return len(tails) > 0, len(tails)
+
+        out["c_digest_tails"] = _fleet_poll(c_digest, "C's prefix digest on A")
+        # 5. one trace across A and C, and the federation of the live members
+        short = _fleet_prompt(source, short_tokens, "stitch")
+        with tracing.start_span("fleet.client") as span:
+            # one token on A: its first, so that nothing is handed off
+            infer(a, short, 1, "fleet-trace-a")
+            infer(c, short, 8, "fleet-trace-c")
+        trace = span.trace_id
+
+        def stitched():
+            got = _fleet_get(ma, f"/debug/trace/fleet?trace={trace}")
+            names = {e["args"]["name"].split(" ")[0] for e in got.get("traceEvents", [])
+                     if e.get("name") == "process_name"}
+            return {"host:hostA", "host:hostC"} <= names, sorted(names)
+
+        out["stitched_lanes"] = _fleet_poll(stitched, f"trace {trace} stitched on A")
+        # each scraped member's own process-info sample carries its host
+        fed = _fleet_get(ma, "/metrics/fleet", text=True)
+        out["federated_hosts"] = sorted({h for h in ("hostA", "hostB", "hostC")
+                                         if f'aios_tpu_process_info{{host="{h}"' in fed})
+        expect(out["federated_hosts"] == ["hostA", "hostC"],
+               f"[fleet] /metrics/fleet on A carries hosts {out['federated_hosts']}")
+        # 6. C drains: its stream in flight ends whole, a new request is shed
+        inflight = {}
+
+        def long_request():
+            try:
+                inflight["resp"] = infer(c, short, drain_tokens, "fleet-inflight")
+            except grpc.RpcError as e:
+                inflight["error"] = f"{e.code()}: {e.details()}"
+
+        th = threading.Thread(target=long_request, name="fleet-inflight", daemon=True)
+        th.start()
+        def c_busy():
+            active = _health(c, name).get("active_slots", 0)
+            return active >= 1, active
+
+        _fleet_poll(c_busy, "the stream in flight active on C")
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{mc}/fleet/drain", data=b"",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            out["drain_reply"] = (r.status, json.loads(r.read().decode("utf-8")))
+        expect(out["drain_reply"][0] == 202 and out["drain_reply"][1]["phase"] == "draining",
+               f"[fleet] POST /fleet/drain on C: {out['drain_reply']}")
+        # the host sheds: the pool the drain is waiting on with its own
+        # cause, the pool it has not reached yet with the host's
+        out["shed"] = {}
+        for model in (name, FLEET_SECOND):
+            try:
+                c.Infer(runtime_pb2.InferRequest(model=model, prompt=short, max_tokens=4,
+                                                 temperature=GREEDY), timeout=60)
+                out["shed"][model] = "served"
+            except grpc.RpcError as e:
+                out["shed"][model] = f"{e.code().name}: {e.details()}"
+        expect(out["shed"] == {
+            name: out["shed"][name], FLEET_SECOND: out["shed"][FLEET_SECOND]}
+            and out["shed"][name].startswith("RESOURCE_EXHAUSTED: request shed (draining)")
+            and out["shed"][FLEET_SECOND].startswith(
+                "RESOURCE_EXHAUSTED: request shed (draining_host)"),
+               f"[fleet] new requests to a draining C: {out['shed']}")
+        th.join(timeout=FLEET_WAIT_S)
+        expect(not th.is_alive() and "resp" in inflight,
+               f"[fleet] the stream in flight on C during the drain: {inflight or 'running'}")
+        out["inflight_tokens"] = inflight["resp"].tokens_used - short_tokens
+        kids["hostC"].line("FLEET_WORKER_EXIT ")
+        out["c_status"] = kids["hostC"].wait()
+        expect(out["c_status"] == 0, f"[fleet] C exited {out['c_status']} after its drain")
+
+        def c_left():
+            rows = _fleet_get(ma, "/fleet/members")["members"]
+            row = next((r for r in rows if r["host"] == "hostC"), {})
+            return row.get("phase") == "leaving", row.get("phase")
+
+        _fleet_poll(c_left, "C's last phase (leaving) on A")
+        # 7. A's report: its streams, pushes and launches
+        kids["hostA"].stop()
+        kids["hostA"].line("FLEET_WORKER_EXIT ", timeout=5)
+        out["a_status"] = kids["hostA"].proc.returncode
+        expect(out["a_status"] == 0, f"[fleet] A exited {out['a_status']}")
+    finally:
+        for ch in channels:
+            ch.close()
+        for kid in kids.values():
+            kid.stop()
+    out["hosts"] = {h: k.exit_report for h, k in kids.items()}
+    streams = {s["request_id"]: s for s in out["hosts"]["hostA"]["streams"]}
+    ref, dis = streams["fleet-ref"], streams["fleet-disagg"]
+    expect(not ref["handoff"] and dis["handoff"],
+           f"[fleet] A served the reference locally and handed the second off: "
+           f"{ref['handoff']}, {dis['handoff']}")
+    out["ref"], out["disagg"] = ref, dis
+    diff = next((i for i, (x, y) in enumerate(zip(ref["ids"], dis["ids"])) if x != y), None)
+    out["first_difference"] = diff
+    # the share of the stream before the first difference (``_agreement``'s)
+    out["agreement"] = (len(ref["ids"]) if diff is None else diff) / max(len(ref["ids"]), 1)
+    out["prompt"] = prompt
+    # whole and from A's own first token: what the caller's identity gate
+    # (or, on the card, its near-tie rule) starts from
+    expect(len(ref["ids"]) == len(dis["ids"]) == max_tokens and diff != 0,
+           f"[fleet] the disaggregated stream: {len(dis['ids'])} tokens against "
+           f"{len(ref['ids'])} of the reference ({max_tokens} asked), first difference at "
+           f"{diff}")
+    pushes = out["hosts"]["hostA"]["pushes"]
+    out["pushes"] = pushes
+    page = out["ready"]["hostA"]["page"]
+    chain = (prompt_tokens - 1) // page
+    out["chain_pages"] = chain
+    expect([(p["peer"], p["pages"], p["accepted"]) for p in pushes]
+           == [("hostB", chain, chain), ("hostC", chain, chain)]
+           and out["pushed_pages"] == 2 * chain,
+           f"[fleet] A's pushes {[(p['peer'], p['pages'], p['accepted']) for p in pushes]}, "
+           f"kvx_pages_total push {out['pushed_pages']}, chain {chain} pages")
+    expect(out["c_serving"].get("prefix_rows_restored", 0) == chain * page,
+           f"[fleet] C restored {out['c_serving'].get('prefix_rows_restored')} rows of the "
+           f"{chain * page}-row chain")
+    return out
+
+
+FLEET_NEAR_TIE = 1e-2  # of max|logit|: the top-2 margin an expected difference may have
+
+
+def _fleet_divergence(out: dict, resume_at: int) -> dict:
+    """Where the disaggregated stream parts from the reference, the logits of
+    both paths at that token, rebuilt in this process on the workers'
+    configuration (the same seeded weights, pool and graphs): the reference
+    is a cold chunked admission of the prompt and greedy decode steps; the
+    resume is an admission of the prompt and the first ``resume_at``
+    tokens over the reference's cached chain (as C's restore maps it: the
+    same page bytes, the tail through the chunk path) and greedy decode
+    steps. Both paths must reproduce the workers' tokens up to the first
+    difference. Returns each path's top-2 margin there, the largest
+    |logit| and the two logit rows' largest difference."""
+    from aios_tpu_torch.engine.tokenizer import ByteTokenizer, render_chat
+    from aios_tpu_torch.runtime.model_manager import ModelManager, resolve_preset
+
+    ref, dis = out["ref"]["ids"], out["disagg"]["ids"]
+    diff = out["first_difference"]
+    family = resolve_preset(FLEET_SOURCE.removeprefix("synthetic://")).name
+    ids = ByteTokenizer().encode(render_chat(family, out["prompt"]))
+    manager = ModelManager(num_slots=8, quantize="int8", kv_cache="bf16",
+                           paged_kv=FLEET_POOL_ROWS)
+    try:
+        eng = manager.load_model(FLEET_MODEL, FLEET_SOURCE,
+                                 context_length=FLEET_CONTEXT).engine
+        eng.prefix_index.clear()
+
+        def greedy(slot, prompt, n):
+            pc = eng.start_chunked_prefill(slot, prompt, temperature=0.0,
+                                           chunk=eng.prefill_chunk_default)
+            start = pc.pos  # the rows a prefix hit matched
+            while pc.step() is None:
+                pass
+            toks, logits = [pc.first_token], [pc.first_logits.float().reshape(-1).clone()]
+            for _ in range(n - 1):
+                toks.append(int(eng.step(1)[0, slot]))
+                logits.append(eng.last_logits[slot].float().clone())
+            eng.release(slot)
+            return toks, logits, start
+
+        r_toks, r_logits, r_start = greedy(0, ids, diff + 1)
+        c_toks, c_logits, c_start = greedy(1, ids + ref[:resume_at], diff + 1 - resume_at)
+    finally:
+        manager.close()
+        torch.cuda.empty_cache()
+    expect(r_start == 0 and c_start == (len(ids) - 1) // 128 * 128,
+           f"[fleet] the rebuilt paths start at rows {r_start} and {c_start}")
+    expect(r_toks == ref[:diff + 1] and c_toks == dis[resume_at:diff + 1],
+           f"[fleet] the rebuilt paths do not reproduce the workers' tokens up to {diff}: "
+           f"{r_toks} / {ref[:diff + 1]}, {c_toks} / {dis[resume_at:diff + 1]}")
+    lr, lc = r_logits[diff], c_logits[diff - resume_at]
+
+    def margin(row):
+        top = torch.topk(row, 2).values
+        return float(top[0] - top[1])
+
+    return {"ref_margin": margin(lr), "resume_margin": margin(lc),
+            "max_abs_logit": float(torch.maximum(lr.abs().max(), lc.abs().max())),
+            "logit_diff": float((lr - lc).abs().max()), "at": diff,
+            "rows_from": c_start}
+
+
+def phase_fleet(card: str) -> dict:
+    """Phase 21: the fleet plane on the card (``fleet_round``): three worker
+    processes serving TinyLlama-1.1B at full width (int8 weights, bf16 pool
+    of 16384 rows each), the handoff, the kill and the resume, gossip,
+    federation, stitching and the drain. Returns the children's launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="aios-fleet-")
+    try:
+        out = fleet_round(tmp, worker_args=["--quantize", "int8", "--kv-cache", "bf16",
+                                            "--paged-kv", str(FLEET_POOL_ROWS),
+                                            "--num-slots", "8"])
+    except PhaseError:
+        for h in ("hostA", "hostB", "hostC"):
+            path = os.path.join(tmp, f"{h}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f"[fleet] {h} stderr ends:\n" + "".join(f.readlines()[-20:]))
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = out["first_difference"]
+    if diff is not None:
+        # the rule for an expected difference: a bf16 near-tie at the first
+        # differing token, on the resume path against the reference's
+        near = _fleet_divergence(out, 1 + FLEET_RELAYED_BY_B)
+        out["near_tie"] = near
+        tie = max(near["ref_margin"], near["resume_margin"])
+        log(f"[fleet] the disaggregated stream parts from the reference at token {diff}: "
+            f"top-2 margin {near['ref_margin']:.4f} on the reference's path, "
+            f"{near['resume_margin']:.4f} on the resume's (rows from {near['rows_from']} "
+            f"through the chunk path), max|logit| {near['max_abs_logit']:.3f}, the two rows "
+            f"{near['logit_diff']:.4f} apart; {card}")
+        expect(tie < FLEET_NEAR_TIE * near["max_abs_logit"],
+               f"[fleet] the difference at token {diff} is no bf16 near-tie: margins "
+               f"{near['ref_margin']:.4f} / {near['resume_margin']:.4f} against "
+               f"{FLEET_NEAR_TIE} x {near['max_abs_logit']:.3f}")
+    launches = {}
+    for h, rep in out["hosts"].items():
+        for k, v in ((rep or {}).get("launches") or {}).items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("quantized_matmul", "flash_attention", "paged_decode_attention",
+              "multiquery_decode_attention"):
+        expect(launches.get(k, 0) > 0, f"[fleet] kernel {k} launched no time in the children")
+    for h, r in sorted(out["ready"].items()):
+        rep = out["hosts"].get(h) or {}
+        log(f"[fleet] {h}: LoadModel {r['load_s']:.2f} s, {r['pages']} pages, peak "
+            f"{r.get('peak_bytes', 0) / 2**30:.2f} GiB at ready, "
+            f"{rep.get('peak_bytes', 0) / 2**30:.2f} GiB at exit, launches "
+            f"{rep.get('launches', 'none (killed)')}")
+    ref, dis = out["ref"], out["disagg"]
+    gaps = [b - a for a, b in zip(dis["t"], dis["t"][1:])]
+    k = 1 + FLEET_RELAYED_BY_B  # the first token C relays
+    c_rate = (len(dis["t"]) - k - 1) / (dis["t"][-1] - dis["t"][k])
+    for p in out["pushes"]:
+        log(f"[fleet] push to {p['peer']}: {p['pages']} pages, {p['bytes']} B in "
+            f"{p['seconds'] * 1e3:.2f} ms = {p['bytes'] / p['seconds'] / 1e9:.3f} GB/s over "
+            f"loopback gRPC; crc32 of the same pages {p['crc_seconds'] * 1e3:.2f} ms "
+            f"({p['crc_seconds'] / p['seconds']:.1%} of the push)")
+    log(f"[fleet] A's TTFT at its front door: {ref['t'][0] * 1e3:.2f} ms cold (chunked "
+        f"reference), {dis['t'][0] * 1e3:.2f} ms on the prefix hit before the handoff; "
+        f"longest inter-token gap {max(gaps) * 1e3:.2f} ms at token {gaps.index(max(gaps)) + 1} "
+        f"(B killed after relaying {FLEET_RELAYED_BY_B}); C's decode {c_rate:.1f} tok/s relayed "
+        f"through A; agreement {out['agreement']:.3f} ({len(dis['ids'])} tokens, "
+        f"{'identical' if diff is None else f'first difference at {diff}, a near-tie'})")
+    log(f"[fleet] routes {out['routes']}, B exit {out['b_status']}, pushed pages "
+        f"{out['pushed_pages']} (2 x the {out['chain_pages']}-page chain), kvx failures "
+        f"{out['kvx_failures']}, C restored {out['c_serving'].get('prefix_rows_restored')} rows, "
+        f"C's digest {out['c_digest_tails']} tails, stitched lanes {out['stitched_lanes']}, "
+        f"/metrics/fleet hosts {out['federated_hosts']}, drain {out['drain_reply']}, shed "
+        f"{out['shed']!r}, in-flight stream {out['inflight_tokens']} tokens whole, C exit "
+        f"{out['c_status']}; startup {out['startup_s']:.1f} s; {card}")
+    log(f"[fleet] phase 21 done in {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def _serve_phases(card: str, phases, **manager_kw) -> dict:
     """A ModelManager and its gRPC server on 127.0.0.1 for ``phases``; both
     stop, and the models unload, before this returns."""
@@ -8030,14 +8591,15 @@ def _serve_phases(card: str, phases, **manager_kw) -> dict:
 
 # Each phase's faulthandler budget on the host's clock, in seconds: about
 # 1.6 times the most it took in four full runs on an H100 at 700 W, whose
-# totals were 988.7-1128.3 s. A budget is cut to what is left of
+# totals were 988.7-1128.3 s (the fleet phase: 1.6 times the 24.8 s of the
+# slowest of the three runs that held it). A budget is cut to what is left of
 # RUN_BUDGET_S since main() began, so that a hang anywhere ends the run with
 # every thread's stack and exit 1 before the 1200 s limit.
 PHASE_BUDGETS_S = {
     "device": 60, "build": 120, "kernels": 90, "tinyllama": 120, "mistral": 160,
     "tinyllama dense": 120, "mistral dense": 190, "gguf": 140, "constrained": 200,
     "serving": 70, "spec paged": 90, "host tier": 60, "decode loop": 120, "moe": 210,
-    "stack": 120, "storm": 150, "files": 80,
+    "stack": 120, "storm": 150, "files": 80, "fleet": 40,
 }
 RUN_BUDGET_S = 1185
 LOCK_WATCHDOG_S = 30  # a lock held longer than this fails a lock-debug phase
@@ -8134,6 +8696,7 @@ def main() -> int:
     stack = timed("stack", _lock_debug, "stack", phase_stack, card)
     storm = timed("storm", _lock_debug, "storm", phase_storm, card)
     files = timed("files", phase_files, card)
+    fleet = timed("fleet", phase_fleet, card)
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -8143,7 +8706,8 @@ def main() -> int:
         n = (tiny.get(name, 0) + mistral.get(name, 0) + gguf.get(name, 0)
              + constrained.get(name, 0) + serving.get(name, 0) + spec_paged.get(name, 0)
              + host.get(name, 0) + loop.get(name, 0) + moe.get(name, 0)
-             + stack.get(name, 0) + storm.get(name, 0) + files.get(name, 0))
+             + stack.get(name, 0) + storm.get(name, 0) + files.get(name, 0)
+             + fleet.get(name, 0))
         expect(n > 0, f"kernel {name} launched no time while serving")
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -8159,7 +8723,7 @@ def main() -> int:
             f"the host tier, {loop.get(name, 0)} in the decode loop's modes, "
             f"{moe.get(name, 0)} Qwen3-30B-A3B, {stack.get(name, 0)} under the service "
             f"plane, {storm.get(name, 0)} in the storm phase, {files.get(name, 0)} from model "
-            f"files), "
+            f"files, {fleet.get(name, 0)} in the fleet's processes), "
             f"{r['measured_at']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
             f"{'' if r['library_ms'] is None else ' ms'}, "

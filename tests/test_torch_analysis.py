@@ -574,7 +574,7 @@ def test_every_waiver_in_the_port_states_a_reason():
 JAX_ROLES = ("engine", "engine_spill", "prefix_index", "host_store", "batcher",
              "batcher_queue", "json_masks", "pool", "router", "admission", "token_bucket",
              "recorder", "slo", "model_manager", "faults", "failover", "devprof",
-             "autoscale", "tsdb", "incidents")
+             "autoscale", "tsdb", "incidents", "fleet", "handoff", "quarantine", "drain")
 PORT_ROLES = ("engine_dp", "graph_capture", "profile_capture")
 
 
@@ -590,7 +590,7 @@ def test_the_registry_declares_the_jax_roles_and_the_ports_own():
             assert d.attr == j.attr and d.forbids == j.forbids
             assert d.class_name == ("TorchEngine" if j.class_name == "TPUEngine"
                                     else j.class_name)
-    assert not {"fleet", "handoff", "quarantine", "drain"} & set(names)
+    assert {"fleet", "handoff", "quarantine", "drain"} <= set(names)
     assert [d.name for d in LOCKS if d.module_level] == ["graph_capture", "profile_capture"]
 
 
@@ -750,15 +750,15 @@ def test_an_ab_ba_through_the_module_level_capture_lock_raises(saved_edges):
 
 
 def test_no_copy_lost_its_field_contracts():
-    """Every module of the JAX package (the fleet plane and the analyzer
-    aside) carries no more ``#: guarded_by`` pragmas than its counterpart in
-    the port: a copy that turned one into a plain comment leaves the
-    guarded-by rule blind to that field."""
+    """Every module of the JAX package (the analyzer aside) carries no more
+    ``#: guarded_by`` pragmas than its counterpart in the port: a copy that
+    turned one into a plain comment leaves the guarded-by rule blind to that
+    field."""
     jax_root, port_root = ROOT / "aios_tpu", ROOT / "aios_tpu_torch"
     checked = 0
     for path in sorted(jax_root.rglob("*.py")):
         rel = path.relative_to(jax_root).as_posix()
-        if rel.startswith(("fleet/", "analysis/")) or rel == "obs/fleet.py":
+        if rel.startswith("analysis/"):
             continue
         want = path.read_text().count("#: guarded_by")
         if not want:

@@ -42,17 +42,18 @@ DECODE_LOOP = {"AIOS_TPU_DECODE_PIPELINE": "1", "AIOS_TPU_UNIFIED_STEP": "1",
 # the SLO autoscaler's knobs, honoured since serving/autoscale.py was ported
 AUTOSCALE = {"AIOS_TPU_AUTOSCALE": "1", "AIOS_TPU_AUTOSCALE_MAX_REPLICAS": "2",
              "AIOS_TPU_AUTOSCALE_UP_BURN": "1.5", "AIOS_TPU_AUTOSCALE_COOLDOWN_SECS": "5"}
-# multi-card, sequence-parallel, multihost and fleet knobs: they wait for
-# the ports of parallel/ and of the fleet plane
+# the fleet plane's knobs, honoured since obs/fleet.py and fleet/ were ported
 FLEET = ["AIOS_TPU_FLEET"] + [f"AIOS_TPU_FLEET_{k}" for k in (
     "PEERS", "INTERVAL_SECS", "SUSPECT_SECS", "DEAD_SECS", "SEED_PORT", "SCRAPE_TIMEOUT",
     "TARGET", "KVX_CHUNK_BYTES", "KVX_TIMEOUT_SECS", "KVX_BUDGET_BYTES", "KVX_GBPS",
     "GPREFIX_MAX", "OVERLAP_GAIN", "HANDOFF_RETRIES", "BREAKER_THRESHOLD",
     "BREAKER_COOLDOWN_SECS", "BREAKER_MAX_COOLDOWN_SECS", "BREAKER_PROBES",
     "BREAKER_LAT_SECS", "DRAIN_TIMEOUT_SECS", "DRAIN_PUSH_BYTES")]
+# multi-card, sequence-parallel and multihost knobs: they wait for the port
+# of parallel/
 UNPORTED = ["AIOS_TPU_SEQ_PREFILL_MIN", "AIOS_TPU_MESH", "AIOS_TPU_SEQ_PREFILL_IMPL",
             "AIOS_TPU_SEQ_SHARD_KV", "AIOS_TPU_COORDINATOR", "AIOS_TPU_MULTIHOST",
-            "AIOS_TPU_NUM_PROCESSES", "AIOS_TPU_PROCESS_ID"] + FLEET
+            "AIOS_TPU_NUM_PROCESSES", "AIOS_TPU_PROCESS_ID"]
 # the Pallas and crossover gates, whose JAX paths the port has no twin for
 NOT_CARRIED = ["AIOS_TPU_NO_PALLAS", "AIOS_TPU_PALLAS_QMM", "AIOS_TPU_RAGGED_MIN_C",
                "AIOS_TPU_INT8_RAGGED"]
@@ -63,7 +64,7 @@ HONOURED = {"AIOS_TPU_PREFIX_HOST_BYTES": "1073741824", "AIOS_TPU_HOST_RESTORE_M
             "AIOS_TPU_JUMP_AHEAD": "1", "AIOS_TPU_KV_CACHE": "bf16",
             "AIOS_TPU_MAX_QUEUE": "4", "AIOS_TPU_DRAFT_MODEL": "tinyllama",
             "AIOS_TPU_MOE_IMPL": "gather", "AIOS_TPU_MOE_GATHER": "1", **DECODE_LOOP,
-            **AUTOSCALE}
+            **AUTOSCALE, **{k: "1" for k in FLEET}}
 
 
 @pytest.fixture
@@ -205,13 +206,39 @@ def test_every_config_knob_is_read_warned_or_not_carried():
 
 
 def test_fleet_knob_warns_once_on_a_cpu_manager(clean_env, caplog):
+    """Since the fleet plane was ported, AIOS_TPU_FLEET=1 draws no warning
+    from a CPU manager, and ``serve()`` arms the plane: the membership
+    registry, the handoff rung and the drain coordinator."""
+    from aios_tpu_torch.fleet import disagg, drain, kvx
+    from aios_tpu_torch.obs import fleet
+    from aios_tpu_torch.runtime.service import serve
+
     clean_env.setenv("AIOS_TPU_FLEET", "1")
+    clean_env.setenv("AIOS_TPU_FLEET_HOST", "knob-host")
     with caplog.at_level(logging.WARNING, logger=LOGGER):
-        ModelManager(num_slots=2, device="cpu")
-    got = [m for m in (r.getMessage() for r in caplog.records if r.name == LOGGER)
-           if "AIOS_TPU_FLEET" in m]
-    assert got == ["AIOS_TPU_FLEET is set but the PyTorch port does not honour it yet; "
-                   "serving without it"]
+        manager = ModelManager(num_slots=2, device="cpu")
+    assert [m for m in (r.getMessage() for r in caplog.records if r.name == LOGGER)
+            if "AIOS_TPU_FLEET" in m] == []
+    assert fleet.FLEET is None and disagg.PLANE is None and drain.COORD is None
+    server, service, _ = serve("127.0.0.1:0", manager, block=False, metrics_port=0)
+    try:
+        assert fleet.FLEET is not None and fleet.FLEET.identity["host"] == "knob-host"
+        assert fleet.FLEET.metrics_addr == f"127.0.0.1:{service.metrics_port}"
+        assert disagg.PLANE is not None and drain.COORD is not None
+        assert drain.phase() == "serving"
+    finally:
+        server.stop(grace=None)
+        service.metrics_server.shutdown()
+        service.metrics_server.server_close()
+        if fleet.FLEET is not None:
+            fleet.FLEET.stop()
+        fleet.install(None)
+        disagg.disarm()
+        drain.disarm()
+        fleet.clear_stats_providers()
+        fleet.clear_digest_providers()
+        fleet.set_transfer_addr("")
+        kvx.reset_channels()
 
 
 @pytest.mark.parametrize("knob", NOT_CARRIED)
